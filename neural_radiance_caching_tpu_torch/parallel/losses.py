@@ -1,0 +1,166 @@
+"""Losses for the cache stage (counterpart of the part of
+``parallel/losses.py`` the slice reaches): the Charbonnier data loss, the
+spline interlevel loss, distortion, the predicted-normal regularizers and
+gradient clipping. Loss types off the slice raise."""
+
+from __future__ import annotations
+
+import collections
+
+import numpy as np
+import torch
+
+from neural_radiance_caching_tpu_torch.ops import image, stepfun
+from neural_radiance_caching_tpu_torch.utils import torchutil
+
+
+def compute_weight_ease_in(train_frac, use_weight_schedule, start_frac, transition_frac,
+                           min_value=0.0):
+    """Linearly ease a weight in from min_value to 1 over training."""
+    if not use_weight_schedule:
+        return 1.0
+    if transition_frac > 0:
+        w = float(np.clip((train_frac - start_frac) / transition_frac, 0.0, 1.0))
+        return min_value * (1.0 - w) + w
+    return float(train_frac >= start_frac)
+
+
+def compute_weight_decay(train_frac, use_weight_schedule, start_frac, transition_frac,
+                         min_value=0.0):
+    if not use_weight_schedule:
+        return 1.0
+    w = float(np.clip((train_frac - start_frac) / transition_frac, 0.0, 1.0))
+    return min_value * w + (1.0 - w)
+
+
+def compute_loss_charb(rendering, gt, config):
+    return torch.sqrt((rendering["rgb"] - gt) ** 2 + config.charb_padding**2)
+
+
+def select_data_loss_fn(config, rendering, gt):
+    """Dispatch on config.data_loss_type (only the cache stage's charb is ported)."""
+    if config.data_loss_type != "charb":
+        raise NotImplementedError(f"data loss type {config.data_loss_type!r} is not ported yet")
+    return compute_loss_charb(rendering, gt, config)
+
+
+def compute_data_loss(batch, rendering, rays, config, main=False):
+    """RGB data loss + stats."""
+    stats = collections.defaultdict(list)
+    lm = rays.lossmult
+    while lm.dim() < batch.rgb[..., :3].dim():
+        lm = lm[..., None, :]
+    lossmult = torch.broadcast_to(lm, batch.rgb[..., :3].shape)
+
+    rendering = dict(rendering)
+    gt = batch.rgb[..., :3]
+    if config.convert_srgb:
+        rendering["rgb"] = image.linear_to_srgb(rendering["rgb"])
+        gt = image.linear_to_srgb(gt)
+
+    if batch.masks is not None:
+        masks = batch.masks
+        while masks.dim() < lossmult.dim():
+            masks = masks[..., None, :]
+    else:
+        masks = torch.ones_like(lossmult)
+    if config.mask_lossmult:
+        lossmult = lossmult * masks
+        lossmult = lossmult + lossmult * (1.0 - masks) * config.mask_lossmult_weight
+
+    if main and config.use_loss_clip:
+        clip = lambda x: torch.clamp(x, config.loss_clip_min, config.loss_clip)
+        rendering["rgb"] = clip(rendering["rgb"])
+        gt = clip(gt)
+
+    lossmult = torch.where(gt[..., :1] > config.loss_thresh, torch.zeros_like(lossmult), lossmult)
+    if config.clip_eval:
+        resid_sq = (torch.clamp(rendering["rgb"], 0.0, 1.0) - torch.clamp(gt, 0.0, 1.0)) ** 2
+    else:
+        resid_sq = (rendering["rgb"] - gt) ** 2
+    mse = (masks * lossmult * resid_sq).mean()
+
+    data_loss = select_data_loss_fn(config, rendering, gt)
+    sub_loss = (lossmult * data_loss).mean()
+    stats["mses"].append(mse * config.data_loss_mult)
+    return sub_loss, {k: torch.stack(v) for k, v in stats.items()}
+
+
+def spline_interlevel_loss(ray_history, *, mults, blurs, eps=1e-5):
+    """Blurred-envelope proposal loss."""
+    num_rounds = len(ray_history) - 1
+    if not isinstance(mults, tuple):
+        mults = (mults,) * num_rounds
+    c = ray_history[-1]["sdist"]
+    w = ray_history[-1]["weights"] * ray_history[-1]["lossmult"]
+    losses = []
+    for mult, blur, ray_results in zip(mults, blurs, ray_history[:-1]):
+        cp = ray_results["sdist"]
+        wp = ray_results["weights"] * ray_results["lossmult"]
+        w_blur = stepfun.blur_and_resample_weights(cp, c, w, blur).detach()
+        losses.append(mult * torch.mean(torch.clamp(w_blur - wp, min=0) ** 2 / (wp + eps)))
+    return losses
+
+
+def compute_interlevel_loss(ray_history, loss_mults, loss_blurs, config):
+    if not config.use_spline_interlevel_loss:
+        raise NotImplementedError("the non-spline interlevel loss is not ported yet")
+    return spline_interlevel_loss(ray_history, mults=tuple(loss_mults), blurs=loss_blurs)
+
+
+def distortion_loss(ray_history, *, target="sdist", mult=1.0, curve_fn=lambda x: x,
+                    normalize=False):
+    last = ray_history[-1]
+    c = curve_fn(last[target])
+    w = last["weights"] * last["lossmult"]
+    return mult * torch.mean(stepfun.lossfun_distortion(c, w, normalize))
+
+
+def compute_distortion_loss(ray_history, distortion_loss_mult, config):
+    if config.distortion_loss_curve_fn is None:
+        curve_fn = lambda x: x
+    else:
+        fn, kwargs = config.distortion_loss_curve_fn
+        curve_fn = lambda x: fn(x, **kwargs)
+    return distortion_loss(ray_history, target=config.distortion_loss_target,
+                           mult=distortion_loss_mult, curve_fn=curve_fn,
+                           normalize=config.normalize_distortion_loss)
+
+
+def predicted_normal_loss(ray_results, beta, config, *, mult, gt="normals",
+                          pred="normals_pred", stopgrad=False, stopgrad_weight=1.0):
+    """Ref-NeRF predicted normal supervision (0.0 when either normal is absent)."""
+    if ray_results.get(gt) is None or ray_results.get(pred) is None:
+        return 0.0
+    w = ray_results["weights"] * ray_results["lossmult"]
+    if config.predicted_normal_loss_normalize:
+        w = w / (torch.sum(w, dim=-1, keepdim=True) + 1e-8)
+    w = w.detach() if stopgrad else torchutil.stopgrad_with_weight(w, stopgrad_weight)
+    n = torch.nan_to_num(ray_results[gt]).detach()
+    n_pred = torch.nan_to_num(ray_results[pred])
+    loss = torch.mean(torch.abs(
+        (torch.abs(w * (1.0 - torch.sum(n * n_pred, dim=-1))) * beta[..., 0]).sum(
+            dim=-1, keepdim=True) + 1e-5))
+    return loss * mult
+
+
+def tree_norm(tensors):
+    return torch.sqrt(sum(torch.sum(torch.square(x)) for x in tensors))
+
+
+def clip_gradients(model, config):
+    """Per-top-level-module value/norm clipping of the .grad tensors, in place."""
+    if config.grad_max_val <= 0 and config.grad_max_norm <= 0:
+        return
+    for _, module in model.named_children():
+        grads = [p.grad for p in module.parameters() if p.grad is not None]
+        if not grads:
+            continue
+        if config.grad_max_val > 0:
+            for g in grads:
+                g.clamp_(-config.grad_max_val, config.grad_max_val)
+        if config.grad_max_norm > 0:
+            mult = torch.clamp(
+                config.grad_max_norm / (float(np.finfo(np.float32).eps) + tree_norm(grads)), max=1)
+            for g in grads:
+                g.mul_(mult)

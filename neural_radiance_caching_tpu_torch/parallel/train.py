@@ -1,0 +1,151 @@
+"""Optimizer and train step (counterpart of ``parallel/train.py``).
+
+One process, one device: the step runs eagerly on the model's device. The
+optimizer is ``torch.optim.Adam``, which places eps exactly as the JAX
+package's Adam does; every step sets the learning rate from ``learning_rate_decay``
+evaluated at the step count before the update (the JAX optimizer's
+schedule convention).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Callable, Dict
+
+import torch
+
+from neural_radiance_caching_tpu_torch.ops import math
+from neural_radiance_caching_tpu_torch.parallel import losses as losses_lib
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Model, optimizer, learning-rate schedule and step count."""
+
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    lr_fn: Callable[[int], float]
+    step: int = 0
+
+
+def create_optimizer(config, model):
+    """Adam over every parameter with the `learning_rate_decay` schedule.
+
+    Returns (TrainState, lr_fn). Per-module overrides (extra_opt_params) and
+    gradient accumulation are not ported yet and raise.
+    """
+    if config.extra_opt_params or config.grad_accum_steps > 1 or config.is_material:
+        raise NotImplementedError(
+            "extra_opt_params, gradient accumulation and material schedules are not ported yet")
+    lr_fn = functools.partial(
+        math.learning_rate_decay, lr_init=config.lr_init, lr_final=config.lr_final,
+        max_steps=config.max_steps, lr_delay_steps=config.lr_delay_steps,
+        lr_delay_mult=config.lr_delay_mult)
+    optimizer = torch.optim.Adam(model.parameters(), lr=lr_fn(0),
+                                 betas=(config.adam_beta1, config.adam_beta2), eps=config.adam_eps)
+    return TrainState(model=model, optimizer=optimizer, lr_fn=lr_fn), lr_fn
+
+
+def _compute_losses_for_output(batch, rays, model_results, config, train_frac, losses, stats):
+    """Losses over the 'main' results dict."""
+    results = model_results["main"]
+    rendering = model_results["render"]
+    data_loss, data_stats = losses_lib.compute_data_loss(batch, rendering, rays, config, main=True)
+    losses["data"] = config.data_loss_mult * data_loss
+    stats.update(data_stats)
+
+    ray_history = results["sampler"]
+    last = results["geometry"]
+    if any(m > 0 for m in config.interlevel_loss_mults):
+        interlevel = losses_lib.compute_interlevel_loss(
+            ray_history, config.interlevel_loss_mults, config.interlevel_loss_blurs, config)
+        for i, loss in enumerate(interlevel):
+            losses[f"interlevel_{i}"] = loss
+    if config.distortion_loss_mult > 0:
+        losses["distortion"] = losses_lib.compute_distortion_loss(
+            ray_history, config.distortion_loss_mult, config)
+
+    decay = losses_lib.compute_weight_decay(
+        train_frac, config.use_normal_weight_decay, config.normal_weight_decay_start,
+        config.normal_weight_decay_frac, config.normal_weight_decay_min)
+    decay_bwd = decay if config.use_normal_weight_decay_backward else 1.0
+    ease = losses_lib.compute_weight_ease_in(
+        train_frac, config.use_normal_weight_ease, config.normal_weight_ease_start,
+        config.normal_weight_ease_frac, config.normal_weight_ease_min) * decay
+    ease_bwd = losses_lib.compute_weight_ease_in(
+        train_frac, config.use_normal_weight_ease_backward, config.normal_weight_ease_start,
+        config.normal_weight_ease_frac, config.normal_weight_ease_min) * decay_bwd
+    beta = torch.ones_like(last["weights"][..., None])
+    if config.predicted_normal_loss_mult > 0:
+        losses["predicted_normals"] = losses_lib.predicted_normal_loss(
+            last, beta, config, mult=config.predicted_normal_loss_mult * ease,
+            gt="normals_pred", pred="normals", stopgrad=config.predicted_normal_loss_stopgrad,
+            stopgrad_weight=config.predicted_normal_loss_stopgrad_weight)
+    if config.predicted_normal_reverse_loss_mult > 0:
+        losses["predicted_normals_reverse"] = losses_lib.predicted_normal_loss(
+            last, beta, config, mult=config.predicted_normal_reverse_loss_mult * ease_bwd,
+            gt="normals", pred="normals_pred", stopgrad=True)
+    return losses, stats
+
+
+def _check_config(config):
+    unported = {
+        "use_gradient_debias": config.use_gradient_debias,
+        "gradient_checkpointing": config.gradient_checkpointing,
+        "cast_rays_in_train_step": config.cast_rays_in_train_step,
+        "debug_mode": config.debug_mode,
+        "orientation_loss_mult": config.orientation_loss_mult > 0,
+        "eikonal_loss_mult": config.eikonal_loss_mult > 0 or config.eikonal_coarse_loss_mult > 0,
+        "opaque/empty_loss_weight": config.opaque_loss_weight > 0 or config.empty_loss_weight > 0,
+        "patch_loss_mult": config.patch_loss_mult > 0,
+        "param_regularizers": bool(config.param_regularizers),
+        "extra_losses": bool(config.extra_losses) or config.maximum_radiance_loss_weight > 0,
+    }
+    bad = [k for k, v in unported.items() if v]
+    if bad:
+        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+
+
+def create_train_step(model, config):
+    """Build the train step: (rng, state, batch, train_frac) -> (state, stats).
+
+    rng is a torch.Generator on the model's device (or None for the
+    deterministic sampler). `batch` must already be on that device. Stats are
+    device tensors; nothing in the step waits for the device.
+    """
+    _check_config(config)
+
+    def loss_fn(rng, batch, train_frac):
+        rays = batch.rays
+        model_results = model(rng, rays, train_frac=train_frac, train=True, compute_extras=False)
+        losses: Dict[str, Any] = {}
+        stats: Dict[str, Any] = {}
+        _compute_losses_for_output(batch, rays, model_results, config, train_frac, losses, stats)
+        total = sum(losses.values())
+        stats["losses"] = losses
+        return total, stats
+
+    def train_step(rng, state, batch, train_frac):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, stats = loss_fn(rng, batch, train_frac)
+        loss.backward()
+        params = [p for g in state.optimizer.param_groups for p in g["params"]]
+        with torch.no_grad():
+            for p in params:
+                # Adam sees every parameter, as the JAX optimizer does: unused ones get
+                # zero gradients rather than being skipped.
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                p.grad.nan_to_num_()
+            losses_lib.clip_gradients(state.model, config)
+            stats["grad_norm"] = losses_lib.tree_norm([p.grad for p in params])
+            stats["param_norm"] = losses_lib.tree_norm([p.detach() for p in params])
+        for group in state.optimizer.param_groups:
+            group["lr"] = state.lr_fn(state.step)
+        state.optimizer.step()
+        state.step += 1
+        stats["loss"] = loss.detach()
+        return state, stats
+
+    return train_step

@@ -32,6 +32,11 @@ def pytest_configure(config):
         "slow: long e2e/train/kernel-grad tests (>=~15s each); excluded from "
         "the default run, enabled with --runslow",
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the port's hand-written kernels); skips "
+        "without one",
+    )
 
 
 def pytest_collection_modifyitems(config, items):
