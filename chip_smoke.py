@@ -1,28 +1,45 @@
 """Bring-up check of the PyTorch port on one CUDA GPU.
 
-    python3 chip_smoke.py [--seed N] [--steps N] [--profile FILE]
+    python3 chip_smoke.py [--seed N] [--steps N] [--material-steps N] [--profile FILE]
 
 Phases, one line each (any failure exits nonzero):
   1. device: the card, and nvidia-smi's name and power limit;
-  2. build: compile the CUDA scatter kernel from csrc/ with nvcc;
-  3. kernel: the kernel against its plain PyTorch version at the flagship
-     shape (6 levels x 262,144 points x 4 taps, F = 4, 524,288 rows);
-  4. encoder: hash-grid table gradients at the flagship shape, kernel
-     backward against the plain backward;
-  5. reference: a narrow cache model with the flagship's structure, the same
+  2. build: compile the two CUDA scatter kernels from csrc/ with nvcc, in
+     parallel;
+  3. kernel: the leveled kernel against its plain PyTorch version at the
+     flagship cache shape (6 levels x 262,144 points x 4 taps, F = 4,
+     524,288 rows);
+  4. kernel (planes): the planes kernel against its plain version at the
+     flagship material shape (6 levels x 1,572,864 secondary-ray samples x
+     4 taps), with the leveled kernel checked and timed on the same updates;
+  5. encoder: hash-grid table gradients, kernel backward against the plain
+     backward, at the cache shape (leveled) and the material shape (planes);
+  6. reference: a narrow cache model with the flagship's structure, the same
      weights on the GPU and on the CPU (whose path the CPU tests hold
      against the JAX package), loss and gradients compared; the gradient
      limit is checked against a noise floor and two planted scatter faults;
-  6. train: the full-width flagship cache model, batch 8192 on
+  7. material reference: the same for a narrow material model, with the
+     same random draws on both devices, the secondary-ray encoder on the
+     planes kernel, and the faults planted in the planes kernel;
+  8. train: the full-width flagship cache model, batch 8192 on
      SyntheticSpheres (8 views, 128^2): 3 warmup + N timed steps; losses
      finite, every parameter the passive shader reads changed, one kernel
-     launch per step.
+     launch per step;
+  9. material train: the full-width flagship material model, batch 1536 on
+     the same scene: first one step in which every scatter call is held
+     against its plain version on the same inputs (both kernels at the
+     shapes this path gives them), then 3 warmup + N timed steps with
+     gradient checkpointing
+     (the JAX setting), then one step without it for its peak memory;
+     losses finite, exactly the parameters no loss reaches unchanged, the
+     per-step launch counts of both kernels as the model's structure gives.
 Then the kernels JSON line, the nvidia-smi line, and the result line.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import statistics
@@ -37,6 +54,20 @@ def _smi():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def _patched(module, **attrs):
+    """Set attributes of `module` for the length of a block: the planted
+    faults, the checking wrappers and the reference layout threshold."""
+    saved = {name: getattr(module, name) for name in attrs}
+    for name, value in attrs.items():
+        setattr(module, name, value)
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            setattr(module, name, value)
 
 
 def _cuda_ms(fn, repeats=11, warmup=2):
@@ -56,12 +87,13 @@ def _cuda_ms(fn, repeats=11, warmup=2):
     return statistics.median(times)
 
 
-def _abs_sum_bound(idx, w, ct, num_rows, corners):
+def _abs_sum_bound(idx, w, ct, num_rows, corners, plain=None):
     """Per-entry sum of |w * ct| over the updates it receives."""
     from neural_radiance_caching_tpu_torch.ops import scatter_cuda
 
-    return scatter_cuda.scatter_add_weighted_leveled_plain(
-        idx, w.abs(), ct.abs(), num_rows=num_rows, features=ct.shape[-1], corners=corners)
+    plain = plain or scatter_cuda.scatter_add_weighted_leveled_plain
+    features = ct.shape[-1] if idx.dim() == 2 else ct.shape[1]
+    return plain(idx, w.abs(), ct.abs(), num_rows=num_rows, features=features, corners=corners)
 
 
 # Float32 sums of the same terms in another order (atomics vs index_add_)
@@ -95,6 +127,7 @@ def phase_kernel(torch, device, seed):
     max_rel = float((err / want.abs().clamp(min=1e-30))[want.abs() > 1e-3].max())
     ok = bool((err <= SUM_ORDER_TOL * bound + 1e-30).all())
     hot = int(torch.bincount(idx[0].long(), minlength=4096).max())
+    del rows, weights
     ms = _cuda_ms(lambda: scatter_cuda.scatter_add_weighted_leveled(idx, w, ct, **kw))
     plain_ms = _cuda_ms(lambda: scatter_cuda.scatter_add_weighted_leveled_plain(idx, w, ct, **kw))
     print(f"kernel: scatter_add_weighted_leveled L={levels} P={points} U={corners} F={features} "
@@ -128,9 +161,9 @@ def phase_encoder(torch, device, seed):
         f.backward(ct)
         return grid.hash_levels.grad.clone(), grid.dense_levels.grad.clone()
 
-    before = scatter_cuda.launches
+    before = scatter_cuda.launches["leveled"]
     h_k, d_k = grads(None)
-    launched = scatter_cuda.launches - before
+    launched = scatter_cuda.launches["leveled"] - before
     h_p, d_p = grads(scatter_cuda.scatter_add_weighted_leveled_plain)
     torch.cuda.synchronize()
     errs = []
@@ -169,15 +202,17 @@ def _narrow(params):
 GRAD_REL_L2_TOL = 5e-2
 
 
-def _planted_fault(fault):
-    """The GPU scatter with a deliberate fault, for the reference phase's
-    check that its gradient limit would catch one."""
+def _planted_fault(fault, kind="leveled"):
+    """A scatter with a deliberate fault, for the reference phases' check
+    that their gradient limit would catch one."""
     from neural_radiance_caching_tpu_torch.ops import scatter_cuda
 
-    real = scatter_cuda.scatter_add_weighted_leveled
+    real = getattr(scatter_cuda, f"scatter_add_weighted_{kind}")
 
     def scatter(idx, w, ct, **kw):
-        if fault == "taps rotated":  # each tap's weight goes to the next corner
+        if fault == "taps rotated" and kind == "planes":  # [L, U, P]: roll the taps
+            w = w.roll(1, dims=1).contiguous()
+        elif fault == "taps rotated":  # each tap's weight goes to the next corner
             w = w.reshape(w.shape[0], -1, kw["corners"]).roll(1, dims=-1).reshape(w.shape)
             w = w.contiguous()
         out = real(idx, w, ct, **kw)
@@ -206,16 +241,13 @@ def phase_reference(torch, device, seed):
         torch.manual_seed(seed)
         model = flagship.build_flagship_cache_model(cfg, params).to(dev)
         state, _ = train.create_optimizer(cfg, model)
-        real, before = scatter_cuda.scatter_add_weighted_leveled, scatter_cuda.launches
-        if fault:
-            scatter_cuda.scatter_add_weighted_leveled = _planted_fault(fault)
-        try:
+        before = scatter_cuda.launches["leveled"]
+        patch = dict(scatter_add_weighted_leveled=_planted_fault(fault)) if fault else {}
+        with _patched(scatter_cuda, **patch):
             _, stats = train.create_train_step(model, cfg)(None, state, b.to(dev), 0.5)
-        finally:
-            scatter_cuda.scatter_add_weighted_leveled = real
         losses = {k: float(torch.as_tensor(v).detach()) for k, v in stats["losses"].items()}
         grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
-        return losses, grads, scatter_cuda.launches - before
+        return losses, grads, scatter_cuda.launches["leveled"] - before
 
     def worst_grad_err(g, ref):
         errs = {k: float((g[k] - ref[k]).norm()) / max(float(ref[k].norm()), 1e-30) for k in ref}
@@ -243,6 +275,250 @@ def phase_reference(torch, device, seed):
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError("GPU path disagrees with the CPU reference path")
+
+
+# The flagship material shape: 1536 rays x 32 secondary rays x 32 final
+# samples, the secondary-ray level clamp of 6 (16^3, 32^3, 64^3 dense; 128,
+# 256, 512 hashed), simplex taps, F = 4, T = 2^19 rows.
+MATERIAL_POINTS = 1536 * 32 * 32
+MATERIAL_LEVELS = (16, 32, 64, 128, 256, 512)
+
+
+def _secondary_sample_points(torch, device, gen, num_rays, samples_per_ray):
+    """Grid coordinates of samples spread as secondary samples are: rays from
+    points on the central sphere in random directions, sampled from 0.1 to
+    the secondary far plane 4, warped by the flagship's contraction."""
+    from neural_radiance_caching_tpu_torch.ops import coord
+
+    n = torch.randn((num_rays, 3), generator=gen, device=device)
+    origins = 0.55 * n / n.norm(dim=-1, keepdim=True)
+    d = torch.randn((num_rays, 3), generator=gen, device=device)
+    d = d / d.norm(dim=-1, keepdim=True)
+    t = 0.1 + 3.9 * torch.rand((num_rays, samples_per_ray), generator=gen, device=device)
+    points = origins[:, None] + t[..., None] * d[:, None]
+    return (coord.contract_radius_2(points) + 2.0) / 4.0  # bbox [-2, 2]^3 -> [0, 1]^3
+
+
+def phase_kernel_planes(torch, device, seed):
+    from neural_radiance_caching_tpu_torch.ops import hashgrid, scatter_cuda
+
+    levels, corners, features, num_rows = len(MATERIAL_LEVELS), 4, 4, 524288
+    gen = torch.Generator(device=device).manual_seed(seed + 7)
+    x = _secondary_sample_points(torch, device, gen, 1536 * 32, 32).reshape(-1, 3)
+    rows, weights = hashgrid._tap_rows_and_weights(
+        x, None, MATERIAL_LEVELS, num_rows, 3, "simplex")
+    del x
+    idx = rows.permute(1, 2, 0).contiguous()  # [L, U, P]
+    w = weights.permute(1, 2, 0).contiguous()
+    del rows, weights
+    ct = torch.randn((levels, features, MATERIAL_POINTS), generator=gen, device=device)
+    kw = dict(num_rows=num_rows, features=features, corners=corners)
+
+    # The leveled kernel on the same updates, in its own layout, is held to
+    # the same plain sum.
+    l_idx = idx.permute(0, 2, 1).reshape(levels, -1).contiguous()
+    l_w = w.permute(0, 2, 1).reshape(levels, -1).contiguous()
+    l_ct = ct.permute(0, 2, 1).contiguous()
+    got = scatter_cuda.scatter_add_weighted_planes(idx, w, ct, **kw)
+    lev = scatter_cuda.scatter_add_weighted_leveled(l_idx, l_w, l_ct, **kw)
+    want = scatter_cuda.scatter_add_weighted_planes_plain(idx, w, ct, **kw)
+    limit = SUM_ORDER_TOL * _abs_sum_bound(
+        idx, w, ct, num_rows, corners, plain=scatter_cuda.scatter_add_weighted_planes_plain) + 1e-30
+    torch.cuda.synchronize()
+    max_abs = float((got - want).abs().max())
+    lev_err = float((lev - want).abs().max())
+    ok = bool(((got - want).abs() <= limit).all())
+    lev_ok = bool(((lev - want).abs() <= limit).all())
+    del got, lev, want, limit
+    hot = int(torch.bincount(idx[0].reshape(-1).long(), minlength=4096).max())
+    ms = _cuda_ms(lambda: scatter_cuda.scatter_add_weighted_planes(idx, w, ct, **kw))
+    plain_ms = _cuda_ms(lambda: scatter_cuda.scatter_add_weighted_planes_plain(idx, w, ct, **kw))
+    leveled_ms = _cuda_ms(lambda: scatter_cuda.scatter_add_weighted_leveled(l_idx, l_w, l_ct, **kw))
+    print(f"kernel (planes): scatter_add_weighted_planes L={levels} U={corners} "
+          f"P={MATERIAL_POINTS} F={features} rows={num_rows} (secondary-ray samples; 16^3 level: "
+          f"max {hot} updates on one row) max_abs_err={max_abs:.3e} "
+          f"tol=|err|<={SUM_ORDER_TOL}*sum|w*ct| {'ok' if ok else 'FAIL'}; leveled kernel on the "
+          f"same updates max_abs_err={lev_err:.3e} same tol {'ok' if lev_ok else 'FAIL'}; "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} leveled_kernel_same_updates_ms="
+          f"{leveled_ms:.4f} (median of 11, CUDA events)", flush=True)
+    if not (ok and lev_ok):
+        raise AssertionError("a kernel disagrees with the plain sum at the planes shape")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, leveled_ms=leveled_ms,
+                leveled_max_abs_err=lev_err)
+
+
+def phase_encoder_planes(torch, device, seed):
+    """Table gradients through the planes backward at the material shape."""
+    from neural_radiance_caching_tpu_torch import flagship
+    from neural_radiance_caching_tpu_torch.models import grids
+    from neural_radiance_caching_tpu_torch.ops import hashgrid, scatter_cuda
+
+    params = flagship.flagship_cache_params()["sampler_params"]["grid_params_per_level"][2]
+    grid = grids.HashEncoding(**params).to(device)
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    x = _secondary_sample_points(torch, device, gen, 1536 * 32, 32)[:, :, None]
+    ct = torch.randn((1536 * 32, 32, len(MATERIAL_LEVELS) * 4), generator=gen, device=device)
+    statics = dict(grid_sizes=MATERIAL_LEVELS, table_size=grid.hash_map_size,
+                   dense_offsets=grid.dense_offsets, interpolation="simplex")
+    assert hashgrid.use_planes_layout(x.shape[0] * x.shape[1], "mean")
+
+    def grads(planes_fn):
+        grid.zero_grad(set_to_none=True)
+        f = hashgrid.multires_grid_encode(
+            x, grid.hash_levels[:3], grid.dense_levels, planes_scatter_fn=planes_fn, **statics)
+        f.backward(ct)
+        return grid.hash_levels.grad.clone(), grid.dense_levels.grad.clone()
+
+    before = dict(scatter_cuda.launches)
+    h_k, d_k = grads(None)
+    launched = {k: scatter_cuda.launches[k] - before[k] for k in before}
+    h_p, d_p = grads(scatter_cuda.scatter_add_weighted_planes_plain)
+    torch.cuda.synchronize()
+    errs = [float((a - b).abs().max()) / float(b.abs().max()) for a, b in ((h_k, h_p), (d_k, d_p))]
+    ok = (launched == {"leveled": 0, "planes": 1} and max(errs) <= 1e-5
+          and float(h_k[3:].abs().max()) == 0.0)
+    print(f"encoder (planes): flagship grid backward at the material shape (1536x32x32 points, "
+          f"6 of 8 levels) kernel vs plain rel_err hash={errs[0]:.3e} dense={errs[1]:.3e} "
+          f"(tol 1e-5 of max |grad|), clamped levels zero, launches={launched} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("planes encoder gradients disagree")
+
+
+# No loss reaches these parameters of the material model: the light
+# sampler's outputs feed only the (unused) light importance sampler under a
+# stop-gradient, the passive shaders read no light power, and the cache
+# SLF's rgba head is unread. tests/test_torch_material_slice.py pins the
+# same set against the JAX package's zero gradients.
+_MATERIAL_UNREACHED = {
+    "cache.shader.light_power", "cache.shader.surface_lf.output_rgba_layer.weight",
+    "cache.shader.surface_lf.output_rgba_layer.bias", "shader.light_power",
+    "light_sampler.layers.0.weight", "light_sampler.layers.0.bias",
+    "light_sampler.layers.1.weight", "light_sampler.layers.1.bias",
+    "light_sampler.output_layer.weight", "light_sampler.output_layer.bias",
+    "light_sampler.grid.dense_levels", "light_sampler.grid.hash_levels",
+}
+# Scatter launches per material train step: the encoder backwards a loss
+# reaches, one each. Leveled: the cache's primary samples (1536 x 32 points)
+# and the material grid (1536 points). Planes: the cache's secondary samples
+# (1536 x 32 x 32 points). The light sampler's grid gets no gradient, and
+# the gradient-debias forward runs without a graph.
+_MATERIAL_LAUNCHES_PER_STEP = {"leveled": 2, "planes": 1}
+
+
+def _narrow_material():
+    """The flagship material structure at reference-phase widths. The
+    secondary encoder takes the planes layout from 4,096 points on, and the
+    primary-ray clamp (3) sits below the secondary one (5), so hash levels
+    64^3 and 128^3... of the cache grid are reached through the planes
+    kernel alone."""
+    from neural_radiance_caching_tpu_torch import flagship
+
+    strategy = ((0, 0, 16), (1, 1, 16), (2, 2, 16))
+    cache = _narrow(flagship.flagship_cache_params())
+    cache["sampler_params"]["sampling_strategy"] = strategy
+    cache["train_sampling_strategy"] = cache["render_sampling_strategy"] = strategy
+    mlps = [dict(m) for m in cache["sampler_params"]["mlp_params_per_level"]]
+    mlps[2].update(primary_grid_level_clamp=3, secondary_grid_level_clamp=5)
+    cache["sampler_params"]["mlp_params_per_level"] = tuple(mlps)
+    params = flagship.flagship_material_params(cache)
+    grid = dict(hash_map_size=2**14, max_grid_size=512)
+    params["light_sampler_params"] = dict(
+        params["light_sampler_params"], net_width=32, num_components=16,
+        grid_params=dict(params["light_sampler_params"]["grid_params"], **grid))
+    params["shader_params"] = dict(
+        params["shader_params"], bottleneck_width=32, cache_train_sampling_strategy=strategy,
+        cache_render_sampling_strategy=strategy,
+        grid_params=dict(params["shader_params"]["grid_params"], **grid))
+    return params
+
+
+MATERIAL_REF_BATCH = 96
+MATERIAL_PLANES_MIN_POINTS = 4096
+# Material-model gradients are held per leaf, with each hash table split into
+# its levels, in relative L2 norm. The levels only secondary rays reach sum
+# few, sensitive terms: a rounding error turns a secondary ray and moves its
+# samples across cells. The limit sits between the same two readings as the
+# cache's: the noise floor (5.9e-2 on the CPU path, one core of the build
+# sandbox) below it, the planted planes-kernel faults (1.0) above it.
+MATERIAL_GRAD_REL_L2_TOL = 0.2
+
+
+def _material_step(torch, device, seed, batch, fault=None):
+    """One train step of the narrow material model on `device`; the random
+    draws come from a CPU generator, so both devices see the same numbers."""
+    from neural_radiance_caching_tpu_torch import flagship
+    from neural_radiance_caching_tpu_torch.ops import hashgrid, scatter_cuda
+    from neural_radiance_caching_tpu_torch.parallel import train
+
+    cfg = flagship.material_config(batch_size=MATERIAL_REF_BATCH, lr_delay_steps=0)
+    torch.manual_seed(seed)
+    model = flagship.build_flagship_material_model(cfg, _narrow_material()).to(device)
+    state, _ = train.create_optimizer(cfg, model)
+    before = dict(scatter_cuda.launches)
+    patch = dict(scatter_add_weighted_planes=_planted_fault(fault, "planes")) if fault else {}
+    with _patched(hashgrid, PLANES_MIN_POINTS=MATERIAL_PLANES_MIN_POINTS), \
+            _patched(scatter_cuda, **patch):
+        rng = torch.Generator().manual_seed(seed + 5)
+        _, stats = train.create_train_step(model, cfg)(rng, state, batch.to(device), 0.5)
+    losses = {k: float(torch.as_tensor(v).detach()) for k, v in stats["losses"].items()}
+    grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+    return losses, grads, {k: scatter_cuda.launches[k] - before[k] for k in before}
+
+
+def _per_level(grads):
+    """Gradient leaves with each stacked hash table split into its levels."""
+    out = {}
+    for k, g in grads.items():
+        if k.endswith("grid.hash_levels"):
+            out.update({f"{k}[{i}]": g[i] for i in range(g.shape[0])})
+        else:
+            out[k] = g
+    return out
+
+
+def _worst_grad_err(g, ref, keys=None):
+    g, ref = _per_level(g), _per_level(ref)
+    keys = [k for k in ref if keys is None or k.split("[")[0] in keys]
+    errs = {k: float((g[k] - ref[k]).norm()) / max(float(ref[k].norm()), 1e-30) for k in keys
+            if float(ref[k].norm()) > 0}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def phase_material_reference(torch, device, seed):
+    """Same narrow material model, batch and draws on the GPU and the CPU."""
+    from neural_radiance_caching_tpu_torch import flagship
+    from neural_radiance_caching_tpu_torch.data import datasets
+
+    cfg = flagship.material_config(batch_size=MATERIAL_REF_BATCH)
+    batch = datasets.SyntheticSpheres("train", None, cfg, num_images=4, resolution=32).next_train()
+    origins = batch.rays.origins
+    nudged = batch.replace(rays=batch.rays.replace(
+        origins=torch.nextafter(origins, torch.full_like(origins, float("inf")))))
+    l_cpu, g_cpu, n_cpu = _material_step(torch, "cpu", seed, batch)
+    reached = [k for k in g_cpu if k not in _MATERIAL_UNREACHED]
+    floor, floor_at = _worst_grad_err(_material_step(torch, "cpu", seed, nudged)[1], g_cpu,
+                                      reached)
+    l_gpu, g_gpu, n_gpu = _material_step(torch, device, seed, batch)
+    loss_err = max(abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-12) for k in l_cpu)
+    err, err_at = _worst_grad_err(g_gpu, g_cpu, reached)
+    faults = {f: _worst_grad_err(_material_step(torch, device, seed, batch, f)[1], g_cpu, reached)
+              for f in ("taps rotated", "finest level dropped")}
+    finite = all(torch.isfinite(g).all() for g in g_gpu.values())
+    tol = MATERIAL_GRAD_REL_L2_TOL
+    ok = (finite and loss_err <= 1e-3 and n_cpu == {"leveled": 0, "planes": 0}
+          and n_gpu == _MATERIAL_LAUNCHES_PER_STEP and floor <= tol and err <= tol
+          and all(v > tol for v, _ in faults.values()))
+    print(f"material reference: narrow material model, batch {MATERIAL_REF_BATCH} x 32 secondary "
+          f"rays, same draws, gpu vs cpu: loss rel_err={loss_err:.3e} (tol 1e-3) grad rel_l2_err "
+          f"max={err:.3e} at {err_at} (tol {tol}; noise floor, cpu vs cpu with origins +1 ulp: "
+          f"{floor:.3e} at {floor_at}; planted in the planes kernel "
+          + ", ".join(f"{f}: {v:.3e} at {at}" for f, (v, at) in faults.items())
+          + f", each must exceed the tol) kernel launches gpu={n_gpu} cpu={n_cpu} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("GPU material path disagrees with the CPU reference path")
 
 
 _UNREAD_PARAMS = {"shader.light_power", "shader.surface_lf.output_rgba_layer.weight",
@@ -283,7 +559,7 @@ def phase_train(torch, device, seed, steps, smi, profile):
         losses.append(stats["loss"])
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / steps
-    launches = scatter_cuda.launches
+    launches = dict(scatter_cuda.launches)
 
     losses = [float(v) for v in losses]
     finite = all(map(lambda v: v == v and abs(v) != float("inf"), losses))
@@ -292,46 +568,175 @@ def phase_train(torch, device, seed, steps, smi, profile):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     # The passive shader reads neither the light power nor the SLF's rgba
     # head: those three, and only those, keep their initial values.
-    ok = finite and unchanged == _UNREAD_PARAMS and launches == warmup + steps
+    ok = (finite and unchanged == _UNREAD_PARAMS and launches["leveled"] == warmup + steps
+          and launches["planes"] == 0)
     print(f"train: flagship cache model ({n_params} params) batch {config.batch_size} "
           f"SyntheticSpheres 8x128^2 setup {setup_s:.1f}s; {warmup} warmup + {steps} timed "
           f"steps: step_ms={dt * 1e3:.2f} rays_per_s={config.batch_size / dt:.0f} on [{smi}]; "
           f"losses finite={finite} first={losses[0]:.5f} last={losses[-1]:.5f}; "
           f"{changed}/{len(before)} param tensors changed, unchanged={sorted(unchanged)}; "
           f"scatter launches={launches} "
-          f"(expected {warmup + steps}); peak {peak_gib:.2f} GiB {'ok' if ok else 'FAIL'}",
+          f"(expected leveled {warmup + steps}, planes 0); peak {peak_gib:.2f} GiB "
+          f"{'ok' if ok else 'FAIL'}",
           flush=True)
     if not ok:
         raise AssertionError("train phase failed")
     if profile:
         _profile(torch, train_step, state, rng, batches, profile)
-    return launches, dt
+    return launches["leveled"], dt
 
 
-def _profile(torch, train_step, state, rng, batches, path):
-    """Device time by kernel over 3 steps, as a table written to `path`."""
+def _checking_scatter(kind, calls):
+    """The `kind` scatter wrapper, with its plain version run on the same
+    inputs after each call and held to SUM_ORDER_TOL x sum|w * ct|; each
+    call is appended to `calls`."""
+    from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+
+    real = getattr(scatter_cuda, f"scatter_add_weighted_{kind}")
+    plain = getattr(scatter_cuda, f"scatter_add_weighted_{kind}_plain")
+
+    def scatter(idx, w, ct, **kw):
+        out = real(idx, w, ct, **kw)
+        want = plain(idx, w, ct, **kw)
+        limit = SUM_ORDER_TOL * _abs_sum_bound(idx, w, ct, kw["num_rows"], kw["corners"],
+                                               plain=plain) + 1e-30
+        err = (out - want).abs()
+        calls.append(dict(kind=kind, shape=tuple(idx.shape), max_abs_err=float(err.max()),
+                          ok=bool((err <= limit).all())))
+        return out
+
+    return scatter
+
+
+def phase_material_check(torch, train_step, state, rng, batch):
+    """One material train step with every scatter the path launches held
+    against its plain version on the same inputs, at the path's shapes."""
+    from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+
+    calls = []
+    with _patched(scatter_cuda,
+                  scatter_add_weighted_leveled=_checking_scatter("leveled", calls),
+                  scatter_add_weighted_planes=_checking_scatter("planes", calls)):
+        state, stats = train_step(rng, state, batch, 0.5)
+    torch.cuda.synchronize()
+    per_kind = {k: sum(c["kind"] == k for c in calls) for k in _MATERIAL_LAUNCHES_PER_STEP}
+    ok = (per_kind == _MATERIAL_LAUNCHES_PER_STEP and all(c["ok"] for c in calls)
+          and bool(torch.isfinite(stats["loss"])))
+    print("material train (checked step): each scatter of one step against its plain version "
+          f"on the same inputs, tol=|err|<={SUM_ORDER_TOL}*sum|w*ct|: "
+          + "; ".join(f"{c['kind']} idx{list(c['shape'])} max_abs_err={c['max_abs_err']:.3e} "
+                      f"{'ok' if c['ok'] else 'FAIL'}" for c in calls)
+          + f" (calls {per_kind}, expected {_MATERIAL_LAUNCHES_PER_STEP}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("a kernel disagrees with its plain version on the material path")
+    return state, {k: max(c["max_abs_err"] for c in calls if c["kind"] == k) for k in per_kind}
+
+
+def phase_material_train(torch, device, seed, steps, smi, profile):
+    """The full-width flagship material model: timed steps with gradient
+    checkpointing (the JAX setting), then one step without it."""
+    from neural_radiance_caching_tpu_torch import flagship
+    from neural_radiance_caching_tpu_torch.data import datasets
+    from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+    from neural_radiance_caching_tpu_torch.parallel import train
+
+    config = flagship.material_config()
+    t0 = time.perf_counter()
+    torch.manual_seed(seed)
+    model = flagship.build_flagship_material_model(config).to(device)
+    dataset = datasets.SyntheticSpheres("train", None, config, num_images=8, resolution=128,
+                                        device=device)
+    state, _ = train.create_optimizer(config, model)
+    train_step = train.create_train_step(model, config)
+    rng = torch.Generator(device=device).manual_seed(seed + 43)
+    batches = [dataset.next_train() for _ in range(8)]
+    n_params = sum(p.numel() for p in model.parameters())
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    setup_s = time.perf_counter() - t0
+    state, checked_err = phase_material_check(torch, train_step, state, rng, batches[-1])
+
+    warmup = 3
+    losses = []
+    torch.cuda.reset_peak_memory_stats()
+    scatter_cuda.reset_launch_count()
+    for i in range(warmup):
+        state, stats = train_step(rng, state, batches[i % len(batches)], 0.5)
+        losses.append(stats["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        state, stats = train_step(rng, state, batches[(warmup + i) % len(batches)], 0.5)
+        losses.append(stats["loss"])
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    launches = dict(scatter_cuda.launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    unchanged = {k for k, v in model.state_dict().items() if torch.equal(v, before[k])}
+
+    # One more step without checkpointing: its peak memory.
+    config.gradient_checkpointing = False
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    state, stats = train_step(rng, state, batches[0], 0.5)
+    losses.append(stats["loss"])
+    torch.cuda.synchronize()
+    nockpt_s = time.perf_counter() - t1
+    nockpt_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    config.gradient_checkpointing = True
+
+    losses = [float(v) for v in losses]
+    finite = all(map(lambda v: v == v and abs(v) != float("inf"), losses))
+    per_step = {k: n * (warmup + steps) for k, n in _MATERIAL_LAUNCHES_PER_STEP.items()}
+    ok = finite and unchanged == _MATERIAL_UNREACHED and launches == per_step
+    print(f"material train: flagship material model ({n_params} params) batch "
+          f"{config.batch_size} x 32 secondary rays x 64+64+32 samples, SyntheticSpheres 8x128^2, "
+          f"setup {setup_s:.1f}s; {warmup} warmup + {steps} timed steps with gradient "
+          f"checkpointing: step_ms={dt * 1e3:.2f} rays_per_s={config.batch_size / dt:.1f} "
+          f"peak {peak_gib:.2f} GiB; one step without checkpointing: {nockpt_s * 1e3:.1f} ms, "
+          f"peak {nockpt_peak_gib:.2f} GiB; on [{smi}]; losses finite={finite} "
+          f"first={losses[0]:.5f} last={losses[-1]:.5f}; {len(before) - len(unchanged)}/"
+          f"{len(before)} param tensors changed, unchanged={sorted(unchanged)} "
+          f"(expected the {len(_MATERIAL_UNREACHED)} no loss reaches); scatter launches="
+          f"{launches} (expected {per_step}: {_MATERIAL_LAUNCHES_PER_STEP} per step) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("material train phase failed")
+    if profile:
+        path = str(profile)
+        stem, dot, ext = path.rpartition(".")
+        _profile(torch, train_step, state, rng, batches,
+                 f"{stem}.material.{ext}" if dot else path + ".material", steps=2)
+    return launches, dt, checked_err
+
+
+def _profile(torch, train_step, state, rng, batches, path, steps=3):
+    """Device time by kernel over `steps` steps, as a table written to `path`."""
     import pathlib
 
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(3):
+        for i in range(steps):
             state, _ = train_step(rng, state, batches[i], 0.5)
         torch.cuda.synchronize()
     path = pathlib.Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
     path.write_text(table)
-    print(f"profile: top device ops over 3 steps written to {path}", flush=True)
+    print(f"profile: top device ops over {steps} steps written to {path}", flush=True)
     print("\n".join(table.splitlines()[:16]), flush=True)
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--steps", type=int, default=10)
+    parser.add_argument("--steps", type=int, default=5, help="timed cache train steps")
+    parser.add_argument("--material-steps", type=int, default=10,
+                        help="timed material train steps")
     parser.add_argument("--profile", metavar="FILE",
-                        help="also profile 3 train steps and write the op table to FILE")
+                        help="also profile train steps and write the op tables to FILE "
+                             "(cache) and FILE with .material before its suffix")
     args = parser.parse_args()
 
     import torch
@@ -349,25 +754,48 @@ def main():
           f"torch={torch.__version__} cuda={torch.version.cuda} nvidia-smi=[{smi}]", flush=True)
 
     t0 = time.perf_counter()
-    lib_path = scatter_cuda.build_library(verbose=True)
+    lib_paths = scatter_cuda.build_library(verbose=True)
     scatter_cuda.load_library()
-    print(f"build: {lib_path.name} from csrc/ with nvcc in {time.perf_counter() - t0:.1f}s",
-          flush=True)
+    print(f"build: {', '.join(p.name for p in lib_paths.values())} from csrc/ with nvcc (one per "
+          f"source, in parallel) in {time.perf_counter() - t0:.1f}s", flush=True)
 
     kernel = phase_kernel(torch, device, args.seed)
+    planes = phase_kernel_planes(torch, device, args.seed)
     phase_encoder(torch, device, args.seed)
+    phase_encoder_planes(torch, device, args.seed)
     phase_reference(torch, device, args.seed)
-    launches, _ = phase_train(torch, device, args.seed, args.steps, smi, args.profile)
+    phase_material_reference(torch, device, args.seed)
+    cache_leveled, _ = phase_train(torch, device, args.seed, args.steps, smi, args.profile)
+    material, _, material_err = phase_material_train(
+        torch, device, args.seed, args.material_steps, smi, args.profile)
 
+    csrc = "neural_radiance_caching_tpu_torch/csrc"
     print(json.dumps({"kernels": [{
         "name": "scatter_add_weighted_leveled",
         "route": "cuda",
-        "source": "neural_radiance_caching_tpu_torch/csrc/scatter_weighted.cu",
+        "source": f"{csrc}/scatter_weighted.cu",
         "replaces": "neural_radiance_caching_tpu/ops/scatter_tpu.py:243",
-        "launches": launches,
-        "max_abs_err": kernel["max_abs_err"],
+        "launches": cache_leveled + material["leveled"],
+        "launches_by_path": {"cache_train": cache_leveled, "material_train": material["leveled"]},
+        "max_abs_err": max(kernel["max_abs_err"], material_err["leveled"]),
+        "max_abs_err_by_shape": {"cache": kernel["max_abs_err"],
+                                 "material_path": material_err["leveled"],
+                                 "planes_shape": planes["leveled_max_abs_err"]},
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
+    }, {
+        "name": "scatter_add_weighted_planes",
+        "route": "cuda",
+        "source": f"{csrc}/scatter_weighted_planes.cu",
+        "replaces": "neural_radiance_caching_tpu/ops/scatter_tpu.py:364",
+        "launches": material["planes"],
+        "launches_by_path": {"cache_train": 0, "material_train": material["planes"]},
+        "max_abs_err": max(planes["max_abs_err"], material_err["planes"]),
+        "max_abs_err_by_shape": {"planes_shape": planes["max_abs_err"],
+                                 "material_path": material_err["planes"]},
+        "ms": planes["ms"],
+        "plain_ms": planes["plain_ms"],
+        "leveled_same_updates_ms": planes["leveled_ms"],
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

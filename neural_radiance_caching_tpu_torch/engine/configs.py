@@ -1,7 +1,7 @@
 """Torch-side ``Config`` (counterpart of ``engine/configs.py``).
 
 Same field names and defaults as the JAX ``Config``, for the fields the
-cache slice reads. The gin surface comes with the config engine in a later
+cache and material slices read. The gin surface comes with the config engine in a later
 port step; until then a Config is built with keyword arguments.
 """
 
@@ -22,6 +22,7 @@ class Config:
     synthetic_spheres_multi_illum: bool = False
     near: float = 2.0
     far: float = 6.0
+    secondary_far: float = 2.0
     cast_rays_in_train_step: bool = False
     np_rng_seed: int = 20201473
 
@@ -32,6 +33,14 @@ class Config:
     multi_illumination: bool = False
     volume_variate: bool = False
     volume_variate_secondary: bool = False
+    volume_variate_material: bool = False
+    learnable_light: bool = False
+    use_ground_truth_illumination: bool = False
+    compute_relight_metrics: bool = False
+
+    # --- Material stage ---
+    secondary_normal_eps: float = 1e-2
+    material_loss_radius: float = float("inf")
 
     # --- Optimization ---
     max_steps: int = 25000
@@ -54,6 +63,13 @@ class Config:
     data_loss_type: str = "charb"
     data_loss_mult: float = 1.0
     charb_padding: float = 0.001
+    rawnerf_exponent: int = 1
+    rawnerf_exponent_material: int = 1
+    rawnerf_eps: float = 1e-2
+    rawnerf_eps_material: float = 1e-2
+    use_gt_rawnerf: bool = False
+    use_combined_rawnerf: bool = False
+    use_norm_rawnerf: bool = False
     convert_srgb: bool = False
     is_material: bool = False
     use_loss_clip: bool = False

@@ -1,20 +1,32 @@
-"""The flagship cache-stage configuration (counterpart of ``_cache_config``,
-``flagship_cache_params`` and ``build_flagship_cache_model`` in ``bench.py``).
+"""The flagship cache- and material-stage configurations (counterpart of
+``_cache_config``, ``flagship_cache_params``, ``build_flagship_cache_model``,
+the material config of ``_main_default`` and
+``build_flagship_material_model`` in ``bench.py``).
 
-Two IPE proposal MLPs (4 x 256, bf16), a final 2 x 64 DensityMLP on an
-8-level simplex hash pyramid (16..2048, T = 2^19, F = 4, primary-ray clamp
-6), and a 1 x 128 NeRFMLP shader in bf16 with reflections and its surface
-light field.
+Cache: two IPE proposal MLPs (4 x 256, bf16), a final 2 x 64 DensityMLP on
+an 8-level simplex hash pyramid (16..2048, T = 2^19, F = 4, primary-ray clamp
+6, secondary-ray clamp 6), and a 1 x 128 NeRFMLP shader in bf16 with
+reflections and its surface light field.
+
+Material: that cache with secondary-ray resampling, a 2 x 64 LightMLP with
+128 vMF components on its own 8-level simplex grid, and a MaterialMLP (no
+trunk, 128-wide bottleneck, the flagship BRDF head) that traces 32 secondary
+rays per surface point (16 GGX+cosine MIS, 16 cosine) through the cache's
+64 + 64 + 32 samples; one resampled surface point per ray, batch 1536.
 """
 
 from __future__ import annotations
 
+import torch
+
 from neural_radiance_caching_tpu_torch.engine.configs import Config
 from neural_radiance_caching_tpu_torch.models.layers import softplus
+from neural_radiance_caching_tpu_torch.models.material_model import MaterialModel
 from neural_radiance_caching_tpu_torch.models.nerf_model import NeRFModel
 from neural_radiance_caching_tpu_torch.ops import coord
 
 BATCH_SIZE = 8192
+MATERIAL_BATCH_SIZE = 1536
 PROPOSAL_WIDTH = 256
 PRIMARY_LEVEL_CLAMP = 6
 SECONDARY_LEVEL_CLAMP = 6
@@ -93,3 +105,72 @@ def flagship_cache_params():
 
 def build_flagship_cache_model(config, params=None):
     return NeRFModel(config=config, **(params or flagship_cache_params()))
+
+
+def material_config(**overrides):
+    """The flagship material-stage Config: the cache Config with the material
+    stage's overrides."""
+    fields = dict(
+        batch_size=MATERIAL_BATCH_SIZE, secondary_far=4.0, material_loss_radius=4.0,
+        data_loss_type="rawnerf_unbiased", use_gradient_debias=True,
+        gradient_checkpointing=True, distortion_loss_mult=0.0,
+        predicted_normal_loss_mult=0.0, predicted_normal_reverse_loss_mult=0.0,
+    )
+    fields.update(overrides)
+    return cache_config(**fields)
+
+
+# The flagship BRDF head: sigmoid roughness at bias -1 (GGX alpha in (0, 1)),
+# roughness gradient damped to 0.25, min roughness 0.01.
+FLAGSHIP_BRDF_HEAD = {
+    "brdf_bias": {
+        "albedo": -1.0, "specular_albedo": -1.0, "roughness": -1.0,
+        "F_0": -3.078, "metalness": 0.0, "diffuseness": 0.0,
+        "mirrorness": 2.0, "specular_multiplier": 0.0,
+        "diffuse_multiplier": 0.0,
+    },
+    "brdf_activation": {"roughness": torch.sigmoid},
+    "brdf_stopgrad": {"roughness": 0.25},
+    "min_roughness": 0.01,
+}
+
+
+def flagship_material_params(cache_params=None):
+    """MaterialModel keyword arguments of the flagship material model."""
+    cache_params = dict(cache_params or flagship_cache_params())
+    cache_params["resample_secondary"] = True
+    strategy = cache_params["train_sampling_strategy"]
+    grid = {
+        "hash_map_size": 524288, "max_grid_size": 2048, "num_features": 4,
+        "scale_supersample": 1.0, "interpolation": "simplex", "bbox_scaling": 2.0,
+    }
+    return dict(
+        cache_model_params=cache_params,
+        use_light_sampler=True,
+        light_sampler_params={
+            "net_depth": 2, "net_width": 64, "bottleneck_width": 128,
+            "num_components": 128, "vmf_scale": 20.0,
+            "use_density_feature": False, "use_grid": True,
+            "grid_params": grid, "warp_fn": coord.contract_radius_2,
+        },
+        shader_params={
+            "net_depth": 0, "net_width": 64, "bottleneck_width": 128,
+            "use_density_feature": False, "use_grid": True,
+            "grid_params": grid, "warp_fn": coord.contract_radius_2,
+            "num_secondary_samples": 32, "render_num_secondary_samples": 32,
+            "num_secondary_samples_diff": 4, "render_num_secondary_samples_diff": 4,
+            "cache_train_sampling_strategy": strategy,
+            "cache_render_sampling_strategy": strategy,
+            "net_depth_brdf": 2, "net_width_brdf": 64,
+            "use_brdf_correction": False,
+            **FLAGSHIP_BRDF_HEAD,
+        },
+        resample=True,
+        resample_render=True,
+        num_resample=1,
+        slf_variate=False,
+    )
+
+
+def build_flagship_material_model(config, params=None):
+    return MaterialModel(config=config, **(params or flagship_material_params()))

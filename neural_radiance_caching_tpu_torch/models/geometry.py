@@ -5,6 +5,13 @@ Ported: the first-order path (``disable_density_normals=True``), with or
 without predicted normals. The analytic density normals of the JAX package
 (a VJP inside the forward, differentiated again by the loss) are not on the
 cache slice and are not ported yet.
+
+With ``Config.gradient_checkpointing`` the encoding and trunk of each call
+are recomputed in the backward instead of being kept (the JAX train step's
+rematerialisation): the proposal MLPs' activations at secondary-ray
+fan-outs are the bulk of the material step's memory. The recomputed region
+draws no random numbers, so the recompute sees the same inputs as the
+forward; the hash-grid backward still runs once.
 """
 
 from __future__ import annotations
@@ -12,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from neural_radiance_caching_tpu_torch.models import grids
@@ -123,7 +131,13 @@ class DensityMLP(Configurable, nn.Module):
                 means, covs, rays, tdist, rng, self.unscented_mip_basis, "sqrtm", 0.0)
             control_offsets = control - means[..., None, :]
 
-        raw_density, feat = self.predict_density(means, covs, control_offsets, is_secondary)
+        if self.config is not None and self.config.gradient_checkpointing \
+                and torch.is_grad_enabled():
+            raw_density, feat = torch.utils.checkpoint.checkpoint(
+                self.predict_density, means, covs, control_offsets, is_secondary,
+                use_reentrant=False)
+        else:
+            raw_density, feat = self.predict_density(means, covs, control_offsets, is_secondary)
         density = self.convert_raw_density(raw_density, means)
 
         normals = None

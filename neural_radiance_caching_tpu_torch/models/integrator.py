@@ -1,6 +1,7 @@
 """Volume integrator: composite shader samples into per-ray renderings
-(counterpart of ``VolumeIntegrator`` in ``models/integrator.py``; the colour
-correction net and the transient integrators are not ported yet)."""
+(counterpart of ``VolumeIntegrator`` in ``models/integrator.py``), for the
+cache and, with the material shader's outputs, the material pass; the colour
+correction net and the transient integrators are not ported yet."""
 
 from __future__ import annotations
 

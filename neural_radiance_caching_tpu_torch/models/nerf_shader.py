@@ -61,7 +61,7 @@ class NeRFMLP(shading.BaseShader):
 
     def __init__(self, config=None, density_feature_dim=0, **kwargs):
         super().__init__(config, **kwargs)
-        self._require(use_active=False, use_env_map=False)
+        self._require(use_active=False, use_env_map=False, use_grid=False)
         if config.use_transient or config.multi_illumination:
             raise NotImplementedError("transient and multi-illumination shaders are not ported yet")
         cd = self.compute_dtype

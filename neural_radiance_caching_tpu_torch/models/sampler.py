@@ -4,8 +4,9 @@
 Each level dilates the previous histogram, anneals its logits, draws new
 intervals by inverse-CDF sampling, warps s -> t, lifts them to Gaussians,
 evaluates the level's DensityMLP and composites alpha weights. Ported for
-primary rays with the identity ray warp; the mesh shortcut, the sample
-network, ray-distance warps and the secondary-ray paths are not ported yet.
+primary and secondary rays with the identity ray warp; the mesh shortcut,
+the sample network, ray-distance warps, the secondary-ray normal offset and
+density filters are not ported yet.
 """
 
 from __future__ import annotations
@@ -63,8 +64,12 @@ class ProposalVolumeSampler(Configurable, nn.Module):
     def forward(self, rng, rays, train_frac=1.0, train=True, stopgrad_proposal=False,
                 stopgrad_weights=False, stopgrad_samples=False, sampling_strategy=None,
                 **render_kwargs):
-        if render_kwargs.get("is_secondary", False):
-            raise NotImplementedError("secondary-ray sampling is not ported yet")
+        is_secondary = render_kwargs.get("is_secondary", False)
+        if is_secondary and rays.normals is not None:
+            raise NotImplementedError("the secondary-ray normal offset is not ported yet")
+        if not train and is_secondary:
+            # Secondary rays of an eval render sample deterministically seeded.
+            rng = torch.Generator(device=rays.origins.device).manual_seed(0)
         if sampling_strategy is None:
             sampling_strategy = self.sampling_strategy
         max_mlp = max(level[0] for level in sampling_strategy)

@@ -51,7 +51,8 @@ class SurfaceLightFieldMLP(shading.BaseShader):
 
     def __init__(self, config=None, shader_bottleneck_dim=0, **kwargs):
         super().__init__(config, **kwargs)
-        self._require(use_bottleneck=False, use_shader_bottleneck=True, use_origins=False,
+        self._require(use_grid=False, use_bottleneck=False, use_shader_bottleneck=True,
+                      use_origins=False,
                       use_lights=False, use_points=False, use_sphere_points=False,
                       use_far_field_points=False, use_distance_prediction=False,
                       use_density_prediction=False, use_indirect=False,

@@ -4,8 +4,11 @@
 Forward: per-tap corners, weights and row indices for every level at once,
 then two gathers (dense pool, stacked hash tables), in plain torch. Backward:
 ``_GridEncode``, an autograd Function whose table gradient is one weighted
-scatter-add over all levels (``ops/scatter_cuda.py``: the CUDA kernel for CUDA
-tensors, its plain ``index_add_`` version for CPU tensors).
+scatter-add over all levels (``ops/scatter_cuda.py``: a CUDA kernel for CUDA
+tensors, its plain ``index_add_`` version for CPU tensors). The layout of that
+scatter follows the JAX encoder: below ``PLANES_MIN_POINTS`` sampled points
+the leveled kernel (taps-fastest update rows), at secondary-ray fan-outs the
+planes kernel (point-minor tap planes); ``use_planes_layout`` decides.
 
 Semantics match the JAX encoder bit for bit where they are integer: the
 spatial hash wraps int32 corners to uint32 and multiplies (computed here in
@@ -192,6 +195,17 @@ def _multires_grid_encode_torch(x, hash_tables, dense_pool, *, grid_sizes, table
     return _reduce_multisamples(f, batch_shape, m, multisample_reduce)
 
 
+# Point count (points x multisamples) from which the 'mean' backward takes the
+# plane-layout scatter, as the JAX encoder's threshold of the same value.
+PLANES_MIN_POINTS = 1 << 20
+
+
+def use_planes_layout(num_points, multisample_reduce):
+    """True when a backward over `num_points` sampled points (points x
+    multisamples) scatters from tap planes rather than taps-fastest rows."""
+    return multisample_reduce == "mean" and num_points >= PLANES_MIN_POINTS
+
+
 def _dense_level_heights(dense_offsets, total):
     """Per-level row counts of the flat dense pool."""
     return [
@@ -200,25 +214,23 @@ def _dense_level_heights(dense_offsets, total):
     ]
 
 
-def _table_grads(rows, weights, ct_plf, dense_pool, table_size, dense_offsets, scatter_fn):
-    """Table gradients from per-(point, level) cotangents [P, L, F], in one
-    scatter over all levels (one kernel launch per encoder backward).
+def _split_levels(out, num_dense, heights, table_size):
+    """[L, rows, F] per-level accumulators -> (dense pool grad, hash tables grad)."""
+    d_grad = torch.cat([out[li, :h] for li, h in enumerate(heights)]) if num_dense else None
+    h_grad = out[num_dense:, :table_size] if out.shape[0] > num_dense else None
+    return d_grad, h_grad
+
+
+def _scatter_shape(rows, dense_pool, table_size, dense_offsets):
+    """(num_rows, per-level dense heights) of the one scatter over all levels.
 
     Dense levels use their local rows in full-height accumulators and are
     sliced back to their true heights afterwards; hash levels keep T rows.
     """
-    num_levels, corners = rows.shape[1], rows.shape[2]
     num_dense = len(dense_offsets)
     heights = _dense_level_heights(dense_offsets, dense_pool.shape[0]) if num_dense else []
-    num_rows = max(heights + ([table_size] if num_levels > num_dense else []))
-    out = scatter_fn(
-        rows.permute(1, 0, 2).reshape(num_levels, -1).contiguous(),
-        weights.permute(1, 0, 2).reshape(num_levels, -1).to(torch.float32).contiguous(),
-        ct_plf.permute(1, 0, 2).to(torch.float32).contiguous(),
-        num_rows=num_rows, features=ct_plf.shape[-1], corners=corners)
-    d_grad = torch.cat([out[li, :h] for li, h in enumerate(heights)]) if num_dense else None
-    h_grad = out[num_dense:, :table_size] if num_levels > num_dense else None
-    return d_grad, h_grad
+    num_rows = max(heights + ([table_size] if rows.shape[1] > num_dense else []))
+    return num_rows, heights
 
 
 class _GridEncode(torch.autograd.Function):
@@ -228,7 +240,7 @@ class _GridEncode(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, hash_tables, dense_pool, x_scale, statics):
         (grid_sizes, table_size, dense_offsets, multisample_reduce, interpolation,
-         scatter_fn) = statics
+         _, _) = statics
         batch_shape, m = tuple(x.shape[:-2]), x.shape[-2]
         xs = None if x_scale is None else x_scale.reshape(-1, 1)
         rows, weights = _tap_rows_and_weights(
@@ -243,20 +255,41 @@ class _GridEncode(torch.autograd.Function):
     def backward(ctx, ct):
         x, x_scale, rows, weights, hash_tables, dense_pool = ctx.saved_tensors
         (grid_sizes, table_size, dense_offsets, multisample_reduce, interpolation,
-         scatter_fn) = ctx.statics
+         scatter_fn, planes_fn) = ctx.statics
         batch_shape, m = ctx.shape_info
         num_levels = len(grid_sizes)
 
         d_grad = h_grad = None
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            # One scatter over all levels (one kernel launch per backward).
             # The mean over multisamples hands each (point, multisample) 1/m
             # of the point's cotangent.
             nf = ct.shape[-1] // num_levels
-            ct_pm = (ct.reshape(batch_shape + (1, num_levels, nf)) / m).expand(
-                batch_shape + (m, num_levels, nf))
-            d_grad, h_grad = _table_grads(
-                rows, weights, ct_pm.reshape(-1, num_levels, nf), dense_pool,
-                table_size, dense_offsets, scatter_fn)
+            corners = rows.shape[2]
+            num_rows, heights = _scatter_shape(rows, dense_pool, table_size, dense_offsets)
+            w = weights.to(torch.float32)
+            if use_planes_layout(rows.shape[0], multisample_reduce):
+                # Tap planes [L, U, points] and cotangent planes [L, F, points],
+                # one column per (point, multisample), m-minor as the
+                # x.reshape(-1, 3) flattening of the forward.
+                ct_planes = (ct.reshape(-1, num_levels, nf) / m).permute(1, 2, 0)
+                if m > 1:
+                    ct_planes = ct_planes.repeat_interleave(m, dim=-1)
+                out = planes_fn(
+                    rows.permute(1, 2, 0).contiguous(), w.permute(1, 2, 0).contiguous(),
+                    ct_planes.to(torch.float32).contiguous(),
+                    num_rows=num_rows, features=nf, corners=corners)
+            else:
+                # Update rows [L, points * U] (taps fastest) and cotangent
+                # rows [L, points, F].
+                ct_pm = (ct.reshape(batch_shape + (1, num_levels, nf)) / m).expand(
+                    batch_shape + (m, num_levels, nf)).reshape(-1, num_levels, nf)
+                out = scatter_fn(
+                    rows.permute(1, 0, 2).reshape(num_levels, -1).contiguous(),
+                    w.permute(1, 0, 2).reshape(num_levels, -1).contiguous(),
+                    ct_pm.permute(1, 0, 2).to(torch.float32).contiguous(),
+                    num_rows=num_rows, features=nf, corners=corners)
+            d_grad, h_grad = _split_levels(out, len(dense_offsets), heights, table_size)
 
         dx = dxs = None
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[3]:
@@ -292,20 +325,25 @@ def multires_grid_encode(
     multisample_reduce: Optional[str] = "mean",
     interpolation: str = "trilinear",
     scatter_fn=None,
+    planes_scatter_fn=None,
 ):
     """Public encoder: gather forward, weighted-scatter table backward.
 
     See _multires_grid_encode_torch for argument semantics. ``scatter_fn``
-    picks the table-gradient scatter for this call; the default,
-    ``scatter_cuda.scatter_add_weighted_leveled``, launches the CUDA kernel on
-    CUDA tensors and runs its plain version on CPU tensors.
+    and ``planes_scatter_fn`` pick the leveled and the plane-layout
+    table-gradient scatter for this call; the defaults,
+    ``scatter_cuda.scatter_add_weighted_leveled`` and
+    ``scatter_cuda.scatter_add_weighted_planes``, launch the CUDA kernels on
+    CUDA tensors and run their plain versions on CPU tensors.
     """
-    if scatter_fn is None:
-        from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+    from neural_radiance_caching_tpu_torch.ops import scatter_cuda
 
+    if scatter_fn is None:
         scatter_fn = scatter_cuda.scatter_add_weighted_leveled
+    if planes_scatter_fn is None:
+        planes_scatter_fn = scatter_cuda.scatter_add_weighted_planes
     grid_sizes = tuple(int(s) for s in np.asarray(grid_sizes).tolist())
     dense_offsets = tuple(int(o) for o in dense_offsets)
     statics = (grid_sizes, int(table_size), dense_offsets, multisample_reduce,
-               interpolation, scatter_fn)
+               interpolation, scatter_fn, planes_scatter_fn)
     return _GridEncode.apply(x, hash_tables, dense_pool, x_scale, statics)

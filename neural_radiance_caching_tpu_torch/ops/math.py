@@ -31,6 +31,13 @@ def dot(x, y, axis=-1, keepdims=True):
     return (x * y).sum(dim=axis, keepdim=keepdims)
 
 
+def normalize(x, eps=0.0):
+    denom = torch.linalg.norm(x, dim=-1, keepdim=True)
+    if eps:
+        denom = torch.clamp(denom, min=eps)
+    return x / denom
+
+
 def safe_sign(x):
     """sign(x) with sign(0) := +1."""
     return torch.where(x < 0, -1.0, 1.0).to(x.dtype)

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from neural_radiance_caching_tpu_torch.ops import math
+from neural_radiance_caching_tpu_torch.utils import torchutil
 
 _F32_EPS = float(np.finfo(np.float32).eps)
 _INF = float("inf")
@@ -71,7 +72,7 @@ def sample(rng, t, w_logits, num_samples, single_jitter=False,
         stride = span / (num_samples - 1)
         anchors = stride * torch.arange(num_samples, **kw)
         jitter_shape = t.shape[:-1] + ((1,) if single_jitter else (num_samples,))
-        u = anchors + torch.rand(jitter_shape, generator=rng, **kw) * (stride - eps)
+        u = anchors + torchutil.uniform(rng, jitter_shape, t.device, t.dtype) * (stride - eps)
     return invert_cdf(u, t, w_logits)
 
 

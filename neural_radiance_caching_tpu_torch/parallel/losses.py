@@ -1,7 +1,8 @@
-"""Losses for the cache stage (counterpart of the part of
-``parallel/losses.py`` the slice reaches): the Charbonnier data loss, the
-spline interlevel loss, distortion, the predicted-normal regularizers and
-gradient clipping. Loss types off the slice raise."""
+"""Losses of the cache and material stages (counterpart of the part of
+``parallel/losses.py`` the slices reach): the Charbonnier and the
+gradient-debiased RawNeRF data losses, the spline interlevel loss,
+distortion, the predicted-normal regularizers and gradient clipping. Loss
+types off the slices raise."""
 
 from __future__ import annotations
 
@@ -37,11 +38,38 @@ def compute_loss_charb(rendering, gt, config):
     return torch.sqrt((rendering["rgb"] - gt) ** 2 + config.charb_padding**2)
 
 
-def select_data_loss_fn(config, rendering, gt):
-    """Dispatch on config.data_loss_type (only the cache stage's charb is ported)."""
-    if config.data_loss_type != "charb":
-        raise NotImplementedError(f"data loss type {config.data_loss_type!r} is not ported yet")
-    return compute_loss_charb(rendering, gt, config)
+def _rawnerf_scaling(rendering, gt, config, clip_val, exponent, eps):
+    """1 / (sg(clipped rendered rgb)^exponent + eps)."""
+    if config.use_gt_rawnerf or config.use_combined_rawnerf or config.use_norm_rawnerf:
+        raise NotImplementedError("the gt, combined and norm RawNeRF scalings are not ported yet")
+    # The material model's rendering carries the cache's rgb, which scales its loss.
+    key = "cache_rgb" if "cache_rgb" in rendering else "rgb"
+    rgb_clip = torch.clamp(rendering[key], 0.0, clip_val)
+    return 1.0 / (torch.pow(rgb_clip.detach(), exponent) + eps)
+
+
+def compute_unbiased_loss(rendering, gt):
+    """Gradient-debiased squared error: 2 (x - gt) sg(x' - gt), with x' from
+    an independent second forward."""
+    diff = rendering["rgb"] - gt
+    diff_nocorr = rendering["rgb_nocorr"] - gt
+    return 2 * diff * diff_nocorr.detach()
+
+
+def compute_unbiased_loss_rawnerf(rendering, gt, config, clip_val=10000.0, exponent=1.0,
+                                  eps=1e-3):
+    scale = _rawnerf_scaling(rendering, gt, config, clip_val, exponent, eps)
+    return compute_unbiased_loss(rendering, gt) * scale
+
+
+def select_data_loss_fn(config, rendering, gt, rawnerf_eps, rawnerf_exponent):
+    """Dispatch on config.data_loss_type (charb and rawnerf_unbiased are ported)."""
+    if config.data_loss_type == "charb":
+        return compute_loss_charb(rendering, gt, config)
+    if config.data_loss_type == "rawnerf_unbiased":
+        return compute_unbiased_loss_rawnerf(
+            rendering, gt, config, eps=rawnerf_eps, exponent=rawnerf_exponent)
+    raise NotImplementedError(f"data loss type {config.data_loss_type!r} is not ported yet")
 
 
 def compute_data_loss(batch, rendering, rays, config, main=False):
@@ -64,11 +92,13 @@ def compute_data_loss(batch, rendering, rays, config, main=False):
             masks = masks[..., None, :]
     else:
         masks = torch.ones_like(lossmult)
-    if config.mask_lossmult:
+    unbiased = "unbiased" in config.data_loss_type
+    if config.mask_lossmult or unbiased:
         lossmult = lossmult * masks
-        lossmult = lossmult + lossmult * (1.0 - masks) * config.mask_lossmult_weight
+        if not unbiased:
+            lossmult = lossmult + lossmult * (1.0 - masks) * config.mask_lossmult_weight
 
-    if main and config.use_loss_clip:
+    if main and config.use_loss_clip and not unbiased:
         clip = lambda x: torch.clamp(x, config.loss_clip_min, config.loss_clip)
         rendering["rgb"] = clip(rendering["rgb"])
         gt = clip(gt)
@@ -80,7 +110,12 @@ def compute_data_loss(batch, rendering, rays, config, main=False):
         resid_sq = (rendering["rgb"] - gt) ** 2
     mse = (masks * lossmult * resid_sq).mean()
 
-    data_loss = select_data_loss_fn(config, rendering, gt)
+    rendering.setdefault("rgb_nocorr", rendering["rgb"])
+    if config.is_material:
+        exponent, eps = config.rawnerf_exponent_material, config.rawnerf_eps_material
+    else:
+        exponent, eps = config.rawnerf_exponent, config.rawnerf_eps
+    data_loss = select_data_loss_fn(config, rendering, gt, eps, exponent)
     sub_loss = (lossmult * data_loss).mean()
     stats["mses"].append(mse * config.data_loss_mult)
     return sub_loss, {k: torch.stack(v) for k, v in stats.items()}

@@ -5,6 +5,13 @@ optimizer is ``torch.optim.Adam``, which places eps exactly as the JAX
 package's Adam does; every step sets the learning rate from ``learning_rate_decay``
 evaluated at the step count before the update (the JAX optimizer's
 schedule convention).
+
+Losses cover every model output whose key ends in ``main`` (the material
+model's ``cache_main`` and ``main``), each with the loss type and weight
+its target carries. ``Config.use_gradient_debias`` runs the second,
+independent forward of the gradient-debiased losses;
+``Config.gradient_checkpointing`` is read by the density MLPs, which
+recompute their activations in the backward (``models/geometry.py``).
 """
 
 from __future__ import annotations
@@ -47,23 +54,37 @@ def create_optimizer(config, model):
     return TrainState(model=model, optimizer=optimizer, lr_fn=lr_fn), lr_fn
 
 
-def _compute_losses_for_output(batch, rays, model_results, config, train_frac, losses, stats):
-    """Losses over the 'main' results dict."""
-    results = model_results["main"]
-    rendering = model_results["render"]
-    data_loss, data_stats = losses_lib.compute_data_loss(batch, rendering, rays, config, main=True)
-    losses["data"] = config.data_loss_mult * data_loss
-    stats.update(data_stats)
+def _compute_losses_for_output(batch, rays, model_results, config, train_frac, main_name,
+                               losses, stats):
+    """Losses over one 'main'-style results dict, under its own loss type,
+    weight and sRGB flag; geometry losses only where it has a sampler."""
+    results = model_results[main_name]
+    rendering = model_results["render"] if main_name == "main" else results["integrator"]
+    prefix = "" if main_name == "main" else main_name.replace("main", "")
+    out_config, loss_weight = config, 1.0
+    if "loss_type" in results:
+        out_config = dataclasses.replace(
+            config, data_loss_type=results["loss_type"],
+            linear_to_srgb=results.get("linear_to_srgb", config.linear_to_srgb),
+            is_material=(main_name == "main" and results.get("sampler") is None))
+        loss_weight = results.get("loss_weight", 1.0)
+    data_loss, data_stats = losses_lib.compute_data_loss(
+        batch, rendering, rays, out_config, main=(main_name == "main"))
+    losses[prefix + "data"] = config.data_loss_mult * loss_weight * data_loss
+    for k, v in data_stats.items():
+        stats[prefix + k] = v
 
     ray_history = results["sampler"]
     last = results["geometry"]
+    if ray_history is None or last is None:
+        return losses, stats
     if any(m > 0 for m in config.interlevel_loss_mults):
         interlevel = losses_lib.compute_interlevel_loss(
             ray_history, config.interlevel_loss_mults, config.interlevel_loss_blurs, config)
         for i, loss in enumerate(interlevel):
-            losses[f"interlevel_{i}"] = loss
+            losses[f"{prefix}interlevel_{i}"] = loss
     if config.distortion_loss_mult > 0:
-        losses["distortion"] = losses_lib.compute_distortion_loss(
+        losses[prefix + "distortion"] = losses_lib.compute_distortion_loss(
             ray_history, config.distortion_loss_mult, config)
 
     decay = losses_lib.compute_weight_decay(
@@ -78,12 +99,12 @@ def _compute_losses_for_output(batch, rays, model_results, config, train_frac, l
         config.normal_weight_ease_frac, config.normal_weight_ease_min) * decay_bwd
     beta = torch.ones_like(last["weights"][..., None])
     if config.predicted_normal_loss_mult > 0:
-        losses["predicted_normals"] = losses_lib.predicted_normal_loss(
+        losses[prefix + "predicted_normals"] = losses_lib.predicted_normal_loss(
             last, beta, config, mult=config.predicted_normal_loss_mult * ease,
             gt="normals_pred", pred="normals", stopgrad=config.predicted_normal_loss_stopgrad,
             stopgrad_weight=config.predicted_normal_loss_stopgrad_weight)
     if config.predicted_normal_reverse_loss_mult > 0:
-        losses["predicted_normals_reverse"] = losses_lib.predicted_normal_loss(
+        losses[prefix + "predicted_normals_reverse"] = losses_lib.predicted_normal_loss(
             last, beta, config, mult=config.predicted_normal_reverse_loss_mult * ease_bwd,
             gt="normals", pred="normals_pred", stopgrad=True)
     return losses, stats
@@ -91,8 +112,6 @@ def _compute_losses_for_output(batch, rays, model_results, config, train_frac, l
 
 def _check_config(config):
     unported = {
-        "use_gradient_debias": config.use_gradient_debias,
-        "gradient_checkpointing": config.gradient_checkpointing,
         "cast_rays_in_train_step": config.cast_rays_in_train_step,
         "debug_mode": config.debug_mode,
         "orientation_loss_mult": config.orientation_loss_mult > 0,
@@ -107,6 +126,24 @@ def _check_config(config):
         raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
 
 
+def _debias_forward(model, rng, rays, train_frac, model_results):
+    """The gradient-debias second forward: independent secondary-ray draws
+    over the same cache sampler results; its rgb becomes `rgb_nocorr`.
+
+    The data losses read `rgb_nocorr` only under a stop-gradient, and the
+    losses that would read the pass's shader outputs (consistency, residual
+    albedo) are extra losses, which _check_config refuses. So the pass runs
+    without a graph: the torch counterpart of the dead-code elimination that
+    drops its backward under XLA. That keeps its activations out of memory
+    and its encoders out of the backward.
+    """
+    with torch.no_grad():
+        nocorr = model(rng, rays, train_frac=train_frac, train=True, compute_extras=False,
+                       cache_outputs={"sampler": model_results["cache_main"]["sampler"]},
+                       filtered_sampler_inds=model_results["cache_main"]["filtered_sampler_inds"])
+    model_results["render"]["rgb_nocorr"] = nocorr["render"]["rgb"]
+
+
 def create_train_step(model, config):
     """Build the train step: (rng, state, batch, train_frac) -> (state, stats).
 
@@ -119,9 +156,13 @@ def create_train_step(model, config):
     def loss_fn(rng, batch, train_frac):
         rays = batch.rays
         model_results = model(rng, rays, train_frac=train_frac, train=True, compute_extras=False)
+        if config.use_gradient_debias and "cache_main" in model_results:
+            _debias_forward(model, rng, rays, train_frac, model_results)
         losses: Dict[str, Any] = {}
         stats: Dict[str, Any] = {}
-        _compute_losses_for_output(batch, rays, model_results, config, train_frac, losses, stats)
+        for key in sorted(k for k in model_results if k.endswith("main")):
+            _compute_losses_for_output(batch, rays, model_results, config, train_frac, key,
+                                       losses, stats)
         total = sum(losses.values())
         stats["losses"] = losses
         return total, stats

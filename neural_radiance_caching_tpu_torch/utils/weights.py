@@ -2,8 +2,10 @@
 
 ``state_dict_from_jax`` turns the JAX package's parameter tree (nested dicts
 of numpy arrays, as ``jax.device_get(variables)`` gives them) into this package's
-``state_dict`` for a given module. Every leaf maps to exactly one key and
-every key must be filled; a leaf left over raises. JAX ``Dense`` kernels
+``state_dict`` for a given module: the cache model's tree, or the material
+model's (``Cache/...``, ``LightSampler/...``, ``MaterialShader/...``).
+Every leaf maps to exactly one key and every key must be filled; a leaf left
+over raises. JAX ``Dense`` kernels
 ``[in, out]`` become torch weights ``[out, in]``; the hash and dense tables
 are copied as they are.
 """
@@ -16,11 +18,16 @@ import numpy as np
 import torch
 
 _FIXED = {
+    "Cache": "cache",
+    "LightSampler": "light_sampler",
+    "MaterialShader": "shader",
     "Sampler": "sampler",
     "Shader": "shader",
     "Integrator": "integrator",
     "SurfaceLightField": "surface_lf",
     "density_grid": "grid",
+    "light_grid": "grid",
+    "material_grid": "grid",
     "kernel": "weight",
 }
 

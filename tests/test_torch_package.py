@@ -1,6 +1,6 @@
 """Package boundaries of the PyTorch port: it imports without JAX, its
 sources name no JAX library, and the weight bridge covers every leaf of the
-full-width flagship cache model in both directions."""
+full-width flagship cache and material models in both directions."""
 
 import importlib
 import pathlib
@@ -98,3 +98,34 @@ def test_unknown_and_unported_options_raise():
         NeRFModel(config=cfg, bogus=1, **flagship.flagship_cache_params())
     with pytest.raises(NotImplementedError, match="resample"):
         NeRFModel(config=cfg, resample=True, **flagship.flagship_cache_params())
+
+
+def test_bridge_covers_every_flagship_material_leaf():
+    import dataclasses
+
+    jcfg = dataclasses.replace(bench._cache_config(), batch_size=1536)
+    jmodel = bench.build_flagship_material_model(jcfg)
+    shapes = jax.eval_shape(lambda: jmodel.init(
+        jax.random.PRNGKey(0), jax.random.PRNGKey(1), jpytrees.dummy_rays(4), train_frac=1.0,
+        train=False))
+    tree = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), shapes)
+    tmodel = flagship.build_flagship_material_model(flagship.material_config())
+    sd = weights.state_dict_from_jax(tree, tmodel)
+    leaves = jax.tree_util.tree_leaves(tree)
+    assert len(sd) == len(leaves) == len(tmodel.state_dict())
+    assert sum(v.numel() for v in sd.values()) == sum(x.size for x in leaves)
+    grid = tree["params"]["MaterialShader"]["material_grid"]
+    assert tuple(sd["shader.grid.hash_levels"].shape) == grid["hash_levels"].shape
+    assert tuple(sd["light_sampler.output_layer.weight"].shape) == \
+        tree["params"]["LightSampler"]["output_layer"]["kernel"].shape[::-1]
+    tmodel.load_state_dict(sd)
+
+
+def test_unported_material_options_raise():
+    cfg = flagship.material_config()
+    params = flagship.flagship_material_params()
+    with pytest.raises(NotImplementedError, match="slf_variate"):
+        flagship.build_flagship_material_model(cfg, dict(params, slf_variate=True))
+    shader = dict(params["shader_params"], use_active=True)
+    with pytest.raises(NotImplementedError, match="use_active"):
+        flagship.build_flagship_material_model(cfg, dict(params, shader_params=shader))

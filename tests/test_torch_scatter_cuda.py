@@ -1,6 +1,7 @@
-"""The table-gradient scatter wrapper (``ops/scatter_cuda.py``): its plain
-version against a numpy one-hot sum, its argument checks, and, on a CUDA
-device, the hand-written kernel against the plain version.
+"""The table-gradient scatter wrappers (``ops/scatter_cuda.py``): the
+leveled plain version against a numpy one-hot sum, its argument checks, and,
+on a CUDA device, both hand-written kernels (leveled and planes) against
+their plain versions.
 
 This file imports no JAX, so the GPU-marked tests also run on a machine
 without it: ``python -m pytest --noconftest tests/test_torch_scatter_cuda.py``.
@@ -38,7 +39,7 @@ def _numpy_scatter(idx, w, ct, rows, corners):
 @pytest.mark.parametrize("corners,features", [(4, 4), (8, 2), (4, 1)])
 def test_plain_scatter_matches_numpy_one_hot(corners, features):
     idx, w, ct = _scatter_case(6, corners=corners, features=features)
-    before = scatter_cuda.launches
+    before = dict(scatter_cuda.launches)
     out = scatter_cuda.scatter_add_weighted_leveled(
         torch.as_tensor(idx), torch.as_tensor(w), torch.as_tensor(ct), num_rows=256,
         features=features, corners=corners)
@@ -82,15 +83,34 @@ def test_cuda_kernel_matches_plain_version(corners, features):
     idx, w, ct = (torch.as_tensor(a).cuda() for a in _scatter_case(
         8, levels=3, points=4096, corners=corners, rows=128, features=features))
     kw = dict(num_rows=128, features=features, corners=corners)
-    before = scatter_cuda.launches
+    before = scatter_cuda.launches["leveled"]
     got = scatter_cuda.scatter_add_weighted_leveled(idx, w, ct, **kw)
     torch.cuda.synchronize()
-    assert scatter_cuda.launches == before + 1
+    assert scatter_cuda.launches["leveled"] == before + 1
     want = scatter_cuda.scatter_add_weighted_leveled_plain(idx, w, ct, **kw)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
-_BAD_ROW_ON_CUDA = """
+@pytest.mark.gpu
+@pytest.mark.parametrize("corners,features", [(4, 4), (8, 2), (4, 1)])
+def test_cuda_planes_kernel_matches_plain_version(corners, features):
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    idx = torch.randint(0, 128, (3, corners, 4096), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    w = torch.rand(3, corners, 4096, generator=gen, device="cuda")
+    ct = torch.randn(3, features, 4096, generator=gen, device="cuda")
+    kw = dict(num_rows=128, features=features, corners=corners)
+    before = scatter_cuda.launches["planes"]
+    got = scatter_cuda.scatter_add_weighted_planes(idx, w, ct, **kw)
+    torch.cuda.synchronize()
+    assert scatter_cuda.launches["planes"] == before + 1
+    want = scatter_cuda.scatter_add_weighted_planes_plain(idx, w, ct, **kw)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+_BAD_ROW_ON_CUDA = {
+    "leveled": """
 import torch
 from neural_radiance_caching_tpu_torch.ops import scatter_cuda
 idx = torch.zeros(2, 64, dtype=torch.int32, device="cuda")
@@ -101,11 +121,25 @@ try:
     torch.cuda.synchronize()
 except RuntimeError as e:
     print("raised:", e)
-"""
+""",
+    "planes": """
+import torch
+from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+idx = torch.zeros(2, 4, 16, dtype=torch.int32, device="cuda")
+idx[1, 2, 5] = 300
+w, ct = torch.ones(2, 4, 16, device="cuda"), torch.ones(2, 4, 16, device="cuda")
+scatter_cuda.scatter_add_weighted_planes(idx, w, ct, num_rows=256, features=4, corners=4)
+try:
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised:", e)
+""",
+}
 
 
 @pytest.mark.gpu
-def test_cuda_kernel_asserts_on_out_of_range_row():
+@pytest.mark.parametrize("kernel", sorted(_BAD_ROW_ON_CUDA))
+def test_cuda_kernel_asserts_on_out_of_range_row(kernel):
     # A device assert leaves the CUDA context unusable, so it runs in a
     # process of its own.
     import subprocess
@@ -114,7 +148,7 @@ def test_cuda_kernel_asserts_on_out_of_range_row():
 
     _need_cuda()
     scatter_cuda.build_library()
-    proc = subprocess.run([sys.executable, "-c", _BAD_ROW_ON_CUDA], capture_output=True,
+    proc = subprocess.run([sys.executable, "-c", _BAD_ROW_ON_CUDA[kernel]], capture_output=True,
                           text=True, timeout=300, cwd=Path(__file__).resolve().parent.parent)
     assert "raised:" in proc.stdout, (proc.stdout, proc.stderr)
     # The device prints the failed assertion (to stdout or stderr, by driver).
@@ -122,7 +156,7 @@ def test_cuda_kernel_asserts_on_out_of_range_row():
 
 
 @pytest.mark.gpu
-def test_cuda_encoder_backward_matches_plain_backward():
+def test_cuda_encoder_backward_matches_plain_backward(monkeypatch):
     _need_cuda()
     gen = torch.Generator(device="cuda").manual_seed(0)
     grid_sizes, table_size, dense_offsets = (8, 16, 32, 64), 4096, (0, 512)
@@ -130,11 +164,19 @@ def test_cuda_encoder_backward_matches_plain_backward():
     tables = torch.randn(2, table_size, 4, device="cuda", generator=gen).requires_grad_()
     x = torch.rand(2048, 1, 3, device="cuda", generator=gen) * 1.2 - 0.1
     ct = torch.randn(2048, 16, device="cuda", generator=gen)
-    grads = []
-    for scatter_fn in (None, scatter_cuda.scatter_add_weighted_leveled_plain):
-        f = hashgrid.multires_grid_encode(
-            x, tables, dense, grid_sizes=grid_sizes, table_size=table_size,
-            dense_offsets=dense_offsets, interpolation="simplex", scatter_fn=scatter_fn)
-        grads.append(torch.autograd.grad(f, (tables, dense), ct))
-    for a, b in zip(*grads):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
+    threshold = hashgrid.PLANES_MIN_POINTS
+    for layout in ("leveled", "planes"):
+        # The planes layout is taken from PLANES_MIN_POINTS sampled points on.
+        monkeypatch.setattr(hashgrid, "PLANES_MIN_POINTS", 1 if layout == "planes" else threshold)
+        grads = []
+        before = scatter_cuda.launches[layout]
+        for fns in ((None, None), (scatter_cuda.scatter_add_weighted_leveled_plain,
+                                   scatter_cuda.scatter_add_weighted_planes_plain)):
+            f = hashgrid.multires_grid_encode(
+                x, tables, dense, grid_sizes=grid_sizes, table_size=table_size,
+                dense_offsets=dense_offsets, interpolation="simplex", scatter_fn=fns[0],
+                planes_scatter_fn=fns[1])
+            grads.append(torch.autograd.grad(f, (tables, dense), ct))
+        assert scatter_cuda.launches[layout] == before + 1
+        for a, b in zip(*grads):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
