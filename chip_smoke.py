@@ -1,10 +1,11 @@
 """Bring-up check of the PyTorch port on one CUDA GPU.
 
-    python3 chip_smoke.py [--seed N] [--steps N] [--material-steps N] [--profile FILE]
+    python3 chip_smoke.py [--seed N] [--steps N] [--material-steps N]
+                          [--transient-steps N] [--profile FILE]
 
 Phases, one line each (any failure exits nonzero):
   1. device: the card, and nvidia-smi's name and power limit;
-  2. build: compile the two CUDA scatter kernels from csrc/ with nvcc, in
+  2. build: compile the three CUDA sources from csrc/ with nvcc, in
      parallel;
   3. kernel: the leveled kernel against its plain PyTorch version at the
      flagship cache shape (6 levels x 262,144 points x 4 taps, F = 4,
@@ -12,27 +13,46 @@ Phases, one line each (any failure exits nonzero):
   4. kernel (planes): the planes kernel against its plain version at the
      flagship material shape (6 levels x 1,572,864 secondary-ray samples x
      4 taps), with the leveled kernel checked and timed on the same updates;
-  5. encoder: hash-grid table gradients, kernel backward against the plain
+  5. kernel (rows): the row scatter against its plain version on the
+     run-deduplicated update stream of the flagship cache shape (camera-ray
+     samples, 6 x 1,048,576 updates), and its padded wrapper at a ragged
+     update count;
+  6. encoder: hash-grid table gradients, kernel backward against the plain
      backward, at the cache shape (leveled) and the material shape (planes);
-  6. reference: a narrow cache model with the flagship's structure, the same
+  7. reference: a narrow cache model with the flagship's structure, the same
      weights on the GPU and on the CPU (whose path the CPU tests hold
      against the JAX package), loss and gradients compared; the gradient
      limit is checked against a noise floor and two planted scatter faults;
-  7. material reference: the same for a narrow material model, with the
+  8. material reference: the same for a narrow material model, with the
      same random draws on both devices, the secondary-ray encoder on the
      planes kernel, and the faults planted in the planes kernel;
-  8. train: the full-width flagship cache model, batch 8192 on
+  9. transient reference: the same for a narrow transient cache model, once
+     with the direct table-gradient scatter and once with its run-dedup (the
+     faults planted in the leveled kernel and in its skip instance); the
+     dedup and direct table gradients on the card agree to float32 order;
+ 10. train: the full-width flagship cache model, batch 8192 on
      SyntheticSpheres (8 views, 128^2): 3 warmup + N timed steps; losses
      finite, every parameter the passive shader reads changed, one kernel
      launch per step;
-  9. material train: the full-width flagship material model, batch 1536 on
+ 11. material train: the full-width flagship material model, batch 1536 on
      the same scene: first one step in which every scatter call is held
      against its plain version on the same inputs (both kernels at the
      shapes this path gives them), then 3 warmup + N timed steps with
      gradient checkpointing
      (the JAX setting), then one step without it for its peak memory;
      losses finite, exactly the parameters no loss reaches unchanged, the
-     per-step launch counts of both kernels as the model's structure gives.
+     per-step launch counts of both kernels as the model's structure gives;
+ 12. transient train: the full-width flagship transient cache model, batch
+     2048 x 700 bins on SyntheticSpheres (4 views, 64^2), with the direct
+     backward and with scatter_dedup: one checked step each, then 3 warmup
+     and N timed steps each in alternating blocks; losses finite, exactly the
+     parameters no loss reaches unchanged, the pinned per-step launches,
+     peak memory; then one forward + backward of the transient rendering at
+     [2048, 32, 700, 3] for each shift form;
+ 13. kernel (skip): the skip-zero-weight instance against its plain version
+     on the dedup'd stream of the transient path's own updates (captured in
+     phase 12's checked step), with NaN rows planted under the zero weights,
+     the share of zero-weight updates, and both scatter routes timed.
 Then the kernels JSON line, the nvidia-smi line, and the result line.
 """
 
@@ -87,13 +107,42 @@ def _cuda_ms(fn, repeats=11, warmup=2):
     return statistics.median(times)
 
 
-def _abs_sum_bound(idx, w, ct, num_rows, corners, plain=None):
+def _abs_sum_bound(idx, w, ct, num_rows, corners, plain=None, **kw):
     """Per-entry sum of |w * ct| over the updates it receives."""
     from neural_radiance_caching_tpu_torch.ops import scatter_cuda
 
     plain = plain or scatter_cuda.scatter_add_weighted_leveled_plain
     features = ct.shape[-1] if idx.dim() == 2 else ct.shape[1]
-    return plain(idx, w.abs(), ct.abs(), num_rows=num_rows, features=features, corners=corners)
+    return plain(idx, w.abs(), ct.abs(), num_rows=num_rows, features=features, corners=corners,
+                 **kw)
+
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
+# bytes/s and float32 FLOP/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+
+
+def _bound(nbytes, flops):
+    """(bound_ms, bound_by): the least time for `nbytes` of device memory
+    traffic (each input read once, each output written once) and `flops`
+    float32 operations, and which of the two sets it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _index_add_call(idx, rows, num_rows):
+    """One PyTorch call of a row scatter's sum, for `library_ms`: index_add_
+    of the update rows [L, N, F] (for a weighted scatter, the products
+    w * ct formed beforehand) into a fresh flat [L * num_rows, F] table."""
+    import torch
+
+    levels, features = idx.shape[0], rows.shape[-1]
+    offsets = torch.arange(levels, device=idx.device, dtype=torch.int64)[:, None] * num_rows
+    flat_idx = (idx.reshape(levels, -1).to(torch.int64) + offsets).reshape(-1)
+    flat_rows = rows.reshape(-1, features).contiguous()
+    return lambda: torch.zeros(levels * num_rows, features, device=rows.device).index_add_(
+        0, flat_idx, flat_rows)
 
 
 # Float32 sums of the same terms in another order (atomics vs index_add_)
@@ -130,14 +179,22 @@ def phase_kernel(torch, device, seed):
     del rows, weights
     ms = _cuda_ms(lambda: scatter_cuda.scatter_add_weighted_leveled(idx, w, ct, **kw))
     plain_ms = _cuda_ms(lambda: scatter_cuda.scatter_add_weighted_leveled_plain(idx, w, ct, **kw))
+    library_ms = _cuda_ms(_index_add_call(
+        idx, w[..., None] * ct.repeat_interleave(corners, dim=1), num_rows))
+    n = levels * points * corners
+    bound_ms, bound_by = _bound(4 * (2 * n + levels * points * features
+                                     + levels * num_rows * features), 2 * n * features)
     print(f"kernel: scatter_add_weighted_leveled L={levels} P={points} U={corners} F={features} "
           f"rows={num_rows} (16^3 level: max {hot} updates on one row) "
           f"max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} "
           f"tol=|err|<={SUM_ORDER_TOL}*sum|w*ct| {'ok' if ok else 'FAIL'} "
-          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} (median of 11, CUDA events)", flush=True)
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms(index_add_ of w*ct rows)="
+          f"{library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) (median of 11, CUDA events)",
+          flush=True)
     if not ok:
         raise AssertionError("kernel disagrees with its plain version")
-    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def phase_encoder(torch, device, seed):
@@ -204,7 +261,9 @@ GRAD_REL_L2_TOL = 5e-2
 
 def _planted_fault(fault, kind="leveled"):
     """A scatter with a deliberate fault, for the reference phases' check
-    that their gradient limit would catch one."""
+    that their gradient limit would catch one. On the dedup'd stream (one
+    update per row, corners 1), "taps rotated" moves each update's weight to
+    the next update."""
     from neural_radiance_caching_tpu_torch.ops import scatter_cuda
 
     real = getattr(scatter_cuda, f"scatter_add_weighted_{kind}")
@@ -212,6 +271,8 @@ def _planted_fault(fault, kind="leveled"):
     def scatter(idx, w, ct, **kw):
         if fault == "taps rotated" and kind == "planes":  # [L, U, P]: roll the taps
             w = w.roll(1, dims=1).contiguous()
+        elif fault == "taps rotated" and kw["corners"] == 1:
+            w = w.roll(1, dims=-1).contiguous()
         elif fault == "taps rotated":  # each tap's weight goes to the next corner
             w = w.reshape(w.shape[0], -1, kw["corners"]).roll(1, dims=-1).reshape(w.shape)
             w = w.contiguous()
@@ -334,17 +395,24 @@ def phase_kernel_planes(torch, device, seed):
     ms = _cuda_ms(lambda: scatter_cuda.scatter_add_weighted_planes(idx, w, ct, **kw))
     plain_ms = _cuda_ms(lambda: scatter_cuda.scatter_add_weighted_planes_plain(idx, w, ct, **kw))
     leveled_ms = _cuda_ms(lambda: scatter_cuda.scatter_add_weighted_leveled(l_idx, l_w, l_ct, **kw))
+    library_ms = _cuda_ms(_index_add_call(idx, w[..., None] * ct.transpose(1, 2)[:, None],
+                                          num_rows))
+    n = levels * corners * MATERIAL_POINTS
+    bound_ms, bound_by = _bound(4 * (2 * n + levels * features * MATERIAL_POINTS
+                                     + levels * num_rows * features), 2 * n * features)
     print(f"kernel (planes): scatter_add_weighted_planes L={levels} U={corners} "
           f"P={MATERIAL_POINTS} F={features} rows={num_rows} (secondary-ray samples; 16^3 level: "
           f"max {hot} updates on one row) max_abs_err={max_abs:.3e} "
           f"tol=|err|<={SUM_ORDER_TOL}*sum|w*ct| {'ok' if ok else 'FAIL'}; leveled kernel on the "
           f"same updates max_abs_err={lev_err:.3e} same tol {'ok' if lev_ok else 'FAIL'}; "
           f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} leveled_kernel_same_updates_ms="
-          f"{leveled_ms:.4f} (median of 11, CUDA events)", flush=True)
+          f"{leveled_ms:.4f} library_ms(index_add_ of w*ct rows)={library_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} ({bound_by}) (median of 11, CUDA events)", flush=True)
     if not (ok and lev_ok):
         raise AssertionError("a kernel disagrees with the plain sum at the planes shape")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, leveled_ms=leveled_ms,
-                leveled_max_abs_err=lev_err)
+                leveled_max_abs_err=lev_err, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def phase_encoder_planes(torch, device, seed):
@@ -375,7 +443,7 @@ def phase_encoder_planes(torch, device, seed):
     h_p, d_p = grads(scatter_cuda.scatter_add_weighted_planes_plain)
     torch.cuda.synchronize()
     errs = [float((a - b).abs().max()) / float(b.abs().max()) for a, b in ((h_k, h_p), (d_k, d_p))]
-    ok = (launched == {"leveled": 0, "planes": 1} and max(errs) <= 1e-5
+    ok = (launched == _launch_counts(planes=1) and max(errs) <= 1e-5
           and float(h_k[3:].abs().max()) == 0.0)
     print(f"encoder (planes): flagship grid backward at the material shape (1536x32x32 points, "
           f"6 of 8 levels) kernel vs plain rel_err hash={errs[0]:.3e} dense={errs[1]:.3e} "
@@ -398,12 +466,21 @@ _MATERIAL_UNREACHED = {
     "light_sampler.output_layer.weight", "light_sampler.output_layer.bias",
     "light_sampler.grid.dense_levels", "light_sampler.grid.hash_levels",
 }
+
+
+def _launch_counts(**counts):
+    """Launch counts of every kernel, zero unless given."""
+    from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+
+    return {k: counts.get(k, 0) for k in scatter_cuda.launches}
+
+
 # Scatter launches per material train step: the encoder backwards a loss
 # reaches, one each. Leveled: the cache's primary samples (1536 x 32 points)
 # and the material grid (1536 points). Planes: the cache's secondary samples
 # (1536 x 32 x 32 points). The light sampler's grid gets no gradient, and
 # the gradient-debias forward runs without a graph.
-_MATERIAL_LAUNCHES_PER_STEP = {"leveled": 2, "planes": 1}
+_MATERIAL_LAUNCHES_PER_STEP = {"leveled": 2, "leveled_skip": 0, "planes": 1, "rows": 0}
 
 
 def _narrow_material():
@@ -507,7 +584,7 @@ def phase_material_reference(torch, device, seed):
               for f in ("taps rotated", "finest level dropped")}
     finite = all(torch.isfinite(g).all() for g in g_gpu.values())
     tol = MATERIAL_GRAD_REL_L2_TOL
-    ok = (finite and loss_err <= 1e-3 and n_cpu == {"leveled": 0, "planes": 0}
+    ok = (finite and loss_err <= 1e-3 and n_cpu == _launch_counts()
           and n_gpu == _MATERIAL_LAUNCHES_PER_STEP and floor <= tol and err <= tol
           and all(v > tol for v, _ in faults.values()))
     print(f"material reference: narrow material model, batch {MATERIAL_REF_BATCH} x 32 secondary "
@@ -568,8 +645,8 @@ def phase_train(torch, device, seed, steps, smi, profile):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     # The passive shader reads neither the light power nor the SLF's rgba
     # head: those three, and only those, keep their initial values.
-    ok = (finite and unchanged == _UNREAD_PARAMS and launches["leveled"] == warmup + steps
-          and launches["planes"] == 0)
+    ok = (finite and unchanged == _UNREAD_PARAMS
+          and launches == _launch_counts(leveled=warmup + steps))
     print(f"train: flagship cache model ({n_params} params) batch {config.batch_size} "
           f"SyntheticSpheres 8x128^2 setup {setup_s:.1f}s; {warmup} warmup + {steps} timed "
           f"steps: step_ms={dt * 1e3:.2f} rays_per_s={config.batch_size / dt:.0f} on [{smi}]; "
@@ -586,22 +663,27 @@ def phase_train(torch, device, seed, steps, smi, profile):
     return launches["leveled"], dt
 
 
-def _checking_scatter(kind, calls):
+def _checking_scatter(kind, calls, capture=None):
     """The `kind` scatter wrapper, with its plain version run on the same
     inputs after each call and held to SUM_ORDER_TOL x sum|w * ct|; each
-    call is appended to `calls`."""
+    call is appended to `calls` (a leveled call with skip_zero_w as kind
+    "leveled_skip"). With `capture`, the first call's inputs are kept there."""
     from neural_radiance_caching_tpu_torch.ops import scatter_cuda
 
     real = getattr(scatter_cuda, f"scatter_add_weighted_{kind}")
     plain = getattr(scatter_cuda, f"scatter_add_weighted_{kind}_plain")
 
     def scatter(idx, w, ct, **kw):
+        if capture is not None and not capture:
+            capture.update(idx=idx, w=w, ct=ct, **kw)
         out = real(idx, w, ct, **kw)
         want = plain(idx, w, ct, **kw)
+        bound_kw = {k: v for k, v in kw.items() if k not in ("num_rows", "corners", "features")}
         limit = SUM_ORDER_TOL * _abs_sum_bound(idx, w, ct, kw["num_rows"], kw["corners"],
-                                               plain=plain) + 1e-30
+                                               plain=plain, **bound_kw) + 1e-30
         err = (out - want).abs()
-        calls.append(dict(kind=kind, shape=tuple(idx.shape), max_abs_err=float(err.max()),
+        calls.append(dict(kind=kind + ("_skip" if kw.get("skip_zero_w") else ""),
+                          shape=tuple(idx.shape), max_abs_err=float(err.max()),
                           ok=bool((err <= limit).all())))
         return out
 
@@ -630,7 +712,8 @@ def phase_material_check(torch, train_step, state, rng, batch):
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError("a kernel disagrees with its plain version on the material path")
-    return state, {k: max(c["max_abs_err"] for c in calls if c["kind"] == k) for k in per_kind}
+    return state, {k: max(c["max_abs_err"] for c in calls if c["kind"] == k)
+                   for k, n in per_kind.items() if n}
 
 
 def phase_material_train(torch, device, seed, steps, smi, profile):
@@ -710,6 +793,413 @@ def phase_material_train(torch, device, seed, steps, smi, profile):
     return launches, dt, checked_err
 
 
+def _primary_sample_points(torch, device, gen, num_rays, samples_per_ray):
+    """Grid coordinates of samples along camera rays as the cache stage takes
+    them: cameras on the sphere of radius 4, rays toward the scene, sorted
+    depths between near 2 and far 6, warped by the flagship's contraction."""
+    from neural_radiance_caching_tpu_torch.ops import coord
+
+    c = torch.randn((num_rays, 3), generator=gen, device=device)
+    origins = 4.0 * c / c.norm(dim=-1, keepdim=True)
+    d = -origins / 4.0 + 0.3 * torch.randn((num_rays, 3), generator=gen, device=device)
+    d = d / d.norm(dim=-1, keepdim=True)
+    t, _ = torch.sort(2.0 + 4.0 * torch.rand((num_rays, samples_per_ray), generator=gen,
+                                             device=device), dim=-1)
+    return (coord.contract_radius_2(origins[:, None] + t[..., None] * d[:, None]) + 2.0) / 4.0
+
+
+def phase_kernel_rows(torch, device, seed):
+    """The row scatter on the run-deduplicated update stream of the flagship
+    cache shape (8192 camera rays x 32 samples, 6 levels x 4 taps), one row
+    per update, as the dedup stream feeds the skip kernel."""
+    from neural_radiance_caching_tpu_torch.ops import hashgrid, scatter_cuda
+
+    levels, points, corners, features, num_rows = 6, 262144, 4, 4, 524288
+    gen = torch.Generator(device=device).manual_seed(seed + 9)
+    x = _primary_sample_points(torch, device, gen, 8192, 32).reshape(-1, 3)
+    taps, weights = hashgrid._tap_rows_and_weights(x, None, MATERIAL_LEVELS, num_rows, 3,
+                                                   "simplex")
+    idx = taps.permute(1, 0, 2).reshape(levels, -1).contiguous()
+    w = weights.permute(1, 0, 2).reshape(levels, -1).contiguous()
+    del x, taps, weights
+    ct = torch.randn((levels, points, features), generator=gen, device=device)
+    keep, upd = hashgrid.dedup_runs(idx, w, ct, corners=corners)
+    g = (keep[..., None] * upd).contiguous()  # [6, 1,048,576, 4]: one row per update
+    kw = dict(num_rows=num_rows, features=features)
+    ragged = 1_000_003
+
+    before = scatter_cuda.launches["rows"]
+    got = scatter_cuda.scatter_add_rows_leveled(idx, g, **kw)
+    got_p = scatter_cuda.scatter_add_rows_padded(idx[0, :ragged], g[0, :ragged], **kw)
+    launched = scatter_cuda.launches["rows"] - before
+    want = scatter_cuda.scatter_add_rows_leveled_plain(idx, g, **kw)
+    limit = SUM_ORDER_TOL * scatter_cuda.scatter_add_rows_leveled_plain(idx, g.abs(), **kw) + 1e-30
+    want_p = scatter_cuda.scatter_add_rows_leveled_plain(idx[:1, :ragged], g[:1, :ragged], **kw)[0]
+    skip = scatter_cuda.scatter_add_weighted_leveled(idx, keep, upd, corners=1, skip_zero_w=True,
+                                                     **kw)
+    torch.cuda.synchronize()
+    max_abs = float((got - want).abs().max())
+    ok = (launched == 2 and bool(((got - want).abs() <= limit).all())
+          and bool(((got_p - want_p).abs() <= limit[0]).all())
+          and bool(((skip - got).abs() <= 2 * limit).all()))
+    share = 1.0 - float(keep.mean())
+    del want, want_p, skip
+    ms = _cuda_ms(lambda: scatter_cuda.scatter_add_rows_leveled(idx, g, **kw))
+    plain_ms = _cuda_ms(lambda: scatter_cuda.scatter_add_rows_leveled_plain(idx, g, **kw))
+    library_ms = _cuda_ms(_index_add_call(idx, g, num_rows))
+    n = levels * points * corners
+    bound_ms, bound_by = _bound(4 * (n + n * features + levels * num_rows * features),
+                                n * features)
+    print(f"kernel (rows): scatter_add_rows_leveled L={levels} N={n // levels} F={features} "
+          f"rows={num_rows} (dedup'd stream of 8192 camera rays x 32 samples: {share:.1%} of "
+          f"rows zero) max_abs_err={max_abs:.3e} tol=|err|<={SUM_ORDER_TOL}*sum|g|; "
+          f"scatter_add_rows_padded at N={ragged} same tol; the skip kernel on the same "
+          f"stream agrees; launches={launched} {'ok' if ok else 'FAIL'}; kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms(index_add_)={library_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} ({bound_by}) (median of 11, CUDA events)", flush=True)
+    if not ok:
+        raise AssertionError("the row scatter disagrees with its plain version")
+    return dict(launches=launched, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+# The transient reference: 64 bins of 0.25 cover the scene's two-bounce path
+# lengths (up to ~11 units) at a narrow width.
+TRANSIENT_REF_BATCH = 256
+TRANSIENT_REF_BINS = 64
+# Transient-model gradients are held per leaf, each hash table split into
+# its levels, in relative L2 norm, between the same two readings as the
+# cache's: the noise floor below the limit, the planted faults above it.
+TRANSIENT_GRAD_REL_L2_TOL = 5e-2
+# No loss reaches these parameters of the transient cache model: its
+# ambient term is off (use_ambient=False), so neither the shader's ambient
+# irradiance head nor the SLF's ambient head is read.
+# tests/test_torch_transient_slice.py pins the same set against the JAX
+# package's zero gradients.
+_TRANSIENT_UNREACHED = {
+    "shader.ambient_irradiance_layer.weight", "shader.ambient_irradiance_layer.bias",
+    "shader.surface_lf.output_ambient_rgb_layer.weight",
+    "shader.surface_lf.output_ambient_rgb_layer.bias",
+}
+
+
+def _narrow_transient(scatter_dedup):
+    """The flagship transient structure at reference-phase widths."""
+    from neural_radiance_caching_tpu_torch import flagship
+
+    params = _narrow(flagship.flagship_transient_cache_params(scatter_dedup))
+    params["shader_params"].update(net_width_irradiance=32, net_width_brdf=32,
+                                   net_width_integrated_brdf=32)
+    return params
+
+
+def _transient_ref_config():
+    from neural_radiance_caching_tpu_torch import flagship
+
+    return flagship.transient_config(batch_size=TRANSIENT_REF_BATCH, n_bins=TRANSIENT_REF_BINS,
+                                     exposure_time=0.25, lr_delay_steps=0)
+
+
+def _transient_step(torch, device, seed, batch, scatter_dedup, fault=None):
+    """One train step of the narrow transient model on `device`; the random
+    draws come from a CPU generator, so both devices see the same numbers."""
+    from neural_radiance_caching_tpu_torch import flagship
+    from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+    from neural_radiance_caching_tpu_torch.parallel import train
+
+    cfg = _transient_ref_config()
+    torch.manual_seed(seed)
+    model = flagship.build_flagship_transient_cache_model(
+        cfg, _narrow_transient(scatter_dedup)).to(device)
+    state, _ = train.create_optimizer(cfg, model)
+    before = dict(scatter_cuda.launches)
+    patch = dict(scatter_add_weighted_leveled=_planted_fault(fault)) if fault else {}
+    with _patched(scatter_cuda, **patch):
+        rng = torch.Generator().manual_seed(seed + 6)
+        _, stats = train.create_train_step(model, cfg)(rng, state, batch.to(device), 0.5)
+    losses = {k: float(torch.as_tensor(v).detach()) for k, v in stats["losses"].items()}
+    grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+    return losses, grads, {k: scatter_cuda.launches[k] - before[k] for k in before}
+
+
+def phase_transient_reference(torch, device, seed):
+    """Same narrow transient model, batch and draws on the GPU and the CPU,
+    with the direct and with the run-dedup table-gradient scatter."""
+    from neural_radiance_caching_tpu_torch.data import datasets
+
+    batch = datasets.SyntheticSpheres("train", None, _transient_ref_config(), num_images=4,
+                                      resolution=32).next_train()
+    origins = batch.rays.origins
+    nudged = batch.replace(rays=batch.rays.replace(
+        origins=torch.nextafter(origins, torch.full_like(origins, float("inf")))))
+    tol = TRANSIENT_GRAD_REL_L2_TOL
+    gpu_grads = {}
+    for dedup in (False, True):
+        kind = "leveled_skip" if dedup else "leveled"
+        l_cpu, g_cpu, n_cpu = _transient_step(torch, "cpu", seed, batch, dedup)
+        reached = [k for k in g_cpu if k not in _TRANSIENT_UNREACHED]
+        floor, floor_at = _worst_grad_err(
+            _transient_step(torch, "cpu", seed, nudged, dedup)[1], g_cpu, reached)
+        l_gpu, g_gpu, n_gpu = _transient_step(torch, device, seed, batch, dedup)
+        loss_err = max(abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-12) for k in l_cpu)
+        err, err_at = _worst_grad_err(g_gpu, g_cpu, reached)
+        faults = {f: _worst_grad_err(_transient_step(torch, device, seed, batch, dedup, f)[1],
+                                     g_cpu, reached)
+                  for f in ("taps rotated", "finest level dropped")}
+        finite = all(torch.isfinite(g).all() for g in g_gpu.values())
+        ok = (finite and loss_err <= 1e-4 and n_cpu == _launch_counts()
+              and n_gpu == _launch_counts(**{kind: 1}) and floor <= tol and err <= tol
+              and all(v > tol for v, _ in faults.values()))
+        print(f"transient reference ({'scatter_dedup' if dedup else 'direct scatter'}): narrow "
+              f"transient cache model, batch {TRANSIENT_REF_BATCH} x {TRANSIENT_REF_BINS} bins, "
+              f"same draws, gpu vs cpu: loss rel_err={loss_err:.3e} (tol 1e-4) grad rel_l2_err "
+              f"max={err:.3e} at {err_at} (tol {tol}; noise floor, cpu vs cpu with origins "
+              f"+1 ulp: {floor:.3e} at {floor_at}; planted in the {kind} kernel "
+              + ", ".join(f"{f}: {v:.3e} at {at}" for f, (v, at) in faults.items())
+              + f", each must exceed the tol) kernel launches gpu={n_gpu} cpu={n_cpu} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError("GPU transient path disagrees with the CPU reference path")
+        gpu_grads[dedup] = g_gpu
+    # Dedup and direct table gradients on the card: the same updates summed
+    # in another order, held per level to 1e-5 of the level's largest entry.
+    dedup_g, direct_g = _per_level(gpu_grads[True]), _per_level(gpu_grads[False])
+    errs = {k: float((dedup_g[k] - direct_g[k]).abs().max()) / float(direct_g[k].abs().max())
+            for k in direct_g if ".grid." in k and float(direct_g[k].abs().max()) > 0}
+    worst = max(errs, key=errs.get)
+    ok = errs[worst] <= 1e-5
+    print(f"transient reference (dedup vs direct on the card): table gradients per level, "
+          f"max |dedup - direct| / max |direct| = {errs[worst]:.3e} at {worst} (tol 1e-5, "
+          f"float32 association order) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("dedup and direct table gradients disagree on the card")
+
+
+# The per-sample transients of a flagship transient step: rays, samples,
+# bins, channels.
+TRANSIENT_SHAPE = (2048, 32, 700, 3)
+
+
+def _time_shift_forms(torch, device, seed):
+    """One forward + backward of the transient rendering at the flagship
+    shape TRANSIENT_SHAPE for each shift form; the spectral forms held to
+    the gather form at 1e-4 of its largest entry."""
+    from neural_radiance_caching_tpu_torch.ops import render
+
+    r, s, b, c = TRANSIENT_SHAPE
+    gen = torch.Generator(device=device).manual_seed(seed + 11)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    ti = (rand(r, s, b, c) * 0.01).requires_grad_()
+    w = rand(r, s) / s
+    tdist = torch.sort(2.0 + 4.0 * rand(r, s + 1), dim=-1).values
+    extras = {"ray_dists": 2.0 + 4.0 * rand(r, s, 1), "light_dists": 1.0 + 3.0 * rand(r, s, 1)}
+    direct = rand(r, s, c)
+
+    def run(form):
+        ti.grad = None
+        out = render.volumetric_transient_rendering(
+            direct, ti, w, w, tdist, 0.0, False, extras=dict(extras, transient_indirect=ti),
+            n_bins=b, exposure_time=0.02, shift_form=form)
+        out["rgb"].sum().backward()
+        return out["rgb"].detach()
+
+    ref = run("gather")
+    scale = float(ref.abs().max())
+    out = {}
+    for form in render.SHIFT_FORMS:
+        err = float((run(form) - ref).abs().max()) / scale
+        torch.cuda.reset_peak_memory_stats()
+        ms = _cuda_ms(lambda f=form: run(f), repeats=5, warmup=1)
+        out[form] = dict(ms=ms, rel_err=err, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    ok = all(v["rel_err"] <= 1e-4 for v in out.values())
+    return out, ok
+
+
+def phase_transient_train(torch, device, seed, steps, smi, profile):
+    """The full-width flagship transient cache model with the direct backward
+    and with scatter_dedup: a checked step each, then 3 warmup and `steps`
+    timed steps each, in alternating blocks (direct, dedup, dedup, direct)."""
+    from neural_radiance_caching_tpu_torch import flagship
+    from neural_radiance_caching_tpu_torch.data import datasets
+    from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+    from neural_radiance_caching_tpu_torch.parallel import train
+
+    config = flagship.transient_config()
+    t0 = time.perf_counter()
+    dataset = datasets.SyntheticSpheres("train", None, config, num_images=4, resolution=64,
+                                        device=device)
+    batches = [dataset.next_train() for _ in range(8)]
+    rng = torch.Generator(device=device).manual_seed(seed + 44)
+    runs = {}
+    for name, dedup in (("direct", False), ("dedup", True)):
+        torch.manual_seed(seed)
+        model = flagship.build_flagship_transient_cache_model(
+            config, flagship.flagship_transient_cache_params(scatter_dedup=dedup)).to(device)
+        state, _ = train.create_optimizer(config, model)
+        runs[name] = dict(model=model, state=state, step=train.create_train_step(model, config),
+                          before={k: v.detach().clone() for k, v in model.state_dict().items()},
+                          kind="leveled_skip" if dedup else "leveled", losses=[], times=[],
+                          peak=0.0, blocks=[])
+    n_params = sum(p.numel() for p in runs["direct"]["model"].parameters())
+    setup_s = time.perf_counter() - t0
+
+    # One checked step each: every scatter call of the step against its
+    # plain version on the same inputs; the direct step's update stream is
+    # kept for the skip-kernel phase.
+    capture, checked = {}, {}
+    for name, run in runs.items():
+        calls = []
+        with _patched(scatter_cuda, scatter_add_weighted_leveled=_checking_scatter(
+                "leveled", calls, capture if name == "direct" else None)):
+            run["state"], stats = run["step"](rng, run["state"], batches[-1], 0.5)
+        run["losses"].append(stats["loss"])
+        checked[name] = calls
+    torch.cuda.synchronize()
+    ok = all([c["kind"] for c in checked[n]] == [runs[n]["kind"]] and checked[n][0]["ok"]
+             for n in runs)
+    print("transient train (checked steps): each scatter of one step against its plain version "
+          f"on the same inputs, tol=|err|<={SUM_ORDER_TOL}*sum|w*ct|: "
+          + "; ".join(f"{n}: {c['kind']} idx{list(c['shape'])} max_abs_err="
+                      f"{c['max_abs_err']:.3e} {'ok' if c['ok'] else 'FAIL'}"
+                      for n, calls in checked.items() for c in calls)
+          + f" (expected one leveled call without dedup, one leveled_skip with it) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("a kernel disagrees with its plain version on the transient path")
+
+    warmup = 3
+    for run in runs.values():
+        for i in range(warmup):
+            run["state"], stats = run["step"](rng, run["state"], batches[i % len(batches)], 0.5)
+            run["losses"].append(stats["loss"])
+    torch.cuda.synchronize()
+    block = max(1, steps // 2)
+    for bi, name in enumerate(("direct", "dedup", "dedup", "direct")):
+        run = runs[name]
+        torch.cuda.reset_peak_memory_stats()
+        scatter_cuda.reset_launch_count()
+        t0 = time.perf_counter()
+        for i in range(block):
+            run["state"], stats = run["step"](rng, run["state"],
+                                              batches[(bi * block + i) % len(batches)], 0.5)
+            run["losses"].append(stats["loss"])
+        torch.cuda.synchronize()
+        run["times"].append((time.perf_counter() - t0) / block)
+        run["blocks"].append(dict(scatter_cuda.launches))
+        run["peak"] = max(run["peak"], torch.cuda.max_memory_allocated() / 2**30)
+
+    result = {}
+    all_ok = True
+    for name, run in runs.items():
+        losses = [float(v) for v in run["losses"]]
+        finite = all(v == v and abs(v) != float("inf") for v in losses)
+        unchanged = {k for k, v in run["model"].state_dict().items()
+                     if torch.equal(v, run["before"][k])}
+        pinned = _launch_counts(**{run["kind"]: block})
+        ok = finite and unchanged == _TRANSIENT_UNREACHED and all(
+            b == pinned for b in run["blocks"])
+        all_ok &= ok
+        dt = statistics.mean(run["times"])
+        result[name] = dict(launches=sum(b[run["kind"]] for b in run["blocks"]), step_ms=dt * 1e3,
+                            rays_per_s=config.batch_size / dt, peak_gib=run["peak"],
+                            max_abs_err=checked[name][0]["max_abs_err"])
+        print(f"transient train ({name}{', scatter_dedup' if name == 'dedup' else ''}): flagship "
+              f"transient cache model ({n_params} params) batch {config.batch_size} x "
+              f"{config.n_bins} bins, SyntheticSpheres 4x64^2, setup {setup_s:.1f}s; {warmup} "
+              f"warmup + {2 * block} timed steps in 2 blocks alternating with the other run: "
+              f"step_ms={dt * 1e3:.2f} (blocks {', '.join(f'{t * 1e3:.2f}' for t in run['times'])})"
+              f" rays_per_s={config.batch_size / dt:.1f} peak {run['peak']:.2f} GiB on [{smi}]; "
+              f"losses finite={finite} first={losses[0]:.5f} last={losses[-1]:.5f}; "
+              f"{len(run['before']) - len(unchanged)}/{len(run['before'])} param tensors changed, "
+              f"unchanged={sorted(unchanged)} (expected the {len(_TRANSIENT_UNREACHED)} no loss "
+              f"reaches); scatter launches per block={run['blocks']} (expected {pinned}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not all_ok:
+        raise AssertionError("transient train phase failed")
+
+    forms, ok = _time_shift_forms(torch, device, seed)
+    print("transient shift forms: one forward + backward of volumetric_transient_rendering at "
+          f"{list(TRANSIENT_SHAPE)}: " + "; ".join(
+              f"{f} {v['ms']:.2f} ms (peak {v['peak_gib']:.2f} GiB, rel_err vs gather "
+              f"{v['rel_err']:.2e})" for f, v in forms.items())
+          + f" (median of 5, CUDA events; tol 1e-4) on [{smi}] {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError("the transient shift forms disagree")
+    result["shift_forms"] = forms
+    if profile:
+        path = str(profile)
+        stem, dot, ext = path.rpartition(".")
+        run = runs["direct"]
+        _profile(torch, run["step"], run["state"], rng, batches,
+                 f"{stem}.transient.{ext}" if dot else path + ".transient", steps=2)
+    return result, capture
+
+
+def phase_kernel_skip(torch, device, capture):
+    """The skip-zero-weight instance on the dedup'd stream of the transient
+    path's own updates (6 levels x 2048 rays x 32 samples x 4 taps), against
+    its plain version, with NaN rows planted under the zero weights; both
+    scatter routes (dedup prep + skip kernel, direct kernel) timed."""
+    from neural_radiance_caching_tpu_torch.ops import hashgrid, scatter_cuda
+
+    idx, w, ct = capture["idx"], capture["w"], capture["ct"]
+    num_rows, features, corners = capture["num_rows"], capture["features"], capture["corners"]
+    levels, n = idx.shape
+    keep, rows = hashgrid.dedup_runs(idx, w, ct, corners=corners)
+    kept = int(keep.sum())
+    share = 1.0 - kept / keep.numel()
+    nan_rows = torch.where(keep[..., None] == 0, torch.full_like(rows, float("nan")), rows)
+    kw = dict(num_rows=num_rows, features=features, corners=1, skip_zero_w=True)
+    direct_kw = dict(num_rows=num_rows, features=features, corners=corners)
+    got = scatter_cuda.scatter_add_weighted_leveled(idx, keep, nan_rows, **kw)
+    want = scatter_cuda.scatter_add_weighted_leveled_plain(idx, keep, nan_rows, **kw)
+    direct = scatter_cuda.scatter_add_weighted_leveled(idx, w, ct, **direct_kw)
+    limit = SUM_ORDER_TOL * _abs_sum_bound(idx, keep, rows, num_rows, 1, skip_zero_w=True) + 1e-30
+    direct_limit = SUM_ORDER_TOL * _abs_sum_bound(idx, w, ct, num_rows, corners) + 1e-30
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(got).all())
+    max_abs = float((got - want).abs().max())
+    ok = (finite and bool(((got - want).abs() <= limit).all())
+          and bool(((got - direct).abs() <= direct_limit).all()))
+    dedup_err = float((got - direct).abs().max())
+    del got, want, direct, nan_rows, limit, direct_limit
+
+    ms = _cuda_ms(lambda: scatter_cuda.scatter_add_weighted_leveled(idx, keep, rows, **kw))
+    plain_ms = _cuda_ms(lambda: scatter_cuda.scatter_add_weighted_leveled_plain(
+        idx, keep, rows, **kw))
+    offsets = torch.arange(levels, device=idx.device, dtype=torch.int64)[:, None] * num_rows
+    kept_mask = keep != 0
+    kept_idx = (idx.to(torch.int64) + offsets)[kept_mask]
+    kept_rows = rows[kept_mask].contiguous()
+    library_ms = _cuda_ms(lambda: torch.zeros(levels * num_rows, features, device=device)
+                          .index_add_(0, kept_idx, kept_rows))
+    dedup_route_ms = _cuda_ms(lambda: scatter_cuda.scatter_add_weighted_leveled(
+        idx, *hashgrid.dedup_runs(idx, w, ct, corners=corners), **kw))
+    direct_ms = _cuda_ms(lambda: scatter_cuda.scatter_add_weighted_leveled(idx, w, ct, **direct_kw))
+    bound_ms, bound_by = _bound(4 * (levels * n + kept * (1 + features)
+                                     + levels * num_rows * features), 2 * kept * features)
+    print(f"kernel (skip): scatter_add_weighted_leveled(skip_zero_w=True) on the dedup'd stream "
+          f"of the transient path's updates, idx{list(idx.shape)} F={features} rows={num_rows}: "
+          f"{share:.1%} of updates have weight 0 ({kept} kept); NaN rows planted under them, "
+          f"output finite={finite}; max_abs_err vs plain={max_abs:.3e} "
+          f"(tol=|err|<={SUM_ORDER_TOL}*sum|w*row|), vs the direct kernel {dedup_err:.3e} "
+          f"(tol {SUM_ORDER_TOL}*sum|w*ct|) {'ok' if ok else 'FAIL'}; kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms(index_add_ of the kept rows)={library_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} ({bound_by}); routes: dedup prep + skip kernel "
+          f"{dedup_route_ms:.4f} ms vs direct kernel {direct_ms:.4f} ms (median of 11, CUDA "
+          f"events)", flush=True)
+    if not ok:
+        raise AssertionError("the skip kernel disagrees with its plain version")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, zero_weight_share=share,
+                dedup_route_ms=dedup_route_ms, direct_route_ms=direct_ms,
+                direct_max_abs_err=dedup_err)
+
+
 def _profile(torch, train_step, state, rng, batches, path, steps=3):
     """Device time by kernel over `steps` steps, as a table written to `path`."""
     import pathlib
@@ -734,9 +1224,11 @@ def main():
     parser.add_argument("--steps", type=int, default=5, help="timed cache train steps")
     parser.add_argument("--material-steps", type=int, default=10,
                         help="timed material train steps")
+    parser.add_argument("--transient-steps", type=int, default=10,
+                        help="timed transient train steps of each run (direct, dedup)")
     parser.add_argument("--profile", metavar="FILE",
                         help="also profile train steps and write the op tables to FILE "
-                             "(cache) and FILE with .material before its suffix")
+                             "(cache), and FILE with .material or .transient before its suffix")
     args = parser.parse_args()
 
     import torch
@@ -753,50 +1245,111 @@ def main():
     print(f"device: {torch.cuda.get_device_name(0)} count={torch.cuda.device_count()} "
           f"torch={torch.__version__} cuda={torch.version.cuda} nvidia-smi=[{smi}]", flush=True)
 
-    t0 = time.perf_counter()
+    t_start = time.perf_counter()
     lib_paths = scatter_cuda.build_library(verbose=True)
     scatter_cuda.load_library()
     print(f"build: {', '.join(p.name for p in lib_paths.values())} from csrc/ with nvcc (one per "
-          f"source, in parallel) in {time.perf_counter() - t0:.1f}s", flush=True)
+          f"source, in parallel) in {time.perf_counter() - t_start:.1f}s", flush=True)
 
     kernel = phase_kernel(torch, device, args.seed)
     planes = phase_kernel_planes(torch, device, args.seed)
+    rows = phase_kernel_rows(torch, device, args.seed)
     phase_encoder(torch, device, args.seed)
     phase_encoder_planes(torch, device, args.seed)
     phase_reference(torch, device, args.seed)
     phase_material_reference(torch, device, args.seed)
+    phase_transient_reference(torch, device, args.seed)
     cache_leveled, _ = phase_train(torch, device, args.seed, args.steps, smi, args.profile)
     material, _, material_err = phase_material_train(
         torch, device, args.seed, args.material_steps, smi, args.profile)
+    transient, capture = phase_transient_train(
+        torch, device, args.seed, args.transient_steps, smi, args.profile)
+    skip = phase_kernel_skip(torch, device, capture)
+    print(f"phases done in {time.perf_counter() - t_start:.1f}s, build included", flush=True)
 
     csrc = "neural_radiance_caching_tpu_torch/csrc"
+    replaces = "neural_radiance_caching_tpu/ops/scatter_tpu.py"
+    timing = ("ms, plain_ms, library_ms: medians of 11 calls by CUDA events, wrapper included; "
+              "library_ms is one index_add_ of the update rows (for a weighted scatter, the "
+              "products formed beforehand); bound_ms from the card's published HBM rate "
+              "(3.35 TB/s) and float32 rate (67 TFLOP/s), each input read once and the output "
+              "written once")
+    leveled_launches = {"cache_train": cache_leveled, "material_train": material["leveled"],
+                        "transient_train": transient["direct"]["launches"],
+                        "transient_train_dedup": 0}
     print(json.dumps({"kernels": [{
         "name": "scatter_add_weighted_leveled",
         "route": "cuda",
         "source": f"{csrc}/scatter_weighted.cu",
-        "replaces": "neural_radiance_caching_tpu/ops/scatter_tpu.py:243",
-        "launches": cache_leveled + material["leveled"],
-        "launches_by_path": {"cache_train": cache_leveled, "material_train": material["leveled"]},
-        "max_abs_err": max(kernel["max_abs_err"], material_err["leveled"]),
+        "replaces": f"{replaces}:243",
+        "launches": sum(leveled_launches.values()),
+        "launches_by_path": leveled_launches,
+        "max_abs_err": max(kernel["max_abs_err"], material_err["leveled"],
+                           transient["direct"]["max_abs_err"]),
         "max_abs_err_by_shape": {"cache": kernel["max_abs_err"],
                                  "material_path": material_err["leveled"],
+                                 "transient_path": transient["direct"]["max_abs_err"],
                                  "planes_shape": planes["leveled_max_abs_err"]},
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
+        "library_ms": kernel["library_ms"],
+        "bound_ms": kernel["bound_ms"],
+        "bound_by": kernel["bound_by"],
+        "transient_shape_ms": skip["direct_route_ms"],
+    }, {
+        "name": "scatter_add_weighted_leveled_skip_zero_w",
+        "route": "cuda",
+        "source": f"{csrc}/scatter_weighted.cu",
+        "replaces": f"{replaces}:229",
+        "launches": transient["dedup"]["launches"],
+        "launches_by_path": {"cache_train": 0, "material_train": 0, "transient_train": 0,
+                             "transient_train_dedup": transient["dedup"]["launches"]},
+        "max_abs_err": max(skip["max_abs_err"], transient["dedup"]["max_abs_err"]),
+        "max_abs_err_by_shape": {"transient_dedup_stream": skip["max_abs_err"],
+                                 "transient_path": transient["dedup"]["max_abs_err"]},
+        "ms": skip["ms"],
+        "plain_ms": skip["plain_ms"],
+        "library_ms": skip["library_ms"],
+        "bound_ms": skip["bound_ms"],
+        "bound_by": skip["bound_by"],
+        "zero_weight_share": skip["zero_weight_share"],
+        "dedup_route_ms": skip["dedup_route_ms"],
+        "direct_route_ms": skip["direct_route_ms"],
     }, {
         "name": "scatter_add_weighted_planes",
         "route": "cuda",
         "source": f"{csrc}/scatter_weighted_planes.cu",
-        "replaces": "neural_radiance_caching_tpu/ops/scatter_tpu.py:364",
+        "replaces": f"{replaces}:364",
         "launches": material["planes"],
-        "launches_by_path": {"cache_train": 0, "material_train": material["planes"]},
+        "launches_by_path": {"cache_train": 0, "material_train": material["planes"],
+                             "transient_train": 0, "transient_train_dedup": 0},
         "max_abs_err": max(planes["max_abs_err"], material_err["planes"]),
         "max_abs_err_by_shape": {"planes_shape": planes["max_abs_err"],
                                  "material_path": material_err["planes"]},
         "ms": planes["ms"],
         "plain_ms": planes["plain_ms"],
+        "library_ms": planes["library_ms"],
+        "bound_ms": planes["bound_ms"],
+        "bound_by": planes["bound_by"],
         "leveled_same_updates_ms": planes["leveled_ms"],
-    }]}), flush=True)
+    }, {
+        "name": "scatter_add_rows_leveled",
+        "route": "cuda",
+        "source": f"{csrc}/scatter_rows.cu",
+        "replaces": f"{replaces}:79",
+        "launches": rows["launches"],
+        "launches_by_path": {"rows_kernel_phase": rows["launches"], "cache_train": 0,
+                             "material_train": 0, "transient_train": 0,
+                             "transient_train_dedup": 0},
+        "max_abs_err": rows["max_abs_err"],
+        "ms": rows["ms"],
+        "plain_ms": rows["plain_ms"],
+        "library_ms": rows["library_ms"],
+        "bound_ms": rows["bound_ms"],
+        "bound_by": rows["bound_by"],
+    }], "timing": timing, "transient_train": {
+        name: {k: v for k, v in r.items() if k != "max_abs_err"}
+        for name, r in transient.items()}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,12 +4,15 @@
 //
 // Replaces the Pallas TPU kernel `scatter_add_weighted_leveled`
 // (neural_radiance_caching_tpu/ops/scatter_tpu.py, body
-// `_scatter_weighted_kernel`). The TPU kernel walks the updates serially in
-// one core, keeps four banked accumulators of the whole table in VMEM and
-// rolls 128-lane packed cotangent rows into place. None of that layout is
-// needed here: one thread owns one (level, point, tap) update and adds its
-// F-wide row into the table with f32 atomics. The output is allocated and
-// zeroed by the caller.
+// `_scatter_weighted_kernel`) in both of its instances: the direct one
+// (`skip_zero_w=False`) and the one that skips updates of weight 0
+// (`skip_zero_w=True`), which the run-deduplicated stream of
+// `hashgrid._dedup_weighted_scatter` feeds. The TPU kernel walks the updates
+// serially in one core, keeps four banked accumulators of the whole table in
+// VMEM and rolls 128-lane packed cotangent rows into place. None of that
+// layout is needed here: one thread owns one (level, point, tap) update and
+// adds its F-wide row into the table with f32 atomics. The output is
+// allocated and zeroed by the caller.
 //
 // What bounds it on an H100: at the flagship shape (L = 6 levels, 262,144
 // points, 4 taps, F = 4) it reads 6.3M x (4 B index + 4 B weight) and
@@ -22,10 +25,21 @@
 // taps of a point share one cotangent row in the same cache line) and leaves
 // contention to later work: warp-level pre-reduction of equal rows, sorting
 // updates by cell, and vector `red.global.add.v4.f32` for F = 4.
+//
+// The skip instance serves the dedup'd stream: one row per update
+// (corners = 1), where every run of equal rows along a ray has been summed
+// onto its last update and the others carry weight 0. It issues atomics only
+// for the kept updates, so its bound is the weight stream plus the kept
+// updates' index and row bytes; a skipped update costs one 4-byte weight
+// load and a branch, and a warp whose updates are all skipped retires
+// without touching the table. Nothing of a skipped update is read beyond its
+// weight and index, so a row that is not finite under a weight of 0 never
+// reaches the table.
 
 // A row outside [0, num_rows) is a caller's bug. As in PyTorch's own CUDA
 // index kernels (and so `index_add_`, the plain version), it fails a device
 // assert: the launch is aborted and the next synchronising call raises.
+// Every update's row is checked, skipped or not, as the plain version does.
 #undef NDEBUG
 #include <assert.h>
 #include <cuda_runtime.h>
@@ -33,6 +47,7 @@
 
 namespace {
 
+template <bool kSkipZeroW>
 __global__ void scatter_add_weighted_leveled_kernel(
     const int32_t* __restrict__ idx,  // [levels, n]
     const float* __restrict__ w,      // [levels, n]
@@ -52,6 +67,7 @@ __global__ void scatter_add_weighted_leveled_kernel(
     return;
   }
   const float wj = __ldg(w + t);
+  if (kSkipZeroW && wj == 0.0f) return;
   const float* g = ct + (level * (n / corners) + j / corners) * features;
   float* o = out + (level * num_rows + row) * features;
   for (int32_t f = 0; f < features; ++f) {
@@ -59,25 +75,40 @@ __global__ void scatter_add_weighted_leveled_kernel(
   }
 }
 
+template <bool kSkipZeroW>
+int launch(const int32_t* idx, const float* w, const float* ct, float* out, int64_t levels,
+           int64_t n, int32_t corners, int32_t features, int64_t num_rows, void* stream) {
+  const int64_t total = levels * n;
+  if (total > 0) {
+    const int threads = 256;
+    const int64_t blocks = (total + threads - 1) / threads;
+    scatter_add_weighted_leveled_kernel<kSkipZeroW>
+        <<<static_cast<unsigned int>(blocks), threads, 0, static_cast<cudaStream_t>(stream)>>>(
+            idx, w, ct, out, levels, n, corners, features, num_rows);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream` and returns cudaGetLastError() as an int (0 = ok).
+// Each launches on `stream` and returns cudaGetLastError() as an int (0 = ok).
 int nrc_scatter_add_weighted_leveled(const int32_t* idx, const float* w,
                                      const float* ct, float* out,
                                      int64_t levels, int64_t n, int32_t corners,
                                      int32_t features, int64_t num_rows,
                                      void* stream) {
-  const int64_t total = levels * n;
-  if (total > 0) {
-    const int threads = 256;
-    const int64_t blocks = (total + threads - 1) / threads;
-    scatter_add_weighted_leveled_kernel<<<static_cast<unsigned int>(blocks), threads, 0,
-                                          static_cast<cudaStream_t>(stream)>>>(
-        idx, w, ct, out, levels, n, corners, features, num_rows);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(idx, w, ct, out, levels, n, corners, features, num_rows, stream);
+}
+
+// The same sum with every update of weight 0 skipped.
+int nrc_scatter_add_weighted_leveled_skip_zero_w(const int32_t* idx, const float* w,
+                                                 const float* ct, float* out,
+                                                 int64_t levels, int64_t n, int32_t corners,
+                                                 int32_t features, int64_t num_rows,
+                                                 void* stream) {
+  return launch<true>(idx, w, ct, out, levels, n, corners, features, num_rows, stream);
 }
 
 const char* nrc_cuda_error_string(int code) {

@@ -4,7 +4,8 @@ procedural ``SyntheticSpheres`` scene is ported).
 Images are ray-traced in numpy at construction and batches are drawn with
 the same numpy RandomState stream as the JAX package, so both packages see
 identical batches. Rays are cast on the host; ``next_train`` moves the batch
-to the dataset's device.
+to the dataset's device. With ``Config.use_transient`` the images are
+time-binned transients [N, H, W, n_bins, 3].
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ class Dataset:
         self.lights = None
         self.masks = None
         self.alphas = None
+        self.impulse_response = None
         self._np_rng = np.random.RandomState(config.np_rng_seed + (0 if split == "train" else 1))
         self._load_renderings(config)
         self.num_images = self.images.shape[0]
@@ -62,7 +64,8 @@ class Dataset:
 
     def _gather_batch(self, cam_idx, pix_x, pix_y):
         pixels = self._make_pixels(cam_idx, pix_x, pix_y)
-        rays = camera_utils.cast_ray_batch(self.cameras, self.lights, pixels)
+        rays = camera_utils.cast_ray_batch(self.cameras, self.lights, pixels).replace(
+            impulse_response=self.impulse_response)
         masks = self.masks[cam_idx, pix_y, pix_x] if self.masks is not None else None
         alphas = self.alphas[cam_idx, pix_y, pix_x] if self.alphas is not None else None
         batch = pytrees.Batch(rays=rays, rgb=self.images[cam_idx, pix_y, pix_x],
@@ -85,6 +88,17 @@ class Dataset:
         return self._gather_batch(np.full_like(pix_x, cam_idx), pix_x, pix_y)
 
 
+def _convolve_bins(x, kernel):
+    """[N, bins, C] transients correlated with a symmetric 1-D kernel along
+    the bins ('same' size)."""
+    half = len(kernel) // 2
+    pad = np.pad(x, ((0, 0), (half, half), (0, 0)))
+    out = np.zeros_like(x)
+    for i, w in enumerate(kernel):
+        out += w * pad[:, i: i + x.shape[1], :]
+    return out
+
+
 class SyntheticSpheres(Dataset):
     """Procedural analytic scene: lambertian spheres under a point light plus
     ambient ("legacy" shading of the JAX scene), ray-traced in numpy."""
@@ -105,18 +119,19 @@ class SyntheticSpheres(Dataset):
             resolution = 48 // max(1, config.factor)
         if config.synthetic_spheres_shading != "legacy" or config.synthetic_spheres_multi_illum:
             raise NotImplementedError("only the legacy single-light sphere scene is ported")
-        if config.use_transient:
-            raise NotImplementedError("transient sphere renderings are not ported yet")
         self._num_images = num_images
         self._resolution = resolution
         super().__init__(split, data_dir, config, device=device)
 
     def _trace(self, origins, dirs, light):
-        """Analytic ray tracing of the sphere scene -> (rgb, alpha)."""
+        """Analytic ray tracing of the sphere scene -> (rgb, alpha, t_hit,
+        light_dist): the hit distance along the ray and the surface->light
+        distance feed the transient renderings."""
         n = origins.shape[0]
         best_t = np.full((n,), np.inf, np.float32)
         rgb = np.ones((n, 3), np.float32)  # white background
         alpha = np.zeros((n,), np.float32)
+        light_dist = np.zeros((n,), np.float32)
         for center, radius, albedo in self.SPHERES:
             center = np.array(center, np.float32)
             oc = origins - center
@@ -131,12 +146,42 @@ class SyntheticSpheres(Dataset):
             p = origins[hit] + t[hit, None] * dirs[hit]
             normal = (p - center) / radius
             to_light = light - p
-            ldir = to_light / np.linalg.norm(to_light, axis=-1, keepdims=True)
+            dist = np.linalg.norm(to_light, axis=-1, keepdims=True)
+            ldir = to_light / dist
             lambert = np.maximum(0.0, np.sum(normal * ldir, -1, keepdims=True))
             rgb[hit] = np.array(albedo, np.float32) * (self.AMBIENT + (1 - self.AMBIENT) * lambert)
             best_t[hit] = t[hit]
             alpha[hit] = 1.0
-        return rgb, alpha
+            light_dist[hit] = dist[..., 0]
+        return rgb, alpha, best_t, light_dist
+
+    def _bin_transient(self, rgb, alpha, t_hit, light_dist, config):
+        """The direct response in time bins at the path length
+        (camera->surface->light) / exposure_time, split linearly between
+        the two bins around it; optionally convolved with the impulse."""
+        n_bins = config.n_bins
+        out = np.zeros((rgb.shape[0], n_bins, 3), np.float32)
+        hit = alpha > 0
+        bin_f = np.clip((t_hit[hit] + light_dist[hit]) / config.exposure_time, 0,
+                        n_bins - 1 - 1e-4)
+        b0 = np.floor(bin_f).astype(np.int32)
+        frac = (bin_f - b0)[:, None]
+        idx = np.nonzero(hit)[0]
+        out[idx, b0] += rgb[hit] * (1 - frac)
+        out[idx, b0 + 1] += rgb[hit] * frac
+        if config.synthetic_spheres_impulse_sigma > 0:
+            out = _convolve_bins(out, self._impulse_kernel(config))
+        return out
+
+    @staticmethod
+    def _impulse_kernel(config):
+        """Gaussian sensor impulse response (odd length, unit mass), shared by
+        the transients and the rays' impulse_response."""
+        sigma = float(config.synthetic_spheres_impulse_sigma)
+        half = max(1, int(np.ceil(3.0 * sigma)))
+        taps = np.arange(-half, half + 1, dtype=np.float64)
+        k = np.exp(-(taps**2) / (2.0 * sigma**2))
+        return (k / k.sum()).astype(np.float32)
 
     def _load_renderings(self, config):
         res = self._resolution
@@ -146,12 +191,19 @@ class SyntheticSpheres(Dataset):
         pix_x, pix_y = np.meshgrid(np.arange(res), np.arange(res), indexing="xy")
         pix_x = pix_x.reshape(-1).astype(np.float32)
         pix_y = pix_y.reshape(-1).astype(np.float32)
+        if config.use_transient and config.synthetic_spheres_impulse_sigma > 0:
+            self.impulse_response = self._impulse_kernel(config)
         lights = np.broadcast_to(self.LIGHT, (self._num_images, 3)).copy()
         images, alphas = [], []
         for c2w, light in zip(camtoworlds, lights):
             out = camera_utils.pixels_to_rays(pix_x, pix_y, pixtocam[None], c2w[None])
-            rgb, alpha = self._trace(out[0].reshape(-1, 3), out[2].reshape(-1, 3), light)
-            images.append(rgb.reshape(res, res, 3))
+            rgb, alpha, t_hit, light_dist = self._trace(
+                out[0].reshape(-1, 3), out[2].reshape(-1, 3), light)
+            if config.use_transient:
+                transient = self._bin_transient(rgb, alpha, t_hit, light_dist, config)
+                images.append(transient.reshape(res, res, config.n_bins, 3))
+            else:
+                images.append(rgb.reshape(res, res, 3))
             alphas.append(alpha.reshape(res, res))
         self.images = np.stack(images).astype(np.float32)
         self.alphas = np.stack(alphas).astype(np.float32)

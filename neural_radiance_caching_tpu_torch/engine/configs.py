@@ -1,14 +1,21 @@
 """Torch-side ``Config`` (counterpart of ``engine/configs.py``).
 
 Same field names and defaults as the JAX ``Config``, for the fields the
-cache and material slices read. The gin surface comes with the config engine in a later
-port step; until then a Config is built with keyword arguments.
+cache, material and transient cache slices read. The gin surface comes with
+the config engine in a later port step; until then a Config is built with
+keyword arguments.
+
+One field is the port's own: ``transient_shift_form`` picks how the
+transient integrator shifts and sums the per-sample indirect transients
+(``"gather"``, ``"fft"`` or ``"matmul"``, see ``ops/render.py``), per call
+from the Config. It takes the place of the JAX package's process-global
+``set_fft_transient_shift`` / ``set_spectral_backend``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 
 @dataclasses.dataclass
@@ -20,9 +27,11 @@ class Config:
     num_dataset_images: int = -1
     synthetic_spheres_shading: str = "legacy"
     synthetic_spheres_multi_illum: bool = False
+    synthetic_spheres_impulse_sigma: float = 0.0
     near: float = 2.0
     far: float = 6.0
     secondary_far: float = 2.0
+    light_near: float = 0.0
     cast_rays_in_train_step: bool = False
     np_rng_seed: int = 20201473
 
@@ -37,6 +46,35 @@ class Config:
     learnable_light: bool = False
     use_ground_truth_illumination: bool = False
     compute_relight_metrics: bool = False
+
+    # --- Transient ---
+    n_bins: int = 700
+    exposure_time: float = 0.01
+    transient_shift: float = 0.0
+    dark_level: float = 0.0
+    tfilter_sigma: float = 0.0
+    filter_indirect: bool = False
+    filter_median: bool = False
+    filter_median_thresh: float = 0.0
+    no_shift_direct: bool = False
+    vis_only: bool = False
+    use_itof: bool = False
+    transient_gauss_sigma_scales: List[Any] = dataclasses.field(default_factory=list)
+    light_source_position: Optional[List[float]] = None
+    transient_shift_form: str = "fft"
+
+    # --- Active lighting ---
+    use_falloff: bool = True
+    light_zero: bool = True
+    light_intensity_conditioning: bool = False
+    light_intensity_conditioning_scale: float = 1.0
+    light_intensity_conditioning_bias: float = 0.0
+    light_canonical_frame: bool = False
+    sl_relight: bool = False
+    bin_zero_threshold_light: float = 2.0
+    use_occlusions: bool = False
+    occlusions_secondary_only: bool = True
+    occlusions_primary_only: bool = True
 
     # --- Material stage ---
     secondary_normal_eps: float = 1e-2

@@ -1,7 +1,9 @@
-"""The flagship cache- and material-stage configurations (counterpart of
-``_cache_config``, ``flagship_cache_params``, ``build_flagship_cache_model``,
-the material config of ``_main_default`` and
-``build_flagship_material_model`` in ``bench.py``).
+"""The flagship cache-, material- and transient-cache-stage configurations
+(counterpart of ``_cache_config``, ``flagship_cache_params``,
+``build_flagship_cache_model``, the material config of ``_main_default``,
+``build_flagship_material_model``, the transient config of
+``_main_default`` and ``build_flagship_transient_cache_model`` in
+``bench.py``).
 
 Cache: two IPE proposal MLPs (4 x 256, bf16), a final 2 x 64 DensityMLP on
 an 8-level simplex hash pyramid (16..2048, T = 2^19, F = 4, primary-ray clamp
@@ -13,6 +15,12 @@ Material: that cache with secondary-ray resampling, a 2 x 64 LightMLP with
 trunk, 128-wide bottleneck, the flagship BRDF head) that traces 32 secondary
 rays per surface point (16 GGX+cosine MIS, 16 cosine) through the cache's
 64 + 64 + 32 samples; one resampled surface point per ray, batch 1536.
+
+Transient cache (InvProp): the cache with an actively lit TransientNeRFMLP
+(point light of learnable constant power, BRDF net, 2 x 64 irradiance net
+emitting 700 x 3 time bins, transient SLF), 700 bins of 0.02, the transient
+RawNeRF loss, batch 2048. ``scatter_dedup`` turns on the run-dedup of the
+density grid's table-gradient scatter.
 """
 
 from __future__ import annotations
@@ -22,11 +30,13 @@ import torch
 from neural_radiance_caching_tpu_torch.engine.configs import Config
 from neural_radiance_caching_tpu_torch.models.layers import softplus
 from neural_radiance_caching_tpu_torch.models.material_model import MaterialModel
-from neural_radiance_caching_tpu_torch.models.nerf_model import NeRFModel
+from neural_radiance_caching_tpu_torch.models.nerf_model import NeRFModel, TransientNeRFModel
 from neural_radiance_caching_tpu_torch.ops import coord
 
 BATCH_SIZE = 8192
 MATERIAL_BATCH_SIZE = 1536
+TRANSIENT_BATCH_SIZE = 2048
+TRANSIENT_N_BINS = 700
 PROPOSAL_WIDTH = 256
 PRIMARY_LEVEL_CLAMP = 6
 SECONDARY_LEVEL_CLAMP = 6
@@ -174,3 +184,39 @@ def flagship_material_params(cache_params=None):
 
 def build_flagship_material_model(config, params=None):
     return MaterialModel(config=config, **(params or flagship_material_params()))
+
+
+def transient_config(**overrides):
+    """The flagship transient cache-stage Config: the cache Config with the
+    transient stage's overrides. The bins of 0.02 cover the scene's
+    two-bounce path lengths (near 2, far 6: up to 14 units)."""
+    fields = dict(
+        batch_size=TRANSIENT_BATCH_SIZE, use_transient=True, n_bins=TRANSIENT_N_BINS,
+        exposure_time=0.02, learnable_light=True, light_source_position=[0.0, 0.0, 1.0],
+        data_loss_type="rawnerf_transient_unbiased", linear_to_srgb=False,
+    )
+    fields.update(overrides)
+    return cache_config(**fields)
+
+
+def flagship_transient_cache_params(scatter_dedup=False):
+    """TransientNeRFModel keyword arguments: the flagship cache with the
+    active shader (use_active, use_indirect, no ambient, 2 x 64 irradiance
+    net) and no secondary-ray resampling; `scatter_dedup` sets the density
+    grid's run-dedup of the table-gradient scatter."""
+    params = flagship_cache_params()
+    shader = dict(params["shader_params"])
+    shader.update(use_active=True, use_indirect=True, use_ambient=False,
+                  net_depth_irradiance=2, net_width_irradiance=64)
+    params["shader_params"] = shader
+    params["resample_secondary"] = False
+    if scatter_dedup:
+        sp = params["sampler_params"]
+        grids = list(sp["grid_params_per_level"])
+        grids[-1] = dict(grids[-1], scatter_dedup=True)
+        sp["grid_params_per_level"] = tuple(grids)
+    return params
+
+
+def build_flagship_transient_cache_model(config, params=None):
+    return TransientNeRFModel(config=config, **(params or flagship_transient_cache_params()))

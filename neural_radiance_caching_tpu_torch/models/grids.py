@@ -34,6 +34,10 @@ class HashEncoding(Configurable, nn.Module):
     resample_op_mode = None
     interpolation = "trilinear"
     feature_aggregator = "concatenate"
+    # Run-dedup of the table-gradient scatter (``hashgrid.multires_grid_encode``'s
+    # ``scatter_dedup``): the counterpart of the JAX package's process-global
+    # ``set_scatter_dedup``, here a field of the grid.
+    scatter_dedup = False
 
     def __init__(self, **kwargs):
         nn.Module.__init__(self)
@@ -132,6 +136,7 @@ class HashEncoding(Configurable, nn.Module):
             dense_offsets=self.dense_offsets[:num_dense],
             x_scale=x_scale,
             interpolation=self.interpolation,
+            scatter_dedup=self.scatter_dedup,
         )
         if len(grid_sizes) < full_num_levels:
             per_level_width = features.shape[-1] // len(grid_sizes)

@@ -1,7 +1,8 @@
-"""Volume integrator: composite shader samples into per-ray renderings
-(counterpart of ``VolumeIntegrator`` in ``models/integrator.py``), for the
-cache and, with the material shader's outputs, the material pass; the colour
-correction net and the transient integrators are not ported yet."""
+"""Volume integrators: composite shader samples into per-ray renderings
+(counterpart of ``VolumeIntegrator`` and ``TransientVolumeIntegrator`` in
+``models/integrator.py``), for the cache, the material pass and the
+transient cache; the colour correction net, random backgrounds and the
+learnable light of a material model are not ported yet."""
 
 from __future__ import annotations
 
@@ -62,5 +63,53 @@ class VolumeIntegrator(Configurable, nn.Module):
             percentiles=percentiles, compute_distance=compute_distance,
         )
         if not linear_rgb and self.config.linear_to_srgb and rendering["rgb"] is not None:
+            rendering["rgb"] = torch.clamp(image.linear_to_srgb(rendering["rgb"]), min=0.0)
+        return rendering
+
+
+class TransientVolumeIntegrator(VolumeIntegrator):
+    """Time-resolved compositing: [..., n_bins, C] renderings.
+
+    The transient shift and dark level are the Config's constants
+    (``transient_shift``, 0): a cache stage has no material model whose
+    learnable light could supply them. Secondary rays get neither, nor the
+    impulse filter when ``filter_indirect`` is set. The indirect shift form
+    is ``Config.transient_shift_form``.
+    """
+
+    def forward(self, rng, rays, shader_results, train_frac=1.0, train=True,
+                percentiles=(5, 50, 95), linear_rgb=False, compute_extras=False,
+                compute_distance=True, bg_intensity_range=None, is_secondary=False,
+                radiance_cache=None, material=False, **kwargs):
+        del rng, train_frac, train, kwargs
+        lo, hi = self.bg_intensity_range if bg_intensity_range is None else bg_intensity_range
+        if lo != hi:
+            raise NotImplementedError("random backgrounds are not ported yet")
+        cfg = self.config
+        if cfg.learnable_light and radiance_cache is not None:
+            raise NotImplementedError("the learnable light of a material model is not ported yet")
+        # `material` would stop the gradient of the shift and dark level,
+        # which are constants here.
+        del material
+        transient_shift, dark_level = cfg.transient_shift, 0.0
+        filter_primary = not is_secondary or not cfg.filter_indirect
+        extras_keys = _EXTRAS_TO_RENDER if compute_extras else _EXTRAS_TO_ALWAYS_RENDER
+        rendering = render.volumetric_transient_rendering(
+            shader_results["direct_rgb"], shader_results["transient_indirect"],
+            shader_results["weights"], shader_results["weights_no_filter"],
+            shader_results["tdist"], lo, compute_extras,
+            extras={k: v for k, v in shader_results.items() if k in extras_keys},
+            percentiles=percentiles, compute_distance=compute_distance, n_bins=cfg.n_bins,
+            shift=0.0 if is_secondary else transient_shift,
+            dark_level=0.0 if is_secondary else dark_level,
+            impulse_response=rays.impulse_response if filter_primary else None,
+            tfilter_sigma=cfg.tfilter_sigma if filter_primary else 0.0,
+            exposure_time=cfg.exposure_time, filter_indirect=cfg.filter_indirect,
+            filter_median=cfg.filter_median and not is_secondary,
+            filter_median_thresh=cfg.filter_median_thresh,
+            no_shift_direct=cfg.no_shift_direct and cfg.vis_only,
+            shift_form=cfg.transient_shift_form,
+        )
+        if not linear_rgb and cfg.linear_to_srgb and rendering["rgb"] is not None:
             rendering["rgb"] = torch.clamp(image.linear_to_srgb(rendering["rgb"]), min=0.0)
         return rendering

@@ -7,10 +7,14 @@ by the detached N * p so the estimate stays unbiased) and the secondary-ray
 bookkeeping. ``NeRFModel`` is the radiance cache: primary rays without
 resampling, and secondary rays (``is_secondary``) with it when
 ``resample_secondary`` is set, as the material stage traces them.
+``TransientNeRFModel`` is the transient (time-resolved) cache, with its
+weights-only rendering (unit colours and transients, for shadow-ray
+visibility).
 
-Not ported yet: resampling of primary rays, weights-only rendering, volume
-control variates, environment maps and the surface-light-field memory (they
-raise), and the argmax resample and ray-distance warps of secondary rays.
+Not ported yet: resampling of primary rays, weights-only rendering of the
+steady cache, volume control variates, environment maps and the
+surface-light-field memory (they raise), and the argmax resample and
+ray-distance warps of secondary rays.
 """
 
 from __future__ import annotations
@@ -135,14 +139,17 @@ class Model(Configurable, nn.Module):
                                     train, train_frac, is_secondary, bg_intensity_range,
                                     **render_kwargs):
         """Shade the (filtered) samples and composite them."""
-        if render_kwargs.pop("weights_only", False):
-            raise NotImplementedError("weights-only rendering is not ported yet")
+        weights_only = render_kwargs.pop("weights_only", False)
         inputs = torchutil.apply_stopgrad_fields(filtered_sampler_results, stopgrad_map)
         shared = dict(train_frac=train_frac, train=train, is_secondary=is_secondary)
         key, rng = torchutil.random_split(rng)
-        shader_results = self.shader(rng=key, rays=rays, sampler_results=inputs,
-                                     filtered_sampler_results=inputs, **shared, **render_kwargs)
-        shader_results.setdefault("weights_no_filter", shader_results["weights"])
+        if weights_only:
+            shader_results = self.make_weights_only_shader_results(rays, inputs)
+        else:
+            shader_results = self.shader(rng=key, rays=rays, sampler_results=inputs,
+                                         filtered_sampler_results=inputs, **shared,
+                                         **render_kwargs)
+            shader_results.setdefault("weights_no_filter", shader_results["weights"])
         if is_secondary:
             # Nothing reads the ray-distance statistics of secondary rays.
             render_kwargs["compute_distance"] = False
@@ -153,6 +160,10 @@ class Model(Configurable, nn.Module):
         integrator_results = self._handle_secondary(is_secondary, integrator_results)
         return shader_results, integrator_results
 
+    def make_weights_only_shader_results(self, rays, sampler_results):
+        raise NotImplementedError(f"weights-only rendering of {type(self).__name__} "
+                                  "is not ported yet")
+
 
 class NeRFModel(Model):
     """Radiance cache: proposal sampler + NeRFMLP + integrator."""
@@ -161,6 +172,8 @@ class NeRFModel(Model):
     shader_params = None
     integrator_params = None
     extra_model_params = None
+    _shader_cls = nerf_shader.NeRFMLP
+    _integrator_cls = integrator_lib.VolumeIntegrator
 
     def __init__(self, config=None, **kwargs):
         self._init_model(config, kwargs)
@@ -168,10 +181,10 @@ class NeRFModel(Model):
         self.sampler = sampler_lib.ProposalVolumeSampler(
             config=config, **dict(self.sampler_params or {}),
             **dict(self.extra_model_params or {}))
-        self.shader = nerf_shader.NeRFMLP(
+        self.shader = self._shader_cls(
             config=config, density_feature_dim=self.sampler.mlps[-1].feature_dim,
             **dict(self.shader_params or {}))
-        self.integrator = integrator_lib.VolumeIntegrator(
+        self.integrator = self._integrator_cls(
             config=config, **dict(self.integrator_params or {}))
 
     def forward(self, rng, rays, train_frac=1.0, train=True, sampling_strategy=None,
@@ -209,3 +222,29 @@ class NeRFModel(Model):
             shader=shader_results, geometry=sampler_results[-1], integrator=integrator_results,
         )
         return {"main": main, "render": integrator_results}
+
+
+class TransientNeRFModel(NeRFModel):
+    """Time-resolved radiance cache (InvProp): proposal sampler +
+    TransientNeRFMLP + TransientVolumeIntegrator."""
+
+    _shader_cls = nerf_shader.TransientNeRFMLP
+    _integrator_cls = integrator_lib.TransientVolumeIntegrator
+
+    def make_weights_only_shader_results(self, rays, sampler_results):
+        """Unit colours and transients over the sampler's weights, with the
+        distances the transient integrator bins by."""
+        out = dict(sampler_results)
+        means = sampler_results["means"]
+        out["light_dists"] = torch.linalg.norm(rays.lights[..., None, :] - means, dim=-1,
+                                               keepdim=True)
+        out["ray_dists"] = torch.linalg.norm(rays.origins[..., None, :] - means, dim=-1,
+                                             keepdim=True)
+        weights = sampler_results["weights"]
+        t_shape = weights.shape + (self.config.n_bins, self.config.num_rgb_channels)
+        for k in ("transient_indirect", "transient_indirect_specular",
+                  "transient_indirect_diffuse"):
+            out[k] = torch.ones(t_shape, dtype=weights.dtype, device=weights.device)
+        out["rgb"] = out["direct_rgb"] = torch.ones_like(weights)[..., None].expand(
+            weights.shape + (self.config.num_rgb_channels,))
+        return out

@@ -1,9 +1,11 @@
 """Surface light field MLP (counterpart of ``models/surface_light_field.py``).
 
-Ported: the configuration the cache shader uses on the slice, a
+Ported: the configuration the cache shaders use on the slices, a
 view-conditioned decoder over the shader's bottleneck and the (integrated)
-directional encoding of the query direction. The distance head, reflectance
-grid, point encodings and light conditioning are not ported yet and raise.
+directional encoding of the query direction; with ``use_indirect`` (the
+transient SLF) the rgb head emits n_bins x 3 time-binned channels. The
+distance head, reflectance grid, point encodings and light conditioning are
+not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ class SurfaceLightFieldMLP(shading.BaseShader):
                       use_origins=False,
                       use_lights=False, use_points=False, use_sphere_points=False,
                       use_far_field_points=False, use_distance_prediction=False,
-                      use_density_prediction=False, use_indirect=False,
+                      use_density_prediction=False,
                       use_reflectance_grid=False, rotate_illumination=False)
         if config is not None and config.multi_illumination:
             raise NotImplementedError("multi-illumination is not ported yet")
@@ -71,7 +73,8 @@ class SurfaceLightFieldMLP(shading.BaseShader):
         self.view_dependent_layers = SkipMLP(in_dim, widths, self.skip_layer_dir,
                                              self.net_activation, self.compute_dtype, names=names)
         out_dim = self.view_dependent_layers.out_dim
-        self.output_rgba_layer = Dense(out_dim, self.num_rgb_channels + 1, self.compute_dtype)
+        rgb_channels = self.num_rgb_channels * (config.n_bins if self.use_indirect else 1)
+        self.output_rgba_layer = Dense(out_dim, rgb_channels + 1, self.compute_dtype)
         self.output_ambient_rgb_layer = Dense(out_dim, self.num_rgb_channels, self.compute_dtype)
 
     def forward(self, rng, rays, sampler_results, origins, refdirs, roughness=None,
@@ -106,3 +109,9 @@ class SurfaceLightFieldMLP(shading.BaseShader):
         outputs["incoming_env_rgba"] = torch.cat([env_rgb, env_alpha], dim=-1)
         outputs["incoming_acc"] = ref_weights.sum(dim=-1)
         return outputs
+
+
+class TransientSurfaceLightFieldMLP(SurfaceLightFieldMLP):
+    """The transient cache shader's SLF: time-binned incoming radiance."""
+
+    use_indirect = True

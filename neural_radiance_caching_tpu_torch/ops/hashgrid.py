@@ -8,7 +8,10 @@ scatter-add over all levels (``ops/scatter_cuda.py``: a CUDA kernel for CUDA
 tensors, its plain ``index_add_`` version for CPU tensors). The layout of that
 scatter follows the JAX encoder: below ``PLANES_MIN_POINTS`` sampled points
 the leveled kernel (taps-fastest update rows), at secondary-ray fan-outs the
-planes kernel (point-minor tap planes); ``use_planes_layout`` decides.
+planes kernel (point-minor tap planes); ``use_planes_layout`` decides. With
+``scatter_dedup`` the leveled backward first sums each run of equal rows
+along the point axis onto the run's last update and scatters only those
+(``_dedup_weighted_scatter``, the skip-zero-weight kernel instance).
 
 Semantics match the JAX encoder bit for bit where they are integer: the
 spatial hash wraps int32 corners to uint32 and multiplies (computed here in
@@ -206,6 +209,64 @@ def use_planes_layout(num_points, multisample_reduce):
     return multisample_reduce == "mean" and num_points >= PLANES_MIN_POINTS
 
 
+# Run-dedup of the leveled backward: runs of equal rows along the point axis
+# are force-broken every 2**DEDUP_SCAN_STEPS points, so a capped
+# Hillis-Steele scan of that many steps sums every run exactly.
+DEDUP_SCAN_STEPS = 6
+
+
+def _shift_points(x, shift):
+    """x [L, P, ...] moved `shift` points later along axis 1, zero-filled."""
+    pad = [0, 0] * (x.dim() - 2) + [shift, 0]
+    return torch.nn.functional.pad(x, pad)[:, : x.shape[1]]
+
+
+def _dedup_weighted_scatter(idx_l, w_l, ct_l, *, num_rows, features, corners, scatter_fn):
+    """Run-deduplicated leveled scatter (counterpart of the JAX function of
+    the same name).
+
+    idx_l/w_l: [L, P*U] (corners fastest); ct_l: [L, P, F]. The update
+    stream of ``dedup_runs`` goes through ``scatter_fn`` with
+    ``skip_zero_w``: one row per update (corners = 1), the updates of weight
+    0 skipped. The sums equal the direct scatter's up to float32 association
+    order.
+    """
+    keep, rows = dedup_runs(idx_l, w_l, ct_l, corners=corners)
+    return scatter_fn(idx_l, keep, rows, num_rows=num_rows, features=features, corners=1,
+                      skip_zero_w=True)
+
+
+def dedup_runs(idx_l, w_l, ct_l, *, corners):
+    """The run-deduplicated update stream of a leveled scatter.
+
+    Consecutive points that share a tap's row (same cell, same tap slot)
+    have their w * ct contributions summed onto the run's last point with a
+    capped segmented scan. Returns (keep [L, P*U] float32, 1 at run ends and
+    0 elsewhere; rows [L, P*U, F], each run end's row carrying its run's
+    sum).
+    """
+    levels, p, features = ct_l.shape
+    idx3 = idx_l.reshape(levels, p, corners)
+    v = w_l.reshape(levels, p, corners)[..., None] * ct_l[:, :, None, :]  # [L, P, U, F]
+    same = torch.zeros((levels, p, corners), dtype=torch.bool, device=idx_l.device)
+    same[:, 1:] = idx3[:, 1:] == idx3[:, :-1]
+    # A run break every 2**steps points keeps the capped scan exact however
+    # long the true runs are (the broken tail scatters separately).
+    pos_break = torch.arange(p, device=idx_l.device) % (1 << DEDUP_SCAN_STEPS) != 0
+    same &= pos_break[None, :, None]
+
+    acc = v
+    connected = same[..., None].to(v.dtype)  # [L, P, U, 1]
+    for k in range(DEDUP_SCAN_STEPS):
+        acc = acc + connected * _shift_points(acc, 1 << k)
+        connected = connected * _shift_points(connected, 1 << k)
+    # Run ends carry the run's sum; everything else is skipped.
+    is_end = torch.ones_like(same)
+    is_end[:, :-1] = ~same[:, 1:]
+    return (is_end.reshape(levels, p * corners).to(torch.float32),
+            acc.reshape(levels, p * corners, features))
+
+
 def _dense_level_heights(dense_offsets, total):
     """Per-level row counts of the flat dense pool."""
     return [
@@ -240,7 +301,7 @@ class _GridEncode(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, hash_tables, dense_pool, x_scale, statics):
         (grid_sizes, table_size, dense_offsets, multisample_reduce, interpolation,
-         _, _) = statics
+         _, _, _) = statics
         batch_shape, m = tuple(x.shape[:-2]), x.shape[-2]
         xs = None if x_scale is None else x_scale.reshape(-1, 1)
         rows, weights = _tap_rows_and_weights(
@@ -255,7 +316,7 @@ class _GridEncode(torch.autograd.Function):
     def backward(ctx, ct):
         x, x_scale, rows, weights, hash_tables, dense_pool = ctx.saved_tensors
         (grid_sizes, table_size, dense_offsets, multisample_reduce, interpolation,
-         scatter_fn, planes_fn) = ctx.statics
+         scatter_fn, planes_fn, scatter_dedup) = ctx.statics
         batch_shape, m = ctx.shape_info
         num_levels = len(grid_sizes)
 
@@ -284,11 +345,14 @@ class _GridEncode(torch.autograd.Function):
                 # rows [L, points, F].
                 ct_pm = (ct.reshape(batch_shape + (1, num_levels, nf)) / m).expand(
                     batch_shape + (m, num_levels, nf)).reshape(-1, num_levels, nf)
-                out = scatter_fn(
-                    rows.permute(1, 0, 2).reshape(num_levels, -1).contiguous(),
-                    w.permute(1, 0, 2).reshape(num_levels, -1).contiguous(),
-                    ct_pm.permute(1, 0, 2).to(torch.float32).contiguous(),
-                    num_rows=num_rows, features=nf, corners=corners)
+                args = (rows.permute(1, 0, 2).reshape(num_levels, -1).contiguous(),
+                        w.permute(1, 0, 2).reshape(num_levels, -1).contiguous(),
+                        ct_pm.permute(1, 0, 2).to(torch.float32).contiguous())
+                if scatter_dedup and corners > 1:
+                    out = _dedup_weighted_scatter(*args, num_rows=num_rows, features=nf,
+                                                  corners=corners, scatter_fn=scatter_fn)
+                else:
+                    out = scatter_fn(*args, num_rows=num_rows, features=nf, corners=corners)
             d_grad, h_grad = _split_levels(out, len(dense_offsets), heights, table_size)
 
         dx = dxs = None
@@ -326,6 +390,7 @@ def multires_grid_encode(
     interpolation: str = "trilinear",
     scatter_fn=None,
     planes_scatter_fn=None,
+    scatter_dedup: bool = False,
 ):
     """Public encoder: gather forward, weighted-scatter table backward.
 
@@ -335,6 +400,10 @@ def multires_grid_encode(
     ``scatter_cuda.scatter_add_weighted_leveled`` and
     ``scatter_cuda.scatter_add_weighted_planes``, launch the CUDA kernels on
     CUDA tensors and run their plain versions on CPU tensors.
+    ``scatter_dedup`` runs the leveled backward through the run-dedup
+    (``_dedup_weighted_scatter``, ``scatter_fn`` with ``skip_zero_w=True``);
+    as in the JAX encoder it applies below ``PLANES_MIN_POINTS`` and with
+    more than one tap per point.
     """
     from neural_radiance_caching_tpu_torch.ops import scatter_cuda
 
@@ -345,5 +414,5 @@ def multires_grid_encode(
     grid_sizes = tuple(int(s) for s in np.asarray(grid_sizes).tolist())
     dense_offsets = tuple(int(o) for o in dense_offsets)
     statics = (grid_sizes, int(table_size), dense_offsets, multisample_reduce,
-               interpolation, scatter_fn, planes_scatter_fn)
+               interpolation, scatter_fn, planes_scatter_fn, bool(scatter_dedup))
     return _GridEncode.apply(x, hash_tables, dense_pool, x_scale, statics)

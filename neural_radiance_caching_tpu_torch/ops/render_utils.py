@@ -4,10 +4,11 @@
 Local shading frames, the 2D uniform generator, the cosine, uniform and GGX
 importance samplers with the power-heuristic MIS weights, vMF mixture
 evaluation, sampling and filtering with the learned-light sampler, the
-Disney-ish microfacet lobe, the secondary-ray fan-out at surface points and
-the Monte-Carlo reflection estimators. Environment-map, quadrature,
-identity, active-light, mirror and visible-normal samplers, structured
-light and the transient helpers are not ported yet and raise.
+Disney-ish microfacet lobe, the secondary-ray fan-out at surface points,
+the Monte-Carlo reflection estimators and the transient causality mask
+``zero_invalid_bins``. Environment-map, quadrature, identity, active-light,
+mirror and visible-normal samplers, structured light and the other
+transient helpers (iToF and Gaussian projections) are not ported yet.
 
 Every random number comes from ``utils/torchutil`` (``uniform``, ``normal``,
 ``categorical``), in the order the JAX package draws its keys.
@@ -483,3 +484,34 @@ def integrate_irradiance(samples):
     weight = torch.where(z > 0.0, torch.clamp(samples["weight"], min=0.0), 0.0)
     diffuse_lobe = torch.clamp(z, min=0.0) / pymath.pi
     return (samples["radiance_in"] * diffuse_lobe * weight / denominator).mean(dim=1)
+
+
+def zero_invalid_bins(transient_indirect_diffuse, transient_indirect_specular, rays, means,
+                      config):
+    """Causality mask of the per-sample indirect transients [..., S, bins, C]:
+    zero the bins light cannot have reached the sample by (light distance
+    beyond the bin's path length, less `bin_zero_threshold_light` bins), the
+    bins whose return to the camera would fall past the last bin, and, with
+    `light_zero`, every bin of samples nearer the light than `light_near`."""
+    shape_trans = transient_indirect_diffuse.shape
+    bins = torch.arange(config.n_bins, device=means.device).reshape(
+        (1,) * (len(shape_trans) - 2) + (config.n_bins, 1))
+    zero = torch.zeros((), dtype=transient_indirect_diffuse.dtype, device=means.device)
+
+    def masked(mask, *ts):
+        return tuple(torch.where(mask, zero.to(t.dtype), t) for t in ts)
+
+    hist_dists_light = (bins + config.bin_zero_threshold_light) * config.exposure_time
+    light_dists = torch.linalg.norm(rays.lights[..., None, :] - means, dim=-1, keepdim=True)
+    ts = masked(hist_dists_light < light_dists[..., None, :],
+                transient_indirect_diffuse, transient_indirect_specular)
+
+    hist_dists_cam = bins * config.exposure_time
+    max_dists = (config.n_bins - 1) * config.exposure_time
+    cam_dists = torch.linalg.norm(rays.origins[..., None, :] - means, dim=-1, keepdim=True) + \
+        torch.linalg.norm(rays.origins[..., None, :] - rays.cam_origins[..., None, :], dim=-1,
+                          keepdim=True)
+    ts = masked((hist_dists_cam + cam_dists[..., None, :]) > max_dists, *ts)
+    if config.light_zero:
+        ts = masked(light_dists[..., None, :] < config.light_near, *ts)
+    return ts

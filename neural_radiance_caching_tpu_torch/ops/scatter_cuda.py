@@ -1,15 +1,21 @@
 """Hash-grid table-gradient scatters on the GPU (counterpart of
 ``ops/scatter_tpu.py``).
 
-Two kernels, each replacing the Pallas kernel of the same name
+Each kernel replaces the Pallas kernel of the same name
 (``neural_radiance_caching_tpu/ops/scatter_tpu.py``):
 
 - ``scatter_add_weighted_leveled`` (``csrc/scatter_weighted.cu``): updates
   as ``[L, P*U]`` index/weight rows (taps fastest) and ``[L, P, F]``
-  cotangents; the encoder backward at primary-ray point counts.
+  cotangents; the encoder backward at primary-ray point counts. With
+  ``skip_zero_w=True`` it launches the instance that skips updates of weight
+  0, which the run-deduplicated stream (``hashgrid._dedup_weighted_scatter``)
+  feeds; its launches count under ``"leveled_skip"``.
 - ``scatter_add_weighted_planes`` (``csrc/scatter_weighted_planes.cu``):
   updates as ``[L, U, P]`` tap planes and ``[L, F, P]`` cotangent planes
   (point axis minor); the encoder backward at secondary-ray fan-outs.
+- ``scatter_add_rows_leveled`` (``csrc/scatter_rows.cu``): the unweighted row
+  scatter ``out[l, idx[l, j]] += g[l, j]``, with ``scatter_add_rows_padded``
+  for one table.
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface the first time a CUDA tensor reaches a kernel (the
@@ -38,8 +44,20 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-# Kernel name -> its CUDA source; one shared library per source.
-_SOURCES = {"leveled": "scatter_weighted.cu", "planes": "scatter_weighted_planes.cu"}
+_SOURCES = ("scatter_weighted.cu", "scatter_weighted_planes.cu", "scatter_rows.cu")
+_WEIGHTED_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                  ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+                  ctypes.c_int64, ctypes.c_void_p)
+_ROWS_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+              ctypes.c_int64, ctypes.c_int32, ctypes.c_int64, ctypes.c_void_p)
+# Kernel name -> (source, C entry point, its argument types).
+_KERNELS = {
+    "leveled": ("scatter_weighted.cu", "nrc_scatter_add_weighted_leveled", _WEIGHTED_ARGS),
+    "leveled_skip": ("scatter_weighted.cu", "nrc_scatter_add_weighted_leveled_skip_zero_w",
+                     _WEIGHTED_ARGS),
+    "planes": ("scatter_weighted_planes.cu", "nrc_scatter_add_weighted_planes", _WEIGHTED_ARGS),
+    "rows": ("scatter_rows.cu", "nrc_scatter_add_rows_leveled", _ROWS_ARGS),
+}
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -51,7 +69,7 @@ _libs = None
 _lib_lock = threading.Lock()
 
 # Kernel launches per kernel (CUDA path only); the plain versions count nothing.
-launches = {name: 0 for name in _SOURCES}
+launches = {name: 0 for name in _KERNELS}
 
 
 def reset_launch_count():
@@ -79,36 +97,31 @@ def _lib_path(source):
 
 def build_library(verbose=False):
     """Compile each csrc/ source into its own shared library (cached by
-    source hash), all sources at once; returns {kernel name: library path}."""
+    source hash), all sources at once; returns {source: library path}."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {name: _lib_path(src) for name, src in _SOURCES.items()}
+    paths = {src: _lib_path(src) for src in _SOURCES}
     procs = {}
-    for name, src in _SOURCES.items():
-        if paths[name].exists():
+    for src in _SOURCES:
+        if paths[src].exists():
             continue
-        tmp_path = paths[name].with_suffix(f".{os.getpid()}.tmp")
+        tmp_path = paths[src].with_suffix(f".{os.getpid()}.tmp")
         cmd = [_find_nvcc(), *_NVCC_FLAGS, "-o", str(tmp_path), str(_CSRC / src)]
         if verbose:
             cmd.insert(1, "-Xptxas=-v")
-        procs[name] = (tmp_path, subprocess.Popen(
+        procs[src] = (tmp_path, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     errors = []
-    for name, (tmp_path, proc) in procs.items():
+    for src, (tmp_path, proc) in procs.items():
         out, err = proc.communicate()
         if proc.returncode != 0:
-            errors.append(f"nvcc failed on {_SOURCES[name]} ({proc.returncode}):\n{out}\n{err}")
+            errors.append(f"nvcc failed on {src} ({proc.returncode}):\n{out}\n{err}")
             continue
         if verbose and (out or err):
             print(out + err, flush=True)
-        os.replace(tmp_path, paths[name])
+        os.replace(tmp_path, paths[src])
     if errors:
         raise RuntimeError("\n".join(errors))
     return paths
-
-
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
-             ctypes.c_int64, ctypes.c_void_p]
 
 
 def load_library():
@@ -117,15 +130,14 @@ def load_library():
     global _libs
     with _lib_lock:
         if _libs is None:
-            paths = build_library()
-            libs = {name: ctypes.CDLL(str(path)) for name, path in paths.items()}
+            libs = {src: ctypes.CDLL(str(path)) for src, path in build_library().items()}
             fns = {}
-            for name, lib in libs.items():
-                fn = getattr(lib, f"nrc_scatter_add_weighted_{name}")
-                fn.argtypes = _ARGTYPES
+            for name, (src, entry, argtypes) in _KERNELS.items():
+                fn = getattr(libs[src], entry)
+                fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
                 fns[name] = fn
-            error_string = libs["leveled"].nrc_cuda_error_string
+            error_string = libs["scatter_weighted.cu"].nrc_cuda_error_string
             error_string.argtypes = [ctypes.c_int]
             error_string.restype = ctypes.c_char_p
             fns["error_string"] = error_string
@@ -133,13 +145,14 @@ def load_library():
         return _libs
 
 
-def _launch(name, out, idx, w, ct, levels, n, corners, features, num_rows):
-    """Run kernel `name` on the current stream of out's device; count it."""
+def _launch(name, out, *args):
+    """Run kernel `name` with `args` (tensors by address, then the sizes) on
+    the current stream of out's device; count it."""
     fns = load_library()
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fns[name](idx.data_ptr(), w.data_ptr(), ct.data_ptr(), out.data_ptr(),
-                       levels, n, corners, features, num_rows, stream)
+        rc = fns[name](*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} scatter kernel launch failed: "
                            f"{fns['error_string'](rc).decode()}")
@@ -147,14 +160,28 @@ def _launch(name, out, idx, w, ct, levels, n, corners, features, num_rows):
     return out
 
 
-def scatter_add_weighted_leveled_plain(idx, w, ct, *, num_rows, features, corners):
-    """Plain PyTorch version: one index_add_ of w * ct gathered per update."""
-    levels, n = idx.shape
-    rows = w[..., None] * torch.repeat_interleave(ct, corners, dim=1)  # [L, N, F]
+def _index_add_rows(idx, rows, num_rows, features, keep=None):
+    """[L, num_rows, F] sums of `rows` [L, N, F] at per-level rows `idx` [L, N]
+    by one index_add_ on the flat table; `keep` [L, N] drops updates."""
+    levels = idx.shape[0]
     offsets = torch.arange(levels, device=idx.device, dtype=torch.int64)[:, None] * num_rows
-    out = torch.zeros(levels * num_rows, features, dtype=torch.float32, device=ct.device)
-    out.index_add_(0, (idx.to(torch.int64) + offsets).reshape(-1), rows.reshape(-1, features))
+    flat_idx = (idx.to(torch.int64) + offsets).reshape(-1)
+    flat_rows = rows.reshape(-1, features)
+    if keep is not None:
+        keep = keep.reshape(-1)
+        flat_idx, flat_rows = flat_idx[keep], flat_rows[keep]
+    out = torch.zeros(levels * num_rows, features, dtype=torch.float32, device=rows.device)
+    out.index_add_(0, flat_idx, flat_rows)
     return out.reshape(levels, num_rows, features)
+
+
+def scatter_add_weighted_leveled_plain(idx, w, ct, *, num_rows, features, corners,
+                                       skip_zero_w=False):
+    """Plain PyTorch version: one index_add_ of w * ct gathered per update;
+    with skip_zero_w the updates of weight 0 are dropped first, so a row
+    that is not finite under a weight of 0 adds nothing."""
+    rows = w[..., None] * torch.repeat_interleave(ct, corners, dim=1)  # [L, N, F]
+    return _index_add_rows(idx, rows, num_rows, features, keep=(w != 0) if skip_zero_w else None)
 
 
 def _check_args(idx, w, ct, num_rows, features, corners):
@@ -169,13 +196,19 @@ def _check_args(idx, w, ct, num_rows, features, corners):
         raise ValueError(f"ct must be {(levels, n // corners, features)}, got {tuple(ct.shape)}")
     if idx.dtype != torch.int32 or w.dtype != torch.float32 or ct.dtype != torch.float32:
         raise TypeError(f"expected int32/float32/float32, got {idx.dtype}/{w.dtype}/{ct.dtype}")
-    if not (idx.device == w.device == ct.device):
-        raise ValueError(f"tensors on different devices: {idx.device}, {w.device}, {ct.device}")
+    _check_devices(idx, w, ct)
     if num_rows <= 0:
         raise ValueError(f"num_rows must be positive, got {num_rows}")
 
 
-def scatter_add_weighted_leveled(idx, w, ct, *, num_rows, features, corners):
+def _check_devices(*tensors):
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"tensors on different devices: {[str(t.device) for t in tensors]}")
+    if tensors[0].device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {tensors[0].device}")
+
+
+def scatter_add_weighted_leveled(idx, w, ct, *, num_rows, features, corners, skip_zero_w=False):
     """Per-level weighted scatter-add:
     grads[l, idx[l, j]] += w[l, j] * ct[l, j // corners].
 
@@ -184,6 +217,8 @@ def scatter_add_weighted_leveled(idx, w, ct, *, num_rows, features, corners):
         (corners fastest).
       w: [L, N] float32 per-update weights.
       ct: [L, points, features] float32 per-point cotangent rows.
+      skip_zero_w: skip the updates whose weight is 0 (the dedup'd stream,
+        where most are).
 
     Returns [L, num_rows, features] float32. CPU tensors take the plain
     version; CUDA tensors launch the kernel on the current stream. A row
@@ -192,18 +227,16 @@ def scatter_add_weighted_leveled(idx, w, ct, *, num_rows, features, corners):
     RuntimeError.
     """
     _check_args(idx, w, ct, num_rows, features, corners)
+    kw = dict(num_rows=num_rows, features=features, corners=corners, skip_zero_w=skip_zero_w)
     if idx.device.type == "cpu":
         # index_add_ on the flat [L * num_rows] table would take a row past
         # one level's end as a row of the next, so the range is checked here.
         _check_rows_cpu(idx, num_rows)
-        return scatter_add_weighted_leveled_plain(
-            idx, w, ct, num_rows=num_rows, features=features, corners=corners)
-    if idx.device.type != "cuda":
-        raise ValueError(f"unsupported device {idx.device}")
+        return scatter_add_weighted_leveled_plain(idx, w, ct, **kw)
     levels, n = idx.shape
     out = torch.zeros(levels, num_rows, features, dtype=torch.float32, device=ct.device)
-    return _launch("leveled", out, idx.contiguous(), w.contiguous(), ct.contiguous(),
-                   levels, n, corners, features, num_rows)
+    return _launch("leveled_skip" if skip_zero_w else "leveled", out, idx.contiguous(),
+                   w.contiguous(), ct.contiguous(), out, levels, n, corners, features, num_rows)
 
 
 def _check_rows_cpu(idx, num_rows):
@@ -214,12 +247,8 @@ def _check_rows_cpu(idx, num_rows):
 def scatter_add_weighted_planes_plain(idx, w, ct, *, num_rows, features, corners):
     """Plain PyTorch version: one index_add_ of w * ct gathered per update."""
     del corners
-    levels = idx.shape[0]
     rows = w[..., None] * ct.transpose(1, 2)[:, None]  # [L, U, P, F]
-    offsets = torch.arange(levels, device=idx.device, dtype=torch.int64)[:, None, None] * num_rows
-    out = torch.zeros(levels * num_rows, features, dtype=torch.float32, device=ct.device)
-    out.index_add_(0, (idx.to(torch.int64) + offsets).reshape(-1), rows.reshape(-1, features))
-    return out.reshape(levels, num_rows, features)
+    return _index_add_rows(idx.reshape(idx.shape[0], -1), rows, num_rows, features)
 
 
 def _check_planes_args(idx, w, ct, num_rows, features, corners):
@@ -236,8 +265,7 @@ def _check_planes_args(idx, w, ct, num_rows, features, corners):
         raise ValueError(f"features must lie in [1, 8], got {features}")
     if idx.dtype != torch.int32 or w.dtype != torch.float32 or ct.dtype != torch.float32:
         raise TypeError(f"expected int32/float32/float32, got {idx.dtype}/{w.dtype}/{ct.dtype}")
-    if not (idx.device == w.device == ct.device):
-        raise ValueError(f"tensors on different devices: {idx.device}, {w.device}, {ct.device}")
+    _check_devices(idx, w, ct)
     if num_rows <= 0:
         raise ValueError(f"num_rows must be positive, got {num_rows}")
 
@@ -260,9 +288,50 @@ def scatter_add_weighted_planes(idx, w, ct, *, num_rows, features, corners):
         _check_rows_cpu(idx, num_rows)
         return scatter_add_weighted_planes_plain(
             idx, w, ct, num_rows=num_rows, features=features, corners=corners)
-    if idx.device.type != "cuda":
-        raise ValueError(f"unsupported device {idx.device}")
     levels, _, points = idx.shape
     out = torch.zeros(levels, num_rows, features, dtype=torch.float32, device=ct.device)
-    return _launch("planes", out, idx.contiguous(), w.contiguous(), ct.contiguous(),
+    return _launch("planes", out, idx.contiguous(), w.contiguous(), ct.contiguous(), out,
                    levels, points, corners, features, num_rows)
+
+
+def scatter_add_rows_leveled_plain(idx, g, *, num_rows, features):
+    """Plain PyTorch version: one index_add_ of the rows."""
+    return _index_add_rows(idx, g, num_rows, features)
+
+
+def scatter_add_rows_leveled(idx, g, *, num_rows, features):
+    """Per-level row scatter-add: out[l, idx[l, j]] += g[l, j].
+
+    Args:
+      idx: [L, N] int32 row indices in [0, num_rows); any N.
+      g: [L, N, features] float32 update rows (the TPU kernel's 128-lane
+        packing is not needed).
+
+    Returns [L, num_rows, features] float32, for any num_rows. CPU tensors
+    take the plain version; CUDA tensors launch the kernel on the current
+    stream. A row outside [0, num_rows) raises on both, as in
+    scatter_add_weighted_leveled.
+    """
+    if idx.dim() != 2:
+        raise ValueError(f"idx must be [L, N], got {tuple(idx.shape)}")
+    levels, n = idx.shape
+    if tuple(g.shape) != (levels, n, features):
+        raise ValueError(f"g must be {(levels, n, features)}, got {tuple(g.shape)}")
+    if idx.dtype != torch.int32 or g.dtype != torch.float32:
+        raise TypeError(f"expected int32/float32, got {idx.dtype}/{g.dtype}")
+    _check_devices(idx, g)
+    if num_rows <= 0:
+        raise ValueError(f"num_rows must be positive, got {num_rows}")
+    if idx.device.type == "cpu":
+        _check_rows_cpu(idx, num_rows)
+        return scatter_add_rows_leveled_plain(idx, g, num_rows=num_rows, features=features)
+    out = torch.zeros(levels, num_rows, features, dtype=torch.float32, device=g.device)
+    return _launch("rows", out, idx.contiguous(), g.contiguous(), out, levels, n, features,
+                   num_rows)
+
+
+def scatter_add_rows_padded(idx, g, *, num_rows, features):
+    """Single-table row scatter-add from a contiguous [N, F] g: [num_rows, F].
+    The JAX wrapper's padding of N and num_rows is TPU layout; none is
+    needed here."""
+    return scatter_add_rows_leveled(idx[None], g[None], num_rows=num_rows, features=features)[0]

@@ -1,8 +1,9 @@
-"""Losses of the cache and material stages (counterpart of the part of
-``parallel/losses.py`` the slices reach): the Charbonnier and the
-gradient-debiased RawNeRF data losses, the spline interlevel loss,
-distortion, the predicted-normal regularizers and gradient clipping. Loss
-types off the slices raise."""
+"""Losses of the cache, material and transient cache stages (counterpart of
+the part of ``parallel/losses.py`` the slices reach): the Charbonnier, the
+gradient-debiased RawNeRF and its transient form (scaled by the rendering
+summed over time bins) data losses, the spline interlevel loss, distortion,
+the predicted-normal regularizers and gradient clipping. Loss types off the
+slices, and the transient Gaussian-pyramid term, raise."""
 
 from __future__ import annotations
 
@@ -38,13 +39,16 @@ def compute_loss_charb(rendering, gt, config):
     return torch.sqrt((rendering["rgb"] - gt) ** 2 + config.charb_padding**2)
 
 
-def _rawnerf_scaling(rendering, gt, config, clip_val, exponent, eps):
-    """1 / (sg(clipped rendered rgb)^exponent + eps)."""
+def _rawnerf_scaling(rendering, gt, config, clip_val, exponent, eps, transient=False):
+    """1 / (sg(clipped rendered rgb)^exponent + eps); a transient rendering
+    [..., bins, C] is summed over its bins first."""
     if config.use_gt_rawnerf or config.use_combined_rawnerf or config.use_norm_rawnerf:
         raise NotImplementedError("the gt, combined and norm RawNeRF scalings are not ported yet")
     # The material model's rendering carries the cache's rgb, which scales its loss.
     key = "cache_rgb" if "cache_rgb" in rendering else "rgb"
     rgb_clip = torch.clamp(rendering[key], 0.0, clip_val)
+    if transient:
+        rgb_clip = rgb_clip.sum(-2)[..., None, :]
     return 1.0 / (torch.pow(rgb_clip.detach(), exponent) + eps)
 
 
@@ -57,31 +61,41 @@ def compute_unbiased_loss(rendering, gt):
 
 
 def compute_unbiased_loss_rawnerf(rendering, gt, config, clip_val=10000.0, exponent=1.0,
-                                  eps=1e-3):
-    scale = _rawnerf_scaling(rendering, gt, config, clip_val, exponent, eps)
+                                  eps=1e-3, transient=False):
+    scale = _rawnerf_scaling(rendering, gt, config, clip_val, exponent, eps, transient)
     return compute_unbiased_loss(rendering, gt) * scale
 
 
-def select_data_loss_fn(config, rendering, gt, rawnerf_eps, rawnerf_exponent):
-    """Dispatch on config.data_loss_type (charb and rawnerf_unbiased are ported)."""
+def select_data_loss_fn(config, rendering, gt, rawnerf_eps, rawnerf_exponent, transient=False):
+    """Dispatch on config.data_loss_type (charb, rawnerf_unbiased and
+    rawnerf_transient_unbiased without the Gaussian-pyramid term are ported)."""
     if config.data_loss_type == "charb":
         return compute_loss_charb(rendering, gt, config)
     if config.data_loss_type == "rawnerf_unbiased":
         return compute_unbiased_loss_rawnerf(
             rendering, gt, config, eps=rawnerf_eps, exponent=rawnerf_exponent)
+    if config.data_loss_type == "rawnerf_transient_unbiased":
+        if transient and config.transient_gauss_sigma_scales:
+            raise NotImplementedError("the transient Gaussian-pyramid loss is not ported yet")
+        return compute_unbiased_loss_rawnerf(
+            rendering, gt, config, eps=rawnerf_eps, exponent=rawnerf_exponent,
+            transient=transient)
     raise NotImplementedError(f"data loss type {config.data_loss_type!r} is not ported yet")
 
 
-def compute_data_loss(batch, rendering, rays, config, main=False):
-    """RGB data loss + stats."""
+def compute_data_loss(batch, rendering, rays, config, main=False, transient=False):
+    """RGB data loss + stats. A transient target [B, bins, C] gets one loss
+    weight per (ray, bin), and a ray whose peak exceeds `loss_thresh` is
+    dropped whole."""
     stats = collections.defaultdict(list)
+    # The per-ray lossmult broadcasts over the target, bin axis included.
     lm = rays.lossmult
     while lm.dim() < batch.rgb[..., :3].dim():
         lm = lm[..., None, :]
     lossmult = torch.broadcast_to(lm, batch.rgb[..., :3].shape)
 
     rendering = dict(rendering)
-    gt = batch.rgb[..., :3]
+    gt = batch.rgb if transient else batch.rgb[..., :3]
     if config.convert_srgb:
         rendering["rgb"] = image.linear_to_srgb(rendering["rgb"])
         gt = image.linear_to_srgb(gt)
@@ -97,25 +111,33 @@ def compute_data_loss(batch, rendering, rays, config, main=False):
         lossmult = lossmult * masks
         if not unbiased:
             lossmult = lossmult + lossmult * (1.0 - masks) * config.mask_lossmult_weight
+    if transient:
+        lossmult = lossmult[..., :1]
 
     if main and config.use_loss_clip and not unbiased:
         clip = lambda x: torch.clamp(x, config.loss_clip_min, config.loss_clip)
         rendering["rgb"] = clip(rendering["rgb"])
         gt = clip(gt)
 
-    lossmult = torch.where(gt[..., :1] > config.loss_thresh, torch.zeros_like(lossmult), lossmult)
+    if transient:
+        peak = gt.amax(dim=(-2, -1), keepdim=True)
+        lossmult = torch.where(peak > config.loss_thresh, torch.zeros_like(lossmult), lossmult)
+    else:
+        lossmult = torch.where(gt[..., :1] > config.loss_thresh, torch.zeros_like(lossmult),
+                               lossmult)
     if config.clip_eval:
         resid_sq = (torch.clamp(rendering["rgb"], 0.0, 1.0) - torch.clamp(gt, 0.0, 1.0)) ** 2
     else:
         resid_sq = (rendering["rgb"] - gt) ** 2
-    mse = (masks * lossmult * resid_sq).mean()
+    mse = ((masks[..., :1] if transient else masks) * lossmult * resid_sq).mean()
 
+    # Without a debias forward the second estimate is the first.
     rendering.setdefault("rgb_nocorr", rendering["rgb"])
     if config.is_material:
         exponent, eps = config.rawnerf_exponent_material, config.rawnerf_eps_material
     else:
         exponent, eps = config.rawnerf_exponent, config.rawnerf_eps
-    data_loss = select_data_loss_fn(config, rendering, gt, eps, exponent)
+    data_loss = select_data_loss_fn(config, rendering, gt, eps, exponent, transient=transient)
     sub_loss = (lossmult * data_loss).mean()
     stats["mses"].append(mse * config.data_loss_mult)
     return sub_loss, {k: torch.stack(v) for k, v in stats.items()}

@@ -69,7 +69,8 @@ def _compute_losses_for_output(batch, rays, model_results, config, train_frac, m
             is_material=(main_name == "main" and results.get("sampler") is None))
         loss_weight = results.get("loss_weight", 1.0)
     data_loss, data_stats = losses_lib.compute_data_loss(
-        batch, rendering, rays, out_config, main=(main_name == "main"))
+        batch, rendering, rays, out_config, main=(main_name == "main"),
+        transient=config.use_transient)
     losses[prefix + "data"] = config.data_loss_mult * loss_weight * data_loss
     for k, v in data_stats.items():
         stats[prefix + k] = v

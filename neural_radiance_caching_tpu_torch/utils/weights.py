@@ -2,8 +2,11 @@
 
 ``state_dict_from_jax`` turns the JAX package's parameter tree (nested dicts
 of numpy arrays, as ``jax.device_get(variables)`` gives them) into this package's
-``state_dict`` for a given module: the cache model's tree, or the material
-model's (``Cache/...``, ``LightSampler/...``, ``MaterialShader/...``).
+``state_dict`` for a given module: the cache model's tree, the transient
+cache model's (the same names, plus the active shader's ``albedo_layer``,
+``direct_tint_layer``, ``brdf_layers_*``, ``irradiance_layers_*``,
+``transient_indirect_layer`` and the transient SLF's wider rgba head), or the
+material model's (``Cache/...``, ``LightSampler/...``, ``MaterialShader/...``).
 Every leaf maps to exactly one key and every key must be filled; a leaf left
 over raises. JAX ``Dense`` kernels
 ``[in, out]`` become torch weights ``[out, in]``; the hash and dense tables

@@ -1,6 +1,7 @@
 """Package boundaries of the PyTorch port: it imports without JAX, its
 sources name no JAX library, and the weight bridge covers every leaf of the
-full-width flagship cache and material models in both directions."""
+full-width flagship cache, material and transient cache models in both
+directions."""
 
 import importlib
 import pathlib
@@ -129,3 +130,31 @@ def test_unported_material_options_raise():
     shader = dict(params["shader_params"], use_active=True)
     with pytest.raises(NotImplementedError, match="use_active"):
         flagship.build_flagship_material_model(cfg, dict(params, shader_params=shader))
+
+
+def test_bridge_covers_every_flagship_transient_leaf():
+    import dataclasses
+
+    jcfg = dataclasses.replace(
+        bench._cache_config(), batch_size=2048, use_transient=True, n_bins=700,
+        exposure_time=0.02, learnable_light=True, light_source_position=[0.0, 0.0, 1.0],
+        data_loss_type="rawnerf_transient_unbiased", linear_to_srgb=False)
+    jmodel = bench.build_flagship_transient_cache_model(jcfg)
+    shapes = jax.eval_shape(lambda: jmodel.init(
+        jax.random.PRNGKey(0), jax.random.PRNGKey(1), jpytrees.dummy_rays(4), train_frac=1.0,
+        train=False))
+    tree = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), shapes)
+    tmodel = flagship.build_flagship_transient_cache_model(flagship.transient_config())
+    sd = weights.state_dict_from_jax(tree, tmodel)
+    leaves = jax.tree_util.tree_leaves(tree)
+    assert len(sd) == len(leaves) == len(tmodel.state_dict())
+    assert sum(v.numel() for v in sd.values()) == sum(x.size for x in leaves)
+    shader = tree["params"]["Shader"]
+    # The time-binned heads: 3 x 700 channels (+ alpha on the SLF's).
+    assert tuple(sd["shader.transient_indirect_layer.weight"].shape) == \
+        shader["transient_indirect_layer"]["kernel"].shape[::-1] == (2100, 64)
+    assert sd["shader.surface_lf.output_rgba_layer.bias"].shape[0] == 2101
+    for key in ("shader.light_power", "shader.albedo_layer.weight", "shader.brdf_layers.1.weight",
+                "shader.output_brdf_layer.bias", "shader.irradiance_layers.0.weight"):
+        assert key in sd
+    tmodel.load_state_dict(sd)

@@ -1,7 +1,8 @@
 """The table-gradient scatter wrappers (``ops/scatter_cuda.py``): the
-leveled plain version against a numpy one-hot sum, its argument checks, and,
-on a CUDA device, both hand-written kernels (leveled and planes) against
-their plain versions.
+leveled and row plain versions against a numpy one-hot sum, their argument
+checks, the skip-zero-weight plain version, and, on a CUDA device, every
+hand-written kernel (leveled, its skip instance, planes, rows) against its
+plain version.
 
 This file imports no JAX, so the GPU-marked tests also run on a machine
 without it: ``python -m pytest --noconftest tests/test_torch_scatter_cuda.py``.
@@ -71,6 +72,61 @@ def test_plain_scatter_raises_on_out_of_range_row(level, bad_row):
         scatter_cuda.scatter_add_weighted_leveled(idx, w, ct, num_rows=256, features=4, corners=4)
 
 
+def _numpy_row_scatter(idx, g, rows):
+    out = np.zeros((idx.shape[0], rows, g.shape[-1]), np.float32)
+    for lv in range(idx.shape[0]):
+        onehot = np.zeros((idx.shape[1], rows), np.float32)
+        onehot[np.arange(idx.shape[1]), idx[lv]] = 1.0
+        out[lv] = onehot.T @ g[lv]
+    return out
+
+
+@pytest.mark.parametrize("n,rows,features", [(1000, 77, 4), (512, 256, 1), (333, 5, 2)])
+def test_plain_row_scatter_matches_numpy_one_hot(n, rows, features):
+    # Any update count and any table height: no tile padding.
+    rng = np.random.RandomState(n)
+    idx = rng.randint(0, rows, (3, n)).astype(np.int32)
+    g = rng.randn(3, n, features).astype(np.float32)
+    before = dict(scatter_cuda.launches)
+    out = scatter_cuda.scatter_add_rows_leveled(
+        torch.as_tensor(idx), torch.as_tensor(g), num_rows=rows, features=features)
+    np.testing.assert_allclose(out.numpy(), _numpy_row_scatter(idx, g, rows), atol=1e-5)
+    single = scatter_cuda.scatter_add_rows_padded(
+        torch.as_tensor(idx[1]), torch.as_tensor(g[1]), num_rows=rows, features=features)
+    np.testing.assert_allclose(single.numpy(), out[1].numpy(), atol=0)
+    assert scatter_cuda.launches == before
+
+
+def test_row_scatter_rejects_bad_arguments():
+    idx = torch.zeros(2, 16, dtype=torch.int32)
+    g = torch.zeros(2, 16, 4)
+    call = scatter_cuda.scatter_add_rows_leveled
+    with pytest.raises(TypeError):
+        call(idx.long(), g, num_rows=8, features=4)
+    with pytest.raises(ValueError):
+        call(idx, g[:, :-1], num_rows=8, features=4)
+    with pytest.raises(ValueError):
+        call(idx, g, num_rows=8, features=2)
+    with pytest.raises(IndexError):
+        call(idx + 8, g, num_rows=8, features=4)
+
+
+def test_plain_skip_zero_w_drops_zero_weight_updates():
+    # Rows that are not finite under a weight of 0 add nothing when skipped
+    # (0 * nan is nan in the direct sum); the kept sum is unchanged.
+    idx, w, ct = (torch.as_tensor(a) for a in _scatter_case(10, corners=1))
+    w[:, ::3] = 0.0
+    ct[:, ::3] = float("nan")
+    kw = dict(num_rows=256, features=4, corners=1)
+    skipped = scatter_cuda.scatter_add_weighted_leveled(idx, w, ct, skip_zero_w=True, **kw)
+    assert torch.isfinite(skipped).all()
+    keep = (w != 0)[..., None]
+    want = scatter_cuda.scatter_add_weighted_leveled(
+        idx, w, torch.where(keep, ct, torch.zeros_like(ct)), **kw)
+    torch.testing.assert_close(skipped, want, rtol=1e-6, atol=1e-6)
+    assert not torch.isfinite(scatter_cuda.scatter_add_weighted_leveled(idx, w, ct, **kw)).all()
+
+
 def _need_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -109,6 +165,41 @@ def test_cuda_planes_kernel_matches_plain_version(corners, features):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.gpu
+def test_cuda_skip_zero_w_kernel_matches_plain_version():
+    _need_cuda()
+    idx, w, ct = (torch.as_tensor(a).cuda() for a in _scatter_case(
+        11, levels=3, points=16384, corners=1, rows=128, features=4))
+    w[:, ::3] = 0.0
+    ct[:, ::3] = float("nan")  # must never reach the table
+    kw = dict(num_rows=128, features=4, corners=1, skip_zero_w=True)
+    before = dict(scatter_cuda.launches)
+    got = scatter_cuda.scatter_add_weighted_leveled(idx, w, ct, **kw)
+    torch.cuda.synchronize()
+    assert scatter_cuda.launches["leveled_skip"] == before["leveled_skip"] + 1
+    assert scatter_cuda.launches["leveled"] == before["leveled"]
+    want = scatter_cuda.scatter_add_weighted_leveled_plain(idx, w, ct, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,rows,features", [(40000, 128, 4), (12345, 77, 2)])
+def test_cuda_row_kernel_matches_plain_version(n, rows, features):
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    idx = torch.randint(0, rows, (3, n), generator=gen, device="cuda", dtype=torch.int32)
+    g = torch.randn(3, n, features, generator=gen, device="cuda")
+    before = scatter_cuda.launches["rows"]
+    got = scatter_cuda.scatter_add_rows_leveled(idx, g, num_rows=rows, features=features)
+    single = scatter_cuda.scatter_add_rows_padded(idx[2], g[2], num_rows=rows, features=features)
+    torch.cuda.synchronize()
+    assert scatter_cuda.launches["rows"] == before + 2
+    want = scatter_cuda.scatter_add_rows_leveled_plain(idx, g, num_rows=rows, features=features)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(single, want[2], rtol=1e-5, atol=1e-4)
+
+
 _BAD_ROW_ON_CUDA = {
     "leveled": """
 import torch
@@ -117,6 +208,18 @@ idx = torch.zeros(2, 64, dtype=torch.int32, device="cuda")
 idx[1, 5] = 300
 w, ct = torch.ones(2, 64, device="cuda"), torch.ones(2, 16, 4, device="cuda")
 scatter_cuda.scatter_add_weighted_leveled(idx, w, ct, num_rows=256, features=4, corners=4)
+try:
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised:", e)
+""",
+    "rows": """
+import torch
+from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+idx = torch.zeros(2, 64, dtype=torch.int32, device="cuda")
+idx[1, 5] = 300
+scatter_cuda.scatter_add_rows_leveled(idx, torch.ones(2, 64, 4, device="cuda"), num_rows=256,
+                                      features=4)
 try:
     torch.cuda.synchronize()
 except RuntimeError as e:
@@ -179,4 +282,35 @@ def test_cuda_encoder_backward_matches_plain_backward(monkeypatch):
             grads.append(torch.autograd.grad(f, (tables, dense), ct))
         assert scatter_cuda.launches[layout] == before + 1
         for a, b in zip(*grads):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_dedup_encoder_backward_matches_plain_backward():
+    # Ray-like points (consecutive samples close together) so runs occur; the
+    # dedup'd backward launches the skip instance once and agrees with the
+    # direct kernel backward and with the plain dedup backward.
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    grid_sizes, table_size, dense_offsets = (8, 16, 32, 64), 4096, (0, 512)
+    dense = torch.randn(512 + 4096, 4, device="cuda", generator=gen).requires_grad_()
+    tables = torch.randn(2, table_size, 4, device="cuda", generator=gen).requires_grad_()
+    base = torch.rand(256, 1, 3, device="cuda", generator=gen)
+    steps = torch.cumsum(torch.rand(256, 32, 3, device="cuda", generator=gen) * 0.01, dim=1)
+    x = (base + steps).reshape(-1, 1, 3)
+    ct = torch.randn(x.shape[0], 16, device="cuda", generator=gen)
+    kw = dict(grid_sizes=grid_sizes, table_size=table_size, dense_offsets=dense_offsets,
+              interpolation="simplex")
+    grads = {}
+    for name, dedup, fn in (("direct", False, None), ("dedup", True, None),
+                            ("plain dedup", True, scatter_cuda.scatter_add_weighted_leveled_plain)):
+        before = dict(scatter_cuda.launches)
+        f = hashgrid.multires_grid_encode(x, tables, dense, scatter_dedup=dedup, scatter_fn=fn, **kw)
+        grads[name] = torch.autograd.grad(f, (tables, dense), ct)
+        launched = {k: scatter_cuda.launches[k] - before[k] for k in before}
+        if fn is None:
+            key = "leveled_skip" if dedup else "leveled"
+            assert launched == {k: int(k == key) for k in launched}, launched
+    for name in ("dedup", "plain dedup"):
+        for a, b in zip(grads[name], grads["direct"]):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
