@@ -5,14 +5,14 @@
 
 Phases, one line each (any failure exits nonzero):
   1. device: the card, and nvidia-smi's name and power limit;
-  2. build: compile the three CUDA sources from csrc/ with nvcc, in
-     parallel;
+  2. build: compile the two CUDA sources from csrc/ with nvcc, in parallel;
   3. kernel: the leveled kernel against its plain PyTorch version at the
      flagship cache shape (6 levels x 262,144 points x 4 taps, F = 4,
-     524,288 rows);
+     524,288 rows), on uniform points and on camera-ray samples;
   4. kernel (planes): the planes kernel against its plain version at the
      flagship material shape (6 levels x 1,572,864 secondary-ray samples x
-     4 taps), with the leveled kernel checked and timed on the same updates;
+     4 taps), with the leveled kernel checked and timed on the same updates,
+     and each level's slice timed alone;
   5. kernel (rows): the row scatter against its plain version on the
      run-deduplicated update stream of the flagship cache shape (camera-ray
      samples, 6 x 1,048,576 updates), and its padded wrapper at a ragged
@@ -37,7 +37,9 @@ Phases, one line each (any failure exits nonzero):
  11. material train: the full-width flagship material model, batch 1536 on
      the same scene: first one step in which every scatter call is held
      against its plain version on the same inputs (both kernels at the
-     shapes this path gives them), then 3 warmup + N timed steps with
+     shapes this path gives them), whose planes inputs then time the planes
+     kernel against index_add_ (all levels and each level alone), then 3
+     warmup + N timed steps with
      gradient checkpointing
      (the JAX setting), then one step without it for its peak memory;
      losses finite, exactly the parameters no loss reaches unchanged, the
@@ -52,7 +54,9 @@ Phases, one line each (any failure exits nonzero):
  13. kernel (skip): the skip-zero-weight instance against its plain version
      on the dedup'd stream of the transient path's own updates (captured in
      phase 12's checked step), with NaN rows planted under the zero weights,
-     the share of zero-weight updates, and both scatter routes timed.
+     the share of zero-weight updates, and both scatter routes timed; then
+     the leveled kernel against index_add_ on the same captured updates (all
+     levels and each level alone).
 Then the kernels JSON line, the nvidia-smi line, and the result line.
 """
 
@@ -145,6 +149,63 @@ def _index_add_call(idx, rows, num_rows):
         0, flat_idx, flat_rows)
 
 
+def _update_rows(kind, w, ct, corners):
+    """The products w * ct of a weighted scatter's updates, in the order of
+    its idx: leveled [L, P*U, F] from ct [L, P, F], planes [L, U, P, F] from
+    ct [L, F, P]."""
+    if kind == "planes":
+        return w[..., None] * ct.transpose(1, 2)[:, None]
+    return w[..., None] * ct.repeat_interleave(corners, dim=1)
+
+
+def _alternating_ms(fns, rounds=2):
+    """Per-call device time of each of `fns` (name -> function): medians of
+    11 calls by CUDA events (_cuda_ms), taken in turns, the functions in
+    order and then in reverse; each is the median of its `rounds` turns."""
+    names, times = list(fns), {k: [] for k in fns}
+    for r in range(rounds):
+        for k in names if r % 2 == 0 else names[::-1]:
+            times[k].append(_cuda_ms(fns[k]))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def _kernel_vs_library(kind, idx, w, ct, kw):
+    """On one update set: the `kind` kernel and one index_add_ of its update
+    rows, timed in turns (_alternating_ms: "kernel", "library")."""
+    from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+
+    kernel = getattr(scatter_cuda, f"scatter_add_weighted_{kind}")
+    fns = {"kernel": lambda: kernel(idx, w, ct, **kw),
+           "library": _index_add_call(idx, _update_rows(kind, w, ct, kw["corners"]),
+                                      kw["num_rows"])}
+    return _alternating_ms(fns)
+
+
+def _host_ms(torch, fn, repeats=11):
+    """Median host time of one call of `fn`, which returns without
+    synchronising: what the call costs the host (its Python, allocations and
+    launches), the floor of its time on an idle card."""
+    times = []
+    for _ in range(repeats + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times[1:]) * 1e3
+
+
+def _per_level_ms(kind, idx, w, ct, kw):
+    """[{"kernel": ms, "library": ms}] of each level's slice alone."""
+    return [_kernel_vs_library(kind, idx[lv:lv + 1], w[lv:lv + 1], ct[lv:lv + 1], kw)
+            for lv in range(idx.shape[0])]
+
+
+def _levels_text(per_level, sizes):
+    return ", ".join(f"{s}^3 {t['kernel']:.4f}/{t['library']:.4f}"
+                     for s, t in zip(sizes, per_level))
+
+
 # Float32 sums of the same terms in another order (atomics vs index_add_)
 # differ by at most (n - 1) * eps * sum|terms|; rounding errors grow like
 # sqrt(n) in practice. 2e-5 * sum|terms| (~170 eps) covers a 16^3-level cell
@@ -167,34 +228,52 @@ def phase_kernel(torch, device, seed):
     ct = torch.randn((levels, points, features), generator=gen, device=device)
     kw = dict(num_rows=num_rows, features=features, corners=corners)
 
-    got = scatter_cuda.scatter_add_weighted_leveled(idx, w, ct, **kw)
-    want = scatter_cuda.scatter_add_weighted_leveled_plain(idx, w, ct, **kw)
-    bound = _abs_sum_bound(idx, w, ct, num_rows, corners)
-    torch.cuda.synchronize()
-    err = (got - want).abs()
-    max_abs = float(err.max())
-    max_rel = float((err / want.abs().clamp(min=1e-30))[want.abs() > 1e-3].max())
-    ok = bool((err <= SUM_ORDER_TOL * bound + 1e-30).all())
+    def check(idx, w, ct):
+        got = scatter_cuda.scatter_add_weighted_leveled(idx, w, ct, **kw)
+        want = scatter_cuda.scatter_add_weighted_leveled_plain(idx, w, ct, **kw)
+        bound = _abs_sum_bound(idx, w, ct, num_rows, corners)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        max_rel = float((err / want.abs().clamp(min=1e-30))[want.abs() > 1e-3].max())
+        return float(err.max()), max_rel, bool((err <= SUM_ORDER_TOL * bound + 1e-30).all())
+
+    max_abs, max_rel, ok = check(idx, w, ct)
     hot = int(torch.bincount(idx[0].long(), minlength=4096).max())
     del rows, weights
     ms = _cuda_ms(lambda: scatter_cuda.scatter_add_weighted_leveled(idx, w, ct, **kw))
     plain_ms = _cuda_ms(lambda: scatter_cuda.scatter_add_weighted_leveled_plain(idx, w, ct, **kw))
-    library_ms = _cuda_ms(_index_add_call(
-        idx, w[..., None] * ct.repeat_interleave(corners, dim=1), num_rows))
+    library_ms = _cuda_ms(_index_add_call(idx, _update_rows("leveled", w, ct, corners), num_rows))
     n = levels * points * corners
     bound_ms, bound_by = _bound(4 * (2 * n + levels * points * features
                                      + levels * num_rows * features), 2 * n * features)
+
+    # The same shape on camera-ray samples (8192 rays x 32 sorted samples,
+    # as the rows phase draws them): neighbouring points share cells, as on
+    # the path.
+    gen = torch.Generator(device=device).manual_seed(seed + 9)
+    x = _primary_sample_points(torch, device, gen, 8192, 32).reshape(-1, 3)
+    rows, weights = hashgrid._tap_rows_and_weights(x, None, MATERIAL_LEVELS, num_rows, 3,
+                                                   "simplex")
+    r_idx = rows.permute(1, 0, 2).reshape(levels, -1).contiguous()
+    r_w = weights.permute(1, 0, 2).reshape(levels, -1).contiguous()
+    r_ct = torch.randn((levels, points, features), generator=gen, device=device)
+    del x, rows, weights
+    ray_abs, _, ray_ok = check(r_idx, r_w, r_ct)
+    ray = _kernel_vs_library("leveled", r_idx, r_w, r_ct, kw)
     print(f"kernel: scatter_add_weighted_leveled L={levels} P={points} U={corners} F={features} "
           f"rows={num_rows} (16^3 level: max {hot} updates on one row) "
           f"max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} "
           f"tol=|err|<={SUM_ORDER_TOL}*sum|w*ct| {'ok' if ok else 'FAIL'} "
           f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms(index_add_ of w*ct rows)="
-          f"{library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) (median of 11, CUDA events)",
-          flush=True)
-    if not ok:
+          f"{library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) (median of 11, CUDA events); "
+          f"on camera-ray samples (8192 rays x 32): max_abs_err={ray_abs:.3e} same tol "
+          f"{'ok' if ray_ok else 'FAIL'} kernel_ms={ray['kernel']:.4f} "
+          f"library_ms={ray['library']:.4f} (medians of 11 in 2 alternating turns)", flush=True)
+    if not (ok and ray_ok):
         raise AssertionError("kernel disagrees with its plain version")
-    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    return dict(max_abs_err=max(max_abs, ray_abs), ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                camera_ray_ms=ray["kernel"], camera_ray_library_ms=ray["library"])
 
 
 def phase_encoder(torch, device, seed):
@@ -293,7 +372,8 @@ def phase_reference(torch, device, seed):
 
     cfg = flagship.cache_config(batch_size=512, lr_delay_steps=0)
     params = _narrow(flagship.flagship_cache_params())
-    batch = datasets.SyntheticSpheres("train", None, cfg, num_images=4, resolution=32).next_train()
+    batch = datasets.SyntheticSpheres("train", None, cfg, num_images=4, resolution=32,
+                                      device="cpu").next_train()
     origins = batch.rays.origins
     nudged = batch.replace(rays=batch.rays.replace(
         origins=torch.nextafter(origins, torch.full_like(origins, float("inf")))))
@@ -395,11 +475,11 @@ def phase_kernel_planes(torch, device, seed):
     ms = _cuda_ms(lambda: scatter_cuda.scatter_add_weighted_planes(idx, w, ct, **kw))
     plain_ms = _cuda_ms(lambda: scatter_cuda.scatter_add_weighted_planes_plain(idx, w, ct, **kw))
     leveled_ms = _cuda_ms(lambda: scatter_cuda.scatter_add_weighted_leveled(l_idx, l_w, l_ct, **kw))
-    library_ms = _cuda_ms(_index_add_call(idx, w[..., None] * ct.transpose(1, 2)[:, None],
-                                          num_rows))
+    library_ms = _cuda_ms(_index_add_call(idx, _update_rows("planes", w, ct, corners), num_rows))
     n = levels * corners * MATERIAL_POINTS
     bound_ms, bound_by = _bound(4 * (2 * n + levels * features * MATERIAL_POINTS
                                      + levels * num_rows * features), 2 * n * features)
+    per_level = _per_level_ms("planes", idx, w, ct, kw)
     print(f"kernel (planes): scatter_add_weighted_planes L={levels} U={corners} "
           f"P={MATERIAL_POINTS} F={features} rows={num_rows} (secondary-ray samples; 16^3 level: "
           f"max {hot} updates on one row) max_abs_err={max_abs:.3e} "
@@ -407,12 +487,15 @@ def phase_kernel_planes(torch, device, seed):
           f"same updates max_abs_err={lev_err:.3e} same tol {'ok' if lev_ok else 'FAIL'}; "
           f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} leveled_kernel_same_updates_ms="
           f"{leveled_ms:.4f} library_ms(index_add_ of w*ct rows)={library_ms:.4f} "
-          f"bound_ms={bound_ms:.4f} ({bound_by}) (median of 11, CUDA events)", flush=True)
+          f"bound_ms={bound_ms:.4f} ({bound_by}) (median of 11, CUDA events); each level's "
+          f"slice alone, kernel/library ms: {_levels_text(per_level, MATERIAL_LEVELS)} "
+          f"(medians of 11 in 2 alternating turns)", flush=True)
     if not (ok and lev_ok):
         raise AssertionError("a kernel disagrees with the plain sum at the planes shape")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, leveled_ms=leveled_ms,
                 leveled_max_abs_err=lev_err, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by=bound_by, per_level_ms=[t["kernel"] for t in per_level],
+                per_level_library_ms=[t["library"] for t in per_level])
 
 
 def phase_encoder_planes(torch, device, seed):
@@ -569,7 +652,8 @@ def phase_material_reference(torch, device, seed):
     from neural_radiance_caching_tpu_torch.data import datasets
 
     cfg = flagship.material_config(batch_size=MATERIAL_REF_BATCH)
-    batch = datasets.SyntheticSpheres("train", None, cfg, num_images=4, resolution=32).next_train()
+    batch = datasets.SyntheticSpheres("train", None, cfg, num_images=4, resolution=32,
+                                      device="cpu").next_train()
     origins = batch.rays.origins
     nudged = batch.replace(rays=batch.rays.replace(
         origins=torch.nextafter(origins, torch.full_like(origins, float("inf")))))
@@ -690,15 +774,54 @@ def _checking_scatter(kind, calls, capture=None):
     return scatter
 
 
-def phase_material_check(torch, train_step, state, rng, batch):
+def phase_kernel_path(kind, capture, sizes, label):
+    """The `kind` kernel on the updates a train step gave it (captured by
+    _checking_scatter) against one index_add_ of the same update rows, in
+    turns, over all levels and on each level's slice alone; the plain
+    version's time, the bound, and the host time of one call of kernel and
+    library."""
+    import torch
+
+    from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+
+    idx, w, ct = capture["idx"], capture["w"], capture["ct"]
+    kw = {k: capture[k] for k in ("num_rows", "features", "corners")}
+    times = _kernel_vs_library(kind, idx, w, ct, kw)
+    per_level = _per_level_ms(kind, idx, w, ct, kw)
+    kernel = getattr(scatter_cuda, f"scatter_add_weighted_{kind}")
+    host = {"kernel": _host_ms(torch, lambda: kernel(idx, w, ct, **kw)),
+            "library": _host_ms(torch, _index_add_call(
+                idx, _update_rows(kind, w, ct, kw["corners"]), kw["num_rows"]))}
+    plain = getattr(scatter_cuda, f"scatter_add_weighted_{kind}_plain")
+    plain_ms = _cuda_ms(lambda: plain(idx, w, ct, **kw))
+    n = idx.numel()
+    bound_ms, bound_by = _bound(4 * (2 * n + ct.numel() + idx.shape[0] * kw["num_rows"]
+                                     * kw["features"]), 2 * n * kw["features"])
+    print(f"kernel ({kind}, path): scatter_add_weighted_{kind} on the {label}, idx"
+          f"{list(idx.shape)} F={kw['features']} rows={kw['num_rows']}: kernel_ms="
+          f"{times['kernel']:.4f} library_ms(index_add_ of w*ct rows)={times['library']:.4f} "
+          f"ratio={times['kernel'] / times['library']:.3f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} ({bound_by}); each level's slice alone, "
+          f"kernel/library ms: {_levels_text(per_level, sizes)} (medians of 11 in 2 alternating "
+          f"turns, CUDA events); host time of one call (no sync): kernel {host['kernel']:.4f} "
+          f"ms, library {host['library']:.4f} ms", flush=True)
+    return dict(path_ms=times["kernel"], path_library_ms=times["library"],
+                path_plain_ms=plain_ms, path_bound_ms=bound_ms,
+                path_host_ms=host["kernel"], path_library_host_ms=host["library"],
+                path_per_level_ms=[t["kernel"] for t in per_level],
+                path_per_level_library_ms=[t["library"] for t in per_level])
+
+
+def phase_material_check(torch, train_step, state, rng, batch, capture=None):
     """One material train step with every scatter the path launches held
-    against its plain version on the same inputs, at the path's shapes."""
+    against its plain version on the same inputs, at the path's shapes; with
+    `capture`, the planes call's inputs are kept there."""
     from neural_radiance_caching_tpu_torch.ops import scatter_cuda
 
     calls = []
     with _patched(scatter_cuda,
                   scatter_add_weighted_leveled=_checking_scatter("leveled", calls),
-                  scatter_add_weighted_planes=_checking_scatter("planes", calls)):
+                  scatter_add_weighted_planes=_checking_scatter("planes", calls, capture)):
         state, stats = train_step(rng, state, batch, 0.5)
     torch.cuda.synchronize()
     per_kind = {k: sum(c["kind"] == k for c in calls) for k in _MATERIAL_LAUNCHES_PER_STEP}
@@ -717,7 +840,8 @@ def phase_material_check(torch, train_step, state, rng, batch):
 
 
 def phase_material_train(torch, device, seed, steps, smi, profile):
-    """The full-width flagship material model: timed steps with gradient
+    """The full-width flagship material model: one checked step, whose planes
+    inputs time the planes kernel, then timed steps with gradient
     checkpointing (the JAX setting), then one step without it."""
     from neural_radiance_caching_tpu_torch import flagship
     from neural_radiance_caching_tpu_torch.data import datasets
@@ -737,7 +861,14 @@ def phase_material_train(torch, device, seed, steps, smi, profile):
     n_params = sum(p.numel() for p in model.parameters())
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
     setup_s = time.perf_counter() - t0
-    state, checked_err = phase_material_check(torch, train_step, state, rng, batches[-1])
+    capture = {}
+    state, checked_err = phase_material_check(torch, train_step, state, rng, batches[-1], capture)
+    # Timed before the train steps, and dropped, so that the peak memory
+    # below is the steps' own.
+    planes_path = phase_kernel_path(
+        "planes", capture, MATERIAL_LEVELS,
+        "material path's own updates (secondary samples of one checked step)")
+    del capture
 
     warmup = 3
     losses = []
@@ -790,7 +921,7 @@ def phase_material_train(torch, device, seed, steps, smi, profile):
         stem, dot, ext = path.rpartition(".")
         _profile(torch, train_step, state, rng, batches,
                  f"{stem}.material.{ext}" if dot else path + ".material", steps=2)
-    return launches, dt, checked_err
+    return launches, dt, checked_err, planes_path
 
 
 def _primary_sample_points(torch, device, gen, num_rays, samples_per_ray):
@@ -928,7 +1059,7 @@ def phase_transient_reference(torch, device, seed):
     from neural_radiance_caching_tpu_torch.data import datasets
 
     batch = datasets.SyntheticSpheres("train", None, _transient_ref_config(), num_images=4,
-                                      resolution=32).next_train()
+                                      resolution=32, device="cpu").next_train()
     origins = batch.rays.origins
     nudged = batch.replace(rays=batch.rays.replace(
         origins=torch.nextafter(origins, torch.full_like(origins, float("inf")))))
@@ -1260,20 +1391,25 @@ def main():
     phase_material_reference(torch, device, args.seed)
     phase_transient_reference(torch, device, args.seed)
     cache_leveled, _ = phase_train(torch, device, args.seed, args.steps, smi, args.profile)
-    material, _, material_err = phase_material_train(
+    material, _, material_err, planes_path = phase_material_train(
         torch, device, args.seed, args.material_steps, smi, args.profile)
     transient, capture = phase_transient_train(
         torch, device, args.seed, args.transient_steps, smi, args.profile)
     skip = phase_kernel_skip(torch, device, capture)
+    leveled_path = phase_kernel_path(
+        "leveled", capture, MATERIAL_LEVELS,
+        "transient path's own updates (camera-ray samples of one checked step)")
     print(f"phases done in {time.perf_counter() - t_start:.1f}s, build included", flush=True)
 
     csrc = "neural_radiance_caching_tpu_torch/csrc"
     replaces = "neural_radiance_caching_tpu/ops/scatter_tpu.py"
     timing = ("ms, plain_ms, library_ms: medians of 11 calls by CUDA events, wrapper included; "
               "library_ms is one index_add_ of the update rows (for a weighted scatter, the "
-              "products formed beforehand); bound_ms from the card's published HBM rate "
-              "(3.35 TB/s) and float32 rate (67 TFLOP/s), each input read once and the output "
-              "written once")
+              "products formed beforehand); camera_ray_*, per_level_* and path_* (the inputs "
+              "one train step gave the kernel: planes from the material path, leveled from "
+              "the transient path) are kernel and index_add_ timed in 2 alternating turns; "
+              "bound_ms from the card's published HBM rate (3.35 TB/s) and float32 rate "
+              "(67 TFLOP/s), each input read once and the output written once")
     leveled_launches = {"cache_train": cache_leveled, "material_train": material["leveled"],
                         "transient_train": transient["direct"]["launches"],
                         "transient_train_dedup": 0}
@@ -1296,6 +1432,9 @@ def main():
         "bound_ms": kernel["bound_ms"],
         "bound_by": kernel["bound_by"],
         "transient_shape_ms": skip["direct_route_ms"],
+        "camera_ray_ms": kernel["camera_ray_ms"],
+        "camera_ray_library_ms": kernel["camera_ray_library_ms"],
+        **leveled_path,
     }, {
         "name": "scatter_add_weighted_leveled_skip_zero_w",
         "route": "cuda",
@@ -1318,7 +1457,7 @@ def main():
     }, {
         "name": "scatter_add_weighted_planes",
         "route": "cuda",
-        "source": f"{csrc}/scatter_weighted_planes.cu",
+        "source": f"{csrc}/scatter_weighted.cu",
         "replaces": f"{replaces}:364",
         "launches": material["planes"],
         "launches_by_path": {"cache_train": 0, "material_train": material["planes"],
@@ -1332,6 +1471,9 @@ def main():
         "bound_ms": planes["bound_ms"],
         "bound_by": planes["bound_by"],
         "leveled_same_updates_ms": planes["leveled_ms"],
+        "per_level_ms": planes["per_level_ms"],
+        "per_level_library_ms": planes["per_level_library_ms"],
+        **planes_path,
     }, {
         "name": "scatter_add_rows_leveled",
         "route": "cuda",

@@ -1,40 +1,58 @@
-// Weighted per-level scatter-add: the hash-grid table gradient.
+// Weighted per-level scatter-add: the hash-grid table gradient, in both of
+// the encoder's update layouts.
 //
-//   out[l, idx[l, j], :] += w[l, j] * ct[l, j / corners, :]
+//   leveled: out[l, idx[l, p*U + u], :] += w[l, p*U + u] * ct[l, p, :]
+//   planes:  out[l, idx[l, u, p], :]   += w[l, u, p]   * ct[l, :, p]
 //
-// Replaces the Pallas TPU kernel `scatter_add_weighted_leveled`
-// (neural_radiance_caching_tpu/ops/scatter_tpu.py, body
-// `_scatter_weighted_kernel`) in both of its instances: the direct one
-// (`skip_zero_w=False`) and the one that skips updates of weight 0
-// (`skip_zero_w=True`), which the run-deduplicated stream of
-// `hashgrid._dedup_weighted_scatter` feeds. The TPU kernel walks the updates
-// serially in one core, keeps four banked accumulators of the whole table in
-// VMEM and rolls 128-lane packed cotangent rows into place. None of that
-// layout is needed here: one thread owns one (level, point, tap) update and
-// adds its F-wide row into the table with f32 atomics. The output is
-// allocated and zeroed by the caller.
+// Replaces the Pallas TPU kernels of neural_radiance_caching_tpu/ops/
+// scatter_tpu.py: `scatter_add_weighted_leveled` (body
+// `_scatter_weighted_kernel`) in both of its instances, the direct one and
+// the one that skips updates of weight 0 (`skip_zero_w=True`, fed by the
+// run-deduplicated stream of `hashgrid._dedup_weighted_scatter`), and
+// `scatter_add_weighted_planes` (body `_scatter_weighted_planes_kernel`). The
+// TPU kernels walk the updates serially in one core, keep banked
+// accumulators of the whole table in VMEM and roll 128-lane packed cotangent
+// rows into place; the planes layout exists there so that XLA never builds a
+// corner-fastest buffer. None of that carries over. Here one body serves both
+// layouts, templated on the layout and on skipping zero weights:
 //
-// What bounds it on an H100: at the flagship shape (L = 6 levels, 262,144
-// points, 4 taps, F = 4) it reads 6.3M x (4 B index + 4 B weight) and
-// 6 x 262,144 x 16 B of cotangent rows, about 75 MB, and issues 25M f32
-// atomics into a 50 MB table. The bytes alone take ~25 us at 3.35 TB/s; the
-// atomics are the limit, worst on the coarse levels, where the 16^3 dense
-// level funnels about a million updates into 4,096 rows and the same
-// addresses serialise in L2. The design keeps every byte stream coalesced
-// (neighbouring threads read neighbouring index/weight words, and the four
-// taps of a point share one cotangent row in the same cache line) and leaves
-// contention to later work: warp-level pre-reduction of equal rows, sorting
-// updates by cell, and vector `red.global.add.v4.f32` for F = 4.
+// - One thread per (level, point). It reads the point's F cotangents once
+//   (one 16-byte load for F = 4 in the leveled layout; F coalesced planes in
+//   the planes layout) and walks its U taps. In the leveled layout a point's
+//   U indices and weights are contiguous and load four at a time as one
+//   int4 and one float4.
+// - Equal rows are combined inside the warp before any global atomic, one
+//   tap slot at a time. A warp's 32 lanes are 32 consecutive points of one
+//   level, which on the paths are consecutive samples along one ray: on the
+//   dense 16^3, 32^3 and 64^3 levels runs of them fall in one cell.
+//   `__match_any_sync` groups the lanes of equal rows, adjacent or not, and
+//   a tree of shuffles sums each group onto its lowest lane, which alone
+//   issues the atomic. A warp whose rows are all distinct skips the tree.
+//   (A segmented run-sum over adjacent lanes, the scan of
+//   `hashgrid.dedup_runs` in registers, measured as fast on the paths'
+//   sorted samples and a third slower on unsorted ones: PERF.md.)
+// - Each issued row is one vector atomic, `atomicAdd(float4*)` (sm_90,
+//   `red.global.add.v4.f32`) for F = 4, two for F = 8, `float2` for F = 2
+//   and 6; odd F and a table that is not aligned add one float at a time.
 //
-// The skip instance serves the dedup'd stream: one row per update
-// (corners = 1), where every run of equal rows along a ray has been summed
-// onto its last update and the others carry weight 0. It issues atomics only
-// for the kept updates, so its bound is the weight stream plus the kept
-// updates' index and row bytes; a skipped update costs one 4-byte weight
-// load and a branch, and a warp whose updates are all skipped retires
-// without touching the table. Nothing of a skipped update is read beyond its
-// weight and index, so a row that is not finite under a weight of 0 never
-// reaches the table.
+// What bounds it on an H100: bytes. At the material shape (6 levels x 4 taps
+// x 1,572,864 points, F = 4, 524,288 rows) the updates read 302 MB of
+// indices and weights and 151 MB of cotangents and write a 50 MB table,
+// 0.15 ms at 3.35 TB/s; at the cache shape (6 x 262,144 x 4) 75 MB and the
+// table, 0.04 ms. One update per tap without combining would leave L2's
+// atomic units the limit: the 16^3 dense level funnels ~6.3M updates into
+// 4,096 rows, 53,240 on the hottest, and equal addresses serialise. The
+// warp combine cuts those, the vector atomics issue a row as one request, and
+// every stream is read coalesced.
+//
+// Lanes take part in the warp collectives whatever their update: a lane
+// past the last point, a row outside the table and (skip instance) an
+// update of weight 0 carry the key kNoRow, which matches no real row and
+// never issues, and a contribution of exactly 0. So a row that is not
+// finite under a weight of 0 never reaches the table in the skip instance,
+// as in its plain version; the direct instance adds w * ct as given, 0 * NaN
+// included, as its plain version does. The output is allocated and zeroed
+// by the caller.
 
 // A row outside [0, num_rows) is a caller's bug. As in PyTorch's own CUDA
 // index kernels (and so `index_add_`, the plain version), it fails a device
@@ -47,44 +65,214 @@
 
 namespace {
 
-template <bool kSkipZeroW>
-__global__ void scatter_add_weighted_leveled_kernel(
-    const int32_t* __restrict__ idx,  // [levels, n]
-    const float* __restrict__ w,      // [levels, n]
-    const float* __restrict__ ct,     // [levels, n / corners, features]
-    float* __restrict__ out,          // [levels, num_rows, features]
-    int64_t levels, int64_t n, int32_t corners, int32_t features,
-    int64_t num_rows) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= levels * n) return;
-  const int64_t level = t / n;
-  const int64_t j = t - level * n;
-  const int64_t row = __ldg(idx + t);
-  // Indices come from the encoder and lie in [0, num_rows). A bad one fails
-  // the assert; the return keeps it from writing outside the table.
-  if (row < 0 || row >= num_rows) {
-    assert(row >= 0 && row < num_rows && "scatter_add_weighted_leveled: row out of range");
-    return;
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kThreads = 256;
+constexpr int kMaxFeatures = 8;
+constexpr int kMaxLevels = 65535;  // gridDim.y
+// The key of a lane that adds nothing. Real rows are >= 0.
+constexpr int32_t kNoRow = -1;
+
+enum class Layout { kLeveled, kPlanes };
+
+// Equal keys anywhere in the warp, adjacent or not (`__match_any_sync`),
+// summed onto the group's lowest lane, which alone returns true (for a real
+// row): each round, every lane still active in its group adds the value of
+// the next active lane above it, and the lanes whose rank within the group
+// has the round's bit set drop out, a tree over the ranks in log2 of the
+// largest group's size rounds. A warp of singletons skips the rounds.
+template <int F>
+__device__ __forceinline__ bool combine_in_warp(int32_t key, float (&v)[F]) {
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned peers = __match_any_sync(kFullMask, key);
+  const unsigned below = peers & ((1u << lane) - 1u);
+  if (!__all_sync(kFullMask, peers == (1u << lane))) {
+    unsigned rank = __popc(below);
+    unsigned rest = peers & ~((2u << lane) - 1u);  // peers above this lane
+    while (__any_sync(kFullMask, rest != 0)) {
+      const int src = rest ? __ffs(rest) - 1 : static_cast<int>(lane);
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        const float t = __shfl_sync(kFullMask, v[f], src);
+        if (rest) v[f] += t;
+      }
+      rest &= ~__ballot_sync(kFullMask, rank & 1u);
+      rank >>= 1;
+    }
   }
-  const float wj = __ldg(w + t);
-  if (kSkipZeroW && wj == 0.0f) return;
-  const float* g = ct + (level * (n / corners) + j / corners) * features;
-  float* o = out + (level * num_rows + row) * features;
-  for (int32_t f = 0; f < features; ++f) {
-    atomicAdd(o + f, wj * __ldg(g + f));
+  return key != kNoRow && below == 0;
+}
+
+template <int F>
+__device__ __forceinline__ void load_row(const float* src, bool vec, float (&g)[F]) {
+  if constexpr (F % 4 == 0) {
+    if (vec) {
+#pragma unroll
+      for (int c = 0; c < F / 4; ++c) {
+        const float4 q = __ldg(reinterpret_cast<const float4*>(src) + c);
+        g[4 * c] = q.x, g[4 * c + 1] = q.y, g[4 * c + 2] = q.z, g[4 * c + 3] = q.w;
+      }
+      return;
+    }
+  } else if constexpr (F % 2 == 0) {
+    if (vec) {
+#pragma unroll
+      for (int c = 0; c < F / 2; ++c) {
+        const float2 q = __ldg(reinterpret_cast<const float2*>(src) + c);
+        g[2 * c] = q.x, g[2 * c + 1] = q.y;
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int f = 0; f < F; ++f) g[f] = __ldg(src + f);
+}
+
+template <int F>
+__device__ __forceinline__ void add_row(float* dst, bool vec, const float (&v)[F]) {
+  if constexpr (F % 4 == 0) {
+    if (vec) {
+#pragma unroll
+      for (int c = 0; c < F / 4; ++c) {
+        atomicAdd(reinterpret_cast<float4*>(dst) + c,
+                  make_float4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]));
+      }
+      return;
+    }
+  } else if constexpr (F % 2 == 0) {
+    if (vec) {
+#pragma unroll
+      for (int c = 0; c < F / 2; ++c) {
+        atomicAdd(reinterpret_cast<float2*>(dst) + c, make_float2(v[2 * c], v[2 * c + 1]));
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int f = 0; f < F; ++f) atomicAdd(dst + f, v[f]);
+}
+
+// Whether `p` is aligned for the F-wide vector loads and atomics.
+template <int F>
+__device__ __forceinline__ bool vec_aligned(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % (F % 4 == 0 ? 16 : 8) == 0;
+}
+
+template <Layout kLayout, bool kSkipZeroW, int F>
+__global__ void __launch_bounds__(kThreads) scatter_add_weighted_kernel(
+    const int32_t* __restrict__ idx,  // leveled [levels, points * corners]; planes [levels, corners, points]
+    const float* __restrict__ w,      // as idx
+    const float* __restrict__ ct,     // leveled [levels, points, F]; planes [levels, F, points]
+    float* __restrict__ out,          // [levels, num_rows, F]
+    int64_t points, int32_t corners, int64_t num_rows) {
+  const int64_t level = blockIdx.y;
+  const int64_t p = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  // A lane past the last point stays for the warp collectives.
+  const bool live = p < points;
+  const bool vec_taps = kLayout == Layout::kLeveled && corners % 4 == 0 &&
+                        (reinterpret_cast<uintptr_t>(idx) | reinterpret_cast<uintptr_t>(w)) % 16 == 0;
+
+  // Taps u0 .. u0 + 3 of this point (those below `corners`).
+  int32_t r[4] = {0, 0, 0, 0};
+  float wt[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  auto load_taps = [&](int32_t u0) {
+    if (!live) return;
+    if (kLayout == Layout::kLeveled) {
+      const int64_t base = (level * points + p) * corners + u0;
+      if (vec_taps) {
+        const int4 i4 = __ldg(reinterpret_cast<const int4*>(idx + base));
+        const float4 w4 = __ldg(reinterpret_cast<const float4*>(w + base));
+        r[0] = i4.x, r[1] = i4.y, r[2] = i4.z, r[3] = i4.w;
+        wt[0] = w4.x, wt[1] = w4.y, wt[2] = w4.z, wt[3] = w4.w;
+        return;
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (u0 + k < corners) r[k] = __ldg(idx + base + k), wt[k] = __ldg(w + base + k);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (u0 + k < corners) {
+          const int64_t q = (level * corners + u0 + k) * points + p;
+          r[k] = __ldg(idx + q), wt[k] = __ldg(w + q);
+        }
+      }
+    }
+  };
+  load_taps(0);
+
+  // The cotangents, read once. The skip instance reads none for a point
+  // whose (first four) weights are all 0.
+  float g[F];
+#pragma unroll
+  for (int f = 0; f < F; ++f) g[f] = 0.0f;
+  bool need_ct = live;
+  if (kSkipZeroW && corners <= 4) {
+    need_ct = false;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) need_ct |= k < corners && wt[k] != 0.0f;
+  }
+  if (need_ct) {
+    if (kLayout == Layout::kLeveled) {
+      load_row<F>(ct + (level * points + p) * F, vec_aligned<F>(ct), g);
+    } else {
+#pragma unroll
+      for (int f = 0; f < F; ++f) g[f] = __ldg(ct + (level * F + f) * points + p);
+    }
+  }
+
+  float* table = out + level * num_rows * F;
+  const bool vec_out = vec_aligned<F>(out);
+  for (int32_t u0 = 0; u0 < corners; u0 += 4) {
+    if (u0 > 0) load_taps(u0);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (u0 + k >= corners) break;  // uniform over the warp
+      int32_t key = kNoRow;
+      if (live) {
+        const int32_t row = r[k];
+        if (row < 0 || row >= num_rows) {
+          assert(row >= 0 && row < num_rows && "scatter_add_weighted: row out of range");
+        } else if (!kSkipZeroW || wt[k] != 0.0f) {
+          key = row;
+        }
+      }
+      float v[F];
+#pragma unroll
+      for (int f = 0; f < F; ++f) v[f] = key == kNoRow ? 0.0f : wt[k] * g[f];
+      if (combine_in_warp<F>(key, v)) {
+        add_row<F>(table + static_cast<int64_t>(key) * F, vec_out, v);
+      }
+    }
   }
 }
 
-template <bool kSkipZeroW>
+// Launches the instance for `features` (1..kMaxFeatures).
+template <Layout kLayout, bool kSkipZeroW, int F = 1>
+void launch_features(int32_t features, dim3 grid, cudaStream_t stream, const int32_t* idx,
+                     const float* w, const float* ct, float* out, int64_t points,
+                     int32_t corners, int64_t num_rows) {
+  if (features == F) {
+    scatter_add_weighted_kernel<kLayout, kSkipZeroW, F>
+        <<<grid, kThreads, 0, stream>>>(idx, w, ct, out, points, corners, num_rows);
+  } else if constexpr (F < kMaxFeatures) {
+    launch_features<kLayout, kSkipZeroW, F + 1>(
+        features, grid, stream, idx, w, ct, out, points, corners, num_rows);
+  }
+}
+
+template <Layout kLayout, bool kSkipZeroW>
 int launch(const int32_t* idx, const float* w, const float* ct, float* out, int64_t levels,
-           int64_t n, int32_t corners, int32_t features, int64_t num_rows, void* stream) {
-  const int64_t total = levels * n;
-  if (total > 0) {
-    const int threads = 256;
-    const int64_t blocks = (total + threads - 1) / threads;
-    scatter_add_weighted_leveled_kernel<kSkipZeroW>
-        <<<static_cast<unsigned int>(blocks), threads, 0, static_cast<cudaStream_t>(stream)>>>(
-            idx, w, ct, out, levels, n, corners, features, num_rows);
+           int64_t points, int32_t corners, int32_t features, int64_t num_rows, void* stream) {
+  if (features < 1 || features > kMaxFeatures || corners < 1 || levels > kMaxLevels) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (levels > 0 && points > 0) {
+    const dim3 grid(static_cast<unsigned int>((points + kThreads - 1) / kThreads),
+                    static_cast<unsigned int>(levels));
+    launch_features<kLayout, kSkipZeroW>(
+        features, grid, static_cast<cudaStream_t>(stream), idx, w, ct, out, points, corners,
+        num_rows);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -93,13 +281,17 @@ int launch(const int32_t* idx, const float* w, const float* ct, float* out, int6
 
 extern "C" {
 
-// Each launches on `stream` and returns cudaGetLastError() as an int (0 = ok).
+// Each launches on `stream` and returns cudaGetLastError() as an int (0 =
+// ok); features must lie in [1, 8] (the wrapper checks it). `n` is the
+// leveled layout's points * corners.
 int nrc_scatter_add_weighted_leveled(const int32_t* idx, const float* w,
                                      const float* ct, float* out,
                                      int64_t levels, int64_t n, int32_t corners,
                                      int32_t features, int64_t num_rows,
                                      void* stream) {
-  return launch<false>(idx, w, ct, out, levels, n, corners, features, num_rows, stream);
+  if (corners < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<Layout::kLeveled, false>(idx, w, ct, out, levels, n / corners, corners, features,
+                                         num_rows, stream);
 }
 
 // The same sum with every update of weight 0 skipped.
@@ -108,7 +300,18 @@ int nrc_scatter_add_weighted_leveled_skip_zero_w(const int32_t* idx, const float
                                                  int64_t levels, int64_t n, int32_t corners,
                                                  int32_t features, int64_t num_rows,
                                                  void* stream) {
-  return launch<true>(idx, w, ct, out, levels, n, corners, features, num_rows, stream);
+  if (corners < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<Layout::kLeveled, true>(idx, w, ct, out, levels, n / corners, corners, features,
+                                        num_rows, stream);
+}
+
+int nrc_scatter_add_weighted_planes(const int32_t* idx, const float* w,
+                                    const float* ct, float* out,
+                                    int64_t levels, int64_t points, int32_t corners,
+                                    int32_t features, int64_t num_rows,
+                                    void* stream) {
+  return launch<Layout::kPlanes, false>(idx, w, ct, out, levels, points, corners, features,
+                                        num_rows, stream);
 }
 
 const char* nrc_cuda_error_string(int code) {

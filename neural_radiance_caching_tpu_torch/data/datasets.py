@@ -4,22 +4,29 @@ procedural ``SyntheticSpheres`` scene is ported).
 Images are ray-traced in numpy at construction and batches are drawn with
 the same numpy RandomState stream as the JAX package, so both packages see
 identical batches. Rays are cast on the host; ``next_train`` moves the batch
-to the dataset's device. With ``Config.use_transient`` the images are
-time-binned transients [N, H, W, n_bins, 3].
+to the dataset's device, the card unless the caller passes ``device="cpu"``.
+With ``Config.use_transient`` the images are time-binned transients
+[N, H, W, n_bins, 3].
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from neural_radiance_caching_tpu_torch.data import camera_utils
 from neural_radiance_caching_tpu_torch.utils import pytrees
 
 
 class Dataset:
-    """Base dataset: holds images + cameras, serves ray batches on `device`."""
+    """Base dataset: holds images + cameras, serves ray batches on `device`
+    (the card by default; raises without one rather than serving on the
+    CPU)."""
 
-    def __init__(self, split, data_dir, config, device="cpu"):
+    def __init__(self, split, data_dir, config, device="cuda"):
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"no CUDA device for a dataset on {device!r}; "
+                               "pass device='cpu' to serve batches on the CPU")
         if config.patch_size > 1 or config.cast_rays_in_train_step:
             raise NotImplementedError("patch batches and in-step ray casting are not ported yet")
         self.split = split
@@ -112,7 +119,8 @@ class SyntheticSpheres(Dataset):
     LIGHT = np.array([1.5, -1.5, 2.5], np.float32)
     AMBIENT = 0.25
 
-    def __init__(self, split, data_dir, config, num_images=None, resolution=None, device="cpu"):
+    def __init__(self, split, data_dir, config, num_images=None, resolution=None,
+                 device="cuda"):
         if num_images is None:
             num_images = config.num_dataset_images if config.num_dataset_images > 0 else 16
         if resolution is None:

@@ -10,16 +10,19 @@ Each kernel replaces the Pallas kernel of the same name
   ``skip_zero_w=True`` it launches the instance that skips updates of weight
   0, which the run-deduplicated stream (``hashgrid._dedup_weighted_scatter``)
   feeds; its launches count under ``"leveled_skip"``.
-- ``scatter_add_weighted_planes`` (``csrc/scatter_weighted_planes.cu``):
-  updates as ``[L, U, P]`` tap planes and ``[L, F, P]`` cotangent planes
-  (point axis minor); the encoder backward at secondary-ray fan-outs.
+- ``scatter_add_weighted_planes`` (the same body in ``csrc/scatter_weighted.cu``,
+  instanced for the other layout): updates as ``[L, U, P]`` tap planes and
+  ``[L, F, P]`` cotangent planes (point axis minor); the encoder backward at
+  secondary-ray fan-outs.
 - ``scatter_add_rows_leveled`` (``csrc/scatter_rows.cu``): the unweighted row
   scatter ``out[l, idx[l, j]] += g[l, j]``, with ``scatter_add_rows_padded``
   for one table.
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface the first time a CUDA tensor reaches a kernel (the
-sources build in parallel), and loaded with ``ctypes``.
+sources build in parallel), and loaded with ``ctypes``. A library is named by
+a hash of its source, of every ``csrc/*.cuh`` header a source may include, and
+of the flags.
 
 Dispatch is by the device of the tensors and nothing else: CPU tensors take
 the ``*_plain`` version (an ``index_add_`` reference), CUDA tensors launch
@@ -44,7 +47,7 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("scatter_weighted.cu", "scatter_weighted_planes.cu", "scatter_rows.cu")
+_SOURCES = ("scatter_weighted.cu", "scatter_rows.cu")
 _WEIGHTED_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                   ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
                   ctypes.c_int64, ctypes.c_void_p)
@@ -55,7 +58,7 @@ _KERNELS = {
     "leveled": ("scatter_weighted.cu", "nrc_scatter_add_weighted_leveled", _WEIGHTED_ARGS),
     "leveled_skip": ("scatter_weighted.cu", "nrc_scatter_add_weighted_leveled_skip_zero_w",
                      _WEIGHTED_ARGS),
-    "planes": ("scatter_weighted_planes.cu", "nrc_scatter_add_weighted_planes", _WEIGHTED_ARGS),
+    "planes": ("scatter_weighted.cu", "nrc_scatter_add_weighted_planes", _WEIGHTED_ARGS),
     "rows": ("scatter_rows.cu", "nrc_scatter_add_rows_leveled", _ROWS_ARGS),
 }
 _NVCC_FLAGS = (
@@ -90,14 +93,17 @@ def _find_nvcc():
 
 
 def _lib_path(source):
-    digest = hashlib.sha256((_CSRC / source).read_bytes())
+    digest = hashlib.sha256()
+    for path in [_CSRC / source, *sorted(_CSRC.glob("*.cuh"))]:
+        digest.update(path.read_bytes())
     digest.update(" ".join(_NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{Path(source).stem}_{digest.hexdigest()[:16]}.so"
 
 
 def build_library(verbose=False):
-    """Compile each csrc/ source into its own shared library (cached by
-    source hash), all sources at once; returns {source: library path}."""
+    """Compile each csrc/ source into its own shared library (cached by the
+    hash of the source and the headers), all sources at once; returns
+    {source: library path}."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {src: _lib_path(src) for src in _SOURCES}
     procs = {}
@@ -194,11 +200,18 @@ def _check_args(idx, w, ct, num_rows, features, corners):
         raise ValueError(f"w must be {(levels, n)}, got {tuple(w.shape)}")
     if tuple(ct.shape) != (levels, n // corners, features):
         raise ValueError(f"ct must be {(levels, n // corners, features)}, got {tuple(ct.shape)}")
+    _check_features(features)
     if idx.dtype != torch.int32 or w.dtype != torch.float32 or ct.dtype != torch.float32:
         raise TypeError(f"expected int32/float32/float32, got {idx.dtype}/{w.dtype}/{ct.dtype}")
     _check_devices(idx, w, ct)
     if num_rows <= 0:
         raise ValueError(f"num_rows must be positive, got {num_rows}")
+
+
+def _check_features(features):
+    # The kernel body holds a point's cotangent row in registers.
+    if not 1 <= features <= 8:
+        raise ValueError(f"features must lie in [1, 8], got {features}")
 
 
 def _check_devices(*tensors):
@@ -216,7 +229,8 @@ def scatter_add_weighted_leveled(idx, w, ct, *, num_rows, features, corners, ski
       idx: [L, N] int32 row indices in [0, num_rows), N = points * corners
         (corners fastest).
       w: [L, N] float32 per-update weights.
-      ct: [L, points, features] float32 per-point cotangent rows.
+      ct: [L, points, features] float32 per-point cotangent rows
+        (1 <= features <= 8).
       skip_zero_w: skip the updates whose weight is 0 (the dedup'd stream,
         where most are).
 
@@ -261,8 +275,7 @@ def _check_planes_args(idx, w, ct, num_rows, features, corners):
         raise ValueError(f"w must be {(levels, taps, points)}, got {tuple(w.shape)}")
     if tuple(ct.shape) != (levels, features, points):
         raise ValueError(f"ct must be {(levels, features, points)}, got {tuple(ct.shape)}")
-    if not 1 <= features <= 8:
-        raise ValueError(f"features must lie in [1, 8], got {features}")
+    _check_features(features)
     if idx.dtype != torch.int32 or w.dtype != torch.float32 or ct.dtype != torch.float32:
         raise TypeError(f"expected int32/float32/float32, got {idx.dtype}/{w.dtype}/{ct.dtype}")
     _check_devices(idx, w, ct)

@@ -104,7 +104,8 @@ def build(bf16=False, lr_delay_steps=0, seed=0):
         lambda s: (rng.uniform(-0.5, 0.5, s.shape)).astype(np.float32), shapes)
     tmodel.load_state_dict(weights.state_dict_from_jax(variables, tmodel))
     jdata = jdatasets.SyntheticSpheres("train", None, jcfg, num_images=3, resolution=16)
-    tdata = tdatasets.SyntheticSpheres("train", None, tcfg, num_images=3, resolution=16)
+    tdata = tdatasets.SyntheticSpheres("train", None, tcfg, num_images=3,
+                                       resolution=16, device="cpu")
     return jcfg, tcfg, jmodel, tmodel, variables, jdata.next_train(), tdata.next_train()
 
 
@@ -146,8 +147,25 @@ def test_batches_are_identical():
     jcfg, tcfg, _, _, _, jbatch, tbatch = build()
     _assert_same_batch(tbatch, jbatch)
     jdata = jdatasets.SyntheticSpheres("train", None, jcfg, num_images=3, resolution=16)
-    tdata = tdatasets.SyntheticSpheres("train", None, tcfg, num_images=3, resolution=16)
+    tdata = tdatasets.SyntheticSpheres("train", None, tcfg, num_images=3,
+                                       resolution=16, device="cpu")
     _assert_same_batch(tdata.generate_ray_batch(2), jdata.generate_ray_batch(2))
+
+
+def test_dataset_serves_on_the_card_unless_told_otherwise():
+    # The card is the default device of the port's datasets; without one they
+    # raise rather than serve CPU batches. device="cpu" serves the JAX batches
+    # (test_batches_are_identical).
+    tcfg = flagship.cache_config(batch_size=BATCH)
+    if torch.cuda.is_available():
+        data = tdatasets.SyntheticSpheres("train", None, tcfg, num_images=3, resolution=16)
+        assert data.next_train().rays.origins.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tdatasets.SyntheticSpheres("train", None, tcfg, num_images=3, resolution=16)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tdatasets.SyntheticSpheres("train", None, tcfg, num_images=3, resolution=16,
+                                       device="cuda:0")
 
 
 @pytest.mark.parametrize("max_val,max_norm", [(1e-3, 0.0), (0.0, 1e-2), (1e-3, 1e-2)])
@@ -234,7 +252,8 @@ def test_bf16_trunks_match_at_bf16_tolerance():
 @pytest.mark.parametrize("rng_seed", [None, 7])
 def test_port_trains_a_few_steps(rng_seed):
     _, tcfg, _, tmodel, _, _, _ = build()
-    data = tdatasets.SyntheticSpheres("train", None, tcfg, num_images=3, resolution=16)
+    data = tdatasets.SyntheticSpheres("train", None, tcfg, num_images=3,
+                                      resolution=16, device="cpu")
     state, _ = ttrain.create_optimizer(tcfg, tmodel)
     step = ttrain.create_train_step(tmodel, tcfg)
     rng = None if rng_seed is None else torch.Generator().manual_seed(rng_seed)

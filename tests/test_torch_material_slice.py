@@ -187,7 +187,8 @@ def build(seed=0, **cfg_overrides):
     variables = random_variables(shapes, seed)
     tmodel.load_state_dict(weights.state_dict_from_jax(variables, tmodel))
     jdata = jdatasets.SyntheticSpheres("train", None, jcfg, num_images=3, resolution=16)
-    tdata = tdatasets.SyntheticSpheres("train", None, tcfg, num_images=3, resolution=16)
+    tdata = tdatasets.SyntheticSpheres("train", None, tcfg, num_images=3,
+                                       resolution=16, device="cpu")
     return jcfg, tcfg, jmodel, tmodel, variables, jdata.next_train(), tdata.next_train()
 
 
@@ -378,7 +379,8 @@ def test_debias_pass_keeps_no_graph(parity):
 
 def test_port_trains_a_few_steps_on_real_draws():
     _, tcfg, _, tmodel, _, _, _ = build(seed=3)
-    data = tdatasets.SyntheticSpheres("train", None, tcfg, num_images=3, resolution=16)
+    data = tdatasets.SyntheticSpheres("train", None, tcfg, num_images=3,
+                                      resolution=16, device="cpu")
     state, _ = ttrain.create_optimizer(tcfg, tmodel)
     step = ttrain.create_train_step(tmodel, tcfg)
     rng = torch.Generator().manual_seed(7)

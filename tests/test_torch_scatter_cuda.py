@@ -1,8 +1,9 @@
 """The table-gradient scatter wrappers (``ops/scatter_cuda.py``): the
 leveled and row plain versions against a numpy one-hot sum, their argument
-checks, the skip-zero-weight plain version, and, on a CUDA device, every
-hand-written kernel (leveled, its skip instance, planes, rows) against its
-plain version.
+checks, the skip-zero-weight plain version, the kernel sources and their
+build key, and, on a CUDA device, every hand-written kernel (leveled, its
+skip instance, planes, rows) against its plain version, the weighted body on
+warp patterns that reach its warp combine and its vector and scalar paths.
 
 This file imports no JAX, so the GPU-marked tests also run on a machine
 without it: ``python -m pytest --noconftest tests/test_torch_scatter_cuda.py``.
@@ -11,6 +12,9 @@ Tolerance: the same float32 terms summed in another order (atomics vs a
 matrix product or index_add_): atol 1e-5 on sums of O(10) terms of size
 ~1; 1e-4 for the GPU cases, whose rows sum up to a few hundred terms.
 """
+
+import re
+import shutil
 
 import numpy as np
 import pytest
@@ -60,6 +64,8 @@ def test_scatter_wrapper_rejects_bad_arguments():
         call(idx, w, ct, num_rows=256, features=2, corners=4)
     with pytest.raises(ValueError):
         call(idx.to("meta"), w.to("meta"), ct.to("meta"), num_rows=256, features=4, corners=4)
+    with pytest.raises(ValueError):  # the kernel holds at most 8 features in registers
+        call(idx, w, torch.zeros(2, 64, 9), num_rows=256, features=9, corners=4)
 
 
 @pytest.mark.parametrize("level,bad_row", [(0, 256), (1, -1), (1, 256)])
@@ -125,6 +131,48 @@ def test_plain_skip_zero_w_drops_zero_weight_updates():
         idx, w, torch.where(keep, ct, torch.zeros_like(ct)), **kw)
     torch.testing.assert_close(skipped, want, rtol=1e-6, atol=1e-6)
     assert not torch.isfinite(scatter_cuda.scatter_add_weighted_leveled(idx, w, ct, **kw)).all()
+
+
+def test_sources_kernels_and_entry_points_agree():
+    # One source holds the weighted body of all three weighted kernels; each
+    # entry point is defined in the source that _KERNELS names.
+    weighted = {name: entry for name, (src, entry, _) in scatter_cuda._KERNELS.items()
+                if src == "scatter_weighted.cu"}
+    assert weighted == {"leveled": "nrc_scatter_add_weighted_leveled",
+                        "leveled_skip": "nrc_scatter_add_weighted_leveled_skip_zero_w",
+                        "planes": "nrc_scatter_add_weighted_planes"}
+    assert scatter_cuda._SOURCES == ("scatter_weighted.cu", "scatter_rows.cu")
+    assert {src for src, _, _ in scatter_cuda._KERNELS.values()} == set(scatter_cuda._SOURCES)
+    for name, (src, entry, _) in scatter_cuda._KERNELS.items():
+        assert re.search(rf"^int {entry}\(", (scatter_cuda._CSRC / src).read_text(), re.M), name
+    assert sorted(p.name for p in scatter_cuda._CSRC.glob("*.cu")) == sorted(
+        scatter_cuda._SOURCES)
+    assert set(scatter_cuda.launches) == set(scatter_cuda._KERNELS)
+
+
+def test_library_key_follows_headers(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(scatter_cuda._CSRC, csrc, ignore=shutil.ignore_patterns("build"))
+    monkeypatch.setattr(scatter_cuda, "_CSRC", csrc)
+
+    def keys():
+        return {src: scatter_cuda._lib_path(src) for src in scatter_cuda._SOURCES}
+
+    before = keys()
+    assert keys() == before
+    # A header that a source may include changes every library's key.
+    (csrc / "shared.cuh").write_text("// v1\n")
+    v1 = keys()
+    (csrc / "shared.cuh").write_text("// v2\n")
+    v2 = keys()
+    for src in scatter_cuda._SOURCES:
+        assert len({before[src], v1[src], v2[src]}) == 3
+    # A source's own edit changes its key alone.
+    rows = csrc / "scatter_rows.cu"
+    rows.write_text(rows.read_text() + "// changed\n")
+    after = keys()
+    assert after["scatter_rows.cu"] != v2["scatter_rows.cu"]
+    assert after["scatter_weighted.cu"] == v2["scatter_weighted.cu"]
 
 
 def _need_cuda():
@@ -198,6 +246,91 @@ def test_cuda_row_kernel_matches_plain_version(n, rows, features):
     want = scatter_cuda.scatter_add_rows_leveled_plain(idx, g, num_rows=rows, features=features)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(single, want[2], rtol=1e-5, atol=1e-4)
+
+
+def _warp_pattern_case(pattern, levels, points, corners, rows, features, seed):
+    """Leveled and planes inputs of the same updates, whose rows follow a
+    warp pattern per tap slot (warps are 32 consecutive points):
+    "one_row" puts all 32 lanes of a warp on one row, "alternating" gives
+    lanes rows a, b, a, b, ..., "across_warps" makes runs of 48 points, half
+    of which cross a warp boundary, "random" draws rows."""
+    gen = torch.Generator().manual_seed(seed)
+    p = torch.arange(points)
+    base = {"one_row": p // 32, "alternating": (p % 2) * 7, "across_warps": p // 48,
+            "random": torch.randint(0, rows, (points,), generator=gen)}[pattern]
+    taps = torch.arange(corners)[:, None] * 5 + torch.arange(levels)[:, None, None]
+    planes_idx = ((base[None, None] + taps) % rows).to(torch.int32)  # [L, U, P]
+    planes_w = torch.rand(levels, corners, points, generator=gen)
+    planes_ct = torch.randn(levels, features, points, generator=gen)
+    leveled = (planes_idx.permute(0, 2, 1).reshape(levels, -1),
+               planes_w.permute(0, 2, 1).reshape(levels, -1), planes_ct.permute(0, 2, 1))
+    return ([t.contiguous().cuda() for t in leveled],
+            [t.cuda() for t in (planes_idx, planes_w, planes_ct)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,corners,features", [
+    ("leveled", 4, 1), ("leveled", 4, 2), ("leveled", 4, 4), ("leveled", 8, 4),
+    ("planes", 4, 1), ("planes", 4, 2), ("planes", 4, 3), ("planes", 4, 4), ("planes", 4, 8),
+    ("planes", 8, 4)])
+def test_cuda_weighted_body_on_warp_patterns(kind, corners, features):
+    # Each pattern reaches the warp combine (groups of equal rows in a warp;
+    # "random" mostly singletons), F = 2, 4, 8 the vector atomics and F = 1,
+    # 3 the scalar ones; 1000 points leave a warp with lanes past the end.
+    _need_cuda()
+    kernel = getattr(scatter_cuda, f"scatter_add_weighted_{kind}")
+    plain = getattr(scatter_cuda, f"scatter_add_weighted_{kind}_plain")
+    kw = dict(num_rows=64, features=features, corners=corners)
+    for points in (4096, 1000):
+        for pattern in ("one_row", "alternating", "across_warps", "random"):
+            leveled, planes = _warp_pattern_case(pattern, 3, points, corners, 64, features, points)
+            idx, w, ct = leveled if kind == "leveled" else planes
+            before = scatter_cuda.launches[kind]
+            got = kernel(idx, w, ct, **kw)
+            torch.cuda.synchronize()
+            assert scatter_cuda.launches[kind] == before + 1
+            torch.testing.assert_close(got, plain(idx, w, ct, **kw), rtol=1e-5, atol=1e-4,
+                                       msg=f"{pattern}, {points} points")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["leveled", "planes"])
+def test_cuda_weighted_body_on_unaligned_views(kind):
+    # Contiguous views 4 bytes past an aligned start: the kernel reads them
+    # with scalar loads (the output, which the wrapper allocates, stays
+    # aligned for the vector atomics).
+    _need_cuda()
+    leveled, planes = _warp_pattern_case("across_warps", 3, 4096, 4, 64, 4, 5)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        return view
+
+    idx, w, ct = (shifted(t) for t in (leveled if kind == "leveled" else planes))
+    kw = dict(num_rows=64, features=4, corners=4)
+    got = getattr(scatter_cuda, f"scatter_add_weighted_{kind}")(idx, w, ct, **kw)
+    want = getattr(scatter_cuda, f"scatter_add_weighted_{kind}_plain")(idx, w, ct, **kw)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", ["one_row", "across_warps", "alternating"])
+def test_cuda_skip_zero_w_with_nan_rows_inside_runs(pattern):
+    # The dedup'd stream's shape (one row per update, corners 1) with every
+    # third update of weight 0 and a NaN row under it, inside runs of equal
+    # rows: those lanes add nothing to their run's sum.
+    _need_cuda()
+    (idx, w, ct), _ = _warp_pattern_case(pattern, 3, 4000, 1, 64, 4, 6)
+    w[:, ::3] = 0.0
+    ct[:, ::3] = float("nan")
+    kw = dict(num_rows=64, features=4, corners=1, skip_zero_w=True)
+    got = scatter_cuda.scatter_add_weighted_leveled(idx, w, ct, **kw)
+    want = scatter_cuda.scatter_add_weighted_leveled_plain(idx, w, ct, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
 _BAD_ROW_ON_CUDA = {

@@ -138,7 +138,8 @@ def build(form="gather", scatter_dedup=False, seed=0):
         lambda s: (rng.uniform(-0.5, 0.5, s.shape)).astype(np.float32), shapes)
     tmodel.load_state_dict(weights.state_dict_from_jax(variables, tmodel))
     jdata = jdatasets.SyntheticSpheres("train", None, jcfg, num_images=3, resolution=16)
-    tdata = tdatasets.SyntheticSpheres("train", None, tcfg, num_images=3, resolution=16)
+    tdata = tdatasets.SyntheticSpheres("train", None, tcfg, num_images=3,
+                                       resolution=16, device="cpu")
     return jcfg, tcfg, jmodel, tmodel, variables, jdata.next_train(), tdata.next_train()
 
 
@@ -180,7 +181,7 @@ def test_transient_batches_are_identical(impulse_sigma):
     jbatch = jdatasets.SyntheticSpheres("train", None, jcfg, num_images=3,
                                         resolution=16).next_train()
     tbatch = tdatasets.SyntheticSpheres("train", None, tcfg, num_images=3,
-                                        resolution=16).next_train()
+                                        resolution=16, device="cpu").next_train()
     assert tuple(tbatch.rgb.shape) == (BATCH, N_BINS, 3)
     np.testing.assert_array_equal(tbatch.rgb.numpy(), jbatch.rgb)
     np.testing.assert_array_equal(tbatch.masks.numpy(), jbatch.masks)
@@ -311,7 +312,8 @@ def test_weights_only_rendering_matches_jax():
 
 def test_port_trains_transient_steps():
     _, tcfg, _, tmodel, _, _, _ = build(form="fft", scatter_dedup=True)
-    data = tdatasets.SyntheticSpheres("train", None, tcfg, num_images=3, resolution=16)
+    data = tdatasets.SyntheticSpheres("train", None, tcfg, num_images=3,
+                                      resolution=16, device="cpu")
     state, _ = ttrain.create_optimizer(tcfg, tmodel)
     step = ttrain.create_train_step(tmodel, tcfg)
     rng = torch.Generator().manual_seed(7)
