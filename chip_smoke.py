@@ -5,7 +5,7 @@
 
 Phases, one line each (any failure exits nonzero):
   1. device: the card, and nvidia-smi's name and power limit;
-  2. build: compile the two CUDA sources from csrc/ with nvcc, in parallel;
+  2. build: compile the CUDA source from csrc/ with nvcc;
   3. kernel: the leveled kernel against its plain PyTorch version at the
      flagship cache shape (6 levels x 262,144 points x 4 taps, F = 4,
      524,288 rows), on uniform points and on camera-ray samples;
@@ -16,7 +16,9 @@ Phases, one line each (any failure exits nonzero):
   5. kernel (rows): the row scatter against its plain version on the
      run-deduplicated update stream of the flagship cache shape (camera-ray
      samples, 6 x 1,048,576 updates), and its padded wrapper at a ragged
-     update count;
+     update count; timed against index_add_ there and on the same updates
+     before the dedup scan, beside the skip instance on the dedup'd stream
+     and the host time of one call;
   6. encoder: hash-grid table gradients, kernel backward against the plain
      backward, at the cache shape (leveled) and the material shape (planes);
   7. reference: a narrow cache model with the flagship's structure, the same
@@ -380,7 +382,7 @@ def phase_reference(torch, device, seed):
 
     def step(dev, b, fault=None):
         torch.manual_seed(seed)
-        model = flagship.build_flagship_cache_model(cfg, params).to(dev)
+        model = flagship.build_flagship_cache_model(cfg, params, device=dev)
         state, _ = train.create_optimizer(cfg, model)
         before = scatter_cuda.launches["leveled"]
         patch = dict(scatter_add_weighted_leveled=_planted_fault(fault)) if fault else {}
@@ -613,7 +615,7 @@ def _material_step(torch, device, seed, batch, fault=None):
 
     cfg = flagship.material_config(batch_size=MATERIAL_REF_BATCH, lr_delay_steps=0)
     torch.manual_seed(seed)
-    model = flagship.build_flagship_material_model(cfg, _narrow_material()).to(device)
+    model = flagship.build_flagship_material_model(cfg, _narrow_material(), device=device)
     state, _ = train.create_optimizer(cfg, model)
     before = dict(scatter_cuda.launches)
     patch = dict(scatter_add_weighted_planes=_planted_fault(fault, "planes")) if fault else {}
@@ -695,7 +697,7 @@ def phase_train(torch, device, seed, steps, smi, profile):
     config = flagship.cache_config()
     t0 = time.perf_counter()
     torch.manual_seed(seed)
-    model = flagship.build_flagship_cache_model(config).to(device)
+    model = flagship.build_flagship_cache_model(config, device=device)
     dataset = datasets.SyntheticSpheres("train", None, config, num_images=8, resolution=128,
                                         device=device)
     state, _ = train.create_optimizer(config, model)
@@ -851,7 +853,7 @@ def phase_material_train(torch, device, seed, steps, smi, profile):
     config = flagship.material_config()
     t0 = time.perf_counter()
     torch.manual_seed(seed)
-    model = flagship.build_flagship_material_model(config).to(device)
+    model = flagship.build_flagship_material_model(config, device=device)
     dataset = datasets.SyntheticSpheres("train", None, config, num_images=8, resolution=128,
                                         device=device)
     state, _ = train.create_optimizer(config, model)
@@ -942,7 +944,8 @@ def _primary_sample_points(torch, device, gen, num_rays, samples_per_ray):
 def phase_kernel_rows(torch, device, seed):
     """The row scatter on the run-deduplicated update stream of the flagship
     cache shape (8192 camera rays x 32 samples, 6 levels x 4 taps), one row
-    per update, as the dedup stream feeds the skip kernel."""
+    per update, as the dedup stream feeds the skip kernel; and on the same
+    updates before the dedup scan (w * ct per tap)."""
     from neural_radiance_caching_tpu_torch.ops import hashgrid, scatter_cuda
 
     levels, points, corners, features, num_rows = 6, 262144, 4, 4, 524288
@@ -956,42 +959,65 @@ def phase_kernel_rows(torch, device, seed):
     ct = torch.randn((levels, points, features), generator=gen, device=device)
     keep, upd = hashgrid.dedup_runs(idx, w, ct, corners=corners)
     g = (keep[..., None] * upd).contiguous()  # [6, 1,048,576, 4]: one row per update
+    raw = _update_rows("leveled", w, ct, corners).contiguous()  # the same, not dedup'd
     kw = dict(num_rows=num_rows, features=features)
+    skip_kw = dict(kw, corners=1, skip_zero_w=True)
     ragged = 1_000_003
+    rows_kernel = scatter_cuda.scatter_add_rows_leveled
+    plain = scatter_cuda.scatter_add_rows_leveled_plain
 
     before = scatter_cuda.launches["rows"]
-    got = scatter_cuda.scatter_add_rows_leveled(idx, g, **kw)
+    got = rows_kernel(idx, g, **kw)
     got_p = scatter_cuda.scatter_add_rows_padded(idx[0, :ragged], g[0, :ragged], **kw)
     launched = scatter_cuda.launches["rows"] - before
-    want = scatter_cuda.scatter_add_rows_leveled_plain(idx, g, **kw)
-    limit = SUM_ORDER_TOL * scatter_cuda.scatter_add_rows_leveled_plain(idx, g.abs(), **kw) + 1e-30
-    want_p = scatter_cuda.scatter_add_rows_leveled_plain(idx[:1, :ragged], g[:1, :ragged], **kw)[0]
-    skip = scatter_cuda.scatter_add_weighted_leveled(idx, keep, upd, corners=1, skip_zero_w=True,
-                                                     **kw)
+    got_raw = rows_kernel(idx, raw, **kw)
+    want = plain(idx, g, **kw)
+    limit = SUM_ORDER_TOL * plain(idx, g.abs(), **kw) + 1e-30
+    want_p = plain(idx[:1, :ragged], g[:1, :ragged], **kw)[0]
+    want_raw = plain(idx, raw, **kw)
+    raw_limit = SUM_ORDER_TOL * plain(idx, raw.abs(), **kw) + 1e-30
+    skip = scatter_cuda.scatter_add_weighted_leveled(idx, keep, upd, **skip_kw)
     torch.cuda.synchronize()
     max_abs = float((got - want).abs().max())
+    raw_abs = float((got_raw - want_raw).abs().max())
     ok = (launched == 2 and bool(((got - want).abs() <= limit).all())
           and bool(((got_p - want_p).abs() <= limit[0]).all())
-          and bool(((skip - got).abs() <= 2 * limit).all()))
+          and bool(((skip - got).abs() <= 2 * limit).all())
+          and bool(((got_raw - want_raw).abs() <= raw_limit).all()))
     share = 1.0 - float(keep.mean())
-    del want, want_p, skip
-    ms = _cuda_ms(lambda: scatter_cuda.scatter_add_rows_leveled(idx, g, **kw))
-    plain_ms = _cuda_ms(lambda: scatter_cuda.scatter_add_rows_leveled_plain(idx, g, **kw))
+    del got, got_p, got_raw, want, want_p, want_raw, limit, raw_limit, skip
+    ms = _cuda_ms(lambda: rows_kernel(idx, g, **kw))
+    plain_ms = _cuda_ms(lambda: plain(idx, g, **kw))
     library_ms = _cuda_ms(_index_add_call(idx, g, num_rows))
+    skip_ms = _cuda_ms(lambda: scatter_cuda.scatter_add_weighted_leveled(idx, keep, upd, **skip_kw))
+    undedup = _alternating_ms({"kernel": lambda: rows_kernel(idx, raw, **kw),
+                               "library": _index_add_call(idx, raw, num_rows)})
+    host = {"kernel": _host_ms(torch, lambda: rows_kernel(idx, g, **kw)),
+            "library": _host_ms(torch, _index_add_call(idx, g, num_rows))}
     n = levels * points * corners
+    # Both streams have one row per update: the same bytes.
     bound_ms, bound_by = _bound(4 * (n + n * features + levels * num_rows * features),
                                 n * features)
     print(f"kernel (rows): scatter_add_rows_leveled L={levels} N={n // levels} F={features} "
           f"rows={num_rows} (dedup'd stream of 8192 camera rays x 32 samples: {share:.1%} of "
           f"rows zero) max_abs_err={max_abs:.3e} tol=|err|<={SUM_ORDER_TOL}*sum|g|; "
           f"scatter_add_rows_padded at N={ragged} same tol; the skip kernel on the same "
-          f"stream agrees; launches={launched} {'ok' if ok else 'FAIL'}; kernel_ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} library_ms(index_add_)={library_ms:.4f} "
-          f"bound_ms={bound_ms:.4f} ({bound_by}) (median of 11, CUDA events)", flush=True)
+          f"stream agrees; the same updates before the dedup scan (w*ct per tap) "
+          f"max_abs_err={raw_abs:.3e} same tol; launches={launched} {'ok' if ok else 'FAIL'}; "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms(index_add_)={library_ms:.4f} "
+          f"ratio={ms / library_ms:.3f} skip_same_stream_ms={skip_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} ({bound_by}) (median of 11, CUDA events); before the "
+          f"dedup scan: kernel_ms={undedup['kernel']:.4f} library_ms={undedup['library']:.4f} "
+          f"ratio={undedup['kernel'] / undedup['library']:.3f} (medians of 11 in 2 alternating "
+          f"turns); host time of one call (no sync): kernel {host['kernel']:.4f} ms, library "
+          f"{host['library']:.4f} ms", flush=True)
     if not ok:
         raise AssertionError("the row scatter disagrees with its plain version")
-    return dict(launches=launched, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return dict(launches=launched, max_abs_err=max(max_abs, raw_abs), ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                skip_same_stream_ms=skip_ms, undedup_ms=undedup["kernel"],
+                undedup_library_ms=undedup["library"], host_ms=host["kernel"],
+                library_host_ms=host["library"])
 
 
 # The transient reference: 64 bins of 0.25 cover the scene's two-bounce path
@@ -1041,7 +1067,7 @@ def _transient_step(torch, device, seed, batch, scatter_dedup, fault=None):
     cfg = _transient_ref_config()
     torch.manual_seed(seed)
     model = flagship.build_flagship_transient_cache_model(
-        cfg, _narrow_transient(scatter_dedup)).to(device)
+        cfg, _narrow_transient(scatter_dedup), device=device)
     state, _ = train.create_optimizer(cfg, model)
     before = dict(scatter_cuda.launches)
     patch = dict(scatter_add_weighted_leveled=_planted_fault(fault)) if fault else {}
@@ -1168,7 +1194,7 @@ def phase_transient_train(torch, device, seed, steps, smi, profile):
     for name, dedup in (("direct", False), ("dedup", True)):
         torch.manual_seed(seed)
         model = flagship.build_flagship_transient_cache_model(
-            config, flagship.flagship_transient_cache_params(scatter_dedup=dedup)).to(device)
+            config, flagship.flagship_transient_cache_params(scatter_dedup=dedup), device=device)
         state, _ = train.create_optimizer(config, model)
         runs[name] = dict(model=model, state=state, step=train.create_train_step(model, config),
                           before={k: v.detach().clone() for k, v in model.state_dict().items()},
@@ -1405,9 +1431,11 @@ def main():
     replaces = "neural_radiance_caching_tpu/ops/scatter_tpu.py"
     timing = ("ms, plain_ms, library_ms: medians of 11 calls by CUDA events, wrapper included; "
               "library_ms is one index_add_ of the update rows (for a weighted scatter, the "
-              "products formed beforehand); camera_ray_*, per_level_* and path_* (the inputs "
+              "products formed beforehand); camera_ray_*, per_level_*, path_* (the inputs "
               "one train step gave the kernel: planes from the material path, leveled from "
-              "the transient path) are kernel and index_add_ timed in 2 alternating turns; "
+              "the transient path) and the rows kernel's undedup_* (its camera-ray updates "
+              "before the dedup scan) are kernel and index_add_ timed in 2 alternating turns; "
+              "host_ms: host time of one call without a sync; "
               "bound_ms from the card's published HBM rate (3.35 TB/s) and float32 rate "
               "(67 TFLOP/s), each input read once and the output written once")
     leveled_launches = {"cache_train": cache_leveled, "material_train": material["leveled"],
@@ -1477,18 +1505,13 @@ def main():
     }, {
         "name": "scatter_add_rows_leveled",
         "route": "cuda",
-        "source": f"{csrc}/scatter_rows.cu",
+        "source": f"{csrc}/scatter_weighted.cu",
         "replaces": f"{replaces}:79",
         "launches": rows["launches"],
         "launches_by_path": {"rows_kernel_phase": rows["launches"], "cache_train": 0,
                              "material_train": 0, "transient_train": 0,
                              "transient_train_dedup": 0},
-        "max_abs_err": rows["max_abs_err"],
-        "ms": rows["ms"],
-        "plain_ms": rows["plain_ms"],
-        "library_ms": rows["library_ms"],
-        "bound_ms": rows["bound_ms"],
-        "bound_by": rows["bound_by"],
+        **{k: v for k, v in rows.items() if k != "launches"},
     }], "timing": timing, "transient_train": {
         name: {k: v for k, v in r.items() if k != "max_abs_err"}
         for name, r in transient.items()}}), flush=True)

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from neural_radiance_caching_tpu_torch.data import camera_utils
-from neural_radiance_caching_tpu_torch.utils import pytrees
+from neural_radiance_caching_tpu_torch.utils import pytrees, torchutil
 
 
 class Dataset:
@@ -24,9 +24,7 @@ class Dataset:
     CPU)."""
 
     def __init__(self, split, data_dir, config, device="cuda"):
-        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"no CUDA device for a dataset on {device!r}; "
-                               "pass device='cpu' to serve batches on the CPU")
+        torchutil.check_device(device, "a dataset", "serve batches on the CPU")
         if config.patch_size > 1 or config.cast_rays_in_train_step:
             raise NotImplementedError("patch batches and in-step ray casting are not ported yet")
         self.split = split

@@ -21,6 +21,11 @@ Transient cache (InvProp): the cache with an actively lit TransientNeRFMLP
 emitting 700 x 3 time bins, transient SLF), 700 bins of 0.02, the transient
 RawNeRF loss, batch 2048. ``scatter_dedup`` turns on the run-dedup of the
 density grid's table-gradient scatter.
+
+The builders return the model on the card unless given ``device="cpu"``,
+and raise without one. Parameters are initialised on the CPU from torch's
+default generator, so one seed gives the same weights on every device, and
+then moved.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from neural_radiance_caching_tpu_torch.models.layers import softplus
 from neural_radiance_caching_tpu_torch.models.material_model import MaterialModel
 from neural_radiance_caching_tpu_torch.models.nerf_model import NeRFModel, TransientNeRFModel
 from neural_radiance_caching_tpu_torch.ops import coord
+from neural_radiance_caching_tpu_torch.utils import torchutil
 
 BATCH_SIZE = 8192
 MATERIAL_BATCH_SIZE = 1536
@@ -113,8 +119,13 @@ def flagship_cache_params():
     )
 
 
-def build_flagship_cache_model(config, params=None):
-    return NeRFModel(config=config, **(params or flagship_cache_params()))
+def _build(model_cls, config, params, device):
+    torchutil.check_device(device, "a model", "build it on the CPU")
+    return model_cls(config=config, **params).to(device)
+
+
+def build_flagship_cache_model(config, params=None, device="cuda"):
+    return _build(NeRFModel, config, params or flagship_cache_params(), device)
 
 
 def material_config(**overrides):
@@ -182,8 +193,8 @@ def flagship_material_params(cache_params=None):
     )
 
 
-def build_flagship_material_model(config, params=None):
-    return MaterialModel(config=config, **(params or flagship_material_params()))
+def build_flagship_material_model(config, params=None, device="cuda"):
+    return _build(MaterialModel, config, params or flagship_material_params(), device)
 
 
 def transient_config(**overrides):
@@ -218,5 +229,5 @@ def flagship_transient_cache_params(scatter_dedup=False):
     return params
 
 
-def build_flagship_transient_cache_model(config, params=None):
-    return TransientNeRFModel(config=config, **(params or flagship_transient_cache_params()))
+def build_flagship_transient_cache_model(config, params=None, device="cuda"):
+    return _build(TransientNeRFModel, config, params or flagship_transient_cache_params(), device)

@@ -2,27 +2,28 @@
 ``ops/scatter_tpu.py``).
 
 Each kernel replaces the Pallas kernel of the same name
-(``neural_radiance_caching_tpu/ops/scatter_tpu.py``):
+(``neural_radiance_caching_tpu/ops/scatter_tpu.py``); all are instances of
+one kernel body in ``csrc/scatter_weighted.cu``, templated on the update
+layout:
 
-- ``scatter_add_weighted_leveled`` (``csrc/scatter_weighted.cu``): updates
-  as ``[L, P*U]`` index/weight rows (taps fastest) and ``[L, P, F]``
-  cotangents; the encoder backward at primary-ray point counts. With
-  ``skip_zero_w=True`` it launches the instance that skips updates of weight
-  0, which the run-deduplicated stream (``hashgrid._dedup_weighted_scatter``)
-  feeds; its launches count under ``"leveled_skip"``.
-- ``scatter_add_weighted_planes`` (the same body in ``csrc/scatter_weighted.cu``,
-  instanced for the other layout): updates as ``[L, U, P]`` tap planes and
+- ``scatter_add_weighted_leveled``: updates as ``[L, P*U]`` index/weight
+  rows (taps fastest) and ``[L, P, F]`` cotangents; the encoder backward at
+  primary-ray point counts. With ``skip_zero_w=True`` it launches the
+  instance that skips updates of weight 0, which the run-deduplicated stream
+  (``hashgrid._dedup_weighted_scatter``) feeds; its launches count under
+  ``"leveled_skip"``.
+- ``scatter_add_weighted_planes``: updates as ``[L, U, P]`` tap planes and
   ``[L, F, P]`` cotangent planes (point axis minor); the encoder backward at
   secondary-ray fan-outs.
-- ``scatter_add_rows_leveled`` (``csrc/scatter_rows.cu``): the unweighted row
-  scatter ``out[l, idx[l, j]] += g[l, j]``, with ``scatter_add_rows_padded``
-  for one table.
+- ``scatter_add_rows_leveled``: the unweighted row scatter
+  ``out[l, idx[l, j]] += g[l, j]`` (one tap, no weight, any row width), with
+  ``scatter_add_rows_padded`` for one table.
 
-Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface the first time a CUDA tensor reaches a kernel (the
-sources build in parallel), and loaded with ``ctypes``. A library is named by
-a hash of its source, of every ``csrc/*.cuh`` header a source may include, and
-of the flags.
+Each source of ``_SOURCES`` is compiled with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface the first time a CUDA tensor reaches
+a kernel (all sources at once, in parallel), and loaded with ``ctypes``. A
+library is named by a hash of its source, of every ``csrc/*.cuh`` header a
+source may include, and of the flags.
 
 Dispatch is by the device of the tensors and nothing else: CPU tensors take
 the ``*_plain`` version (an ``index_add_`` reference), CUDA tensors launch
@@ -47,7 +48,7 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("scatter_weighted.cu", "scatter_rows.cu")
+_SOURCES = ("scatter_weighted.cu",)
 _WEIGHTED_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                   ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
                   ctypes.c_int64, ctypes.c_void_p)
@@ -59,7 +60,7 @@ _KERNELS = {
     "leveled_skip": ("scatter_weighted.cu", "nrc_scatter_add_weighted_leveled_skip_zero_w",
                      _WEIGHTED_ARGS),
     "planes": ("scatter_weighted.cu", "nrc_scatter_add_weighted_planes", _WEIGHTED_ARGS),
-    "rows": ("scatter_rows.cu", "nrc_scatter_add_rows_leveled", _ROWS_ARGS),
+    "rows": ("scatter_weighted.cu", "nrc_scatter_add_rows_leveled", _ROWS_ARGS),
 }
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -317,8 +318,9 @@ def scatter_add_rows_leveled(idx, g, *, num_rows, features):
 
     Args:
       idx: [L, N] int32 row indices in [0, num_rows); any N.
-      g: [L, N, features] float32 update rows (the TPU kernel's 128-lane
-        packing is not needed).
+      g: [L, N, features] float32 update rows, any features >= 1 (the
+        kernel takes wide rows in chunks of 8 columns; the TPU kernel's
+        128-lane packing is not needed).
 
     Returns [L, num_rows, features] float32, for any num_rows. CPU tensors
     take the plain version; CUDA tensors launch the kernel on the current

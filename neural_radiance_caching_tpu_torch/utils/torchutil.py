@@ -1,5 +1,5 @@
 """RNG threading, random draws and partial stop-gradients (counterpart of
-``utils/jaxutil.py``).
+``utils/jaxutil.py``), and the device check of the port's entry points.
 
 Randomness is an explicit ``torch.Generator`` (or None for the deterministic
 path). A generator is a stream, not a splittable key, so ``random_split``
@@ -16,6 +16,15 @@ replacing these three functions.
 from __future__ import annotations
 
 import torch
+
+
+def check_device(device, what, cpu_use):
+    """Raise if `device` is a CUDA device and there is none: the port's entry
+    points run on the card unless the caller asks for the CPU, and never fall
+    back to it."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"no CUDA device for {what} on {device!r}; "
+                           f"pass device='cpu' to {cpu_use}")
 
 
 def random_split(rng):

@@ -64,7 +64,8 @@ def _flatten(tree, prefix=()):
 
 
 def state_dict_from_jax(variables, module):
-    """Map a JAX variables tree onto `module`'s state_dict (new tensors)."""
+    """Map a JAX variables tree onto `module`'s state_dict (new tensors, on
+    the device and of the type of the module's own, the card included)."""
     tree = variables["params"] if "params" in variables else variables
     target = module.state_dict()
     out = {}
@@ -80,7 +81,8 @@ def state_dict_from_jax(variables, module):
             value = value.T
         if tuple(value.shape) != tuple(target[key].shape):
             raise ValueError(f"{key}: JAX shape {value.shape} vs torch {tuple(target[key].shape)}")
-        out[key] = torch.as_tensor(np.ascontiguousarray(value), dtype=target[key].dtype)
+        out[key] = torch.as_tensor(np.ascontiguousarray(value), dtype=target[key].dtype,
+                                   device=target[key].device)
     missing = sorted(set(target) - set(out))
     if missing:
         raise KeyError(f"state_dict keys not filled from the JAX tree: {missing}")

@@ -95,7 +95,7 @@ def build(bf16=False, lr_delay_steps=0, seed=0):
     tcfg = flagship.cache_config(batch_size=BATCH, lr_delay_steps=lr_delay_steps)
     jmodel = JNeRFModel(config=jcfg, **narrow(bench.flagship_cache_params(jcfg), bf16))
     tmodel = flagship.build_flagship_cache_model(
-        tcfg, narrow(flagship.flagship_cache_params(), bf16))
+        tcfg, narrow(flagship.flagship_cache_params(), bf16), device="cpu")
     shapes = jax.eval_shape(lambda: jmodel.init(
         jax.random.PRNGKey(0), jax.random.PRNGKey(1), jpytrees.dummy_rays(4), train_frac=1.0,
         train=False))

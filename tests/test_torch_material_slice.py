@@ -180,7 +180,7 @@ def build(seed=0, **cfg_overrides):
     tparams = flagship.flagship_material_params()
     tparams.update(narrow_material(tparams["cache_model_params"],
                                    tparams["light_sampler_params"], tparams["shader_params"]))
-    tmodel = flagship.build_flagship_material_model(tcfg, tparams)
+    tmodel = flagship.build_flagship_material_model(tcfg, tparams, device="cpu")
     shapes = jax.eval_shape(lambda: jmodel.init(
         jax.random.PRNGKey(0), jax.random.PRNGKey(1), jpytrees.dummy_rays(4), train_frac=1.0,
         train=False))

@@ -62,7 +62,7 @@ def flagship_pair():
         jax.random.PRNGKey(0), jax.random.PRNGKey(1), jpytrees.dummy_rays(4), train_frac=1.0,
         train=False))
     tree = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), shapes)
-    tmodel = flagship.build_flagship_cache_model(flagship.cache_config())
+    tmodel = flagship.build_flagship_cache_model(flagship.cache_config(), device="cpu")
     return tree, tmodel
 
 
@@ -110,7 +110,7 @@ def test_bridge_covers_every_flagship_material_leaf():
         jax.random.PRNGKey(0), jax.random.PRNGKey(1), jpytrees.dummy_rays(4), train_frac=1.0,
         train=False))
     tree = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), shapes)
-    tmodel = flagship.build_flagship_material_model(flagship.material_config())
+    tmodel = flagship.build_flagship_material_model(flagship.material_config(), device="cpu")
     sd = weights.state_dict_from_jax(tree, tmodel)
     leaves = jax.tree_util.tree_leaves(tree)
     assert len(sd) == len(leaves) == len(tmodel.state_dict())
@@ -126,10 +126,11 @@ def test_unported_material_options_raise():
     cfg = flagship.material_config()
     params = flagship.flagship_material_params()
     with pytest.raises(NotImplementedError, match="slf_variate"):
-        flagship.build_flagship_material_model(cfg, dict(params, slf_variate=True))
+        flagship.build_flagship_material_model(cfg, dict(params, slf_variate=True), device="cpu")
     shader = dict(params["shader_params"], use_active=True)
     with pytest.raises(NotImplementedError, match="use_active"):
-        flagship.build_flagship_material_model(cfg, dict(params, shader_params=shader))
+        flagship.build_flagship_material_model(cfg, dict(params, shader_params=shader),
+                                               device="cpu")
 
 
 def test_bridge_covers_every_flagship_transient_leaf():
@@ -144,7 +145,8 @@ def test_bridge_covers_every_flagship_transient_leaf():
         jax.random.PRNGKey(0), jax.random.PRNGKey(1), jpytrees.dummy_rays(4), train_frac=1.0,
         train=False))
     tree = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), shapes)
-    tmodel = flagship.build_flagship_transient_cache_model(flagship.transient_config())
+    tmodel = flagship.build_flagship_transient_cache_model(flagship.transient_config(),
+                                                           device="cpu")
     sd = weights.state_dict_from_jax(tree, tmodel)
     leaves = jax.tree_util.tree_leaves(tree)
     assert len(sd) == len(leaves) == len(tmodel.state_dict())

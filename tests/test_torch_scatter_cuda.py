@@ -1,9 +1,10 @@
 """The table-gradient scatter wrappers (``ops/scatter_cuda.py``): the
 leveled and row plain versions against a numpy one-hot sum, their argument
-checks, the skip-zero-weight plain version, the kernel sources and their
-build key, and, on a CUDA device, every hand-written kernel (leveled, its
-skip instance, planes, rows) against its plain version, the weighted body on
-warp patterns that reach its warp combine and its vector and scalar paths.
+checks, the skip-zero-weight plain version, the kernel source and its build
+key, and, on a CUDA device, every hand-written kernel (leveled, its skip
+instance, planes, rows; all one body) against its plain version, on warp
+patterns that reach the warp combine and the vector and scalar paths, and
+the row layout at widths that take column chunks and the stride check.
 
 This file imports no JAX, so the GPU-marked tests also run on a machine
 without it: ``python -m pytest --noconftest tests/test_torch_scatter_cuda.py``.
@@ -87,7 +88,8 @@ def _numpy_row_scatter(idx, g, rows):
     return out
 
 
-@pytest.mark.parametrize("n,rows,features", [(1000, 77, 4), (512, 256, 1), (333, 5, 2)])
+@pytest.mark.parametrize("n,rows,features", [(1000, 77, 4), (512, 256, 1), (333, 5, 2),
+                                              (500, 33, 12), (256, 16, 16)])
 def test_plain_row_scatter_matches_numpy_one_hot(n, rows, features):
     # Any update count and any table height: no tile padding.
     rng = np.random.RandomState(n)
@@ -134,14 +136,14 @@ def test_plain_skip_zero_w_drops_zero_weight_updates():
 
 
 def test_sources_kernels_and_entry_points_agree():
-    # One source holds the weighted body of all three weighted kernels; each
-    # entry point is defined in the source that _KERNELS names.
-    weighted = {name: entry for name, (src, entry, _) in scatter_cuda._KERNELS.items()
-                if src == "scatter_weighted.cu"}
-    assert weighted == {"leveled": "nrc_scatter_add_weighted_leveled",
-                        "leveled_skip": "nrc_scatter_add_weighted_leveled_skip_zero_w",
-                        "planes": "nrc_scatter_add_weighted_planes"}
-    assert scatter_cuda._SOURCES == ("scatter_weighted.cu", "scatter_rows.cu")
+    # One source holds the body of all four kernels; each entry point is
+    # defined in the source that _KERNELS names.
+    assert scatter_cuda._SOURCES == ("scatter_weighted.cu",)
+    assert {name: entry for name, (src, entry, _) in scatter_cuda._KERNELS.items()} == {
+        "leveled": "nrc_scatter_add_weighted_leveled",
+        "leveled_skip": "nrc_scatter_add_weighted_leveled_skip_zero_w",
+        "planes": "nrc_scatter_add_weighted_planes",
+        "rows": "nrc_scatter_add_rows_leveled"}
     assert {src for src, _, _ in scatter_cuda._KERNELS.values()} == set(scatter_cuda._SOURCES)
     for name, (src, entry, _) in scatter_cuda._KERNELS.items():
         assert re.search(rf"^int {entry}\(", (scatter_cuda._CSRC / src).read_text(), re.M), name
@@ -151,15 +153,20 @@ def test_sources_kernels_and_entry_points_agree():
 
 
 def test_library_key_follows_headers(tmp_path, monkeypatch):
+    # A second source beside the kernels' one, so that the key of each can
+    # be told apart.
     csrc = tmp_path / "csrc"
     shutil.copytree(scatter_cuda._CSRC, csrc, ignore=shutil.ignore_patterns("build"))
+    (csrc / "other.cu").write_text("// another source\n")
     monkeypatch.setattr(scatter_cuda, "_CSRC", csrc)
+    monkeypatch.setattr(scatter_cuda, "_SOURCES", (*scatter_cuda._SOURCES, "other.cu"))
 
     def keys():
         return {src: scatter_cuda._lib_path(src) for src in scatter_cuda._SOURCES}
 
     before = keys()
     assert keys() == before
+    assert len(set(before.values())) == 2
     # A header that a source may include changes every library's key.
     (csrc / "shared.cuh").write_text("// v1\n")
     v1 = keys()
@@ -168,10 +175,10 @@ def test_library_key_follows_headers(tmp_path, monkeypatch):
     for src in scatter_cuda._SOURCES:
         assert len({before[src], v1[src], v2[src]}) == 3
     # A source's own edit changes its key alone.
-    rows = csrc / "scatter_rows.cu"
-    rows.write_text(rows.read_text() + "// changed\n")
+    other = csrc / "other.cu"
+    other.write_text(other.read_text() + "// changed\n")
     after = keys()
-    assert after["scatter_rows.cu"] != v2["scatter_rows.cu"]
+    assert after["other.cu"] != v2["other.cu"]
     assert after["scatter_weighted.cu"] == v2["scatter_weighted.cu"]
 
 
@@ -232,8 +239,10 @@ def test_cuda_skip_zero_w_kernel_matches_plain_version():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,rows,features", [(40000, 128, 4), (12345, 77, 2)])
+@pytest.mark.parametrize("n,rows,features", [(40000, 128, 4), (12345, 77, 2),
+                                              (100_003, 77, 12)])
 def test_cuda_row_kernel_matches_plain_version(n, rows, features):
+    # Ragged update counts, through both wrappers; F = 12 in column chunks.
     _need_cuda()
     gen = torch.Generator(device="cuda").manual_seed(4)
     idx = torch.randint(0, rows, (3, n), generator=gen, device="cuda", dtype=torch.int32)
@@ -248,16 +257,24 @@ def test_cuda_row_kernel_matches_plain_version(n, rows, features):
     torch.testing.assert_close(single, want[2], rtol=1e-5, atol=1e-4)
 
 
+_WARP_PATTERNS = ("one_row", "alternating", "across_warps", "random")
+
+
+def _pattern_rows(pattern, points, rows, gen):
+    """[points] rows following a warp pattern (warps are 32 consecutive
+    points): "one_row" puts all 32 lanes of a warp on one row, "alternating"
+    gives lanes rows a, b, a, b, ..., "across_warps" makes runs of 48 points,
+    half of which cross a warp boundary, "random" draws rows."""
+    p = torch.arange(points)
+    return {"one_row": p // 32, "alternating": (p % 2) * 7, "across_warps": p // 48,
+            "random": torch.randint(0, rows, (points,), generator=gen)}[pattern] % rows
+
+
 def _warp_pattern_case(pattern, levels, points, corners, rows, features, seed):
     """Leveled and planes inputs of the same updates, whose rows follow a
-    warp pattern per tap slot (warps are 32 consecutive points):
-    "one_row" puts all 32 lanes of a warp on one row, "alternating" gives
-    lanes rows a, b, a, b, ..., "across_warps" makes runs of 48 points, half
-    of which cross a warp boundary, "random" draws rows."""
+    warp pattern (_pattern_rows) per tap slot."""
     gen = torch.Generator().manual_seed(seed)
-    p = torch.arange(points)
-    base = {"one_row": p // 32, "alternating": (p % 2) * 7, "across_warps": p // 48,
-            "random": torch.randint(0, rows, (points,), generator=gen)}[pattern]
+    base = _pattern_rows(pattern, points, rows, gen)
     taps = torch.arange(corners)[:, None] * 5 + torch.arange(levels)[:, None, None]
     planes_idx = ((base[None, None] + taps) % rows).to(torch.int32)  # [L, U, P]
     planes_w = torch.rand(levels, corners, points, generator=gen)
@@ -282,7 +299,7 @@ def test_cuda_weighted_body_on_warp_patterns(kind, corners, features):
     plain = getattr(scatter_cuda, f"scatter_add_weighted_{kind}_plain")
     kw = dict(num_rows=64, features=features, corners=corners)
     for points in (4096, 1000):
-        for pattern in ("one_row", "alternating", "across_warps", "random"):
+        for pattern in _WARP_PATTERNS:
             leveled, planes = _warp_pattern_case(pattern, 3, points, corners, 64, features, points)
             idx, w, ct = leveled if kind == "leveled" else planes
             before = scatter_cuda.launches[kind]
@@ -331,6 +348,72 @@ def test_cuda_skip_zero_w_with_nan_rows_inside_runs(pattern):
     want = scatter_cuda.scatter_add_weighted_leveled_plain(idx, w, ct, **kw)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+def _rows_pattern_case(pattern, levels, n, rows, features, seed):
+    """Row-scatter inputs idx [L, n], g [L, n, features] whose rows follow a
+    warp pattern (_pattern_rows), shifted per level."""
+    gen = torch.Generator().manual_seed(seed)
+    base = _pattern_rows(pattern, n, rows, gen)
+    idx = ((base[None] + 5 * torch.arange(levels)[:, None]) % rows).to(torch.int32)
+    g = torch.randn(levels, n, features, generator=gen)
+    return idx.cuda(), g.cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("features", [1, 2, 3, 4, 6, 8, 10, 12, 16])
+def test_cuda_row_kernel_on_warp_patterns(features):
+    # The row layout of the shared body: the warp combine on each pattern,
+    # F = 2, 4, 6, 8 the vector paths, 1, 3 the scalar ones; 10, 12, 16 go in
+    # column chunks of 8 (16: two full chunks; 12: a masked chunk of 4; 10:
+    # a row stride that leaves odd rows unaligned for float4, so the stride
+    # check must keep them scalar). 1000 updates leave a warp with lanes
+    # past the end.
+    _need_cuda()
+    kw = dict(num_rows=64, features=features)
+    for n in (4096, 1000):
+        for pattern in _WARP_PATTERNS:
+            idx, g = _rows_pattern_case(pattern, 3, n, 64, features, n + features)
+            before = scatter_cuda.launches["rows"]
+            got = scatter_cuda.scatter_add_rows_leveled(idx, g, **kw)
+            torch.cuda.synchronize()
+            assert scatter_cuda.launches["rows"] == before + 1
+            torch.testing.assert_close(got, scatter_cuda.scatter_add_rows_leveled_plain(
+                idx, g, **kw), rtol=1e-5, atol=1e-4, msg=f"{pattern}, {n} updates")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("features", [4, 6])
+def test_cuda_row_kernel_on_unaligned_views(features):
+    # Contiguous views 4 bytes past an aligned start: the kernel reads the
+    # rows with scalar loads; the output stays aligned for the vector atomics.
+    _need_cuda()
+    idx, g = _rows_pattern_case("across_warps", 3, 4096, 64, features, 7)
+    flat = torch.empty(g.numel() + 1, device="cuda")
+    view = flat[1:].view(g.shape)
+    view.copy_(g)
+    assert view.is_contiguous() and view.data_ptr() % 8 != 0
+    kw = dict(num_rows=64, features=features)
+    torch.testing.assert_close(scatter_cuda.scatter_add_rows_leveled(idx, view, **kw),
+                               scatter_cuda.scatter_add_rows_leveled_plain(idx, g, **kw),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", ["one_row", "across_warps", "random"])
+def test_cuda_row_kernel_adds_nan_rows_as_given(pattern):
+    # A row update has no weight: a NaN or inf row reaches its table row, as
+    # under index_add_, and only that row, even inside a warp's combined run.
+    _need_cuda()
+    idx, g = _rows_pattern_case(pattern, 3, 4000, 64, 4, 8)
+    g[:, 37] = float("nan")
+    g[1, 1001, 2] = float("inf")
+    kw = dict(num_rows=64, features=4)
+    got = scatter_cuda.scatter_add_rows_leveled(idx, g, **kw)
+    want = scatter_cuda.scatter_add_rows_leveled_plain(idx, g, **kw)
+    assert torch.equal(torch.isnan(got), torch.isnan(want)) and torch.isnan(want).any()
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4, equal_nan=True)
 
 
 _BAD_ROW_ON_CUDA = {

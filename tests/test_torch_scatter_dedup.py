@@ -8,7 +8,8 @@ row scatter, held against the JAX package on the CPU.
 - The encoder backward with ``scatter_dedup=True`` against the JAX
   package's XLA autodiff table gradients (trilinear and simplex, dense and
   hash levels), on ray-like points so that runs occur.
-- The plain row scatter against ``scatter_add_rows_leveled(interpret=True)``.
+- The plain row scatter against ``scatter_add_rows_leveled(interpret=True)``,
+  at F = 4 and at F = 16.
 
 Tolerances: the same float32 terms summed in another order (a run's
 segmented scan, index_add_ or the Pallas banks): rtol/atol 1e-5 on sums of
@@ -188,3 +189,19 @@ def test_plain_row_scatter_matches_jax_interpret(monkeypatch):
         features=features)
     assert tuple(got1.shape) == (77, features)
     np.testing.assert_allclose(got1.numpy(), np.asarray(want1), rtol=1e-5, atol=1e-5)
+
+
+def test_plain_row_scatter_matches_jax_interpret_wide_rows():
+    # F = 16 divides 128 (eight rows to a 128-lane row on the TPU, so a
+    # tile that is a multiple of 8; column chunks of 8 in the CUDA kernel).
+    rng = np.random.RandomState(16)
+    rows, features, levels, n = 64, 16, 2, 1024
+    idx = rng.randint(0, rows, (levels, n)).astype(np.int32)
+    g = rng.randn(levels, n, features).astype(np.float32)
+    want = scatter_tpu.scatter_add_rows_leveled(
+        jnp.asarray(idx), jnp.asarray(g).reshape(levels, n * features // scatter_tpu.LANES,
+                                                 scatter_tpu.LANES),
+        num_rows=rows, features=features, tile=256, interpret=True)
+    got = scatter_cuda.scatter_add_rows_leveled(torch.as_tensor(idx), torch.as_tensor(g),
+                                                num_rows=rows, features=features)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)

@@ -129,7 +129,7 @@ def build(form="gather", scatter_dedup=False, seed=0):
                                      exposure_time=EXPOSURE, transient_shift_form=form)
     jmodel = JTransientModel(config=jcfg, **jax_params(jcfg))
     tmodel = flagship.build_flagship_transient_cache_model(
-        tcfg, narrow(flagship.flagship_transient_cache_params(scatter_dedup)))
+        tcfg, narrow(flagship.flagship_transient_cache_params(scatter_dedup)), device="cpu")
     shapes = jax.eval_shape(lambda: jmodel.init(
         jax.random.PRNGKey(0), jax.random.PRNGKey(1), jpytrees.dummy_rays(4), train_frac=1.0,
         train=False))
@@ -333,7 +333,7 @@ def test_unported_transient_options_raise():
                           (dict(light_max_angle=30.0), "light_max_angle")):
         p = dict(params, shader_params=dict(params["shader_params"], **change))
         with pytest.raises(NotImplementedError, match=match):
-            flagship.build_flagship_transient_cache_model(cfg, p)
+            flagship.build_flagship_transient_cache_model(cfg, p, device="cpu")
     with pytest.raises(NotImplementedError, match="light_canonical_frame"):
         flagship.build_flagship_transient_cache_model(
-            flagship.transient_config(light_canonical_frame=True), params)
+            flagship.transient_config(light_canonical_frame=True), params, device="cpu")
