@@ -58,8 +58,27 @@ Phases, one line each (any failure exits nonzero):
      phase 12's checked step), with NaN rows planted under the zero weights,
      the share of zero-weight updates, and both scatter routes timed; then
      the leveled kernel against index_add_ on the same captured updates (all
-     levels and each level alone).
-Then the kernels JSON line, the nvidia-smi line, and the result line.
+     levels and each level alone);
+ 14. eval reference: the narrow cache, material and transient models of
+     phases 7-9 (every parameter drawn from U(-0.5, 0.5)), the same weights and
+     draws on the GPU and the CPU, render a held-out 16^2 view through
+     create_render_fn + render_image in chunks of 96 (the last one ragged)
+     with 2 repeats; every output compared in relative L2 against a limit
+     bracketed by a CPU noise floor and two encoder faults planted in the GPU
+     forward; no scatter launched;
+ 15. gate: the full-width flagship cache model, fresh, trained 200 steps at
+     the gate's learning rate (batch 8192, 8 views at 128^2), then view 0 of
+     the held-out 64^2 set rendered and scored; below 20 dB the run fails;
+     200 leveled launches;
+ 16. eval render: bench_eval_render (full extras and rgb-only) of the
+     full-width cache model on the 128^2 test view (3 timed images), of the
+     material model on a held-out 64^2 view (chunks of 1024, then the whole
+     view as one chunk if it fits) and of the transient cache model on a
+     held-out 64^2 view (one chunk of 4096 rays x 700 bins; 2 timed images
+     each): times, the render function's device time, peak memory, raw
+     outputs finite, no scatter launched.
+Then the kernels JSON line, the eval JSON line, the nvidia-smi line, and the
+result line.
 """
 
 from __future__ import annotations
@@ -1357,6 +1376,287 @@ def phase_kernel_skip(torch, device, capture):
                 direct_max_abs_err=dedup_err)
 
 
+# The eval reference: a held-out 16^2 view in chunks of 96 rays (96, 96, 64:
+# a ragged last chunk), 2 repeats per chunk.
+EVAL_REF_RES = 16
+EVAL_REF_CHUNK = 96
+EVAL_REF_REPEATS = 2
+# Eval outputs are held per key (rgb, acc, the distance statistics, every
+# extra, the rgb variance) in relative L2 norm over the view. Each limit sits
+# between the two readings the phase takes in every run: the noise floor (the
+# CPU path against itself with the ray origins moved by one float32 ulp) below
+# it, and two encoder faults planted in the GPU forward above it. The
+# material model's outputs average secondary rays, whose directions a
+# rounding error in a normal turns, so its floor and limit are higher.
+EVAL_REL_L2_TOL = {"cache": 2e-2, "material": 0.2, "transient": 2e-2}
+
+
+def _eval_ref_model(torch, kind, seed, device):
+    """(config, model) of the narrow `kind` model of phases 7-9, every
+    parameter drawn from U(-0.5, 0.5) by a CPU generator, then moved: the
+    builders' initial hash tables are near zero, so an encoder fault would
+    not show in their renders."""
+    from neural_radiance_caching_tpu_torch import flagship
+
+    chunk = dict(render_chunk_size=EVAL_REF_CHUNK)
+    if kind == "cache":
+        cfg = flagship.cache_config(**chunk)
+        model = flagship.build_flagship_cache_model(
+            cfg, _narrow(flagship.flagship_cache_params()), device="cpu")
+    elif kind == "material":
+        cfg = flagship.material_config(**chunk)
+        model = flagship.build_flagship_material_model(cfg, _narrow_material(), device="cpu")
+    else:
+        cfg = _transient_ref_config()
+        cfg.render_chunk_size = EVAL_REF_CHUNK
+        model = flagship.build_flagship_transient_cache_model(cfg, _narrow_transient(False),
+                                                              device="cpu")
+    gen = torch.Generator().manual_seed(seed + 12)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.rand(p.shape, generator=gen) - 0.5)
+    return cfg, model.to(device)
+
+
+def _planted_encoder_fault(fault):
+    """The hash-grid encoder forward with a deliberate fault, for the eval
+    reference's check that its limits would catch one."""
+    from neural_radiance_caching_tpu_torch.ops import hashgrid
+
+    real = hashgrid.multires_grid_encode
+
+    def encode(x, hash_tables, dense_pool, **kw):
+        f = real(x, hash_tables, dense_pool, **kw)
+        width = f.shape[-1] // len(kw["grid_sizes"])
+        if fault == "finest level dropped":
+            keep = f.new_ones(f.shape[-1])
+            keep[-width:] = 0.0
+            return f * keep
+        return f.unflatten(-1, (-1, width)).flip(-2).flatten(-2)  # "levels reversed"
+
+    return encode
+
+
+def _eval_render(torch, kind, seed, device, view, fault=None):
+    """The held-out view rendered by the narrow `kind` model on `device`
+    through create_render_fn + render_image, the draws from a CPU generator
+    (the same numbers on both devices); returns (images, launches)."""
+    from neural_radiance_caching_tpu_torch.engine import renderer
+    from neural_radiance_caching_tpu_torch.ops import hashgrid, scatter_cuda
+    from neural_radiance_caching_tpu_torch.parallel import train
+
+    cfg, model = _eval_ref_model(torch, kind, seed, device)
+    patch = dict(multires_grid_encode=_planted_encoder_fault(fault)) if fault else {}
+    before = dict(scatter_cuda.launches)
+    with _patched(hashgrid, **patch):
+        images = renderer.render_image(
+            train.create_render_fn(model), view.rays.to(device),
+            torch.Generator().manual_seed(seed + 13), cfg, height=EVAL_REF_RES,
+            width=EVAL_REF_RES, render_repeats=EVAL_REF_REPEATS, device=device)
+    return images, {k: scatter_cuda.launches[k] - before[k] for k in before}
+
+
+def _worst_output_err(images, ref):
+    """(worst relative L2 error over the outputs, its key); an output that is
+    zero in `ref` is held in absolute L2."""
+    import numpy as np
+
+    errs = {}
+    for k, r in ref.items():
+        r = np.asarray(r, np.float64)
+        d = float(np.linalg.norm(np.asarray(images[k], np.float64) - r))
+        scale = float(np.linalg.norm(r))
+        errs[k] = d / scale if scale > 0 else d
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def phase_eval_reference(torch, device, seed):
+    """The narrow cache, material and transient models of phases 7-9, the
+    same weights and draws on the GPU and the CPU, each rendering a held-out
+    view through create_render_fn + render_image with a ragged last chunk
+    and 2 repeats; every output compared, no scatter launched."""
+    from neural_radiance_caching_tpu_torch.data import datasets
+
+    for kind in ("cache", "material", "transient"):
+        cfg, _ = _eval_ref_model(torch, kind, seed, "cpu")
+        view = datasets.SyntheticSpheres("test", None, cfg, num_images=2, resolution=EVAL_REF_RES,
+                                         device="cpu").generate_ray_batch(0)
+        origins = view.rays.origins
+        nudged = view.replace(rays=view.rays.replace(
+            origins=torch.nextafter(origins, torch.full_like(origins, float("inf")))))
+        ref, n_cpu = _eval_render(torch, kind, seed, "cpu", view)
+        floor, floor_at = _worst_output_err(_eval_render(torch, kind, seed, "cpu", nudged)[0], ref)
+        images, n_gpu = _eval_render(torch, kind, seed, device, view)
+        err, err_at = _worst_output_err(images, ref)
+        faults = {f: _worst_output_err(_eval_render(torch, kind, seed, device, view, f)[0], ref)
+                  for f in ("finest level dropped", "levels reversed")}
+        tol = EVAL_REL_L2_TOL[kind]
+        ok = (sorted(images) == sorted(ref) and "rgb_variance" in ref
+              and n_cpu == n_gpu == _launch_counts() and floor <= tol and err <= tol
+              and all(v > tol for v, _ in faults.values()))
+        print(f"eval reference ({kind}): narrow {kind} model, held-out {EVAL_REF_RES}^2 view in "
+              f"chunks of {EVAL_REF_CHUNK} (last one ragged), {EVAL_REF_REPEATS} repeats, same "
+              f"weights and draws, gpu vs cpu over {len(ref)} outputs: rel_l2_err max={err:.3e} "
+              f"at {err_at} (tol {tol}; noise floor, cpu vs cpu with origins +1 ulp: "
+              f"{floor:.3e} at {floor_at}; planted in the gpu encoder forward "
+              + ", ".join(f"{f}: {v:.3e} at {at}" for f, (v, at) in faults.items())
+              + f", each must exceed the tol) scatter launches gpu={n_gpu} cpu={n_cpu} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"GPU {kind} eval render disagrees with the CPU reference")
+
+
+GATE_STEPS = 200
+# The JAX package's gate reading on a TPU v5e in round 5 (BENCH_r05.json).
+JAX_GATE_DB = 23.69
+
+
+def phase_gate(torch, device, seed, smi):
+    """The 200-step trained-PSNR gate of the full-width flagship cache model:
+    a fresh build, 200 steps at the gate's learning rate on the bench's
+    training set (8 views at 128^2), then view 0 of the held-out 64^2 set."""
+    import numpy as np
+
+    from neural_radiance_caching_tpu_torch import flagship
+    from neural_radiance_caching_tpu_torch.data import datasets
+    from neural_radiance_caching_tpu_torch.engine import trainer
+    from neural_radiance_caching_tpu_torch.ops import image, scatter_cuda
+    from neural_radiance_caching_tpu_torch.parallel import train
+
+    config = flagship.cache_config()
+    torch.manual_seed(seed)
+    model = flagship.build_flagship_cache_model(config, device=device)
+    dataset = datasets.SyntheticSpheres("train", None, config, num_images=8, resolution=128,
+                                        device=device)
+    scatter_cuda.reset_launch_count()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    db = flagship.trained_psnr_gate(model, config, dataset, steps=GATE_STEPS)
+    gate_s = time.perf_counter() - t0
+    launches = dict(scatter_cuda.launches)
+    # The same held-out view and draws through render_test_view and the
+    # eval metrics: their PSNR is the gate's before rounding.
+    test = datasets.SyntheticSpheres("test", None, config, num_images=2, resolution=64,
+                                     device=device)
+    rendering, batch = trainer.render_test_view(
+        train.create_render_fn(model), test, 0, torch.Generator(device=device).manual_seed(7),
+        config)
+    metrics = trainer.compute_eval_metrics(
+        rendering, batch, test.height, test.width, config, image.MetricHarness(disable_lpips=True),
+        lambda x: np.clip(x, 0, 1))
+    ok = (launches == _launch_counts(leveled=GATE_STEPS)
+          and abs(metrics["psnr"] - db) <= 0.005 + 1e-6)
+    print(f"gate: flagship cache model, {GATE_STEPS} steps from a fresh build (lr 0.01 -> 0.003, "
+          f"50-step delay, 16 batches of 8192 drawn ahead, SyntheticSpheres 8x128^2), then view "
+          f"0 of the held-out 2x64^2 set: trained_psnr={db:.2f} dB (floor "
+          f"{flagship.TRAINED_PSNR_FLOOR}; the JAX package reached {JAX_GATE_DB} dB on a TPU v5e "
+          f"in round 5, BENCH_r05.json: a quality reference, not a speed target) "
+          f"psnr={metrics['psnr']:.4f} ssim={metrics['ssim']:.4f} (compute_eval_metrics of the "
+          f"same view); gate wall time {gate_s:.1f}s on [{smi}]; scatter launches={launches} "
+          f"(expected leveled {GATE_STEPS}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("gate phase failed")
+    if db < flagship.TRAINED_PSNR_FLOOR:
+        raise AssertionError(f"trained PSNR {db} dB is below the floor of "
+                             f"{flagship.TRAINED_PSNR_FLOOR} dB")
+    return dict(trained_psnr_db=db, floor_db=flagship.TRAINED_PSNR_FLOOR, psnr=metrics["psnr"],
+                ssim=metrics["ssim"], gate_s=gate_s, launches=launches["leveled"])
+
+
+def _first_chunk(torch, render_fn, rays, chunk, device):
+    """The render function alone on the first `chunk` rays: (whether its
+    outputs are finite before render_image's nan_to_num, its device time in
+    ms, median of 3 by CUDA events)."""
+    from neural_radiance_caching_tpu_torch.engine import renderer
+
+    first = renderer._chunk_rays(rays, 0, chunk)
+
+    def run():
+        return render_fn(torch.Generator(device=device).manual_seed(11), 1.0, first)
+
+    finite = all(bool(torch.isfinite(v).all()) for v in run().values()
+                 if isinstance(v, torch.Tensor))
+    return finite, _cuda_ms(run, repeats=3, warmup=1)
+
+
+def _eval_render_stage(torch, model, config, test, device, n_images):
+    """bench_eval_render of `model` on view 0 of `test` with its peak memory,
+    after the render function alone on the first chunk; one line of text."""
+    from neural_radiance_caching_tpu_torch import flagship
+    from neural_radiance_caching_tpu_torch.parallel import train
+
+    finite, chunk_ms = _first_chunk(torch, train.create_render_fn(model),
+                                    test.generate_ray_batch(0).rays, config.render_chunk_size,
+                                    device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, d = flagship.bench_eval_render(model, config, test, n_images=n_images)
+    d.update(peak_gib=torch.cuda.max_memory_allocated() / 2**30, render_fn_ms=chunk_ms,
+             finite=finite)
+    full, fast = d["image_secs"], d["rgb_only_image_secs"]
+    text = (f"{test.height}^2 view = {d['rays_per_image']} rays in chunks of "
+            f"{d['render_chunk_size']}, 1 warmup + {n_images} timed images: full extras s/image "
+            f"median {statistics.median(full):.4f} (min {min(full):.4f}, max {max(full):.4f}) = "
+            f"{d['rays_per_sec']:.0f} rays/s (mean), {d['ms_per_ray']:.3e} ms/ray; rgb-only "
+            f"s/image median {statistics.median(fast):.4f} (min {min(fast):.4f}, max "
+            f"{max(fast):.4f}) = {d['rgb_only_rays_per_sec']:.0f} rays/s; the render function "
+            f"alone on one chunk (device, CUDA events, median of 3) {chunk_ms:.2f} ms; peak "
+            f"{d['peak_gib']:.2f} GiB; untrained_psnr {d['untrained_psnr']:.2f} dB (a sanity "
+            f"anchor); raw outputs finite={finite}")
+    return d, text
+
+
+def phase_eval_render(torch, device, seed, smi):
+    """Eval renders of the three full-width flagship models (untrained, fresh
+    builds) through bench_eval_render: the cache model on the 128^2 test
+    view (the JAX bench's render stage), the material model on a held-out
+    64^2 view in chunks of 1024 and then as one chunk of 4096 if it fits, the
+    transient cache model on a held-out 64^2 view as one chunk of 4096 rays x
+    700 bins."""
+    from neural_radiance_caching_tpu_torch import flagship
+    from neural_radiance_caching_tpu_torch.data import datasets
+    from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+
+    stages = (
+        ("cache", flagship.cache_config(), flagship.build_flagship_cache_model, 128, 3),
+        ("material", flagship.material_config(render_chunk_size=1024),
+         flagship.build_flagship_material_model, 64, 2),
+        ("transient", flagship.transient_config(render_chunk_size=4096),
+         flagship.build_flagship_transient_cache_model, 64, 2),
+    )
+    out = {}
+    scatter_cuda.reset_launch_count()
+    for name, config, build, res, n_images in stages:
+        torch.manual_seed(seed)
+        model = build(config, device=device)
+        test = datasets.SyntheticSpheres("test", None, config, num_images=2, resolution=res,
+                                         device=device)
+        out[name], text = _eval_render_stage(torch, model, config, test, device, n_images)
+        print(f"eval render ({name}): flagship {name} model (untrained), {text} on [{smi}]",
+              flush=True)
+        if name == "material":
+            # The JAX notes cap material renders at chunk 1024 (a 34 GB buffer at
+            # 8192); whether the whole view fits as one chunk on this card.
+            config.render_chunk_size = 4096
+            try:
+                out["material_one_chunk"], text = _eval_render_stage(
+                    torch, model, config, test, device, 1)
+            except torch.cuda.OutOfMemoryError:
+                text = "did not fit"
+                torch.cuda.empty_cache()
+            print(f"eval render (material, one chunk): {text} on [{smi}]", flush=True)
+        del model
+
+    launches = dict(scatter_cuda.launches)
+    ok = launches == _launch_counts() and all(v["finite"] for v in out.values())
+    print(f"eval render: scatter launches over every eval render={launches} (expected none) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("eval render phase failed")
+    return out
+
+
 def _profile(torch, train_step, state, rng, batches, path, steps=3):
     """Device time by kernel over `steps` steps, as a table written to `path`."""
     import pathlib
@@ -1425,6 +1725,10 @@ def main():
     leveled_path = phase_kernel_path(
         "leveled", capture, MATERIAL_LEVELS,
         "transient path's own updates (camera-ray samples of one checked step)")
+    del capture
+    phase_eval_reference(torch, device, args.seed)
+    gate = phase_gate(torch, device, args.seed, smi)
+    eval_render = phase_eval_render(torch, device, args.seed, smi)
     print(f"phases done in {time.perf_counter() - t_start:.1f}s, build included", flush=True)
 
     csrc = "neural_radiance_caching_tpu_torch/csrc"
@@ -1440,7 +1744,7 @@ def main():
               "(67 TFLOP/s), each input read once and the output written once")
     leveled_launches = {"cache_train": cache_leveled, "material_train": material["leveled"],
                         "transient_train": transient["direct"]["launches"],
-                        "transient_train_dedup": 0}
+                        "transient_train_dedup": 0, "gate": gate["launches"], "eval_render": 0}
     print(json.dumps({"kernels": [{
         "name": "scatter_add_weighted_leveled",
         "route": "cuda",
@@ -1470,7 +1774,8 @@ def main():
         "replaces": f"{replaces}:229",
         "launches": transient["dedup"]["launches"],
         "launches_by_path": {"cache_train": 0, "material_train": 0, "transient_train": 0,
-                             "transient_train_dedup": transient["dedup"]["launches"]},
+                             "transient_train_dedup": transient["dedup"]["launches"], "gate": 0,
+                             "eval_render": 0},
         "max_abs_err": max(skip["max_abs_err"], transient["dedup"]["max_abs_err"]),
         "max_abs_err_by_shape": {"transient_dedup_stream": skip["max_abs_err"],
                                  "transient_path": transient["dedup"]["max_abs_err"]},
@@ -1489,7 +1794,8 @@ def main():
         "replaces": f"{replaces}:364",
         "launches": material["planes"],
         "launches_by_path": {"cache_train": 0, "material_train": material["planes"],
-                             "transient_train": 0, "transient_train_dedup": 0},
+                             "transient_train": 0, "transient_train_dedup": 0, "gate": 0,
+                             "eval_render": 0},
         "max_abs_err": max(planes["max_abs_err"], material_err["planes"]),
         "max_abs_err_by_shape": {"planes_shape": planes["max_abs_err"],
                                  "material_path": material_err["planes"]},
@@ -1510,11 +1816,12 @@ def main():
         "launches": rows["launches"],
         "launches_by_path": {"rows_kernel_phase": rows["launches"], "cache_train": 0,
                              "material_train": 0, "transient_train": 0,
-                             "transient_train_dedup": 0},
+                             "transient_train_dedup": 0, "gate": 0, "eval_render": 0},
         **{k: v for k, v in rows.items() if k != "launches"},
     }], "timing": timing, "transient_train": {
         name: {k: v for k, v in r.items() if k != "max_abs_err"}
         for name, r in transient.items()}}), flush=True)
+    print(json.dumps({"eval": {"gate": gate, "render": eval_render, "device": smi}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,6 +5,12 @@ cache, material and transient cache slices read. The gin surface comes with
 the config engine in a later port step; until then a Config is built with
 keyword arguments.
 
+The eval fields (``render_chunk_size``, ``render_repeats``,
+``compute_depth_metrics``, ``material_normals_target``,
+``evaluate_without_masks``) are read by ``engine/renderer.py`` and
+``engine/trainer.py``; ``use_shift_invariance`` raises when set, until the
+shift-invariant metrics are ported.
+
 One field is the port's own: ``transient_shift_form`` picks how the
 transient integrator shifts and sums the per-sample indirect transients
 (``"gather"``, ``"fft"`` or ``"matmul"``, see ``ops/render.py``), per call
@@ -79,6 +85,14 @@ class Config:
     # --- Material stage ---
     secondary_normal_eps: float = 1e-2
     material_loss_radius: float = float("inf")
+    material_normals_target: str = "normals_to_use"
+
+    # --- Eval ---
+    render_chunk_size: int = 16384
+    render_repeats: int = 1
+    compute_depth_metrics: bool = True
+    use_shift_invariance: bool = False
+    evaluate_without_masks: bool = False
 
     # --- Optimization ---
     max_steps: int = 25000
@@ -150,3 +164,7 @@ class Config:
     param_regularizers: Dict[str, Any] = dataclasses.field(default_factory=dict)
     extra_losses: Dict[str, Any] = dataclasses.field(default_factory=dict)
     maximum_radiance_loss_weight: float = 0.0
+
+    def __post_init__(self):
+        if self.use_shift_invariance:
+            raise NotImplementedError("the shift-invariant eval metrics are not ported yet")

@@ -22,6 +22,13 @@ emitting 700 x 3 time bins, transient SLF), 700 bins of 0.02, the transient
 RawNeRF loss, batch 2048. ``scatter_dedup`` turns on the run-dedup of the
 density grid's table-gradient scatter.
 
+The eval path's counterparts of ``bench.py:663-771``: ``trained_psnr`` (a
+held-out view rendered through ``create_render_fn`` and ``render_image``),
+``trained_psnr_gate`` (200 real-lr steps, then that PSNR, against
+``TRAINED_PSNR_FLOOR``) and ``bench_eval_render`` (the eval-render timing).
+Unlike the JAX bench, a gate that raises is not recorded and passed over:
+the error reaches the caller, as does a reading below the floor.
+
 The builders return the model on the card unless given ``device="cpu"``,
 and raise without one. Parameters are initialised on the CPU from torch's
 default generator, so one seed gives the same weights on every device, and
@@ -30,13 +37,20 @@ then moved.
 
 from __future__ import annotations
 
+import dataclasses
+import time
+
+import numpy as np
 import torch
 
+from neural_radiance_caching_tpu_torch.data import datasets
+from neural_radiance_caching_tpu_torch.engine import renderer
 from neural_radiance_caching_tpu_torch.engine.configs import Config
 from neural_radiance_caching_tpu_torch.models.layers import softplus
 from neural_radiance_caching_tpu_torch.models.material_model import MaterialModel
 from neural_radiance_caching_tpu_torch.models.nerf_model import NeRFModel, TransientNeRFModel
 from neural_radiance_caching_tpu_torch.ops import coord
+from neural_radiance_caching_tpu_torch.parallel import train as train_lib
 from neural_radiance_caching_tpu_torch.utils import torchutil
 
 BATCH_SIZE = 8192
@@ -46,6 +60,8 @@ TRANSIENT_N_BINS = 700
 PROPOSAL_WIDTH = 256
 PRIMARY_LEVEL_CLAMP = 6
 SECONDARY_LEVEL_CLAMP = 6
+# The held-out PSNR a 200-step gate run must reach (bench.py:92).
+TRAINED_PSNR_FLOOR = 20.0
 
 
 def cache_config(**overrides):
@@ -231,3 +247,93 @@ def flagship_transient_cache_params(scatter_dedup=False):
 
 def build_flagship_transient_cache_model(config, params=None, device="cuda"):
     return _build(TransientNeRFModel, config, params or flagship_transient_cache_params(), device)
+
+
+# --- eval -----------------------------------------------------------------------
+
+
+def _psnr_db(rgb, gt):
+    mse = float(np.mean((np.clip(rgb, 0, 1) - gt) ** 2))
+    return round(-10 * np.log10(mse + 1e-12), 2)
+
+
+def trained_psnr(model, config, resolution=64, device="cuda"):
+    """PSNR of view 0 of a held-out SyntheticSpheres test set (2 views at
+    `resolution`^2), rendered by `model` as it stands; both images clipped to
+    [0, 1], rounded to 2 places."""
+    ds = datasets.SyntheticSpheres("test", None, config, num_images=2, resolution=resolution,
+                                   device=device)
+    batch = ds.generate_ray_batch(0)
+    out = renderer.render_image(
+        train_lib.create_render_fn(model), batch.rays,
+        torch.Generator(device=device).manual_seed(7), config, height=ds.height,
+        width=ds.width, train_frac=1.0, device=device)
+    gt = np.clip(batch.rgb.cpu().numpy().reshape(out["rgb"].shape), 0, 1)
+    return _psnr_db(out["rgb"], gt)
+
+
+def trained_psnr_gate(model, config, dataset, steps=200, resolution=64):
+    """Train `model` for `steps` steps at a real learning rate on `dataset`,
+    then return ``trained_psnr``: the quality check the throughput numbers
+    cannot give (an integrator or encoder fault that keeps the step time and
+    the loss shape).
+
+    `model` is trained in place, so pass a freshly built flagship cache
+    model: the JAX gate re-initialises the benched model's variables, and a
+    torch module holds its own. The schedule is lr 0.01 -> 0.003 with a
+    50-step delay over `steps`; 16 batches drawn ahead are used in turn.
+    Comparable run to run only at a fixed `steps`.
+    """
+    gate_config = dataclasses.replace(config, lr_init=0.01, lr_final=0.003, lr_delay_steps=50,
+                                      max_steps=steps)
+    state, _ = train_lib.create_optimizer(gate_config, model)
+    train_step = train_lib.create_train_step(model, gate_config)
+    batches = [dataset.next_train() for _ in range(16)]
+    rng = torch.Generator(device=dataset.device).manual_seed(5)
+    for i in range(steps):
+        state, stats = train_step(rng, state, batches[i % len(batches)], i / max(1, steps - 1))
+    float(stats["loss"])  # wait for the last step
+    return trained_psnr(model, gate_config, resolution=resolution, device=dataset.device)
+
+
+def bench_eval_render(model, config, dataset, n_images=3):
+    """Time whole-image eval renders of view 0 of `dataset` through
+    ``render_image``, host fetches included: one warmup image, then
+    `n_images` timed ones with every extra, then the same with the rgb-only
+    render function (``compute_extras=False``, ``keys=("rgb",)``).
+
+    Returns (mean s/image, detail); detail also holds each image's time and
+    the untrained PSNR, a sanity anchor that the render made an image, not
+    a quality number.
+    """
+    batch = dataset.generate_ray_batch(0)
+    num_rays = batch.rays.origins.shape[0]
+    rng = torch.Generator(device=dataset.device).manual_seed(11)
+    kwargs = dict(config=config, height=dataset.height, width=dataset.width,
+                  device=dataset.device)
+
+    def timed(render_fn, **kw):
+        renderer.render_image(render_fn, batch.rays, rng, **kwargs, **kw)
+        times, out = [], None
+        for _ in range(n_images):
+            t0 = time.perf_counter()
+            out = renderer.render_image(render_fn, batch.rays, rng, **kwargs, **kw)
+            times.append(time.perf_counter() - t0)
+        return times, out
+
+    times, out = timed(train_lib.create_render_fn(model))
+    fast_times, _ = timed(train_lib.create_render_fn(model, compute_extras=False), keys=("rgb",))
+    dt, dt_fast = float(np.mean(times)), float(np.mean(fast_times))
+    gt = batch.rgb.cpu().numpy().reshape(out["rgb"].shape)
+    return dt, {
+        "rays_per_image": int(num_rays),
+        "sec_per_image": dt,
+        "ms_per_ray": dt * 1e3 / num_rays,
+        "rays_per_sec": num_rays / dt,
+        "render_chunk_size": config.render_chunk_size,
+        "image_secs": times,
+        "rgb_only_sec_per_image": dt_fast,
+        "rgb_only_rays_per_sec": num_rays / dt_fast,
+        "rgb_only_image_secs": fast_times,
+        "untrained_psnr": _psnr_db(out["rgb"], gt),
+    }

@@ -68,8 +68,11 @@ class ProposalVolumeSampler(Configurable, nn.Module):
         if is_secondary and rays.normals is not None:
             raise NotImplementedError("the secondary-ray normal offset is not ported yet")
         if not train and is_secondary:
-            # Secondary rays of an eval render sample deterministically seeded.
-            rng = torch.Generator(device=rays.origins.device).manual_seed(0)
+            # Secondary rays of an eval render sample deterministically seeded,
+            # on the caller's generator device (so a CPU generator gives a
+            # run on the card the same draws as one on the CPU).
+            device = rays.origins.device if rng is None else rng.device
+            rng = torch.Generator(device=device).manual_seed(0)
         if sampling_strategy is None:
             sampling_strategy = self.sampling_strategy
         max_mlp = max(level[0] for level in sampling_strategy)

@@ -1,4 +1,5 @@
-"""Optimizer and train step (counterpart of ``parallel/train.py``).
+"""Optimizer, train step and eval render function (counterpart of
+``parallel/train.py``).
 
 One process, one device: the step runs eagerly on the model's device. The
 optimizer is ``torch.optim.Adam``, which places eps exactly as the JAX
@@ -191,3 +192,25 @@ def create_train_step(model, config):
         return state, stats
 
     return train_step
+
+
+def create_render_fn(model, **apply_kwargs):
+    """Eval-mode render function: (rng, train_frac, rays) -> the model's
+    ``render`` outputs, with ``train=False`` and ``compute_extras`` (default
+    True; False gives the rgb-centred outputs of a preview render).
+
+    The module holds its own parameters, so unlike the JAX function's the
+    render function takes no `variables` argument. It runs under
+    ``torch.no_grad()``: no graph is built and no output requires grad (the
+    JAX function's jit drops the graph by itself). Not under
+    ``inference_mode``, whose tensors could not enter a later train step if a
+    module kept one.
+    """
+    compute_extras = apply_kwargs.pop("compute_extras", True)
+
+    def render_fn(rng, train_frac, rays):
+        with torch.no_grad():
+            return model(rng, rays, train_frac=train_frac, train=False,
+                         compute_extras=compute_extras, **apply_kwargs)["render"]
+
+    return render_fn
