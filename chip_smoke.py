@@ -1,7 +1,8 @@
 """Bring-up check of the PyTorch port on one CUDA GPU.
 
     python3 chip_smoke.py [--seed N] [--steps N] [--material-steps N]
-                          [--transient-steps N] [--profile FILE]
+                          [--transient-steps N] [--transient-material-steps N]
+                          [--profile FILE]
 
 Phases, one line each (any failure exits nonzero):
   1. device: the card, and nvidia-smi's name and power limit;
@@ -73,12 +74,28 @@ Phases, one line each (any failure exits nonzero):
  16. eval render: bench_eval_render (full extras and rgb-only) of the
      full-width cache model on the 128^2 test view (3 timed images), of the
      material model on a held-out 64^2 view (chunks of 1024, then the whole
-     view as one chunk if it fits) and of the transient cache model on a
-     held-out 64^2 view (one chunk of 4096 rays x 700 bins; 2 timed images
+     view as one chunk if it fits), of the transient cache model on a
+     held-out 64^2 view (one chunk of 4096 rays x 700 bins) and of the
+     transient material model on that view (chunks of 1024; 2 timed images
      each): times, the render function's device time, peak memory, raw
-     outputs finite, no scatter launched.
-Then the kernels JSON line, the eval JSON line, the nvidia-smi line, and the
-result line.
+     outputs finite, no scatter launched;
+ 17. transient material reference: a narrow transient material model with
+     the flagship's structure (64 bins, the learnable light, 32 secondary
+     rays through the transient cache), the same weights and draws on the GPU
+     and the CPU, one step under the trainer's consistency binding: every
+     loss term (the consistency term included) and every gradient leaf
+     compared, the limit bracketed by a noise floor and two faults planted in
+     the leveled kernel;
+ 18. transient material train: the full-width flagship transient material
+     model, batch 512 x 700 bins on SyntheticSpheres (4 views, 64^2), in two
+     forms (the JAX bench's step with no extra loss, and the staged trainer's
+     consistency binding): one checked step each, then 3 warmup and N timed
+     steps each with gradient checkpointing in alternating blocks, then one
+     step each without it for its peak memory; losses finite, exactly the
+     parameters no loss reaches unchanged, 3 leveled launches per step and
+     no planes launch.
+Then the kernels JSON line, the eval JSON line, the transient material JSON
+line, the nvidia-smi line, and the result line.
 """
 
 from __future__ import annotations
@@ -86,6 +103,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -602,7 +620,12 @@ def _narrow_material():
     mlps = [dict(m) for m in cache["sampler_params"]["mlp_params_per_level"]]
     mlps[2].update(primary_grid_level_clamp=3, secondary_grid_level_clamp=5)
     cache["sampler_params"]["mlp_params_per_level"] = tuple(mlps)
-    params = flagship.flagship_material_params(cache)
+    return _narrow_material_shader(flagship.flagship_material_params(cache), strategy)
+
+
+def _narrow_material_shader(params, strategy):
+    """The light sampler and material shader of a material model's `params`
+    at reference-phase widths, the shader's cache queries on `strategy`."""
     grid = dict(hash_map_size=2**14, max_grid_size=512)
     params["light_sampler_params"] = dict(
         params["light_sampler_params"], net_width=32, num_components=16,
@@ -1608,12 +1631,13 @@ def _eval_render_stage(torch, model, config, test, device, n_images):
 
 
 def phase_eval_render(torch, device, seed, smi):
-    """Eval renders of the three full-width flagship models (untrained, fresh
+    """Eval renders of the four full-width flagship models (untrained, fresh
     builds) through bench_eval_render: the cache model on the 128^2 test
     view (the JAX bench's render stage), the material model on a held-out
     64^2 view in chunks of 1024 and then as one chunk of 4096 if it fits, the
     transient cache model on a held-out 64^2 view as one chunk of 4096 rays x
-    700 bins."""
+    700 bins, and the transient material model on that view in chunks of
+    1024."""
     from neural_radiance_caching_tpu_torch import flagship
     from neural_radiance_caching_tpu_torch.data import datasets
     from neural_radiance_caching_tpu_torch.ops import scatter_cuda
@@ -1624,6 +1648,8 @@ def phase_eval_render(torch, device, seed, smi):
          flagship.build_flagship_material_model, 64, 2),
         ("transient", flagship.transient_config(render_chunk_size=4096),
          flagship.build_flagship_transient_cache_model, 64, 2),
+        ("transient_material", flagship.transient_material_config(render_chunk_size=1024),
+         flagship.build_flagship_transient_material_model, 64, 2),
     )
     out = {}
     scatter_cuda.reset_launch_count()
@@ -1657,6 +1683,270 @@ def phase_eval_render(torch, device, seed, smi):
     return out
 
 
+# The transient material reference: the transient reference's 64 bins of
+# 0.25, 128 rays x 32 secondary rays, each secondary ray resampled to one
+# point (the flagship's resample_secondary).
+TRANSIENT_MATERIAL_REF_BATCH = 128
+# Transient-material gradients are held per leaf, each hash table split into
+# its levels, in relative L2 norm, between the same two readings as the
+# material model's: the noise floor (3.46e-2 on the CPU path) below the
+# limit, the planted leveled-kernel faults (1.0 and more) above it.
+TRANSIENT_MATERIAL_GRAD_REL_L2_TOL = 0.1
+# No loss reaches these parameters of the transient material model: the
+# learnable light replaces the material shader's own light power; the light
+# sampler's outputs feed only the (unused on this path) light importance
+# sampler, under a stop-gradient; the light source's position, shift and
+# dark-level offsets are constants while their optimize_* flags are off; the
+# cache shader's ambient heads are off. tests/test_torch_transient_material_
+# slice.py pins the same set against the JAX package's zero gradients.
+_TRANSIENT_MATERIAL_UNREACHED = {
+    "shader.light_power",
+    "shader.learnable_light.light_source_offset", "shader.learnable_light.transient_shift_offset",
+    "shader.learnable_light.dark_level_offset",
+    "light_sampler.layers.0.weight", "light_sampler.layers.0.bias",
+    "light_sampler.layers.1.weight", "light_sampler.layers.1.bias",
+    "light_sampler.output_layer.weight", "light_sampler.output_layer.bias",
+    "light_sampler.grid.dense_levels", "light_sampler.grid.hash_levels",
+    "cache.shader.ambient_irradiance_layer.weight", "cache.shader.ambient_irradiance_layer.bias",
+    "cache.shader.surface_lf.output_ambient_rgb_layer.weight",
+    "cache.shader.surface_lf.output_ambient_rgb_layer.bias",
+}
+# Scatter launches per transient material train step: one leveled backward
+# per encoder a loss reaches, the cache's primary samples (512 x 32 points),
+# its secondary samples (512 x 32 secondary rays x 32 samples = 524,288,
+# below the planes layout's 2^20) and the material grid (512 points). The
+# light sampler's grid gets no gradient, and the debias forward no graph.
+_TRANSIENT_MATERIAL_LAUNCHES_PER_STEP = {"leveled": 3, "leveled_skip": 0, "planes": 0, "rows": 0}
+
+
+def _narrow_transient_material():
+    """The flagship transient material structure at reference-phase widths:
+    the narrow transient cache of phase 9 with secondary-ray resampling, and
+    the narrow light sampler and material shader of phase 8."""
+    from neural_radiance_caching_tpu_torch import flagship
+
+    strategy = ((0, 0, 16), (1, 1, 16), (2, 2, 16))
+    cache = _narrow_transient(False)
+    cache["sampler_params"]["sampling_strategy"] = strategy
+    cache["train_sampling_strategy"] = cache["render_sampling_strategy"] = strategy
+    return _narrow_material_shader(flagship.flagship_transient_material_params(cache), strategy)
+
+
+def _transient_material_ref_config():
+    from neural_radiance_caching_tpu_torch import flagship
+
+    cfg = flagship.transient_material_config(
+        batch_size=TRANSIENT_MATERIAL_REF_BATCH, n_bins=TRANSIENT_REF_BINS, exposure_time=0.25,
+        lr_delay_steps=0)
+    return dataclasses.replace(cfg, extra_losses=flagship.trainer_consistency_losses(cfg))
+
+
+def _transient_material_step(torch, device, seed, batch, fault=None):
+    """One train step of the narrow transient material model, under the
+    trainer's consistency binding, on `device`; the random draws come from a
+    CPU generator, so both devices see the same numbers."""
+    from neural_radiance_caching_tpu_torch import flagship
+    from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+    from neural_radiance_caching_tpu_torch.parallel import train
+
+    cfg = _transient_material_ref_config()
+    torch.manual_seed(seed)
+    model = flagship.build_flagship_transient_material_model(
+        cfg, _narrow_transient_material(), device=device)
+    state, _ = train.create_optimizer(cfg, model)
+    before = dict(scatter_cuda.launches)
+    patch = dict(scatter_add_weighted_leveled=_planted_fault(fault)) if fault else {}
+    with _patched(scatter_cuda, **patch):
+        rng = torch.Generator().manual_seed(seed + 7)
+        _, stats = train.create_train_step(model, cfg)(rng, state, batch.to(device), 0.5)
+    losses = {k: float(torch.as_tensor(v).detach()) for k, v in stats["losses"].items()}
+    grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+    return losses, grads, {k: scatter_cuda.launches[k] - before[k] for k in before}
+
+
+def phase_transient_material_reference(torch, device, seed):
+    """Same narrow transient material model, batch and draws on the GPU and
+    the CPU, with the consistency loss under the trainer's binding."""
+    from neural_radiance_caching_tpu_torch.data import datasets
+    from neural_radiance_caching_tpu_torch.parallel import extra_losses
+
+    cfg = _transient_material_ref_config()
+    batch = datasets.SyntheticSpheres("train", None, cfg, num_images=4, resolution=32,
+                                      device="cpu").next_train()
+    origins = batch.rays.origins
+    nudged = batch.replace(rays=batch.rays.replace(
+        origins=torch.nextafter(origins, torch.full_like(origins, float("inf")))))
+    l_cpu, g_cpu, n_cpu = _transient_material_step(torch, "cpu", seed, batch)
+    reached = [k for k in g_cpu if k not in _TRANSIENT_MATERIAL_UNREACHED]
+    floor, floor_at = _worst_grad_err(
+        _transient_material_step(torch, "cpu", seed, nudged)[1], g_cpu, reached)
+    l_gpu, g_gpu, n_gpu = _transient_material_step(torch, device, seed, batch)
+    loss_errs = {k: abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-12) for k in l_cpu}
+    loss_err = max(loss_errs.values())
+    err, err_at = _worst_grad_err(g_gpu, g_cpu, reached)
+    faults = {f: _worst_grad_err(_transient_material_step(torch, device, seed, batch, f)[1],
+                                 g_cpu, reached)
+              for f in ("taps rotated", "finest level dropped")}
+    finite = all(torch.isfinite(g).all() for g in g_gpu.values())
+    tol = TRANSIENT_MATERIAL_GRAD_REL_L2_TOL
+    ok = (finite and extra_losses.CONSISTENCY in l_cpu and loss_err <= 1e-3
+          and n_cpu == _launch_counts() and n_gpu == _TRANSIENT_MATERIAL_LAUNCHES_PER_STEP
+          and floor <= tol and err <= tol and all(v > tol for v, _ in faults.values()))
+    print(f"transient material reference: narrow transient material model, batch "
+          f"{TRANSIENT_MATERIAL_REF_BATCH} x {TRANSIENT_REF_BINS} bins x 32 secondary rays, the "
+          f"trainer's consistency binding, same draws, gpu vs cpu: loss rel_err max="
+          f"{loss_err:.3e} (tol 1e-3; " + ", ".join(f"{k} {v:.2e}" for k, v in loss_errs.items())
+          + f") grad rel_l2_err max={err:.3e} at {err_at} (tol {tol}; noise floor, cpu vs cpu "
+          f"with origins +1 ulp: {floor:.3e} at {floor_at}; planted in the leveled kernel "
+          + ", ".join(f"{f}: {v:.3e} at {at}" for f, (v, at) in faults.items())
+          + f", each must exceed the tol) kernel launches gpu={n_gpu} cpu={n_cpu} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("GPU transient material path disagrees with the CPU reference path")
+    return dict(loss_rel_err=loss_err, grad_rel_l2_err=err, noise_floor=floor,
+                faults={f: v for f, (v, _) in faults.items()}, tol=tol)
+
+
+def phase_transient_material_train(torch, device, seed, steps, smi, profile=None):
+    """The full-width flagship transient material model in both forms (the
+    bench's step, the trainer's consistency binding): a checked step each,
+    then 3 warmup and `steps` timed steps each with gradient checkpointing in
+    alternating blocks (bench, trainer, trainer, bench), then one step each
+    without checkpointing for its peak memory."""
+    from neural_radiance_caching_tpu_torch import flagship
+    from neural_radiance_caching_tpu_torch.data import datasets
+    from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+    from neural_radiance_caching_tpu_torch.parallel import extra_losses, train
+
+    per_step = _TRANSIENT_MATERIAL_LAUNCHES_PER_STEP
+    t0 = time.perf_counter()
+    runs = {}
+    # The bench's step has no extra loss; the staged trainer binds the
+    # consistency loss.
+    bench_config = flagship.transient_material_config()
+    for name, extra in (("bench", {}),
+                        ("trainer", flagship.trainer_consistency_losses(bench_config))):
+        config = dataclasses.replace(bench_config, extra_losses=extra)
+        torch.manual_seed(seed)
+        model = flagship.build_flagship_transient_material_model(config, device=device)
+        state, _ = train.create_optimizer(config, model)
+        runs[name] = dict(config=config, model=model, state=state,
+                          step=train.create_train_step(model, config),
+                          before={k: v.detach().clone() for k, v in model.state_dict().items()},
+                          losses=[], consistency=[], times=[], peak=0.0, blocks=[])
+    config = runs["bench"]["config"]
+    dataset = datasets.SyntheticSpheres("train", None, config, num_images=4, resolution=64,
+                                        device=device)
+    batches = [dataset.next_train() for _ in range(8)]
+    rng = torch.Generator(device=device).manual_seed(seed + 45)
+    n_params = sum(p.numel() for p in runs["bench"]["model"].parameters())
+    setup_s = time.perf_counter() - t0
+
+    def step(run, batch):
+        run["state"], stats = run["step"](rng, run["state"], batch, 0.5)
+        run["losses"].append(stats["loss"])
+        if extra_losses.CONSISTENCY in stats["losses"]:
+            run["consistency"].append(stats["losses"][extra_losses.CONSISTENCY].detach())
+
+    # One checked step each: every scatter call of the step against its
+    # plain version on the same inputs.
+    checked = {}
+    for name, run in runs.items():
+        calls = []
+        with _patched(scatter_cuda,
+                      scatter_add_weighted_leveled=_checking_scatter("leveled", calls),
+                      scatter_add_weighted_planes=_checking_scatter("planes", calls)):
+            step(run, batches[-1])
+        checked[name] = calls
+    torch.cuda.synchronize()
+    kinds = {n: {k: sum(c["kind"] == k for c in calls) for k in per_step}
+             for n, calls in checked.items()}
+    ok = all(kinds[n] == per_step and all(c["ok"] for c in checked[n]) for n in runs)
+    print("transient material train (checked steps): each scatter of one step against its plain "
+          f"version on the same inputs, tol=|err|<={SUM_ORDER_TOL}*sum|w*ct|: "
+          + "; ".join(f"{n}: {c['kind']} idx{list(c['shape'])} max_abs_err="
+                      f"{c['max_abs_err']:.3e} {'ok' if c['ok'] else 'FAIL'}"
+                      for n, calls in checked.items() for c in calls)
+          + f" (calls {kinds}, expected {per_step} in each form) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError("a kernel disagrees with its plain version on the transient "
+                             "material path")
+
+    warmup = 3
+    for run in runs.values():
+        for i in range(warmup):
+            step(run, batches[i % len(batches)])
+    torch.cuda.synchronize()
+    block = max(1, steps // 2)
+    for bi, name in enumerate(("bench", "trainer", "trainer", "bench")):
+        run = runs[name]
+        torch.cuda.reset_peak_memory_stats()
+        scatter_cuda.reset_launch_count()
+        t0 = time.perf_counter()
+        for i in range(block):
+            step(run, batches[(bi * block + i) % len(batches)])
+        torch.cuda.synchronize()
+        run["times"].append((time.perf_counter() - t0) / block)
+        run["blocks"].append(dict(scatter_cuda.launches))
+        run["peak"] = max(run["peak"], torch.cuda.max_memory_allocated() / 2**30)
+
+    # One more step each without checkpointing: its peak memory.
+    for run in runs.values():
+        run["config"].gradient_checkpointing = False
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        step(run, batches[0])
+        torch.cuda.synchronize()
+        run["nockpt_ms"] = (time.perf_counter() - t1) * 1e3
+        run["nockpt_peak"] = torch.cuda.max_memory_allocated() / 2**30
+        run["config"].gradient_checkpointing = True
+
+    result, all_ok = {}, True
+    pinned = {k: n * block for k, n in per_step.items()}
+    for name, run in runs.items():
+        losses = [float(v) for v in run["losses"]]
+        consistency = [float(v) for v in run["consistency"]]
+        finite = all(v == v and abs(v) != float("inf") for v in losses + consistency)
+        unchanged = {k for k, v in run["model"].state_dict().items()
+                     if torch.equal(v, run["before"][k])}
+        ok = (finite and unchanged == _TRANSIENT_MATERIAL_UNREACHED
+              and bool(consistency) == (name == "trainer")
+              and all(b == pinned for b in run["blocks"]))
+        all_ok &= ok
+        dt = statistics.mean(run["times"])
+        result[name] = dict(
+            launches=sum(b["leveled"] for b in run["blocks"]), step_ms=dt * 1e3,
+            block_ms=[t * 1e3 for t in run["times"]], rays_per_s=config.batch_size / dt,
+            peak_gib=run["peak"], nockpt_ms=run["nockpt_ms"], nockpt_peak_gib=run["nockpt_peak"],
+            max_abs_err=max(c["max_abs_err"] for c in checked[name]))
+        cons_text = (f" consistency first={consistency[0]:.5f} last={consistency[-1]:.5f};"
+                     if consistency else "")
+        print(f"transient material train ({name}): flagship transient material model "
+              f"({n_params} params) batch {config.batch_size} x {config.n_bins} bins x 32 "
+              f"secondary rays, SyntheticSpheres 4x64^2, setup {setup_s:.1f}s; {warmup} warmup + "
+              f"{2 * block} timed steps with gradient checkpointing in 2 blocks alternating with "
+              f"the other form: step_ms={dt * 1e3:.2f} (blocks "
+              f"{', '.join(f'{t * 1e3:.2f}' for t in run['times'])}) rays_per_s="
+              f"{config.batch_size / dt:.1f} peak {run['peak']:.2f} GiB; one step without "
+              f"checkpointing: {run['nockpt_ms']:.1f} ms, peak {run['nockpt_peak']:.2f} GiB; on "
+              f"[{smi}]; losses finite={finite} first={losses[0]:.5f} last={losses[-1]:.5f};"
+              f"{cons_text} {len(run['before']) - len(unchanged)}/{len(run['before'])} param "
+              f"tensors changed, unchanged={sorted(unchanged)} (expected the "
+              f"{len(_TRANSIENT_MATERIAL_UNREACHED)} no loss reaches); scatter launches per "
+              f"block={run['blocks']} (expected {pinned}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not all_ok:
+        raise AssertionError("transient material train phase failed")
+    if profile:
+        path = str(profile)
+        stem, dot, ext = path.rpartition(".")
+        run = runs["trainer"]
+        _profile(torch, run["step"], run["state"], rng, batches,
+                 f"{stem}.transient_material.{ext}" if dot else path + ".transient_material",
+                 steps=2)
+    return result
+
+
 def _profile(torch, train_step, state, rng, batches, path, steps=3):
     """Device time by kernel over `steps` steps, as a table written to `path`."""
     import pathlib
@@ -1683,9 +1973,12 @@ def main():
                         help="timed material train steps")
     parser.add_argument("--transient-steps", type=int, default=10,
                         help="timed transient train steps of each run (direct, dedup)")
+    parser.add_argument("--transient-material-steps", type=int, default=10,
+                        help="timed transient material train steps of each form (bench, trainer)")
     parser.add_argument("--profile", metavar="FILE",
                         help="also profile train steps and write the op tables to FILE "
-                             "(cache), and FILE with .material or .transient before its suffix")
+                             "(cache), and FILE with .material, .transient or "
+                             ".transient_material before its suffix")
     args = parser.parse_args()
 
     import torch
@@ -1729,6 +2022,10 @@ def main():
     phase_eval_reference(torch, device, args.seed)
     gate = phase_gate(torch, device, args.seed, smi)
     eval_render = phase_eval_render(torch, device, args.seed, smi)
+    tmat_reference = phase_transient_material_reference(torch, device, args.seed)
+    tmat = phase_transient_material_train(torch, device, args.seed, args.transient_material_steps,
+                                          smi, args.profile)
+    tmat_launches = sum(r["launches"] for r in tmat.values())
     print(f"phases done in {time.perf_counter() - t_start:.1f}s, build included", flush=True)
 
     csrc = "neural_radiance_caching_tpu_torch/csrc"
@@ -1744,7 +2041,8 @@ def main():
               "(67 TFLOP/s), each input read once and the output written once")
     leveled_launches = {"cache_train": cache_leveled, "material_train": material["leveled"],
                         "transient_train": transient["direct"]["launches"],
-                        "transient_train_dedup": 0, "gate": gate["launches"], "eval_render": 0}
+                        "transient_train_dedup": 0, "gate": gate["launches"], "eval_render": 0,
+                        "transient_material": tmat_launches}
     print(json.dumps({"kernels": [{
         "name": "scatter_add_weighted_leveled",
         "route": "cuda",
@@ -1753,10 +2051,13 @@ def main():
         "launches": sum(leveled_launches.values()),
         "launches_by_path": leveled_launches,
         "max_abs_err": max(kernel["max_abs_err"], material_err["leveled"],
-                           transient["direct"]["max_abs_err"]),
+                           transient["direct"]["max_abs_err"],
+                           *(r["max_abs_err"] for r in tmat.values())),
         "max_abs_err_by_shape": {"cache": kernel["max_abs_err"],
                                  "material_path": material_err["leveled"],
                                  "transient_path": transient["direct"]["max_abs_err"],
+                                 "transient_material_path": max(
+                                     r["max_abs_err"] for r in tmat.values()),
                                  "planes_shape": planes["leveled_max_abs_err"]},
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
@@ -1775,7 +2076,7 @@ def main():
         "launches": transient["dedup"]["launches"],
         "launches_by_path": {"cache_train": 0, "material_train": 0, "transient_train": 0,
                              "transient_train_dedup": transient["dedup"]["launches"], "gate": 0,
-                             "eval_render": 0},
+                             "eval_render": 0, "transient_material": 0},
         "max_abs_err": max(skip["max_abs_err"], transient["dedup"]["max_abs_err"]),
         "max_abs_err_by_shape": {"transient_dedup_stream": skip["max_abs_err"],
                                  "transient_path": transient["dedup"]["max_abs_err"]},
@@ -1795,7 +2096,7 @@ def main():
         "launches": material["planes"],
         "launches_by_path": {"cache_train": 0, "material_train": material["planes"],
                              "transient_train": 0, "transient_train_dedup": 0, "gate": 0,
-                             "eval_render": 0},
+                             "eval_render": 0, "transient_material": 0},
         "max_abs_err": max(planes["max_abs_err"], material_err["planes"]),
         "max_abs_err_by_shape": {"planes_shape": planes["max_abs_err"],
                                  "material_path": material_err["planes"]},
@@ -1816,12 +2117,19 @@ def main():
         "launches": rows["launches"],
         "launches_by_path": {"rows_kernel_phase": rows["launches"], "cache_train": 0,
                              "material_train": 0, "transient_train": 0,
-                             "transient_train_dedup": 0, "gate": 0, "eval_render": 0},
+                             "transient_train_dedup": 0, "gate": 0, "eval_render": 0,
+                             "transient_material": 0},
         **{k: v for k, v in rows.items() if k != "launches"},
     }], "timing": timing, "transient_train": {
         name: {k: v for k, v in r.items() if k != "max_abs_err"}
         for name, r in transient.items()}}), flush=True)
     print(json.dumps({"eval": {"gate": gate, "render": eval_render, "device": smi}}), flush=True)
+    print(json.dumps({"transient_material": {
+        "train": {name: {k: v for k, v in r.items() if k != "max_abs_err"}
+                  for name, r in tmat.items()},
+        "reference": tmat_reference, "eval_render": eval_render["transient_material"],
+        "leveled_launches_per_step": _TRANSIENT_MATERIAL_LAUNCHES_PER_STEP["leveled"],
+        "device": smi}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Torch-side ``Config`` (counterpart of ``engine/configs.py``).
 
 Same field names and defaults as the JAX ``Config``, for the fields the
-cache, material and transient cache slices read. The gin surface comes with
+cache, material, transient cache and transient material slices read. The
+gin surface comes with
 the config engine in a later port step; until then a Config is built with
 keyword arguments.
 
@@ -67,6 +68,9 @@ class Config:
     use_itof: bool = False
     transient_gauss_sigma_scales: List[Any] = dataclasses.field(default_factory=list)
     light_source_position: Optional[List[float]] = None
+    dark_level_multiplier: float = 1.0
+    transient_shift_multiplier: float = 1.0
+    light_pos_multiplier: float = 1.0
     transient_shift_form: str = "fft"
 
     # --- Active lighting ---
@@ -162,8 +166,29 @@ class Config:
     eikonal_loss_mult: float = 0.0
     eikonal_coarse_loss_mult: float = 0.0
     param_regularizers: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # {loss_name: {output_key: {"mult": float, "start_frac": float}}}; only
+    # "direct_indirect_consistency" is ported (parallel/extra_losses.py).
     extra_losses: Dict[str, Any] = dataclasses.field(default_factory=dict)
     maximum_radiance_loss_weight: float = 0.0
+    normalize_weight_loss_weight: float = 0.0
+    material_correlation_weight_albedo: float = 0.0
+    material_correlation_weight_other: float = 0.0
+    extra_ray_loss_mult: float = 0.0
+
+    # --- Cache/material consistency (the direct_indirect_consistency loss) ---
+    # loss_weight is the multiplier the staged trainer binds into
+    # extra_losses (flagship.trainer_consistency_losses).
+    cache_consistency_loss_type: str = "charb"
+    cache_consistency_use_integrated: bool = True
+    cache_consistency_loss_weight: float = 0.0
+    cache_consistency_stopgrad_weight_cache: float = 1.0
+    cache_consistency_stopgrad_weight_material: float = 0.0
+    cache_consistency_direct_weight: float = 1.0
+    cache_consistency_indirect_weight: float = 1.0
+    use_consistency_weight_ease: bool = False
+    consistency_weight_ease_frac: float = 0.0
+    consistency_weight_ease_start: float = 0.0
+    consistency_weight_ease_min: float = 0.0
 
     def __post_init__(self):
         if self.use_shift_invariance:

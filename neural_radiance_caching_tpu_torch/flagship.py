@@ -1,9 +1,10 @@
-"""The flagship cache-, material- and transient-cache-stage configurations
-(counterpart of ``_cache_config``, ``flagship_cache_params``,
-``build_flagship_cache_model``, the material config of ``_main_default``,
-``build_flagship_material_model``, the transient config of
-``_main_default`` and ``build_flagship_transient_cache_model`` in
-``bench.py``).
+"""The flagship cache-, material-, transient-cache- and
+transient-material-stage configurations (counterpart of ``_cache_config``,
+``flagship_cache_params``, ``build_flagship_cache_model``, the material
+config of ``_main_default``, ``build_flagship_material_model``, the
+transient configs of ``_main_default``,
+``build_flagship_transient_cache_model`` and
+``build_flagship_transient_material_model`` in ``bench.py``).
 
 Cache: two IPE proposal MLPs (4 x 256, bf16), a final 2 x 64 DensityMLP on
 an 8-level simplex hash pyramid (16..2048, T = 2^19, F = 4, primary-ray clamp
@@ -21,6 +22,14 @@ Transient cache (InvProp): the cache with an actively lit TransientNeRFMLP
 emitting 700 x 3 time bins, transient SLF), 700 bins of 0.02, the transient
 RawNeRF loss, batch 2048. ``scatter_dedup`` turns on the run-dedup of the
 density grid's table-gradient scatter.
+
+Transient material (InvProp inverse rendering): that transient cache with
+secondary-ray resampling, the LightMLP, and a TransientMaterialMLP (the
+material shader's structure, with the active light: one direct lobe toward
+the learnable light source and the indirect lobes' 32 secondary rays
+through the transient cache), batch 512 x 700 bins. The bench's step has no
+extra loss; the staged trainer binds the cache-consistency loss
+(``trainer_consistency_losses``), which is the stage users run.
 
 The eval path's counterparts of ``bench.py:663-771``: ``trained_psnr`` (a
 held-out view rendered through ``create_render_fn`` and ``render_image``),
@@ -47,7 +56,8 @@ from neural_radiance_caching_tpu_torch.data import datasets
 from neural_radiance_caching_tpu_torch.engine import renderer
 from neural_radiance_caching_tpu_torch.engine.configs import Config
 from neural_radiance_caching_tpu_torch.models.layers import softplus
-from neural_radiance_caching_tpu_torch.models.material_model import MaterialModel
+from neural_radiance_caching_tpu_torch.models.material_model import (MaterialModel,
+                                                                    TransientMaterialModel)
 from neural_radiance_caching_tpu_torch.models.nerf_model import NeRFModel, TransientNeRFModel
 from neural_radiance_caching_tpu_torch.ops import coord
 from neural_radiance_caching_tpu_torch.parallel import train as train_lib
@@ -56,6 +66,7 @@ from neural_radiance_caching_tpu_torch.utils import torchutil
 BATCH_SIZE = 8192
 MATERIAL_BATCH_SIZE = 1536
 TRANSIENT_BATCH_SIZE = 2048
+TRANSIENT_MATERIAL_BATCH_SIZE = 512
 TRANSIENT_N_BINS = 700
 PROPOSAL_WIDTH = 256
 PRIMARY_LEVEL_CLAMP = 6
@@ -247,6 +258,45 @@ def flagship_transient_cache_params(scatter_dedup=False):
 
 def build_flagship_transient_cache_model(config, params=None, device="cuda"):
     return _build(TransientNeRFModel, config, params or flagship_transient_cache_params(), device)
+
+
+def transient_material_config(**overrides):
+    """The flagship transient material-stage Config: the transient cache
+    Config with the material stage's overrides. It sets the consistency
+    loss's weight and type, which only an ``extra_losses`` binding reads:
+    pass ``extra_losses=trainer_consistency_losses(config)`` for the staged
+    trainer's step."""
+    fields = dict(
+        batch_size=TRANSIENT_MATERIAL_BATCH_SIZE, secondary_far=4.0, material_loss_radius=4.0,
+        use_gradient_debias=True, gradient_checkpointing=True,
+        cache_consistency_loss_weight=1.0, cache_consistency_loss_type="mse_unbiased",
+        distortion_loss_mult=0.0, predicted_normal_loss_mult=0.0,
+        predicted_normal_reverse_loss_mult=0.0,
+    )
+    fields.update(overrides)
+    return transient_config(**fields)
+
+
+def trainer_consistency_losses(config):
+    """The staged trainer's ``extra_losses`` binding of the consistency loss
+    for a material stage (engine/trainer.py:293-299), weighted by
+    ``config.cache_consistency_loss_weight``."""
+    return {"direct_indirect_consistency": {
+        "main": {"mult": config.cache_consistency_loss_weight, "start_frac": 0.0}}}
+
+
+def flagship_transient_material_params(cache_params=None):
+    """TransientMaterialModel keyword arguments: the flagship material model's
+    over the transient cache (secondary-ray resampling on), with the active
+    and indirect material shader."""
+    params = flagship_material_params(cache_params or flagship_transient_cache_params())
+    params["shader_params"] = dict(params["shader_params"], use_active=True, use_indirect=True)
+    return params
+
+
+def build_flagship_transient_material_model(config, params=None, device="cuda"):
+    return _build(TransientMaterialModel, config, params or flagship_transient_material_params(),
+                  device)
 
 
 # --- eval -----------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Volume integrators: composite shader samples into per-ray renderings
 (counterpart of ``VolumeIntegrator`` and ``TransientVolumeIntegrator`` in
-``models/integrator.py``), for the cache, the material pass and the
-transient cache; the colour correction net, random backgrounds and the
-learnable light of a material model are not ported yet."""
+``models/integrator.py``), for the cache, the material pass, the transient
+cache and the transient material pass; the colour correction net and random
+backgrounds are not ported yet."""
 
 from __future__ import annotations
 
@@ -70,11 +70,14 @@ class VolumeIntegrator(Configurable, nn.Module):
 class TransientVolumeIntegrator(VolumeIntegrator):
     """Time-resolved compositing: [..., n_bins, C] renderings.
 
-    The transient shift and dark level are the Config's constants
-    (``transient_shift``, 0): a cache stage has no material model whose
-    learnable light could supply them. Secondary rays get neither, nor the
-    impulse filter when ``filter_indirect`` is set. The indirect shift form
-    is ``Config.transient_shift_form``.
+    The transient shift and dark level come from the learnable light of the
+    material model passed as `radiance_cache` (its shader's
+    ``learnable_light``) when ``Config.learnable_light`` is set, and are the
+    Config's constants (``transient_shift``, 0) otherwise, as for a cache
+    stage. Under ``material=True`` (the material integrator) both are
+    detached, so only the cache's renderings train them. Secondary rays get
+    neither, nor the impulse filter when ``filter_indirect`` is set. The
+    indirect shift form is ``Config.transient_shift_form``.
     """
 
     def forward(self, rng, rays, shader_results, train_frac=1.0, train=True,
@@ -87,11 +90,14 @@ class TransientVolumeIntegrator(VolumeIntegrator):
             raise NotImplementedError("random backgrounds are not ported yet")
         cfg = self.config
         if cfg.learnable_light and radiance_cache is not None:
-            raise NotImplementedError("the learnable light of a material model is not ported yet")
-        # `material` would stop the gradient of the shift and dark level,
-        # which are constants here.
-        del material
-        transient_shift, dark_level = cfg.transient_shift, 0.0
+            light = radiance_cache.shader.learnable_light
+            transient_shift, dark_level = light.get_transient_shift(), light.get_dark_level()
+        else:
+            transient_shift, dark_level = cfg.transient_shift, 0.0
+        if material:
+            transient_shift, dark_level = (
+                v.detach() if isinstance(v, torch.Tensor) else v
+                for v in (transient_shift, dark_level))
         filter_primary = not is_secondary or not cfg.filter_indirect
         extras_keys = _EXTRAS_TO_RENDER if compute_extras else _EXTRAS_TO_ALWAYS_RENDER
         rendering = render.volumetric_transient_rendering(

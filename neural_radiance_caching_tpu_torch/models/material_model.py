@@ -1,20 +1,31 @@
-"""Material model: cache pass -> resample to surface points -> material pass
-(counterpart of ``MaterialModel`` in ``models/material_model.py``).
+"""Material models: cache pass -> resample to surface points -> material pass
+(counterpart of ``BaseMaterialModel``, ``MaterialModel`` and
+``TransientMaterialModel`` in ``models/material_model.py``).
 
 One forward:
-  1. cache pass: the full NeRFModel render, the ``cache_main`` loss target;
+  1. cache pass: the full cache render, the ``cache_main`` loss target;
   2. the cache's final samples resampled to num_resample surface points,
      and the cache shader run there (the consistency targets);
   3. vMF light sampling at the surface points (``LightMLP``);
-  4. material pass: ``MaterialMLP`` fires secondary rays into the cache, its
-     outputs are composited by the material integrator (the ``main``
-     target), and the cache is rendered again at the surface points for the
-     cache-consistency integrator.
+  4. material pass: the material shader fires secondary rays into the
+     cache, its outputs are composited by the material integrator (the
+     ``main`` target), and the cache is rendered again at the surface points
+     for the cache-consistency integrator.
+
+The model passes itself as ``radiance_cache`` to the cache's passes, the
+cache shader, the secondary-ray queries and both integrators, as the JAX
+model does: that is how the transient integrators find the learnable light
+(the shift and dark level) on the material shader.
+
+``MaterialModel`` is the steady model (``MaterialMLP`` over a
+``NeRFModel``); ``TransientMaterialModel`` is InvProp's
+(``TransientMaterialMLP`` over a ``TransientNeRFModel``, composited by a
+``TransientVolumeIntegrator``).
 
 Not ported yet (they raise): the model without a light sampler, the SLF
-and volume control variates, ground-truth and learnable lights, and the
-transient material model. The sub-module bypass passes, vignetting and
-shared materials are not ported either (their options are unknown here).
+and volume control variates, ground-truth lights and a light power shared
+with the cache. The sub-module bypass passes, vignetting and shared
+materials are not ported either (their options are unknown here).
 """
 
 from __future__ import annotations
@@ -34,8 +45,13 @@ def _detach_dict(d):
     return {k: (v.detach() if isinstance(v, torch.Tensor) else v) for k, v in d.items()}
 
 
-class MaterialModel(nerf_model.Model):
-    """Steady-state material model over a radiance cache."""
+class BaseMaterialModel(nerf_model.Model):
+    """Material model over a radiance cache; the variants pick the cache,
+    shader and integrator classes."""
+
+    _cache_cls = None
+    _shader_cls = None
+    _integrator_cls = None
 
     cache_model_params = None
     light_sampler_params = None
@@ -57,21 +73,22 @@ class MaterialModel(nerf_model.Model):
     stopgrad_geometry_feature_weight_consistency = 0.0
     stopgrad_geometry_normals_weight_consistency = 0.0
     slf_variate = True
+    share_light_power = False
 
     def __init__(self, config=None, **kwargs):
         self._init_model(config, kwargs)
-        self._require(use_light_sampler=True, slf_variate=False)
+        self._require(use_light_sampler=True, slf_variate=False, share_light_power=False)
         if config.volume_variate_material:
             raise NotImplementedError("the material volume variate is not ported yet")
-        self.cache = nerf_model.NeRFModel(
+        self.cache = self._cache_cls(
             config=config, use_surface_light_field=self.use_surface_light_field,
             **dict(self.cache_model_params or {}), **dict(self.extra_model_params or {}))
         self.light_sampler = light_sampler_lib.LightMLP(
             config=config, **dict(self.light_sampler_params or {}))
-        self.shader = material_shader.MaterialMLP(
+        self.shader = self._shader_cls(
             config=config, use_surface_light_field=self.use_surface_light_field,
             **dict(self.shader_params or {}))
-        self.integrator = integrator_lib.VolumeIntegrator(
+        self.integrator = self._integrator_cls(
             config=config, **dict(self.integrator_params or {}))
 
     _CACHE_MAIN_KEYS = ("sampler", "filtered_sampler_inds", "geometry", "shader", "integrator")
@@ -90,7 +107,7 @@ class MaterialModel(nerf_model.Model):
         key, rng = torchutil.random_split(rng)
         cache_out = self.cache(key, rays, train_frac=train_frac, train=train,
                                cache_outputs=cache_outputs, compute_extras=compute_extras,
-                               **render_kwargs)["main"]
+                               radiance_cache=self, **render_kwargs)["main"]
         cache_outputs = {k: cache_out[k] for k in self._CACHE_MAIN_KEYS}
         cache_outputs.update(loss_weight=self.cache_loss_weight, loss_type=self.cache_loss,
                              linear_to_srgb=self.cache_linear_to_srgb)
@@ -145,7 +162,7 @@ class MaterialModel(nerf_model.Model):
         cache_shader_results = self.cache.shader(
             rng=key, rays=rays, sampler_results=filtered_cache,
             filtered_sampler_results=filtered_cache, train_frac=train_frac, train=train,
-            is_secondary=False)
+            is_secondary=False, radiance_cache=self)
         filtered_material["occ"] = cache_shader_results["occ"].detach()
         return filtered_material, cache_shader_results
 
@@ -160,7 +177,7 @@ class MaterialModel(nerf_model.Model):
         key, rng = torchutil.random_split(rng)
         material_integrator_results = self.integrator(
             rng=key, shader_results=material_shader_results, compute_extras=compute_extras,
-            compute_distance=False, **shared)
+            compute_distance=False, material=True, radiance_cache=self, **shared)
         # The material integrator never re-derives depth: distances come from
         # the cache's own integration.
         for k, v in cache_outputs["integrator"].items():
@@ -173,7 +190,8 @@ class MaterialModel(nerf_model.Model):
         key, rng = torchutil.random_split(rng)
         _, cache_consistency_integrator_results = self.cache.apply_shader_and_integrator(
             key, rays, filtered,
-            self._consistency_stopgrad_map(), train, train_frac, False, None)
+            self._consistency_stopgrad_map(), train, train_frac, False, None,
+            radiance_cache=self)
 
         material_outputs = dict(
             loss_weight=self.loss_weight, loss_type=self.loss, linear_to_srgb=self.linear_to_srgb,
@@ -208,5 +226,21 @@ class MaterialModel(nerf_model.Model):
         # The material lossmult is constant-true, as in the JAX model (whose
         # normal/radius thresholds are dead); the shader's radius mask gates
         # material supervision.
-        render["lossmult"] = torch.ones_like(render["rgb"][..., :1], dtype=torch.bool)
+        render["lossmult"] = torch.ones_like(cache_integrator["acc"][..., None], dtype=torch.bool)
         return outputs
+
+
+class MaterialModel(BaseMaterialModel):
+    """Steady-state material model over a radiance cache."""
+
+    _cache_cls = nerf_model.NeRFModel
+    _shader_cls = material_shader.MaterialMLP
+    _integrator_cls = integrator_lib.VolumeIntegrator
+
+
+class TransientMaterialModel(BaseMaterialModel):
+    """InvProp's time-resolved material model over a transient cache."""
+
+    _cache_cls = nerf_model.TransientNeRFModel
+    _shader_cls = material_shader.TransientMaterialMLP
+    _integrator_cls = integrator_lib.TransientVolumeIntegrator

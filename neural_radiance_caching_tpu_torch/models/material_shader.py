@@ -1,17 +1,27 @@
-"""Physically-based material shader (counterpart of ``BaseMaterialMLP`` and
-``MaterialMLP`` in ``models/material_shader.py``).
+"""Physically-based material shaders (counterpart of ``BaseMaterialMLP``,
+``MaterialMLP`` and ``TransientMaterialMLP`` in ``models/material_shader.py``).
 
 Predicts microfacet BRDF parameters from the shader's own hash grid, then
 estimates outgoing radiance by importance-sampling secondary rays for the
 specular and diffuse lobes with MIS, tracing them through the full radiance
 cache, and Monte-Carlo integrating the clipped products.
 
-Ported: the steady, passive path the flagship material stage runs: the
-indirect lobes fused into one cache query, the microfacet material head with
-per-property bias/activation/stop-gradient, the radius mask. The active
-light, environment maps, surface-light-field queries and variates, BRDF
-correction, emission, residual albedo, irradiance cache and the per-lobe
-(unfused) path are not ported yet and raise.
+``MaterialMLP`` is the steady, passive path the flagship material stage runs:
+the indirect lobes fused into one cache query, the microfacet material head
+with per-property bias/activation/stop-gradient, the radius mask.
+
+``TransientMaterialMLP`` (InvProp) adds the active light: one direct lobe
+toward the light (one sample traced with the active sampler, shared by the
+specular and diffuse lobes), lit by the material model's learnable light
+source (``LightSourceMap``, with ``Config.learnable_light``) or by a point
+light of the shader's own power, and occluded by the cache's stored
+occlusion. The indirect lobes' radiance from the transient cache is
+time-binned, [P, S, bins, C], and so are the indirect outputs; the direct
+ones are not, and ``rgb`` is the direct radiance.
+
+Environment maps, surface-light-field queries and variates, BRDF correction,
+emission, residual albedo, the irradiance cache, the per-lobe (unfused) path,
+cone lights and structured light are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -20,6 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from neural_radiance_caching_tpu_torch.models import light_sampler as light_sampler_lib
 from neural_radiance_caching_tpu_torch.models import shading
 from neural_radiance_caching_tpu_torch.models.layers import Dense, softplus
 from neural_radiance_caching_tpu_torch.ops import render_utils
@@ -41,28 +52,52 @@ _DEFAULT_BRDF_STOPGRAD = {
 }
 
 
-def _steady_integration_strategy():
-    """Output key -> (lobe sub-keys summed, scale), for the passive path."""
-    return {
-        "indirect_occ": (("indirect_specular_indirect_occ",), 0.5),
-        "radiance_out": (("direct_diffuse_radiance_out", "direct_specular_radiance_out",
-                          "indirect_diffuse_radiance_out", "indirect_specular_radiance_out"), 1.0),
-        "direct_radiance_out": (("direct_diffuse_radiance_out",
-                                 "direct_specular_radiance_out"), 1.0),
-        "indirect_radiance_out": (("indirect_diffuse_radiance_out",
-                                   "indirect_specular_radiance_out"), 1.0),
-        "diffuse_radiance_out": (("direct_diffuse_radiance_out",
-                                  "indirect_diffuse_radiance_out"), 1.0),
-        "specular_radiance_out": (("direct_specular_radiance_out",
-                                   "indirect_specular_radiance_out"), 1.0),
-        "direct_diffuse_radiance_out": (("direct_diffuse_radiance_out",), 1.0),
-        "direct_specular_radiance_out": (("direct_specular_radiance_out",), 1.0),
-        "indirect_diffuse_radiance_out": (("indirect_diffuse_radiance_out",), 1.0),
-        "indirect_specular_radiance_out": (("indirect_specular_radiance_out",), 1.0),
-        "irradiance": (("direct_diffuse_irradiance", "indirect_diffuse_irradiance"), 0.5),
-        "direct_irradiance": (("direct_diffuse_irradiance",), 1.0),
-        "indirect_irradiance": (("indirect_diffuse_irradiance",), 1.0),
-    }
+def _steady_integration_strategy(use_active):
+    """Output key -> ((lobe sub-key, dims it is summed over), ...), scale."""
+    def s(*keys):
+        return tuple((k, ()) for k in keys)
+
+    extra = {"occ": (s("direct_diffuse_occ"), 1.0)} if use_active else {}
+    return dict(
+        **extra,
+        indirect_occ=(s("indirect_specular_indirect_occ"), 0.5),
+        radiance_out=(s("direct_diffuse_radiance_out", "direct_specular_radiance_out",
+                        "indirect_diffuse_radiance_out", "indirect_specular_radiance_out"), 1.0),
+        direct_radiance_out=(s("direct_diffuse_radiance_out", "direct_specular_radiance_out"), 1.0),
+        indirect_radiance_out=(s("indirect_diffuse_radiance_out",
+                                 "indirect_specular_radiance_out"), 1.0),
+        diffuse_radiance_out=(s("direct_diffuse_radiance_out", "indirect_diffuse_radiance_out"),
+                              1.0),
+        specular_radiance_out=(s("direct_specular_radiance_out",
+                                 "indirect_specular_radiance_out"), 1.0),
+        direct_diffuse_radiance_out=(s("direct_diffuse_radiance_out"), 1.0),
+        direct_specular_radiance_out=(s("direct_specular_radiance_out"), 1.0),
+        indirect_diffuse_radiance_out=(s("indirect_diffuse_radiance_out"), 1.0),
+        indirect_specular_radiance_out=(s("indirect_specular_radiance_out"), 1.0),
+        irradiance=(s("direct_diffuse_irradiance", "indirect_diffuse_irradiance"), 0.5),
+        direct_irradiance=(s("direct_diffuse_irradiance"), 1.0),
+        indirect_irradiance=(s("indirect_diffuse_irradiance"), 1.0),
+    )
+
+
+def _transient_integration_strategy():
+    """The active steady table, with the bins axis of the indirect lobes
+    summed where a total meets a direct (unbinned) term."""
+    strategy = _steady_integration_strategy(use_active=True)
+    bins = (-2,)
+    strategy.update(
+        radiance_out=((("direct_diffuse_radiance_out", ()), ("direct_specular_radiance_out", ()),
+                       ("indirect_diffuse_radiance_out", bins),
+                       ("indirect_specular_radiance_out", bins)), 1.0),
+        diffuse_radiance_out=((("direct_diffuse_radiance_out", ()),
+                               ("indirect_diffuse_radiance_out", bins)), 1.0),
+        specular_radiance_out=((("direct_specular_radiance_out", ()),
+                                ("indirect_specular_radiance_out", bins)), 1.0),
+        irradiance=((("direct_diffuse_irradiance", ()), ("indirect_diffuse_irradiance", bins)),
+                    0.5),
+        indirect_irradiance=((("indirect_diffuse_irradiance", bins),), 1.0),
+    )
+    return strategy
 
 
 def _fuse_lobe_rays(spec_rays, diff_rays, ns):
@@ -80,8 +115,9 @@ def _fuse_lobe_rays(spec_rays, diff_rays, ns):
     return type(spec_rays)(**fields)
 
 
-class MaterialMLP(shading.BaseShader):
-    """Steady material shader: BRDF head + secondary rays through the cache."""
+class BaseMaterialMLP(shading.BaseShader):
+    """BRDF head + secondary rays through the cache; the variants set the
+    lighting (passive or active) and the integration table."""
 
     num_secondary_samples_diff = 4
     num_secondary_samples = 32
@@ -125,19 +161,23 @@ class MaterialMLP(shading.BaseShader):
     cache_render_sampling_strategy = None
     optimize_light = True
     light_power_bias = 200.0
+    light_power_activation = staticmethod(torch.abs)
+    light_max_angle = 0.0
+    stopgrad_direct_weight = 1.0
+    stopgrad_indirect_weight = 1.0
     rgb_max = float("inf")
 
     def __init__(self, config=None, density_feature_dim=0, **kwargs):
         super().__init__(config, **kwargs)
-        self._require(use_active=False, use_env_map=False, use_surface_light_field=False,
+        self._require(use_env_map=False, use_surface_light_field=False,
                       use_brdf_correction=False, use_diffuse_emission=False,
                       use_residual_albedo=False, use_irradiance_cache=False,
                       separate_integration_diffuse_specular=True, use_indirect=True)
-        if config.multi_illumination or config.learnable_light or config.use_transient:
-            raise NotImplementedError(
-                "multi-illumination, learnable lights and transient materials are not ported yet")
+        if config.multi_illumination:
+            raise NotImplementedError("multi-illumination materials are not ported yet")
         if config.compute_relight_metrics or config.use_ground_truth_illumination:
             raise NotImplementedError("ground-truth illumination samplers are not ported yet")
+        self._check_variant(config)
         feature_dim = self._build_trunk(density_feature_dim)
         if self.bottleneck_width > 0:
             self.bottleneck_layer = Dense(feature_dim, self.bottleneck_width, self.compute_dtype)
@@ -145,6 +185,8 @@ class MaterialMLP(shading.BaseShader):
         self.pred_brdf_layer = Dense(feature_dim, 10, self.compute_dtype)
         if self.optimize_light:
             self.light_power = nn.Parameter(torch.full((1,), float(self.light_power_bias)))
+        if config.learnable_light:
+            self.learnable_light = light_sampler_lib.LightSourceMap(config=config)
 
         def make(confs):
             return [(render_utils.IMPORTANCE_SAMPLER_BY_NAME[name](), count)
@@ -156,7 +198,14 @@ class MaterialMLP(shading.BaseShader):
             ("diffuse", True): make(self.diffuse_importance_sampler_configs),
             ("diffuse", False): make(self.diffuse_render_importance_sampler_configs),
         }
-        self._integration_strategy = _steady_integration_strategy()
+        self._active_samplers = make((("active", 1),))
+        self._integration_strategy = self._build_integration_strategy()
+
+    def _check_variant(self, config):
+        raise NotImplementedError
+
+    def _build_integration_strategy(self):
+        raise NotImplementedError
 
     # --- material decode -------------------------------------------------------
 
@@ -208,9 +257,15 @@ class MaterialMLP(shading.BaseShader):
             return float(w * f32(self.near_min) + (f32(1) - w) * f32(self.near_max))
         return self.near_min
 
+    def _radius_mask(self, points):
+        """1 where `points` lie inside the scene radius, else 0 ([..., 1])."""
+        return (torch.linalg.norm(points, dim=-1, keepdim=True)
+                < self.config.material_loss_radius).to(torch.float32)
+
     def _make_radiance_cache_fn(self, radiance_cache, train_frac, train):
         """Closure that traces secondary rays [N, S] through the full cache
-        model, flattened to one ray axis for the cache forward."""
+        model, flattened to one ray axis for the cache forward; the radiance
+        comes back as [N, S, C], or [N, S, bins, C] from a transient cache."""
 
         def radiance_cache_fn(rng, ref_rays):
             lead = tuple(ref_rays.origins.shape[:-1])
@@ -226,11 +281,15 @@ class MaterialMLP(shading.BaseShader):
                 compute_extras=False, stopgrad_proposal=False, stopgrad_weights=False,
                 is_secondary=True, linear_rgb=True, resample=True,
                 sampling_strategy=(self.cache_train_sampling_strategy if train
-                                   else self.cache_render_sampling_strategy))
+                                   else self.cache_render_sampling_strategy),
+                radiance_cache=radiance_cache)
             render = out["render"]
-            rgb = torch.clamp(torch.nan_to_num(render["rgb"]), min=0.0).reshape(lead + (-1,))
-            rgb_ns = torch.clamp(torch.nan_to_num(render["rgb_no_stopgrad"]), min=0.0).reshape(
-                lead + (-1,))
+
+            def unflatten(x):
+                return x.reshape(lead + tuple(x.shape[1:]))
+
+            rgb = torch.clamp(torch.nan_to_num(unflatten(render["rgb"])), min=0.0)
+            rgb_ns = torch.clamp(torch.nan_to_num(unflatten(render["rgb_no_stopgrad"])), min=0.0)
             # Of the cache's per-level sampler results, the shading reads the
             # accumulated opacity only.
             acc = {"acc": torch.nan_to_num(render["acc"]).reshape(lead),
@@ -252,28 +311,61 @@ class MaterialMLP(shading.BaseShader):
         if self.config.material_loss_radius < float("inf"):
             # No shading gradient through secondary rays that start outside
             # the scene radius.
-            mask = (torch.linalg.norm(ref_rays.origins, dim=-1, keepdim=True)
-                    < self.config.material_loss_radius).to(torch.float32)
+            mask = self._radius_mask(ref_rays.origins)
             for d in ("local_viewdirs", "local_lightdirs", "global_viewdirs", "global_lightdirs"):
                 ref_samples[d] = stopgrad_with_weight(ref_samples[d], mask)
         ref_samples["weight"] = torch.where(ref_samples["local_lightdirs"][..., 2:] > 0.0,
                                             ref_samples["weight"], 0.0)
         return ref_rays, ref_samples
 
+    def _radiance_shape(self, num_secondary_samples, direct):
+        if direct or not self.config.use_transient:
+            return (-1, num_secondary_samples, self.num_rgb_channels)
+        return (-1, num_secondary_samples, self.config.n_bins, self.num_rgb_channels)
+
     def _attach_lobe_radiance(self, rgb, rgb_ns, ref_samples, ref_sampler_results,
-                              num_secondary_samples):
+                              num_secondary_samples, direct=False):
         """Reshape the queried radiance and attach it, the per-ray opacity and
         the (unit) BRDF correction to the lobe's sample records."""
-        rgb = torch.nan_to_num(rgb)
-        rgb_ns = torch.nan_to_num(rgb_ns)
-        shape = (-1, num_secondary_samples, self.num_rgb_channels)
-        rgb, rgb_ns = rgb.reshape(shape), rgb_ns.reshape(shape)
+        shape = self._radiance_shape(num_secondary_samples, direct)
+        rgb = torch.nan_to_num(rgb).reshape(shape)
+        rgb_ns = torch.nan_to_num(rgb_ns).reshape(shape)
         ref_samples = {k: v.reshape(rgb.shape[0], -1, v.shape[-1]) for k, v in ref_samples.items()}
+        # The active closure repeats the occlusion over the channels: keep one.
         occ_acc = ref_sampler_results[-1]["acc"].reshape(rgb.shape[0], rgb.shape[1], -1)[..., :1]
         ref_samples.update(
             radiance_in=rgb, indirect_occ=occ_acc, radiance_in_no_stopgrad=rgb_ns,
             brdf_correction=torch.ones_like(ref_samples["local_lightdirs"][..., :2]))
         return ref_samples
+
+    def _integrate_lobe(self, material_type, material, ref_samples, ref_sampler_results, direct,
+                        sh):
+        """MC-integrate one lobe's queried samples and restore the point dims
+        (and the bins axis of a transient indirect lobe)."""
+        kw = dict(use_diffuseness=self.use_diffuseness, use_mirrorness=self.use_mirrorness,
+                  use_specular_albedo=self.use_specular_albedo, max_radiance=self.rgb_max)
+        if self.config.use_transient:
+            integrated = render_utils.transient_integrate_reflect_rays(
+                material_type, self.use_brdf_correction, material, ref_samples, direct=direct, **kw)
+        else:
+            integrated = render_utils.integrate_reflect_rays(
+                material_type, self.use_brdf_correction, material, ref_samples, **kw)
+        if direct and self.use_active:
+            integrated["occ"] = ref_sampler_results[-1]["occ"]
+        lead = tuple(sh[:-1]) if direct or not self.config.use_transient else tuple(sh[:-1]) + (-1,)
+        return {k: v.reshape(lead + (v.shape[-1],)) for k, v in integrated.items()
+                if v is not None}
+
+    def _store_lobe(self, outputs, mode, comp, ref_rays, ref_samples, ref_sampler_results,
+                    integrated, stopgrad_weight):
+        outputs[f"ref_rays_{mode}_{comp}"] = ref_rays
+        outputs[f"ref_samples_{mode}_{comp}"] = ref_samples
+        outputs[f"ref_sampler_results_{mode}_{comp}"] = ref_sampler_results
+        for k, val in integrated.items():
+            # Degenerate MC draws (grazing GGX half-vectors) can yield
+            # isolated non-finite samples; they are zeroed, not propagated.
+            outputs[f"{mode}_{comp}_{k}"] = stopgrad_with_weight(torch.nan_to_num(val),
+                                                                 stopgrad_weight)
 
     def _process_indirect_lobes_fused(self, rng, rays, sampler_results, material,
                                       num_secondary_samples, radiance_cache_fn, train_frac, train,
@@ -305,8 +397,8 @@ class MaterialMLP(shading.BaseShader):
         fused_rays = _fuse_lobe_rays(sampled[0][0], sampled[1][0], ns)
         key, rng = torchutil.random_split(rng)
         rgb, rgb_ns, srs = radiance_cache_fn(key, fused_rays)
-        rgb = rgb.reshape(-1, n_total, self.num_rgb_channels)
-        rgb_ns = rgb_ns.reshape(-1, n_total, self.num_rgb_channels)
+        shape = self._radiance_shape(n_total, direct=False)
+        rgb, rgb_ns = rgb.reshape(shape), rgb_ns.reshape(shape)
 
         offset = 0
         for (comp, n, _, material_type), (rr, rs) in zip(lobes, sampled):
@@ -314,18 +406,76 @@ class MaterialMLP(shading.BaseShader):
             offset = hi
             srs_l = [{k: v[:, lo:hi] for k, v in srs[-1].items()}]
             ref_samples = self._attach_lobe_radiance(rgb[:, lo:hi], rgb_ns[:, lo:hi], rs, srs_l, n)
-            integrated = render_utils.integrate_reflect_rays(
-                material_type, self.use_brdf_correction, material, ref_samples,
-                use_diffuseness=self.use_diffuseness, use_mirrorness=self.use_mirrorness,
-                use_specular_albedo=self.use_specular_albedo, max_radiance=self.rgb_max)
-            integrated_outputs[f"ref_rays_indirect_{comp}"] = rr
-            integrated_outputs[f"ref_samples_indirect_{comp}"] = ref_samples
-            integrated_outputs[f"ref_sampler_results_indirect_{comp}"] = srs_l
-            for k, val in integrated.items():
-                # Degenerate MC draws (grazing GGX half-vectors) can yield
-                # isolated non-finite samples; they are zeroed, not propagated.
-                val = val.reshape(tuple(sh[:-1]) + (val.shape[-1],))
-                integrated_outputs[f"indirect_{comp}_{k}"] = torch.nan_to_num(val)
+            integrated = self._integrate_lobe(material_type, material, ref_samples, srs_l, False,
+                                              sh)
+            self._store_lobe(integrated_outputs, "indirect", comp, rr, ref_samples, srs_l,
+                             integrated, self.stopgrad_indirect_weight)
+
+    # --- the active light --------------------------------------------------------
+
+    def _lights(self, lights, look, up):
+        """The light positions: the learnable light's (detached), or the rays'."""
+        if self.config.learnable_light:
+            return self.learnable_light.get_lights(lights, look, up).detach()
+        return lights
+
+    def _make_active_light_fn(self, sampler_results):
+        """Direct lighting along one ray per surface point toward the light:
+        the learnable light (or the shader's own power with inverse-square
+        falloff), zeroed where the cache stored an occlusion. No shadow ray
+        is traced, so the ray's far bound (a shadow ray's clip at the light)
+        is not needed."""
+        cfg = self.config
+
+        def active_fn(ref_rays):
+            lights = self._lights(ref_rays.lights, ref_rays.vcam_look, ref_rays.vcam_up)
+            light_dists = torch.linalg.norm(lights - ref_rays.origins, dim=-1, keepdim=True)
+            if cfg.learnable_light:
+                light_radiance, _ = self.learnable_light(
+                    ref_rays.origins, ref_rays.viewdirs, ref_rays.lights, ref_rays.vcam_look,
+                    ref_rays.vcam_up, ref_rays.vcam_origins)
+            else:
+                power = (self.light_power if self.optimize_light
+                         else torch.tensor(self.light_power_bias, device=light_dists.device))
+                light_radiance = torch.ones_like(light_dists) * self.light_power_activation(power)
+                if cfg.use_falloff:
+                    light_radiance = light_radiance / torch.clamp(light_dists**2, min=1e-5)
+            if cfg.light_zero:
+                light_radiance = torch.where(light_dists < cfg.light_near,
+                                             torch.zeros_like(light_radiance), light_radiance)
+            occ = sampler_results["occ"][..., :1].reshape(ref_rays.origins[..., :1].shape)
+            occ_rgb = occ.repeat_interleave(self.num_rgb_channels, dim=-1)
+            light_radiance = light_radiance * (1.0 - occ)
+            rgb = light_radiance.repeat_interleave(self.num_rgb_channels, dim=-1)
+            if cfg.material_loss_radius < float("inf"):
+                rgb = stopgrad_with_weight(rgb, self._radius_mask(ref_rays.origins))
+            rgb = torch.clamp(rgb, min=0.0)
+            return rgb, rgb, [{"occ": occ_rgb, "acc": occ_rgb}]
+
+        return active_fn
+
+    def _process_direct_lobes(self, rng, rays, sampler_results, material, train_frac,
+                              integrated_outputs):
+        """The direct specular and diffuse lobes: one ray per surface point
+        toward the light (the active sampler), lit once and integrated under
+        each lobe. Its uniforms are drawn, though the sampler ignores them."""
+        sh = sampler_results["points"].shape
+        means = sampler_results["means"]
+        lights = self._lights(rays.lights, rays.vcam_look, rays.vcam_up)
+        light_sec = {"origins": means[..., None, :].detach(),
+                     "lights": (lights[..., None, None, :]
+                                * torch.ones_like(means[..., None, :])).detach()}
+        material_sec = {k: v.detach() for k, v in material.items()}
+        ref_rays, ref_samples = self._sample_lobe_rays(
+            rng, rays, sampler_results, material_sec, light_sec, self._active_samplers, 1,
+            train_frac)
+        rgb, rgb_ns, srs = self._make_active_light_fn(sampler_results)(ref_rays)
+        ref_samples = self._attach_lobe_radiance(rgb, rgb_ns, ref_samples, srs, 1, direct=True)
+        for comp in ("specular", "diffuse"):
+            integrated = self._integrate_lobe(f"microfacet_{comp}", material, ref_samples, srs,
+                                              True, sh)
+            self._store_lobe(integrated_outputs, "direct", comp, ref_rays, ref_samples, srs,
+                             integrated, self.stopgrad_direct_weight)
 
     def get_outgoing_radiance(self, rng, rays, sampler_results, material, num_secondary_samples,
                               radiance_cache_fn, train_frac=1.0, train=True,
@@ -333,13 +483,20 @@ class MaterialMLP(shading.BaseShader):
         """All lobes of the outgoing-radiance estimate, combined per the
         integration strategy."""
         out = {k: 0.0 for k in self._integration_strategy}
+        key, rng = torchutil.random_split(rng)
         self._process_indirect_lobes_fused(
-            rng, rays, sampler_results, material, num_secondary_samples, radiance_cache_fn,
+            key, rays, sampler_results, material, num_secondary_samples, radiance_cache_fn,
             train_frac, train, light_sampler_results, out)
+        if self.use_active:
+            key, rng = torchutil.random_split(rng)
+            self._process_direct_lobes(key, rays, sampler_results, material, train_frac, out)
         for output_key, (sub_keys, scale) in self._integration_strategy.items():
             total = 0.0
-            for sub_key in sub_keys:
-                total = total + out.get(sub_key, 0.0)
+            for sub_key, dims in sub_keys:
+                val = out.get(sub_key, 0.0)
+                if isinstance(val, torch.Tensor) and dims:
+                    val = val.sum(dim=dims)
+                total = total + val
             out[output_key] = total * scale
         return out
 
@@ -363,8 +520,10 @@ class MaterialMLP(shading.BaseShader):
             self.num_secondary_samples if train else self.render_num_secondary_samples,
             self._make_radiance_cache_fn(radiance_cache, train_frac, train),
             train_frac=train_frac, train=train, light_sampler_results=light_sampler_results)
-        self._finalize_outputs(rays, outputs, integrated, integrated["radiance_out"], material,
-                               emission, sampler_results)
+        final_rgb = integrated["direct_radiance_out" if self.config.use_transient
+                               else "radiance_out"]
+        self._finalize_outputs(rays, outputs, integrated, final_rgb, material, emission,
+                               sampler_results)
         return outputs
 
     def _finalize_outputs(self, rays, outputs, integrated, final_rgb, material, emission,
@@ -374,11 +533,19 @@ class MaterialMLP(shading.BaseShader):
         outputs["lighting_emission"] = emission
         outputs["lighting_irradiance"] = integrated["irradiance"].reshape(material["albedo"].shape)
         if "occ" not in sampler_results:
-            outputs["occ"] = torch.zeros_like(final_rgb)
+            outputs["occ"] = integrated["occ"] if self.use_active else torch.zeros_like(final_rgb)
         outputs["rgb"] = final_rgb
         outputs["direct_diffuse_rgb"] = integrated["direct_diffuse_radiance_out"] + emission
         outputs["direct_specular_rgb"] = integrated["direct_specular_radiance_out"]
         outputs["direct_rgb"] = integrated["direct_radiance_out"]
+        if self.config.use_transient:
+            tid, tis = render_utils.zero_invalid_bins(
+                integrated["indirect_diffuse_radiance_out"],
+                integrated["indirect_specular_radiance_out"], rays, sampler_results["means"],
+                self.config)
+            outputs["transient_indirect"] = tid + tis
+            outputs["transient_indirect_diffuse"] = tid
+            outputs["transient_indirect_specular"] = tis
         outputs["indirect_diffuse_rgb"] = integrated["indirect_diffuse_radiance_out"]
         outputs["indirect_specular_rgb"] = integrated["indirect_specular_radiance_out"]
         outputs["indirect_rgb"] = integrated["indirect_radiance_out"]
@@ -388,12 +555,49 @@ class MaterialMLP(shading.BaseShader):
         for f in integrated:
             if f.startswith("ref_"):
                 outputs[f] = integrated[f]
-        outputs["ray_dists"] = torch.linalg.norm(
-            rays.origins[..., None, :] - sampler_results["means"], dim=-1, keepdim=True)
-        # Radius mask: no gradient from surface points outside the scene radius.
-        mask = (torch.linalg.norm(sampler_results["means"], dim=-1, keepdim=True)
-                < self.config.material_loss_radius).to(torch.float32)
+        means = sampler_results["means"]
+        outputs["ray_dists"] = torch.linalg.norm(rays.origins[..., None, :] - means, dim=-1,
+                                                 keepdim=True)
+        if self.use_active:
+            lights = self._lights(rays.lights, rays.vcam_look, rays.vcam_up)
+            outputs["light_dists"] = torch.linalg.norm(lights[..., None, :] - means, dim=-1,
+                                                       keepdim=True)
+        # Radius mask: no gradient from surface points outside the scene
+        # radius; a time-binned output gets it before its bins axis.
+        mask = self._radius_mask(means)
         for k, v in outputs.items():
-            if isinstance(v, torch.Tensor) and v.dim() == mask.dim():
+            if not isinstance(v, torch.Tensor):
+                continue
+            if self.config.use_transient and v.dim() == mask.dim() + 1:
+                outputs[k] = stopgrad_with_weight(v, mask[..., None, :])
+            elif v.dim() == mask.dim():
                 outputs[k] = stopgrad_with_weight(v, mask)
 
+
+class MaterialMLP(BaseMaterialMLP):
+    """Steady material shader, passive path."""
+
+    def _check_variant(self, config):
+        self._require(use_active=False)
+        if config.learnable_light or config.use_transient:
+            raise NotImplementedError("learnable lights and transient materials take "
+                                      "TransientMaterialMLP")
+
+    def _build_integration_strategy(self):
+        return _steady_integration_strategy(self.use_active)
+
+
+class TransientMaterialMLP(BaseMaterialMLP):
+    """Time-resolved material shader (InvProp), active path."""
+
+    use_active = True
+
+    def _check_variant(self, config):
+        self._require(use_active=True, light_max_angle=0.0)
+        if not config.use_transient:
+            raise ValueError("TransientMaterialMLP needs Config.use_transient")
+        if config.sl_relight:
+            raise NotImplementedError("structured light is not ported yet")
+
+    def _build_integration_strategy(self):
+        return _transient_integration_strategy()

@@ -14,10 +14,11 @@ plus the tinted, integrated-BRDF-weighted transient surface light field
 (specular), masked by ``zero_invalid_bins``.
 
 Not ported yet, raising: the active steady shader, the passive transient
-shader, shadow rays (occlusions that would be traced), a learnable light of
-a material model, cone lights, structured light, canonical-frame and
-intensity light conditioning, the simple BRDF input, the ambient term of the
-active path, env maps and the multi-illumination shaders.
+shader, shadow rays (occlusions that would be traced), the light power
+shared with a material model (``share_light_power``), cone lights,
+structured light, canonical-frame and intensity light conditioning, the
+simple BRDF input, the ambient term of the active path, env maps and the
+multi-illumination shaders.
 """
 
 from __future__ import annotations
@@ -299,10 +300,11 @@ class TransientNeRFMLP(BaseNeRFMLP):
             self.transient_indirect_layer(self.irradiance_layers(x)) + self.irradiance_bias)
 
     def _light_radiance(self, light_dists, radiance_cache):
-        """Constant-power point light with inverse-square falloff (a cache
-        stage has no material model whose learnable light it could share)."""
-        if radiance_cache is not None:
-            raise NotImplementedError("a radiance cache's shared light is not ported yet")
+        """Constant-power point light with inverse-square falloff, of the
+        shader's own power: also under a material model (`radiance_cache`)
+        that does not share its light with the cache."""
+        if radiance_cache is not None and radiance_cache.share_light_power:
+            raise NotImplementedError("a material model's shared light power is not ported yet")
         light_radiance = torch.ones_like(light_dists) * self.light_power_activation(
             self.light_power)
         if self.config.use_falloff:

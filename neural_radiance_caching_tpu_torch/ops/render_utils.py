@@ -2,13 +2,15 @@
 ``ops/render_utils.py`` the steady material path reaches).
 
 Local shading frames, the 2D uniform generator, the cosine, uniform and GGX
-importance samplers with the power-heuristic MIS weights, vMF mixture
-evaluation, sampling and filtering with the learned-light sampler, the
-Disney-ish microfacet lobe, the secondary-ray fan-out at surface points,
-the Monte-Carlo reflection estimators and the transient causality mask
-``zero_invalid_bins``. Environment-map, quadrature, identity, active-light,
-mirror and visible-normal samplers, structured light and the other
-transient helpers (iToF and Gaussian projections) are not ported yet.
+importance samplers with the power-heuristic MIS weights, the active-light
+sampler (the direction toward the light), vMF mixture evaluation, sampling
+and filtering with the learned-light sampler, the Disney-ish microfacet
+lobe, the secondary-ray fan-out at surface points, the Monte-Carlo
+reflection estimators (steady, and time-binned for the transient material
+shader) and the transient causality mask ``zero_invalid_bins``.
+Environment-map, quadrature, identity, mirror and visible-normal samplers,
+structured light and the other transient helpers (iToF and Gaussian
+projections) are not ported yet.
 
 Every random number comes from ``utils/torchutil`` (``uniform``, ``normal``,
 ``categorical``), in the order the JAX package draws its keys.
@@ -204,6 +206,24 @@ def sample_vmf(rng, vmf_vars, x, n_dirs):
     return torch.matmul(rotmat[..., None, :, :], rand_dirs[..., None])[..., 0]
 
 
+class ActiveSampler:
+    """Deterministic sampler pointing at the active light source: the
+    world-frame direction from kwargs["origins"] to kwargs["lights"], pdf 1.
+    The uniforms it is handed are drawn all the same."""
+
+    global_dirs = True
+    return_rgb = False
+
+    def sample_directions(self, rng, u1, u2, wo, alpha, light_idx, kwargs):
+        light_offset = kwargs["lights"] - kwargs["origins"]
+        light_dists = torch.linalg.norm(light_offset, dim=-1, keepdim=True)
+        light_dirs = light_offset / torch.clamp(light_dists, min=1e-5)
+        return light_dirs.reshape(wo.shape), torch.ones_like(wo[..., 0])
+
+    def pdf(self, wo, wi, alpha, kwargs):
+        return torch.ones_like(wo[..., 0])
+
+
 class LightSampler:
     """Importance sampler over a learned vMF mixture (LightMLP output)."""
 
@@ -230,6 +250,7 @@ class LightSampler:
 
 
 IMPORTANCE_SAMPLER_BY_NAME = {
+    "active": ActiveSampler,
     "light": LightSampler,
     "microfacet": MicrofacetSampler,
     "cosine": CosineSampler,
@@ -433,11 +454,16 @@ def _shading_config(material_type, use_brdf_correction, use_diffuseness, use_mir
         use_specular_albedo=use_specular_albedo)
 
 
-def _lobe_estimates(cfg, material, samples, max_radiance):
+def _lobe_estimates(cfg, material, samples, max_radiance, bins_main=False, bins_mult=False):
     """Importance-weighted estimator means over the secondary-sample axis of
     clip(L_in * response) * w / pdf: the full BRDF lobe for outgoing
     radiance, the cosine lobe for irradiance. Samples below the local
-    horizon contribute zero weight."""
+    horizon contribute zero weight.
+
+    ``bins_main`` / ``bins_mult`` insert a bins axis in front of the channel
+    axis of the per-sample responses and weights [P, S, C], so that
+    time-binned incoming radiance [P, S, bins, C] integrates against them
+    (the outgoing radiance and irradiance, and the correction integral)."""
     z_up = samples["local_lightdirs"][..., 2:]
     surface_frame_normal = torch.cat(
         [torch.zeros_like(samples["local_lightdirs"][..., :2]), torch.ones_like(z_up)], dim=-1)
@@ -450,16 +476,28 @@ def _lobe_estimates(cfg, material, samples, max_radiance):
     inv_p = torch.clamp(samples["pdf"], min=DENOMINATOR_EPS)
     incoming = samples["radiance_in"]
 
-    def estimate(response):
+    def binned(x):
+        return x[..., None, :]
+
+    def estimate(response, lift):
+        if lift:
+            return (torch.clamp(incoming * binned(response), 0.0, max_radiance)
+                    * binned(mc_w) / binned(inv_p)).mean(dim=1)
         return (torch.clamp(incoming * response, 0.0, max_radiance) * mc_w / inv_p).mean(dim=1)
 
-    out = {"radiance_out": estimate(brdf_response), "irradiance": estimate(cosine_response)}
+    out = {"radiance_out": estimate(brdf_response, bins_main),
+           "irradiance": estimate(cosine_response, bins_main)}
     correction = samples["brdf_correction"]
     if cfg.use_brdf_correction:
         # The correction integrals are not radiance-clipped.
         out["integrated_multiplier"] = (correction * mc_w / inv_p).mean(dim=1) / (2 * pymath.pi)
-        out["integrated_multiplier_irradiance"] = (
-            correction[..., 1:2] * incoming * cosine_response * mc_w / inv_p).mean(dim=1)
+        if bins_mult:
+            out["integrated_multiplier_irradiance"] = (
+                binned(correction[..., 1:2]) * incoming * binned(cosine_response)
+                * binned(mc_w) / binned(inv_p)).mean(dim=1)
+        else:
+            out["integrated_multiplier_irradiance"] = (
+                correction[..., 1:2] * incoming * cosine_response * mc_w / inv_p).mean(dim=1)
     else:
         out["integrated_multiplier"] = correction[:, 0]
         out["integrated_multiplier_irradiance"] = correction[:, 0, :1]
@@ -474,6 +512,21 @@ def integrate_reflect_rays(material_type, use_brdf_correction, material, samples
                           use_specular_albedo)
     out = _lobe_estimates(cfg, material, samples, max_radiance)
     out["indirect_occ"] = samples["indirect_occ"].mean(dim=1)
+    return out
+
+
+def transient_integrate_reflect_rays(material_type, use_brdf_correction, material, samples,
+                                     use_diffuseness=False, use_mirrorness=False,
+                                     use_specular_albedo=False, direct=True,
+                                     max_radiance=float("inf")):
+    """Time-binned variant: the indirect lobes' incoming radiance carries a
+    bins axis [P, S, bins, C]; a direct lobe's [P, S, C] does not, and has no
+    indirect occlusion (None)."""
+    cfg = _shading_config(material_type, use_brdf_correction, use_diffuseness, use_mirrorness,
+                          use_specular_albedo)
+    out = _lobe_estimates(cfg, material, samples, max_radiance, bins_main=not direct,
+                          bins_mult=True)
+    out["indirect_occ"] = None if direct else samples["indirect_occ"].mean(dim=1)
     return out
 
 

@@ -1,9 +1,12 @@
-"""Losses of the cache, material and transient cache stages (counterpart of
-the part of ``parallel/losses.py`` the slices reach): the Charbonnier, the
-gradient-debiased RawNeRF and its transient form (scaled by the rendering
-summed over time bins) data losses, the spline interlevel loss, distortion,
-the predicted-normal regularizers and gradient clipping. Loss types off the
-slices, and the transient Gaussian-pyramid term, raise."""
+"""Losses of the cache, material and transient stages (counterpart of the
+part of ``parallel/losses.py`` the slices reach): the Charbonnier, the
+gradient-debiased squared error (``mse_unbiased``, the consistency loss's
+type in the transient material stage), the gradient-debiased RawNeRF and its
+transient form (scaled by the rendering summed over time bins) data losses,
+the spline interlevel loss, distortion, the predicted-normal regularizers
+and gradient clipping. A rendering may carry ``gt_nocorr``, the target of
+the debiased second estimate (the consistency loss's nocorr cache target).
+Loss types off the slices, and the transient Gaussian-pyramid term, raise."""
 
 from __future__ import annotations
 
@@ -52,34 +55,39 @@ def _rawnerf_scaling(rendering, gt, config, clip_val, exponent, eps, transient=F
     return 1.0 / (torch.pow(rgb_clip.detach(), exponent) + eps)
 
 
-def compute_unbiased_loss(rendering, gt):
-    """Gradient-debiased squared error: 2 (x - gt) sg(x' - gt), with x' from
-    an independent second forward."""
+def compute_unbiased_loss(rendering, gt, gt_nocorr):
+    """Gradient-debiased squared error: 2 (x - gt) sg(x' - gt'), with x' from
+    an independent second forward and gt' its target."""
     diff = rendering["rgb"] - gt
-    diff_nocorr = rendering["rgb_nocorr"] - gt
+    diff_nocorr = rendering["rgb_nocorr"] - gt_nocorr
     return 2 * diff * diff_nocorr.detach()
 
 
 def compute_unbiased_loss_rawnerf(rendering, gt, config, clip_val=10000.0, exponent=1.0,
-                                  eps=1e-3, transient=False):
+                                  eps=1e-3, transient=False, gt_nocorr=None):
     scale = _rawnerf_scaling(rendering, gt, config, clip_val, exponent, eps, transient)
-    return compute_unbiased_loss(rendering, gt) * scale
+    return compute_unbiased_loss(rendering, gt, gt if gt_nocorr is None else gt_nocorr) * scale
 
 
-def select_data_loss_fn(config, rendering, gt, rawnerf_eps, rawnerf_exponent, transient=False):
-    """Dispatch on config.data_loss_type (charb, rawnerf_unbiased and
-    rawnerf_transient_unbiased without the Gaussian-pyramid term are ported)."""
+def select_data_loss_fn(config, rendering, gt, gt_nocorr, rawnerf_eps, rawnerf_exponent,
+                        transient=False):
+    """Dispatch on config.data_loss_type (charb, mse_unbiased,
+    rawnerf_unbiased and rawnerf_transient_unbiased without the
+    Gaussian-pyramid term are ported)."""
     if config.data_loss_type == "charb":
         return compute_loss_charb(rendering, gt, config)
+    if config.data_loss_type == "mse_unbiased":
+        return compute_unbiased_loss(rendering, gt, gt_nocorr)
     if config.data_loss_type == "rawnerf_unbiased":
         return compute_unbiased_loss_rawnerf(
-            rendering, gt, config, eps=rawnerf_eps, exponent=rawnerf_exponent)
+            rendering, gt, config, eps=rawnerf_eps, exponent=rawnerf_exponent,
+            gt_nocorr=gt_nocorr)
     if config.data_loss_type == "rawnerf_transient_unbiased":
         if transient and config.transient_gauss_sigma_scales:
             raise NotImplementedError("the transient Gaussian-pyramid loss is not ported yet")
         return compute_unbiased_loss_rawnerf(
             rendering, gt, config, eps=rawnerf_eps, exponent=rawnerf_exponent,
-            transient=transient)
+            transient=transient, gt_nocorr=gt_nocorr)
     raise NotImplementedError(f"data loss type {config.data_loss_type!r} is not ported yet")
 
 
@@ -131,13 +139,16 @@ def compute_data_loss(batch, rendering, rays, config, main=False, transient=Fals
         resid_sq = (rendering["rgb"] - gt) ** 2
     mse = ((masks[..., :1] if transient else masks) * lossmult * resid_sq).mean()
 
-    # Without a debias forward the second estimate is the first.
+    # Without a debias forward the second estimate is the first, and so is
+    # its target.
     rendering.setdefault("rgb_nocorr", rendering["rgb"])
+    gt_nocorr = rendering.get("gt_nocorr", gt)
     if config.is_material:
         exponent, eps = config.rawnerf_exponent_material, config.rawnerf_eps_material
     else:
         exponent, eps = config.rawnerf_exponent, config.rawnerf_eps
-    data_loss = select_data_loss_fn(config, rendering, gt, eps, exponent, transient=transient)
+    data_loss = select_data_loss_fn(config, rendering, gt, gt_nocorr, eps, exponent,
+                                    transient=transient)
     sub_loss = (lossmult * data_loss).mean()
     stats["mses"].append(mse * config.data_loss_mult)
     return sub_loss, {k: torch.stack(v) for k, v in stats.items()}

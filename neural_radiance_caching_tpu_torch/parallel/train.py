@@ -9,8 +9,9 @@ schedule convention).
 
 Losses cover every model output whose key ends in ``main`` (the material
 model's ``cache_main`` and ``main``), each with the loss type and weight
-its target carries. ``Config.use_gradient_debias`` runs the second,
-independent forward of the gradient-debiased losses;
+its target carries, then that output's extra losses
+(``parallel/extra_losses.py``). ``Config.use_gradient_debias`` runs the
+second, independent forward of the gradient-debiased losses;
 ``Config.gradient_checkpointing`` is read by the density MLPs, which
 recompute their activations in the backward (``models/geometry.py``).
 """
@@ -24,6 +25,7 @@ from typing import Any, Callable, Dict
 import torch
 
 from neural_radiance_caching_tpu_torch.ops import math
+from neural_radiance_caching_tpu_torch.parallel import extra_losses as extra_losses_lib
 from neural_radiance_caching_tpu_torch.parallel import losses as losses_lib
 
 
@@ -121,29 +123,48 @@ def _check_config(config):
         "opaque/empty_loss_weight": config.opaque_loss_weight > 0 or config.empty_loss_weight > 0,
         "patch_loss_mult": config.patch_loss_mult > 0,
         "param_regularizers": bool(config.param_regularizers),
-        "extra_losses": bool(config.extra_losses) or config.maximum_radiance_loss_weight > 0,
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+    bad = extra_losses_lib.unported(config)
+    if bad:
+        raise NotImplementedError(f"extra losses not ported yet (ROADMAP queue 1 item 5): "
+                                  f"{', '.join(bad)}")
+
+
+# Shader outputs of the debias forward grafted as `<key>_nocorr` onto the
+# `main` and `cache_main` shader results, for the consistency losses.
+_NOCORR_SHADER_KEYS = ("diffuse_rgb", "specular_rgb", "direct_rgb", "indirect_rgb",
+                       "transient_indirect", "lighting_irradiance", "cache_diffuse_rgb",
+                       "cache_specular_rgb", "cache_direct_rgb", "cache_indirect_rgb",
+                       "cache_transient_indirect")
 
 
 def _debias_forward(model, rng, rays, train_frac, model_results):
     """The gradient-debias second forward: independent secondary-ray draws
-    over the same cache sampler results; its rgb becomes `rgb_nocorr`.
+    over the same cache sampler results; its rgb becomes `rgb_nocorr`, and
+    its shader outputs the `_nocorr` keys of the shader results.
 
-    The data losses read `rgb_nocorr` only under a stop-gradient, and the
-    losses that would read the pass's shader outputs (consistency, residual
-    albedo) are extra losses, which _check_config refuses. So the pass runs
-    without a graph: the torch counterpart of the dead-code elimination that
-    drops its backward under XLA. That keeps its activations out of memory
-    and its encoders out of the backward.
+    Every loss reads the `_nocorr` values only under a stop-gradient (the
+    data losses' `rgb_nocorr`, the consistency losses' material and cache
+    estimates). So the pass runs without a graph: the torch counterpart of
+    the dead-code elimination that drops its backward under XLA. That keeps
+    its activations out of memory and its encoders out of the backward.
     """
     with torch.no_grad():
         nocorr = model(rng, rays, train_frac=train_frac, train=True, compute_extras=False,
                        cache_outputs={"sampler": model_results["cache_main"]["sampler"]},
                        filtered_sampler_inds=model_results["cache_main"]["filtered_sampler_inds"])
     model_results["render"]["rgb_nocorr"] = nocorr["render"]["rgb"]
+    for out_key in ("main", "cache_main"):
+        shader = model_results.get(out_key, {}).get("shader")
+        nocorr_shader = nocorr.get(out_key, {}).get("shader")
+        if shader is None or nocorr_shader is None:
+            continue
+        for k in _NOCORR_SHADER_KEYS:
+            if k in nocorr_shader:
+                shader[k + "_nocorr"] = nocorr_shader[k]
 
 
 def create_train_step(model, config):
@@ -165,6 +186,8 @@ def create_train_step(model, config):
         for key in sorted(k for k in model_results if k.endswith("main")):
             _compute_losses_for_output(batch, rays, model_results, config, train_frac, key,
                                        losses, stats)
+            extra_losses_lib.compute_extra_losses(config, batch, rays, model_results, key, losses,
+                                                  train_frac)
         total = sum(losses.values())
         stats["losses"] = losses
         return total, stats

@@ -5,8 +5,10 @@ of numpy arrays, as ``jax.device_get(variables)`` gives them) into this package'
 ``state_dict`` for a given module: the cache model's tree, the transient
 cache model's (the same names, plus the active shader's ``albedo_layer``,
 ``direct_tint_layer``, ``brdf_layers_*``, ``irradiance_layers_*``,
-``transient_indirect_layer`` and the transient SLF's wider rgba head), or the
-material model's (``Cache/...``, ``LightSampler/...``, ``MaterialShader/...``).
+``transient_indirect_layer`` and the transient SLF's wider rgba head), or a
+material model's (``Cache/...``, ``LightSampler/...``, ``MaterialShader/...``;
+the transient one's ``MaterialShader/LightSource/...`` is the learnable
+light, with its ``layer_mult_{i}`` and ``output_layer_mult`` Dense layers).
 Every leaf maps to exactly one key and every key must be filled; a leaf left
 over raises. JAX ``Dense`` kernels
 ``[in, out]`` become torch weights ``[out, in]``; the hash and dense tables
@@ -23,6 +25,7 @@ import torch
 _FIXED = {
     "Cache": "cache",
     "LightSampler": "light_sampler",
+    "LightSource": "learnable_light",
     "MaterialShader": "shader",
     "Sampler": "sampler",
     "Shader": "shader",

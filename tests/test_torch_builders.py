@@ -19,6 +19,8 @@ BUILDERS = {
     "cache": (flagship.build_flagship_cache_model, flagship.cache_config),
     "material": (flagship.build_flagship_material_model, flagship.material_config),
     "transient": (flagship.build_flagship_transient_cache_model, flagship.transient_config),
+    "transient_material": (flagship.build_flagship_transient_material_model,
+                           flagship.transient_material_config),
 }
 
 
