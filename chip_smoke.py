@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--seed N] [--steps N] [--material-steps N]
                           [--transient-steps N] [--transient-material-steps N]
-                          [--profile FILE]
+                          [--trainer-steps N] [--profile FILE]
 
 Phases, one line each (any failure exits nonzero):
   1. device: the card, and nvidia-smi's name and power limit;
@@ -93,9 +93,24 @@ Phases, one line each (any failure exits nonzero):
      steps each with gradient checkpointing in alternating blocks, then one
      step each without it for its peak memory; losses finite, exactly the
      parameters no loss reaches unchanged, 3 leveled launches per step and
-     no planes launch.
+     no planes launch;
+ 19. trainer reference: the staged trainer (engine/trainer.Trainer) on
+     configs/synthetic_spheres.gin, cache stage, the same weights, batch and
+     draws on the GPU and the CPU, one step: every loss term (the cache_
+     duplicates of the cache-only material model included) and every
+     gradient leaf, the limit bracketed by a noise floor and two faults
+     planted in the leveled kernel; one leveled launch;
+ 20. trainer train: the train_with_trainer entry point, in-process, on the
+     full-width configs/ngp_yobo.gin cache stage (batch 8192 on
+     SyntheticSpheres, density normals, the power-ladder ray warp, the mask
+     loss, per-module schedules) into a temporary checkpoint_dir: 3 warmup
+     + N timed steps by host clock ending in a sync, beside the rays/s of
+     the trainer's own train_log.jsonl; losses finite with their cache_
+     duplicates, the checkpoint written, a second run resumes and takes no
+     step, no kernel launch (the density normals take the plain encoder),
+     peak memory; then one 48^2 test view through log_test_set_evaluation.
 Then the kernels JSON line, the eval JSON line, the transient material JSON
-line, the nvidia-smi line, and the result line.
+line, the trainer JSON line, the nvidia-smi line, and the result line.
 """
 
 from __future__ import annotations
@@ -105,6 +120,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1947,6 +1963,186 @@ def phase_transient_material_train(torch, device, seed, steps, smi, profile=None
     return result
 
 
+# The gin cache stage of the staged trainer (`engine/trainer.Trainer`, the
+# `train_with_trainer` entry point): on configs/synthetic_spheres.gin its
+# final proposal level runs the leveled kernel once per step; on the
+# full-width configs/ngp_yobo.gin the density normals take the plain encoder
+# (second order) and no kernel runs.
+TRAINER_REF_CONFIG = "configs/synthetic_spheres.gin"
+TRAINER_CONFIG = "configs/ngp_yobo.gin"
+# The bindings that run a scene config without its data (the JAX trainer
+# test's), and the stage.
+TRAINER_BINDINGS = ("Config.dataset_loader = 'synthetic_spheres'", "Config.near = 0.2",
+                    "Trainer.stage = 'cache'")
+
+
+def _trainer_setup(torch, device, config_file, bindings=()):
+    """The port's Trainer on `config_file`'s cache stage, set up without data
+    loading's thread: bindings synthesized, datasets and model on `device`
+    (the model initialised on the CPU from the Config's seed, then moved)."""
+    from neural_radiance_caching_tpu_torch.engine import configs, gin_config
+    from neural_radiance_caching_tpu_torch.engine.trainer import Trainer
+
+    gin_config.clear_config()
+    configs.load_config(config_files=[config_file],
+                        bindings=list(TRAINER_BINDINGS) + list(bindings))
+    trainer = Trainer(device=device)
+    trainer._setup_names()
+    trainer._setup_config_parameters()
+    trainer._setup_binding_configs()
+    trainer._setup_rng()
+    trainer._load_datasets()
+    trainer._setup_model()
+    return trainer
+
+
+def _trainer_step(torch, device, seed, nudge=False, fault=None):
+    """One train step of the synthetic_spheres.gin cache stage through the
+    Trainer's train step on `device`: the Trainer's first batch and weights,
+    the draws from a CPU generator (the same numbers on both devices)."""
+    from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+
+    trainer = _trainer_setup(torch, device, TRAINER_REF_CONFIG)
+    batch = trainer.dataset.next_train()
+    if nudge:
+        o = batch.rays.origins
+        batch = batch.replace(rays=batch.rays.replace(
+            origins=torch.nextafter(o, torch.full_like(o, float("inf")))))
+    before = dict(scatter_cuda.launches)
+    patch = dict(scatter_add_weighted_leveled=_planted_fault(fault)) if fault else {}
+    with _patched(scatter_cuda, **patch):
+        rng = torch.Generator().manual_seed(seed + 7)
+        _, stats = trainer.train_step(rng, trainer.state, batch, 0.0)
+    losses = {k: float(torch.as_tensor(v).detach()) for k, v in stats["losses"].items()}
+    grads = {k: p.grad.detach().cpu() for k, p in trainer.model.named_parameters()}
+    return losses, grads, {k: scatter_cuda.launches[k] - before[k] for k in before}
+
+
+def phase_trainer_reference(torch, device, seed):
+    """The Trainer's cache-stage step on synthetic_spheres.gin, GPU against
+    CPU: every loss term and every gradient leaf."""
+    l_cpu, g_cpu, n_cpu = _trainer_step(torch, "cpu", seed)
+    floor, floor_at = _worst_grad_err(_trainer_step(torch, "cpu", seed, nudge=True)[1], g_cpu)
+    l_gpu, g_gpu, n_gpu = _trainer_step(torch, device, seed)
+    loss_errs = {k: abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-12) for k in l_cpu}
+    loss_err = max(loss_errs.values())
+    err, err_at = _worst_grad_err(g_gpu, g_cpu)
+    faults = {f: _worst_grad_err(_trainer_step(torch, device, seed, fault=f)[1], g_cpu)
+              for f in ("taps rotated", "finest level dropped")}
+    finite = all(torch.isfinite(g).all() for g in g_gpu.values())
+    duplicated = {k for k in l_cpu if k.startswith("cache_")} == {
+        "cache_" + k for k in l_cpu if not k.startswith("cache_")}
+    tol = GRAD_REL_L2_TOL
+    ok = (finite and duplicated and "mask" in l_cpu and loss_err <= 1e-4
+          and n_cpu == _launch_counts() and n_gpu == _launch_counts(leveled=1)
+          and floor <= tol and err <= tol and all(v > tol for v, _ in faults.values()))
+    print(f"trainer reference: Trainer, {TRAINER_REF_CONFIG} cache stage, one step, the same "
+          f"weights, batch and draws, gpu vs cpu: loss terms {sorted(l_cpu)} rel_err max="
+          f"{loss_err:.3e} (tol 1e-4) grad rel_l2_err max={err:.3e} at {err_at} (tol {tol}; "
+          f"noise floor, cpu vs cpu with origins +1 ulp: {floor:.3e} at {floor_at}; planted in "
+          "the leveled kernel " + ", ".join(f"{f}: {v:.3e} at {at}" for f, (v, at) in
+                                             faults.items())
+          + f", each must exceed the tol) kernel launches gpu={n_gpu} cpu={n_cpu} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the Trainer's GPU step disagrees with its CPU step")
+    return dict(loss_rel_err=loss_err, grad_rel_l2_err=err, noise_floor=floor,
+                faults={f: v for f, (v, _) in faults.items()}, tol=tol, launches=n_gpu["leveled"])
+
+
+def phase_trainer_train(torch, device, seed, steps, smi):
+    """The full-width ngp_yobo.gin cache stage through the train_with_trainer
+    entry point, in-process, into a temporary checkpoint_dir: 3 warmup + N
+    timed steps, a second run that resumes and takes no step, and one eval
+    view."""
+    import os
+    import tempfile
+
+    from neural_radiance_caching_tpu_torch import train_with_trainer
+    from neural_radiance_caching_tpu_torch.engine import gin_config, trainer as trainer_lib
+    from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+    from neural_radiance_caching_tpu_torch.utils import checkpoints
+
+    warmup = 3
+    total = warmup + steps
+    timing = {}
+
+    class TimedTrainer(trainer_lib.Trainer):
+        """The Trainer with a host clock (ending in a sync) around the timed
+        steps: its train step is wrapped once the model is set up."""
+
+        def _setup_model(self):
+            super()._setup_model()
+            step_fn, calls = self.train_step, [0]
+
+            def timed(*args):
+                if calls[0] == warmup:
+                    torch.cuda.synchronize()
+                    timing["t0"] = time.perf_counter()
+                out = step_fn(*args)
+                calls[0] += 1
+                if calls[0] == total:
+                    torch.cuda.synchronize()
+                    timing["t1"] = time.perf_counter()
+                return out
+
+            self.train_step = timed
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ngp_yobo_cache")
+        args = [f"--gin_configs={TRAINER_CONFIG}"] + [
+            f"--gin_bindings={b}" for b in TRAINER_BINDINGS + (
+                f"Config.checkpoint_dir = '{ckpt}'", f"Config.early_exit_steps = {total}",
+                f"Config.print_every = {total}", f"Config.jax_rng_seed = {20200823 + seed}",
+                "Config.metric_harness_train_config = {'disable_lpips': True}")]
+        gin_config.clear_config()
+        torch.cuda.reset_peak_memory_stats()
+        scatter_cuda.reset_launch_count()
+        t_setup = time.perf_counter()
+        with _patched(trainer_lib, Trainer=TimedTrainer):
+            trainer = train_with_trainer.main(args)
+        wall = time.perf_counter() - t_setup
+        launches = dict(scatter_cuda.launches)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        dt = (timing["t1"] - timing["t0"]) / steps
+        log = [json.loads(line) for line in open(os.path.join(ckpt, "train_log.jsonl"))]
+        losses = {k: v for k, v in log[-1].items() if k.startswith("loss")}
+        finite = all(v == v and abs(v) != float("inf") for v in losses.values())
+        duplicated = {k for k in losses if k.startswith("loss/cache_")} == {
+            "loss/cache_" + k[5:] for k in losses if k.startswith("loss/") and
+            not k.startswith("loss/cache_")}
+        saved = checkpoints.latest_checkpoint_step(ckpt)
+        gin_config.clear_config()
+        resumed = train_with_trainer.main(args)
+        log_after = open(os.path.join(ckpt, "train_log.jsonl")).read().splitlines()
+        resume_ok = resumed.state.step == total and len(log_after) == len(log)
+        del resumed
+        t0 = time.perf_counter()
+        metrics = trainer.log_test_set_evaluation(total, 1.0)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        view = f"{trainer.test_dataset.height}x{trainer.test_dataset.width}"
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    ok = (finite and duplicated and "loss/mask" in losses and saved == total and resume_ok
+          and launches == _launch_counts() and math.isfinite(metrics["psnr"]))
+    print(f"trainer train: train_with_trainer {TRAINER_CONFIG} cache stage ({n_params} params) "
+          f"batch {trainer.batch_size} on SyntheticSpheres, {warmup} warmup + {steps} timed steps: "
+          f"step_ms={dt * 1e3:.2f} rays_per_s={trainer.batch_size / dt:.0f} (train_log "
+          f"rays_per_sec={log[-1]['rays_per_sec']:.0f} over steps 2-{total}) on [{smi}]; "
+          f"peak {peak_gib:.2f} GiB; losses finite={finite} {losses}; checkpoint step {saved}, "
+          f"resumed with no step={resume_ok}; kernel launches={launches} (expected none: the "
+          f"density normals take the plain encoder); eval view {view}: psnr="
+          f"{metrics['psnr']:.2f} ssim={metrics['ssim']:.4f} in {eval_s:.2f}s; entry point "
+          f"{wall:.1f}s {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("trainer train phase failed")
+    return dict(step_ms=dt * 1e3, rays_per_s=trainer.batch_size / dt,
+                train_log_rays_per_s=log[-1]["rays_per_sec"], peak_gib=peak_gib,
+                batch=trainer.batch_size, steps=steps, warmup=warmup, params=n_params,
+                launches=launches["leveled"], eval_view=view, eval_psnr=metrics["psnr"],
+                eval_ssim=metrics["ssim"], eval_s=eval_s, entry_point_s=wall, losses=losses)
+
+
 def _profile(torch, train_step, state, rng, batches, path, steps=3):
     """Device time by kernel over `steps` steps, as a table written to `path`."""
     import pathlib
@@ -1975,6 +2171,8 @@ def main():
                         help="timed transient train steps of each run (direct, dedup)")
     parser.add_argument("--transient-material-steps", type=int, default=10,
                         help="timed transient material train steps of each form (bench, trainer)")
+    parser.add_argument("--trainer-steps", type=int, default=10,
+                        help="timed steps of the entry point's ngp_yobo.gin cache stage")
     parser.add_argument("--profile", metavar="FILE",
                         help="also profile train steps and write the op tables to FILE "
                              "(cache), and FILE with .material, .transient or "
@@ -2026,6 +2224,8 @@ def main():
     tmat = phase_transient_material_train(torch, device, args.seed, args.transient_material_steps,
                                           smi, args.profile)
     tmat_launches = sum(r["launches"] for r in tmat.values())
+    trainer_reference = phase_trainer_reference(torch, device, args.seed)
+    trainer_train = phase_trainer_train(torch, device, args.seed, args.trainer_steps, smi)
     print(f"phases done in {time.perf_counter() - t_start:.1f}s, build included", flush=True)
 
     csrc = "neural_radiance_caching_tpu_torch/csrc"
@@ -2042,7 +2242,8 @@ def main():
     leveled_launches = {"cache_train": cache_leveled, "material_train": material["leveled"],
                         "transient_train": transient["direct"]["launches"],
                         "transient_train_dedup": 0, "gate": gate["launches"], "eval_render": 0,
-                        "transient_material": tmat_launches}
+                        "transient_material": tmat_launches,
+                        "trainer_train": trainer_train["launches"]}
     print(json.dumps({"kernels": [{
         "name": "scatter_add_weighted_leveled",
         "route": "cuda",
@@ -2076,7 +2277,7 @@ def main():
         "launches": transient["dedup"]["launches"],
         "launches_by_path": {"cache_train": 0, "material_train": 0, "transient_train": 0,
                              "transient_train_dedup": transient["dedup"]["launches"], "gate": 0,
-                             "eval_render": 0, "transient_material": 0},
+                             "eval_render": 0, "transient_material": 0, "trainer_train": 0},
         "max_abs_err": max(skip["max_abs_err"], transient["dedup"]["max_abs_err"]),
         "max_abs_err_by_shape": {"transient_dedup_stream": skip["max_abs_err"],
                                  "transient_path": transient["dedup"]["max_abs_err"]},
@@ -2096,7 +2297,7 @@ def main():
         "launches": material["planes"],
         "launches_by_path": {"cache_train": 0, "material_train": material["planes"],
                              "transient_train": 0, "transient_train_dedup": 0, "gate": 0,
-                             "eval_render": 0, "transient_material": 0},
+                             "eval_render": 0, "transient_material": 0, "trainer_train": 0},
         "max_abs_err": max(planes["max_abs_err"], material_err["planes"]),
         "max_abs_err_by_shape": {"planes_shape": planes["max_abs_err"],
                                  "material_path": material_err["planes"]},
@@ -2118,7 +2319,7 @@ def main():
         "launches_by_path": {"rows_kernel_phase": rows["launches"], "cache_train": 0,
                              "material_train": 0, "transient_train": 0,
                              "transient_train_dedup": 0, "gate": 0, "eval_render": 0,
-                             "transient_material": 0},
+                             "transient_material": 0, "trainer_train": 0},
         **{k: v for k, v in rows.items() if k != "launches"},
     }], "timing": timing, "transient_train": {
         name: {k: v for k, v in r.items() if k != "max_abs_err"}
@@ -2130,6 +2331,8 @@ def main():
         "reference": tmat_reference, "eval_render": eval_render["transient_material"],
         "leveled_launches_per_step": _TRANSIENT_MATERIAL_LAUNCHES_PER_STEP["leveled"],
         "device": smi}}), flush=True)
+    print(json.dumps({"trainer": {"train": trainer_train, "reference": trainer_reference,
+                                  "device": smi}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,9 @@ keeps its module layout (``ops/``, ``models/``, ``parallel/``, ``data/``,
 ``utils/``, ``engine/``) and its function and class names, so each piece has
 an obvious counterpart. It imports ``torch`` and never ``jax``.
 
-The first slice covers the flagship cache-stage train step
-(``flagship.build_flagship_cache_model`` + ``parallel.train``). Its one
-hand-written kernel is the hash-grid table-gradient scatter
+Users train through ``python -m neural_radiance_caching_tpu_torch.train_with_trainer``
+(the gin configs of ``configs/``, the staged ``engine/trainer.Trainer``);
+the flagship builders (``flagship.py``) give the JAX bench's four stages.
+The hand-written kernels are the hash-grid table-gradient scatters
 (``ops/scatter_cuda.py``, CUDA source in ``csrc/``).
 """

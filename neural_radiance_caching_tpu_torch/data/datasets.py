@@ -1,5 +1,6 @@
 """Datasets and ray batching (counterpart of ``data/datasets.py``; only the
-procedural ``SyntheticSpheres`` scene is ported).
+procedural ``SyntheticSpheres`` scene is ported: ``load_dataset`` raises
+NotImplementedError naming any other loader).
 
 Images are ray-traced in numpy at construction and batches are drawn with
 the same numpy RandomState stream as the JAX package, so both packages see
@@ -16,6 +17,23 @@ import torch
 
 from neural_radiance_caching_tpu_torch.data import camera_utils
 from neural_radiance_caching_tpu_torch.utils import pytrees, torchutil
+
+
+# The JAX package's loaders by Config.dataset_loader name.
+LOADERS = ("blender", "blender_active", "transient_simulation", "transient_simulation_itof",
+           "fwp_transient_captured", "orb", "open_illum", "neilf", "real", "fipt_real",
+           "fipt_synthetic", "glossy_real", "glossy_synthetic", "llff", "tat_nerfpp", "tat_fvs",
+           "dtu", "rtmv", "pixelrig", "aerial", "preloaded", "synthetic_spheres")
+
+
+def load_dataset(split, data_dir, config, device="cuda", **kwargs):
+    """Dataset dispatcher on Config.dataset_loader."""
+    name = config.dataset_loader
+    if name == "synthetic_spheres":
+        return SyntheticSpheres(split, data_dir, config, device=device, **kwargs)
+    if name in LOADERS:
+        raise NotImplementedError(f"the {name!r} dataset loader is not ported yet")
+    raise KeyError(f"unknown dataset loader {name!r}")
 
 
 class Dataset:

@@ -1,10 +1,15 @@
 """Density field: hash-grid or IPE features + small MLP + predicted normals
 (counterpart of ``models/geometry.py``).
 
-Ported: the first-order path (``disable_density_normals=True``), with or
-without predicted normals. The analytic density normals of the JAX package
-(a VJP inside the forward, differentiated again by the loss) are not on the
-cache slice and are not ported yet.
+Ported: the first-order path (``disable_density_normals=True``) and the
+analytic density normals, with or without predicted normals. The density
+normals are the gradient of the summed raw density with respect to the
+sample means (each sample's density depends on its own mean only), taken
+with ``torch.autograd.grad(..., create_graph=True)`` while gradients are
+enabled, so a loss that reads the normals differentiates through them
+again. That pass encodes through the plain-torch encoder, chosen for the
+call (``plain_encoder``): the scatter kernel's backward is first-order, as
+the JAX package's Pallas backward is, which takes its XLA encoder there.
 
 With ``Config.gradient_checkpointing`` the encoding and trunk of each call
 are recomputed in the backward instead of being kept (the JAX train step's
@@ -22,12 +27,20 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from neural_radiance_caching_tpu_torch.engine import gin_config as gin
 from neural_radiance_caching_tpu_torch.models import grids
 from neural_radiance_caching_tpu_torch.models.layers import Configurable, Dense, SkipMLP, softplus
 from neural_radiance_caching_tpu_torch.ops import coord, geopoly, math, ref_utils
 
 
-class DensityMLP(Configurable, nn.Module):
+@gin.configurable
+class DensityMLP(Configurable, nn.Module, unported=dict(
+        weight_init="he_uniform", density_noise=0.0, enable_normals_offset=False,
+        use_corrected_normals=False, isotropize_gaussians=False, gaussian_covariance_scale=1.0,
+        gaussian_covariance_pad=0.0, unscented_sqrt_fn="sqrtm", unscented_scale_mult=0.0,
+        squash_before=False, backfacing_target="normals", use_backfacing_near=False, filter_backfacing=False, use_feature_filter=False,
+        use_feature_filter_secondary_only=True, use_feature_filter_far_field=False,
+        feature_filter_radius=float("inf"), feature_filter_size=64)):
     """Density MLP over grid features (or IPE posenc)."""
 
     net_depth = 8
@@ -52,12 +65,12 @@ class DensityMLP(Configurable, nn.Module):
     normals_for_filter_only = False
     secondary_grid_level_clamp = None
     primary_grid_level_clamp = None
+    backfacing_near = 0.2  # read with use_backfacing_near only
 
     def __init__(self, config=None, **kwargs):
         nn.Module.__init__(self)
         self.config = config
         self._set_fields(kwargs)
-        self._require(disable_density_normals=True)
         self.register_buffer("pos_basis_t", torch.as_tensor(
             np.ascontiguousarray(geopoly.generate_basis(
                 self.basis_shape, self.basis_subdivisions).T), dtype=torch.float32),
@@ -80,14 +93,14 @@ class DensityMLP(Configurable, nn.Module):
         if self.enable_pred_normals:
             self.pred_normals_layer = Dense(self.feature_dim, 3, compute_dtype)
 
-    def _encode(self, means, covs, control_offsets, is_secondary):
+    def _encode(self, means, covs, control_offsets, is_secondary, plain_encoder=False):
         """Build the network input features for each sample mean."""
         x = []
         if self.grid is not None:
             control = means[..., None, :] + control_offsets
             if self.warp_fn is not None:
                 control = self.warp_fn(control)
-            grid_kwargs = {}
+            grid_kwargs = {"plain_encoder": plain_encoder}
             if is_secondary and self.secondary_grid_level_clamp is not None:
                 grid_kwargs["max_levels"] = self.secondary_grid_level_clamp
             elif not is_secondary and self.primary_grid_level_clamp is not None:
@@ -103,10 +116,28 @@ class DensityMLP(Configurable, nn.Module):
                 dtype=torch.bfloat16 if self.use_bf16_compute else None))
         return torch.cat(x, dim=-1) if len(x) > 1 else x[0]
 
-    def predict_density(self, means, covs, control_offsets, is_secondary=False):
+    def predict_density(self, means, covs, control_offsets, is_secondary=False,
+                        plain_encoder=False):
         """Raw density (pre-activation) and trunk feature for each sample."""
-        x = self.density_layers(self._encode(means, covs, control_offsets, is_secondary))
+        x = self.density_layers(self._encode(means, covs, control_offsets, is_secondary,
+                                             plain_encoder))
         return self.output_density_layer(x)[..., 0].float(), x.float()
+
+    def _density_and_gradient(self, means, covs, control_offsets, is_secondary):
+        """(raw density, feature, d sum(raw density) / d means), through the
+        plain encoder. With gradients enabled the gradient keeps its graph
+        (create_graph) and the means' own gradient flows; without, all three
+        come back detached."""
+        grad_enabled = torch.is_grad_enabled()
+        with torch.enable_grad():
+            m = means if grad_enabled and means.requires_grad else \
+                means.detach().requires_grad_(True)
+            raw_density, feat = self.predict_density(m, covs, control_offsets, is_secondary,
+                                                     plain_encoder=True)
+            grad = torch.autograd.grad(raw_density.sum(), m, create_graph=grad_enabled)[0]
+        if not grad_enabled:
+            raw_density, feat, grad = raw_density.detach(), feat.detach(), grad.detach()
+        return raw_density, feat, grad
 
     def convert_raw_density(self, raw_density, means):
         """Activation + bias, with zero density outside the grid bbox."""
@@ -131,7 +162,12 @@ class DensityMLP(Configurable, nn.Module):
                 means, covs, rays, tdist, rng, self.unscented_mip_basis, "sqrtm", 0.0)
             control_offsets = control - means[..., None, :]
 
-        if self.config is not None and self.config.gradient_checkpointing \
+        raw_grad_density = normals = None
+        if not self.disable_density_normals:
+            raw_density, feat, raw_grad_density = self._density_and_gradient(
+                means, covs, control_offsets, is_secondary)
+            normals = torch.nan_to_num(-ref_utils.l2_normalize(raw_grad_density))
+        elif self.config is not None and self.config.gradient_checkpointing \
                 and torch.is_grad_enabled():
             raw_density, feat = torch.utils.checkpoint.checkpoint(
                 self.predict_density, means, covs, control_offsets, is_secondary,
@@ -140,7 +176,6 @@ class DensityMLP(Configurable, nn.Module):
             raw_density, feat = self.predict_density(means, covs, control_offsets, is_secondary)
         density = self.convert_raw_density(raw_density, means)
 
-        normals = None
         if self.enable_pred_normals:
             grad_pred = self.pred_normals_layer(feat)
             normals_pred = torch.nan_to_num(-ref_utils.l2_normalize(grad_pred))
@@ -152,7 +187,7 @@ class DensityMLP(Configurable, nn.Module):
         ray_dists = torch.linalg.norm(rays.origins[..., None, :] - means, dim=-1, keepdim=True)
         light_dists = torch.linalg.norm(rays.lights[..., None, :] - means, dim=-1, keepdim=True)
         results = dict(
-            feature=feat, density=density, raw_grad_density=None, grad_pred=grad_pred,
+            feature=feat, density=density, raw_grad_density=raw_grad_density, grad_pred=grad_pred,
             normals=normals, normals_pred=normals_pred, normals_to_use=normals_to_use,
             normals_shading=None, ray_dists=ray_dists, light_dists=light_dists,
         )

@@ -15,10 +15,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from neural_radiance_caching_tpu_torch.engine import gin_config as gin
 from neural_radiance_caching_tpu_torch.models.layers import Configurable
 from neural_radiance_caching_tpu_torch.ops import hashgrid, math
 
 
+@gin.configurable
 class HashEncoding(Configurable, nn.Module):
     """Multiresolution grid/hash encoding (Instant NGP)."""
 
@@ -90,11 +92,13 @@ class HashEncoding(Configurable, nn.Module):
 
     def forward(self, x, *, x_scale=None, per_level_fn=None, train=True, train_frac=1.0,
                 feature_filter=None, feature_filter_size=None,
-                max_levels: Optional[int] = None):
+                max_levels: Optional[int] = None, plain_encoder=False):
         """Encode [..., M, 3] world points into [..., L*F] features.
 
         max_levels: clamp the pyramid to its coarsest K levels for this call;
         the finer levels' features are zeros, so the output width is fixed.
+        plain_encoder: encode through the plain-torch encoder (second-order
+        autograd, no scatter kernel) for this call.
         """
         del train, train_frac, feature_filter_size
         if feature_filter is not None:
@@ -137,6 +141,7 @@ class HashEncoding(Configurable, nn.Module):
             x_scale=x_scale,
             interpolation=self.interpolation,
             scatter_dedup=self.scatter_dedup,
+            plain=plain_encoder,
         )
         if len(grid_sizes) < full_num_levels:
             per_level_width = features.shape[-1] // len(grid_sizes)

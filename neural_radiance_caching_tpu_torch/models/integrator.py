@@ -7,8 +7,10 @@ backgrounds are not ported yet."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from neural_radiance_caching_tpu_torch.engine import gin_config as gin
 from neural_radiance_caching_tpu_torch.models.layers import Configurable
 from neural_radiance_caching_tpu_torch.ops import image, render
 
@@ -35,7 +37,10 @@ _EXTRAS_TO_ALWAYS_RENDER = [
 ] + ["beta"]
 
 
-class VolumeIntegrator(Configurable, nn.Module):
+@gin.configurable
+class VolumeIntegrator(Configurable, nn.Module, unported=dict(
+        net_activation=F.relu, net_depth=4, net_width=256, skip_layer=2, deg_view=4,
+        deg_origins=4, normalize_weights=False)):
     """Alpha-composite shader results."""
 
     bg_intensity_range = (1.0, 1.0)
@@ -67,6 +72,7 @@ class VolumeIntegrator(Configurable, nn.Module):
         return rendering
 
 
+@gin.configurable
 class TransientVolumeIntegrator(VolumeIntegrator):
     """Time-resolved compositing: [..., n_bins, C] renderings.
 

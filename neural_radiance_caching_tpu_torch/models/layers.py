@@ -13,6 +13,7 @@ defaults, constructor keywords override them, and an unknown keyword raises.
 from __future__ import annotations
 
 import math as pymath
+import types
 
 import torch
 import torch.nn.functional as F
@@ -20,12 +21,31 @@ from torch import nn
 
 
 class Configurable:
-    """Field defaults as class attributes, overridden by keyword arguments."""
+    """Field defaults as class attributes, overridden by keyword arguments.
+
+    A subclass lists the fields of its JAX class whose code paths are not
+    ported in the class keyword ``unported`` ({name: JAX default}): they
+    become class attributes, so a gin file that binds one at its default
+    parses, and a keyword that changes one raises NotImplementedError
+    naming it.
+    """
+
+    _unported = ()
+
+    def __init_subclass__(cls, unported=None, **kwargs):
+        super().__init_subclass__(**kwargs)
+        if unported:
+            for k, v in unported.items():
+                setattr(cls, k, staticmethod(v) if isinstance(v, types.FunctionType) else v)
+            cls._unported = tuple(cls._unported) + tuple(unported)
 
     def _set_fields(self, kwargs):
+        cls = type(self)
         for k, v in kwargs.items():
-            if k.startswith("_") or not hasattr(type(self), k):
-                raise TypeError(f"{type(self).__name__} has no field {k!r}")
+            if k.startswith("_") or not hasattr(cls, k):
+                raise TypeError(f"{cls.__name__} has no field {k!r}")
+            if k in cls._unported and not _same(v, getattr(cls, k)):
+                raise NotImplementedError(f"{cls.__name__}.{k}={v!r} is not ported yet")
             object.__setattr__(self, k, v)
 
     def _require(self, **expected):
@@ -34,6 +54,13 @@ class Configurable:
             if getattr(self, k) != v:
                 raise NotImplementedError(
                     f"{type(self).__name__}.{k}={getattr(self, k)!r} is not ported yet")
+
+
+def _same(a, b):
+    try:
+        return bool(a == b)
+    except Exception:  # values without a boolean equality (arrays)
+        return a is b
 
 
 class Dense(nn.Linear):

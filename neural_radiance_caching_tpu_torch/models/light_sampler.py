@@ -21,12 +21,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from neural_radiance_caching_tpu_torch.engine import gin_config as gin
 from neural_radiance_caching_tpu_torch.models import shading
 from neural_radiance_caching_tpu_torch.models.layers import Configurable, Dense, softplus
 from neural_radiance_caching_tpu_torch.ops import coord, math
 from neural_radiance_caching_tpu_torch.utils import torchutil
 
 
+@gin.configurable
 class LightMLP(shading.BaseShader):
     """vMF mixture light sampler over an NGP grid."""
 
@@ -39,11 +41,11 @@ class LightMLP(shading.BaseShader):
     use_illumination_feature = False
     multiple_illumination_outputs = True
 
-    def __init__(self, config=None, **kwargs):
+    def __init__(self, config=None, density_feature_dim=0, **kwargs):
         super().__init__(config, **kwargs)
         if config.multi_illumination:
             raise NotImplementedError("multi-illumination light samplers are not ported yet")
-        feature_dim = self._build_trunk(0)
+        feature_dim = self._build_trunk(density_feature_dim)
         self.output_layer = Dense(feature_dim, self.num_components * 5, self.compute_dtype)
 
     def get_vmfs(self, vmf_params):
@@ -116,6 +118,7 @@ def _cross(a, b):
     return torch.linalg.cross(a, b, dim=-1)
 
 
+@gin.configurable
 class LightSourceMap(Configurable, nn.Module):
     """InvProp's learnable pulsed light source.
 

@@ -22,16 +22,23 @@ model does: that is how the transient integrators find the learnable light
 (``TransientMaterialMLP`` over a ``TransientNeRFModel``, composited by a
 ``TransientVolumeIntegrator``).
 
-Not ported yet (they raise): the model without a light sampler, the SLF
-and volume control variates, ground-truth lights and a light power shared
-with the cache. The sub-module bypass passes, vignetting and shared
-materials are not ported either (their options are unknown here).
+With ``use_material=False`` (the staged trainer's cache stage of a material
+config) the model holds only its cache: no light sampler, material shader
+or integrator is built, and the forward's ``cache_main`` and ``main`` are
+the same dict, the cache render, as in JAX. Without a light sampler
+(``use_light_sampler=False``) the material shader gets no light-sampler
+results.
+
+Not ported yet (they raise): the SLF and volume control variates,
+ground-truth lights and a light power shared with the cache, the
+sub-module bypass passes, vignetting and shared materials.
 """
 
 from __future__ import annotations
 
 import torch
 
+from neural_radiance_caching_tpu_torch.engine import gin_config as gin
 from neural_radiance_caching_tpu_torch.models import integrator as integrator_lib
 from neural_radiance_caching_tpu_torch.models import light_sampler as light_sampler_lib
 from neural_radiance_caching_tpu_torch.models import material_shader, nerf_model
@@ -45,7 +52,9 @@ def _detach_dict(d):
     return {k: (v.detach() if isinstance(v, torch.Tensor) else v) for k, v in d.items()}
 
 
-class BaseMaterialModel(nerf_model.Model):
+class BaseMaterialModel(nerf_model.Model, unported=dict(
+        stopgrad_weight_variate=0.0, sampler_params=None, use_vignette=False,
+        use_resample_depth=False, depth_key="distance_median")):
     """Material model over a radiance cache; the variants pick the cache,
     shader and integrator classes."""
 
@@ -58,7 +67,13 @@ class BaseMaterialModel(nerf_model.Model):
     shader_params = None
     integrator_params = None
     extra_model_params = None
+    use_material = True
     use_light_sampler = True
+    # Bound by the gin files, read by no model code (in JAX either).
+    share_material = False
+    material_loss = "rawnerf_unbiased"
+    material_loss_weight = 1.0
+    material_linear_to_srgb = False
     loss = "rawnerf_unbiased"
     loss_weight = 1.0
     linear_to_srgb = False
@@ -77,17 +92,22 @@ class BaseMaterialModel(nerf_model.Model):
 
     def __init__(self, config=None, **kwargs):
         self._init_model(config, kwargs)
-        self._require(use_light_sampler=True, slf_variate=False, share_light_power=False)
-        if config.volume_variate_material:
-            raise NotImplementedError("the material volume variate is not ported yet")
         self.cache = self._cache_cls(
             config=config, use_surface_light_field=self.use_surface_light_field,
             **dict(self.cache_model_params or {}), **dict(self.extra_model_params or {}))
-        self.light_sampler = light_sampler_lib.LightMLP(
-            config=config, **dict(self.light_sampler_params or {}))
+        if not self.use_material:
+            return
+        self._require(slf_variate=False, share_light_power=False)
+        if config.volume_variate_material:
+            raise NotImplementedError("the material volume variate is not ported yet")
+        feature_dim = self.cache.sampler.mlps[-1].feature_dim
+        if self.use_light_sampler:
+            self.light_sampler = light_sampler_lib.LightMLP(
+                config=config, density_feature_dim=feature_dim,
+                **dict(self.light_sampler_params or {}))
         self.shader = self._shader_cls(
             config=config, use_surface_light_field=self.use_surface_light_field,
-            **dict(self.shader_params or {}))
+            density_feature_dim=feature_dim, **dict(self.shader_params or {}))
         self.integrator = self._integrator_cls(
             config=config, **dict(self.integrator_params or {}))
 
@@ -111,6 +131,8 @@ class BaseMaterialModel(nerf_model.Model):
         cache_outputs = {k: cache_out[k] for k in self._CACHE_MAIN_KEYS}
         cache_outputs.update(loss_weight=self.cache_loss_weight, loss_type=self.cache_loss,
                              linear_to_srgb=self.cache_linear_to_srgb)
+        if not self.use_material:
+            return self._finalize_cache_only(cache_outputs, rays)
 
         inds = (cache_outputs["filtered_sampler_inds"] if filtered_sampler_inds is _CACHE_INDS
                 else filtered_sampler_inds)
@@ -119,9 +141,11 @@ class BaseMaterialModel(nerf_model.Model):
             key, rays, cache_outputs["sampler"][-1], inds, train, train_frac)
 
         key, rng = torchutil.random_split(rng)
-        light_sampler_results = self.light_sampler(
-            rng=key, rays=rays, sampler_results=_detach_dict(filtered), train_frac=train_frac,
-            train=train)
+        light_sampler_results = None
+        if self.use_light_sampler:
+            light_sampler_results = self.light_sampler(
+                rng=key, rays=rays, sampler_results=_detach_dict(filtered),
+                train_frac=train_frac, train=train)
 
         key, rng = torchutil.random_split(rng)
         outputs = self._handle_material_pass(
@@ -129,6 +153,22 @@ class BaseMaterialModel(nerf_model.Model):
             light_sampler_results, compute_extras)
         return self._finalize_outputs(outputs, cache_outputs, cache_shader_results,
                                       light_sampler_results)
+
+    def _finalize_cache_only(self, cache_outputs, rays):
+        """The cache render is the model output: ``cache_main`` and ``main``
+        are one dict, and the render carries the ``cache_`` copies of its
+        keys, a lossmult broadcast over rgb and a unit vignette."""
+        render = cache_outputs["integrator"]
+        for key in self._INTEGRATOR_KEYS:
+            if key in render:
+                render[f"cache_{key}"] = render[key]
+        lossmult = rays.lossmult
+        if render["rgb"].dim() == lossmult.dim() + 1:
+            lossmult = lossmult[..., None]
+        render["lossmult"] = lossmult * torch.ones_like(render["rgb"])
+        render["vignette"] = torch.ones_like(render["rgb"][..., :1])
+        cache_outputs["light_sampler"] = None
+        return {"cache_main": cache_outputs, "main": cache_outputs, "render": render}
 
     def _consistency_stopgrad_map(self):
         return self.geometry_stopgrad_map(
@@ -230,6 +270,7 @@ class BaseMaterialModel(nerf_model.Model):
         return outputs
 
 
+@gin.configurable
 class MaterialModel(BaseMaterialModel):
     """Steady-state material model over a radiance cache."""
 
@@ -238,6 +279,7 @@ class MaterialModel(BaseMaterialModel):
     _integrator_cls = integrator_lib.VolumeIntegrator
 
 
+@gin.configurable
 class TransientMaterialModel(BaseMaterialModel):
     """InvProp's time-resolved material model over a transient cache."""
 

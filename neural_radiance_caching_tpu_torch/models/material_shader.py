@@ -30,10 +30,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from neural_radiance_caching_tpu_torch.engine import gin_config as gin
 from neural_radiance_caching_tpu_torch.models import light_sampler as light_sampler_lib
 from neural_radiance_caching_tpu_torch.models import shading
 from neural_radiance_caching_tpu_torch.models.layers import Dense, softplus
-from neural_radiance_caching_tpu_torch.ops import render_utils
+from neural_radiance_caching_tpu_torch.ops import math, render_utils
 from neural_radiance_caching_tpu_torch.utils import torchutil
 from neural_radiance_caching_tpu_torch.utils.torchutil import stopgrad_with_weight
 
@@ -115,7 +116,22 @@ def _fuse_lobe_rays(spec_rays, diff_rays, ns):
     return type(spec_rays)(**fields)
 
 
-class BaseMaterialMLP(shading.BaseShader):
+class BaseMaterialMLP(shading.BaseShader, unported=dict(
+        env_importance_samplers=(("EnvironmentSampler", 1.0),),
+        active_importance_samplers=(("ActiveSampler", 1.0),), shadow_eps_indirect=False,
+        material_type="microfacet", use_mis=True, stratified_sampling=False,
+        use_constant_material=False, reparam_roughness=False,
+        anisotropic_brdf_correction=False, per_point_brdf_correction=False,
+        global_brdf_correction=False, emission_window_frac=0.0,
+        emission_variate_weight_start=1.0, emission_variate_weight_end=1.0,
+        irradiance_cache_weight=1.0, irradiance_cache_stopgrad_weight=1.0,
+        irradiance_cache_decay_rate=1.0, deg_brdf=2, deg_brdf_anisotropic=2,
+        stopgrad_cache_weight=(1.0, 1.0), stopgrad_slf_weight=(1.0, 1.0),
+        stopgrad_env_map_weight=(1.0, 1.0), stopgrad_shading_weight=1.0,
+        stopgrad_variate_weight=1.0, use_mesh_points=True, use_mesh_points_for_prediction=True,
+        use_mesh_normals=True, use_corrected_normals=False, stopgrad_samples=False,
+        stopgrad_rays=False, stopgrad_rgb=False, stopgrad_light=True, resample_cache=True,
+        num_light_features=64, multiple_illumination_outputs=True, stopgrad_occ_weight=0.0)):
     """BRDF head + secondary rays through the cache; the variants set the
     lighting (passive or active) and the integration table."""
 
@@ -148,6 +164,16 @@ class BaseMaterialMLP(shading.BaseShader):
     use_diffuse_emission = False
     use_residual_albedo = False
     use_irradiance_cache = False
+    # Read by the emission, residual-albedo and irradiance-cache heads only.
+    rgb_emission_activation = staticmethod(torch.sigmoid)
+    rgb_bias_emission = -1.0
+    rgb_residual_albedo_activation = staticmethod(torch.sigmoid)
+    rgb_bias_residual_albedo = -1.0
+    rgb_irradiance_activation = staticmethod(math.safe_exp)
+    rgb_bias_irradiance = 0.0
+    # Secondary rays' directions take the material's gradient unless set.
+    stopgrad_material = True
+    use_illumination_feature = False  # read with multi_illumination only
     # Read by the BRDF correction and SLF variate paths only; accepted so the
     # flagship parameters bind unchanged.
     net_width_brdf = 64
@@ -161,7 +187,7 @@ class BaseMaterialMLP(shading.BaseShader):
     cache_render_sampling_strategy = None
     optimize_light = True
     light_power_bias = 200.0
-    light_power_activation = staticmethod(torch.abs)
+    light_power_activation = staticmethod(math.abs_)
     light_max_angle = 0.0
     stopgrad_direct_weight = 1.0
     stopgrad_indirect_weight = 1.0
@@ -206,6 +232,12 @@ class BaseMaterialMLP(shading.BaseShader):
 
     def _build_integration_strategy(self):
         raise NotImplementedError
+
+    def _secondary_material(self, material):
+        """The material that samples secondary-ray directions."""
+        if not self.stopgrad_material:
+            return material
+        return {k: v.detach() for k, v in material.items()}
 
     # --- material decode -------------------------------------------------------
 
@@ -384,8 +416,9 @@ class BaseMaterialMLP(shading.BaseShader):
             raise NotImplementedError("a lobe with no secondary samples (the per-lobe path) "
                                       "is not ported yet")
         sh = sampler_results["points"].shape
-        # Ray directions take no gradient into the material or the light sampler.
-        material_sec = {k: v.detach() for k, v in material.items()}
+        # Ray directions take no gradient into the light sampler, nor into the
+        # material under stopgrad_material.
+        material_sec = self._secondary_material(material)
         light_sec = (None if light_sampler_results is None
                      else {k: v.detach() for k, v in light_sampler_results.items()})
 
@@ -465,7 +498,7 @@ class BaseMaterialMLP(shading.BaseShader):
         light_sec = {"origins": means[..., None, :].detach(),
                      "lights": (lights[..., None, None, :]
                                 * torch.ones_like(means[..., None, :])).detach()}
-        material_sec = {k: v.detach() for k, v in material.items()}
+        material_sec = self._secondary_material(material)
         ref_rays, ref_samples = self._sample_lobe_rays(
             rng, rays, sampler_results, material_sec, light_sec, self._active_samplers, 1,
             train_frac)
@@ -574,6 +607,7 @@ class BaseMaterialMLP(shading.BaseShader):
                 outputs[k] = stopgrad_with_weight(v, mask)
 
 
+@gin.configurable
 class MaterialMLP(BaseMaterialMLP):
     """Steady material shader, passive path."""
 
@@ -587,6 +621,7 @@ class MaterialMLP(BaseMaterialMLP):
         return _steady_integration_strategy(self.use_active)
 
 
+@gin.configurable
 class TransientMaterialMLP(BaseMaterialMLP):
     """Time-resolved material shader (InvProp), active path."""
 

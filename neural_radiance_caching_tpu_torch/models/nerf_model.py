@@ -22,17 +22,51 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from neural_radiance_caching_tpu_torch.engine import gin_config as gin
 from neural_radiance_caching_tpu_torch.models import integrator as integrator_lib
 from neural_radiance_caching_tpu_torch.models import nerf_shader, sampler as sampler_lib
 from neural_radiance_caching_tpu_torch.models.layers import Configurable
-from neural_radiance_caching_tpu_torch.ops import math
+from neural_radiance_caching_tpu_torch.ops import math, render_utils
 from neural_radiance_caching_tpu_torch.utils import torchutil
 
 
-class Model(Configurable, nn.Module):
+# Fields of the JAX ``Model`` whose code paths are not ported; the importance
+# sampler tuples stand as (JAX sampler class name, weight) pairs.
+_MODEL_UNPORTED = dict(
+    random_generator_2d=render_utils.RandomGenerator2D(1, 1, False),
+    uniform_importance_samplers=(("UniformHemisphereSampler", 1.0),),
+    uniform_sphere_importance_samplers=(("UniformSphereSampler", 1.0),),
+    cosine_importance_samplers=(("CosineSampler", 1.0),),
+    light_importance_samplers=(("UniformHemisphereSampler", 1.0),),
+    distance_importance_samplers=(("UniformHemisphereSampler", 1.0),),
+    light_field_importance_samplers=(("UniformHemisphereSampler", 1),
+                                     ("MicrofacetSampler", 1)),
+    irradiance_importance_samplers=(("CosineSampler", 1), ("LightSampler", 1)),
+    extra_ray_importance_samplers=(("UniformHemisphereSampler", 1), ("IdentitySampler", 1)),
+    active_importance_samplers=(("ActiveSampler", 1.0),),
+    surface_lf_mem_distance_near=0.001,
+    surface_lf_mem_distance_far=1000000.0,
+    surface_lf_mem_params=None,
+    resample_argmax=False,
+    stopgrad_geometry_variate_weight=0.0,
+    stopgrad_weight_variate=1.0,
+    stopgrad_weight_model=1.0,
+)
+
+
+class Model(Configurable, nn.Module, unported=_MODEL_UNPORTED):
     """Shared base: resampled estimator and secondary-ray bookkeeping."""
 
     use_env_map = False
+    # Read by the env map only (use_env_map).
+    env_map_near = float("inf")
+    env_map_far = float("inf")
+    env_map_params = None
+    # Bound by the gin files, read by no model code (the secondary-ray
+    # stop-gradient weights that the material shader passes are its own).
+    stopgrad_cache_weight = (1.0, 1.0)
+    stopgrad_slf_weight = (1.0, 1.0)
+    stopgrad_env_map_weight = (1.0, 1.0)
     use_surface_light_field = False
     resample = False
     resample_render = False
@@ -44,6 +78,7 @@ class Model(Configurable, nn.Module):
     stopgrad_geometry_weight = 1.0
     stopgrad_geometry_feature_weight = 1.0
     stopgrad_geometry_normals_weight = 1.0
+    use_raydist_for_secondary_only = False
     train_sampling_strategy = ((0, 0, 64), (1, 1, 64), (2, 2, 32))
     render_sampling_strategy = ((0, 0, 64), (1, 1, 64), (2, 2, 32))
 
@@ -59,10 +94,13 @@ class Model(Configurable, nn.Module):
         return (do_resample or (train and self.resample) or (not train and self.resample_render)
                 or (is_secondary and self.resample_secondary))
 
-    def get_bg_intensity_range(self, is_secondary):
-        """Secondary rays composite over black; primary rays take the
-        integrator's own background."""
-        return (0.0, 0.0) if is_secondary else None
+    def get_bg_and_raydist(self, is_secondary):
+        """Secondary rays composite over black and take the sampler's ray
+        warp; primary rays take the integrator's own background, and the warp
+        unless ``use_raydist_for_secondary_only``."""
+        if is_secondary:
+            return (0.0, 0.0), True
+        return None, not self.use_raydist_for_secondary_only
 
     def get_sampling_strategy(self, train, sampling_strategy):
         if sampling_strategy is not None:
@@ -165,7 +203,8 @@ class Model(Configurable, nn.Module):
                                   "is not ported yet")
 
 
-class NeRFModel(Model):
+@gin.configurable
+class NeRFModel(Model, unported=dict(use_material=False)):
     """Radiance cache: proposal sampler + NeRFMLP + integrator."""
 
     sampler_params = None
@@ -196,6 +235,7 @@ class NeRFModel(Model):
         instead of sampling again (the gradient-debias pass).
         """
         do_resample = self.do_resample(resample, is_secondary, train)
+        bg_intensity_range, use_raydist_fn = self.get_bg_and_raydist(is_secondary)
 
         if cache_outputs is not None:
             sampler_results = [dict(r) for r in cache_outputs["sampler"]]
@@ -204,7 +244,7 @@ class NeRFModel(Model):
             sampler_results = self.sampler(
                 rng=key, rays=rays, train_frac=train_frac, train=train,
                 sampling_strategy=self.get_sampling_strategy(train, sampling_strategy),
-                is_secondary=is_secondary, **render_kwargs)
+                use_raydist_fn=use_raydist_fn, is_secondary=is_secondary, **render_kwargs)
 
         key, rng = torchutil.random_split(rng)
         filtered, filtered_sampler_inds = self.maybe_resample(
@@ -214,8 +254,7 @@ class NeRFModel(Model):
         key, rng = torchutil.random_split(rng)
         shader_results, integrator_results = self.apply_shader_and_integrator(
             key, rays, filtered, self.geometry_stopgrad_map(do_resample),
-            train, train_frac, is_secondary, self.get_bg_intensity_range(is_secondary),
-            **render_kwargs)
+            train, train_frac, is_secondary, bg_intensity_range, **render_kwargs)
 
         main = dict(
             loss_weight=1.0, sampler=sampler_results, filtered_sampler_inds=filtered_sampler_inds,
@@ -224,6 +263,7 @@ class NeRFModel(Model):
         return {"main": main, "render": integrator_results}
 
 
+@gin.configurable
 class TransientNeRFModel(NeRFModel):
     """Time-resolved radiance cache (InvProp): proposal sampler +
     TransientNeRFMLP + TransientVolumeIntegrator."""

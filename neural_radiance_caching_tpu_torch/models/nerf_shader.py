@@ -28,6 +28,7 @@ import math as pymath
 import torch
 from torch import nn
 
+from neural_radiance_caching_tpu_torch.engine import gin_config as gin
 from neural_radiance_caching_tpu_torch.models import shading, surface_light_field
 from neural_radiance_caching_tpu_torch.models.layers import Dense, SkipMLP, softplus
 from neural_radiance_caching_tpu_torch.ops import coord, math, ref_utils, render_utils
@@ -35,7 +36,12 @@ from neural_radiance_caching_tpu_torch.utils import torchutil
 from neural_radiance_caching_tpu_torch.utils.torchutil import stopgrad_with_weight
 
 
-class BaseNeRFMLP(shading.BaseShader):
+class BaseNeRFMLP(shading.BaseShader, unported=dict(
+        use_occlusions=False, cull_backfacing=True, use_normals_feature=False,
+        use_pred_normals_feature=False, use_learned_vignette_map=False,
+        use_exposure_at_bottleneck=False, num_glo_features=0, num_glo_embeddings=1000,
+        num_light_features=64, multiple_illumination_outputs=True, run_surface_light_field=True,
+        use_corrected_normals=False, weight_thold=0.0, stopgrad_occ_weight=(0.0, 0.0))):
     """Shared trunk, bottleneck, surface light field, integrated BRDF and
     light power of the cache shaders."""
 
@@ -51,6 +57,11 @@ class BaseNeRFMLP(shading.BaseShader):
     rgb_max = float("inf")
     use_active = False
     use_env_map = False
+    use_illumination_feature = False  # read with multi_illumination only
+    # Read by the env map only (use_env_map).
+    env_map_near = float("inf")
+    env_map_far = float("inf")
+    env_map_params = None
     irradiance_activation = staticmethod(softplus)
     irradiance_bias = -2.0
     ambient_irradiance_activation = staticmethod(softplus)
@@ -145,8 +156,24 @@ class BaseNeRFMLP(shading.BaseShader):
             train_frac=train_frac)
 
 
+@gin.configurable
 class NeRFMLP(BaseNeRFMLP):
     """Steady-state cache shader, passive path."""
+
+    # Read by the active path's heads only (use_active, ported on
+    # TransientNeRFMLP).
+    deg_brdf = 2
+    brdf_bias = -1.09861228867
+    simple_brdf = False
+    albedo_activation = staticmethod(torch.sigmoid)
+    albedo_bias = -1.0
+    deg_lights = 2
+    bottleneck_irradiance = 64
+    light_power_activation = staticmethod(math.abs_)
+    light_max_angle = 0.0
+    stopgrad_direct_weight = 1.0
+    stopgrad_light_radiance_weight = 1.0
+    indirect_scale = 1.0
 
     def __init__(self, config=None, density_feature_dim=0, **kwargs):
         super().__init__(config, density_feature_dim, **kwargs)
@@ -227,6 +254,7 @@ class NeRFMLP(BaseNeRFMLP):
         )
 
 
+@gin.configurable
 class TransientNeRFMLP(BaseNeRFMLP):
     """Time-resolved cache shader, active path: per-point time-binned
     indirect radiance."""
@@ -239,7 +267,7 @@ class TransientNeRFMLP(BaseNeRFMLP):
     simple_brdf = False
     deg_lights = 2
     bottleneck_irradiance = 64
-    light_power_activation = staticmethod(torch.abs)
+    light_power_activation = staticmethod(math.abs_)
     light_max_angle = 0.0
     stopgrad_direct_weight = 1.0
     stopgrad_light_radiance_weight = 1.0

@@ -4,23 +4,38 @@
 Each level dilates the previous histogram, anneals its logits, draws new
 intervals by inverse-CDF sampling, warps s -> t, lifts them to Gaussians,
 evaluates the level's DensityMLP and composites alpha weights. Ported for
-primary and secondary rays with the identity ray warp; the mesh shortcut,
-the sample network, ray-distance warps, the secondary-ray normal offset and
-density filters are not ported yet.
+primary and secondary rays, with the identity ray warp or a ``raydist_fn``
+given as ``(fn, fn_inv, kwargs)`` (the power ladder of the gin files); the
+mesh shortcut, the sample network, a ray warp without its inverse, the
+secondary-ray normal offset and density filters are not ported yet.
 """
 
 from __future__ import annotations
 
+import functools
+import math as pymath
+
 import torch
 from torch import nn
 
+from neural_radiance_caching_tpu_torch.engine import gin_config as gin
 from neural_radiance_caching_tpu_torch.models import geometry
 from neural_radiance_caching_tpu_torch.models.layers import Configurable
 from neural_radiance_caching_tpu_torch.ops import coord, math, render, stepfun
 from neural_radiance_caching_tpu_torch.utils import torchutil
 
 
-class ProposalVolumeSampler(Configurable, nn.Module):
+@gin.configurable
+class ProposalVolumeSampler(Configurable, nn.Module, unported=dict(
+        sampling_anneal_blur_start=1.0, sampling_anneal_blur_stop=0.05,
+        sampling_anneal_rate=0.025, use_uniform_radius=False, use_normal_radius=False,
+        use_density_radius=False, use_far_field_radius=False, use_vertical_filter=False,
+        use_horizontal_filter=False, use_backwards_filter=False,
+        use_uniform_radius_secondary_only=True, normalize_uniform_weights=False,
+        uniform_radius=float("inf"), normal_radius=float("inf"), density_radius=float("inf"),
+        far_field_radius=float("inf"), vertical_fov=pymath.pi, horizontal_fov=pymath.pi,
+        disable_integration=False, near_anneal_rate=None, near_anneal_init=0.95,
+        normalize_weights=False, use_sample_network=False, grid_representation="ngp")):
     """Multi-level proposal sampler producing per-level ray results."""
 
     sampling_strategy = ((0, None, 64), (0, None, 64), (1, None, 32))
@@ -42,7 +57,8 @@ class ProposalVolumeSampler(Configurable, nn.Module):
         nn.Module.__init__(self)
         self.config = config
         self._set_fields(kwargs)
-        self._require(raydist_fn=None)
+        if self.raydist_fn is not None and not isinstance(self.raydist_fn, tuple):
+            raise NotImplementedError("a raydist_fn without its inverse is not ported yet")
         grid_params = self.grid_params_per_level or tuple(None for _ in self.mlp_params_per_level)
         self.mlps = nn.ModuleList([
             geometry.DensityMLP(
@@ -52,6 +68,13 @@ class ProposalVolumeSampler(Configurable, nn.Module):
             )
             for i, params in enumerate(self.mlp_params_per_level)
         ])
+
+    def _ray_warps(self, rays, use_raydist_fn):
+        if not use_raydist_fn or self.raydist_fn is None:
+            return coord.construct_ray_warps(None, rays.near, rays.far)
+        fn, fn_inv, kwargs = self.raydist_fn
+        return coord.construct_ray_warps(functools.partial(fn, **kwargs), rays.near, rays.far,
+                                         fn_inv=functools.partial(fn_inv, **kwargs))
 
     def _anneal(self, train_frac):
         """Proposal-logit sharpening over training (Schlick's bias curve)."""
@@ -63,7 +86,7 @@ class ProposalVolumeSampler(Configurable, nn.Module):
 
     def forward(self, rng, rays, train_frac=1.0, train=True, stopgrad_proposal=False,
                 stopgrad_weights=False, stopgrad_samples=False, sampling_strategy=None,
-                **render_kwargs):
+                use_raydist_fn=True, **render_kwargs):
         is_secondary = render_kwargs.get("is_secondary", False)
         if is_secondary and rays.normals is not None:
             raise NotImplementedError("the secondary-ray normal offset is not ported yet")
@@ -81,7 +104,7 @@ class ProposalVolumeSampler(Configurable, nn.Module):
                 f"sampling_strategy {tuple(sampling_strategy)} indexes MLP {max_mlp} but "
                 f"mlp_params_per_level only defines {len(self.mlps)} MLP(s)")
 
-        _, s_to_t = coord.construct_ray_warps(None, rays.near, rays.far)
+        _, s_to_t = self._ray_warps(rays, use_raydist_fn)
         init_s_near, init_s_far = 0.0, 1.0
         sdist = torch.cat([torch.full_like(rays.near, init_s_near),
                            torch.full_like(rays.far, init_s_far)], dim=-1)

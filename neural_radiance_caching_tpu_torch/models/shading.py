@@ -14,13 +14,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from neural_radiance_caching_tpu_torch.engine import gin_config as gin
 from neural_radiance_caching_tpu_torch.models import grids
 from neural_radiance_caching_tpu_torch.models.layers import Configurable, SkipMLP
 from neural_radiance_caching_tpu_torch.ops import coord, math
 from neural_radiance_caching_tpu_torch.utils import torchutil
 
 
-class BaseShader(Configurable, nn.Module):
+class BaseShader(Configurable, nn.Module, unported=dict(
+        weight_init="he_uniform", min_deg_point=0, max_deg_point=4, rgb_bias_diffuse=-1.0,
+        rgb_padding=0.001, basis_shape="icosahedron", basis_subdivisions=2,
+        affine_density_feature=False, backfacing_target="normals_to_use",
+        backfacing_noise_rate=float("inf"), backfacing_near=0.1)):
     """Base class for the shaders (radiance cache, material, light sampler, SLF)."""
 
     net_activation = staticmethod(F.relu)

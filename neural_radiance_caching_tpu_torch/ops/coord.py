@@ -27,6 +27,65 @@ def contract_radius_2(x):
     return contract(x / 2.0)
 
 
+def contract_cube(x):
+    """L-infinity analogue of contract(): squashes space into a cube."""
+    x_max = torch.clamp(torch.amax(torch.abs(x), dim=-1, keepdim=True), min=1)
+    scale = (2 * x_max - 1) / x_max**2
+    return scale * x
+
+
+def contract_projective(x):
+    """MERF-style projective contraction."""
+    x_abs = torch.abs(x)
+    x_max = torch.clamp(torch.amax(x_abs, dim=-1, keepdim=True), min=1)
+    x_max = (x_max + 1) / 2.0
+    scale = 1 / x_max
+    z = scale * x
+    idx = torch.argmax(x_abs, dim=-1, keepdim=True)
+    negative = torch.gather(z, -1, idx) < 0
+    o = torch.where(negative, -2 + scale, 2 - scale)
+    ival = torch.arange(x.shape[-1], device=x.device).reshape([1] * (x.dim() - 1) + [-1])
+    return torch.where(x_max <= 1, x, torch.where(ival == idx, o, z))
+
+
+# The gin files' per-scale wrappers.
+def contract_constant(x, c=7.0):
+    return x / c
+
+
+def contract_constant_1(x, c=1.0):
+    return x / c
+
+
+def contract_radius_5(x):
+    return contract(x / 5.0)
+
+
+def contract_radius_1_2(x):
+    return contract(x / 0.5)
+
+
+def contract_radius_1_4(x):
+    return contract(x / 0.25)
+
+
+def contract_cube_5(x):
+    return contract_cube(x / 5.0)
+
+
+def contract_cube_2(x):
+    return contract_cube(x / 2.0)
+
+
+def contract_cube_1_2(x):
+    # Divides by 0.25, as the JAX function does.
+    return contract_cube(x / 0.25)
+
+
+def contract_cube_1_4(x):
+    return contract_cube(x / 0.25)
+
+
 def _contract_jacobian(x):
     """d contract(x) / dx as [..., 3, 3]."""
     m = torch.sum(x**2, dim=-1, keepdim=True)

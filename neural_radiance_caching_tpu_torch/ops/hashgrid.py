@@ -13,6 +13,12 @@ planes kernel (point-minor tap planes); ``use_planes_layout`` decides. With
 along the point axis onto the run's last update and scatters only those
 (``_dedup_weighted_scatter``, the skip-zero-weight kernel instance).
 
+``_GridEncode``'s backward is first-order only (``once_differentiable``: its
+table gradient comes from a kernel launch with no autograd history), so a
+second backward through it raises. A caller that differentiates the
+encoding twice (the analytic density normals) asks for the plain encoder,
+``multires_grid_encode(..., plain=True)``, whose autograd is second-order.
+
 Semantics match the JAX encoder bit for bit where they are integer: the
 spatial hash wraps int32 corners to uint32 and multiplies (computed here in
 int64 masked to 32 bits), simplex ranks break ties with the same `>`/`>=`
@@ -26,6 +32,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from neural_radiance_caching_tpu_torch.ops import math as nrc_math
 
@@ -313,6 +320,7 @@ class _GridEncode(torch.autograd.Function):
         return _reduce_multisamples(f, batch_shape, m, multisample_reduce)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, ct):
         x, x_scale, rows, weights, hash_tables, dense_pool = ctx.saved_tensors
         (grid_sizes, table_size, dense_offsets, multisample_reduce, interpolation,
@@ -391,6 +399,7 @@ def multires_grid_encode(
     scatter_fn=None,
     planes_scatter_fn=None,
     scatter_dedup: bool = False,
+    plain: bool = False,
 ):
     """Public encoder: gather forward, weighted-scatter table backward.
 
@@ -403,9 +412,16 @@ def multires_grid_encode(
     ``scatter_dedup`` runs the leveled backward through the run-dedup
     (``_dedup_weighted_scatter``, ``scatter_fn`` with ``skip_zero_w=True``);
     as in the JAX encoder it applies below ``PLANES_MIN_POINTS`` and with
-    more than one tap per point.
+    more than one tap per point. ``plain`` takes the plain-torch encoder
+    instead, whose autograd (gather backward, no kernel) is second-order.
     """
     from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+
+    if plain:
+        return _multires_grid_encode_torch(
+            x, hash_tables, dense_pool, grid_sizes=tuple(int(s) for s in grid_sizes),
+            table_size=int(table_size), dense_offsets=tuple(int(o) for o in dense_offsets),
+            x_scale=x_scale, multisample_reduce=multisample_reduce, interpolation=interpolation)
 
     if scatter_fn is None:
         scatter_fn = scatter_cuda.scatter_add_weighted_leveled

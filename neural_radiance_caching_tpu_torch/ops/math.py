@@ -8,6 +8,7 @@ lookups (``take_along_last``, ``sorted_lookup``) become ``torch.gather`` and
 
 from __future__ import annotations
 
+import functools
 import math as pymath
 
 import numpy as np
@@ -204,6 +205,62 @@ def power_ladder(x, p, premult=None, postmult=None):
     return y
 
 
+def power_ladder_max_output(p):
+    """Limit of power_ladder(x, p) as x -> inf."""
+    p = _t(p)
+    return select([(p == -float("inf"), 1.0), (p >= 0, float("inf"))], safe_div(p - 1, p))
+
+
+def inv_power_ladder(y, p, premult=None, postmult=None):
+    """Exact inverse of power_ladder."""
+    if postmult is not None:
+        y = y / postmult
+    p = _t(p, y)
+    yp = torch.abs(y)
+    p_safe = clip_finite_nograd(remove_zero(p))
+    y_max = minus_eps(power_ladder_max_output(p))
+    yp = override_gradient(torch.maximum(torch.minimum(yp, y_max), -y_max), yp)
+    x = safe_sign(y) * select(
+        [
+            (p == 1, yp),
+            (p == 0, safe_expm1(yp)),
+            (p == -float("inf"), -safe_log1p(-yp)),
+            (p == float("inf"), safe_log1p(yp)),
+        ],
+        torch.abs(p_safe - 1) * ((safe_div(p_safe, torch.abs(p_safe - 1)) * yp + 1)
+                                 ** (1 / p_safe) - 1),
+    )
+    if premult is not None:
+        x = x / premult
+    return x
+
+
+def abs_(x):
+    """The gin files' ``math.abs``."""
+    return torch.abs(x)
+
+
+def safe_tanh(x):
+    return torch.tanh(x)
+
+
+def power_3(x, exponent=3.0):
+    return torch.pow(torch.abs(x), exponent) * safe_sign(x)
+
+
+def laplace_cdf(x, beta):
+    alpha = 1 / beta
+    return alpha * (0.5 + 0.5 * safe_sign(x) * (torch.exp(-torch.abs(x) / beta) - 1))
+
+
+def scaled_softplus(x, scale=100.0):
+    return (1.0 / scale) * torch.logaddexp(scale * x, torch.zeros_like(x))
+
+
+def sine_plus(x):
+    return (torch.sin(x) + 1.0) / 2.0
+
+
 def approx_erf(x):
     """erf approximation accurate to ~0.007."""
     return torch.sign(x) * torch.sqrt(1 - torch.exp(-(4 / pymath.pi) * x**2))
@@ -228,6 +285,10 @@ def learning_rate_decay(step, lr_init, lr_final, max_steps, lr_delay_steps=0, lr
     t = np.clip(step / f32(max_steps), f32(0), f32(1))
     lv0, lv1 = f32(np.log(lr_init)), f32(np.log(lr_final))
     return float(f32(delay_rate) * np.exp(t * (lv1 - lv0) + lv0, dtype=f32))
+
+
+def create_learning_rate_decay(**kwargs):
+    return functools.partial(learning_rate_decay, **kwargs)
 
 
 def take_along_last(v, idx):

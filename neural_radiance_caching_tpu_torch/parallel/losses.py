@@ -3,8 +3,8 @@ part of ``parallel/losses.py`` the slices reach): the Charbonnier, the
 gradient-debiased squared error (``mse_unbiased``, the consistency loss's
 type in the transient material stage), the gradient-debiased RawNeRF and its
 transient form (scaled by the rendering summed over time bins) data losses,
-the spline interlevel loss, distortion, the predicted-normal regularizers
-and gradient clipping. A rendering may carry ``gt_nocorr``, the target of
+the spline interlevel loss, distortion, the predicted-normal regularizers,
+the opaque/empty mask loss and gradient clipping. A rendering may carry ``gt_nocorr``, the target of
 the debiased second estimate (the consistency loss's nocorr cache target).
 Loss types off the slices, and the transient Gaussian-pyramid term, raise."""
 
@@ -152,6 +152,31 @@ def compute_data_loss(batch, rendering, rays, config, main=False, transient=Fals
     sub_loss = (lossmult * data_loss).mean()
     stats["mses"].append(mse * config.data_loss_mult)
     return sub_loss, {k: torch.stack(v) for k, v in stats.items()}
+
+
+def compute_mask_loss(batch, rendering, rays, config, train_frac=1.0, empty_loss_weight=None):
+    """Opaque/empty acc supervision: a Charbonnier of acc against the mask,
+    weighted by opaque_loss_weight inside the mask and empty_loss_weight
+    outside (or by `empty_loss_weight` outside only)."""
+    lossmult = rays.lossmult
+    masks = batch.masks if batch.masks is not None else torch.ones_like(lossmult)
+    if rendering.get("acc") is None:
+        return torch.zeros((), device=lossmult.device)
+    decay = compute_weight_decay(
+        train_frac, config.use_mask_weight_decay, config.mask_weight_decay_start,
+        config.mask_weight_decay_frac, config.mask_weight_decay_min)
+    ease = compute_weight_ease_in(
+        train_frac, config.use_mask_weight_ease, config.mask_weight_ease_start,
+        config.mask_weight_ease_frac, config.mask_weight_ease_min)
+    data_loss = torch.sqrt((rendering["acc"][..., None] - masks) ** 2
+                           + config.charb_padding**2) * decay * ease
+    zero = torch.zeros_like(data_loss)
+    if empty_loss_weight is not None:
+        data_loss = torch.where(masks > 0.5, zero, data_loss * empty_loss_weight)
+    else:
+        data_loss = torch.where(masks > 0.5, data_loss * config.opaque_loss_weight,
+                                data_loss * config.empty_loss_weight)
+    return torch.mean(lossmult * data_loss)
 
 
 def spline_interlevel_loss(ray_history, *, mults, blurs, eps=1e-5):

@@ -3,9 +3,14 @@
 
 One process, one device: the step runs eagerly on the model's device. The
 optimizer is ``torch.optim.Adam``, which places eps exactly as the JAX
-package's Adam does; every step sets the learning rate from ``learning_rate_decay``
-evaluated at the step count before the update (the JAX optimizer's
-schedule convention).
+package's Adam does. ``Config.extra_opt_params`` gives a module its own
+schedule and Adam settings: one parameter group per entry, holding the
+parameters whose JAX path (``utils/weights.jax_path``) has the entry's name
+as a component, the last matching entry winning (the JAX optimizer chains
+one masked Adam per entry, in dict order); the rest form the main group.
+Every step sets each group's learning rate from its own
+``learning_rate_decay`` evaluated at the step count before the update (the
+JAX optimizer's schedule convention).
 
 Losses cover every model output whose key ends in ``main`` (the material
 model's ``cache_main`` and ``main``), each with the loss type and weight
@@ -20,41 +25,85 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, List
 
 import torch
 
 from neural_radiance_caching_tpu_torch.ops import math
 from neural_radiance_caching_tpu_torch.parallel import extra_losses as extra_losses_lib
 from neural_radiance_caching_tpu_torch.parallel import losses as losses_lib
+from neural_radiance_caching_tpu_torch.utils import weights
 
 
 @dataclasses.dataclass
 class TrainState:
-    """Model, optimizer, learning-rate schedule and step count."""
+    """Model, optimizer, the main learning-rate schedule, one schedule per
+    parameter group (in the optimizer's order) and the step count."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     lr_fn: Callable[[int], float]
+    group_lr_fns: List[Callable[[int], float]] = dataclasses.field(default_factory=list)
     step: int = 0
 
 
-def create_optimizer(config, model):
-    """Adam over every parameter with the `learning_rate_decay` schedule.
+def is_material_model(model):
+    from neural_radiance_caching_tpu_torch.models import material_model
 
-    Returns (TrainState, lr_fn). Per-module overrides (extra_opt_params) and
-    gradient accumulation are not ported yet and raise.
+    return isinstance(model, material_model.BaseMaterialModel)
+
+
+def param_group_names(config, model):
+    """{state_dict key: the extra_opt_params entry whose schedule it takes,
+    or None for the main schedule}."""
+    material = is_material_model(model)
+    names = {}
+    for key, _ in model.named_parameters():
+        path = weights.jax_path(key, material)
+        names[key] = None
+        for prefix in config.extra_opt_params or {}:
+            if prefix in path:
+                names[key] = prefix
+    return names
+
+
+def create_optimizer(config, model):
+    """Adam with the `learning_rate_decay` schedule, and a group of its own
+    for each ``extra_opt_params`` entry that holds parameters.
+
+    Returns (TrainState, lr_fn of the main schedule). ``is_material`` picks
+    the entries' ``*_material`` values. Gradient accumulation is not ported
+    yet and raises.
     """
-    if config.extra_opt_params or config.grad_accum_steps > 1 or config.is_material:
-        raise NotImplementedError(
-            "extra_opt_params, gradient accumulation and material schedules are not ported yet")
-    lr_fn = functools.partial(
-        math.learning_rate_decay, lr_init=config.lr_init, lr_final=config.lr_final,
-        max_steps=config.max_steps, lr_delay_steps=config.lr_delay_steps,
-        lr_delay_mult=config.lr_delay_mult)
-    optimizer = torch.optim.Adam(model.parameters(), lr=lr_fn(0),
-                                 betas=(config.adam_beta1, config.adam_beta2), eps=config.adam_eps)
-    return TrainState(model=model, optimizer=optimizer, lr_fn=lr_fn), lr_fn
+    if config.grad_accum_steps > 1:
+        raise NotImplementedError("gradient accumulation is not ported yet")
+    suffix = "_material" if config.is_material else ""
+
+    def lr_fn_of(opt_params):
+        def get(name, default):
+            return opt_params.get(name + suffix, opt_params.get(name, default))
+
+        return functools.partial(
+            math.learning_rate_decay, lr_init=get("lr_init", config.lr_init),
+            lr_final=get("lr_final", config.lr_final),
+            max_steps=get("max_steps", config.max_steps),
+            lr_delay_steps=get("lr_delay_steps", config.lr_delay_steps),
+            lr_delay_mult=get("lr_delay_mult", config.lr_delay_mult)), dict(
+            betas=(get("adam_b1", config.adam_beta1), get("adam_b2", config.adam_beta2)),
+            eps=get("adam_eps", config.adam_eps))
+
+    lr_fn, adam_main = lr_fn_of({})
+    names = param_group_names(config, model)
+    groups, lr_fns = [], []
+    for name in [None] + list(config.extra_opt_params or {}):
+        params = [p for key, p in model.named_parameters() if names[key] == name]
+        if not params:
+            continue
+        fn, adam = (lr_fn, adam_main) if name is None else lr_fn_of(config.extra_opt_params[name])
+        groups.append(dict(params=params, lr=fn(0), name=name, **adam))
+        lr_fns.append(fn)
+    optimizer = torch.optim.Adam(groups, lr=lr_fn(0), **adam_main)
+    return TrainState(model=model, optimizer=optimizer, lr_fn=lr_fn, group_lr_fns=lr_fns), lr_fn
 
 
 def _compute_losses_for_output(batch, rays, model_results, config, train_frac, main_name,
@@ -90,6 +139,10 @@ def _compute_losses_for_output(batch, rays, model_results, config, train_frac, m
     if config.distortion_loss_mult > 0:
         losses[prefix + "distortion"] = losses_lib.compute_distortion_loss(
             ray_history, config.distortion_loss_mult, config)
+    if (config.opaque_loss_weight > 0 or config.empty_loss_weight > 0) and \
+            batch.masks is not None:
+        losses[prefix + "mask"] = losses_lib.compute_mask_loss(
+            batch, rendering, rays, config, train_frac=train_frac)
 
     decay = losses_lib.compute_weight_decay(
         train_frac, config.use_normal_weight_decay, config.normal_weight_decay_start,
@@ -120,7 +173,6 @@ def _check_config(config):
         "debug_mode": config.debug_mode,
         "orientation_loss_mult": config.orientation_loss_mult > 0,
         "eikonal_loss_mult": config.eikonal_loss_mult > 0 or config.eikonal_coarse_loss_mult > 0,
-        "opaque/empty_loss_weight": config.opaque_loss_weight > 0 or config.empty_loss_weight > 0,
         "patch_loss_mult": config.patch_loss_mult > 0,
         "param_regularizers": bool(config.param_regularizers),
     }
@@ -207,11 +259,13 @@ def create_train_step(model, config):
             losses_lib.clip_gradients(state.model, config)
             stats["grad_norm"] = losses_lib.tree_norm([p.grad for p in params])
             stats["param_norm"] = losses_lib.tree_norm([p.detach() for p in params])
-        for group in state.optimizer.param_groups:
-            group["lr"] = state.lr_fn(state.step)
+        for group, lr_fn in zip(state.optimizer.param_groups, state.group_lr_fns):
+            group["lr"] = lr_fn(state.step)
         state.optimizer.step()
         state.step += 1
         stats["loss"] = loss.detach()
+        stats["losses"] = {k: v.detach() if isinstance(v, torch.Tensor) else v
+                           for k, v in stats["losses"].items()}
         return state, stats
 
     return train_step
@@ -237,3 +291,70 @@ def create_render_fn(model, **apply_kwargs):
                          compute_extras=compute_extras, **apply_kwargs)["render"]
 
     return render_fn
+
+
+def setup_model(config, dataset=None, device="cuda"):
+    """Model, optimizer state, eval render function, train step and the main
+    learning-rate schedule, on `device` (the card unless the caller asks for
+    the CPU)."""
+    from neural_radiance_caching_tpu_torch.models import construct
+
+    del dataset
+    model = construct.make_model(config, device=device)
+    state, lr_fn = create_optimizer(config, model)
+    return model, state, create_render_fn(model), create_train_step(model, config), lr_fn
+
+
+# --- Checkpoint surgery ----------------------------------------------------------
+#
+# The stage warm starts match on the JAX parameter paths, "params/Cache/...",
+# of both the source state_dict and the model.
+
+
+def _jax_flat(state_dict, material):
+    return {"/".join(("params",) + weights.jax_path(k, material)): (k, v)
+            for k, v in state_dict.items()}
+
+
+def replace_param_subset(model, source_state_dict, put_prefix="", take_prefix="",
+                         exclude_prefixes=(), source_material=None):
+    """Copy the source's parameters under `take_prefix` into `model` under
+    `put_prefix`, except those under an `exclude_prefixes` entry; a path the
+    model lacks is skipped, a shape mismatch raises. `source_material` says
+    whether the source is a material model's state_dict (default: the
+    model's kind)."""
+    material = is_material_model(model)
+    source_material = material if source_material is None else source_material
+    target = _jax_flat(model.state_dict(), material)
+    updates = {}
+    for k_src, (_, v) in _jax_flat(source_state_dict, source_material).items():
+        if not k_src.startswith(take_prefix):
+            continue
+        k_dst = put_prefix + k_src[len(take_prefix):]
+        if any(k_dst.startswith(p) for p in exclude_prefixes) or k_dst not in target:
+            continue
+        key, current = target[k_dst]
+        if tuple(current.shape) != tuple(v.shape):
+            raise ValueError(f"Shape mismatch restoring {k_dst}: {tuple(current.shape)} vs "
+                             f"{tuple(v.shape)}")
+        updates[key] = v
+    with torch.no_grad():
+        params = dict(model.named_parameters())
+        params.update(dict(model.named_buffers()))
+        for key, v in updates.items():
+            params[key].copy_(v.to(params[key].device, params[key].dtype))
+    return model
+
+
+def restore_partial_checkpoint(model, source_state_dict, prefixes=None, exclude_prefixes=(),
+                               replace_dict=None, source_material=None):
+    """Prefix-filtered restore with optional put/take prefix renaming
+    ({put_prefix: take_prefix})."""
+    kwargs = dict(exclude_prefixes=tuple(exclude_prefixes), source_material=source_material)
+    if replace_dict:
+        for put_prefix, take_prefix in replace_dict.items():
+            replace_param_subset(model, source_state_dict, put_prefix, take_prefix, **kwargs)
+        return model
+    for prefix in prefixes if prefixes is not None else [""]:
+        replace_param_subset(model, source_state_dict, prefix, prefix, **kwargs)
+    return model

@@ -72,8 +72,12 @@ def test_metric_harness_matches_jax_and_lpips_raises():
 
 
 def test_shift_invariant_metrics_raise():
+    # The Config builds (the trainer builds one for every stage); the code
+    # that reads the field raises.
+    cfg = tconfigs.Config(use_shift_invariance=True)
+    batch = tpytrees.Batch(rays=None, rgb=torch.zeros(4, 3))
     with pytest.raises(NotImplementedError, match="shift-invariant"):
-        tconfigs.Config(use_shift_invariance=True)
+        ttrainer.compute_eval_metrics({}, batch, 2, 2, cfg, None, lambda x: x)
 
 
 H, W, T = 10, 12, 6
