@@ -108,7 +108,30 @@ Phases, one line each (any failure exits nonzero):
      the trainer's own train_log.jsonl; losses finite with their cache_
      duplicates, the checkpoint written, a second run resumes and takes no
      step, no kernel launch (the density normals take the plain encoder),
-     peak memory; then one 48^2 test view through log_test_set_evaluation.
+     peak memory; then one 48^2 test view through log_test_set_evaluation;
+ 21. trainer material reference: phase 19's method on the material stage of
+     configs/synthetic_spheres.gin (material_light_from_scratch with
+     resampling, the smoothness, consistency and secondary-ray interlevel
+     weights and the secondary rays' stop-gradient weights bound): every
+     loss term (light_sampling, material_ray_sampler, material_smoothness,
+     direct_indirect_consistency, the data terms and their cache_
+     duplicates) and every gradient leaf, the limit bracketed by a noise
+     floor and two faults planted in the leveled kernel; 4 leveled launches
+     per step (the cache's primary and secondary samples, material
+     smoothness's re-evaluation of the final density MLP, the light
+     sampler's grid); then the same step with the hotdog's orientation
+     loss: every loss term, the leaves whose noise floor is under a tenth of
+     the limit against it and the two faults, the final density MLP's
+     leaves (which the loss makes chaotic under the 1e2 secondary-ray
+     weight) finite;
+ 22. trainer material train: the README's second stage as
+     train_one_stage.py builds it (material_light_from_scratch_resample,
+     sample factor 8, batch 1024, render chunk 1024) on the full-width
+     configs/ngp_yobo.gin through train_with_trainer, in-process,
+     warm-started from phase 20's checkpoint: 3 warmup + N timed steps,
+     every loss term finite and present, no kernel launch, peak memory, the
+     checkpoint written, a second run (without the warm start) that
+     resumes it and takes no step, one 48^2 test view.
 Then the kernels JSON line, the eval JSON line, the transient material JSON
 line, the trainer JSON line, the nvidia-smi line, and the result line.
 """
@@ -124,6 +147,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -697,11 +721,16 @@ def _per_level(grads):
     return out
 
 
-def _worst_grad_err(g, ref, keys=None):
+def _grad_errs(g, ref):
+    """The relative L2 error of each gradient leaf (each grid level its own)."""
     g, ref = _per_level(g), _per_level(ref)
-    keys = [k for k in ref if keys is None or k.split("[")[0] in keys]
-    errs = {k: float((g[k] - ref[k]).norm()) / max(float(ref[k].norm()), 1e-30) for k in keys
+    return {k: float((g[k] - ref[k]).norm()) / float(ref[k].norm()) for k in ref
             if float(ref[k].norm()) > 0}
+
+
+def _worst_grad_err(g, ref, keys=None):
+    errs = {k: v for k, v in _grad_errs(g, ref).items()
+            if keys is None or k.split("[")[0] in keys}
     worst = max(errs, key=errs.get)
     return errs[worst], worst
 
@@ -1963,23 +1992,55 @@ def phase_transient_material_train(torch, device, seed, steps, smi, profile=None
     return result
 
 
-# The gin cache stage of the staged trainer (`engine/trainer.Trainer`, the
-# `train_with_trainer` entry point): on configs/synthetic_spheres.gin its
-# final proposal level runs the leveled kernel once per step; on the
-# full-width configs/ngp_yobo.gin the density normals take the plain encoder
-# (second order) and no kernel runs.
+# The gin stages of the staged trainer (`engine/trainer.Trainer`, the
+# `train_with_trainer` entry point). The cache stage: on
+# configs/synthetic_spheres.gin its final proposal level runs the leveled
+# kernel once per step; on the full-width configs/ngp_yobo.gin the density
+# normals take the plain encoder (second order) and no kernel runs. The
+# material stage (README's second stage, material_light_from_scratch with
+# resampling): on synthetic_spheres.gin the leveled kernel runs for the
+# cache's primary samples, its secondary samples, the "geometry"
+# re-evaluation of material_smoothness and the light sampler's grid, which
+# light_sampling trains; on ngp_yobo.gin none (density normals, no light
+# sampler grid).
 TRAINER_REF_CONFIG = "configs/synthetic_spheres.gin"
 TRAINER_CONFIG = "configs/ngp_yobo.gin"
 # The bindings that run a scene config without its data (the JAX trainer
-# test's), and the stage.
-TRAINER_BINDINGS = ("Config.dataset_loader = 'synthetic_spheres'", "Config.near = 0.2",
-                    "Trainer.stage = 'cache'")
+# test's).
+TRAINER_BINDINGS = ("Config.dataset_loader = 'synthetic_spheres'", "Config.near = 0.2")
+TRAINER_CACHE_STAGE = ("Trainer.stage = 'cache'",)
+# The material stage on synthetic_spheres.gin, with the nerf_ngp_yobo.gin
+# family's weights of what spheres leaves off (smoothness, consistency, the
+# secondary rays' stop-gradient weights) and the secondary sampler's
+# interlevel term, so that every ported term has a value and a gradient.
+TRAINER_MATERIAL_STAGE = (
+    "Trainer.stage = 'material_light_from_scratch'", "Trainer.resample = True",
+    "Config.material_smoothness_weight_albedo = 0.0001",
+    "Config.material_smoothness_weight_other = 0.0001",
+    "Config.cache_consistency_loss_weight = 0.1",
+    "Config.material_ray_sampler_interlevel_loss_mult = 1.0",
+    "MaterialMLP.stopgrad_shading_weight = 1e-2", "MaterialMLP.stopgrad_cache_weight = (1e2, 1e-4)")
+_TRAINER_MATERIAL_LAUNCHES_PER_STEP = 4
+# The hotdog's orientation loss (nerf_ngp_yobo_hotdog.gin), added to that
+# stage in phase 21's second step. With the 1e2 weight on the secondary rays'
+# gradient it moves the final density MLP's gradient by up to ~2e-1 in
+# relative L2 when the ray origins move by one ulp on the CPU (the grid's
+# positional derivative jumps at cell faces), so those leaves are checked
+# finite only, and every other leaf against the limit.
+TRAINER_ORIENTATION = ("Config.orientation_loss_mult = 0.01",
+                       "Config.orientation_loss_target = 'normals_pred'")
+# Phase 21's gradient limit, bracketed in every run as GRAD_REL_L2_TOL is.
+TRAINER_MATERIAL_GRAD_REL_L2_TOL = 5e-2
+# The material stage's loss terms (beside the cache's and the orientation's).
+_TRAINER_MATERIAL_TERMS = ("data", "cache_data", "light_sampling", "material_ray_sampler",
+                           "material_smoothness", "direct_indirect_consistency")
 
 
 def _trainer_setup(torch, device, config_file, bindings=()):
-    """The port's Trainer on `config_file`'s cache stage, set up without data
-    loading's thread: bindings synthesized, datasets and model on `device`
-    (the model initialised on the CPU from the Config's seed, then moved)."""
+    """The port's Trainer on a stage of `config_file` (in `bindings`), set up
+    without data loading's thread: bindings synthesized, datasets and model on
+    `device` (the model initialised on the CPU from the Config's seed, then
+    moved)."""
     from neural_radiance_caching_tpu_torch.engine import configs, gin_config
     from neural_radiance_caching_tpu_torch.engine.trainer import Trainer
 
@@ -1996,18 +2057,19 @@ def _trainer_setup(torch, device, config_file, bindings=()):
     return trainer
 
 
-def _trainer_step(torch, device, seed, nudge=False, fault=None):
-    """One train step of the synthetic_spheres.gin cache stage through the
-    Trainer's train step on `device`: the Trainer's first batch and weights,
-    the draws from a CPU generator (the same numbers on both devices)."""
+def _trainer_step(torch, device, seed, nudge=0, fault=None, stage=TRAINER_CACHE_STAGE):
+    """One train step of a synthetic_spheres.gin stage through the Trainer's
+    train step on `device`: the Trainer's first batch and weights, the draws
+    from a CPU generator (the same numbers on both devices). nudge=+-1 moves
+    the ray origins by one ulp up or down."""
     from neural_radiance_caching_tpu_torch.ops import scatter_cuda
 
-    trainer = _trainer_setup(torch, device, TRAINER_REF_CONFIG)
+    trainer = _trainer_setup(torch, device, TRAINER_REF_CONFIG, stage)
     batch = trainer.dataset.next_train()
     if nudge:
         o = batch.rays.origins
         batch = batch.replace(rays=batch.rays.replace(
-            origins=torch.nextafter(o, torch.full_like(o, float("inf")))))
+            origins=torch.nextafter(o, torch.full_like(o, nudge * float("inf")))))
     before = dict(scatter_cuda.launches)
     patch = dict(scatter_add_weighted_leveled=_planted_fault(fault)) if fault else {}
     with _patched(scatter_cuda, **patch):
@@ -2022,7 +2084,7 @@ def phase_trainer_reference(torch, device, seed):
     """The Trainer's cache-stage step on synthetic_spheres.gin, GPU against
     CPU: every loss term and every gradient leaf."""
     l_cpu, g_cpu, n_cpu = _trainer_step(torch, "cpu", seed)
-    floor, floor_at = _worst_grad_err(_trainer_step(torch, "cpu", seed, nudge=True)[1], g_cpu)
+    floor, floor_at = _worst_grad_err(_trainer_step(torch, "cpu", seed, nudge=1)[1], g_cpu)
     l_gpu, g_gpu, n_gpu = _trainer_step(torch, device, seed)
     loss_errs = {k: abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-12) for k in l_cpu}
     loss_err = max(loss_errs.values())
@@ -2050,97 +2112,275 @@ def phase_trainer_reference(torch, device, seed):
                 faults={f: v for f, (v, _) in faults.items()}, tol=tol, launches=n_gpu["leveled"])
 
 
-def phase_trainer_train(torch, device, seed, steps, smi):
-    """The full-width ngp_yobo.gin cache stage through the train_with_trainer
-    entry point, in-process, into a temporary checkpoint_dir: 3 warmup + N
-    timed steps, a second run that resumes and takes no step, and one eval
-    view."""
+def _entry_point_run(torch, args, resume_args, ckpt, warmup, steps):
+    """train_with_trainer.main(args) in-process with a host clock (ending in
+    a sync) around the steps after `warmup`, the launch counts and the peak
+    memory of that run; then train_with_trainer.main(resume_args), which must
+    resume the checkpoint the first run wrote and take no step; then one test
+    view through log_test_set_evaluation."""
     import os
-    import tempfile
 
     from neural_radiance_caching_tpu_torch import train_with_trainer
     from neural_radiance_caching_tpu_torch.engine import gin_config, trainer as trainer_lib
     from neural_radiance_caching_tpu_torch.ops import scatter_cuda
     from neural_radiance_caching_tpu_torch.utils import checkpoints
 
-    warmup = 3
     total = warmup + steps
     timing = {}
+    setup_model = trainer_lib.Trainer._setup_model
 
-    class TimedTrainer(trainer_lib.Trainer):
-        """The Trainer with a host clock (ending in a sync) around the timed
-        steps: its train step is wrapped once the model is set up."""
+    def timed_setup_model(self):
+        """The Trainer's model set-up, then its train step wrapped in the host
+        clock. Patched onto the Trainer class itself: a subclass would not
+        take the gin bindings of `Trainer`."""
+        setup_model(self)
+        step_fn, calls = self.train_step, [0]
 
-        def _setup_model(self):
-            super()._setup_model()
-            step_fn, calls = self.train_step, [0]
+        def timed(*step_args):
+            if calls[0] == warmup:
+                torch.cuda.synchronize()
+                timing["t0"] = time.perf_counter()
+            out = step_fn(*step_args)
+            calls[0] += 1
+            if calls[0] == total:
+                torch.cuda.synchronize()
+                timing["t1"] = time.perf_counter()
+            return out
 
-            def timed(*args):
-                if calls[0] == warmup:
-                    torch.cuda.synchronize()
-                    timing["t0"] = time.perf_counter()
-                out = step_fn(*args)
-                calls[0] += 1
-                if calls[0] == total:
-                    torch.cuda.synchronize()
-                    timing["t1"] = time.perf_counter()
-                return out
+        self.train_step = timed
 
-            self.train_step = timed
+    gin_config.clear_config()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    scatter_cuda.reset_launch_count()
+    t_setup = time.perf_counter()
+    with _patched(trainer_lib.Trainer, _setup_model=timed_setup_model):
+        trainer = train_with_trainer.main(args)
+    wall = time.perf_counter() - t_setup
+    launches = dict(scatter_cuda.launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    dt = (timing["t1"] - timing["t0"]) / steps
+    log = [json.loads(line) for line in open(os.path.join(ckpt, "train_log.jsonl"))]
+    losses = {k: v for k, v in log[-1].items() if k.startswith("loss")}
+    saved = checkpoints.latest_checkpoint_step(ckpt)
+    gin_config.clear_config()
+    resumed = train_with_trainer.main(resume_args)
+    log_after = open(os.path.join(ckpt, "train_log.jsonl")).read().splitlines()
+    resume_ok = resumed.state.step == total and len(log_after) == len(log)
+    del resumed
+    t0 = time.perf_counter()
+    metrics = trainer.log_test_set_evaluation(total, 1.0)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    return dict(trainer=trainer, step_s=dt, wall=wall, launches=launches, peak_gib=peak_gib,
+                log=log, losses=losses, saved=saved, resume_ok=resume_ok, metrics=metrics,
+                eval_s=eval_s, total=total,
+                view=f"{trainer.test_dataset.height}x{trainer.test_dataset.width}")
 
-    with tempfile.TemporaryDirectory() as tmp:
-        ckpt = os.path.join(tmp, "ngp_yobo_cache")
-        args = [f"--gin_configs={TRAINER_CONFIG}"] + [
-            f"--gin_bindings={b}" for b in TRAINER_BINDINGS + (
-                f"Config.checkpoint_dir = '{ckpt}'", f"Config.early_exit_steps = {total}",
-                f"Config.print_every = {total}", f"Config.jax_rng_seed = {20200823 + seed}",
-                "Config.metric_harness_train_config = {'disable_lpips': True}")]
-        gin_config.clear_config()
-        torch.cuda.reset_peak_memory_stats()
-        scatter_cuda.reset_launch_count()
-        t_setup = time.perf_counter()
-        with _patched(trainer_lib, Trainer=TimedTrainer):
-            trainer = train_with_trainer.main(args)
-        wall = time.perf_counter() - t_setup
-        launches = dict(scatter_cuda.launches)
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        dt = (timing["t1"] - timing["t0"]) / steps
-        log = [json.loads(line) for line in open(os.path.join(ckpt, "train_log.jsonl"))]
-        losses = {k: v for k, v in log[-1].items() if k.startswith("loss")}
-        finite = all(v == v and abs(v) != float("inf") for v in losses.values())
-        duplicated = {k for k in losses if k.startswith("loss/cache_")} == {
-            "loss/cache_" + k[5:] for k in losses if k.startswith("loss/") and
-            not k.startswith("loss/cache_")}
-        saved = checkpoints.latest_checkpoint_step(ckpt)
-        gin_config.clear_config()
-        resumed = train_with_trainer.main(args)
-        log_after = open(os.path.join(ckpt, "train_log.jsonl")).read().splitlines()
-        resume_ok = resumed.state.step == total and len(log_after) == len(log)
-        del resumed
-        t0 = time.perf_counter()
-        metrics = trainer.log_test_set_evaluation(total, 1.0)
-        torch.cuda.synchronize()
-        eval_s = time.perf_counter() - t0
-        view = f"{trainer.test_dataset.height}x{trainer.test_dataset.width}"
+
+def _finite(values):
+    return all(v == v and abs(v) != float("inf") for v in values)
+
+
+def phase_trainer_train(torch, device, seed, steps, smi, tmp):
+    """The full-width ngp_yobo.gin cache stage through the train_with_trainer
+    entry point, in-process, into `tmp`: 3 warmup + N timed steps, a second
+    run that resumes and takes no step, and one eval view. Returns its
+    numbers and the checkpoint (phase 22 warm-starts from it)."""
+    import os
+
+    warmup = 3
+    ckpt = os.path.join(tmp, "ngp_yobo_cache")
+    args = [f"--gin_configs={TRAINER_CONFIG}"] + [
+        f"--gin_bindings={b}" for b in TRAINER_BINDINGS + TRAINER_CACHE_STAGE + (
+            f"Config.checkpoint_dir = '{ckpt}'", f"Config.early_exit_steps = {warmup + steps}",
+            f"Config.print_every = {warmup + steps}", f"Config.jax_rng_seed = {20200823 + seed}",
+            "Config.metric_harness_train_config = {'disable_lpips': True}")]
+    run = _entry_point_run(torch, args, args, ckpt, warmup, steps)
+    trainer, dt, losses, log, total = (run["trainer"], run["step_s"], run["losses"], run["log"],
+                                       run["total"])
+    finite = _finite(losses.values())
+    duplicated = {k for k in losses if k.startswith("loss/cache_")} == {
+        "loss/cache_" + k[5:] for k in losses if k.startswith("loss/") and
+        not k.startswith("loss/cache_")}
     n_params = sum(p.numel() for p in trainer.model.parameters())
-    ok = (finite and duplicated and "loss/mask" in losses and saved == total and resume_ok
-          and launches == _launch_counts() and math.isfinite(metrics["psnr"]))
+    metrics = run["metrics"]
+    ok = (finite and duplicated and "loss/mask" in losses and run["saved"] == total
+          and run["resume_ok"] and run["launches"] == _launch_counts()
+          and math.isfinite(metrics["psnr"]))
     print(f"trainer train: train_with_trainer {TRAINER_CONFIG} cache stage ({n_params} params) "
           f"batch {trainer.batch_size} on SyntheticSpheres, {warmup} warmup + {steps} timed steps: "
           f"step_ms={dt * 1e3:.2f} rays_per_s={trainer.batch_size / dt:.0f} (train_log "
           f"rays_per_sec={log[-1]['rays_per_sec']:.0f} over steps 2-{total}) on [{smi}]; "
-          f"peak {peak_gib:.2f} GiB; losses finite={finite} {losses}; checkpoint step {saved}, "
-          f"resumed with no step={resume_ok}; kernel launches={launches} (expected none: the "
-          f"density normals take the plain encoder); eval view {view}: psnr="
-          f"{metrics['psnr']:.2f} ssim={metrics['ssim']:.4f} in {eval_s:.2f}s; entry point "
-          f"{wall:.1f}s {'ok' if ok else 'FAIL'}", flush=True)
+          f"peak {run['peak_gib']:.2f} GiB; losses finite={finite} {losses}; checkpoint step "
+          f"{run['saved']}, resumed with no step={run['resume_ok']}; kernel launches="
+          f"{run['launches']} (expected none: the density normals take the plain encoder); eval "
+          f"view {run['view']}: psnr={metrics['psnr']:.2f} ssim={metrics['ssim']:.4f} in "
+          f"{run['eval_s']:.2f}s; entry point {run['wall']:.1f}s {'ok' if ok else 'FAIL'}",
+          flush=True)
     if not ok:
         raise AssertionError("trainer train phase failed")
     return dict(step_ms=dt * 1e3, rays_per_s=trainer.batch_size / dt,
-                train_log_rays_per_s=log[-1]["rays_per_sec"], peak_gib=peak_gib,
+                train_log_rays_per_s=log[-1]["rays_per_sec"], peak_gib=run["peak_gib"],
                 batch=trainer.batch_size, steps=steps, warmup=warmup, params=n_params,
-                launches=launches["leveled"], eval_view=view, eval_psnr=metrics["psnr"],
-                eval_ssim=metrics["ssim"], eval_s=eval_s, entry_point_s=wall, losses=losses)
+                launches=run["launches"]["leveled"], eval_view=run["view"],
+                eval_psnr=metrics["psnr"], eval_ssim=metrics["ssim"], eval_s=run["eval_s"],
+                entry_point_s=run["wall"], losses=losses), ckpt
+
+
+def phase_trainer_material_reference(torch, device, seed):
+    """The Trainer's material stage step (material_light_from_scratch with
+    resampling) on synthetic_spheres.gin, GPU against CPU: every loss term
+    and every gradient leaf."""
+    stage = TRAINER_MATERIAL_STAGE
+    l_cpu, g_cpu, n_cpu = _trainer_step(torch, "cpu", seed, stage=stage)
+    floor, floor_at = _worst_grad_err(
+        _trainer_step(torch, "cpu", seed, nudge=1, stage=stage)[1], g_cpu)
+    l_gpu, g_gpu, n_gpu = _trainer_step(torch, device, seed, stage=stage)
+    loss_errs = {k: abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-12) for k in l_cpu}
+    loss_err = max(loss_errs.values())
+    err, err_at = _worst_grad_err(g_gpu, g_cpu)
+    faults = {f: _worst_grad_err(_trainer_step(torch, device, seed, fault=f, stage=stage)[1],
+                                 g_cpu)
+              for f in ("taps rotated", "finest level dropped")}
+    finite = all(torch.isfinite(g).all() for g in g_gpu.values())
+    terms = set(_TRAINER_MATERIAL_TERMS)
+    present = terms <= set(l_cpu) and all(l_cpu[k] != 0 for k in terms)
+    tol = TRAINER_MATERIAL_GRAD_REL_L2_TOL
+    launches = _launch_counts(leveled=_TRAINER_MATERIAL_LAUNCHES_PER_STEP)
+    ok = (finite and present and loss_err <= 1e-3 and n_cpu == _launch_counts()
+          and n_gpu == launches and floor <= tol and err <= tol
+          and all(v > tol for v, _ in faults.values()))
+    print(f"trainer material reference: Trainer, {TRAINER_REF_CONFIG} material stage "
+          f"(material_light_from_scratch, resample), one step, the same weights, batch and draws, "
+          f"gpu vs cpu: loss rel_err max={loss_err:.3e} (tol 1e-3; "
+          + ", ".join(f"{k} {v:.2e}" for k, v in sorted(loss_errs.items()))
+          + f") grad rel_l2_err max={err:.3e} at {err_at} (tol {tol}; noise floor, cpu vs cpu "
+          f"with origins +1 ulp: {floor:.3e} at {floor_at}; planted in the leveled kernel "
+          + ", ".join(f"{f}: {v:.3e} at {at}" for f, (v, at) in faults.items())
+          + f", each must exceed the tol) kernel launches gpu={n_gpu} cpu={n_cpu} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the Trainer's GPU material step disagrees with its CPU step")
+    return dict(loss_rel_err=loss_err, loss_rel_errs=loss_errs, grad_rel_l2_err=err,
+                noise_floor=floor, faults={f: v for f, (v, _) in faults.items()}, tol=tol,
+                launches=n_gpu["leveled"], losses=l_gpu,
+                orientation=_trainer_orientation_reference(torch, device, seed, tol, launches))
+
+
+def _trainer_orientation_reference(torch, device, seed, tol, launches):
+    """Phase 21's step with the hotdog's orientation loss, GPU against CPU:
+    every loss term; the gradient leaves whose CPU noise floor (origins one
+    ulp up, then down) is under a tenth of the limit, against the limit and
+    two planted leveled faults; the others finite."""
+    stage = TRAINER_MATERIAL_STAGE + TRAINER_ORIENTATION
+    l_cpu, g_cpu, _ = _trainer_step(torch, "cpu", seed, stage=stage)
+    floors = {}
+    for nudge in (1, -1):
+        for k, v in _grad_errs(_trainer_step(torch, "cpu", seed, nudge=nudge, stage=stage)[1],
+                               g_cpu).items():
+            floors[k] = max(floors.get(k, 0.0), v)
+    held = {k for k, v in floors.items() if v <= tol / 10}
+    l_gpu, g_gpu, n_gpu = _trainer_step(torch, device, seed, stage=stage)
+    loss_errs = {k: abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-12) for k in l_cpu}
+    loss_err = max(loss_errs.values())
+
+    def worst(g):
+        errs = _grad_errs(g, g_cpu)
+        at = max(held, key=errs.get)
+        return errs[at], at, errs
+
+    err, err_at, errs = worst(g_gpu)
+    faults = {f: worst(_trainer_step(torch, device, seed, fault=f, stage=stage)[1])[:2]
+              for f in ("taps rotated", "finest level dropped")}
+    chaotic = {k: (errs[k], floors[k]) for k in sorted(set(floors) - held)}
+    finite = all(torch.isfinite(g).all() for g in g_gpu.values())
+    ok = (finite and l_cpu.get("cache_orientation", 0) > 0 and loss_err <= 1e-3
+          and n_gpu == launches and held and err <= tol
+          and all(v > tol for v, _ in faults.values()))
+    print(f"trainer material reference with the orientation loss ({', '.join(TRAINER_ORIENTATION)}"
+          f"): loss rel_err max={loss_err:.3e} (tol 1e-3; cache_orientation "
+          f"{loss_errs['cache_orientation']:.2e}, material_ray_sampler "
+          f"{loss_errs['material_ray_sampler']:.2e}) grad rel_l2_err max={err:.3e} at {err_at} "
+          f"over the {len(held)} of {len(floors)} leaves whose noise floor (cpu vs cpu, origins "
+          f"+-1 ulp) is under {tol / 10:g} (tol {tol}; planted in the leveled kernel "
+          + ", ".join(f"{f}: {v:.3e} at {at}" for f, (v, at) in faults.items())
+          + ", each must exceed the tol); finite, with (gpu err, noise floor): "
+          + ", ".join(f"{k} ({e:.2e}, {f:.2e})" for k, (e, f) in chaotic.items())
+          + f"; finite={finite} kernel launches gpu={n_gpu} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the Trainer's GPU material step with the orientation loss "
+                             "disagrees with its CPU step")
+    return dict(loss_rel_err=loss_err, grad_rel_l2_err=err, held=len(held), leaves=len(floors),
+                faults={f: v for f, (v, _) in faults.items()},
+                finite_only={k: dict(err=e, noise_floor=f) for k, (e, f) in chaotic.items()})
+
+
+# The README's second stage as train_one_stage.py builds it for
+# `-c ngp_yobo -t material_light_from_scratch_resample --sample_factor 8
+# --batch_size 1024 --render_chunk_size 1024`.
+TRAINER_MATERIAL_COMMAND = ("-c", "ngp_yobo", "-t", "material_light_from_scratch_resample",
+                            "--sample_factor", "8", "--batch_size", "1024",
+                            "--render_chunk_size", "1024")
+def phase_trainer_material_train(torch, device, seed, steps, smi, tmp, cache_ckpt,
+                                 profile=None):
+    """The README's second stage on the full-width ngp_yobo.gin through the
+    train_with_trainer entry point, in-process, warm-started from phase 20's
+    cache checkpoint: 3 warmup + N timed steps, a second run that resumes its
+    own checkpoint and takes no step, and one 48^2 eval view at chunk 1024."""
+    import os
+
+    from neural_radiance_caching_tpu_torch import train_one_stage
+
+    warmup = 3
+    ckpt = os.path.join(tmp, "ngp_yobo_material_light_from_scratch")
+    command = train_one_stage.stage_command(
+        list(TRAINER_MATERIAL_COMMAND) + ["--device", device], checkpoint_dir=ckpt,
+        partial_checkpoint_dir=cache_ckpt)
+    command = [c for c in command[3:] if c != "--logtostderr"]  # the entry point's arguments
+    extra = [f"--gin_bindings={b}" for b in TRAINER_BINDINGS + (
+        f"Config.early_exit_steps = {warmup + steps}", f"Config.print_every = {warmup + steps}",
+        f"Config.jax_rng_seed = {20200823 + seed}",
+        "Config.metric_harness_train_config = {'disable_lpips': True}")]
+    resume = [c for c in command if "partial_checkpoint_dir" not in c]
+    run = _entry_point_run(torch, command + extra, resume + extra, ckpt, warmup, steps)
+    trainer, dt, losses, log, total = (run["trainer"], run["step_s"], run["losses"], run["log"],
+                                       run["total"])
+    terms = [f"loss/{k}" for k in _TRAINER_MATERIAL_TERMS]
+    finite = _finite(losses.values()) and all(k in losses for k in terms)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    metrics = run["metrics"]
+    cfg = trainer.config
+    ok = (finite and run["saved"] == total and run["resume_ok"]
+          and run["launches"] == _launch_counts() and math.isfinite(metrics["psnr"]))
+    print(f"trainer material train: train_with_trainer {TRAINER_CONFIG} "
+          f"{' '.join(TRAINER_MATERIAL_COMMAND[2:])} warm-started from the cache stage "
+          f"({n_params} params, {trainer.model.shader.num_secondary_samples} secondary rays per "
+          f"point, gradient_checkpointing={cfg.gradient_checkpointing}) batch "
+          f"{trainer.batch_size}, {warmup} warmup + {steps} timed steps: step_ms={dt * 1e3:.2f} "
+          f"rays_per_s={trainer.batch_size / dt:.0f} "
+          f"(train_log rays_per_sec={log[-1]['rays_per_sec']:.0f} over steps 2-{total}) on "
+          f"[{smi}]; peak {run['peak_gib']:.2f} GiB; losses finite and present={finite} {losses}; "
+          f"checkpoint step {run['saved']}, resumed with no step={run['resume_ok']}; kernel "
+          f"launches={run['launches']} (expected none); eval view {run['view']} at chunk "
+          f"{cfg.render_chunk_size}: psnr={metrics['psnr']:.2f} ssim={metrics['ssim']:.4f} in "
+          f"{run['eval_s']:.2f}s; entry point {run['wall']:.1f}s {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError("trainer material train phase failed")
+    if profile:
+        path = str(profile)
+        stem, dot, ext = path.rpartition(".")
+        batches = [trainer.dataset.next_train() for _ in range(2)]
+        _profile(torch, trainer.train_step, trainer.state, trainer.rng, batches,
+                 f"{stem}.trainer_material.{ext}" if dot else path + ".trainer_material",
+                 steps=2)
+    return dict(step_ms=dt * 1e3, rays_per_s=trainer.batch_size / dt,
+                train_log_rays_per_s=log[-1]["rays_per_sec"], peak_gib=run["peak_gib"],
+                batch=trainer.batch_size, steps=steps, warmup=warmup, params=n_params,
+                launches=run["launches"]["leveled"],
+                eval_view=run["view"], eval_psnr=metrics["psnr"], eval_ssim=metrics["ssim"],
+                eval_s=run["eval_s"], entry_point_s=run["wall"], losses=losses)
 
 
 def _profile(torch, train_step, state, rng, batches, path, steps=3):
@@ -2149,15 +2389,19 @@ def _profile(torch, train_step, state, rng, batches, path, steps=3):
 
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for i in range(steps):
             state, _ = train_step(rng, state, batches[i], 0.5)
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     path = pathlib.Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-    path.write_text(table)
-    print(f"profile: top device ops over {steps} steps written to {path}", flush=True)
+    path.write_text(table + f"\nhost clock over the {steps} profiled steps: {wall_ms:.2f} ms\n")
+    print(f"profile: top device ops over {steps} steps ({wall_ms:.2f} ms by host clock, "
+          f"profiler on) written to {path}", flush=True)
     print("\n".join(table.splitlines()[:16]), flush=True)
 
 
@@ -2172,11 +2416,12 @@ def main():
     parser.add_argument("--transient-material-steps", type=int, default=10,
                         help="timed transient material train steps of each form (bench, trainer)")
     parser.add_argument("--trainer-steps", type=int, default=10,
-                        help="timed steps of the entry point's ngp_yobo.gin cache stage")
+                        help="timed steps of each of the entry point's ngp_yobo.gin stages "
+                             "(cache, material)")
     parser.add_argument("--profile", metavar="FILE",
                         help="also profile train steps and write the op tables to FILE "
-                             "(cache), and FILE with .material, .transient or "
-                             ".transient_material before its suffix")
+                             "(cache), and FILE with .material, .transient, "
+                             ".transient_material or .trainer_material before its suffix")
     args = parser.parse_args()
 
     import torch
@@ -2225,7 +2470,13 @@ def main():
                                           smi, args.profile)
     tmat_launches = sum(r["launches"] for r in tmat.values())
     trainer_reference = phase_trainer_reference(torch, device, args.seed)
-    trainer_train = phase_trainer_train(torch, device, args.seed, args.trainer_steps, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer_train, cache_ckpt = phase_trainer_train(torch, device, args.seed,
+                                                        args.trainer_steps, smi, tmp)
+        trainer_material_reference = phase_trainer_material_reference(torch, device, args.seed)
+        trainer_material = phase_trainer_material_train(
+            torch, device, args.seed, args.trainer_steps, smi, tmp, cache_ckpt,
+            args.profile)
     print(f"phases done in {time.perf_counter() - t_start:.1f}s, build included", flush=True)
 
     csrc = "neural_radiance_caching_tpu_torch/csrc"
@@ -2243,7 +2494,8 @@ def main():
                         "transient_train": transient["direct"]["launches"],
                         "transient_train_dedup": 0, "gate": gate["launches"], "eval_render": 0,
                         "transient_material": tmat_launches,
-                        "trainer_train": trainer_train["launches"]}
+                        "trainer_train": trainer_train["launches"],
+                        "trainer_material_train": trainer_material["launches"]}
     print(json.dumps({"kernels": [{
         "name": "scatter_add_weighted_leveled",
         "route": "cuda",
@@ -2277,7 +2529,8 @@ def main():
         "launches": transient["dedup"]["launches"],
         "launches_by_path": {"cache_train": 0, "material_train": 0, "transient_train": 0,
                              "transient_train_dedup": transient["dedup"]["launches"], "gate": 0,
-                             "eval_render": 0, "transient_material": 0, "trainer_train": 0},
+                             "eval_render": 0, "transient_material": 0, "trainer_train": 0,
+                             "trainer_material_train": 0},
         "max_abs_err": max(skip["max_abs_err"], transient["dedup"]["max_abs_err"]),
         "max_abs_err_by_shape": {"transient_dedup_stream": skip["max_abs_err"],
                                  "transient_path": transient["dedup"]["max_abs_err"]},
@@ -2297,7 +2550,8 @@ def main():
         "launches": material["planes"],
         "launches_by_path": {"cache_train": 0, "material_train": material["planes"],
                              "transient_train": 0, "transient_train_dedup": 0, "gate": 0,
-                             "eval_render": 0, "transient_material": 0, "trainer_train": 0},
+                             "eval_render": 0, "transient_material": 0, "trainer_train": 0,
+                             "trainer_material_train": 0},
         "max_abs_err": max(planes["max_abs_err"], material_err["planes"]),
         "max_abs_err_by_shape": {"planes_shape": planes["max_abs_err"],
                                  "material_path": material_err["planes"]},
@@ -2319,7 +2573,8 @@ def main():
         "launches_by_path": {"rows_kernel_phase": rows["launches"], "cache_train": 0,
                              "material_train": 0, "transient_train": 0,
                              "transient_train_dedup": 0, "gate": 0, "eval_render": 0,
-                             "transient_material": 0, "trainer_train": 0},
+                             "transient_material": 0, "trainer_train": 0,
+                             "trainer_material_train": 0},
         **{k: v for k, v in rows.items() if k != "launches"},
     }], "timing": timing, "transient_train": {
         name: {k: v for k, v in r.items() if k != "max_abs_err"}
@@ -2331,8 +2586,11 @@ def main():
         "reference": tmat_reference, "eval_render": eval_render["transient_material"],
         "leveled_launches_per_step": _TRANSIENT_MATERIAL_LAUNCHES_PER_STEP["leveled"],
         "device": smi}}), flush=True)
-    print(json.dumps({"trainer": {"train": trainer_train, "reference": trainer_reference,
-                                  "device": smi}}), flush=True)
+    print(json.dumps({"trainer": {
+        "train": trainer_train, "reference": trainer_reference,
+        "material_train": trainer_material, "material_reference": trainer_material_reference,
+        "material_reference_leveled_launches_per_step": _TRAINER_MATERIAL_LAUNCHES_PER_STEP,
+        "device": smi}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,9 +29,13 @@ the same dict, the cache render, as in JAX. Without a light sampler
 (``use_light_sampler=False``) the material shader gets no light-sampler
 results.
 
-Not ported yet (they raise): the SLF and volume control variates,
-ground-truth lights and a light power shared with the cache, the
-sub-module bypass passes, vignetting and shared materials.
+``bypass`` evaluates one sub-module at given samples (the passes
+"geometry", "material_shader" and "material_cache_shader" that the
+smoothness losses run).
+
+Not ported yet (they raise): the SLF and volume control variates and the
+surface-light-field passes, ground-truth lights and a light power shared
+with the cache, vignetting and shared materials.
 """
 
 from __future__ import annotations
@@ -114,14 +118,24 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(
     _CACHE_MAIN_KEYS = ("sampler", "filtered_sampler_inds", "geometry", "shader", "integrator")
 
     def forward(self, rng, rays, train_frac=1.0, train=True, compute_extras=False,
-                cache_outputs=None, filtered_sampler_inds=_CACHE_INDS, **render_kwargs):
-        """Returns {"cache_main", "main", "render"}.
+                cache_outputs=None, filtered_sampler_inds=_CACHE_INDS, passes=None,
+                sampler_results=None, secondary_proposal_grad=True, **render_kwargs):
+        """Returns {"cache_main", "main", "render"}, or with `passes` naming
+        a bypass pass, that pass's outputs at `sampler_results` (``bypass``).
 
         cache_outputs: {"sampler": ray history} of an earlier forward to reuse
         in the cache pass (the gradient-debias pass); filtered_sampler_inds,
         when given (None included), replaces the cache pass's resample
-        indices for the surface points.
+        indices for the surface points. secondary_proposal_grad=False runs
+        the secondary rays' proposal levels without a graph (the train step
+        asks for it where no loss reads them).
         """
+        if passes is not None and set(passes) & set(self.BYPASS_PASSES):
+            return self.bypass(rng, rays, passes, sampler_results, train_frac=train_frac,
+                               train=train, **render_kwargs)
+        if passes is not None and tuple(passes) != ("cache", "light", "material"):
+            raise NotImplementedError(f"the material model's passes {tuple(passes)} are not "
+                                      "ported yet")
         if render_kwargs.pop("is_secondary", False):
             raise NotImplementedError("secondary-ray queries of the material model are not ported")
         key, rng = torchutil.random_split(rng)
@@ -150,9 +164,51 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(
         key, rng = torchutil.random_split(rng)
         outputs = self._handle_material_pass(
             key, rays, train_frac, train, cache_outputs, cache_shader_results, filtered,
-            light_sampler_results, compute_extras)
+            light_sampler_results, compute_extras, secondary_proposal_grad)
         return self._finalize_outputs(outputs, cache_outputs, cache_shader_results,
                                       light_sampler_results)
+
+    # The sub-module passes at given samples (JAX's `_maybe_bypass_pipeline`);
+    # the surface-light-field passes raise with the SLF.
+    BYPASS_PASSES = ("material_shader", "material_cache_shader", "geometry",
+                     "surface_light_field", "surface_light_field_vis")
+
+    def bypass(self, rng, rays, passes, sampler_results, train_frac=1.0, train=True,
+               material_only=False):
+        """One sub-module evaluated at externally supplied samples
+        (`sampler_results`: means, covs, tdist and the shader's inputs).
+
+        "geometry": the cache's final density MLP at the samples' Gaussians.
+        "material_shader": that MLP's feature replaces the samples', then the
+        material shader runs there; "material_cache_shader": the cache
+        shader too, as {"material": ..., "cache": ...}. material_only
+        makes the material shader output its material heads only and trace
+        no secondary ray (``MaterialMLP.predict_appearance``).
+        """
+        shared = dict(rays=rays, train_frac=train_frac, train=train, is_secondary=False)
+
+        def geometry(key):
+            return self.cache.sampler.mlps[-1](
+                rng=key, gaussians=(sampler_results["means"], sampler_results["covs"]),
+                tdist=sampler_results["tdist"], **shared)
+
+        if {"material_shader", "material_cache_shader"} & set(passes):
+            key, rng = torchutil.random_split(rng)
+            sampler_results = dict(sampler_results, feature=geometry(key)["feature"])
+            key, rng = torchutil.random_split(rng)
+            material = self.shader(rng=key, sampler_results=sampler_results, radiance_cache=self,
+                                   material_only=material_only, **shared)
+            if "material_cache_shader" not in passes:
+                return material
+            key, rng = torchutil.random_split(rng)
+            cache = self.cache.shader(rng=key, sampler_results=sampler_results,
+                                      filtered_sampler_results=sampler_results,
+                                      radiance_cache=self, **shared)
+            return {"material": material, "cache": cache}
+        if "geometry" in passes:
+            key, rng = torchutil.random_split(rng)
+            return geometry(key)
+        raise NotImplementedError("the surface-light-field passes are not ported yet")
 
     def _finalize_cache_only(self, cache_outputs, rays):
         """The cache render is the model output: ``cache_main`` and ``main``
@@ -208,12 +264,12 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(
 
     def _handle_material_pass(self, rng, rays, train_frac, train, cache_outputs,
                               cache_shader_results, filtered, light_sampler_results,
-                              compute_extras):
+                              compute_extras, secondary_proposal_grad=True):
         shared = dict(rays=rays, train_frac=train_frac, train=train)
         key, rng = torchutil.random_split(rng)
         material_shader_results = self.shader(
             rng=key, sampler_results=filtered, light_sampler_results=light_sampler_results,
-            radiance_cache=self, **shared)
+            radiance_cache=self, secondary_proposal_grad=secondary_proposal_grad, **shared)
         key, rng = torchutil.random_split(rng)
         material_integrator_results = self.integrator(
             rng=key, shader_results=material_shader_results, compute_extras=compute_extras,

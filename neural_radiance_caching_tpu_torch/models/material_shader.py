@@ -19,6 +19,13 @@ occlusion. The indirect lobes' radiance from the transient cache is
 time-binned, [P, S, bins, C], and so are the indirect outputs; the direct
 ones are not, and ``rgb`` is the direct radiance.
 
+Gradient through the secondary rays is scaled as in JAX: their shading
+directions by ``stopgrad_shading_weight`` (times the scene-radius mask),
+their cache queries by ``stopgrad_cache_weight`` (the rays' fields, then
+the radiance that comes back). The cache's per-level results on those rays
+are kept for ``material_ray_sampler``; their proposal levels run without
+a graph when the caller asks (``secondary_proposal_grad``).
+
 Environment maps, surface-light-field queries and variates, BRDF correction,
 emission, residual albedo, the irradiance cache, the per-lobe (unfused) path,
 cone lights and structured light are not ported yet and raise.
@@ -101,6 +108,13 @@ def _transient_integration_strategy():
     return strategy
 
 
+# The fields of the cache's per-level results on secondary rays that a loss
+# reads: the interlevel, distortion, orientation and predicted-normal terms
+# of material_ray_sampler.
+_SECONDARY_RESULT_KEYS = ("sdist", "tdist", "weights", "lossmult", "normals", "normals_pred",
+                          "normals_to_use")
+
+
 def _fuse_lobe_rays(spec_rays, diff_rays, ns):
     """Concatenate the two lobes' secondary rays along the secondary axis;
     fields the fan-out did not broadcast pass through from the first."""
@@ -126,9 +140,8 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
         emission_variate_weight_start=1.0, emission_variate_weight_end=1.0,
         irradiance_cache_weight=1.0, irradiance_cache_stopgrad_weight=1.0,
         irradiance_cache_decay_rate=1.0, deg_brdf=2, deg_brdf_anisotropic=2,
-        stopgrad_cache_weight=(1.0, 1.0), stopgrad_slf_weight=(1.0, 1.0),
-        stopgrad_env_map_weight=(1.0, 1.0), stopgrad_shading_weight=1.0,
-        stopgrad_variate_weight=1.0, use_mesh_points=True, use_mesh_points_for_prediction=True,
+        stopgrad_env_map_weight=(1.0, 1.0), stopgrad_variate_weight=1.0, use_mesh_points=True,
+        use_mesh_points_for_prediction=True,
         use_mesh_normals=True, use_corrected_normals=False, stopgrad_samples=False,
         stopgrad_rays=False, stopgrad_rgb=False, stopgrad_light=True, resample_cache=True,
         num_light_features=64, multiple_illumination_outputs=True, stopgrad_occ_weight=0.0)):
@@ -191,6 +204,12 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
     light_max_angle = 0.0
     stopgrad_direct_weight = 1.0
     stopgrad_indirect_weight = 1.0
+    # The gradient scale of the secondary rays' shading directions, and the
+    # (rays, outputs) gradient scales of their cache queries.
+    stopgrad_shading_weight = 1.0
+    stopgrad_cache_weight = (1.0, 1.0)
+    # Read by the surface-light-field queries only (use_surface_light_field).
+    stopgrad_slf_weight = (1.0, 1.0)
     rgb_max = float("inf")
 
     def __init__(self, config=None, density_feature_dim=0, **kwargs):
@@ -294,10 +313,12 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
         return (torch.linalg.norm(points, dim=-1, keepdim=True)
                 < self.config.material_loss_radius).to(torch.float32)
 
-    def _make_radiance_cache_fn(self, radiance_cache, train_frac, train):
+    def _make_radiance_cache_fn(self, radiance_cache, train_frac, train, proposal_grad=True):
         """Closure that traces secondary rays [N, S] through the full cache
         model, flattened to one ray axis for the cache forward; the radiance
-        comes back as [N, S, C], or [N, S, bins, C] from a transient cache."""
+        comes back as [N, S, C], or [N, S, bins, C] from a transient cache,
+        with the cache's per-level sampler results [N, S, ...].
+        proposal_grad=False runs the cache's proposal levels without a graph."""
 
         def radiance_cache_fn(rng, ref_rays):
             lead = tuple(ref_rays.origins.shape[:-1])
@@ -314,7 +335,8 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
                 is_secondary=True, linear_rgb=True, resample=True,
                 sampling_strategy=(self.cache_train_sampling_strategy if train
                                    else self.cache_render_sampling_strategy),
-                radiance_cache=radiance_cache)
+                radiance_cache=radiance_cache, stopgrad_cache_weight=self.stopgrad_cache_weight,
+                proposal_grad=proposal_grad)
             render = out["render"]
 
             def unflatten(x):
@@ -322,11 +344,15 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
 
             rgb = torch.clamp(torch.nan_to_num(unflatten(render["rgb"])), min=0.0)
             rgb_ns = torch.clamp(torch.nan_to_num(unflatten(render["rgb_no_stopgrad"])), min=0.0)
-            # Of the cache's per-level sampler results, the shading reads the
-            # accumulated opacity only.
-            acc = {"acc": torch.nan_to_num(render["acc"]).reshape(lead),
-                   "acc_no_stopgrad": torch.nan_to_num(render["acc_no_stopgrad"]).reshape(lead)}
-            return rgb, rgb_ns, [acc]
+            # Of the per-level sampler results, the fields the secondary-ray
+            # losses read (material_ray_sampler): keeping the rest would hold
+            # activations that gradient checkpointing frees.
+            srs = [{k: unflatten(level[k]) if isinstance(level.get(k), torch.Tensor)
+                    else level.get(k) for k in _SECONDARY_RESULT_KEYS}
+                   for level in out["main"]["sampler"]]
+            srs[-1]["acc"] = torch.nan_to_num(render["acc"]).reshape(lead)
+            srs[-1]["acc_no_stopgrad"] = torch.nan_to_num(render["acc_no_stopgrad"]).reshape(lead)
+            return rgb, rgb_ns, srs
 
         return radiance_cache_fn
 
@@ -340,12 +366,13 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
             random_generator_2d=self.random_generator_2d, samplers=samplers,
             num_secondary_samples=num_secondary_samples, light_sampler_results=light_sec,
             far=self.config.secondary_far)
+        shading_w = self.stopgrad_shading_weight
         if self.config.material_loss_radius < float("inf"):
             # No shading gradient through secondary rays that start outside
             # the scene radius.
-            mask = self._radius_mask(ref_rays.origins)
-            for d in ("local_viewdirs", "local_lightdirs", "global_viewdirs", "global_lightdirs"):
-                ref_samples[d] = stopgrad_with_weight(ref_samples[d], mask)
+            shading_w = self._radius_mask(ref_rays.origins) * shading_w
+        for d in ("local_viewdirs", "local_lightdirs", "global_viewdirs", "global_lightdirs"):
+            ref_samples[d] = stopgrad_with_weight(ref_samples[d], shading_w)
         ref_samples["weight"] = torch.where(ref_samples["local_lightdirs"][..., 2:] > 0.0,
                                             ref_samples["weight"], 0.0)
         return ref_rays, ref_samples
@@ -437,7 +464,8 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
         for (comp, n, _, material_type), (rr, rs) in zip(lobes, sampled):
             lo, hi = offset, offset + n
             offset = hi
-            srs_l = [{k: v[:, lo:hi] for k, v in srs[-1].items()}]
+            srs_l = [{k: v[:, lo:hi] if isinstance(v, torch.Tensor) else v
+                      for k, v in level.items()} for level in srs]
             ref_samples = self._attach_lobe_radiance(rgb[:, lo:hi], rgb_ns[:, lo:hi], rs, srs_l, n)
             integrated = self._integrate_lobe(material_type, material, ref_samples, srs_l, False,
                                               sh)
@@ -537,21 +565,31 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
 
     def predict_appearance(self, rng, rays, sampler_results, train_frac=1.0, train=True,
                            radiance_cache=None, light_sampler_results=None, material_only=False,
-                           slf_variate=False, **kwargs):
+                           slf_variate=False, secondary_proposal_grad=True, **kwargs):
+        """The shader's outputs at the samples. material_only: the material
+        heads alone, as the full pass outputs them (radius-masked), and no
+        secondary ray traced (the perturbed pass of material_smoothness,
+        which reads nothing else). secondary_proposal_grad=False: the
+        secondary rays' proposal levels run without a graph, which would
+        otherwise hold their activations through the step (the train step
+        asks for it where no loss reads them; JAX's compiler drops them)."""
         del kwargs
         if slf_variate:
             raise NotImplementedError("the surface-light-field variate is not ported yet")
         key, rng = torchutil.random_split(rng)
         feature, material = self._predict_material_and_feature(key, rays, sampler_results, train)
         if material_only:
-            return {"material_" + k: v for k, v in material.items()}
+            outputs = {"material_" + k: v for k, v in material.items()}
+            self._apply_radius_mask(outputs, sampler_results["means"])
+            return outputs
         emission = torch.zeros_like(material["albedo"])
         outputs = {"material_residual_albedo": torch.zeros_like(material["albedo"])}
         key, rng = torchutil.random_split(rng)
         integrated = self.get_outgoing_radiance(
             key, rays, sampler_results, material,
             self.num_secondary_samples if train else self.render_num_secondary_samples,
-            self._make_radiance_cache_fn(radiance_cache, train_frac, train),
+            self._make_radiance_cache_fn(radiance_cache, train_frac, train,
+                                         secondary_proposal_grad),
             train_frac=train_frac, train=train, light_sampler_results=light_sampler_results)
         final_rgb = integrated["direct_radiance_out" if self.config.use_transient
                                else "radiance_out"]
@@ -595,8 +633,11 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
             lights = self._lights(rays.lights, rays.vcam_look, rays.vcam_up)
             outputs["light_dists"] = torch.linalg.norm(lights[..., None, :] - means, dim=-1,
                                                        keepdim=True)
-        # Radius mask: no gradient from surface points outside the scene
-        # radius; a time-binned output gets it before its bins axis.
+        self._apply_radius_mask(outputs, means)
+
+    def _apply_radius_mask(self, outputs, means):
+        """No gradient from surface points outside the scene radius; a
+        time-binned output gets the mask before its bins axis."""
         mask = self._radius_mask(means)
         for k, v in outputs.items():
             if not isinstance(v, torch.Tensor):

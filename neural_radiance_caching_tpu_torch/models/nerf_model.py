@@ -160,22 +160,27 @@ class Model(Configurable, nn.Module, unported=_MODEL_UNPORTED):
         filtered["weights"] = filtered["weights"] / (num_resample * filtered_probs + 1e-8).detach()
         return filtered, inds
 
-    def _handle_secondary(self, is_secondary, integrator_results):
-        """Secondary rays report every rgb/acc output also under
-        `<key>_no_stopgrad`, which the material shader reads (the cache's
-        partial stop-gradient of secondary rays is not ported: the two
-        keys carry the same tensor)."""
+    def _handle_secondary(self, is_secondary, integrator_results, stopgrad_cache_weight=None):
+        """Secondary rays report every rgb/transient/acc output also under
+        `<key>_no_stopgrad`, which the material shader reads; with the
+        material shader's ``stopgrad_cache_weight`` (w_rays, w_out) the
+        outputs themselves pass gradient scaled by w_out (their
+        `_no_stopgrad` twins in full)."""
         if not is_secondary:
             return integrator_results
+        partial = stopgrad_cache_weight is not None and tuple(stopgrad_cache_weight) != (1.0, 1.0)
         for k in list(integrator_results):
             v = integrator_results[k]
             if v is not None and any(s in k for s in ("rgb", "transient", "acc")):
                 integrator_results[f"{k}_no_stopgrad"] = v
+                if partial:
+                    integrator_results[k] = torchutil.stopgrad_with_weight(
+                        v, stopgrad_cache_weight[1])
         return integrator_results
 
     def apply_shader_and_integrator(self, rng, rays, filtered_sampler_results, stopgrad_map,
                                     train, train_frac, is_secondary, bg_intensity_range,
-                                    **render_kwargs):
+                                    stopgrad_cache_weight=None, **render_kwargs):
         """Shade the (filtered) samples and composite them."""
         weights_only = render_kwargs.pop("weights_only", False)
         inputs = torchutil.apply_stopgrad_fields(filtered_sampler_results, stopgrad_map)
@@ -195,7 +200,8 @@ class Model(Configurable, nn.Module, unported=_MODEL_UNPORTED):
         integrator_results = self.integrator(
             rng=key, rays=rays, shader_results=shader_results,
             bg_intensity_range=bg_intensity_range, **shared, **render_kwargs)
-        integrator_results = self._handle_secondary(is_secondary, integrator_results)
+        integrator_results = self._handle_secondary(is_secondary, integrator_results,
+                                                    stopgrad_cache_weight)
         return shader_results, integrator_results
 
     def make_weights_only_shader_results(self, rays, sampler_results):
@@ -228,14 +234,25 @@ class NeRFModel(Model, unported=dict(use_material=False)):
 
     def forward(self, rng, rays, train_frac=1.0, train=True, sampling_strategy=None,
                 is_secondary=False, resample=False, cache_outputs=None,
-                filtered_sampler_inds=None, **render_kwargs):
+                filtered_sampler_inds=None, stopgrad_cache_weight=None, proposal_grad=True,
+                **render_kwargs):
         """Render a ray batch; returns {"main": per-stage results, "render": rgb etc.}.
 
         cache_outputs: {"sampler": ray history} of an earlier forward to reuse
         instead of sampling again (the gradient-debias pass).
+        stopgrad_cache_weight: (w_rays, w_out) of secondary rays (the material
+        shader's): every ray field passes gradient scaled by w_rays into the
+        sampler, shader and integrator, and the rgb/transient/acc outputs
+        pass theirs scaled by w_out (``_handle_secondary``). Ignored for
+        primary rays.
+        proposal_grad: False runs the sampler's proposal levels without a graph
+        (``ProposalVolumeSampler.forward``).
         """
         do_resample = self.do_resample(resample, is_secondary, train)
         bg_intensity_range, use_raydist_fn = self.get_bg_and_raydist(is_secondary)
+        if not is_secondary:
+            stopgrad_cache_weight = None
+        rays = torchutil.partial_stopgrad_rays(rays, stopgrad_cache_weight)
 
         if cache_outputs is not None:
             sampler_results = [dict(r) for r in cache_outputs["sampler"]]
@@ -244,7 +261,8 @@ class NeRFModel(Model, unported=dict(use_material=False)):
             sampler_results = self.sampler(
                 rng=key, rays=rays, train_frac=train_frac, train=train,
                 sampling_strategy=self.get_sampling_strategy(train, sampling_strategy),
-                use_raydist_fn=use_raydist_fn, is_secondary=is_secondary, **render_kwargs)
+                use_raydist_fn=use_raydist_fn, is_secondary=is_secondary,
+                proposal_grad=proposal_grad, **render_kwargs)
 
         key, rng = torchutil.random_split(rng)
         filtered, filtered_sampler_inds = self.maybe_resample(
@@ -254,7 +272,8 @@ class NeRFModel(Model, unported=dict(use_material=False)):
         key, rng = torchutil.random_split(rng)
         shader_results, integrator_results = self.apply_shader_and_integrator(
             key, rays, filtered, self.geometry_stopgrad_map(do_resample),
-            train, train_frac, is_secondary, bg_intensity_range, **render_kwargs)
+            train, train_frac, is_secondary, bg_intensity_range,
+            stopgrad_cache_weight=stopgrad_cache_weight, **render_kwargs)
 
         main = dict(
             loss_weight=1.0, sampler=sampler_results, filtered_sampler_inds=filtered_sampler_inds,

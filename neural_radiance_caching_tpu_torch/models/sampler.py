@@ -8,6 +8,8 @@ primary and secondary rays, with the identity ray warp or a ``raydist_fn``
 given as ``(fn, fn_inv, kwargs)`` (the power ladder of the gin files); the
 mesh shortcut, the sample network, a ray warp without its inverse, the
 secondary-ray normal offset and density filters are not ported yet.
+Levels before the last can run without a graph (``proposal_grad``), where
+no loss reads them.
 """
 
 from __future__ import annotations
@@ -86,7 +88,11 @@ class ProposalVolumeSampler(Configurable, nn.Module, unported=dict(
 
     def forward(self, rng, rays, train_frac=1.0, train=True, stopgrad_proposal=False,
                 stopgrad_weights=False, stopgrad_samples=False, sampling_strategy=None,
-                use_raydist_fn=True, **render_kwargs):
+                use_raydist_fn=True, proposal_grad=True, **render_kwargs):
+        """The per-level ray results. proposal_grad=False evaluates every level
+        but the last without a graph where their samples reach the next
+        level detached (``stop_level_grad``): then only a loss on their own
+        weights (the interlevel loss) could read one."""
         is_secondary = render_kwargs.get("is_secondary", False)
         if is_secondary and rays.normals is not None:
             raise NotImplementedError("the secondary-ray normal offset is not ported yet")
@@ -138,9 +144,12 @@ class ProposalVolumeSampler(Configurable, nn.Module, unported=dict(
             gaussians = render.cast_rays(
                 tdist, rays.origins, rays.directions, rays.radii, self.ray_shape, diag=False)
 
+            is_last = i_level == len(sampling_strategy) - 1
             key, rng = torchutil.random_split(rng)
-            ray_results = mlp(rng=key, rays=rays, gaussians=gaussians, tdist=tdist,
-                              train_frac=train_frac, train=train, **render_kwargs)
+            keep_graph = proposal_grad or is_last or not self.stop_level_grad
+            with torch.set_grad_enabled(torch.is_grad_enabled() and keep_graph):
+                ray_results = mlp(rng=key, rays=rays, gaussians=gaussians, tdist=tdist,
+                                  train_frac=train_frac, train=train, **render_kwargs)
 
             means = gaussians[0]
             ray_results["points"] = means
@@ -167,7 +176,6 @@ class ProposalVolumeSampler(Configurable, nn.Module, unported=dict(
             ray_results["alphas"] = alphas
             ray_results["trans"] = trans
 
-            is_last = i_level == len(sampling_strategy) - 1
             if (stopgrad_proposal and not is_last) or stopgrad_samples:
                 ray_results = {k: (v.detach() if isinstance(v, torch.Tensor) else v)
                                for k, v in ray_results.items()}

@@ -4,7 +4,8 @@
 Local shading frames, the 2D uniform generator, the cosine, uniform and GGX
 importance samplers with the power-heuristic MIS weights, the active-light
 sampler (the direction toward the light), vMF mixture evaluation, sampling
-and filtering with the learned-light sampler, the Disney-ish microfacet
+and filtering with the learned-light sampler, the unbiased vMF-mixture fit
+of the light-sampling loss (``vmf_loss_fn``), the Disney-ish microfacet
 lobe, the secondary-ray fan-out at surface points, the Monte-Carlo
 reflection estimators (steady, and time-binned for the transient material
 shader) and the transient causality mask ``zero_invalid_bins``.
@@ -25,6 +26,7 @@ import types
 import numpy as np
 import torch
 
+from neural_radiance_caching_tpu_torch.ops import image
 from neural_radiance_caching_tpu_torch.ops import math as math_utils
 from neural_radiance_caching_tpu_torch.ops import ref_utils
 from neural_radiance_caching_tpu_torch.utils import torchutil
@@ -204,6 +206,29 @@ def sample_vmf(rng, vmf_vars, x, n_dirs):
     s = math_utils.safe_sqrt(1.0 - w**2)
     rand_dirs = torch.stack([s * v[..., 0], s * v[..., 1], w], dim=-1)
     return torch.matmul(rotmat[..., None, :, :], rand_dirs[..., None])[..., 0]
+
+
+def vmf_loss_fn(vmf_vars, sample_normals, sample_dirs, samples, function_vals,
+                function_vals_nocorr, lossmult, linear_to_srgb=True):
+    """Unbiased fit of the vMF mixture (means [N, K, 3], kappas and logits
+    [N, K, 1]) to the radiance norms of the secondary samples [N, S]:
+    mean((f - L) sg(f' - L) w lossmult / max(pdf, 1e-2)), with the sample
+    weights clipped to [0, 10] and zeroed below the surface."""
+    means = ref_utils.l2_normalize(vmf_vars[0], grad_eps=1e-5)
+    kappas = vmf_vars[1][..., 0]
+    weights_mix = math_utils.safe_exp(vmf_vars[2][..., 0])
+    likelihood = torch.sum(weights_mix[..., None, :] * eval_vmf(
+        sample_dirs[..., None, :], means[..., None, :, :], kappas[..., None, :]), dim=-1)
+    denominator = torch.clamp(samples["pdf"][..., 0], min=1e-2)
+    dotprod = (sample_dirs * sample_normals[..., None, :]).sum(dim=-1)
+    weight = torch.clamp(samples["weight"][..., 0], 0.0, 10.0)
+    weight = torch.where(dotprod > 0.0, weight, torch.zeros_like(weight))
+    if linear_to_srgb:
+        function_vals = image.linear_to_srgb(torch.clamp(function_vals, min=1e-5))
+        function_vals_nocorr = image.linear_to_srgb(torch.clamp(function_vals_nocorr, min=1e-5))
+        likelihood = image.linear_to_srgb(torch.clamp(likelihood, min=1e-5))
+    return torch.mean((function_vals - likelihood) * (function_vals_nocorr - likelihood).detach()
+                      * weight * lossmult / denominator)
 
 
 class ActiveSampler:

@@ -1,18 +1,28 @@
 """Stage-dependent extra losses (counterpart of the part of
 ``parallel/extra_losses.py`` the material stages reach): the cache/material
-consistency loss, steady and transient, with its weight ease-in.
+consistency loss, steady and transient, with its weight ease-in, the
+light-sampling fit of the vMF mixture, the secondary-ray sampler's
+supervision (``material_ray_sampler``) and the material smoothness
+regularizer.
 
 ``Config.extra_losses`` maps a loss name to {output key: {"mult", ...}}; the
-staged trainer binds ``direct_indirect_consistency`` on ``main`` for every
-material stage (``flagship.trainer_consistency_losses``). The consistency
-losses read the material shader's outputs and their ``cache_*``
-counterparts (the cache shader at the same surface points), and the
-``_nocorr`` outputs of the gradient-debias forward only under a
+staged trainer binds its material stages' losses (``configs/trainer.gin``)
+and ``direct_indirect_consistency`` on ``main`` for every material stage
+(``flagship.trainer_consistency_losses``). The losses of
+``EXTRA_LOSS_FUNCTIONS`` take (model, rng, rays, config, batch, results,
+full_results, train_frac), `results` being one output's dict and
+`full_results` the whole model output; each draws from `rng` in dict
+order, as the JAX losses take their keys from one split chain. The
+consistency losses read the material shader's outputs and their
+``cache_*`` counterparts (the cache shader at the same surface points), and
+the ``_nocorr`` outputs of the gradient-debias forward only under a
 stop-gradient, so that forward needs no graph (``parallel/train.py``).
 
-Every other extra loss, and each loss the JAX package turns on by a Config
-weight (maximum radiance, material correlation, weight normalisation, extra
-rays), raises: they are ROADMAP queue 1 item 5.
+The other extra losses of the JAX table (the surface-light-field,
+geometry-smoothness, emission and residual-albedo losses), and each loss
+the JAX package turns on by a Config weight (maximum radiance, material
+correlation, weight normalisation, extra rays), raise: they are ROADMAP
+queue 1 item 5.
 """
 
 from __future__ import annotations
@@ -22,7 +32,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from neural_radiance_caching_tpu_torch.ops import render_utils
 from neural_radiance_caching_tpu_torch.parallel import losses as losses_lib
+from neural_radiance_caching_tpu_torch.utils import torchutil
 from neural_radiance_caching_tpu_torch.utils.torchutil import stopgrad_with_weight
 
 CONSISTENCY = "direct_indirect_consistency"
@@ -116,9 +128,202 @@ def transient_direct_indirect_consistency_loss(config, batch, rays, results):
     return loss
 
 
+# --- light sampler fitting ---------------------------------------------------------
+
+
+def light_sampling_loss(model, rng, rays, config, batch, results, full_results,
+                        train_frac=1.0):
+    """Fit the vMF mixture of the light sampler to the norms of the radiance
+    the indirect lobes' secondary rays brought back (time-integrated on a
+    transient model), half per lobe; a lobe that is absent doubles the
+    other's."""
+    ls = results.get("light_sampler")
+    if not ls:
+        return 0.0
+    shader = results["shader"]
+    data_loss, multiplier = 0.0, 1.0
+    for suffix in ("_indirect_diffuse", "_indirect_specular"):
+        extra_rays = shader.get(f"ref_rays{suffix}")
+        if extra_rays is None:
+            multiplier = 2.0
+            continue
+        ref_samples = shader[f"ref_samples{suffix}"]
+        radiance = ref_samples["radiance_in"].detach()
+        if config.use_transient:
+            radiance = radiance.reshape(radiance.shape[:2] + (-1, radiance.shape[-1])).sum(-2)
+        function_vals = torch.linalg.norm(radiance, dim=-1)
+        viewdirs = extra_rays.viewdirs.reshape(function_vals.shape + (3,)).detach()
+        k = ls["vmf_means"].shape[-2]
+        vmf_vars = (ls["vmf_means"].reshape(-1, k, 3), ls["vmf_kappas"].reshape(-1, k, 1),
+                    ls["vmf_logits"].reshape(-1, k, 1))
+        vmf_normals = ls["vmf_normals"].reshape(-1, 3)
+        lossmult = rays.lossmult.reshape(-1, 1, 1)
+        lossmult = lossmult * torch.ones_like(function_vals.reshape(lossmult.shape[0], -1, 1))
+        lossmult = (lossmult / lossmult.shape[-2]).reshape(function_vals.shape)
+        # The fit reads the sample records' pdf and weight only (the binned
+        # radiance of a transient lobe has no [P, S, d] layout).
+        samples = {key: ref_samples[key].detach().reshape(function_vals.shape + (-1,))
+                   for key in ("pdf", "weight")}
+        data_loss = data_loss + render_utils.vmf_loss_fn(
+            vmf_vars, vmf_normals, viewdirs, samples, function_vals, function_vals, lossmult,
+            linear_to_srgb=config.light_sampling_linear_to_srgb) / 2.0
+    return data_loss * multiplier
+
+
+# --- secondary-ray proposal supervision ----------------------------------------------
+
+
+def material_ray_sampler_loss(model, rng, rays, config, batch, results, full_results,
+                              train_frac=1.0):
+    """The cache-stage geometry losses (interlevel, distortion, orientation,
+    predicted normals) on the diffuse lobe's secondary rays, each times its
+    ``material_ray_sampler_*_mult``. A term whose multipliers make it 0 is
+    not computed: its value and gradient are 0 (JAX multiplies it by 0)."""
+    shader = results["shader"]
+    ref_sampler_results = shader.get("ref_sampler_results_indirect_diffuse")
+    ref_rays = shader.get("ref_rays_indirect_diffuse")
+    if ref_sampler_results is None or ref_rays is None:
+        return 0.0
+    shape = ref_rays.viewdirs[..., :1].shape
+    lossmult = rays.lossmult.reshape(-1, 1, 1)
+    lossmult = (lossmult * torch.ones_like(
+        ref_rays.viewdirs[..., :1].reshape(lossmult.shape[0], -1, 1))).reshape(shape)
+    ref_sampler_results = [dict(r, weights=r["weights"] * lossmult) for r in ref_sampler_results]
+    last = ref_sampler_results[-1]
+
+    loss = 0.0
+    if config.material_ray_sampler_interlevel_loss_mult != 0:
+        loss = loss + sum(losses_lib.compute_interlevel_loss(
+            ref_sampler_results, config.interlevel_loss_mults, config.interlevel_loss_blurs,
+            config)) * config.material_ray_sampler_interlevel_loss_mult
+    normal_mult = config.material_ray_sampler_normal_loss_mult
+    distortion_mult = normal_mult * config.material_ray_sampler_distortion_loss_mult
+    if config.distortion_loss_mult > 0 and distortion_mult != 0:
+        loss = loss + losses_lib.compute_distortion_loss(
+            ref_sampler_results, config.distortion_loss_mult, config) * distortion_mult
+    if config.orientation_loss_mult > 0 and config.material_ray_sampler_orientation_loss_mult != 0:
+        loss = loss + losses_lib.orientation_loss(ref_rays, last, config) * \
+            config.material_ray_sampler_orientation_loss_mult
+    beta = torch.ones_like(last["weights"][..., None])
+    if config.predicted_normal_loss_mult > 0 and normal_mult != 0:
+        loss = loss + losses_lib.predicted_normal_loss(
+            last, beta, config, mult=config.predicted_normal_loss_mult, gt="normals_pred",
+            pred="normals", stopgrad=config.predicted_normal_loss_stopgrad,
+            stopgrad_weight=config.predicted_normal_loss_stopgrad_weight) * normal_mult
+    if config.predicted_normal_reverse_loss_mult > 0 and normal_mult != 0:
+        loss = loss + losses_lib.predicted_normal_loss(
+            last, beta, config, mult=config.predicted_normal_reverse_loss_mult, gt="normals",
+            pred="normals_pred", stopgrad=True) * normal_mult
+    if not isinstance(loss, torch.Tensor):
+        return torch.zeros((), device=ref_rays.viewdirs.device)
+    return torch.nan_to_num(loss)
+
+
+# --- material smoothness -------------------------------------------------------------
+
+_MATERIAL_SMOOTHNESS_KEYS = ("material_albedo", "material_roughness", "material_F_0",
+                             "material_metalness", "material_diffuseness", "material_mirrorness")
+
+
+def _filter_tensors(d):
+    """The tensor entries of a shader dict (it also holds rays, sample
+    records and per-level lists)."""
+    return {k: v for k, v in d.items() if isinstance(v, torch.Tensor)}
+
+
+def material_smoothness_loss(model, rng, rays, config, batch, results, full_results,
+                             train_frac=1.0):
+    """Penalise the material heads' change between one resampled surface
+    point per ray and a Gaussian jitter of it (``material_smoothness_noise``),
+    L1 or L2, relative for the albedo under ``material_smoothness_tensoir_albedo``,
+    optionally weighted down across shadow boundaries by the similarity of
+    the cache's radiance at the two points (the irradiance weight).
+
+    Draws in JAX's order: the resample, the jitter, the perturbed pass. That
+    pass runs the material heads only (``material_only``) and the cache
+    shader: the loss reads nothing else, and the full material shader would
+    trace its secondary rays through the cache.
+    """
+    key, rng = torchutil.random_split(rng)
+    shader_results, inds = model.maybe_resample(key, True, _filter_tensors(results["shader"]), 1)
+    cache_shader = full_results.get("cache_main", {}).get("shader")
+    if cache_shader is None:
+        return 0.0
+    key, rng = torchutil.random_split(rng)
+    cache_shader_results, _ = model.maybe_resample(key, True, _filter_tensors(cache_shader), 1,
+                                                   inds=inds)
+    weights = {"material_albedo": config.material_smoothness_weight_albedo}
+    weights.update({k: config.material_smoothness_weight_other
+                    for k in _MATERIAL_SMOOTHNESS_KEYS[1:]})
+
+    means = shader_results["means"]
+    key, rng = torchutil.random_split(rng)
+    noise = torchutil.normal(key, means.shape, means.device)
+    perturbed_inputs = {k: v.detach() for k, v in shader_results.items()}
+    perturbed_inputs["means"] = (means + noise * config.material_smoothness_noise).detach()
+    key, rng = torchutil.random_split(rng)
+    perturbed = model(key, rays, train_frac=train_frac, train=True, compute_extras=False,
+                      passes=("material_cache_shader",), sampler_results=perturbed_inputs,
+                      material_only=True)
+    perturbed_cache, perturbed_mat = (
+        {k: torch.nan_to_num(v) for k, v in _filter_tensors(perturbed[part]).items()}
+        for part in ("cache", "material"))
+
+    lossmult = rays.lossmult.reshape(-1, 1, 1)
+    lossmult = (lossmult * torch.ones_like(means[..., :1].reshape(lossmult.shape[0], -1, 1))
+                ).reshape(means[..., :1].shape) * (
+        shader_results["weights"][..., None] * shader_results["weights"].shape[-1]).detach()
+
+    # The irradiance cache (an SLF-variate output) is not ported: unit irradiance.
+    nc = config.num_rgb_channels
+    irr = torch.ones_like(means[..., :nc])
+    cache_rgb_key = "rgb" if "rgb" in cache_shader_results else "direct_rgb"
+    cache_rgb = torch.abs(cache_shader_results[cache_rgb_key]).reshape(
+        irr.shape[:-1] + (-1,))[..., :nc].detach() / (torch.clamp(irr, min=0.0) + 1e-5)
+    perturbed_rgb = torch.abs(perturbed_cache[cache_rgb_key]).reshape(
+        cache_rgb.shape).detach() / (torch.clamp(irr, min=0.0) + 1e-5)
+    irradiance_weight = 2.0 * torch.sigmoid(-torch.sum(
+        torch.abs(cache_rgb - perturbed_rgb) / (torch.maximum(cache_rgb, perturbed_rgb) + 1e-5),
+        dim=-1, keepdim=True) * config.material_smoothness_irradiance_multiplier)
+    if config.material_smoothness_irradiance_weight:
+        w = irradiance_weight + config.material_smoothness_base
+    else:
+        w = torch.ones_like(irradiance_weight)
+
+    loss = 0.0
+    for k in _MATERIAL_SMOOTHNESS_KEYS:
+        if k not in shader_results or k not in perturbed_mat:
+            continue
+        value, other = shader_results[k], perturbed_mat[k].reshape(shader_results[k].shape)
+        diff = value - other
+        if "albedo" in k and config.material_smoothness_tensoir_albedo:
+            denom = torch.maximum(value, other)
+            if config.material_smoothness_albedo_stopgrad:
+                denom = denom.detach()
+            diff = diff / torch.clamp(denom, min=1e-6)
+        penalty = torch.abs(diff) if config.material_smoothness_l1_loss else torch.square(diff)
+        loss = loss + (penalty * w * lossmult.reshape(value.shape[:-1] + (-1,))
+                       * weights[k]).mean()
+    return loss
+
+
+# --- dispatch ------------------------------------------------------------------------
+
+EXTRA_LOSS_FUNCTIONS = {
+    "light_sampling": light_sampling_loss,
+    "material_smoothness": material_smoothness_loss,
+    "material_ray_sampler": material_ray_sampler_loss,
+}
+# The rest of the JAX table.
+_UNPORTED_EXTRA_LOSSES = ("emission", "residual_albedo", "surface_light_field",
+                          "material_surface_light_field", "geometry_smoothness",
+                          "material_correlation", "maximum_radiance", "normalize_weight")
+
+
 def unported(config):
-    """The extra losses `config` turns on that are not ported."""
-    names = [k for k in (config.extra_losses or {}) if k != CONSISTENCY]
+    """The extra losses `config` turns on that are not ported. A name in
+    neither table is skipped, as the JAX dispatch skips it."""
+    names = [k for k in (config.extra_losses or {}) if k in _UNPORTED_EXTRA_LOSSES]
     weights = {"maximum_radiance": config.maximum_radiance_loss_weight,
                "material_correlation": max(config.material_correlation_weight_albedo,
                                            config.material_correlation_weight_other),
@@ -127,17 +332,37 @@ def unported(config):
     return names + [f"{k} (by its weight)" for k, w in weights.items() if w > 0]
 
 
-def compute_extra_losses(config, batch, rays, full_results, output_key, losses, train_frac):
+def reads_secondary_proposals(config):
+    """Whether a loss of `config` reads the secondary rays' proposal levels:
+    only the interlevel term of material_ray_sampler does."""
+    return ("material_ray_sampler" in (config.extra_losses or {})
+            and config.material_ray_sampler_interlevel_loss_mult != 0)
+
+
+def compute_extra_losses(config, batch, rays, full_results, output_key, losses, train_frac,
+                         model=None, rng=None):
     """Every configured extra loss of one output ('main' / 'cache_main'),
-    added to `losses` under the output's prefix. `create_train_step` has
-    refused every loss but the consistency loss (`unported`)."""
+    added to `losses` under the output's prefix, in the dict order of
+    ``Config.extra_losses``. `create_train_step` has refused the losses that
+    are not ported (`unported`)."""
     results = full_results.get(output_key)
-    spec = (config.extra_losses or {}).get(CONSISTENCY, {})
-    if results is None or output_key not in spec:
+    if results is None:
         return losses
-    fn = (transient_direct_indirect_consistency_loss if config.use_transient
-          else direct_indirect_consistency_loss)
-    mult = spec[output_key]["mult"] * consistency_weight_ease(config, train_frac)
     prefix = "" if output_key == "main" else output_key.replace("main", "")
-    losses[prefix + CONSISTENCY] = mult * fn(config, batch, rays, results)
+    for name, spec in (config.extra_losses or {}).items():
+        if output_key not in spec:
+            continue
+        if name not in EXTRA_LOSS_FUNCTIONS and name != CONSISTENCY:
+            continue
+        key, rng = torchutil.random_split(rng)
+        mult = spec[output_key]["mult"]
+        if name == CONSISTENCY:
+            fn = (transient_direct_indirect_consistency_loss if config.use_transient
+                  else direct_indirect_consistency_loss)
+            mult = mult * consistency_weight_ease(config, train_frac)
+            loss = fn(config, batch, rays, results)
+        else:
+            loss = EXTRA_LOSS_FUNCTIONS[name](model, key, rays, config, batch, results,
+                                              full_results, train_frac=train_frac)
+        losses[prefix + name] = mult * loss
     return losses

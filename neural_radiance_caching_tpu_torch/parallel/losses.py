@@ -220,6 +220,24 @@ def compute_distortion_loss(ray_history, distortion_loss_mult, config):
                            normalize=config.normalize_distortion_loss)
 
 
+def orientation_loss(rays, ray_results, config):
+    """Ref-NeRF orientation regularizer: weighted squared back-facing part of
+    the `orientation_loss_target` normals (0.0 when they are absent)."""
+    n = ray_results.get(config.orientation_loss_target)
+    if n is None:
+        return 0.0
+    w = ray_results["weights"] * ray_results["lossmult"]
+    if config.orientation_loss_normalize:
+        w = w / torch.sum(w, dim=-1, keepdim=True)
+    if config.orientation_loss_stopgrad:
+        w = w.detach()
+    n = torch.nan_to_num(n)
+    n_dot_v = (n * -rays.viewdirs[..., None, :]).sum(dim=-1)
+    loss = torch.mean(torch.abs(
+        torch.abs(w * torch.clamp(n_dot_v, max=0.0) ** 2).sum(dim=-1) + 1e-5))
+    return loss * config.orientation_loss_mult
+
+
 def predicted_normal_loss(ray_results, beta, config, *, mult, gt="normals",
                           pred="normals_pred", stopgrad=False, stopgrad_weight=1.0):
     """Ref-NeRF predicted normal supervision (0.0 when either normal is absent)."""

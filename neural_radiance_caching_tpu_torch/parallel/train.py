@@ -139,15 +139,15 @@ def _compute_losses_for_output(batch, rays, model_results, config, train_frac, m
     if config.distortion_loss_mult > 0:
         losses[prefix + "distortion"] = losses_lib.compute_distortion_loss(
             ray_history, config.distortion_loss_mult, config)
-    if (config.opaque_loss_weight > 0 or config.empty_loss_weight > 0) and \
-            batch.masks is not None:
-        losses[prefix + "mask"] = losses_lib.compute_mask_loss(
-            batch, rendering, rays, config, train_frac=train_frac)
 
+    # The late-training ramp-down shared by the orientation and
+    # predicted-normal losses.
     decay = losses_lib.compute_weight_decay(
         train_frac, config.use_normal_weight_decay, config.normal_weight_decay_start,
         config.normal_weight_decay_frac, config.normal_weight_decay_min)
     decay_bwd = decay if config.use_normal_weight_decay_backward else 1.0
+    if config.orientation_loss_mult > 0:
+        losses[prefix + "orientation"] = losses_lib.orientation_loss(rays, last, config) * decay
     ease = losses_lib.compute_weight_ease_in(
         train_frac, config.use_normal_weight_ease, config.normal_weight_ease_start,
         config.normal_weight_ease_frac, config.normal_weight_ease_min) * decay
@@ -164,6 +164,10 @@ def _compute_losses_for_output(batch, rays, model_results, config, train_frac, m
         losses[prefix + "predicted_normals_reverse"] = losses_lib.predicted_normal_loss(
             last, beta, config, mult=config.predicted_normal_reverse_loss_mult * ease_bwd,
             gt="normals", pred="normals_pred", stopgrad=True)
+    if (config.opaque_loss_weight > 0 or config.empty_loss_weight > 0) and \
+            batch.masks is not None:
+        losses[prefix + "mask"] = losses_lib.compute_mask_loss(
+            batch, rendering, rays, config, train_frac=train_frac)
     return losses, stats
 
 
@@ -171,7 +175,6 @@ def _check_config(config):
     unported = {
         "cast_rays_in_train_step": config.cast_rays_in_train_step,
         "debug_mode": config.debug_mode,
-        "orientation_loss_mult": config.orientation_loss_mult > 0,
         "eikonal_loss_mult": config.eikonal_loss_mult > 0 or config.eikonal_coarse_loss_mult > 0,
         "patch_loss_mult": config.patch_loss_mult > 0,
         "param_regularizers": bool(config.param_regularizers),
@@ -227,10 +230,15 @@ def create_train_step(model, config):
     device tensors; nothing in the step waits for the device.
     """
     _check_config(config)
+    # A material model's secondary proposal levels keep a graph only where a
+    # loss reads them.
+    forward_kwargs = dict(secondary_proposal_grad=extra_losses_lib.reads_secondary_proposals(
+        config)) if is_material_model(model) else {}
 
     def loss_fn(rng, batch, train_frac):
         rays = batch.rays
-        model_results = model(rng, rays, train_frac=train_frac, train=True, compute_extras=False)
+        model_results = model(rng, rays, train_frac=train_frac, train=True, compute_extras=False,
+                              **forward_kwargs)
         if config.use_gradient_debias and "cache_main" in model_results:
             _debias_forward(model, rng, rays, train_frac, model_results)
         losses: Dict[str, Any] = {}
@@ -239,7 +247,7 @@ def create_train_step(model, config):
             _compute_losses_for_output(batch, rays, model_results, config, train_frac, key,
                                        losses, stats)
             extra_losses_lib.compute_extra_losses(config, batch, rays, model_results, key, losses,
-                                                  train_frac)
+                                                  train_frac, model=model, rng=rng)
         total = sum(losses.values())
         stats["losses"] = losses
         return total, stats

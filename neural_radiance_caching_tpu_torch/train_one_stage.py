@@ -198,7 +198,7 @@ def build_command(args, checkpoint_dir, partial_checkpoint_dir):
     return cmd
 
 
-def main():
+def make_parser():
     parser = argparse.ArgumentParser(description="Train one stage.")
     parser.add_argument("--suffix")
     parser.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
@@ -239,15 +239,25 @@ def main():
         "--gin_bindings", action="append", default=[],
         help="Extra gin bindings appended verbatim (repeatable).",
     )
-    args = parser.parse_args()
+    return parser
 
+
+def stage_command(argv=None, checkpoint_dir=None, partial_checkpoint_dir=None):
+    """The entry point's command for a train_one_stage command line, into
+    `checkpoint_dir` and warm-started from `partial_checkpoint_dir` (by
+    default the directories derived from the scene and the stages)."""
+    args = make_parser().parse_args(argv)
     if not args.config_file:
         args.config_file = get_config_file(args.scene)
     for k, v in parse_stage_flags(args).items():
         setattr(args, k, v)
-    checkpoint_dir = get_checkpoint_path(args)
-    partial_dir = get_partial_checkpoint_path(args)
-    cmd = build_command(args, checkpoint_dir, partial_dir)
+    checkpoint_dir = checkpoint_dir or get_checkpoint_path(args)
+    partial_checkpoint_dir = partial_checkpoint_dir or get_partial_checkpoint_path(args)
+    return build_command(args, checkpoint_dir, partial_checkpoint_dir)
+
+
+def main():
+    cmd = stage_command()
     print("Executing:", " ".join(shlex.quote(c) for c in cmd))
     raise SystemExit(subprocess.call(cmd, cwd=_REPO))
 

@@ -60,6 +60,15 @@ def categorical(rng, logits, num=None):
     return torch.argmax(scores, dim=-1)
 
 
+def partial_stopgrad_rays(rays, weight):
+    """Every tensor field of a rays dataclass through
+    ``stopgrad_with_weight(., weight[0])``; None or (1, 1) returns `rays`."""
+    if weight is None or tuple(weight) == (1.0, 1.0):
+        return rays
+    return type(rays)(**{f: stopgrad_with_weight(getattr(rays, f), weight[0])
+                         for f in rays.__dataclass_fields__})
+
+
 def apply_stopgrad_fields(results, mapping):
     """Per-key stopgrad weights applied to a dict of outputs (new dict)."""
     return {k: stopgrad_with_weight(v, mapping[k]) if k in mapping else v
