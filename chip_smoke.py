@@ -131,7 +131,26 @@ Phases, one line each (any failure exits nonzero):
      warm-started from phase 20's checkpoint: 3 warmup + N timed steps,
      every loss term finite and present, no kernel launch, peak memory, the
      checkpoint written, a second run (without the warm start) that
-     resumes it and takes no step, one 48^2 test view.
+     resumes it and takes no step, one 48^2 test view;
+ 23. trainer transient reference: phase 19's method on InvProp's cache
+     stage (configs/transient_simulation_ngp_yobo_cornell.gin, reference
+     widths, 64 bins, batch 64) with the finetune stages' occlusion
+     bindings: Pixels batches cast in the step, shadow rays, the appearance
+     grid, the density-grid regularizer, geometry smoothness; every loss
+     term and every gradient leaf, the limit bracketed by a CPU noise floor
+     (the cameras' positions one ulp up and down) and two faults planted in
+     the leveled kernel; 1 leveled launch per step, held against its plain
+     version on the same inputs;
+ 24. trainer transient train: that stage at full width (700 bins, three grid
+     proposal levels, the 8-level appearance grid) through the
+     train_with_trainer entry point, in-process, at the largest of batch
+     8192, 4096, ... that fits (the cut printed): 3 warmup + N timed steps,
+     every loss term finite and present, one leveled launch per step, peak
+     memory, the checkpoint, a resuming second run that takes no step, one
+     48^2 test view cast on the host; then one step with the occlusion
+     bindings (shadow rays at full width) with its leveled call held against
+     its plain version, the next step's time and peak memory, and the
+     kernel timed against index_add_ on that call's inputs.
 Then the kernels JSON line, the eval JSON line, the transient material JSON
 line, the trainer JSON line, the nvidia-smi line, and the result line.
 """
@@ -2036,11 +2055,15 @@ _TRAINER_MATERIAL_TERMS = ("data", "cache_data", "light_sampling", "material_ray
                            "material_smoothness", "direct_indirect_consistency")
 
 
-def _trainer_setup(torch, device, config_file, bindings=()):
+def _trainer_setup(torch, device, config_file, bindings=(), nudge=0):
     """The port's Trainer on a stage of `config_file` (in `bindings`), set up
     without data loading's thread: bindings synthesized, datasets and model on
     `device` (the model initialised on the CPU from the Config's seed, then
-    moved)."""
+    moved). nudge=+-1 moves the cameras' positions by one ulp up or down
+    before the train step takes them (the ray origins of a config that casts
+    its rays in the step)."""
+    import numpy as np
+
     from neural_radiance_caching_tpu_torch.engine import configs, gin_config
     from neural_radiance_caching_tpu_torch.engine.trainer import Trainer
 
@@ -2053,25 +2076,34 @@ def _trainer_setup(torch, device, config_file, bindings=()):
     trainer._setup_binding_configs()
     trainer._setup_rng()
     trainer._load_datasets()
+    if nudge:
+        position = trainer.dataset.camtoworlds[..., :3, 3]
+        position[...] = np.nextafter(position, np.float32(nudge * np.inf))
     trainer._setup_model()
     return trainer
 
 
-def _trainer_step(torch, device, seed, nudge=0, fault=None, stage=TRAINER_CACHE_STAGE):
-    """One train step of a synthetic_spheres.gin stage through the Trainer's
-    train step on `device`: the Trainer's first batch and weights, the draws
-    from a CPU generator (the same numbers on both devices). nudge=+-1 moves
-    the ray origins by one ulp up or down."""
+def _trainer_step(torch, device, seed, nudge=0, fault=None, stage=TRAINER_CACHE_STAGE,
+                  config_file=TRAINER_REF_CONFIG, checked=None):
+    """One train step of a stage of `config_file` (synthetic_spheres.gin by
+    default) through the Trainer's train step on `device`: the Trainer's
+    first batch and weights, the draws from a CPU generator (the same numbers
+    on both devices). nudge=+-1 moves the ray origins by one ulp up or down;
+    with `checked`, a list, every leveled call is held against its plain
+    version (`_checking_scatter`) and recorded there."""
     from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+    from neural_radiance_caching_tpu_torch.utils import pytrees
 
-    trainer = _trainer_setup(torch, device, TRAINER_REF_CONFIG, stage)
+    trainer = _trainer_setup(torch, device, config_file, stage, nudge=nudge)
     batch = trainer.dataset.next_train()
-    if nudge:
+    if nudge and not isinstance(batch.rays, pytrees.Pixels):
         o = batch.rays.origins
         batch = batch.replace(rays=batch.rays.replace(
             origins=torch.nextafter(o, torch.full_like(o, nudge * float("inf")))))
     before = dict(scatter_cuda.launches)
     patch = dict(scatter_add_weighted_leveled=_planted_fault(fault)) if fault else {}
+    if checked is not None:
+        patch = dict(scatter_add_weighted_leveled=_checking_scatter("leveled", checked))
     with _patched(scatter_cuda, **patch):
         rng = torch.Generator().manual_seed(seed + 7)
         _, stats = trainer.train_step(rng, trainer.state, batch, 0.0)
@@ -2383,6 +2415,257 @@ def phase_trainer_material_train(torch, device, seed, steps, smi, tmp, cache_ckp
                 eval_s=run["eval_s"], entry_point_s=run["wall"], losses=losses)
 
 
+# InvProp's cache stage, configs/transient_simulation_ngp_yobo_cornell.gin,
+# cache stage: Pixels batches cast in the train step, three grid proposal
+# levels with density normals (the plain encoder, second order: no kernel),
+# the cache shader's own appearance grid (the leveled kernel once per step;
+# at full width batch x 32 samples, 8 levels, F = 4, 2^19 rows),
+# 700 bins, the density-grid regularizer and geometry smoothness. The
+# finetune stages' occlusion bindings add shadow rays: one per sample,
+# traced through the cache's weights only, graph-free, no kernel.
+TRANSIENT_CONFIG = "configs/transient_simulation_ngp_yobo_cornell.gin"
+TRANSIENT_OCCLUSIONS = ("Config.use_occlusions = True", "Config.occlusions_secondary_only = False",
+                        "Config.occlusions_primary_only = False")
+_TRANSIENT_GRID = "'hash_map_size': 4096, 'max_grid_size': 128"
+# Phase 23's widths: 4-level grids of 4096 rows, 16-wide MLPs, 16 samples per
+# level, 64 bins of 0.25 (the scene's path lengths reach ~9), batch 64;
+# the occlusion threshold at 0, so that every shadow ray's opacity reaches
+# the direct light (the reference widths' shadow opacities stay under
+# cornell's 0.9).
+TRANSIENT_NARROW = (
+    "Config.batch_size = 64", "Config.num_dataset_images = 4", "Config.n_bins = 64",
+    "Config.exposure_time = 0.25", "Config.occ_threshold_min = 0.0",
+    "Config.occ_threshold_max = 0.0",
+    "ProposalVolumeSampler.sampling_strategy = ((0, 0, 16), (1, 1, 16), (2, 2, 16))",
+    "TransientNeRFModel.train_sampling_strategy = ((0, 0, 16), (1, 1, 16), (2, 2, 16))",
+    "TransientNeRFModel.render_sampling_strategy = ((0, 0, 16), (1, 1, 16), (2, 2, 16))",
+    "ProposalVolumeSampler.mlp_params_per_level = ("
+    "{'disable_density_normals': False, 'enable_pred_normals': False, "
+    "'normals_for_filter_only': True, 'net_depth': 2, 'net_width': 16}, "
+    "{'disable_density_normals': False, 'enable_pred_normals': False, "
+    "'normals_for_filter_only': True, 'net_depth': 2, 'net_width': 16}, "
+    "{'disable_density_normals': False, 'enable_pred_normals': True, "
+    "'normals_for_filter_only': False, 'net_depth': 2, 'net_width': 16})",
+    f"ProposalVolumeSampler.grid_params_per_level = ({{{_TRANSIENT_GRID}, 'num_features': 1}}, "
+    f"{{{_TRANSIENT_GRID}, 'num_features': 1}}, {{{_TRANSIENT_GRID}, 'num_features': 4}})",
+    "HashEncoding.hash_map_size = 4096", "HashEncoding.max_grid_size = 128",
+    f"TransientNeRFMLP.grid_params = {{{_TRANSIENT_GRID}, 'num_features': 4}}",
+    "TransientNeRFMLP.net_width = 16", "TransientNeRFMLP.bottleneck_width = 16",
+    "TransientNeRFMLP.net_width_integrated_brdf = 8", "TransientNeRFMLP.net_width_brdf = 8",
+    "TransientNeRFMLP.net_width_irradiance = 8", "TransientNeRFMLP.bottleneck_irradiance = 8",
+    "TransientSurfaceLightFieldMLP.net_width_viewdirs = 16",
+    "TransientSurfaceLightFieldMLP.bottleneck_viewdirs = 16")
+# The transient stage's loss terms (beside the cache's geometry terms).
+_TRAINER_TRANSIENT_TERMS = ("data", "cache_data", "mask", "geometry_smoothness",
+                            "regularizer_density_grid")
+# Phase 24's batch: scripts/train_one_stage.py's default, which the port's
+# train_one_stage.py passes; halved while a run does not fit.
+TRANSIENT_BATCHES = (8192, 4096, 2048, 1024)
+
+
+def phase_trainer_transient_reference(torch, device, seed):
+    """The Trainer's step on a narrow cornell cache stage with the occlusion
+    bindings, GPU against CPU: every loss term and every gradient leaf, the
+    limit bracketed by a CPU noise floor (the cameras' positions one ulp up
+    and down) and two faults planted in the leveled kernel; the GPU step's
+    leveled call held against its plain version."""
+    stage = TRAINER_CACHE_STAGE + TRANSIENT_NARROW + TRANSIENT_OCCLUSIONS
+
+    def step(dev, **kw):
+        return _trainer_step(torch, dev, seed, stage=stage, config_file=TRANSIENT_CONFIG, **kw)
+
+    l_cpu, g_cpu, n_cpu = step("cpu")
+    floor, floor_at, loss_floor = 0.0, None, 0.0
+    for nudge in (1, -1):
+        l_n, g_n, _ = step("cpu", nudge=nudge)
+        v, at = _worst_grad_err(g_n, g_cpu)
+        if v >= floor:
+            floor, floor_at = v, at
+        loss_floor = max(loss_floor, *(abs(l_n[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-30)
+                                       for k in l_cpu))
+    checked = []
+    l_gpu, g_gpu, n_gpu = step(device, checked=checked)
+    loss_errs = {k: abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-30) for k in l_cpu}
+    loss_err = max(loss_errs.values())
+    err, err_at = _worst_grad_err(g_gpu, g_cpu)
+    faults = {f: _worst_grad_err(step(device, fault=f)[1], g_cpu)
+              for f in ("taps rotated", "finest level dropped")}
+    finite = all(torch.isfinite(g).all() for g in g_gpu.values())
+    terms = set(_TRAINER_TRANSIENT_TERMS)
+    present = terms <= set(l_cpu) and all(l_cpu[k] != 0 for k in terms)
+    duplicated = {k for k in l_cpu if k.startswith("cache_")} == {
+        "cache_" + k for k in l_cpu
+        if not k.startswith(("cache_", "regularizer_")) and k != "geometry_smoothness"}
+    tol = GRAD_REL_L2_TOL
+    ok = (finite and present and duplicated and loss_err <= 1e-3
+          and n_cpu == _launch_counts() and n_gpu == _launch_counts(leveled=1)
+          and len(checked) == 1 and all(c["ok"] for c in checked)
+          and floor <= tol and err <= tol and all(v > tol for v, _ in faults.values()))
+    print(f"trainer transient reference: Trainer, {TRANSIENT_CONFIG} cache stage at reference "
+          f"widths with the occlusion bindings (shadow rays), one step, the same weights, batch "
+          f"and draws, gpu vs cpu: loss rel_err max={loss_err:.3e} (tol 1e-3; "
+          + ", ".join(f"{k} {v:.2e}" for k, v in sorted(loss_errs.items()))
+          + f"; cpu vs cpu with the cameras +-1 ulp: {loss_floor:.2e}) grad rel_l2_err max="
+          f"{err:.3e} at {err_at} (tol {tol}; noise floor, cpu vs cpu with the cameras +-1 ulp: "
+          f"{floor:.3e} at {floor_at}; planted in the leveled kernel "
+          + ", ".join(f"{f}: {v:.3e} at {at}" for f, (v, at) in faults.items())
+          + ", each must exceed the tol); the leveled call against its plain version: "
+          + "; ".join(f"idx{list(c['shape'])} max_abs_err={c['max_abs_err']:.3e} "
+                      f"{'ok' if c['ok'] else 'FAIL'}" for c in checked)
+          + f"; kernel launches gpu={n_gpu} cpu={n_cpu} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the Trainer's GPU transient step disagrees with its CPU step")
+    return dict(loss_rel_err=loss_err, loss_rel_errs=loss_errs, loss_noise_floor=loss_floor,
+                grad_rel_l2_err=err, noise_floor=floor,
+                faults={f: v for f, (v, _) in faults.items()}, tol=tol,
+                launches=n_gpu["leveled"], max_abs_err=max(c["max_abs_err"] for c in checked),
+                losses=l_gpu)
+
+
+def _transient_checked_step(torch, device, seed, batch, capture):
+    """One full-width cornell cache step with the occlusion bindings (shadow
+    rays) through the Trainer's train step, every leveled call held against
+    its plain version and the first one's inputs kept in `capture`; then one
+    more step, timed by host clock ending in a sync, with its peak memory."""
+    from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+
+    trainer = _trainer_setup(torch, device, TRANSIENT_CONFIG, TRAINER_CACHE_STAGE + (
+        f"Config.batch_size = {batch}", f"Config.jax_rng_seed = {20200823 + seed}")
+        + TRANSIENT_OCCLUSIONS)
+    calls = []
+    scatter_cuda.reset_launch_count()
+    with _patched(scatter_cuda,
+                  scatter_add_weighted_leveled=_checking_scatter("leveled", calls, capture)):
+        trainer.state, stats = trainer.train_step(trainer.rng, trainer.state,
+                                                  trainer.dataset.next_train(), 0.5)
+    losses = {k: float(torch.as_tensor(v).detach()) for k, v in stats["losses"].items()}
+    launches = dict(scatter_cuda.launches)
+    batch_data = trainer.dataset.next_train()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.state, stats = trainer.train_step(trainer.rng, trainer.state, batch_data, 0.5)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    sizes = [int(v) for v in trainer.model.cache.shader.grid.grid_sizes]
+    finite = _finite(losses.values()) and bool(torch.isfinite(stats["loss"]))
+    del trainer
+    return dict(calls=calls, launches=launches, step_ms=step_ms, peak_gib=peak, losses=losses,
+                finite=finite, sizes=sizes)
+
+
+def phase_trainer_transient_train(torch, device, seed, steps, smi, tmp):
+    """The full-width cornell cache stage through the train_with_trainer entry
+    point, in-process, into `tmp`, at the largest batch of TRANSIENT_BATCHES
+    that fits: 3 warmup + N timed steps, a second run that resumes and takes
+    no step, one test view cast on the host; then one checked step with the
+    occlusion bindings (shadow rays at full width), whose leveled inputs time
+    the kernel on this path's own updates."""
+    import gc
+    import os
+
+    from neural_radiance_caching_tpu_torch.engine import gin_config
+
+    warmup, cut = 3, []
+    for batch in TRANSIENT_BATCHES:
+        ckpt = os.path.join(tmp, f"cornell_cache_{batch}")
+        args = [f"--gin_configs={TRANSIENT_CONFIG}"] + [
+            f"--gin_bindings={b}" for b in TRAINER_BINDINGS + TRAINER_CACHE_STAGE + (
+                f"Config.batch_size = {batch}", f"Config.checkpoint_dir = '{ckpt}'",
+                f"Config.early_exit_steps = {warmup + steps}",
+                f"Config.print_every = {warmup + steps}",
+                f"Config.jax_rng_seed = {20200823 + seed}",
+                # The transient h5 save of an eval view is not ported.
+                "Trainer.save_results = False",
+                "Config.metric_harness_train_config = {'disable_lpips': True}")]
+        try:
+            run = _entry_point_run(torch, args, args, ckpt, warmup, steps)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            print(f"trainer transient train: batch {batch} ran out of memory: "
+                  f"{str(e).splitlines()[0]}", flush=True)
+            cut.append(batch)
+            gin_config.clear_config()
+            gc.collect()
+            torch.cuda.empty_cache()
+    else:
+        raise AssertionError(f"no batch of {TRANSIENT_BATCHES} fits")
+    trainer, dt, losses, log, total = (run["trainer"], run["step_s"], run["losses"], run["log"],
+                                       run["total"])
+    terms = [f"loss/{k}" for k in _TRAINER_TRANSIENT_TERMS]
+    finite = _finite(losses.values()) and all(k in losses for k in terms)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    metrics = run["metrics"]
+    n_bins = trainer.config.n_bins
+    ok = (finite and run["saved"] == total and run["resume_ok"]
+          and run["launches"] == _launch_counts(leveled=total)
+          and math.isfinite(metrics["psnr"]))
+    cut_text = (f"batch {batch}, cut from {TRANSIENT_BATCHES[0]} ({', '.join(map(str, cut))} "
+                "ran out of memory)" if cut else f"batch {batch}")
+    print(f"trainer transient train: train_with_trainer {TRANSIENT_CONFIG} cache stage "
+          f"({n_params} params, {n_bins} bins, Pixels batches cast in the step) {cut_text} on "
+          f"SyntheticSpheres, {warmup} warmup + {steps} timed steps: step_ms={dt * 1e3:.2f} "
+          f"rays_per_s={batch / dt:.0f} (train_log rays_per_sec={log[-1]['rays_per_sec']:.0f} "
+          f"over steps 2-{total}) on [{smi}]; peak {run['peak_gib']:.2f} GiB; losses finite and "
+          f"present={finite} {losses}; checkpoint step {run['saved']}, resumed with no step="
+          f"{run['resume_ok']}; kernel launches={run['launches']} (expected {total} leveled, one "
+          f"per step: the appearance grid); eval view {run['view']} cast on the host: psnr="
+          f"{metrics['psnr']:.2f} ssim={metrics['ssim']:.4f} transient_iou="
+          f"{metrics.get('transient_iou', float('nan')):.4f} in {run['eval_s']:.2f}s; entry point "
+          f"{run['wall']:.1f}s {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("trainer transient train phase failed")
+    result = dict(step_ms=dt * 1e3, rays_per_s=batch / dt,
+                  train_log_rays_per_s=log[-1]["rays_per_sec"], peak_gib=run["peak_gib"],
+                  batch=batch, batch_cut_from=TRANSIENT_BATCHES[0] if cut else None,
+                  steps=steps, warmup=warmup, params=n_params, launches=total, n_bins=n_bins,
+                  eval_view=run["view"], eval_psnr=metrics["psnr"], eval_ssim=metrics["ssim"],
+                  eval_transient_iou=metrics.get("transient_iou"), eval_s=run["eval_s"],
+                  entry_point_s=run["wall"], losses=losses)
+    del trainer, run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    capture, occ_cut = {}, []
+    for occ_batch in [b for b in TRANSIENT_BATCHES if b <= batch]:
+        try:
+            occ = _transient_checked_step(torch, device, seed, occ_batch, capture)
+            break
+        except torch.cuda.OutOfMemoryError:
+            occ_cut.append(occ_batch)
+            capture.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+    else:
+        raise AssertionError("no batch fits the step with shadow rays")
+    calls = occ["calls"]
+    occ_ok = (occ["finite"] and len(calls) == 1 and all(c["ok"] for c in calls)
+              and occ["launches"] == _launch_counts(leveled=1))
+    occ_cut_text = f" (cut: {', '.join(map(str, occ_cut))} ran out of memory)" if occ_cut else ""
+    print(f"trainer transient train with the occlusion bindings (shadow rays, one per sample): "
+          f"batch {occ_batch}{occ_cut_text}; checked step, the leveled call against its plain version on the same inputs, "
+          f"tol=|err|<={SUM_ORDER_TOL}*sum|w*ct|: "
+          + "; ".join(f"idx{list(c['shape'])} max_abs_err={c['max_abs_err']:.3e} "
+                      f"{'ok' if c['ok'] else 'FAIL'}" for c in calls)
+          + f"; the next step {occ['step_ms']:.2f} ms by host clock, peak {occ['peak_gib']:.2f} "
+          f"GiB on [{smi}]; losses finite={occ['finite']}; kernel launches in the checked step="
+          f"{occ['launches']} (expected 1 leveled; the shadow pass has no graph) "
+          f"{'ok' if occ_ok else 'FAIL'}", flush=True)
+    if not occ_ok:
+        raise AssertionError("trainer transient step with shadow rays failed")
+    path = phase_kernel_path("leveled", capture, occ["sizes"],
+                             f"cornell cache stage's own updates (the appearance grid, batch "
+                             f"{occ_batch})")
+    capture.clear()
+    result["occlusions"] = dict(batch=occ_batch, step_ms=occ["step_ms"], peak_gib=occ["peak_gib"],
+                                launches=occ["launches"]["leveled"],
+                                max_abs_err=max(c["max_abs_err"] for c in calls),
+                                losses=occ["losses"])
+    result["path"] = path
+    return result
+
+
 def _profile(torch, train_step, state, rng, batches, path, steps=3):
     """Device time by kernel over `steps` steps, as a table written to `path`."""
     import pathlib
@@ -2416,8 +2699,8 @@ def main():
     parser.add_argument("--transient-material-steps", type=int, default=10,
                         help="timed transient material train steps of each form (bench, trainer)")
     parser.add_argument("--trainer-steps", type=int, default=10,
-                        help="timed steps of each of the entry point's ngp_yobo.gin stages "
-                             "(cache, material)")
+                        help="timed steps of each of the entry point's stages (ngp_yobo.gin "
+                             "cache and material, the cornell cache stage)")
     parser.add_argument("--profile", metavar="FILE",
                         help="also profile train steps and write the op tables to FILE "
                              "(cache), and FILE with .material, .transient, "
@@ -2477,6 +2760,9 @@ def main():
         trainer_material = phase_trainer_material_train(
             torch, device, args.seed, args.trainer_steps, smi, tmp, cache_ckpt,
             args.profile)
+        trainer_transient_reference = phase_trainer_transient_reference(torch, device, args.seed)
+        trainer_transient = phase_trainer_transient_train(torch, device, args.seed,
+                                                          args.trainer_steps, smi, tmp)
     print(f"phases done in {time.perf_counter() - t_start:.1f}s, build included", flush=True)
 
     csrc = "neural_radiance_caching_tpu_torch/csrc"
@@ -2495,7 +2781,11 @@ def main():
                         "transient_train_dedup": 0, "gate": gate["launches"], "eval_render": 0,
                         "transient_material": tmat_launches,
                         "trainer_train": trainer_train["launches"],
-                        "trainer_material_train": trainer_material["launches"]}
+                        "trainer_material_train": trainer_material["launches"],
+                        "trainer_transient_train": trainer_transient["launches"],
+                        "trainer_transient_occlusions": trainer_transient["occlusions"][
+                            "launches"]}
+    other_paths = {"trainer_transient_train": 0, "trainer_transient_occlusions": 0}
     print(json.dumps({"kernels": [{
         "name": "scatter_add_weighted_leveled",
         "route": "cuda",
@@ -2505,13 +2795,16 @@ def main():
         "launches_by_path": leveled_launches,
         "max_abs_err": max(kernel["max_abs_err"], material_err["leveled"],
                            transient["direct"]["max_abs_err"],
-                           *(r["max_abs_err"] for r in tmat.values())),
+                           *(r["max_abs_err"] for r in tmat.values()),
+                           trainer_transient["occlusions"]["max_abs_err"]),
         "max_abs_err_by_shape": {"cache": kernel["max_abs_err"],
                                  "material_path": material_err["leveled"],
                                  "transient_path": transient["direct"]["max_abs_err"],
                                  "transient_material_path": max(
                                      r["max_abs_err"] for r in tmat.values()),
-                                 "planes_shape": planes["leveled_max_abs_err"]},
+                                 "planes_shape": planes["leveled_max_abs_err"],
+                                 "trainer_transient_path": trainer_transient["occlusions"][
+                                     "max_abs_err"]},
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
         "library_ms": kernel["library_ms"],
@@ -2521,6 +2814,7 @@ def main():
         "camera_ray_ms": kernel["camera_ray_ms"],
         "camera_ray_library_ms": kernel["camera_ray_library_ms"],
         **leveled_path,
+        "trainer_transient_path": trainer_transient["path"],
     }, {
         "name": "scatter_add_weighted_leveled_skip_zero_w",
         "route": "cuda",
@@ -2530,7 +2824,7 @@ def main():
         "launches_by_path": {"cache_train": 0, "material_train": 0, "transient_train": 0,
                              "transient_train_dedup": transient["dedup"]["launches"], "gate": 0,
                              "eval_render": 0, "transient_material": 0, "trainer_train": 0,
-                             "trainer_material_train": 0},
+                             "trainer_material_train": 0, **other_paths},
         "max_abs_err": max(skip["max_abs_err"], transient["dedup"]["max_abs_err"]),
         "max_abs_err_by_shape": {"transient_dedup_stream": skip["max_abs_err"],
                                  "transient_path": transient["dedup"]["max_abs_err"]},
@@ -2551,7 +2845,7 @@ def main():
         "launches_by_path": {"cache_train": 0, "material_train": material["planes"],
                              "transient_train": 0, "transient_train_dedup": 0, "gate": 0,
                              "eval_render": 0, "transient_material": 0, "trainer_train": 0,
-                             "trainer_material_train": 0},
+                             "trainer_material_train": 0, **other_paths},
         "max_abs_err": max(planes["max_abs_err"], material_err["planes"]),
         "max_abs_err_by_shape": {"planes_shape": planes["max_abs_err"],
                                  "material_path": material_err["planes"]},
@@ -2574,7 +2868,7 @@ def main():
                              "material_train": 0, "transient_train": 0,
                              "transient_train_dedup": 0, "gate": 0, "eval_render": 0,
                              "transient_material": 0, "trainer_train": 0,
-                             "trainer_material_train": 0},
+                             "trainer_material_train": 0, **other_paths},
         **{k: v for k, v in rows.items() if k != "launches"},
     }], "timing": timing, "transient_train": {
         name: {k: v for k, v in r.items() if k != "max_abs_err"}
@@ -2590,7 +2884,8 @@ def main():
         "train": trainer_train, "reference": trainer_reference,
         "material_train": trainer_material, "material_reference": trainer_material_reference,
         "material_reference_leveled_launches_per_step": _TRAINER_MATERIAL_LAUNCHES_PER_STEP,
-        "device": smi}}), flush=True)
+        "transient_train": {k: v for k, v in trainer_transient.items() if k != "path"},
+        "transient_reference": trainer_transient_reference, "device": smi}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

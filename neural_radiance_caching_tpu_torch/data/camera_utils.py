@@ -1,12 +1,15 @@
 """Camera math for the procedural scene (counterpart of the perspective part
-of ``data/camera_utils.py``). Host-side numpy: rays are cast on the host and
-moved to the device with the batch."""
+of ``data/camera_utils.py``): rays cast from numpy pixels on the host (the
+renderings, the eval views, batches of a config that casts outside the
+step) or from tensor pixels on their device (``Config.cast_rays_in_train_step``,
+the JAX step's jnp casting)."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from neural_radiance_caching_tpu_torch.utils import pytrees
+from neural_radiance_caching_tpu_torch.utils import pytrees, torchutil
 
 
 def get_pixtocam(focal, width, height):
@@ -21,14 +24,23 @@ def pixel_coordinates(width, height):
     return np.meshgrid(np.arange(width), np.arange(height), indexing="xy")
 
 
-def pixels_to_rays(pix_x_int, pix_y_int, pixtocams, camtoworlds):
+def pixels_to_rays(pix_x_int, pix_y_int, pixtocams, camtoworlds, rng=None, jitter=0):
     """Cast perspective rays through pixel centers; returns every per-ray
     camera field (origins, directions, viewdirs, radii, imageplane, look, up,
     cam_origins, vcam_look, vcam_up, vcam_origins).
 
+    Numpy arrays cast on the host, without jitter (the dataset's renderings,
+    eval views); tensors cast on their device in float32 (the train step's
+    in-step casting), with the JAX package's jnp op order: the 3x3 products
+    and norms as sequential sums of three products. There, with ``jitter``
+    and a generator `rng`, each pixel moves by U(-0.5, 0.5) (jitter 1) or
+    N(0, 0.25) (otherwise) draws, x then y.
+
     Radii follow the mip-NeRF convention: half the distance to the
     neighboring pixels' directions, scaled by 2/sqrt(12).
     """
+    if isinstance(pix_x_int, torch.Tensor):
+        return _pixels_to_rays_torch(pix_x_int, pix_y_int, pixtocams, camtoworlds, rng, jitter)
 
     def pix_to_dir(x, y):
         return np.stack([x + 0.5, y + 0.5, np.ones_like(x)], axis=-1)
@@ -55,21 +67,67 @@ def pixels_to_rays(pix_x_int, pix_y_int, pixtocams, camtoworlds):
             look, up, origins)
 
 
-def cast_ray_batch(cameras, lights, pixels: pytrees.Pixels) -> pytrees.Rays:
+def _mat_vec(a, b):
+    """a [..., 3, 3] @ b [..., 3], each row a sequential sum of three products."""
+    return torch.stack([(a[..., i, 0] * b[..., 0] + a[..., i, 1] * b[..., 1])
+                        + a[..., i, 2] * b[..., 2] for i in range(3)], dim=-1)
+
+
+def _norm(x):
+    return torch.sqrt((x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1]) + x[..., 2] * x[..., 2])
+
+
+def _pixels_to_rays_torch(pix_x_int, pix_y_int, pixtocams, camtoworlds, rng, jitter):
+    if jitter > 0 and rng is not None:
+        shape, device = pix_x_int.shape, pix_x_int.device
+        if jitter == 1:
+            dx = torchutil.uniform(rng, shape, device) - 0.5
+            dy = torchutil.uniform(rng, shape, device) - 0.5
+        else:
+            dx = torchutil.normal(rng, shape, device) * 0.5
+            dy = torchutil.normal(rng, shape, device) * 0.5
+    else:
+        dx = dy = 0.0
+
+    def pix_to_dir(x, y):
+        return torch.stack([x + 0.5, y + 0.5, torch.ones_like(x)], dim=-1)
+
+    pixel_dirs = [pix_to_dir(pix_x_int + ox + dx, pix_y_int + oy + dy)
+                  for ox, oy in ((0, 0), (1, 0), (0, 1))]
+    # OpenCV -> OpenGL.
+    flip = torch.tensor([1.0, -1.0, -1.0], device=pix_x_int.device)
+    camera_dirs = [_mat_vec(pixtocams, d) * flip for d in pixel_dirs]
+    imageplane = camera_dirs[0][..., :2]
+    directions, ddx, ddy = (_mat_vec(camtoworlds[..., :3, :3], d) for d in camera_dirs)
+    origins = camtoworlds[..., :3, -1].expand(directions.shape)
+    viewdirs = directions / _norm(directions)[..., None]
+    look = (-camtoworlds[..., :3, 2]).expand(directions.shape)
+    up = camtoworlds[..., :3, 1].expand(directions.shape)
+    radii = (0.5 * (_norm(ddx - directions) + _norm(ddy - directions)))[..., None] * 2 / \
+        torch.sqrt(torch.tensor(12.0, device=directions.device))
+    return (origins, directions, viewdirs, radii, imageplane, look, up, origins,
+            look, up, origins)
+
+
+def cast_ray_batch(cameras, lights, pixels: pytrees.Pixels, rng=None, jitter=0,
+                   impulse_response=None) -> pytrees.Rays:
     """Turn a Pixels batch into a Rays batch by indexing per-ray cameras.
 
     `cameras` is (pixtocams [N or 1, 3, 3], camtoworlds [N, 3, 4]); `lights`
-    is [N_lights or N_cams, 3].
+    is [N_lights or N_cams, 3]: numpy arrays with numpy pixels, tensors on
+    the pixels' device with tensor pixels. rng / jitter: the pixel jitter
+    of ``pixels_to_rays``; impulse_response rides along on the rays.
     """
     pixtocams, camtoworlds = cameras[0], cameras[1]
     cam_idx = pixels.cam_idx[..., 0]
     light_idx = pixels.light_idx[..., 0]
-    pixtocam = pixtocams[cam_idx if pixtocams.shape[0] > 1 else np.zeros_like(cam_idx)]
+    zeros_like = torch.zeros_like if isinstance(cam_idx, torch.Tensor) else np.zeros_like
+    pixtocam = pixtocams[cam_idx if pixtocams.shape[0] > 1 else zeros_like(cam_idx)]
     camtoworld = camtoworlds[cam_idx]
-    light = lights[light_idx if lights.shape[0] > 1 else np.zeros_like(light_idx)]
+    light = lights[light_idx if lights.shape[0] > 1 else zeros_like(light_idx)]
     (origins, directions, viewdirs, radii, imageplane, look, up, cam_origins,
      vcam_look, vcam_up, vcam_origins) = pixels_to_rays(
-        pixels.pix_x_int, pixels.pix_y_int, pixtocam, camtoworld)
+        pixels.pix_x_int, pixels.pix_y_int, pixtocam, camtoworld, rng=rng, jitter=jitter)
     return pytrees.Rays(
         origins=origins, directions=directions, viewdirs=viewdirs, radii=radii, lights=light,
         imageplane=imageplane, look=look, up=up, cam_origins=cam_origins,
@@ -77,6 +135,7 @@ def cast_ray_batch(cameras, lights, pixels: pytrees.Pixels) -> pytrees.Rays:
         lossmult=pixels.lossmult, near=pixels.near, far=pixels.far, cam_idx=pixels.cam_idx,
         light_idx=pixels.light_idx, pix_x_int=pixels.pix_x_int, pix_y_int=pixels.pix_y_int,
         exposure_idx=pixels.exposure_idx, exposure_values=pixels.exposure_values,
+        impulse_response=impulse_response,
     )
 
 

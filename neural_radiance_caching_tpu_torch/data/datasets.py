@@ -4,8 +4,10 @@ NotImplementedError naming any other loader).
 
 Images are ray-traced in numpy at construction and batches are drawn with
 the same numpy RandomState stream as the JAX package, so both packages see
-identical batches. Rays are cast on the host; ``next_train`` moves the batch
-to the dataset's device, the card unless the caller passes ``device="cpu"``.
+identical batches. Rays are cast on the host, or, with
+``Config.cast_rays_in_train_step``, a batch holds its Pixels and the train
+step casts them; ``next_train`` moves the batch to the dataset's device, the
+card unless the caller passes ``device="cpu"``.
 With ``Config.use_transient`` the images are time-binned transients
 [N, H, W, n_bins, 3].
 """
@@ -43,8 +45,8 @@ class Dataset:
 
     def __init__(self, split, data_dir, config, device="cuda"):
         torchutil.check_device(device, "a dataset", "serve batches on the CPU")
-        if config.patch_size > 1 or config.cast_rays_in_train_step:
-            raise NotImplementedError("patch batches and in-step ray casting are not ported yet")
+        if config.patch_size > 1:
+            raise NotImplementedError("patch batches are not ported yet")
         self.split = split
         self.data_dir = data_dir
         self.config = config
@@ -85,10 +87,19 @@ class Dataset:
             light_idx=np.zeros((n, 1), np.int32),
         )
 
+    def _cast(self, pixels):
+        """The batch's rays: its Pixels under ``Config.cast_rays_in_train_step``
+        (the train step casts them, `cast_ray_batch` on the card; an eval
+        view is cast on the host, ``engine/trainer.render_test_view``), else
+        cast here on the host."""
+        if self.config.cast_rays_in_train_step:
+            return pixels
+        return camera_utils.cast_ray_batch(self.cameras, self.lights, pixels,
+                                           impulse_response=self.impulse_response)
+
     def _gather_batch(self, cam_idx, pix_x, pix_y):
         pixels = self._make_pixels(cam_idx, pix_x, pix_y)
-        rays = camera_utils.cast_ray_batch(self.cameras, self.lights, pixels).replace(
-            impulse_response=self.impulse_response)
+        rays = self._cast(pixels)
         masks = self.masks[cam_idx, pix_y, pix_x] if self.masks is not None else None
         alphas = self.alphas[cam_idx, pix_y, pix_x] if self.alphas is not None else None
         batch = pytrees.Batch(rays=rays, rgb=self.images[cam_idx, pix_y, pix_x],

@@ -42,7 +42,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from neural_radiance_caching_tpu_torch.data import datasets
+from neural_radiance_caching_tpu_torch.data import camera_utils, datasets
 from neural_radiance_caching_tpu_torch.engine import configs as configs_lib
 from neural_radiance_caching_tpu_torch.engine import gin_config as gin
 from neural_radiance_caching_tpu_torch.engine import renderer
@@ -63,7 +63,14 @@ def render_test_view(render_fn, dataset, cam_idx, rng, config, train_frac=1.0):
     view's batch)."""
     batch = dataset.generate_ray_batch(cam_idx)
     if isinstance(batch.rays, pytrees.Pixels):
-        raise NotImplementedError("eval ray casting from Pixels is not ported yet")
+        # In-step casting ships Pixels; an eval view is cast on the host,
+        # without jitter, as in JAX.
+        pixels = pytrees.Pixels(**{f.name: None if getattr(batch.rays, f.name) is None
+                                   else _host(getattr(batch.rays, f.name))
+                                   for f in dataclasses.fields(batch.rays)})
+        rays = camera_utils.cast_ray_batch(dataset.cameras, dataset.lights, pixels,
+                                           impulse_response=dataset.impulse_response)
+        batch = batch.replace(rays=rays.to(dataset.device))
     rendering = renderer.render_image(
         render_fn, batch.rays, rng, config, height=dataset.height, width=dataset.width,
         train_frac=train_frac, render_repeats=config.render_repeats, device=dataset.device)

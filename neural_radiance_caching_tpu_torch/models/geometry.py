@@ -151,7 +151,9 @@ class DensityMLP(Configurable, nn.Module, unported=dict(
         return density
 
     def forward(self, rng, rays, gaussians, tdist=None, train_frac=1.0, train=True,
-                mesh_normals=None, is_secondary=False, **kwargs):
+                mesh_normals=None, is_secondary=False, density_only=False, **kwargs):
+        """The density, feature and normals of each sample. density_only skips
+        the density normals (None) for a caller that reads the density alone."""
         del train_frac, train, kwargs
         if mesh_normals is not None:
             raise NotImplementedError("mesh normals are not ported yet")
@@ -163,7 +165,7 @@ class DensityMLP(Configurable, nn.Module, unported=dict(
             control_offsets = control - means[..., None, :]
 
         raw_grad_density = normals = None
-        if not self.disable_density_normals:
+        if not self.disable_density_normals and not density_only:
             raw_density, feat, raw_grad_density = self._density_and_gradient(
                 means, covs, control_offsets, is_secondary)
             normals = torch.nan_to_num(-ref_utils.l2_normalize(raw_grad_density))

@@ -113,6 +113,23 @@ class SkipMLP(nn.Module):
         return x
 
 
+class _Softplus(torch.autograd.Function):
+    """logaddexp(x, 0) and its gradient grad / (1 + exp(0 - x)), torch's own
+    formulas for logaddexp, keeping x alone for the backward (logaddexp
+    keeps its zero operand too, a second tensor of x's size). The backward
+    is made of differentiable ops, so a second-order graph goes through it."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.logaddexp(x, torch.zeros_like(x))
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        return grad / (1 + torch.exp(0 - x))
+
+
 def softplus(x):
     """jax.nn.softplus: log(1 + exp(x)) without torch's linear threshold."""
-    return torch.logaddexp(x, torch.zeros_like(x))
+    return _Softplus.apply(x)

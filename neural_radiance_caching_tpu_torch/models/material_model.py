@@ -35,7 +35,8 @@ smoothness losses run).
 
 Not ported yet (they raise): the SLF and volume control variates and the
 surface-light-field passes, ground-truth lights and a light power shared
-with the cache, vignetting and shared materials.
+with the cache, shadow rays in a transient material model, vignetting and
+shared materials.
 """
 
 from __future__ import annotations
@@ -138,6 +139,11 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(
                                       "ported yet")
         if render_kwargs.pop("is_secondary", False):
             raise NotImplementedError("secondary-ray queries of the material model are not ported")
+        if self.use_material and self.config.use_transient and self.config.use_occlusions:
+            # The cache stage's shadow rays are ported; the material passes'
+            # (the secondary rays' shadows and shadow_eps_indirect) are not.
+            raise NotImplementedError("shadow rays of a transient material stage are not ported "
+                                      "yet")
         key, rng = torchutil.random_split(rng)
         cache_out = self.cache(key, rays, train_frac=train_frac, train=train,
                                cache_outputs=cache_outputs, compute_extras=compute_extras,

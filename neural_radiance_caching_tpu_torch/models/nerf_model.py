@@ -7,14 +7,13 @@ by the detached N * p so the estimate stays unbiased) and the secondary-ray
 bookkeeping. ``NeRFModel`` is the radiance cache: primary rays without
 resampling, and secondary rays (``is_secondary``) with it when
 ``resample_secondary`` is set, as the material stage traces them.
-``TransientNeRFModel`` is the transient (time-resolved) cache, with its
-weights-only rendering (unit colours and transients, for shadow-ray
-visibility).
+``TransientNeRFModel`` is the transient (time-resolved) cache. A
+weights-only pass (``weights_only``, the shadow rays') renders the opacity
+alone.
 
-Not ported yet: resampling of primary rays, weights-only rendering of the
-steady cache, volume control variates, environment maps and the
-surface-light-field memory (they raise), and the argmax resample and
-ray-distance warps of secondary rays.
+Not ported yet: resampling of primary rays, volume control variates,
+environment maps and the surface-light-field memory (they raise), and the
+argmax resample and ray-distance warps of secondary rays.
 """
 
 from __future__ import annotations
@@ -182,17 +181,12 @@ class Model(Configurable, nn.Module, unported=_MODEL_UNPORTED):
                                     train, train_frac, is_secondary, bg_intensity_range,
                                     stopgrad_cache_weight=None, **render_kwargs):
         """Shade the (filtered) samples and composite them."""
-        weights_only = render_kwargs.pop("weights_only", False)
         inputs = torchutil.apply_stopgrad_fields(filtered_sampler_results, stopgrad_map)
         shared = dict(train_frac=train_frac, train=train, is_secondary=is_secondary)
         key, rng = torchutil.random_split(rng)
-        if weights_only:
-            shader_results = self.make_weights_only_shader_results(rays, inputs)
-        else:
-            shader_results = self.shader(rng=key, rays=rays, sampler_results=inputs,
-                                         filtered_sampler_results=inputs, **shared,
-                                         **render_kwargs)
-            shader_results.setdefault("weights_no_filter", shader_results["weights"])
+        shader_results = self.shader(rng=key, rays=rays, sampler_results=inputs,
+                                     filtered_sampler_results=inputs, **shared, **render_kwargs)
+        shader_results.setdefault("weights_no_filter", shader_results["weights"])
         if is_secondary:
             # Nothing reads the ray-distance statistics of secondary rays.
             render_kwargs["compute_distance"] = False
@@ -203,10 +197,6 @@ class Model(Configurable, nn.Module, unported=_MODEL_UNPORTED):
         integrator_results = self._handle_secondary(is_secondary, integrator_results,
                                                     stopgrad_cache_weight)
         return shader_results, integrator_results
-
-    def make_weights_only_shader_results(self, rays, sampler_results):
-        raise NotImplementedError(f"weights-only rendering of {type(self).__name__} "
-                                  "is not ported yet")
 
 
 @gin.configurable
@@ -235,7 +225,7 @@ class NeRFModel(Model, unported=dict(use_material=False)):
     def forward(self, rng, rays, train_frac=1.0, train=True, sampling_strategy=None,
                 is_secondary=False, resample=False, cache_outputs=None,
                 filtered_sampler_inds=None, stopgrad_cache_weight=None, proposal_grad=True,
-                **render_kwargs):
+                weights_only=False, **render_kwargs):
         """Render a ray batch; returns {"main": per-stage results, "render": rgb etc.}.
 
         cache_outputs: {"sampler": ray history} of an earlier forward to reuse
@@ -247,6 +237,11 @@ class NeRFModel(Model, unported=dict(use_material=False)):
         primary rays.
         proposal_grad: False runs the sampler's proposal levels without a graph
         (``ProposalVolumeSampler.forward``).
+        weights_only: the render is the opacity alone (``acc``, the sum of the
+        weights), from each sample's density without its normals, and no
+        shader runs: the shadow rays read nothing else. (JAX renders unit
+        colours and transients there, which its compiler drops unread; here
+        they would be [rays, samples, bins, C] tensors of ones.)
         """
         do_resample = self.do_resample(resample, is_secondary, train)
         bg_intensity_range, use_raydist_fn = self.get_bg_and_raydist(is_secondary)
@@ -262,12 +257,17 @@ class NeRFModel(Model, unported=dict(use_material=False)):
                 rng=key, rays=rays, train_frac=train_frac, train=train,
                 sampling_strategy=self.get_sampling_strategy(train, sampling_strategy),
                 use_raydist_fn=use_raydist_fn, is_secondary=is_secondary,
-                proposal_grad=proposal_grad, **render_kwargs)
+                proposal_grad=proposal_grad, density_only=weights_only, **render_kwargs)
 
         key, rng = torchutil.random_split(rng)
         filtered, filtered_sampler_inds = self.maybe_resample(
             key, do_resample, sampler_results[-1], self.num_resample,
             inds=filtered_sampler_inds, logits_mult=self._get_logits_mult(is_secondary))
+        if weights_only:
+            render = self._handle_secondary(
+                is_secondary, {"acc": filtered["weights_no_filter"].sum(dim=-1)},
+                stopgrad_cache_weight)
+            return {"main": dict(sampler=sampler_results, integrator=render), "render": render}
 
         key, rng = torchutil.random_split(rng)
         shader_results, integrator_results = self.apply_shader_and_integrator(
@@ -289,21 +289,3 @@ class TransientNeRFModel(NeRFModel):
 
     _shader_cls = nerf_shader.TransientNeRFMLP
     _integrator_cls = integrator_lib.TransientVolumeIntegrator
-
-    def make_weights_only_shader_results(self, rays, sampler_results):
-        """Unit colours and transients over the sampler's weights, with the
-        distances the transient integrator bins by."""
-        out = dict(sampler_results)
-        means = sampler_results["means"]
-        out["light_dists"] = torch.linalg.norm(rays.lights[..., None, :] - means, dim=-1,
-                                               keepdim=True)
-        out["ray_dists"] = torch.linalg.norm(rays.origins[..., None, :] - means, dim=-1,
-                                             keepdim=True)
-        weights = sampler_results["weights"]
-        t_shape = weights.shape + (self.config.n_bins, self.config.num_rgb_channels)
-        for k in ("transient_indirect", "transient_indirect_specular",
-                  "transient_indirect_diffuse"):
-            out[k] = torch.ones(t_shape, dtype=weights.dtype, device=weights.device)
-        out["rgb"] = out["direct_rgb"] = torch.ones_like(weights)[..., None].expand(
-            weights.shape + (self.config.num_rgb_channels,))
-        return out

@@ -13,18 +13,25 @@ indirect radiance: an irradiance net emitting n_bins x 3 channels (diffuse)
 plus the tinted, integrated-BRDF-weighted transient surface light field
 (specular), masked by ``zero_invalid_bins``.
 
+Both shaders may query their own appearance hash grid (``use_grid``) at
+the sample means, beside the density feature. The transient shader's light
+takes the shader's own power, or a material model's shared power
+(``share_light_power``): its learnable light, or the power the material
+shader passes. With ``Config.use_occlusions`` (and the ``occlusions_*_only``
+flags) its point light is shadowed by one shadow ray per sample, traced
+through the cache's weights only (``_compute_occlusions``).
+
 Not ported yet, raising: the active steady shader, the passive transient
-shader, shadow rays (occlusions that would be traced), the light power
-shared with a material model (``share_light_power``), cone lights,
-structured light, canonical-frame and intensity light conditioning, the
-simple BRDF input, the ambient term of the active path, env maps and the
-multi-illumination shaders.
+shader, cone lights, structured light, canonical-frame and intensity light
+conditioning, the simple BRDF input, the ambient term of the active path,
+env maps and the multi-illumination shaders.
 """
 
 from __future__ import annotations
 
 import math as pymath
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -35,13 +42,17 @@ from neural_radiance_caching_tpu_torch.ops import coord, math, ref_utils, render
 from neural_radiance_caching_tpu_torch.utils import torchutil
 from neural_radiance_caching_tpu_torch.utils.torchutil import stopgrad_with_weight
 
+# The cache models' active_importance_samplers (pinned to this default):
+# the direction toward the light, pdf 1.
+_SHADOW_SAMPLERS = ((render_utils.ActiveSampler(), 1.0),)
+
 
 class BaseNeRFMLP(shading.BaseShader, unported=dict(
-        use_occlusions=False, cull_backfacing=True, use_normals_feature=False,
+        cull_backfacing=True, use_normals_feature=False,
         use_pred_normals_feature=False, use_learned_vignette_map=False,
         use_exposure_at_bottleneck=False, num_glo_features=0, num_glo_embeddings=1000,
         num_light_features=64, multiple_illumination_outputs=True, run_surface_light_field=True,
-        use_corrected_normals=False, weight_thold=0.0, stopgrad_occ_weight=(0.0, 0.0))):
+        use_corrected_normals=False, weight_thold=0.0)):
     """Shared trunk, bottleneck, surface light field, integrated BRDF and
     light power of the cache shaders."""
 
@@ -80,8 +91,13 @@ class BaseNeRFMLP(shading.BaseShader, unported=dict(
     net_depth_irradiance = 2
     net_width_irradiance = 64
     skip_layer_irradiance = 4
+    # The shadow rays' (w_rays, w_out) gradient weights into the cache
+    # (``Config.use_occlusions``).
+    stopgrad_occ_weight = (0.0, 0.0)
     # Read by paths or heads that are not ported or by the config surface
-    # only; accepted so the flagship parameters bind unchanged.
+    # only; accepted so the flagship parameters bind unchanged. As in JAX,
+    # nothing reads use_occlusions: shadow rays follow Config.use_occlusions.
+    use_occlusions = False
     enable_pred_roughness = False
     use_specular_tint = False
 
@@ -89,7 +105,7 @@ class BaseNeRFMLP(shading.BaseShader, unported=dict(
 
     def __init__(self, config=None, density_feature_dim=0, **kwargs):
         super().__init__(config, **kwargs)
-        self._require(use_env_map=False, use_grid=False)
+        self._require(use_env_map=False)
         if config.multi_illumination:
             raise NotImplementedError("multi-illumination shaders are not ported yet")
         cd = self.compute_dtype
@@ -132,11 +148,12 @@ class BaseNeRFMLP(shading.BaseShader, unported=dict(
             refdirs = viewdirs[..., None, :] * torch.ones_like(refdirs)
         return refdirs
 
-    def _appearance_inputs(self, rng, sampler_results, train, train_frac, is_secondary):
+    def _appearance_inputs(self, rng, rays, sampler_results, train, train_frac, is_secondary):
         """(feature, bottleneck, roughness, normals, shading normals)."""
         key, rng = torchutil.random_split(rng)
         feature = self.predict_appearance_feature(
-            sampler_results, train=train, train_frac=train_frac, is_secondary=bool(is_secondary))
+            sampler_results, train=train, train_frac=train_frac, is_secondary=bool(is_secondary),
+            **self.get_predict_appearance_kwargs(key, rays, sampler_results))
         key, rng = torchutil.random_split(rng)
         bottleneck = self.get_bottleneck_feature(key, feature)
         roughness = self.roughness_activation(self.roughness_layer(feature) + self.roughness_bias)
@@ -192,7 +209,7 @@ class NeRFMLP(BaseNeRFMLP):
     def predict_appearance(self, rng, rays, sampler_results, train_frac=1.0, train=True,
                            is_secondary=False, passes=("diffuse", "specular"), **kwargs):
         feature, bottleneck, roughness, normals, _ = self._appearance_inputs(
-            rng, sampler_results, train, train_frac, is_secondary)
+            rng, rays, sampler_results, train, train_frac, is_secondary)
         means = sampler_results["means"]
         viewdirs = rays.viewdirs
 
@@ -327,29 +344,105 @@ class TransientNeRFMLP(BaseNeRFMLP):
         return self.irradiance_activation(
             self.transient_indirect_layer(self.irradiance_layers(x)) + self.irradiance_bias)
 
-    def _light_radiance(self, light_dists, radiance_cache):
-        """Constant-power point light with inverse-square falloff, of the
-        shader's own power: also under a material model (`radiance_cache`)
-        that does not share its light with the cache."""
-        if radiance_cache is not None and radiance_cache.share_light_power:
-            raise NotImplementedError("a material model's shared light power is not ported yet")
-        light_radiance = torch.ones_like(light_dists) * self.light_power_activation(
-            self.light_power)
-        if self.config.use_falloff:
-            light_radiance = light_radiance / torch.clamp(light_dists**2, min=1e-5)
-        if self.config.light_zero:
-            light_radiance = torch.where(light_dists < self.config.light_near,
+    def _light_radiance(self, rays, sampler_results, light_dists, radiance_cache, light_power):
+        """(light radiance, its multiplier, the radiance before occlusion) at
+        each sample: a point light with inverse-square falloff of the
+        shader's own power, or, under a material model that shares its light
+        power (``radiance_cache.share_light_power``), the material shader's
+        learnable light (``Config.learnable_light``) or the `light_power`
+        it passes."""
+        cfg = self.config
+        share = getattr(radiance_cache, "share_light_power", False)
+        light_radiance_mult = torch.ones_like(light_dists)
+        if cfg.learnable_light and share:
+            if not hasattr(radiance_cache, "shader"):
+                # JAX builds the material shader's light on this call.
+                raise NotImplementedError("a shared learnable light without the material shader "
+                                          "(a cache stage of Config.learnable_light) is not "
+                                          "ported yet")
+            means = sampler_results["means"]
+            ones = torch.ones_like(means)
+            light_radiance, light_radiance_mult = radiance_cache.shader.learnable_light(
+                means, rays.viewdirs[..., None, :] * ones, rays.lights[..., None, :] * ones,
+                rays.vcam_look[..., None, :] * ones, rays.vcam_up[..., None, :] * ones,
+                rays.vcam_origins[..., None, :] * ones)
+        else:
+            if light_power is None or not share:
+                power = (self.light_power if self.optimize_light
+                         else torch.tensor(float(self.light_power_bias), device=light_dists.device))
+                light_power = self.light_power_activation(power)
+            light_radiance = torch.ones_like(light_dists) * light_power
+            if cfg.use_falloff:
+                light_radiance = light_radiance / torch.clamp(light_dists**2, min=1e-5)
+        if cfg.light_zero:
+            light_radiance = torch.where(light_dists < cfg.light_near,
                                          torch.zeros_like(light_radiance), light_radiance)
         light_radiance_before_occ = light_radiance
         light_radiance = stopgrad_with_weight(light_radiance, self.stopgrad_light_radiance_weight)
-        return light_radiance, torch.ones_like(light_dists), light_radiance_before_occ
+        return light_radiance, light_radiance_mult, light_radiance_before_occ
 
-    def _occlusions(self, light_dists, is_secondary):
+    def _compute_occlusions(self, rng, rays, light_dists, radiance_cache, train_frac, train,
+                            is_secondary, filtered):
+        """Shadow rays: one ray from each (filtered) sample toward the light,
+        traced through the cache's weights only; its opacity, thresholded,
+        is the sample's occlusion [..., S, C].
+
+        Nothing of the pass reaches a gradient (JAX stops it at the
+        proposals, the weights and the opacity), so it runs without a graph;
+        the cache's weights-only pass renders the opacity alone.
+        """
         cfg = self.config
         if (not cfg.use_occlusions or (not is_secondary and cfg.occlusions_secondary_only)
                 or (is_secondary and cfg.occlusions_primary_only)):
             return torch.zeros_like(light_dists).repeat_interleave(self.num_rgb_channels, dim=-1)
-        raise NotImplementedError("shadow rays are not ported yet")
+        if radiance_cache is None:
+            raise ValueError("shadow rays are traced through a radiance_cache, and none was given")
+
+        def ramp(start, rate, lo, hi):
+            """lo after the ramp over train_frac, hi before it, in float32."""
+            if rate <= 0:
+                return lo
+            f32 = np.float32
+            w = np.clip((f32(train_frac) - f32(start)) / f32(rate), f32(0), f32(1))
+            return float(w * f32(lo) + (f32(1) - w) * f32(hi))
+
+        shadow_near = ramp(cfg.shadow_near_start_frac, cfg.shadow_near_rate,
+                           cfg.shadow_near_min, cfg.shadow_near_max)
+        means = filtered["means"]
+        normals = filtered[cfg.shadow_normals_target]
+        with torch.no_grad():
+            key, rng = torchutil.random_split(rng)
+            ref_rays, _ = render_utils.get_secondary_rays(
+                key, rays, means, rays.viewdirs, normals,
+                {"roughness": torch.ones_like(light_dists)}, refdir_eps=shadow_near,
+                normal_eps=cfg.secondary_normal_eps,
+                random_generator_2d=radiance_cache.random_generator_2d, use_mis=True,
+                samplers=_SHADOW_SAMPLERS, num_secondary_samples=1,
+                light_sampler_results={
+                    "origins": means[..., None, :],
+                    "lights": rays.lights[..., None, None, :] * torch.ones_like(
+                        means[..., None, :])},
+                far=cfg.secondary_far)
+            single_light_dists = torch.linalg.norm(rays.lights[..., None, :] - means, dim=-1,
+                                                   keepdim=True)
+            ref_rays = ref_rays.replace(
+                far=torch.clamp(single_light_dists.reshape(ref_rays.far.shape) - cfg.light_near,
+                                ref_rays.near, ref_rays.far),
+                normals=normals.reshape(ref_rays.viewdirs.shape))
+            key, rng = torchutil.random_split(rng)
+            acc = radiance_cache.cache(
+                key, ref_rays, train_frac=train_frac, train=train, compute_extras=False,
+                stopgrad_proposal=True, stopgrad_weights=True, is_secondary=True,
+                weights_only=True, radiance_cache=radiance_cache,
+                stopgrad_cache_weight=self.stopgrad_occ_weight)["render"]["acc"]
+            occ = acc.reshape(single_light_dists.shape[:-1] + (1,)).repeat_interleave(
+                self.num_rgb_channels, dim=-1)
+            baseline = torch.linalg.norm(rays.lights[..., None, :] - rays.origins[..., None, :],
+                                         dim=-1, keepdim=True)
+            occ = torch.where(baseline < 1e-3, torch.zeros_like(occ), occ)
+            occ_threshold = ramp(cfg.occ_threshold_start_frac, cfg.occ_threshold_rate,
+                                 cfg.occ_threshold_min, cfg.occ_threshold_max)
+            return torch.where(occ <= occ_threshold, torch.zeros_like(occ), occ)
 
     def _direct_lighting(self, rays, feature, shading_normals, bottleneck, n_dot_l,
                          light_radiance, light_dirs):
@@ -370,30 +463,36 @@ class TransientNeRFMLP(BaseNeRFMLP):
         n_bins, num_ch = self.config.n_bins, self.config.num_rgb_channels
         integrated_brdf = self.get_integrated_brdf(normals, rays.viewdirs, bottleneck)
         tint = torch.sigmoid(self.tint_layer(feature))
-        tint_expanded = tint[..., None, :].expand(tint.shape[:-1] + (n_bins, num_ch)).reshape(
-            ref_rgb.shape)
         lights = rays.lights[..., None, :] * torch.ones_like(shading_normals)
         diffuse = self.get_indirect(lights, feature) * self.indirect_scale
-        specular = tint_expanded * integrated_brdf * ref_rgb * self.indirect_scale
         shape = diffuse.shape[:-1] + (n_bins, num_ch)
+        # JAX's tint repeated over the bins, (tint * brdf) * rgb per element,
+        # broadcast: no [..., bins, C] copy of the tint is formed or kept.
+        specular = ((tint * integrated_brdf)[..., None, :] * ref_rgb.reshape(shape)
+                    ) * self.indirect_scale
         diffuse, specular = render_utils.zero_invalid_bins(
-            diffuse.reshape(shape), specular.reshape(shape), rays, means, self.config)
+            diffuse.reshape(shape), specular, rays, means, self.config)
         return torch.clamp(diffuse, 0.0, self.rgb_max), torch.clamp(specular, 0.0, self.rgb_max)
 
     def predict_appearance(self, rng, rays, sampler_results, train_frac=1.0, train=True,
-                           is_secondary=False, radiance_cache=None, passes=(), **kwargs):
+                           is_secondary=False, radiance_cache=None, light_power=None, passes=(),
+                           filtered_sampler_results=None, **kwargs):
         feature, bottleneck, roughness, normals, shading_normals = self._appearance_inputs(
-            rng, sampler_results, train, train_frac, is_secondary)
+            rng, rays, sampler_results, train, train_frac, is_secondary)
         means = sampler_results["means"]
 
         light_offset = rays.lights[..., None, :] - means
         light_dists = torch.linalg.norm(light_offset, dim=-1, keepdim=True)
         light_dirs = light_offset / torch.clamp(light_dists, min=1e-5)
         light_radiance, light_radiance_mult, light_radiance_before_occ = self._light_radiance(
-            light_dists, radiance_cache)
+            rays, sampler_results, light_dists, radiance_cache, light_power)
         n_dot_l = torch.clamp(math.dot(shading_normals, light_dirs), min=0.0)
         if len(passes) == 0 or "occ" in passes:
-            occ = self._occlusions(light_dists, is_secondary)
+            key, rng = torchutil.random_split(rng)
+            occ = self._compute_occlusions(
+                key, rays, light_dists, radiance_cache, train_frac, train, is_secondary,
+                sampler_results if filtered_sampler_results is None
+                else filtered_sampler_results)
         else:
             occ = torch.zeros_like(n_dot_l)
         occ = torch.where(n_dot_l <= 0.0, torch.ones_like(occ), occ)

@@ -5,9 +5,11 @@ Each level dilates the previous histogram, anneals its logits, draws new
 intervals by inverse-CDF sampling, warps s -> t, lifts them to Gaussians,
 evaluates the level's DensityMLP and composites alpha weights. Ported for
 primary and secondary rays, with the identity ray warp or a ``raydist_fn``
-given as ``(fn, fn_inv, kwargs)`` (the power ladder of the gin files); the
-mesh shortcut, the sample network, a ray warp without its inverse, the
-secondary-ray normal offset and density filters are not ported yet.
+given as ``(fn, fn_inv, kwargs)`` (the power ladder of the gin files).
+Secondary rays that carry the normal of the surface they leave (shadow
+rays) start off it; the density-radius filter of their last level is
+ported. The mesh shortcut, the sample network, a ray warp without its
+inverse and the other density filters are not ported yet.
 Levels before the last can run without a graph (``proposal_grad``), where
 no loss reads them.
 """
@@ -31,11 +33,11 @@ from neural_radiance_caching_tpu_torch.utils import torchutil
 class ProposalVolumeSampler(Configurable, nn.Module, unported=dict(
         sampling_anneal_blur_start=1.0, sampling_anneal_blur_stop=0.05,
         sampling_anneal_rate=0.025, use_uniform_radius=False, use_normal_radius=False,
-        use_density_radius=False, use_far_field_radius=False, use_vertical_filter=False,
-        use_horizontal_filter=False, use_backwards_filter=False,
-        use_uniform_radius_secondary_only=True, normalize_uniform_weights=False,
-        uniform_radius=float("inf"), normal_radius=float("inf"), density_radius=float("inf"),
-        far_field_radius=float("inf"), vertical_fov=pymath.pi, horizontal_fov=pymath.pi,
+        use_far_field_radius=False, use_vertical_filter=False, use_horizontal_filter=False,
+        use_backwards_filter=False, use_uniform_radius_secondary_only=True,
+        normalize_uniform_weights=False, uniform_radius=float("inf"),
+        normal_radius=float("inf"), far_field_radius=float("inf"), vertical_fov=pymath.pi,
+        horizontal_fov=pymath.pi,
         disable_integration=False, near_anneal_rate=None, near_anneal_init=0.95,
         normalize_weights=False, use_sample_network=False, grid_representation="ngp")):
     """Multi-level proposal sampler producing per-level ray results."""
@@ -54,6 +56,9 @@ class ProposalVolumeSampler(Configurable, nn.Module, unported=dict(
     resample_padding = 0.0
     opaque_background = False
     raydist_fn = None
+    # Secondary rays: zero density beyond this radius at the last level.
+    use_density_radius = False
+    density_radius = float("inf")
 
     def __init__(self, config=None, **kwargs):
         nn.Module.__init__(self)
@@ -88,14 +93,24 @@ class ProposalVolumeSampler(Configurable, nn.Module, unported=dict(
 
     def forward(self, rng, rays, train_frac=1.0, train=True, stopgrad_proposal=False,
                 stopgrad_weights=False, stopgrad_samples=False, sampling_strategy=None,
-                use_raydist_fn=True, proposal_grad=True, **render_kwargs):
+                use_raydist_fn=True, proposal_grad=True, density_only=False, **render_kwargs):
         """The per-level ray results. proposal_grad=False evaluates every level
         but the last without a graph where their samples reach the next
         level detached (``stop_level_grad``): then only a loss on their own
-        weights (the interlevel loss) could read one."""
+        weights (the interlevel loss) could read one. density_only: the
+        MLPs skip their density normals (a caller that reads the weights
+        alone)."""
         is_secondary = render_kwargs.get("is_secondary", False)
         if is_secondary and rays.normals is not None:
-            raise NotImplementedError("the secondary-ray normal offset is not ported yet")
+            # Push the near bound off the surface the ray leaves, along its normal.
+            dotprod = math.dot(rays.viewdirs, rays.normals.detach())
+            offset = torch.clamp(
+                self.config.shadow_normal_eps_dot_min / torch.clamp(dotprod, min=1e-5),
+                rays.near, rays.far)
+            offset = torch.where(dotprod > 0, offset, rays.near).detach()
+            near = torch.maximum(rays.near, offset.reshape(rays.near.shape))
+            rays = rays.replace(near=torch.clamp(near, torch.full_like(near, 1e-5),
+                                                 rays.far - 1e-5))
         if not train and is_secondary:
             # Secondary rays of an eval render sample deterministically seeded,
             # on the caller's generator device (so a CPU generator gives a
@@ -149,9 +164,14 @@ class ProposalVolumeSampler(Configurable, nn.Module, unported=dict(
             keep_graph = proposal_grad or is_last or not self.stop_level_grad
             with torch.set_grad_enabled(torch.is_grad_enabled() and keep_graph):
                 ray_results = mlp(rng=key, rays=rays, gaussians=gaussians, tdist=tdist,
-                                  train_frac=train_frac, train=train, **render_kwargs)
+                                  train_frac=train_frac, train=train, density_only=density_only,
+                                  **render_kwargs)
 
             means = gaussians[0]
+            if self.use_density_radius and is_secondary and is_last:
+                ray_results["density"] = torch.where(
+                    torch.linalg.norm(means, dim=-1) > self.density_radius,
+                    torch.zeros_like(ray_results["density"]), ray_results["density"])
             ray_results["points"] = means
             ray_results["means"] = means
             ray_results["covs"] = gaussians[1]

@@ -18,6 +18,7 @@ import math as pymath
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from neural_radiance_caching_tpu_torch.ops import stepfun
 
@@ -289,8 +290,14 @@ def shift_and_integrate_transient(transient, bins_move, weights, n_bins, form="f
 
     t = transient.to(torch.float32).movedim(-2, -1)  # [R, S, C, B]
     if form == "fft":
-        ft = torch.fft.rfft(t, n=length, dim=-1)  # [R, S, C, F]
-        acc = (ft * torch.complex(pr, pi)[:, :, None, :]).sum(dim=1)  # [R, C, F]
+        def spectrum_sum(t, pr, pi):
+            ft = torch.fft.rfft(t, n=length, dim=-1)  # [R, S, C, F]
+            return (ft * torch.complex(pr, pi)[:, :, None, :]).sum(dim=1)  # [R, C, F]
+
+        # The per-sample spectra (complex, ~3x the transient's size) are
+        # recomputed in the backward rather than kept.
+        acc = (torch.utils.checkpoint.checkpoint(spectrum_sum, t, pr, pi, use_reentrant=False)
+               if torch.is_grad_enabled() else spectrum_sum(t, pr, pi))
         out = torch.fft.irfft(acc, n=length, dim=-1)[..., :n_bins]
     else:
         dc, ds = _rdft_matrices(n_bins, length, transient.device)

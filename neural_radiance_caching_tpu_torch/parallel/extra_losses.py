@@ -2,8 +2,9 @@
 ``parallel/extra_losses.py`` the material stages reach): the cache/material
 consistency loss, steady and transient, with its weight ease-in, the
 light-sampling fit of the vMF mixture, the secondary-ray sampler's
-supervision (``material_ray_sampler``) and the material smoothness
-regularizer.
+supervision (``material_ray_sampler``), the material smoothness
+regularizer, and the geometry smoothness regularizer (the InvProp cache
+stage's).
 
 ``Config.extra_losses`` maps a loss name to {output key: {"mult", ...}}; the
 staged trainer binds its material stages' losses (``configs/trainer.gin``)
@@ -19,7 +20,7 @@ the ``_nocorr`` outputs of the gradient-debias forward only under a
 stop-gradient, so that forward needs no graph (``parallel/train.py``).
 
 The other extra losses of the JAX table (the surface-light-field,
-geometry-smoothness, emission and residual-albedo losses), and each loss
+emission and residual-albedo losses), and each loss
 the JAX package turns on by a Config weight (maximum radiance, material
 correlation, weight normalisation, extra rays), raise: they are ROADMAP
 queue 1 item 5.
@@ -307,17 +308,61 @@ def material_smoothness_loss(model, rng, rays, config, batch, results, full_resu
     return loss
 
 
+# --- geometry smoothness -------------------------------------------------------------
+
+
+def geometry_smoothness_loss(model, rng, rays, config, batch, results, full_results,
+                             train_frac=1.0):
+    """Penalise the final density MLP's change (normals, predicted normals,
+    density, each under its ``geometry_smoothness_weight_*``) between the
+    output's final samples and a Gaussian jitter of them
+    (``geometry_smoothness_noise``), L1, weighted by the samples'
+    compositing weights. The jittered pass is the model's "geometry" pass
+    at the detached, jittered samples; its outputs keep their graph (the
+    density normals a second-order one)."""
+    geometry = results.get("geometry")
+    if geometry is None:
+        return 0.0
+    weights = {"normals": config.geometry_smoothness_weight_normals,
+               "normals_pred": config.geometry_smoothness_weight_normals_pred,
+               "density": config.geometry_smoothness_weight_density}
+    geometry = _filter_tensors(geometry)
+    means = geometry["means"]
+    key, rng = torchutil.random_split(rng)
+    noise = torchutil.normal(key, means.shape, means.device)
+    inputs = {k: v.detach() for k, v in geometry.items()}
+    inputs["means"] = (means + noise * config.geometry_smoothness_noise).detach()
+    key, rng = torchutil.random_split(rng)
+    perturbed = model(key, rays, train_frac=train_frac, train=True, compute_extras=False,
+                      passes=("geometry",), sampler_results=inputs)
+    perturbed = {k: torch.nan_to_num(v) for k, v in _filter_tensors(perturbed).items()}
+
+    lossmult = rays.lossmult.reshape(-1, 1, 1)
+    lossmult = (lossmult * torch.ones_like(means[..., :1].reshape(lossmult.shape[0], -1, 1))
+                ).reshape(means[..., :1].shape) * (
+        geometry["weights"][..., None] * geometry["weights"].shape[-1]).detach()
+    loss = 0.0
+    for k, w in weights.items():
+        if k not in geometry or k not in perturbed:
+            continue
+        diff = torch.abs(geometry[k] - perturbed[k].reshape(geometry[k].shape))
+        shape = geometry[k].shape if k == "density" else geometry[k].shape[:-1] + (1,)
+        loss = loss + (diff * w * lossmult.reshape(shape)).mean()
+    return loss
+
+
 # --- dispatch ------------------------------------------------------------------------
 
 EXTRA_LOSS_FUNCTIONS = {
     "light_sampling": light_sampling_loss,
     "material_smoothness": material_smoothness_loss,
     "material_ray_sampler": material_ray_sampler_loss,
+    "geometry_smoothness": geometry_smoothness_loss,
 }
 # The rest of the JAX table.
 _UNPORTED_EXTRA_LOSSES = ("emission", "residual_albedo", "surface_light_field",
-                          "material_surface_light_field", "geometry_smoothness",
-                          "material_correlation", "maximum_radiance", "normalize_weight")
+                          "material_surface_light_field", "material_correlation",
+                          "maximum_radiance", "normalize_weight")
 
 
 def unported(config):

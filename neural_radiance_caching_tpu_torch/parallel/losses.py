@@ -4,7 +4,8 @@ gradient-debiased squared error (``mse_unbiased``, the consistency loss's
 type in the transient material stage), the gradient-debiased RawNeRF and its
 transient form (scaled by the rendering summed over time bins) data losses,
 the spline interlevel loss, distortion, the predicted-normal regularizers,
-the opaque/empty mask loss and gradient clipping. A rendering may carry ``gt_nocorr``, the target of
+the opaque/empty mask loss, the parameter regularizers and gradient
+clipping. A rendering may carry ``gt_nocorr``, the target of
 the debiased second estimate (the consistency loss's nocorr cache target).
 Loss types off the slices, and the transient Gaussian-pyramid term, raise."""
 
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from neural_radiance_caching_tpu_torch.ops import image, stepfun
-from neural_radiance_caching_tpu_torch.utils import torchutil
+from neural_radiance_caching_tpu_torch.utils import torchutil, weights
 
 
 def compute_weight_ease_in(train_frac, use_weight_schedule, start_frac, transition_frac,
@@ -253,6 +254,26 @@ def predicted_normal_loss(ray_results, beta, config, *, mult, gt="normals",
         (torch.abs(w * (1.0 - torch.sum(n * n_pred, dim=-1))) * beta[..., 0]).sum(
             dim=-1, keepdim=True) + 1e-5))
     return loss * mult
+
+
+def param_regularizer_loss(model, config, material):
+    """Parameter-norm regularizers (``Config.param_regularizers``: {name:
+    (mult, agg_fn, alpha, scale)}): mult * the sum, over the parameters
+    whose JAX path has `name` in the str of one of its keys, of
+    agg_fn(|p * scale| ** alpha). The JAX path of a state_dict key is
+    ``utils/weights.jax_path``'s under 'params', each key written as JAX
+    prints a path key (``['name']``); `material` says whether `model` is a
+    material model. A name that matches no parameter adds no term, as in
+    JAX."""
+    params = [(["['params']"] + [f"['{c}']" for c in weights.jax_path(key, material)], p)
+              for key, p in model.named_parameters()]
+    losses = {}
+    for name, (mult, agg_fn, alpha, scale) in (config.param_regularizers or {}).items():
+        terms = [agg_fn(torch.abs(p * scale) ** alpha) for path, p in params
+                 if any(name in c for c in path)]
+        if terms:
+            losses[name] = mult * sum(terms)
+    return losses
 
 
 def tree_norm(tensors):

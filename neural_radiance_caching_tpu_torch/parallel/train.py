@@ -12,10 +12,13 @@ Every step sets each group's learning rate from its own
 ``learning_rate_decay`` evaluated at the step count before the update (the
 JAX optimizer's schedule convention).
 
+With ``Config.cast_rays_in_train_step`` a batch holds Pixels, which the
+step casts on the device against the dataset's cameras before the forward.
 Losses cover every model output whose key ends in ``main`` (the material
 model's ``cache_main`` and ``main``), each with the loss type and weight
 its target carries, then that output's extra losses
-(``parallel/extra_losses.py``). ``Config.use_gradient_debias`` runs the
+(``parallel/extra_losses.py``), then the parameter regularizers
+(``regularizer_<name>``). ``Config.use_gradient_debias`` runs the
 second, independent forward of the gradient-debiased losses;
 ``Config.gradient_checkpointing`` is read by the density MLPs, which
 recompute their activations in the backward (``models/geometry.py``).
@@ -29,10 +32,11 @@ from typing import Any, Callable, Dict, List
 
 import torch
 
+from neural_radiance_caching_tpu_torch.data import camera_utils
 from neural_radiance_caching_tpu_torch.ops import math
 from neural_radiance_caching_tpu_torch.parallel import extra_losses as extra_losses_lib
 from neural_radiance_caching_tpu_torch.parallel import losses as losses_lib
-from neural_radiance_caching_tpu_torch.utils import weights
+from neural_radiance_caching_tpu_torch.utils import pytrees, weights
 
 
 @dataclasses.dataclass
@@ -173,11 +177,9 @@ def _compute_losses_for_output(batch, rays, model_results, config, train_frac, m
 
 def _check_config(config):
     unported = {
-        "cast_rays_in_train_step": config.cast_rays_in_train_step,
         "debug_mode": config.debug_mode,
         "eikonal_loss_mult": config.eikonal_loss_mult > 0 or config.eikonal_coarse_loss_mult > 0,
         "patch_loss_mult": config.patch_loss_mult > 0,
-        "param_regularizers": bool(config.param_regularizers),
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -222,21 +224,56 @@ def _debias_forward(model, rng, rays, train_frac, model_results):
                 shader[k + "_nocorr"] = nocorr_shader[k]
 
 
-def create_train_step(model, config):
+def _ray_caster(config, dataset, model):
+    """rays(rng, rays) of the train step: a Pixels batch cast against the
+    dataset's cameras and lights, held on the model's device (the JAX step's
+    jnp casting, with ``Config.jitter_rays``); a Rays batch as it is."""
+    cast = None
+    if config.cast_rays_in_train_step and dataset is not None:
+        device = next(model.parameters()).device
+
+        def on_device(x):
+            return torch.as_tensor(x, device=device)
+
+        cameras = tuple(on_device(c) for c in dataset.cameras)
+        lights = on_device(dataset.lights)
+        impulse = None if dataset.impulse_response is None else on_device(
+            dataset.impulse_response)
+        cast = functools.partial(camera_utils.cast_ray_batch, cameras, lights,
+                                 jitter=config.jitter_rays, impulse_response=impulse)
+
+    def maybe_cast_rays(rng, rays):
+        if not isinstance(rays, pytrees.Pixels):
+            return rays
+        if cast is None:
+            raise ValueError("Batch contains Pixels but the train step has no cameras; pass "
+                             "dataset= to create_train_step or disable "
+                             "Config.cast_rays_in_train_step.")
+        return cast(rays, rng=rng)
+
+    return maybe_cast_rays
+
+
+def create_train_step(model, config, dataset=None):
     """Build the train step: (rng, state, batch, train_frac) -> (state, stats).
 
     rng is a torch.Generator on the model's device (or None for the
-    deterministic sampler). `batch` must already be on that device. Stats are
-    device tensors; nothing in the step waits for the device.
+    deterministic sampler). `batch` must already be on that device; a batch
+    of Pixels (``Config.cast_rays_in_train_step``) is cast against
+    `dataset`'s cameras, drawing its jitter first. Stats are device tensors;
+    nothing in the step waits for the device.
     """
     _check_config(config)
+    material = is_material_model(model)
     # A material model's secondary proposal levels keep a graph only where a
     # loss reads them.
     forward_kwargs = dict(secondary_proposal_grad=extra_losses_lib.reads_secondary_proposals(
-        config)) if is_material_model(model) else {}
+        config)) if material else {}
+    maybe_cast_rays = _ray_caster(config, dataset, model)
 
     def loss_fn(rng, batch, train_frac):
-        rays = batch.rays
+        rays = maybe_cast_rays(rng, batch.rays)
+        batch = batch.replace(rays=rays)
         model_results = model(rng, rays, train_frac=train_frac, train=True, compute_extras=False,
                               **forward_kwargs)
         if config.use_gradient_debias and "cache_main" in model_results:
@@ -248,6 +285,8 @@ def create_train_step(model, config):
                                        losses, stats)
             extra_losses_lib.compute_extra_losses(config, batch, rays, model_results, key, losses,
                                                   train_frac, model=model, rng=rng)
+        for k, v in losses_lib.param_regularizer_loss(model, config, material).items():
+            losses["regularizer_" + k] = v
         total = sum(losses.values())
         stats["losses"] = losses
         return total, stats
@@ -302,15 +341,15 @@ def create_render_fn(model, **apply_kwargs):
 
 
 def setup_model(config, dataset=None, device="cuda"):
-    """Model, optimizer state, eval render function, train step and the main
-    learning-rate schedule, on `device` (the card unless the caller asks for
-    the CPU)."""
+    """Model, optimizer state, eval render function, train step (casting
+    `dataset`'s Pixels batches) and the main learning-rate schedule, on
+    `device` (the card unless the caller asks for the CPU)."""
     from neural_radiance_caching_tpu_torch.models import construct
 
-    del dataset
     model = construct.make_model(config, device=device)
     state, lr_fn = create_optimizer(config, model)
-    return model, state, create_render_fn(model), create_train_step(model, config), lr_fn
+    return (model, state, create_render_fn(model), create_train_step(model, config, dataset),
+            lr_fn)
 
 
 # --- Checkpoint surgery ----------------------------------------------------------

@@ -39,6 +39,7 @@ _FIXED = {
     "Shader": "shader",
     "Integrator": "integrator",
     "SurfaceLightField": "surface_lf",
+    "appearance_grid": "grid",
     "density_grid": "grid",
     "light_grid": "grid",
     "material_grid": "grid",
