@@ -151,6 +151,24 @@ Phases, one line each (any failure exits nonzero):
      bindings (shadow rays at full width) with its leveled call held against
      its plain version, the next step's time and peak memory, and the
      kernel timed against index_add_ on that call's inputs.
+ 25. trainer transient material reference: phase 23's method on cornell's
+     material_light_from_scratch stage at reference widths (the shared
+     light power on the secondary queries, shadow_eps_indirect, the stage's
+     extra losses), without and with the occlusion bindings (shadow rays
+     from the primary samples, the surface points and the secondary
+     queries): every loss term and every gradient leaf, each limit
+     bracketed by its own noise floor and two planted faults; 6 leveled
+     launches per step, each held against its plain version;
+ 26. trainer transient material train: cornell's material_light_from_scratch
+     at full width through the entry point, warm-started from phase 24's
+     checkpoint (3 warmup + N timed steps), then material_light_finetune
+     warm-started from it (3 warmup + 3 timed steps, shadow rays), each at
+     the largest of batch 8192, 4096, ... that fits (each cut printed with
+     the memory at the failing request): step time, rays/s, peak memory,
+     shadow rays and kernel launches per step, the checkpoint, a resuming
+     run, one 48^2 test view; then one step with every scatter held against
+     its plain version, and the kernel timed against index_add_ on the
+     stage's largest leveled call.
 Then the kernels JSON line, the eval JSON line, the transient material JSON
 line, the trainer JSON line, the nvidia-smi line, and the result line.
 """
@@ -300,8 +318,8 @@ def _per_level_ms(kind, idx, w, ct, kw):
 
 
 def _levels_text(per_level, sizes):
-    return ", ".join(f"{s}^3 {t['kernel']:.4f}/{t['library']:.4f}"
-                     for s, t in zip(sizes, per_level))
+    return ", ".join(f"{s if isinstance(s, str) else f'{s}^3'} {t['kernel']:.4f}/"
+                     f"{t['library']:.4f}" for s, t in zip(sizes, per_level))
 
 
 # Float32 sums of the same terms in another order (atomics vs index_add_)
@@ -855,18 +873,21 @@ def phase_train(torch, device, seed, steps, smi, profile):
     return launches["leveled"], dt
 
 
-def _checking_scatter(kind, calls, capture=None):
+def _checking_scatter(kind, calls, capture=None, largest=False):
     """The `kind` scatter wrapper, with its plain version run on the same
     inputs after each call and held to SUM_ORDER_TOL x sum|w * ct|; each
     call is appended to `calls` (a leveled call with skip_zero_w as kind
-    "leveled_skip"). With `capture`, the first call's inputs are kept there."""
+    "leveled_skip"). With `capture`, the first call's inputs are kept there
+    (with `largest`, those of the call with the most updates)."""
     from neural_radiance_caching_tpu_torch.ops import scatter_cuda
 
     real = getattr(scatter_cuda, f"scatter_add_weighted_{kind}")
     plain = getattr(scatter_cuda, f"scatter_add_weighted_{kind}_plain")
 
     def scatter(idx, w, ct, **kw):
-        if capture is not None and not capture:
+        if capture is not None and (not capture or (
+                largest and idx.numel() > capture["idx"].numel())):
+            capture.clear()
             capture.update(idx=idx, w=w, ct=ct, **kw)
         out = real(idx, w, ct, **kw)
         want = plain(idx, w, ct, **kw)
@@ -2144,12 +2165,13 @@ def phase_trainer_reference(torch, device, seed):
                 faults={f: v for f, (v, _) in faults.items()}, tol=tol, launches=n_gpu["leveled"])
 
 
-def _entry_point_run(torch, args, resume_args, ckpt, warmup, steps):
+def _entry_point_run(torch, args, resume_args, ckpt, warmup, steps, patches=()):
     """train_with_trainer.main(args) in-process with a host clock (ending in
     a sync) around the steps after `warmup`, the launch counts and the peak
-    memory of that run; then train_with_trainer.main(resume_args), which must
-    resume the checkpoint the first run wrote and take no step; then one test
-    view through log_test_set_evaluation."""
+    memory of that run (with `patches`, (object, {attribute: value}) pairs,
+    set for its length); then train_with_trainer.main(resume_args), which
+    must resume the checkpoint the first run wrote and take no step; then one
+    test view through log_test_set_evaluation."""
     import os
 
     from neural_radiance_caching_tpu_torch import train_with_trainer
@@ -2186,7 +2208,10 @@ def _entry_point_run(torch, args, resume_args, ckpt, warmup, steps):
     torch.cuda.reset_peak_memory_stats()
     scatter_cuda.reset_launch_count()
     t_setup = time.perf_counter()
-    with _patched(trainer_lib.Trainer, _setup_model=timed_setup_model):
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_patched(trainer_lib.Trainer, _setup_model=timed_setup_model))
+        for obj, attrs in patches:
+            stack.enter_context(_patched(obj, **attrs))
         trainer = train_with_trainer.main(args)
     wall = time.perf_counter() - t_setup
     launches = dict(scatter_cuda.launches)
@@ -2663,7 +2688,254 @@ def phase_trainer_transient_train(torch, device, seed, steps, smi, tmp):
                                 max_abs_err=max(c["max_abs_err"] for c in calls),
                                 losses=occ["losses"])
     result["path"] = path
-    return result
+    return result, os.path.join(tmp, f"cornell_cache_{batch}")
+
+
+# InvProp's material stages on cornell (material_light_from_scratch, and
+# material_light_finetune with its shadow rays), warm-started from the cache
+# stage: the cache shader lit by the material shader's power on its
+# secondary queries (share_light_power), the secondary rays' near bound
+# pushed off the surface (shadow_eps_indirect), the stage's extra losses.
+# Under the occlusion bindings shadow rays leave every primary sample, every
+# surface point and the point each secondary query resamples, graph-free.
+# Phase 25's widths: phase 23's narrow cache, a narrow light sampler and
+# material shader, one secondary ray of each lobe per surface point.
+TRANSIENT_MATERIAL_NARROW = (
+    "Trainer.stage = 'material_light_from_scratch'", "Trainer.resample = True",
+    "Trainer.sample_factor = 1", "LightMLP.num_components = 8", "LightMLP.net_width = 16",
+    "LightMLP.bottleneck_width = 16", "TransientMaterialMLP.net_width = 16",
+    "TransientMaterialMLP.bottleneck_width = 16",
+    f"TransientMaterialMLP.grid_params = {{{_TRANSIENT_GRID}, 'num_features': 4}}",
+    "TransientMaterialMLP.cache_train_sampling_strategy = ((0, 0, 16), (1, 1, 16), (2, 2, 16))",
+    "TransientMaterialMLP.cache_render_sampling_strategy = ((0, 0, 16), (1, 1, 16), (2, 2, 16))",
+    "LightSourceMap.net_width = 16") + TRANSIENT_NARROW
+# The leveled kernel per material step (narrow and full width): the cache
+# shader's appearance grid on the primary samples, on the surface points
+# (twice: the consistency targets and the consistency integrator) and on
+# the secondary queries' resampled points, the material shader's grid and
+# the light sampler's grid. The shadow rays add none (no graph).
+_TRAINER_TRANSIENT_MATERIAL_LAUNCHES_PER_STEP = {"leveled": 6}
+_TRAINER_TRANSIENT_MATERIAL_TERMS = ("data", "cache_data", "light_sampling",
+                                     "material_ray_sampler", "material_smoothness",
+                                     "direct_indirect_consistency")
+# Phase 26: the README's recipe for the material stages (Trainer.resample,
+# the `_resample` suffix of train_one_stage.py), the trainer's default of
+# 2 x 4 secondary rays per surface point; its stages and timed steps.
+TRANSIENT_MATERIAL_STAGES = ("material_light_from_scratch", "material_light_finetune")
+TRANSIENT_MATERIAL_RECIPE = ("Trainer.resample = True", "Trainer.resample_render = True")
+
+
+def phase_trainer_transient_material_reference(torch, device, seed):
+    """The Trainer's step on a narrow cornell material_light_from_scratch
+    stage, without and with the finetune stages' occlusion bindings, GPU
+    against CPU: every loss term and every gradient leaf, the limit
+    bracketed in each by a CPU noise floor (the cameras +-1 ulp) and two
+    faults planted in the leveled kernel; every GPU leveled call held
+    against its plain version."""
+    out = {}
+    tol = GRAD_REL_L2_TOL
+    expected = _launch_counts(**_TRAINER_TRANSIENT_MATERIAL_LAUNCHES_PER_STEP)
+    for label, extra in (("direct", ()), ("occlusions", TRANSIENT_OCCLUSIONS)):
+        stage = TRANSIENT_MATERIAL_NARROW + extra
+
+        def step(dev, **kw):
+            return _trainer_step(torch, dev, seed, stage=stage, config_file=TRANSIENT_CONFIG,
+                                 **kw)
+
+        l_cpu, g_cpu, n_cpu = step("cpu")
+        floor, floor_at, loss_floor = 0.0, None, 0.0
+        for nudge in (1, -1):
+            l_n, g_n, _ = step("cpu", nudge=nudge)
+            v, at = _worst_grad_err(g_n, g_cpu)
+            if v >= floor:
+                floor, floor_at = v, at
+            loss_floor = max(loss_floor, *(abs(l_n[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-30)
+                                           for k in l_cpu))
+        checked = []
+        l_gpu, g_gpu, n_gpu = step(device, checked=checked)
+        loss_errs = {k: abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-30) for k in l_cpu}
+        loss_err = max(loss_errs.values())
+        grad_errs = _grad_errs(g_gpu, g_cpu)
+        err, err_at = _worst_grad_err(g_gpu, g_cpu)
+        faults = {f: _worst_grad_err(step(device, fault=f)[1], g_cpu)
+                  for f in ("taps rotated", "finest level dropped")}
+        finite = all(torch.isfinite(g).all() for g in g_gpu.values())
+        terms = set(_TRAINER_TRANSIENT_MATERIAL_TERMS)
+        present = terms <= set(l_cpu) and all(l_cpu[k] != 0 for k in terms)
+        ok = (finite and present and loss_err <= 1e-3
+              and n_cpu == _launch_counts() and n_gpu == expected
+              and len(checked) == expected["leveled"] and all(c["ok"] for c in checked)
+              and floor <= tol and err <= tol and all(v > tol for v, _ in faults.values()))
+        print(f"trainer transient material reference ({label}): Trainer, {TRANSIENT_CONFIG} "
+              f"material_light_from_scratch at reference widths"
+              f"{' with the occlusion bindings (shadow rays)' if extra else ''}, one step, the "
+              f"same weights, batch and draws, gpu vs cpu: loss rel_err max={loss_err:.3e} (tol "
+              "1e-3; " + ", ".join(f"{k} {v:.2e}" for k, v in sorted(loss_errs.items()))
+              + f"; cpu vs cpu with the cameras +-1 ulp: {loss_floor:.2e}) grad rel_l2_err max="
+              f"{err:.3e} at {err_at} (tol {tol}; noise floor, cpu vs cpu with the cameras +-1 "
+              f"ulp: {floor:.3e} at {floor_at}; planted in the leveled kernel "
+              + ", ".join(f"{f}: {v:.3e} at {at}" for f, (v, at) in faults.items())
+              + ", each must exceed the tol); every leaf: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in sorted(grad_errs.items()))
+              + "; the leveled calls against their plain version: "
+              + "; ".join(f"idx{list(c['shape'])} max_abs_err={c['max_abs_err']:.3e} "
+                          f"{'ok' if c['ok'] else 'FAIL'}" for c in checked)
+              + f"; kernel launches gpu={n_gpu} cpu={n_cpu} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            raise AssertionError("the Trainer's GPU transient material step disagrees with its "
+                                 "CPU step")
+        out[label] = dict(loss_rel_err=loss_err, loss_rel_errs=loss_errs,
+                          loss_noise_floor=loss_floor, grad_rel_l2_err=err, grad_err_at=err_at,
+                          grad_rel_l2_errs=grad_errs, noise_floor=floor,
+                          faults={f: v for f, (v, _) in faults.items()}, tol=tol,
+                          launches=n_gpu["leveled"],
+                          max_abs_err=max(c["max_abs_err"] for c in checked))
+    return out
+
+
+def _shadow_ray_counter():
+    """(patch, count): TransientNeRFMLP._compute_occlusions counting the
+    shadow rays it traces (one per filtered sample, where the occlusion
+    bindings let it trace)."""
+    from neural_radiance_caching_tpu_torch.models import nerf_shader
+
+    original = nerf_shader.TransientNeRFMLP._compute_occlusions
+    count = [0]
+
+    def counting(self, rng, rays, light_dists, radiance_cache, train_frac, train, is_secondary,
+                 filtered):
+        cfg = self.config
+        if cfg.use_occlusions and not (cfg.occlusions_secondary_only and not is_secondary) \
+                and not (cfg.occlusions_primary_only and is_secondary):
+            count[0] += filtered["means"][..., 0].numel()
+        return original(self, rng, rays, light_dists, radiance_cache, train_frac, train,
+                        is_secondary, filtered)
+
+    return (nerf_shader.TransientNeRFMLP, {"_compute_occlusions": counting}), count
+
+
+def phase_trainer_transient_material_train(torch, device, seed, steps, smi, tmp, cache_ckpt):
+    """The full-width cornell material stages through the train_with_trainer
+    entry point, in-process: material_light_from_scratch warm-started from
+    phase 24's cache checkpoint (3 warmup + N timed steps), then
+    material_light_finetune warm-started from its checkpoint (3 warmup + 3
+    timed steps, with shadow rays); each at the largest batch of
+    TRANSIENT_BATCHES that fits (a batch that runs out of memory is printed
+    as a cut), a second run that resumes and takes no step, one eval view,
+    then one step with every scatter held against its plain version, whose
+    largest leveled call times the kernel on the stage's own updates."""
+    import gc
+    import os
+
+    from neural_radiance_caching_tpu_torch.engine import gin_config
+    from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+
+    warmup, results, warm = 3, {}, cache_ckpt
+    for stage in TRANSIENT_MATERIAL_STAGES:
+        timed = steps if stage == TRANSIENT_MATERIAL_STAGES[0] else 3
+        cut = []
+        for batch in TRANSIENT_BATCHES:
+            ckpt = os.path.join(tmp, f"cornell_{stage}_{batch}")
+            common = TRAINER_BINDINGS + TRANSIENT_MATERIAL_RECIPE + (
+                f"Trainer.stage = '{stage}'", f"Config.batch_size = {batch}",
+                f"Config.checkpoint_dir = '{ckpt}'",
+                f"Config.early_exit_steps = {warmup + timed}",
+                f"Config.print_every = {warmup + timed}",
+                f"Config.jax_rng_seed = {20200823 + seed}", "Trainer.save_results = False",
+                "Config.metric_harness_train_config = {'disable_lpips': True}")
+            resume = [f"--gin_configs={TRANSIENT_CONFIG}"] + [f"--gin_bindings={b}"
+                                                              for b in common]
+            args = resume + [f"--gin_bindings=Config.partial_checkpoint_dir = '{warm}'"]
+            patch, shadow_rays = _shadow_ray_counter()
+            try:
+                run = _entry_point_run(torch, args, resume, ckpt, warmup, timed, (patch,))
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                allocated = torch.cuda.memory_allocated() / 2**30
+                reserved = torch.cuda.memory_reserved() / 2**30
+                print(f"trainer transient material train ({stage}): batch {batch} ran out of "
+                      f"memory ({allocated:.2f} GiB allocated, {reserved:.2f} GiB reserved at "
+                      f"the failing request): {str(e).splitlines()[0]}", flush=True)
+                cut.append(dict(batch=batch, allocated_gib=allocated, reserved_gib=reserved))
+                del e
+                gin_config.clear_config()
+                gc.collect()
+                torch.cuda.empty_cache()
+        else:
+            raise AssertionError(f"no batch of {TRANSIENT_BATCHES} fits the {stage} stage")
+        trainer, dt, losses, log, total = (run["trainer"], run["step_s"], run["losses"],
+                                           run["log"], run["total"])
+        terms = [f"loss/{k}" for k in _TRAINER_TRANSIENT_MATERIAL_TERMS]
+        finite = _finite(losses.values()) and all(k in losses for k in terms)
+        per_step = {k: v / total for k, v in run["launches"].items()}
+        step_launches = _TRAINER_TRANSIENT_MATERIAL_LAUNCHES_PER_STEP
+        expected = _launch_counts(**{k: v * total for k, v in step_launches.items()})
+        shadow = shadow_rays[0] / total
+        occlusions = trainer.config.use_occlusions
+        metrics = run["metrics"]
+        n_params = sum(p.numel() for p in trainer.model.parameters())
+        n_sec = trainer.model.shader.num_secondary_samples
+
+        # One more step, every scatter held against its plain version.
+        calls, captures = [], {"leveled": {}, "planes": {}}
+        scatter_cuda.reset_launch_count()
+        with _patched(scatter_cuda, **{
+                f"scatter_add_weighted_{k}": _checking_scatter(k, calls, captures[k], largest=True)
+                for k in captures}):
+            trainer.state, stats = trainer.train_step(trainer.rng, trainer.state,
+                                                      trainer.dataset.next_train(), 0.5)
+        checked_launches = dict(scatter_cuda.launches)
+        ok = (finite and run["saved"] == total and run["resume_ok"]
+              and run["launches"] == expected and math.isfinite(metrics["psnr"])
+              and occlusions == ("finetune" in stage) and (shadow > 0) == occlusions
+              and bool(torch.isfinite(stats["loss"])) and all(c["ok"] for c in calls)
+              and checked_launches == _launch_counts(**step_launches)
+              and len(calls) == sum(step_launches.values()))
+        cut_text = (f"batch {batch}, cut from {TRANSIENT_BATCHES[0]} ("
+                    + ", ".join(f"{c['batch']} ran out of memory at {c['allocated_gib']:.2f} "
+                                f"GiB allocated, {c['reserved_gib']:.2f} reserved" for c in cut)
+                    + ")" if cut else f"batch {batch}")
+        print(f"trainer transient material train: train_with_trainer {TRANSIENT_CONFIG} "
+              f"{stage} warm-started from {os.path.basename(warm)} ({n_params} params, "
+              f"{trainer.config.n_bins} bins, {n_sec} secondary rays per surface point, "
+              f"occlusions={occlusions}) {cut_text}, {warmup} warmup + "
+              f"{timed} timed steps: step_ms={dt * 1e3:.2f} rays_per_s={batch / dt:.0f} "
+              f"(train_log rays_per_sec={log[-1]['rays_per_sec']:.0f} over steps 2-{total}) on "
+              f"[{smi}]; peak {run['peak_gib']:.2f} GiB; shadow rays per step {shadow:.0f}; "
+              f"losses finite and present={finite} {losses}; checkpoint step {run['saved']}, "
+              f"resumed with no step={run['resume_ok']}; kernel launches={run['launches']} "
+              f"(per step {per_step}, expected {step_launches}); eval "
+              f"view {run['view']} cast on the host: psnr={metrics['psnr']:.2f} in "
+              f"{run['eval_s']:.2f}s; checked step, every scatter against its plain version "
+              f"(tol=|err|<={SUM_ORDER_TOL}*sum|w*ct|): "
+              + "; ".join(f"{c['kind']} idx{list(c['shape'])} max_abs_err={c['max_abs_err']:.3e} "
+                          f"{'ok' if c['ok'] else 'FAIL'}" for c in calls)
+              + f"; entry point {run['wall']:.1f}s {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"trainer transient material train phase failed ({stage})")
+        paths = {}
+        for kind, capture in captures.items():
+            if capture:
+                levels = capture["idx"].shape[0]
+                paths[kind] = phase_kernel_path(
+                    kind, capture, [f"level {i}" for i in range(levels)],
+                    f"cornell {stage}'s own updates (its largest {kind} call, batch {batch})")
+                paths[kind]["path_shape"] = list(capture["idx"].shape)
+        captures.clear()
+        results[stage] = dict(
+            step_ms=dt * 1e3, rays_per_s=batch / dt, train_log_rays_per_s=log[-1]["rays_per_sec"],
+            peak_gib=run["peak_gib"], batch=batch, cut=cut, steps=timed, warmup=warmup,
+            params=n_params, secondary_rays_per_point=n_sec, shadow_rays_per_step=shadow,
+            launches=run["launches"], launches_per_step=per_step, eval_view=run["view"],
+            eval_psnr=metrics["psnr"], eval_s=run["eval_s"], entry_point_s=run["wall"],
+            losses=losses, max_abs_err=max(c["max_abs_err"] for c in calls), paths=paths)
+        warm = ckpt
+        del trainer, run, stats
+        gin_config.clear_config()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results
 
 
 def _profile(torch, train_step, state, rng, batches, path, steps=3):
@@ -2761,8 +3033,12 @@ def main():
             torch, device, args.seed, args.trainer_steps, smi, tmp, cache_ckpt,
             args.profile)
         trainer_transient_reference = phase_trainer_transient_reference(torch, device, args.seed)
-        trainer_transient = phase_trainer_transient_train(torch, device, args.seed,
-                                                          args.trainer_steps, smi, tmp)
+        trainer_transient, transient_ckpt = phase_trainer_transient_train(
+            torch, device, args.seed, args.trainer_steps, smi, tmp)
+        trainer_tmat_reference = phase_trainer_transient_material_reference(torch, device,
+                                                                            args.seed)
+        trainer_tmat = phase_trainer_transient_material_train(
+            torch, device, args.seed, args.trainer_steps, smi, tmp, transient_ckpt)
     print(f"phases done in {time.perf_counter() - t_start:.1f}s, build included", flush=True)
 
     csrc = "neural_radiance_caching_tpu_torch/csrc"
@@ -2785,7 +3061,11 @@ def main():
                         "trainer_transient_train": trainer_transient["launches"],
                         "trainer_transient_occlusions": trainer_transient["occlusions"][
                             "launches"]}
-    other_paths = {"trainer_transient_train": 0, "trainer_transient_occlusions": 0}
+    tmat_paths = {f"trainer_{stage}": int(r["launches"]["leveled"])
+                  for stage, r in trainer_tmat.items()}
+    leveled_launches.update(tmat_paths)
+    other_paths = {"trainer_transient_train": 0, "trainer_transient_occlusions": 0,
+                   **{k: 0 for k in tmat_paths}}
     print(json.dumps({"kernels": [{
         "name": "scatter_add_weighted_leveled",
         "route": "cuda",
@@ -2796,7 +3076,9 @@ def main():
         "max_abs_err": max(kernel["max_abs_err"], material_err["leveled"],
                            transient["direct"]["max_abs_err"],
                            *(r["max_abs_err"] for r in tmat.values()),
-                           trainer_transient["occlusions"]["max_abs_err"]),
+                           trainer_transient["occlusions"]["max_abs_err"],
+                           *(r["max_abs_err"] for r in trainer_tmat.values()),
+                           *(r["max_abs_err"] for r in trainer_tmat_reference.values())),
         "max_abs_err_by_shape": {"cache": kernel["max_abs_err"],
                                  "material_path": material_err["leveled"],
                                  "transient_path": transient["direct"]["max_abs_err"],
@@ -2804,7 +3086,9 @@ def main():
                                      r["max_abs_err"] for r in tmat.values()),
                                  "planes_shape": planes["leveled_max_abs_err"],
                                  "trainer_transient_path": trainer_transient["occlusions"][
-                                     "max_abs_err"]},
+                                     "max_abs_err"],
+                                 **{f"trainer_{stage}_path": r["max_abs_err"]
+                                    for stage, r in trainer_tmat.items()}},
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
         "library_ms": kernel["library_ms"],
@@ -2815,6 +3099,7 @@ def main():
         "camera_ray_library_ms": kernel["camera_ray_library_ms"],
         **leveled_path,
         "trainer_transient_path": trainer_transient["path"],
+        **{f"trainer_{stage}_path": r["paths"]["leveled"] for stage, r in trainer_tmat.items()},
     }, {
         "name": "scatter_add_weighted_leveled_skip_zero_w",
         "route": "cuda",
@@ -2878,14 +3163,17 @@ def main():
         "train": {name: {k: v for k, v in r.items() if k != "max_abs_err"}
                   for name, r in tmat.items()},
         "reference": tmat_reference, "eval_render": eval_render["transient_material"],
-        "leveled_launches_per_step": _TRANSIENT_MATERIAL_LAUNCHES_PER_STEP["leveled"],
+        "leveled_launches_per_step": _TRAINER_TRANSIENT_MATERIAL_LAUNCHES_PER_STEP["leveled"],
         "device": smi}}), flush=True)
     print(json.dumps({"trainer": {
         "train": trainer_train, "reference": trainer_reference,
         "material_train": trainer_material, "material_reference": trainer_material_reference,
         "material_reference_leveled_launches_per_step": _TRAINER_MATERIAL_LAUNCHES_PER_STEP,
         "transient_train": {k: v for k, v in trainer_transient.items() if k != "path"},
-        "transient_reference": trainer_transient_reference, "device": smi}}), flush=True)
+        "transient_reference": trainer_transient_reference,
+        "transient_material_train": {stage: {k: v for k, v in r.items() if k != "paths"}
+                                     for stage, r in trainer_tmat.items()},
+        "transient_material_reference": trainer_tmat_reference, "device": smi}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

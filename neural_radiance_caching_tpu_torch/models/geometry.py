@@ -38,10 +38,13 @@ class DensityMLP(Configurable, nn.Module, unported=dict(
         weight_init="he_uniform", density_noise=0.0, enable_normals_offset=False,
         use_corrected_normals=False, isotropize_gaussians=False, gaussian_covariance_scale=1.0,
         gaussian_covariance_pad=0.0, unscented_sqrt_fn="sqrtm", unscented_scale_mult=0.0,
-        squash_before=False, backfacing_target="normals", use_backfacing_near=False, filter_backfacing=False, use_feature_filter=False,
+        squash_before=False, backfacing_target="normals", use_backfacing_near=False,
+        use_feature_filter=False,
         use_feature_filter_secondary_only=True, use_feature_filter_far_field=False,
         feature_filter_radius=float("inf"), feature_filter_size=64)):
     """Density MLP over grid features (or IPE posenc)."""
+
+    filter_backfacing = False  # declared in JAX, read by nothing there
 
     net_depth = 8
     net_width = 256

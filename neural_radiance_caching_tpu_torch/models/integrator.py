@@ -27,6 +27,13 @@ _EXTRAS_TO_RENDER = [
     "ray_dists", "transient_indirect", "transient_indirect_specular",
     "transient_indirect_diffuse", "impulse_response",
 ]
+# Time-binned shader outputs the transient integrator does not composite
+# as extras: "transient_indirect" (the renderer writes its shifted composite
+# under that key over the extra), and in a train step (compute_extras=False)
+# the diffuse and specular parts, which no loss reads from the render. Each
+# is a [rays, samples, bins, C] product that JAX's compiler drops unread.
+_UNRENDERED_EXTRAS = ("transient_indirect",)
+_TRAIN_UNRENDERED_EXTRAS = ("transient_indirect_diffuse", "transient_indirect_specular")
 _EXTRAS_TO_ALWAYS_RENDER = [
     k for k in _EXTRAS_TO_RENDER
     if k not in (
@@ -106,11 +113,13 @@ class TransientVolumeIntegrator(VolumeIntegrator):
                 for v in (transient_shift, dark_level))
         filter_primary = not is_secondary or not cfg.filter_indirect
         extras_keys = _EXTRAS_TO_RENDER if compute_extras else _EXTRAS_TO_ALWAYS_RENDER
+        unrendered = _UNRENDERED_EXTRAS + (() if compute_extras else _TRAIN_UNRENDERED_EXTRAS)
         rendering = render.volumetric_transient_rendering(
             shader_results["direct_rgb"], shader_results["transient_indirect"],
             shader_results["weights"], shader_results["weights_no_filter"],
             shader_results["tdist"], lo, compute_extras,
-            extras={k: v for k, v in shader_results.items() if k in extras_keys},
+            extras={k: v for k, v in shader_results.items()
+                    if k in extras_keys and k not in unrendered},
             percentiles=percentiles, compute_distance=compute_distance, n_bins=cfg.n_bins,
             shift=0.0 if is_secondary else transient_shift,
             dark_level=0.0 if is_secondary else dark_level,

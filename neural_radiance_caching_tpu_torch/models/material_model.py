@@ -33,10 +33,15 @@ results.
 "geometry", "material_shader" and "material_cache_shader" that the
 smoothness losses run).
 
+With ``share_light_power`` the cache shader lights its secondary queries
+with the material shader's power (or its learnable light). Under
+``Config.use_occlusions`` the cache shader traces shadow rays from the
+surface points (their occlusion, stored without gradient, darkens the
+material's direct lobe) and from the point each secondary query resamples.
+
 Not ported yet (they raise): the SLF and volume control variates and the
-surface-light-field passes, ground-truth lights and a light power shared
-with the cache, shadow rays in a transient material model, vignetting and
-shared materials.
+surface-light-field passes, ground-truth lights, vignetting and shared
+materials.
 """
 
 from __future__ import annotations
@@ -58,8 +63,7 @@ def _detach_dict(d):
 
 
 class BaseMaterialModel(nerf_model.Model, unported=dict(
-        stopgrad_weight_variate=0.0, sampler_params=None, use_vignette=False,
-        use_resample_depth=False, depth_key="distance_median")):
+        stopgrad_weight_variate=0.0, use_vignette=False)):
     """Material model over a radiance cache; the variants pick the cache,
     shader and integrator classes."""
 
@@ -74,7 +78,11 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(
     extra_model_params = None
     use_material = True
     use_light_sampler = True
-    # Bound by the gin files, read by no model code (in JAX either).
+    # Bound by the gin files (or declared), read by no model code (in JAX
+    # either).
+    sampler_params = None
+    use_resample_depth = False
+    depth_key = "distance_median"
     share_material = False
     material_loss = "rawnerf_unbiased"
     material_loss_weight = 1.0
@@ -102,7 +110,7 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(
             **dict(self.cache_model_params or {}), **dict(self.extra_model_params or {}))
         if not self.use_material:
             return
-        self._require(slf_variate=False, share_light_power=False)
+        self._require(slf_variate=False)
         if config.volume_variate_material:
             raise NotImplementedError("the material volume variate is not ported yet")
         feature_dim = self.cache.sampler.mlps[-1].feature_dim
@@ -139,11 +147,6 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(
                                       "ported yet")
         if render_kwargs.pop("is_secondary", False):
             raise NotImplementedError("secondary-ray queries of the material model are not ported")
-        if self.use_material and self.config.use_transient and self.config.use_occlusions:
-            # The cache stage's shadow rays are ported; the material passes'
-            # (the secondary rays' shadows and shadow_eps_indirect) are not.
-            raise NotImplementedError("shadow rays of a transient material stage are not ported "
-                                      "yet")
         key, rng = torchutil.random_split(rng)
         cache_out = self.cache(key, rays, train_frac=train_frac, train=train,
                                cache_outputs=cache_outputs, compute_extras=compute_extras,

@@ -24,11 +24,17 @@ directions by ``stopgrad_shading_weight`` (times the scene-radius mask),
 their cache queries by ``stopgrad_cache_weight`` (the rays' fields, then
 the radiance that comes back). The cache's per-level results on those rays
 are kept for ``material_ray_sampler``; their proposal levels run without
-a graph when the caller asks (``secondary_proposal_grad``).
+a graph when the caller asks (``secondary_proposal_grad``). Under the
+material model's ``share_light_power`` the cache queries are lit by this
+shader's light power; with ``shadow_eps_indirect`` the secondary rays carry
+their surface point's normal (``Config.shadow_normals_target``), off which
+the cache's sampler pushes their near bound.
 
 Environment maps, surface-light-field queries and variates, BRDF correction,
-emission, residual albedo, the irradiance cache, the per-lobe (unfused) path,
-cone lights and structured light are not ported yet and raise.
+emission, residual albedo, the per-lobe (unfused) path, cone lights and
+structured light are not ported yet and raise. The irradiance-cache fields
+are read by nothing, as in JAX (the irradiance cache's output belongs to the
+SLF variate).
 """
 
 from __future__ import annotations
@@ -132,19 +138,15 @@ def _fuse_lobe_rays(spec_rays, diff_rays, ns):
 
 class BaseMaterialMLP(shading.BaseShader, unported=dict(
         env_importance_samplers=(("EnvironmentSampler", 1.0),),
-        active_importance_samplers=(("ActiveSampler", 1.0),), shadow_eps_indirect=False,
+        active_importance_samplers=(("ActiveSampler", 1.0),),
         material_type="microfacet", use_mis=True, stratified_sampling=False,
         use_constant_material=False, reparam_roughness=False,
         anisotropic_brdf_correction=False, per_point_brdf_correction=False,
         global_brdf_correction=False, emission_window_frac=0.0,
         emission_variate_weight_start=1.0, emission_variate_weight_end=1.0,
-        irradiance_cache_weight=1.0, irradiance_cache_stopgrad_weight=1.0,
-        irradiance_cache_decay_rate=1.0, deg_brdf=2, deg_brdf_anisotropic=2,
-        stopgrad_env_map_weight=(1.0, 1.0), stopgrad_variate_weight=1.0, use_mesh_points=True,
-        use_mesh_points_for_prediction=True,
-        use_mesh_normals=True, use_corrected_normals=False, stopgrad_samples=False,
+        deg_brdf=2, deg_brdf_anisotropic=2, stopgrad_samples=False,
         stopgrad_rays=False, stopgrad_rgb=False, stopgrad_light=True, resample_cache=True,
-        num_light_features=64, multiple_illumination_outputs=True, stopgrad_occ_weight=0.0)):
+        num_light_features=64)):
     """BRDF head + secondary rays through the cache; the variants set the
     lighting (passive or active) and the integration table."""
 
@@ -176,7 +178,25 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
     use_brdf_correction = True
     use_diffuse_emission = False
     use_residual_albedo = False
+    # Declared by the JAX material shaders and read by nothing there (the
+    # irradiance cache's output is the SLF variate's, not these fields').
     use_irradiance_cache = False
+    irradiance_cache_weight = 1.0
+    irradiance_cache_stopgrad_weight = 1.0
+    irradiance_cache_decay_rate = 1.0
+    stopgrad_variate_weight = 1.0
+    use_mesh_points = True
+    use_mesh_points_for_prediction = True
+    use_mesh_normals = True
+    use_corrected_normals = False
+    multiple_illumination_outputs = True
+    stopgrad_occ_weight = 0.0
+    # Read by the environment map's queries only (use_env_map).
+    stopgrad_env_map_weight = (1.0, 1.0)
+    # The secondary rays carry their surface point's normal
+    # (Config.shadow_normals_target), and the sampler pushes their near
+    # bound off the surface along it.
+    shadow_eps_indirect = False
     # Read by the emission, residual-albedo and irradiance-cache heads only.
     rgb_emission_activation = staticmethod(torch.sigmoid)
     rgb_bias_emission = -1.0
@@ -216,8 +236,8 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
         super().__init__(config, **kwargs)
         self._require(use_env_map=False, use_surface_light_field=False,
                       use_brdf_correction=False, use_diffuse_emission=False,
-                      use_residual_albedo=False, use_irradiance_cache=False,
-                      separate_integration_diffuse_specular=True, use_indirect=True)
+                      use_residual_albedo=False, separate_integration_diffuse_specular=True,
+                      use_indirect=True)
         if config.multi_illumination:
             raise NotImplementedError("multi-illumination materials are not ported yet")
         if config.compute_relight_metrics or config.use_ground_truth_illumination:
@@ -313,14 +333,32 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
         return (torch.linalg.norm(points, dim=-1, keepdim=True)
                 < self.config.material_loss_radius).to(torch.float32)
 
-    def _make_radiance_cache_fn(self, radiance_cache, train_frac, train, proposal_grad=True):
+    def _light_power(self):
+        """The activated light power (the shader's own parameter, or its
+        bias when the light is not optimised)."""
+        if self.optimize_light:
+            return self.light_power_activation(self.light_power)
+        device = self.pred_brdf_layer.weight.device
+        return self.light_power_activation(torch.tensor(float(self.light_power_bias),
+                                                        device=device))
+
+    def _make_radiance_cache_fn(self, radiance_cache, sampler_results, train_frac, train,
+                                proposal_grad=True):
         """Closure that traces secondary rays [N, S] through the full cache
         model, flattened to one ray axis for the cache forward; the radiance
         comes back as [N, S, C], or [N, S, bins, C] from a transient cache,
         with the cache's per-level sampler results [N, S, ...].
-        proposal_grad=False runs the cache's proposal levels without a graph."""
+        With shadow_eps_indirect the rays carry their surface point's normal;
+        under the model's share_light_power the cache shader is lit with this
+        shader's power. proposal_grad=False runs the cache's proposal levels
+        without a graph."""
 
         def radiance_cache_fn(rng, ref_rays):
+            normals = None
+            if self.shadow_eps_indirect:
+                normals = sampler_results[self.config.shadow_normals_target].reshape(
+                    ref_rays.origins.shape[:-2] + (-1, 3)) * torch.ones_like(ref_rays.origins)
+            ref_rays = ref_rays.replace(normals=normals)
             lead = tuple(ref_rays.origins.shape[:-1])
             n_flat = int(np.prod(lead))
             flat = {}
@@ -336,7 +374,8 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
                 sampling_strategy=(self.cache_train_sampling_strategy if train
                                    else self.cache_render_sampling_strategy),
                 radiance_cache=radiance_cache, stopgrad_cache_weight=self.stopgrad_cache_weight,
-                proposal_grad=proposal_grad)
+                proposal_grad=proposal_grad,
+                light_power=self._light_power() if radiance_cache.share_light_power else None)
             render = out["render"]
 
             def unflatten(x):
@@ -483,9 +522,10 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
     def _make_active_light_fn(self, sampler_results):
         """Direct lighting along one ray per surface point toward the light:
         the learnable light (or the shader's own power with inverse-square
-        falloff), zeroed where the cache stored an occlusion. No shadow ray
-        is traced, so the ray's far bound (a shadow ray's clip at the light)
-        is not needed."""
+        falloff), darkened by the occlusion the cache shader stored at the
+        point (its shadow ray, traced there under Config.use_occlusions). No
+        ray is traced here: JAX clips this ray's far bound at the light, but
+        no query reads the clipped ray, so the port does not form it."""
         cfg = self.config
 
         def active_fn(ref_rays):
@@ -496,9 +536,7 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
                     ref_rays.origins, ref_rays.viewdirs, ref_rays.lights, ref_rays.vcam_look,
                     ref_rays.vcam_up, ref_rays.vcam_origins)
             else:
-                power = (self.light_power if self.optimize_light
-                         else torch.tensor(self.light_power_bias, device=light_dists.device))
-                light_radiance = torch.ones_like(light_dists) * self.light_power_activation(power)
+                light_radiance = torch.ones_like(light_dists) * self._light_power()
                 if cfg.use_falloff:
                     light_radiance = light_radiance / torch.clamp(light_dists**2, min=1e-5)
             if cfg.light_zero:
@@ -588,7 +626,7 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
         integrated = self.get_outgoing_radiance(
             key, rays, sampler_results, material,
             self.num_secondary_samples if train else self.render_num_secondary_samples,
-            self._make_radiance_cache_fn(radiance_cache, train_frac, train,
+            self._make_radiance_cache_fn(radiance_cache, sampler_results, train_frac, train,
                                          secondary_proposal_grad),
             train_frac=train_frac, train=train, light_sampler_results=light_sampler_results)
         final_rgb = integrated["direct_radiance_out" if self.config.use_transient

@@ -34,14 +34,6 @@ from neural_radiance_caching_tpu_torch.utils import torchutil
 _MODEL_UNPORTED = dict(
     random_generator_2d=render_utils.RandomGenerator2D(1, 1, False),
     uniform_importance_samplers=(("UniformHemisphereSampler", 1.0),),
-    uniform_sphere_importance_samplers=(("UniformSphereSampler", 1.0),),
-    cosine_importance_samplers=(("CosineSampler", 1.0),),
-    light_importance_samplers=(("UniformHemisphereSampler", 1.0),),
-    distance_importance_samplers=(("UniformHemisphereSampler", 1.0),),
-    light_field_importance_samplers=(("UniformHemisphereSampler", 1),
-                                     ("MicrofacetSampler", 1)),
-    irradiance_importance_samplers=(("CosineSampler", 1), ("LightSampler", 1)),
-    extra_ray_importance_samplers=(("UniformHemisphereSampler", 1), ("IdentitySampler", 1)),
     active_importance_samplers=(("ActiveSampler", 1.0),),
     surface_lf_mem_distance_near=0.001,
     surface_lf_mem_distance_far=1000000.0,
@@ -56,6 +48,14 @@ _MODEL_UNPORTED = dict(
 class Model(Configurable, nn.Module, unported=_MODEL_UNPORTED):
     """Shared base: resampled estimator and secondary-ray bookkeeping."""
 
+    # Importance samplers the JAX model declares and nothing reads.
+    uniform_sphere_importance_samplers = (("UniformSphereSampler", 1.0),)
+    cosine_importance_samplers = (("CosineSampler", 1.0),)
+    light_importance_samplers = (("UniformHemisphereSampler", 1.0),)
+    distance_importance_samplers = (("UniformHemisphereSampler", 1.0),)
+    light_field_importance_samplers = (("UniformHemisphereSampler", 1), ("MicrofacetSampler", 1))
+    irradiance_importance_samplers = (("CosineSampler", 1), ("LightSampler", 1))
+    extra_ray_importance_samplers = (("UniformHemisphereSampler", 1), ("IdentitySampler", 1))
     use_env_map = False
     # Read by the env map only (use_env_map).
     env_map_near = float("inf")
@@ -200,9 +200,10 @@ class Model(Configurable, nn.Module, unported=_MODEL_UNPORTED):
 
 
 @gin.configurable
-class NeRFModel(Model, unported=dict(use_material=False)):
+class NeRFModel(Model):
     """Radiance cache: proposal sampler + NeRFMLP + integrator."""
 
+    use_material = False  # declared in JAX, read by nothing there
     sampler_params = None
     shader_params = None
     integrator_params = None

@@ -37,7 +37,7 @@ from torch import nn
 
 from neural_radiance_caching_tpu_torch.engine import gin_config as gin
 from neural_radiance_caching_tpu_torch.models import shading, surface_light_field
-from neural_radiance_caching_tpu_torch.models.layers import Dense, SkipMLP, softplus
+from neural_radiance_caching_tpu_torch.models.layers import Dense, SkipMLP, clamp, softplus
 from neural_radiance_caching_tpu_torch.ops import coord, math, ref_utils, render_utils
 from neural_radiance_caching_tpu_torch.utils import torchutil
 from neural_radiance_caching_tpu_torch.utils.torchutil import stopgrad_with_weight
@@ -48,13 +48,21 @@ _SHADOW_SAMPLERS = ((render_utils.ActiveSampler(), 1.0),)
 
 
 class BaseNeRFMLP(shading.BaseShader, unported=dict(
-        cull_backfacing=True, use_normals_feature=False,
-        use_pred_normals_feature=False, use_learned_vignette_map=False,
-        use_exposure_at_bottleneck=False, num_glo_features=0, num_glo_embeddings=1000,
-        num_light_features=64, multiple_illumination_outputs=True, run_surface_light_field=True,
-        use_corrected_normals=False, weight_thold=0.0)):
+        use_exposure_at_bottleneck=False, num_light_features=64)):
     """Shared trunk, bottleneck, surface light field, integrated BRDF and
     light power of the cache shaders."""
+
+    # Declared by the JAX cache shaders and read by nothing there.
+    cull_backfacing = True
+    use_normals_feature = False
+    use_pred_normals_feature = False
+    use_learned_vignette_map = False
+    num_glo_features = 0
+    num_glo_embeddings = 1000
+    multiple_illumination_outputs = True
+    run_surface_light_field = True
+    use_corrected_normals = False
+    weight_thold = 0.0
 
     use_reflections = False
     roughness_activation = staticmethod(softplus)
@@ -472,7 +480,7 @@ class TransientNeRFMLP(BaseNeRFMLP):
                     ) * self.indirect_scale
         diffuse, specular = render_utils.zero_invalid_bins(
             diffuse.reshape(shape), specular, rays, means, self.config)
-        return torch.clamp(diffuse, 0.0, self.rgb_max), torch.clamp(specular, 0.0, self.rgb_max)
+        return clamp(diffuse, 0.0, self.rgb_max), clamp(specular, 0.0, self.rgb_max)
 
     def predict_appearance(self, rng, rays, sampler_results, train_frac=1.0, train=True,
                            is_secondary=False, radiance_cache=None, light_power=None, passes=(),

@@ -31,16 +31,22 @@ from neural_radiance_caching_tpu_torch.utils import torchutil
 
 @gin.configurable
 class ProposalVolumeSampler(Configurable, nn.Module, unported=dict(
-        sampling_anneal_blur_start=1.0, sampling_anneal_blur_stop=0.05,
-        sampling_anneal_rate=0.025, use_uniform_radius=False, use_normal_radius=False,
+        use_uniform_radius=False, use_normal_radius=False,
         use_far_field_radius=False, use_vertical_filter=False, use_horizontal_filter=False,
         use_backwards_filter=False, use_uniform_radius_secondary_only=True,
         normalize_uniform_weights=False, uniform_radius=float("inf"),
         normal_radius=float("inf"), far_field_radius=float("inf"), vertical_fov=pymath.pi,
         horizontal_fov=pymath.pi,
         disable_integration=False, near_anneal_rate=None, near_anneal_init=0.95,
-        normalize_weights=False, use_sample_network=False, grid_representation="ngp")):
+        normalize_weights=False, use_sample_network=False)):
     """Multi-level proposal sampler producing per-level ray results."""
+
+    # Declared by the JAX sampler and read by nothing there (its MLPs take
+    # their own grid_representation).
+    sampling_anneal_blur_start = 1.0
+    sampling_anneal_blur_stop = 0.05
+    sampling_anneal_rate = 0.025
+    grid_representation = "ngp"
 
     sampling_strategy = ((0, None, 64), (0, None, 64), (1, None, 32))
     mlp_params_per_level = ({}, {})

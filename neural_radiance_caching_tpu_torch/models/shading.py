@@ -22,11 +22,16 @@ from neural_radiance_caching_tpu_torch.utils import torchutil
 
 
 class BaseShader(Configurable, nn.Module, unported=dict(
-        weight_init="he_uniform", min_deg_point=0, max_deg_point=4, rgb_bias_diffuse=-1.0,
-        rgb_padding=0.001, basis_shape="icosahedron", basis_subdivisions=2,
-        affine_density_feature=False, backfacing_target="normals_to_use",
-        backfacing_noise_rate=float("inf"), backfacing_near=0.1)):
+        weight_init="he_uniform", min_deg_point=0, max_deg_point=4, basis_shape="icosahedron",
+        basis_subdivisions=2, backfacing_target="normals_to_use",
+        backfacing_noise_rate=float("inf"))):
     """Base class for the shaders (radiance cache, material, light sampler, SLF)."""
+
+    # Declared by the JAX shaders and read by nothing there.
+    rgb_bias_diffuse = -1.0
+    rgb_padding = 0.001
+    affine_density_feature = False
+    backfacing_near = 0.1
 
     net_activation = staticmethod(F.relu)
     net_depth = 8

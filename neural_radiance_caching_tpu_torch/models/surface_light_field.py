@@ -18,7 +18,7 @@ import torch
 
 from neural_radiance_caching_tpu_torch.engine import gin_config as gin
 from neural_radiance_caching_tpu_torch.models import shading
-from neural_radiance_caching_tpu_torch.models.layers import Dense, SkipMLP, softplus
+from neural_radiance_caching_tpu_torch.models.layers import Dense, SkipMLP, clamp, softplus
 from neural_radiance_caching_tpu_torch.ops import coord, math, ref_utils
 
 
@@ -30,11 +30,13 @@ def _ide_dim(deg_view):
 class SurfaceLightFieldMLP(shading.BaseShader, unported=dict(
         deg_origins=4, use_points_ide=False, deg_points=4, deg_sphere_points=4,
         sphere_radius=5.0, use_point_offsets=False, point_offset_scale=0.25,
-        point_offset_bias=-3.0, window_points_frac=0.0, reflectance_grid_representation="ngp",
+        point_offset_bias=-3.0, reflectance_grid_representation="ngp",
         reflectance_grid_params=None, use_roughness=False, roughness_scale=0.001,
         per_ref_feature_output=False, num_light_features=64,
         multiple_illumination_outputs=True)):
     """View-conditioned incoming radiance (see the module docstring)."""
+
+    window_points_frac = 0.0  # declared in JAX, read by nothing there
 
     # Read by the distance and density heads only (use_distance_prediction,
     # use_density_prediction).
@@ -168,7 +170,7 @@ class SurfaceLightFieldMLP(shading.BaseShader, unported=dict(
         ambient_rgb = self.ambient_rgb_activation(
             self.output_ambient_rgb_layer(ambient_x) + self.ambient_rgb_bias)
 
-        outputs["incoming_rgb"] = torch.clamp(rgb, 0.0, self.rgb_max)
+        outputs["incoming_rgb"] = clamp(rgb, 0.0, self.rgb_max)
         outputs["incoming_ambient_rgb"] = torch.clamp(ambient_rgb, 0.0, self.ambient_rgb_max)
         outputs["incoming_alpha"] = alpha
         outputs["incoming_weights"] = ref_weights

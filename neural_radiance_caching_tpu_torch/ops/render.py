@@ -242,6 +242,10 @@ def _irdft_matrices(length, n_out, device):
 SHIFT_FORMS = ("gather", "fft", "matmul")
 
 
+# Complex elements of per-sample spectra the FFT shift forms at once (1 GiB).
+_FFT_CHUNK_ELEMENTS = 1 << 27
+
+
 def shift_and_integrate_transient(transient, bins_move, weights, n_bins, form="fft"):
     """sum_s weights[r, s] * shift_transient(transient[r, s], bins_move[r, s])
     in the Fourier domain: a shift by a fractional offset is a circular
@@ -295,9 +299,15 @@ def shift_and_integrate_transient(transient, bins_move, weights, n_bins, form="f
             return (ft * torch.complex(pr, pi)[:, :, None, :]).sum(dim=1)  # [R, C, F]
 
         # The per-sample spectra (complex, ~3x the transient's size) are
-        # recomputed in the backward rather than kept.
-        acc = (torch.utils.checkpoint.checkpoint(spectrum_sum, t, pr, pi, use_reentrant=False)
-               if torch.is_grad_enabled() else spectrum_sum(t, pr, pi))
+        # formed a chunk of rays at a time, and recomputed in the backward
+        # rather than kept; each ray's sum is the same in any chunking.
+        chunk = max(1, _FFT_CHUNK_ELEMENTS // (s * c * (length // 2 + 1)))
+        parts = zip(t.split(chunk), pr.split(chunk), pi.split(chunk))
+        if torch.is_grad_enabled():
+            acc = torch.cat([torch.utils.checkpoint.checkpoint(
+                spectrum_sum, *part, use_reentrant=False) for part in parts])
+        else:
+            acc = torch.cat([spectrum_sum(*part) for part in parts])
         out = torch.fft.irfft(acc, n=length, dim=-1)[..., :n_bins]
     else:
         dc, ds = _rdft_matrices(n_bins, length, transient.device)
@@ -396,7 +406,7 @@ def volumetric_transient_rendering(
         else:
             transient_indirect_out = shift_and_integrate_transient(
                 ti, bins_move, weights_sq, n_bins, shift_form)
-        rendering["transient_indirect_no_integration"] = extras["transient_indirect"]
+        rendering["transient_indirect_no_integration"] = transient_indirect
     else:
         transient_indirect_out = torch.zeros((n_rays, n_bins, num_rgb_channels),
                                              dtype=transient_direct.dtype,
