@@ -169,6 +169,28 @@ Phases, one line each (any failure exits nonzero):
      run, one 48^2 test view; then one step with every scatter held against
      its plain version, and the kernel timed against index_add_ on the
      stage's largest leveled call.
+ 27. trainer SLF reference: phase 21's method on the surface-light-field
+     material stage of configs/synthetic_spheres.gin
+     (material_surface_light_field_light with resampling and the SLF
+     variate bound): the SLF memory queried along the secondary rays, the
+     variate's cache estimate on its own secondary rays, the distillation
+     loss; every loss term (material_surface_light_field among them) and
+     every gradient leaf, the limit bracketed by a CPU noise floor (the ray
+     origins +-1 ulp) and two faults planted in the leveled kernel; 4
+     leveled launches per step (the cache's primary samples, the variate's
+     cache queries, material smoothness's "geometry" pass, the light
+     sampler's grid), each held against its plain version;
+ 28. trainer SLF train: material_surface_light_field_light_resample as
+     train_one_stage.py builds it (sample factor 8: 64 memory queries and
+     128 cache queries per surface point) on the full-width
+     configs/ngp_yobo.gin through train_with_trainer, in-process,
+     warm-started from phase 20's checkpoint, at the largest of batch 1024,
+     512, 256 that fits (each cut printed with the memory at the failing
+     request): 3 warmup + N timed steps, every loss term finite and
+     present, no kernel launch, peak memory, the checkpoint, a resuming run
+     that takes no step, one 48^2 test view; then one step of the
+     cache-side surface_light_field_light stage at batch 8192 (no memory,
+     its distillation loss 0), timed, with its peak memory.
 Then the kernels JSON line, the eval JSON line, the transient material JSON
 line, the trainer JSON line, the nvidia-smi line, and the result line.
 """
@@ -2938,6 +2960,220 @@ def phase_trainer_transient_material_train(torch, device, seed, steps, smi, tmp,
     return results
 
 
+# The surface-light-field stages. Phase 27: the SLF material stage on
+# synthetic_spheres.gin with the variate bound (spheres binds it off, and
+# JAX then cannot run the stage: its material_ray_sampler finds no sampler
+# weights on the memory's queries) and phase 21's weights, so that every
+# ported term has a value and a gradient.
+TRAINER_SLF_STAGE = (
+    "Trainer.stage = 'material_surface_light_field_light'", "Trainer.resample = True",
+    "Trainer.resample_render = True", "MaterialModel.slf_variate = True",
+    "Config.material_smoothness_weight_albedo = 0.0001",
+    "Config.material_smoothness_weight_other = 0.0001",
+    "Config.cache_consistency_loss_weight = 0.1",
+    "Config.material_ray_sampler_interlevel_loss_mult = 1.0",
+    "MaterialMLP.stopgrad_shading_weight = 1e-2", "MaterialMLP.stopgrad_cache_weight = (1e2, 1e-4)")
+# The leveled kernel per SLF material step on spheres: the cache's primary
+# samples, the variate's cache queries (the main pass queries the memory,
+# which has no grid), material smoothness's "geometry" pass and the light
+# sampler's grid; the variate's light-sampler call has no graph.
+_TRAINER_SLF_LAUNCHES_PER_STEP = {"leveled": 4}
+_TRAINER_SLF_TERMS = ("data", "cache_data", "light_sampling", "material_ray_sampler",
+                      "material_smoothness", "direct_indirect_consistency",
+                      "material_surface_light_field")
+# A warm-started material stage binds Config.material_interlevel_loss_mults,
+# (0, 0) by default, as its interlevel multipliers: material_ray_sampler's
+# interlevel term is 0 there (in JAX too), and on spheres it has no other.
+_TRAINER_SLF_ZERO_TERMS = ("material_ray_sampler",)
+# Phase 28: the README's recipe (the `_resample` suffix) for the SLF material
+# stage, and the batches it tries; then the cache-side stage's step.
+TRAINER_SLF_COMMAND = ("-c", "ngp_yobo", "-t", "material_surface_light_field_light_resample",
+                       "--sample_factor", "8", "--render_chunk_size", "1024")
+TRAINER_SLF_BATCHES = (1024, 512, 256)
+TRAINER_SLF_CACHE_SIDE = ("Trainer.stage = 'surface_light_field_light'",
+                          "Config.batch_size = 8192")
+
+
+def phase_trainer_slf_reference(torch, device, seed):
+    """The Trainer's SLF material step on synthetic_spheres.gin, GPU against
+    CPU: every loss term and every gradient leaf, the limit bracketed by a
+    CPU noise floor (origins +-1 ulp) and two faults planted in the leveled
+    kernel; every GPU leveled call held against its plain version."""
+    stage = TRAINER_SLF_STAGE
+
+    def step(dev, **kw):
+        return _trainer_step(torch, dev, seed, stage=stage, **kw)
+
+    l_cpu, g_cpu, n_cpu = step("cpu")
+    floor, floor_at = 0.0, None
+    for nudge in (1, -1):
+        v, at = _worst_grad_err(step("cpu", nudge=nudge)[1], g_cpu)
+        if v >= floor:
+            floor, floor_at = v, at
+    checked = []
+    l_gpu, g_gpu, n_gpu = step(device, checked=checked)
+    loss_errs = {k: abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-12) for k in l_cpu}
+    loss_err = max(loss_errs.values())
+    err, err_at = _worst_grad_err(g_gpu, g_cpu)
+    faults = {f: _worst_grad_err(step(device, fault=f)[1], g_cpu)
+              for f in ("taps rotated", "finest level dropped")}
+    finite = all(torch.isfinite(g).all() for g in g_gpu.values())
+    terms = set(_TRAINER_SLF_TERMS)
+    present = terms <= set(l_cpu) and all((l_cpu[k] == 0) == (k in _TRAINER_SLF_ZERO_TERMS)
+                                          for k in terms)
+    memory = any(k.startswith("cache.surface_lf_mem.") and bool(g.abs().max() > 0)
+                 for k, g in g_gpu.items())
+    tol = TRAINER_MATERIAL_GRAD_REL_L2_TOL
+    expected = _launch_counts(**_TRAINER_SLF_LAUNCHES_PER_STEP)
+    ok = (finite and present and memory and loss_err <= 1e-3 and n_cpu == _launch_counts()
+          and n_gpu == expected and len(checked) == expected["leveled"]
+          and all(c["ok"] for c in checked) and floor <= tol and err <= tol
+          and all(v > tol for v, _ in faults.values()))
+    print(f"trainer SLF reference: Trainer, {TRAINER_REF_CONFIG} "
+          f"material_surface_light_field_light (resample, the SLF variate), one step, the same "
+          f"weights, batch and draws, gpu vs cpu: loss rel_err max={loss_err:.3e} (tol 1e-3; "
+          + ", ".join(f"{k} {v:.2e}" for k, v in sorted(loss_errs.items()))
+          + f") grad rel_l2_err max={err:.3e} at {err_at} (tol {tol}; noise floor, cpu vs cpu "
+          f"with origins +-1 ulp: {floor:.3e} at {floor_at}; planted in the leveled kernel "
+          + ", ".join(f"{f}: {v:.3e} at {at}" for f, (v, at) in faults.items())
+          + f", each must exceed the tol); the memory's gradient nonzero={memory}; the leveled "
+          "calls against their plain version: "
+          + "; ".join(f"idx{list(c['shape'])} max_abs_err={c['max_abs_err']:.3e} "
+                      f"{'ok' if c['ok'] else 'FAIL'}" for c in checked)
+          + f"; kernel launches gpu={n_gpu} cpu={n_cpu} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the Trainer's GPU SLF step disagrees with its CPU step")
+    return dict(loss_rel_err=loss_err, loss_rel_errs=loss_errs, grad_rel_l2_err=err,
+                grad_err_at=err_at, noise_floor=floor,
+                faults={f: v for f, (v, _) in faults.items()}, tol=tol,
+                launches=n_gpu["leveled"], max_abs_err=max(c["max_abs_err"] for c in checked),
+                losses=l_gpu)
+
+
+def _slf_cache_side_step(torch, device, seed):
+    """Two steps of the cache-side surface_light_field_light stage on the
+    full-width ngp_yobo.gin at batch 8192 (the second timed by host clock
+    ending in a sync): its losses, ms, peak GiB and launches."""
+    from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+
+    trainer = _trainer_setup(torch, device, TRAINER_CONFIG, TRAINER_SLF_CACHE_SIDE)
+    rng = torch.Generator().manual_seed(seed + 7)
+    batches = [trainer.dataset.next_train() for _ in range(2)]
+    trainer.state, _ = trainer.train_step(rng, trainer.state, batches[0], 0.5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    scatter_cuda.reset_launch_count()
+    t0 = time.perf_counter()
+    trainer.state, stats = trainer.train_step(rng, trainer.state, batches[1], 0.5)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    losses = {k: float(torch.as_tensor(v).detach()) for k, v in stats["losses"].items()}
+    out = dict(step_ms=dt * 1e3, rays_per_s=trainer.batch_size / dt,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30, batch=trainer.batch_size,
+               launches=dict(scatter_cuda.launches), losses=losses,
+               memory=hasattr(trainer.model.cache, "surface_lf_mem"))
+    del trainer
+    return out
+
+
+def phase_trainer_slf_train(torch, device, seed, steps, smi, tmp, cache_ckpt):
+    """material_surface_light_field_light_resample on the full-width
+    ngp_yobo.gin through the train_with_trainer entry point, in-process,
+    warm-started from phase 20's checkpoint, at the largest batch of
+    TRAINER_SLF_BATCHES that fits: 3 warmup + N timed steps, a second run
+    that resumes and takes no step, one eval view; then one step of the
+    cache-side stage at batch 8192."""
+    import gc
+    import os
+
+    from neural_radiance_caching_tpu_torch import train_one_stage
+    from neural_radiance_caching_tpu_torch.engine import gin_config
+
+    warmup, cut = 3, []
+    for batch in TRAINER_SLF_BATCHES:
+        ckpt = os.path.join(tmp, f"ngp_yobo_material_surface_light_field_light_{batch}")
+        command = train_one_stage.stage_command(
+            list(TRAINER_SLF_COMMAND) + ["--batch_size", str(batch), "--device", device],
+            checkpoint_dir=ckpt, partial_checkpoint_dir=cache_ckpt)
+        command = [c for c in command[3:] if c != "--logtostderr"]
+        extra = [f"--gin_bindings={b}" for b in TRAINER_BINDINGS + (
+            f"Config.early_exit_steps = {warmup + steps}",
+            f"Config.print_every = {warmup + steps}", f"Config.jax_rng_seed = {20200823 + seed}",
+            "Config.metric_harness_train_config = {'disable_lpips': True}")]
+        resume = [c for c in command if "partial_checkpoint_dir" not in c]
+        try:
+            run = _entry_point_run(torch, command + extra, resume + extra, ckpt, warmup, steps)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            allocated = torch.cuda.memory_allocated() / 2**30
+            reserved = torch.cuda.memory_reserved() / 2**30
+            print(f"trainer SLF train: batch {batch} ran out of memory ({allocated:.2f} GiB "
+                  f"allocated, {reserved:.2f} GiB reserved at the failing request): "
+                  f"{str(e).splitlines()[0]}", flush=True)
+            cut.append(dict(batch=batch, allocated_gib=allocated, reserved_gib=reserved))
+            del e
+            gin_config.clear_config()
+            gc.collect()
+            torch.cuda.empty_cache()
+    else:
+        raise AssertionError(f"no batch of {TRAINER_SLF_BATCHES} fits the SLF stage")
+    trainer, dt, losses, log, total = (run["trainer"], run["step_s"], run["losses"], run["log"],
+                                       run["total"])
+    terms = [f"loss/{k}" for k in _TRAINER_SLF_TERMS]
+    finite = _finite(losses.values()) and all(k in losses for k in terms)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    shader = trainer.model.shader
+    metrics = run["metrics"]
+    cfg = trainer.config
+    ok = (finite and run["saved"] == total and run["resume_ok"] and trainer.model.slf_variate
+          and run["launches"] == _launch_counts() and math.isfinite(metrics["psnr"]))
+    cut_text = (f"batch {batch}, cut from {TRAINER_SLF_BATCHES[0]} ("
+                + ", ".join(f"{c['batch']} ran out of memory at {c['allocated_gib']:.2f} GiB "
+                            f"allocated, {c['reserved_gib']:.2f} reserved" for c in cut)
+                + ")" if cut else f"batch {batch}")
+    print(f"trainer SLF train: train_with_trainer {TRAINER_CONFIG} "
+          f"{' '.join(TRAINER_SLF_COMMAND[2:])} warm-started from the cache stage "
+          f"({n_params} params, {shader.num_secondary_samples} memory queries and "
+          f"{shader.num_secondary_samples_diff} cache queries per surface point) {cut_text}, "
+          f"{warmup} warmup + {steps} timed steps: step_ms={dt * 1e3:.2f} "
+          f"rays_per_s={batch / dt:.0f} (train_log rays_per_sec={log[-1]['rays_per_sec']:.0f} "
+          f"over steps 2-{total}) on [{smi}]; peak {run['peak_gib']:.2f} GiB; losses finite and "
+          f"present={finite} {losses}; checkpoint step {run['saved']}, resumed with no step="
+          f"{run['resume_ok']}; kernel launches={run['launches']} (expected none); eval view "
+          f"{run['view']} at chunk {cfg.render_chunk_size}: psnr={metrics['psnr']:.2f} in "
+          f"{run['eval_s']:.2f}s; entry point {run['wall']:.1f}s {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError("trainer SLF train phase failed")
+    result = dict(step_ms=dt * 1e3, rays_per_s=batch / dt,
+                  train_log_rays_per_s=log[-1]["rays_per_sec"], peak_gib=run["peak_gib"],
+                  batch=batch, cut=cut, steps=steps, warmup=warmup, params=n_params,
+                  memory_queries_per_point=shader.num_secondary_samples,
+                  cache_queries_per_point=shader.num_secondary_samples_diff,
+                  launches=run["launches"]["leveled"], eval_view=run["view"],
+                  eval_psnr=metrics["psnr"], eval_s=run["eval_s"], entry_point_s=run["wall"],
+                  losses=losses)
+    del trainer, run
+    gin_config.clear_config()
+    gc.collect()
+    torch.cuda.empty_cache()
+    side = _slf_cache_side_step(torch, device, seed)
+    side_ok = (_finite(side["losses"].values()) and not side["memory"]
+               and side["losses"].get("material_surface_light_field") == 0.0
+               and side["launches"] == _launch_counts())
+    print(f"trainer SLF train, cache side: {TRAINER_CONFIG} surface_light_field_light batch "
+          f"{side['batch']}, one step after one: step_ms={side['step_ms']:.2f} rays_per_s="
+          f"{side['rays_per_s']:.0f} on [{smi}]; peak {side['peak_gib']:.2f} GiB; no SLF memory="
+          f"{not side['memory']}; losses {side['losses']}; kernel launches={side['launches']} "
+          f"(expected none) {'ok' if side_ok else 'FAIL'}", flush=True)
+    if not side_ok:
+        raise AssertionError("trainer SLF train phase failed (cache side)")
+    result["cache_side"] = {k: v for k, v in side.items() if k not in ("launches", "memory")}
+    result["cache_side"]["launches"] = side["launches"]["leveled"]
+    gin_config.clear_config()
+    return result
+
+
 def _profile(torch, train_step, state, rng, batches, path, steps=3):
     """Device time by kernel over `steps` steps, as a table written to `path`."""
     import pathlib
@@ -3039,6 +3275,9 @@ def main():
                                                                             args.seed)
         trainer_tmat = phase_trainer_transient_material_train(
             torch, device, args.seed, args.trainer_steps, smi, tmp, transient_ckpt)
+        trainer_slf_reference = phase_trainer_slf_reference(torch, device, args.seed)
+        trainer_slf = phase_trainer_slf_train(torch, device, args.seed, args.trainer_steps, smi,
+                                              tmp, cache_ckpt)
     print(f"phases done in {time.perf_counter() - t_start:.1f}s, build included", flush=True)
 
     csrc = "neural_radiance_caching_tpu_torch/csrc"
@@ -3064,8 +3303,12 @@ def main():
     tmat_paths = {f"trainer_{stage}": int(r["launches"]["leveled"])
                   for stage, r in trainer_tmat.items()}
     leveled_launches.update(tmat_paths)
+    slf_paths = {"trainer_slf_reference": trainer_slf_reference["launches"],
+                 "trainer_slf_train": trainer_slf["launches"],
+                 "trainer_slf_cache_side": trainer_slf["cache_side"]["launches"]}
+    leveled_launches.update(slf_paths)
     other_paths = {"trainer_transient_train": 0, "trainer_transient_occlusions": 0,
-                   **{k: 0 for k in tmat_paths}}
+                   **{k: 0 for k in tmat_paths}, **{k: 0 for k in slf_paths}}
     print(json.dumps({"kernels": [{
         "name": "scatter_add_weighted_leveled",
         "route": "cuda",
@@ -3078,7 +3321,8 @@ def main():
                            *(r["max_abs_err"] for r in tmat.values()),
                            trainer_transient["occlusions"]["max_abs_err"],
                            *(r["max_abs_err"] for r in trainer_tmat.values()),
-                           *(r["max_abs_err"] for r in trainer_tmat_reference.values())),
+                           *(r["max_abs_err"] for r in trainer_tmat_reference.values()),
+                           trainer_slf_reference["max_abs_err"]),
         "max_abs_err_by_shape": {"cache": kernel["max_abs_err"],
                                  "material_path": material_err["leveled"],
                                  "transient_path": transient["direct"]["max_abs_err"],
@@ -3088,7 +3332,9 @@ def main():
                                  "trainer_transient_path": trainer_transient["occlusions"][
                                      "max_abs_err"],
                                  **{f"trainer_{stage}_path": r["max_abs_err"]
-                                    for stage, r in trainer_tmat.items()}},
+                                    for stage, r in trainer_tmat.items()},
+                                 "trainer_slf_reference_path": trainer_slf_reference[
+                                     "max_abs_err"]},
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
         "library_ms": kernel["library_ms"],
@@ -3173,7 +3419,10 @@ def main():
         "transient_reference": trainer_transient_reference,
         "transient_material_train": {stage: {k: v for k, v in r.items() if k != "paths"}
                                      for stage, r in trainer_tmat.items()},
-        "transient_material_reference": trainer_tmat_reference, "device": smi}}), flush=True)
+        "transient_material_reference": trainer_tmat_reference,
+        "slf_train": trainer_slf, "slf_reference": trainer_slf_reference,
+        "slf_reference_leveled_launches_per_step": _TRAINER_SLF_LAUNCHES_PER_STEP["leveled"],
+        "device": smi}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

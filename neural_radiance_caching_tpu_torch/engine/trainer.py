@@ -15,8 +15,12 @@ The loop is eager: one host fetch per ``print_every`` interval reads the
 losses of the steps since the last one; batches are drawn and moved to the
 device on a background thread (``RayBatcher``), one step ahead.
 
-The material stages build their models, and their train steps raise naming
-the extra losses that are not ported yet. The secondary-ray probe
+Every stage of ``configs/trainer.gin`` trains on the steady configs (the
+surface-light-field stages with resampling, ``Trainer.resample`` and
+``resample_render``: the SLF variate sums one surface point per ray), and
+every stage but the material SLF ones on the transient configs (the JAX
+package's transient cache has no SLF memory). A train step raises naming
+an extra loss that is not ported yet. The secondary-ray probe
 (``vis_secondary``), the transient h5 save, the viewer and the profiler
 trace raise. The metric harness is built at the first evaluation, so a
 run without evaluation needs no LPIPS: LPIPS is not ported, so an

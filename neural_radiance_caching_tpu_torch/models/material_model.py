@@ -31,7 +31,16 @@ results.
 
 ``bypass`` evaluates one sub-module at given samples (the passes
 "geometry", "material_shader" and "material_cache_shader" that the
-smoothness losses run).
+smoothness losses run, and the SLF memory's "surface_light_field" pass).
+
+With ``slf_variate`` the material pass is followed by the SLF variate's
+(``_handle_slf_variate_pass``): the material shader again at the surface
+points, detached, with the variate's estimate; its secondary rays replace
+the main pass's in the shader results (the material ray sampler reads the
+cache's), and its radiance, times the surface weights, is added to the
+material render. It needs one surface point per ray (resampling), as the
+JAX model's reshape does. With ``use_surface_light_field`` the cache holds
+the SLF memory, which the material shader queries.
 
 With ``share_light_power`` the cache shader lights its secondary queries
 with the material shader's power (or its learnable light). Under
@@ -39,9 +48,8 @@ with the material shader's power (or its learnable light). Under
 surface points (their occlusion, stored without gradient, darkens the
 material's direct lobe) and from the point each secondary query resamples.
 
-Not ported yet (they raise): the SLF and volume control variates and the
-surface-light-field passes, ground-truth lights, vignetting and shared
-materials.
+Not ported yet (they raise): the volume control variate, ground-truth
+lights, vignetting and shared materials.
 """
 
 from __future__ import annotations
@@ -105,12 +113,14 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(
 
     def __init__(self, config=None, **kwargs):
         self._init_model(config, kwargs)
+        # Only the material shader queries the cache's SLF memory, and JAX's
+        # module creates the memory's parameters at its first query: a cache
+        # without a material pass has none.
         self.cache = self._cache_cls(
-            config=config, use_surface_light_field=self.use_surface_light_field,
+            config=config, use_surface_light_field=self.use_surface_light_field and self.use_material,
             **dict(self.cache_model_params or {}), **dict(self.extra_model_params or {}))
         if not self.use_material:
             return
-        self._require(slf_variate=False)
         if config.volume_variate_material:
             raise NotImplementedError("the material volume variate is not ported yet")
         feature_dim = self.cache.sampler.mlps[-1].feature_dim
@@ -142,6 +152,14 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(
         if passes is not None and set(passes) & set(self.BYPASS_PASSES):
             return self.bypass(rng, rays, passes, sampler_results, train_frac=train_frac,
                                train=train, **render_kwargs)
+        slf_vis = None
+        if passes is not None and "surface_light_field_vis" in passes:
+            # The memory's radiance along the primary rays, beside the full
+            # render (a model without the memory ignores the pass, as in JAX).
+            if self.cache.use_surface_light_field:
+                key, rng = torchutil.random_split(rng)
+                slf_vis = self.cache(key, rays, train_frac=train_frac, train=train, use_slf=True)
+            passes = tuple(p for p in passes if p != "surface_light_field_vis")
         if passes is not None and tuple(passes) != ("cache", "light", "material"):
             raise NotImplementedError(f"the material model's passes {tuple(passes)} are not "
                                       "ported yet")
@@ -175,12 +193,12 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(
             key, rays, train_frac, train, cache_outputs, cache_shader_results, filtered,
             light_sampler_results, compute_extras, secondary_proposal_grad)
         return self._finalize_outputs(outputs, cache_outputs, cache_shader_results,
-                                      light_sampler_results)
+                                      light_sampler_results, slf_vis)
 
-    # The sub-module passes at given samples (JAX's `_maybe_bypass_pipeline`);
-    # the surface-light-field passes raise with the SLF.
+    # The sub-module passes at given samples or rays (JAX's
+    # `_maybe_bypass_pipeline`).
     BYPASS_PASSES = ("material_shader", "material_cache_shader", "geometry",
-                     "surface_light_field", "surface_light_field_vis")
+                     "surface_light_field")
 
     def bypass(self, rng, rays, passes, sampler_results, train_frac=1.0, train=True,
                material_only=False):
@@ -193,6 +211,8 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(
         shader too, as {"material": ..., "cache": ...}. material_only
         makes the material shader output its material heads only and trace
         no secondary ray (``MaterialMLP.predict_appearance``).
+        "surface_light_field": the cache's SLF memory queried along `rays`
+        (``NeRFModel.get_slf_results``).
         """
         shared = dict(rays=rays, train_frac=train_frac, train=train, is_secondary=False)
 
@@ -217,7 +237,11 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(
         if "geometry" in passes:
             key, rng = torchutil.random_split(rng)
             return geometry(key)
-        raise NotImplementedError("the surface-light-field passes are not ported yet")
+        if not self.cache.use_surface_light_field:
+            raise ValueError("the surface_light_field pass needs the cache's SLF memory "
+                             "(use_surface_light_field with use_material)")
+        key, rng = torchutil.random_split(rng)
+        return self.cache(key, rays, train_frac=train_frac, train=train, use_slf=True)
 
     def _finalize_cache_only(self, cache_outputs, rays):
         """The cache render is the model output: ``cache_main`` and ``main``
@@ -276,9 +300,12 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(
                               compute_extras, secondary_proposal_grad=True):
         shared = dict(rays=rays, train_frac=train_frac, train=train)
         key, rng = torchutil.random_split(rng)
+        # Under slf_variate the variate pass's secondary rays replace this
+        # pass's: no loss reads this pass's proposal levels.
         material_shader_results = self.shader(
             rng=key, sampler_results=filtered, light_sampler_results=light_sampler_results,
-            radiance_cache=self, secondary_proposal_grad=secondary_proposal_grad, **shared)
+            radiance_cache=self,
+            secondary_proposal_grad=secondary_proposal_grad and not self.slf_variate, **shared)
         key, rng = torchutil.random_split(rng)
         material_integrator_results = self.integrator(
             rng=key, shader_results=material_shader_results, compute_extras=compute_extras,
@@ -289,6 +316,11 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(
             if "distance" in k:
                 material_integrator_results[k] = v
 
+        if self.slf_variate:
+            key, rng = torchutil.random_split(rng)
+            self._handle_slf_variate_pass(key, rays, train_frac, train, filtered,
+                                          material_shader_results, material_integrator_results,
+                                          secondary_proposal_grad)
         # The cache rendered at the material's surface points (the
         # cache-consistency integrator). The JAX model also integrates the
         # cache shader's results alone; only the volume variate reads that.
@@ -306,6 +338,50 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(
         return dict(cache_main=cache_outputs, main=material_outputs,
                     render=material_integrator_results)
 
+    # The material render's outputs the SLF variate adds to.
+    _VARIATE_OUTPUTS = ("diffuse_rgb", "specular_rgb", "rgb", "lighting_irradiance",
+                        "transient_indirect", "transient_indirect_specular",
+                        "transient_indirect_diffuse")
+
+    def _handle_slf_variate_pass(self, rng, rays, train_frac, train, filtered,
+                                 material_shader_results, material_integrator_results,
+                                 secondary_proposal_grad=True):
+        """The SLF variate: the material shader at the detached surface
+        points with ``slf_variate``, lit by a second, detached light-sampler
+        call (graph-free: no loss reads it). Its ``ref_*`` outputs replace
+        the main pass's; its outputs times the surface weights (their
+        gradient scaled by ``stopgrad_geometry_variate_weight``) are added
+        to the material render's. (JAX returns early under
+        compute_relight_metrics, which the port's material shader refuses.)"""
+        if filtered["weights"].shape[-1] != 1:
+            raise NotImplementedError(
+                "the SLF variate at more than one surface point per ray (without "
+                "Trainer.resample and resample_render): the JAX model's sum reshapes the "
+                "variate to one point per ray and raises (models/material_model.py:577)")
+        single = _detach_dict(filtered)
+        single_light = None
+        if self.use_light_sampler:
+            key, rng = torchutil.random_split(rng)
+            with torch.no_grad():
+                single_light = self.light_sampler(rng=key, rays=rays, sampler_results=single,
+                                                  train_frac=train_frac, train=train)
+        key, rng = torchutil.random_split(rng)
+        single_shader = self.shader(
+            rng=key, rays=rays, sampler_results=single, train_frac=train_frac, train=train,
+            light_sampler_results=single_light, slf_variate=True, radiance_cache=self,
+            secondary_proposal_grad=secondary_proposal_grad)
+        for f, v in single_shader.items():
+            if f.startswith("ref_"):
+                material_shader_results[f] = v
+        w = torchutil.stopgrad_with_weight(filtered["weights"],
+                                           self.stopgrad_geometry_variate_weight)[..., None]
+        for key_out in self._VARIATE_OUTPUTS:
+            if key_out not in material_integrator_results or single_shader.get(key_out) is None:
+                continue
+            target = material_integrator_results[key_out]
+            material_integrator_results[key_out] = target + (single_shader[key_out] * w).reshape(
+                target.shape)
+
     _INTEGRATOR_KEYS = (
         "rgb", "normals", "normals_pred", "incoming_rgb", "env_map_rgb", "incoming_s_dist",
         "diffuse_rgb", "specular_rgb", "occ", "indirect_occ", "direct_rgb", "indirect_rgb",
@@ -315,7 +391,7 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(
     )
 
     def _finalize_outputs(self, outputs, cache_outputs, cache_shader_results,
-                          light_sampler_results):
+                          light_sampler_results, slf_vis=None):
         render, cache_integrator = outputs["render"], cache_outputs["integrator"]
         for key in self._INTEGRATOR_KEYS:
             if key in cache_integrator:
@@ -327,6 +403,9 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(
         render["normals"] = cache_integrator.get("normals")
         render["normals_pred"] = cache_integrator.get("normals_pred")
         render["vignette"] = torch.ones_like(render["rgb"][..., :1])
+        if slf_vis is not None:
+            for key in ("incoming_rgb", "incoming_acc", "incoming_s_dist"):
+                render[f"cache_{key}"] = slf_vis[key].reshape(render["rgb"].shape[:-1] + (-1,))
         outputs["main"]["light_sampler"] = light_sampler_results
         # The material lossmult is constant-true, as in the JAX model (whose
         # normal/radius thresholds are dead); the shader's radius mask gates

@@ -30,11 +30,20 @@ shader's light power; with ``shadow_eps_indirect`` the secondary rays carry
 their surface point's normal (``Config.shadow_normals_target``), off which
 the cache's sampler pushes their near bound.
 
-Environment maps, surface-light-field queries and variates, BRDF correction,
-emission, residual albedo, the per-lobe (unfused) path, cone lights and
-structured light are not ported yet and raise. The irradiance-cache fields
-are read by nothing, as in JAX (the irradiance cache's output belongs to the
-SLF variate).
+With ``use_surface_light_field`` the secondary rays query the cache's
+surface light field memory instead of rendering the cache
+(``_make_surface_lf_fn``); under the material model's ``slf_variate`` the
+shader estimates instead the difference of the cache and the memory along
+one set of secondary rays (``_integrate_slf_variate``, at
+``num_secondary_samples_diff``): the cache's lobes are traced first, fused,
+and the memory's reuse their rays and sample records, lobe by lobe. Every
+output of the two estimates is kept under ``<key>_cache`` and ``<key>_slf``,
+and the cache's irradiance is the ``irradiance_cache`` output.
+
+Environment maps, BRDF correction, emission, residual albedo, the per-lobe
+path of fresh rays, cone lights and structured light are not ported yet and
+raise. The irradiance-cache fields are read by nothing, as in JAX (the
+irradiance cache's output is the SLF variate's).
 """
 
 from __future__ import annotations
@@ -228,14 +237,14 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
     # (rays, outputs) gradient scales of their cache queries.
     stopgrad_shading_weight = 1.0
     stopgrad_cache_weight = (1.0, 1.0)
-    # Read by the surface-light-field queries only (use_surface_light_field).
+    # The (rays, outputs) gradient scales of the surface-light-field queries;
+    # the memory applies the outputs' alone (NeRFModel.get_slf_results).
     stopgrad_slf_weight = (1.0, 1.0)
     rgb_max = float("inf")
 
     def __init__(self, config=None, density_feature_dim=0, **kwargs):
         super().__init__(config, **kwargs)
-        self._require(use_env_map=False, use_surface_light_field=False,
-                      use_brdf_correction=False, use_diffuse_emission=False,
+        self._require(use_env_map=False, use_brdf_correction=False, use_diffuse_emission=False,
                       use_residual_albedo=False, separate_integration_diffuse_specular=True,
                       use_indirect=True)
         if config.multi_illumination:
@@ -342,6 +351,38 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
         return self.light_power_activation(torch.tensor(float(self.light_power_bias),
                                                         device=device))
 
+    def _with_surface_normals(self, ref_rays, sampler_results):
+        """The secondary rays carrying their surface point's normal
+        (``Config.shadow_normals_target``) under shadow_eps_indirect, and no
+        normals otherwise."""
+        normals = None
+        if self.shadow_eps_indirect:
+            normals = sampler_results[self.config.shadow_normals_target].reshape(
+                ref_rays.origins.shape[:-2] + (-1, 3)) * torch.ones_like(ref_rays.origins)
+        return ref_rays.replace(normals=normals)
+
+    def _make_surface_lf_fn(self, radiance_cache, sampler_results, train_frac, train):
+        """Closure that queries the cache's surface light field memory along
+        secondary rays [N, S]: the radiance [N, S, C] (no gradient from rays
+        that start outside the scene radius), and the memory's outputs as
+        the one level of its "sampler results"."""
+
+        def surface_lf_fn(rng, ref_rays):
+            ref_rays = self._with_surface_normals(ref_rays, sampler_results)
+            slf = radiance_cache.cache(rng, ref_rays, use_slf=True, train=train,
+                                       train_frac=train_frac,
+                                       stopgrad_cache_weight=self.stopgrad_slf_weight)
+            rgb = slf["rgb"].reshape(ref_rays.origins.shape)
+            rgb_ns = slf["rgb_no_stopgrad"].reshape(ref_rays.origins.shape)
+            if self.config.material_loss_radius < float("inf"):
+                mask = self._radius_mask(ref_rays.origins)
+                rgb, rgb_ns = stopgrad_with_weight(rgb, mask), stopgrad_with_weight(rgb_ns, mask)
+            slf["acc"] = slf["acc"].reshape(ref_rays.origins.shape[:-1])
+            slf["acc_no_stopgrad"] = slf["acc_no_stopgrad"].reshape(ref_rays.origins.shape[:-1])
+            return torch.clamp(rgb, min=0.0), torch.clamp(rgb_ns, min=0.0), [slf]
+
+        return surface_lf_fn
+
     def _make_radiance_cache_fn(self, radiance_cache, sampler_results, train_frac, train,
                                 proposal_grad=True):
         """Closure that traces secondary rays [N, S] through the full cache
@@ -354,11 +395,7 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
         without a graph."""
 
         def radiance_cache_fn(rng, ref_rays):
-            normals = None
-            if self.shadow_eps_indirect:
-                normals = sampler_results[self.config.shadow_normals_target].reshape(
-                    ref_rays.origins.shape[:-2] + (-1, 3)) * torch.ones_like(ref_rays.origins)
-            ref_rays = ref_rays.replace(normals=normals)
+            ref_rays = self._with_surface_normals(ref_rays, sampler_results)
             lead = tuple(ref_rays.origins.shape[:-1])
             n_flat = int(np.prod(lead))
             flat = {}
@@ -511,6 +548,26 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
             self._store_lobe(integrated_outputs, "indirect", comp, rr, ref_samples, srs_l,
                              integrated, self.stopgrad_indirect_weight)
 
+    def _process_indirect_lobes_reused(self, rng, sampler_results, material,
+                                       num_secondary_samples, radiance_fn, last, outputs):
+        """Both indirect lobes on the secondary rays and sample records of an
+        earlier estimate (`last`), queried through `radiance_fn` one lobe at
+        a time and integrated (JAX's per-lobe path, which reuse always
+        takes)."""
+        sh = sampler_results["points"].shape
+        frac = self.diffuse_sample_fraction
+        for comp in ("specular", "diffuse"):
+            n = int(np.round(num_secondary_samples * (frac if comp == "diffuse" else 1.0 - frac)))
+            ref_rays = last[f"ref_rays_indirect_{comp}"]
+            key, rng = torchutil.random_split(rng)
+            rgb, rgb_ns, srs = radiance_fn(key, ref_rays)
+            ref_samples = self._attach_lobe_radiance(
+                rgb, rgb_ns, last[f"ref_samples_indirect_{comp}"], srs, n)
+            integrated = self._integrate_lobe(f"microfacet_{comp}", material, ref_samples, srs,
+                                              False, sh)
+            self._store_lobe(outputs, "indirect", comp, ref_rays, ref_samples, srs, integrated,
+                             self.stopgrad_indirect_weight)
+
     # --- the active light --------------------------------------------------------
 
     def _lights(self, lights, look, up):
@@ -578,14 +635,22 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
 
     def get_outgoing_radiance(self, rng, rays, sampler_results, material, num_secondary_samples,
                               radiance_cache_fn, train_frac=1.0, train=True,
-                              light_sampler_results=None):
+                              light_sampler_results=None, last_integrated_outputs=None):
         """All lobes of the outgoing-radiance estimate, combined per the
-        integration strategy."""
+        integration strategy. last_integrated_outputs: an earlier estimate
+        whose indirect lobes' rays and sample records this one reuses."""
         out = {k: 0.0 for k in self._integration_strategy}
         key, rng = torchutil.random_split(rng)
-        self._process_indirect_lobes_fused(
-            key, rays, sampler_results, material, num_secondary_samples, radiance_cache_fn,
-            train_frac, train, light_sampler_results, out)
+        if last_integrated_outputs is None:
+            self._process_indirect_lobes_fused(
+                key, rays, sampler_results, material, num_secondary_samples, radiance_cache_fn,
+                train_frac, train, light_sampler_results, out)
+        else:
+            # Only the SLF variate reuses rays, and only a steady cache has an
+            # SLF memory: the direct lobes (the transient shader's) never do.
+            self._process_indirect_lobes_reused(key, sampler_results, material,
+                                                num_secondary_samples, radiance_cache_fn,
+                                                last_integrated_outputs, out)
         if self.use_active:
             key, rng = torchutil.random_split(rng)
             self._process_direct_lobes(key, rays, sampler_results, material, train_frac, out)
@@ -599,6 +664,32 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
             out[output_key] = total * scale
         return out
 
+    # The estimates the SLF variate takes as the cache's minus the memory's.
+    _VARIATE_KEYS = ("radiance_out", "diffuse_radiance_out", "specular_radiance_out",
+                     "direct_radiance_out", "indirect_radiance_out", "irradiance")
+
+    def _integrate_slf_variate(self, rng, rays, sampler_results, material, radiance_cache_fn,
+                               surface_lf_fn, train_frac, train, light_sampler_results):
+        """The SLF control variate: the cache's estimate minus the memory's
+        on the same secondary rays, at ``num_secondary_samples_diff``; every
+        output of each estimate also under ``<key>_cache`` / ``<key>_slf``."""
+        n = self.num_secondary_samples_diff if train else self.render_num_secondary_samples_diff
+        kw = dict(train_frac=train_frac, train=train, light_sampler_results=light_sampler_results)
+        key, rng = torchutil.random_split(rng)
+        cache_out = self.get_outgoing_radiance(key, rays, sampler_results, material, n,
+                                               radiance_cache_fn, **kw)
+        key, rng = torchutil.random_split(rng)
+        slf_out = self.get_outgoing_radiance(key, rays, sampler_results, material, n,
+                                             surface_lf_fn, last_integrated_outputs=cache_out, **kw)
+        final = dict(cache_out)
+        for k in self._VARIATE_KEYS:
+            if k in cache_out and k in slf_out:
+                final[k] = cache_out[k] - slf_out[k]
+        for f in list(final):
+            final[f + "_cache"] = cache_out.get(f)
+            final[f + "_slf"] = slf_out.get(f)
+        return final
+
     # --- top level ---------------------------------------------------------------
 
     def predict_appearance(self, rng, rays, sampler_results, train_frac=1.0, train=True,
@@ -610,10 +701,11 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
         which reads nothing else). secondary_proposal_grad=False: the
         secondary rays' proposal levels run without a graph, which would
         otherwise hold their activations through the step (the train step
-        asks for it where no loss reads them; JAX's compiler drops them)."""
+        asks for it where no loss reads them; JAX's compiler drops them).
+        slf_variate: the SLF variate's estimate (with an SLF memory; without
+        one, the cache's estimate as the full pass makes it); otherwise a
+        shader with the memory queries the memory alone."""
         del kwargs
-        if slf_variate:
-            raise NotImplementedError("the surface-light-field variate is not ported yet")
         key, rng = torchutil.random_split(rng)
         feature, material = self._predict_material_and_feature(key, rays, sampler_results, train)
         if material_only:
@@ -622,13 +714,22 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
             return outputs
         emission = torch.zeros_like(material["albedo"])
         outputs = {"material_residual_albedo": torch.zeros_like(material["albedo"])}
+        radiance_cache_fn = self._make_radiance_cache_fn(radiance_cache, sampler_results,
+                                                         train_frac, train, secondary_proposal_grad)
+        surface_lf_fn = (self._make_surface_lf_fn(radiance_cache, sampler_results, train_frac,
+                                                  train)
+                         if self.use_surface_light_field else None)
         key, rng = torchutil.random_split(rng)
-        integrated = self.get_outgoing_radiance(
-            key, rays, sampler_results, material,
-            self.num_secondary_samples if train else self.render_num_secondary_samples,
-            self._make_radiance_cache_fn(radiance_cache, sampler_results, train_frac, train,
-                                         secondary_proposal_grad),
-            train_frac=train_frac, train=train, light_sampler_results=light_sampler_results)
+        if slf_variate and self.use_surface_light_field:
+            integrated = self._integrate_slf_variate(
+                key, rays, sampler_results, material, radiance_cache_fn, surface_lf_fn,
+                train_frac, train, light_sampler_results)
+        else:
+            integrated = self.get_outgoing_radiance(
+                key, rays, sampler_results, material,
+                self.num_secondary_samples if train else self.render_num_secondary_samples,
+                surface_lf_fn if self.use_surface_light_field else radiance_cache_fn,
+                train_frac=train_frac, train=train, light_sampler_results=light_sampler_results)
         final_rgb = integrated["direct_radiance_out" if self.config.use_transient
                                else "radiance_out"]
         self._finalize_outputs(rays, outputs, integrated, final_rgb, material, emission,
@@ -641,6 +742,10 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
             outputs["material_" + k] = material[k]
         outputs["lighting_emission"] = emission
         outputs["lighting_irradiance"] = integrated["irradiance"].reshape(material["albedo"].shape)
+        if integrated.get("irradiance_cache") is not None:
+            # The SLF variate's cache-side irradiance.
+            outputs["irradiance_cache"] = integrated["irradiance_cache"].reshape(
+                material["albedo"].shape)
         if "occ" not in sampler_results:
             outputs["occ"] = integrated["occ"] if self.use_active else torch.zeros_like(final_rgb)
         outputs["rgb"] = final_rgb

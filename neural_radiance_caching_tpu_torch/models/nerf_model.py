@@ -11,9 +11,17 @@ resampling, and secondary rays (``is_secondary``) with it when
 weights-only pass (``weights_only``, the shadow rays') renders the opacity
 alone.
 
-Not ported yet: resampling of primary rays, volume control variates,
-environment maps and the surface-light-field memory (they raise), and the
-argmax resample and ray-distance warps of secondary rays.
+With ``use_surface_light_field`` the steady cache holds a surface light
+field memory (``surface_lf_mem``, a ``SurfaceLightFieldMLP`` with
+``use_env_alpha``): a query with ``use_slf`` reads the memory's incoming
+radiance along the rays instead of rendering them (``get_slf_results``).
+Only the material shader queries it. The transient cache has no memory, as
+in JAX, where ``TransientNeRFModel`` lacks ``get_slf_results``: a ``use_slf``
+query on it raises.
+
+Not ported yet: resampling of primary rays, volume control variates and
+environment maps (they raise), and the argmax resample and ray-distance
+warps of secondary rays.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from torch import nn
 from neural_radiance_caching_tpu_torch.engine import gin_config as gin
 from neural_radiance_caching_tpu_torch.models import integrator as integrator_lib
 from neural_radiance_caching_tpu_torch.models import nerf_shader, sampler as sampler_lib
+from neural_radiance_caching_tpu_torch.models import surface_light_field
 from neural_radiance_caching_tpu_torch.models.layers import Configurable
 from neural_radiance_caching_tpu_torch.ops import math, render_utils
 from neural_radiance_caching_tpu_torch.utils import torchutil
@@ -35,11 +44,7 @@ _MODEL_UNPORTED = dict(
     random_generator_2d=render_utils.RandomGenerator2D(1, 1, False),
     uniform_importance_samplers=(("UniformHemisphereSampler", 1.0),),
     active_importance_samplers=(("ActiveSampler", 1.0),),
-    surface_lf_mem_distance_near=0.001,
-    surface_lf_mem_distance_far=1000000.0,
-    surface_lf_mem_params=None,
     resample_argmax=False,
-    stopgrad_geometry_variate_weight=0.0,
     stopgrad_weight_variate=1.0,
     stopgrad_weight_model=1.0,
 )
@@ -66,7 +71,14 @@ class Model(Configurable, nn.Module, unported=_MODEL_UNPORTED):
     stopgrad_cache_weight = (1.0, 1.0)
     stopgrad_slf_weight = (1.0, 1.0)
     stopgrad_env_map_weight = (1.0, 1.0)
+    # The surface light field memory (NeRFModel) and its ray-distance range.
     use_surface_light_field = False
+    surface_lf_mem_distance_near = 1e-3
+    surface_lf_mem_distance_far = 1e6
+    surface_lf_mem_params = None
+    # The gradient scale of the surface weights in the SLF variate's sum
+    # (read by the material models).
+    stopgrad_geometry_variate_weight = 0.0
     resample = False
     resample_render = False
     resample_secondary = False
@@ -85,7 +97,7 @@ class Model(Configurable, nn.Module, unported=_MODEL_UNPORTED):
         nn.Module.__init__(self)
         self.config = config
         self._set_fields(kwargs)
-        self._require(use_env_map=False, use_surface_light_field=False)
+        self._require(use_env_map=False)
         if config.volume_variate or config.volume_variate_secondary:
             raise NotImplementedError("volume control variates are not ported yet")
 
@@ -210,6 +222,7 @@ class NeRFModel(Model):
     extra_model_params = None
     _shader_cls = nerf_shader.NeRFMLP
     _integrator_cls = integrator_lib.VolumeIntegrator
+    _has_surface_lf_mem = True
 
     def __init__(self, config=None, **kwargs):
         self._init_model(config, kwargs)
@@ -222,11 +235,37 @@ class NeRFModel(Model):
             **dict(self.shader_params or {}))
         self.integrator = self._integrator_cls(
             config=config, **dict(self.integrator_params or {}))
+        if self.use_surface_light_field and self._has_surface_lf_mem:
+            slf_params = dict(self.surface_lf_mem_params or {})
+            slf_params.update(distance_near=self.surface_lf_mem_distance_near,
+                              distance_far=self.surface_lf_mem_distance_far)
+            self.surface_lf_mem = surface_light_field.SurfaceLightFieldMLP(
+                config=config, use_env_alpha=True, **slf_params)
+
+    def get_slf_results(self, rng, rays, train_frac, train, stopgrad_cache_weight=None):
+        """The memory's incoming radiance along `rays` [..., 3]: one query
+        per ray from its origin along its direction, reported as a secondary
+        render (``rgb``, ``acc`` and their ``_no_stopgrad`` twins, the
+        outputs' gradient scaled by ``stopgrad_cache_weight[1]``; the rays'
+        own fields pass theirs in full, as in JAX, whose
+        ``stopgrad_slf_weight`` no caller passes) beside the memory's
+        ``incoming_*`` outputs."""
+        origins = rays.origins[..., None, :]
+        slf = self.surface_lf_mem(
+            rng, rays, {"means": origins, "covs": torch.ones_like(origins)}, origins,
+            rays.viewdirs[..., None, :], roughness=torch.zeros_like(origins[..., :1]),
+            shader_bottleneck=None, train=train, train_frac=train_frac)
+        out = self._handle_secondary(True, {"rgb": slf["incoming_rgb"], "acc": slf["incoming_acc"]},
+                                     stopgrad_cache_weight)
+        out.update(slf)
+        out["incoming_rgb"] = out["rgb_no_stopgrad"]
+        out["incoming_acc"] = out["acc_no_stopgrad"]
+        return out
 
     def forward(self, rng, rays, train_frac=1.0, train=True, sampling_strategy=None,
                 is_secondary=False, resample=False, cache_outputs=None,
                 filtered_sampler_inds=None, stopgrad_cache_weight=None, proposal_grad=True,
-                weights_only=False, **render_kwargs):
+                weights_only=False, use_slf=False, **render_kwargs):
         """Render a ray batch; returns {"main": per-stage results, "render": rgb etc.}.
 
         cache_outputs: {"sampler": ray history} of an earlier forward to reuse
@@ -243,7 +282,12 @@ class NeRFModel(Model):
         shader runs: the shadow rays read nothing else. (JAX renders unit
         colours and transients there, which its compiler drops unread; here
         they would be [rays, samples, bins, C] tensors of ones.)
+        use_slf: the query reads the surface light field memory instead
+        (``get_slf_results``, which takes `stopgrad_cache_weight` whether
+        or not the rays are secondary).
         """
+        if use_slf:
+            return self.get_slf_results(rng, rays, train_frac, train, stopgrad_cache_weight)
         do_resample = self.do_resample(resample, is_secondary, train)
         bg_intensity_range, use_raydist_fn = self.get_bg_and_raydist(is_secondary)
         if not is_secondary:
@@ -290,3 +334,11 @@ class TransientNeRFModel(NeRFModel):
 
     _shader_cls = nerf_shader.TransientNeRFMLP
     _integrator_cls = integrator_lib.TransientVolumeIntegrator
+    _has_surface_lf_mem = False
+
+    def get_slf_results(self, rng, rays, train_frac, train, stopgrad_cache_weight=None):
+        raise NotImplementedError(
+            "a surface-light-field query of the transient cache: the JAX package's "
+            "TransientNeRFModel builds no SLF memory and has no get_slf_results "
+            "(models/nerf_model.py:625-640), so the transient material SLF stages have no "
+            "reference")

@@ -6,9 +6,12 @@ grid (``use_bottleneck``), and the (integrated) directional encoding of the
 query direction; with ``use_lights`` the light position's encoding
 conditions a second, lit trunk that feeds the rgba head, while the first
 feeds the ambient head. With ``use_indirect`` (the transient SLF) the rgb
-head emits n_bins x 3 time-binned channels. The distance head, reflectance
-grid, point and origin encodings are not ported yet and raise;
-``raydist_fn`` (a ``(fn, fn_inv, kwargs)`` ray warp) is read by the
+head emits n_bins x 3 time-binned channels. The cache's surface light
+field memory (``NeRFModel.surface_lf_mem``) is this MLP at its defaults: the
+zero bottleneck and the light position's encoding, queried at one point per
+ray. The distance head, reflectance grid, point and origin encodings and
+``dist_only`` queries are not ported yet and raise; ``raydist_fn`` (a
+``(fn, fn_inv, kwargs)`` ray warp) and ``use_env_alpha`` are read by the
 distance head only.
 """
 

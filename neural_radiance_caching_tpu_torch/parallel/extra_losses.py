@@ -3,8 +3,10 @@
 consistency loss, steady and transient, with its weight ease-in, the
 light-sampling fit of the vMF mixture, the secondary-ray sampler's
 supervision (``material_ray_sampler``), the material smoothness
-regularizer, and the geometry smoothness regularizer (the InvProp cache
-stage's).
+regularizer, the geometry smoothness regularizer (the InvProp cache
+stage's), and the surface light field's distillation from the cache
+(``material_surface_light_field``, also dispatched as
+``surface_light_field``) with its weight ease-in.
 
 ``Config.extra_losses`` maps a loss name to {output key: {"mult", ...}}; the
 staged trainer binds its material stages' losses (``configs/trainer.gin``)
@@ -19,8 +21,8 @@ consistency losses read the material shader's outputs and their
 the ``_nocorr`` outputs of the gradient-debias forward only under a
 stop-gradient, so that forward needs no graph (``parallel/train.py``).
 
-The other extra losses of the JAX table (the surface-light-field,
-emission and residual-albedo losses), and each loss
+The other extra losses of the JAX table (the emission and residual-albedo
+losses), and each loss
 the JAX package turns on by a Config weight (maximum radiance, material
 correlation, weight normalisation, extra rays), raise: they are ROADMAP
 queue 1 item 5.
@@ -48,6 +50,13 @@ def _weight_ease(train_frac, use, start, frac, min_val):
         w = float(np.clip(np.float32((train_frac - start) / frac), 0.0, 1.0))
         return min_val * (1.0 - w) + w
     return float(train_frac - start >= 0.0)
+
+
+def surface_light_field_weight_ease(config, train_frac):
+    return _weight_ease(train_frac, config.use_surface_light_field_weight_ease,
+                        config.surface_light_field_weight_ease_start,
+                        config.surface_light_field_weight_ease_frac,
+                        config.surface_light_field_weight_ease_min)
 
 
 def consistency_weight_ease(config, train_frac):
@@ -185,6 +194,11 @@ def material_ray_sampler_loss(model, rng, rays, config, batch, results, full_res
     ref_rays = shader.get("ref_rays_indirect_diffuse")
     if ref_sampler_results is None or ref_rays is None:
         return 0.0
+    if "weights" not in ref_sampler_results[-1]:
+        raise NotImplementedError(
+            "material_ray_sampler on secondary rays that queried the SLF memory (an SLF "
+            "material stage without MaterialModel.slf_variate): they have no sampler "
+            "weights, and the JAX loss raises KeyError 'weights' (extra_losses.py:158)")
     shape = ref_rays.viewdirs[..., :1].shape
     lossmult = rays.lossmult.reshape(-1, 1, 1)
     lossmult = (lossmult * torch.ones_like(
@@ -218,6 +232,96 @@ def material_ray_sampler_loss(model, rng, rays, config, batch, results, full_res
     if not isinstance(loss, torch.Tensor):
         return torch.zeros((), device=ref_rays.viewdirs.device)
     return torch.nan_to_num(loss)
+
+
+# --- surface light field distillation ------------------------------------------------
+
+
+def material_surface_light_field_loss(model, rng, rays, config, batch, results, full_results,
+                                      train_frac=1.0):
+    """Distil the cache into the SLF memory along the SLF variate's shared
+    secondary rays, half per indirect lobe (an absent lobe doubles the
+    other's, and an output without the variate's rays gives 0): the data
+    loss (``surface_light_field_loss_type``, sRGB under
+    ``surface_light_field_linear_to_srgb``) of the memory's radiance against
+    the cache's, each scaled by its ``surface_light_field_stopgrad_weight_*``,
+    on the rays inside ``surface_light_field_loss_radius`` (and above the
+    surface under ``surface_light_field_is_secondary``); plus the memory's
+    opacity against the cache's within ``env_map_distance`` and, under
+    ``surface_light_field_loss_depth_scale``, its distance against the
+    cache's, both with the cache's side detached. The secondary rays' final
+    sampler level is read only detached."""
+    shader = results["shader"]
+    data_loss, multiplier = 0.0, 1.0
+    for suffix in ("_indirect_diffuse", "_indirect_specular"):
+        extra_rays = shader.get(f"ref_rays{suffix}_cache")
+        if extra_rays is None:
+            multiplier = 2.0
+            continue
+        ref_samples = shader[f"ref_samples{suffix}_cache"]
+        ref_samples_slf = shader[f"ref_samples{suffix}_slf"]
+        ref_sampler = shader[f"ref_sampler_results{suffix}_cache"][-1]
+        ref_sampler_slf = shader[f"ref_sampler_results{suffix}_slf"][-1]
+
+        sh = ref_samples["radiance_in_no_stopgrad"].shape
+        cache_rgb = stopgrad_with_weight(ref_samples["radiance_in_no_stopgrad"],
+                                         config.surface_light_field_stopgrad_weight_forward)
+        pred_rgb = stopgrad_with_weight(ref_samples_slf["radiance_in_no_stopgrad"].reshape(sh),
+                                        config.surface_light_field_stopgrad_weight_backward)
+        if config.use_transient:
+            cache_rgb = cache_rgb.reshape(sh[:2] + (-1, sh[-1])).sum(dim=-2)
+            pred_rgb = pred_rgb.reshape(cache_rgb.shape)
+            sh = cache_rgb.shape
+        cache_weights = ref_sampler["weights"].detach().reshape(sh[:-1] + (-1,))
+
+        if config.surface_light_field_loss_radius < float("inf"):
+            lossmult = (torch.linalg.norm(extra_rays.origins, dim=-1, keepdim=True)
+                        < config.surface_light_field_loss_radius).reshape(
+                sh[:-1] + (1,)).to(torch.float32)
+        else:
+            lossmult = torch.ones_like(cache_rgb[..., :1])
+        if config.surface_light_field_is_secondary:
+            lossmult = torch.where(
+                ref_samples["local_lightdirs"][..., -1].reshape(lossmult.shape) > 0.0,
+                lossmult, torch.zeros_like(lossmult))
+        lossmult = lossmult.detach()
+
+        extra_batch = batch.replace(rgb=cache_rgb, masks=torch.ones_like(cache_rgb[..., :1]))
+        cur_config = dataclasses.replace(
+            config, data_loss_type=config.surface_light_field_loss_type,
+            convert_srgb=config.surface_light_field_linear_to_srgb, loss_clip=float("inf"),
+            loss_thresh=float("inf"))
+        cur_loss = losses_lib.compute_data_loss(
+            extra_batch, {"rgb": pred_rgb, "cache_rgb": cache_rgb},
+            extra_rays.replace(lossmult=lossmult), cur_config)[0]
+
+        # The memory's opacity within the environment distance against the cache's.
+        if "incoming_weights" in ref_sampler_slf:
+            pred_dist = ref_sampler_slf["incoming_dist"].reshape(sh[:-1] + (-1,))
+            pred_weights = ref_sampler_slf["incoming_weights"].reshape(sh[:-1] + (-1,))
+            pred_env_acc = torch.where(pred_dist < config.env_map_distance, pred_weights,
+                                       torch.zeros_like(pred_weights)).sum(dim=-1).reshape(
+                sh[:-1] + (1,))
+            cache_tdist = ref_sampler["tdist"][..., :-1].detach().reshape(sh[:-1] + (-1,))
+            env_acc = torch.where(cache_tdist < config.env_map_distance, cache_weights,
+                                  torch.zeros_like(cache_weights)).sum(dim=-1).reshape(
+                sh[:-1] + (1,))
+            acc_loss = torch.square(env_acc - pred_env_acc) * lossmult
+            acc_loss = torch.where(env_acc > 0.5,
+                                   acc_loss * config.surface_light_field_loss_acc_scale_opaque,
+                                   acc_loss * config.surface_light_field_loss_acc_scale_empty)
+            cur_loss = cur_loss + acc_loss.mean()
+
+            if config.surface_light_field_loss_depth_scale > 0 and (
+                    "incoming_s_dist" in ref_sampler_slf and ref_sampler.get("sdist") is not None):
+                pred_sdist = ref_sampler_slf["incoming_s_dist"].reshape(sh[:-1] + (1,))
+                cache_sdist = ref_sampler["sdist"][..., :-1].detach().reshape(sh[:-1] + (-1,))
+                cur_loss = cur_loss + (
+                    torch.abs(cache_sdist - pred_sdist) * cache_weights * lossmult
+                ).sum(dim=-1).mean() * config.surface_light_field_loss_depth_scale
+
+        data_loss = data_loss + cur_loss / 2.0
+    return data_loss * multiplier
 
 
 # --- material smoothness -------------------------------------------------------------
@@ -275,7 +379,9 @@ def material_smoothness_loss(model, rng, rays, config, batch, results, full_resu
                 ).reshape(means[..., :1].shape) * (
         shader_results["weights"][..., None] * shader_results["weights"].shape[-1]).detach()
 
-    # The irradiance cache (an SLF-variate output) is not ported: unit irradiance.
+    # Unit irradiance: the SLF variate's irradiance_cache is an output of its
+    # own shader pass, and the material model copies only that pass's ref_*
+    # keys into these shader results (as in JAX).
     nc = config.num_rgb_channels
     irr = torch.ones_like(means[..., :nc])
     cache_rgb_key = "rgb" if "rgb" in cache_shader_results else "direct_rgb"
@@ -358,10 +464,13 @@ EXTRA_LOSS_FUNCTIONS = {
     "material_smoothness": material_smoothness_loss,
     "material_ray_sampler": material_ray_sampler_loss,
     "geometry_smoothness": geometry_smoothness_loss,
+    "material_surface_light_field": material_surface_light_field_loss,
+    # The JAX dispatch's alias (both eased in by surface_light_field_weight_ease).
+    "surface_light_field": material_surface_light_field_loss,
 }
+_SURFACE_LIGHT_FIELD_LOSSES = ("surface_light_field", "material_surface_light_field")
 # The rest of the JAX table.
-_UNPORTED_EXTRA_LOSSES = ("emission", "residual_albedo", "surface_light_field",
-                          "material_surface_light_field", "material_correlation",
+_UNPORTED_EXTRA_LOSSES = ("emission", "residual_albedo", "material_correlation",
                           "maximum_radiance", "normalize_weight")
 
 
@@ -407,6 +516,8 @@ def compute_extra_losses(config, batch, rays, full_results, output_key, losses, 
             mult = mult * consistency_weight_ease(config, train_frac)
             loss = fn(config, batch, rays, results)
         else:
+            if name in _SURFACE_LIGHT_FIELD_LOSSES:
+                mult = mult * surface_light_field_weight_ease(config, train_frac)
             loss = EXTRA_LOSS_FUNCTIONS[name](model, key, rays, config, batch, results,
                                               full_results, train_frac=train_frac)
         losses[prefix + name] = mult * loss

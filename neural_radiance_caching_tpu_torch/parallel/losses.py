@@ -72,9 +72,11 @@ def compute_unbiased_loss_rawnerf(rendering, gt, config, clip_val=10000.0, expon
 
 def select_data_loss_fn(config, rendering, gt, gt_nocorr, rawnerf_eps, rawnerf_exponent,
                         transient=False):
-    """Dispatch on config.data_loss_type (charb, mse_unbiased,
+    """Dispatch on config.data_loss_type (charb, mse, mse_unbiased,
     rawnerf_unbiased and rawnerf_transient_unbiased without the
     Gaussian-pyramid term are ported)."""
+    if config.data_loss_type == "mse":
+        return (rendering["rgb"] - gt) ** 2
     if config.data_loss_type == "charb":
         return compute_loss_charb(rendering, gt, config)
     if config.data_loss_type == "mse_unbiased":

@@ -6,7 +6,8 @@ of numpy arrays, as ``jax.device_get(variables)`` gives them) into this package'
 cache model's (the same names, plus the active shader's ``albedo_layer``,
 ``direct_tint_layer``, ``brdf_layers_*``, ``irradiance_layers_*``,
 ``transient_indirect_layer`` and the transient SLF's wider rgba head), or a
-material model's (``Cache/...``, ``LightSampler/...``, ``MaterialShader/...``;
+material model's (``Cache/...``, with the SLF memory ``Cache/SurfaceLightFieldMem``,
+``LightSampler/...``, ``MaterialShader/...``;
 the transient one's ``MaterialShader/LightSource/...`` is the learnable
 light, with its ``layer_mult_{i}`` and ``output_layer_mult`` Dense layers).
 Every leaf maps to exactly one key and every key must be filled; a leaf left
@@ -39,6 +40,7 @@ _FIXED = {
     "Shader": "shader",
     "Integrator": "integrator",
     "SurfaceLightField": "surface_lf",
+    "SurfaceLightFieldMem": "surface_lf_mem",
     "appearance_grid": "grid",
     "density_grid": "grid",
     "light_grid": "grid",
@@ -74,6 +76,7 @@ _REVERSE = {
     "sampler": "Sampler",
     "integrator": "Integrator",
     "surface_lf": "SurfaceLightField",
+    "surface_lf_mem": "SurfaceLightFieldMem",
 }
 # The JAX name of a `grid` by the JAX name of its owner.
 _GRID_BY_OWNER = {"LightSampler": "light_grid", "MaterialShader": "material_grid",

@@ -736,7 +736,7 @@ def test_the_entry_point_trains_the_readme_material_stage(spheres_cache_checkpoi
     assert open(f"{ckpt}/train_log.jsonl").read().splitlines() == lines
 
 
-@pytest.mark.parametrize("loss", ["residual_albedo", "surface_light_field", "emission"])
+@pytest.mark.parametrize("loss", ["residual_albedo", "material_correlation", "emission"])
 def test_unported_extra_losses_are_refused_by_name(loss):
     cfg = tconfigs.Config(extra_losses={"material_ray_sampler": {"main": {"mult": 1.0}},
                                         loss: {"main": {"mult": 1.0}}})

@@ -125,12 +125,90 @@ def test_bridge_covers_every_flagship_material_leaf():
 def test_unported_material_options_raise():
     cfg = flagship.material_config()
     params = flagship.flagship_material_params()
-    with pytest.raises(NotImplementedError, match="slf_variate"):
-        flagship.build_flagship_material_model(cfg, dict(params, slf_variate=True), device="cpu")
     shader = dict(params["shader_params"], use_active=True)
     with pytest.raises(NotImplementedError, match="use_active"):
         flagship.build_flagship_material_model(cfg, dict(params, shader_params=shader),
                                                device="cpu")
+
+
+def _port_material_model(config, jmm):
+    """The port's counterpart of test_material_model.make_material_model
+    (its JAX functions swapped for the port's)."""
+    import torch
+
+    from neural_radiance_caching_tpu_torch.models.layers import softplus
+    from neural_radiance_caching_tpu_torch.models.material_model import MaterialModel
+    from neural_radiance_caching_tpu_torch.ops import coord
+
+    jmodel = jmm.make_material_model(config, slf_variate=True)
+    swap = {jmm.coord.contract_radius_2: coord.contract_radius_2, jax.nn.softplus: softplus}
+
+    def port(v):
+        if isinstance(v, dict):
+            return {k: port(x) for k, x in v.items()}
+        if isinstance(v, tuple):
+            return tuple(port(x) for x in v)
+        return swap.get(v, v) if callable(v) else v
+
+    kwargs = {k: port(getattr(jmodel, k)) for k in (
+        "cache_model_params", "use_light_sampler", "light_sampler_params", "shader_params",
+        "resample", "num_resample", "slf_variate")}
+    return jmodel, MaterialModel(config=config, **kwargs).to(torch.float32)
+
+
+def test_slf_variate_without_an_slf_matches_jax():
+    """The SLF variate of a model without an SLF memory (JAX's runs whenever
+    slf_variate is set): a second estimate of the cache at the detached
+    surface points, whose secondary rays replace the main pass's and whose
+    radiance, times the detached surface weights, adds to the render. The
+    forward against test_material_model's JAX model, on the same weights and
+    draws, to 1e-4 relative (a ~100-op forward)."""
+    import torch
+
+    import test_material_model as jmm
+    import test_torch_material_slice as material_slice
+    from neural_radiance_caching_tpu.engine.configs import Config as JConfig
+    from neural_radiance_caching_tpu.ops import hashgrid as jhash
+    from neural_radiance_caching_tpu_torch.engine.configs import Config as TConfig
+    from neural_radiance_caching_tpu_torch.utils import pytrees as tpytrees
+
+    kw = dict(near=0.2, far=6.0, secondary_far=2.0, mask_lossmult=False, material_loss_radius=2.0,
+              linear_to_srgb=True, dataset_loader="synthetic_spheres")
+    jmodel, tmodel = _port_material_model(JConfig(**kw), jmm)
+    tmodel.config = TConfig(**kw)
+    for m in tmodel.modules():
+        if hasattr(m, "config") and m.config is not None:
+            m.config = tmodel.config
+    jrays = jpytrees.dummy_rays(6)
+    shapes = jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(0), jax.random.PRNGKey(1),
+                                                jrays, train_frac=0.5, train=True))
+    variables = material_slice.random_variables(shapes, 2)
+    tmodel.load_state_dict(weights.state_dict_from_jax(variables, tmodel))
+    trays = tpytrees.Rays(**{k: None if v is None else torch.as_tensor(np.asarray(v))
+                             for k, v in vars(jrays).items()})
+    with material_slice.injected(3), jhash.xla_encoder_scope():
+        def forward(v, r):
+            out = jmodel.apply(v, jax.random.PRNGKey(2), r, train_frac=0.5, train=True)
+            shader = {k: x for k, x in out["main"]["shader"].items()
+                      if k.startswith("ref_rays") or hasattr(x, "shape")}
+            return {"render": out["render"], "main": {"shader": shader}}
+
+        jout = jax.jit(forward)(variables, jrays)
+    with material_slice.injected(3), torch.no_grad():
+        tout = tmodel(torch.Generator(), trays, train_frac=0.5, train=True)
+    for k in ("rgb", "diffuse_rgb", "specular_rgb", "lighting_irradiance"):
+        np.testing.assert_allclose(tout["render"][k].numpy(), np.asarray(jout["render"][k]),
+                                   rtol=1e-4, atol=1e-6, err_msg=k)
+    jshader, tshader = jout["main"]["shader"], tout["main"]["shader"]
+    assert sorted(k for k in tshader if k.startswith("ref_rays")) == sorted(
+        k for k in jshader if k.startswith("ref_rays"))
+    assert "irradiance_cache" not in jshader and "irradiance_cache" not in tshader
+    # The variate's rays: 2 per lobe (num_secondary_samples 4, where the main
+    # pass's are 2 per lobe too, num_secondary_samples_diff being unread).
+    for lobe in ("specular", "diffuse"):
+        np.testing.assert_allclose(
+            tshader[f"ref_rays_indirect_{lobe}"].viewdirs.numpy(),
+            np.asarray(jshader[f"ref_rays_indirect_{lobe}"].viewdirs), rtol=1e-4, atol=1e-6)
 
 
 def test_bridge_covers_every_flagship_transient_leaf():

@@ -176,8 +176,8 @@ def test_material_stage_builds_its_groups_and_its_step_raises():
     assert list(tt.config.extra_losses)[:3] == [
         "material_ray_sampler", "material_smoothness", "light_sampling"]
     ttrain.create_train_step(tmodel, tt.config)
-    extra = dict(tt.config.extra_losses, surface_light_field={"cache_main": {"mult": 1.0}})
-    with pytest.raises(NotImplementedError, match="surface_light_field"):
+    extra = dict(tt.config.extra_losses, material_correlation={"main": {"mult": 1.0}})
+    with pytest.raises(NotImplementedError, match="material_correlation"):
         ttrain.create_train_step(tmodel, dataclasses.replace(tt.config, extra_losses=extra))
 
 

@@ -409,7 +409,7 @@ def test_trainer_binding_reads_the_config_weight():
 
 @pytest.mark.parametrize("extra", [
     {"residual_albedo": {"main": {"mult": 1.0}}},
-    {"material_surface_light_field": {"main": {"mult": 1.0}}},
+    {"emission": {"main": {"mult": 1.0}}},
     {"maximum_radiance_loss_weight": 1.0},
     {"normalize_weight_loss_weight": 1.0},
 ])

@@ -664,24 +664,33 @@ def test_clamp_matches_torch_clamp():
     assert torch.equal(x.grad, y.grad)
 
 
-# Every stage of configs/trainer.gin; the surface-light-field stages raise
-# at the option (ROADMAP.md queue 1 item 3).
+# Every stage of configs/trainer.gin.
 TRAINER_STAGES = re.findall(r'^    "([a-z_]+)": \{', pathlib.Path(
     "configs/trainer.gin").read_text(), re.M)
 
 
 @pytest.mark.parametrize("stage", TRAINER_STAGES)
-def test_cornell_stage_table(stage):
+def test_cornell_stage_table(stage, monkeypatch):
     """Each staged-trainer stage on the narrow cornell config: one port
-    step, every loss term finite; a stage with a surface light field raises
-    NotImplementedError naming use_surface_light_field."""
+    step, every loss term finite. The cache-side surface-light-field stages
+    (no material pass, so no query of the memory, whose SLF loss finds no
+    secondary ray and is 0) also against JAX's step: every loss term, leaf
+    and the Adam step. The material ones raise NotImplementedError at the
+    first query, naming the JAX package's missing get_slf_results (its
+    transient cache has no SLF memory)."""
+    if stage.startswith("surface_light_field"):
+        jt, jmodel, tt = material_trainer._trainers(CORNELL, MATERIAL_TINY, stage)
+        got, _ = _step_parity(jt, jmodel, tt, material_trainer._variables(jmodel, 5),
+                              monkeypatch)
+        assert got["material_surface_light_field"] == 0.0
+        return
     tt = trainer_test.synthesize("torch", CORNELL, MATERIAL_TINY, stage)
     tt._setup_rng()
     tt._load_datasets()
-    if "surface_light_field" in stage:
-        with pytest.raises(NotImplementedError, match="use_surface_light_field"):
-            tt._setup_model()
-        return
     tt._setup_model()
+    if "surface_light_field" in stage:
+        with pytest.raises(NotImplementedError, match="no get_slf_results"):
+            tt.train_step(tt.rng, tt.state, tt.dataset.next_train(), TRAIN_FRAC)
+        return
     _, stats = tt.train_step(tt.rng, tt.state, tt.dataset.next_train(), TRAIN_FRAC)
     assert np.all(np.isfinite([float(v) for v in stats["losses"].values()]))
