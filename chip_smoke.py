@@ -191,6 +191,28 @@ Phases, one line each (any failure exits nonzero):
      that takes no step, one 48^2 test view; then one step of the
      cache-side surface_light_field_light stage at batch 8192 (no memory,
      its distillation loss 0), timed, with its peak memory.
+ 29. trainer InvProp reference: phase 23's method, at its widths with 96
+     bins, on the cache stages of the other InvProp scenes without their
+     data: statue_fwp (the vignette map, 1 channel, the 83-tap Gaussian
+     temporal filter, shadow rays, the learnable light the cache reads from
+     its material model's shader; no calibration checkpoint), kettle_fwp
+     (the transient ambient term) and cornell_steady_state (the iToF data
+     loss): every loss term and every gradient leaf of one step, GPU
+     against CPU, each limit bracketed by its CPU noise floor and two faults
+     planted in the leveled kernel; 1 leveled launch per step, held against
+     its plain version; then statue's temporal filter alone on [4096, 1933,
+     1], GPU against CPU, and its forward and backward timed;
+ 30. trainer InvProp train: statue_fwp's cache stage at full width (1933
+     bins, 1 channel, the 83-tap filter, shadow rays) through the entry
+     point at the largest of batch 8192, 4096, 2048 that fits (3 warmup + N
+     timed steps), then its material_light_from_scratch warm-started from
+     it at the largest of 4096, 2048, 1024 (3 warmup + 3 timed), then the
+     cache stages of kettle_fwp and cornell_steady_state at 8192 or 4096 (3
+     warmup + N timed); each a cut printed with the memory at the failing
+     request, ms per step, rays/s, peak memory, leveled launches per step,
+     the filter's conv1d time per step (forward and backward, CUDA events),
+     the checkpoint, a resuming run, one test view; then one step with
+     every leveled call held against its plain version.
 Then the kernels JSON line, the eval JSON line, the transient material JSON
 line, the trainer JSON line, the nvidia-smi line, and the result line.
 """
@@ -2510,16 +2532,15 @@ _TRAINER_TRANSIENT_TERMS = ("data", "cache_data", "mask", "geometry_smoothness",
 TRANSIENT_BATCHES = (8192, 4096, 2048, 1024)
 
 
-def phase_trainer_transient_reference(torch, device, seed):
-    """The Trainer's step on a narrow cornell cache stage with the occlusion
-    bindings, GPU against CPU: every loss term and every gradient leaf, the
-    limit bracketed by a CPU noise floor (the cameras' positions one ulp up
-    and down) and two faults planted in the leveled kernel; the GPU step's
-    leveled call held against its plain version."""
-    stage = TRAINER_CACHE_STAGE + TRANSIENT_NARROW + TRANSIENT_OCCLUSIONS
-
+def _gpu_vs_cpu_step(torch, device, seed, stage, config_file, launches, terms):
+    """One Trainer step of `stage` on `config_file`, GPU against CPU on the
+    same weights, batch and draws: every loss term (each of `terms` present
+    and nonzero), every gradient leaf (the limit bracketed by the CPU's
+    noise floor with the cameras +-1 ulp and two faults planted in the
+    leveled kernel), every GPU leveled call held against its plain version;
+    `launches` leveled calls expected. The readings, with `ok`."""
     def step(dev, **kw):
-        return _trainer_step(torch, dev, seed, stage=stage, config_file=TRANSIENT_CONFIG, **kw)
+        return _trainer_step(torch, dev, seed, stage=stage, config_file=config_file, **kw)
 
     l_cpu, g_cpu, n_cpu = step("cpu")
     floor, floor_at, loss_floor = 0.0, None, 0.0
@@ -2533,40 +2554,64 @@ def phase_trainer_transient_reference(torch, device, seed):
     checked = []
     l_gpu, g_gpu, n_gpu = step(device, checked=checked)
     loss_errs = {k: abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-30) for k in l_cpu}
-    loss_err = max(loss_errs.values())
     err, err_at = _worst_grad_err(g_gpu, g_cpu)
     faults = {f: _worst_grad_err(step(device, fault=f)[1], g_cpu)
               for f in ("taps rotated", "finest level dropped")}
-    finite = all(torch.isfinite(g).all() for g in g_gpu.values())
-    terms = set(_TRAINER_TRANSIENT_TERMS)
-    present = terms <= set(l_cpu) and all(l_cpu[k] != 0 for k in terms)
-    duplicated = {k for k in l_cpu if k.startswith("cache_")} == {
-        "cache_" + k for k in l_cpu
-        if not k.startswith(("cache_", "regularizer_")) and k != "geometry_smoothness"}
     tol = GRAD_REL_L2_TOL
-    ok = (finite and present and duplicated and loss_err <= 1e-3
-          and n_cpu == _launch_counts() and n_gpu == _launch_counts(leveled=1)
-          and len(checked) == 1 and all(c["ok"] for c in checked)
-          and floor <= tol and err <= tol and all(v > tol for v, _ in faults.values()))
+    ok = (all(torch.isfinite(g).all() for g in g_gpu.values())
+          and set(terms) <= set(l_cpu) and all(l_cpu[k] != 0 for k in terms)
+          and max(loss_errs.values()) <= 1e-3 and n_cpu == _launch_counts()
+          and n_gpu == _launch_counts(leveled=launches) and len(checked) == launches
+          and all(c["ok"] for c in checked) and floor <= tol and err <= tol
+          and all(v > tol for v, _ in faults.values()))
+    return dict(ok=ok, loss_rel_err=max(loss_errs.values()), loss_rel_errs=loss_errs,
+                loss_noise_floor=loss_floor, grad_rel_l2_err=err, grad_err_at=err_at,
+                grad_rel_l2_errs=_grad_errs(g_gpu, g_cpu), noise_floor=floor,
+                noise_floor_at=floor_at, faults={f: v for f, (v, _) in faults.items()},
+                fault_at={f: at for f, (_, at) in faults.items()}, tol=tol,
+                launches=n_gpu["leveled"], cpu_launches=n_cpu, checked=checked,
+                max_abs_err=max(c["max_abs_err"] for c in checked), losses=l_gpu)
+
+
+def _gpu_vs_cpu_text(r):
+    """The readings of `_gpu_vs_cpu_step` as the reference phases print them."""
+    return (f"loss rel_err max={r['loss_rel_err']:.3e} (tol 1e-3; "
+            + ", ".join(f"{k} {v:.2e}" for k, v in sorted(r["loss_rel_errs"].items()))
+            + f"; cpu vs cpu with the cameras +-1 ulp: {r['loss_noise_floor']:.2e}) grad "
+            f"rel_l2_err max={r['grad_rel_l2_err']:.3e} at {r['grad_err_at']} (tol {r['tol']}; "
+            f"noise floor, cpu vs cpu with the cameras +-1 ulp: {r['noise_floor']:.3e} at "
+            f"{r['noise_floor_at']}; planted in the leveled kernel "
+            + ", ".join(f"{f}: {v:.3e} at {r['fault_at'][f]}" for f, v in r["faults"].items())
+            + ", each must exceed the tol)")
+
+
+def _checked_text(checked):
+    return "; ".join(f"idx{list(c['shape'])} max_abs_err={c['max_abs_err']:.3e} "
+                     f"{'ok' if c['ok'] else 'FAIL'}" for c in checked)
+
+
+def phase_trainer_transient_reference(torch, device, seed):
+    """The Trainer's step on a narrow cornell cache stage with the occlusion
+    bindings, GPU against CPU (`_gpu_vs_cpu_step`); the losses also carry
+    their `cache_` duplicates."""
+    r = _gpu_vs_cpu_step(torch, device, seed,
+                         TRAINER_CACHE_STAGE + TRANSIENT_NARROW + TRANSIENT_OCCLUSIONS,
+                         TRANSIENT_CONFIG, launches=1, terms=_TRAINER_TRANSIENT_TERMS)
+    losses = r["losses"]
+    duplicated = {k for k in losses if k.startswith("cache_")} == {
+        "cache_" + k for k in losses
+        if not k.startswith(("cache_", "regularizer_")) and k != "geometry_smoothness"}
+    ok = r["ok"] and duplicated
     print(f"trainer transient reference: Trainer, {TRANSIENT_CONFIG} cache stage at reference "
           f"widths with the occlusion bindings (shadow rays), one step, the same weights, batch "
-          f"and draws, gpu vs cpu: loss rel_err max={loss_err:.3e} (tol 1e-3; "
-          + ", ".join(f"{k} {v:.2e}" for k, v in sorted(loss_errs.items()))
-          + f"; cpu vs cpu with the cameras +-1 ulp: {loss_floor:.2e}) grad rel_l2_err max="
-          f"{err:.3e} at {err_at} (tol {tol}; noise floor, cpu vs cpu with the cameras +-1 ulp: "
-          f"{floor:.3e} at {floor_at}; planted in the leveled kernel "
-          + ", ".join(f"{f}: {v:.3e} at {at}" for f, (v, at) in faults.items())
-          + ", each must exceed the tol); the leveled call against its plain version: "
-          + "; ".join(f"idx{list(c['shape'])} max_abs_err={c['max_abs_err']:.3e} "
-                      f"{'ok' if c['ok'] else 'FAIL'}" for c in checked)
-          + f"; kernel launches gpu={n_gpu} cpu={n_cpu} {'ok' if ok else 'FAIL'}", flush=True)
+          f"and draws, gpu vs cpu: {_gpu_vs_cpu_text(r)}; the leveled call against its plain "
+          f"version: {_checked_text(r['checked'])}; kernel launches gpu={r['launches']} "
+          f"cpu={r['cpu_launches']} {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError("the Trainer's GPU transient step disagrees with its CPU step")
-    return dict(loss_rel_err=loss_err, loss_rel_errs=loss_errs, loss_noise_floor=loss_floor,
-                grad_rel_l2_err=err, noise_floor=floor,
-                faults={f: v for f, (v, _) in faults.items()}, tol=tol,
-                launches=n_gpu["leveled"], max_abs_err=max(c["max_abs_err"] for c in checked),
-                losses=l_gpu)
+    return {k: r[k] for k in ("loss_rel_err", "loss_rel_errs", "loss_noise_floor",
+                              "grad_rel_l2_err", "noise_floor", "faults", "tol", "launches",
+                              "max_abs_err", "losses")}
 
 
 def _transient_checked_step(torch, device, seed, batch, capture):
@@ -2750,69 +2795,29 @@ TRANSIENT_MATERIAL_RECIPE = ("Trainer.resample = True", "Trainer.resample_render
 def phase_trainer_transient_material_reference(torch, device, seed):
     """The Trainer's step on a narrow cornell material_light_from_scratch
     stage, without and with the finetune stages' occlusion bindings, GPU
-    against CPU: every loss term and every gradient leaf, the limit
-    bracketed in each by a CPU noise floor (the cameras +-1 ulp) and two
-    faults planted in the leveled kernel; every GPU leveled call held
-    against its plain version."""
+    against CPU (`_gpu_vs_cpu_step`, each with its own noise floor and
+    planted faults; 6 leveled launches per step)."""
     out = {}
-    tol = GRAD_REL_L2_TOL
-    expected = _launch_counts(**_TRAINER_TRANSIENT_MATERIAL_LAUNCHES_PER_STEP)
     for label, extra in (("direct", ()), ("occlusions", TRANSIENT_OCCLUSIONS)):
-        stage = TRANSIENT_MATERIAL_NARROW + extra
-
-        def step(dev, **kw):
-            return _trainer_step(torch, dev, seed, stage=stage, config_file=TRANSIENT_CONFIG,
-                                 **kw)
-
-        l_cpu, g_cpu, n_cpu = step("cpu")
-        floor, floor_at, loss_floor = 0.0, None, 0.0
-        for nudge in (1, -1):
-            l_n, g_n, _ = step("cpu", nudge=nudge)
-            v, at = _worst_grad_err(g_n, g_cpu)
-            if v >= floor:
-                floor, floor_at = v, at
-            loss_floor = max(loss_floor, *(abs(l_n[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-30)
-                                           for k in l_cpu))
-        checked = []
-        l_gpu, g_gpu, n_gpu = step(device, checked=checked)
-        loss_errs = {k: abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-30) for k in l_cpu}
-        loss_err = max(loss_errs.values())
-        grad_errs = _grad_errs(g_gpu, g_cpu)
-        err, err_at = _worst_grad_err(g_gpu, g_cpu)
-        faults = {f: _worst_grad_err(step(device, fault=f)[1], g_cpu)
-                  for f in ("taps rotated", "finest level dropped")}
-        finite = all(torch.isfinite(g).all() for g in g_gpu.values())
-        terms = set(_TRAINER_TRANSIENT_MATERIAL_TERMS)
-        present = terms <= set(l_cpu) and all(l_cpu[k] != 0 for k in terms)
-        ok = (finite and present and loss_err <= 1e-3
-              and n_cpu == _launch_counts() and n_gpu == expected
-              and len(checked) == expected["leveled"] and all(c["ok"] for c in checked)
-              and floor <= tol and err <= tol and all(v > tol for v, _ in faults.values()))
+        r = _gpu_vs_cpu_step(torch, device, seed, TRANSIENT_MATERIAL_NARROW + extra,
+                             TRANSIENT_CONFIG,
+                             launches=_TRAINER_TRANSIENT_MATERIAL_LAUNCHES_PER_STEP["leveled"],
+                             terms=_TRAINER_TRANSIENT_MATERIAL_TERMS)
         print(f"trainer transient material reference ({label}): Trainer, {TRANSIENT_CONFIG} "
               f"material_light_from_scratch at reference widths"
               f"{' with the occlusion bindings (shadow rays)' if extra else ''}, one step, the "
-              f"same weights, batch and draws, gpu vs cpu: loss rel_err max={loss_err:.3e} (tol "
-              "1e-3; " + ", ".join(f"{k} {v:.2e}" for k, v in sorted(loss_errs.items()))
-              + f"; cpu vs cpu with the cameras +-1 ulp: {loss_floor:.2e}) grad rel_l2_err max="
-              f"{err:.3e} at {err_at} (tol {tol}; noise floor, cpu vs cpu with the cameras +-1 "
-              f"ulp: {floor:.3e} at {floor_at}; planted in the leveled kernel "
-              + ", ".join(f"{f}: {v:.3e} at {at}" for f, (v, at) in faults.items())
-              + ", each must exceed the tol); every leaf: "
-              + ", ".join(f"{k} {v:.2e}" for k, v in sorted(grad_errs.items()))
-              + "; the leveled calls against their plain version: "
-              + "; ".join(f"idx{list(c['shape'])} max_abs_err={c['max_abs_err']:.3e} "
-                          f"{'ok' if c['ok'] else 'FAIL'}" for c in checked)
-              + f"; kernel launches gpu={n_gpu} cpu={n_cpu} {'ok' if ok else 'FAIL'}",
-              flush=True)
-        if not ok:
+              f"same weights, batch and draws, gpu vs cpu: {_gpu_vs_cpu_text(r)}; every leaf: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in sorted(r["grad_rel_l2_errs"].items()))
+              + f"; the leveled calls against their plain version: {_checked_text(r['checked'])}"
+              f"; kernel launches gpu={r['launches']} cpu={r['cpu_launches']} "
+              f"{'ok' if r['ok'] else 'FAIL'}", flush=True)
+        if not r["ok"]:
             raise AssertionError("the Trainer's GPU transient material step disagrees with its "
                                  "CPU step")
-        out[label] = dict(loss_rel_err=loss_err, loss_rel_errs=loss_errs,
-                          loss_noise_floor=loss_floor, grad_rel_l2_err=err, grad_err_at=err_at,
-                          grad_rel_l2_errs=grad_errs, noise_floor=floor,
-                          faults={f: v for f, (v, _) in faults.items()}, tol=tol,
-                          launches=n_gpu["leveled"],
-                          max_abs_err=max(c["max_abs_err"] for c in checked))
+        out[label] = {k: r[k] for k in (
+            "loss_rel_err", "loss_rel_errs", "loss_noise_floor", "grad_rel_l2_err",
+            "grad_err_at", "grad_rel_l2_errs", "noise_floor", "faults", "tol", "launches",
+            "max_abs_err")}
     return out
 
 
@@ -3174,6 +3179,219 @@ def phase_trainer_slf_train(torch, device, seed, steps, smi, tmp, cache_ckpt):
     return result
 
 
+# InvProp's other scenes, run without their data (statue_fwp without its
+# calibration checkpoint, whose file is not in the repository): name ->
+# (gin file, bindings). Phase 29 runs their cache stages at phase 23's
+# widths with 96 bins (statue's Gaussian filter of 10.21 bins has 83 taps).
+INVPROP_SCENES = {
+    "statue_fwp": ("configs/transient_simulation_ngp_yobo_statue_fwp.gin",
+                   ("Config.calib_checkpoint = ''",)),
+    "kettle_fwp": ("configs/transient_simulation_ngp_yobo_kettle_fwp.gin", ()),
+    "cornell_steady_state": ("configs/transient_simulation_ngp_yobo_cornell_steady_state.gin",
+                             ()),
+}
+INVPROP_NARROW = TRANSIENT_NARROW + ("Config.n_bins = 96",)
+# Phase 30's runs: (scene, stage, batches to try, timed steps or None for
+# --trainer-steps, leveled launches per step).
+INVPROP_RUNS = (
+    ("statue_fwp", "cache", (8192, 4096, 2048), None, 1),
+    ("statue_fwp", "material_light_from_scratch", (4096, 2048, 1024), 3, 6),
+    ("kettle_fwp", "cache", (8192, 4096), None, 1),
+    ("cornell_steady_state", "cache", (8192, 4096), None, 1),
+)
+
+
+def phase_trainer_invprop_reference(torch, device, seed):
+    """Phase 23's method on the cache stages of statue_fwp, kettle_fwp and
+    cornell_steady_state at reference widths; then statue's temporal filter
+    alone at full width, GPU against CPU."""
+    from neural_radiance_caching_tpu_torch.ops import render
+
+    out = {}
+    for scene, (config_file, extra) in INVPROP_SCENES.items():
+        r = _gpu_vs_cpu_step(torch, device, seed, TRAINER_CACHE_STAGE + INVPROP_NARROW + extra,
+                             config_file, launches=1, terms=("data", "cache_data"))
+        print(f"trainer InvProp reference ({scene}): Trainer, {config_file} cache stage at "
+              f"reference widths (96 bins, batch 64), one step, the same weights, batch and "
+              f"draws, gpu vs cpu: {_gpu_vs_cpu_text(r)}; the leveled call against its plain "
+              f"version: {_checked_text(r['checked'])}; kernel launches gpu={r['launches']} "
+              f"cpu={r['cpu_launches']} {'ok' if r['ok'] else 'FAIL'}", flush=True)
+        if not r["ok"]:
+            raise AssertionError(f"the Trainer's GPU {scene} step disagrees with its CPU step")
+        out[scene] = {k: v for k, v in r.items()
+                      if k not in ("ok", "checked", "cpu_launches", "grad_rel_l2_errs")}
+
+    # Statue's filter alone: the Gaussian of 10.21 bins over [4096, 1933, 1].
+    gen = torch.Generator().manual_seed(seed + 29)
+    x_cpu = torch.rand((4096, 1933, 1), generator=gen)
+    probe = torch.randn((4096, 1933, 1), generator=gen)
+    filt = render.gaussian_filter(10.21)
+
+    def run(x, p, f):
+        x = x.clone().requires_grad_()
+        y = render.convolve_bins(x, f)
+        (y * p).sum().backward()
+        return y.detach(), x.grad
+
+    y_cpu, g_cpu = run(x_cpu, probe, filt)
+    x_gpu, p_gpu, f_gpu = x_cpu.to(device), probe.to(device), filt.to(device)
+    y_gpu, g_gpu = run(x_gpu, p_gpu, f_gpu)
+    err = float((y_gpu.cpu() - y_cpu).abs().max() / y_cpu.abs().max())
+    grad_err = float((g_gpu.cpu() - g_cpu).abs().max() / g_cpu.abs().max())
+    fwd_ms = _cuda_ms(lambda: render.convolve_bins(x_gpu, f_gpu))
+    x_req = x_gpu.clone().requires_grad_()
+    both_ms = _cuda_ms(lambda: (render.convolve_bins(x_req, f_gpu) * p_gpu).sum().backward())
+    nbytes = 4 * 2 * x_cpu.numel()
+    bound_ms, bound_by = _bound(nbytes, 2 * x_cpu.numel() * filt.numel())
+    ok = err <= 1e-5 and grad_err <= 1e-5
+    print(f"trainer InvProp reference (filter): statue's Gaussian of 10.21 bins ({filt.numel()} "
+          f"taps, one conv1d over the bins with cuDNN's TF32 off) on [4096, 1933, 1], gpu vs "
+          f"cpu: max_abs_err/scale={err:.3e}, its backward's {grad_err:.3e} (tol 1e-5); forward "
+          f"{fwd_ms:.4f} ms, forward + backward of a probe {both_ms:.4f} ms (medians of 11 by "
+          f"CUDA events; bound of the forward {bound_ms:.4f} ms, {bound_by}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the GPU temporal filter disagrees with the CPU's")
+    out["filter"] = dict(shape=[4096, 1933, 1], taps=filt.numel(), max_rel_err=err,
+                         grad_max_rel_err=grad_err, forward_ms=fwd_ms,
+                         forward_backward_ms=both_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return out
+
+
+def _filter_timer(torch):
+    """(patch, events): render._correlate_bins (the filter's conv1d, forward
+    and backward) with CUDA events around each call."""
+    from neural_radiance_caching_tpu_torch.ops import render
+
+    real, events = render._correlate_bins, []
+
+    def timed(x, taps, left):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(x, taps, left)
+        end.record()
+        events.append((start, end))
+        return out
+
+    return (render, {"_correlate_bins": timed}), events
+
+
+def phase_trainer_invprop_train(torch, device, seed, steps, smi, tmp):
+    """INVPROP_RUNS through the train_with_trainer entry point, in-process:
+    each at the largest of its batches that fits (a cut printed with the
+    memory at the failing request), 3 warmup + N timed steps, the filter's
+    conv1d time per step, the checkpoint, a resuming run, one test view;
+    then one step with every leveled call held against its plain version.
+    statue's material stage warm-starts from its cache stage's checkpoint."""
+    import gc
+    import os
+
+    from neural_radiance_caching_tpu_torch.engine import gin_config
+    from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+
+    warmup, results, ckpts = 3, {}, {}
+    for scene, stage, batches, timed_steps, expected in INVPROP_RUNS:
+        config_file, extra = INVPROP_SCENES[scene]
+        timed = timed_steps or steps
+        cut = []
+        for batch in batches:
+            ckpt = os.path.join(tmp, f"{scene}_{stage}_{batch}")
+            common = TRAINER_BINDINGS + extra + (
+                f"Trainer.stage = '{stage}'", f"Config.batch_size = {batch}",
+                f"Config.checkpoint_dir = '{ckpt}'", f"Config.early_exit_steps = {warmup + timed}",
+                f"Config.print_every = {warmup + timed}",
+                f"Config.jax_rng_seed = {20200823 + seed}", "Trainer.save_results = False",
+                "Config.metric_harness_train_config = {'disable_lpips': True}")
+            if stage != "cache":
+                common += TRANSIENT_MATERIAL_RECIPE
+            resume = [f"--gin_configs={config_file}"] + [f"--gin_bindings={b}" for b in common]
+            args = resume + ([f"--gin_bindings=Config.partial_checkpoint_dir = "
+                              f"'{ckpts[scene]}'"] if stage != "cache" else [])
+            patch, events = _filter_timer(torch)
+            try:
+                run = _entry_point_run(torch, args, resume, ckpt, warmup, timed, (patch,))
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                allocated = torch.cuda.memory_allocated() / 2**30
+                reserved = torch.cuda.memory_reserved() / 2**30
+                print(f"trainer InvProp train ({scene} {stage}): batch {batch} ran out of "
+                      f"memory ({allocated:.2f} GiB allocated, {reserved:.2f} GiB reserved at "
+                      f"the failing request): {str(e).splitlines()[0]}", flush=True)
+                cut.append(dict(batch=batch, allocated_gib=allocated, reserved_gib=reserved))
+                del e
+                events.clear()
+                gin_config.clear_config()
+                gc.collect()
+                torch.cuda.empty_cache()
+        else:
+            raise AssertionError(f"no batch of {batches} fits {scene}'s {stage} stage")
+        trainer, dt, losses, log, total = (run["trainer"], run["step_s"], run["losses"],
+                                           run["log"], run["total"])
+        torch.cuda.synchronize()
+        filter_ms = sum(s.elapsed_time(e) for s, e in events) / total
+        filter_calls = len(events) / total
+        events.clear()
+        cfg = trainer.config
+        finite = _finite(losses.values()) and all(f"loss/{k}" in losses
+                                                  for k in ("data", "cache_data"))
+        per_step = run["launches"]["leveled"] / total
+
+        calls = []
+        scatter_cuda.reset_launch_count()
+        with _patched(scatter_cuda, scatter_add_weighted_leveled=_checking_scatter("leveled",
+                                                                                  calls)):
+            trainer.state, stats = trainer.train_step(trainer.rng, trainer.state,
+                                                      trainer.dataset.next_train(), 0.5)
+        checked_launches = dict(scatter_cuda.launches)
+        ok = (finite and run["saved"] == total and run["resume_ok"]
+              and run["launches"] == _launch_counts(leveled=expected * total)
+              and bool(torch.isfinite(stats["loss"])) and len(calls) == expected
+              and all(c["ok"] for c in calls)
+              and checked_launches == _launch_counts(leveled=expected)
+              and (filter_calls > 0) == (cfg.tfilter_sigma != 0.0))
+        n_params = sum(p.numel() for p in trainer.model.parameters())
+        metrics = run["metrics"]
+        cut_text = (f"batch {batch}, cut from {batches[0]} ("
+                    + ", ".join(f"{c['batch']} ran out of memory at {c['allocated_gib']:.2f} "
+                                f"GiB allocated, {c['reserved_gib']:.2f} reserved" for c in cut)
+                    + ")" if cut else f"batch {batch}")
+        print(f"trainer InvProp train ({scene} {stage}): train_with_trainer {config_file} "
+              f"{stage}{' warm-started from its cache stage' if stage != 'cache' else ''} "
+              f"({n_params} params, {cfg.n_bins} bins x {cfg.num_rgb_channels} channel(s), "
+              f"tfilter_sigma={cfg.tfilter_sigma}, occlusions={cfg.use_occlusions}, vignette="
+              f"{getattr(trainer.model, 'use_vignette', False)}) {cut_text}, {warmup} warmup + "
+              f"{timed} timed steps: step_ms={dt * 1e3:.2f} rays_per_s={batch / dt:.0f} "
+              f"(train_log rays_per_sec={log[-1]['rays_per_sec']:.0f} over steps 2-{total}) on "
+              f"[{smi}]; peak {run['peak_gib']:.2f} GiB; the filter's conv1d {filter_ms:.3f} ms "
+              f"per step ({filter_calls:.0f} calls per step, forward and backward, CUDA events, "
+              f"{100 * filter_ms / (dt * 1e3):.2f}% of the step); losses finite and present="
+              f"{finite} {losses}; checkpoint step {run['saved']}, resumed with no step="
+              f"{run['resume_ok']}; kernel launches={run['launches']} ({per_step:g} leveled per "
+              f"step, expected {expected}); eval view {run['view']} cast on the host: psnr={metrics['psnr']:.2f} in "
+              f"{run['eval_s']:.2f}s; checked step, every leveled call against its plain "
+              f"version (tol=|err|<={SUM_ORDER_TOL}*sum|w*ct|): "
+              + "; ".join(f"idx{list(c['shape'])} max_abs_err={c['max_abs_err']:.3e} "
+                          f"{'ok' if c['ok'] else 'FAIL'}" for c in calls)
+              + f"; entry point {run['wall']:.1f}s {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"trainer InvProp train phase failed ({scene} {stage})")
+        results[f"{scene}_{stage}"] = dict(
+            step_ms=dt * 1e3, rays_per_s=batch / dt, train_log_rays_per_s=log[-1]["rays_per_sec"],
+            peak_gib=run["peak_gib"], batch=batch, cut=cut, steps=timed, warmup=warmup,
+            params=n_params, n_bins=cfg.n_bins, channels=cfg.num_rgb_channels,
+            filter_ms_per_step=filter_ms, filter_calls_per_step=filter_calls,
+            launches=run["launches"]["leveled"], launches_per_step=per_step,
+            eval_view=run["view"], eval_psnr=metrics["psnr"], eval_s=run["eval_s"],
+            entry_point_s=run["wall"], losses=losses,
+            max_abs_err=max(c["max_abs_err"] for c in calls))
+        ckpts[scene] = ckpt
+        del trainer, run, stats
+        gin_config.clear_config()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results
+
+
 def _profile(torch, train_step, state, rng, batches, path, steps=3):
     """Device time by kernel over `steps` steps, as a table written to `path`."""
     import pathlib
@@ -3278,6 +3496,9 @@ def main():
         trainer_slf_reference = phase_trainer_slf_reference(torch, device, args.seed)
         trainer_slf = phase_trainer_slf_train(torch, device, args.seed, args.trainer_steps, smi,
                                               tmp, cache_ckpt)
+        invprop_reference = phase_trainer_invprop_reference(torch, device, args.seed)
+        invprop = phase_trainer_invprop_train(torch, device, args.seed, args.trainer_steps, smi,
+                                              tmp)
     print(f"phases done in {time.perf_counter() - t_start:.1f}s, build included", flush=True)
 
     csrc = "neural_radiance_caching_tpu_torch/csrc"
@@ -3307,8 +3528,13 @@ def main():
                  "trainer_slf_train": trainer_slf["launches"],
                  "trainer_slf_cache_side": trainer_slf["cache_side"]["launches"]}
     leveled_launches.update(slf_paths)
+    invprop_paths = {**{f"trainer_invprop_reference_{scene}": invprop_reference[scene]["launches"]
+                        for scene in INVPROP_SCENES},
+                     **{f"trainer_{run}": r["launches"] for run, r in invprop.items()}}
+    leveled_launches.update(invprop_paths)
     other_paths = {"trainer_transient_train": 0, "trainer_transient_occlusions": 0,
-                   **{k: 0 for k in tmat_paths}, **{k: 0 for k in slf_paths}}
+                   **{k: 0 for k in tmat_paths}, **{k: 0 for k in slf_paths},
+                   **{k: 0 for k in invprop_paths}}
     print(json.dumps({"kernels": [{
         "name": "scatter_add_weighted_leveled",
         "route": "cuda",
@@ -3322,7 +3548,9 @@ def main():
                            trainer_transient["occlusions"]["max_abs_err"],
                            *(r["max_abs_err"] for r in trainer_tmat.values()),
                            *(r["max_abs_err"] for r in trainer_tmat_reference.values()),
-                           trainer_slf_reference["max_abs_err"]),
+                           trainer_slf_reference["max_abs_err"],
+                           *(invprop_reference[scene]["max_abs_err"] for scene in INVPROP_SCENES),
+                           *(r["max_abs_err"] for r in invprop.values())),
         "max_abs_err_by_shape": {"cache": kernel["max_abs_err"],
                                  "material_path": material_err["leveled"],
                                  "transient_path": transient["direct"]["max_abs_err"],
@@ -3334,7 +3562,11 @@ def main():
                                  **{f"trainer_{stage}_path": r["max_abs_err"]
                                     for stage, r in trainer_tmat.items()},
                                  "trainer_slf_reference_path": trainer_slf_reference[
-                                     "max_abs_err"]},
+                                     "max_abs_err"],
+                                 **{f"trainer_invprop_reference_{scene}_path": invprop_reference[
+                                     scene]["max_abs_err"] for scene in INVPROP_SCENES},
+                                 **{f"trainer_{run}_path": r["max_abs_err"]
+                                    for run, r in invprop.items()}},
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
         "library_ms": kernel["library_ms"],
@@ -3422,6 +3654,7 @@ def main():
         "transient_material_reference": trainer_tmat_reference,
         "slf_train": trainer_slf, "slf_reference": trainer_slf_reference,
         "slf_reference_leveled_launches_per_step": _TRAINER_SLF_LAUNCHES_PER_STEP["leveled"],
+        "invprop_train": invprop, "invprop_reference": invprop_reference,
         "device": smi}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

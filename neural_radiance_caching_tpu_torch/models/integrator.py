@@ -61,7 +61,7 @@ class VolumeIntegrator(Configurable, nn.Module, unported=dict(
 
     def forward(self, rng, rays, shader_results, train_frac=1.0, train=True,
                 percentiles=(5, 50, 95), linear_rgb=False, compute_extras=False,
-                compute_distance=True, bg_intensity_range=None, **kwargs):
+                compute_distance=True, bg_intensity_range=None, vignette=None, **kwargs):
         del rng, rays, train_frac, train, kwargs
         lo, hi = self.bg_intensity_range if bg_intensity_range is None else bg_intensity_range
         if lo != hi:
@@ -74,6 +74,8 @@ class VolumeIntegrator(Configurable, nn.Module, unported=dict(
             extras={k: v for k, v in shader_results.items() if k in extras_keys},
             percentiles=percentiles, compute_distance=compute_distance,
         )
+        if vignette is not None:
+            rendering["rgb"] = rendering["rgb"] * vignette
         if not linear_rgb and self.config.linear_to_srgb and rendering["rgb"] is not None:
             rendering["rgb"] = torch.clamp(image.linear_to_srgb(rendering["rgb"]), min=0.0)
         return rendering
@@ -90,13 +92,15 @@ class TransientVolumeIntegrator(VolumeIntegrator):
     stage. Under ``material=True`` (the material integrator) both are
     detached, so only the cache's renderings train them. Secondary rays get
     neither, nor the impulse filter when ``filter_indirect`` is set. The
-    indirect shift form is ``Config.transient_shift_form``.
+    indirect shift form is ``Config.transient_shift_form``. A per-ray
+    `vignette` [..., 1] multiplies the rgb over every bin, before the sRGB
+    curve.
     """
 
     def forward(self, rng, rays, shader_results, train_frac=1.0, train=True,
                 percentiles=(5, 50, 95), linear_rgb=False, compute_extras=False,
                 compute_distance=True, bg_intensity_range=None, is_secondary=False,
-                radiance_cache=None, material=False, **kwargs):
+                radiance_cache=None, material=False, vignette=None, **kwargs):
         del rng, train_frac, train, kwargs
         lo, hi = self.bg_intensity_range if bg_intensity_range is None else bg_intensity_range
         if lo != hi:
@@ -131,6 +135,8 @@ class TransientVolumeIntegrator(VolumeIntegrator):
             no_shift_direct=cfg.no_shift_direct and cfg.vis_only,
             shift_form=cfg.transient_shift_form,
         )
+        if vignette is not None:
+            rendering["rgb"] = rendering["rgb"] * vignette[..., None, :]
         if not linear_rgb and cfg.linear_to_srgb and rendering["rgb"] is not None:
             rendering["rgb"] = torch.clamp(image.linear_to_srgb(rendering["rgb"]), min=0.0)
         return rendering

@@ -48,8 +48,15 @@ with the material shader's power (or its learnable light). Under
 surface points (their occlusion, stored without gradient, darkens the
 material's direct lobe) and from the point each secondary query resamples.
 
+With ``use_vignette`` (InvProp's captured scenes) a ``VignetteMap``
+multiplies the primary rays' renders, the cache pass's and the material
+pass's, by one learned factor per ray. A cache stage under
+``Config.learnable_light`` holds the material shader's light alone
+(``material_shader.CacheStageLight``): the cache shader and integrator read
+it there.
+
 Not ported yet (they raise): the volume control variate, ground-truth
-lights, vignetting and shared materials.
+lights and shared materials.
 """
 
 from __future__ import annotations
@@ -70,8 +77,7 @@ def _detach_dict(d):
     return {k: (v.detach() if isinstance(v, torch.Tensor) else v) for k, v in d.items()}
 
 
-class BaseMaterialModel(nerf_model.Model, unported=dict(
-        stopgrad_weight_variate=0.0, use_vignette=False)):
+class BaseMaterialModel(nerf_model.Model, unported=dict(stopgrad_weight_variate=0.0)):
     """Material model over a radiance cache; the variants pick the cache,
     shader and integrator classes."""
 
@@ -110,6 +116,7 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(
     stopgrad_geometry_normals_weight_consistency = 0.0
     slf_variate = True
     share_light_power = False
+    use_vignette = False
 
     def __init__(self, config=None, **kwargs):
         self._init_model(config, kwargs)
@@ -119,7 +126,11 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(
         self.cache = self._cache_cls(
             config=config, use_surface_light_field=self.use_surface_light_field and self.use_material,
             **dict(self.cache_model_params or {}), **dict(self.extra_model_params or {}))
+        if self.use_vignette:
+            self.vignette_map = nerf_model.VignetteMap(config=config)
         if not self.use_material:
+            if config.learnable_light:
+                self.shader = material_shader.CacheStageLight(config, self.shader_params)
             return
         if config.volume_variate_material:
             raise NotImplementedError("the material volume variate is not ported yet")
@@ -165,15 +176,16 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(
                                       "ported yet")
         if render_kwargs.pop("is_secondary", False):
             raise NotImplementedError("secondary-ray queries of the material model are not ported")
+        vignette = self.vignette_map(rays) if self.use_vignette else None
         key, rng = torchutil.random_split(rng)
         cache_out = self.cache(key, rays, train_frac=train_frac, train=train,
                                cache_outputs=cache_outputs, compute_extras=compute_extras,
-                               radiance_cache=self, **render_kwargs)["main"]
+                               radiance_cache=self, vignette=vignette, **render_kwargs)["main"]
         cache_outputs = {k: cache_out[k] for k in self._CACHE_MAIN_KEYS}
         cache_outputs.update(loss_weight=self.cache_loss_weight, loss_type=self.cache_loss,
                              linear_to_srgb=self.cache_linear_to_srgb)
         if not self.use_material:
-            return self._finalize_cache_only(cache_outputs, rays)
+            return self._finalize_cache_only(cache_outputs, rays, vignette)
 
         inds = (cache_outputs["filtered_sampler_inds"] if filtered_sampler_inds is _CACHE_INDS
                 else filtered_sampler_inds)
@@ -191,9 +203,9 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(
         key, rng = torchutil.random_split(rng)
         outputs = self._handle_material_pass(
             key, rays, train_frac, train, cache_outputs, cache_shader_results, filtered,
-            light_sampler_results, compute_extras, secondary_proposal_grad)
+            light_sampler_results, compute_extras, secondary_proposal_grad, vignette)
         return self._finalize_outputs(outputs, cache_outputs, cache_shader_results,
-                                      light_sampler_results, slf_vis)
+                                      light_sampler_results, slf_vis, vignette)
 
     # The sub-module passes at given samples or rays (JAX's
     # `_maybe_bypass_pipeline`).
@@ -243,10 +255,11 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(
         key, rng = torchutil.random_split(rng)
         return self.cache(key, rays, train_frac=train_frac, train=train, use_slf=True)
 
-    def _finalize_cache_only(self, cache_outputs, rays):
+    def _finalize_cache_only(self, cache_outputs, rays, vignette=None):
         """The cache render is the model output: ``cache_main`` and ``main``
         are one dict, and the render carries the ``cache_`` copies of its
-        keys, a lossmult broadcast over rgb and a unit vignette."""
+        keys, a lossmult broadcast over rgb and the vignette (unit without
+        ``use_vignette``)."""
         render = cache_outputs["integrator"]
         for key in self._INTEGRATOR_KEYS:
             if key in render:
@@ -255,7 +268,8 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(
         if render["rgb"].dim() == lossmult.dim() + 1:
             lossmult = lossmult[..., None]
         render["lossmult"] = lossmult * torch.ones_like(render["rgb"])
-        render["vignette"] = torch.ones_like(render["rgb"][..., :1])
+        render["vignette"] = (torch.ones_like(render["rgb"][..., :1]) if vignette is None
+                              else vignette)
         cache_outputs["light_sampler"] = None
         return {"cache_main": cache_outputs, "main": cache_outputs, "render": render}
 
@@ -297,7 +311,7 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(
 
     def _handle_material_pass(self, rng, rays, train_frac, train, cache_outputs,
                               cache_shader_results, filtered, light_sampler_results,
-                              compute_extras, secondary_proposal_grad=True):
+                              compute_extras, secondary_proposal_grad=True, vignette=None):
         shared = dict(rays=rays, train_frac=train_frac, train=train)
         key, rng = torchutil.random_split(rng)
         # Under slf_variate the variate pass's secondary rays replace this
@@ -309,7 +323,8 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(
         key, rng = torchutil.random_split(rng)
         material_integrator_results = self.integrator(
             rng=key, shader_results=material_shader_results, compute_extras=compute_extras,
-            compute_distance=False, material=True, radiance_cache=self, **shared)
+            compute_distance=False, material=True, radiance_cache=self, vignette=vignette,
+            **shared)
         # The material integrator never re-derives depth: distances come from
         # the cache's own integration.
         for k, v in cache_outputs["integrator"].items():
@@ -391,7 +406,7 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(
     )
 
     def _finalize_outputs(self, outputs, cache_outputs, cache_shader_results,
-                          light_sampler_results, slf_vis=None):
+                          light_sampler_results, slf_vis=None, vignette=None):
         render, cache_integrator = outputs["render"], cache_outputs["integrator"]
         for key in self._INTEGRATOR_KEYS:
             if key in cache_integrator:
@@ -402,7 +417,8 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(
         render["material_rgb"] = render["rgb"]
         render["normals"] = cache_integrator.get("normals")
         render["normals_pred"] = cache_integrator.get("normals_pred")
-        render["vignette"] = torch.ones_like(render["rgb"][..., :1])
+        render["vignette"] = (torch.ones_like(render["rgb"][..., :1]) if vignette is None
+                              else vignette)
         if slf_vis is not None:
             for key in ("incoming_rgb", "incoming_acc", "incoming_s_dist"):
                 render[f"cache_{key}"] = slf_vis[key].reshape(render["rgb"].shape[:-1] + (-1,))

@@ -153,8 +153,7 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
         anisotropic_brdf_correction=False, per_point_brdf_correction=False,
         global_brdf_correction=False, emission_window_frac=0.0,
         emission_variate_weight_start=1.0, emission_variate_weight_end=1.0,
-        deg_brdf=2, deg_brdf_anisotropic=2, stopgrad_samples=False,
-        stopgrad_rays=False, stopgrad_rgb=False, stopgrad_light=True, resample_cache=True,
+        deg_brdf=2, deg_brdf_anisotropic=2, stopgrad_light=True, resample_cache=True,
         num_light_features=64)):
     """BRDF head + secondary rays through the cache; the variants set the
     lighting (passive or active) and the integration table."""
@@ -236,6 +235,11 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
     # The gradient scale of the secondary rays' shading directions, and the
     # (rays, outputs) gradient scales of their cache queries.
     stopgrad_shading_weight = 1.0
+    # Detach the secondary rays' sample records, their rays, or the radiance
+    # their cache queries return.
+    stopgrad_samples = False
+    stopgrad_rays = False
+    stopgrad_rgb = False
     stopgrad_cache_weight = (1.0, 1.0)
     # The (rays, outputs) gradient scales of the surface-light-field queries;
     # the memory applies the outputs' alone (NeRFModel.get_slf_results).
@@ -451,6 +455,10 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
             ref_samples[d] = stopgrad_with_weight(ref_samples[d], shading_w)
         ref_samples["weight"] = torch.where(ref_samples["local_lightdirs"][..., 2:] > 0.0,
                                             ref_samples["weight"], 0.0)
+        if self.stopgrad_samples:
+            ref_samples = {k: v.detach() for k, v in ref_samples.items()}
+        if self.stopgrad_rays:
+            ref_rays = torchutil.partial_stopgrad_rays(ref_rays, (0.0, 0.0))
         return ref_rays, ref_samples
 
     def _radiance_shape(self, num_secondary_samples, direct):
@@ -464,6 +472,8 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
         the (unit) BRDF correction to the lobe's sample records."""
         shape = self._radiance_shape(num_secondary_samples, direct)
         rgb = torch.nan_to_num(rgb).reshape(shape)
+        if self.stopgrad_rgb:
+            rgb = rgb.detach()
         rgb_ns = torch.nan_to_num(rgb_ns).reshape(shape)
         ref_samples = {k: v.reshape(rgb.shape[0], -1, v.shape[-1]) for k, v in ref_samples.items()}
         # The active closure repeats the occlusion over the channels: keep one.
@@ -803,6 +813,27 @@ class MaterialMLP(BaseMaterialMLP):
 
     def _build_integration_strategy(self):
         return _steady_integration_strategy(self.use_active)
+
+
+class CacheStageLight(nn.Module):
+    """The transient material shader's light alone: its ``light_power``
+    (with ``optimize_light``) and its ``learnable_light``, with the
+    ``TransientMaterialMLP`` bindings and `shader_params` (the model's
+    ``shader_params``, which override them). A cache stage
+    (``use_material=False``) under ``Config.learnable_light`` reads the light
+    from its material model's shader, in the cache shader (a shared light
+    power) and in the integrator (the transient shift and dark level); the
+    JAX material shader creates exactly these parameters there, its
+    ``light_power`` in its setup and the learnable light's at the first
+    read."""
+
+    def __init__(self, config, shader_params=None):
+        super().__init__()
+        fields = {**gin.get_bindings("TransientMaterialMLP"), **dict(shader_params or {})}
+        if fields.get("optimize_light", TransientMaterialMLP.optimize_light):
+            bias = fields.get("light_power_bias", TransientMaterialMLP.light_power_bias)
+            self.light_power = nn.Parameter(torch.full((1,), float(bias)))
+        self.learnable_light = light_sampler_lib.LightSourceMap(config=config)
 
 
 @gin.configurable

@@ -19,6 +19,10 @@ Only the material shader queries it. The transient cache has no memory, as
 in JAX, where ``TransientNeRFModel`` lacks ``get_slf_results``: a ``use_slf``
 query on it raises.
 
+``VignetteMap`` is the per-ray vignette multiplier of a material model with
+``use_vignette`` (InvProp's captured scenes): an MLP on the cosine between
+each ray's view direction and its camera's look direction.
+
 Not ported yet: resampling of primary rays, volume control variates and
 environment maps (they raise), and the argmax resample and ray-distance
 warps of secondary rays.
@@ -27,14 +31,15 @@ warps of secondary rays.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from neural_radiance_caching_tpu_torch.engine import gin_config as gin
 from neural_radiance_caching_tpu_torch.models import integrator as integrator_lib
 from neural_radiance_caching_tpu_torch.models import nerf_shader, sampler as sampler_lib
 from neural_radiance_caching_tpu_torch.models import surface_light_field
-from neural_radiance_caching_tpu_torch.models.layers import Configurable
-from neural_radiance_caching_tpu_torch.ops import math, render_utils
+from neural_radiance_caching_tpu_torch.models.layers import Configurable, Dense
+from neural_radiance_caching_tpu_torch.ops import coord, math, render_utils
 from neural_radiance_caching_tpu_torch.utils import torchutil
 
 
@@ -191,8 +196,9 @@ class Model(Configurable, nn.Module, unported=_MODEL_UNPORTED):
 
     def apply_shader_and_integrator(self, rng, rays, filtered_sampler_results, stopgrad_map,
                                     train, train_frac, is_secondary, bg_intensity_range,
-                                    stopgrad_cache_weight=None, **render_kwargs):
-        """Shade the (filtered) samples and composite them."""
+                                    stopgrad_cache_weight=None, vignette=None, **render_kwargs):
+        """Shade the (filtered) samples and composite them; the render's rgb
+        times `vignette` [..., 1] if given."""
         inputs = torchutil.apply_stopgrad_fields(filtered_sampler_results, stopgrad_map)
         shared = dict(train_frac=train_frac, train=train, is_secondary=is_secondary)
         key, rng = torchutil.random_split(rng)
@@ -205,7 +211,7 @@ class Model(Configurable, nn.Module, unported=_MODEL_UNPORTED):
         key, rng = torchutil.random_split(rng)
         integrator_results = self.integrator(
             rng=key, rays=rays, shader_results=shader_results,
-            bg_intensity_range=bg_intensity_range, **shared, **render_kwargs)
+            bg_intensity_range=bg_intensity_range, vignette=vignette, **shared, **render_kwargs)
         integrator_results = self._handle_secondary(is_secondary, integrator_results,
                                                     stopgrad_cache_weight)
         return shader_results, integrator_results
@@ -265,7 +271,7 @@ class NeRFModel(Model):
     def forward(self, rng, rays, train_frac=1.0, train=True, sampling_strategy=None,
                 is_secondary=False, resample=False, cache_outputs=None,
                 filtered_sampler_inds=None, stopgrad_cache_weight=None, proposal_grad=True,
-                weights_only=False, use_slf=False, **render_kwargs):
+                weights_only=False, use_slf=False, vignette=None, **render_kwargs):
         """Render a ray batch; returns {"main": per-stage results, "render": rgb etc.}.
 
         cache_outputs: {"sampler": ray history} of an earlier forward to reuse
@@ -285,6 +291,8 @@ class NeRFModel(Model):
         use_slf: the query reads the surface light field memory instead
         (``get_slf_results``, which takes `stopgrad_cache_weight` whether
         or not the rays are secondary).
+        vignette: the per-ray multiplier [..., 1] of the render's rgb (a
+        material model's ``VignetteMap``), or None.
         """
         if use_slf:
             return self.get_slf_results(rng, rays, train_frac, train, stopgrad_cache_weight)
@@ -318,7 +326,7 @@ class NeRFModel(Model):
         shader_results, integrator_results = self.apply_shader_and_integrator(
             key, rays, filtered, self.geometry_stopgrad_map(do_resample),
             train, train_frac, is_secondary, bg_intensity_range,
-            stopgrad_cache_weight=stopgrad_cache_weight, **render_kwargs)
+            stopgrad_cache_weight=stopgrad_cache_weight, vignette=vignette, **render_kwargs)
 
         main = dict(
             loss_weight=1.0, sampler=sampler_results, filtered_sampler_inds=filtered_sampler_inds,
@@ -342,3 +350,40 @@ class TransientNeRFModel(NeRFModel):
             "TransientNeRFModel builds no SLF memory and has no get_slf_results "
             "(models/nerf_model.py:625-640), so the transient material SLF stages have no "
             "reference")
+
+
+@gin.configurable
+class VignetteMap(Configurable, nn.Module):
+    """Per-ray vignette multiplier 2 sigmoid(MLP(pos_enc(dot(viewdirs,
+    look)))) [..., 1]: ``net_depth_vignette`` he-uniform Dense layers
+    (``layer.{i}``) and a one-wide ``output_layer``. As in JAX, the skip
+    concatenation of the encoded input is tested once, after the loop, on
+    the last layer's index: it feeds the output layer when that index is a
+    positive multiple of ``skip_layer_vignette`` (depth 5 at the default 4),
+    never at the default depth 2."""
+
+    deg_vignette = 2
+    net_depth_vignette = 2
+    net_width_vignette = 64
+    skip_layer_vignette = 4
+    net_activation = staticmethod(F.relu)
+
+    def __init__(self, config=None, **kwargs):
+        nn.Module.__init__(self)
+        self.config = config
+        self._set_fields(kwargs)
+        in_dim = 1 + 2 * self.deg_vignette
+        widths = [in_dim] + [self.net_width_vignette] * self.net_depth_vignette
+        self.layer = nn.ModuleList(Dense(a, b) for a, b in zip(widths[:-1], widths[1:]))
+        last = self.net_depth_vignette - 1
+        self._skip = last % self.skip_layer_vignette == 0 and last > 0
+        self.output_layer = Dense(widths[-1] + (in_dim if self._skip else 0), 1)
+
+    def forward(self, rays):
+        x = coord.pos_enc(math.dot(rays.viewdirs, rays.look), 0, self.deg_vignette, True)
+        inputs = x
+        for layer in self.layer:
+            x = self.net_activation(layer(x))
+        if self._skip:
+            x = torch.cat([x, inputs], dim=-1)
+        return torch.sigmoid(self.output_layer(x)) * 2.0

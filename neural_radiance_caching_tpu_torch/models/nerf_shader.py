@@ -9,9 +9,12 @@ the reflected view direction.
 ``TransientNeRFMLP`` is the transient cache shader on its active path: a
 point light of learnable constant power with inverse-square falloff, a
 diffuse (albedo) and a BRDF-net specular direct term, and time-binned
-indirect radiance: an irradiance net emitting n_bins x 3 channels (diffuse)
+indirect radiance: an irradiance net emitting n_bins x C channels (diffuse)
 plus the tinted, integrated-BRDF-weighted transient surface light field
-(specular), masked by ``zero_invalid_bins``.
+(specular), masked by ``zero_invalid_bins``; with ``use_ambient`` an
+untimed ambient term too (the ambient head, and the tinted, integrated-BRDF
+weighted ambient radiance of the surface light field), which folds into the
+indirect outputs.
 
 Both shaders may query their own appearance hash grid (``use_grid``) at
 the sample means, beside the density feature. The transient shader's light
@@ -23,8 +26,7 @@ through the cache's weights only (``_compute_occlusions``).
 
 Not ported yet, raising: the active steady shader, the passive transient
 shader, cone lights, structured light, canonical-frame and intensity light
-conditioning, the simple BRDF input, the ambient term of the active path,
-env maps and the multi-illumination shaders.
+conditioning, the simple BRDF input, env maps and the multi-illumination shaders.
 """
 
 from __future__ import annotations
@@ -302,7 +304,7 @@ class TransientNeRFMLP(BaseNeRFMLP):
 
     def __init__(self, config=None, density_feature_dim=0, **kwargs):
         super().__init__(config, density_feature_dim, **kwargs)
-        self._require(use_active=True, use_indirect=True, use_ambient=False, simple_brdf=False,
+        self._require(use_active=True, use_indirect=True, simple_brdf=False,
                       light_max_angle=0.0)
         if not config.use_transient:
             raise ValueError("TransientNeRFMLP needs Config.use_transient")
@@ -316,7 +318,7 @@ class TransientNeRFMLP(BaseNeRFMLP):
         rgb = self.config.num_rgb_channels
         # With use_ambient=False nothing reads the ambient head; the JAX
         # shader evaluates it all the same, so its parameters exist (and no
-        # loss reaches them).
+        # loss reaches them then).
         self.ambient_irradiance_layer = Dense(feature_dim, rgb, cd)
         self.tint_layer = Dense(feature_dim, rgb, cd)
         self.roughness_layer = Dense(feature_dim, 1, cd)
@@ -363,11 +365,9 @@ class TransientNeRFMLP(BaseNeRFMLP):
         share = getattr(radiance_cache, "share_light_power", False)
         light_radiance_mult = torch.ones_like(light_dists)
         if cfg.learnable_light and share:
-            if not hasattr(radiance_cache, "shader"):
-                # JAX builds the material shader's light on this call.
-                raise NotImplementedError("a shared learnable light without the material shader "
-                                          "(a cache stage of Config.learnable_light) is not "
-                                          "ported yet")
+            if not hasattr(getattr(radiance_cache, "shader", None), "learnable_light"):
+                raise ValueError("a shared learnable light is read from the material model's "
+                                 "shader, and this radiance_cache has none")
             means = sampler_results["means"]
             ones = torch.ones_like(means)
             light_radiance, light_radiance_mult = radiance_cache.shader.learnable_light(
@@ -465,12 +465,10 @@ class TransientNeRFMLP(BaseNeRFMLP):
         direct_specular = stopgrad_with_weight(direct_specular, self.stopgrad_direct_weight)
         return albedo, direct_diffuse, direct_specular
 
-    def _indirect_lighting(self, rays, feature, means, normals, shading_normals, ref_rgb,
-                           bottleneck):
+    def _indirect_lighting(self, rays, feature, means, shading_normals, ref_rgb, tint,
+                           integrated_brdf):
         """Per-bin diffuse and specular indirect transients [..., S, bins, C]."""
         n_bins, num_ch = self.config.n_bins, self.config.num_rgb_channels
-        integrated_brdf = self.get_integrated_brdf(normals, rays.viewdirs, bottleneck)
-        tint = torch.sigmoid(self.tint_layer(feature))
         lights = rays.lights[..., None, :] * torch.ones_like(shading_normals)
         diffuse = self.get_indirect(lights, feature) * self.indirect_scale
         shape = diffuse.shape[:-1] + (n_bins, num_ch)
@@ -513,34 +511,47 @@ class TransientNeRFMLP(BaseNeRFMLP):
         key, rng = torchutil.random_split(rng)
         incoming = self._query_surface_lf(key, rays, sampler_results, means, normals, roughness,
                                           bottleneck, train, train_frac)
+        integrated_brdf = self.get_integrated_brdf(normals, rays.viewdirs, bottleneck)
+        tint = torch.sigmoid(self.tint_layer(feature))
         t_diffuse, t_specular = self._indirect_lighting(
-            rays, feature, means, normals, shading_normals, incoming["incoming_rgb"], bottleneck)
+            rays, feature, means, shading_normals, incoming["incoming_rgb"], tint,
+            integrated_brdf)
         damp = lambda x: stopgrad_with_weight(x, self.stopgrad_indirect_weight)  # noqa: E731
         indirect_diffuse, indirect_specular = damp(t_diffuse.sum(-2)), damp(t_specular.sum(-2))
         indirect = indirect_diffuse + indirect_specular
-        # use_ambient=False: the ambient terms are zero.
-        ambient = torch.zeros_like(incoming["incoming_ambient_rgb"])
+        ambient_ref_rgb = incoming["incoming_ambient_rgb"]
+        if self.use_ambient:
+            # Clamped to rgb_max, then damped by stopgrad_ambient_weight.
+            damp_ambient = lambda x: stopgrad_with_weight(  # noqa: E731
+                torch.clamp(x, 0.0, self.rgb_max), self.stopgrad_ambient_weight)
+            ambient_diffuse = damp_ambient(self.ambient_irradiance_activation(
+                self.ambient_irradiance_layer(feature) + self.ambient_irradiance_bias))
+            ambient_specular = damp_ambient(tint * integrated_brdf * ambient_ref_rgb)
+        else:
+            ambient_diffuse = ambient_specular = torch.zeros_like(ambient_ref_rgb)
+        ambient = ambient_diffuse + ambient_specular
 
         if len(passes) > 0 and "indirect" not in passes:
             return {"rgb": direct, "direct_rgb": direct, "indirect_rgb": None,
                     "transient_indirect": None}
 
-        rgb = direct + indirect
+        rgb = direct + ambient + indirect
         like_rgb = lambda x: x * torch.ones_like(rgb)  # noqa: E731
+        # The ambient term folds into the indirect outputs.
         return dict(
             rgb=rgb,
             direct_rgb=direct,
             ambient_rgb=ambient,
             albedo_rgb=albedo,
-            diffuse_rgb=direct_diffuse + indirect_diffuse,
-            specular_rgb=direct_specular + indirect_specular,
-            indirect_rgb=indirect,
+            diffuse_rgb=direct_diffuse + indirect_diffuse + ambient_diffuse,
+            specular_rgb=direct_specular + indirect_specular + ambient_specular,
+            indirect_rgb=indirect + ambient,
             direct_diffuse_rgb=direct_diffuse,
             direct_specular_rgb=direct_specular,
-            indirect_diffuse_rgb=indirect_diffuse,
-            indirect_specular_rgb=indirect_specular,
-            ambient_diffuse_rgb=ambient,
-            ambient_specular_rgb=ambient,
+            indirect_diffuse_rgb=indirect_diffuse + ambient_diffuse,
+            indirect_specular_rgb=indirect_specular + ambient_specular,
+            ambient_diffuse_rgb=ambient_diffuse,
+            ambient_specular_rgb=ambient_specular,
             occ=like_rgb(occ) if "occ" not in sampler_results else torch.zeros_like(rgb),
             indirect_occ=like_rgb(incoming["incoming_acc"][..., None]),
             n_dot_l_rgb=like_rgb(n_dot_l),

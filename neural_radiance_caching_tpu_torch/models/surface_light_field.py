@@ -128,11 +128,11 @@ class SurfaceLightFieldMLP(shading.BaseShader, unported=dict(
             in_dim += 3 + 6 * self.deg_lights
         self.view_dependent_layers = trunk(in_dim, names)
         out_dim = self.view_dependent_layers.out_dim
-        rgb_channels = self.num_rgb_channels * (config.n_bins if self.use_indirect else 1)
+        rgb_channels = config.num_rgb_channels * (config.n_bins if self.use_indirect else 1)
         self.output_rgba_layer = Dense(out_dim, rgb_channels + 1, self.compute_dtype)
         ambient_dim = (self.ambient_view_dependent_layers.out_dim if self.use_lights
                        else out_dim)
-        self.output_ambient_rgb_layer = Dense(ambient_dim, self.num_rgb_channels,
+        self.output_ambient_rgb_layer = Dense(ambient_dim, config.num_rgb_channels,
                                               self.compute_dtype)
 
     def forward(self, rng, rays, sampler_results, origins, refdirs, roughness=None,

@@ -9,7 +9,9 @@ the sample weights. The shift-and-sum has three forms, chosen per call:
 sum: the plain reference), ``"fft"`` (phase ramps on ``torch.fft.rfft`` of
 the zero-padded transients, at the next power of two >= 2 n_bins + 2) and
 ``"matmul"`` (the same real DFT as two dense products, at length
-2 n_bins + 2). The impulse-response convolution is not ported yet and raises.
+2 n_bins + 2). The rendered transients are then convolved over their bins
+with the rays' impulse response or a Gaussian of ``tfilter_sigma`` bins
+(``convolve_bins``, ``jax.scipy.signal.convolve(mode="same")``'s alignment).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import math as pymath
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from neural_radiance_caching_tpu_torch.ops import stepfun
@@ -319,6 +322,60 @@ def shift_and_integrate_transient(transient, bins_move, weights, n_bins, form="f
     return out.movedim(-1, -2).to(transient.dtype)  # [R, n_bins, C]
 
 
+def gaussian_filter(tfilter_sigma, device=None):
+    """The unit-mass Gaussian of `tfilter_sigma` bins over taps
+    [round(-4 sigma), round(4 sigma)], its tails lowered by exp(-8), in
+    float32 (83 taps at InvProp's captured scenes' 10.21)."""
+    taps = torch.arange(round(-4 * tfilter_sigma), round(4 * tfilter_sigma) + 1,
+                        dtype=torch.float32, device=device)
+    f = torch.exp(-(taps**2) / (2 * tfilter_sigma**2)) - float(np.exp(-8))
+    return f / f.sum()
+
+
+def _correlate_bins(x, taps, left):
+    """Cross-correlate rows [N, B] with `taps` [K], zero-padded by `left`
+    bins before and K - 1 - left after, in full float32 (cuDNN's TF32 off)."""
+    k = taps.shape[0]
+    y = F.pad(x[:, None], (left, k - 1 - left))
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        return F.conv1d(y, taps.to(x.dtype).reshape(1, 1, k))[:, 0]
+
+
+class _ConvolveRows(torch.autograd.Function):
+    """Rows [N, B] convolved with a constant filter [K] (K <= B), "same"
+    size: out[n] = sum_k x[n + (K - 1) // 2 - k] f[k]. The backward is the
+    correlation with the filter unflipped and the padding mirrored."""
+
+    @staticmethod
+    def forward(ctx, x, filt):
+        ctx.save_for_backward(filt)
+        k = filt.shape[0]
+        return _correlate_bins(x, filt.flip(0), k - 1 - (k - 1) // 2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (filt,) = ctx.saved_tensors
+        return _correlate_bins(grad, filt, (filt.shape[0] - 1) // 2), None
+
+
+def convolve_bins(x, filt):
+    """``jax.scipy.signal.convolve(x, filt[None, :, None], mode="same")``
+    over the bins of x [R, B, C]: one ``conv1d`` of the R x C rows against
+    the filter flipped (``conv1d`` correlates), padded (K - 1) - (K - 1) // 2
+    bins before and (K - 1) // 2 after, as JAX pads an even-length filter
+    too. A filter longer than the bins raises, as JAX's does."""
+    r, b, c = x.shape
+    k = filt.shape[-1]
+    if k > b:
+        raise ValueError(f"a temporal filter of {k} taps is longer than the {b} time bins it "
+                         "convolves (jax.scipy.signal.convolve raises there too)")
+    rows = x.movedim(-1, -2).reshape(r * c, b)
+    out = _ConvolveRows.apply(rows, filt.detach().to(device=x.device, dtype=torch.float32))
+    return out.reshape(r, c, b).movedim(-1, -2)
+
+
 def volumetric_transient_rendering(
     direct_rgbs,
     transient_indirect,
@@ -353,8 +410,6 @@ def volumetric_transient_rendering(
     function; ``bg_rgbs`` and ``compute_extras`` are not read.
     """
     del bg_rgbs, compute_extras, compute_distance
-    if impulse_response is not None or tfilter_sigma != 0.0:
-        raise NotImplementedError("the impulse-response convolution is not ported yet")
     if shift_form not in SHIFT_FORMS:
         raise ValueError(f"unknown transient shift form {shift_form!r}")
     rendering = {}
@@ -414,6 +469,12 @@ def volumetric_transient_rendering(
 
     rendering["transient_indirect_no_filter"] = transient_indirect_out
     rendering["transient_direct_no_filter"] = transient_direct
+    if impulse_response is not None or tfilter_sigma != 0.0:
+        filt = (impulse_response if impulse_response is not None
+                else gaussian_filter(tfilter_sigma, transient_direct.device))
+        transient_direct = convolve_bins(transient_direct, filt)
+        if filter_indirect:
+            transient_indirect_out = convolve_bins(transient_indirect_out, filt)
     integrated_shape = weights.shape[:-1]
     transient_direct = transient_direct.reshape(integrated_shape + transient_direct.shape[-2:])
     transient_indirect_out = transient_indirect_out.reshape(

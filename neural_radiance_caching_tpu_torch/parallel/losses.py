@@ -3,11 +3,14 @@ part of ``parallel/losses.py`` the slices reach): the Charbonnier, the
 gradient-debiased squared error (``mse_unbiased``, the consistency loss's
 type in the transient material stage), the gradient-debiased RawNeRF and its
 transient form (scaled by the rendering summed over time bins) data losses,
-the spline interlevel loss, distortion, the predicted-normal regularizers,
-the opaque/empty mask loss, the parameter regularizers and gradient
-clipping. A rendering may carry ``gt_nocorr``, the target of
-the debiased second estimate (the consistency loss's nocorr cache target).
-Loss types off the slices, and the transient Gaussian-pyramid term, raise."""
+the iToF data losses (the residual projected by
+``render_utils.dtof_to_itof``: ``mse_itof``, ``mse_itof_unbiased``,
+``rawnerf_transient_itof``, ``rawnerf_transient_itof_unbiased``), the spline
+interlevel loss, distortion, the predicted-normal regularizers, the
+opaque/empty mask loss, the parameter regularizers and gradient clipping. A
+rendering may carry ``gt_nocorr``, the target of the debiased second
+estimate (the consistency loss's nocorr cache target). Loss types off the
+slices, and the transient Gaussian-pyramid term, raise."""
 
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import collections
 import numpy as np
 import torch
 
-from neural_radiance_caching_tpu_torch.ops import image, stepfun
+from neural_radiance_caching_tpu_torch.ops import image, render_utils, stepfun
 from neural_radiance_caching_tpu_torch.utils import torchutil, weights
 
 
@@ -64,6 +67,17 @@ def compute_unbiased_loss(rendering, gt, gt_nocorr):
     return 2 * diff * diff_nocorr.detach()
 
 
+def _itof(x, config):
+    return render_utils.dtof_to_itof(x, config.itof_frequency_phase_shifts, config.exposure_time)
+
+
+def compute_unbiased_loss_itof(rendering, gt, gt_nocorr, config):
+    """The debiased squared error of the iToF projections of the residuals."""
+    diff = _itof(rendering["rgb"] - gt, config)
+    diff_nocorr = _itof(rendering["rgb_nocorr"] - gt_nocorr, config)
+    return 2 * diff * diff_nocorr.detach()
+
+
 def compute_unbiased_loss_rawnerf(rendering, gt, config, clip_val=10000.0, exponent=1.0,
                                   eps=1e-3, transient=False, gt_nocorr=None):
     scale = _rawnerf_scaling(rendering, gt, config, clip_val, exponent, eps, transient)
@@ -73,10 +87,23 @@ def compute_unbiased_loss_rawnerf(rendering, gt, config, clip_val=10000.0, expon
 def select_data_loss_fn(config, rendering, gt, gt_nocorr, rawnerf_eps, rawnerf_exponent,
                         transient=False):
     """Dispatch on config.data_loss_type (charb, mse, mse_unbiased,
-    rawnerf_unbiased and rawnerf_transient_unbiased without the
-    Gaussian-pyramid term are ported)."""
+    rawnerf_unbiased, rawnerf_transient_unbiased without the Gaussian-pyramid
+    term, and the four iToF types are ported). The iToF types give
+    [..., 2 P + 1, C] for P (frequency, phase) pairs; the rawnerf ones scale
+    by the rendering summed over its bins, whatever `transient` says, as in
+    JAX."""
     if config.data_loss_type == "mse":
         return (rendering["rgb"] - gt) ** 2
+    if config.data_loss_type == "mse_itof":
+        return _itof(rendering["rgb"] - gt, config) ** 2
+    if config.data_loss_type == "mse_itof_unbiased":
+        return compute_unbiased_loss_itof(rendering, gt, gt_nocorr, config)
+    if config.data_loss_type in ("rawnerf_transient_itof", "rawnerf_transient_itof_unbiased"):
+        scale = _rawnerf_scaling(rendering, gt, config, 10000.0, rawnerf_exponent, rawnerf_eps,
+                                 True)
+        if config.data_loss_type == "rawnerf_transient_itof":
+            return _itof(rendering["rgb"] - gt, config) ** 2 * scale
+        return compute_unbiased_loss_itof(rendering, gt, gt_nocorr, config) * scale
     if config.data_loss_type == "charb":
         return compute_loss_charb(rendering, gt, config)
     if config.data_loss_type == "mse_unbiased":
@@ -152,6 +179,17 @@ def compute_data_loss(batch, rendering, rays, config, main=False, transient=Fals
         exponent, eps = config.rawnerf_exponent, config.rawnerf_eps
     data_loss = select_data_loss_fn(config, rendering, gt, gt_nocorr, eps, exponent,
                                     transient=transient)
+    try:
+        torch.broadcast_shapes(lossmult.shape, data_loss.shape)
+    except RuntimeError:
+        # The iToF projection of P (frequency, phase) pairs has 2 P + 1 rows
+        # where the loss weights have one per bin.
+        raise NotImplementedError(
+            f"data loss {config.data_loss_type!r} of shape {tuple(data_loss.shape)} against "
+            f"loss weights of shape {tuple(lossmult.shape)}: the JAX package's "
+            "compute_data_loss raises there too (TypeError: mul got incompatible shapes for "
+            "broadcasting, parallel/losses.py:293); the frequency-iToF configs run only "
+            "where 2 x their pairs + 1 equals Config.n_bins") from None
     sub_loss = (lossmult * data_loss).mean()
     stats["mses"].append(mse * config.data_loss_mult)
     return sub_loss, {k: torch.stack(v) for k, v in stats.items()}

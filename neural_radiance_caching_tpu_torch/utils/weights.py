@@ -9,7 +9,8 @@ cache model's (the same names, plus the active shader's ``albedo_layer``,
 material model's (``Cache/...``, with the SLF memory ``Cache/SurfaceLightFieldMem``,
 ``LightSampler/...``, ``MaterialShader/...``;
 the transient one's ``MaterialShader/LightSource/...`` is the learnable
-light, with its ``layer_mult_{i}`` and ``output_layer_mult`` Dense layers).
+light, with its ``layer_mult_{i}`` and ``output_layer_mult`` Dense layers;
+``VignetteMap/layer_{i}`` and ``VignetteMap/output_layer`` the vignette).
 Every leaf maps to exactly one key and every key must be filled; a leaf left
 over raises. JAX ``Dense`` kernels
 ``[in, out]`` become torch weights ``[out, in]``; the hash and dense tables
@@ -41,6 +42,7 @@ _FIXED = {
     "Integrator": "integrator",
     "SurfaceLightField": "surface_lf",
     "SurfaceLightFieldMem": "surface_lf_mem",
+    "VignetteMap": "vignette_map",
     "appearance_grid": "grid",
     "density_grid": "grid",
     "light_grid": "grid",
@@ -66,6 +68,10 @@ def _torch_component(name):
 
 def torch_key(path):
     """JAX parameter-tree path components (without the leading 'params') -> state_dict key."""
+    if path and path[0] == "VignetteMap":
+        # Its `layer_{i}` are a plain list, not the surface light field's.
+        return ".".join(["vignette_map"] + [re.sub(r"_(\d+)$", r".\1", p) if p != "kernel"
+                                            else "weight" for p in path[1:]])
     return ".".join(_torch_component(p) for p in path)
 
 
@@ -77,6 +83,7 @@ _REVERSE = {
     "integrator": "Integrator",
     "surface_lf": "SurfaceLightField",
     "surface_lf_mem": "SurfaceLightFieldMem",
+    "vignette_map": "VignetteMap",
 }
 # The JAX name of a `grid` by the JAX name of its owner.
 _GRID_BY_OWNER = {"LightSampler": "light_grid", "MaterialShader": "material_grid",

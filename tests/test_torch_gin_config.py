@@ -28,14 +28,14 @@ CONFIG_FILES = sorted(glob.glob(os.path.join(os.path.dirname(__file__), "..", "c
                                              "*.gin")))
 
 # Configurables that gin files bind and the port does not register yet.
-UNREGISTERED = {"VignetteMap", "EnvironmentSampler"}
+UNREGISTERED = {"EnvironmentSampler"}
 
 CONFIGURABLES = (
     "NeRFModel", "TransientNeRFModel", "MaterialModel", "TransientMaterialModel",
     "ProposalVolumeSampler", "DensityMLP", "HashEncoding", "NeRFMLP", "TransientNeRFMLP",
     "SurfaceLightFieldMLP", "TransientSurfaceLightFieldMLP", "MaterialMLP",
     "TransientMaterialMLP", "LightMLP", "LightSourceMap", "VolumeIntegrator",
-    "TransientVolumeIntegrator", "Trainer",
+    "TransientVolumeIntegrator", "Trainer", "VignetteMap",
 )
 
 

@@ -148,12 +148,19 @@ def test_volumetric_transient_rendering_matches_jax(form, filter_median, no_shif
 
 
 def test_transient_rendering_impulse_filter_raises():
+    """The temporal filter is ported (held against JAX in
+    tests/test_torch_invprop_scenes.py); a filter longer than the bins (a
+    Gaussian of 4 bins has 33 taps) raises, as JAX's convolution does."""
     a = _render_inputs(6)
-    with pytest.raises(NotImplementedError, match="impulse"):
+    with pytest.raises(ValueError, match="33 taps is longer than the 24 time bins"):
         trender.volumetric_transient_rendering(
             _t(a["direct_rgbs"]), _t(a["transient_indirect"]), _t(a["weights"]),
             _t(a["weights"]), _t(a["tdist"]), 0.0, False,
-            extras={k: _t(v) for k, v in a["extras"].items()}, n_bins=BINS, tfilter_sigma=1.0)
+            extras={k: _t(v) for k, v in a["extras"].items()}, n_bins=BINS, tfilter_sigma=4.0)
+    with pytest.raises(ValueError, match="smaller than the other"):
+        jrender.volumetric_transient_rendering(
+            a["direct_rgbs"], a["transient_indirect"], a["weights"], a["weights"], a["tdist"],
+            0.0, False, extras=a["extras"], n_bins=BINS, tfilter_sigma=4.0)
 
 
 @pytest.mark.parametrize("light_zero,light_near", [(True, 0.0), (True, 2.5), (False, 2.5)])

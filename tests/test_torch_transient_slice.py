@@ -329,10 +329,14 @@ def test_port_trains_transient_steps():
 
 
 def test_unported_transient_options_raise():
+    """Cone lights and the canonical light frame raise, naming the option;
+    the ambient term (use_ambient) is ported (tests/test_torch_invprop_scenes.py)
+    and builds."""
     cfg = flagship.transient_config()
     params = flagship.flagship_transient_cache_params()
-    for change, match in ((dict(use_ambient=True), "use_ambient"),
-                          (dict(light_max_angle=30.0), "light_max_angle")):
+    ambient = dict(params, shader_params=dict(params["shader_params"], use_ambient=True))
+    assert flagship.build_flagship_transient_cache_model(cfg, ambient, device="cpu").shader.use_ambient
+    for change, match in ((dict(light_max_angle=30.0), "light_max_angle"),):
         p = dict(params, shader_params=dict(params["shader_params"], **change))
         with pytest.raises(NotImplementedError, match=match):
             flagship.build_flagship_transient_cache_model(cfg, p, device="cpu")
