@@ -213,6 +213,27 @@ Phases, one line each (any failure exits nonzero):
      the filter's conv1d time per step (forward and backward, CUDA events),
      the checkpoint, a resuming run, one test view; then one step with
      every leveled call held against its plain version.
+ 31. trainer baseline reference: phase 23's method on the cache stages of
+     InvProp's baseline scenes at its widths (64 bins): cornell_fwp (the
+     passive transient shader: no light, no transient of its own) and
+     cornell_tnerf (no indirect light: a zero transient the render
+     shifts); and at ngp_yobo.gin's narrow widths (batch 64, 16 samples
+     per level, 16-wide MLPs and SLF, 4096-row grids) on nero_ngp_yobo_bell
+     (the SLF's distance head over the shader's bottleneck, 8 points per
+     query, the reflectance grid) and open_ngp_yobo_egg (the origins'
+     encoding, the SLF's own grid as its bottleneck; the far plane at 4):
+     every loss term and every gradient leaf of one step, GPU against CPU,
+     each limit bracketed by its CPU noise floor and two faults planted in
+     the leveled kernel; 1, 1, 1 and 2 leveled launches per step, each held
+     against its plain version;
+ 32. trainer baseline train: the cache stages of cornell_fwp and
+     cornell_tnerf (700 bins) and of open_ngp_yobo_egg (the 2^19-row
+     reflectance grid at 8 points per sample, the SLF's own grid) at full
+     width through the entry point, each at the largest of batch 8192,
+     4096, 2048 that fits, as phase 30 (the launches asserted: 1 leveled
+     per step on cornell's, on open's 1 planes for the reflectance grid
+     and 1 leveled for the own grid from 4096 on); then open's two SLF
+     table-gradient calls of its checked step timed against index_add_.
 Then the kernels JSON line, the eval JSON line, the transient material JSON
 line, the trainer JSON line, the nvidia-smi line, and the result line.
 """
@@ -3283,15 +3304,30 @@ def phase_trainer_invprop_train(torch, device, seed, steps, smi, tmp):
     conv1d time per step, the checkpoint, a resuming run, one test view;
     then one step with every leveled call held against its plain version.
     statue's material stage warm-starts from its cache stage's checkpoint."""
+    return _entry_point_runs(torch, "InvProp", INVPROP_RUNS, INVPROP_SCENES, seed, steps, smi,
+                             tmp)[0]
+
+
+def _entry_point_runs(torch, label, runs, scenes, seed, steps, smi, tmp):
+    """`runs`, (scene, stage, batches, timed steps or None for `steps`,
+    launches per step: a leveled count, or a function of the batch giving
+    the counts by kernel), through the train_with_trainer entry point,
+    in-process: each at the largest of its batches that fits, 3 warmup +
+    the timed steps (the launch counts set to 0 before the run and read
+    after it), the filter's conv1d time per step, the checkpoint, a
+    resuming run, one test view; then one step with every scatter call held
+    against its plain version, the inputs of each kernel's largest call
+    kept. A material stage warm-starts from its scene's cache stage run
+    before it. Returns (results by run, captured inputs by run and kernel)."""
     import gc
     import os
 
     from neural_radiance_caching_tpu_torch.engine import gin_config
     from neural_radiance_caching_tpu_torch.ops import scatter_cuda
 
-    warmup, results, ckpts = 3, {}, {}
-    for scene, stage, batches, timed_steps, expected in INVPROP_RUNS:
-        config_file, extra = INVPROP_SCENES[scene]
+    warmup, results, ckpts, captures = 3, {}, {}, {}
+    for scene, stage, batches, timed_steps, expected in runs:
+        config_file, extra = scenes[scene]
         timed = timed_steps or steps
         cut = []
         for batch in batches:
@@ -3314,7 +3350,7 @@ def phase_trainer_invprop_train(torch, device, seed, steps, smi, tmp):
             except torch.cuda.OutOfMemoryError as e:
                 allocated = torch.cuda.memory_allocated() / 2**30
                 reserved = torch.cuda.memory_reserved() / 2**30
-                print(f"trainer InvProp train ({scene} {stage}): batch {batch} ran out of "
+                print(f"trainer {label} train ({scene} {stage}): batch {batch} ran out of "
                       f"memory ({allocated:.2f} GiB allocated, {reserved:.2f} GiB reserved at "
                       f"the failing request): {str(e).splitlines()[0]}", flush=True)
                 cut.append(dict(batch=batch, allocated_gib=allocated, reserved_gib=reserved))
@@ -3334,20 +3370,24 @@ def phase_trainer_invprop_train(torch, device, seed, steps, smi, tmp):
         cfg = trainer.config
         finite = _finite(losses.values()) and all(f"loss/{k}" in losses
                                                   for k in ("data", "cache_data"))
-        per_step = run["launches"]["leveled"] / total
+        per_step = (expected(batch) if callable(expected) else {"leveled": expected})
+        per_step_text = ", ".join(f"{n} {k}" for k, n in per_step.items())
 
-        calls = []
+        calls, capture = [], {kind: {} for kind in per_step}
         scatter_cuda.reset_launch_count()
-        with _patched(scatter_cuda, scatter_add_weighted_leveled=_checking_scatter("leveled",
-                                                                                  calls)):
+        with _patched(scatter_cuda, **{
+                f"scatter_add_weighted_{kind}": _checking_scatter(kind, calls, capture[kind],
+                                                                  largest=True)
+                for kind in per_step}):
             trainer.state, stats = trainer.train_step(trainer.rng, trainer.state,
                                                       trainer.dataset.next_train(), 0.5)
         checked_launches = dict(scatter_cuda.launches)
         ok = (finite and run["saved"] == total and run["resume_ok"]
-              and run["launches"] == _launch_counts(leveled=expected * total)
-              and bool(torch.isfinite(stats["loss"])) and len(calls) == expected
+              and run["launches"] == _launch_counts(**{k: n * total
+                                                       for k, n in per_step.items()})
+              and bool(torch.isfinite(stats["loss"])) and len(calls) == sum(per_step.values())
               and all(c["ok"] for c in calls)
-              and checked_launches == _launch_counts(leveled=expected)
+              and checked_launches == _launch_counts(**per_step)
               and (filter_calls > 0) == (cfg.tfilter_sigma != 0.0))
         n_params = sum(p.numel() for p in trainer.model.parameters())
         metrics = run["metrics"]
@@ -3355,7 +3395,7 @@ def phase_trainer_invprop_train(torch, device, seed, steps, smi, tmp):
                     + ", ".join(f"{c['batch']} ran out of memory at {c['allocated_gib']:.2f} "
                                 f"GiB allocated, {c['reserved_gib']:.2f} reserved" for c in cut)
                     + ")" if cut else f"batch {batch}")
-        print(f"trainer InvProp train ({scene} {stage}): train_with_trainer {config_file} "
+        print(f"trainer {label} train ({scene} {stage}): train_with_trainer {config_file} "
               f"{stage}{' warm-started from its cache stage' if stage != 'cache' else ''} "
               f"({n_params} params, {cfg.n_bins} bins x {cfg.num_rgb_channels} channel(s), "
               f"tfilter_sigma={cfg.tfilter_sigma}, occlusions={cfg.use_occlusions}, vignette="
@@ -3366,30 +3406,163 @@ def phase_trainer_invprop_train(torch, device, seed, steps, smi, tmp):
               f"per step ({filter_calls:.0f} calls per step, forward and backward, CUDA events, "
               f"{100 * filter_ms / (dt * 1e3):.2f}% of the step); losses finite and present="
               f"{finite} {losses}; checkpoint step {run['saved']}, resumed with no step="
-              f"{run['resume_ok']}; kernel launches={run['launches']} ({per_step:g} leveled per "
-              f"step, expected {expected}); eval view {run['view']} cast on the host: psnr={metrics['psnr']:.2f} in "
-              f"{run['eval_s']:.2f}s; checked step, every leveled call against its plain "
-              f"version (tol=|err|<={SUM_ORDER_TOL}*sum|w*ct|): "
-              + "; ".join(f"idx{list(c['shape'])} max_abs_err={c['max_abs_err']:.3e} "
+              f"{run['resume_ok']}; kernel launches={run['launches']} (expected "
+              f"{per_step_text} per step); eval view {run['view']} cast on the host: psnr="
+              f"{metrics['psnr']:.2f} in {run['eval_s']:.2f}s; checked step, every scatter call "
+              f"against its plain version (tol=|err|<={SUM_ORDER_TOL}*sum|w*ct|): "
+              + "; ".join(f"{c['kind']} idx{list(c['shape'])} max_abs_err={c['max_abs_err']:.3e} "
                           f"{'ok' if c['ok'] else 'FAIL'}" for c in calls)
               + f"; entry point {run['wall']:.1f}s {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
-            raise AssertionError(f"trainer InvProp train phase failed ({scene} {stage})")
+            raise AssertionError(f"trainer {label} train phase failed ({scene} {stage})")
         results[f"{scene}_{stage}"] = dict(
             step_ms=dt * 1e3, rays_per_s=batch / dt, train_log_rays_per_s=log[-1]["rays_per_sec"],
             peak_gib=run["peak_gib"], batch=batch, cut=cut, steps=timed, warmup=warmup,
             params=n_params, n_bins=cfg.n_bins, channels=cfg.num_rgb_channels,
             filter_ms_per_step=filter_ms, filter_calls_per_step=filter_calls,
-            launches=run["launches"]["leveled"], launches_per_step=per_step,
+            launches=run["launches"]["leveled"], launches_by_kernel={
+                k: run["launches"][k] for k in per_step},
+            launches_per_step=per_step.get("leveled", 0), launches_per_step_by_kernel=per_step,
             eval_view=run["view"], eval_psnr=metrics["psnr"], eval_s=run["eval_s"],
             entry_point_s=run["wall"], losses=losses,
-            max_abs_err=max(c["max_abs_err"] for c in calls))
+            max_abs_err=max(c["max_abs_err"] for c in calls),
+            max_abs_err_by_kernel={k: max(c["max_abs_err"] for c in calls if c["kind"] == k)
+                                   for k in per_step})
+        captures[f"{scene}_{stage}"] = capture
         ckpts[scene] = ckpt
         del trainer, run, stats
         gin_config.clear_config()
         gc.collect()
         torch.cuda.empty_cache()
-    return results
+    return results, captures
+
+
+# Phases 31-32: InvProp's baseline scenes (the passive transient shader of
+# cornell_fwp, the zero transient of cornell_tnerf) and the SLF distance
+# head and grids of the nero / open families, without their data; open's far
+# plane of 2 ends SyntheticSpheres' rays before its spheres, so it takes
+# nero's 4.
+BASELINE_SCENES = {
+    "cornell_fwp": ("configs/transient_simulation_ngp_yobo_cornell_fwp.gin", ()),
+    "cornell_tnerf": ("configs/transient_simulation_ngp_yobo_cornell_tnerf.gin", ()),
+    "nero_bell": ("configs/nero_ngp_yobo_bell.gin", ()),
+    "open_egg": ("configs/open_ngp_yobo_egg.gin", ("Config.far = 4.0",)),
+}
+# ngp_yobo.gin's cache stage at phase 31's widths: 16-wide MLPs, a 4096-row
+# final grid, 16 samples per level, batch 64 (the scene's SLF narrowed by
+# _narrow_slf_binding).
+_NGP_LEVEL = ("{'disable_density_normals': True, 'enable_pred_normals': False, "
+              "'normals_for_filter_only': True, 'use_grid': False, 'max_deg_point': 4, "
+              "'net_depth': 2, 'net_width': 16}")
+NGP_NARROW = (
+    "Config.batch_size = 64", "Config.num_dataset_images = 4",
+    "ProposalVolumeSampler.sampling_strategy = ((0, 0, 16), (1, 1, 16), (2, 2, 16))",
+    "NeRFModel.train_sampling_strategy = ((0, 0, 16), (1, 1, 16), (2, 2, 16))",
+    "NeRFModel.render_sampling_strategy = ((0, 0, 16), (1, 1, 16), (2, 2, 16))",
+    f"ProposalVolumeSampler.mlp_params_per_level = ({_NGP_LEVEL}, {_NGP_LEVEL}, "
+    "{'disable_density_normals': False, 'enable_pred_normals': True, "
+    "'normals_for_filter_only': False, 'net_depth': 2, 'net_width': 16})",
+    "ProposalVolumeSampler.grid_params_per_level = (None, None, "
+    "{'hash_map_size': 4096, 'max_grid_size': 128, 'num_features': 4})",
+    "NeRFMLP.net_width = 16", "NeRFMLP.bottleneck_width = 16",
+    "NeRFMLP.net_width_integrated_brdf = 8", "SurfaceLightFieldMLP.bottleneck_viewdirs = 16")
+# Phase 31's leveled launches per step: the cornell scenes' appearance grid;
+# the reflectance grid (nero, open) and the SLF's own grid (open).
+BASELINE_REFERENCE_LAUNCHES = {"cornell_fwp": 1, "cornell_tnerf": 1, "nero_bell": 1,
+                               "open_egg": 2}
+# The final level's samples per ray (ngp_yobo.gin) and the distance head's
+# points per sample: the reflectance grid's points per ray.
+NGP_FINAL_SAMPLES = 32
+SLF_DISTANCE_SAMPLES = 8
+
+
+def _open_launches(batch):
+    """open's table-gradient launches per step at `batch`: the SLF's own
+    grid at the final samples (leveled at every batch of phase 32), the
+    reflectance grid at 8 points each (planes from PLANES_MIN_POINTS)."""
+    from neural_radiance_caching_tpu_torch.ops import hashgrid
+
+    points = batch * NGP_FINAL_SAMPLES * SLF_DISTANCE_SAMPLES
+    if hashgrid.use_planes_layout(points, "mean"):
+        return {"leveled": 1, "planes": 1}
+    return {"leveled": 2}
+
+
+# Phase 32's runs, as INVPROP_RUNS.
+BASELINE_RUNS = (
+    ("cornell_fwp", "cache", (8192, 4096, 2048), None, 1),
+    ("cornell_tnerf", "cache", (8192, 4096, 2048), None, 1),
+    ("open_egg", "cache", (8192, 4096, 2048), None, _open_launches),
+)
+
+
+def _narrow_slf_binding(config_file):
+    """The scene's NeRFMLP.surface_lf_params at phase 31's widths: 16-wide
+    trunks and distance head, 4096-row grids (the own grid's largest level
+    128)."""
+    from neural_radiance_caching_tpu_torch.engine import configs, gin_config
+
+    gin_config.clear_config()
+    configs.load_config(config_files=[config_file], bindings=[])
+    params = dict(gin_config.query_parameter("NeRFMLP.surface_lf_params"))
+    gin_config.clear_config()
+    params.update(net_width=16, net_width_viewdirs=16, net_width_distance=16,
+                  reflectance_grid_params=dict(params["reflectance_grid_params"],
+                                               hash_map_size=4096),
+                  grid_params=dict(params["grid_params"], hash_map_size=4096, max_grid_size=128))
+    return f"NeRFMLP.surface_lf_params = {params!r}"
+
+
+def phase_trainer_baseline_reference(torch, device, seed):
+    """Phase 23's method on the cache stages of cornell_fwp (the passive
+    shader) and cornell_tnerf (the zero transient) at its widths, and of
+    nero_ngp_yobo_bell (the SLF's distance head over the shader's
+    bottleneck, its reflectance grid) and open_ngp_yobo_egg (the origins'
+    encoding, the SLF's own grid) at NGP_NARROW's: every loss term and every
+    gradient leaf of one step GPU against CPU, each limit bracketed by its
+    CPU noise floor and two faults planted in the leveled kernel; every
+    leveled launch held against its plain version."""
+    out = {}
+    for scene, (config_file, extra) in BASELINE_SCENES.items():
+        narrow = (TRANSIENT_NARROW if "transient" in config_file
+                  else NGP_NARROW + (_narrow_slf_binding(config_file),))
+        r = _gpu_vs_cpu_step(torch, device, seed, TRAINER_CACHE_STAGE + narrow + extra,
+                             config_file, launches=BASELINE_REFERENCE_LAUNCHES[scene],
+                             terms=("data", "cache_data"))
+        print(f"trainer baseline reference ({scene}): Trainer, {config_file} cache stage at "
+              f"reference widths (batch 64, 16 samples per level"
+              f"{', 64 bins' if 'transient' in config_file else ''}), one step, the same "
+              f"weights, batch and draws, gpu vs cpu: {_gpu_vs_cpu_text(r)}; the leveled calls "
+              f"against their plain version: {_checked_text(r['checked'])}; kernel launches "
+              f"gpu={r['launches']} cpu={r['cpu_launches']} {'ok' if r['ok'] else 'FAIL'}",
+              flush=True)
+        if not r["ok"]:
+            raise AssertionError(f"the Trainer's GPU {scene} step disagrees with its CPU step")
+        out[scene] = {k: v for k, v in r.items()
+                      if k not in ("ok", "checked", "cpu_launches", "grad_rel_l2_errs")}
+    return out
+
+
+def phase_trainer_baseline_train(torch, device, seed, steps, smi, tmp):
+    """BASELINE_RUNS through the entry point (`_entry_point_runs`), then
+    open's two SLF table-gradient calls of its checked step (the reflectance
+    grid's and the own grid's) timed against index_add_ on their inputs."""
+    from neural_radiance_caching_tpu_torch.ops import hashgrid
+
+    results, captures = _entry_point_runs(torch, "baseline", BASELINE_RUNS, BASELINE_SCENES,
+                                          seed, steps, smi, tmp)
+    sizes = [int(v) for v in hashgrid.compute_grid_sizes(16, 256, 1.0)]
+    open_capture = captures["open_egg_cache"]
+    paths = {}
+    for kind, capture in open_capture.items():
+        if kind == "planes" or len(open_capture) == 1:
+            label = "reflectance grid's updates (open_egg, 8 points per sample)"
+        else:
+            label = "SLF's own grid's updates (open_egg)"
+        # With both calls leveled, the largest one kept is the reflectance grid's.
+        paths[f"open_{kind}"] = phase_kernel_path(kind, capture, sizes, label)
+    del captures, open_capture
+    return results, paths
 
 
 def _profile(torch, train_step, state, rng, batches, path, steps=3):
@@ -3499,6 +3672,9 @@ def main():
         invprop_reference = phase_trainer_invprop_reference(torch, device, args.seed)
         invprop = phase_trainer_invprop_train(torch, device, args.seed, args.trainer_steps, smi,
                                               tmp)
+        baseline_reference = phase_trainer_baseline_reference(torch, device, args.seed)
+        baseline, baseline_paths = phase_trainer_baseline_train(
+            torch, device, args.seed, args.trainer_steps, smi, tmp)
     print(f"phases done in {time.perf_counter() - t_start:.1f}s, build included", flush=True)
 
     csrc = "neural_radiance_caching_tpu_torch/csrc"
@@ -3532,9 +3708,16 @@ def main():
                         for scene in INVPROP_SCENES},
                      **{f"trainer_{run}": r["launches"] for run, r in invprop.items()}}
     leveled_launches.update(invprop_paths)
+    baseline_leveled = {
+        **{f"trainer_baseline_reference_{scene}": baseline_reference[scene]["launches"]
+           for scene in BASELINE_SCENES},
+        **{f"trainer_{run}": r["launches_by_kernel"]["leveled"] for run, r in baseline.items()}}
+    leveled_launches.update(baseline_leveled)
+    baseline_planes = {f"trainer_{run}": r["launches_by_kernel"].get("planes", 0)
+                       for run, r in baseline.items()}
     other_paths = {"trainer_transient_train": 0, "trainer_transient_occlusions": 0,
                    **{k: 0 for k in tmat_paths}, **{k: 0 for k in slf_paths},
-                   **{k: 0 for k in invprop_paths}}
+                   **{k: 0 for k in invprop_paths}, **{k: 0 for k in baseline_leveled}}
     print(json.dumps({"kernels": [{
         "name": "scatter_add_weighted_leveled",
         "route": "cuda",
@@ -3550,7 +3733,10 @@ def main():
                            *(r["max_abs_err"] for r in trainer_tmat_reference.values()),
                            trainer_slf_reference["max_abs_err"],
                            *(invprop_reference[scene]["max_abs_err"] for scene in INVPROP_SCENES),
-                           *(r["max_abs_err"] for r in invprop.values())),
+                           *(r["max_abs_err"] for r in invprop.values()),
+                           *(baseline_reference[scene]["max_abs_err"]
+                             for scene in BASELINE_SCENES),
+                           *(r["max_abs_err_by_kernel"]["leveled"] for r in baseline.values())),
         "max_abs_err_by_shape": {"cache": kernel["max_abs_err"],
                                  "material_path": material_err["leveled"],
                                  "transient_path": transient["direct"]["max_abs_err"],
@@ -3566,7 +3752,12 @@ def main():
                                  **{f"trainer_invprop_reference_{scene}_path": invprop_reference[
                                      scene]["max_abs_err"] for scene in INVPROP_SCENES},
                                  **{f"trainer_{run}_path": r["max_abs_err"]
-                                    for run, r in invprop.items()}},
+                                    for run, r in invprop.items()},
+                                 **{f"trainer_baseline_reference_{scene}_path":
+                                    baseline_reference[scene]["max_abs_err"]
+                                    for scene in BASELINE_SCENES},
+                                 **{f"trainer_{run}_path": r["max_abs_err_by_kernel"]["leveled"]
+                                    for run, r in baseline.items()}},
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
         "library_ms": kernel["library_ms"],
@@ -3578,6 +3769,8 @@ def main():
         **leveled_path,
         "trainer_transient_path": trainer_transient["path"],
         **{f"trainer_{stage}_path": r["paths"]["leveled"] for stage, r in trainer_tmat.items()},
+        **({"trainer_open_slf_path": baseline_paths["open_leveled"]}
+           if "open_leveled" in baseline_paths else {}),
     }, {
         "name": "scatter_add_weighted_leveled_skip_zero_w",
         "route": "cuda",
@@ -3604,14 +3797,19 @@ def main():
         "route": "cuda",
         "source": f"{csrc}/scatter_weighted.cu",
         "replaces": f"{replaces}:364",
-        "launches": material["planes"],
+        "launches": material["planes"] + sum(baseline_planes.values()),
         "launches_by_path": {"cache_train": 0, "material_train": material["planes"],
                              "transient_train": 0, "transient_train_dedup": 0, "gate": 0,
                              "eval_render": 0, "transient_material": 0, "trainer_train": 0,
-                             "trainer_material_train": 0, **other_paths},
-        "max_abs_err": max(planes["max_abs_err"], material_err["planes"]),
+                             "trainer_material_train": 0, **other_paths, **baseline_planes},
+        "max_abs_err": max(planes["max_abs_err"], material_err["planes"],
+                           *(r["max_abs_err_by_kernel"].get("planes", 0.0)
+                             for r in baseline.values())),
         "max_abs_err_by_shape": {"planes_shape": planes["max_abs_err"],
-                                 "material_path": material_err["planes"]},
+                                 "material_path": material_err["planes"],
+                                 **{f"trainer_{run}_path": r["max_abs_err_by_kernel"]["planes"]
+                                    for run, r in baseline.items()
+                                    if "planes" in r["max_abs_err_by_kernel"]}},
         "ms": planes["ms"],
         "plain_ms": planes["plain_ms"],
         "library_ms": planes["library_ms"],
@@ -3621,6 +3819,8 @@ def main():
         "per_level_ms": planes["per_level_ms"],
         "per_level_library_ms": planes["per_level_library_ms"],
         **planes_path,
+        **({"trainer_open_reflectance_path": baseline_paths["open_planes"]}
+           if "open_planes" in baseline_paths else {}),
     }, {
         "name": "scatter_add_rows_leveled",
         "route": "cuda",
@@ -3655,6 +3855,7 @@ def main():
         "slf_train": trainer_slf, "slf_reference": trainer_slf_reference,
         "slf_reference_leveled_launches_per_step": _TRAINER_SLF_LAUNCHES_PER_STEP["leveled"],
         "invprop_train": invprop, "invprop_reference": invprop_reference,
+        "baseline_train": baseline, "baseline_reference": baseline_reference,
         "device": smi}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -248,6 +248,7 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
 
     def __init__(self, config=None, density_feature_dim=0, **kwargs):
         super().__init__(config, **kwargs)
+        self._check_variant(config)
         self._require(use_env_map=False, use_brdf_correction=False, use_diffuse_emission=False,
                       use_residual_albedo=False, separate_integration_diffuse_specular=True,
                       use_indirect=True)
@@ -255,7 +256,6 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
             raise NotImplementedError("multi-illumination materials are not ported yet")
         if config.compute_relight_metrics or config.use_ground_truth_illumination:
             raise NotImplementedError("ground-truth illumination samplers are not ported yet")
-        self._check_variant(config)
         feature_dim = self._build_trunk(density_feature_dim)
         if self.bottleneck_width > 0:
             self.bottleneck_layer = Dense(feature_dim, self.bottleneck_width, self.compute_dtype)
@@ -843,7 +843,21 @@ class TransientMaterialMLP(BaseMaterialMLP):
     use_active = True
 
     def _check_variant(self, config):
-        self._require(use_active=True, light_max_angle=0.0)
+        if not self.use_active:
+            # A reference gap: JAX's passive transient material shader runs
+            # no direct lobe, and its step raises at the first read of what
+            # the lobe would have filled.
+            raise NotImplementedError(
+                "TransientMaterialMLP.use_active=False: the JAX package cannot run this "
+                "material stage: " + (
+                    "no direct lobe runs, so the integration strategy's direct_* sums stay "
+                    "the float 0.0 that material_shader.py:1065 seeds and ops/render.py:445 "
+                    "raises AttributeError: 'float' object has no attribute 'shape'"
+                    if self.use_indirect else
+                    "material_shader.py:1295 reshapes integrated['irradiance'], the float "
+                    "0.0, and raises AttributeError: 'float' object has no attribute "
+                    "'reshape'"))
+        self._require(light_max_angle=0.0)
         if not config.use_transient:
             raise ValueError("TransientMaterialMLP needs Config.use_transient")
         if config.sl_relight:

@@ -1,17 +1,20 @@
 """The radiance-cache shaders (counterpart of ``BaseNeRFMLP``, ``NeRFMLP``
 and ``TransientNeRFMLP`` in ``models/nerf_shader.py``).
 
-``NeRFMLP`` is the steady cache shader on its passive path
-(``use_active=False``): ambient and indirect irradiance heads plus the
+Both shaders pick their path by ``use_active``, as the JAX shaders do. The
+passive path (``BaseNeRFMLP``; ``NeRFMLP``, the steady cache shader, takes
+no other): ambient and indirect irradiance heads plus the
 integrated-BRDF-weighted specular term fed by the surface light field along
-the reflected view direction.
+the reflected view direction, and no transient of its own (the transient
+render bins each sample's radiance as a pulse at its light path's length).
 
-``TransientNeRFMLP`` is the transient cache shader on its active path: a
-point light of learnable constant power with inverse-square falloff, a
-diffuse (albedo) and a BRDF-net specular direct term, and time-binned
-indirect radiance: an irradiance net emitting n_bins x C channels (diffuse)
-plus the tinted, integrated-BRDF-weighted transient surface light field
-(specular), masked by ``zero_invalid_bins``; with ``use_ambient`` an
+``TransientNeRFMLP``'s active path: a point light of learnable constant
+power with inverse-square falloff, a diffuse (albedo) and a BRDF-net
+specular direct term, and time-binned indirect radiance: an irradiance net
+emitting n_bins x C channels (diffuse) plus the tinted, integrated-BRDF
+weighted transient surface light field (specular), masked by
+``zero_invalid_bins``, or, with ``use_indirect=False``, zeros repeated over
+the bins (the render shifts them as JAX's does); with ``use_ambient`` an
 untimed ambient term too (the ambient head, and the tinted, integrated-BRDF
 weighted ambient radiance of the surface light field), which folds into the
 indirect outputs.
@@ -24,9 +27,9 @@ shader passes. With ``Config.use_occlusions`` (and the ``occlusions_*_only``
 flags) its point light is shadowed by one shadow ray per sample, traced
 through the cache's weights only (``_compute_occlusions``).
 
-Not ported yet, raising: the active steady shader, the passive transient
-shader, cone lights, structured light, canonical-frame and intensity light
-conditioning, the simple BRDF input, env maps and the multi-illumination shaders.
+Not ported yet, raising: the active steady shader, cone lights, structured
+light, canonical-frame and intensity light conditioning, the simple BRDF
+input, env maps and the multi-illumination shaders.
 """
 
 from __future__ import annotations
@@ -128,16 +131,31 @@ class BaseNeRFMLP(shading.BaseShader, unported=dict(
             config=config, use_env_alpha=True, shader_bottleneck_dim=self.bottleneck_width,
             **slf_params)
         self._build_heads(feature_dim)
-        self.integrated_brdf_layers = SkipMLP(
-            self.bottleneck_width + 1,
-            [self.net_width_integrated_brdf] * self.net_depth_integrated_brdf,
-            self.skip_layer_integrated_brdf, self.net_activation, cd)
-        self.output_integrated_brdf_layer = Dense(self.integrated_brdf_layers.out_dim, 1, cd)
+        if self._reads_tint:
+            self.integrated_brdf_layers = SkipMLP(
+                self.bottleneck_width + 1,
+                [self.net_width_integrated_brdf] * self.net_depth_integrated_brdf,
+                self.skip_layer_integrated_brdf, self.net_activation, cd)
+            self.output_integrated_brdf_layer = Dense(self.integrated_brdf_layers.out_dim, 1, cd)
         if self.optimize_light:
             self.light_power = nn.Parameter(torch.full((1,), float(self.light_power_bias)))
 
     def _build_heads(self, feature_dim):
-        raise NotImplementedError
+        """The passive path's heads. A path builds the heads it reads, as JAX
+        creates a head's parameters at its first call (the integrated BRDF
+        wherever ``_reads_tint``, in ``__init__``)."""
+        cd = self.compute_dtype
+        rgb = self.config.num_rgb_channels
+        self.irradiance_layer = Dense(feature_dim, rgb, cd)
+        self.ambient_irradiance_layer = Dense(feature_dim, rgb, cd)
+        self.tint_layer = Dense(feature_dim, rgb, cd)
+        self.roughness_layer = Dense(feature_dim, 1, cd)
+
+    @property
+    def _reads_tint(self):
+        """The passive path reads the tint and the integrated BRDF; the
+        active one only for its indirect or its ambient term."""
+        return not self.use_active or self.use_indirect or self.use_ambient
 
     def get_bottleneck_feature(self, rng, feature):
         bottleneck = self.bottleneck_layer(feature)
@@ -182,44 +200,26 @@ class BaseNeRFMLP(shading.BaseShader, unported=dict(
             roughness=roughness, shader_bottleneck=bottleneck, train=train,
             train_frac=train_frac)
 
-
-@gin.configurable
-class NeRFMLP(BaseNeRFMLP):
-    """Steady-state cache shader, passive path."""
-
-    # Read by the active path's heads only (use_active, ported on
-    # TransientNeRFMLP).
-    deg_brdf = 2
-    brdf_bias = -1.09861228867
-    simple_brdf = False
-    albedo_activation = staticmethod(torch.sigmoid)
-    albedo_bias = -1.0
-    deg_lights = 2
-    bottleneck_irradiance = 64
-    light_power_activation = staticmethod(math.abs_)
-    light_max_angle = 0.0
-    stopgrad_direct_weight = 1.0
-    stopgrad_light_radiance_weight = 1.0
-    indirect_scale = 1.0
-
-    def __init__(self, config=None, density_feature_dim=0, **kwargs):
-        super().__init__(config, density_feature_dim, **kwargs)
-        self._require(use_active=False)
-        if config.use_transient:
-            raise NotImplementedError("the transient cache shader is TransientNeRFMLP")
-
-    def _build_heads(self, feature_dim):
-        cd = self.compute_dtype
-        rgb = self.config.num_rgb_channels
-        self.irradiance_layer = Dense(feature_dim, rgb, cd)
-        self.ambient_irradiance_layer = Dense(feature_dim, rgb, cd)
-        self.tint_layer = Dense(feature_dim, rgb, cd)
-        self.roughness_layer = Dense(feature_dim, 1, cd)
-
     def predict_appearance(self, rng, rays, sampler_results, train_frac=1.0, train=True,
-                           is_secondary=False, passes=("diffuse", "specular"), **kwargs):
-        feature, bottleneck, roughness, normals, _ = self._appearance_inputs(
-            rng, rays, sampler_results, train, train_frac, is_secondary)
+                           is_secondary=False, radiance_cache=None, light_power=None, passes=(),
+                           filtered_sampler_results=None, **kwargs):
+        """The path ``use_active`` picks (JAX ``predict_appearance``)."""
+        key, rng = torchutil.random_split(rng)
+        inputs = self._appearance_inputs(key, rays, sampler_results, train, train_frac,
+                                         is_secondary)
+        fn = self._predict_appearance_active if self.use_active else self._predict_appearance_passive
+        key, rng = torchutil.random_split(rng)
+        return fn(key, rays, sampler_results, *inputs, train_frac=train_frac, train=train,
+                  is_secondary=is_secondary, radiance_cache=radiance_cache,
+                  light_power=light_power, passes=passes,
+                  filtered_sampler_results=filtered_sampler_results, **kwargs)
+
+    def _predict_appearance_passive(self, rng, rays, sampler_results, feature, bottleneck,
+                                    roughness, normals, shading_normals, train_frac=1.0,
+                                    train=True, passes=(), **kwargs):
+        """Ambient and indirect irradiance heads and the SLF's specular term
+        (JAX ``_predict_appearance_passive``); no light, no transient."""
+        del shading_normals, kwargs
         means = sampler_results["means"]
         viewdirs = rays.viewdirs
 
@@ -282,9 +282,35 @@ class NeRFMLP(BaseNeRFMLP):
 
 
 @gin.configurable
+class NeRFMLP(BaseNeRFMLP):
+    """Steady-state cache shader, passive path."""
+
+    # Read by the active path's heads only (use_active, ported on
+    # TransientNeRFMLP).
+    deg_brdf = 2
+    brdf_bias = -1.09861228867
+    simple_brdf = False
+    albedo_activation = staticmethod(torch.sigmoid)
+    albedo_bias = -1.0
+    deg_lights = 2
+    bottleneck_irradiance = 64
+    light_power_activation = staticmethod(math.abs_)
+    light_max_angle = 0.0
+    stopgrad_direct_weight = 1.0
+    stopgrad_light_radiance_weight = 1.0
+    indirect_scale = 1.0
+
+    def __init__(self, config=None, density_feature_dim=0, **kwargs):
+        super().__init__(config, density_feature_dim, **kwargs)
+        self._require(use_active=False)
+        if config.use_transient:
+            raise NotImplementedError("the transient cache shader is TransientNeRFMLP")
+
+
+@gin.configurable
 class TransientNeRFMLP(BaseNeRFMLP):
-    """Time-resolved cache shader, active path: per-point time-binned
-    indirect radiance."""
+    """Time-resolved cache shader: the active path's per-point time-binned
+    indirect radiance, or the passive path (``use_active=False``)."""
 
     use_active = True
     albedo_activation = staticmethod(torch.sigmoid)
@@ -304,8 +330,7 @@ class TransientNeRFMLP(BaseNeRFMLP):
 
     def __init__(self, config=None, density_feature_dim=0, **kwargs):
         super().__init__(config, density_feature_dim, **kwargs)
-        self._require(use_active=True, use_indirect=True, simple_brdf=False,
-                      light_max_angle=0.0)
+        self._require(simple_brdf=False, light_max_angle=0.0)
         if not config.use_transient:
             raise ValueError("TransientNeRFMLP needs Config.use_transient")
         unported = [k for k in ("light_canonical_frame", "light_intensity_conditioning",
@@ -314,13 +339,16 @@ class TransientNeRFMLP(BaseNeRFMLP):
             raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
 
     def _build_heads(self, feature_dim):
+        if not self.use_active:
+            return super()._build_heads(feature_dim)
         cd = self.compute_dtype
         rgb = self.config.num_rgb_channels
         # With use_ambient=False nothing reads the ambient head; the JAX
         # shader evaluates it all the same, so its parameters exist (and no
         # loss reaches them then).
         self.ambient_irradiance_layer = Dense(feature_dim, rgb, cd)
-        self.tint_layer = Dense(feature_dim, rgb, cd)
+        if self._reads_tint:
+            self.tint_layer = Dense(feature_dim, rgb, cd)
         self.roughness_layer = Dense(feature_dim, 1, cd)
         self.albedo_layer = Dense(feature_dim, rgb, cd)
         self.direct_tint_layer = Dense(feature_dim, rgb, cd)
@@ -328,6 +356,8 @@ class TransientNeRFMLP(BaseNeRFMLP):
         self.brdf_layers = SkipMLP(brdf_in, [self.net_width_brdf] * self.net_depth_brdf,
                                    self.skip_layer_brdf, self.net_activation, cd)
         self.output_brdf_layer = Dense(self.brdf_layers.out_dim, 1, cd)
+        if not self.use_indirect:
+            return
         lights_in = feature_dim + 3 * (1 + 2 * self.deg_lights)
         self.irradiance_layers = SkipMLP(
             lights_in,
@@ -467,8 +497,13 @@ class TransientNeRFMLP(BaseNeRFMLP):
 
     def _indirect_lighting(self, rays, feature, means, shading_normals, ref_rgb, tint,
                            integrated_brdf):
-        """Per-bin diffuse and specular indirect transients [..., S, bins, C]."""
+        """Per-bin diffuse and specular indirect transients [..., S, bins, C]:
+        zeros without ``use_indirect``."""
         n_bins, num_ch = self.config.n_bins, self.config.num_rgb_channels
+        if not self.use_indirect:
+            zero = torch.zeros(feature.shape[:-1] + (n_bins, num_ch), dtype=feature.dtype,
+                               device=feature.device)
+            return zero, zero
         lights = rays.lights[..., None, :] * torch.ones_like(shading_normals)
         diffuse = self.get_indirect(lights, feature) * self.indirect_scale
         shape = diffuse.shape[:-1] + (n_bins, num_ch)
@@ -480,11 +515,12 @@ class TransientNeRFMLP(BaseNeRFMLP):
             diffuse.reshape(shape), specular, rays, means, self.config)
         return clamp(diffuse, 0.0, self.rgb_max), clamp(specular, 0.0, self.rgb_max)
 
-    def predict_appearance(self, rng, rays, sampler_results, train_frac=1.0, train=True,
-                           is_secondary=False, radiance_cache=None, light_power=None, passes=(),
-                           filtered_sampler_results=None, **kwargs):
-        feature, bottleneck, roughness, normals, shading_normals = self._appearance_inputs(
-            rng, rays, sampler_results, train, train_frac, is_secondary)
+    def _predict_appearance_active(self, rng, rays, sampler_results, feature, bottleneck,
+                                   roughness, normals, shading_normals, train_frac=1.0,
+                                   train=True, is_secondary=False, radiance_cache=None,
+                                   light_power=None, passes=(), filtered_sampler_results=None,
+                                   **kwargs):
+        del kwargs
         means = sampler_results["means"]
 
         light_offset = rays.lights[..., None, :] - means
@@ -511,8 +547,10 @@ class TransientNeRFMLP(BaseNeRFMLP):
         key, rng = torchutil.random_split(rng)
         incoming = self._query_surface_lf(key, rays, sampler_results, means, normals, roughness,
                                           bottleneck, train, train_frac)
-        integrated_brdf = self.get_integrated_brdf(normals, rays.viewdirs, bottleneck)
-        tint = torch.sigmoid(self.tint_layer(feature))
+        tint = integrated_brdf = None
+        if self._reads_tint:
+            integrated_brdf = self.get_integrated_brdf(normals, rays.viewdirs, bottleneck)
+            tint = torch.sigmoid(self.tint_layer(feature))
         t_diffuse, t_specular = self._indirect_lighting(
             rays, feature, means, shading_normals, incoming["incoming_rgb"], tint,
             integrated_brdf)

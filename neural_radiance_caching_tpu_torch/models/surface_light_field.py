@@ -1,76 +1,107 @@
 """Surface light field MLP (counterpart of ``models/surface_light_field.py``).
 
-Ported: a view-conditioned decoder over the shader's bottleneck
-(``use_shader_bottleneck``) and/or the zero bottleneck of an SLF without a
-grid (``use_bottleneck``), and the (integrated) directional encoding of the
-query direction; with ``use_lights`` the light position's encoding
-conditions a second, lit trunk that feeds the rgba head, while the first
-feeds the ambient head. With ``use_indirect`` (the transient SLF) the rgb
-head emits n_bins x 3 time-binned channels. The cache's surface light
-field memory (``NeRFModel.surface_lf_mem``) is this MLP at its defaults: the
-zero bottleneck and the light position's encoding, queried at one point per
-ray. The distance head, reflectance grid, point and origin encodings and
-``dist_only`` queries are not ported yet and raise; ``raydist_fn`` (a
-``(fn, fn_inv, kwargs)`` ray warp) and ``use_env_alpha`` are read by the
-distance head only.
+Ported: a view-conditioned decoder over a bottleneck (the SLF's own hash
+grid through its trunk ``layers``, ``use_grid``; else the shader's,
+``use_shader_bottleneck``; else 3 zeros), the origins' encoding
+(``use_origins``) and the (integrated) directional encoding of the query
+direction; with ``use_lights`` the light position's encoding conditions a
+second, lit trunk that feeds the rgba head, while the first feeds the
+ambient head. With ``use_indirect`` (the transient SLF) the rgb head emits
+n_bins x C time-binned channels. The distance head
+(``use_distance_prediction``) proposes ``num_distance_samples`` distances
+along the query ray (a zero-initialised head decoded into ladder shifts,
+blend logits and an env-map RGBA), and the reflectance grid
+(``use_reflectance_grid``) is tapped at those points, its features summed
+with the softmax blend x range mask x env alpha. The cache's surface light
+field memory (``NeRFModel.surface_lf_mem``) is this MLP at its defaults:
+the zero bottleneck and the light position's encoding, queried at one
+point per ray.
+
+Not ported yet, raising: point, sphere-point and far-field encodings, the
+per-point density head, voxel-plane placement, sorted distances, point
+offsets and roughness-scaled or per-point decoding of the reflectance grid
+(each refused only where its branch is on), ``dist_only`` queries and
+multi-illumination.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from neural_radiance_caching_tpu_torch.engine import gin_config as gin
-from neural_radiance_caching_tpu_torch.models import shading
+from neural_radiance_caching_tpu_torch.models import grids, shading
 from neural_radiance_caching_tpu_torch.models.layers import Dense, SkipMLP, clamp, softplus
 from neural_radiance_caching_tpu_torch.ops import coord, math, ref_utils
+from neural_radiance_caching_tpu_torch.utils import torchutil
+
+# The distance head packs, per proposed sample, a block of 8 channels (the
+# ladder shift, its gate, the point-nudge gate, one unread channel, the
+# blend logit and an xyz nudge); its last 4 channels are the env-map RGBA.
+_HEAD_BLOCK = 8
+_HEAD_TAIL = 4
 
 
 def _ide_dim(deg_view):
     return 2 * sum(2**i + 1 for i in range(deg_view))
 
 
+def _unit_fold(s):
+    """Reflect an unbounded s back into [0, 1] (a triangle wave)."""
+    return 1.0 - torch.abs(torch.remainder(s, 2.0) - 1.0)
+
+
 @gin.configurable
 class SurfaceLightFieldMLP(shading.BaseShader, unported=dict(
-        deg_origins=4, use_points_ide=False, deg_points=4, deg_sphere_points=4,
-        sphere_radius=5.0, use_point_offsets=False, point_offset_scale=0.25,
-        point_offset_bias=-3.0, reflectance_grid_representation="ngp",
-        reflectance_grid_params=None, use_roughness=False, roughness_scale=0.001,
-        per_ref_feature_output=False, num_light_features=64,
-        multiple_illumination_outputs=True)):
+        num_light_features=64, multiple_illumination_outputs=True)):
     """View-conditioned incoming radiance (see the module docstring)."""
 
     window_points_frac = 0.0  # declared in JAX, read by nothing there
+    distance_far_field = float("inf")  # declared in JAX, read by nothing there
 
-    # Read by the distance and density heads only (use_distance_prediction,
-    # use_density_prediction).
-    net_depth_distance = 1
-    net_width_distance = 128
-    skip_layer_distance = 4
-    deg_view_distance = 2
-    use_distance_ide = False
-    use_sorted_distances = False
+    # Read only under a flag that is refused where it is read (use_points,
+    # use_sphere_points, use_density_prediction, use_voxel_grid, and
+    # use_point_offsets, use_roughness, per_ref_feature_output).
+    use_points_ide = False
+    deg_points = 4
+    deg_sphere_points = 4
+    sphere_radius = 5.0
+    use_point_offsets = False
+    point_offset_scale = 0.25
+    point_offset_bias = -3.0
+    use_roughness = False
+    roughness_scale = 0.001
+    per_ref_feature_output = False
     net_depth_density = 2
     net_width_density = 64
     skip_layer_density = 2
     density_activation = staticmethod(math.safe_exp)
     density_bias = -1.0
     density_noise = 0.0
+    use_uniform_grid = True
+    voxel_start = 0.0
+    voxel_end = 10.0
+
+    net_depth_distance = 1
+    net_width_distance = 128
+    skip_layer_distance = 4
+    deg_view_distance = 2
+    use_distance_ide = False
+    use_sorted_distances = False
     num_distance_samples = 1
     num_far_samples = 0
-    distance_far_field = float("inf")
     distance_scale = 1.0
     distance_bias = -2.0
     use_uniform_distance = False
     use_uniform_loss = False
-    use_uniform_grid = True
     use_voxel_grid = False
-    voxel_start = 0.0
-    voxel_end = 10.0
     use_bottleneck = True
     use_shader_bottleneck = False
     use_directional_enc = False
     use_ide = False
     use_origins = False
+    deg_origins = 4
     use_lights = True
     deg_lights = 2
     use_points = False
@@ -90,75 +121,192 @@ class SurfaceLightFieldMLP(shading.BaseShader, unported=dict(
     distance_far = 1e6
     use_indirect = False
     use_reflectance_grid = False
+    reflectance_grid_representation = "ngp"
+    reflectance_grid_params = None
     rotate_illumination = False
     rgb_max = float("inf")
     ambient_rgb_max = float("inf")
     ambient_rgb_activation = staticmethod(softplus)
     ambient_rgb_bias = -1.0
     raydist_fn = None
-    ref_warp_fn = None  # read by the distance head only
+    ref_warp_fn = None
     use_illumination_feature = False  # read with multi_illumination only
 
     def __init__(self, config=None, shader_bottleneck_dim=0, **kwargs):
         super().__init__(config, **kwargs)
-        self._require(use_grid=False, use_origins=False, use_points=False, use_sphere_points=False,
-                      use_far_field_points=False, use_distance_prediction=False,
-                      use_density_prediction=False,
-                      use_reflectance_grid=False, rotate_illumination=False)
+        self._require(use_points=False, use_sphere_points=False, use_far_field_points=False,
+                      use_density_prediction=False, rotate_illumination=False)
+        if self.use_distance_prediction:
+            self._require(use_voxel_grid=False, use_sorted_distances=False,
+                          use_point_offsets=False)
+        if self.use_reflectance_grid:
+            self._require(per_ref_feature_output=False, use_roughness=False)
         if config is not None and config.multi_illumination:
             raise NotImplementedError("multi-illumination is not ported yet")
+        cd = self.compute_dtype
         if self.use_ide:
             self.dir_enc_fn = ref_utils.generate_ide_fn(self.deg_view)
             dir_dim = _ide_dim(self.deg_view)
         else:
             self.dir_enc_fn = lambda d, _: coord.pos_enc(d, 0, self.deg_view, True)
             dir_dim = 3 + 6 * self.deg_view
-        # Without a grid the bottleneck is the shader's (use_shader_bottleneck)
-        # or 3 zeros.
-        bottleneck_dim = shader_bottleneck_dim if self.use_shader_bottleneck else 3
-        in_dim = ((bottleneck_dim if self.use_bottleneck else 0)
+        origins_dim = 3 + 6 * self.deg_origins
+        # The bottleneck: the own grid through the trunk `layers`, the
+        # shader's, or 3 zeros.
+        if self.grid is not None:
+            bottleneck_dim = self._build_trunk(0)
+        elif self.use_shader_bottleneck:
+            bottleneck_dim = shader_bottleneck_dim
+        else:
+            bottleneck_dim = 3
+        if self.use_distance_prediction:
+            if self.use_distance_ide:
+                self.dir_enc_fn_distance = ref_utils.generate_ide_fn(self.deg_view_distance)
+                dist_dir_dim = _ide_dim(self.deg_view_distance)
+            else:
+                self.dir_enc_fn_distance = lambda d, _: coord.pos_enc(
+                    d, 0, self.deg_view_distance, True)
+                dist_dir_dim = 3 + 6 * self.deg_view_distance
+            self.distance_layer = SkipMLP(
+                bottleneck_dim + origins_dim + dist_dir_dim,
+                [self.net_width_distance] * self.net_depth_distance, self.skip_layer_distance,
+                self.net_activation, cd)
+            # Zero-initialised and without the compute dtype, as in JAX.
+            self.distance_output_layer = Dense(
+                self.distance_layer.out_dim,
+                _HEAD_BLOCK * self.num_distance_samples + _HEAD_TAIL, kernel_init="zeros")
+        if self.use_reflectance_grid:
+            grid_cls = grids.GRID_REPRESENTATION_BY_NAME[
+                self.reflectance_grid_representation.lower()]
+            self.reflectance_grid = grid_cls(**dict(self.reflectance_grid_params or {}))
+        in_dim = ((origins_dim if self.use_origins else 0)
+                  + (bottleneck_dim if self.use_bottleneck else 0)
                   + (shader_bottleneck_dim if self.use_shader_bottleneck else 0)
+                  + (self.reflectance_grid.output_dim if self.use_reflectance_grid else 0)
                   + (dir_dim if self.use_directional_enc else 0))
         names = [f"layer_{i}" for i in range(self.net_depth_viewdirs - 1)] + ["layer_bottleneck"]
         widths = [self.net_width_viewdirs] * (self.net_depth_viewdirs - 1) + [self.bottleneck_viewdirs]
         trunk = lambda d, names: SkipMLP(d, widths, self.skip_layer_dir, self.net_activation,
-                                         self.compute_dtype, names=names)
+                                         cd, names=names)
         if self.use_lights:
             self.ambient_view_dependent_layers = trunk(in_dim, ["ambient_" + n for n in names])
             in_dim += 3 + 6 * self.deg_lights
         self.view_dependent_layers = trunk(in_dim, names)
         out_dim = self.view_dependent_layers.out_dim
         rgb_channels = config.num_rgb_channels * (config.n_bins if self.use_indirect else 1)
-        self.output_rgba_layer = Dense(out_dim, rgb_channels + 1, self.compute_dtype)
+        self.output_rgba_layer = Dense(out_dim, rgb_channels + 1, cd)
         ambient_dim = (self.ambient_view_dependent_layers.out_dim if self.use_lights
                        else out_dim)
-        self.output_ambient_rgb_layer = Dense(ambient_dim, config.num_rgb_channels,
-                                              self.compute_dtype)
+        self.output_ambient_rgb_layer = Dense(ambient_dim, config.num_rgb_channels, cd)
+
+    # --- the distance head ------------------------------------------------------------
+
+    def _sample_space_warp(self, anchor):
+        """(t_to_s, s_to_t) between metric distance and [0, 1] over
+        [distance_near, distance_far]: the ray warp ``raydist_fn`` (a
+        ``(fn, fn_inv, kwargs)``), affine both ways under
+        ``use_uniform_distance``, affine forward under ``use_uniform_loss``."""
+        lo, hi = self.distance_near, self.distance_far
+        warp = warp_inv = None
+        if self.raydist_fn is not None:
+            fn, fn_inv, fn_kwargs = self.raydist_fn
+            warp = functools.partial(fn, **fn_kwargs)
+            warp_inv = functools.partial(fn_inv, **fn_kwargs)
+        t_to_s, s_to_t = coord.construct_ray_warps(
+            warp, torch.ones_like(anchor) * lo, torch.ones_like(anchor) * hi, fn_inv=warp_inv)
+        span = hi - lo
+        if self.use_uniform_distance:
+            s_to_t = lambda s: s * span + lo  # noqa: E731
+            t_to_s = lambda t: (t - lo) / span  # noqa: E731
+        elif self.use_uniform_loss:
+            t_to_s = lambda t: (t - lo) / span  # noqa: E731
+        return t_to_s, s_to_t
+
+    def _s_ladder(self, ndim, device):
+        """The samples' base positions in s: uniform over (0, 1), the last
+        ``num_far_samples`` packed into [0.9, 1)."""
+        k, k_far = self.num_distance_samples, self.num_far_samples
+        lin = lambda a, b, n: torch.linspace(a, b, n, device=device)  # noqa: E731
+        rungs = (torch.cat([lin(1e-8, 0.9, k - k_far), lin(0.9, 1.0 - 1e-8, k_far)])
+                 if k_far > 0 else lin(1e-8, 1.0 - 1e-8, k))
+        return rungs.reshape((1,) * ndim + (-1,))
+
+    def propose_samples(self, rays, origins, refdirs, bottleneck, roughness, near=0.0,
+                        far=float("inf")):
+        """(points [..., K, 3], blend logits, range mask, s, t [..., K],
+        env rgb, env alpha) of the distance head."""
+        _, s_to_t = self._sample_space_warp(rays.near[..., None])
+        x = torch.cat([bottleneck, coord.pos_enc(self.warp_fn(origins), 0, self.deg_origins, True),
+                       self.dir_enc_fn_distance(refdirs, roughness)], dim=-1)
+        raw = self.distance_output_layer(self.distance_layer(x))
+        env_rgb = self.rgb_activation(
+            self.rgb_premultiplier * raw[..., -_HEAD_TAIL:-1] + self.rgb_bias)
+        env_alpha = (self.alpha_activation(raw[..., -1:] + self.alpha_bias) if self.use_env_alpha
+                     else torch.ones_like(raw[..., -1:]))
+        k = self.num_distance_samples
+        block = raw[..., :-_HEAD_TAIL].reshape(raw.shape[:-1] + (k, _HEAD_BLOCK))
+        shift = (block[..., 0] * (self.distance_scale / k)
+                 * torch.sigmoid(block[..., 1] + self.distance_bias))
+        s = _unit_fold(shift + self._s_ladder(shift.dim() - 1, shift.device))
+        t = s_to_t(s)
+        valid = ((t > self.distance_near) & (t < self.distance_far) & (t > near)
+                 & (t < far)).to(torch.float32)
+        t = torch.clamp(t, self.distance_near, self.distance_far)
+        points = origins[..., None, :] + t[..., None] * refdirs[..., None, :]
+        return points, block[..., 4], valid, s, t, env_rgb, env_alpha
+
+    # --- the decoder ------------------------------------------------------------------
 
     def forward(self, rng, rays, sampler_results, origins, refdirs, roughness=None,
                 shader_bottleneck=None, train=True, train_frac=1.0, dist_only=False, **kwargs):
-        del rng, sampler_results, train, train_frac, kwargs
-        if dist_only:
+        if dist_only or "cache_tdist" in kwargs:
             raise NotImplementedError("dist_only queries are not ported yet")
         outputs = {}
-        bottleneck = (shader_bottleneck if self.use_shader_bottleneck
-                      else torch.zeros_like(refdirs))
+        origins = origins.reshape(refdirs.shape[:-2] + (-1, 3)) * torch.ones_like(refdirs)
+        if self.grid is not None:
+            key, rng = torchutil.random_split(rng)
+            bottleneck = self.predict_appearance_feature(
+                sampler_results, train=train, train_frac=train_frac,
+                **self.get_predict_appearance_kwargs(key, rays, sampler_results)
+            ) * torch.ones_like(refdirs[..., :1])
+        elif self.use_shader_bottleneck:
+            bottleneck = shader_bottleneck
+        else:
+            bottleneck = torch.zeros_like(refdirs)
         feats = []
+        if self.use_origins:
+            feats.append(coord.pos_enc(origins, 0, self.deg_origins, True))
         if self.use_bottleneck:
             feats.append(bottleneck)
         if self.use_shader_bottleneck:
             feats.append(shader_bottleneck)
+
         unit = torch.ones_like(bottleneck[..., 0:1])
         s_distances = distances = env_alpha = torch.zeros_like(unit)
         env_rgb = torch.zeros_like(bottleneck[..., 0:3])
         ref_weights = unit
-        s_distances = s_distances.mean(dim=-1, keepdim=True)
+        if self.use_distance_prediction:
+            key, rng = torchutil.random_split(rng)
+            points, logits, ref_mask, s_distances, distances, env_rgb, env_alpha = (
+                self.propose_samples(rays, origins, refdirs, bottleneck, roughness, **kwargs))
+            if self.ref_warp_fn is not None:
+                points = self.ref_warp_fn(points)
+            blend = torch.softmax(logits, dim=-1)
+            s_distances = (s_distances * blend).sum(dim=-1, keepdim=True)
+            ref_weights = blend * ref_mask * env_alpha
+        if self.use_reflectance_grid:
+            # per_level_fn=None: every point keeps its own feature (JAX's
+            # identity per_level_fn).
+            ref_grid_feat = self.reflectance_grid(points, x_scale=None, per_level_fn=None,
+                                                  train=train, train_frac=train_frac)
+            feats.append((ref_grid_feat * ref_weights[..., None]).sum(dim=-2))
+        else:
+            s_distances = s_distances.mean(dim=-1, keepdim=True)
         if self.use_directional_enc:
             feats.append(self.dir_enc_fn(refdirs, roughness))
         x = torch.cat(feats, dim=-1)
         if self.use_lights:
             ambient_x = self.ambient_view_dependent_layers(x)
-            origins = origins.reshape(refdirs.shape[:-2] + (-1, 3)) * torch.ones_like(refdirs)
             light_pos = rays.lights[..., None, :] * torch.ones_like(origins)
             if self.warp_fn is not None:
                 light_pos = self.warp_fn(light_pos)

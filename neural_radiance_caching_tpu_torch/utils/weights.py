@@ -5,7 +5,10 @@ of numpy arrays, as ``jax.device_get(variables)`` gives them) into this package'
 ``state_dict`` for a given module: the cache model's tree, the transient
 cache model's (the same names, plus the active shader's ``albedo_layer``,
 ``direct_tint_layer``, ``brdf_layers_*``, ``irradiance_layers_*``,
-``transient_indirect_layer`` and the transient SLF's wider rgba head), or a
+``transient_indirect_layer`` and the transient SLF's wider rgba head; an
+SLF's own grid ``SurfaceLightField/distance_grid`` with its trunk
+``layers_{i}``, its distance head ``distance_layer_{i}`` and
+``distance_output_layer``, its ``reflectance_grid``), or a
 material model's (``Cache/...``, with the SLF memory ``Cache/SurfaceLightFieldMem``,
 ``LightSampler/...``, ``MaterialShader/...``;
 the transient one's ``MaterialShader/LightSource/...`` is the learnable
@@ -45,6 +48,7 @@ _FIXED = {
     "VignetteMap": "vignette_map",
     "appearance_grid": "grid",
     "density_grid": "grid",
+    "distance_grid": "grid",
     "light_grid": "grid",
     "material_grid": "grid",
     "kernel": "weight",
@@ -87,7 +91,7 @@ _REVERSE = {
 }
 # The JAX name of a `grid` by the JAX name of its owner.
 _GRID_BY_OWNER = {"LightSampler": "light_grid", "MaterialShader": "material_grid",
-                  "Shader": "appearance_grid"}
+                  "Shader": "appearance_grid", "SurfaceLightField": "distance_grid"}
 
 
 def jax_path(key, material=True):

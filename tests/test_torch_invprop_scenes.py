@@ -432,27 +432,18 @@ def test_calibration_checkpoint_restores_the_vignette(optimize_calib_on_load, tm
 # --- what the port builds of every transient config --------------------------------------
 
 TRANSIENT_CONFIGS = sorted(p.name for p in pathlib.Path("configs").glob("transient_*.gin"))
-# The options whose construction the port refuses, by config.
-REFUSED = {name: "TransientNeRFMLP.use_indirect=False" for name in TRANSIENT_CONFIGS
-           if name.endswith(("_tnerf.gin", "_pots_kitchen.gin"))}
-REFUSED.update({f"transient_simulation_ngp_yobo_{scene}.gin":
-                "TransientNeRFMLP.use_active=False"
-                for scene in ("cornell_fwp", "cornell_fwp_dataset", "peppers_fwp", "pots_fwp")})
 
 
 @pytest.mark.parametrize("config", TRANSIENT_CONFIGS)
 def test_every_transient_config_builds_jax_groups_or_names_its_option(config):
     """The cache stage of every configs/transient_*.gin at test widths (96
     bins, which the captured scenes' 83-tap filter fits, and no calibration
-    checkpoint): the port's model holds JAX's parameter groups, or its
-    construction raises a NotImplementedError naming the option (the list
-    ROADMAP.md keeps of what is left)."""
+    checkpoint): the port's model holds JAX's parameter groups. None is
+    refused any longer: the passive shader of the `_fwp` simulations and
+    the shader without indirect light of the `_tnerf` scenes and
+    pots_kitchen build too (tests/test_torch_baseline_scenes.py)."""
     bindings = transient_trainer.TRANSIENT_TINY + STATUE_BINDINGS
     tt = trainer_test.synthesize("torch", [f"configs/{config}"], bindings, "cache")
-    if config in REFUSED:
-        with pytest.raises(NotImplementedError, match=REFUSED[config]):
-            tconstruct.make_model(tt.config, device="cpu")
-        return
     groups = {weights.jax_path(k)[0] for k in tconstruct.make_model(
         tt.config, device="cpu").state_dict()}
     jt = trainer_test.synthesize("jax", [f"configs/{config}"], bindings, "cache")
