@@ -234,6 +234,30 @@ Phases, one line each (any failure exits nonzero):
      per step on cornell's, on open's 1 planes for the reflectance grid
      and 1 leveled for the own grid from 4096 on); then open's two SLF
      table-gradient calls of its checked step timed against index_add_.
+ 33. disk reference: the port's PNG reader on PNGs of every colour type at
+     8 and 16 bits written by the script (the five scanline filters in turn,
+     no PIL) and its EXR reader on a FLOAT EXR, equal to what was written
+     as PIL reads it; then small scenes in the layouts of the blender
+     (hotdog), ORB (orb_ngp_yobo_teapot: EXR images, mask PNGs) and NeRO
+     glossy-synthetic (nero_ngp_yobo_bell: pickled cameras, RGBA and 16-bit
+     depth PNGs) loaders, rendered on the card from the procedural spheres:
+     the first three batches the card gets equal the CPU loader's, and one
+     cache step of each at NGP_NARROW's widths, GPU against CPU, as phase
+     31 (0, 2 and 1 leveled launches; the hotdog's step launches none, so
+     no fault is planted there);
+ 34. disk train: the three scenes at their captures' sizes (hotdog 100
+     train views of 800^2 RGBA, the teapot 32 train views of 2048^2 EXR
+     read at factor 4, the bell 128 views of 800^2 with depth PNGs),
+     through the entry point as train_one_stage.py builds its command: the
+     README's two hotdog stages (cache at 8192, then
+     material_light_from_scratch_resample at sample factor 8 and batch 1024,
+     warm-started from it) and the teapot's and the bell's cache stages at
+     the largest of 8192, 4096, 2048 that fits; each with its loading's
+     wall seconds, decode seconds per image and host GiB, ms per step,
+     rays/s, peak GiB, the launches (asserted: none on the hotdog, on the
+     teapot 1 leveled + 1 planes, on the bell 1 planes per step at 8192),
+     one held-out view's PSNR, and a step with every scatter call held
+     against its plain version.
 Then the kernels JSON line, the eval JSON line, the transient material JSON
 line, the trainer JSON line, the nvidia-smi line, and the result line.
 """
@@ -2234,9 +2258,10 @@ def _entry_point_run(torch, args, resume_args, ckpt, warmup, steps, patches=()):
     """train_with_trainer.main(args) in-process with a host clock (ending in
     a sync) around the steps after `warmup`, the launch counts and the peak
     memory of that run (with `patches`, (object, {attribute: value}) pairs,
-    set for its length); then train_with_trainer.main(resume_args), which
-    must resume the checkpoint the first run wrote and take no step; then one
-    test view through log_test_set_evaluation."""
+    set for its length); then, unless `resume_args` is None,
+    train_with_trainer.main(resume_args), which must resume the checkpoint
+    the first run wrote and take no step; then one test view through
+    log_test_set_evaluation."""
     import os
 
     from neural_radiance_caching_tpu_torch import train_with_trainer
@@ -2286,10 +2311,12 @@ def _entry_point_run(torch, args, resume_args, ckpt, warmup, steps, patches=()):
     losses = {k: v for k, v in log[-1].items() if k.startswith("loss")}
     saved = checkpoints.latest_checkpoint_step(ckpt)
     gin_config.clear_config()
-    resumed = train_with_trainer.main(resume_args)
-    log_after = open(os.path.join(ckpt, "train_log.jsonl")).read().splitlines()
-    resume_ok = resumed.state.step == total and len(log_after) == len(log)
-    del resumed
+    resume_ok = None
+    if resume_args is not None:
+        resumed = train_with_trainer.main(resume_args)
+        log_after = open(os.path.join(ckpt, "train_log.jsonl")).read().splitlines()
+        resume_ok = resumed.state.step == total and len(log_after) == len(log)
+        del resumed
     t0 = time.perf_counter()
     metrics = trainer.log_test_set_evaluation(total, 1.0)
     torch.cuda.synchronize()
@@ -2577,7 +2604,7 @@ def _gpu_vs_cpu_step(torch, device, seed, stage, config_file, launches, terms):
     loss_errs = {k: abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-30) for k in l_cpu}
     err, err_at = _worst_grad_err(g_gpu, g_cpu)
     faults = {f: _worst_grad_err(step(device, fault=f)[1], g_cpu)
-              for f in ("taps rotated", "finest level dropped")}
+              for f in ("taps rotated", "finest level dropped") if launches}
     tol = GRAD_REL_L2_TOL
     ok = (all(torch.isfinite(g).all() for g in g_gpu.values())
           and set(terms) <= set(l_cpu) and all(l_cpu[k] != 0 for k in terms)
@@ -2591,7 +2618,7 @@ def _gpu_vs_cpu_step(torch, device, seed, stage, config_file, launches, terms):
                 noise_floor_at=floor_at, faults={f: v for f, (v, _) in faults.items()},
                 fault_at={f: at for f, (_, at) in faults.items()}, tol=tol,
                 launches=n_gpu["leveled"], cpu_launches=n_cpu, checked=checked,
-                max_abs_err=max(c["max_abs_err"] for c in checked), losses=l_gpu)
+                max_abs_err=max((c["max_abs_err"] for c in checked), default=0.0), losses=l_gpu)
 
 
 def _gpu_vs_cpu_text(r):
@@ -2601,9 +2628,11 @@ def _gpu_vs_cpu_text(r):
             + f"; cpu vs cpu with the cameras +-1 ulp: {r['loss_noise_floor']:.2e}) grad "
             f"rel_l2_err max={r['grad_rel_l2_err']:.3e} at {r['grad_err_at']} (tol {r['tol']}; "
             f"noise floor, cpu vs cpu with the cameras +-1 ulp: {r['noise_floor']:.3e} at "
-            f"{r['noise_floor_at']}; planted in the leveled kernel "
-            + ", ".join(f"{f}: {v:.3e} at {r['fault_at'][f]}" for f, v in r["faults"].items())
-            + ", each must exceed the tol)")
+            f"{r['noise_floor_at']}; "
+            + ("planted in the leveled kernel " + ", ".join(
+                f"{f}: {v:.3e} at {r['fault_at'][f]}" for f, v in r["faults"].items())
+               + ", each must exceed the tol)" if r["faults"] else
+               "no fault planted: the step launches no kernel)"))
 
 
 def _checked_text(checked):
@@ -3308,6 +3337,42 @@ def phase_trainer_invprop_train(torch, device, seed, steps, smi, tmp):
                              tmp)[0]
 
 
+def _out_of_memory(torch, label, batch, error):
+    """Print a batch's out-of-memory cut with the memory at the failing
+    request; returns its record."""
+    allocated = torch.cuda.memory_allocated() / 2**30
+    reserved = torch.cuda.memory_reserved() / 2**30
+    print(f"{label}: batch {batch} ran out of memory ({allocated:.2f} GiB allocated, "
+          f"{reserved:.2f} GiB reserved at the failing request): {str(error).splitlines()[0]}",
+          flush=True)
+    return dict(batch=batch, allocated_gib=allocated, reserved_gib=reserved)
+
+
+def _cut_text(batch, batches, cut):
+    return (f"batch {batch}, cut from {batches[0]} ("
+            + ", ".join(f"{c['batch']} ran out of memory at {c['allocated_gib']:.2f} GiB "
+                        f"allocated, {c['reserved_gib']:.2f} reserved" for c in cut)
+            + ")" if cut else f"batch {batch}")
+
+
+def _checked_step(torch, trainer, per_step, capture=None):
+    """One train step of `trainer` with every scatter call of the kinds in
+    `per_step` held against its plain version (`_checking_scatter`; with
+    `capture`, {kind: {}}, each kind's largest call's inputs kept there).
+    Returns (the calls, the launch counts of the step, its stats)."""
+    from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+
+    calls = []
+    scatter_cuda.reset_launch_count()
+    with _patched(scatter_cuda, **{
+            f"scatter_add_weighted_{kind}": _checking_scatter(
+                kind, calls, None if capture is None else capture[kind], largest=True)
+            for kind in per_step}):
+        trainer.state, stats = trainer.train_step(trainer.rng, trainer.state,
+                                                  trainer.dataset.next_train(), 0.5)
+    return calls, dict(scatter_cuda.launches), stats
+
+
 def _entry_point_runs(torch, label, runs, scenes, seed, steps, smi, tmp):
     """`runs`, (scene, stage, batches, timed steps or None for `steps`,
     launches per step: a leveled count, or a function of the batch giving
@@ -3323,7 +3388,6 @@ def _entry_point_runs(torch, label, runs, scenes, seed, steps, smi, tmp):
     import os
 
     from neural_radiance_caching_tpu_torch.engine import gin_config
-    from neural_radiance_caching_tpu_torch.ops import scatter_cuda
 
     warmup, results, ckpts, captures = 3, {}, {}, {}
     for scene, stage, batches, timed_steps, expected in runs:
@@ -3348,12 +3412,8 @@ def _entry_point_runs(torch, label, runs, scenes, seed, steps, smi, tmp):
                 run = _entry_point_run(torch, args, resume, ckpt, warmup, timed, (patch,))
                 break
             except torch.cuda.OutOfMemoryError as e:
-                allocated = torch.cuda.memory_allocated() / 2**30
-                reserved = torch.cuda.memory_reserved() / 2**30
-                print(f"trainer {label} train ({scene} {stage}): batch {batch} ran out of "
-                      f"memory ({allocated:.2f} GiB allocated, {reserved:.2f} GiB reserved at "
-                      f"the failing request): {str(e).splitlines()[0]}", flush=True)
-                cut.append(dict(batch=batch, allocated_gib=allocated, reserved_gib=reserved))
+                cut.append(_out_of_memory(torch, f"trainer {label} train ({scene} {stage})",
+                                          batch, e))
                 del e
                 events.clear()
                 gin_config.clear_config()
@@ -3373,15 +3433,8 @@ def _entry_point_runs(torch, label, runs, scenes, seed, steps, smi, tmp):
         per_step = (expected(batch) if callable(expected) else {"leveled": expected})
         per_step_text = ", ".join(f"{n} {k}" for k, n in per_step.items())
 
-        calls, capture = [], {kind: {} for kind in per_step}
-        scatter_cuda.reset_launch_count()
-        with _patched(scatter_cuda, **{
-                f"scatter_add_weighted_{kind}": _checking_scatter(kind, calls, capture[kind],
-                                                                  largest=True)
-                for kind in per_step}):
-            trainer.state, stats = trainer.train_step(trainer.rng, trainer.state,
-                                                      trainer.dataset.next_train(), 0.5)
-        checked_launches = dict(scatter_cuda.launches)
+        capture = {kind: {} for kind in per_step}
+        calls, checked_launches, stats = _checked_step(torch, trainer, per_step, capture)
         ok = (finite and run["saved"] == total and run["resume_ok"]
               and run["launches"] == _launch_counts(**{k: n * total
                                                        for k, n in per_step.items()})
@@ -3391,15 +3444,12 @@ def _entry_point_runs(torch, label, runs, scenes, seed, steps, smi, tmp):
               and (filter_calls > 0) == (cfg.tfilter_sigma != 0.0))
         n_params = sum(p.numel() for p in trainer.model.parameters())
         metrics = run["metrics"]
-        cut_text = (f"batch {batch}, cut from {batches[0]} ("
-                    + ", ".join(f"{c['batch']} ran out of memory at {c['allocated_gib']:.2f} "
-                                f"GiB allocated, {c['reserved_gib']:.2f} reserved" for c in cut)
-                    + ")" if cut else f"batch {batch}")
         print(f"trainer {label} train ({scene} {stage}): train_with_trainer {config_file} "
               f"{stage}{' warm-started from its cache stage' if stage != 'cache' else ''} "
               f"({n_params} params, {cfg.n_bins} bins x {cfg.num_rgb_channels} channel(s), "
               f"tfilter_sigma={cfg.tfilter_sigma}, occlusions={cfg.use_occlusions}, vignette="
-              f"{getattr(trainer.model, 'use_vignette', False)}) {cut_text}, {warmup} warmup + "
+              f"{getattr(trainer.model, 'use_vignette', False)}) {_cut_text(batch, batches, cut)}, "
+              f"{warmup} warmup + "
               f"{timed} timed steps: step_ms={dt * 1e3:.2f} rays_per_s={batch / dt:.0f} "
               f"(train_log rays_per_sec={log[-1]['rays_per_sec']:.0f} over steps 2-{total}) on "
               f"[{smi}]; peak {run['peak_gib']:.2f} GiB; the filter's conv1d {filter_ms:.3f} ms "
@@ -3565,6 +3615,499 @@ def phase_trainer_baseline_train(torch, device, seed, steps, smi, tmp):
     return results, paths
 
 
+# Phases 33-34: training from posed images on disk. The scenes are written in
+# each loader's on-disk layout without PIL (the script's own PNG writer, the
+# scanline filters cycling through all five row by row; EXRs through the
+# port's codec), rendered on the card from the procedural spheres scene, and
+# read back by the port's loaders through its own PNG and EXR readers.
+DISK_SCENES = {
+    "hotdog": "configs/nerf_ngp_yobo_hotdog.gin",
+    "orb_teapot": "configs/orb_ngp_yobo_teapot.gin",
+    "nero_bell": "configs/nero_ngp_yobo_bell.gin",
+}
+# Each scene's near plane, restored after TRAINER_BINDINGS' data-free one.
+DISK_NEAR = {"hotdog": 2.0, "orb_teapot": 0.25, "nero_bell": 1.0}
+# (views of the train split, of the test split, resolution) at phase 34,
+# the captures' layouts: TensoIR's hotdog (100 train views of 800^2 RGBA;
+# 4 of its 200 test views), ORB's teapot (2048^2 EXR read at factor 4; 32
+# train and 2 test views: the capture's counts are not in the repository
+# and each view is a 48 MiB FLOAT EXR), NeRO's bell (128 views of 800^2,
+# every 8th held out by synthetic_split_128.pkl, all 128 trained on).
+DISK_SIZES = {"hotdog": (100, 4, 800), "orb_teapot": (32, 2, 2048), "nero_bell": (128, 16, 800)}
+# Phase 33's: small scenes of the same layouts.
+DISK_REFERENCE_SIZES = {"hotdog": (6, 2, 64), "orb_teapot": (6, 2, 128),
+                        "nero_bell": (8, 2, 64)}
+# World radius of the cameras and scale of the spheres scene per layout:
+# nerf-synthetic's cameras at ~4 units (near 2, far 6), NeRO's at 2.5 (near
+# 1, far 4); ORB's loader recentres the poses and scales the farthest train
+# camera coordinate to 1, which puts the cameras 1.07 from the scene's
+# centre and its surfaces 0.71-1.43 away, inside near 0.25 / far 2.
+DISK_CAMERAS = {"hotdog": (4.0, 1.0), "orb_teapot": (3.0, 0.8), "nero_bell": (2.5, 0.7)}
+# nerf-synthetic's horizontal field of view; the other layouts' focal length
+# is 1.2 x the width.
+BLENDER_CAMERA_ANGLE_X = 0.6911112070083618
+# Leveled launches of one phase-33 step at NGP_NARROW: none on the hotdog
+# (its final density level takes density normals, the plain encoder), the
+# reflectance grid on nero, and on orb the SLF's own grid too.
+DISK_REFERENCE_LAUNCHES = {"hotdog": 0, "orb_teapot": 2, "nero_bell": 1}
+
+
+def _png_bytes(samples, color, depth, level=6):
+    """PNG bytes of `samples` [H, W, C] (8-bit, or 16-bit values) as colour
+    type `color` at `depth` bits, the scanline filters None, Sub, Up,
+    Average and Paeth in turn, row by row."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    from neural_radiance_caching_tpu_torch.data import png
+
+    h, w = samples.shape[:2]
+    flat = samples.reshape(h, w, -1)
+    raw = (flat.astype(">u2").view(np.uint8) if depth == 16 else flat.astype(np.uint8))
+    raw = raw.reshape(h, -1).astype(np.int16)
+    bpp = raw.shape[1] // w
+    a, b, c = np.zeros_like(raw), np.zeros_like(raw), np.zeros_like(raw)
+    a[:, bpp:] = raw[:, :-bpp]
+    b[1:] = raw[:-1]
+    c[1:, bpp:] = raw[:-1, :-bpp]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    kinds = np.arange(h) % 5
+    pred = np.zeros_like(raw)
+    for k, p in ((1, a), (2, b), (3, (a + b) >> 1), (4, paeth)):
+        pred[kinds == k] = p[kinds == k]
+    rows = np.concatenate([kinds[:, None], (raw - pred) & 0xFF], 1).astype(np.uint8)
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+
+    return (png.SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) + chunk(b"IEND", b""))
+
+
+def _as_pil_reads(samples, color, depth):
+    """What PIL's array of a PNG of `samples` is (and so the port's reader
+    must give): 16-bit RGB(A) keeps the high bytes, 16-bit grey + alpha
+    becomes RGBA, 16-bit grey keeps its values, grey loses its channel."""
+    import numpy as np
+
+    if depth == 8:
+        samples = samples.astype(np.uint8)
+        return samples[..., 0] if color == 0 else samples
+    if color == 0:
+        return samples[..., 0].astype(np.uint16)
+    high = (samples >> 8).astype(np.uint8)
+    if color == 4:
+        return np.concatenate([high[..., :1].repeat(3, -1), high[..., 1:]], -1)
+    return high
+
+
+def _write(path, data):
+    import os
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def _render_spheres(torch, device, c2w, pixtocam, size, scale):
+    """The procedural spheres (SyntheticSpheres.SPHERES scaled by `scale`,
+    lambertian under its point light and ambient term) seen by each camera
+    of `c2w` [N, 3, 4] through `pixtocam` [3, 3] at size^2, on the card, one
+    view at a time: yields (rgb [size, size, 3] in [0, 1], alpha, the hit's
+    distance along the ray, 15 where none) as host arrays."""
+    from neural_radiance_caching_tpu_torch.data import camera_utils, datasets
+
+    ys, xs = torch.meshgrid(torch.arange(size, device=device, dtype=torch.float32),
+                            torch.arange(size, device=device, dtype=torch.float32),
+                            indexing="ij")
+    pix = torch.as_tensor(pixtocam, dtype=torch.float32, device=device)[None]
+    light = torch.as_tensor(datasets.SyntheticSpheres.LIGHT, device=device) * scale
+    ambient = datasets.SyntheticSpheres.AMBIENT
+    for pose in c2w:
+        cam = torch.as_tensor(pose, dtype=torch.float32, device=device)[None]
+        rays = camera_utils.pixels_to_rays(xs.reshape(-1), ys.reshape(-1), pix, cam)
+        origins, dirs = rays[0], rays[2]
+        best = torch.full(dirs.shape[:1], float("inf"), device=device)
+        rgb = torch.ones_like(dirs)
+        for center, radius, albedo in datasets.SyntheticSpheres.SPHERES:
+            center = torch.tensor(center, device=device) * scale
+            oc = origins - center
+            b = (oc * dirs).sum(-1)
+            disc = b * b - ((oc * oc).sum(-1) - (radius * scale) ** 2)
+            t = -b - torch.sqrt(disc.clamp(min=0))
+            hit = (disc > 0) & (t > 1e-3) & (t < best)
+            p = origins + t[:, None] * dirs
+            normal = (p - center) / (radius * scale)
+            to_light = light - p
+            lambert = ((normal * to_light).sum(-1, keepdim=True)
+                       / to_light.norm(dim=-1, keepdim=True)).clamp(min=0)
+            shade = torch.tensor(albedo, device=device) * (ambient + (1 - ambient) * lambert)
+            rgb = torch.where(hit[:, None], shade, rgb)
+            best = torch.where(hit, t, best)
+        alpha = torch.isfinite(best)
+        depth = torch.where(alpha, best, torch.full_like(best, 15.0))
+        yield (rgb.reshape(size, size, 3).cpu().numpy(),
+               alpha.reshape(size, size).float().cpu().numpy(),
+               depth.reshape(size, size).cpu().numpy())
+
+
+def _frames(poses, split, **meta):
+    import numpy as np
+
+    frames = []
+    for i, pose in enumerate(poses):
+        m = np.eye(4)
+        m[:3] = pose
+        frames.append({"file_path": f"./{split}/r_{i}", "transform_matrix": m.tolist()})
+    return dict(meta, frames=frames)
+
+
+def write_disk_scene(torch, device, scene, root, sizes, pool):
+    """`scene`'s capture layout in `root` at `sizes` (train views, test
+    views, resolution), the views rendered on the card and encoded by the
+    `pool`'s threads: hotdog as TensoIR's blender scenes (transforms JSONs
+    with camera_angle_x, 8-bit RGBA PNGs), orb_teapot as ORB's (per-frame
+    intrinsics, RGB FLOAT EXRs, 8-bit `{split}_mask` PNGs), nero_bell as
+    NeRO's glossy synthetic scenes (`{i}-camera.pkl`, 8-bit RGBA and 16-bit
+    depth PNGs, `../synthetic_split_128.pkl`). Returns (the data_dir, bytes
+    written, files)."""
+    import json
+    import os
+    import pickle
+
+    import numpy as np
+
+    from neural_radiance_caching_tpu_torch.data import camera_utils, exr
+
+    n_train, n_test, size = sizes
+    radius, scale = DISK_CAMERAS[scene]
+    jobs = []
+
+    def png_job(path, samples, color, depth):
+        jobs.append(pool.submit(lambda: _write(path, _png_bytes(samples, color, depth))))
+
+    if scene == "nero_bell":
+        data_dir = os.path.join(root, "bell")
+        n = n_train
+        test_ids = [str(i) for i in range(0, n, n // n_test)][:n_test]
+        _write(os.path.join(root, "synthetic_split_128.pkl"), pickle.dumps(
+            (test_ids, [str(i) for i in range(n) if str(i) not in test_ids])))
+        poses = camera_utils.generate_spherical_poses(n, radius=radius, seed=61)
+        k = np.array([[1.2 * size, 0, size / 2], [0, 1.2 * size, size / 2], [0, 0, 1]])
+        views = _render_spheres(torch, device, poses, np.linalg.inv(k), size, scale)
+        for i, (pose, (rgb, alpha, depth)) in enumerate(zip(poses, views)):
+            c2w_cv = np.eye(4)
+            c2w_cv[:3] = pose
+            c2w_cv = c2w_cv @ np.diag([1.0, -1.0, -1.0, 1.0])
+            _write(os.path.join(data_dir, f"{i}-camera.pkl"),
+                   pickle.dumps((np.linalg.inv(c2w_cv)[:3], k)))
+            rgba = np.concatenate([rgb, alpha[..., None]], -1)
+            png_job(os.path.join(data_dir, f"{i}.png"), np.round(rgba * 255), 6, 8)
+            png_job(os.path.join(data_dir, f"{i}-depth.png"),
+                    np.round(np.minimum(depth, 15.0) / 15 * 65535)[..., None], 0, 16)
+    else:
+        data_dir = root
+        for s, (split, n) in enumerate((("train", n_train), ("test", n_test))):
+            poses = camera_utils.generate_spherical_poses(n, radius=radius, seed=51 + s)
+            if scene == "hotdog":
+                focal = 0.5 * size / np.tan(0.5 * BLENDER_CAMERA_ANGLE_X)
+                meta = _frames(poses, split, camera_angle_x=BLENDER_CAMERA_ANGLE_X)
+            else:
+                focal = 1.2 * size
+                meta = _frames(poses, split, w=size, h=size)
+                for f in meta["frames"]:
+                    f.update(fl_x=focal, fl_y=focal, cx=size / 2, cy=size / 2)
+            _write(os.path.join(root, f"transforms_{split}.json"), json.dumps(meta).encode())
+            views = _render_spheres(torch, device, poses,
+                                    camera_utils.get_pixtocam(focal, size, size), size, scale)
+            for i, (rgb, alpha, _) in enumerate(views):
+                if scene == "hotdog":
+                    rgba = np.concatenate([rgb, alpha[..., None]], -1)
+                    png_job(os.path.join(root, split, f"r_{i}.png"), np.round(rgba * 255), 6, 8)
+                else:
+                    path = os.path.join(root, split, f"r_{i}.exr")
+                    os.makedirs(os.path.dirname(path), exist_ok=True)
+                    jobs.append(pool.submit(exr.write_exr, path, rgb * 1.5))
+                    png_job(os.path.join(root, f"{split}_mask", f"r_{i}.png"),
+                            np.round(alpha * 255)[..., None], 0, 8)
+    for job in jobs:
+        job.result()
+    files = [os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs]
+    return data_dir, sum(os.path.getsize(f) for f in files), len(files)
+
+
+_DISK_LOADERS = {"hotdog": "blender", "orb_teapot": "orb", "nero_bell": "glossy_synthetic"}
+
+
+def _disk_bindings(scene, data_dir):
+    """The scene's loader, data_dir and near plane over TRAINER_BINDINGS'
+    data-free ones."""
+    return (f"Config.dataset_loader = '{_DISK_LOADERS[scene]}'", f"Config.data_dir = '{data_dir}'",
+            f"Config.near = {DISK_NEAR[scene]}")
+
+
+def phase_disk_reference(torch, device, seed, tmp):
+    """The port's readers decode what the script's writers wrote, exactly:
+    PNGs of every colour type at 8 and 16 bits with the five filters in
+    turn (as PIL reads them) and FLOAT EXRs. Then each scene at
+    DISK_REFERENCE_SIZES: the loader serving the card gives the CPU
+    loader's first three batches bit for bit, and one cache step at
+    NGP_NARROW's widths (the scene's SLF narrowed) runs GPU against CPU
+    (`_gpu_vs_cpu_step`: every loss term, every gradient leaf, the CPU
+    noise floor, two faults planted in the leveled kernel where the step
+    launches it, every launch held against its plain version)."""
+    import concurrent.futures
+    import os
+
+    import numpy as np
+
+    from neural_radiance_caching_tpu_torch.data import datasets, exr, png
+    from neural_radiance_caching_tpu_torch.engine import configs, gin_config
+
+    rng = np.random.RandomState(seed)
+    decoded = {}
+    for color in sorted(png.CHANNELS):
+        for depth in (8, 16):
+            samples = rng.randint(0, 2**depth, (67, 45, png.CHANNELS[color]))
+            got = png.decode_png(_png_bytes(samples, color, depth))
+            want = _as_pil_reads(samples, color, depth)
+            decoded[f"type{color}_{depth}bit"] = bool(got.dtype == want.dtype
+                                                      and np.array_equal(got, want))
+    image = rng.uniform(-1, 5, (37, 29, 3)).astype(np.float32)
+    path = os.path.join(tmp, "check.exr")
+    exr.write_exr(path, image)
+    decoded["exr_float"] = bool(np.array_equal(exr.read_exr(path), image))
+    print(f"disk reference: the port's PNG reader on the script's PNGs (67x45, filters None, "
+          f"Sub, Up, Average, Paeth row by row) and its EXR reader on a FLOAT EXR, equal to what "
+          f"was written as PIL reads it: {decoded} {'ok' if all(decoded.values()) else 'FAIL'}",
+          flush=True)
+    if not all(decoded.values()):
+        raise AssertionError("the port's PNG or EXR reader disagrees with what was written")
+
+    out = {"decoded": decoded}
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        for scene, config_file in DISK_SCENES.items():
+            data_dir, _, _ = write_disk_scene(torch, device, scene,
+                                              os.path.join(tmp, "disk_reference", scene),
+                                              DISK_REFERENCE_SIZES[scene], pool)
+            data = _disk_bindings(scene, data_dir)
+            narrow = NGP_NARROW + ((_narrow_slf_binding(config_file),)
+                                   if scene != "hotdog" else ())
+            gin_config.clear_config()
+            configs.load_config(config_files=[config_file],
+                                bindings=list(TRAINER_BINDINGS + narrow + data))
+            config = configs.Config()
+            gin_config.clear_config()
+            loaded = [datasets.load_dataset("train", data_dir, config, device=dev)
+                      for dev in ("cpu", device)]
+            same = True
+            for _ in range(3):
+                want, got = (ds.next_train() for ds in loaded)
+                same &= all(
+                    (getattr(want.rays, f) is None and getattr(got.rays, f) is None)
+                    or torch.equal(getattr(got.rays, f).cpu(), getattr(want.rays, f))
+                    for f in ("origins", "directions", "viewdirs", "radii", "cam_idx"))
+                same &= torch.equal(got.rgb.cpu(), want.rgb) and torch.equal(
+                    got.masks.cpu(), want.masks)
+            served = (type(loaded[0]).__name__, tuple(loaded[0].images.shape))
+            del loaded
+            r = _gpu_vs_cpu_step(torch, device, seed, TRAINER_CACHE_STAGE + narrow + data,
+                                 config_file, launches=DISK_REFERENCE_LAUNCHES[scene],
+                                 terms=("data", "cache_data", "mask"))
+            ok = r["ok"] and same
+            print(f"disk reference ({scene}): {served[0]} loader on {config_file}'s layout "
+                  f"(images {list(served[1])}), the card's first three batches equal to the "
+                  f"CPU loader's={same}; the cache stage at reference widths (batch 64, 16 "
+                  f"samples per level), one step, the same weights, batch and draws, gpu vs cpu: "
+                  f"{_gpu_vs_cpu_text(r)}; the leveled calls against their plain version: "
+                  f"{_checked_text(r['checked']) or 'none launched'}; kernel launches "
+                  f"gpu={r['launches']} cpu={r['cpu_launches']} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                raise AssertionError(f"the {scene} scene's GPU step or batches disagree with "
+                                     "the CPU's")
+            out[scene] = {k: v for k, v in r.items()
+                          if k not in ("ok", "checked", "cpu_launches", "grad_rel_l2_errs")}
+    return out
+
+
+def _nero_launches(batch):
+    """nero's table-gradient launches per step at `batch`: the SLF's
+    reflectance grid at 8 points per final sample (planes from
+    PLANES_MIN_POINTS); no own grid."""
+    from neural_radiance_caching_tpu_torch.ops import hashgrid
+
+    points = batch * NGP_FINAL_SAMPLES * SLF_DISTANCE_SAMPLES
+    return {"planes": 1} if hashgrid.use_planes_layout(points, "mean") else {"leveled": 1}
+
+
+# Phase 34's runs: (scene, train_one_stage arguments, batches to try, the run
+# it warm-starts from, launches per step by kernel as a function of the
+# batch). The README's two hotdog stages (its second at batch 1024, its
+# eval chunk 1024), then the cache stages of the teapot and the bell.
+DISK_RUNS = (
+    ("hotdog", ("--scene", "hotdog", "-t", "cache"), (8192,), None, lambda batch: {}),
+    ("hotdog", ("--scene", "hotdog", "-t", "material_light_from_scratch_resample",
+                "--sample_factor", "8", "--render_chunk_size", "1024"), (1024,), "hotdog_cache",
+     lambda batch: {}),
+    ("orb_teapot", ("--scene", "teapot", "-t", "cache"), (8192, 4096, 2048), None,
+     _open_launches),
+    ("nero_bell", ("--scene", "nero_bell", "-t", "cache"), (8192, 4096, 2048), None,
+     _nero_launches),
+)
+
+
+def _timed_loading(stats):
+    """A patch of the Trainer's dataset loading that records into `stats`
+    its wall seconds (train and test splits), the PNG and EXR decodes in it
+    (count and seconds) and the host GiB of the loaded arrays."""
+    import numpy as np
+
+    from neural_radiance_caching_tpu_torch.data import exr, png
+    from neural_radiance_caching_tpu_torch.engine import trainer as trainer_lib
+
+    load = trainer_lib.Trainer._load_datasets
+    decodes = {"png": [], "exr": []}
+
+    def timed(fn, kind):
+        def read(path):
+            t0 = time.perf_counter()
+            out = fn(path)
+            decodes[kind].append(time.perf_counter() - t0)
+            return out
+        return read
+
+    def timed_load(self):
+        t0 = time.perf_counter()
+        with _patched(png, read_png=timed(png.read_png, "png")), \
+                _patched(exr, read_exr=timed(exr.read_exr, "exr")):
+            load(self)
+        stats.update(load_s=time.perf_counter() - t0, host_gib=sum(
+            v.nbytes for ds in (self.dataset, self.test_dataset) for v in vars(ds).values()
+            if isinstance(v, np.ndarray)) / 2**30)
+        for kind, times in decodes.items():
+            stats[f"{kind}_decodes"] = len(times)
+            stats[f"{kind}_decode_s"] = sum(times) / max(len(times), 1)
+
+    return trainer_lib.Trainer, {"_load_datasets": timed_load}
+
+
+def phase_disk_train(torch, device, seed, steps, smi, tmp):
+    """Each scene written at DISK_SIZES, then DISK_RUNS through the
+    train_with_trainer entry point as train_one_stage builds its command,
+    in-process, each at the largest of its batches that fits, 3 warmup +
+    the timed steps (the launch counts set to 0 before and read after),
+    reading its scene: the loading's wall seconds, decode seconds per image
+    and host GiB, ms per step, rays/s, peak GiB, launches per step, one
+    held-out view's PSNR; then one step with every scatter call held
+    against its plain version."""
+    import concurrent.futures
+    import gc
+    import os
+
+    from neural_radiance_caching_tpu_torch import train_one_stage
+    from neural_radiance_caching_tpu_torch.engine import gin_config
+
+    written = {}
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        for scene, sizes in DISK_SIZES.items():
+            t0 = time.perf_counter()
+            data_dir, nbytes, files = write_disk_scene(torch, device, scene,
+                                                       os.path.join(tmp, "disk", scene), sizes,
+                                                       pool)
+            written[scene] = dict(data_dir=data_dir, write_s=time.perf_counter() - t0,
+                                  gib=nbytes / 2**30, files=files, train_views=sizes[0],
+                                  test_views=sizes[1], resolution=sizes[2])
+            print(f"disk train: wrote {scene} ({DISK_SCENES[scene]}'s layout, {sizes[0]} train "
+                  f"+ {sizes[1]} test views at {sizes[2]}^2, rendered on the card): {files} "
+                  f"files, {nbytes / 2**30:.3f} GiB in {written[scene]['write_s']:.1f}s",
+                  flush=True)
+
+    warmup, results, ckpts = 3, {}, {}
+    for scene, argv, batches, warm_from, expected in DISK_RUNS:
+        stage = argv[argv.index("-t") + 1]
+        cut = []
+        for batch in batches:
+            ckpt = os.path.join(tmp, f"disk_{scene}_{stage}_{batch}")
+            command = train_one_stage.stage_command(
+                list(argv) + ["--batch_size", str(batch), "--device", device],
+                checkpoint_dir=ckpt, partial_checkpoint_dir=ckpts.get(warm_from))
+            command = [c for c in command[3:] if c != "--logtostderr"]
+            args = command + [f"--gin_bindings={b}" for b in _disk_bindings(
+                scene, written[scene]["data_dir"]) + (
+                f"Config.early_exit_steps = {warmup + steps}",
+                f"Config.print_every = {warmup + steps}",
+                f"Config.jax_rng_seed = {20200823 + seed}", "Trainer.save_results = False",
+                "Config.metric_harness_train_config = {'disable_lpips': True}")]
+            load = {}
+            try:
+                run = _entry_point_run(torch, args, None, ckpt, warmup, steps,
+                                       (_timed_loading(load),))
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                cut.append(_out_of_memory(torch, f"disk train ({scene} {stage})", batch, e))
+                del e
+                gin_config.clear_config()
+                gc.collect()
+                torch.cuda.empty_cache()
+        else:
+            raise AssertionError(f"no batch of {batches} fits {scene}'s {stage} stage")
+        trainer, dt, losses, log, total = (run["trainer"], run["step_s"], run["losses"],
+                                           run["log"], run["total"])
+        per_step = expected(batch)
+        calls, checked_launches, stats = _checked_step(torch, trainer, per_step)
+        terms = ("data", "cache_data") + (("mask",) if stage == "cache" else ())
+        finite = _finite(losses.values()) and all(f"loss/{k}" in losses for k in terms)
+        metrics = run["metrics"]
+        ok = (finite and run["saved"] == total
+              and run["launches"] == _launch_counts(**{k: n * total for k, n in per_step.items()})
+              and bool(torch.isfinite(stats["loss"])) and len(calls) == sum(per_step.values())
+              and all(c["ok"] for c in calls) and checked_launches == _launch_counts(**per_step)
+              and math.isfinite(metrics["psnr"]))
+        n_params = sum(p.numel() for p in trainer.model.parameters())
+        name = f"{scene}_{stage}"
+        print(f"disk train ({name}): train_with_trainer {' '.join(argv)} "
+              f"{'warm-started from ' + warm_from if warm_from else ''} ({n_params} params) on "
+              f"{written[scene]['train_views']} train views at {written[scene]['resolution']}^2 "
+              f"({type(trainer.dataset).__name__}: {trainer.dataset.num_images} images of "
+              f"{trainer.dataset.height}x{trainer.dataset.width}), {_cut_text(batch, batches, cut)}"
+              f", {warmup} warmup + {steps} timed steps: load {load['load_s']:.2f}s (train and "
+              f"test splits; {load['png_decodes']} PNG decodes at {load['png_decode_s']:.4f}s "
+              f"each, {load['exr_decodes']} EXR decodes at {load['exr_decode_s']:.4f}s each; "
+              f"{load['host_gib']:.3f} GiB of host arrays); step_ms={dt * 1e3:.2f} "
+              f"rays_per_s={batch / dt:.0f} (train_log rays_per_sec={log[-1]['rays_per_sec']:.0f} "
+              f"over steps 2-{total}) on [{smi}]; peak {run['peak_gib']:.2f} GiB; losses finite "
+              f"and present={finite} {losses}; checkpoint step {run['saved']}; kernel launches="
+              f"{run['launches']} (expected {per_step or 'none'} per step); held-out view "
+              f"{run['view']}: psnr={metrics['psnr']:.2f} in {run['eval_s']:.2f}s; checked step, "
+              f"every scatter call against its plain version (tol=|err|<={SUM_ORDER_TOL}"
+              f"*sum|w*ct|): " + ("; ".join(
+                  f"{c['kind']} idx{list(c['shape'])} max_abs_err={c['max_abs_err']:.3e} "
+                  f"{'ok' if c['ok'] else 'FAIL'}" for c in calls) or "none launched")
+              + f"; entry point {run['wall']:.1f}s {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"disk train phase failed ({name})")
+        results[name] = dict(
+            step_ms=dt * 1e3, rays_per_s=batch / dt, train_log_rays_per_s=log[-1]["rays_per_sec"],
+            peak_gib=run["peak_gib"], batch=batch, cut=cut, steps=steps, warmup=warmup,
+            params=n_params, load=load, launches_by_kernel={
+                k: run["launches"][k] for k in ("leveled", "planes")},
+            launches_per_step_by_kernel=per_step, eval_view=run["view"],
+            eval_psnr=metrics["psnr"], eval_s=run["eval_s"], entry_point_s=run["wall"],
+            losses=losses, max_abs_err_by_kernel={
+                k: max(c["max_abs_err"] for c in calls if c["kind"] == k) for k in per_step})
+        ckpts[name] = ckpt
+        del trainer, run, stats
+        gin_config.clear_config()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"written": written, **results}
+
+
 def _profile(torch, train_step, state, rng, batches, path, steps=3):
     """Device time by kernel over `steps` steps, as a table written to `path`."""
     import pathlib
@@ -3675,6 +4218,8 @@ def main():
         baseline_reference = phase_trainer_baseline_reference(torch, device, args.seed)
         baseline, baseline_paths = phase_trainer_baseline_train(
             torch, device, args.seed, args.trainer_steps, smi, tmp)
+        disk_reference = phase_disk_reference(torch, device, args.seed, tmp)
+        disk = phase_disk_train(torch, device, args.seed, args.trainer_steps, smi, tmp)
     print(f"phases done in {time.perf_counter() - t_start:.1f}s, build included", flush=True)
 
     csrc = "neural_radiance_caching_tpu_torch/csrc"
@@ -3715,9 +4260,19 @@ def main():
     leveled_launches.update(baseline_leveled)
     baseline_planes = {f"trainer_{run}": r["launches_by_kernel"].get("planes", 0)
                        for run, r in baseline.items()}
+    disk_runs = {run: r for run, r in disk.items() if run != "written"}
+    disk_leveled = {
+        **{f"trainer_disk_reference_{scene}": disk_reference[scene]["launches"]
+           for scene in DISK_SCENES},
+        **{f"trainer_disk_{run}": r["launches_by_kernel"]["leveled"]
+           for run, r in disk_runs.items()}}
+    leveled_launches.update(disk_leveled)
+    disk_planes = {f"trainer_disk_{run}": r["launches_by_kernel"]["planes"]
+                   for run, r in disk_runs.items()}
     other_paths = {"trainer_transient_train": 0, "trainer_transient_occlusions": 0,
                    **{k: 0 for k in tmat_paths}, **{k: 0 for k in slf_paths},
-                   **{k: 0 for k in invprop_paths}, **{k: 0 for k in baseline_leveled}}
+                   **{k: 0 for k in invprop_paths}, **{k: 0 for k in baseline_leveled},
+                   **{k: 0 for k in disk_leveled}}
     print(json.dumps({"kernels": [{
         "name": "scatter_add_weighted_leveled",
         "route": "cuda",
@@ -3736,7 +4291,10 @@ def main():
                            *(r["max_abs_err"] for r in invprop.values()),
                            *(baseline_reference[scene]["max_abs_err"]
                              for scene in BASELINE_SCENES),
-                           *(r["max_abs_err_by_kernel"]["leveled"] for r in baseline.values())),
+                           *(r["max_abs_err_by_kernel"]["leveled"] for r in baseline.values()),
+                           *(disk_reference[scene]["max_abs_err"] for scene in DISK_SCENES),
+                           *(r["max_abs_err_by_kernel"].get("leveled", 0.0)
+                             for r in disk_runs.values())),
         "max_abs_err_by_shape": {"cache": kernel["max_abs_err"],
                                  "material_path": material_err["leveled"],
                                  "transient_path": transient["direct"]["max_abs_err"],
@@ -3757,7 +4315,13 @@ def main():
                                     baseline_reference[scene]["max_abs_err"]
                                     for scene in BASELINE_SCENES},
                                  **{f"trainer_{run}_path": r["max_abs_err_by_kernel"]["leveled"]
-                                    for run, r in baseline.items()}},
+                                    for run, r in baseline.items()},
+                                 **{f"trainer_disk_reference_{scene}_path":
+                                    disk_reference[scene]["max_abs_err"]
+                                    for scene in DISK_SCENES if disk_reference[scene]["launches"]},
+                                 **{f"trainer_disk_{run}_path": r["max_abs_err_by_kernel"][
+                                     "leveled"] for run, r in disk_runs.items()
+                                    if "leveled" in r["max_abs_err_by_kernel"]}},
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
         "library_ms": kernel["library_ms"],
@@ -3797,18 +4361,23 @@ def main():
         "route": "cuda",
         "source": f"{csrc}/scatter_weighted.cu",
         "replaces": f"{replaces}:364",
-        "launches": material["planes"] + sum(baseline_planes.values()),
+        "launches": material["planes"] + sum(baseline_planes.values())
+        + sum(disk_planes.values()),
         "launches_by_path": {"cache_train": 0, "material_train": material["planes"],
                              "transient_train": 0, "transient_train_dedup": 0, "gate": 0,
                              "eval_render": 0, "transient_material": 0, "trainer_train": 0,
-                             "trainer_material_train": 0, **other_paths, **baseline_planes},
+                             "trainer_material_train": 0, **other_paths, **baseline_planes,
+                             **disk_planes},
         "max_abs_err": max(planes["max_abs_err"], material_err["planes"],
                            *(r["max_abs_err_by_kernel"].get("planes", 0.0)
-                             for r in baseline.values())),
+                             for r in [*baseline.values(), *disk_runs.values()])),
         "max_abs_err_by_shape": {"planes_shape": planes["max_abs_err"],
                                  "material_path": material_err["planes"],
                                  **{f"trainer_{run}_path": r["max_abs_err_by_kernel"]["planes"]
                                     for run, r in baseline.items()
+                                    if "planes" in r["max_abs_err_by_kernel"]},
+                                 **{f"trainer_disk_{run}_path": r["max_abs_err_by_kernel"][
+                                     "planes"] for run, r in disk_runs.items()
                                     if "planes" in r["max_abs_err_by_kernel"]}},
         "ms": planes["ms"],
         "plain_ms": planes["plain_ms"],
@@ -3856,6 +4425,7 @@ def main():
         "slf_reference_leveled_launches_per_step": _TRAINER_SLF_LAUNCHES_PER_STEP["leveled"],
         "invprop_train": invprop, "invprop_reference": invprop_reference,
         "baseline_train": baseline, "baseline_reference": baseline_reference,
+        "disk_train": disk, "disk_reference": disk_reference,
         "device": smi}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
-"""Camera math for the procedural scene (counterpart of the perspective part
-of ``data/camera_utils.py``): rays cast from numpy pixels on the host (the
+"""Camera math (counterpart of the perspective part of
+``data/camera_utils.py``): rays cast from numpy pixels on the host (the
 renderings, the eval views, batches of a config that casts outside the
 step) or from tensor pixels on their device (``Config.cast_rays_in_train_step``,
-the JAX step's jnp casting)."""
+the JAX step's jnp casting); the loaders' intrinsics and pose recentring."""
 
 from __future__ import annotations
+
+import enum
 
 import numpy as np
 import torch
@@ -12,11 +14,65 @@ import torch
 from neural_radiance_caching_tpu_torch.utils import pytrees, torchutil
 
 
+class ProjectionType(enum.Enum):
+    """The loaders' camera models; only PERSPECTIVE casts rays in the port."""
+
+    PERSPECTIVE = "perspective"
+    FISHEYE = "fisheye"
+    FISHEYE_EQUISOLID = "fisheye_equisolid"
+    PANORAMIC = "pano"
+
+
 def get_pixtocam(focal, width, height):
     """Inverse intrinsic matrix for a centered pinhole camera."""
     camtopix = np.array(
         [[focal, 0, 0.5 * width], [0, focal, 0.5 * height], [0, 0, 1]], dtype=np.float32)
     return np.linalg.inv(camtopix)
+
+
+def intrinsic_matrix(fx, fy, cx, cy):
+    """Intrinsic matrix from focal lengths and principal point."""
+    return np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], dtype=np.float32)
+
+
+def pad_poses(p):
+    """[..., 3, 4] -> [..., 4, 4] with a bottom (0, 0, 0, 1) row."""
+    bottom = np.broadcast_to([0, 0, 0, 1.0], p[..., :1, :4].shape)
+    return np.concatenate([p[..., :3, :4], bottom], axis=-2)
+
+
+def unpad_poses(p):
+    return p[..., :3, :4]
+
+
+def viewmatrix(lookdir, up, position):
+    """Camera-to-world from a viewing direction, an up vector (made
+    orthogonal) and a position."""
+
+    def normalize(x):
+        return x / (np.linalg.norm(x) + 1e-12)
+
+    vec1 = normalize(up)
+    vec2 = normalize(lookdir)
+    vec0 = normalize(np.cross(vec1, vec2))
+    vec1 = normalize(np.cross(vec2, vec0))
+    return np.stack([vec0, vec1, vec2, position], axis=1)
+
+
+def average_pose(poses):
+    """Mean camera pose (mip-NeRF 360 recentring)."""
+    position = poses[:, :3, 3].mean(0)
+    z_axis = poses[:, :3, 2].mean(0)
+    up = poses[:, :3, 1].mean(0)
+    return viewmatrix(z_axis, up, position)
+
+
+def recenter_poses(poses):
+    """Recentre around the average pose; returns (poses, transform [4, 4])."""
+    cam2world = average_pose(poses)
+    transform = np.linalg.inv(pad_poses(cam2world[None])[0])
+    poses = transform @ pad_poses(poses)
+    return unpad_poses(poses), transform
 
 
 def pixel_coordinates(width, height):

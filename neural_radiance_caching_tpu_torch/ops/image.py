@@ -1,5 +1,6 @@
 """Colour-space transfer and image metrics (counterpart of ``ops/image.py``:
-``linear_to_srgb``, ``mse_to_psnr``, ``psnr``, ``ssim`` and
+``linear_to_srgb``, ``srgb_to_linear`` (on host arrays, for the loaders),
+``mse_to_psnr``, ``psnr``, ``ssim`` and
 ``MetricHarness``).
 
 SSIM is Wang et al. 2004 with the 11-tap, sigma 1.5 Gaussian window, blurred
@@ -25,6 +26,18 @@ def linear_to_srgb(linear, eps=None):
     srgb0 = 323 / 25 * linear
     srgb1 = (211 * torch.clamp(linear, min=eps) ** (5 / 12) - 11) / 200
     return torch.where(linear <= 0.0031308, srgb0, srgb1)
+
+
+def srgb_to_linear(srgb, eps=None):
+    """sRGB -> linear transfer of a host array (the loaders' colour
+    conversion), as the JAX function computes it on one: the affine parts in
+    the input's dtype, the power in float32; a float32 result."""
+    if eps is None:
+        eps = _F32_EPS
+    srgb = np.asarray(srgb)
+    linear0 = (25 / 323 * srgb).astype(np.float32)
+    linear1 = np.maximum(np.float32(eps), ((200 * srgb + 11) / 211).astype(np.float32)) ** (12 / 5)
+    return np.where(srgb <= 0.04045, linear0, linear1)
 
 
 def mse_to_psnr(mse):

@@ -232,8 +232,9 @@ def _ray_caster(config, dataset, model):
     if config.cast_rays_in_train_step and dataset is not None:
         device = next(model.parameters()).device
 
-        def on_device(x):
-            return torch.as_tensor(x, device=device)
+        def on_device(x):  # float64 host cameras become float32, as jnp.asarray makes them
+            t = torch.as_tensor(x)
+            return (t.float() if t.dtype == torch.float64 else t).to(device)
 
         cameras = tuple(on_device(c) for c in dataset.cameras)
         lights = on_device(dataset.lights)
