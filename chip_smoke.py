@@ -258,6 +258,31 @@ Phases, one line each (any failure exits nonzero):
      teapot 1 leveled + 1 planes, on the bell 1 planes per step at 8192),
      one held-out view's PSNR, and a step with every scatter call held
      against its plain version.
+ 35. transient disk reference: small scenes in the layouts of cornell's
+     (transient_simulation: the simulation's transforms JSONs, [H, W, bins,
+     3] frames) and statue_fwp's (fwp_transient_captured: per-frame
+     intrinsics, [H, W, bins] frames, a pulse .npy) captures, with the
+     pre-shuffled sample streams train_efficient/{x,y,samples,
+     file_indices}.h5, rendered on the card from the procedural spheres'
+     direct transients and written by the port's HDF5 writer (4 train
+     views' stream of 2048 rays, 2 test frames of 32^2 read at 8^2, the
+     reference widths' bins from bin 4): every file read back by the port's
+     reader equal to what was written; the card's first three batches and an
+     eval view equal to the CPU loader's bit for bit; one cache step at
+     reference widths GPU against CPU as phase 29 (1 leveled launch each);
+ 36. transient disk train: cornell's layout at full width (a stream of
+     131,072 rays x 700 bins x 3, one 512^2 test frame) and statue_fwp's
+     (65,536 rays x 3000 bins read from bin 1067, a Gaussian pulse of 85
+     bins, no calibration checkpoint), through the entry point: cornell's
+     cache stage at 8192, its material_light_from_scratch at 4096
+     warm-started from it, statue's cache stage at 4096 (each cut printed
+     if it runs out of memory); the write and load seconds, ms per step,
+     rays/s, peak GiB, leveled launches per step (1, 6, 1), next_train's
+     host ms, an eval view's seconds, a step with every leveled call held
+     against its plain version; then train_one_stage --vis_only on
+     cornell's cache checkpoint over its first view (512^2 x 700 bins):
+     results.txt, and the transient saved as h5 read back by the port's
+     reader equal to what was saved.
 Then the kernels JSON line, the eval JSON line, the transient material JSON
 line, the trainer JSON line, the nvidia-smi line, and the result line.
 """
@@ -465,6 +490,8 @@ def phase_kernel(torch, device, seed):
     del x, rows, weights
     ray_abs, _, ray_ok = check(r_idx, r_w, r_ct)
     ray = _kernel_vs_library("leveled", r_idx, r_w, r_ct, kw)
+    ray_plain_ms = _cuda_ms(
+        lambda: scatter_cuda.scatter_add_weighted_leveled_plain(r_idx, r_w, r_ct, **kw))
     print(f"kernel: scatter_add_weighted_leveled L={levels} P={points} U={corners} F={features} "
           f"rows={num_rows} (16^3 level: max {hot} updates on one row) "
           f"max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} "
@@ -473,12 +500,14 @@ def phase_kernel(torch, device, seed):
           f"{library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) (median of 11, CUDA events); "
           f"on camera-ray samples (8192 rays x 32): max_abs_err={ray_abs:.3e} same tol "
           f"{'ok' if ray_ok else 'FAIL'} kernel_ms={ray['kernel']:.4f} "
-          f"library_ms={ray['library']:.4f} (medians of 11 in 2 alternating turns)", flush=True)
+          f"library_ms={ray['library']:.4f} (medians of 11 in 2 alternating turns) "
+          f"plain_ms={ray_plain_ms:.4f}", flush=True)
     if not (ok and ray_ok):
         raise AssertionError("kernel disagrees with its plain version")
     return dict(max_abs_err=max(max_abs, ray_abs), ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                camera_ray_ms=ray["kernel"], camera_ray_library_ms=ray["library"])
+                camera_ray_ms=ray["kernel"], camera_ray_library_ms=ray["library"],
+                camera_ray_plain_ms=ray_plain_ms)
 
 
 def phase_encoder(torch, device, seed):
@@ -1208,6 +1237,7 @@ def phase_kernel_rows(torch, device, seed):
     skip_ms = _cuda_ms(lambda: scatter_cuda.scatter_add_weighted_leveled(idx, keep, upd, **skip_kw))
     undedup = _alternating_ms({"kernel": lambda: rows_kernel(idx, raw, **kw),
                                "library": _index_add_call(idx, raw, num_rows)})
+    undedup_plain_ms = _cuda_ms(lambda: plain(idx, raw, **kw))
     host = {"kernel": _host_ms(torch, lambda: rows_kernel(idx, g, **kw)),
             "library": _host_ms(torch, _index_add_call(idx, g, num_rows))}
     n = levels * points * corners
@@ -1225,14 +1255,15 @@ def phase_kernel_rows(torch, device, seed):
           f"bound_ms={bound_ms:.4f} ({bound_by}) (median of 11, CUDA events); before the "
           f"dedup scan: kernel_ms={undedup['kernel']:.4f} library_ms={undedup['library']:.4f} "
           f"ratio={undedup['kernel'] / undedup['library']:.3f} (medians of 11 in 2 alternating "
-          f"turns); host time of one call (no sync): kernel {host['kernel']:.4f} ms, library "
+          f"turns) plain_ms={undedup_plain_ms:.4f}; host time of one call (no sync): kernel {host['kernel']:.4f} ms, library "
           f"{host['library']:.4f} ms", flush=True)
     if not ok:
         raise AssertionError("the row scatter disagrees with its plain version")
     return dict(launches=launched, max_abs_err=max(max_abs, raw_abs), ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                 skip_same_stream_ms=skip_ms, undedup_ms=undedup["kernel"],
-                undedup_library_ms=undedup["library"], host_ms=host["kernel"],
+                undedup_library_ms=undedup["library"], undedup_plain_ms=undedup_plain_ms,
+                host_ms=host["kernel"],
                 library_host_ms=host["library"])
 
 
@@ -3713,42 +3744,53 @@ def _write(path, data):
         f.write(data)
 
 
-def _render_spheres(torch, device, c2w, pixtocam, size, scale):
+def _trace_spheres(torch, device, origins, dirs, scale):
     """The procedural spheres (SyntheticSpheres.SPHERES scaled by `scale`,
-    lambertian under its point light and ambient term) seen by each camera
-    of `c2w` [N, 3, 4] through `pixtocam` [3, 3] at size^2, on the card, one
-    view at a time: yields (rgb [size, size, 3] in [0, 1], alpha, the hit's
-    distance along the ray, 15 where none) as host arrays."""
-    from neural_radiance_caching_tpu_torch.data import camera_utils, datasets
+    lambertian under its point light and ambient term) along rays
+    `origins`, `dirs` [N, 3] (unit) on the card: (rgb [N, 3] in [0, 1],
+    white where no sphere is hit; the hit mask; the hit's distance along the
+    ray, inf where none; the hit points)."""
+    from neural_radiance_caching_tpu_torch.data import datasets
+
+    light = torch.as_tensor(datasets.SyntheticSpheres.LIGHT, device=device) * scale
+    ambient = datasets.SyntheticSpheres.AMBIENT
+    best = torch.full(dirs.shape[:1], float("inf"), device=device)
+    rgb = torch.ones_like(dirs)
+    for center, radius, albedo in datasets.SyntheticSpheres.SPHERES:
+        center = torch.tensor(center, device=device) * scale
+        oc = origins - center
+        b = (oc * dirs).sum(-1)
+        disc = b * b - ((oc * oc).sum(-1) - (radius * scale) ** 2)
+        t = -b - torch.sqrt(disc.clamp(min=0))
+        hit = (disc > 0) & (t > 1e-3) & (t < best)
+        p = origins + t[:, None] * dirs
+        normal = (p - center) / (radius * scale)
+        to_light = light - p
+        lambert = ((normal * to_light).sum(-1, keepdim=True)
+                   / to_light.norm(dim=-1, keepdim=True)).clamp(min=0)
+        shade = torch.tensor(albedo, device=device) * (ambient + (1 - ambient) * lambert)
+        rgb = torch.where(hit[:, None], shade, rgb)
+        best = torch.where(hit, t, best)
+    alpha = torch.isfinite(best)
+    points = origins + torch.where(alpha, best, torch.zeros_like(best))[:, None] * dirs
+    return rgb, alpha, best, points
+
+
+def _render_spheres(torch, device, c2w, pixtocam, size, scale):
+    """The procedural spheres seen by each camera of `c2w` [N, 3, 4]
+    through `pixtocam` [3, 3] at size^2, on the card, one view at a time:
+    yields (rgb [size, size, 3] in [0, 1], alpha, the hit's distance along
+    the ray, 15 where none) as host arrays."""
+    from neural_radiance_caching_tpu_torch.data import camera_utils
 
     ys, xs = torch.meshgrid(torch.arange(size, device=device, dtype=torch.float32),
                             torch.arange(size, device=device, dtype=torch.float32),
                             indexing="ij")
     pix = torch.as_tensor(pixtocam, dtype=torch.float32, device=device)[None]
-    light = torch.as_tensor(datasets.SyntheticSpheres.LIGHT, device=device) * scale
-    ambient = datasets.SyntheticSpheres.AMBIENT
     for pose in c2w:
         cam = torch.as_tensor(pose, dtype=torch.float32, device=device)[None]
         rays = camera_utils.pixels_to_rays(xs.reshape(-1), ys.reshape(-1), pix, cam)
-        origins, dirs = rays[0], rays[2]
-        best = torch.full(dirs.shape[:1], float("inf"), device=device)
-        rgb = torch.ones_like(dirs)
-        for center, radius, albedo in datasets.SyntheticSpheres.SPHERES:
-            center = torch.tensor(center, device=device) * scale
-            oc = origins - center
-            b = (oc * dirs).sum(-1)
-            disc = b * b - ((oc * oc).sum(-1) - (radius * scale) ** 2)
-            t = -b - torch.sqrt(disc.clamp(min=0))
-            hit = (disc > 0) & (t > 1e-3) & (t < best)
-            p = origins + t[:, None] * dirs
-            normal = (p - center) / (radius * scale)
-            to_light = light - p
-            lambert = ((normal * to_light).sum(-1, keepdim=True)
-                       / to_light.norm(dim=-1, keepdim=True)).clamp(min=0)
-            shade = torch.tensor(albedo, device=device) * (ambient + (1 - ambient) * lambert)
-            rgb = torch.where(hit[:, None], shade, rgb)
-            best = torch.where(hit, t, best)
-        alpha = torch.isfinite(best)
+        rgb, alpha, best, _ = _trace_spheres(torch, device, rays[0], rays[2], scale)
         depth = torch.where(alpha, best, torch.full_like(best, 15.0))
         yield (rgb.reshape(size, size, 3).cpu().numpy(),
                alpha.reshape(size, size).float().cpu().numpy(),
@@ -4108,6 +4150,515 @@ def phase_disk_train(torch, device, seed, steps, smi, tmp):
     return {"written": written, **results}
 
 
+# Phases 35-36: InvProp's scenes in their captures' layout on disk, read by
+# the port's transient loaders through its own HDF5 reader: name -> (gin
+# file, loader, the config's near plane, camera radius and the spheres'
+# scale, so that every direct path lands inside the config's bins).
+TRANSIENT_DISK_SCENES = {
+    "cornell": (TRANSIENT_CONFIG, "transient_simulation", 0.7, 3.5, 1.0),
+    "statue_fwp": ("configs/transient_simulation_ngp_yobo_statue_fwp.gin",
+                   "fwp_transient_captured", 0.9, 10.0, 2.5),
+}
+_TRANSIENT_LOADER_CLASSES = {"transient_simulation": "TransientSimulation",
+                             "fwp_transient_captured": "FWPTransientCaptured"}
+# The layouts' sizes: train views (poses only: the streams hold their
+# samples), stream rays, stored bins (the window the config reads starts at
+# start_bin), test frames and their size, channels, the bins' exposure.
+# Phase 35's frames are 32^2, read at 8^2 (two halvings); its bins are the
+# reference widths' (64 for cornell, 96 for statue, whose filter has 83
+# taps) from start_bin 4.
+TRANSIENT_DISK_REFERENCE_SIZES = {
+    "cornell": dict(train_views=4, rays=2048, stored_bins=72, start_bin=4, test_views=2,
+                    size=32, test_size=32, channels=3, exposure=0.25),
+    "statue_fwp": dict(train_views=4, rays=2048, stored_bins=100, start_bin=4, test_views=2,
+                       size=32, test_size=32, channels=1, exposure=0.25),
+}
+# Phase 36's: cornell's stream of 131,072 rays x 700 bins x 3 (1.10 GB) and
+# one 512^2 test frame (2.20 GB); statue_fwp's stream of 65,536 rays x 3000
+# bins x 1 (0.79 GB), read from bin 1067, and one test frame at its eval
+# size, 128^2 (0.20 GB; a 512^2 one would be 3.1 GB). The captures' own ray
+# counts are not in the repository.
+TRANSIENT_DISK_SIZES = {
+    "cornell": dict(train_views=64, rays=131072, stored_bins=700, start_bin=0, test_views=1,
+                    size=512, test_size=512, channels=3, exposure=0.01),
+    "statue_fwp": dict(train_views=64, rays=65536, stored_bins=3000, start_bin=1067,
+                       test_views=1, size=512, test_size=128, channels=1,
+                       exposure=0.010376310322275158),
+}
+# statue's measured pulse (`./data/yobo/pulse.npy`, 85 bins) is not in the
+# repository: a Gaussian of its temporal filter's width stands in for it.
+PULSE_BINS, PULSE_SIGMA = 85, 10.21
+SIM_CAMERA_ANGLE_X = 0.6911112070083618
+FWP_FOCAL_512 = 614.4
+DATASET_SCALE = {"cornell": 200.0, "statue_fwp": 600.0}
+
+
+def _spheres_transients(torch, device, origins, dirs, scale, stored_bins, exposure, channels,
+                        gain):
+    """The spheres' direct transients along rays `origins`, `dirs` [N, 3]
+    on the card: each hit's shade times `gain`, split linearly between the
+    two bins around its path length (camera -> surface -> light) over
+    `exposure`; [N, stored_bins, channels]."""
+    from neural_radiance_caching_tpu_torch.data import datasets
+
+    rgb, alpha, t, points = _trace_spheres(torch, device, origins, dirs, scale)
+    light = torch.as_tensor(datasets.SyntheticSpheres.LIGHT, device=device) * scale
+    at = (t.nan_to_num(posinf=0.0) + (light - points).norm(dim=-1)) / exposure
+    inside = alpha & (at < stored_bins - 1)
+    b0 = at.floor().clamp(0, stored_bins - 2).long()
+    frac = (at - b0)[:, None]
+    value = (rgb if channels == 3 else rgb.mean(-1, keepdim=True)) * gain * inside[:, None]
+    out = torch.zeros((dirs.shape[0], stored_bins, channels), device=device)
+    rows = torch.arange(dirs.shape[0], device=device)
+    out[rows, b0] += value * (1 - frac)
+    out[rows, b0 + 1] += value * frac
+    return out
+
+
+def write_transient_scene(torch, device, scene, root, sizes, seed):
+    """`scene`'s capture layout in `root` at `sizes`, rendered on the card
+    and written by the port's HDF5 writer: `transforms_{train,test}.json`
+    (the simulation's camera_angle_x; the FWP rig's per-frame `camera`
+    matrices for 512 wide), one `data` frame per test view ([H, W, bins,
+    3], the FWP's [H, W, bins]) and the streams `train_efficient/
+    {x,y,samples,file_indices}.h5` (dataset `dataset`: random pixels of the
+    train views, int64 indices); statue's pulse `pulse.npy`. Returns (the
+    (path, dataset name, array) of each h5 file written, the bytes
+    written)."""
+    import json
+    import os
+
+    import numpy as np
+
+    from neural_radiance_caching_tpu_torch.data import camera_utils, hdf5
+
+    _, _, _, radius, scale = TRANSIENT_DISK_SCENES[scene]
+    kind = "sim" if scene == "cornell" else "fwp"
+    channels, stored, exposure = sizes["channels"], sizes["stored_bins"], sizes["exposure"]
+    gain = DATASET_SCALE[scene]
+    rng = np.random.RandomState(seed)
+    written = []
+    os.makedirs(root, exist_ok=True)
+
+    def pixtocam(width):
+        if kind == "sim":
+            focal = 0.5 * width / np.tan(0.5 * SIM_CAMERA_ANGLE_X)
+            return camera_utils.get_pixtocam(focal, width, width)
+        k = np.array([[FWP_FOCAL_512, 0, 256.0], [0, FWP_FOCAL_512, 256.0], [0, 0, 1]])
+        k = k / int(512 / width)
+        k[2, 2] = 1
+        return np.linalg.inv(k)
+
+    def write(path, name, array):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        hdf5.write_h5(path, name, array)
+        written.append((path, name, array))
+
+    def rays(c2w, pix_x, pix_y, width):
+        pix = torch.as_tensor(pixtocam(width), dtype=torch.float32, device=device)
+        cams = torch.as_tensor(c2w, dtype=torch.float32, device=device)
+        out = camera_utils.pixels_to_rays(pix_x.float(), pix_y.float(),
+                                          pix.expand(pix_x.shape[0], 3, 3), cams)
+        return out[0], out[2]
+
+    for s, split in enumerate(("train", "test")):
+        n = sizes[f"{split}_views"]
+        poses = camera_utils.generate_spherical_poses(n, radius=radius, seed=81 + s)
+        frames = []
+        for i, pose in enumerate(poses):
+            m = np.eye(4)
+            m[:3] = pose
+            frame = {"file_path": f"{split}/{'r_' if kind == 'sim' else '1_'}{i:02d}.h5",
+                     "transform_matrix": m.tolist()}
+            if kind == "fwp":
+                frame["camera"] = [[FWP_FOCAL_512, 0, 256.0], [0, FWP_FOCAL_512, 256.0],
+                                   [0, 0, 1]]
+            frames.append(frame)
+            if split == "test":
+                size = sizes["test_size"]
+                ys, xs = torch.meshgrid(torch.arange(size, device=device),
+                                        torch.arange(size, device=device), indexing="ij")
+                o, d = rays(np.repeat(pose[None], size * size, 0), xs.reshape(-1),
+                            ys.reshape(-1), size)
+                frame_t = _spheres_transients(torch, device, o, d, scale, stored, exposure,
+                                              channels, gain).reshape(size, size, stored,
+                                                                      channels)
+                host = frame_t.cpu().numpy()
+                del frame_t
+                write(os.path.join(root, frame["file_path"]), "data",
+                      host if kind == "sim" else host[..., 0])
+        meta = {"frames": frames}
+        if kind == "sim":
+            meta["camera_angle_x"] = SIM_CAMERA_ANGLE_X
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump(meta, f)
+        if split == "train":
+            train_poses = poses
+
+    n_rays, size = sizes["rays"], sizes["size"]
+    view = rng.randint(0, sizes["train_views"], n_rays)
+    x, y = rng.randint(0, size, n_rays), rng.randint(0, size, n_rays)
+    samples = np.empty((n_rays, stored, channels), np.float32)
+    block = 16384
+    for start in range(0, n_rays, block):
+        sl = slice(start, start + block)
+        o, d = rays(train_poses[view[sl]], torch.as_tensor(x[sl], device=device),
+                    torch.as_tensor(y[sl], device=device), size)
+        samples[sl] = _spheres_transients(torch, device, o, d, scale, stored, exposure,
+                                          channels, gain).cpu().numpy()
+    eff = os.path.join(root, "train_efficient")
+    for name, array in (("file_indices", view.astype(np.int64)), ("x", x.astype(np.int64)),
+                        ("y", y.astype(np.int64)), ("samples", samples)):
+        write(os.path.join(eff, f"{name}.h5"), "dataset", array)
+    if kind == "fwp":
+        taps = np.arange(PULSE_BINS) - PULSE_BINS // 2
+        pulse = np.exp(-0.5 * (taps / PULSE_SIGMA) ** 2)
+        np.save(os.path.join(root, "pulse.npy"), pulse / pulse.sum())
+    return written, sum(os.path.getsize(p) for p, _, _ in written)
+
+
+def _transient_disk_bindings(scene, data_dir, sizes, reference):
+    """The scene's loader, files and near plane (over TRAINER_BINDINGS'
+    data-free ones); at the reference sizes its frames and bins too."""
+    _, loader, near, _, _ = TRANSIENT_DISK_SCENES[scene]
+    out = (f"Config.dataset_loader = '{loader}'", f"Config.data_dir = '{data_dir}'",
+           f"Config.near = {near}")
+    if scene == "statue_fwp":
+        out += (f"Config.impulse_response = '{data_dir}/pulse.npy'",
+                f"Config.n_impulse_response_bins = {PULSE_BINS}",
+                "Config.calib_checkpoint = ''")
+    if reference:
+        out += (f"Config.width = {sizes['size']}", f"Config.height = {sizes['size']}",
+                "Config.test_width = 8", "Config.test_height = 8",
+                f"Config.start_bin = {sizes['start_bin']}",
+                f"Config.test_start_bin = {sizes['start_bin']}")
+    return out
+
+
+def _same_batch(torch, got, want):
+    """A batch served on the card against the CPU loader's, bit for bit:
+    its Pixels (or rays) and every supervision field."""
+    import dataclasses
+
+    pairs = [(getattr(got.rays, f.name), getattr(want.rays, f.name))
+             for f in dataclasses.fields(want.rays)]
+    pairs += [(getattr(got, f), getattr(want, f))
+              for f in ("rgb", "masks", "alphas", "impulse_response")]
+    return all((g is None and w is None) or (
+        g is not None and w is not None and torch.equal(torch.as_tensor(g).cpu(),
+                                                        torch.as_tensor(w)))
+               for g, w in pairs)
+
+
+def phase_transient_disk_reference(torch, device, seed, tmp):
+    """Small scenes in the layouts of cornell's (transient_simulation) and
+    statue_fwp's (fwp_transient_captured: per-frame intrinsics, single
+    channel, its pulse) captures, rendered on the card and written by the
+    port's HDF5 writer: each file read back by the port's reader equal to
+    what was written (whole, and the frames through the strided read that
+    an eval view makes); the first three batches and an eval view the card
+    gets equal to the CPU loader's; one cache step at reference widths GPU
+    against CPU (`_gpu_vs_cpu_step`; 1 leveled launch each)."""
+    import os
+
+    import numpy as np
+
+    from neural_radiance_caching_tpu_torch.data import datasets, hdf5
+    from neural_radiance_caching_tpu_torch.engine import configs, gin_config
+
+    out = {}
+    for scene, (config_file, loader, _, _, _) in TRANSIENT_DISK_SCENES.items():
+        sizes = TRANSIENT_DISK_REFERENCE_SIZES[scene]
+        root = os.path.join(tmp, "transient_reference", scene)
+        written, nbytes = write_transient_scene(torch, device, scene, root, sizes, seed)
+        round_trip = True
+        for path, name, array in written:
+            with hdf5.File(path) as f:
+                round_trip &= bool(np.array_equal(f[name][()], array))
+                if name == "data":
+                    round_trip &= bool(np.array_equal(f[name][::4, ::4, 4:68],
+                                                      array[::4, ::4, 4:68]))
+        narrow = TRANSIENT_NARROW if scene == "cornell" else INVPROP_NARROW
+        data = _transient_disk_bindings(scene, root, sizes, reference=True)
+        gin_config.clear_config()
+        configs.load_config(config_files=[config_file],
+                            bindings=list(TRAINER_BINDINGS + narrow + data))
+        config = configs.Config()
+        gin_config.clear_config()
+        same = True
+        for split in ("train", "test"):
+            loaded = [datasets.load_dataset(split, root, config, device=dev)
+                      for dev in ("cpu", device)]
+            for _ in range(3 if split == "train" else 1):
+                want, got = ((ds.next_train() if split == "train" else ds.generate_ray_batch(1))
+                             for ds in loaded)
+                same &= _same_batch(torch, got, want)
+            for ds in loaded:
+                ds.close()
+            served = type(loaded[0]).__name__
+        r = _gpu_vs_cpu_step(torch, device, seed, TRAINER_CACHE_STAGE + narrow + data,
+                             config_file, launches=1, terms=("data", "cache_data"))
+        ok = r["ok"] and same and round_trip
+        print(f"transient disk reference ({scene}): {served} loader on {config_file}'s layout "
+              f"({sizes['train_views']} train views' stream of {sizes['rays']} rays x "
+              f"{sizes['stored_bins']} bins x {sizes['channels']}, {sizes['test_views']} test "
+              f"frames of {sizes['test_size']}^2 read at 8^2, rendered on the card, "
+              f"{len(written)} files, {nbytes} bytes by the port's HDF5 writer): read back by "
+              f"its reader equal to what was written={round_trip}; the card's first three "
+              f"batches and an eval view equal to the CPU loader's={same}; the cache stage at "
+              f"reference widths (batch 64), one step, the same weights, batch and draws, gpu "
+              f"vs cpu: {_gpu_vs_cpu_text(r)}; the leveled call against its plain version: "
+              f"{_checked_text(r['checked'])}; kernel launches gpu={r['launches']} "
+              f"cpu={r['cpu_launches']} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"the {scene} transient scene's files, batches or GPU step "
+                                 "disagree")
+        out[scene] = {k: v for k, v in r.items()
+                      if k not in ("ok", "checked", "cpu_launches", "grad_rel_l2_errs")}
+    return out
+
+
+# Phase 36's runs through the entry point: (scene, stage, batches to try,
+# leveled launches per step). cornell's material stage warm-starts from its
+# cache stage; 8192 runs it out of memory (PR 11), as statue's cache stage.
+TRANSIENT_DISK_RUNS = (
+    ("cornell", "cache", (8192, 4096), 1),
+    ("cornell", "material_light_from_scratch", (4096, 2048), 6),
+    ("statue_fwp", "cache", (4096, 2048), 1),
+)
+
+
+def _host_timers(stats):
+    """Patches that record into `stats` the Trainer's dataset loading (wall
+    seconds) and every transient loader's `next_train` (host seconds, the
+    window's reads, the batch made and moved to the device)."""
+    from neural_radiance_caching_tpu_torch.data import datasets
+    from neural_radiance_caching_tpu_torch.engine import trainer as trainer_lib
+
+    load = trainer_lib.Trainer._load_datasets
+    stats["next_train_s"] = []
+
+    def timed_load(self):
+        t0 = time.perf_counter()
+        load(self)
+        stats["load_s"] = time.perf_counter() - t0
+
+    def timed_next(fn):
+        def next_train(self):
+            t0 = time.perf_counter()
+            batch = fn(self)
+            stats["next_train_s"].append(time.perf_counter() - t0)
+            return batch
+        return next_train
+
+    return ((trainer_lib.Trainer, {"_load_datasets": timed_load}),
+            *((cls, {"next_train": timed_next(cls.next_train)})
+              for cls in (datasets.TransientSimulation, datasets.FWPTransientCaptured)))
+
+
+def phase_transient_disk_train(torch, device, seed, steps, smi, tmp):
+    """cornell's and statue_fwp's layouts at TRANSIENT_DISK_SIZES, then
+    TRANSIENT_DISK_RUNS through the train_with_trainer entry point,
+    in-process, each at the largest of its batches that fits, 3 warmup + N
+    timed steps (the launch counts set to 0 before and read after), reading
+    its scene from disk: the write and load seconds, ms per step, rays/s,
+    peak GiB, leveled launches per step, next_train's host ms (drawn one
+    step ahead on the RayBatcher's thread), an eval view's seconds; one step
+    with every leveled call held against its plain version. Then the
+    README's evaluation command, train_one_stage --vis_only, on cornell's
+    cache checkpoint over its first view (Trainer.vis_end = 1): results.txt
+    and the view's transient saved as h5, read back by the port's reader
+    equal to what the trainer saved."""
+    import gc
+    import os
+
+    import numpy as np
+
+    from neural_radiance_caching_tpu_torch import train_one_stage, train_with_trainer
+    from neural_radiance_caching_tpu_torch.data import hdf5
+    from neural_radiance_caching_tpu_torch.engine import gin_config
+    from neural_radiance_caching_tpu_torch.engine import trainer as trainer_lib
+    from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+
+    written, roots = {}, {}
+    for scene, sizes in TRANSIENT_DISK_SIZES.items():
+        t0 = time.perf_counter()
+        roots[scene] = os.path.join(tmp, "transient_disk", scene)
+        files, nbytes = write_transient_scene(torch, device, scene, roots[scene], sizes, seed)
+        written[scene] = dict(write_s=time.perf_counter() - t0, gb=nbytes / 1e9,
+                              files=len(files), **sizes)
+        del files
+        gc.collect()
+        print(f"transient disk train: wrote {scene} ({TRANSIENT_DISK_SCENES[scene][0]}'s "
+              f"layout, rendered on the card, the port's HDF5 writer): a stream of "
+              f"{sizes['rays']} rays x {sizes['stored_bins']} bins x {sizes['channels']} over "
+              f"{sizes['train_views']} train views, {sizes['test_views']} test frame(s) of "
+              f"{sizes['test_size']}^2; {written[scene]['files']} files, "
+              f"{written[scene]['gb']:.3f} GB in {written[scene]['write_s']:.1f}s", flush=True)
+
+    warmup, results, ckpts = 3, {}, {}
+    for scene, stage, batches, per_step in TRANSIENT_DISK_RUNS:
+        config_file = TRANSIENT_DISK_SCENES[scene][0]
+        data = _transient_disk_bindings(scene, roots[scene], TRANSIENT_DISK_SIZES[scene],
+                                        reference=False)
+        cut = []
+        for batch in batches:
+            ckpt = os.path.join(tmp, f"transient_disk_{scene}_{stage}_{batch}")
+            common = data + (
+                f"Trainer.stage = '{stage}'", f"Config.batch_size = {batch}",
+                f"Config.checkpoint_dir = '{ckpt}'",
+                f"Config.early_exit_steps = {warmup + steps}",
+                f"Config.print_every = {warmup + steps}",
+                f"Config.jax_rng_seed = {20200823 + seed}", "Trainer.save_results = False",
+                "Config.metric_harness_train_config = {'disable_lpips': True}")
+            if stage != "cache":
+                common += TRANSIENT_MATERIAL_RECIPE + (
+                    f"Config.partial_checkpoint_dir = '{ckpts[scene]}'",)
+            args = ["--device", device, f"--gin_configs={config_file}"] + [
+                f"--gin_bindings={b}" for b in common]
+            host = {}
+            try:
+                run = _entry_point_run(torch, args, None, ckpt, warmup, steps,
+                                       _host_timers(host))
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                cut.append(_out_of_memory(torch, f"transient disk train ({scene} {stage})",
+                                          batch, e))
+                del e
+                gin_config.clear_config()
+                gc.collect()
+                torch.cuda.empty_cache()
+        else:
+            raise AssertionError(f"no batch of {batches} fits {scene}'s {stage} stage")
+        trainer, dt, losses, log, total = (run["trainer"], run["step_s"], run["losses"],
+                                           run["log"], run["total"])
+        calls, checked_launches, stats = _checked_step(torch, trainer, {"leveled": per_step})
+        trainer.dataset.close()
+        next_ms = 1e3 * np.array(host["next_train_s"])
+        finite = _finite(losses.values()) and all(f"loss/{k}" in losses
+                                                  for k in ("data", "cache_data"))
+        ok = (finite and run["saved"] == total
+              and run["launches"] == _launch_counts(leveled=per_step * total)
+              and bool(torch.isfinite(stats["loss"])) and len(calls) == per_step
+              and all(c["ok"] for c in calls)
+              and checked_launches == _launch_counts(leveled=per_step)
+              and type(trainer.dataset).__name__ == _TRANSIENT_LOADER_CLASSES[
+                  TRANSIENT_DISK_SCENES[scene][1]] and math.isfinite(run["metrics"]["psnr"]))
+        name = f"{scene}_{stage}"
+        cfg = trainer.config
+        print(f"transient disk train ({name}): train_with_trainer {config_file} {stage}"
+              f"{' warm-started from its cache stage' if stage != 'cache' else ''} reading "
+              f"its scene ({type(trainer.dataset).__name__}: the stream's bins "
+              f"{cfg.start_bin}-{cfg.start_bin + cfg.n_bins} x {cfg.num_rgb_channels}), "
+              f"{_cut_text(batch, batches, cut)}, {warmup} warmup + {steps} timed steps: load "
+              f"{host['load_s']:.3f}s; step_ms={dt * 1e3:.2f} rays_per_s={batch / dt:.0f} "
+              f"(train_log rays_per_sec={log[-1]['rays_per_sec']:.0f} over steps 2-{total}) "
+              f"on [{smi}]; peak {run['peak_gib']:.2f} GiB; next_train host ms (the RayBatcher "
+              f"thread, one step ahead; {len(next_ms)} calls) median="
+              f"{np.median(next_ms):.2f} max={next_ms.max():.2f}; losses finite and present="
+              f"{finite} {losses}; checkpoint step {run['saved']}; kernel launches="
+              f"{run['launches']} (expected {per_step} leveled per step); eval view "
+              f"{run['view']} read from its frame: psnr={run['metrics']['psnr']:.2f} in "
+              f"{run['eval_s']:.2f}s; checked step, every leveled call against its plain "
+              f"version (tol=|err|<={SUM_ORDER_TOL}*sum|w*ct|): "
+              + "; ".join(f"idx{list(c['shape'])} max_abs_err={c['max_abs_err']:.3e} "
+                          f"{'ok' if c['ok'] else 'FAIL'}" for c in calls)
+              + f"; entry point {run['wall']:.1f}s {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"transient disk train phase failed ({name})")
+        results[name] = dict(
+            step_ms=dt * 1e3, rays_per_s=batch / dt, train_log_rays_per_s=log[-1]["rays_per_sec"],
+            peak_gib=run["peak_gib"], batch=batch, cut=cut, steps=steps, warmup=warmup,
+            load_s=host["load_s"], next_train_host_ms_median=float(np.median(next_ms)),
+            next_train_host_ms_max=float(next_ms.max()), launches=run["launches"]["leveled"],
+            launches_per_step=per_step, eval_view=run["view"], eval_s=run["eval_s"],
+            eval_psnr=run["metrics"]["psnr"], entry_point_s=run["wall"], losses=losses,
+            max_abs_err=max(c["max_abs_err"] for c in calls))
+        if stage == "cache":
+            ckpts[scene] = ckpt
+        del trainer, run, stats
+        gin_config.clear_config()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # The README's evaluation command on cornell's cache checkpoint.
+    ckpt = ckpts["cornell"]
+    command = train_one_stage.stage_command(
+        ["--scene", "cornell", "-t", "cache", "--vis_only", "--device", device,
+         "--gin_bindings=Trainer.vis_end = 1"], checkpoint_dir=ckpt)
+    data = _transient_disk_bindings("cornell", roots["cornell"], TRANSIENT_DISK_SIZES["cornell"],
+                                    reference=False)
+    args = [c for c in command[3:] if c != "--logtostderr"] + [
+        f"--gin_bindings={b}" for b in data + (
+            "Config.metric_harness_train_config = {'disable_lpips': True}",)]
+    saved, views, renders = {}, [], []
+    write_h5, evaluate = hdf5.write_h5, trainer_lib.Trainer.log_test_set_evaluation
+    render = trainer_lib.Trainer.render_test_view
+
+    def timed_render(self, cam_idx, train_frac):
+        t0 = time.perf_counter()
+        out = render(self, cam_idx, train_frac)
+        renders.append(time.perf_counter() - t0)
+        return out
+
+    def keep(path, name, array):
+        saved[path] = array
+        write_h5(path, name, array)
+
+    def timed_eval(self, step, train_frac):
+        t0 = time.perf_counter()
+        metrics = evaluate(self, step, train_frac)
+        views.append(time.perf_counter() - t0)
+        return metrics
+
+    gin_config.clear_config()
+    torch.cuda.reset_peak_memory_stats()
+    scatter_cuda.reset_launch_count()
+    t0 = time.perf_counter()
+    with _patched(hdf5, write_h5=keep), _patched(
+            trainer_lib.Trainer, log_test_set_evaluation=timed_eval,
+            render_test_view=timed_render):
+        shown = train_with_trainer.main(args)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(scatter_cuda.launches)
+    shown.dataset.close()
+    lines = open(os.path.join(ckpt, "save", "results.txt")).read().splitlines()
+    metrics = {line.split(": ")[0]: json.loads(line.split(": ", 1)[1]) for line in lines}
+    path = os.path.join(ckpt, "save", "transients", "000000.h5")
+    with hdf5.File(path) as f:
+        back = f["data"][()]
+    cfg = shown.config
+    read_back = bool(path in saved and np.array_equal(back, saved[path]))
+    ok = (read_back and back.shape == (cfg.height, cfg.width, cfg.n_bins, 3)
+          and bool(np.isfinite(back).all()) and math.isfinite(metrics["psnr"][0])
+          and len(views) == len(renders) == 1 and shown.state.step == warmup + steps
+          and launches == _launch_counts())
+    print(f"transient disk vis_only: train_one_stage --scene cornell -t cache --vis_only "
+          f"(Trainer.vis_end = 1) on the cache checkpoint (step {shown.state.step}): the test "
+          f"view at Config.height x width = {cfg.height}x{cfg.width}, {cfg.n_bins} bins, with "
+          f"vis_only's shadow rays, render chunk {cfg.render_chunk_size}: results.txt "
+          f"psnr={metrics['psnr'][0]:.3f} ssim={metrics['ssim'][0]:.4f} transient_iou="
+          f"{metrics['transient_iou'][0]:.4f}; the eval view took {views[0]:.2f}s, its render "
+          f"{renders[0]:.2f}s (the frame's read and the host copies included), the metrics, "
+          f"vis suite and saves the rest, of the command's {wall:.1f}s; peak {peak:.2f} GiB; the "
+          f"saved transient {list(back.shape)} ({back.nbytes / 1e9:.2f} GB) read back by the "
+          f"port's reader equal to what was saved={read_back}; kernel launches={launches} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the vis_only evaluation of the cornell scene failed")
+    results["cornell_vis_only"] = dict(
+        view=f"{cfg.height}x{cfg.width}", n_bins=cfg.n_bins, eval_s_per_image=views[0],
+        render_s=renders[0],
+        command_s=wall, peak_gib=peak, psnr=metrics["psnr"][0], ssim=metrics["ssim"][0],
+        transient_iou=metrics["transient_iou"][0], saved_gb=back.nbytes / 1e9)
+    del shown, saved, back
+    gin_config.clear_config()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"written": written, **results}
+
+
 def _profile(torch, train_step, state, rng, batches, path, steps=3):
     """Device time by kernel over `steps` steps, as a table written to `path`."""
     import pathlib
@@ -4220,6 +4771,9 @@ def main():
             torch, device, args.seed, args.trainer_steps, smi, tmp)
         disk_reference = phase_disk_reference(torch, device, args.seed, tmp)
         disk = phase_disk_train(torch, device, args.seed, args.trainer_steps, smi, tmp)
+        transient_disk_reference = phase_transient_disk_reference(torch, device, args.seed, tmp)
+        transient_disk = phase_transient_disk_train(torch, device, args.seed, args.trainer_steps,
+                                                    smi, tmp)
     print(f"phases done in {time.perf_counter() - t_start:.1f}s, build included", flush=True)
 
     csrc = "neural_radiance_caching_tpu_torch/csrc"
@@ -4229,7 +4783,8 @@ def main():
               "products formed beforehand); camera_ray_*, per_level_*, path_* (the inputs "
               "one train step gave the kernel: planes from the material path, leveled from "
               "the transient path) and the rows kernel's undedup_* (its camera-ray updates "
-              "before the dedup scan) are kernel and index_add_ timed in 2 alternating turns; "
+              "before the dedup scan) are kernel and index_add_ timed in 2 alternating turns, "
+              "their *_plain_ms medians of 11 after; "
               "host_ms: host time of one call without a sync; "
               "bound_ms from the card's published HBM rate (3.35 TB/s) and float32 rate "
               "(67 TFLOP/s), each input read once and the output written once")
@@ -4269,10 +4824,19 @@ def main():
     leveled_launches.update(disk_leveled)
     disk_planes = {f"trainer_disk_{run}": r["launches_by_kernel"]["planes"]
                    for run, r in disk_runs.items()}
+    transient_disk_runs = {run: r for run, r in transient_disk.items()
+                           if run not in ("written", "cornell_vis_only")}
+    transient_disk_leveled = {
+        **{f"trainer_transient_disk_reference_{scene}": transient_disk_reference[scene][
+            "launches"] for scene in TRANSIENT_DISK_SCENES},
+        **{f"trainer_transient_disk_{run}": r["launches"]
+           for run, r in transient_disk_runs.items()},
+        "trainer_transient_disk_cornell_vis_only": 0}
+    leveled_launches.update(transient_disk_leveled)
     other_paths = {"trainer_transient_train": 0, "trainer_transient_occlusions": 0,
                    **{k: 0 for k in tmat_paths}, **{k: 0 for k in slf_paths},
                    **{k: 0 for k in invprop_paths}, **{k: 0 for k in baseline_leveled},
-                   **{k: 0 for k in disk_leveled}}
+                   **{k: 0 for k in disk_leveled}, **{k: 0 for k in transient_disk_leveled}}
     print(json.dumps({"kernels": [{
         "name": "scatter_add_weighted_leveled",
         "route": "cuda",
@@ -4294,7 +4858,10 @@ def main():
                            *(r["max_abs_err_by_kernel"]["leveled"] for r in baseline.values()),
                            *(disk_reference[scene]["max_abs_err"] for scene in DISK_SCENES),
                            *(r["max_abs_err_by_kernel"].get("leveled", 0.0)
-                             for r in disk_runs.values())),
+                             for r in disk_runs.values()),
+                           *(transient_disk_reference[scene]["max_abs_err"]
+                             for scene in TRANSIENT_DISK_SCENES),
+                           *(r["max_abs_err"] for r in transient_disk_runs.values())),
         "max_abs_err_by_shape": {"cache": kernel["max_abs_err"],
                                  "material_path": material_err["leveled"],
                                  "transient_path": transient["direct"]["max_abs_err"],
@@ -4321,7 +4888,12 @@ def main():
                                     for scene in DISK_SCENES if disk_reference[scene]["launches"]},
                                  **{f"trainer_disk_{run}_path": r["max_abs_err_by_kernel"][
                                      "leveled"] for run, r in disk_runs.items()
-                                    if "leveled" in r["max_abs_err_by_kernel"]}},
+                                    if "leveled" in r["max_abs_err_by_kernel"]},
+                                 **{f"trainer_transient_disk_reference_{scene}_path":
+                                    transient_disk_reference[scene]["max_abs_err"]
+                                    for scene in TRANSIENT_DISK_SCENES},
+                                 **{f"trainer_transient_disk_{run}_path": r["max_abs_err"]
+                                    for run, r in transient_disk_runs.items()}},
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
         "library_ms": kernel["library_ms"],
@@ -4330,6 +4902,7 @@ def main():
         "transient_shape_ms": skip["direct_route_ms"],
         "camera_ray_ms": kernel["camera_ray_ms"],
         "camera_ray_library_ms": kernel["camera_ray_library_ms"],
+        "camera_ray_plain_ms": kernel["camera_ray_plain_ms"],
         **leveled_path,
         "trainer_transient_path": trainer_transient["path"],
         **{f"trainer_{stage}_path": r["paths"]["leveled"] for stage, r in trainer_tmat.items()},
@@ -4426,6 +4999,8 @@ def main():
         "invprop_train": invprop, "invprop_reference": invprop_reference,
         "baseline_train": baseline, "baseline_reference": baseline_reference,
         "disk_train": disk, "disk_reference": disk_reference,
+        "transient_disk_train": transient_disk,
+        "transient_disk_reference": transient_disk_reference,
         "device": smi}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -166,13 +166,15 @@ def _pixels_to_rays_torch(pix_x_int, pix_y_int, pixtocams, camtoworlds, rng, jit
 
 
 def cast_ray_batch(cameras, lights, pixels: pytrees.Pixels, rng=None, jitter=0,
-                   impulse_response=None) -> pytrees.Rays:
+                   impulse_response=None, virtual_camtoworlds=None) -> pytrees.Rays:
     """Turn a Pixels batch into a Rays batch by indexing per-ray cameras.
 
     `cameras` is (pixtocams [N or 1, 3, 3], camtoworlds [N, 3, 4]); `lights`
     is [N_lights or N_cams, 3]: numpy arrays with numpy pixels, tensors on
     the pixels' device with tensor pixels. rng / jitter: the pixel jitter
     of ``pixels_to_rays``; impulse_response rides along on the rays.
+    virtual_camtoworlds [N, 3, 4], where given, sets the rays' virtual
+    camera (vcam_look, vcam_up, vcam_origins) in place of their own.
     """
     pixtocams, camtoworlds = cameras[0], cameras[1]
     cam_idx = pixels.cam_idx[..., 0]
@@ -184,6 +186,13 @@ def cast_ray_batch(cameras, lights, pixels: pytrees.Pixels, rng=None, jitter=0,
     (origins, directions, viewdirs, radii, imageplane, look, up, cam_origins,
      vcam_look, vcam_up, vcam_origins) = pixels_to_rays(
         pixels.pix_x_int, pixels.pix_y_int, pixtocam, camtoworld, rng=rng, jitter=jitter)
+    if virtual_camtoworlds is not None:
+        virtual = virtual_camtoworlds[cam_idx]
+        broadcast = (torch.broadcast_to if isinstance(virtual, torch.Tensor)
+                     else np.broadcast_to)
+        vcam_look, vcam_up, vcam_origins = (
+            broadcast(x, directions.shape)
+            for x in (-virtual[..., :3, 2], virtual[..., :3, 1], virtual[..., :3, -1]))
     return pytrees.Rays(
         origins=origins, directions=directions, viewdirs=viewdirs, radii=radii, lights=light,
         imageplane=imageplane, look=look, up=up, cam_origins=cam_origins,

@@ -1,13 +1,17 @@
 """Datasets and ray batching (counterpart of ``data/datasets.py``): the
 loaders of posed images on disk ``blender``, ``blender_active``, ``orb``
-and ``glossy_synthetic``, and the procedural ``SyntheticSpheres`` scene;
-``load_dataset`` raises naming any other loader.
+and ``glossy_synthetic``, of transient captures on disk
+``transient_simulation`` and ``fwp_transient_captured``, and the
+procedural ``SyntheticSpheres`` scene; ``load_dataset`` raises naming any
+other loader.
 
-Each loader reads its images on the host (the port's own PNG and EXR
-readers, ``data/io.py``) into the same arrays as the JAX loader, and
-batches are drawn with the same numpy RandomState stream as the JAX
-package, so both packages see identical batches: random pixels of the
-stacked images, or of the flattened pixel table (``GlossySynthetic``).
+Each loader reads its images on the host (the port's own PNG, EXR and
+HDF5 readers, ``data/io.py``, ``data/hdf5.py``) into the same arrays as
+the JAX loader, and batches are drawn with the same numpy RandomState
+stream as the JAX package, so both packages see identical batches: random
+pixels of the stacked images, of the flattened pixel table
+(``GlossySynthetic``), or a random window of the transient loaders'
+pre-shuffled h5 sample streams.
 Rays are cast on the host, or, with ``Config.cast_rays_in_train_step``, a
 batch holds its Pixels and the train step casts them; ``next_train`` moves
 the batch to the dataset's device, the card unless the caller passes
@@ -25,7 +29,7 @@ import pickle
 import numpy as np
 import torch
 
-from neural_radiance_caching_tpu_torch.data import camera_utils
+from neural_radiance_caching_tpu_torch.data import camera_utils, hdf5
 from neural_radiance_caching_tpu_torch.data import io as io_lib
 from neural_radiance_caching_tpu_torch.ops import image as image_ops
 from neural_radiance_caching_tpu_torch.utils import pytrees, torchutil
@@ -36,20 +40,17 @@ LOADERS = ("blender", "blender_active", "transient_simulation", "transient_simul
            "fwp_transient_captured", "orb", "open_illum", "neilf", "real", "fipt_real",
            "fipt_synthetic", "glossy_real", "glossy_synthetic", "llff", "tat_nerfpp", "tat_fvs",
            "dtu", "rtmv", "pixelrig", "aerial", "preloaded", "synthetic_spheres")
-# The loaders that read h5 captures through h5py, which the card's machine lacks.
-H5_LOADERS = ("transient_simulation", "transient_simulation_itof", "fwp_transient_captured")
 
 
 def load_dataset(split, data_dir, config, device="cuda", **kwargs):
     """Dataset dispatcher on Config.dataset_loader."""
     name = config.dataset_loader
     loaders = {"blender": Blender, "blender_active": BlenderActive, "orb": ORB,
-               "glossy_synthetic": GlossySynthetic, "synthetic_spheres": SyntheticSpheres}
+               "glossy_synthetic": GlossySynthetic, "synthetic_spheres": SyntheticSpheres,
+               "transient_simulation": TransientSimulation,
+               "fwp_transient_captured": FWPTransientCaptured}
     if name in loaders:
         return loaders[name](split, data_dir, config, device=device, **kwargs)
-    if name in H5_LOADERS:
-        raise NotImplementedError(f"the {name!r} dataset loader is not ported yet (it reads "
-                                  "h5 captures through h5py)")
     if name in LOADERS:
         raise NotImplementedError(f"the {name!r} dataset loader is not ported yet")
     raise KeyError(f"unknown dataset loader {name!r}")
@@ -142,6 +143,46 @@ def load_ngp_posedata(config, data_dir, pose_file_name="transforms.json"):
     return names, camtoworlds, pixtocams, distortions, _meta_camtype(meta), nameprefixes
 
 
+def load_fwp_posedata(config, data_dir, pose_file_name="transforms.json", frame_step=1):
+    """The FWP rig's transforms JSON: as ``load_ngp_posedata``, with each
+    frame's `camera` intrinsic matrix (float64) divided by `512 / width`
+    (its [2, 2] kept 1) and inverted, every `frame_step`-th frame, and the
+    names' extension ".h5"."""
+    with open(os.path.join(data_dir, pose_file_name)) as f:
+        meta = json.load(f)
+    frames = meta["frames"]
+    if not isinstance(frames, list):
+        frames = [frames[k] for k in sorted(frames.keys())]
+    if config.num_dataset_images > 0:
+        frames = frames[: config.num_dataset_images]
+
+    def extract_intrinsics(frame):
+        if "camera" not in frame:
+            return None
+        intrinsics = np.array(frame["camera"], np.float64) / int(512 / config.width)
+        intrinsics[2, 2] = 1
+        return np.linalg.inv(intrinsics)
+
+    names, nameprefixes, camtoworlds, pixtocams, distortions = [], [], [], [], []
+    for frame in frames[::frame_step]:
+        filepath = frame["file_path"]
+        nameprefixes.append(filepath)
+        names.append(os.path.splitext(os.path.basename(filepath))[0] + ".h5")
+        camtoworlds.append(np.array(frame["transform_matrix"], np.float32))
+        pixtocams.append(extract_intrinsics(frame))
+        distortions.append(_extract_distortion(frame))
+    camtoworlds = np.stack(camtoworlds, axis=0).astype(np.float32)
+    if pixtocams[0] is None:
+        pixtocams = extract_intrinsics(meta)
+    else:
+        pixtocams = np.stack(pixtocams, axis=0)
+    if distortions[0] is None:
+        distortions = _extract_distortion(meta)
+    else:
+        distortions = {k: np.array([d[k] for d in distortions]) for k in distortions[0]}
+    return names, camtoworlds, pixtocams, distortions, _meta_camtype(meta), nameprefixes
+
+
 def flatten_data(images, dim=3):
     """Image list -> (pixels [P, dim], indices [P, 3] of (image, x, y))."""
 
@@ -186,6 +227,9 @@ class Dataset:
         self._load_env_map = config.compute_relight_metrics
         self.images = None
         self.camtoworlds = None
+        # The rays' virtual camera (their vcam_* fields) where it is not
+        # their own: the fixed light's frame under ``Config.fixed_light``.
+        self.virtual_camtoworlds = None
         self.pixtocams = None
         self.distortion_params = None
         self.camtype = camera_utils.ProjectionType.PERSPECTIVE
@@ -222,14 +266,15 @@ class Dataset:
     def cameras(self):
         return (self.pixtocams, self.camtoworlds)
 
-    def _make_pixels(self, cam_idx, pix_x, pix_y, light_idx=None):
+    def _make_pixels(self, cam_idx, pix_x, pix_y, lossmult=None, light_idx=None):
         n = pix_x.shape[0]
         if light_idx is None:
             light_idx = np.zeros((n, 1), np.int32)
         return pytrees.Pixels(
             pix_x_int=pix_x,
             pix_y_int=pix_y,
-            lossmult=np.ones((n, 1), np.float32),
+            lossmult=(np.ones((n, 1), np.float32) if lossmult is None
+                      else lossmult.reshape(n, 1).astype(np.float32)),
             near=np.full((n, 1), self.near, np.float32),
             far=np.full((n, 1), self.far, np.float32),
             cam_idx=cam_idx.reshape(n, 1).astype(np.int32),
@@ -244,7 +289,8 @@ class Dataset:
         if self.config.cast_rays_in_train_step:
             return pixels
         return camera_utils.cast_ray_batch(self.cameras, self.lights, pixels,
-                                           impulse_response=self.impulse_response)
+                                           impulse_response=self.impulse_response,
+                                           virtual_camtoworlds=self.virtual_camtoworlds)
 
     def _gather_batch(self, cam_idx, pix_x, pix_y):
         def gather(x):
@@ -462,6 +508,174 @@ class GlossySynthetic(Dataset):
         self.camtoworlds = camtoworlds
         self.pixtocams = pixtocams.astype(np.float32)
         self.lights = self.camtoworlds[..., :3, -1]
+
+
+# --- transient captures -----------------------------------------------------------------
+
+
+class TransientSimulation(Dataset):
+    """Simulated time-resolved captures: the train split is a random
+    contiguous window of the pre-shuffled sample streams
+    `train_efficient/{x,y,samples,file_indices}.h5` (kept open for the
+    loader's life, read a window at a time); an eval view is one frame's
+    `data` volume [H, W, bins(, C)], its bins from `Config.test_start_bin`,
+    decimated by 2 per halving down to the split's height. The test split
+    takes `Config.test_height` / `test_width`, or `height` / `width` under
+    `Config.vis_only`. `self.images` is a zero view that only carries the
+    shapes, as JAX's zero stack does."""
+
+    def _split_size(self, config):
+        if self.split == "train" or config.vis_only:
+            return config.height, config.width
+        return config.test_height, config.test_width
+
+    def _pose_file_name(self, config, all_name):
+        if config.eval_path and self.split == "test":
+            return "transforms_path2.json"
+        if config.eval_train:
+            return all_name
+        return f"transforms_{self.split}.json"
+
+    def _open_streams(self):
+        eff = os.path.join(self.data_dir, "train_efficient")
+        self._streams = {name: hdf5.File(os.path.join(eff, f"{name}.h5"))["dataset"]
+                         for name in ("x", "y", "samples", "file_indices")}
+
+    def _load_impulse_response(self, config):
+        if config.impulse_response:
+            ir = np.load(config.impulse_response)
+            ir = ir[config.impulse_response_start_bin:
+                    config.impulse_response_start_bin + config.n_impulse_response_bins]
+            self.impulse_response = ir[::-1].copy()
+
+    def _load_renderings(self, config):
+        self.height, self.width = self._split_size(config)
+        self._pose_file = self._pose_file_name(config, "transforms_train.json")
+        _, camtoworlds, pixtocams, distortions, camtype, _ = load_ngp_posedata(
+            config, self.data_dir, self._pose_file)
+        if self.split == "train":
+            self._open_streams()
+        self.camtoworlds = camtoworlds[:, :3, :4]
+        self.pixtocams = pixtocams
+        self.distortion_params = distortions
+        self.camtype = camtype
+        self.lights = self.camtoworlds[..., :3, -1]
+        if config.fixed_light and config.light_transforms:
+            light = np.array(config.light_transforms[config.light_transform_idx], np.float32)
+            self.lights = np.tile(light[:3, -1][None], (self.lights.shape[0], 1))
+            self.virtual_camtoworlds = np.tile(light[None, :3, :4],
+                                               (self.camtoworlds.shape[0], 1, 1))
+        if config.fixed_camera:
+            self.camtoworlds = np.tile(self.camtoworlds[config.viz_index][None],
+                                       (self.camtoworlds.shape[0], 1, 1))[: self.lights.shape[0]]
+        self._load_impulse_response(config)
+        self.images = np.broadcast_to(np.zeros((), np.float32),
+                                      (camtoworlds.shape[0], self.height, self.width, 3))
+
+    def _make_transient_batch(self, pix_x, pix_y, cam_idx, rgb, lossmult=None):
+        rgb = np.clip(rgb[..., :3] / self.config.dataset_scale, 0.0, self.config.rgb_max)
+        # JAX's mask, the per-bin norms' sum > 0, in one contiguous pass: a
+        # sum of the same float32 squares is 0, NaN or > 0 where that is.
+        mask = ((rgb * rgb).sum(axis=(-2, -1)) > 0)[:, None].astype(np.float32)
+        return self._transient_batch(pix_x, pix_y, cam_idx, rgb, mask, lossmult)
+
+    def _transient_batch(self, pix_x, pix_y, cam_idx, rgb, mask, lossmult):
+        pixels = self._make_pixels(cam_idx, pix_x, pix_y, lossmult=lossmult,
+                                   light_idx=cam_idx.astype(np.int32))
+        return pytrees.Batch(rays=self._cast(pixels), rgb=rgb, masks=mask, alphas=mask,
+                             impulse_response=self.impulse_response).to(self.device)
+
+    def _next_window(self):
+        """The next batch's window of the streams: (cam_idx, x, y as int32,
+        samples [n, bins, C] float32 from `Config.start_bin`)."""
+        n, cfg = self._batch_size, self.config
+        max_start = self._streams["file_indices"].shape[0] - n
+        start = self._np_rng.randint(0, max_start)
+        rows = slice(start, start + n)
+        cam_idx = self._streams["file_indices"][rows].astype(np.int32)
+        pix_x = self._streams["x"][rows].astype(np.int32)
+        pix_y = self._streams["y"][rows].astype(np.int32)
+        rgb = self._streams["samples"][rows, cfg.start_bin: cfg.start_bin + cfg.n_bins]
+        return cam_idx, pix_x, pix_y, rgb.astype(np.float32, copy=False)
+
+    def next_train(self):
+        cam_idx, pix_x, pix_y, rgb = self._next_window()
+        return self._make_transient_batch(pix_x, pix_y, cam_idx, rgb)
+
+    def generate_ray_batch(self, cam_idx: int):
+        """One frame at the split's size: the rows and columns the
+        decimation keeps are the only ones read."""
+        cfg = self.config
+        with open(os.path.join(self.data_dir, self._pose_file)) as f:
+            file_path = json.load(f)["frames"][cam_idx]["file_path"]
+        if cfg.eval_path:
+            rgb = np.zeros((self.height, self.width, cfg.n_bins, 1), np.float32)
+        else:
+            with hdf5.File(os.path.join(self.data_dir, file_path)) as h5_file:
+                data = h5_file["data"]
+                step = 2 ** int(np.log2(max(1, data.shape[0] // self.height)))
+                rgb = data[::step, ::step, cfg.test_start_bin: cfg.test_start_bin + cfg.n_bins]
+                rgb = rgb.astype(np.float32, copy=False)
+        if rgb.ndim == 3:
+            rgb = rgb[..., None]
+        pix_x, pix_y = camera_utils.pixel_coordinates(rgb.shape[1], rgb.shape[0])
+        return self._make_transient_batch(
+            pix_x.reshape(-1), pix_y.reshape(-1), np.full_like(pix_x.reshape(-1), cam_idx),
+            rgb.reshape(-1, rgb.shape[-2], rgb.shape[-1]))
+
+    def close(self):
+        """Close the train split's sample streams."""
+        for stream in getattr(self, "_streams", {}).values():
+            stream.file.close()
+
+
+class FWPTransientCaptured(TransientSimulation):
+    """Captured transients of the FWP rig: per-frame intrinsics
+    (``load_fwp_posedata``; every other frame of the eval path), the light
+    at `Config.light_source_position` (in each camera's frame under
+    `light_static_wrt_camera`), the frames named by
+    `Config.train_exclude_prefixes` weighted 0 in the train batches'
+    lossmult, and `Config.dark_level` subtracted (the mask is the scaled
+    norm summed over the bins against `Config.mask_threshold`)."""
+
+    def _load_renderings(self, config):
+        self.height, self.width = self._split_size(config)
+        self._pose_file = self._pose_file_name(config, "transforms_all.json")
+        frame_step = 2 if (config.eval_path and self.split == "test") else 1
+        _, camtoworlds, pixtocams, distortions, camtype, nameprefixes = load_fwp_posedata(
+            config, self.data_dir, self._pose_file, frame_step=frame_step)
+        if self.split == "train":
+            self._open_streams()
+        self.camtoworlds = camtoworlds[:, :3, :4]
+        self.pixtocams = pixtocams
+        self.distortion_params = distortions
+        self.camtype = camtype
+        lights = np.tile(np.array(config.light_source_position or [0.0, 0.0, 0.0], np.float32),
+                         (self.camtoworlds.shape[0], 1))
+        if config.light_static_wrt_camera:
+            hom = np.concatenate([lights, np.ones_like(lights[:, :1])], axis=1)
+            lights = np.einsum("nij,nj->ni", camtoworlds[:, :3, :4], hom)
+        self.lights = lights
+        self._load_impulse_response(config)
+        self.train_exclude_indices = np.array(
+            [i for i, name in enumerate(nameprefixes)
+             if any(prefix in name for prefix in config.train_exclude_prefixes)], np.int32)
+        self.images = np.broadcast_to(np.zeros((), np.float32),
+                                      (camtoworlds.shape[0], self.height, self.width, 3))
+
+    def _make_transient_batch(self, pix_x, pix_y, cam_idx, rgb, lossmult=None):
+        cfg = self.config
+        scaled = rgb[..., :3] / cfg.dataset_scale
+        clipped = np.clip(scaled - cfg.dark_level, 0.0, cfg.rgb_max)
+        mask = (np.linalg.norm(scaled, axis=-1, keepdims=True).sum(axis=-2)
+                >= cfg.mask_threshold).astype(np.float32)
+        return self._transient_batch(pix_x, pix_y, cam_idx, clipped, mask, lossmult)
+
+    def next_train(self):
+        cam_idx, pix_x, pix_y, rgb = self._next_window()
+        lossmult = np.all(cam_idx[..., None] != self.train_exclude_indices[None],
+                          axis=-1).astype(np.float32)
+        return self._make_transient_batch(pix_x, pix_y, cam_idx, rgb, lossmult=lossmult)
 
 
 # --- the procedural scene ----------------------------------------------------------------

@@ -1,9 +1,10 @@
 """Image file IO for the dataset loaders (counterpart of ``data/io.py``).
 
 PNGs are read by the port's own decoder (``data/png.py``), which returns
-what PIL gives the JAX package, and EXRs by its own codec (``data/exr.py``).
-The formats whose readers the card's machine lacks raise naming them: JPEG
-and TIFF (PIL), HDR (OpenCV), h5 (h5py).
+what PIL gives the JAX package, EXRs by its own codec (``data/exr.py``) and
+h5 files by its own HDF5 reader (``data/hdf5.py``, what h5py gives). The
+formats whose readers the card's machine lacks raise naming them: JPEG and
+TIFF (PIL), HDR (OpenCV).
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Optional
 
 import numpy as np
 
-from neural_radiance_caching_tpu_torch.data import exr, png
+from neural_radiance_caching_tpu_torch.data import exr, hdf5, png
 
 _JPEG = b"\xff\xd8\xff"
 _TIFF = (b"II*\x00", b"MM\x00*")
@@ -22,7 +23,7 @@ _TIFF = (b"II*\x00", b"MM\x00*")
 def _missing(path, what, reader):
     return NotImplementedError(
         f"{path}: {what} images are not read by the port ({reader} is not on the card's "
-        "machine); PNG and EXR are")
+        "machine); PNG, EXR and h5 are")
 
 
 def load_img(path):
@@ -46,7 +47,11 @@ def load_exr(path):
 
 
 def read_h5(path):
-    raise _missing(path, "h5", "h5py")
+    """The `data` dataset of `path` (".h5" added where missing) as float32."""
+    if not path.endswith(".h5"):
+        path = path + ".h5"
+    with hdf5.File(path) as f:
+        return np.array(f["data"]).astype(np.float32)
 
 
 def downsample(img, factor):

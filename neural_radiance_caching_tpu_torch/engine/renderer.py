@@ -57,6 +57,7 @@ def render_image(
     train_frac: float = 1.0,
     render_repeats: int = 1,
     keys=None,
+    exclude=(),
     device="cuda",
 ) -> Dict[str, np.ndarray]:
     """Render all `rays` (flat [N, ...], on `device`) and return host numpy
@@ -69,6 +70,7 @@ def render_image(
         derived from it and count * 131 + rep. None for the deterministic
         sampler.
       keys: optional output keys to keep (default: every per-ray tensor).
+      exclude: output keys never copied to the host.
       device: where the rays must lie: the card unless the caller asks for
         the CPU.
     Returns a dict of [H, W, ...] arrays if height and width are given, else
@@ -79,7 +81,8 @@ def render_image(
         raise ValueError(f"rays lie on {rays.origins.device}, not on {device!r}")
     num_rays = rays.origins.shape[0]
     chunk = config.render_chunk_size
-    accum: Dict[str, list] = {}
+    images: Dict[str, np.ndarray] = {}
+    filled: Dict[str, int] = {}
     for count, start in enumerate(range(0, num_rays, chunk)):
         stop = min(start + chunk, num_rays)
         rows = stop - start
@@ -89,7 +92,7 @@ def render_image(
         for rep in range(render_repeats):
             out = render_fn(_derived_generator(rng, count * 131 + rep), train_frac, chunk_rays)
             for k, v in out.items():
-                if keys is not None and k not in keys:
+                if (keys is not None and k not in keys) or k in exclude:
                     continue
                 if not isinstance(v, torch.Tensor) or v.dim() == 0 or v.shape[0] != rows:
                     continue
@@ -107,9 +110,14 @@ def render_image(
         if render_repeats > 1 and m2 is not None:
             mean_out["rgb_variance"] = m2 / max(render_repeats - 1, 1)
         for k, v in mean_out.items():
-            accum.setdefault(k, []).append(v.cpu().numpy())
-
-    images = {k: v[0] if len(v) == 1 else np.concatenate(v, axis=0) for k, v in accum.items()}
+            if k not in images:  # filled chunk by chunk: no second copy of the image
+                images[k] = np.empty((num_rays,) + tuple(v.shape[1:]), np.float32)
+                filled[k] = 0
+            images[k][start:stop] = v.cpu().numpy()
+            filled[k] += rows
+    missing = sorted(k for k, n in filled.items() if n != num_rays)
+    if missing:
+        raise ValueError(f"render outputs {missing} are missing from some chunks")
     if height is not None and width is not None:
         images = {k: v.reshape((height, width) + v.shape[1:]) for k, v in images.items()}
     return images

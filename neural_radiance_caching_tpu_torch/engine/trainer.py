@@ -20,9 +20,10 @@ surface-light-field stages with resampling, ``Trainer.resample`` and
 ``resample_render``: the SLF variate sums one surface point per ray), and
 every stage but the material SLF ones on the transient configs (the JAX
 package's transient cache has no SLF memory). A train step raises naming
-an extra loss that is not ported yet. The secondary-ray probe
-(``vis_secondary``), the transient h5 save, the viewer and the profiler
-trace raise. The metric harness is built at the first evaluation, so a
+an extra loss that is not ported yet. An evaluation of a transient view
+saves its transient as an h5 file (``data/hdf5.write_h5``) and one time
+slice of it. The secondary-ray probe (``vis_secondary``), the viewer and
+the profiler trace raise. The metric harness is built at the first evaluation, so a
 run without evaluation needs no LPIPS: LPIPS is not ported, so an
 evaluation needs ``Config.metric_harness_train_config = {'disable_lpips':
 True}``.
@@ -46,7 +47,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from neural_radiance_caching_tpu_torch.data import camera_utils, datasets
+from neural_radiance_caching_tpu_torch.data import camera_utils, datasets, hdf5
 from neural_radiance_caching_tpu_torch.engine import configs as configs_lib
 from neural_radiance_caching_tpu_torch.engine import gin_config as gin
 from neural_radiance_caching_tpu_torch.engine import renderer
@@ -61,10 +62,20 @@ def _host(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+# The transients of a rendering that no evaluation reads (its metrics, vis
+# suites and saves read rgb, cache_rgb and transient_indirect): never copied
+# to the host, where at 512^2 x 700 bins the per-sample one alone would take
+# 70 GB.
+EVAL_UNREAD = ("transient_direct", "transient_direct_no_filter", "transient_direct_viz",
+               "transient_indirect_diffuse", "transient_indirect_specular",
+               "transient_indirect_no_filter", "transient_indirect_viz",
+               "transient_indirect_no_integration")
+
+
 def render_test_view(render_fn, dataset, cam_idx, rng, config, train_frac=1.0):
     """Render one view of `dataset` (all its pixels, ``config.render_repeats``
     draws each); returns (rendering dict of [H, W, ...] host arrays, the
-    view's batch)."""
+    view's batch). The outputs in EVAL_UNREAD stay on the device."""
     batch = dataset.generate_ray_batch(cam_idx)
     if isinstance(batch.rays, pytrees.Pixels):
         # In-step casting ships Pixels; an eval view is cast on the host,
@@ -73,11 +84,13 @@ def render_test_view(render_fn, dataset, cam_idx, rng, config, train_frac=1.0):
                                    else _host(getattr(batch.rays, f.name))
                                    for f in dataclasses.fields(batch.rays)})
         rays = camera_utils.cast_ray_batch(dataset.cameras, dataset.lights, pixels,
-                                           impulse_response=dataset.impulse_response)
+                                           impulse_response=dataset.impulse_response,
+                                           virtual_camtoworlds=dataset.virtual_camtoworlds)
         batch = batch.replace(rays=rays.to(dataset.device))
     rendering = renderer.render_image(
         render_fn, batch.rays, rng, config, height=dataset.height, width=dataset.width,
-        train_frac=train_frac, render_repeats=config.render_repeats, device=dataset.device)
+        train_frac=train_frac, render_repeats=config.render_repeats, exclude=EVAL_UNREAD,
+        device=dataset.device)
     return rendering, batch
 
 
@@ -149,7 +162,7 @@ def compute_eval_metrics(rendering, batch, height, width, config, metric_harness
             metrics["albedo_psnr"] = float(-10.0 * np.log10(mse + 1e-12))
 
     if config.use_transient and "cache_rgb" in rendering and gt.ndim == 4:
-        pred_t = np.nan_to_num(np.asarray(rendering["cache_rgb"]))
+        pred_t = vis_lib.finite(rendering["cache_rgb"])
         gt_t = gt[..., :3]
         if pred_t.shape == gt_t.shape:
             inter = np.minimum(pred_t, gt_t).sum()
@@ -707,8 +720,6 @@ class Trainer:
                 self.metric_list[k].append(float(v))
 
         if self.save_dir and self.save_results:
-            if self.use_transient and "cache_rgb" in rendering:
-                raise NotImplementedError("the transient h5 save is not ported yet")
             os.makedirs(self.save_dir, exist_ok=True)
             suite = (vis_lib.visualize_transient_suite if self.use_transient
                      else vis_lib.visualize_suite)
@@ -718,10 +729,40 @@ class Trainer:
                 d = os.path.join(self.save_dir, "color")
                 os.makedirs(d, exist_ok=True)
                 np.save(os.path.join(d, f"{step:06d}.npy"), rendering["rgb"])
+            if self.use_transient and "cache_rgb" in rendering:
+                self._save_transient_h5(rendering, step)
         print(f"eval step={step} cam={cam_idx} "
               + " ".join(f"{k}={v:.4f}" for k, v in metrics.items())
               + f" ({time.time() - t0:.1f}s)", flush=True)
         return metrics
+
+    def _save_transient_h5(self, rendering, step):
+        """The view's transient as `transients/<step>.h5` (dataset `data`,
+        float32, NaNs zeroed) and one time slice of it."""
+        d = os.path.join(self.save_dir, "transients")
+        os.makedirs(d, exist_ok=True)
+        transient = vis_lib.finite(rendering["cache_rgb"])
+        hdf5.write_h5(os.path.join(d, f"{step:06d}.h5"), "data", transient)
+        self._save_transient_time_slice(transient, step)
+
+    def _save_transient_time_slice(self, transient, step):
+        """One time-bin slice per eval view, scrubbing bins
+        `Config.transient_start_idx` -> `transient_end_idx` over the
+        sequence of views, under `cache_time_slice/<step>.png`."""
+        if transient.ndim < 4:
+            return
+        n_bins = transient.shape[-2]
+        total = max(self.test_dataset.num_images, 1)
+        frac = (step % total) / float(total)
+        t = self.config.transient_start_idx + frac * (
+            min(self.config.transient_end_idx, n_bins - 1) - self.config.transient_start_idx)
+        t0, t1 = int(np.floor(t)), min(int(np.ceil(t)), n_bins - 1)
+        w = t - t0
+        time_slice = transient[..., t0, :] * (1 - w) + transient[..., t1, :] * w
+        d = os.path.join(self.save_dir, "cache_time_slice")
+        os.makedirs(d, exist_ok=True)
+        peak = float(np.max(time_slice) + 1e-12)
+        vis_lib.save_img_u8(time_slice / peak, os.path.join(d, f"{step:06d}.png"))
 
     # --- train -----------------------------------------------------------------
 
@@ -797,7 +838,11 @@ class Trainer:
     def _compute_albedo_ratio(self, n_views):
         """Run-level albedo colour calibration over every 10th test view: the
         per-channel median of gt/pred, or a per-channel least-squares fit
-        (in gamma space with ``albedo_gamma``)."""
+        (in gamma space with ``albedo_gamma``). A test set without albedo
+        images leaves the ratio None without a render (the JAX trainer
+        renders its first view before it finds no albedo there)."""
+        if self.test_dataset.albedo_images is None:
+            return
         gts, preds = [], []
         for idx in range(self.vis_start, n_views, 10):
             rendering, batch = self.render_test_view(idx, 1.0)

@@ -7,7 +7,7 @@ SSIM is Wang et al. 2004 with the 11-tap, sigma 1.5 Gaussian window, blurred
 separably (one depthwise convolution per image axis) over symmetric padding,
 as the JAX function computes it. The metrics take tensors or numpy arrays
 and compute on the device of their input; the harness takes host arrays.
-LPIPS is not ported yet (ROADMAP queue 1 item 6).
+LPIPS (the JAX harness's untrained-VGG fallback) is not ported yet.
 """
 
 from __future__ import annotations
@@ -98,17 +98,17 @@ def ssim(img0, img1, max_val=1.0, filter_size=11, filter_sigma=1.5, k1=0.01, k2=
 class MetricHarness:
     """PSNR and SSIM of a rendering against its ground truth (host arrays).
 
-    LPIPS is not ported yet: the JAX harness's untrained-VGG fallback comes
-    with ROADMAP queue 1 item 6, and its calibrated weights would need a
-    download. So the harness must be built with ``disable_lpips=True``.
+    LPIPS is not ported yet: neither the JAX harness's untrained-VGG
+    fallback nor its calibrated weights, which would need a download. So the
+    harness must be built with ``disable_lpips=True``.
     """
 
     def __init__(self, disable_lpips=False, **kwargs):
         del kwargs
         if not disable_lpips:
             raise NotImplementedError(
-                "LPIPS is not ported yet (ROADMAP queue 1 item 6); build the harness with "
-                "disable_lpips=True")
+                "LPIPS (the untrained-VGG fallback of the JAX harness) is not ported yet; "
+                "build the harness with disable_lpips=True")
 
     def __call__(self, rgb_pred, rgb_gt, name_fn=lambda s: s):
         # float32, as the JAX harness computes (no 64-bit arrays there).

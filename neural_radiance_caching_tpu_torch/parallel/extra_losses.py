@@ -24,8 +24,8 @@ stop-gradient, so that forward needs no graph (``parallel/train.py``).
 The other extra losses of the JAX table (the emission and residual-albedo
 losses), and each loss
 the JAX package turns on by a Config weight (maximum radiance, material
-correlation, weight normalisation, extra rays), raise: they are ROADMAP
-queue 1 item 5.
+correlation, weight normalisation, extra rays), raise: no config that the
+JAX package runs reaches them.
 """
 
 from __future__ import annotations

@@ -186,8 +186,8 @@ def _check_config(config):
         raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
     bad = extra_losses_lib.unported(config)
     if bad:
-        raise NotImplementedError(f"extra losses not ported yet (ROADMAP queue 1 item 5): "
-                                  f"{', '.join(bad)}")
+        raise NotImplementedError(f"extra losses not ported yet (the model and loss options "
+                                  f"no runnable config reaches): {', '.join(bad)}")
 
 
 # Shader outputs of the debias forward grafted as `<key>_nocorr` onto the
@@ -240,8 +240,11 @@ def _ray_caster(config, dataset, model):
         lights = on_device(dataset.lights)
         impulse = None if dataset.impulse_response is None else on_device(
             dataset.impulse_response)
+        virtual = None if dataset.virtual_camtoworlds is None else on_device(
+            dataset.virtual_camtoworlds)
         cast = functools.partial(camera_utils.cast_ray_batch, cameras, lights,
-                                 jitter=config.jitter_rays, impulse_response=impulse)
+                                 jitter=config.jitter_rays, impulse_response=impulse,
+                                 virtual_camtoworlds=virtual)
 
     def maybe_cast_rays(rng, rays):
         if not isinstance(rays, pytrees.Pixels):

@@ -226,16 +226,30 @@ def visualize_suite(rendering: Dict[str, Any], config=None, vis_material=False,
     return vis
 
 
+def finite(x):
+    """`np.nan_to_num(x)` in float32; an array that is finite already (as
+    every render output is: the renderer zeroes NaNs on the device) is
+    returned without the copy."""
+    x = np.asarray(x, np.float32)
+    return x if np.isfinite(x).all() else np.nan_to_num(x)
+
+
 def visualize_transient_suite(rendering: Dict[str, Any], config=None,
                               vis_material=False, vis_secondary=False
                               ) -> Dict[str, np.ndarray]:
     """Transient vis: integrate over time then reuse the steady suite
-    (vis.py:526-742)."""
+    (vis.py:526-742). Only an [H, W, bins, C] radiance buffer is summed
+    over its bins; a steady [H, W, C] one (the cache's direct light) passes
+    as it is, and the other per-bin buffers (lossmult, the vignette, equal
+    in every bin) are shown at their first bin. The JAX package sums the
+    axis before the last of every radiance buffer of 3 or more dimensions
+    and passes the per-bin lossmult whole, so its suite raises a ValueError
+    at a broadcast that follows."""
     img_scale = getattr(config, "img_scale", 1.0) if config is not None else 1.0
 
     def integrate(v):
-        v = np.nan_to_num(np.asarray(v, np.float32))
-        if v.ndim >= 3 and v.shape[-2] > 1:  # [..., T, C]
+        v = finite(v)
+        if v.ndim == 4:  # [H, W, bins, C]
             v = v.sum(-2)
         return np.clip(v / img_scale, 0, 1)
 
@@ -247,6 +261,8 @@ def visualize_transient_suite(rendering: Dict[str, Any], config=None,
                                      "indirect_rgb", "cache_direct_rgb",
                                      "cache_indirect_rgb"):
             integrated[k] = integrate(v)
+        elif np.ndim(v) == 4:
+            integrated[k] = np.asarray(v)[..., 0, :]
         else:
             integrated[k] = np.asarray(v)
     vis = visualize_suite(integrated, config, vis_material=vis_material)

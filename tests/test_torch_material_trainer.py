@@ -740,7 +740,7 @@ def test_the_entry_point_trains_the_readme_material_stage(spheres_cache_checkpoi
 def test_unported_extra_losses_are_refused_by_name(loss):
     cfg = tconfigs.Config(extra_losses={"material_ray_sampler": {"main": {"mult": 1.0}},
                                         loss: {"main": {"mult": 1.0}}})
-    with pytest.raises(NotImplementedError, match=rf"item 5\): {loss}$"):
+    with pytest.raises(NotImplementedError, match=rf"no runnable config reaches\): {loss}$"):
         ttrain.create_train_step(None, cfg)
     ported = {k: {"main": {"mult": 1.0}} for k in textra.EXTRA_LOSS_FUNCTIONS}
     assert textra.unported(tconfigs.Config(extra_losses=ported)) == []

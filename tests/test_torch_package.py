@@ -54,6 +54,16 @@ def test_sources_name_no_jax_library():
         importlib.import_module(name)
 
 
+def test_port_and_chip_smoke_name_no_reader_missing_on_the_card():
+    """Neither the port nor chip_smoke.py imports JAX, the JAX package, or a
+    reader the card's machine lacks (h5py, PIL, OpenCV, imageio): the port
+    reads h5, PNG and EXR with its own code."""
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|h5py|PIL|cv2|imageio|"
+                         r"neural_radiance_caching_tpu)(\.|\s|$)", re.M)
+    sources = list(PKG_DIR.rglob("*.py")) + [PKG_DIR.parent / "chip_smoke.py"]
+    assert not [str(p) for p in sources if pattern.search(p.read_text())]
+
+
 @pytest.fixture(scope="module")
 def flagship_pair():
     jcfg = bench._cache_config()

@@ -421,7 +421,7 @@ def test_unported_extra_losses_raise(extra):
     else:
         cfg = dataclasses.replace(cfg, **extra)
     name = next(iter(extra)).replace("_loss_weight", "")
-    with pytest.raises(NotImplementedError, match=rf"item 5\).*{name}"):
+    with pytest.raises(NotImplementedError, match=rf"no runnable config reaches\).*{name}"):
         ttrain.create_train_step(None, cfg)
 
 

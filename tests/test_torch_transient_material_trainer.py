@@ -151,10 +151,11 @@ def _stage(stage, extra=(), files=CORNELL):
     return material_trainer._trainers(files, MATERIAL_TINY + list(extra), STAGES[stage])
 
 
-def _step_parity(jt, jmodel, tt, variables, monkeypatch):
+def _step_parity(jt, jmodel, tt, variables, monkeypatch, grads=None):
     """One step through both trainers from `variables`: every loss term,
     every gradient leaf, and the Adam step against optax. Returns the
-    losses and the scatter launches of the port's step."""
+    losses and the scatter launches of the port's step; with `grads`, a
+    dict, both packages' gradient leaves are kept there ("jax", "port")."""
     jcfg = jt.config
     monkeypatch.setitem(jextra.EXTRA_LOSS_FUNCTIONS, "light_sampling",
                         _binned_radiance_summed(jextra.light_sampling_loss))
@@ -181,6 +182,9 @@ def _step_parity(jt, jmodel, tt, variables, monkeypatch):
     want = material_slice._leaves(jgrad["params"])
     params = dict(tt.model.named_parameters())
     assert sorted(params) == sorted(want)
+    if grads is not None:
+        grads["jax"] = {k: material_slice._tr(k, np.asarray(want[k])) for k in params}
+        grads["port"] = {k: p.grad.numpy().copy() for k, p in params.items()}
     for k, p in params.items():
         material_slice._close(p.grad.numpy(), material_slice._tr(k, want[k]), *GRAD, k)
     for k, p in params.items():
