@@ -6,7 +6,8 @@
 
 Phases, one line each (any failure exits nonzero):
   1. device: the card, and nvidia-smi's name and power limit;
-  2. build: compile the CUDA source from csrc/ with nvcc;
+  2. build: compile the CUDA source from csrc/ with nvcc, and beside it the
+     JPEG entropy decoder's C source with the host C compiler;
   3. kernel: the leveled kernel against its plain PyTorch version at the
      flagship cache shape (6 levels x 262,144 points x 4 taps, F = 4,
      524,288 rows), on uniform points and on camera-ray samples;
@@ -245,9 +246,10 @@ Phases, one line each (any failure exits nonzero):
      cache step of each at NGP_NARROW's widths, GPU against CPU, as phase
      31 (0, 2 and 1 leveled launches; the hotdog's step launches none, so
      no fault is planted there);
- 34. disk train: the three scenes at their captures' sizes (hotdog 100
-     train views of 800^2 RGBA, the teapot 32 train views of 2048^2 EXR
-     read at factor 4, the bell 128 views of 800^2 with depth PNGs),
+ 34. disk train: the three scenes at their captures' sizes, their view
+     counts cut (hotdog 40 train views of 800^2 RGBA, the teapot 32 train
+     views of 2048^2 EXR read at factor 4, the bell 32 views of 800^2 with
+     depth PNGs),
      through the entry point as train_one_stage.py builds its command: the
      README's two hotdog stages (cache at 8192, then
      material_light_from_scratch_resample at sample factor 8 and batch 1024,
@@ -283,6 +285,32 @@ Phases, one line each (any failure exits nonzero):
      cornell's cache checkpoint over its first view (512^2 x 700 bins):
      results.txt, and the transient saved as h5 read back by the port's
      reader equal to what was saved.
+ 37. real disk reference: the script's baseline JPEG writer (4:2:0, the
+     Annex K tables at a quality, restart markers, a scan per component)
+     against the port's decoder: the C entropy decoder's coefficient
+     blocks equal the writer's quantised coefficients, the pixels within
+     JPEG_FLOAT_TOL of the writer's float reconstruction; then small scenes
+     in the layouts of the open_illum (open_ngp_yobo_egg: OpenIllumination's
+     JPEG views, mask PNGs), neilf (neilf_ngp_yobo_castel: sfm_scene.json)
+     and glossy_real (glossy_ngp_yobo: cache.pkl, a PLY point cloud)
+     loaders, rendered on the card from the procedural spheres and written
+     with that writer: the first three batches the card gets equal the CPU
+     loader's, and one cache step of each at NGP_NARROW's widths, GPU
+     against CPU, as phase 33 (2 leveled launches each);
+ 38. real disk train: the three layouts at cut sizes (open_egg 30 train
+     and 6 test views of 2048 x 1536 read at factor 2, its test split at
+     factor 8; neilf_castel 24 views of 1536 x 1024 at factor 4;
+     glossy_bear 24 views of 1024 x 768), through the entry point as
+     train_one_stage.py builds its command: open_egg's cache stage at the
+     largest of 8192, 4096, 2048 that fits, then the README's second stage
+     (material_light_from_scratch_resample at sample factor 8) warm-started
+     from it at the largest of 1024, 512, 256, then 3 timed steps of the
+     neilf and glossy cache stages; each with the writing's seconds, the
+     loading's wall seconds, JPEG decode and resize seconds per call and
+     host GiB, ms per step, rays/s, peak GiB, the launches (asserted: 1
+     leveled + 1 planes per cache step at 8192, the material stage's six
+     SLF table gradients), one held-out view's PSNR, and a step with every
+     scatter call held against its plain version.
 Then the kernels JSON line, the eval JSON line, the transient material JSON
 line, the trainer JSON line, the nvidia-smi line, and the result line.
 """
@@ -2611,11 +2639,12 @@ _TRAINER_TRANSIENT_TERMS = ("data", "cache_data", "mask", "geometry_smoothness",
 TRANSIENT_BATCHES = (8192, 4096, 2048, 1024)
 
 
-def _gpu_vs_cpu_step(torch, device, seed, stage, config_file, launches, terms):
+def _gpu_vs_cpu_step(torch, device, seed, stage, config_file, launches, terms,
+                     tol=GRAD_REL_L2_TOL):
     """One Trainer step of `stage` on `config_file`, GPU against CPU on the
     same weights, batch and draws: every loss term (each of `terms` present
-    and nonzero), every gradient leaf (the limit bracketed by the CPU's
-    noise floor with the cameras +-1 ulp and two faults planted in the
+    and nonzero), every gradient leaf (the limit `tol` bracketed by the
+    CPU's noise floor with the cameras +-1 ulp and two faults planted in the
     leveled kernel), every GPU leveled call held against its plain version;
     `launches` leveled calls expected. The readings, with `ok`."""
     def step(dev, **kw):
@@ -2636,7 +2665,6 @@ def _gpu_vs_cpu_step(torch, device, seed, stage, config_file, launches, terms):
     err, err_at = _worst_grad_err(g_gpu, g_cpu)
     faults = {f: _worst_grad_err(step(device, fault=f)[1], g_cpu)
               for f in ("taps rotated", "finest level dropped") if launches}
-    tol = GRAD_REL_L2_TOL
     ok = (all(torch.isfinite(g).all() for g in g_gpu.values())
           and set(terms) <= set(l_cpu) and all(l_cpu[k] != 0 for k in terms)
           and max(loss_errs.values()) <= 1e-3 and n_cpu == _launch_counts()
@@ -3557,7 +3585,7 @@ NGP_FINAL_SAMPLES = 32
 SLF_DISTANCE_SAMPLES = 8
 
 
-def _open_launches(batch):
+def _open_launches(batch, trainer=None):
     """open's table-gradient launches per step at `batch`: the SLF's own
     grid at the final samples (leveled at every batch of phase 32), the
     reflectance grid at 8 points each (planes from PLANES_MIN_POINTS)."""
@@ -3656,15 +3684,19 @@ DISK_SCENES = {
     "orb_teapot": "configs/orb_ngp_yobo_teapot.gin",
     "nero_bell": "configs/nero_ngp_yobo_bell.gin",
 }
-# Each scene's near plane, restored after TRAINER_BINDINGS' data-free one.
-DISK_NEAR = {"hotdog": 2.0, "orb_teapot": 0.25, "nero_bell": 1.0}
+# Each scene's near plane (phases 33-34 and 37-38), restored after
+# TRAINER_BINDINGS' data-free one.
+DISK_NEAR = {"hotdog": 2.0, "orb_teapot": 0.25, "nero_bell": 1.0, "open_egg": 0.25,
+             "neilf_castel": 0.25, "glossy_bear": 0.1}
 # (views of the train split, of the test split, resolution) at phase 34,
-# the captures' layouts: TensoIR's hotdog (100 train views of 800^2 RGBA;
-# 4 of its 200 test views), ORB's teapot (2048^2 EXR read at factor 4; 32
-# train and 2 test views: the capture's counts are not in the repository
-# and each view is a 48 MiB FLOAT EXR), NeRO's bell (128 views of 800^2,
-# every 8th held out by synthetic_split_128.pkl, all 128 trained on).
-DISK_SIZES = {"hotdog": (100, 4, 800), "orb_teapot": (32, 2, 2048), "nero_bell": (128, 16, 800)}
+# the captures' layouts, their view counts cut to keep the script inside
+# its time limit: TensoIR's hotdog (40 of its 100 train views of 800^2
+# RGBA; 4 of its 200 test views), ORB's teapot (2048^2 EXR read at factor
+# 4; 32 train and 2 test views: the capture's counts are not in the
+# repository and each view is a 48 MiB FLOAT EXR), NeRO's bell (32 of its
+# 128 views of 800^2, every 8th held out by synthetic_split_128.pkl, all
+# trained on).
+DISK_SIZES = {"hotdog": (40, 4, 800), "orb_teapot": (32, 2, 2048), "nero_bell": (32, 4, 800)}
 # Phase 33's: small scenes of the same layouts.
 DISK_REFERENCE_SIZES = {"hotdog": (6, 2, 64), "orb_teapot": (6, 2, 128),
                         "nero_bell": (8, 2, 64)}
@@ -3736,6 +3768,258 @@ def _as_pil_reads(samples, color, depth):
     return high
 
 
+# The script's baseline JPEG writer (the card's machine has no PIL): the
+# sample tables of ITU-T T.81 Annex K (K.1 quantisation, natural order; K.3
+# Huffman code counts by length and symbols) and the zigzag order.
+JPEG_LUMA_Q = (
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99)
+JPEG_CHROMA_Q = (
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99) + (99,) * 32
+_JPEG_AC_LUMA_SYMBOLS = bytes.fromhex(
+    "01020300041105122131410613516107227114328191a1082342b1c11552d1f0243362"
+    "7282090a161718191a25262728292a3435363738393a434445464748494a535455565758"
+    "595a636465666768696a737475767778797a838485868788898a92939495969798999aa2"
+    "a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1"
+    "e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa")
+_JPEG_AC_CHROMA_SYMBOLS = bytes.fromhex(
+    "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d1"
+    "0a162434e125f11718191a262728292a35363738393a434445464748494a535455565758595a6364"
+    "65666768696a737475767778797a82838485868788898a92939495969798999aa2a3a4a5"
+    "a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5"
+    "e6e7e8e9eaf2f3f4f5f6f7f8f9fa")
+JPEG_HUFFMAN = {  # (class, table id) -> (counts of code lengths 1-16, symbols)
+    (0, 0): ((0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0), bytes(range(12))),
+    (1, 0): ((0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125), _JPEG_AC_LUMA_SYMBOLS),
+    (0, 1): ((0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0), bytes(range(12))),
+    (1, 1): ((0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119), _JPEG_AC_CHROMA_SYMBOLS),
+}
+JPEG_ZIGZAG = (
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34,
+    27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44,
+    51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63)
+
+
+def jpeg_qtable(base, quality):
+    """An Annex K table scaled by libjpeg's quality rule (jcparam.c), kept in
+    [1, 255] for a baseline file."""
+    import numpy as np
+
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return np.clip((np.asarray(base, np.int64) * scale + 50) // 100, 1, 255)
+
+
+def _dct_matrix():
+    import numpy as np
+
+    u, x = np.meshgrid(np.arange(8), np.arange(8), indexing="ij")
+    m = np.cos((2 * x + 1) * u * np.pi / 16) * np.sqrt(2 / 8)
+    m[0] /= np.sqrt(2)
+    return m
+
+
+def _huffman_codes(counts, symbols):
+    """The canonical codes of a DHT table (T.81 Annex C): code and length
+    per symbol, [256] each."""
+    import numpy as np
+
+    code, k = 0, 0
+    codes, lengths = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    for length, n in enumerate(counts, 1):
+        for _ in range(n):
+            codes[symbols[k]], lengths[symbols[k]] = code, length
+            code, k = code + 1, k + 1
+        code <<= 1
+    return codes, lengths
+
+
+def _magnitude(v):
+    """T.81's size category of each value and its extra bits."""
+    import numpy as np
+
+    a = np.abs(v)
+    size = np.zeros_like(a)
+    nz = a > 0
+    size[nz] = np.floor(np.log2(a[nz])).astype(np.int64) + 1
+    return size, np.where(v >= 0, v, v + (1 << size) - 1)
+
+
+def _entropy_segment(zz, comp, table, tables):
+    """Huffman-code the blocks `zz` [N, 64] (zigzag order) in coding order,
+    `comp` [N] each block's component (its DC predictor, which starts at 0)
+    and `table` [N] its table id (0 luma, 1 chroma). Vectorised: every symbol and its extra bits become one
+    (value, bit count) event, ordered by block and position, and the events
+    are laid out by their cumulative bit offsets. Returns the byte-stuffed
+    bytes, padded with 1 bits."""
+    import numpy as np
+
+    n = zz.shape[0]
+    dc = zz[:, 0].astype(np.int64)
+    diff = np.zeros(n, np.int64)
+    for c in np.unique(comp):
+        sel = np.nonzero(comp == c)[0]
+        diff[sel] = np.diff(dc[sel], prepend=0)
+    size, extra = _magnitude(diff)
+    code, length = (np.stack([tables[(0, c)][i] for c in (0, 1)])[table, size] for i in (0, 1))
+    blocks, keys = [np.arange(n)], [np.zeros(n, np.int64)]
+    values, bits = [(code << size) | extra], [length + size]
+
+    ac = zz[:, 1:].astype(np.int64)
+    b, k = np.nonzero(ac)
+    k = k + 1
+    first = np.r_[True, b[1:] != b[:-1]]
+    prev = np.where(first, 0, np.r_[0, k[:-1]])
+    run = k - prev - 1
+    size, extra = _magnitude(ac[b, k - 1])
+    symbol = ((run % 16) << 4) | size
+    code, length = (np.stack([tables[(1, c)][i] for c in (0, 1)])[table[b], symbol]
+                    for i in (0, 1))
+    blocks.append(b), keys.append(2 * k)
+    values.append((code << size) | extra), bits.append(length + size)
+    zrl = np.repeat(np.arange(len(b)), run // 16)  # sixteen zeros each
+    zcode, zlength = (np.stack([tables[(1, c)][i] for c in (0, 1)])[table[b[zrl]], 0xF0]
+                      for i in (0, 1))
+    blocks.append(b[zrl]), keys.append(2 * k[zrl] - 1)
+    values.append(zcode), bits.append(zlength)
+    last = np.zeros(n, np.int64)
+    np.maximum.at(last, b, k)
+    eob = np.nonzero(last < 63)[0]
+    ecode, elength = (np.stack([tables[(1, c)][i] for c in (0, 1)])[table[eob], 0x00]
+                      for i in (0, 1))
+    blocks.append(eob), keys.append(np.full(len(eob), 200))
+    values.append(ecode), bits.append(elength)
+
+    order = np.argsort(np.concatenate(blocks) * 256 + np.concatenate(keys), kind="stable")
+    values, bits = np.concatenate(values)[order], np.concatenate(bits)[order]
+    ends = np.cumsum(bits)
+    event = np.repeat(np.arange(len(bits)), bits)
+    offset = np.arange(ends[-1] if len(ends) else 0) - np.repeat(ends - bits, bits)
+    stream = (values[event] >> (bits[event] - 1 - offset)) & 1
+    stream = np.concatenate([stream, np.ones(-len(stream) % 8, np.int64)])
+    data = np.packbits(stream.astype(np.uint8))
+    stuffed = np.repeat(data, 1 + (data == 0xFF))
+    stuffed[np.nonzero(data == 0xFF)[0] + np.arange(1, (data == 0xFF).sum() + 1)] = 0
+    return stuffed.tobytes()
+
+
+def jpeg_encode(rgb, quality=95, restart_interval=0, interleaved=True):
+    """A baseline JPEG of `rgb` [H, W, 3] (uint8): YCbCr 4:2:0 (JFIF's
+    colour transform, the chroma averaged over 2x2), the forward DCT as 8x8
+    matrix products, the Annex K quantisation tables at `quality` and
+    Huffman tables, every `restart_interval` MCUs an RSTn marker; with
+    `interleaved=False` each component in a scan of its own. Returns (the
+    file's bytes, the quantised coefficients of each component [block rows,
+    block cols, 64] in natural order, the quantisation tables)."""
+    import struct
+
+    import numpy as np
+
+    h, w = rgb.shape[:2]
+    x = rgb.astype(np.float64)
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    ycc = [0.299 * r + 0.587 * g + 0.114 * b,
+           -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
+           0.5 * r - 0.418688 * g - 0.081312 * b + 128]
+    mx, my = -(-w // 16), -(-h // 16)
+    quant = [jpeg_qtable(JPEG_LUMA_Q, quality), jpeg_qtable(JPEG_CHROMA_Q, quality)]
+    dct = _dct_matrix()
+    natural = np.asarray(JPEG_ZIGZAG)
+    coeffs, used = [], []
+    for ci, plane in enumerate(ycc):
+        if ci:
+            plane = np.pad(plane, ((0, h % 2), (0, w % 2)), mode="edge")
+            plane = plane.reshape(plane.shape[0] // 2, 2, plane.shape[1] // 2, 2).mean((1, 3))
+        f = 2 if ci == 0 else 1
+        plane = np.pad(plane, ((0, my * 8 * f - plane.shape[0]), (0, mx * 8 * f - plane.shape[1])),
+                       mode="edge") - 128.0
+        blocks = plane.reshape(my * f, 8, mx * f, 8).transpose(0, 2, 1, 3)
+        freq = dct @ blocks @ dct.T
+        q = quant[min(ci, 1)].reshape(8, 8)
+        coeffs.append(np.rint(freq / q).astype(np.int64).reshape(my * f, mx * f, 64))
+        size = (-(-h * f // 2), -(-w * f // 2))
+        used.append((-(-size[0] // 8), -(-size[1] // 8)))
+    tables = {key: _huffman_codes(*spec) for key, spec in JPEG_HUFFMAN.items()}
+
+    def scan(sequence, comp_ids, n_units):
+        """The coded segments of `sequence` [units, blocks per unit, 64]
+        (natural order) of components `comp_ids` [blocks per unit],
+        restarted every restart_interval units."""
+        zz = sequence[..., natural]
+        step = restart_interval or n_units
+        out = b""
+        for i, start in enumerate(range(0, n_units, step)):
+            part = zz[start:start + step]
+            comp = np.broadcast_to(comp_ids, part.shape[:2]).reshape(-1)
+            out += _entropy_segment(part.reshape(-1, 64), comp, np.minimum(comp, 1), tables)
+            if start + step < n_units:
+                out += bytes([0xFF, 0xD0 + i % 8])
+        return out
+
+    def segment(marker, payload):
+        return bytes([0xFF, marker]) + struct.pack(">H", len(payload) + 2) + payload
+
+    header = (b"\xff\xd8" + segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+              + segment(0xDB, b"".join(bytes([i]) + bytes(q[natural].astype(np.uint8).tolist())
+                                       for i, q in enumerate(quant)))
+              + segment(0xC0, struct.pack(">BHHB", 8, h, w, 3)
+                        + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1]))
+              + segment(0xC4, b"".join(bytes([(cls << 4) | tid]) + bytes(counts) + symbols
+                                       for (cls, tid), (counts, symbols) in JPEG_HUFFMAN.items())))
+    if restart_interval:
+        header += segment(0xDD, struct.pack(">H", restart_interval))
+    body = b""
+    if interleaved:
+        y = coeffs[0].reshape(my, 2, mx, 2, 64).transpose(0, 2, 1, 3, 4).reshape(my * mx, 4, 64)
+        mcus = np.concatenate([y, coeffs[1].reshape(-1, 1, 64), coeffs[2].reshape(-1, 1, 64)],
+                              axis=1)
+        body += segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0]))
+        body += scan(mcus, np.array([0, 0, 0, 0, 1, 2]), my * mx)
+    else:
+        for ci in range(3):
+            rows, cols = used[ci]
+            blocks = coeffs[ci][:rows, :cols].reshape(-1, 1, 64)
+            body += segment(0xDA, bytes([1, ci + 1, 0x11 if ci else 0x00, 0, 63, 0]))
+            body += scan(blocks, np.array([ci]), rows * cols)
+    return header + body + b"\xff\xd9", coeffs, quant
+
+
+# The decoder's pixels against the writer's float reconstruction: libjpeg's
+# integer IDCT, upsampling and colour conversion each round once.
+JPEG_FLOAT_TOL = 3
+
+
+def jpeg_float_reference(coeffs, quant, h, w):
+    """The float decode of `jpeg_encode`'s coefficients: dequantised, the
+    inverse DCT as matrix products clipped to [0, 255], the chroma upsampled by the triangle
+    filter (3/4 near, 1/4 far, the edges repeated), JFIF's YCbCr -> RGB;
+    [h, w, 3] float64, unrounded and unclipped."""
+    import numpy as np
+
+    dct = _dct_matrix()
+    planes = []
+    for ci, c in enumerate(coeffs):
+        q = quant[min(ci, 1)].reshape(8, 8)
+        samples = np.clip(dct.T @ (c.reshape(c.shape[:2] + (8, 8)) * q) @ dct + 128.0, 0, 255)
+        plane = samples.transpose(0, 2, 1, 3).reshape(c.shape[0] * 8, c.shape[1] * 8)
+        if ci:
+            plane = plane[:-(-h // 2), :-(-w // 2)]
+            for axis in (0, 1):
+                n = plane.shape[axis]
+                before = np.take(plane, np.r_[0, np.arange(n - 1)], axis=axis)
+                after = np.take(plane, np.r_[np.arange(1, n), n - 1], axis=axis)
+                pair = np.stack([0.75 * plane + 0.25 * before, 0.75 * plane + 0.25 * after],
+                                axis=axis + 1)
+                shape = list(plane.shape)
+                shape[axis] *= 2
+                plane = pair.reshape(shape)
+        planes.append(plane[:h, :w])
+    y, cb, cr = planes[0], planes[1] - 128, planes[2] - 128
+    return np.stack([y + 1.402 * cr, y - 0.344136 * cb - 0.714136 * cr, y + 1.772 * cb], -1)
+
+
 def _write(path, data):
     import os
 
@@ -3776,25 +4060,27 @@ def _trace_spheres(torch, device, origins, dirs, scale):
     return rgb, alpha, best, points
 
 
-def _render_spheres(torch, device, c2w, pixtocam, size, scale):
-    """The procedural spheres seen by each camera of `c2w` [N, 3, 4]
-    through `pixtocam` [3, 3] at size^2, on the card, one view at a time:
-    yields (rgb [size, size, 3] in [0, 1], alpha, the hit's distance along
-    the ray, 15 where none) as host arrays."""
+def _render_spheres(torch, device, c2w, pixtocam, size, scale, center=(0.0, 0.0, 0.0)):
+    """The procedural spheres (scaled by `scale`, moved to `center`) seen by
+    each camera of `c2w` [N, 3, 4] through `pixtocam` [3, 3] at size^2 (or
+    size = (height, width)), on the card, one view at a time: yields (rgb
+    [h, w, 3] in [0, 1], alpha, the hit's distance along the ray, 15 where
+    none) as host arrays."""
     from neural_radiance_caching_tpu_torch.data import camera_utils
 
-    ys, xs = torch.meshgrid(torch.arange(size, device=device, dtype=torch.float32),
-                            torch.arange(size, device=device, dtype=torch.float32),
+    h, w = (size, size) if isinstance(size, int) else size
+    ys, xs = torch.meshgrid(torch.arange(h, device=device, dtype=torch.float32),
+                            torch.arange(w, device=device, dtype=torch.float32),
                             indexing="ij")
     pix = torch.as_tensor(pixtocam, dtype=torch.float32, device=device)[None]
+    shift = torch.tensor(center, dtype=torch.float32, device=device)
     for pose in c2w:
         cam = torch.as_tensor(pose, dtype=torch.float32, device=device)[None]
         rays = camera_utils.pixels_to_rays(xs.reshape(-1), ys.reshape(-1), pix, cam)
-        rgb, alpha, best, _ = _trace_spheres(torch, device, rays[0], rays[2], scale)
+        rgb, alpha, best, _ = _trace_spheres(torch, device, rays[0] - shift, rays[2], scale)
         depth = torch.where(alpha, best, torch.full_like(best, 15.0))
-        yield (rgb.reshape(size, size, 3).cpu().numpy(),
-               alpha.reshape(size, size).float().cpu().numpy(),
-               depth.reshape(size, size).cpu().numpy())
+        yield (rgb.reshape(h, w, 3).cpu().numpy(), alpha.reshape(h, w).float().cpu().numpy(),
+               depth.reshape(h, w).cpu().numpy())
 
 
 def _frames(poses, split, **meta):
@@ -3882,7 +4168,8 @@ def write_disk_scene(torch, device, scene, root, sizes, pool):
     return data_dir, sum(os.path.getsize(f) for f in files), len(files)
 
 
-_DISK_LOADERS = {"hotdog": "blender", "orb_teapot": "orb", "nero_bell": "glossy_synthetic"}
+_DISK_LOADERS = {"hotdog": "blender", "orb_teapot": "orb", "nero_bell": "glossy_synthetic",
+                 "open_egg": "open_illum", "neilf_castel": "neilf", "glossy_bear": "glossy_real"}
 
 
 def _disk_bindings(scene, data_dir):
@@ -3977,7 +4264,7 @@ def phase_disk_reference(torch, device, seed, tmp):
     return out
 
 
-def _nero_launches(batch):
+def _nero_launches(batch, trainer=None):
     """nero's table-gradient launches per step at `batch`: the SLF's
     reflectance grid at 8 points per final sample (planes from
     PLANES_MIN_POINTS); no own grid."""
@@ -3987,72 +4274,77 @@ def _nero_launches(batch):
     return {"planes": 1} if hashgrid.use_planes_layout(points, "mean") else {"leveled": 1}
 
 
-# Phase 34's runs: (scene, train_one_stage arguments, batches to try, the run
-# it warm-starts from, launches per step by kernel as a function of the
-# batch). The README's two hotdog stages (its second at batch 1024, its
-# eval chunk 1024), then the cache stages of the teapot and the bell.
+# Phase 34's runs, as `_disk_entry_runs` takes them: the README's two hotdog
+# stages (its second at batch 1024, its eval chunk 1024), then the cache
+# stages of the teapot and the bell.
 DISK_RUNS = (
-    ("hotdog", ("--scene", "hotdog", "-t", "cache"), (8192,), None, lambda batch: {}),
+    ("hotdog", ("--scene", "hotdog", "-t", "cache"), (8192,), None, lambda batch, trainer: {},
+     None, ()),
     ("hotdog", ("--scene", "hotdog", "-t", "material_light_from_scratch_resample",
                 "--sample_factor", "8", "--render_chunk_size", "1024"), (1024,), "hotdog_cache",
-     lambda batch: {}),
+     lambda batch, trainer: {}, None, ()),
     ("orb_teapot", ("--scene", "teapot", "-t", "cache"), (8192, 4096, 2048), None,
-     _open_launches),
+     _open_launches, None, ()),
     ("nero_bell", ("--scene", "nero_bell", "-t", "cache"), (8192, 4096, 2048), None,
-     _nero_launches),
+     _nero_launches, None, ()),
 )
 
 
 def _timed_loading(stats):
     """A patch of the Trainer's dataset loading that records into `stats`
-    its wall seconds (train and test splits), the PNG and EXR decodes in it
-    (count and seconds) and the host GiB of the loaded arrays."""
+    its wall seconds (train and test splits), the PNG, EXR and JPEG decodes
+    and the Lanczos and nearest resizes in it (count and seconds per call,
+    each call timed on the loader thread that made it) and the host GiB of
+    the loaded arrays."""
     import numpy as np
 
-    from neural_radiance_caching_tpu_torch.data import exr, png
+    from neural_radiance_caching_tpu_torch.data import exr, io as io_lib, jpeg, png
     from neural_radiance_caching_tpu_torch.engine import trainer as trainer_lib
 
     load = trainer_lib.Trainer._load_datasets
-    decodes = {"png": [], "exr": []}
+    calls = {"png": [], "exr": [], "jpeg": [], "lanczos": [], "nearest": []}
 
     def timed(fn, kind):
-        def read(path):
+        def call(*args):
             t0 = time.perf_counter()
-            out = fn(path)
-            decodes[kind].append(time.perf_counter() - t0)
+            out = fn(*args)
+            calls[kind].append(time.perf_counter() - t0)
             return out
-        return read
+        return call
 
     def timed_load(self):
         t0 = time.perf_counter()
         with _patched(png, read_png=timed(png.read_png, "png")), \
-                _patched(exr, read_exr=timed(exr.read_exr, "exr")):
+                _patched(exr, read_exr=timed(exr.read_exr, "exr")), \
+                _patched(jpeg, read_jpeg=timed(jpeg.read_jpeg, "jpeg")), \
+                _patched(io_lib, resize_lanczos4=timed(io_lib.resize_lanczos4, "lanczos"),
+                         resize_nearest=timed(io_lib.resize_nearest, "nearest")):
             load(self)
         stats.update(load_s=time.perf_counter() - t0, host_gib=sum(
             v.nbytes for ds in (self.dataset, self.test_dataset) for v in vars(ds).values()
             if isinstance(v, np.ndarray)) / 2**30)
-        for kind, times in decodes.items():
-            stats[f"{kind}_decodes"] = len(times)
-            stats[f"{kind}_decode_s"] = sum(times) / max(len(times), 1)
+        for kind, times in calls.items():
+            stats[f"{kind}_calls"] = len(times)
+            stats[f"{kind}_s"] = sum(times) / max(len(times), 1)
 
     return trainer_lib.Trainer, {"_load_datasets": timed_load}
 
 
+def _loading_text(load):
+    """The loading's readings as the disk phases print them."""
+    return (f"load {load['load_s']:.2f}s (train and test splits; " + ", ".join(
+        f"{load[f'{kind}_calls']} {what} at {load[f'{kind}_s']:.4f}s each"
+        for kind, what in (("png", "PNG decodes"), ("exr", "EXR decodes"),
+                           ("jpeg", "JPEG decodes"), ("lanczos", "Lanczos-4 resizes"),
+                           ("nearest", "nearest resizes"))
+        if load[f"{kind}_calls"]) + f"; {load['host_gib']:.3f} GiB of host arrays)")
+
+
 def phase_disk_train(torch, device, seed, steps, smi, tmp):
     """Each scene written at DISK_SIZES, then DISK_RUNS through the
-    train_with_trainer entry point as train_one_stage builds its command,
-    in-process, each at the largest of its batches that fits, 3 warmup +
-    the timed steps (the launch counts set to 0 before and read after),
-    reading its scene: the loading's wall seconds, decode seconds per image
-    and host GiB, ms per step, rays/s, peak GiB, launches per step, one
-    held-out view's PSNR; then one step with every scatter call held
-    against its plain version."""
+    train_with_trainer entry point (`_disk_entry_runs`)."""
     import concurrent.futures
-    import gc
     import os
-
-    from neural_radiance_caching_tpu_torch import train_one_stage
-    from neural_radiance_caching_tpu_torch.engine import gin_config
 
     written = {}
     with concurrent.futures.ThreadPoolExecutor(8) as pool:
@@ -4063,15 +4355,40 @@ def phase_disk_train(torch, device, seed, steps, smi, tmp):
                                                        pool)
             written[scene] = dict(data_dir=data_dir, write_s=time.perf_counter() - t0,
                                   gib=nbytes / 2**30, files=files, train_views=sizes[0],
-                                  test_views=sizes[1], resolution=sizes[2])
+                                  test_views=sizes[1], resolution=sizes[2],
+                                  views=f"{sizes[0]} train views at {sizes[2]}^2")
             print(f"disk train: wrote {scene} ({DISK_SCENES[scene]}'s layout, {sizes[0]} train "
                   f"+ {sizes[1]} test views at {sizes[2]}^2, rendered on the card): {files} "
                   f"files, {nbytes / 2**30:.3f} GiB in {written[scene]['write_s']:.1f}s",
                   flush=True)
+    results = _disk_entry_runs(torch, device, "disk train", DISK_RUNS, written, seed, steps,
+                               smi, tmp)
+    return {"written": written, **results}
+
+
+def _disk_entry_runs(torch, device, label, runs, written, seed, steps, smi, tmp):
+    """`runs`, (scene, train_one_stage arguments, batches to try, the run it
+    warm-starts from, launches per step by kernel as a function of the batch
+    and the trainer, timed steps or None for `steps`, extra bindings),
+    through the train_with_trainer entry point as train_one_stage builds its
+    command, in-process, reading the scene `written[scene]` holds (its
+    loader and near plane by `_disk_bindings`), each at
+    the largest of its batches that fits, 3 warmup + the timed steps (the
+    launch counts set to 0 before and read after): the loading's wall
+    seconds, decode and resize seconds per call and host GiB, ms per step,
+    rays/s, peak GiB, launches per step, one held-out view's PSNR; then one
+    step with every scatter call held against its plain version. No resume
+    run (phases 20-32 hold it). Returns the readings by run."""
+    import gc
+    import os
+
+    from neural_radiance_caching_tpu_torch import train_one_stage
+    from neural_radiance_caching_tpu_torch.engine import gin_config
 
     warmup, results, ckpts = 3, {}, {}
-    for scene, argv, batches, warm_from, expected in DISK_RUNS:
+    for scene, argv, batches, warm_from, expected, timed_steps, extra in runs:
         stage = argv[argv.index("-t") + 1]
+        timed = timed_steps or steps
         cut = []
         for batch in batches:
             ckpt = os.path.join(tmp, f"disk_{scene}_{stage}_{batch}")
@@ -4080,18 +4397,18 @@ def phase_disk_train(torch, device, seed, steps, smi, tmp):
                 checkpoint_dir=ckpt, partial_checkpoint_dir=ckpts.get(warm_from))
             command = [c for c in command[3:] if c != "--logtostderr"]
             args = command + [f"--gin_bindings={b}" for b in _disk_bindings(
-                scene, written[scene]["data_dir"]) + (
-                f"Config.early_exit_steps = {warmup + steps}",
-                f"Config.print_every = {warmup + steps}",
+                scene, written[scene]["data_dir"]) + tuple(extra) + (
+                f"Config.early_exit_steps = {warmup + timed}",
+                f"Config.print_every = {warmup + timed}",
                 f"Config.jax_rng_seed = {20200823 + seed}", "Trainer.save_results = False",
                 "Config.metric_harness_train_config = {'disable_lpips': True}")]
             load = {}
             try:
-                run = _entry_point_run(torch, args, None, ckpt, warmup, steps,
+                run = _entry_point_run(torch, args, None, ckpt, warmup, timed,
                                        (_timed_loading(load),))
                 break
             except torch.cuda.OutOfMemoryError as e:
-                cut.append(_out_of_memory(torch, f"disk train ({scene} {stage})", batch, e))
+                cut.append(_out_of_memory(torch, f"{label} ({scene} {stage})", batch, e))
                 del e
                 gin_config.clear_config()
                 gc.collect()
@@ -4100,9 +4417,10 @@ def phase_disk_train(torch, device, seed, steps, smi, tmp):
             raise AssertionError(f"no batch of {batches} fits {scene}'s {stage} stage")
         trainer, dt, losses, log, total = (run["trainer"], run["step_s"], run["losses"],
                                            run["log"], run["total"])
-        per_step = expected(batch)
+        per_step = expected(batch, trainer)
         calls, checked_launches, stats = _checked_step(torch, trainer, per_step)
-        terms = ("data", "cache_data") + (("mask",) if stage == "cache" else ())
+        terms = ("data", "cache_data") + (("mask",) if stage == "cache"
+                                          and trainer.dataset.masks is not None else ())
         finite = _finite(losses.values()) and all(f"loss/{k}" in losses for k in terms)
         metrics = run["metrics"]
         ok = (finite and run["saved"] == total
@@ -4112,15 +4430,12 @@ def phase_disk_train(torch, device, seed, steps, smi, tmp):
               and math.isfinite(metrics["psnr"]))
         n_params = sum(p.numel() for p in trainer.model.parameters())
         name = f"{scene}_{stage}"
-        print(f"disk train ({name}): train_with_trainer {' '.join(argv)} "
+        print(f"{label} ({name}): train_with_trainer {' '.join(argv)} "
               f"{'warm-started from ' + warm_from if warm_from else ''} ({n_params} params) on "
-              f"{written[scene]['train_views']} train views at {written[scene]['resolution']}^2 "
-              f"({type(trainer.dataset).__name__}: {trainer.dataset.num_images} images of "
-              f"{trainer.dataset.height}x{trainer.dataset.width}), {_cut_text(batch, batches, cut)}"
-              f", {warmup} warmup + {steps} timed steps: load {load['load_s']:.2f}s (train and "
-              f"test splits; {load['png_decodes']} PNG decodes at {load['png_decode_s']:.4f}s "
-              f"each, {load['exr_decodes']} EXR decodes at {load['exr_decode_s']:.4f}s each; "
-              f"{load['host_gib']:.3f} GiB of host arrays); step_ms={dt * 1e3:.2f} "
+              f"{written[scene]['views']} ({type(trainer.dataset).__name__}: "
+              f"{trainer.dataset.num_images} images of {trainer.dataset.height}x"
+              f"{trainer.dataset.width}), {_cut_text(batch, batches, cut)}, {warmup} warmup + "
+              f"{timed} timed steps: {_loading_text(load)}; step_ms={dt * 1e3:.2f} "
               f"rays_per_s={batch / dt:.0f} (train_log rays_per_sec={log[-1]['rays_per_sec']:.0f} "
               f"over steps 2-{total}) on [{smi}]; peak {run['peak_gib']:.2f} GiB; losses finite "
               f"and present={finite} {losses}; checkpoint step {run['saved']}; kernel launches="
@@ -4132,10 +4447,10 @@ def phase_disk_train(torch, device, seed, steps, smi, tmp):
                   f"{'ok' if c['ok'] else 'FAIL'}" for c in calls) or "none launched")
               + f"; entry point {run['wall']:.1f}s {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
-            raise AssertionError(f"disk train phase failed ({name})")
+            raise AssertionError(f"{label} phase failed ({name})")
         results[name] = dict(
             step_ms=dt * 1e3, rays_per_s=batch / dt, train_log_rays_per_s=log[-1]["rays_per_sec"],
-            peak_gib=run["peak_gib"], batch=batch, cut=cut, steps=steps, warmup=warmup,
+            peak_gib=run["peak_gib"], batch=batch, cut=cut, steps=timed, warmup=warmup,
             params=n_params, load=load, launches_by_kernel={
                 k: run["launches"][k] for k in ("leveled", "planes")},
             launches_per_step_by_kernel=per_step, eval_view=run["view"],
@@ -4147,7 +4462,7 @@ def phase_disk_train(torch, device, seed, steps, smi, tmp):
         gin_config.clear_config()
         gc.collect()
         torch.cuda.empty_cache()
-    return {"written": written, **results}
+    return results
 
 
 # Phases 35-36: InvProp's scenes in their captures' layout on disk, read by
@@ -4659,6 +4974,339 @@ def phase_transient_disk_train(torch, device, seed, steps, smi, tmp):
     return {"written": written, **results}
 
 
+# Phases 37-38: real captures in JPEG on disk. The scenes are written in the
+# layouts of the open_illum (OpenIllumination), neilf (NeILF++) and
+# glossy_real (NeRO's real captures) loaders without PIL (the script's JPEG
+# writer, 4:2:0 at quality 95, the masks through its PNG writer), rendered
+# on the card from the procedural spheres scene, and read back by the
+# port's loaders through its own JPEG decoder and its copies of OpenCV's
+# resizes.
+REAL_SCENES = {
+    "open_egg": "configs/open_ngp_yobo_egg.gin",
+    "neilf_castel": "configs/neilf_ngp_yobo_castel.gin",
+    "glossy_bear": "configs/glossy_ngp_yobo.gin",
+}
+# (views, held-out views, height, width) at phase 38, cut stand-ins (the
+# captures, their view counts and sizes are not in the repository):
+# OpenIllumination's egg, 30 train and 6 test views of 2048 x 1536 read at
+# the config's factor 2 (its test split at factor 8, so that the held-out
+# view is 256 x 192); NeILF++'s castel, 24 views of 1536 x 1024 of which
+# VALIDATION_INDEXES hold out 9, read at factor 4; NeRO's bear, 24 views in
+# images_raw_1024 at 1024 x 768 (its probe in images/ at 2048 x 1536), every
+# view in both splits.
+REAL_SIZES = {"open_egg": (30, 6, 1536, 2048), "neilf_castel": (24, 0, 1024, 1536),
+              "glossy_bear": (24, 0, 768, 1024)}
+# Phase 37's: the same layouts, small (NeRO's views stay 1024 wide: the
+# loader scales the intrinsics to images_raw_1024's size).
+REAL_REFERENCE_SIZES = {"open_egg": (4, 2, 64, 96), "neilf_castel": (12, 0, 96, 128),
+                        "glossy_bear": (4, 0, 768, 1024)}
+# Camera radius and the spheres' scale: OpenIllumination's poses are used as
+# stored (cameras 1.3 from the object, inside near 0.25 / far 2); NeILF++'s
+# loader scales the farthest camera coordinate to 1; NeRO's aligns the
+# poses to their principal axes inside [-1, 1]^3 (the spheres follow it).
+REAL_CAMERAS = {"open_egg": (1.3, 0.35), "neilf_castel": (3.7, 0.3), "glossy_bear": (2.5, 0.9)}
+# The JPEG writer against the port's decoder on the card's machine:
+# (height, width, quality, restart interval, interleaved).
+JPEG_CHECKS = {"420_q95": (67, 45, 95, 0, True), "420_q50_restart": (96, 130, 50, 3, True),
+               "per_component_q75": (40, 72, 75, 0, False),
+               "capture_q95": (1536, 2048, 95, 0, True)}
+# Leveled launches of one phase-37 step at NGP_NARROW: the SLF's
+# reflectance grid and its own grid, on every one of the three configs.
+REAL_REFERENCE_LAUNCHES = 2
+# The gradient limit of phase 37's step where it is not GRAD_REL_L2_TOL:
+# glossy_ngp_yobo.gin's reflectance grid at NGP_NARROW reads a CPU noise
+# floor (the cameras +-1 ulp) of 0.015-0.075 at its level 3 (15 CPU runs
+# over seeds, view counts, camera radii and sphere scales), against
+# 0.004-0.005 on the other two configs; the planted faults read >= 0.88.
+REAL_REFERENCE_GRAD_TOL = {"glossy_bear": 0.15}
+
+
+def _ply_bytes(points):
+    """A binary little-endian PLY of float x, y, z vertices."""
+    import numpy as np
+
+    header = (f"ply\nformat binary_little_endian 1.0\nelement vertex {len(points)}\n"
+              "property float x\nproperty float y\nproperty float z\nend_header\n")
+    return header.encode() + np.asarray(points, "<f4").tobytes()
+
+
+def write_real_scene(torch, device, scene, root, sizes, pool):
+    """`scene`'s capture layout in `root` at `sizes` (views, held-out views,
+    height, width), the views rendered on the card and encoded by the
+    `pool`'s threads: open_egg as an OpenIllumination object
+    (`output/transforms_{split}.json` with OpenCV poses and per-frame
+    intrinsics, `Lights/013/raw_undistorted/*.JPG`, grey `com_masks` /
+    `obj_masks` PNGs), neilf_castel as a NeILF++ scene (`sfm_scene.json`
+    with OpenCV world-to-camera extrinsics, `images/*.jpg`), glossy_bear as
+    a NeRO real capture (`cache.pkl`, the probe in `images/`, the views in
+    `images_raw_1024/`, `object_point_cloud.ply`). Each view is rendered
+    through the cameras the loader will hand the model. Returns (the
+    data_dir, bytes written, files)."""
+    import json
+    import os
+    import pickle
+
+    import numpy as np
+
+    from neural_radiance_caching_tpu_torch.data import camera_utils, datasets
+
+    n, n_test, h, w = sizes
+    radius, scale = REAL_CAMERAS[scene]
+    opencv = np.diag([1.0, -1.0, -1.0, 1.0])
+    k = np.array([[1.2 * w, 0, w / 2], [0, 1.2 * w, h / 2], [0, 0, 1]])
+    jobs = []
+
+    def pad(pose):
+        m = np.eye(4)
+        m[:3] = pose[:3, :4]
+        return m
+
+    def jpeg_job(path, rgb):
+        pixels = np.round(rgb * 255).astype(np.uint8)
+        jobs.append(pool.submit(lambda: _write(path, jpeg_encode(pixels, 95)[0])))
+
+    if scene == "open_egg":
+        data_dir = os.path.join(root, "obj_02_egg", "output")
+        lights = os.path.join(root, "obj_02_egg", "Lights", "013", "raw_undistorted")
+        for s, (split, count) in enumerate((("train", n), ("test", n_test))):
+            poses = camera_utils.generate_spherical_poses(count, radius=radius, seed=71 + s)
+            frames = []
+            views = _render_spheres(torch, device, poses, np.linalg.inv(k), (h, w), scale)
+            for i, (pose, (rgb, alpha, _)) in enumerate(zip(poses, views)):
+                name = f"CA{s}_{i:03d}"
+                frames.append({"file_path": f"./images/{name}",
+                               "transform_matrix": (pad(pose) @ opencv).tolist(),
+                               "fl_x": k[0, 0], "fl_y": k[1, 1], "cx": k[0, 2], "cy": k[1, 2],
+                               "w": w, "h": h})
+                jpeg_job(os.path.join(lights, f"{name}.JPG"), rgb)
+                mask = np.round(alpha * 255)[..., None]
+                masks = "com_masks" if split == "train" else "obj_masks"
+                jobs.append(pool.submit(lambda p=os.path.join(data_dir, masks, f"{name}.png"),
+                                        m=mask: _write(p, _png_bytes(m, 0, 8))))
+            _write(os.path.join(data_dir, f"transforms_{split}.json"),
+                   json.dumps({"frames": frames}).encode())
+    elif scene == "neilf_castel":
+        data_dir = root
+        raw = camera_utils.generate_spherical_poses(n, radius=radius, seed=81).astype(np.float64)
+        # The loader's cameras: the translations scaled by the farthest
+        # coordinate, then y and z swapped.
+        final = raw.copy()
+        final[:, :, 3] /= np.abs(raw[:, :, 3]).max()
+        final = np.array([[1.0, 0, 0], [0, 0, 1], [0, 1, 0]]) @ final
+        images, cameras = {}, {}
+        views = _render_spheres(torch, device, final, np.linalg.inv(k), (h, w), scale)
+        for i, (pose, (rgb, _, _)) in enumerate(zip(raw, views)):
+            key = str(2 * i + 1)
+            images[key] = f"/capture/images/view_{i:03d}.JPG"
+            cameras[key] = {"flg": 2, "camera": {
+                "intrinsic": {"focal": [k[0, 0], k[1, 1]], "ppt": [k[0, 2], k[1, 2]]},
+                "extrinsic": np.linalg.inv(pad(pose) @ opencv).reshape(-1).tolist()}}
+            jpeg_job(os.path.join(root, "images", f"view_{i:03d}.jpg"), rgb)
+        _write(os.path.join(root, "sfm_scene.json"), json.dumps({
+            "camera_track_map": {"images": cameras},
+            "image_path": {"file_paths": images}}).encode())
+    else:
+        data_dir = os.path.join(root, "bear")
+        ph, pw = 2 * h, 2 * w  # the probe: the capture's own size
+        kp = np.array([[1.2 * pw, 0, pw / 2], [0, 1.2 * pw, ph / 2], [0, 0, 1]])
+        center = np.array([0.4, -0.3, 0.2])
+        rng = np.random.RandomState(91)
+        cloud = center + rng.uniform(-1, 1, (4096, 3)) * scale
+        _write(os.path.join(data_dir, "object_point_cloud.ply"), _ply_bytes(cloud))
+        raw = camera_utils.generate_spherical_poses(n, radius=radius, center=center, seed=92)
+        poses = {i: np.linalg.inv(pad(c) @ opencv)[:3] for i, c in enumerate(raw)}
+        names = {i: f"IMG_{i:04d}.jpg" for i in poses}
+        _write(os.path.join(data_dir, "cache.pkl"),
+               pickle.dumps((poses, {i: kp for i in poses}, names, None)))
+        jpeg_job(os.path.join(data_dir, "images", names[1]), np.full((ph, pw, 3), 0.5))
+        # The loader's cameras: its normalisation by the point cloud (the
+        # cloud's box centre to the origin), then the principal-axis
+        # alignment; the spheres sit at the box centre, which the alignment
+        # takes to its translation.
+        loader = datasets.GlossyReal.__new__(datasets.GlossyReal)
+        loader.data_dir, loader.object_name = data_dir, "bear"
+        norm = loader._normalize({i: p.copy() for i, p in poses.items()})
+        c2w = np.array([np.linalg.inv(pad(norm[i]))[:3, :4] for i in names]) @ opencv
+        final, transform = camera_utils.transform_poses_pca(c2w[:, :3, :4])
+        points = loader._load_point_cloud(os.path.join(data_dir, "object_point_cloud.ply"))
+        box = (points.max(0) + points.min(0)) / 2
+        to_final = np.linalg.norm(transform[0, :3]) / np.max(np.linalg.norm(points - box, axis=1))
+        k_final = np.diag([w / pw, h / ph, 1.0]) @ kp
+        views = _render_spheres(torch, device, final, np.linalg.inv(k_final), (h, w),
+                                scale * to_final, tuple(transform[:3, 3]))
+        for i, (rgb, _, _) in enumerate(views):
+            jpeg_job(os.path.join(data_dir, "images_raw_1024", names[i]), rgb)
+    for job in jobs:
+        job.result()
+    files = [os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs]
+    return data_dir, sum(os.path.getsize(f) for f in files), len(files)
+
+
+def _jpeg_reference(seed):
+    """The script's JPEG writer against the port's decoder: for each case of
+    JPEG_CHECKS, the coefficient blocks the C entropy decoder gives equal
+    the writer's quantised coefficients (a scan per component: the blocks
+    inside each component, the rest zero), and the decoded pixels sit
+    within JPEG_FLOAT_TOL of the writer's float reconstruction."""
+    import numpy as np
+
+    from neural_radiance_caching_tpu_torch.data import jpeg
+
+    rng = np.random.RandomState(seed)
+    out = {}
+    for name, (h, w, quality, restart, interleaved) in JPEG_CHECKS.items():
+        y, x = np.mgrid[:h, :w]
+        img = np.stack([(x * 3 + y * (c + 2)) % 256 for c in range(3)], -1)
+        img = np.where(rng.rand(h, w, 1) < 0.1, rng.randint(0, 256, img.shape), img)
+        buf, coeffs, quant = jpeg_encode(img.astype(np.uint8), quality, restart, interleaved)
+        t0 = time.perf_counter()
+        frame = jpeg.decode_coefficients(buf)
+        entropy_s = time.perf_counter() - t0
+        same = True
+        for comp, want in zip(frame.components, coeffs):
+            rows, cols = (-(-n // 8) for n in frame.size(comp))
+            same &= bool(np.array_equal(comp.blocks[:rows, :cols], want[:rows, :cols])
+                         and (np.array_equal(comp.blocks, want) if interleaved
+                              else comp.blocks.sum() == comp.blocks[:rows, :cols].sum()))
+        t0 = time.perf_counter()
+        pixels = jpeg.pixels(frame)
+        pixels_s = time.perf_counter() - t0
+        err = float(np.abs(pixels - np.clip(jpeg_float_reference(coeffs, quant, h, w), 0,
+                                            255)).max())
+        out[name] = dict(bytes=len(buf), coefficients_equal=same, max_abs_err=err,
+                         entropy_s=entropy_s, pixels_s=pixels_s,
+                         ok=same and err <= JPEG_FLOAT_TOL)
+    return out
+
+
+def phase_real_disk_reference(torch, device, seed, tmp):
+    """The script's JPEG writer against the port's decoder (`_jpeg_reference`),
+    then each real-capture layout at REAL_REFERENCE_SIZES: the loader serving
+    the card gives the CPU loader's first three batches bit for bit, and one
+    cache step at NGP_NARROW's widths (the scene's SLF narrowed) runs GPU
+    against CPU (`_gpu_vs_cpu_step`: every loss term, every gradient leaf,
+    the CPU noise floor, two faults planted in the leveled kernel, every
+    launch held against its plain version)."""
+    import concurrent.futures
+    import os
+
+    from neural_radiance_caching_tpu_torch.data import datasets
+    from neural_radiance_caching_tpu_torch.engine import configs, gin_config
+
+    checks = _jpeg_reference(seed)
+    ok = all(c["ok"] for c in checks.values())
+    print("real disk reference: the script's JPEG writer (4:2:0, Annex K tables) against the "
+          "port's decoder: " + "; ".join(
+              f"{name} {JPEG_CHECKS[name][0]}x{JPEG_CHECKS[name][1]} ({c['bytes']} bytes): "
+              f"coefficients equal={c['coefficients_equal']}, pixels max_abs_err="
+              f"{c['max_abs_err']:.3f} against the float reconstruction (tol {JPEG_FLOAT_TOL}), "
+              f"entropy decode {c['entropy_s']:.4f}s, IDCT + upsampling + colour "
+              f"{c['pixels_s']:.4f}s" for name, c in checks.items())
+          + f" {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the port's JPEG decoder disagrees with the script's writer")
+
+    out = {"jpeg": checks}
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        for scene, config_file in REAL_SCENES.items():
+            data_dir, _, _ = write_real_scene(torch, device, scene,
+                                              os.path.join(tmp, "real_reference", scene),
+                                              REAL_REFERENCE_SIZES[scene], pool)
+            data = _disk_bindings(scene, data_dir)
+            narrow = NGP_NARROW + (_narrow_slf_binding(config_file),)
+            gin_config.clear_config()
+            configs.load_config(config_files=[config_file],
+                                bindings=list(TRAINER_BINDINGS + narrow + data))
+            config = configs.Config()
+            gin_config.clear_config()
+            loaded = [datasets.load_dataset("train", data_dir, config, device=dev)
+                      for dev in ("cpu", device)]
+            same = True
+            for _ in range(3):
+                want, got = (ds.next_train() for ds in loaded)
+                same &= _same_batch(torch, got, want)
+            served = (type(loaded[0]).__name__, tuple(loaded[0].images.shape))
+            masked = loaded[0].masks is not None
+            del loaded
+            r = _gpu_vs_cpu_step(torch, device, seed, TRAINER_CACHE_STAGE + narrow + data,
+                                 config_file, launches=REAL_REFERENCE_LAUNCHES,
+                                 terms=("data", "cache_data") + (("mask",) if masked else ()),
+                                 tol=REAL_REFERENCE_GRAD_TOL.get(scene, GRAD_REL_L2_TOL))
+            ok = r["ok"] and same
+            print(f"real disk reference ({scene}): {served[0]} loader on {config_file}'s layout "
+                  f"(images {list(served[1])}, JPEG), the card's first three batches equal to "
+                  f"the CPU loader's={same}; the cache stage at reference widths (batch 64, 16 "
+                  f"samples per level), one step, the same weights, batch and draws, gpu vs cpu: "
+                  f"{_gpu_vs_cpu_text(r)}; the leveled calls against their plain version: "
+                  f"{_checked_text(r['checked'])}; kernel launches gpu={r['launches']} "
+                  f"cpu={r['cpu_launches']} {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"the {scene} scene's GPU step or batches disagree with "
+                                     "the CPU's")
+            out[scene] = {k: v for k, v in r.items()
+                          if k not in ("ok", "checked", "cpu_launches", "grad_rel_l2_errs")}
+    return out
+
+
+def _open_material_launches(batch, trainer):
+    """open's table-gradient launches per step of its material stage at
+    `batch`: the SLF's own grid and its reflectance grid (8 points per
+    query, planes from PLANES_MIN_POINTS) for its queries along the
+    secondary rays (batch x the stage's secondary samples), at the surface
+    points (one per ray) and at the primary rays' final samples."""
+    from neural_radiance_caching_tpu_torch.ops import hashgrid
+
+    counts = {"leveled": 0, "planes": 0}
+    for points in (batch * trainer.num_secondary_samples, batch, batch * NGP_FINAL_SAMPLES):
+        for p in (points, points * SLF_DISTANCE_SAMPLES):
+            counts["planes" if hashgrid.use_planes_layout(p, "mean") else "leveled"] += 1
+    return {k: n for k, n in counts.items() if n}
+
+
+# Phase 38's runs, as `_disk_entry_runs` takes them: open_egg's cache stage,
+# then the README's second stage warm-started from it (its eval chunk
+# 1024), each reading the test split at factor 8; the cache stages of
+# neilf_castel and glossy_bear, 3 timed steps each.
+REAL_RUNS = (
+    ("open_egg", ("--scene", "obj_02_egg", "-t", "cache"), (8192, 4096, 2048), None,
+     _open_launches, None, ("Config.test_factor = 8",)),
+    ("open_egg", ("--scene", "obj_02_egg", "-t", "material_light_from_scratch_resample",
+                  "--sample_factor", "8", "--render_chunk_size", "1024"), (1024, 512, 256),
+     "open_egg_cache", _open_material_launches, None, ("Config.test_factor = 8",)),
+    ("neilf_castel", ("--scene", "castel", "-t", "cache"), (8192, 4096, 2048), None,
+     _open_launches, 3, ()),
+    ("glossy_bear", ("-c", "glossy_ngp_yobo", "-t", "cache"), (8192, 4096, 2048), None,
+     _open_launches, 3, ()),
+)
+
+
+def phase_real_disk_train(torch, device, seed, steps, smi, tmp):
+    """Each real-capture layout written at REAL_SIZES (the writing's seconds
+    and size), then REAL_RUNS through the train_with_trainer entry point
+    (`_disk_entry_runs`)."""
+    import concurrent.futures
+    import os
+
+    written = {}
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        for scene, sizes in REAL_SIZES.items():
+            t0 = time.perf_counter()
+            data_dir, nbytes, files = write_real_scene(torch, device, scene,
+                                                       os.path.join(tmp, "real", scene), sizes,
+                                                       pool)
+            n, n_test, h, w = sizes
+            views = (f"{n} train + {n_test} test views" if n_test else f"{n} views") + \
+                f" of {w}x{h} JPEG"
+            written[scene] = dict(data_dir=data_dir, write_s=time.perf_counter() - t0,
+                                  gib=nbytes / 2**30, files=files, views=views)
+            print(f"real disk train: wrote {scene} ({REAL_SCENES[scene]}'s layout, {views} "
+                  f"(4:2:0, quality 95), rendered on the card): {files} files, "
+                  f"{nbytes / 2**30:.3f} GiB in {written[scene]['write_s']:.1f}s", flush=True)
+    results = _disk_entry_runs(torch, device, "real disk train", REAL_RUNS, written, seed,
+                               steps, smi, tmp)
+    return {"written": written, **results}
+
+
 def _profile(torch, train_step, state, rng, batches, path, steps=3):
     """Device time by kernel over `steps` steps, as a table written to `path`."""
     import pathlib
@@ -4705,6 +5353,9 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
+    import concurrent.futures
+
+    from neural_radiance_caching_tpu_torch.data import jpeg
     from neural_radiance_caching_tpu_torch.ops import scatter_cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4715,10 +5366,14 @@ def main():
           f"torch={torch.__version__} cuda={torch.version.cuda} nvidia-smi=[{smi}]", flush=True)
 
     t_start = time.perf_counter()
-    lib_paths = scatter_cuda.build_library(verbose=True)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        jpeg_build = pool.submit(jpeg.build_library)
+        lib_paths = scatter_cuda.build_library(verbose=True)
+        jpeg_path = jpeg_build.result()
     scatter_cuda.load_library()
     print(f"build: {', '.join(p.name for p in lib_paths.values())} from csrc/ with nvcc (one per "
-          f"source, in parallel) in {time.perf_counter() - t_start:.1f}s", flush=True)
+          f"source, in parallel), and beside them {jpeg_path.name} (the JPEG entropy decoder) "
+          f"with the host C compiler, in {time.perf_counter() - t_start:.1f}s", flush=True)
 
     kernel = phase_kernel(torch, device, args.seed)
     planes = phase_kernel_planes(torch, device, args.seed)
@@ -4774,6 +5429,8 @@ def main():
         transient_disk_reference = phase_transient_disk_reference(torch, device, args.seed, tmp)
         transient_disk = phase_transient_disk_train(torch, device, args.seed, args.trainer_steps,
                                                     smi, tmp)
+        real_reference = phase_real_disk_reference(torch, device, args.seed, tmp)
+        real = phase_real_disk_train(torch, device, args.seed, args.trainer_steps, smi, tmp)
     print(f"phases done in {time.perf_counter() - t_start:.1f}s, build included", flush=True)
 
     csrc = "neural_radiance_caching_tpu_torch/csrc"
@@ -4833,10 +5490,20 @@ def main():
            for run, r in transient_disk_runs.items()},
         "trainer_transient_disk_cornell_vis_only": 0}
     leveled_launches.update(transient_disk_leveled)
+    real_runs = {run: r for run, r in real.items() if run != "written"}
+    real_leveled = {
+        **{f"trainer_real_disk_reference_{scene}": real_reference[scene]["launches"]
+           for scene in REAL_SCENES},
+        **{f"trainer_real_disk_{run}": r["launches_by_kernel"]["leveled"]
+           for run, r in real_runs.items()}}
+    leveled_launches.update(real_leveled)
+    real_planes = {f"trainer_real_disk_{run}": r["launches_by_kernel"]["planes"]
+                   for run, r in real_runs.items()}
     other_paths = {"trainer_transient_train": 0, "trainer_transient_occlusions": 0,
                    **{k: 0 for k in tmat_paths}, **{k: 0 for k in slf_paths},
                    **{k: 0 for k in invprop_paths}, **{k: 0 for k in baseline_leveled},
-                   **{k: 0 for k in disk_leveled}, **{k: 0 for k in transient_disk_leveled}}
+                   **{k: 0 for k in disk_leveled}, **{k: 0 for k in transient_disk_leveled},
+                   **{k: 0 for k in real_leveled}}
     print(json.dumps({"kernels": [{
         "name": "scatter_add_weighted_leveled",
         "route": "cuda",
@@ -4861,7 +5528,10 @@ def main():
                              for r in disk_runs.values()),
                            *(transient_disk_reference[scene]["max_abs_err"]
                              for scene in TRANSIENT_DISK_SCENES),
-                           *(r["max_abs_err"] for r in transient_disk_runs.values())),
+                           *(r["max_abs_err"] for r in transient_disk_runs.values()),
+                           *(real_reference[scene]["max_abs_err"] for scene in REAL_SCENES),
+                           *(r["max_abs_err_by_kernel"].get("leveled", 0.0)
+                             for r in real_runs.values())),
         "max_abs_err_by_shape": {"cache": kernel["max_abs_err"],
                                  "material_path": material_err["leveled"],
                                  "transient_path": transient["direct"]["max_abs_err"],
@@ -4893,7 +5563,13 @@ def main():
                                     transient_disk_reference[scene]["max_abs_err"]
                                     for scene in TRANSIENT_DISK_SCENES},
                                  **{f"trainer_transient_disk_{run}_path": r["max_abs_err"]
-                                    for run, r in transient_disk_runs.items()}},
+                                    for run, r in transient_disk_runs.items()},
+                                 **{f"trainer_real_disk_reference_{scene}_path":
+                                    real_reference[scene]["max_abs_err"]
+                                    for scene in REAL_SCENES},
+                                 **{f"trainer_real_disk_{run}_path": r["max_abs_err_by_kernel"][
+                                     "leveled"] for run, r in real_runs.items()
+                                    if "leveled" in r["max_abs_err_by_kernel"]}},
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
         "library_ms": kernel["library_ms"],
@@ -4935,15 +5611,16 @@ def main():
         "source": f"{csrc}/scatter_weighted.cu",
         "replaces": f"{replaces}:364",
         "launches": material["planes"] + sum(baseline_planes.values())
-        + sum(disk_planes.values()),
+        + sum(disk_planes.values()) + sum(real_planes.values()),
         "launches_by_path": {"cache_train": 0, "material_train": material["planes"],
                              "transient_train": 0, "transient_train_dedup": 0, "gate": 0,
                              "eval_render": 0, "transient_material": 0, "trainer_train": 0,
                              "trainer_material_train": 0, **other_paths, **baseline_planes,
-                             **disk_planes},
+                             **disk_planes, **real_planes},
         "max_abs_err": max(planes["max_abs_err"], material_err["planes"],
                            *(r["max_abs_err_by_kernel"].get("planes", 0.0)
-                             for r in [*baseline.values(), *disk_runs.values()])),
+                             for r in [*baseline.values(), *disk_runs.values(),
+                                       *real_runs.values()])),
         "max_abs_err_by_shape": {"planes_shape": planes["max_abs_err"],
                                  "material_path": material_err["planes"],
                                  **{f"trainer_{run}_path": r["max_abs_err_by_kernel"]["planes"]
@@ -4951,6 +5628,9 @@ def main():
                                     if "planes" in r["max_abs_err_by_kernel"]},
                                  **{f"trainer_disk_{run}_path": r["max_abs_err_by_kernel"][
                                      "planes"] for run, r in disk_runs.items()
+                                    if "planes" in r["max_abs_err_by_kernel"]},
+                                 **{f"trainer_real_disk_{run}_path": r["max_abs_err_by_kernel"][
+                                     "planes"] for run, r in real_runs.items()
                                     if "planes" in r["max_abs_err_by_kernel"]}},
         "ms": planes["ms"],
         "plain_ms": planes["plain_ms"],
@@ -5001,6 +5681,7 @@ def main():
         "disk_train": disk, "disk_reference": disk_reference,
         "transient_disk_train": transient_disk,
         "transient_disk_reference": transient_disk_reference,
+        "real_disk_train": real, "real_disk_reference": real_reference,
         "device": smi}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -75,6 +75,30 @@ def recenter_poses(poses):
     return unpad_poses(poses), transform
 
 
+def transform_poses_pca(poses):
+    """Align the world frame to the principal axes of the camera positions
+    (mip-NeRF 360): the right singular vectors of the centred positions as
+    the new axes (the last flipped to keep the frame right-handed), y and z
+    flipped if the cameras' mean up points down, then scaled so that every
+    position lies in [-1, 1]^3. Returns (poses [N, 3, 4], transform [4, 4])."""
+    positions = poses[:, :3, 3]
+    center = positions.mean(axis=0)
+    _, _, axes = np.linalg.svd(positions - center, full_matrices=False)
+    if np.linalg.det(axes) < 0:
+        axes[-1] *= -1.0
+    world_from_old = np.eye(4)
+    world_from_old[:3, :3] = axes
+    world_from_old[:3, 3] = axes @ -center
+    aligned = unpad_poses(world_from_old @ pad_poses(poses))
+    if aligned[:, 2, 1].mean() < 0:
+        aligned = np.diag(np.array([1.0, -1.0, -1.0])) @ aligned
+        world_from_old = np.diag(np.array([1.0, -1.0, -1.0, 1.0])) @ world_from_old
+    extent = np.max(np.abs(aligned[:, :3, 3]))
+    world_from_old = np.diag(np.array([1 / extent] * 3 + [1.0])) @ world_from_old
+    aligned[:, :3, 3] /= extent
+    return aligned, world_from_old
+
+
 def pixel_coordinates(width, height):
     """Integer (x, y) pixel grids, 'xy' indexing."""
     return np.meshgrid(np.arange(width), np.arange(height), indexing="xy")

@@ -1,12 +1,13 @@
 """Datasets and ray batching (counterpart of ``data/datasets.py``): the
 loaders of posed images on disk ``blender``, ``blender_active``, ``orb``
-and ``glossy_synthetic``, of transient captures on disk
-``transient_simulation`` and ``fwp_transient_captured``, and the
-procedural ``SyntheticSpheres`` scene; ``load_dataset`` raises naming any
-other loader.
+and ``glossy_synthetic``, of real captures ``open_illum``, ``neilf`` and
+``glossy_real``, of transient captures on disk ``transient_simulation``
+and ``fwp_transient_captured``, and the procedural ``SyntheticSpheres``
+scene; ``load_dataset`` raises naming any other loader.
 
-Each loader reads its images on the host (the port's own PNG, EXR and
-HDF5 readers, ``data/io.py``, ``data/hdf5.py``) into the same arrays as
+Each loader reads its images on the host (the port's own PNG, JPEG, EXR
+and HDF5 readers and OpenCV's resizes, ``data/io.py``, ``data/jpeg.py``,
+``data/hdf5.py``) into the same arrays as
 the JAX loader, and batches are drawn with the same numpy RandomState
 stream as the JAX package, so both packages see identical batches: random
 pixels of the stacked images, of the flattened pixel table
@@ -21,6 +22,7 @@ time-binned transients [N, H, W, n_bins, 3].
 
 from __future__ import annotations
 
+import concurrent.futures
 import glob
 import json
 import os
@@ -47,6 +49,7 @@ def load_dataset(split, data_dir, config, device="cuda", **kwargs):
     name = config.dataset_loader
     loaders = {"blender": Blender, "blender_active": BlenderActive, "orb": ORB,
                "glossy_synthetic": GlossySynthetic, "synthetic_spheres": SyntheticSpheres,
+               "open_illum": OpenIllum, "neilf": Neilf, "glossy_real": GlossyReal,
                "transient_simulation": TransientSimulation,
                "fwp_transient_captured": FWPTransientCaptured}
     if name in loaders:
@@ -234,6 +237,8 @@ class Dataset:
         self.distortion_params = None
         self.camtype = camera_utils.ProjectionType.PERSPECTIVE
         self.lights = None
+        # Per-pixel illumination index [N, H, W, 1] where a loader keeps one.
+        self.light_idx = None
         self.masks = None
         self.mask_images = None
         self.alphas = None
@@ -269,7 +274,8 @@ class Dataset:
     def _make_pixels(self, cam_idx, pix_x, pix_y, lossmult=None, light_idx=None):
         n = pix_x.shape[0]
         if light_idx is None:
-            light_idx = np.zeros((n, 1), np.int32)
+            light_idx = (self.light_idx[cam_idx, pix_y, pix_x] if self.light_idx is not None
+                         else np.zeros((n, 1), np.int32))
         return pytrees.Pixels(
             pix_x_int=pix_x,
             pix_y_int=pix_y,
@@ -508,6 +514,241 @@ class GlossySynthetic(Dataset):
         self.camtoworlds = camtoworlds
         self.pixtocams = pixtocams.astype(np.float32)
         self.lights = self.camtoworlds[..., :3, -1]
+
+
+# --- real captures -----------------------------------------------------------------------
+
+
+def _map_views(fn, items):
+    """`fn` over each view, the results in order, on a pool of host threads
+    (the JPEG decodes and the resizes release the GIL)."""
+    with concurrent.futures.ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        return list(pool.map(fn, items))
+
+
+class OpenIllum(Dataset):
+    """OpenIllumination light-stage captures (the `output/` directory of an
+    object): poses from `transforms_{split}.json`, the intrinsics scaled and
+    the images shrunk by `Config.factor` (`test_factor` on the test split),
+    the `.JPG` images of illumination 013 from
+    `../Lights/013/raw_undistorted/` resized by OpenCV's Lanczos-4, made
+    linear, and composited on white by the `com_masks` (train, > 0.5) or
+    `obj_masks` (test, > 0) PNGs resized by nearest; each pixel's light
+    index 0, the lights at the cameras. The other illuminations
+    (`Config.multi_illumination`) and the relighting env maps need the HDR
+    reader and raise."""
+
+    ILLUM_MAP = "013"
+
+    def _load_renderings(self, config):
+        if self._load_env_map:
+            raise NotImplementedError("Config.compute_relight_metrics (the relighting env "
+                                      "maps) is not ported yet")
+        if config.multi_illumination:
+            raise NotImplementedError("Config.multi_illumination (OpenIllumination's other "
+                                      "illuminations and their env maps) is not ported yet")
+        split = _split_name(self.split)
+        _, camtoworlds, pixtocams, distortions, camtype, nameprefixes = load_ngp_posedata(
+            config, self.data_dir, f"transforms_{split}.json")
+        factor = max(config.factor if self.split == "train"
+                     else (config.test_factor or config.factor), 1)
+        pixtocams = pixtocams @ np.diag([factor, factor, 1.0])
+        camtoworlds = (camtoworlds @ np.diag([1, -1, -1, 1.0]))[:, :3, :4]
+
+        lights_dir = f"../Lights/{self.ILLUM_MAP}/raw_undistorted"
+        mask_dir = "./com_masks" if self.split == "train" else "./obj_masks"
+
+        def load_image(prefix):
+            image = io_lib.get_img(1, ".JPG", os.path.join(
+                self.data_dir, prefix.replace("./images", lights_dir))) / 255.0
+            image = io_lib.resize_lanczos4(
+                image, (image.shape[1] // factor, image.shape[0] // factor))
+            return np.clip(image_ops.srgb_to_linear(image), 0.0, np.inf)
+
+        def load_mask(prefix):
+            mask = io_lib.get_img(1, ".png", os.path.join(
+                self.data_dir, prefix.replace("./images", mask_dir))) / 255.0
+            mask = io_lib.resize_nearest(mask, (mask.shape[1] // factor, mask.shape[0] // factor))
+            return mask[..., None] > (0.5 if self.split == "train" else 0.0)
+
+        images = _map_views(load_image, nameprefixes)
+        # The PNG decoder's many small steps hold the GIL: threads slow it.
+        mask_images = [load_mask(prefix) for prefix in nameprefixes]
+        self.light_idx = np.zeros((len(images),) + images[0].shape[:2] + (1,), np.int32)
+        self.mask_images = np.stack(mask_images, axis=0).astype(np.float32)
+        rgb = np.stack(images, axis=0)[..., :3]
+        alpha = self.mask_images[..., :1]
+        self.images = (rgb * alpha + (1.0 - alpha)).astype(np.float32)
+        self.masks = alpha
+        self.camtoworlds = camtoworlds
+        self.pixtocams = pixtocams
+        self.distortion_params = distortions
+        self.camtype = camtype
+        self.lights = self.camtoworlds[..., :3, -1]
+
+
+class Neilf(Dataset):
+    """NeILF++ captures: `sfm_scene.json`'s calibrated cameras (flag 2),
+    every image but those of `VALIDATION_INDEXES` (mod the image count) in
+    the train split and those in the test split, the first of
+    `images/<name>.{png,jpg,tiff,exr}` that exists (TIFF raises: the port
+    reads none) area-downsampled by `Config.factor` and scaled by 0.25; the
+    inverted extrinsics scaled so that the farthest camera is at 1, y and z
+    swapped."""
+
+    VALIDATION_INDEXES = [9, 18, 30, 41, 50, 62, 73, 82, 94]
+
+    def _load_renderings(self, config):
+        with open(os.path.join(self.data_dir, "sfm_scene.json")) as f:
+            sfm_scene = json.load(f)
+        intrinsics, extrinsics = {}, {}
+        for index, info in sfm_scene["camera_track_map"]["images"].items():
+            if info["flg"] == 2:
+                k = np.zeros((4, 4))
+                k[0, 0], k[1, 1] = info["camera"]["intrinsic"]["focal"]
+                k[0, 2], k[1, 2] = info["camera"]["intrinsic"]["ppt"]
+                k[2, 2] = k[3, 3] = 1
+                intrinsics[index] = k
+                extrinsics[index] = np.array(info["camera"]["extrinsic"]).reshape(4, 4)
+
+        image_list = sfm_scene["image_path"]["file_paths"]
+        image_indexes = [str(k) for k in sorted(int(k) for k in image_list)]
+        validation = {v % len(image_indexes) for v in self.VALIDATION_INDEXES}
+        selected = [idx for i, idx in enumerate(image_indexes)
+                    if (i in validation) == (self.split != "train")]
+
+        def load(image_index):
+            prefix = os.path.split(os.path.splitext(image_list[image_index])[0])[1]
+            fprefix = os.path.join(self.data_dir, "images", prefix)
+            for ext in (".png", ".jpg", ".tiff", ".exr"):
+                if os.path.exists(fprefix + ext):
+                    img = io_lib.get_img(max(config.factor, 1), ext, fprefix)
+                    return (img if ext == ".exr" else img / 255.0)[..., :3] * 0.25
+            raise FileNotFoundError(fprefix)
+
+        images = _map_views(load, selected)
+        camtoworlds = np.stack([np.linalg.inv(extrinsics[i])[:3, :4]
+                                @ np.diag([1.0, -1.0, -1.0, 1.0]) for i in selected], axis=0)
+        pixtocams = [np.linalg.inv(intrinsics[i][:3, :3]) for i in selected]
+        camtoworlds[:, :3, 3] *= 1.0 / np.max(np.abs(camtoworlds[:, :3, 3]))
+        camtoworlds = np.array([[1.0, 0, 0], [0, 0, 1], [0, 1, 0]]) @ camtoworlds
+        self.images = np.stack(images, axis=0).astype(np.float32)
+        self.camtoworlds = camtoworlds.astype(np.float32)
+        self.pixtocams = np.stack(pixtocams, axis=0).astype(np.float32)
+
+
+class GlossyReal(Dataset):
+    """NeRO's real captures: `cache.pkl` (world-to-camera poses, OpenCV
+    intrinsics and image names by id), the poses normalised by
+    `object_point_cloud.ply` (centred on its box, scaled by its farthest
+    point, rotated by the object's `META_INFO` up and forward), the
+    intrinsics rescaled from the probe image `images/<first name>` to a
+    1024-pixel long side, the images from `images_raw_1024/`, the poses
+    aligned by ``camera_utils.transform_poses_pca``. The capture's files are
+    the object's own, unpickled as the JAX loader does."""
+
+    META_INFO = {
+        "bear": {"forward": [0.539944, -0.342791, 0.341446],
+                 "up": [0.0512875, -0.645326, -0.762183]},
+        "coral": {"forward": [0.004226, -0.235523, 0.267582],
+                  "up": [0.0477973, -0.748313, -0.661622]},
+        "maneki": {"forward": [-2.336584, -0.406351, 0.482029],
+                   "up": [-0.0117387, -0.738751, -0.673876]},
+        "bunny": {"forward": [0.437076, -1.672467, 1.436961],
+                  "up": [-0.0693234, -0.644819, -0.761185]},
+        "vase": {"forward": [-0.911907, -0.132777, 0.180063],
+                 "up": [-0.01911, -0.738918, -0.673524]},
+    }
+
+    @staticmethod
+    def _load_point_cloud(pcl_path):
+        """The x, y, z columns of a PLY file's vertices, read as the JAX
+        loader reads them: every property line after `element vertex`
+        counts as a vertex property (those of later elements too), and a
+        binary file's properties are all read as little-endian float32."""
+        with open(pcl_path, "rb") as f:
+            header = []
+            while True:
+                line = f.readline().decode("ascii", "ignore").strip()
+                header.append(line)
+                if line == "end_header":
+                    break
+            n_verts, props, fmt = 0, [], "ascii"
+            for line in header:
+                if line.startswith("format"):
+                    fmt = line.split()[1]
+                if line.startswith("element vertex"):
+                    n_verts = int(line.split()[-1])
+                if line.startswith("property") and n_verts:
+                    props.append(line.split()[-1])
+            if fmt == "ascii":
+                data = np.loadtxt(f, max_rows=n_verts)
+            else:
+                dt = np.dtype([(p, "<f4") for p in props])
+                data = np.frombuffer(f.read(n_verts * dt.itemsize), dtype=dt)
+                data = np.stack([data[p] for p in props], axis=1)
+        ix, iy, iz = props.index("x"), props.index("y"), props.index("z")
+        return np.stack([data[:, ix], data[:, iy], data[:, iz]], axis=1).astype(float)
+
+    @staticmethod
+    def _compute_rotation(vert, forward):
+        y = np.cross(vert, forward)
+        x = np.cross(y, vert)
+        vert = vert / np.linalg.norm(vert)
+        x = x / np.linalg.norm(x)
+        y = y / np.linalg.norm(y)
+        return np.stack([x, y, vert], 0)
+
+    def _normalize(self, poses):
+        ref_points = self._load_point_cloud(os.path.join(self.data_dir,
+                                                         "object_point_cloud.ply"))
+        max_pt, min_pt = np.max(ref_points, 0), np.min(ref_points, 0)
+        center = (max_pt + min_pt) * 0.5
+        offset = -center
+        scale = 1 / np.max(np.linalg.norm(ref_points - center[None], 2, 1))
+        meta = self.META_INFO[self.object_name]
+        up = np.asarray(meta["up"], np.float32)
+        forward = np.asarray(meta["forward"], np.float32)
+        up, forward = up / np.linalg.norm(up), forward / np.linalg.norm(forward)
+        r_rec = self._compute_rotation(up, forward)
+        for img_id, pose in poses.items():
+            rot, t = pose[:, :3], pose[:, 3]
+            poses[img_id] = np.concatenate([rot @ r_rec.T, ((t - rot @ offset) * scale)[:, None]],
+                                           -1)
+        return poses
+
+    def _load_renderings(self, config):
+        self.object_name = self.data_dir.rstrip("/").split("/")[-1]
+        with open(os.path.join(self.data_dir, "cache.pkl"), "rb") as f:
+            poses_dict, ks_dict, names_dict, _ = pickle.load(f)
+        poses_dict = self._normalize(poses_dict)
+        h, w = io_lib.load_img(os.path.join(self.data_dir, "images", names_dict[1])).shape[:2]
+
+        camtoworlds, pixtocams, nameprefixes = [], [], []
+        for key in names_dict:
+            pose = np.eye(4)
+            pose[:3, :4] = np.array(poses_dict[key])
+            ratio = 1024.0 / max(h, w)
+            th, tw = int(ratio * h), int(ratio * w)
+            camtoworlds.append(np.linalg.inv(pose)[:3, :4])
+            pixtocams.append(np.diag([tw / w, th / h, 1.0]) @ ks_dict[key])
+            nameprefixes.append(os.path.join("images_raw_1024", names_dict[key]))
+
+        pixtocams = np.linalg.inv(np.array(pixtocams))
+        camtoworlds = np.array(camtoworlds) @ np.diag([1, -1, -1, 1.0])
+        camtoworlds, _ = camera_utils.transform_poses_pca(camtoworlds[:, :3, :4])
+
+        def load(prefix):
+            image = io_lib.get_imgs(self.data_dir, config.factor, False, False, False, False,
+                                    False, False, prefix)[0]
+            if self._use_exrs:
+                image = np.clip(image_ops.srgb_to_linear(image), 0.0, np.inf)
+            return image
+
+        images = _map_views(load, nameprefixes)
+        self.images = np.stack(images, axis=0)[..., :3].astype(np.float32)
+        self.camtoworlds = camtoworlds.astype(np.float32)
+        self.pixtocams = pixtocams.astype(np.float32)
 
 
 # --- transient captures -----------------------------------------------------------------

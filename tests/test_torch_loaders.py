@@ -528,12 +528,15 @@ def test_blender_factor_quirk_is_kept(scenes):
             assert x.max() < 0
 
 
-# The loaders `test_torch_transient_loaders.py` holds against JAX's.
+# The loaders `test_torch_transient_loaders.py` and `test_torch_open_loaders.py`
+# hold against JAX's.
 TRANSIENT_LOADERS = {"transient_simulation", "fwp_transient_captured"}
+REAL_CAPTURE_LOADERS = {"open_illum", "neilf", "glossy_real"}
 
 
 @pytest.mark.parametrize("name", sorted(set(tdatasets.LOADERS) - set(LOADER_CONFIG)
-                                        - TRANSIENT_LOADERS - {"synthetic_spheres"}))
+                                        - TRANSIENT_LOADERS - REAL_CAPTURE_LOADERS
+                                        - {"synthetic_spheres"}))
 def test_other_loaders_raise_by_name(name):
     with pytest.raises(NotImplementedError, match=f"'{name}' dataset loader"):
         tdatasets.load_dataset("train", "/nonexistent", TConfig(dataset_loader=name),
@@ -542,7 +545,8 @@ def test_other_loaders_raise_by_name(name):
 
 def test_loader_refusals(scenes, tmp_path):
     """The options this slice does not read raise by name: ORB's render
-    path, NeRO's relighting env maps, TIFF images and disparities, JPEG."""
+    path, NeRO's relighting env maps, TIFF images and disparities; a JPEG
+    is read as PIL reads it (`test_torch_jpeg.py`)."""
     for loader, kw, match in (
             ("orb", dict(vis_render_path=True), "vis_render_path"),
             ("glossy_synthetic", dict(compute_relight_metrics=True), "compute_relight_metrics"),
@@ -553,8 +557,8 @@ def test_loader_refusals(scenes, tmp_path):
             tdatasets.load_dataset("test", scenes[loader], config, device="cpu")
     path = tmp_path / "x.jpg"
     Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(path)
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        tdatasets.io_lib.load_img(str(path))
+    np.testing.assert_array_equal(tdatasets.io_lib.load_img(str(path)),
+                                  np.array(Image.open(path), dtype=np.float32))
 
 
 def test_loaders_run_without_pil_or_jax(scenes):

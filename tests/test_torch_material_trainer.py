@@ -124,8 +124,9 @@ def clean_gin():
 
 def jax_step_loss(jmodel, jcfg, train_frac):
     """The JAX train step's loss (`parallel/train.py` without the mesh): the
-    forward, the debias forward and its `_nocorr` grafts, and per *main
-    output its losses and its extra losses."""
+    forward, the debias forward and its `_nocorr` grafts, per *main output
+    its losses and its extra losses, then the parameter regularizers of
+    `Config.param_regularizers`."""
 
     def loss_fn(variables, batch):
         rng = jax.random.PRNGKey(0)
@@ -148,6 +149,8 @@ def jax_step_loss(jmodel, jcfg, train_frac):
             jextra.compute_extra_losses(jmodel, variables, jax.random.fold_in(rng, 7919 + i),
                                         batch.rays, jcfg, batch, results, key, losses,
                                         train_frac)
+        for k, v in jlosses.param_regularizer_loss(variables, jcfg).items():
+            losses["regularizer_" + k] = v
         return sum(jax.tree_util.tree_leaves(losses)), losses
 
     return jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
