@@ -311,6 +311,21 @@ Phases, one line each (any failure exits nonzero):
      leveled + 1 planes per cache step at 8192, the material stage's six
      SLF table gradients), one held-out view's PSNR, and a step with every
      scatter call held against its plain version.
+ 39. eval extras: hotdog's 800^2 test view in the blender layout, read by
+     the port's loader, against the spheres rendered 3% larger: the metric
+     harness on the card (psnr, ssim, lpips, lpips_calibrated, avg_err)
+     with LPIPS against the CPU's on the same pair, the ms of one 800^2
+     LPIPS pair and its peak memory, E-LPIPS at dropout_keep=1.0 against
+     the CPU's; the secondary-ray probe (Trainer.render_secondary_rays) of
+     hotdog's material stage at reference widths, GPU against CPU, with its
+     1-ulp noise floor and two encoder faults; a Config.profile_dir trace
+     of open_ngp_yobo_egg's cache stage at full width through the entry
+     point (5 steps, held to hold CUDA kernels, the table-gradient kernels'
+     launches and the steps' labels); the environment and quadrature
+     samplers over an EXR env map on the card against the CPU.
+Every evaluation through the trainer (phases 20-38) scores LPIPS on the
+card beside PSNR and SSIM, and phase 34's hotdog material stage renders
+the secondary-ray probe (256 x 512) at its evaluation.
 Then the kernels JSON line, the eval JSON line, the transient material JSON
 line, the trainer JSON line, the nvidia-smi line, and the result line.
 """
@@ -1799,17 +1814,18 @@ def phase_gate(torch, device, seed, smi):
         train.create_render_fn(model), test, 0, torch.Generator(device=device).manual_seed(7),
         config)
     metrics = trainer.compute_eval_metrics(
-        rendering, batch, test.height, test.width, config, image.MetricHarness(disable_lpips=True),
+        rendering, batch, test.height, test.width, config, image.MetricHarness(device=device),
         lambda x: np.clip(x, 0, 1))
     ok = (launches == _launch_counts(leveled=GATE_STEPS)
-          and abs(metrics["psnr"] - db) <= 0.005 + 1e-6)
+          and abs(metrics["psnr"] - db) <= 0.005 + 1e-6 and _lpips_ok(metrics))
     print(f"gate: flagship cache model, {GATE_STEPS} steps from a fresh build (lr 0.01 -> 0.003, "
           f"50-step delay, 16 batches of 8192 drawn ahead, SyntheticSpheres 8x128^2), then view "
           f"0 of the held-out 2x64^2 set: trained_psnr={db:.2f} dB (floor "
           f"{flagship.TRAINED_PSNR_FLOOR}; the JAX package reached {JAX_GATE_DB} dB on a TPU v5e "
           f"in round 5, BENCH_r05.json: a quality reference, not a speed target) "
-          f"psnr={metrics['psnr']:.4f} ssim={metrics['ssim']:.4f} (compute_eval_metrics of the "
-          f"same view); gate wall time {gate_s:.1f}s on [{smi}]; scatter launches={launches} "
+          f"psnr={metrics['psnr']:.4f} ssim={metrics['ssim']:.4f} {_lpips_text(metrics)} "
+          f"(compute_eval_metrics of the same view); gate wall time {gate_s:.1f}s on [{smi}]; "
+          f"scatter launches={launches} "
           f"(expected leveled {GATE_STEPS}) {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError("gate phase failed")
@@ -1817,7 +1833,8 @@ def phase_gate(torch, device, seed, smi):
         raise AssertionError(f"trained PSNR {db} dB is below the floor of "
                              f"{flagship.TRAINED_PSNR_FLOOR} dB")
     return dict(trained_psnr_db=db, floor_db=flagship.TRAINED_PSNR_FLOOR, psnr=metrics["psnr"],
-                ssim=metrics["ssim"], gate_s=gate_s, launches=launches["leveled"])
+                ssim=metrics["ssim"], lpips=metrics["lpips"], gate_s=gate_s,
+                launches=launches["leveled"])
 
 
 def _first_chunk(torch, render_fn, rays, chunk, device):
@@ -2390,6 +2407,20 @@ def _finite(values):
     return all(v == v and abs(v) != float("inf") for v in values)
 
 
+def _lpips_ok(metrics):
+    """An evaluation scored LPIPS (on the card, the trainer's device) beside
+    PSNR and SSIM, as the JAX harness does: lpips and avg_err finite, and
+    whether its weights were calibrated."""
+    return (all(k in metrics and math.isfinite(metrics[k]) for k in ("lpips", "avg_err"))
+            and metrics.get("lpips_calibrated") in (0.0, 1.0))
+
+
+def _lpips_text(metrics):
+    return (f"lpips={metrics.get('lpips', float('nan')):.4f} lpips_calibrated="
+            f"{metrics.get('lpips_calibrated', float('nan')):.1f} avg_err="
+            f"{metrics.get('avg_err', float('nan')):.4f}")
+
+
 def phase_trainer_train(torch, device, seed, steps, smi, tmp):
     """The full-width ngp_yobo.gin cache stage through the train_with_trainer
     entry point, in-process, into `tmp`: 3 warmup + N timed steps, a second
@@ -2402,8 +2433,7 @@ def phase_trainer_train(torch, device, seed, steps, smi, tmp):
     args = [f"--gin_configs={TRAINER_CONFIG}"] + [
         f"--gin_bindings={b}" for b in TRAINER_BINDINGS + TRAINER_CACHE_STAGE + (
             f"Config.checkpoint_dir = '{ckpt}'", f"Config.early_exit_steps = {warmup + steps}",
-            f"Config.print_every = {warmup + steps}", f"Config.jax_rng_seed = {20200823 + seed}",
-            "Config.metric_harness_train_config = {'disable_lpips': True}")]
+            f"Config.print_every = {warmup + steps}", f"Config.jax_rng_seed = {20200823 + seed}")]
     run = _entry_point_run(torch, args, args, ckpt, warmup, steps)
     trainer, dt, losses, log, total = (run["trainer"], run["step_s"], run["losses"], run["log"],
                                        run["total"])
@@ -2415,7 +2445,8 @@ def phase_trainer_train(torch, device, seed, steps, smi, tmp):
     metrics = run["metrics"]
     ok = (finite and duplicated and "loss/mask" in losses and run["saved"] == total
           and run["resume_ok"] and run["launches"] == _launch_counts()
-          and math.isfinite(metrics["psnr"]))
+          and math.isfinite(metrics["psnr"])
+          and _lpips_ok(metrics))
     print(f"trainer train: train_with_trainer {TRAINER_CONFIG} cache stage ({n_params} params) "
           f"batch {trainer.batch_size} on SyntheticSpheres, {warmup} warmup + {steps} timed steps: "
           f"step_ms={dt * 1e3:.2f} rays_per_s={trainer.batch_size / dt:.0f} (train_log "
@@ -2423,7 +2454,8 @@ def phase_trainer_train(torch, device, seed, steps, smi, tmp):
           f"peak {run['peak_gib']:.2f} GiB; losses finite={finite} {losses}; checkpoint step "
           f"{run['saved']}, resumed with no step={run['resume_ok']}; kernel launches="
           f"{run['launches']} (expected none: the density normals take the plain encoder); eval "
-          f"view {run['view']}: psnr={metrics['psnr']:.2f} ssim={metrics['ssim']:.4f} in "
+          f"view {run['view']}: psnr={metrics['psnr']:.2f} {_lpips_text(metrics)} "
+          f"ssim={metrics['ssim']:.4f} in "
           f"{run['eval_s']:.2f}s; entry point {run['wall']:.1f}s {'ok' if ok else 'FAIL'}",
           flush=True)
     if not ok:
@@ -2432,7 +2464,8 @@ def phase_trainer_train(torch, device, seed, steps, smi, tmp):
                 train_log_rays_per_s=log[-1]["rays_per_sec"], peak_gib=run["peak_gib"],
                 batch=trainer.batch_size, steps=steps, warmup=warmup, params=n_params,
                 launches=run["launches"]["leveled"], eval_view=run["view"],
-                eval_psnr=metrics["psnr"], eval_ssim=metrics["ssim"], eval_s=run["eval_s"],
+                eval_psnr=metrics["psnr"], eval_lpips=metrics["lpips"],
+                eval_ssim=metrics["ssim"], eval_s=run["eval_s"],
                 entry_point_s=run["wall"], losses=losses), ckpt
 
 
@@ -2548,8 +2581,7 @@ def phase_trainer_material_train(torch, device, seed, steps, smi, tmp, cache_ckp
     command = [c for c in command[3:] if c != "--logtostderr"]  # the entry point's arguments
     extra = [f"--gin_bindings={b}" for b in TRAINER_BINDINGS + (
         f"Config.early_exit_steps = {warmup + steps}", f"Config.print_every = {warmup + steps}",
-        f"Config.jax_rng_seed = {20200823 + seed}",
-        "Config.metric_harness_train_config = {'disable_lpips': True}")]
+        f"Config.jax_rng_seed = {20200823 + seed}")]
     resume = [c for c in command if "partial_checkpoint_dir" not in c]
     run = _entry_point_run(torch, command + extra, resume + extra, ckpt, warmup, steps)
     trainer, dt, losses, log, total = (run["trainer"], run["step_s"], run["losses"], run["log"],
@@ -2560,7 +2592,8 @@ def phase_trainer_material_train(torch, device, seed, steps, smi, tmp, cache_ckp
     metrics = run["metrics"]
     cfg = trainer.config
     ok = (finite and run["saved"] == total and run["resume_ok"]
-          and run["launches"] == _launch_counts() and math.isfinite(metrics["psnr"]))
+          and run["launches"] == _launch_counts() and math.isfinite(metrics["psnr"])
+          and _lpips_ok(metrics))
     print(f"trainer material train: train_with_trainer {TRAINER_CONFIG} "
           f"{' '.join(TRAINER_MATERIAL_COMMAND[2:])} warm-started from the cache stage "
           f"({n_params} params, {trainer.model.shader.num_secondary_samples} secondary rays per "
@@ -2571,7 +2604,8 @@ def phase_trainer_material_train(torch, device, seed, steps, smi, tmp, cache_ckp
           f"[{smi}]; peak {run['peak_gib']:.2f} GiB; losses finite and present={finite} {losses}; "
           f"checkpoint step {run['saved']}, resumed with no step={run['resume_ok']}; kernel "
           f"launches={run['launches']} (expected none); eval view {run['view']} at chunk "
-          f"{cfg.render_chunk_size}: psnr={metrics['psnr']:.2f} ssim={metrics['ssim']:.4f} in "
+          f"{cfg.render_chunk_size}: psnr={metrics['psnr']:.2f} {_lpips_text(metrics)} "
+          f"ssim={metrics['ssim']:.4f} in "
           f"{run['eval_s']:.2f}s; entry point {run['wall']:.1f}s {'ok' if ok else 'FAIL'}",
           flush=True)
     if not ok:
@@ -2587,7 +2621,8 @@ def phase_trainer_material_train(torch, device, seed, steps, smi, tmp, cache_ckp
                 train_log_rays_per_s=log[-1]["rays_per_sec"], peak_gib=run["peak_gib"],
                 batch=trainer.batch_size, steps=steps, warmup=warmup, params=n_params,
                 launches=run["launches"]["leveled"],
-                eval_view=run["view"], eval_psnr=metrics["psnr"], eval_ssim=metrics["ssim"],
+                eval_view=run["view"], eval_psnr=metrics["psnr"], eval_lpips=metrics["lpips"],
+                eval_ssim=metrics["ssim"],
                 eval_s=run["eval_s"], entry_point_s=run["wall"], losses=losses)
 
 
@@ -2778,8 +2813,7 @@ def phase_trainer_transient_train(torch, device, seed, steps, smi, tmp):
                 f"Config.print_every = {warmup + steps}",
                 f"Config.jax_rng_seed = {20200823 + seed}",
                 # The transient h5 save of an eval view is not ported.
-                "Trainer.save_results = False",
-                "Config.metric_harness_train_config = {'disable_lpips': True}")]
+                "Trainer.save_results = False")]
         try:
             run = _entry_point_run(torch, args, args, ckpt, warmup, steps)
             break
@@ -2801,7 +2835,8 @@ def phase_trainer_transient_train(torch, device, seed, steps, smi, tmp):
     n_bins = trainer.config.n_bins
     ok = (finite and run["saved"] == total and run["resume_ok"]
           and run["launches"] == _launch_counts(leveled=total)
-          and math.isfinite(metrics["psnr"]))
+          and math.isfinite(metrics["psnr"])
+          and _lpips_ok(metrics))
     cut_text = (f"batch {batch}, cut from {TRANSIENT_BATCHES[0]} ({', '.join(map(str, cut))} "
                 "ran out of memory)" if cut else f"batch {batch}")
     print(f"trainer transient train: train_with_trainer {TRANSIENT_CONFIG} cache stage "
@@ -2812,7 +2847,7 @@ def phase_trainer_transient_train(torch, device, seed, steps, smi, tmp):
           f"present={finite} {losses}; checkpoint step {run['saved']}, resumed with no step="
           f"{run['resume_ok']}; kernel launches={run['launches']} (expected {total} leveled, one "
           f"per step: the appearance grid); eval view {run['view']} cast on the host: psnr="
-          f"{metrics['psnr']:.2f} ssim={metrics['ssim']:.4f} transient_iou="
+          f"{metrics['psnr']:.2f} ssim={metrics['ssim']:.4f} {_lpips_text(metrics)} transient_iou="
           f"{metrics.get('transient_iou', float('nan')):.4f} in {run['eval_s']:.2f}s; entry point "
           f"{run['wall']:.1f}s {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
@@ -2821,7 +2856,8 @@ def phase_trainer_transient_train(torch, device, seed, steps, smi, tmp):
                   train_log_rays_per_s=log[-1]["rays_per_sec"], peak_gib=run["peak_gib"],
                   batch=batch, batch_cut_from=TRANSIENT_BATCHES[0] if cut else None,
                   steps=steps, warmup=warmup, params=n_params, launches=total, n_bins=n_bins,
-                  eval_view=run["view"], eval_psnr=metrics["psnr"], eval_ssim=metrics["ssim"],
+                  eval_view=run["view"], eval_psnr=metrics["psnr"], eval_lpips=metrics["lpips"],
+                  eval_ssim=metrics["ssim"],
                   eval_transient_iou=metrics.get("transient_iou"), eval_s=run["eval_s"],
                   entry_point_s=run["wall"], losses=losses)
     del trainer, run
@@ -2978,8 +3014,7 @@ def phase_trainer_transient_material_train(torch, device, seed, steps, smi, tmp,
                 f"Config.checkpoint_dir = '{ckpt}'",
                 f"Config.early_exit_steps = {warmup + timed}",
                 f"Config.print_every = {warmup + timed}",
-                f"Config.jax_rng_seed = {20200823 + seed}", "Trainer.save_results = False",
-                "Config.metric_harness_train_config = {'disable_lpips': True}")
+                f"Config.jax_rng_seed = {20200823 + seed}", "Trainer.save_results = False")
             resume = [f"--gin_configs={TRANSIENT_CONFIG}"] + [f"--gin_bindings={b}"
                                                               for b in common]
             args = resume + [f"--gin_bindings=Config.partial_checkpoint_dir = '{warm}'"]
@@ -3024,6 +3059,7 @@ def phase_trainer_transient_material_train(torch, device, seed, steps, smi, tmp,
         checked_launches = dict(scatter_cuda.launches)
         ok = (finite and run["saved"] == total and run["resume_ok"]
               and run["launches"] == expected and math.isfinite(metrics["psnr"])
+              and _lpips_ok(metrics)
               and occlusions == ("finetune" in stage) and (shadow > 0) == occlusions
               and bool(torch.isfinite(stats["loss"])) and all(c["ok"] for c in calls)
               and checked_launches == _launch_counts(**step_launches)
@@ -3042,7 +3078,8 @@ def phase_trainer_transient_material_train(torch, device, seed, steps, smi, tmp,
               f"losses finite and present={finite} {losses}; checkpoint step {run['saved']}, "
               f"resumed with no step={run['resume_ok']}; kernel launches={run['launches']} "
               f"(per step {per_step}, expected {step_launches}); eval "
-              f"view {run['view']} cast on the host: psnr={metrics['psnr']:.2f} in "
+              f"view {run['view']} cast on the host: psnr={metrics['psnr']:.2f} "
+              f"{_lpips_text(metrics)} in "
               f"{run['eval_s']:.2f}s; checked step, every scatter against its plain version "
               f"(tol=|err|<={SUM_ORDER_TOL}*sum|w*ct|): "
               + "; ".join(f"{c['kind']} idx{list(c['shape'])} max_abs_err={c['max_abs_err']:.3e} "
@@ -3064,7 +3101,8 @@ def phase_trainer_transient_material_train(torch, device, seed, steps, smi, tmp,
             peak_gib=run["peak_gib"], batch=batch, cut=cut, steps=timed, warmup=warmup,
             params=n_params, secondary_rays_per_point=n_sec, shadow_rays_per_step=shadow,
             launches=run["launches"], launches_per_step=per_step, eval_view=run["view"],
-            eval_psnr=metrics["psnr"], eval_s=run["eval_s"], entry_point_s=run["wall"],
+            eval_psnr=metrics["psnr"], eval_lpips=metrics["lpips"],
+            eval_s=run["eval_s"], entry_point_s=run["wall"],
             losses=losses, max_abs_err=max(c["max_abs_err"] for c in calls), paths=paths)
         warm = ckpt
         del trainer, run, stats
@@ -3212,8 +3250,7 @@ def phase_trainer_slf_train(torch, device, seed, steps, smi, tmp, cache_ckpt):
         command = [c for c in command[3:] if c != "--logtostderr"]
         extra = [f"--gin_bindings={b}" for b in TRAINER_BINDINGS + (
             f"Config.early_exit_steps = {warmup + steps}",
-            f"Config.print_every = {warmup + steps}", f"Config.jax_rng_seed = {20200823 + seed}",
-            "Config.metric_harness_train_config = {'disable_lpips': True}")]
+            f"Config.print_every = {warmup + steps}", f"Config.jax_rng_seed = {20200823 + seed}")]
         resume = [c for c in command if "partial_checkpoint_dir" not in c]
         try:
             run = _entry_point_run(torch, command + extra, resume + extra, ckpt, warmup, steps)
@@ -3240,7 +3277,8 @@ def phase_trainer_slf_train(torch, device, seed, steps, smi, tmp, cache_ckpt):
     metrics = run["metrics"]
     cfg = trainer.config
     ok = (finite and run["saved"] == total and run["resume_ok"] and trainer.model.slf_variate
-          and run["launches"] == _launch_counts() and math.isfinite(metrics["psnr"]))
+          and run["launches"] == _launch_counts() and math.isfinite(metrics["psnr"])
+          and _lpips_ok(metrics))
     cut_text = (f"batch {batch}, cut from {TRAINER_SLF_BATCHES[0]} ("
                 + ", ".join(f"{c['batch']} ran out of memory at {c['allocated_gib']:.2f} GiB "
                             f"allocated, {c['reserved_gib']:.2f} reserved" for c in cut)
@@ -3254,7 +3292,8 @@ def phase_trainer_slf_train(torch, device, seed, steps, smi, tmp, cache_ckpt):
           f"over steps 2-{total}) on [{smi}]; peak {run['peak_gib']:.2f} GiB; losses finite and "
           f"present={finite} {losses}; checkpoint step {run['saved']}, resumed with no step="
           f"{run['resume_ok']}; kernel launches={run['launches']} (expected none); eval view "
-          f"{run['view']} at chunk {cfg.render_chunk_size}: psnr={metrics['psnr']:.2f} in "
+          f"{run['view']} at chunk {cfg.render_chunk_size}: psnr={metrics['psnr']:.2f} "
+          f"{_lpips_text(metrics)} in "
           f"{run['eval_s']:.2f}s; entry point {run['wall']:.1f}s {'ok' if ok else 'FAIL'}",
           flush=True)
     if not ok:
@@ -3265,7 +3304,8 @@ def phase_trainer_slf_train(torch, device, seed, steps, smi, tmp, cache_ckpt):
                   memory_queries_per_point=shader.num_secondary_samples,
                   cache_queries_per_point=shader.num_secondary_samples_diff,
                   launches=run["launches"]["leveled"], eval_view=run["view"],
-                  eval_psnr=metrics["psnr"], eval_s=run["eval_s"], entry_point_s=run["wall"],
+                  eval_psnr=metrics["psnr"], eval_lpips=metrics["lpips"],
+                  eval_s=run["eval_s"], entry_point_s=run["wall"],
                   losses=losses)
     del trainer, run
     gin_config.clear_config()
@@ -3459,8 +3499,7 @@ def _entry_point_runs(torch, label, runs, scenes, seed, steps, smi, tmp):
                 f"Trainer.stage = '{stage}'", f"Config.batch_size = {batch}",
                 f"Config.checkpoint_dir = '{ckpt}'", f"Config.early_exit_steps = {warmup + timed}",
                 f"Config.print_every = {warmup + timed}",
-                f"Config.jax_rng_seed = {20200823 + seed}", "Trainer.save_results = False",
-                "Config.metric_harness_train_config = {'disable_lpips': True}")
+                f"Config.jax_rng_seed = {20200823 + seed}", "Trainer.save_results = False")
             if stage != "cache":
                 common += TRANSIENT_MATERIAL_RECIPE
             resume = [f"--gin_configs={config_file}"] + [f"--gin_bindings={b}" for b in common]
@@ -3500,7 +3539,8 @@ def _entry_point_runs(torch, label, runs, scenes, seed, steps, smi, tmp):
               and bool(torch.isfinite(stats["loss"])) and len(calls) == sum(per_step.values())
               and all(c["ok"] for c in calls)
               and checked_launches == _launch_counts(**per_step)
-              and (filter_calls > 0) == (cfg.tfilter_sigma != 0.0))
+              and (filter_calls > 0) == (cfg.tfilter_sigma != 0.0)
+              and _lpips_ok(run["metrics"]))
         n_params = sum(p.numel() for p in trainer.model.parameters())
         metrics = run["metrics"]
         print(f"trainer {label} train ({scene} {stage}): train_with_trainer {config_file} "
@@ -3517,7 +3557,8 @@ def _entry_point_runs(torch, label, runs, scenes, seed, steps, smi, tmp):
               f"{finite} {losses}; checkpoint step {run['saved']}, resumed with no step="
               f"{run['resume_ok']}; kernel launches={run['launches']} (expected "
               f"{per_step_text} per step); eval view {run['view']} cast on the host: psnr="
-              f"{metrics['psnr']:.2f} in {run['eval_s']:.2f}s; checked step, every scatter call "
+              f"{metrics['psnr']:.2f} {_lpips_text(metrics)} "
+              f"in {run['eval_s']:.2f}s; checked step, every scatter call "
               f"against its plain version (tol=|err|<={SUM_ORDER_TOL}*sum|w*ct|): "
               + "; ".join(f"{c['kind']} idx{list(c['shape'])} max_abs_err={c['max_abs_err']:.3e} "
                           f"{'ok' if c['ok'] else 'FAIL'}" for c in calls)
@@ -3532,7 +3573,8 @@ def _entry_point_runs(torch, label, runs, scenes, seed, steps, smi, tmp):
             launches=run["launches"]["leveled"], launches_by_kernel={
                 k: run["launches"][k] for k in per_step},
             launches_per_step=per_step.get("leveled", 0), launches_per_step_by_kernel=per_step,
-            eval_view=run["view"], eval_psnr=metrics["psnr"], eval_s=run["eval_s"],
+            eval_view=run["view"], eval_psnr=metrics["psnr"], eval_lpips=metrics["lpips"],
+            eval_s=run["eval_s"],
             entry_point_s=run["wall"], losses=losses,
             max_abs_err=max(c["max_abs_err"] for c in calls),
             max_abs_err_by_kernel={k: max(c["max_abs_err"] for c in calls if c["kind"] == k)
@@ -4282,7 +4324,7 @@ DISK_RUNS = (
      None, ()),
     ("hotdog", ("--scene", "hotdog", "-t", "material_light_from_scratch_resample",
                 "--sample_factor", "8", "--render_chunk_size", "1024"), (1024,), "hotdog_cache",
-     lambda batch, trainer: {}, None, ()),
+     lambda batch, trainer: {}, None, ("Trainer.vis_secondary = True",)),
     ("orb_teapot", ("--scene", "teapot", "-t", "cache"), (8192, 4096, 2048), None,
      _open_launches, None, ()),
     ("nero_bell", ("--scene", "nero_bell", "-t", "cache"), (8192, 4096, 2048), None,
@@ -4328,6 +4370,26 @@ def _timed_loading(stats):
             stats[f"{kind}_s"] = sum(times) / max(len(times), 1)
 
     return trainer_lib.Trainer, {"_load_datasets": timed_load}
+
+
+def _probe_capture(probe):
+    """A patch of the Trainer's secondary-ray probe that records into
+    `probe` the probe rendering's shape, its outputs' count, whether all are
+    finite, and its seconds (the render and its host copies)."""
+    import numpy as np
+
+    from neural_radiance_caching_tpu_torch.engine import trainer as trainer_lib
+
+    render = trainer_lib.Trainer.render_secondary_rays
+
+    def timed(self, *args):
+        t0 = time.perf_counter()
+        out = render(self, *args)  # host arrays: the copies end in a sync
+        probe.update(s=time.perf_counter() - t0, shape=tuple(out["rgb"].shape),
+                     keys=len(out), finite=all(bool(np.isfinite(v).all()) for v in out.values()))
+        return out
+
+    return trainer_lib.Trainer, {"render_secondary_rays": timed}
 
 
 def _loading_text(load):
@@ -4400,12 +4462,14 @@ def _disk_entry_runs(torch, device, label, runs, written, seed, steps, smi, tmp)
                 scene, written[scene]["data_dir"]) + tuple(extra) + (
                 f"Config.early_exit_steps = {warmup + timed}",
                 f"Config.print_every = {warmup + timed}",
-                f"Config.jax_rng_seed = {20200823 + seed}", "Trainer.save_results = False",
-                "Config.metric_harness_train_config = {'disable_lpips': True}")]
-            load = {}
+                f"Config.jax_rng_seed = {20200823 + seed}", "Trainer.save_results = False")]
+            load, probe = {}, {}
+            capture_cls, capture = _probe_capture(probe)
             try:
-                run = _entry_point_run(torch, args, None, ckpt, warmup, timed,
-                                       (_timed_loading(load),))
+                # The probe runs at the evaluation after the run's train loop.
+                with _patched(capture_cls, **capture):
+                    run = _entry_point_run(torch, args, None, ckpt, warmup, timed,
+                                           (_timed_loading(load),))
                 break
             except torch.cuda.OutOfMemoryError as e:
                 cut.append(_out_of_memory(torch, f"{label} ({scene} {stage})", batch, e))
@@ -4423,11 +4487,14 @@ def _disk_entry_runs(torch, device, label, runs, written, seed, steps, smi, tmp)
                                           and trainer.dataset.masks is not None else ())
         finite = _finite(losses.values()) and all(f"loss/{k}" in losses for k in terms)
         metrics = run["metrics"]
-        ok = (finite and run["saved"] == total
+        probed = "Trainer.vis_secondary = True" in extra
+        probe_ok = (not probed) or bool(
+            probe.get("shape") == (*trainer._probe_resolution(), 3) and probe["finite"])
+        ok = (finite and run["saved"] == total and probe_ok
               and run["launches"] == _launch_counts(**{k: n * total for k, n in per_step.items()})
               and bool(torch.isfinite(stats["loss"])) and len(calls) == sum(per_step.values())
               and all(c["ok"] for c in calls) and checked_launches == _launch_counts(**per_step)
-              and math.isfinite(metrics["psnr"]))
+              and math.isfinite(metrics["psnr"]) and _lpips_ok(metrics))
         n_params = sum(p.numel() for p in trainer.model.parameters())
         name = f"{scene}_{stage}"
         print(f"{label} ({name}): train_with_trainer {' '.join(argv)} "
@@ -4440,7 +4507,12 @@ def _disk_entry_runs(torch, device, label, runs, written, seed, steps, smi, tmp)
               f"over steps 2-{total}) on [{smi}]; peak {run['peak_gib']:.2f} GiB; losses finite "
               f"and present={finite} {losses}; checkpoint step {run['saved']}; kernel launches="
               f"{run['launches']} (expected {per_step or 'none'} per step); held-out view "
-              f"{run['view']}: psnr={metrics['psnr']:.2f} in {run['eval_s']:.2f}s; checked step, "
+              f"{run['view']}: psnr={metrics['psnr']:.2f} {_lpips_text(metrics)} "
+              f"in {run['eval_s']:.2f}s" + (
+                  f" (the secondary-ray probe from the pixel 0.3 across and 0.6 down: "
+                  f"{probe['shape'][0]}x{probe['shape'][1]} rays through the cache, "
+                  f"{probe['keys']} outputs finite={probe['finite']} in {probe['s']:.2f}s)"
+                  if probed else "") + "; checked step, "
               f"every scatter call against its plain version (tol=|err|<={SUM_ORDER_TOL}"
               f"*sum|w*ct|): " + ("; ".join(
                   f"{c['kind']} idx{list(c['shape'])} max_abs_err={c['max_abs_err']:.3e} "
@@ -4454,7 +4526,8 @@ def _disk_entry_runs(torch, device, label, runs, written, seed, steps, smi, tmp)
             params=n_params, load=load, launches_by_kernel={
                 k: run["launches"][k] for k in ("leveled", "planes")},
             launches_per_step_by_kernel=per_step, eval_view=run["view"],
-            eval_psnr=metrics["psnr"], eval_s=run["eval_s"], entry_point_s=run["wall"],
+            eval_psnr=metrics["psnr"], eval_lpips=metrics["lpips"],
+            eval_s=run["eval_s"], entry_point_s=run["wall"], probe=probe or None,
             losses=losses, max_abs_err_by_kernel={
                 k: max(c["max_abs_err"] for c in calls if c["kind"] == k) for k in per_step})
         ckpts[name] = ckpt
@@ -4824,8 +4897,7 @@ def phase_transient_disk_train(torch, device, seed, steps, smi, tmp):
                 f"Config.checkpoint_dir = '{ckpt}'",
                 f"Config.early_exit_steps = {warmup + steps}",
                 f"Config.print_every = {warmup + steps}",
-                f"Config.jax_rng_seed = {20200823 + seed}", "Trainer.save_results = False",
-                "Config.metric_harness_train_config = {'disable_lpips': True}")
+                f"Config.jax_rng_seed = {20200823 + seed}", "Trainer.save_results = False")
             if stage != "cache":
                 common += TRANSIENT_MATERIAL_RECIPE + (
                     f"Config.partial_checkpoint_dir = '{ckpts[scene]}'",)
@@ -4858,7 +4930,8 @@ def phase_transient_disk_train(torch, device, seed, steps, smi, tmp):
               and all(c["ok"] for c in calls)
               and checked_launches == _launch_counts(leveled=per_step)
               and type(trainer.dataset).__name__ == _TRANSIENT_LOADER_CLASSES[
-                  TRANSIENT_DISK_SCENES[scene][1]] and math.isfinite(run["metrics"]["psnr"]))
+                  TRANSIENT_DISK_SCENES[scene][1]] and math.isfinite(run["metrics"]["psnr"])
+                  and _lpips_ok(run["metrics"]))
         name = f"{scene}_{stage}"
         cfg = trainer.config
         print(f"transient disk train ({name}): train_with_trainer {config_file} {stage}"
@@ -4873,7 +4946,8 @@ def phase_transient_disk_train(torch, device, seed, steps, smi, tmp):
               f"{np.median(next_ms):.2f} max={next_ms.max():.2f}; losses finite and present="
               f"{finite} {losses}; checkpoint step {run['saved']}; kernel launches="
               f"{run['launches']} (expected {per_step} leveled per step); eval view "
-              f"{run['view']} read from its frame: psnr={run['metrics']['psnr']:.2f} in "
+              f"{run['view']} read from its frame: psnr={run['metrics']['psnr']:.2f} "
+              f"{_lpips_text(run['metrics'])} in "
               f"{run['eval_s']:.2f}s; checked step, every leveled call against its plain "
               f"version (tol=|err|<={SUM_ORDER_TOL}*sum|w*ct|): "
               + "; ".join(f"idx{list(c['shape'])} max_abs_err={c['max_abs_err']:.3e} "
@@ -4887,7 +4961,8 @@ def phase_transient_disk_train(torch, device, seed, steps, smi, tmp):
             load_s=host["load_s"], next_train_host_ms_median=float(np.median(next_ms)),
             next_train_host_ms_max=float(next_ms.max()), launches=run["launches"]["leveled"],
             launches_per_step=per_step, eval_view=run["view"], eval_s=run["eval_s"],
-            eval_psnr=run["metrics"]["psnr"], entry_point_s=run["wall"], losses=losses,
+            eval_psnr=run["metrics"]["psnr"], eval_lpips=run["metrics"]["lpips"],
+            entry_point_s=run["wall"], losses=losses,
             max_abs_err=max(c["max_abs_err"] for c in calls))
         if stage == "cache":
             ckpts[scene] = ckpt
@@ -4904,8 +4979,7 @@ def phase_transient_disk_train(torch, device, seed, steps, smi, tmp):
     data = _transient_disk_bindings("cornell", roots["cornell"], TRANSIENT_DISK_SIZES["cornell"],
                                     reference=False)
     args = [c for c in command[3:] if c != "--logtostderr"] + [
-        f"--gin_bindings={b}" for b in data + (
-            "Config.metric_harness_train_config = {'disable_lpips': True}",)]
+        f"--gin_bindings={b}" for b in data]
     saved, views, renders = {}, [], []
     write_h5, evaluate = hdf5.write_h5, trainer_lib.Trainer.log_test_set_evaluation
     render = trainer_lib.Trainer.render_test_view
@@ -4947,13 +5021,15 @@ def phase_transient_disk_train(torch, device, seed, steps, smi, tmp):
     read_back = bool(path in saved and np.array_equal(back, saved[path]))
     ok = (read_back and back.shape == (cfg.height, cfg.width, cfg.n_bins, 3)
           and bool(np.isfinite(back).all()) and math.isfinite(metrics["psnr"][0])
+          and math.isfinite(metrics["lpips"][0])
           and len(views) == len(renders) == 1 and shown.state.step == warmup + steps
           and launches == _launch_counts())
     print(f"transient disk vis_only: train_one_stage --scene cornell -t cache --vis_only "
           f"(Trainer.vis_end = 1) on the cache checkpoint (step {shown.state.step}): the test "
           f"view at Config.height x width = {cfg.height}x{cfg.width}, {cfg.n_bins} bins, with "
           f"vis_only's shadow rays, render chunk {cfg.render_chunk_size}: results.txt "
-          f"psnr={metrics['psnr'][0]:.3f} ssim={metrics['ssim'][0]:.4f} transient_iou="
+          f"psnr={metrics['psnr'][0]:.3f} ssim={metrics['ssim'][0]:.4f} lpips="
+          f"{metrics['lpips'][0]:.4f} transient_iou="
           f"{metrics['transient_iou'][0]:.4f}; the eval view took {views[0]:.2f}s, its render "
           f"{renders[0]:.2f}s (the frame's read and the host copies included), the metrics, "
           f"vis suite and saves the rest, of the command's {wall:.1f}s; peak {peak:.2f} GiB; the "
@@ -4965,7 +5041,8 @@ def phase_transient_disk_train(torch, device, seed, steps, smi, tmp):
     results["cornell_vis_only"] = dict(
         view=f"{cfg.height}x{cfg.width}", n_bins=cfg.n_bins, eval_s_per_image=views[0],
         render_s=renders[0],
-        command_s=wall, peak_gib=peak, psnr=metrics["psnr"][0], ssim=metrics["ssim"][0],
+        command_s=wall, peak_gib=peak, psnr=metrics["psnr"][0], ssim=metrics["ssim"][0], lpips=metrics["lpips"][0],
+        
         transient_iou=metrics["transient_iou"][0], saved_gb=back.nbytes / 1e9)
     del shown, saved, back
     gin_config.clear_config()
@@ -5307,6 +5384,362 @@ def phase_real_disk_train(torch, device, seed, steps, smi, tmp):
     return {"written": written, **results}
 
 
+# Phase 39: evaluation as the JAX package computes it. hotdog's test view
+# at its capture's size (TensoIR: 800^2 RGBA PNG) in phase 34's blender
+# layout, beside the 2 train views the loader also reads; the LPIPS pair is
+# that view, read back by the port's loader, and the spheres rendered 3%
+# larger from its camera.
+EVAL_HOTDOG_SIZES = (2, 1, 800)
+EVAL_PRED_SCALE = 1.03
+# LPIPS and E-LPIPS on the card against the CPU's on the same pair, in
+# relative error: float32 convolutions summed in another order (cuDNN's
+# TF32 off); the CPU's is ~1e-6 relative from the JAX package's.
+LPIPS_REL_TOL = 1e-4
+ELPIPS_SAMPLES = 2
+# The probe at reference widths (NGP_NARROW, phase 33's 64^2 hotdog), GPU
+# against CPU, per output in relative L2. The limit sits between the CPU
+# noise floor (the probe's distance moved one ulp: 9.8e-3 at normals on a
+# CPU, the density normals of untrained weights; the GPU's
+# float32 differs in every layer, not in one input) and the two planted
+# encoder faults (1.23 and 1.44 there).
+PROBE_REL_L2_TOL = 0.2
+# The profiled run: open_egg's cache stage at full width on SyntheticSpheres
+# (phase 32's bindings), batch 8192, 1 leveled + 1 planes launch per step;
+# (the first traced step, the traced steps).
+PROFILE_STEPS = (4, 5)
+PROFILE_BATCH = 8192
+# A sun-and-sky env map written as a FLOAT EXR and read as the
+# glossy-synthetic relight branch reads its own (downsample 4, y up,
+# turned); the samplers' draws at 4096 points x 32 secondary rays.
+ENV_MAP_SIZE = (256, 512)
+SAMPLER_POINTS, SAMPLER_RAYS = 4096, 32
+# The samplers' pdfs, card against CPU on the same texels: float32 rounding
+# of a square root and a division (7.5e-9 absolute at pdfs ~0.06 on an
+# H100).
+SAMPLER_PDF_RTOL = 1e-6
+
+
+def _sphere_normals(torch, points, alpha, scale):
+    """The outward normal at each hit point of the procedural spheres
+    (scaled by `scale`); +z where nothing is hit."""
+    from neural_radiance_caching_tpu_torch.data import datasets
+
+    normals = torch.zeros_like(points)
+    normals[:, 2] = 1.0
+    best = torch.full(points.shape[:1], float("inf"), device=points.device)
+    for center, radius, _ in datasets.SyntheticSpheres.SPHERES:
+        center = torch.tensor(center, device=points.device) * scale
+        off = ((points - center).norm(dim=-1) - radius * scale).abs()
+        closer = alpha & (off < best)
+        normals = torch.where(closer[:, None], (points - center) / (radius * scale), normals)
+        best = torch.where(closer, off, best)
+    return normals
+
+
+def _probe_inputs(torch, trainer, scale):
+    """(the test view's rays, the median distance [H, W] and normals
+    [H, W, 3] of the spheres hit along them) for the probe."""
+    view = trainer.test_dataset.generate_ray_batch(0)
+    rays = view.rays
+    h, w = trainer.test_dataset.height, trainer.test_dataset.width
+    _, alpha, best, points = _trace_spheres(torch, rays.origins.device, rays.origins,
+                                            rays.viewdirs, scale)
+    distance = torch.where(alpha, best, torch.full_like(best, 6.0))
+    normals = _sphere_normals(torch, points, alpha, scale)
+    return (rays, distance.reshape(h, w).cpu().numpy(),
+            normals.reshape(h, w, 3).cpu().numpy())
+
+
+def _eval_lpips(torch, device, seed, smi, data_dir):
+    """The metric harness and E-LPIPS on hotdog's test view on the card
+    against the CPU, the ms of one LPIPS pair and its peak memory."""
+    import numpy as np
+
+    from neural_radiance_caching_tpu_torch.data import camera_utils, datasets
+    from neural_radiance_caching_tpu_torch.engine import configs, gin_config
+    from neural_radiance_caching_tpu_torch.ops import image, lpips
+    from neural_radiance_caching_tpu_torch.utils import vis, weights
+
+    radius, scale = DISK_CAMERAS["hotdog"]
+    gin_config.clear_config()
+    configs.load_config(config_files=[DISK_SCENES["hotdog"]],
+                        bindings=list(TRAINER_BINDINGS + _disk_bindings("hotdog", data_dir)))
+    config = configs.Config()
+    gin_config.clear_config()
+    test = datasets.load_dataset("test", data_dir, config, device=device)
+    gt = np.clip(vis.linear_to_srgb(test.images[0]), 0.0, 1.0).astype(np.float32)
+    size = test.width
+    focal = 0.5 * size / np.tan(0.5 * BLENDER_CAMERA_ANGLE_X)
+    pose = camera_utils.generate_spherical_poses(1, radius=radius, seed=52)
+    pred, _, _ = next(_render_spheres(torch, device, pose,
+                                      camera_utils.get_pixtocam(focal, size, size), size,
+                                      scale * EVAL_PRED_SCALE))
+    pred = pred.astype(np.float32)
+    t0 = time.perf_counter()
+    got = image.MetricHarness(device=device)(pred, gt)
+    harness_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = image.MetricHarness(device="cpu")(pred, gt)
+    cpu_s = time.perf_counter() - t0
+    lpips_err = abs(got["lpips"] - want["lpips"]) / want["lpips"]
+    params = weights.lpips_params_to_torch(lpips.default_params(), device)
+    pred_t, gt_t = (torch.as_tensor(a, device=device) for a in (pred, gt))
+    ms = _cuda_ms(lambda: lpips.lpips(params, pred_t, gt_t), repeats=5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    lpips.lpips(params, pred_t, gt_t)
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    added_gib = (torch.cuda.max_memory_allocated() - before) / 2**30
+    e_gpu = lpips.elpips(params, pred, gt, num_samples=ELPIPS_SAMPLES, seed=seed,
+                         dropout_keep=1.0, device=device)
+    e_cpu = lpips.elpips(lpips.default_params(), pred, gt, num_samples=ELPIPS_SAMPLES, seed=seed,
+                         dropout_keep=1.0, device="cpu")
+    elpips_err = abs(e_gpu - e_cpu) / e_cpu
+    ok = (lpips_err <= LPIPS_REL_TOL and elpips_err <= LPIPS_REL_TOL and _lpips_ok(got)
+          and got["lpips_calibrated"] == 0.0 and got["lpips"] > 0
+          and abs(got["psnr"] - want["psnr"]) <= 1e-4)
+    print(f"eval extras (lpips): hotdog's {size}^2 test view in the blender layout read by the "
+          f"port's loader against the spheres rendered {EVAL_PRED_SCALE}x larger from its "
+          f"camera: the metric harness on the card psnr={got['psnr']:.4f} ssim={got['ssim']:.4f} "
+          f"{_lpips_text(got)} ({harness_s:.2f}s, the uncalibrated VGG-16 built and moved "
+          f"included), on the CPU lpips={want['lpips']:.6f} ({cpu_s:.2f}s): rel err "
+          f"{lpips_err:.3e} (tol {LPIPS_REL_TOL}); one {size}^2 LPIPS pair {ms:.3f} ms (median "
+          f"of 5 by CUDA events, TF32 off), peak {peak_gib:.3f} GiB allocated ({added_gib:.3f} "
+          f"GiB over the inputs and weights); E-LPIPS ({ELPIPS_SAMPLES} samples, seed {seed}, "
+          f"dropout_keep=1.0) {e_gpu:.6f} on the card, {e_cpu:.6f} on the CPU: rel err "
+          f"{elpips_err:.3e} on [{smi}] {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("LPIPS on the card disagrees with the CPU's")
+    return dict(view=f"{size}x{size}", lpips=got["lpips"], lpips_cpu=want["lpips"],
+                rel_err=lpips_err, tol=LPIPS_REL_TOL, ms_per_pair=ms, peak_gib=peak_gib,
+                added_gib=added_gib, harness_s=harness_s, cpu_s=cpu_s, elpips=e_gpu,
+                elpips_cpu=e_cpu, elpips_rel_err=elpips_err, avg_err=got["avg_err"],
+                psnr=got["psnr"], ssim=got["ssim"])
+
+
+def _eval_probe_reference(torch, device, seed, ref_dir):
+    """The secondary-ray probe of hotdog's material stage at reference
+    widths, GPU against CPU, with its noise floor and two planted faults."""
+    import numpy as np
+
+    from neural_radiance_caching_tpu_torch.ops import hashgrid, scatter_cuda
+
+    _, scale = DISK_CAMERAS["hotdog"]
+    # hotdog's near plane (2) is its secondary_far too, which leaves the
+    # probe's rays no interval to sample; the probe here reaches its far
+    # plane, 6, so that its rays cross the scene.
+    bindings = NGP_NARROW + _disk_bindings("hotdog", ref_dir) + (
+        "Trainer.stage = 'material_light_from_scratch'", "Config.render_chunk_size = 2048",
+        "Config.secondary_far = 6.0")
+    gpu = _trainer_setup(torch, device, DISK_SCENES["hotdog"], bindings)
+    cpu = _trainer_setup(torch, "cpu", DISK_SCENES["hotdog"], bindings)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
+    h, w = cpu.test_dataset.height, cpu.test_dataset.width
+    sx, sy = int(np.round(w * 0.3)), int(np.round(h * 0.6))
+    # One set of host inputs for both devices.
+    rays, distance_in, normals = _probe_inputs(torch, cpu, scale)
+
+    def probe(trainer, nudge=False, fault=None):
+        distance = distance_in
+        if nudge:
+            distance = distance.copy()
+            distance[sy, sx] = np.nextafter(distance[sy, sx], np.float32(np.inf))
+        trainer.render_rng = torch.Generator().manual_seed(seed + 39)
+        trainer._render_secondary_fn = None
+        patch = dict(multires_grid_encode=_planted_encoder_fault(fault)) if fault else {}
+        with _patched(hashgrid, **patch):
+            return trainer.render_secondary_rays(rays, distance, normals, sx, sy, 1.0)
+
+    before = dict(scatter_cuda.launches)
+    ref = probe(cpu)
+    floor, floor_at = _worst_output_err(probe(cpu, nudge=True), ref)
+    images = probe(gpu)
+    err, err_at = _worst_output_err(images, ref)
+    faults = {f: _worst_output_err(probe(gpu, fault=f), ref)
+              for f in ("finest level dropped", "levels reversed")}
+    launched = {k: scatter_cuda.launches[k] - before[k] for k in before}
+    tol = PROBE_REL_L2_TOL
+    ok = (sorted(images) == sorted(ref) and floor <= tol and err <= tol
+          and all(v > tol for v, _ in faults.values()) and launched == _launch_counts()
+          and all(bool(np.isfinite(v).all()) for v in images.values())
+          and images["rgb"].shape == (*gpu._probe_resolution(), 3))
+    print(f"eval extras (probe reference): Trainer.render_secondary_rays of hotdog's "
+          f"material_light_from_scratch stage at reference widths on its {h}^2 test view, the "
+          f"pixel ({sx}, {sy}) at the spheres' distance and normal, {images['rgb'].shape[0]}x"
+          f"{images['rgb'].shape[1]} probe rays (passes cache, light, is_secondary), the same "
+          f"weights and draws, gpu vs cpu over {len(ref)} outputs: rel_l2_err max={err:.3e} at "
+          f"{err_at} (tol {tol}; noise floor, cpu vs cpu with the pixel's distance +1 ulp: "
+          f"{floor:.3e} at {floor_at}; planted in the gpu encoder forward "
+          + ", ".join(f"{f}: {v:.3e} at {at}" for f, (v, at) in faults.items())
+          + f", each must exceed the tol) scatter launches={launched} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the GPU probe disagrees with the CPU's")
+    return dict(outputs=len(ref), rel_l2_err=err, at=err_at, floor=floor, floor_at=floor_at,
+                tol=tol, faults={f: v for f, (v, _) in faults.items()})
+
+
+def _eval_profile(torch, device, seed, tmp):
+    """A Config.profile_dir trace of open_egg's cache stage through the
+    entry point: its file, CUDA kernel events, the table-gradient kernels'
+    launches and the steps' labels."""
+    import os
+
+    from neural_radiance_caching_tpu_torch import train_with_trainer
+    from neural_radiance_caching_tpu_torch.engine import gin_config
+    from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+
+    config_file, extra = BASELINE_SCENES["open_egg"]
+    first, count = PROFILE_STEPS
+    ckpt = os.path.join(tmp, "profile_open_egg")
+    trace_dir = os.path.join(tmp, "profile_trace")
+    args = [f"--gin_configs={config_file}", "--device", device] + [
+        f"--gin_bindings={b}" for b in TRAINER_BINDINGS + TRAINER_CACHE_STAGE + tuple(extra) + (
+            f"Config.batch_size = {PROFILE_BATCH}", f"Config.checkpoint_dir = '{ckpt}'",
+            f"Config.early_exit_steps = {first + count}",
+            f"Config.print_every = {first + count}", f"Config.jax_rng_seed = {20200823 + seed}",
+            f"Config.profile_dir = '{trace_dir}'", f"Config.profile_start_step = {first}",
+            f"Config.profile_num_steps = {count}")]
+    gin_config.clear_config()
+    scatter_cuda.reset_launch_count()
+    t0 = time.perf_counter()
+    trainer = train_with_trainer.main(args)
+    run_s = time.perf_counter() - t0
+    launches = dict(scatter_cuda.launches)
+    per_step = _open_launches(PROFILE_BATCH)
+    del trainer
+    gin_config.clear_config()
+    traces = sorted(os.listdir(trace_dir))
+    path = os.path.join(trace_dir, traces[0])
+    trace_mb = os.path.getsize(path) / 1e6
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    scatters = [e for e in kernels if "scatter_add_kernel" in e.get("name", "")]
+    # Each step's label, on the host's timeline (and, on the card, again on
+    # the device's).
+    labels = [e for e in events if str(e.get("name", "")).startswith("train step_num=")]
+    steps = sorted({e["name"] for e in labels})
+    busy = float("nan")
+    if kernels:
+        span = (max(e["ts"] + e.get("dur", 0) for e in kernels) - min(e["ts"] for e in kernels))
+        busy = sum(e.get("dur", 0) for e in kernels) / max(span, 1e-9)
+    ok = (traces == [f"train_steps_{first}-{first + count - 1}.json"] and len(kernels) > 0
+          and len(scatters) == count * sum(per_step.values())
+          and steps == sorted(f"train step_num={s}" for s in range(first, first + count))
+          and launches == _launch_counts(**{k: n * (first + count)
+                                            for k, n in per_step.items()}))
+    print(f"eval extras (profile): train_with_trainer {config_file} cache stage at full width "
+          f"(batch {PROFILE_BATCH} on SyntheticSpheres, Config.far 4) with Config.profile_dir, "
+          f"steps {first}-{first + count - 1} of {first + count} traced: {traces} "
+          f"({trace_mb:.1f} MB Chrome trace), {len(kernels)} CUDA kernel events, "
+          f"{len(scatters)} of them the table-gradient kernel (expected {count} x {per_step}), "
+          f"{len(steps)} steps labelled 'train step_num=N' ({len(labels)} labels on the host's "
+          f"and the device's timelines); kernels busy {100 * busy:.1f}% of "
+          f"the traced kernels' span; launches over the run {launches}; {run_s:.1f}s "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the profile_dir trace lacks the card's kernels or the steps")
+    return dict(config=config_file, traced_steps=count, trace_mb=trace_mb,
+                kernel_events=len(kernels), scatter_events=len(scatters),
+                kernel_busy_share=busy, run_s=run_s, launches=launches)
+
+
+def _eval_samplers(torch, device, seed, tmp):
+    """The environment and quadrature samplers over an EXR env map on the
+    card against the CPU, on the same draws."""
+    import os
+
+    import numpy as np
+
+    from neural_radiance_caching_tpu_torch.data import env_maps, exr
+    from neural_radiance_caching_tpu_torch.ops import render_utils
+
+    rng = np.random.RandomState(seed)
+    eh, ew = ENV_MAP_SIZE
+    yy, xx = np.meshgrid(np.linspace(0, 1, eh), np.linspace(0, 1, ew), indexing="ij")
+    sun = np.exp(-((yy - 0.3) ** 2 + (xx - 0.6) ** 2) / 2e-3)[..., None]
+    env = (0.3 * (1 - yy)[..., None] * np.array([0.5, 0.7, 1.0]) + 40 * sun
+           + rng.uniform(0, 0.05, (eh, ew, 3))).astype(np.float32)
+    env_path = os.path.join(tmp, "eval_env.exr")
+    exr.write_exr(env_path, env)
+    tables = env_maps.load_env_map(env_path, downsample=4, y_up=True, flip=True)
+    gen = torch.Generator().manual_seed(seed + 7)
+    u1 = torch.rand((SAMPLER_POINTS, SAMPLER_RAYS), generator=gen)
+    wo = torch.nn.functional.normalize(torch.randn((SAMPLER_POINTS, SAMPLER_RAYS, 3),
+                                                   generator=gen), dim=-1)
+    light_idx = torch.zeros((SAMPLER_POINTS, 1), dtype=torch.int32)
+
+    def kwargs(dev):
+        return {k: torch.as_tensor(tables[k], device=dev)
+                for k in ("env_map", "env_map_pmf", "env_map_pdf", "env_map_dirs")}
+
+    samplers = {}
+    for name, sampler in (("environment", render_utils.EnvironmentSampler()),
+                          ("quadrature", render_utils.QuadratureEnvmapSampler())):
+        outs = {dev: [o.cpu() for o in sampler.sample_directions(
+            torch.Generator().manual_seed(seed + 8), u1.to(dev), u1.to(dev), wo.to(dev), None,
+            light_idx.to(dev), kwargs(dev))] for dev in ("cpu", device)}
+        # The same texels (directions and radiance gathered exactly), their
+        # pdfs to float32 rounding (a sqrt and a division on each device).
+        (dirs, pdf, rgb), (cpu_dirs, cpu_pdf, cpu_rgb) = outs[device], outs["cpu"]
+        same = (dirs == cpu_dirs).all(-1) & (rgb == cpu_rgb).all(-1)
+        samplers[name] = dict(
+            same_share=float(same.float().mean()),
+            max_abs_err=max(float((g - c).abs().max()) for g, c in zip(outs[device], outs["cpu"])),
+            pdf_rel_err=float(((pdf - cpu_pdf).abs() / cpu_pdf.abs().clamp(min=1e-30))[same].max()),
+            finite=all(bool(torch.isfinite(o).all()) for o in outs[device]),
+            mean_pdf=float(pdf.mean()))
+    # The quadrature over every texel of the z-up tables (its pdf's polar
+    # axis): the mean of 1/pdf is the sphere's 4 pi.
+    z_up = env_maps.build_env_map_tables(env)
+    texels = z_up["env_map_h"] * z_up["env_map_w"]
+    _, pdf, _ = render_utils.QuadratureEnvmapSampler().sample_directions(
+        None, torch.zeros((1, texels), device=device), None, None, None, None,
+        {k: torch.as_tensor(z_up[k], device=device) for k in ("env_map", "env_map_dirs")})
+    integral = float((1.0 / pdf).mean())
+    ok = (all(r["finite"] and r["same_share"] >= 0.99 and r["pdf_rel_err"] <= SAMPLER_PDF_RTOL
+              for r in samplers.values())
+          and samplers["quadrature"]["same_share"] == 1.0
+          and abs(integral - 4 * np.pi) / (4 * np.pi) < 0.02)
+    print(f"eval extras (samplers): a {eh}x{ew} sun-and-sky env map written as a FLOAT EXR, "
+          f"read as the glossy relight branch reads its own (downsample 4, y up, turned: "
+          f"{tables['env_map_h']}x{tables['env_map_w']} texels), {SAMPLER_POINTS} points x "
+          f"{SAMPLER_RAYS} secondary rays, the same draws on both devices, gpu vs cpu: "
+          + "; ".join(f"{n} {100 * r['same_share']:.2f}% of the samples on the same texel, "
+                      f"their pdfs within {r['pdf_rel_err']:.3e} relative (tol "
+                      f"{SAMPLER_PDF_RTOL}), max abs err {r['max_abs_err']:.3e}, mean pdf "
+                      f"{r['mean_pdf']:.4f}"
+                      for n, r in samplers.items())
+          + f"; the quadrature over every texel of the map, z up: mean 1/pdf {integral:.4f} "
+          f"(4 pi = {4 * np.pi:.4f}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the env samplers on the card disagree with the CPU's")
+    return dict(samplers, quadrature_integral=integral)
+
+
+def phase_eval_extras(torch, device, seed, smi, tmp):
+    """Phase 39: hotdog's 800^2 test view (and phase 33's 64^2 one) written
+    in the blender layout, then `_eval_lpips`, `_eval_probe_reference`,
+    `_eval_profile` and `_eval_samplers`."""
+    import concurrent.futures
+    import os
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        data_dir, _, _ = write_disk_scene(torch, device, "hotdog",
+                                          os.path.join(tmp, "eval_hotdog"), EVAL_HOTDOG_SIZES,
+                                          pool)
+        ref_dir, _, _ = write_disk_scene(torch, device, "hotdog",
+                                         os.path.join(tmp, "eval_reference_hotdog"),
+                                         DISK_REFERENCE_SIZES["hotdog"], pool)
+    return {"lpips": _eval_lpips(torch, device, seed, smi, data_dir),
+            "probe_reference": _eval_probe_reference(torch, device, seed, ref_dir),
+            "profile": _eval_profile(torch, device, seed, tmp),
+            "samplers": _eval_samplers(torch, device, seed, tmp)}
+
+
 def _profile(torch, train_step, state, rng, batches, path, steps=3):
     """Device time by kernel over `steps` steps, as a table written to `path`."""
     import pathlib
@@ -5431,6 +5864,7 @@ def main():
                                                     smi, tmp)
         real_reference = phase_real_disk_reference(torch, device, args.seed, tmp)
         real = phase_real_disk_train(torch, device, args.seed, args.trainer_steps, smi, tmp)
+        eval_extras = phase_eval_extras(torch, device, args.seed, smi, tmp)
     print(f"phases done in {time.perf_counter() - t_start:.1f}s, build included", flush=True)
 
     csrc = "neural_radiance_caching_tpu_torch/csrc"
@@ -5658,7 +6092,8 @@ def main():
     }], "timing": timing, "transient_train": {
         name: {k: v for k, v in r.items() if k != "max_abs_err"}
         for name, r in transient.items()}}), flush=True)
-    print(json.dumps({"eval": {"gate": gate, "render": eval_render, "device": smi}}), flush=True)
+    print(json.dumps({"eval": {"gate": gate, "render": eval_render, "extras": eval_extras,
+                               "device": smi}}), flush=True)
     print(json.dumps({"transient_material": {
         "train": {name: {k: v for k, v in r.items() if k != "max_abs_err"}
                   for name, r in tmat.items()},

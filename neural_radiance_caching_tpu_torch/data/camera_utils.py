@@ -1,8 +1,10 @@
-"""Camera math (counterpart of the perspective part of
+"""Camera math (counterpart of the perspective and panoramic parts of
 ``data/camera_utils.py``): rays cast from numpy pixels on the host (the
 renderings, the eval views, batches of a config that casts outside the
 step) or from tensor pixels on their device (``Config.cast_rays_in_train_step``,
-the JAX step's jnp casting); the loaders' intrinsics and pose recentring."""
+the JAX step's jnp casting); the equirectangular rays of one pose
+(``cast_spherical_rays``, the trainer's secondary-ray probe); the loaders'
+intrinsics and pose recentring."""
 
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ from neural_radiance_caching_tpu_torch.utils import pytrees, torchutil
 
 
 class ProjectionType(enum.Enum):
-    """The loaders' camera models; only PERSPECTIVE casts rays in the port."""
+    """The loaders' camera models; PERSPECTIVE and (on the host) PANORAMIC
+    cast rays in the port."""
 
     PERSPECTIVE = "perspective"
     FISHEYE = "fisheye"
@@ -104,10 +107,13 @@ def pixel_coordinates(width, height):
     return np.meshgrid(np.arange(width), np.arange(height), indexing="xy")
 
 
-def pixels_to_rays(pix_x_int, pix_y_int, pixtocams, camtoworlds, rng=None, jitter=0):
+def pixels_to_rays(pix_x_int, pix_y_int, pixtocams, camtoworlds, rng=None, jitter=0,
+                   camtype=ProjectionType.PERSPECTIVE):
     """Cast perspective rays through pixel centers; returns every per-ray
     camera field (origins, directions, viewdirs, radii, imageplane, look, up,
-    cam_origins, vcam_look, vcam_up, vcam_origins).
+    cam_origins, vcam_look, vcam_up, vcam_origins). On the host,
+    ``camtype=PANORAMIC`` casts equirectangular rays: `pixtocams` maps a
+    pixel to (azimuth, polar angle).
 
     Numpy arrays cast on the host, without jitter (the dataset's renderings,
     eval views); tensors cast on their device in float32 (the train step's
@@ -119,7 +125,11 @@ def pixels_to_rays(pix_x_int, pix_y_int, pixtocams, camtoworlds, rng=None, jitte
     Radii follow the mip-NeRF convention: half the distance to the
     neighboring pixels' directions, scaled by 2/sqrt(12).
     """
+    if camtype not in (ProjectionType.PERSPECTIVE, ProjectionType.PANORAMIC):
+        raise NotImplementedError(f"{camtype} rays are not ported")
     if isinstance(pix_x_int, torch.Tensor):
+        if camtype != ProjectionType.PERSPECTIVE:
+            raise NotImplementedError("panoramic rays are cast on the host in the port")
         return _pixels_to_rays_torch(pix_x_int, pix_y_int, pixtocams, camtoworlds, rng, jitter)
 
     def pix_to_dir(x, y):
@@ -130,6 +140,10 @@ def pixels_to_rays(pix_x_int, pix_y_int, pixtocams, camtoworlds, rng=None, jitte
         axis=0)
     mat_vec_mul = lambda a, b: np.matmul(a, b[..., None])[..., 0]
     camera_dirs_stacked = mat_vec_mul(pixtocams, pixel_dirs_stacked)
+    if camtype == ProjectionType.PANORAMIC:
+        theta, phi = camera_dirs_stacked[..., 0], camera_dirs_stacked[..., 1]
+        camera_dirs_stacked = np.stack(
+            [-np.sin(phi) * np.sin(theta), -np.cos(phi), -np.sin(phi) * np.cos(theta)], axis=-1)
     # OpenCV -> OpenGL.
     camera_dirs_stacked = np.matmul(
         camera_dirs_stacked, np.diag(np.array([1.0, -1.0, -1.0], dtype=np.float32)))
@@ -226,6 +240,32 @@ def cast_ray_batch(cameras, lights, pixels: pytrees.Pixels, rng=None, jitter=0,
         exposure_idx=pixels.exposure_idx, exposure_values=pixels.exposure_values,
         impulse_response=impulse_response,
     )
+
+
+def cast_spherical_rays(camtoworld, height, width, near, far, light_idx=0):
+    """The [height, width] equirectangular rays of one pose `camtoworld`
+    [3 or 4, 4], cast on the host through pixel centres (no jitter), the
+    light at the pose's origin, camera index 0 and light index
+    `light_idx`: the trainer's secondary-ray probe camera."""
+    pixtocam = np.diag(np.array([2.0 * np.pi / width, np.pi / height, 1.0], np.float32))
+    pix_x_int, pix_y_int = pixel_coordinates(width, height)
+    camtoworld = np.asarray(camtoworld, np.float32)[..., :3, :4]
+    (origins, directions, viewdirs, radii, imageplane, look, up, cam_origins, vcam_look, vcam_up,
+     vcam_origins) = pixels_to_rays(pix_x_int, pix_y_int, pixtocam, camtoworld,
+                                    camtype=ProjectionType.PANORAMIC)
+
+    def scalar(v):
+        return np.broadcast_to(v, pix_x_int.shape)[..., None]
+
+    return pytrees.Rays(
+        origins=origins, directions=directions, viewdirs=viewdirs, radii=radii,
+        lights=np.broadcast_to(camtoworld[..., :3, -1], directions.shape),
+        imageplane=imageplane, look=look, up=up, cam_origins=cam_origins, vcam_look=vcam_look,
+        vcam_up=vcam_up, vcam_origins=vcam_origins, lossmult=scalar(1.0),
+        near=scalar(np.float32(near)), far=scalar(np.float32(far)),
+        cam_idx=scalar(1).astype(np.int32) * 0,
+        light_idx=scalar(1).astype(np.int32) * light_idx,
+        pix_x_int=pix_x_int, pix_y_int=pix_y_int)
 
 
 def generate_spherical_poses(n, radius, center=np.zeros(3), up_axis=2, min_elevation=0.2,

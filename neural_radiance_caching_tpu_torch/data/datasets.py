@@ -31,7 +31,7 @@ import pickle
 import numpy as np
 import torch
 
-from neural_radiance_caching_tpu_torch.data import camera_utils, hdf5
+from neural_radiance_caching_tpu_torch.data import camera_utils, env_maps, hdf5
 from neural_radiance_caching_tpu_torch.data import io as io_lib
 from neural_radiance_caching_tpu_torch.ops import image as image_ops
 from neural_radiance_caching_tpu_torch.utils import pytrees, torchutil
@@ -457,34 +457,41 @@ class GlossySynthetic(Dataset):
     16-bit depth (the mask is depth < 14.5, else the alpha); the test split
     is `../synthetic_split_128.pkl`'s, the train split every image. Batches
     come from the flattened pixel table. The pickles are the capture's own
-    files, unpickled as the JAX loader does."""
+    files, unpickled as the JAX loader does. Under
+    ``Config.compute_relight_metrics`` every split reads the relit views of
+    `../relight_gt/{scene}_{env_map_name}` instead, and the env map
+    `../relight_gt/{env_map_name}.exr` (area-downsampled by 4, y up,
+    turned 180 degrees) gives the ``env_map*`` tables."""
 
     def _load_renderings(self, config):
-        if self._load_env_map:
-            raise NotImplementedError("Config.compute_relight_metrics (the relighting env "
-                                      "maps) is not ported yet")
         with open(os.path.join(self.data_dir, "../synthetic_split_128.pkl"), "rb") as f:
             test_ids, _ = pickle.load(f)
-        if self.split == "train":
+        data_dir = self.data_dir
+        if self._load_env_map:
+            scene = self.data_dir.split("/")[-1]
+            data_dir = os.path.join(self.data_dir,
+                                    f"../relight_gt/{scene}_{config.env_map_name}")
+            im_ids = [str(k) for k in range(len(glob.glob(f"{data_dir}/*.pkl")))]
+        elif self.split == "train":
             im_ids = [str(k) for k in range(len(glob.glob(f"{self.data_dir}/*.pkl")))]
         else:
             im_ids = sorted(test_ids)
 
         images, mask_images, depth_images, camtoworlds, pixtocams = [], [], [], [], []
         for im_id in im_ids:
-            with open(os.path.join(self.data_dir, im_id + "-camera.pkl"), "rb") as f:
+            with open(os.path.join(data_dir, im_id + "-camera.pkl"), "rb") as f:
                 cam_data = pickle.load(f)
             pose = np.eye(4)
             pose[:3, :4] = cam_data[0]
             camtoworlds.append(np.linalg.inv(pose))
             pixtocams.append(cam_data[1])
 
-            image = io_lib.load_img(os.path.join(self.data_dir, im_id + ".png"))
+            image = io_lib.load_img(os.path.join(data_dir, im_id + ".png"))
             image = np.clip(image_ops.srgb_to_linear(image.astype(np.float64) / 255.0), 0.0,
                             np.inf)
             images.append(image)
 
-            depth_file = os.path.join(self.data_dir, im_id + "-depth.png")
+            depth_file = os.path.join(data_dir, im_id + "-depth.png")
             if os.path.exists(depth_file):
                 depth = io_lib.load_img(depth_file) / 65535 * 15
                 if depth.ndim == 3:
@@ -511,6 +518,12 @@ class GlossySynthetic(Dataset):
         self._flattened = True
         self.images_flattened, self.indices_flattened = flatten_data(list(self.images))
         self.light_idx_flattened = np.zeros((self.images_flattened.shape[0], 1), np.int32)
+        if self._load_env_map:
+            tables = env_maps.load_env_map(
+                os.path.join(self.data_dir, f"../relight_gt/{config.env_map_name}.exr"),
+                downsample=4, y_up=True, flip=True)
+            for k, v in tables.items():
+                setattr(self, k, v)
         self.camtoworlds = camtoworlds
         self.pixtocams = pixtocams.astype(np.float32)
         self.lights = self.camtoworlds[..., :3, -1]
@@ -534,16 +547,16 @@ class OpenIllum(Dataset):
     `../Lights/013/raw_undistorted/` resized by OpenCV's Lanczos-4, made
     linear, and composited on white by the `com_masks` (train, > 0.5) or
     `obj_masks` (test, > 0) PNGs resized by nearest; each pixel's light
-    index 0, the lights at the cameras. The other illuminations
-    (`Config.multi_illumination`) and the relighting env maps need the HDR
-    reader and raise."""
+    index 0, the lights at the cameras. Under
+    ``Config.compute_relight_metrics`` the views are those of illumination
+    `env_map_name`, and its Radiance HDR env map
+    `../../../env_maps/hdrs/{env_map_name}.hdr` (times 2.5) gives the
+    ``env_map*`` tables. The other illuminations
+    (`Config.multi_illumination`) raise."""
 
     ILLUM_MAP = "013"
 
     def _load_renderings(self, config):
-        if self._load_env_map:
-            raise NotImplementedError("Config.compute_relight_metrics (the relighting env "
-                                      "maps) is not ported yet")
         if config.multi_illumination:
             raise NotImplementedError("Config.multi_illumination (OpenIllumination's other "
                                       "illuminations and their env maps) is not ported yet")
@@ -555,7 +568,8 @@ class OpenIllum(Dataset):
         pixtocams = pixtocams @ np.diag([factor, factor, 1.0])
         camtoworlds = (camtoworlds @ np.diag([1, -1, -1, 1.0]))[:, :3, :4]
 
-        lights_dir = f"../Lights/{self.ILLUM_MAP}/raw_undistorted"
+        illum_map = config.env_map_name if self._load_env_map else self.ILLUM_MAP
+        lights_dir = f"../Lights/{illum_map}/raw_undistorted"
         mask_dir = "./com_masks" if self.split == "train" else "./obj_masks"
 
         def load_image(prefix):
@@ -580,6 +594,11 @@ class OpenIllum(Dataset):
         alpha = self.mask_images[..., :1]
         self.images = (rgb * alpha + (1.0 - alpha)).astype(np.float32)
         self.masks = alpha
+        if self._load_env_map:
+            tables = env_maps.load_env_map(
+                os.path.join(self.data_dir, f"../../../env_maps/hdrs/{illum_map}.hdr"), scale=2.5)
+            for k, v in tables.items():
+                setattr(self, k, v)
         self.camtoworlds = camtoworlds
         self.pixtocams = pixtocams
         self.distortion_params = distortions

@@ -2,9 +2,12 @@
 
 PNGs and JPEGs are read by the port's own decoders (``data/png.py``,
 ``data/jpeg.py``), which return what PIL gives the JAX package, EXRs by its
-own codec (``data/exr.py``) and h5 files by its own HDF5 reader
-(``data/hdf5.py``, what h5py gives). The formats whose readers the card's
-machine lacks raise naming them: TIFF (PIL), HDR (OpenCV).
+own codec (``data/exr.py``), h5 files by its own HDF5 reader
+(``data/hdf5.py``, what h5py gives) and Radiance HDR env maps
+(``read_hdr``) by its own RGBE reader (``data/hdr.py``, what OpenCV gives).
+TIFF images raise (PIL reads them in the JAX package; the card's machine
+has no PIL), and so does an HDR file read as an image, which PIL does not
+read either.
 
 ``resize_lanczos4`` and ``resize_nearest`` are OpenCV's ``cv2.resize`` with
 ``INTER_LANCZOS4`` and ``INTER_NEAREST``, which the JAX loaders call and
@@ -18,7 +21,7 @@ from typing import Optional
 
 import numpy as np
 
-from neural_radiance_caching_tpu_torch.data import exr, hdf5, jpeg, png
+from neural_radiance_caching_tpu_torch.data import exr, hdf5, hdr, jpeg, png
 
 _TIFF = (b"II*\x00", b"MM\x00*")
 
@@ -41,8 +44,14 @@ def load_img(path):
     if head[:4] in _TIFF:
         raise _missing(path, "TIFF", "PIL")
     if head.startswith(b"#?"):
-        raise _missing(path, "Radiance HDR", "OpenCV")
+        raise ValueError(f"{path}: a Radiance HDR file is read by read_hdr (an env map), "
+                         "not as an image (PIL does not read it)")
     raise ValueError(f"{path}: neither a PNG nor a JPEG file")
+
+
+def read_hdr(path):
+    """A Radiance .hdr file as float32 RGB [H, W, 3] (OpenCV's decode)."""
+    return hdr.read_hdr(path)
 
 
 def load_exr(path):

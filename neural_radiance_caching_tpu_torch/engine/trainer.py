@@ -22,11 +22,14 @@ every stage but the material SLF ones on the transient configs (the JAX
 package's transient cache has no SLF memory). A train step raises naming
 an extra loss that is not ported yet. An evaluation of a transient view
 saves its transient as an h5 file (``data/hdf5.write_h5``) and one time
-slice of it. The secondary-ray probe (``vis_secondary``), the viewer and
-the profiler trace raise. The metric harness is built at the first evaluation, so a
-run without evaluation needs no LPIPS: LPIPS is not ported, so an
-evaluation needs ``Config.metric_harness_train_config = {'disable_lpips':
-True}``.
+slice of it. An evaluation scores PSNR, SSIM and LPIPS (the metric
+harness, built at the first evaluation on the trainer's device) and, under
+``Config.use_shift_invariance``, the best-shift PSNR. With
+``vis_secondary`` it also renders the secondary-ray probe (a panorama seen
+from one surface point of the view) and saves its vis suite. Under
+``Config.profile_dir`` the steps [profile_start_step, profile_start_step +
+profile_num_steps) are traced by torch.profiler (host and, on the card,
+its kernels) into a Chrome trace there. The viewer raises.
 
 ``render_test_view`` and ``compute_eval_metrics`` are also module-level
 functions that take what they read from the trainer as arguments.
@@ -52,6 +55,7 @@ from neural_radiance_caching_tpu_torch.engine import configs as configs_lib
 from neural_radiance_caching_tpu_torch.engine import gin_config as gin
 from neural_radiance_caching_tpu_torch.engine import renderer
 from neural_radiance_caching_tpu_torch.ops import image as image_lib
+from neural_radiance_caching_tpu_torch.ops import render_utils
 from neural_radiance_caching_tpu_torch.parallel import train as train_lib
 from neural_radiance_caching_tpu_torch.utils import checkpoints as ckpt_lib
 from neural_radiance_caching_tpu_torch.utils import pytrees, torchutil
@@ -96,14 +100,14 @@ def render_test_view(render_fn, dataset, cam_idx, rng, config, train_frac=1.0):
 
 def compute_eval_metrics(rendering, batch, height, width, config, metric_harness, postprocess_fn,
                          albedo_ratio=None, albedo_clip=1.0):
-    """PSNR and SSIM, the normal mean angular error, the depth L1 (median and
-    mean), the albedo PSNR and the transient IoU of one rendered view.
+    """The harness's metrics (PSNR, SSIM, LPIPS), the shift-invariant PSNR
+    under ``use_shift_invariance``, the normal mean angular error, the depth
+    L1 (median and mean), the albedo PSNR and the transient IoU of one
+    rendered view.
 
     albedo_ratio: the run-level albedo calibration [1, 3], or None for the
     per-image least-squares ratio.
     """
-    if config.use_shift_invariance:
-        raise NotImplementedError("the shift-invariant eval metrics are not ported yet")
     metrics = {}
     gt = _host(batch.rgb)
     gt = gt.reshape((height, width) + gt.shape[1:])
@@ -113,6 +117,11 @@ def compute_eval_metrics(rendering, batch, height, width, config, metric_harness
         gt_pp = postprocess_fn(gt)
         if gt_pp.shape == pred.shape:
             metrics.update(metric_harness(pred, gt_pp))
+            if config.use_shift_invariance and pred.ndim == 3:
+                # The best-shift PSNR over an integer-pixel search window.
+                radius = max(abs(config.shift_invariant_start), abs(config.shift_invariant_end))
+                si_mse, _, _ = image_lib.shift_invariant_mse(pred, gt_pp, (radius, radius), 2)
+                metrics["psnr_shift_invariant"] = float(-10.0 * np.log10(float(si_mse) + 1e-12))
 
     masks = (_host(batch.masks).reshape(height, width, -1)[..., :1]
              if batch.masks is not None else np.ones((height, width, 1), np.float32))
@@ -702,14 +711,130 @@ class Trainer:
     def _compute_eval_metrics(self, rendering, batch, height, width):
         if self.metric_harness is None:
             self.metric_harness = image_lib.MetricHarness(
-                **(self.config.metric_harness_train_config or {}))
+                **{"device": self.device, **(self.config.metric_harness_train_config or {})})
         return compute_eval_metrics(rendering, batch, height, width, self.config,
                                     self.metric_harness, self.postprocess_fn,
                                     albedo_ratio=self.albedo_ratio, albedo_clip=self.albedo_clip)
 
+    # --- the secondary-ray probe ---------------------------------------------------
+
+    def _probe_resolution(self):
+        h, w = self.test_dataset.height, self.test_dataset.width
+        return min(256, h), min(512, w * 2)
+
+    def render_secondary_rays(self, rays, distance_median, normals, select_x, select_y,
+                              train_frac):
+        """The panoramic probe: what the cache sees from one surface point.
+
+        The median-depth point under pixel (select_x, select_y) of the view
+        `rays`, moved 0.4 along its normal, renders an equirectangular view
+        (``_probe_resolution``) with the passes ("cache", "light",
+        "is_secondary"), and "surface_light_field_vis" under
+        ``vis_surface_light_field``; its rays carry the view's light and
+        camera frame. Returns the rendering ([h, w, ...] host arrays).
+        """
+        height, width = self.test_dataset.height, self.test_dataset.width
+        light_h, light_w = self._probe_resolution()
+        _, _, light_xyz, _ = render_utils.get_sphere_directions(
+            light_h, light_w, flip=self.config.flip_secondary)
+        light_xyz = light_xyz.numpy()
+
+        def pixel(a, d):
+            return _host(a).reshape(height, width, d)[select_y, select_x]
+
+        position = (pixel(rays.origins, 3) + pixel(rays.directions, 3)
+                    * pixel(distance_median, 1) + 4e-1 * pixel(normals, 3))
+        cam_to_world = np.eye(4, dtype=np.float32)
+        cam_to_world[:3, -1] = position
+        secondary = camera_utils.cast_spherical_rays(
+            cam_to_world, light_h, light_w, self.config.near, self.config.secondary_far,
+            light_idx=int(_host(rays.light_idx).reshape(-1)[0]))
+
+        def first(a, d):
+            return _host(a).reshape(-1, d)[0]
+
+        def fill(ref, vec):
+            return np.broadcast_to(np.asarray(vec, np.float32), np.asarray(ref).shape)
+
+        secondary = secondary.replace(
+            directions=light_xyz.reshape(secondary.directions.shape),
+            viewdirs=light_xyz.reshape(secondary.viewdirs.shape),
+            lights=fill(secondary.lights, first(rays.lights, 3)),
+            imageplane=fill(secondary.imageplane, first(rays.imageplane, 2)),
+            look=fill(secondary.look, first(rays.look, 3)),
+            up=fill(secondary.up, first(rays.up, 3)),
+            cam_origins=fill(secondary.cam_origins, first(rays.cam_origins, 3)),
+            vcam_look=fill(secondary.vcam_look, first(rays.look, 3)),
+            vcam_up=fill(secondary.vcam_up, first(rays.up, 3)),
+            vcam_origins=fill(secondary.vcam_origins, first(rays.cam_origins, 3)))
+
+        def flatten(v):
+            return None if v is None else np.asarray(v).reshape((-1,) + np.shape(v)[2:])
+
+        flat = pytrees.Rays(**{f.name: flatten(getattr(secondary, f.name))
+                               for f in dataclasses.fields(secondary)}).to(self.device)
+
+        if getattr(self, "_render_secondary_fn", None) is None:
+            passes = ("cache", "light", "is_secondary")
+            if self.vis_surface_light_field:
+                passes = passes + ("surface_light_field_vis",)
+            self._render_secondary_fn = train_lib.create_render_fn(self.model, passes=passes)
+        return renderer.render_image(self._render_secondary_fn, flat, self.render_rng,
+                                     self.config, height=light_h, width=light_w,
+                                     train_frac=train_frac, device=self.device)
+
+    def render_vmf(self, rendering, select_x, select_y):
+        """The light sampler's vMF mixture at one pixel as an equirectangular
+        sRGB image [h, w, 3], from a rendering with the "light_sampler_vis"
+        pass; None where the rendering has none."""
+        if "vmf_means" not in rendering:
+            return None
+        light_h, light_w = self._probe_resolution()
+        _, _, light_xyz, _ = render_utils.get_sphere_directions(
+            light_h, light_w, flip=self.config.flip_secondary)
+        means = torch.as_tensor(np.asarray(rendering["vmf_means"])[select_y, select_x],
+                                dtype=torch.float32)
+        means = means / torch.clamp(torch.linalg.norm(means, dim=-1, keepdim=True), min=1e-5)
+        kappas = torch.as_tensor(np.asarray(rendering["vmf_kappas"])[select_y, select_x, ..., 0],
+                                 dtype=torch.float32)
+        weights = torch.exp(torch.as_tensor(
+            np.asarray(rendering["vmf_logits"])[select_y, select_x, ..., 0], dtype=torch.float32))
+        weights = weights / weights.sum(-1, keepdim=True)
+        density = torch.sum(weights * render_utils.eval_vmf(light_xyz[..., None, :], means,
+                                                            kappas), dim=-1)
+        density = density.reshape(light_h, light_w, 1)
+        return image_lib.linear_to_srgb(density.repeat(1, 1, 3)).numpy()
+
+    def _visualize_secondary(self, step, rendering, rays, train_frac):
+        """The probe at the pixel 0.3 across and 0.6 down the view, and the
+        vMF image there: their vis suites saved under ``secondary/`` and
+        ``vmf/``. Returns the probe's rendering (None without the view's
+        median distance or normals)."""
+        if "distance_median" not in rendering:
+            return None
+        normals_key = "normals_to_use" if "normals_to_use" in rendering else "normals"
+        if normals_key not in rendering:
+            return None
+        height, width = self.test_dataset.height, self.test_dataset.width
+        select_x = int(np.round(width * 0.3))
+        select_y = int(np.round(height * 0.6))
+        secondary = self.render_secondary_rays(rays, rendering["distance_median"],
+                                               rendering[normals_key], select_x, select_y,
+                                               train_frac)
+        suite = vis_lib.visualize_transient_suite if self.use_transient else vis_lib.visualize_suite
+        vis = suite(secondary, self.config)
+        if self.save_dir and self.save_results:
+            out_dir = os.path.join(self.save_dir, "secondary")
+            os.makedirs(out_dir, exist_ok=True)
+            vis_lib.save_vis_suite(vis, out_dir, step)
+        vmf_img = self.render_vmf(rendering, select_x, select_y)
+        if vmf_img is not None and self.save_dir and self.save_results:
+            out_dir = os.path.join(self.save_dir, "vmf")
+            os.makedirs(out_dir, exist_ok=True)
+            vis_lib.save_img_u8(vmf_img, os.path.join(out_dir, f"{step:06d}.png"))
+        return secondary
+
     def log_test_set_evaluation(self, step, train_frac):
-        if self.vis_secondary:
-            raise NotImplementedError("the secondary-ray probe (vis_secondary) is not ported yet")
         cam_idx = step % self.test_dataset.num_images
         t0 = time.time()
         rendering, batch = self.render_test_view(cam_idx, train_frac)
@@ -731,6 +856,8 @@ class Trainer:
                 np.save(os.path.join(d, f"{step:06d}.npy"), rendering["rgb"])
             if self.use_transient and "cache_rgb" in rendering:
                 self._save_transient_h5(rendering, step)
+        if self.vis_secondary:
+            self._visualize_secondary(step, rendering, batch.rays, train_frac)
         print(f"eval step={step} cam={cam_idx} "
               + " ".join(f"{k}={v:.4f}" for k, v in metrics.items())
               + f" ({time.time() - t0:.1f}s)", flush=True)
@@ -785,8 +912,6 @@ class Trainer:
 
     def _train_impl(self):
         config = self.config
-        if config.profile_dir:
-            raise NotImplementedError("Config.profile_dir (profiler traces) is not ported yet")
         num_steps = (config.early_exit_steps if config.early_exit_steps is not None
                      else self.max_steps)
         init_step = self.state.step // self.grad_accum_steps + 1
@@ -799,11 +924,21 @@ class Trainer:
         t_start = time.time()
         log_path = (os.path.join(config.checkpoint_dir, "train_log.jsonl")
                     if config.checkpoint_dir else None)
+        profiler = None
         try:
             for step in range(init_step, num_steps + 1):
+                if config.profile_dir:
+                    if step == config.profile_start_step and profiler is None:
+                        profiler = self._start_profile()
+                    elif profiler is not None and step == (config.profile_start_step
+                                                           + config.profile_num_steps):
+                        self._stop_profile(profiler, step)
+                        profiler = None
                 batch = next(raybatcher)
                 train_frac = float(np.clip((step - 1) / max(1, self.max_steps - 1), 0, 1))
-                self.state, stats = self.train_step(self.rng, self.state, batch, train_frac)
+                with torch.profiler.record_function(
+                        f"train step_num={step * self.grad_accum_steps}"):
+                    self.state, stats = self.train_step(self.rng, self.state, batch, train_frac)
 
                 if step % config.gc_every == 0:
                     gc.collect()
@@ -832,8 +967,34 @@ class Trainer:
                     self.log_test_set_evaluation(step, train_frac)
         finally:
             raybatcher.stop()
+            if profiler is not None:
+                self._stop_profile(profiler, num_steps + 1)
         self.save_checkpoint(num_steps)
         ckpt_lib.wait_for_pending_save()
+
+    def _start_profile(self):
+        """A torch.profiler trace of the host and, on the card, of its
+        kernels, from here to `_stop_profile`."""
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.device(self.device).type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profile(self, profiler, end_step):
+        """End the trace (after the device's work) and write it as a Chrome
+        trace `train_steps_<first>-<last>.json` into `Config.profile_dir`."""
+        if torch.device(self.device).type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        os.makedirs(self.config.profile_dir, exist_ok=True)
+        path = os.path.join(self.config.profile_dir, f"train_steps_"
+                            f"{self.config.profile_start_step}-{end_step - 1}.json")
+        profiler.export_chrome_trace(path)
+        print(f"profile: steps {self.config.profile_start_step}-{end_step - 1} traced to {path}",
+              flush=True)
+        return path
 
     def _compute_albedo_ratio(self, n_views):
         """Run-level albedo colour calibration over every 10th test view: the

@@ -55,8 +55,15 @@ pass's, by one learned factor per ray. A cache stage under
 (``material_shader.CacheStageLight``): the cache shader and integrator read
 it there.
 
-Not ported yet (they raise): the volume control variate, ground-truth
-lights and shared materials.
+The render passes ("cache", "light", "material", "is_secondary",
+"surface_light_field_vis", "light_sampler_vis") pick what a render runs:
+without "material" it is the cache's, and with "is_secondary" the cache is
+queried as secondary rays (the trainer's secondary-ray probe).
+
+Not ported yet (they raise): the volume control variate, the
+multi-illumination ground-truth lights and shared materials. A relit render
+(``Config.compute_relight_metrics``) raises as the reference gap it is: the
+JAX trainer hands its model no env map tables.
 """
 
 from __future__ import annotations
@@ -153,6 +160,10 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(stopgrad_weight_variate=
         """Returns {"cache_main", "main", "render"}, or with `passes` naming
         a bypass pass, that pass's outputs at `sampler_results` (``bypass``).
 
+        passes: those of RENDER_PASSES to run (by default the cache, light
+        and material passes); without "material" the render is the cache's,
+        and with "is_secondary" the rays query the cache as secondary rays
+        (the trainer's secondary-ray probe).
         cache_outputs: {"sampler": ray history} of an earlier forward to reuse
         in the cache pass (the gradient-debias pass); filtered_sampler_inds,
         when given (None included), replaces the cache pass's resample
@@ -163,29 +174,42 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(stopgrad_weight_variate=
         if passes is not None and set(passes) & set(self.BYPASS_PASSES):
             return self.bypass(rng, rays, passes, sampler_results, train_frac=train_frac,
                                train=train, **render_kwargs)
-        slf_vis = None
-        if passes is not None and "surface_light_field_vis" in passes:
-            # The memory's radiance along the primary rays, beside the full
-            # render (a model without the memory ignores the pass, as in JAX).
-            if self.cache.use_surface_light_field:
-                key, rng = torchutil.random_split(rng)
-                slf_vis = self.cache(key, rays, train_frac=train_frac, train=train, use_slf=True)
-            passes = tuple(p for p in passes if p != "surface_light_field_vis")
-        if passes is not None and tuple(passes) != ("cache", "light", "material"):
-            raise NotImplementedError(f"the material model's passes {tuple(passes)} are not "
+        passes = ("cache", "light", "material") if passes is None else tuple(passes)
+        unknown = set(passes) - set(self.RENDER_PASSES)
+        if unknown:
+            raise NotImplementedError(f"the material model's passes {sorted(unknown)} are not "
                                       "ported yet")
-        if render_kwargs.pop("is_secondary", False):
-            raise NotImplementedError("secondary-ray queries of the material model are not ported")
-        vignette = self.vignette_map(rays) if self.use_vignette else None
+        is_secondary = render_kwargs.pop("is_secondary", False) or "is_secondary" in passes
+        use_material = self.use_material and "material" in passes
+        if is_secondary and use_material:
+            raise NotImplementedError("secondary-ray queries of the material model's material "
+                                      "pass are not ported")
+        slf_vis = None
+        if "surface_light_field_vis" in passes and self.cache.use_surface_light_field:
+            # The memory's radiance along the rays, beside the render (a model
+            # without the memory ignores the pass, as in JAX).
+            key, rng = torchutil.random_split(rng)
+            slf_vis = self.cache(key, rays, train_frac=train_frac, train=train, use_slf=True)
+        if is_secondary:
+            # The probe's render reports its distances, as JAX's does.
+            render_kwargs.setdefault("compute_distance", True)
+        vignette = self.vignette_map(rays) if self.use_vignette and not is_secondary else None
         key, rng = torchutil.random_split(rng)
         cache_out = self.cache(key, rays, train_frac=train_frac, train=train,
                                cache_outputs=cache_outputs, compute_extras=compute_extras,
-                               radiance_cache=self, vignette=vignette, **render_kwargs)["main"]
+                               radiance_cache=self, vignette=vignette, is_secondary=is_secondary,
+                               **render_kwargs)["main"]
         cache_outputs = {k: cache_out[k] for k in self._CACHE_MAIN_KEYS}
         cache_outputs.update(loss_weight=self.cache_loss_weight, loss_type=self.cache_loss,
                              linear_to_srgb=self.cache_linear_to_srgb)
-        if not self.use_material:
-            return self._finalize_cache_only(cache_outputs, rays, vignette)
+        if not use_material:
+            outputs = self._finalize_cache_only(cache_outputs, rays, vignette)
+            if self.use_material:
+                # A material model's lossmult is constant-true, as in JAX.
+                outputs["render"]["lossmult"] = torch.ones_like(
+                    cache_outputs["integrator"]["acc"][..., None], dtype=torch.bool)
+            self._add_slf_vis(outputs["render"], slf_vis)
+            return outputs
 
         inds = (cache_outputs["filtered_sampler_inds"] if filtered_sampler_inds is _CACHE_INDS
                 else filtered_sampler_inds)
@@ -204,13 +228,23 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(stopgrad_weight_variate=
         outputs = self._handle_material_pass(
             key, rays, train_frac, train, cache_outputs, cache_shader_results, filtered,
             light_sampler_results, compute_extras, secondary_proposal_grad, vignette)
-        return self._finalize_outputs(outputs, cache_outputs, cache_shader_results,
-                                      light_sampler_results, slf_vis, vignette)
+        outputs = self._finalize_outputs(outputs, cache_outputs, cache_shader_results,
+                                         light_sampler_results, slf_vis, vignette)
+        if "light_sampler_vis" in passes and light_sampler_results:
+            outputs["render"].update(light_sampler_results)
+        return outputs
 
     # The sub-module passes at given samples or rays (JAX's
     # `_maybe_bypass_pipeline`).
     BYPASS_PASSES = ("material_shader", "material_cache_shader", "geometry",
                      "surface_light_field")
+    # The passes of a render: "material" adds the material pass to the
+    # cache's, "is_secondary" queries the cache as secondary rays (the
+    # secondary-ray probe's), "surface_light_field_vis" adds the SLF memory's
+    # radiance along the rays, "light_sampler_vis" the light sampler's vMF
+    # mixture at the surface points.
+    RENDER_PASSES = ("cache", "light", "material", "is_secondary", "surface_light_field_vis",
+                     "light_sampler_vis")
 
     def bypass(self, rng, rays, passes, sampler_results, train_frac=1.0, train=True,
                material_only=False):
@@ -405,6 +439,16 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(stopgrad_weight_variate=
         "indirect_specular_rgb", "ambient_diffuse_rgb", "ambient_specular_rgb",
     )
 
+    @staticmethod
+    def _add_slf_vis(render, slf_vis):
+        """The SLF memory's ``incoming_*`` along the rays as the render's
+        ``cache_incoming_*`` (the "surface_light_field_vis" pass)."""
+        if slf_vis is None:
+            return
+        for key in ("incoming_rgb", "incoming_acc", "incoming_s_dist"):
+            if key in slf_vis:
+                render[f"cache_{key}"] = slf_vis[key].reshape(render["rgb"].shape[:-1] + (-1,))
+
     def _finalize_outputs(self, outputs, cache_outputs, cache_shader_results,
                           light_sampler_results, slf_vis=None, vignette=None):
         render, cache_integrator = outputs["render"], cache_outputs["integrator"]
@@ -419,9 +463,7 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(stopgrad_weight_variate=
         render["normals_pred"] = cache_integrator.get("normals_pred")
         render["vignette"] = (torch.ones_like(render["rgb"][..., :1]) if vignette is None
                               else vignette)
-        if slf_vis is not None:
-            for key in ("incoming_rgb", "incoming_acc", "incoming_s_dist"):
-                render[f"cache_{key}"] = slf_vis[key].reshape(render["rgb"].shape[:-1] + (-1,))
+        self._add_slf_vis(render, slf_vis)
         outputs["main"]["light_sampler"] = light_sampler_results
         # The material lossmult is constant-true, as in the JAX model (whose
         # normal/radius thresholds are dead); the shader's radius mask gates

@@ -43,7 +43,9 @@ and the cache's irradiance is the ``irradiance_cache`` output.
 Environment maps, BRDF correction, emission, residual albedo, the per-lobe
 path of fresh rays, cone lights and structured light are not ported yet and
 raise. The irradiance-cache fields are read by nothing, as in JAX (the
-irradiance cache's output is the SLF variate's).
+irradiance cache's output is the SLF variate's). A relit render
+(``Config.compute_relight_metrics``) raises as a reference gap: the JAX
+trainer hands its shader's environment sampler no env map tables.
 """
 
 from __future__ import annotations
@@ -254,8 +256,12 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
                       use_indirect=True)
         if config.multi_illumination:
             raise NotImplementedError("multi-illumination materials are not ported yet")
-        if config.compute_relight_metrics or config.use_ground_truth_illumination:
-            raise NotImplementedError("ground-truth illumination samplers are not ported yet")
+        if config.compute_relight_metrics:
+            raise NotImplementedError(
+                "a relit material render (Config.compute_relight_metrics) is a reference gap: "
+                "the JAX trainer hands the model none of the dataset's env_map tables, so its "
+                "EnvironmentSampler reads env_map_pmf = None and raises ValueError ('No input "
+                "was provided to the clip function', ops/render_utils.py:417-432)")
         feature_dim = self._build_trunk(density_feature_dim)
         if self.bottleneck_width > 0:
             self.bottleneck_layer = Dense(feature_dim, self.bottleneck_width, self.compute_dtype)

@@ -206,8 +206,10 @@ class Model(Configurable, nn.Module, unported=_MODEL_UNPORTED):
                                      filtered_sampler_results=inputs, **shared, **render_kwargs)
         shader_results.setdefault("weights_no_filter", shader_results["weights"])
         if is_secondary:
-            # Nothing reads the ray-distance statistics of secondary rays.
-            render_kwargs["compute_distance"] = False
+            # Nothing in a train step or a primary render reads the
+            # ray-distance statistics of secondary rays; the secondary-ray
+            # probe's render asks for them.
+            render_kwargs.setdefault("compute_distance", False)
         key, rng = torchutil.random_split(rng)
         integrator_results = self.integrator(
             rng=key, rays=rays, shader_results=shader_results,

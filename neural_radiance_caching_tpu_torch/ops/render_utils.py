@@ -9,9 +9,13 @@ of the light-sampling loss (``vmf_loss_fn``), the Disney-ish microfacet
 lobe, the secondary-ray fan-out at surface points, the Monte-Carlo
 reflection estimators (steady, and time-binned for the transient material
 shader), the transient causality mask ``zero_invalid_bins`` and the iToF
-projection of transients ``dtof_to_itof``. Environment-map, quadrature,
-identity, mirror and visible-normal samplers, structured light and the
-Gaussian-pyramid projection of transients are not ported yet.
+projection of transients ``dtof_to_itof``; the samplers over a known
+environment map (``EnvironmentSampler`` from its pmf,
+``QuadratureEnvmapSampler`` on a fixed texel grid) and the env map's
+radiance along rays (``get_environment_color``); the probe's sphere of
+directions (``get_sphere_directions``). Identity, mirror and visible-normal
+samplers, structured light and the Gaussian-pyramid projection of
+transients are not ported yet.
 
 Every random number comes from ``utils/torchutil`` (``uniform``, ``normal``,
 ``categorical``), in the order the JAX package draws its keys.
@@ -58,6 +62,27 @@ def global_to_local(directions, rot):
 def local_to_global(directions, rot):
     return (directions[..., 0:1] * rot[..., 0] + directions[..., 1:2] * rot[..., 1]
             + directions[..., 2:3] * rot[..., 2])
+
+
+def get_sphere_directions(height, width, flip=False, device="cpu"):
+    """Equirectangular directions of the trainer's probe (float32 tensors):
+    (theta [H*W], phi [H*W], xyz [H*W, 3], the pixel's dtheta * dphi). The
+    azimuth phi runs from pi to -pi over the columns, the polar angle theta
+    over the rows, both at pixel centres; `flip` puts the pole on -x
+    instead of +z."""
+    phi = (torch.linspace(np.pi, -np.pi, width + 1, device=device)[:-1]
+           - 2.0 * np.pi / (2.0 * width))
+    theta = torch.linspace(0.0, np.pi, height + 1, device=device)[:-1] + np.pi / (2.0 * height)
+    theta, phi = torch.meshgrid(theta, phi, indexing="ij")
+    theta, phi = theta.flatten(), phi.flatten()
+    dtheta_dphi = (2.0 * np.pi / width) * (np.pi / height)
+    if flip:
+        xyz = torch.stack([-torch.cos(theta), torch.sin(theta) * torch.cos(phi),
+                           torch.sin(theta) * torch.sin(phi)], dim=-1)
+    else:
+        xyz = torch.stack([torch.sin(theta) * torch.cos(phi), torch.sin(theta) * torch.sin(phi),
+                           torch.cos(theta)], dim=-1)
+    return theta, phi, xyz, dtheta_dphi
 
 
 # --- 2D sample generator -----------------------------------------------------
@@ -274,8 +299,142 @@ class LightSampler:
         return self._mixture_pdf(wi, *self._vars(kwargs))
 
 
+def _take_along(arr, idx, axis):
+    """jnp.take_along_axis: `idx` gathers `arr` along `axis`, the other
+    axes broadcast between the two (which have one rank, as JAX requires)."""
+    if idx.dim() != arr.dim():
+        raise ValueError(f"indices and arr must have the same number of dimensions; "
+                         f"{idx.dim()} vs. {arr.dim()}")
+    axis = axis % arr.dim()
+    shape = torch.broadcast_shapes(
+        tuple(1 if d == axis else n for d, n in enumerate(arr.shape)),
+        tuple(1 if d == axis else n for d, n in enumerate(idx.shape)))
+    arr_shape = list(shape)
+    arr_shape[axis] = arr.shape[axis]
+    idx_shape = list(shape)
+    idx_shape[axis] = idx.shape[axis]
+    return torch.gather(arr.expand(arr_shape), axis, idx.long().expand(idx_shape))
+
+
+class EnvironmentSampler:
+    """Importance sampler over a known environment map (the tables of
+    ``data/env_maps``: env_map, env_map_pmf, env_map_pdf, env_map_dirs with
+    a texel axis and a light axis): `samples_to_take` texels drawn from the
+    pmf (Gumbel-max over ``torchutil.uniform`` noise [..., S, lights,
+    texels]) and shared in blocks of consecutive rows, or one draw per
+    sample where the count does not divide; each sample's direction, pdf and
+    radiance from its ray's light, world-frame and detached."""
+
+    global_dirs = True
+    return_rgb = True
+    deterministic = False
+
+    def __init__(self, samples_to_take=256):
+        self.samples_to_take = samples_to_take
+
+    def sample_directions(self, rng, u1, u2, wo, alpha, light_idx, kwargs):
+        num_samples = u1.shape[-1]
+        bs = wo.reshape(-1, num_samples, 3).shape[0]
+        pmf = kwargs["env_map_pmf"]
+        pdf_return = kwargs["env_map_pdf"]
+        light_dirs = kwargs["env_map_dirs"]
+        light_rgbs = kwargs["env_map"]
+        if (bs * num_samples) % self.samples_to_take != 0:
+            samples_to_take, reps = bs * num_samples, 1
+        else:
+            samples_to_take = self.samples_to_take
+            reps = bs * num_samples // self.samples_to_take
+
+        # Categorical draws over the texel axis (-2), [..., S, lights].
+        logits = math_utils.safe_log(pmf).transpose(-1, -2)
+        u = torchutil.uniform(rng, pmf.shape[:-2] + (samples_to_take,) + logits.shape[-2:],
+                              pmf.device)
+        idx = torch.argmax(logits.unsqueeze(-3) + -torch.log(-torch.log(u)), dim=-1)
+
+        def take3(v):
+            x = _take_along(v.detach(), idx[..., None], -3)
+            return torch.repeat_interleave(x, reps, dim=0).reshape(u1.shape + (-1, 3))
+
+        dirs, rgbs = take3(light_dirs), take3(light_rgbs)
+        pdf = torch.repeat_interleave(_take_along(pdf_return.detach(), idx, -2), reps,
+                                      dim=0).reshape(u1.shape + (-1,))
+        light_idx = light_idx.reshape(u1.shape[:-1] + (1, 1))
+        dirs = _take_along(dirs, light_idx[..., None], -2)[..., 0, :]
+        pdf = _take_along(pdf, light_idx, -1)[..., 0]
+        rgbs = _take_along(rgbs, light_idx[..., None], -2)[..., 0, :]
+        return dirs, pdf, rgbs
+
+    def pdf(self, wo, wi, alpha, kwargs):
+        # The pdf of the texel whose direction is nearest (the MIS weight).
+        pdf_map = kwargs["env_map_pdf"]
+        dirs = kwargs["env_map_dirs"]
+        sims = torch.einsum("...c,...nc->...n", wi, dirs[..., 0, :, :])
+        idx = torch.argmax(sims, dim=-1)
+        return _take_along(pdf_map[..., 0], idx[..., None], -1)[..., 0]
+
+
+class QuadratureEnvmapSampler:
+    """Deterministic quadrature over a known environment map: n texels
+    evenly strided over the map (the same for every ray), pdf 1 / (2 pi^2
+    sin(theta)), world-frame, with their radiance."""
+
+    global_dirs = True
+    return_rgb = True
+    deterministic = True
+
+    def sample_directions(self, rng, u1, u2, wo, alpha, light_idx, kwargs):
+        dirs = kwargs["env_map_dirs"].detach().reshape(-1, 3)
+        rgbs = kwargs["env_map"].detach().reshape(-1, 3)
+        total, n = dirs.shape[0], u1.shape[-1]
+        idx = torch.round(torch.linspace(0, total - 1, n, device=dirs.device)).long()
+        sub_dirs = torch.broadcast_to(dirs[idx], u1.shape + (3,))
+        sub_rgbs = torch.broadcast_to(rgbs[idx], u1.shape + (3,))
+        sintheta = torch.sqrt(torch.clamp(1.0 - sub_dirs[..., 2] ** 2, min=1e-12))
+        pdf = 1.0 / (2.0 * pymath.pi**2 * sintheta)
+        return sub_dirs, torch.clamp(pdf, min=0.0), sub_rgbs
+
+    def pdf(self, wo, wi, alpha, kwargs):
+        sintheta = torch.sqrt(torch.clamp(1.0 - wi[..., 2] ** 2, min=1e-12))
+        return 1.0 / (2.0 * pymath.pi**2 * sintheta)
+
+
+def _bilerp_2d(img, yx):
+    """Bilinear lookup of [H, W, C] at float [N, 2] (y, x), edges clamped."""
+    h, w = img.shape[0], img.shape[1]
+    y = torch.clamp(yx[..., 0], 0.0, h - 1.0)
+    x = torch.clamp(yx[..., 1], 0.0, w - 1.0)
+    y0 = torch.floor(y).long()
+    x0 = torch.floor(x).long()
+    y1 = torch.clamp(y0 + 1, max=h - 1)
+    x1 = torch.clamp(x0 + 1, max=w - 1)
+    wy = (y - y0)[..., None]
+    wx = (x - x0)[..., None]
+    return (img[y0, x0] * (1 - wy) * (1 - wx) + img[y0, x1] * (1 - wy) * wx
+            + img[y1, x0] * wy * (1 - wx) + img[y1, x1] * wy * wx)
+
+
+def get_environment_color(ref_rays, env_map, env_map_w, env_map_h):
+    """The env map's radiance along each ray's view direction (equirect,
+    bilinear, y up), from the ray's light's map."""
+    x = ref_rays.viewdirs[..., 0:1]
+    y = ref_rays.viewdirs[..., 1:2]
+    z = ref_rays.viewdirs[..., 2:3]
+    x, y, z = x, z, -y
+    sin_theta = torch.sqrt(x * x + y * y + 1e-8)
+    phi = torch.atan2(y / (sin_theta + 1e-8), x / (sin_theta + 1e-8))
+    theta = torch.atan2(sin_theta, z)
+    phi = ((-phi + pymath.pi) / (2 * pymath.pi)) * env_map_w
+    theta = (theta / pymath.pi) * env_map_h
+    locations = torch.cat([theta, phi], dim=-1).reshape(-1, 2)
+    img = env_map.reshape(env_map_h, env_map_w, -1)
+    values = _bilerp_2d(img, locations).reshape(ref_rays.origins.shape[:-1] + (-1, 3))
+    return _take_along(values, ref_rays.light_idx[..., None], -2)[..., 0, :]
+
+
 IMPORTANCE_SAMPLER_BY_NAME = {
     "active": ActiveSampler,
+    "environment": EnvironmentSampler,
+    "quadrature": QuadratureEnvmapSampler,
     "light": LightSampler,
     "microfacet": MicrofacetSampler,
     "cosine": CosineSampler,
@@ -436,7 +595,7 @@ def get_secondary_rays(rng, rays, means, viewdirs, normals, material, normal_eps
     ref_origins = ref_origins[..., None, :].expand(ref_origins.shape[:-1] + (n_sec, 3))
     global_viewdirs = -viewdirs[..., None, :] * torch.ones_like(means)
     material = {k: v.reshape(-1, v.shape[-1]) for k, v in material.items()}
-    if light_sampler_results is not None:
+    if light_sampler_results is not None and "env_map" not in light_sampler_results:
         light_sampler_results = {k: v.reshape((-1,) + v.shape[-2:])
                                  for k, v in light_sampler_results.items()}
     ref_samples = importance_sample_rays(

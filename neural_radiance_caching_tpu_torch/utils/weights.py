@@ -25,7 +25,8 @@ state_dict key, rebuilt from the key's components and their context (the
 ``Cache`` is ``Shader``; a ``grid`` is named by the module that owns it).
 The optimizer's per-module schedules and the checkpoint prefixes match on
 these paths. ``jax_tree_from_state_dict`` builds the JAX parameter tree of a
-state_dict (the bridge's other direction).
+state_dict (the bridge's other direction). ``lpips_params_to_torch`` moves
+the LPIPS network's HWIO numpy parameters to a device as OIHW tensors.
 """
 
 from __future__ import annotations
@@ -175,3 +176,17 @@ def state_dict_from_jax(variables, module):
     if missing:
         raise KeyError(f"state_dict keys not filled from the JAX tree: {missing}")
     return out
+
+
+def lpips_params_to_torch(params, device="cpu"):
+    """LPIPS params as ``ops/lpips`` holds them on the host (HWIO kernels
+    [3, 3, cin, cout], biases and linear heads as numpy arrays, the JAX
+    package's layout) as float32 tensors on `device`: OIHW kernels
+    [cout, cin, 3, 3], ``calibrated`` kept."""
+    def tensor(a):
+        return torch.as_tensor(np.ascontiguousarray(np.asarray(a, np.float32)), device=device)
+
+    convs = [(tensor(np.transpose(np.asarray(w), (3, 2, 0, 1))), tensor(b))
+             for w, b in params["convs"]]
+    return {"convs": convs, "lins": [tensor(lin) for lin in params["lins"]],
+            "calibrated": bool(params.get("calibrated", False))}

@@ -57,6 +57,9 @@ from neural_radiance_caching_tpu_torch.ops import image as timage
 from neural_radiance_caching_tpu_torch.ops import scatter_cuda
 from neural_radiance_caching_tpu_torch.parallel import train as ttrain
 from neural_radiance_caching_tpu_torch.utils import torchutil, weights
+from test_torch_material_slice import jax_encoder_switch_restored  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.usefixtures("jax_encoder_switch_restored")
 
 RES = 8  # 64 rays: two chunks of 32
 CHUNK = 32

@@ -1,13 +1,16 @@
 """The port's eval metrics against the JAX package's: ``ops/image``
 (``mse_to_psnr``, ``psnr``, ``ssim`` with and without ``return_map``,
-``MetricHarness(disable_lpips=True)``) and
+``MetricHarness`` without and with LPIPS) and
 ``engine/trainer.compute_eval_metrics`` against
-``Trainer._compute_eval_metrics``, called unbound on a stub that carries
-what the method reads from the trainer.
+``Trainer._compute_eval_metrics`` (the shift-invariant PSNR among them),
+called unbound on a stub that carries what the method reads from the
+trainer.
 
 Inputs are made from a seed with numpy. Tolerances: float32 math in both,
 the SSIM blur's sums in another order (a depthwise convolution against
-JAX's ``convolve``), so values agree to rtol 1e-5 with an atol of 1e-6;
+JAX's ``convolve``), so values agree to rtol 1e-5 with an atol of 1e-6,
+LPIPS and its avg_err to rtol 1e-4 (float32 convolutions in another
+order);
 the metrics computed in float64 numpy by both functions (normal MAE, depth
 L1, albedo PSNR, transient IoU) to rtol 1e-6.
 """
@@ -22,6 +25,7 @@ import torch
 from neural_radiance_caching_tpu.engine import configs as jconfigs
 from neural_radiance_caching_tpu.engine.trainer import Trainer as JTrainer
 from neural_radiance_caching_tpu.ops import image as jimage
+from neural_radiance_caching_tpu.ops import lpips as jlpips
 from neural_radiance_caching_tpu.utils import pytrees as jpytrees
 from neural_radiance_caching_tpu_torch.engine import configs as tconfigs
 from neural_radiance_caching_tpu_torch.engine import trainer as ttrainer
@@ -29,6 +33,7 @@ from neural_radiance_caching_tpu_torch.ops import image as timage
 from neural_radiance_caching_tpu_torch.utils import pytrees as tpytrees
 
 TOL = dict(rtol=1e-5, atol=1e-6)
+LPIPS_TOL = dict(rtol=1e-4, atol=1e-7)
 
 
 def _images(seed, shape):
@@ -57,7 +62,14 @@ def test_psnr_and_ssim_match_jax(shape):
                                float(jimage.ssim(2 * a, 2 * b, **kw)), **TOL)
 
 
-def test_metric_harness_matches_jax_and_lpips_raises():
+def test_metric_harness_matches_jax_and_lpips_raises(monkeypatch, tmp_path):
+    """Without LPIPS, psnr and ssim; with it (the uncalibrated fallback: no
+    weights file where either package looks) lpips, lpips_calibrated and
+    avg_err too, JAX's values; the port's LPIPS runs on the device it is
+    given and raises for a card that is not there."""
+    monkeypatch.setenv("HOME", str(tmp_path))
+    monkeypatch.setenv("NRC_LPIPS_WEIGHTS", "")
+    monkeypatch.setattr(jlpips, "_DEFAULT_PATHS", ("", str(tmp_path / "none.npz")))
     a, b = _images(3, (20, 24, 3))
     want = jimage.MetricHarness(disable_lpips=True)(a, b, name_fn=lambda s: "test_" + s)
     got = timage.MetricHarness(disable_lpips=True)(a, b, name_fn=lambda s: "test_" + s)
@@ -67,17 +79,40 @@ def test_metric_harness_matches_jax_and_lpips_raises():
     # float64 host images compute in float32, as in JAX.
     got64 = timage.MetricHarness(disable_lpips=True)(a.astype(np.float64), b.astype(np.float64))
     np.testing.assert_allclose(got64["psnr"], want["test_psnr"], **TOL)
-    with pytest.raises(NotImplementedError, match="LPIPS"):
-        timage.MetricHarness()
+    a, b = _images(4, (40, 48, 3))
+    want = jimage.MetricHarness()(a, b)
+    got = timage.MetricHarness(device="cpu")(a, b)
+    assert sorted(got) == sorted(want) == ["avg_err", "lpips", "lpips_calibrated", "psnr", "ssim"]
+    assert got["lpips_calibrated"] == want["lpips_calibrated"] == 0.0
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], err_msg=k, **LPIPS_TOL)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="LPIPS"):
+            timage.MetricHarness()
 
 
-def test_shift_invariant_metrics_raise():
-    # The Config builds (the trainer builds one for every stage); the code
-    # that reads the field raises.
-    cfg = tconfigs.Config(use_shift_invariance=True)
-    batch = tpytrees.Batch(rays=None, rgb=torch.zeros(4, 3))
-    with pytest.raises(NotImplementedError, match="shift-invariant"):
-        ttrainer.compute_eval_metrics({}, batch, 2, 2, cfg, None, lambda x: x)
+@pytest.mark.parametrize("radius", [1, 3])
+def test_shift_invariant_metrics_raise(radius):
+    """Under use_shift_invariance the port's eval metrics add JAX's
+    psnr_shift_invariant (the best-shift MSE over a window of the config's
+    radius, pooled over 5x5), on a rendering shifted by one pixel."""
+    rng = np.random.RandomState(radius)
+    gt = rng.uniform(0, 1, (H * W, 3)).astype(np.float32)
+    rendering = {"rgb": np.roll(gt.reshape(H, W, 3), 1, axis=1)}
+    cfg = dict(use_shift_invariance=True, shift_invariant_start=-radius,
+               shift_invariant_end=radius)
+    stub = types.SimpleNamespace(
+        config=jconfigs.Config(**cfg), metric_harness=jimage.MetricHarness(disable_lpips=True),
+        postprocess_fn=_postprocess, albedo_ratio=None, albedo_clip=1.0)
+    want = JTrainer._compute_eval_metrics(
+        stub, rendering, jpytrees.Batch(rays=jpytrees.dummy_rays(4), rgb=gt), H, W)
+    got = ttrainer.compute_eval_metrics(
+        rendering, tpytrees.Batch(rays=None, rgb=torch.as_tensor(gt)), H, W,
+        tconfigs.Config(**cfg), timage.MetricHarness(disable_lpips=True), _postprocess)
+    assert sorted(got) == sorted(want) == ["psnr", "psnr_shift_invariant", "ssim"]
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], err_msg=k, **TOL)
+    assert got["psnr_shift_invariant"] > got["psnr"] + 5
 
 
 H, W, T = 10, 12, 6

@@ -69,6 +69,18 @@ SEC = dict(rtol=1e-3, atol=1e-4)
 UNIT = dict(rtol=1e-5, atol=1e-6)
 
 
+@pytest.fixture(scope="module")
+def jax_encoder_switch_restored():
+    """The JAX package's encoder switch as the module found it, once the
+    module is done: JAX's mesh on the CPU (`parallel/mesh.create_mesh`,
+    which a JAX trainer or render function builds) turns the switch to the
+    XLA encoder for the whole process, and a JAX test later in the same
+    worker reads it (`tests/test_hashgrid.py::test_pallas_fault_shape_guard`)."""
+    saved = jhash._FORCE_XLA_ENCODER
+    yield
+    jhash._FORCE_XLA_ENCODER = saved
+
+
 # --- shared random numbers ------------------------------------------------------
 
 

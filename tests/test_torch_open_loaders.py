@@ -364,14 +364,18 @@ def test_light_index_reaches_the_pixels(scenes):
 
 
 def test_loader_refusals(scenes, tmp_path):
-    """What needs the HDR reader raises by name (OpenIllumination's other
-    illuminations and the relighting env maps), and so does a NeILF++ view
-    in TIFF."""
-    for kw, match in ((dict(multi_illumination=True), "multi_illumination"),
-                      (dict(compute_relight_metrics=True), "compute_relight_metrics")):
-        config = TConfig(dataset_loader="open_illum", batch_size=8, **kw)
-        with pytest.raises(NotImplementedError, match=match):
-            tdatasets.load_dataset("train", scenes["open_illum"], config, device="cpu")
+    """OpenIllumination's other illuminations raise by name, and so does a
+    NeILF++ view in TIFF. The relighting env maps are read
+    (`test_torch_relight_inputs.py`): on an object without the relit
+    illumination's views both packages fail alike."""
+    config = TConfig(dataset_loader="open_illum", batch_size=8, multi_illumination=True)
+    with pytest.raises(NotImplementedError, match="multi_illumination"):
+        tdatasets.load_dataset("train", scenes["open_illum"], config, device="cpu")
+    kw = dict(dataset_loader="open_illum", batch_size=8, compute_relight_metrics=True)
+    with pytest.raises(FileNotFoundError, match="Lights/sunset"):
+        jdatasets.load_dataset("train", scenes["open_illum"], JConfig(**kw))
+    with pytest.raises(FileNotFoundError, match="Lights/sunset"):
+        tdatasets.load_dataset("train", scenes["open_illum"], TConfig(**kw), device="cpu")
     root = write_neilf(str(tmp_path))
     os.remove(os.path.join(root, "images", "img_007.jpg"))
     Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(os.path.join(root, "images",

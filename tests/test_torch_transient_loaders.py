@@ -80,6 +80,9 @@ from neural_radiance_caching_tpu_torch.utils import checkpoints as tckpt
 from neural_radiance_caching_tpu_torch.utils import pytrees as tpytrees
 from neural_radiance_caching_tpu_torch.utils import vis as tvis
 from neural_radiance_caching_tpu_torch.utils import weights
+from test_torch_material_slice import jax_encoder_switch_restored  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.usefixtures("jax_encoder_switch_restored")
 
 # Stored frames; the test split's 16^2 takes every 4th row and column. A
 # whole frame is one eval chunk of the trainer's (4096 rays): JAX pads a

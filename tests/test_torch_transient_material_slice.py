@@ -54,6 +54,9 @@ from neural_radiance_caching_tpu_torch.parallel import extra_losses as textra
 from neural_radiance_caching_tpu_torch.parallel import train as ttrain
 from neural_radiance_caching_tpu_torch.utils import pytrees as tpytrees
 from neural_radiance_caching_tpu_torch.utils import weights
+from test_torch_material_slice import jax_encoder_switch_restored  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.usefixtures("jax_encoder_switch_restored")
 
 TRAIN_FRAC = 0.5
 BATCH = 16
