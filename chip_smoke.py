@@ -323,6 +323,21 @@ Phases, one line each (any failure exits nonzero):
      point (5 steps, held to hold CUDA kernels, the table-gradient kernels'
      launches and the steps' labels); the environment and quadrature
      samplers over an EXR env map on the card against the CPU.
+ 40. data parallel: two gloo ranks (parallel/mesh.spawn) share the card,
+     each with its half of the flagship cache step's 8192 rays and of the
+     material step's 1536, against one process on the global batch: the
+     losses and every all-reduced gradient leaf in relative L2, the limit
+     bracketed by the one-process noise floor (origins +1 ulp, on the
+     card) and a planted fault (rank 1 keeping its own gradient); the
+     parameters bitwise equal across ranks; each rank's scatters of one
+     step held against their plain versions on its own route (the
+     material step's secondary samples take the leveled kernel on a rank:
+     1 and 3 leveled launches per step, no planes); 2 warmup + 3 timed
+     steps: step ms, rays/s, the all-reduce's ms (CUDA events) and bytes,
+     peak GiB per rank, beside the one process's; then torchrun
+     --standalone --nproc_per_node 1 on train_with_trainer (a one-rank NCCL
+     world) for 4 steps of the full-width ngp_yobo.gin cache stage with its
+     checkpoint.
 Every evaluation through the trainer (phases 20-38) scores LPIPS on the
 card beside PSNR and SSIM, and phase 34's hotdog material stage renders
 the secondary-ray probe (256 x 512) at its evaluation.
@@ -1843,7 +1858,7 @@ def _first_chunk(torch, render_fn, rays, chunk, device):
     ms, median of 3 by CUDA events)."""
     from neural_radiance_caching_tpu_torch.engine import renderer
 
-    first = renderer._chunk_rays(rays, 0, chunk)
+    first = renderer._chunk_rays(rays, slice(0, chunk))
 
     def run():
         return render_fn(torch.Generator(device=device).manual_seed(11), 1.0, first)
@@ -5740,6 +5755,349 @@ def phase_eval_extras(torch, device, seed, smi, tmp):
             "samplers": _eval_samplers(torch, device, seed, tmp)}
 
 
+# Phase 40: data-parallel training (parallel/mesh.py). Two gloo ranks share
+# the one card, each with half of the flagship cache step's 8192 rays and
+# half of the material step's 1536, each on its own kernel route: a rank's
+# 768 x 32 x 32 = 786,432 secondary samples fall under PLANES_MIN_POINTS
+# (2^20), so the material step takes 3 leveled scatters per rank where one
+# process takes 2 leveled + 1 planes. Then a one-rank NCCL world through
+# torchrun and the entry point.
+DP_WORLD = 2
+DP_WARMUP = 2
+DP_STEPS = 3
+DP_STAGES = ("cache", "material")
+DP_LAUNCHES_PER_STEP = {"cache": {"leveled": 1}, "material": {"leveled": 3}}
+DP_LOSS_TOL = {"cache": 1e-4, "material": 1e-3}
+# The all-reduced gradient leaves against one process's, in relative L2.
+# Both steps run on the card at full width, so the bracket is read there:
+# the noise floor is one process against itself with the ray origins one
+# ulp up (9.2e-2 on the cache, 1.4e-1 on the material, H100 80GB HBM3,
+# 700 W), the planted fault (rank 1 keeping its own gradient) reads ~1.
+# Each run also holds the ranks under that run's floor: the sharded step
+# moves the gradient less than a one-ulp change of the rays does (bf16
+# GEMMs of half the rows round differently; the sums over rays are
+# reassociated).
+DP_GRAD_TOL = {"cache": 0.2, "material": 0.2}
+DP_TIMEOUT_S = 600.0
+DP_TRAINER_STEPS = 4
+
+
+def _dp_model(torch, stage, device, seed):
+    """(config, model, train state, train step) of the full-width flagship
+    `stage` on `device`, initialised from `seed`."""
+    from neural_radiance_caching_tpu_torch import flagship
+    from neural_radiance_caching_tpu_torch.parallel import train
+
+    if stage == "cache":
+        config, build = flagship.cache_config(), flagship.build_flagship_cache_model
+    else:
+        config, build = flagship.material_config(), flagship.build_flagship_material_model
+    torch.manual_seed(seed)
+    model = build(config, device=device)
+    state, _ = train.create_optimizer(config, model)
+    return config, model, state, train.create_train_step(model, config)
+
+
+def _dp_batches(stage, n):
+    """`n` global batches of `stage` on the host (SyntheticSpheres, 8 views
+    at 128^2)."""
+    from neural_radiance_caching_tpu_torch import flagship
+    from neural_radiance_caching_tpu_torch.data import datasets
+
+    config = flagship.cache_config() if stage == "cache" else flagship.material_config()
+    data = datasets.SyntheticSpheres("train", None, config, num_images=8, resolution=128,
+                                     device="cpu")
+    return [data.next_train() for _ in range(n)]
+
+
+def _dp_rng(torch, device, seed):
+    return torch.Generator(device=device).manual_seed(seed + 44)
+
+
+def _dp_losses(torch, stats):
+    """The step's loss and loss terms, averaged over the ranks."""
+    from neural_radiance_caching_tpu_torch.parallel import mesh as mesh_lib
+
+    names, device = sorted(stats["losses"]), stats["loss"].device
+    values = torch.stack([stats["loss"].detach().float().reshape(())] + [
+        torch.as_tensor(stats["losses"][k], device=device).detach().float().reshape(())
+        for k in names])
+    return dict(zip(["loss"] + names, mesh_lib.allreduce_mean(values).tolist()))
+
+
+def _dp_hashes(model):
+    """A SHA-256 of each parameter's and buffer's bytes."""
+    import hashlib
+
+    import torch
+
+    return {k: hashlib.sha256(v.detach().reshape(-1).contiguous().cpu().view(torch.uint8)
+                              .numpy().tobytes()).hexdigest()
+            for k, v in model.state_dict().items()}
+
+
+def _dp_keeping_own_gradient(allreduce):
+    """The planted fault: rank 1 takes part in the all-reduce but keeps its
+    own gradient."""
+    from neural_radiance_caching_tpu_torch.parallel import mesh as mesh_lib
+
+    def faulty(params):
+        own = [p.grad.clone() for p in params]
+        allreduce(params)
+        if mesh_lib.process_index() == 1:
+            for p, g in zip(params, own):
+                p.grad.copy_(g)
+
+    return faulty
+
+
+def _dp_rank(mesh, batches, seed, steps, warmup):
+    """One rank of phase 40 (run by parallel/mesh.spawn): for each stage, one
+    step with the planted fault, then one step with every scatter held
+    against its plain version, then `warmup` + `steps` timed steps with the
+    all-reduce timed by CUDA events and the launches counted."""
+    import statistics
+
+    import torch
+
+    from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+    from neural_radiance_caching_tpu_torch.parallel import mesh as mesh_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    scatter_cuda.load_library()
+    device, out = mesh.device, {}
+    for stage in DP_STAGES:
+        shards = [mesh_lib.shard_batch(b).to(device) for b in batches[stage]]
+        _, model, state, step = _dp_model(torch, stage, device, seed)
+        mesh_lib.replicate(model, state.optimizer)
+        with _patched(mesh_lib, allreduce_gradients=_dp_keeping_own_gradient(
+                mesh_lib.allreduce_gradients)):
+            state, _ = step(_dp_rng(torch, device, seed), state, shards[0], 0.5)
+        fault = ({k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+                 if mesh.rank == 1 else None)
+        fault_hashes = _dp_hashes(model)
+        del model, state, step
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+        _, model, state, step = _dp_model(torch, stage, device, seed)
+        mesh_lib.replicate(model, state.optimizer)
+        rng = _dp_rng(torch, device, seed)
+        calls = []
+        with _patched(scatter_cuda,
+                      scatter_add_weighted_leveled=_checking_scatter("leveled", calls),
+                      scatter_add_weighted_planes=_checking_scatter("planes", calls)):
+            state, stats = step(rng, state, shards[0], 0.5)
+        losses = _dp_losses(torch, stats)
+        grads = ({k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+                 if mesh.rank == 0 else None)
+
+        events, real = [], mesh_lib.allreduce_gradients
+
+        def timed(params):
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            real(params)
+            end.record()
+            events.append((start, end))
+
+        step_losses = []
+        with _patched(mesh_lib, allreduce_gradients=timed):
+            scatter_cuda.reset_launch_count()
+            for i in range(warmup + steps):
+                if i == warmup:
+                    torch.cuda.synchronize()
+                    mesh_lib.barrier()
+                    t0 = time.perf_counter()
+                state, stats = step(rng, state, shards[(1 + i) % len(shards)], 0.5)
+                step_losses.append(stats["loss"])
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / steps
+            launches = dict(scatter_cuda.launches)
+        out[stage] = dict(
+            losses=losses, grads=grads, fault=fault, fault_hashes=fault_hashes, calls=calls,
+            hashes=_dp_hashes(model), step_ms=dt * 1e3, rows=int(shards[0].rgb.shape[0]),
+            allreduce_ms=statistics.median(s.elapsed_time(e) for s, e in events[warmup:]),
+            allreduce_bytes=sum(p.numel() * p.element_size() for p in model.parameters()),
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches,
+            finite=_finite(float(v) for v in step_losses))
+        del model, state, step, shards
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dp_reference(torch, device, seed, stage, batches, warmup, steps):
+    """One process on the global batch: the first step's losses and
+    gradients, the noise floor (the same step with the ray origins one ulp
+    up), and `warmup` + `steps` timed steps."""
+    from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+
+    def first_step(batch):
+        _, model, state, step = _dp_model(torch, stage, device, seed)
+        _, stats = step(_dp_rng(torch, device, seed), state, batch, 0.5)
+        grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+        return {k: float(torch.as_tensor(v).detach()) for k, v in
+                {"loss": stats["loss"], **stats["losses"]}.items()}, grads
+
+    batch = batches[0].to(device)
+    origins = batch.rays.origins
+    nudged = batch.replace(rays=batch.rays.replace(
+        origins=torch.nextafter(origins, torch.full_like(origins, float("inf")))))
+    losses, grads = first_step(batch)
+    floor, floor_at = _worst_grad_err(first_step(nudged)[1], grads)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, model, state, step = _dp_model(torch, stage, device, seed)
+    rng = _dp_rng(torch, device, seed)
+    on_card = [b.to(device) for b in batches]
+    scatter_cuda.reset_launch_count()
+    for i in range(warmup + steps):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, _ = step(rng, state, on_card[(1 + i) % len(on_card)], 0.5)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    out = dict(losses=losses, grads=grads, floor=floor, floor_at=floor_at, step_ms=dt * 1e3,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=dict(scatter_cuda.launches))
+    del model, state, step, on_card
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dp_trainer_nccl(torch, seed, smi, tmp, steps):
+    """train_with_trainer on the full-width ngp_yobo.gin cache stage under
+    torchrun (one process: a one-rank NCCL world on the card) into `tmp`."""
+    import json
+    import os
+
+    from neural_radiance_caching_tpu_torch.utils import checkpoints
+
+    ckpt = os.path.join(tmp, "dp_nccl_cache")
+    bindings = TRAINER_BINDINGS + TRAINER_CACHE_STAGE + (
+        f"Config.checkpoint_dir = '{ckpt}'", f"Config.early_exit_steps = {steps}",
+        "Config.print_every = 2", f"Config.jax_rng_seed = {20200823 + seed}")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "1", "-m", "neural_radiance_caching_tpu_torch.train_with_trainer",
+           f"--gin_configs={TRAINER_CONFIG}"] + [f"--gin_bindings={b}" for b in bindings]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    group_line = "data-parallel group: 1 rank(s), nccl, rank 0 on cuda:0"
+    log_path = os.path.join(ckpt, "train_log.jsonl")
+    log = ([json.loads(line) for line in open(log_path).read().splitlines()]
+           if os.path.exists(log_path) else [])
+    saved = checkpoints.latest_checkpoint_step(ckpt) if os.path.isdir(ckpt) else None
+    ok = (proc.returncode == 0 and group_line in proc.stdout and saved == steps
+          and [r["step"] for r in log] == [1] + list(range(2, steps + 1, 2))
+          and _finite(r["loss"] for r in log))
+    rays_per_s = log[-1]["rays_per_sec"] if log else float("nan")
+    print(f"data parallel (nccl): torchrun --standalone --nproc_per_node 1 -m "
+          f"neural_radiance_caching_tpu_torch.train_with_trainer {TRAINER_CONFIG} cache stage, "
+          f"{steps} steps: exit {proc.returncode}, group line present={group_line in proc.stdout}"
+          f", checkpoint step {saved}, train_log steps {[r['step'] for r in log]} rays_per_sec "
+          f"{rays_per_s:.0f} on [{smi}], command {wall:.1f}s {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        print(proc.stdout[-4000:], proc.stderr[-8000:], sep="\n", flush=True)
+        raise AssertionError("the one-rank NCCL world through the entry point failed")
+    return dict(exit=proc.returncode, checkpoint_step=saved, steps=steps,
+                rays_per_s=rays_per_s, command_s=wall)
+
+
+def phase_data_parallel(torch, device, seed, smi, tmp):
+    """Phase 40: two gloo ranks sharing the card against one process on the
+    global batch, at full width, for the flagship cache and material steps;
+    then a one-rank NCCL world through torchrun and the entry point."""
+    import os
+
+    from neural_radiance_caching_tpu_torch.parallel import mesh as mesh_lib
+
+    batches = {stage: _dp_batches(stage, 4) for stage in DP_STAGES}
+    reference = {stage: _dp_reference(torch, device, seed, stage, batches[stage], DP_WARMUP,
+                                      DP_STEPS) for stage in DP_STAGES}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = mesh_lib.spawn(
+        "chip_smoke:_dp_rank", DP_WORLD,
+        dict(batches=batches, seed=seed, steps=DP_STEPS, warmup=DP_WARMUP),
+        workdir=os.path.join(tmp, "dp_ranks"), device="cuda:0", backend="gloo",
+        timeout_s=DP_TIMEOUT_S, paths=[os.path.dirname(os.path.abspath(__file__))], threads=4)
+    spawn_s = time.perf_counter() - t0
+    out = {"spawn_s": spawn_s, "world": DP_WORLD, "backend": "gloo", "device": smi}
+    failed = []
+    for stage in DP_STAGES:
+        ref, r0, r1 = reference[stage], ranks[0][stage], ranks[1][stage]
+        global_rows = DP_WORLD * r0["rows"]
+        loss_err = max(abs(r0["losses"][k] - v) / max(abs(v), 1e-12)
+                       for k, v in ref["losses"].items())
+        err, err_at = _worst_grad_err(r0["grads"], ref["grads"])
+        fault, fault_at = _worst_grad_err(r1["fault"], ref["grads"])
+        tol = DP_GRAD_TOL[stage]
+        per_step = DP_LAUNCHES_PER_STEP[stage]
+        calls_ok = all(
+            {k: sum(c["kind"] == k for c in r[stage]["calls"]) for k in ("leveled", "planes")}
+            == {"leveled": per_step["leveled"], "planes": 0}
+            and all(c["ok"] for c in r[stage]["calls"]) for r in ranks)
+        launches_ok = all(r[stage]["launches"] == _launch_counts(
+            leveled=per_step["leveled"] * (DP_WARMUP + DP_STEPS)) for r in ranks)
+        same = r0["hashes"] == r1["hashes"]
+        fault_split = r0["fault_hashes"] != r1["fault_hashes"]
+        ok = (r0["finite"] and r1["finite"] and loss_err <= DP_LOSS_TOL[stage]
+              and ref["floor"] <= tol and err <= min(tol, ref["floor"]) and fault > tol
+              and calls_ok
+              and launches_ok and same and fault_split
+              and sorted(r0["losses"]) == sorted(ref["losses"]))
+        shared_rays = global_rows / (max(r0["step_ms"], r1["step_ms"]) / 1e3)
+        one_rays = global_rows / (ref["step_ms"] / 1e3)
+        print(f"data parallel ({stage}): {DP_WORLD} gloo ranks sharing the card, "
+              f"{r0['rows']} of {global_rows} rays each, against one process on the global "
+              f"batch: loss rel_err={loss_err:.3e} (tol {DP_LOSS_TOL[stage]}), all-reduced "
+              f"grad rel_l2_err max={err:.3e} at {err_at} (tol {tol}, and under the noise "
+              f"floor, one process with origins +1 ulp on the card: {ref['floor']:.3e} at "
+              f"{ref['floor_at']}; "
+              f"planted, rank 1 keeping its own gradient: {fault:.3e} at {fault_at}, must "
+              f"exceed the tol); parameters bitwise equal across ranks after "
+              f"{1 + DP_WARMUP + DP_STEPS} steps={same} (after the fault step: differ="
+              f"{fault_split}); each rank's checked step: "
+              + "; ".join(f"rank {i}: " + ", ".join(
+                  f"{c['kind']} idx{list(c['shape'])} max_abs_err={c['max_abs_err']:.3e} "
+                  f"{'ok' if c['ok'] else 'FAIL'}" for c in r[stage]["calls"])
+                  for i, r in enumerate(ranks))
+              + f"; {DP_WARMUP} warmup + {DP_STEPS} timed steps: step_ms rank 0 "
+              f"{r0['step_ms']:.2f} rank 1 {r1['step_ms']:.2f} (one process "
+              f"{ref['step_ms']:.2f}), rays_per_s {shared_rays:.1f} (one process "
+              f"{one_rays:.1f}); all-reduce {r0['allreduce_bytes']} bytes per step, "
+              f"{r0['allreduce_ms']:.2f} / {r1['allreduce_ms']:.2f} ms (median, CUDA events, "
+              f"gloo through the host); peak GiB rank 0 {r0['peak_gib']:.2f} rank 1 "
+              f"{r1['peak_gib']:.2f} (one process {ref['peak_gib']:.2f}); launches per rank "
+              f"{[r[stage]['launches'] for r in ranks]} (expected {per_step} per step) on "
+              f"[{smi}] {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failed.append(stage)
+        out[stage] = dict(
+            rows_per_rank=r0["rows"], global_rows=global_rows, loss_rel_err=loss_err,
+            grad_rel_l2_err=err, noise_floor=ref["floor"], planted_fault=fault,
+            step_ms=[r0["step_ms"], r1["step_ms"]], one_process_step_ms=ref["step_ms"],
+            rays_per_s=shared_rays, one_process_rays_per_s=one_rays,
+            allreduce_ms=[r0["allreduce_ms"], r1["allreduce_ms"]],
+            allreduce_bytes=r0["allreduce_bytes"], peak_gib=[r0["peak_gib"], r1["peak_gib"]],
+            one_process_peak_gib=ref["peak_gib"],
+            launches=[r[stage]["launches"]["leveled"] for r in ranks],
+            max_abs_err=max(c["max_abs_err"] for r in ranks for c in r[stage]["calls"]))
+    if failed:
+        raise AssertionError(f"data-parallel ranks disagree with one process: {failed}")
+    torch.cuda.empty_cache()
+    out["nccl_trainer"] = _dp_trainer_nccl(torch, seed, smi, tmp, DP_TRAINER_STEPS)
+    return out
+
+
 def _profile(torch, train_step, state, rng, batches, path, steps=3):
     """Device time by kernel over `steps` steps, as a table written to `path`."""
     import pathlib
@@ -5772,9 +6130,9 @@ def main():
                         help="timed transient train steps of each run (direct, dedup)")
     parser.add_argument("--transient-material-steps", type=int, default=10,
                         help="timed transient material train steps of each form (bench, trainer)")
-    parser.add_argument("--trainer-steps", type=int, default=10,
-                        help="timed steps of each of the entry point's stages (ngp_yobo.gin "
-                             "cache and material, the cornell cache stage)")
+    parser.add_argument("--trainer-steps", type=int, default=7,
+                        help="timed steps of each run through the entry point (phases 20-38; "
+                             "7 keeps the whole script near 850 s with phase 40)")
     parser.add_argument("--profile", metavar="FILE",
                         help="also profile train steps and write the op tables to FILE "
                              "(cache), and FILE with .material, .transient, "
@@ -5865,6 +6223,7 @@ def main():
         real_reference = phase_real_disk_reference(torch, device, args.seed, tmp)
         real = phase_real_disk_train(torch, device, args.seed, args.trainer_steps, smi, tmp)
         eval_extras = phase_eval_extras(torch, device, args.seed, smi, tmp)
+        data_parallel = phase_data_parallel(torch, device, args.seed, smi, tmp)
     print(f"phases done in {time.perf_counter() - t_start:.1f}s, build included", flush=True)
 
     csrc = "neural_radiance_caching_tpu_torch/csrc"
@@ -5931,13 +6290,16 @@ def main():
         **{f"trainer_real_disk_{run}": r["launches_by_kernel"]["leveled"]
            for run, r in real_runs.items()}}
     leveled_launches.update(real_leveled)
+    dp_leveled = {f"data_parallel_{stage}_rank{rank}": n for stage in DP_STAGES
+                  for rank, n in enumerate(data_parallel[stage]["launches"])}
+    leveled_launches.update(dp_leveled)
     real_planes = {f"trainer_real_disk_{run}": r["launches_by_kernel"]["planes"]
                    for run, r in real_runs.items()}
     other_paths = {"trainer_transient_train": 0, "trainer_transient_occlusions": 0,
                    **{k: 0 for k in tmat_paths}, **{k: 0 for k in slf_paths},
                    **{k: 0 for k in invprop_paths}, **{k: 0 for k in baseline_leveled},
                    **{k: 0 for k in disk_leveled}, **{k: 0 for k in transient_disk_leveled},
-                   **{k: 0 for k in real_leveled}}
+                   **{k: 0 for k in real_leveled}, **{k: 0 for k in dp_leveled}}
     print(json.dumps({"kernels": [{
         "name": "scatter_add_weighted_leveled",
         "route": "cuda",
@@ -5965,7 +6327,8 @@ def main():
                            *(r["max_abs_err"] for r in transient_disk_runs.values()),
                            *(real_reference[scene]["max_abs_err"] for scene in REAL_SCENES),
                            *(r["max_abs_err_by_kernel"].get("leveled", 0.0)
-                             for r in real_runs.values())),
+                             for r in real_runs.values()),
+                           *(data_parallel[stage]["max_abs_err"] for stage in DP_STAGES)),
         "max_abs_err_by_shape": {"cache": kernel["max_abs_err"],
                                  "material_path": material_err["leveled"],
                                  "transient_path": transient["direct"]["max_abs_err"],
@@ -6003,7 +6366,9 @@ def main():
                                     for scene in REAL_SCENES},
                                  **{f"trainer_real_disk_{run}_path": r["max_abs_err_by_kernel"][
                                      "leveled"] for run, r in real_runs.items()
-                                    if "leveled" in r["max_abs_err_by_kernel"]}},
+                                    if "leveled" in r["max_abs_err_by_kernel"]},
+                                 **{f"data_parallel_{stage}_path": data_parallel[stage][
+                                     "max_abs_err"] for stage in DP_STAGES}},
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
         "library_ms": kernel["library_ms"],
@@ -6117,7 +6482,7 @@ def main():
         "transient_disk_train": transient_disk,
         "transient_disk_reference": transient_disk_reference,
         "real_disk_train": real, "real_disk_reference": real_reference,
-        "device": smi}}), flush=True)
+        "data_parallel": data_parallel, "device": smi}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,9 @@ Rays are cast on the host, or, with ``Config.cast_rays_in_train_step``, a
 batch holds its Pixels and the train step casts them; ``next_train`` moves
 the batch to the dataset's device, the card unless the caller passes
 ``device="cpu"``. With ``Config.use_transient`` the procedural images are
-time-binned transients [N, H, W, n_bins, 3].
+time-binned transients [N, H, W, n_bins, 3]. In a data-parallel group
+(``parallel/mesh.py``) each rank's train split serves ``batch_size //
+world`` rays drawn from numpy seed ``np_rng_seed + rank``.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 from neural_radiance_caching_tpu_torch.data import camera_utils, env_maps, hdf5
 from neural_radiance_caching_tpu_torch.data import io as io_lib
 from neural_radiance_caching_tpu_torch.ops import image as image_ops
+from neural_radiance_caching_tpu_torch.parallel import mesh as mesh_lib
 from neural_radiance_caching_tpu_torch.utils import pytrees, torchutil
 
 
@@ -218,7 +221,13 @@ class Dataset:
         self.data_dir = data_dir
         self.config = config
         self.device = device
-        self._batch_size = config.batch_size
+        # In a data-parallel group each rank serves its block of the global
+        # batch, from numpy seed np_rng_seed + rank (its own rows).
+        world, rank = mesh_lib.process_count(), mesh_lib.process_index()
+        if split == "train" and config.batch_size % world:
+            raise ValueError(f"Config.batch_size {config.batch_size} is not divisible by the "
+                             f"{world} ranks")
+        self._batch_size = config.batch_size // world
         self.near = config.near
         self.far = config.far
         self._flattened = False
@@ -249,7 +258,8 @@ class Dataset:
         self.images_flattened = None
         self.indices_flattened = None
         self.light_idx_flattened = None
-        self._np_rng = np.random.RandomState(config.np_rng_seed + (0 if split == "train" else 1))
+        self._np_rng = np.random.RandomState(
+            config.np_rng_seed + (rank if split == "train" else 1))
         self._load_renderings(config)
         if self.distortion_params is not None:
             raise NotImplementedError(

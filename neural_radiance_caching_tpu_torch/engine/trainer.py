@@ -31,6 +31,18 @@ from one surface point of the view) and saves its vis suite. Under
 profile_num_steps) are traced by torch.profiler (host and, on the card,
 its kernels) into a Chrome trace there. The viewer raises.
 
+Under ``torchrun`` the trainer is one rank of a data-parallel group
+(``parallel/mesh.py``; NCCL on the card, gloo on the CPU, each rank on
+``cuda:LOCAL_RANK``): every rank draws its own ``batch_size // world`` rays
+(numpy seeded ``np_rng_seed + rank``), its train step averages the gradients
+over the ranks, and the step counts, schedules and rays/s are the global
+batch's. Rank 0's parameters and optimizer state are broadcast at setup and
+after every restore or warm start; every rank renders its share of each
+evaluation. Only rank 0 writes: ``config.gin``, checkpoints,
+``train_log.jsonl``, evaluation images and h5 files, results.txt and the
+profile trace; the others wait at a barrier where it writes. A world of one
+with no ``torchrun`` environment trains as one process.
+
 ``render_test_view`` and ``compute_eval_metrics`` are also module-level
 functions that take what they read from the trainer as arguments.
 """
@@ -56,6 +68,7 @@ from neural_radiance_caching_tpu_torch.engine import gin_config as gin
 from neural_radiance_caching_tpu_torch.engine import renderer
 from neural_radiance_caching_tpu_torch.ops import image as image_lib
 from neural_radiance_caching_tpu_torch.ops import render_utils
+from neural_radiance_caching_tpu_torch.parallel import mesh as mesh_lib
 from neural_radiance_caching_tpu_torch.parallel import train as train_lib
 from neural_radiance_caching_tpu_torch.utils import checkpoints as ckpt_lib
 from neural_radiance_caching_tpu_torch.utils import pytrees, torchutil
@@ -293,8 +306,18 @@ class Trainer:
 
     # --- setup ------------------------------------------------------------------
 
+    @property
+    def rank(self):
+        """This process's rank in the data-parallel group (0 without one)."""
+        return mesh_lib.process_index()
+
     def setup(self):
         torchutil.check_device(self.device, "the trainer", "run it on the CPU")
+        mesh = mesh_lib.create_mesh(self.device)
+        self.device = mesh.device
+        if mesh.backend is not None and self.rank == 0:
+            print(f"data-parallel group: {mesh.world_size} rank(s), {mesh.backend}, "
+                  f"rank 0 on {self.device}", flush=True)
         if self.stage_params is None:
             self.stage_params = dict(_DEFAULT_STAGE_PARAMS)
         if self.stage not in self.stage_params:
@@ -609,20 +632,22 @@ class Trainer:
         if self.param_regularizers is not None:
             gin.bind("Config", "param_regularizers", self.param_regularizers)
         self.config = configs_lib.Config()
-        if self.config.checkpoint_dir:
+        if self.config.checkpoint_dir and self.rank == 0:
             os.makedirs(self.config.checkpoint_dir, exist_ok=True)
             with open(os.path.join(self.config.checkpoint_dir, "config.gin"), "w") as f:
                 f.write(gin.operative_config_str())
 
     def _setup_rng(self):
-        """Explicit generators on the device for the train and render draws;
-        the model's initial weights come from torch's default generator, and
-        numpy's global state is seeded as in JAX."""
+        """Explicit generators on the device for the train and render draws,
+        seeded alike on every rank (each rank keeps its block of the global
+        batch's draws); the model's initial weights come from torch's default
+        generator, and numpy's global state is seeded with np_rng_seed +
+        rank, as JAX seeds it with the process index."""
         seed = self.config.jax_rng_seed
         self.rng = torch.Generator(device=self.device).manual_seed(seed)
         self.render_rng = torch.Generator(device=self.device).manual_seed(seed + 1)
         torch.manual_seed(seed)
-        np.random.seed(self.config.np_rng_seed)
+        np.random.seed(self.config.np_rng_seed + self.rank)
 
     def _load_datasets(self):
         config = self.config
@@ -685,6 +710,7 @@ class Trainer:
                     exclude_prefixes=tuple(self.exclude_prefixes),
                     replace_dict={"params/VignetteMap": "params/VignetteMap"},
                     source_material=source["material"])
+        mesh_lib.replicate(self.model, self.state.optimizer)
 
     def _initialize_metrics(self):
         self.albedo_ratio = None
@@ -695,10 +721,15 @@ class Trainer:
     # --- checkpoint/save ----------------------------------------------------------
 
     def save_checkpoint(self, step, blocking=True):
+        """Rank 0 writes the checkpoint; with `blocking`, the other ranks wait
+        until it is on disk."""
         if not self.config.checkpoint_dir:
             return
-        ckpt_lib.save_checkpoint(self.config.checkpoint_dir, self._state_tree(), step,
-                                 blocking=blocking)
+        if self.rank == 0:
+            ckpt_lib.save_checkpoint(self.config.checkpoint_dir, self._state_tree(), step,
+                                     blocking=blocking)
+        if blocking:
+            mesh_lib.barrier()
 
     # --- eval -----------------------------------------------------------------
 
@@ -821,6 +852,8 @@ class Trainer:
         secondary = self.render_secondary_rays(rays, rendering["distance_median"],
                                                rendering[normals_key], select_x, select_y,
                                                train_frac)
+        if self.rank != 0:
+            return secondary
         suite = vis_lib.visualize_transient_suite if self.use_transient else vis_lib.visualize_suite
         vis = suite(secondary, self.config)
         if self.save_dir and self.save_results:
@@ -835,9 +868,16 @@ class Trainer:
         return secondary
 
     def log_test_set_evaluation(self, step, train_frac):
+        """Render one held-out view (every rank its share), score it and save
+        its vis suite (rank 0); returns the metrics (empty on other ranks)."""
         cam_idx = step % self.test_dataset.num_images
         t0 = time.time()
         rendering, batch = self.render_test_view(cam_idx, train_frac)
+        if self.rank != 0:
+            if self.vis_secondary:
+                self._visualize_secondary(step, rendering, batch.rays, train_frac)
+            mesh_lib.barrier()
+            return {}
         height, width = self.test_dataset.height, self.test_dataset.width
         metrics = self._compute_eval_metrics(rendering, batch, height, width)
         for k, v in metrics.items():
@@ -861,6 +901,7 @@ class Trainer:
         print(f"eval step={step} cam={cam_idx} "
               + " ".join(f"{k}={v:.4f}" for k, v in metrics.items())
               + f" ({time.time() - t0:.1f}s)", flush=True)
+        mesh_lib.barrier()
         return metrics
 
     def _save_transient_h5(self, rendering, step):
@@ -900,13 +941,13 @@ class Trainer:
 
     def _fetch_stats(self, stats_buffer):
         """(mean loss over the buffered steps, {loss name: value} of the last
-        one), read with one device-to-host copy."""
+        one), averaged over the ranks, read with one device-to-host copy."""
         names = list(stats_buffer[-1]["losses"])
         device = stats_buffer[-1]["loss"].device
         values = [s["loss"].reshape(()) for s in stats_buffer] + [
             torch.as_tensor(stats_buffer[-1]["losses"][k], device=device).float().mean()
             for k in names]
-        host = torch.stack([v.float() for v in values]).cpu().numpy()
+        host = mesh_lib.allreduce_mean(torch.stack([v.float() for v in values])).cpu().numpy()
         n = len(stats_buffer)
         return float(np.mean(host[:n])), dict(zip(names, host[n:].tolist()))
 
@@ -923,11 +964,11 @@ class Trainer:
         stats_buffer = []
         t_start = time.time()
         log_path = (os.path.join(config.checkpoint_dir, "train_log.jsonl")
-                    if config.checkpoint_dir else None)
+                    if config.checkpoint_dir and self.rank == 0 else None)
         profiler = None
         try:
             for step in range(init_step, num_steps + 1):
-                if config.profile_dir:
+                if config.profile_dir and self.rank == 0:
                     if step == config.profile_start_step and profiler is None:
                         profiler = self._start_profile()
                     elif profiler is not None and step == (config.profile_start_step
@@ -954,8 +995,9 @@ class Trainer:
                     line = {"step": step, "loss": loss, "rays_per_sec": rays_per_sec,
                             "lr": float(self.lr_fn(step))}
                     line.update({f"loss/{k}": v for k, v in last_losses.items()})
-                    print(f"step={step}/{num_steps} loss={loss:.5f} "
-                          f"rays/sec={rays_per_sec:.0f}", flush=True)
+                    if self.rank == 0:
+                        print(f"step={step}/{num_steps} loss={loss:.5f} "
+                              f"rays/sec={rays_per_sec:.0f}", flush=True)
                     if log_path:
                         with open(log_path, "a") as f:
                             f.write(json.dumps(line) + "\n")
@@ -1030,12 +1072,12 @@ class Trainer:
             if self.albedo_gamma:
                 ratio = ratio**2.2
         self.albedo_ratio = ratio.reshape(1, 3)
-        if self.save_dir:
+        if self.save_dir and self.rank == 0:
             np.save(os.path.join(self.save_dir, "albedo_ratio.npy"), self.albedo_ratio)
 
     def _run_visualization_only(self):
         """Render the test set and write the metrics to results.txt."""
-        if self.save_dir:
+        if self.save_dir and self.rank == 0:
             os.makedirs(self.save_dir, exist_ok=True)
         n_views = min(self.test_dataset.num_images, self.vis_end)
         if self.config.compute_albedo_metrics and self.albedo_ratio is None:
@@ -1044,7 +1086,8 @@ class Trainer:
             self.log_test_set_evaluation(idx, 1.0)
         for k, v in self.metric_list.items():
             self.metric_list[k].append(sum(v) / len(v) if v else 0.0)
-        if self.save_dir:
+        if self.save_dir and self.rank == 0:
             with open(os.path.join(self.save_dir, "results.txt"), "w") as f:
                 for key, values in self.metric_list.items():
                     f.write(f"{key}: {values}\n")
+        mesh_lib.barrier()

@@ -1,7 +1,14 @@
 """Optimizer, train step and eval render function (counterpart of
 ``parallel/train.py``).
 
-One process, one device: the step runs eagerly on the model's device. The
+One process, one device: the step runs eagerly on the model's device. In
+a data-parallel group (``parallel/mesh.py``) each rank runs the step on its
+block of the global batch: every random draw is taken at the global batch's
+shape and the rank keeps its block (``utils/torchutil.ray_shard``), and
+every gradient is averaged over the ranks (``mesh.allreduce_gradients``, a
+parameter's missing gradient first made zeros) before ``nan_to_num``, the
+clipping and the norms, so that each of them sees the global gradient, as
+in JAX's step over its mesh. A world of one runs the step as it is. The
 optimizer is ``torch.optim.Adam``, which places eps exactly as the JAX
 package's Adam does. ``Config.extra_opt_params`` gives a module its own
 schedule and Adam settings: one parameter group per entry, holding the
@@ -26,6 +33,7 @@ recompute their activations in the backward (``models/geometry.py``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any, Callable, Dict, List
@@ -36,7 +44,8 @@ from neural_radiance_caching_tpu_torch.data import camera_utils
 from neural_radiance_caching_tpu_torch.ops import math
 from neural_radiance_caching_tpu_torch.parallel import extra_losses as extra_losses_lib
 from neural_radiance_caching_tpu_torch.parallel import losses as losses_lib
-from neural_radiance_caching_tpu_torch.utils import pytrees, weights
+from neural_radiance_caching_tpu_torch.parallel import mesh as mesh_lib
+from neural_radiance_caching_tpu_torch.utils import pytrees, torchutil, weights
 
 
 @dataclasses.dataclass
@@ -265,7 +274,9 @@ def create_train_step(model, config, dataset=None):
     deterministic sampler). `batch` must already be on that device; a batch
     of Pixels (``Config.cast_rays_in_train_step``) is cast against
     `dataset`'s cameras, drawing its jitter first. Stats are device tensors;
-    nothing in the step waits for the device.
+    nothing in the step waits for the device. In a group of N ranks, `batch`
+    is this rank's block of the global batch (``mesh.shard_batch``) and
+    `rng` is seeded alike on every rank; the stats are the rank's own.
     """
     _check_config(config)
     material = is_material_model(model)
@@ -297,8 +308,15 @@ def create_train_step(model, config, dataset=None):
 
     def train_step(rng, state, batch, train_frac):
         state.optimizer.zero_grad(set_to_none=True)
-        loss, stats = loss_fn(rng, batch, train_frac)
-        loss.backward()
+        world = mesh_lib.process_count()
+        shard = contextlib.nullcontext()
+        if world > 1:
+            rows = mesh_lib.leading_rows(batch)
+            start = mesh_lib.process_index() * rows
+            shard = torchutil.ray_shard(rows * world, torch.arange(start, start + rows))
+        with shard:  # the backward too: checkpointed passes draw again there
+            loss, stats = loss_fn(rng, batch, train_frac)
+            loss.backward()
         params = [p for g in state.optimizer.param_groups for p in g["params"]]
         with torch.no_grad():
             for p in params:
@@ -306,6 +324,8 @@ def create_train_step(model, config, dataset=None):
                 # zero gradients rather than being skipped.
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+            mesh_lib.allreduce_gradients(params)
+            for p in params:
                 p.grad.nan_to_num_()
             losses_lib.clip_gradients(state.model, config)
             stats["grad_norm"] = losses_lib.tree_norm([p.grad for p in params])

@@ -10,6 +10,11 @@ Usage:
 
 The trainer runs on the card; ``--device cpu`` runs it on the CPU. Without
 a card and without ``--device cpu`` it raises: there is no fallback.
+
+Data-parallel over N GPUs (NCCL; with ``--device cpu``, N gloo ranks on the
+CPU), the same arguments under ``torchrun``:
+    torchrun --standalone --nproc_per_node N \
+        -m neural_radiance_caching_tpu_torch.train_with_trainer ...
 """
 
 from __future__ import annotations
@@ -45,4 +50,9 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    from neural_radiance_caching_tpu_torch.parallel import mesh
+
+    try:
+        main()
+    finally:
+        mesh.destroy()

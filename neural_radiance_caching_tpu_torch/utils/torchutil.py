@@ -11,9 +11,19 @@ Every random number of the models is drawn by ``uniform``, ``normal`` or
 to the device asked for, so a CPU generator gives a CUDA run the same
 numbers as a CPU run, and a test can feed both packages the same numbers by
 replacing these three functions.
+
+Under ``ray_shard`` (a data-parallel train step or eval chunk, one rank's
+block of a global ray batch) a draw whose leading axis is the rank's rays,
+or ray-major multiples of them, is drawn at the global batch's shape and the
+rank keeps its block (``shard_draw``): every rank draws what one process
+draws on the global batch, as JAX's one program over the mesh does. A draw
+with no such axis is the same on every rank.
 """
 
 from __future__ import annotations
+
+import contextlib
+import dataclasses
 
 import torch
 
@@ -37,16 +47,62 @@ def _need(rng, what):
         raise ValueError(f"{what} needs a torch.Generator (got None)")
 
 
+@dataclasses.dataclass(frozen=True)
+class RayShard:
+    """One rank's rays of a global batch of `global_rows`: `index` [rows]
+    holds each local ray's row in the global batch."""
+
+    global_rows: int
+    index: torch.Tensor
+
+    @property
+    def rows(self):
+        return self.index.shape[0]
+
+
+_RAY_SHARD = None
+
+
+@contextlib.contextmanager
+def ray_shard(global_rows, index):
+    """Draws in the block take this rank's rows (`index`, a 1-D integer
+    tensor into the global batch of `global_rows` rays) of the global
+    batch's draws. A scope, as ``torch.no_grad`` is, rather than state on
+    the generator: the draws are made deep in the models, some from
+    generators of their own (the light sampler's fixed jitter)."""
+    global _RAY_SHARD
+    saved, _RAY_SHARD = _RAY_SHARD, RayShard(int(global_rows), torch.as_tensor(index).long())
+    try:
+        yield
+    finally:
+        _RAY_SHARD = saved
+
+
+def shard_draw(draw, shape):
+    """draw(shape), or, under ``ray_shard``, this rank's block of
+    draw(global shape) when the leading axis holds the rank's rays (k rays'
+    worth per ray, ray-major: rows [r * k, (r + 1) * k) belong to ray r)."""
+    shape, shard = tuple(shape), _RAY_SHARD
+    if shard is None or not shape or shape[0] == 0 or shape[0] % shard.rows:
+        return draw(shape)
+    k = shape[0] // shard.rows
+    x = draw((shard.global_rows * k,) + shape[1:])
+    x = x.reshape((shard.global_rows, k) + shape[1:])
+    return x.index_select(0, shard.index.to(x.device)).reshape(shape)
+
+
 def uniform(rng, shape, device, dtype=torch.float32):
     """U[0, 1) of `shape` on `device`, drawn from generator `rng`."""
     _need(rng, "uniform")
-    return torch.rand(tuple(shape), generator=rng, device=rng.device, dtype=dtype).to(device)
+    return shard_draw(lambda s: torch.rand(s, generator=rng, device=rng.device, dtype=dtype),
+                      shape).to(device)
 
 
 def normal(rng, shape, device, dtype=torch.float32):
     """N(0, 1) of `shape` on `device`, drawn from generator `rng`."""
     _need(rng, "normal")
-    return torch.randn(tuple(shape), generator=rng, device=rng.device, dtype=dtype).to(device)
+    return shard_draw(lambda s: torch.randn(s, generator=rng, device=rng.device, dtype=dtype),
+                      shape).to(device)
 
 
 def categorical(rng, logits, num=None):
