@@ -247,8 +247,8 @@ Phases, one line each (any failure exits nonzero):
      31 (0, 2 and 1 leveled launches; the hotdog's step launches none, so
      no fault is planted there);
  34. disk train: the three scenes at their captures' sizes, their view
-     counts cut (hotdog 40 train views of 800^2 RGBA, the teapot 32 train
-     views of 2048^2 EXR read at factor 4, the bell 32 views of 800^2 with
+     counts cut (hotdog 30 train views of 800^2 RGBA, the teapot 20 train
+     views of 2048^2 EXR read at factor 4, the bell 20 views of 800^2 with
      depth PNGs),
      through the entry point as train_one_stage.py builds its command: the
      README's two hotdog stages (cache at 8192, then
@@ -297,7 +297,7 @@ Phases, one line each (any failure exits nonzero):
      with that writer: the first three batches the card gets equal the CPU
      loader's, and one cache step of each at NGP_NARROW's widths, GPU
      against CPU, as phase 33 (2 leveled launches each);
- 38. real disk train: the three layouts at cut sizes (open_egg 30 train
+ 38. real disk train: the three layouts at cut sizes (open_egg 20 train
      and 6 test views of 2048 x 1536 read at factor 2, its test split at
      factor 8; neilf_castel 24 views of 1536 x 1024 at factor 4;
      glossy_bear 24 views of 1024 x 768), through the entry point as
@@ -338,9 +338,37 @@ Phases, one line each (any failure exits nonzero):
      --standalone --nproc_per_node 1 on train_with_trainer (a one-rank NCCL
      world) for 4 steps of the full-width ngp_yobo.gin cache stage with its
      checkpoint.
-Every evaluation through the trainer (phases 20-38) scores LPIPS on the
-card beside PSNR and SSIM, and phase 34's hotdog material stage renders
-the secondary-ray probe (256 x 512) at its evaluation.
+ 41. colmap reference: a capture in mip-NeRF 360's layout written by the
+     script (write_colmap_scene: sparse/0/cameras.bin with one OPENCV
+     camera, k1 -0.03, k2 0.01, p1 1e-4, p2 -1e-4; sparse/0/images.bin;
+     9 JPEG views of 128 x 96 in images_4/, rendered on the card through
+     the distorted cameras the llff loader hands the model, the port's
+     Newton undistortion included): the poses read back by the port's
+     COLMAP reader; the llff loader's arrays equal on the CPU and serving
+     the card, the card's first three batches equal to the CPU loader's;
+     the train step's cast on the card (the Newton solve in float32)
+     against the loader's host cast within COLMAP_CAST_TOL; one cache step
+     of configs/ngp_yobo.gin at NGP_NARROW's widths with the rays cast in
+     the step, GPU against CPU (every loss term and every gradient leaf,
+     the limit bracketed by the CPU noise floor with the cameras +-1 ulp
+     and two faults planted in the card's encoder forward; no scatter
+     launch);
+ 42. colmap train: the same layout at garden's factor-4 size (24 views of
+     1297 x 840, llffhold 8 holding out 3; sparse/0 at 5188 x 3360),
+     through the train_with_trainer entry point with Config.data_dir on
+     the scene and Config.factor = 4: configs/ngp_yobo.gin's cache stage
+     at batch 8192, its rays cast on the host, then with
+     Config.cast_rays_in_train_step = True (the Newton solve on the card in
+     every step), 3 timed steps each: the writing's seconds, the loading's
+     wall seconds and JPEG decodes, next_train host ms, step ms, rays/s,
+     peak GiB, no kernel launch, one held-out view; then the flagship cache
+     model (flagship.py, batch 8192) on the scene's batches cast in the
+     step: 3 steps with every leveled call held against its plain version,
+     5 timed, then 5 on batches cast on the host, 1 leveled launch per step
+    (launches_by_path colmap_*).
+Every evaluation through the trainer (phases 20-38, 42) scores LPIPS on
+the card beside PSNR and SSIM, and phase 34's hotdog material stage
+renders the secondary-ray probe (256 x 512) at its evaluation.
 Then the kernels JSON line, the eval JSON line, the transient material JSON
 line, the trainer JSON line, the nvidia-smi line, and the result line.
 """
@@ -3744,16 +3772,17 @@ DISK_SCENES = {
 # Each scene's near plane (phases 33-34 and 37-38), restored after
 # TRAINER_BINDINGS' data-free one.
 DISK_NEAR = {"hotdog": 2.0, "orb_teapot": 0.25, "nero_bell": 1.0, "open_egg": 0.25,
-             "neilf_castel": 0.25, "glossy_bear": 0.1}
+             "neilf_castel": 0.25, "glossy_bear": 0.1, "colmap_garden": 0.2,
+             "colmap_garden_in_step": 0.2}
 # (views of the train split, of the test split, resolution) at phase 34,
 # the captures' layouts, their view counts cut to keep the script inside
-# its time limit: TensoIR's hotdog (40 of its 100 train views of 800^2
+# its time limit: TensoIR's hotdog (30 of its 100 train views of 800^2
 # RGBA; 4 of its 200 test views), ORB's teapot (2048^2 EXR read at factor
-# 4; 32 train and 2 test views: the capture's counts are not in the
-# repository and each view is a 48 MiB FLOAT EXR), NeRO's bell (32 of its
+# 4; 20 train and 2 test views: the capture's counts are not in the
+# repository and each view is a 48 MiB FLOAT EXR), NeRO's bell (20 of its
 # 128 views of 800^2, every 8th held out by synthetic_split_128.pkl, all
 # trained on).
-DISK_SIZES = {"hotdog": (40, 4, 800), "orb_teapot": (32, 2, 2048), "nero_bell": (32, 4, 800)}
+DISK_SIZES = {"hotdog": (30, 4, 800), "orb_teapot": (20, 2, 2048), "nero_bell": (20, 4, 800)}
 # Phase 33's: small scenes of the same layouts.
 DISK_REFERENCE_SIZES = {"hotdog": (6, 2, 64), "orb_teapot": (6, 2, 128),
                         "nero_bell": (8, 2, 64)}
@@ -4117,12 +4146,14 @@ def _trace_spheres(torch, device, origins, dirs, scale):
     return rgb, alpha, best, points
 
 
-def _render_spheres(torch, device, c2w, pixtocam, size, scale, center=(0.0, 0.0, 0.0)):
+def _render_spheres(torch, device, c2w, pixtocam, size, scale, center=(0.0, 0.0, 0.0),
+                    distortion=None):
     """The procedural spheres (scaled by `scale`, moved to `center`) seen by
     each camera of `c2w` [N, 3, 4] through `pixtocam` [3, 3] at size^2 (or
-    size = (height, width)), on the card, one view at a time: yields (rgb
-    [h, w, 3] in [0, 1], alpha, the hit's distance along the ray, 15 where
-    none) as host arrays."""
+    size = (height, width)), with OpenCV's `distortion` (a dict of floats,
+    inverted by the port's Newton solve) where given, on the card, one view
+    at a time: yields (rgb [h, w, 3] in [0, 1], alpha, the hit's distance
+    along the ray, 15 where none) as host arrays."""
     from neural_radiance_caching_tpu_torch.data import camera_utils
 
     h, w = (size, size) if isinstance(size, int) else size
@@ -4133,7 +4164,8 @@ def _render_spheres(torch, device, c2w, pixtocam, size, scale, center=(0.0, 0.0,
     shift = torch.tensor(center, dtype=torch.float32, device=device)
     for pose in c2w:
         cam = torch.as_tensor(pose, dtype=torch.float32, device=device)[None]
-        rays = camera_utils.pixels_to_rays(xs.reshape(-1), ys.reshape(-1), pix, cam)
+        rays = camera_utils.pixels_to_rays(xs.reshape(-1), ys.reshape(-1), pix, cam,
+                                           distortion_params=distortion)
         rgb, alpha, best, _ = _trace_spheres(torch, device, rays[0] - shift, rays[2], scale)
         depth = torch.where(alpha, best, torch.full_like(best, 15.0))
         yield (rgb.reshape(h, w, 3).cpu().numpy(), alpha.reshape(h, w).float().cpu().numpy(),
@@ -4226,7 +4258,8 @@ def write_disk_scene(torch, device, scene, root, sizes, pool):
 
 
 _DISK_LOADERS = {"hotdog": "blender", "orb_teapot": "orb", "nero_bell": "glossy_synthetic",
-                 "open_egg": "open_illum", "neilf_castel": "neilf", "glossy_bear": "glossy_real"}
+                 "open_egg": "open_illum", "neilf_castel": "neilf", "glossy_bear": "glossy_real",
+                 "colmap_garden": "llff", "colmap_garden_in_step": "llff"}
 
 
 def _disk_bindings(scene, data_dir):
@@ -4387,6 +4420,25 @@ def _timed_loading(stats):
     return trainer_lib.Trainer, {"_load_datasets": timed_load}
 
 
+def _timed_next_train(stats):
+    """A patch of the datasets' shared `next_train` (every loader that
+    draws from its stacked images or flattened table) that records into
+    `stats["next_train_s"]` each call's host seconds: the draw, the host
+    cast or the Pixels, the move to the card."""
+    from neural_radiance_caching_tpu_torch.data import datasets
+
+    fn = datasets.Dataset.next_train
+    stats["next_train_s"] = []
+
+    def next_train(self):
+        t0 = time.perf_counter()
+        batch = fn(self)
+        stats["next_train_s"].append(time.perf_counter() - t0)
+        return batch
+
+    return datasets.Dataset, {"next_train": next_train}
+
+
 def _probe_capture(probe):
     """A patch of the Trainer's secondary-ray probe that records into
     `probe` the probe rendering's shape, its outputs' count, whether all are
@@ -4409,12 +4461,15 @@ def _probe_capture(probe):
 
 def _loading_text(load):
     """The loading's readings as the disk phases print them."""
+    times = sorted(load.get("next_train_s") or [0.0])
     return (f"load {load['load_s']:.2f}s (train and test splits; " + ", ".join(
         f"{load[f'{kind}_calls']} {what} at {load[f'{kind}_s']:.4f}s each"
         for kind, what in (("png", "PNG decodes"), ("exr", "EXR decodes"),
                            ("jpeg", "JPEG decodes"), ("lanczos", "Lanczos-4 resizes"),
                            ("nearest", "nearest resizes"))
-        if load[f"{kind}_calls"]) + f"; {load['host_gib']:.3f} GiB of host arrays)")
+        if load[f"{kind}_calls"]) + f"; {load['host_gib']:.3f} GiB of host arrays); "
+        f"next_train host ms median {1e3 * times[len(times) // 2]:.2f} max "
+        f"{1e3 * times[-1]:.2f} over {len(load.get('next_train_s') or [])} calls")
 
 
 def phase_disk_train(torch, device, seed, steps, smi, tmp):
@@ -4484,7 +4539,7 @@ def _disk_entry_runs(torch, device, label, runs, written, seed, steps, smi, tmp)
                 # The probe runs at the evaluation after the run's train loop.
                 with _patched(capture_cls, **capture):
                     run = _entry_point_run(torch, args, None, ckpt, warmup, timed,
-                                           (_timed_loading(load),))
+                                           (_timed_loading(load), _timed_next_train(load)))
                 break
             except torch.cuda.OutOfMemoryError as e:
                 cut.append(_out_of_memory(torch, f"{label} ({scene} {stage})", batch, e))
@@ -5080,13 +5135,13 @@ REAL_SCENES = {
 }
 # (views, held-out views, height, width) at phase 38, cut stand-ins (the
 # captures, their view counts and sizes are not in the repository):
-# OpenIllumination's egg, 30 train and 6 test views of 2048 x 1536 read at
+# OpenIllumination's egg, 20 train and 6 test views of 2048 x 1536 read at
 # the config's factor 2 (its test split at factor 8, so that the held-out
 # view is 256 x 192); NeILF++'s castel, 24 views of 1536 x 1024 of which
 # VALIDATION_INDEXES hold out 9, read at factor 4; NeRO's bear, 24 views in
 # images_raw_1024 at 1024 x 768 (its probe in images/ at 2048 x 1536), every
 # view in both splits.
-REAL_SIZES = {"open_egg": (30, 6, 1536, 2048), "neilf_castel": (24, 0, 1024, 1536),
+REAL_SIZES = {"open_egg": (20, 6, 1536, 2048), "neilf_castel": (24, 0, 1024, 1536),
               "glossy_bear": (24, 0, 768, 1024)}
 # Phase 37's: the same layouts, small (NeRO's views stay 1024 wide: the
 # loader scales the intrinsics to images_raw_1024's size).
@@ -5232,6 +5287,88 @@ def write_real_scene(torch, device, scene, root, sizes, pool):
         job.result()
     files = [os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs]
     return data_dir, sum(os.path.getsize(f) for f in files), len(files)
+
+
+def _qvec(r):
+    """A rotation matrix as COLMAP's (w, x, y, z) unit quaternion
+    (Shepperd's method)."""
+    import numpy as np
+
+    t = np.trace(r)
+    if t > 0:
+        s = 2.0 * np.sqrt(1.0 + t)
+        q = [0.25 * s, (r[2, 1] - r[1, 2]) / s, (r[0, 2] - r[2, 0]) / s, (r[1, 0] - r[0, 1]) / s]
+    else:
+        i = int(np.argmax(np.diag(r)))
+        j, k = (i + 1) % 3, (i + 2) % 3
+        s = 2.0 * np.sqrt(1.0 + r[i, i] - r[j, j] - r[k, k])
+        q = [0.0] * 4
+        q[0] = (r[k, j] - r[j, k]) / s
+        q[1 + i] = 0.25 * s
+        q[1 + j] = (r[j, i] + r[i, j]) / s
+        q[1 + k] = (r[k, i] + r[i, k]) / s
+    q = np.array(q)
+    return q / np.linalg.norm(q)
+
+
+def write_colmap_scene(torch, device, root, sizes, pool, seed):
+    """A capture in mip-NeRF 360's layout in `root` at `sizes` (views,
+    height, width of images_4/), the views rendered on the card and
+    JPEG-encoded by the `pool`'s threads: `sparse/0/cameras.bin` (one OPENCV
+    camera at 4x the size, COLMAP_DISTORTION), `sparse/0/images.bin` (the
+    poses, image ids out of name order), `images_4/*.JPG`. Each view is
+    rendered through the camera the llff loader will hand the model: the
+    pose after its principal-axis alignment (read back through the port's
+    COLMAP reader), the intrinsics at factor 4 and the lens distortion,
+    inverted by the port's own Newton solve on the card. Returns (the
+    data_dir, bytes written, files, the written poses' largest difference
+    from the ones read back)."""
+    import os
+    import struct
+
+    import numpy as np
+
+    from neural_radiance_caching_tpu_torch.data import camera_utils, colmap
+
+    n, h, w = sizes
+    full_h, full_w = COLMAP_FACTOR * h, COLMAP_FACTOR * w
+    focal = COLMAP_FOCAL * full_w
+    params = [focal, focal, full_w / 2, full_h / 2] + [COLMAP_DISTORTION[k]
+                                                        for k in ("k1", "k2", "p1", "p2")]
+    radius, scale = COLMAP_CAMERAS
+    poses = camera_utils.generate_spherical_poses(n, radius=radius, seed=seed + 101)
+    names = [f"_DSC{8000 + 7 * i:04d}.JPG" for i in range(n)]
+    ids = np.random.RandomState(seed + 102).permutation(n) + 1
+    sparse = os.path.join(root, "sparse", "0")
+    os.makedirs(sparse, exist_ok=True)
+    with open(os.path.join(sparse, "cameras.bin"), "wb") as f:
+        f.write(struct.pack("<Q", 1) + struct.pack("<iiQQ", 1, 4, full_w, full_h)
+                + struct.pack("<8d", *params))
+    with open(os.path.join(sparse, "images.bin"), "wb") as f:
+        f.write(struct.pack("<Q", n))
+        for image_id, pose, name in zip(ids, poses, names):
+            m = np.eye(4)
+            m[:3] = pose
+            w2c = np.linalg.inv(m @ np.diag([1.0, -1.0, -1.0, 1.0]))
+            f.write(struct.pack("<idddddddi", int(image_id), *_qvec(w2c[:3, :3]), *w2c[:3, 3], 1)
+                    + name.encode() + b"\x00" + struct.pack("<Q", 0))
+    read_names, read_poses, pixtocams, distortion, _ = colmap.load_colmap_posedata(root)
+    order = np.argsort(names)
+    pose_err = float(np.abs(read_poses - poses[order]).max())
+    final, transform = camera_utils.transform_poses_pca(read_poses)
+    pixtocam = (pixtocams[0] @ np.diag([COLMAP_FACTOR, COLMAP_FACTOR, 1.0])).astype(np.float32)
+    views = _render_spheres(torch, device, final, pixtocam, (h, w), scale,
+                            tuple(transform[:3, 3]),
+                            distortion={k: float(v[0]) for k, v in distortion.items()})
+    jobs = []
+    for name, (rgb, _, _) in zip(read_names, views):
+        pixels = np.round(rgb * 255).astype(np.uint8)
+        path = os.path.join(root, "images_4", name)
+        jobs.append(pool.submit(lambda p=path, x=pixels: _write(p, jpeg_encode(x, 95)[0])))
+    for job in jobs:
+        job.result()
+    files = [os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs]
+    return root, sum(os.path.getsize(f) for f in files), len(files), pose_err
 
 
 def _jpeg_reference(seed):
@@ -6098,6 +6235,308 @@ def phase_data_parallel(torch, device, seed, smi, tmp):
     return out
 
 
+# Phases 41-42: a capture posed by COLMAP in mip-NeRF 360's layout
+# (`sparse/0/cameras.bin` with one OPENCV camera at the full resolution,
+# `sparse/0/images.bin`, the views in `images_4/`), read by the llff
+# loader, the default of Config.dataset_loader that ngp_yobo.gin keeps.
+COLMAP_CONFIG = "configs/ngp_yobo.gin"
+# (views, height, width) of images_4/: phase 42 at garden's factor-4 size
+# (its 185 views cut to 24, of which llffhold 8 holds out 3; no
+# full-resolution images/: the loader at factor 4 reads images_4/ only);
+# phase 41 small.
+COLMAP_SIZES = (24, 840, 1297)
+COLMAP_REFERENCE_SIZES = (9, 96, 128)
+COLMAP_FACTOR = 4
+# mip-NeRF 360's OPENCV terms, and the focal over the full-resolution width.
+COLMAP_DISTORTION = {"k1": -0.03, "k2": 0.01, "p1": 1e-4, "p2": -1e-4}
+COLMAP_FOCAL = 0.9
+# The cameras' radius before the loader's alignment and the spheres' scale
+# in its frame (the principal-axis alignment puts the cameras inside
+# [-1, 1]^3), and the near plane bound beside ngp_yobo.gin's far of 6.
+COLMAP_CAMERAS = (4.0, 0.45)
+COLMAP_NEAR = 0.2
+# The in-step cast on the card against the loader's host cast (numpy,
+# float64 after the float32 cameras; its Newton solve in float64): the
+# largest absolute difference of any ray field. The card's float32 solve
+# converges to its own rounding, ~1e-7 at the corner pixels' radii of
+# ~0.7 in focal units.
+COLMAP_CAST_TOL = 2e-6
+COLMAP_BINDINGS = (f"Config.dataset_loader = 'llff'", f"Config.factor = {COLMAP_FACTOR}",
+                   f"Config.near = {COLMAP_NEAR}")
+# The flagship cache step (flagship.py, batch 8192) on the LLFF scene's
+# batches, cast in the step: checked steps (every leveled call held
+# against its plain version), then timed steps.
+COLMAP_FLAGSHIP_CHECKED = 3
+COLMAP_FLAGSHIP_TIMED = 5
+
+
+def _colmap_config(data_dir, *extra):
+    """ngp_yobo.gin's Config with the scene's bindings (over the trainer
+    phases' data-free ones) and `extra`."""
+    from neural_radiance_caching_tpu_torch.engine import configs, gin_config
+
+    gin_config.clear_config()
+    configs.load_config(config_files=[COLMAP_CONFIG], bindings=list(
+        TRAINER_BINDINGS + COLMAP_BINDINGS + (f"Config.data_dir = '{data_dir}'",) + extra))
+    config = configs.Config()
+    gin_config.clear_config()
+    return config
+
+
+def _colmap_cast_errs(torch, device, dataset, batches):
+    """The train step's caster on the card (`parallel/train._ray_caster`:
+    the Newton solve in float32 on the card) against the loader's host
+    cast of the same Pixels: the largest absolute difference per field."""
+    import dataclasses
+    import types
+
+    import numpy as np
+
+    from neural_radiance_caching_tpu_torch.data import camera_utils
+    from neural_radiance_caching_tpu_torch.parallel import train
+    from neural_radiance_caching_tpu_torch.utils import pytrees
+
+    model = types.SimpleNamespace(parameters=lambda: iter([torch.zeros(1, device=device)]))
+    cast = train._ray_caster(dataset.config, dataset, model)
+    errs = {}
+    for batch in batches:
+        pixels = batch.rays
+        got = cast(None, pixels)
+        host = pytrees.Pixels(**{f.name: None if getattr(pixels, f.name) is None
+                                 else getattr(pixels, f.name).cpu().numpy()
+                                 for f in dataclasses.fields(pixels)})
+        want = camera_utils.cast_ray_batch(dataset.cameras, dataset.lights, host)
+        for f in ("origins", "directions", "viewdirs", "radii", "imageplane", "look", "up"):
+            err = float(np.abs(getattr(got, f).cpu().numpy().astype(np.float64)
+                               - np.asarray(getattr(want, f), np.float64)).max())
+            errs[f] = max(errs.get(f, 0.0), err)
+    return errs
+
+
+def phase_colmap_reference(torch, device, seed, tmp):
+    """The COLMAP scene at COLMAP_REFERENCE_SIZES: the poses read back by
+    the port's COLMAP reader; the llff loader's arrays (images, cameras,
+    the distortion) equal on the CPU and serving the card; the card's first
+    three batches equal to the CPU loader's; the train step's in-step cast
+    on the card against the host cast (COLMAP_CAST_TOL); then one cache
+    step of ngp_yobo.gin at NGP_NARROW's widths with the rays cast in the
+    step, GPU against CPU: every loss term and every gradient leaf, the
+    limit GRAD_REL_L2_TOL bracketed by the CPU's noise floor (the cameras
+    +-1 ulp) and two faults planted in the card's encoder forward (the step
+    launches no scatter kernel: the final level's density normals take the
+    plain encoder)."""
+    import concurrent.futures
+    import os
+
+    import numpy as np
+
+    from neural_radiance_caching_tpu_torch.data import datasets
+    from neural_radiance_caching_tpu_torch.ops import hashgrid, scatter_cuda
+
+    root = os.path.join(tmp, "colmap_reference")
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        data_dir, _, _, pose_err = write_colmap_scene(torch, device, root,
+                                                      COLMAP_REFERENCE_SIZES, pool, seed)
+    config = _colmap_config(data_dir, *NGP_NARROW)
+    loaded = [datasets.load_dataset("train", data_dir, config, device=dev)
+              for dev in ("cpu", device)]
+    arrays_equal = all(
+        np.array_equal(getattr(loaded[0], k), getattr(loaded[1], k))
+        for k in ("images", "camtoworlds", "pixtocams", "lights")) and all(
+        np.array_equal(loaded[0].distortion_params[k], loaded[1].distortion_params[k])
+        for k in loaded[0].distortion_params)
+    same = True
+    for _ in range(3):
+        want, got = (ds.next_train() for ds in loaded)
+        same &= _same_batch(torch, got, want)
+    shape = tuple(loaded[0].images.shape)
+    keys = sorted(loaded[0].distortion_params)
+    del loaded
+    in_step = _colmap_config(data_dir, *NGP_NARROW, "Config.cast_rays_in_train_step = True")
+    dataset = datasets.load_dataset("train", data_dir, in_step, device=device)
+    cast_errs = _colmap_cast_errs(torch, device, dataset,
+                                  [dataset.next_train() for _ in range(3)])
+    cast_ok = max(cast_errs.values()) <= COLMAP_CAST_TOL
+    del dataset
+
+    stage = (TRAINER_CACHE_STAGE + NGP_NARROW + COLMAP_BINDINGS
+             + (f"Config.data_dir = '{data_dir}'", "Config.cast_rays_in_train_step = True"))
+
+    def step(dev, fault=None, **kw):
+        patch = dict(multires_grid_encode=_planted_encoder_fault(fault)) if fault else {}
+        with _patched(hashgrid, **patch):
+            return _trainer_step(torch, dev, seed, stage=stage, config_file=COLMAP_CONFIG, **kw)
+
+    l_cpu, g_cpu, n_cpu = step("cpu")
+    floor, floor_at, loss_floor = 0.0, None, 0.0
+    for nudge in (1, -1):
+        l_n, g_n, _ = step("cpu", nudge=nudge)
+        v, at = _worst_grad_err(g_n, g_cpu)
+        if v >= floor:
+            floor, floor_at = v, at
+        loss_floor = max(loss_floor, *(abs(l_n[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-30)
+                                       for k in l_cpu))
+    l_gpu, g_gpu, n_gpu = step(device)
+    loss_errs = {k: abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-30) for k in l_cpu}
+    err, err_at = _worst_grad_err(g_gpu, g_cpu)
+    faults = {f: _worst_grad_err(step(device, fault=f)[1], g_cpu)
+              for f in ("levels reversed", "finest level dropped")}
+    tol = GRAD_REL_L2_TOL
+    step_ok = (all(torch.isfinite(g).all() for g in g_gpu.values())
+               and {"data", "cache_data"} <= set(l_cpu) and l_cpu["data"] != 0
+               and max(loss_errs.values()) <= 1e-3 and n_cpu == _launch_counts()
+               and n_gpu == _launch_counts() and floor <= tol and err <= tol
+               and all(v > tol for v, _ in faults.values()))
+    ok = arrays_equal and same and cast_ok and step_ok and pose_err < 1e-5
+    print(f"colmap reference: {COLMAP_CONFIG}'s default llff loader on mip-NeRF 360's layout "
+          f"(sparse/0 with one OPENCV camera {COLMAP_DISTORTION}, images_4/ of "
+          f"{COLMAP_REFERENCE_SIZES[0]} JPEG views rendered on the card through the distorted "
+          f"cameras): poses read back by the port's COLMAP reader within {pose_err:.2e}; images "
+          f"{list(shape)}, distortion keys {keys}; the loader's arrays equal on the CPU and "
+          f"serving the card={arrays_equal}; the card's first three batches equal to the CPU "
+          f"loader's={same}; the train step's cast on the card against the host cast: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in cast_errs.items())
+          + f" (tol {COLMAP_CAST_TOL}); the cache stage at reference widths with the rays cast "
+          f"in the step (the Newton solve on the card), one step, the same weights, batch and "
+          f"draws, gpu vs cpu: loss rel_err max={max(loss_errs.values()):.3e} (tol 1e-3; cpu vs "
+          f"cpu with the cameras +-1 ulp: {loss_floor:.2e}) grad rel_l2_err max={err:.3e} at "
+          f"{err_at} (tol {tol}; noise floor, cpu vs cpu with the cameras +-1 ulp: {floor:.3e} "
+          f"at {floor_at}; planted in the card's encoder forward " + ", ".join(
+              f"{f}: {v:.3e} at {at}" for f, (v, at) in faults.items())
+          + f", each must exceed the tol); kernel launches gpu={n_gpu} cpu={n_cpu} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the COLMAP scene's reference phase failed")
+    return dict(pose_err=pose_err, arrays_equal=arrays_equal, batches_equal=same,
+                cast_abs_errs=cast_errs, cast_tol=COLMAP_CAST_TOL,
+                loss_rel_err=max(loss_errs.values()), loss_noise_floor=loss_floor,
+                grad_rel_l2_err=err, grad_err_at=err_at, noise_floor=floor,
+                noise_floor_at=floor_at, faults={f: v for f, (v, _) in faults.items()}, tol=tol,
+                launches=n_gpu["leveled"], losses=l_gpu)
+
+
+def _colmap_flagship(torch, device, seed, data_dir, smi):
+    """The flagship cache model (flagship.py, batch 8192) trained on the
+    LLFF scene's batches, cast in the step on the card: COLMAP_FLAGSHIP_
+    CHECKED steps with every leveled call held against its plain version,
+    then COLMAP_FLAGSHIP_TIMED timed steps (next_train ahead of them); then
+    as many on batches of the same scene cast on the host, for the in-step
+    cast's share of the step; one leveled launch per step, asserted."""
+    from neural_radiance_caching_tpu_torch import flagship
+    from neural_radiance_caching_tpu_torch.data import datasets
+    from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+    from neural_radiance_caching_tpu_torch.parallel import train
+    from neural_radiance_caching_tpu_torch.utils import pytrees
+
+    config = flagship.cache_config(dataset_loader="llff", data_dir=data_dir,
+                                   factor=COLMAP_FACTOR, near=COLMAP_NEAR,
+                                   cast_rays_in_train_step=True)
+    torch.manual_seed(seed)
+    dataset = datasets.load_dataset("train", data_dir, config, device=device)
+    model = flagship.build_flagship_cache_model(config, device=device)
+    state, _ = train.create_optimizer(config, model)
+    train_step = train.create_train_step(model, config, dataset=dataset)
+    rng = torch.Generator(device=device).manual_seed(seed + 43)
+    total = COLMAP_FLAGSHIP_CHECKED + COLMAP_FLAGSHIP_TIMED
+    t0 = time.perf_counter()
+    batches = [dataset.next_train() for _ in range(total)]
+    next_ms = 1e3 * (time.perf_counter() - t0) / total
+    pixels = all(isinstance(b.rays, pytrees.Pixels) for b in batches)
+    torch.cuda.reset_peak_memory_stats()
+    scatter_cuda.reset_launch_count()
+    calls, losses = [], []
+    with _patched(scatter_cuda,
+                  scatter_add_weighted_leveled=_checking_scatter("leveled", calls)):
+        for batch in batches[:COLMAP_FLAGSHIP_CHECKED]:
+            state, stats = train_step(rng, state, batch, 0.5)
+            losses.append(stats["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in batches[COLMAP_FLAGSHIP_CHECKED:]:
+        state, stats = train_step(rng, state, batch, 0.5)
+        losses.append(stats["loss"])
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / COLMAP_FLAGSHIP_TIMED
+    host = datasets.load_dataset("train", data_dir, dataclasses.replace(
+        config, cast_rays_in_train_step=False), device=device)
+    host_batches = [host.next_train() for _ in range(COLMAP_FLAGSHIP_TIMED)]
+    host_step = train.create_train_step(model, host.config)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in host_batches:
+        state, stats = host_step(rng, state, batch, 0.5)
+        losses.append(stats["loss"])
+    torch.cuda.synchronize()
+    dt_host = (time.perf_counter() - t0) / COLMAP_FLAGSHIP_TIMED
+    launches = dict(scatter_cuda.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(v) for v in losses]
+    total += COLMAP_FLAGSHIP_TIMED
+    ok = (pixels and _finite(losses) and launches == _launch_counts(leveled=total)
+          and len(calls) == COLMAP_FLAGSHIP_CHECKED and all(c["ok"] for c in calls))
+    print(f"colmap train (flagship): the flagship cache model "
+          f"({sum(p.numel() for p in model.parameters())} params) batch {config.batch_size} on "
+          f"the LLFF scene ({dataset.num_images} views of {dataset.height}x{dataset.width}), "
+          f"Pixels cast in the step={pixels} (next_train {next_ms:.2f} host ms each): "
+          f"{COLMAP_FLAGSHIP_CHECKED} checked steps, every leveled call against its plain "
+          f"version (tol=|err|<={SUM_ORDER_TOL}*sum|w*ct|): " + "; ".join(
+              f"idx{list(c['shape'])} max_abs_err={c['max_abs_err']:.3e} "
+              f"{'ok' if c['ok'] else 'FAIL'}" for c in calls)
+          + f"; {COLMAP_FLAGSHIP_TIMED} timed steps: step_ms={dt * 1e3:.2f} "
+          f"rays_per_s={config.batch_size / dt:.0f} on [{smi}], then {COLMAP_FLAGSHIP_TIMED} "
+          f"on batches cast on the host: step_ms={dt_host * 1e3:.2f}; peak {peak:.2f} GiB; losses "
+          f"finite={_finite(losses)} first={losses[0]:.5f} last={losses[-1]:.5f}; kernel "
+          f"launches={launches} (expected leveled {total}) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError("the flagship cache step on the COLMAP scene failed")
+    result = dict(step_ms=dt * 1e3, rays_per_s=config.batch_size / dt, peak_gib=peak,
+                  host_cast_step_ms=dt_host * 1e3, next_train_ms=next_ms, launches=launches["leveled"], checked=len(calls),
+                  max_abs_err=max(c["max_abs_err"] for c in calls), losses=losses)
+    del model, state, dataset, batches, train_step, host, host_batches, host_step
+    return result
+
+
+# Phase 42's runs, as `_disk_entry_runs` takes them: ngp_yobo.gin's cache
+# stage on the scene at batch 8192, its rays cast on the host, then cast in
+# the step; 3 timed steps each, no kernel launch.
+COLMAP_RUNS = (
+    ("colmap_garden", ("-c", "ngp_yobo", "-t", "cache"), (8192,), None,
+     lambda batch, trainer: {}, 3, (f"Config.factor = {COLMAP_FACTOR}",)),
+    ("colmap_garden_in_step", ("-c", "ngp_yobo", "-t", "cache"), (8192,), None,
+     lambda batch, trainer: {}, 3, (f"Config.factor = {COLMAP_FACTOR}",
+                                    "Config.cast_rays_in_train_step = True")),
+)
+
+
+def phase_colmap_train(torch, device, seed, smi, tmp):
+    """The COLMAP scene written at COLMAP_SIZES (the writing's seconds and
+    size), COLMAP_RUNS through the train_with_trainer entry point
+    (`_disk_entry_runs`: loading, next_train, step ms, peak, an eval view,
+    a checked step), then the flagship cache step on its batches
+    (`_colmap_flagship`)."""
+    import concurrent.futures
+    import os
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        data_dir, nbytes, files, pose_err = write_colmap_scene(
+            torch, device, os.path.join(tmp, "colmap"), COLMAP_SIZES, pool, seed)
+    n, h, w = COLMAP_SIZES
+    views = f"{n} views of {w}x{h} JPEG in images_4/"
+    written = dict(data_dir=data_dir, write_s=time.perf_counter() - t0, gib=nbytes / 2**30,
+                   files=files, views=views, pose_err=pose_err)
+    print(f"colmap train: wrote mip-NeRF 360's layout (garden's factor-4 size: {views} (4:2:0, "
+          f"quality 95), sparse/0 with one OPENCV camera of {COLMAP_FACTOR * w}x"
+          f"{COLMAP_FACTOR * h}, rendered on the card through the distorted cameras): {files} "
+          f"files, {nbytes / 2**30:.3f} GiB in {written['write_s']:.1f}s", flush=True)
+    scenes = {"colmap_garden": written, "colmap_garden_in_step": written}
+    results = _disk_entry_runs(torch, device, "colmap train", COLMAP_RUNS, scenes, seed, None,
+                               smi, tmp)
+    flagship = _colmap_flagship(torch, device, seed, data_dir, smi)
+    return {"written": written, **results, "flagship": flagship}
+
+
 def _profile(torch, train_step, state, rng, batches, path, steps=3):
     """Device time by kernel over `steps` steps, as a table written to `path`."""
     import pathlib
@@ -6130,9 +6569,9 @@ def main():
                         help="timed transient train steps of each run (direct, dedup)")
     parser.add_argument("--transient-material-steps", type=int, default=10,
                         help="timed transient material train steps of each form (bench, trainer)")
-    parser.add_argument("--trainer-steps", type=int, default=7,
+    parser.add_argument("--trainer-steps", type=int, default=5,
                         help="timed steps of each run through the entry point (phases 20-38; "
-                             "7 keeps the whole script near 850 s with phase 40)")
+                             "5 keeps the whole script under 950 s with phases 40-42)")
     parser.add_argument("--profile", metavar="FILE",
                         help="also profile train steps and write the op tables to FILE "
                              "(cache), and FILE with .material, .transient, "
@@ -6224,6 +6663,8 @@ def main():
         real = phase_real_disk_train(torch, device, args.seed, args.trainer_steps, smi, tmp)
         eval_extras = phase_eval_extras(torch, device, args.seed, smi, tmp)
         data_parallel = phase_data_parallel(torch, device, args.seed, smi, tmp)
+        colmap_reference = phase_colmap_reference(torch, device, args.seed, tmp)
+        colmap = phase_colmap_train(torch, device, args.seed, smi, tmp)
     print(f"phases done in {time.perf_counter() - t_start:.1f}s, build included", flush=True)
 
     csrc = "neural_radiance_caching_tpu_torch/csrc"
@@ -6293,13 +6734,20 @@ def main():
     dp_leveled = {f"data_parallel_{stage}_rank{rank}": n for stage in DP_STAGES
                   for rank, n in enumerate(data_parallel[stage]["launches"])}
     leveled_launches.update(dp_leveled)
+    colmap_runs = {run: r for run, r in colmap.items() if run not in ("written", "flagship")}
+    colmap_leveled = {"colmap_reference": colmap_reference["launches"],
+                      **{f"colmap_train_{run}": r["launches_by_kernel"]["leveled"]
+                         for run, r in colmap_runs.items()},
+                      "colmap_flagship": colmap["flagship"]["launches"]}
+    leveled_launches.update(colmap_leveled)
     real_planes = {f"trainer_real_disk_{run}": r["launches_by_kernel"]["planes"]
                    for run, r in real_runs.items()}
     other_paths = {"trainer_transient_train": 0, "trainer_transient_occlusions": 0,
                    **{k: 0 for k in tmat_paths}, **{k: 0 for k in slf_paths},
                    **{k: 0 for k in invprop_paths}, **{k: 0 for k in baseline_leveled},
                    **{k: 0 for k in disk_leveled}, **{k: 0 for k in transient_disk_leveled},
-                   **{k: 0 for k in real_leveled}, **{k: 0 for k in dp_leveled}}
+                   **{k: 0 for k in real_leveled}, **{k: 0 for k in dp_leveled},
+                   **{k: 0 for k in colmap_leveled}}
     print(json.dumps({"kernels": [{
         "name": "scatter_add_weighted_leveled",
         "route": "cuda",
@@ -6328,7 +6776,8 @@ def main():
                            *(real_reference[scene]["max_abs_err"] for scene in REAL_SCENES),
                            *(r["max_abs_err_by_kernel"].get("leveled", 0.0)
                              for r in real_runs.values()),
-                           *(data_parallel[stage]["max_abs_err"] for stage in DP_STAGES)),
+                           *(data_parallel[stage]["max_abs_err"] for stage in DP_STAGES),
+                           colmap["flagship"]["max_abs_err"]),
         "max_abs_err_by_shape": {"cache": kernel["max_abs_err"],
                                  "material_path": material_err["leveled"],
                                  "transient_path": transient["direct"]["max_abs_err"],
@@ -6368,7 +6817,8 @@ def main():
                                      "leveled"] for run, r in real_runs.items()
                                     if "leveled" in r["max_abs_err_by_kernel"]},
                                  **{f"data_parallel_{stage}_path": data_parallel[stage][
-                                     "max_abs_err"] for stage in DP_STAGES}},
+                                     "max_abs_err"] for stage in DP_STAGES},
+                                 "colmap_flagship_path": colmap["flagship"]["max_abs_err"]},
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
         "library_ms": kernel["library_ms"],
@@ -6482,7 +6932,8 @@ def main():
         "transient_disk_train": transient_disk,
         "transient_disk_reference": transient_disk_reference,
         "real_disk_train": real, "real_disk_reference": real_reference,
-        "data_parallel": data_parallel, "device": smi}}), flush=True)
+        "data_parallel": data_parallel, "colmap_reference": colmap_reference,
+        "colmap_train": colmap, "device": smi}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

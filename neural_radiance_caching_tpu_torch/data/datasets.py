@@ -1,18 +1,25 @@
-"""Datasets and ray batching (counterpart of ``data/datasets.py``): the
-loaders of posed images on disk ``blender``, ``blender_active``, ``orb``
-and ``glossy_synthetic``, of real captures ``open_illum``, ``neilf`` and
-``glossy_real``, of transient captures on disk ``transient_simulation``
-and ``fwp_transient_captured``, and the procedural ``SyntheticSpheres``
-scene; ``load_dataset`` raises naming any other loader.
+"""Datasets and ray batching (counterpart of ``data/datasets.py``): every
+loader of the JAX package by its ``Config.dataset_loader`` name
+(``LOADERS``): posed images on disk (``blender``, ``blender_active``,
+``orb``, ``glossy_synthetic``, ``rtmv``, ``fipt_synthetic``), real
+captures (``llff`` posed by COLMAP, ``poses_bounds.npy`` or an NGP JSON;
+``open_illum``, ``neilf``, ``glossy_real``, ``real``, ``fipt_real``,
+``tat_nerfpp``, ``tat_fvs``, ``dtu``, ``pixelrig``, ``aerial``), transient
+captures (``transient_simulation``, ``transient_simulation_itof``,
+``fwp_transient_captured``), arrays in memory (``preloaded``) and the
+procedural ``SyntheticSpheres`` scene.
 
 Each loader reads its images on the host (the port's own PNG, JPEG, EXR
 and HDF5 readers and OpenCV's resizes, ``data/io.py``, ``data/jpeg.py``,
-``data/hdf5.py``) into the same arrays as
-the JAX loader, and batches are drawn with the same numpy RandomState
-stream as the JAX package, so both packages see identical batches: random
-pixels of the stacked images, of the flattened pixel table
-(``GlossySynthetic``), or a random window of the transient loaders'
-pre-shuffled h5 sample streams.
+``data/hdf5.py``; COLMAP's binaries, ``data/colmap.py``) into the same
+arrays as the JAX loader, and batches are drawn with the same numpy
+RandomState stream as the JAX package, so both packages see identical
+batches: random pixels of the stacked images, of the flattened pixel table
+(``GlossySynthetic``, the FIPT loaders, ``TransientSimulationIToF``), or a
+random window of the transient loaders' pre-shuffled h5 sample streams.
+A loader's cameras are ``Dataset.cameras``: (pixtocams, camtoworlds, lens
+distortion, the NDC warp's pixtocam), as in JAX; a camera's ``camtype`` is
+kept but, as in JAX, no cast reads it.
 Rays are cast on the host, or, with ``Config.cast_rays_in_train_step``, a
 batch holds its Pixels and the train step casts them; ``next_train`` moves
 the batch to the dataset's device, the card unless the caller passes
@@ -26,6 +33,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import glob
+import io
 import json
 import os
 import pickle
@@ -33,7 +41,7 @@ import pickle
 import numpy as np
 import torch
 
-from neural_radiance_caching_tpu_torch.data import camera_utils, env_maps, hdf5
+from neural_radiance_caching_tpu_torch.data import camera_utils, colmap, env_maps, hdf5
 from neural_radiance_caching_tpu_torch.data import io as io_lib
 from neural_radiance_caching_tpu_torch.ops import image as image_ops
 from neural_radiance_caching_tpu_torch.parallel import mesh as mesh_lib
@@ -49,17 +57,17 @@ LOADERS = ("blender", "blender_active", "transient_simulation", "transient_simul
 
 def load_dataset(split, data_dir, config, device="cuda", **kwargs):
     """Dataset dispatcher on Config.dataset_loader."""
-    name = config.dataset_loader
-    loaders = {"blender": Blender, "blender_active": BlenderActive, "orb": ORB,
-               "glossy_synthetic": GlossySynthetic, "synthetic_spheres": SyntheticSpheres,
-               "open_illum": OpenIllum, "neilf": Neilf, "glossy_real": GlossyReal,
+    loaders = {"blender": Blender, "blender_active": BlenderActive,
                "transient_simulation": TransientSimulation,
-               "fwp_transient_captured": FWPTransientCaptured}
-    if name in loaders:
-        return loaders[name](split, data_dir, config, device=device, **kwargs)
-    if name in LOADERS:
-        raise NotImplementedError(f"the {name!r} dataset loader is not ported yet")
-    raise KeyError(f"unknown dataset loader {name!r}")
+               "transient_simulation_itof": TransientSimulationIToF,
+               "fwp_transient_captured": FWPTransientCaptured, "orb": ORB,
+               "open_illum": OpenIllum, "neilf": Neilf, "real": Real, "fipt_real": FIPTReal,
+               "fipt_synthetic": FIPTSynthetic, "glossy_real": GlossyReal,
+               "glossy_synthetic": GlossySynthetic, "llff": LLFF,
+               "tat_nerfpp": TanksAndTemplesNerfPP, "tat_fvs": TanksAndTemplesFVS, "dtu": DTU,
+               "rtmv": RTMV, "pixelrig": PixelRig, "aerial": Aerial, "preloaded": PreloadedData,
+               "synthetic_spheres": SyntheticSpheres}
+    return loaders[config.dataset_loader](split, data_dir, config, device=device, **kwargs)
 
 
 # --- pose loaders ------------------------------------------------------------------------
@@ -189,6 +197,24 @@ def load_fwp_posedata(config, data_dir, pose_file_name="transforms.json", frame_
     return names, camtoworlds, pixtocams, distortions, _meta_camtype(meta), nameprefixes
 
 
+def load_llff_posedata(data_dir):
+    """`poses_bounds.npy` in the LLFF layout: (camtoworlds [N, 3, 4] with
+    LLFF's [down, right, backwards] axes turned to [right, up, backwards],
+    the shared pixtocam of the first pose's height, width and focal, no
+    distortion, PERSPECTIVE, the near / far bounds [N, 2])."""
+    posefile = os.path.join(data_dir, "poses_bounds.npy")
+    if not os.path.exists(posefile):
+        raise ValueError(f"poses_bounds.npy does not exist in {data_dir}.")
+    poses_arr = np.load(posefile)
+    bounds = poses_arr[:, -2:]
+    poses_hwf = poses_arr[:, :-2].reshape([-1, 3, 5])
+    nerf_to_llff = np.array([[0, -1, 0, 0], [1, 0, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
+    poses = poses_hwf[:, :, :4] @ nerf_to_llff
+    h, w, f = poses_hwf[0, :, 4]
+    pixtocams = camera_utils.get_pixtocam(f, w, h)
+    return poses, pixtocams, None, camera_utils.ProjectionType.PERSPECTIVE, bounds
+
+
 def flatten_data(images, dim=3):
     """Image list -> (pixels [P, dim], indices [P, 3] of (image, x, y))."""
 
@@ -201,6 +227,13 @@ def flatten_data(images, dim=3):
 
     indices = [index_array(i, z.shape[1], z.shape[0]) for i, z in enumerate(images)]
     return flatten_and_concat(images, dim), flatten_and_concat(indices, 3)
+
+
+def flatten_transient_data(images, n_bins, num_rgb_channels=3):
+    """Transient image list -> (pixels [P, n_bins, C], indices [P, 3])."""
+    pixels, indices = flatten_data([z.reshape(z.shape[0], z.shape[1], -1) for z in images],
+                                   dim=n_bins * num_rgb_channels)
+    return pixels.reshape(-1, n_bins, num_rgb_channels), indices
 
 
 # --- base class --------------------------------------------------------------------------
@@ -243,8 +276,12 @@ class Dataset:
         # their own: the fixed light's frame under ``Config.fixed_light``.
         self.virtual_camtoworlds = None
         self.pixtocams = None
+        # OpenCV coefficients (floats or per-camera arrays) or None; the
+        # camera model is kept and, as in JAX, read by no cast.
         self.distortion_params = None
         self.camtype = camera_utils.ProjectionType.PERSPECTIVE
+        # The forward-facing NDC warp's shared pixtocam [3, 3] (PixelRig).
+        self.pixtocam_ndc = None
         self.lights = None
         # Per-pixel illumination index [N, H, W, 1] where a loader keeps one.
         self.light_idx = None
@@ -261,11 +298,6 @@ class Dataset:
         self._np_rng = np.random.RandomState(
             config.np_rng_seed + (rank if split == "train" else 1))
         self._load_renderings(config)
-        if self.distortion_params is not None:
-            raise NotImplementedError(
-                f"lens distortion ({', '.join(sorted(self.distortion_params))}) is not ported yet")
-        if self.camtype != camera_utils.ProjectionType.PERSPECTIVE:
-            raise NotImplementedError(f"the {self.camtype.value!r} camera_type is not ported yet")
         self.num_images = self.images.shape[0]
         self.height, self.width = self.images.shape[1:3]
         if self.pixtocams.ndim == 2:
@@ -279,7 +311,15 @@ class Dataset:
 
     @property
     def cameras(self):
-        return (self.pixtocams, self.camtoworlds)
+        return (self.pixtocams, self.camtoworlds, self.distortion_params, self.pixtocam_ndc)
+
+    def get_train_cameras(self, config):
+        return self.cameras
+
+    def get_train_virtual_cameras(self, config):
+        virtual = (self.camtoworlds if self.virtual_camtoworlds is None
+                   else self.virtual_camtoworlds)
+        return (self.pixtocams, virtual, self.distortion_params, self.pixtocam_ndc)
 
     def _make_pixels(self, cam_idx, pix_x, pix_y, lossmult=None, light_idx=None):
         n = pix_x.shape[0]
@@ -327,8 +367,9 @@ class Dataset:
             inds = self._np_rng.randint(0, self.images_flattened.shape[0], (n,))
             indices = self.indices_flattened[inds]
             cam_idx, pix_x, pix_y = indices[:, 0], indices[:, 1], indices[:, 2]
-            pixels = self._make_pixels(cam_idx, pix_x, pix_y,
-                                       light_idx=self.light_idx_flattened[inds])
+            pixels = self._make_pixels(
+                cam_idx, pix_x, pix_y, light_idx=None if self.light_idx_flattened is None
+                else self.light_idx_flattened[inds])
             masks = self.masks[cam_idx, pix_y, pix_x] if self.masks is not None else None
             return pytrees.Batch(rays=self._cast(pixels), rgb=self.images_flattened[inds],
                                  masks=masks).to(self.device)
@@ -780,6 +821,439 @@ class GlossyReal(Dataset):
         self.pixtocams = pixtocams.astype(np.float32)
 
 
+class Real(Dataset):
+    """Real captures posed by NGP JSONs: the poses recentred on the train
+    split's average pose and scaled so that the farthest train camera
+    coordinate is 1, the intrinsics scaled by `Config.factor`, sRGB made
+    linear unless `Config.linear_to_srgb` or EXR."""
+
+    def _load_renderings(self, config):
+        _, camtoworlds_train, _, _, _, _ = load_ngp_posedata(
+            config, self.data_dir, "transforms_train.json")
+        _, camtoworlds, pixtocams, distortions, camtype, nameprefixes = load_ngp_posedata(
+            config, self.data_dir, f"transforms_{_split_name(self.split)}.json")
+        factor = max(config.factor, 1)
+        pixtocams = pixtocams @ np.diag([factor, factor, 1.0])
+        camtoworlds_train, tform = camera_utils.recenter_poses(camtoworlds_train[:, :3, :4])
+        camtoworlds = camera_utils.unpad_poses(tform @ camera_utils.pad_poses(
+            camtoworlds[:, :3, :4]))
+        camtoworlds[:, :3, 3] *= 1.0 / np.max(np.abs(camtoworlds_train[:, :3, 3]))
+        images = [io_lib.get_imgs(self.data_dir, config.factor, self._use_tiffs, self._use_exrs,
+                                  False, False, False, False, prefix)[0]
+                  for prefix in nameprefixes]
+        self.images = np.stack(images, axis=0).astype(np.float32)
+        if not self._use_exrs and not config.linear_to_srgb:
+            self.images = np.clip(image_ops.srgb_to_linear(self.images), 0.0, np.inf)
+        self.images = self.images[..., :3]
+        self.camtoworlds = camtoworlds
+        self.pixtocams = pixtocams
+        self.distortion_params = distortions
+        self.camtype = camtype
+
+
+class LLFF(Dataset):
+    """Real scenes in the LLFF / mip-NeRF 360 layout: the poses from
+    COLMAP's `sparse/0/` binaries (``data/colmap.py``; the default), from
+    `poses_bounds.npy` (`Config.llff_load_from_poses_bounds`) or from an
+    NGP `transforms.json` (`Config.load_ngp_format_poses`), put in the
+    images' name order (`Config.load_alphabetical`); the images, sorted by
+    file name and paired with the poses in that order, from
+    `{image_subdir or images}_{factor}/` (no suffix at factor 0 or 1), the
+    intrinsics scaled by the factor, sRGB made linear unless
+    `Config.linear_to_srgb`; the poses aligned by
+    ``camera_utils.transform_poses_pca``, or, forward-facing from
+    `poses_bounds.npy`, scaled so that the near bound is at 4 / 3; every
+    `Config.llffhold`-th image (from the first) held out for the test split.
+    The cameras' lens distortion comes with them, and their type is kept
+    (as in JAX, no cast reads it: a fisheye is cast as a perspective camera
+    with the OpenCV radial model)."""
+
+    def _load_renderings(self, config):
+        image_subdir = config.image_subdir or "images"
+        factor = 1 if config.factor == 0 else config.factor
+        image_dir_suffix = "" if factor == 1 else f"_{config.factor}"
+        bounds = None
+        if config.llff_load_from_poses_bounds:
+            image_names = sorted(os.listdir(os.path.join(self.data_dir, image_subdir)))
+            poses, pixtocams, distortions, camtype, bounds = load_llff_posedata(self.data_dir)
+        elif config.load_ngp_format_poses:
+            image_names, poses, pixtocams, distortions, camtype, _ = load_ngp_posedata(
+                config, self.data_dir)
+            poses = poses[:, :3, :4]
+        else:
+            image_names, poses, pixtocams, distortions, camtype = colmap.load_colmap_posedata(
+                self.data_dir)
+        if config.load_alphabetical:
+            inds = np.argsort(image_names)
+            poses, pixtocams, distortions = camera_utils.gather_cameras(
+                (poses, pixtocams, distortions), inds)
+        pixtocams = (pixtocams @ np.diag([factor, factor, 1.0])).astype(np.float32)
+        self.camtype = camtype
+
+        image_dir = os.path.join(self.data_dir, image_subdir + image_dir_suffix)
+
+        def load(name):
+            image = io_lib.load_img(os.path.join(image_dir, name)) / 255.0
+            if not config.linear_to_srgb:
+                image = np.clip(image_ops.srgb_to_linear(image), 0.0, np.inf)
+            return image
+
+        images = np.stack(_map_views(load, sorted(os.listdir(image_dir))))
+        if config.forward_facing and bounds is not None:
+            scale = 1.0 / (bounds.min() * 0.75)
+            poses[:, :3, 3] *= scale
+        else:
+            poses, _ = camera_utils.transform_poses_pca(poses)
+        all_indices = np.arange(images.shape[0])
+        test_indices = all_indices[::config.llffhold] if config.llffhold > 0 else all_indices[:0]
+        indices = (test_indices if self.split != "train"
+                   else np.array([i for i in all_indices if i not in test_indices]))
+        self.images = images[indices][..., :3].astype(np.float32)
+        self.camtoworlds = poses[indices].astype(np.float32)
+        if pixtocams.ndim == 3 and pixtocams.shape[0] > 1:
+            self.pixtocams = pixtocams[indices]
+        else:
+            self.pixtocams = pixtocams
+        self.distortion_params = distortions
+
+
+def read_cam_params_fipt(cam_file):
+    """A FIPT camera text file: the count, then 3 rows per camera (origin,
+    look-at and up for `cam.txt`, the intrinsic rows for `K_list.txt`)."""
+    with open(cam_file) as f:
+        cam_data = f.read().splitlines()
+    cam_num = int(cam_data[0])
+    cam_params = np.array([x.split(" ") for x in cam_data[1:]]).astype(np.float32)
+    assert cam_params.shape[0] == cam_num * 3
+    return np.split(cam_params, cam_num, axis=0)
+
+
+class FIPTReal(Dataset):
+    """FIPT real captures: `cam.txt` (OpenGL origin, look-at, up) aligned by
+    ``camera_utils.transform_poses_pca``, `K_list.txt`, the `Image/*.exr`
+    frames (`Config.use_exrs`) sorted by name, area-downsampled by
+    `Config.factor`, made sRGB under `Config.linear_to_srgb`; batches from
+    the flattened pixel table."""
+
+    def _load_renderings(self, config):
+        root = os.path.expanduser(self.data_dir)
+        c2ws = []
+        for c2w_raw in read_cam_params_fipt(os.path.join(root, "cam.txt")):
+            origin, lookat, up = [v.flatten() for v in np.split(c2w_raw.T, 3, axis=1)]
+            at = (lookat - origin) / np.linalg.norm(lookat - origin)
+            rot = np.stack((np.cross(-up, at), up, -at), -1).astype(np.float32)
+            pose = np.eye(4, dtype=np.float32)
+            pose[:3, :4] = np.hstack((rot, origin.reshape(3, 1).astype(np.float32)))
+            c2ws.append(pose)
+        c2ws = np.stack(c2ws, 0)[:, :3, :4]
+        ks = np.stack(read_cam_params_fipt(os.path.join(root, "K_list.txt")), 0)
+        self.camtoworlds, _ = camera_utils.transform_poses_pca(c2ws)
+        self.pixtocams = np.linalg.inv(ks).astype(np.float32)
+        nameprefixes = sorted(os.path.join("Image", p[: -len(".exr")])
+                              for p in os.listdir(os.path.join(root, "Image"))
+                              if p.endswith(".exr"))
+        self._load_fipt_images(config, nameprefixes)
+
+    def _load_fipt_images(self, config, nameprefixes):
+        images = np.stack([
+            io_lib.get_imgs(self.data_dir, max(config.factor, 1), False, self._use_exrs, False,
+                            False, False, False, prefix)[0] for prefix in nameprefixes], axis=0)
+        if self._use_exrs and config.linear_to_srgb:
+            images = np.clip(image_ops.linear_to_srgb_host(images / 0.65 * 0.65), 0.0, np.inf)
+        self.images = images[..., :3].astype(np.float32)
+        self._flattened = True
+        self.images_flattened, self.indices_flattened = flatten_data(list(self.images))
+
+
+class FIPTSynthetic(FIPTReal):
+    """FIPT synthetic scenes: poses and intrinsics from the NGP JSON
+    `train/transforms.json` (x and z flipped), its frames as FIPTReal's."""
+
+    def _load_renderings(self, config):
+        _, camtoworlds, pixtocams, distortions, camtype, nameprefixes = load_ngp_posedata(
+            config, self.data_dir, "train/transforms.json")
+        camtoworlds = camtoworlds @ np.diag([-1, 1, -1, 1.0])
+        self.camtoworlds = camtoworlds[:, :3, :4]
+        self.pixtocams = pixtocams
+        self.distortion_params = distortions
+        self.camtype = camtype
+        self._load_fipt_images(config, nameprefixes)
+
+
+class TanksAndTemplesNerfPP(Dataset):
+    """Tanks and Temples in NeRF++'s layout: `{split}/{pose,intrinsics,rgb}/`
+    text files and images sorted by name (the `camera_path` folder under
+    `Config.render_path`), the poses' y and z flipped."""
+
+    def _load_renderings(self, config):
+        split_str = "camera_path" if config.render_path else _split_name(self.split)
+        basedir = os.path.join(self.data_dir, split_str)
+
+        def load_files(dirname, load_fn, shape=None):
+            d = os.path.join(basedir, dirname)
+            mats = np.array([load_fn(os.path.join(d, f)) for f in sorted(os.listdir(d))])
+            return mats.reshape(mats.shape[:1] + shape) if shape else mats
+
+        poses = np.matmul(load_files("pose", np.loadtxt, (4, 4)), np.diag([1.0, -1, -1, 1]))
+        intrinsics = load_files("intrinsics", np.loadtxt, (4, 4))
+        self.images = (load_files("rgb", io_lib.load_img) / 255.0)[..., :3].astype(np.float32)
+        self.camtoworlds = poses[:, :3, :4].astype(np.float32)
+        self.pixtocams = np.linalg.inv(intrinsics)[..., :3, :3].astype(np.float32)
+
+
+class TanksAndTemplesFVS(Dataset):
+    """Tanks and Temples in Free View Synthesis' layout: the image pyramid
+    `dense/ibr3d*` (the `Config.factor`-th from the finest), its `im_*`
+    images and `Ks.npy` / `Rs.npy` / `ts.npy` (OpenCV world-to-camera)
+    cameras, aligned by ``camera_utils.transform_poses_pca``; every
+    `Config.llffhold`-th image held out."""
+
+    def _load_renderings(self, config):
+        basedir = os.path.join(self.data_dir, "dense")
+        sizes = sorted(f for f in os.listdir(basedir) if f.startswith("ibr3d"))[::-1]
+        if config.factor >= len(sizes):
+            raise ValueError(f"Factor {config.factor} larger than {len(sizes)}")
+        basedir = os.path.join(basedir, sizes[config.factor])
+        files = sorted(f for f in os.listdir(basedir) if f.startswith("im_"))
+        images = np.array([io_lib.load_img(os.path.join(basedir, f)) for f in files]) / 255.0
+        intrinsics = np.load(os.path.join(basedir, "Ks.npy"))
+        rot = np.load(os.path.join(basedir, "Rs.npy"))
+        trans = np.load(os.path.join(basedir, "ts.npy"))
+        w2c = np.concatenate([rot, trans[..., None]], axis=-1)
+        c2w = np.linalg.inv(camera_utils.pad_poses(w2c))[:, :3, :4] @ np.diag([1.0, -1, -1, 1])
+        poses, _ = camera_utils.transform_poses_pca(c2w)
+        all_indices = np.arange(images.shape[0])
+        test = all_indices % config.llffhold == 0
+        indices = all_indices[~test] if self.split == "train" else all_indices[test]
+        self.images = images[indices][..., :3].astype(np.float32)
+        self.camtoworlds = poses[indices].astype(np.float32)
+        self.pixtocams = np.linalg.inv(intrinsics)[..., :3, :3].astype(np.float32)
+        if self.pixtocams.shape[0] == images.shape[0]:
+            self.pixtocams = self.pixtocams[indices]
+
+
+class DTU(Dataset):
+    """DTU MVS scans: `rect_{i:03d}_{light}.png` views (the light condition
+    `Config.dtu_light_cond`) area-downsampled by `Config.factor`, each
+    camera from its projection matrix `../../Calibration/cal18/pos_{i}.txt`
+    (``camera_utils.decompose_projection_matrix``, OpenCV's decomposition,
+    which the card's machine does not have), the poses recentred on their
+    focus point and scaled into [-1, 1]; every `Config.llffhold`-th image
+    held out."""
+
+    def _load_renderings(self, config):
+        def load_image(i):
+            if config.dtu_light_cond < 7:
+                light_str = f"{config.dtu_light_cond}_r" + ("5000" if i < 50 else "7000")
+            else:
+                light_str = "max"
+            image = io_lib.load_img(
+                os.path.join(self.data_dir, f"rect_{i:03d}_{light_str}.png")) / 255.0
+            if config.factor > 1:
+                image = io_lib.downsample(image, config.factor)
+            projection = np.loadtxt(
+                os.path.join(self.data_dir, f"../../Calibration/cal18/pos_{i:03d}.txt"),
+                dtype=np.float32)
+            camera_mat, rot_mat, t = camera_utils.decompose_projection_matrix(projection)
+            camera_mat = camera_mat / camera_mat[2, 2]
+            pose = np.eye(4, dtype=np.float32)
+            pose[:3, :3] = rot_mat.transpose()
+            pose[:3, 3] = (t[:3] / t[3])[:, 0]
+            if config.factor > 0:
+                camera_mat = np.diag([1.0 / config.factor, 1.0 / config.factor, 1.0]).astype(
+                    np.float32) @ camera_mat
+            return image, pose[:3], np.linalg.inv(camera_mat)
+
+        n_images = len(os.listdir(self.data_dir)) // 8
+        images, camtoworlds, pixtocams = zip(*[load_image(i) for i in range(1, n_images + 1)])
+        images = np.stack(images)
+        camtoworlds = np.stack(camtoworlds) @ np.diag([1.0, -1, -1, 1]).astype(np.float32)
+        camtoworlds, _ = camera_utils.transform_poses_focus(camtoworlds)
+        camtoworlds[:, :3, -1] /= np.max(np.abs(camtoworlds[:, :3, -1]))
+        all_indices = np.arange(images.shape[0])
+        test = all_indices % config.llffhold == 0
+        indices = all_indices[~test] if self.split == "train" else all_indices[test]
+        self.images = images[indices][..., :3].astype(np.float32)
+        self.camtoworlds = camtoworlds[indices].astype(np.float32)
+        self.pixtocams = np.stack(pixtocams)[indices].astype(np.float32)
+
+
+class RTMV(Dataset):
+    """RTMV's ray-traced views: every `*.exr` (not `.depth.exr` or
+    `.seg.exr`) beside its camera `*.json` (`cam2world`, `fx`), both sorted
+    by name, area-downsampled by `Config.factor`, made sRGB and multiplied
+    by their alpha (the masks); both splits are every view."""
+
+    def _load_renderings(self, config):
+        filenames = sorted(os.listdir(self.data_dir))
+        image_filenames = [f for f in filenames if f.endswith(".exr")
+                           and not f.endswith(".depth.exr") and not f.endswith(".seg.exr")]
+        camera_filenames = [f for f in filenames if f.endswith(".json")]
+        assert len(image_filenames) == len(camera_filenames)
+        images, poses = [], []
+        camera_data = None
+        for image_f, camera_f in zip(image_filenames, camera_filenames):
+            channels = io_lib.load_exr(os.path.join(self.data_dir, image_f))
+            if config.factor > 1:
+                channels = io_lib.downsample(channels, config.factor)
+            images.append(image_ops.linear_to_srgb_host(channels))
+            with open(os.path.join(self.data_dir, camera_f)) as fp:
+                camera_data = json.load(fp)["camera_data"]
+            poses.append(np.array(camera_data["cam2world"]).T[:3, :4])
+        self.images = np.stack(images, axis=0)
+        rgb = self.images[..., :3]
+        alpha = (self.images[..., -1:] if self.images.shape[-1] == 4
+                 else np.ones_like(rgb[..., :1]))
+        self.images = (rgb * alpha).astype(np.float32)
+        self.masks = alpha.astype(np.float32)
+        h, w = self.images.shape[1:3]
+        focal = float(camera_data["intrinsics"]["fx"]) / max(config.factor, 1)
+        self.pixtocams = camera_utils.get_pixtocam(focal, w, h)[None].astype(np.float32)
+        self.camtoworlds = np.stack(poses, axis=0).astype(np.float32)
+
+
+def _read_sfm_camera(path):
+    """One SfM camera in the open JSON or `.npz` encoding that the JAX
+    package's PixelRig and Aerial loaders read: `focal_length`,
+    `pixel_aspect_ratio` (fy = f * aspect, default 1), `principal_point_x`
+    / `_y`, optional `image_size_x` / `_y`, and `camera_from_world` or
+    `world_from_camera` [4, 4]. Returns {camera_from_world, calibration,
+    focal_length, image_size_x, image_size_y}; any other file raises."""
+    with open(path, "rb") as f:
+        blob = f.read()
+    cam = None
+    try:
+        cam = {k: np.asarray(v) for k, v in json.loads(blob).items()}
+    except (UnicodeDecodeError, json.JSONDecodeError):
+        try:
+            cam = dict(np.load(io.BytesIO(blob), allow_pickle=False))
+        except Exception:
+            pass
+    if cam is None or "focal_length" not in cam:
+        raise NotImplementedError(
+            f"camera file {path!r} is not the open JSON/npz SfM-camera format (see "
+            "_read_sfm_camera); vision_sfm CameraProto binaries are not read: re-export the "
+            "cameras as JSON/npz.")
+    if "camera_from_world" in cam:
+        cam_from_world = np.asarray(cam["camera_from_world"], np.float64)
+    else:
+        cam_from_world = np.linalg.inv(np.asarray(cam["world_from_camera"], np.float64))
+    f = float(cam["focal_length"])
+    aspect = float(cam.get("pixel_aspect_ratio", 1.0))
+    calibration = camera_utils.intrinsic_matrix(
+        f, f * aspect, float(cam["principal_point_x"]), float(cam["principal_point_y"]))
+    return {"camera_from_world": cam_from_world, "calibration": calibration,
+            "focal_length": f, "image_size_x": int(cam.get("image_size_x", 0)),
+            "image_size_y": int(cam.get("image_size_y", 0))}
+
+
+def _opencv_pose(cam_from_world, translation_scale):
+    """World-from-camera [3, 4] in OpenGL axes, its position scaled."""
+    pose = np.linalg.inv(camera_utils.pad_poses(cam_from_world[:3, :4]))[:3, :4]
+    pose = pose @ np.diag([1.0, -1.0, -1.0, 1.0])
+    pose[:3, -1] *= translation_scale
+    return pose
+
+
+class PixelRig(Dataset):
+    """A Pixel phone's five-camera cross rig, forward-facing, rendered in NDC
+    space: the images of `data_dir` and the cameras of its
+    `scaled_camera_pose` twin (``_read_sfm_camera``), positions scaled by
+    1 / `Config.near`, the world's y and z flipped, near 0 and far 1; the
+    NDC warp's pixtocam centred, of the first camera's focal. Under
+    `Config.render_path` the cameras are a ring of `render_path_frames`
+    around the rig's centre through the first camera's intrinsics."""
+
+    def _load_renderings(self, config):
+        images_dir = self.data_dir
+        cameras_dir = images_dir.replace("scaled_images", "scaled_camera_pose")
+        image_files = sorted(os.listdir(images_dir))
+        camera_files = sorted(os.listdir(cameras_dir))
+        assert len(image_files) == len(camera_files)
+        images, poses, pixtocams = [], [], []
+        for image_f, camera_f in zip(image_files, camera_files):
+            images.append(io_lib.load_img(os.path.join(images_dir, image_f)) / 255.0)
+            cam = _read_sfm_camera(os.path.join(cameras_dir, camera_f))
+            poses.append(_opencv_pose(cam["camera_from_world"], 1.0 / config.near))
+            pixtocams.append(np.linalg.inv(cam["calibration"]))
+        self.near, self.far = 0.0, 1.0
+        poses = np.diag([1.0, -1.0, -1.0]) @ np.stack(poses, axis=0)
+        radius = np.mean(np.linalg.norm(poses[:, :3, -1], axis=-1))
+        angles = np.linspace(0, 2 * np.pi, config.render_path_frames, endpoint=False)
+        self.render_poses = np.stack([
+            np.concatenate([np.eye(3), radius * np.array([[np.cos(a)], [np.sin(a)], [0.0]])],
+                           axis=-1) for a in angles], axis=0).astype(np.float32)
+        if config.render_path:
+            self.camtoworlds = self.render_poses
+            self.pixtocams = pixtocams[0].astype(np.float32)
+        else:
+            self.camtoworlds = poses.astype(np.float32)
+            self.pixtocams = np.stack(pixtocams, axis=0).astype(np.float32)
+        self.images = np.stack(images, axis=0)[..., :3].astype(np.float32)
+        h, w = self.images.shape[1:3]
+        focal = 1.0 / self.pixtocams.reshape(-1, 3, 3)[0, 0, 0]
+        self.pixtocam_ndc = np.linalg.inv(
+            camera_utils.intrinsic_matrix(focal, focal, w / 2.0, h / 2.0)).astype(np.float32)
+
+
+class Aerial(Dataset):
+    """Aerial captures: `rgb/` images and `cameras/` (``_read_sfm_camera``)
+    sorted by name, positions divided by `Config.world_scale`; every
+    `Config.llffhold`-th image held out. Under `Config.render_path` the
+    cameras are those of `orbit_cameras/` where it exists (their
+    intrinsics, the last one's), else a ring of `render_path_frames` over
+    the scene with a focal of 3 widths."""
+
+    def _load_renderings(self, config):
+        images_dir = os.path.join(self.data_dir, "rgb")
+        cameras_dir = os.path.join(self.data_dir, "cameras")
+        image_files = sorted(os.listdir(images_dir))
+        camera_files = sorted(os.listdir(cameras_dir))
+        assert len(image_files) == len(camera_files)
+        images = np.stack([io_lib.load_img(os.path.join(images_dir, f)) / 255.0
+                           for f in image_files], axis=0)
+
+        def load_cam(path):
+            cam = _read_sfm_camera(path)
+            pose = _opencv_pose(cam["camera_from_world"], 1.0 / config.world_scale)
+            return cam, pose, np.linalg.inv(cam["calibration"])
+
+        cams = [load_cam(os.path.join(cameras_dir, f)) for f in camera_files]
+        poses = np.stack([c[1] for c in cams], axis=0)
+        pixtocams = np.stack([c[2] for c in cams], axis=0)
+        all_indices = np.arange(images.shape[0])
+        is_test = all_indices % config.llffhold == 0
+        indices = all_indices[is_test if self.split != "train" else ~is_test]
+        self.images = images[indices][..., :3].astype(np.float32)
+        self.camtoworlds = poses[indices].astype(np.float32)
+        self.pixtocams = pixtocams[indices].astype(np.float32)
+        if not config.render_path:
+            return
+        orbit_dir = os.path.join(self.data_dir, "orbit_cameras")
+        if os.path.isdir(orbit_dir):
+            render_poses = []
+            for f in sorted(os.listdir(orbit_dir)):
+                cam, pose, pixtocam = load_cam(os.path.join(orbit_dir, f))
+                render_poses.append(pose)
+                self.pixtocams = pixtocam.astype(np.float32)
+                if cam["image_size_x"]:
+                    self.width = cam["image_size_x"]
+                    self.height = cam["image_size_y"]
+            self.camtoworlds = np.stack(render_poses, axis=0).astype(np.float32)
+        else:
+            h, w = images.shape[1:3]
+            angles = np.linspace(0, 2 * np.pi, config.render_path_frames, endpoint=False)
+            up = np.array([0.0, 0.0, 1.0])
+            self.camtoworlds = np.stack([
+                camera_utils.viewmatrix(np.array([np.cos(a), np.sin(a), 1.0]), up,
+                                        np.array([np.cos(a), np.sin(a), 1.0]))
+                for a in angles], axis=0).astype(np.float32)
+            focal = 3.0 * w
+            self.pixtocams = np.array([[1.0 / focal, 0.0, -0.5 * w / focal],
+                                       [0.0, -1.0 / focal, 0.5 * h / focal],
+                                       [0.0, 0.0, -1.0]], np.float32)
+
+
 # --- transient captures -----------------------------------------------------------------
 
 
@@ -946,6 +1420,49 @@ class FWPTransientCaptured(TransientSimulation):
         lossmult = np.all(cam_idx[..., None] != self.train_exclude_indices[None],
                           axis=-1).astype(np.float32)
         return self._make_transient_batch(pix_x, pix_y, cam_idx, rgb, lossmult=lossmult)
+
+
+class TransientSimulationIToF(Dataset):
+    """iToF frames stored whole: `transforms_{split}.json`, each frame's
+    image (an h5 `data` volume [H, W, 4, 3] of its four phases, or a PNG /
+    JPEG / EXR) area-downsampled by `Config.factor`; the mask where the last
+    channel's sum over the phases is positive, the frames times 255 /
+    `Config.dataset_scale` clipped to [0, 1000]; batches from the flattened
+    table of 4 bins."""
+
+    def _load_renderings(self, config):
+        _, camtoworlds, pixtocams, distortions, camtype, nameprefixes = load_ngp_posedata(
+            config, self.data_dir, f"transforms_{_split_name(self.split)}.json")
+        images = np.stack([
+            io_lib.get_imgs(self.data_dir, max(config.factor, 1), self._use_tiffs,
+                            self._use_exrs, False, False, False, False, p)[0]
+            for p in nameprefixes], axis=0)
+        self.masks = (images[..., -1].sum(-1) > 0).astype(np.float32)[..., None]
+        self.alphas = self.masks[..., 0]
+        images = np.clip(images[..., :3] * 255 / config.dataset_scale, 0, 1000.0)
+        self.images = images.astype(np.float32)
+        self._flattened = True
+        self.images_flattened, self.indices_flattened = flatten_transient_data(
+            list(self.images), n_bins=4)
+        self.camtoworlds = camtoworlds[:, :3, :4]
+        self.pixtocams = pixtocams
+        self.distortion_params = distortions
+        self.camtype = camtype
+        self.lights = self.camtoworlds[..., :3, -1]
+
+
+class PreloadedData(Dataset):
+    """Arrays already in memory, the constructor's keywords: images [N, H,
+    W, 3], camtoworlds [N, 3, 4], pixtocams [N or 1, 3, 3]."""
+
+    def __init__(self, split, data_dir, config, device="cuda", **kwargs):
+        self._preloaded = kwargs
+        super().__init__(split, data_dir, config, device=device)
+
+    def _load_renderings(self, config):
+        self.images = np.asarray(self._preloaded["images"], np.float32)
+        self.camtoworlds = np.asarray(self._preloaded["camtoworlds"], np.float32)
+        self.pixtocams = np.asarray(self._preloaded["pixtocams"], np.float32)
 
 
 # --- the procedural scene ----------------------------------------------------------------

@@ -95,8 +95,8 @@ def render_test_view(render_fn, dataset, cam_idx, rng, config, train_frac=1.0):
     view's batch). The outputs in EVAL_UNREAD stay on the device."""
     batch = dataset.generate_ray_batch(cam_idx)
     if isinstance(batch.rays, pytrees.Pixels):
-        # In-step casting ships Pixels; an eval view is cast on the host,
-        # without jitter, as in JAX.
+        # In-step casting ships Pixels; an eval view is cast on the host
+        # (lens distortion and the NDC warp too), without jitter, as in JAX.
         pixels = pytrees.Pixels(**{f.name: None if getattr(batch.rays, f.name) is None
                                    else _host(getattr(batch.rays, f.name))
                                    for f in dataclasses.fields(batch.rays)})

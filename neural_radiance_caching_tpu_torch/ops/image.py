@@ -37,6 +37,17 @@ def linear_to_srgb(linear, eps=None):
     return torch.where(linear <= 0.0031308, srgb0, srgb1)
 
 
+def linear_to_srgb_host(linear, eps=None):
+    """Linear -> sRGB transfer of a host array (the loaders' colour
+    conversion), in float32 as the JAX function computes it on one."""
+    if eps is None:
+        eps = _F32_EPS
+    linear = np.asarray(linear, np.float32)
+    srgb0 = 323 / 25 * linear
+    srgb1 = (211 * np.maximum(np.float32(eps), linear) ** (5 / 12) - 11) / 200
+    return np.where(linear <= 0.0031308, srgb0, srgb1)
+
+
 def srgb_to_linear(srgb, eps=None):
     """sRGB -> linear transfer of a host array (the loaders' colour
     conversion), as the JAX function computes it on one: the affine parts in

@@ -235,22 +235,15 @@ def _debias_forward(model, rng, rays, train_frac, model_results):
 
 def _ray_caster(config, dataset, model):
     """rays(rng, rays) of the train step: a Pixels batch cast against the
-    dataset's cameras and lights, held on the model's device (the JAX step's
-    jnp casting, with ``Config.jitter_rays``); a Rays batch as it is."""
+    dataset's cameras (their lens distortion and NDC warp too) and lights,
+    held on the model's device (the JAX step's jnp casting, with
+    ``Config.jitter_rays``); a Rays batch as it is."""
     cast = None
     if config.cast_rays_in_train_step and dataset is not None:
         device = next(model.parameters()).device
-
-        def on_device(x):  # float64 host cameras become float32, as jnp.asarray makes them
-            t = torch.as_tensor(x)
-            return (t.float() if t.dtype == torch.float64 else t).to(device)
-
-        cameras = tuple(on_device(c) for c in dataset.cameras)
-        lights = on_device(dataset.lights)
-        impulse = None if dataset.impulse_response is None else on_device(
-            dataset.impulse_response)
-        virtual = None if dataset.virtual_camtoworlds is None else on_device(
-            dataset.virtual_camtoworlds)
+        cameras = camera_utils.cameras_to(dataset.cameras, device)
+        lights, impulse, virtual = camera_utils.cameras_to(
+            (dataset.lights, dataset.impulse_response, dataset.virtual_camtoworlds), device)
         cast = functools.partial(camera_utils.cast_ray_batch, cameras, lights,
                                  jitter=config.jitter_rays, impulse_response=impulse,
                                  virtual_camtoworlds=virtual)

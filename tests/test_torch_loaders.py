@@ -294,6 +294,10 @@ def test_load_ngp_posedata_equals_jax(case, tmp_path):
 @pytest.mark.parametrize("case,match", [("distortion", "k1, k2, p1, p2"),
                                         ("camera_type", "'fisheye_equisolid' camera_type")])
 def test_blender_refuses_distortion_and_other_cameras(case, match, tmp_path):
+    """A blender scene whose transforms carry distortion or a fisheye
+    camera_type loads as in JAX: the distortion keys (`match` lists them)
+    and the camera type kept, the cameras and the host cast's rays equal to
+    JAX's (no cast reads the camera type: `test_torch_colmap.py`)."""
     meta, _ = POSE_CASES[case]
     frames = []
     for split in ("train", "test"):
@@ -304,9 +308,16 @@ def test_blender_refuses_distortion_and_other_cameras(case, match, tmp_path):
             _write_png(str(tmp_path / f"{split}/r_{i}.png"), np.ones((RES, RES, 4)))
         with open(tmp_path / f"transforms_{split}.json", "w") as f:
             json.dump(dict(meta, frames=frames[-2:]), f)
-    config = TConfig(dataset_loader="blender", batch_size=8)
-    with pytest.raises(NotImplementedError, match=match):
-        tdatasets.load_dataset("train", str(tmp_path), config, device="cpu")
+    kw = dict(dataset_loader="blender", batch_size=8, near=2.0, far=6.0)
+    want = jdatasets.load_dataset("train", str(tmp_path), JConfig(**kw))
+    got = tdatasets.load_dataset("train", str(tmp_path), TConfig(**kw), device="cpu")
+    if case == "distortion":
+        assert ", ".join(got.distortion_params) == match
+        assert got.distortion_params == want.distortion_params
+    else:
+        assert f"'{got.camtype.value}' camera_type" == match
+        assert got.camtype.value == want.camtype.value
+    _assert_batch(got.next_train(), want.next_train(), _exact)
 
 
 # --- fixture scenes ------------------------------------------------------------------------
@@ -528,19 +539,23 @@ def test_blender_factor_quirk_is_kept(scenes):
             assert x.max() < 0
 
 
-# The loaders `test_torch_transient_loaders.py` and `test_torch_open_loaders.py`
+# The loaders `test_torch_colmap.py` (llff) and `test_torch_more_loaders.py`
 # hold against JAX's.
-TRANSIENT_LOADERS = {"transient_simulation", "fwp_transient_captured"}
-REAL_CAPTURE_LOADERS = {"open_illum", "neilf", "glossy_real"}
+COLMAP_SLICE_LOADERS = ("aerial", "dtu", "fipt_real", "fipt_synthetic", "llff", "pixelrig",
+                        "preloaded", "real", "rtmv", "tat_fvs", "tat_nerfpp",
+                        "transient_simulation_itof")
 
 
-@pytest.mark.parametrize("name", sorted(set(tdatasets.LOADERS) - set(LOADER_CONFIG)
-                                        - TRANSIENT_LOADERS - REAL_CAPTURE_LOADERS
-                                        - {"synthetic_spheres"}))
+@pytest.mark.parametrize("name", COLMAP_SLICE_LOADERS)
 def test_other_loaders_raise_by_name(name):
-    with pytest.raises(NotImplementedError, match=f"'{name}' dataset loader"):
+    """Each of these loaders, built by name, fails on a missing scene as
+    JAX's does (the same exception), none as a loader not ported."""
+    with pytest.raises(Exception) as want:
+        jdatasets.load_dataset("train", "/nonexistent", JConfig(dataset_loader=name))
+    with pytest.raises(type(want.value)) as got:
         tdatasets.load_dataset("train", "/nonexistent", TConfig(dataset_loader=name),
                                device="cpu")
+    assert "not ported" not in str(got.value)
 
 
 def test_loader_refusals(scenes, tmp_path):

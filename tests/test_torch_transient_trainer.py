@@ -226,7 +226,7 @@ def _rays(tt):
     """One train batch of `tt`'s dataset cast on the host, as (JAX rays, port
     rays)."""
     data = tt.dataset
-    trays = tcam.cast_ray_batch(tuple(torch.as_tensor(c) for c in data.cameras),
+    trays = tcam.cast_ray_batch(tcam.cameras_to(data.cameras, "cpu"),
                                 torch.as_tensor(data.lights), data.next_train().rays)
     jrays = jpytrees.Rays(**{f.name: jnp.asarray(getattr(trays, f.name).numpy())
                              for f in dataclasses.fields(trays)
@@ -255,10 +255,10 @@ def test_cast_ray_batch_matches_jax(jitter):
         cams["cameras"], cams["lights"], p, rng=jax.random.PRNGKey(3), jitter=jitter, xnp=jnp))
     with material_slice.injected(11):
         want = cast(jpix)
-        got = tcam.cast_ray_batch(tuple(torch.as_tensor(c) for c in tdata.cameras),
+        got = tcam.cast_ray_batch(tcam.cameras_to(tdata.cameras, "cpu"),
                                   torch.as_tensor(tdata.lights), tpix,
                                   rng=torch.Generator().manual_seed(0), jitter=jitter)
-    unjittered = tcam.cast_ray_batch(tuple(torch.as_tensor(c) for c in tdata.cameras),
+    unjittered = tcam.cast_ray_batch(tcam.cameras_to(tdata.cameras, "cpu"),
                                      torch.as_tensor(tdata.lights), tpix)
     for field in ("origins", "directions", "viewdirs", "radii", "imageplane", "look", "up",
                   "cam_origins", "lights", "near", "far", "lossmult"):
