@@ -258,8 +258,10 @@ Phases, one line each (any failure exits nonzero):
      wall seconds, decode seconds per image and host GiB, ms per step,
      rays/s, peak GiB, the launches (asserted: none on the hotdog, on the
      teapot 1 leveled + 1 planes, on the bell 1 planes per step at 8192),
-     one held-out view's PSNR, and a step with every scatter call held
-     against its plain version.
+     one held-out view's PSNR (hotdog's test views written at 200^2), and
+     a step with every scatter call held against its plain version; then
+     train_one_stage --vis_only on the hotdog's material checkpoint over
+     its first test view: results.txt, the saved render, no launch.
  35. transient disk reference: small scenes in the layouts of cornell's
      (transient_simulation: the simulation's transforms JSONs, [H, W, bins,
      3] frames) and statue_fwp's (fwp_transient_captured: per-frame
@@ -297,8 +299,8 @@ Phases, one line each (any failure exits nonzero):
      with that writer: the first three batches the card gets equal the CPU
      loader's, and one cache step of each at NGP_NARROW's widths, GPU
      against CPU, as phase 33 (2 leveled launches each);
- 38. real disk train: the three layouts at cut sizes (open_egg 20 train
-     and 6 test views of 2048 x 1536 read at factor 2, its test split at
+ 38. real disk train: the three layouts at cut sizes (open_egg 12 train
+     and 4 test views of 2048 x 1536 read at factor 2, its test split at
      factor 8; neilf_castel 24 views of 1536 x 1024 at factor 4;
      glossy_bear 24 views of 1024 x 768), through the entry point as
      train_one_stage.py builds its command: open_egg's cache stage at the
@@ -366,7 +368,27 @@ Phases, one line each (any failure exits nonzero):
      step: 3 steps with every leveled call held against its plain version,
      5 timed, then 5 on batches cast on the host, 1 leveled launch per step
     (launches_by_path colmap_*).
-Every evaluation through the trainer (phases 20-38, 42) scores LPIPS on
+ 43. multi illum: a small open_egg object (phase 37's size) with
+     illuminations 011 and 009 rendered on the card under the point light
+     turned about +z by 120 and 240 degrees and the three illuminations'
+     Radiance env maps (32 x 64, written by the script): the loader under
+     Config.multi_illumination serving the card equal to the CPU's
+     (arrays, env-map tables, the first three batches, light indices 0-2),
+     one cache_multi_illum step at NGP_NARROW's widths with the
+     illumination embeddings of the four shaders on and
+     Config.multiple_illumination_outputs = False, GPU against CPU as phase
+     37 (2 leveled launches, each held against its plain version), and the
+     configs' own multiple_illumination_outputs = True through the entry
+     point raising the reference gap's error before its first step; then
+     phase 38's open_egg object with the two other illuminations written
+     beside it, through the entry point as train_one_stage.py builds its
+     command: cache_multi_illum at the largest of 8192, 4096, 2048 that
+     fits, then material_light_from_scratch_resample_multi_illum
+     warm-started from it at the largest of 1024, 512, 256, as phase 38
+     (the launches asserted: 1 leveled + 1 planes per cache step at 8192,
+     six leveled per material step; the material stage's light_sampling
+     NaN in every step, as JAX computes it; launches_by_path multi_illum_*).
+Every evaluation through the trainer (phases 20-38, 42, 43) scores LPIPS on
 the card beside PSNR and SSIM, and phase 34's hotdog material stage
 renders the secondary-ray probe (256 x 512) at its evaluation.
 Then the kernels JSON line, the eval JSON line, the transient material JSON
@@ -3774,15 +3796,17 @@ DISK_SCENES = {
 DISK_NEAR = {"hotdog": 2.0, "orb_teapot": 0.25, "nero_bell": 1.0, "open_egg": 0.25,
              "neilf_castel": 0.25, "glossy_bear": 0.1, "colmap_garden": 0.2,
              "colmap_garden_in_step": 0.2}
-# (views of the train split, of the test split, resolution) at phase 34,
-# the captures' layouts, their view counts cut to keep the script inside
-# its time limit: TensoIR's hotdog (30 of its 100 train views of 800^2
-# RGBA; 4 of its 200 test views), ORB's teapot (2048^2 EXR read at factor
+# (views of the train split, of the test split, resolution[, the test
+# split's resolution]) at phase 34, the captures' layouts, their view counts
+# cut to keep the script inside its time limit: TensoIR's hotdog (30 of its
+# 100 train views of 800^2 RGBA; 4 of its 200 test views, written at 200^2:
+# its material stage's held-out view took 51 s at 800^2, and the vis_only
+# evaluation renders one more), ORB's teapot (2048^2 EXR read at factor
 # 4; 20 train and 2 test views: the capture's counts are not in the
 # repository and each view is a 48 MiB FLOAT EXR), NeRO's bell (20 of its
 # 128 views of 800^2, every 8th held out by synthetic_split_128.pkl, all
 # trained on).
-DISK_SIZES = {"hotdog": (30, 4, 800), "orb_teapot": (20, 2, 2048), "nero_bell": (20, 4, 800)}
+DISK_SIZES = {"hotdog": (30, 4, 800, 200), "orb_teapot": (20, 2, 2048), "nero_bell": (20, 4, 800)}
 # Phase 33's: small scenes of the same layouts.
 DISK_REFERENCE_SIZES = {"hotdog": (6, 2, 64), "orb_teapot": (6, 2, 128),
                         "nero_bell": (8, 2, 64)}
@@ -4114,15 +4138,17 @@ def _write(path, data):
         f.write(data)
 
 
-def _trace_spheres(torch, device, origins, dirs, scale):
+def _trace_spheres(torch, device, origins, dirs, scale, light=None):
     """The procedural spheres (SyntheticSpheres.SPHERES scaled by `scale`,
-    lambertian under its point light and ambient term) along rays
-    `origins`, `dirs` [N, 3] (unit) on the card: (rgb [N, 3] in [0, 1],
-    white where no sphere is hit; the hit mask; the hit's distance along the
-    ray, inf where none; the hit points)."""
+    lambertian under its point light, or the point `light` before the
+    scaling, and its ambient term) along rays `origins`, `dirs` [N, 3]
+    (unit) on the card: (rgb [N, 3] in [0, 1], white where no sphere is hit;
+    the hit mask; the hit's distance along the ray, inf where none; the hit
+    points)."""
     from neural_radiance_caching_tpu_torch.data import datasets
 
-    light = torch.as_tensor(datasets.SyntheticSpheres.LIGHT, device=device) * scale
+    light = torch.as_tensor(datasets.SyntheticSpheres.LIGHT if light is None else light,
+                            dtype=torch.float32, device=device) * scale
     ambient = datasets.SyntheticSpheres.AMBIENT
     best = torch.full(dirs.shape[:1], float("inf"), device=device)
     rgb = torch.ones_like(dirs)
@@ -4147,9 +4173,10 @@ def _trace_spheres(torch, device, origins, dirs, scale):
 
 
 def _render_spheres(torch, device, c2w, pixtocam, size, scale, center=(0.0, 0.0, 0.0),
-                    distortion=None):
-    """The procedural spheres (scaled by `scale`, moved to `center`) seen by
-    each camera of `c2w` [N, 3, 4] through `pixtocam` [3, 3] at size^2 (or
+                    distortion=None, light=None):
+    """The procedural spheres (scaled by `scale`, moved to `center`, lit by
+    `_trace_spheres`' `light`) seen by each camera of `c2w` [N, 3, 4]
+    through `pixtocam` [3, 3] (or one [3, 3] per camera) at size^2 (or
     size = (height, width)), with OpenCV's `distortion` (a dict of floats,
     inverted by the port's Newton solve) where given, on the card, one view
     at a time: yields (rgb [h, w, 3] in [0, 1], alpha, the hit's distance
@@ -4160,13 +4187,15 @@ def _render_spheres(torch, device, c2w, pixtocam, size, scale, center=(0.0, 0.0,
     ys, xs = torch.meshgrid(torch.arange(h, device=device, dtype=torch.float32),
                             torch.arange(w, device=device, dtype=torch.float32),
                             indexing="ij")
-    pix = torch.as_tensor(pixtocam, dtype=torch.float32, device=device)[None]
+    pixtocams = torch.as_tensor(pixtocam, dtype=torch.float32, device=device)
     shift = torch.tensor(center, dtype=torch.float32, device=device)
-    for pose in c2w:
+    for i, pose in enumerate(c2w):
         cam = torch.as_tensor(pose, dtype=torch.float32, device=device)[None]
+        pix = pixtocams[i:i + 1] if pixtocams.dim() == 3 else pixtocams[None]
         rays = camera_utils.pixels_to_rays(xs.reshape(-1), ys.reshape(-1), pix, cam,
                                            distortion_params=distortion)
-        rgb, alpha, best, _ = _trace_spheres(torch, device, rays[0] - shift, rays[2], scale)
+        rgb, alpha, best, _ = _trace_spheres(torch, device, rays[0] - shift, rays[2], scale,
+                                             light)
         depth = torch.where(alpha, best, torch.full_like(best, 15.0))
         yield (rgb.reshape(h, w, 3).cpu().numpy(), alpha.reshape(h, w).float().cpu().numpy(),
                depth.reshape(h, w).cpu().numpy())
@@ -4185,7 +4214,7 @@ def _frames(poses, split, **meta):
 
 def write_disk_scene(torch, device, scene, root, sizes, pool):
     """`scene`'s capture layout in `root` at `sizes` (train views, test
-    views, resolution), the views rendered on the card and encoded by the
+    views, resolution[, the test views' resolution]), the views rendered on the card and encoded by the
     `pool`'s threads: hotdog as TensoIR's blender scenes (transforms JSONs
     with camera_angle_x, 8-bit RGBA PNGs), orb_teapot as ORB's (per-frame
     intrinsics, RGB FLOAT EXRs, 8-bit `{split}_mask` PNGs), nero_bell as
@@ -4200,7 +4229,7 @@ def write_disk_scene(torch, device, scene, root, sizes, pool):
 
     from neural_radiance_caching_tpu_torch.data import camera_utils, exr
 
-    n_train, n_test, size = sizes
+    n_train, n_test, size, *test_size = sizes
     radius, scale = DISK_CAMERAS[scene]
     jobs = []
 
@@ -4229,6 +4258,8 @@ def write_disk_scene(torch, device, scene, root, sizes, pool):
     else:
         data_dir = root
         for s, (split, n) in enumerate((("train", n_train), ("test", n_test))):
+            if split == "test" and test_size:
+                size = test_size[0]
             poses = camera_utils.generate_spherical_poses(n, radius=radius, seed=51 + s)
             if scene == "hotdog":
                 focal = 0.5 * size / np.tan(0.5 * BLENDER_CAMERA_ANGLE_X)
@@ -4490,18 +4521,99 @@ def phase_disk_train(torch, device, seed, steps, smi, tmp):
                                   test_views=sizes[1], resolution=sizes[2],
                                   views=f"{sizes[0]} train views at {sizes[2]}^2")
             print(f"disk train: wrote {scene} ({DISK_SCENES[scene]}'s layout, {sizes[0]} train "
-                  f"+ {sizes[1]} test views at {sizes[2]}^2, rendered on the card): {files} "
+                  f"views at {sizes[2]}^2 + {sizes[1]} test views at {sizes[-1]}^2, rendered on "
+                  f"the card): {files} "
                   f"files, {nbytes / 2**30:.3f} GiB in {written[scene]['write_s']:.1f}s",
                   flush=True)
     results = _disk_entry_runs(torch, device, "disk train", DISK_RUNS, written, seed, steps,
                                smi, tmp)
-    return {"written": written, **results}
+    trained = results["hotdog_material_light_from_scratch_resample"]
+    vis_only = _hotdog_vis_only(torch, device, written["hotdog"]["data_dir"], tmp,
+                                trained["batch"], trained["warmup"] + trained["steps"])
+    return {"written": written, **results, "hotdog_vis_only": vis_only}
+
+
+def _hotdog_vis_only(torch, device, data_dir, tmp, batch, trained_steps):
+    """The README's evaluation command on a steady family: train_one_stage
+    --vis_only on the hotdog's material checkpoint that DISK_RUNS trained
+    (`batch`, `trained_steps`), over its first test view (Trainer.vis_end =
+    1, render chunk 1024): results.txt, the saved render, no kernel launch.
+    The blender loader reads no albedo images (in JAX neither), so
+    Config.compute_albedo_metrics is left off here; its path is held against
+    JAX on the CPU (tests/test_torch_open_checks.py, the blender_active
+    loader)."""
+    import json
+    import os
+
+    import numpy as np
+
+    from neural_radiance_caching_tpu_torch import train_one_stage, train_with_trainer
+    from neural_radiance_caching_tpu_torch.engine import gin_config
+    from neural_radiance_caching_tpu_torch.engine import trainer as trainer_lib
+    from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+
+    stage = "material_light_from_scratch_resample"
+    ckpt = os.path.join(tmp, f"disk_hotdog_{stage}_{batch}")
+    command = train_one_stage.stage_command(
+        ["--scene", "hotdog", "-t", stage, "--sample_factor", "8", "--render_chunk_size",
+         "1024", "--vis_only", "--device", device, "--gin_bindings=Trainer.vis_end = 1"],
+        checkpoint_dir=ckpt)
+    args = [c for c in command[3:] if c != "--logtostderr"] + [
+        f"--gin_bindings={b}" for b in _disk_bindings("hotdog", data_dir)]
+    views, renders = [], []
+    evaluate, render = (trainer_lib.Trainer.log_test_set_evaluation,
+                        trainer_lib.Trainer.render_test_view)
+
+    def timed(fn, out):
+        def call(self, *a):
+            t0 = time.perf_counter()
+            result = fn(self, *a)
+            out.append(time.perf_counter() - t0)
+            return result
+        return call
+
+    gin_config.clear_config()
+    torch.cuda.reset_peak_memory_stats()
+    scatter_cuda.reset_launch_count()
+    t0 = time.perf_counter()
+    with _patched(trainer_lib.Trainer, log_test_set_evaluation=timed(evaluate, views),
+                  render_test_view=timed(render, renders)):
+        shown = train_with_trainer.main(args)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(scatter_cuda.launches)
+    save = os.path.join(ckpt, "save")
+    lines = open(os.path.join(save, "results.txt")).read().splitlines()
+    metrics = {line.split(": ")[0]: json.loads(line.split(": ", 1)[1]) for line in lines}
+    rgb = np.load(os.path.join(save, "color", "000000.npy"))
+    cfg = shown.config
+    ok = (math.isfinite(metrics["psnr"][0]) and math.isfinite(metrics["lpips"][0])
+          and rgb.shape == (shown.test_dataset.height, shown.test_dataset.width, 3)
+          and bool(np.isfinite(rgb).all())
+          and len(views) == len(renders) == 1 and int(shown.state.step) == trained_steps
+          and launches == _launch_counts())
+    print(f"disk vis_only: train_one_stage --scene hotdog -t {stage} --vis_only "
+          f"(Trainer.vis_end = 1) on the material checkpoint (step {int(shown.state.step)}): the "
+          f"test view {rgb.shape[1]}x{rgb.shape[0]}, render chunk {cfg.render_chunk_size}: "
+          f"results.txt psnr={metrics['psnr'][0]:.3f} ssim={metrics['ssim'][0]:.4f} lpips="
+          f"{metrics['lpips'][0]:.4f}; the eval view took {views[0]:.2f}s, its render "
+          f"{renders[0]:.2f}s, of the command's {wall:.1f}s; peak {peak:.2f} GiB; the saved "
+          f"render {list(rgb.shape)} finite; kernel launches={launches} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the vis_only evaluation of the hotdog's material stage failed")
+    del shown
+    gin_config.clear_config()
+    return dict(view=f"{rgb.shape[1]}x{rgb.shape[0]}", eval_s_per_image=views[0],
+                render_s=renders[0], command_s=wall, peak_gib=peak, psnr=metrics["psnr"][0],
+                ssim=metrics["ssim"][0], lpips=metrics["lpips"][0], launches=launches)
 
 
 def _disk_entry_runs(torch, device, label, runs, written, seed, steps, smi, tmp):
     """`runs`, (scene, train_one_stage arguments, batches to try, the run it
     warm-starts from, launches per step by kernel as a function of the batch
-    and the trainer, timed steps or None for `steps`, extra bindings),
+    and the trainer, timed steps or None for `steps`, extra bindings[, loss
+    terms that must be NaN, as the JAX package computes them]),
     through the train_with_trainer entry point as train_one_stage builds its
     command, in-process, reading the scene `written[scene]` holds (its
     loader and near plane by `_disk_bindings`), each at
@@ -4518,7 +4630,8 @@ def _disk_entry_runs(torch, device, label, runs, written, seed, steps, smi, tmp)
     from neural_radiance_caching_tpu_torch.engine import gin_config
 
     warmup, results, ckpts = 3, {}, {}
-    for scene, argv, batches, warm_from, expected, timed_steps, extra in runs:
+    for scene, argv, batches, warm_from, expected, timed_steps, extra, *nan_terms in runs:
+        nan_terms = tuple(nan_terms[0]) if nan_terms else ()
         stage = argv[argv.index("-t") + 1]
         timed = timed_steps or steps
         cut = []
@@ -4553,16 +4666,21 @@ def _disk_entry_runs(torch, device, label, runs, written, seed, steps, smi, tmp)
                                            run["log"], run["total"])
         per_step = expected(batch, trainer)
         calls, checked_launches, stats = _checked_step(torch, trainer, per_step)
-        terms = ("data", "cache_data") + (("mask",) if stage == "cache"
+        terms = ("data", "cache_data") + (("mask",) if stage.startswith("cache")
                                           and trainer.dataset.masks is not None else ())
-        finite = _finite(losses.values()) and all(f"loss/{k}" in losses for k in terms)
+        nan_keys = {f"loss/{k}" for k in nan_terms} | ({"loss"} if nan_terms else set())
+        finite = (_finite(v for k, v in losses.items() if k not in nan_keys)
+                  and all(f"loss/{k}" in losses for k in terms + nan_terms)
+                  and all(losses[k] != losses[k] for k in nan_keys)
+                  and all(math.isnan(float(stats["losses"][k])) for k in nan_terms))
         metrics = run["metrics"]
         probed = "Trainer.vis_secondary = True" in extra
         probe_ok = (not probed) or bool(
             probe.get("shape") == (*trainer._probe_resolution(), 3) and probe["finite"])
         ok = (finite and run["saved"] == total and probe_ok
               and run["launches"] == _launch_counts(**{k: n * total for k, n in per_step.items()})
-              and bool(torch.isfinite(stats["loss"])) and len(calls) == sum(per_step.values())
+              and bool(torch.isfinite(stats["loss"])) != bool(nan_terms)
+              and len(calls) == sum(per_step.values())
               and all(c["ok"] for c in calls) and checked_launches == _launch_counts(**per_step)
               and math.isfinite(metrics["psnr"]) and _lpips_ok(metrics))
         n_params = sum(p.numel() for p in trainer.model.parameters())
@@ -4575,7 +4693,9 @@ def _disk_entry_runs(torch, device, label, runs, written, seed, steps, smi, tmp)
               f"{timed} timed steps: {_loading_text(load)}; step_ms={dt * 1e3:.2f} "
               f"rays_per_s={batch / dt:.0f} (train_log rays_per_sec={log[-1]['rays_per_sec']:.0f} "
               f"over steps 2-{total}) on [{smi}]; peak {run['peak_gib']:.2f} GiB; losses finite "
-              f"and present={finite} {losses}; checkpoint step {run['saved']}; kernel launches="
+              f"and present={finite}" + (f" ({', '.join(nan_terms)} NaN, as in JAX)"
+                                         if nan_terms else "")
+              + f" {losses}; checkpoint step {run['saved']}; kernel launches="
               f"{run['launches']} (expected {per_step or 'none'} per step); held-out view "
               f"{run['view']}: psnr={metrics['psnr']:.2f} {_lpips_text(metrics)} "
               f"in {run['eval_s']:.2f}s" + (
@@ -5135,13 +5255,14 @@ REAL_SCENES = {
 }
 # (views, held-out views, height, width) at phase 38, cut stand-ins (the
 # captures, their view counts and sizes are not in the repository):
-# OpenIllumination's egg, 20 train and 6 test views of 2048 x 1536 read at
+# OpenIllumination's egg, 12 train and 4 test views of 2048 x 1536 read at
 # the config's factor 2 (its test split at factor 8, so that the held-out
-# view is 256 x 192); NeILF++'s castel, 24 views of 1536 x 1024 of which
+# view is 256 x 192; 20 and 6 before phase 43 read each view under three
+# illuminations); NeILF++'s castel, 24 views of 1536 x 1024 of which
 # VALIDATION_INDEXES hold out 9, read at factor 4; NeRO's bear, 24 views in
 # images_raw_1024 at 1024 x 768 (its probe in images/ at 2048 x 1536), every
 # view in both splits.
-REAL_SIZES = {"open_egg": (20, 6, 1536, 2048), "neilf_castel": (24, 0, 1024, 1536),
+REAL_SIZES = {"open_egg": (12, 4, 1536, 2048), "neilf_castel": (24, 0, 1024, 1536),
               "glossy_bear": (24, 0, 768, 1024)}
 # Phase 37's: the same layouts, small (NeRO's views stay 1024 wide: the
 # loader scales the intrinsics to images_raw_1024's size).
@@ -6537,6 +6658,247 @@ def phase_colmap_train(torch, device, seed, smi, tmp):
     return {"written": written, **results, "flagship": flagship}
 
 
+# Phase 43: training under OpenIllumination's three illuminations (the
+# `_multi_illum` suffix of train_one_stage.py). Illuminations 011 and 009 of
+# an object written by `write_real_scene` are the spheres rendered under the
+# point light turned about +z by these angles; each illumination's Radiance
+# env map (a sky and a sun at the light's azimuth, MULTI_ILLUM_ENV_SIZE) is
+# written three levels above the object's `output/`.
+MULTI_ILLUMS = {"013": 0.0, "011": 120.0, "009": 240.0}
+MULTI_ILLUM_ENV_SIZE = (32, 64)
+# The one form of the outputs JAX runs (the configs' own
+# multiple_illumination_outputs = True is a reference gap), with the
+# illumination embeddings of the four shaders on.
+MULTI_ILLUM_BINDINGS = ("Config.multiple_illumination_outputs = False",) + tuple(
+    f"{c}.use_illumination_feature = True"
+    for c in ("NeRFMLP", "MaterialMLP", "LightMLP", "SurfaceLightFieldMLP"))
+# The material stage's light_sampling is NaN in JAX and in the port: the
+# light sampler's one-mixture output layer is read at the ray's light index
+# (LightMLP.multiple_illumination_outputs = True in the configs), past its
+# end for illuminations 011 and 009 (tests/test_torch_multi_illum.py).
+MULTI_ILLUM_NAN_TERMS = ("light_sampling",)
+# Phase 43's runs, as `_disk_entry_runs` takes them: open_egg's
+# cache_multi_illum stage, then material_light_from_scratch_resample_multi_illum
+# warm-started from it, each reading the test split at factor 8.
+MULTI_ILLUM_RUNS = (
+    ("open_egg", ("--scene", "obj_02_egg", "-t", "cache_multi_illum"), (8192, 4096, 2048), None,
+     _open_launches, None, ("Config.test_factor = 8",) + MULTI_ILLUM_BINDINGS),
+    ("open_egg", ("--scene", "obj_02_egg", "-t",
+                  "material_light_from_scratch_resample_multi_illum", "--sample_factor", "8",
+                  "--render_chunk_size", "1024"), (1024, 512, 256),
+     "open_egg_cache_multi_illum", _open_material_launches, None,
+     ("Config.test_factor = 8",) + MULTI_ILLUM_BINDINGS, MULTI_ILLUM_NAN_TERMS),
+)
+
+
+def hdr_bytes(rgb):
+    """A Radiance RGBE file of `rgb` [H, W, 3] (float, >= 0), each scanline
+    run-length encoded in the new style as literal runs of at most 128
+    bytes."""
+    import numpy as np
+
+    h, w, _ = rgb.shape
+    peak = rgb.max(-1)
+    mantissa, exponent = np.frexp(peak)
+    lit = peak > 1e-32
+    scale = np.where(lit, mantissa * 256.0 / np.where(lit, peak, 1.0), 0.0)
+    rgbe = np.zeros((h, w, 4), np.uint8)
+    rgbe[..., :3] = np.clip(rgb * scale[..., None], 0, 255).astype(np.uint8)
+    rgbe[..., 3] = np.where(lit, exponent + 128, 0)
+    body = bytearray()
+    for y in range(h):
+        body += bytes([2, 2, w >> 8, w & 255])
+        for c in range(4):
+            row = rgbe[y, :, c].tobytes()
+            for i in range(0, w, 128):
+                body += bytes([len(row[i:i + 128])]) + row[i:i + 128]
+    return b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y %d +X %d\n" % (h, w) + bytes(body)
+
+
+def _illumination_light(angle):
+    """SyntheticSpheres' point light turned about +z by `angle` degrees."""
+    import numpy as np
+
+    from neural_radiance_caching_tpu_torch.data import datasets
+
+    a = np.radians(angle)
+    rot = np.array([[np.cos(a), -np.sin(a), 0.0], [np.sin(a), np.cos(a), 0.0], [0.0, 0.0, 1.0]])
+    return (rot @ datasets.SyntheticSpheres.LIGHT).astype(np.float32)
+
+
+def _env_map(angle, size):
+    """A sky brightening toward the zenith and a sun at the light's azimuth
+    (equirectangular, [h, w, 3])."""
+    import numpy as np
+
+    h, w = size
+    theta = (np.arange(h) + 0.5) / h * np.pi
+    phi = (np.arange(w) + 0.5) / w * 2 * np.pi
+    sky = 0.2 + 0.8 * np.cos(theta / 2)[:, None, None] * np.array([0.5, 0.7, 1.0])
+    rgb = np.broadcast_to(sky, (h, w, 3)).copy()
+    sun = np.exp(-((theta[:, None] - 0.6) ** 2 + (phi[None] - np.radians(angle) - 0.5) ** 2)
+                 / 0.02)
+    return rgb + 40.0 * sun[..., None]
+
+
+def write_illuminations(torch, device, data_dir, pool):
+    """Illuminations 011 and 009 of the OpenIllumination object at
+    `data_dir` (its `output/`): every view of both splits rendered on the
+    card under MULTI_ILLUMS' light into `../Lights/{illumination}/
+    raw_undistorted/` (the script's JPEG writer, 4:2:0 at quality 95), and
+    the three env maps `../../../env_maps/hdrs/{illumination}.hdr`. Returns
+    (bytes written, files)."""
+    import json
+    import os
+
+    import numpy as np
+
+    obj = os.path.dirname(os.path.normpath(data_dir))
+    opencv = np.diag([1.0, -1.0, -1.0, 1.0])
+    _, scale = REAL_CAMERAS["open_egg"]
+    paths, jobs = [], []
+    for illum, angle in MULTI_ILLUMS.items():
+        path = os.path.normpath(os.path.join(data_dir, "..", "..", "..", "env_maps", "hdrs",
+                                             f"{illum}.hdr"))
+        _write(path, hdr_bytes(_env_map(angle, MULTI_ILLUM_ENV_SIZE)))
+        paths.append(path)
+        if illum == "013":
+            continue
+        lights = os.path.join(obj, "Lights", illum, "raw_undistorted")
+        for split in ("train", "test"):
+            with open(os.path.join(data_dir, f"transforms_{split}.json")) as f:
+                frames = json.load(f)["frames"]
+            poses = [(np.array(fr["transform_matrix"]) @ opencv)[:3] for fr in frames]
+            pixtocams = [np.linalg.inv(np.array([[fr["fl_x"], 0, fr["cx"]],
+                                                 [0, fr["fl_y"], fr["cy"]], [0, 0, 1]]))
+                         for fr in frames]
+            size = (frames[0]["h"], frames[0]["w"])
+            views = _render_spheres(torch, device, np.array(poses), np.array(pixtocams), size,
+                                    scale, light=_illumination_light(angle))
+            for fr, (rgb, _, _) in zip(frames, views):
+                path = os.path.join(lights, os.path.basename(fr["file_path"]) + ".JPG")
+                pixels = np.round(rgb * 255).astype(np.uint8)
+                jobs.append(pool.submit(lambda p=path, x=pixels: _write(p, jpeg_encode(x, 95)[0])))
+                paths.append(path)
+    for job in jobs:
+        job.result()
+    return sum(os.path.getsize(p) for p in paths), len(paths)
+
+
+def phase_multi_illum_reference(torch, device, seed, tmp):
+    """open_egg's layout at REAL_REFERENCE_SIZES with its three
+    illuminations (`write_illuminations`): the multi-illumination loader
+    serving the card gives the CPU loader's arrays, env-map tables and first
+    three batches bit for bit (the light index of every illumination among
+    them); one cache_multi_illum step at NGP_NARROW's widths with the
+    embeddings on, GPU against CPU (`_gpu_vs_cpu_step`: every loss term,
+    every gradient leaf, the CPU noise floor, two faults planted in the
+    leveled kernel, every launch held against its plain version); then the
+    configs' own Config.multiple_illumination_outputs = True through the
+    entry point as train_one_stage.py builds its command, raising the
+    reference gap's error before its first step."""
+    import concurrent.futures
+    import os
+
+    import numpy as np
+
+    from neural_radiance_caching_tpu_torch import train_one_stage, train_with_trainer
+    from neural_radiance_caching_tpu_torch.data import datasets
+    from neural_radiance_caching_tpu_torch.engine import configs, gin_config
+    from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+
+    config_file = REAL_SCENES["open_egg"]
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        data_dir, _, _ = write_real_scene(torch, device, "open_egg",
+                                          os.path.join(tmp, "multi_illum_reference"),
+                                          REAL_REFERENCE_SIZES["open_egg"], pool)
+        write_illuminations(torch, device, data_dir, pool)
+    data = _disk_bindings("open_egg", data_dir) + ("Config.multi_illumination = True",)
+    narrow = NGP_NARROW + (_narrow_slf_binding(config_file),) + MULTI_ILLUM_BINDINGS
+    gin_config.clear_config()
+    configs.load_config(config_files=[config_file], bindings=list(TRAINER_BINDINGS + narrow + data))
+    config = configs.Config()
+    gin_config.clear_config()
+    loaded = [datasets.load_dataset("train", data_dir, config, device=dev)
+              for dev in ("cpu", device)]
+    arrays = all(np.array_equal(np.asarray(getattr(loaded[0], k)), np.asarray(getattr(loaded[1], k)))
+                 for k in ("images", "light_idx", "camtoworlds", "pixtocams", "env_map",
+                           "env_map_pmf", "env_map_pdf", "env_map_dirs"))
+    same, light_idx = True, set()
+    for _ in range(3):
+        want, got = (ds.next_train() for ds in loaded)
+        same &= _same_batch(torch, got, want)
+        light_idx |= set(got.rays.light_idx.cpu().reshape(-1).tolist())
+    served = (type(loaded[0]).__name__, tuple(loaded[0].images.shape),
+              tuple(loaded[0].env_map.shape))
+    del loaded
+    r = _gpu_vs_cpu_step(torch, device, seed, TRAINER_CACHE_STAGE + narrow + data, config_file,
+                         launches=REAL_REFERENCE_LAUNCHES, terms=("data", "cache_data", "mask"))
+
+    # The suffix as the configs leave it.
+    ckpt = os.path.join(tmp, "multi_illum_gap")
+    command = train_one_stage.stage_command(
+        ["--scene", "obj_02_egg", "-t", "cache_multi_illum", "--batch_size", "64", "--device",
+         device], checkpoint_dir=ckpt)
+    args = [c for c in command[3:] if c != "--logtostderr"] + [
+        f"--gin_bindings={b}" for b in _disk_bindings("open_egg", data_dir)]
+    scatter_cuda.reset_launch_count()
+    gin_config.clear_config()
+    try:
+        train_with_trainer.main(args)
+        gap = "no error"
+    except NotImplementedError as e:
+        gap = str(e)
+    gin_config.clear_config()
+    gap_ok = (gap.startswith("Config.multiple_illumination_outputs = True")
+              and "reference gap" in gap and "nerf_shader.py:531" in gap
+              and not os.path.exists(os.path.join(ckpt, "train_log.jsonl"))
+              and dict(scatter_cuda.launches) == _launch_counts())
+    ok = r["ok"] and same and arrays and light_idx == {0, 1, 2} and gap_ok
+    print(f"multi illum reference: {served[0]} loader under Config.multi_illumination on "
+          f"{config_file}'s layout with illuminations {', '.join(MULTI_ILLUMS)} (images "
+          f"{list(served[1])}, env maps {list(served[2])}): arrays and tables equal on the CPU "
+          f"and serving the card={arrays}, the card's first three batches equal to the CPU "
+          f"loader's={same} with light indices {sorted(light_idx)}; cache_multi_illum at "
+          f"reference widths with the embeddings, one step, the same weights, batch and draws, "
+          f"gpu vs cpu: {_gpu_vs_cpu_text(r)}; the leveled calls against their plain version: "
+          f"{_checked_text(r['checked'])}; kernel launches gpu={r['launches']} "
+          f"cpu={r['cpu_launches']}; train_one_stage -t cache_multi_illum as the configs leave "
+          f"multiple_illumination_outputs (True): raised before its first step={gap_ok} "
+          f"({gap[:96]}...) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the multi-illumination scene's loader, GPU step or reference gap "
+                             "disagrees")
+    return dict({k: v for k, v in r.items()
+                 if k not in ("ok", "checked", "cpu_launches", "grad_rel_l2_errs")},
+                batches_equal=same, arrays_equal=arrays, light_idx=sorted(light_idx),
+                gap_raised=gap_ok)
+
+
+def phase_multi_illum_train(torch, device, seed, steps, smi, tmp, written):
+    """Illuminations 011 and 009 and the three env maps written beside
+    phase 38's open_egg object (`written`, its writing's seconds and size),
+    then MULTI_ILLUM_RUNS through the train_with_trainer entry point
+    (`_disk_entry_runs`: loading, next_train, step ms, peak, an eval view,
+    a checked step)."""
+    import concurrent.futures
+
+    egg = dict(written["open_egg"])
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        nbytes, files = write_illuminations(torch, device, egg["data_dir"], pool)
+    egg.update(write_s=time.perf_counter() - t0, gib=nbytes / 2**30, files=files,
+               views=egg["views"] + f" under illuminations {', '.join(MULTI_ILLUMS)}")
+    print(f"multi illum train: wrote illuminations {', '.join(list(MULTI_ILLUMS)[1:])} of "
+          f"open_egg ({egg['views']}, rendered on the card under the light turned about +z) "
+          f"and the env maps of {', '.join(MULTI_ILLUMS)} ({MULTI_ILLUM_ENV_SIZE[1]}x"
+          f"{MULTI_ILLUM_ENV_SIZE[0]} Radiance HDR): {files} files, {nbytes / 2**30:.3f} GiB in "
+          f"{egg['write_s']:.1f}s", flush=True)
+    results = _disk_entry_runs(torch, device, "multi illum train", MULTI_ILLUM_RUNS,
+                               {"open_egg": egg}, seed, steps, smi, tmp)
+    return {"written": egg, **results}
+
+
 def _profile(torch, train_step, state, rng, batches, path, steps=3):
     """Device time by kernel over `steps` steps, as a table written to `path`."""
     import pathlib
@@ -6570,8 +6932,8 @@ def main():
     parser.add_argument("--transient-material-steps", type=int, default=10,
                         help="timed transient material train steps of each form (bench, trainer)")
     parser.add_argument("--trainer-steps", type=int, default=5,
-                        help="timed steps of each run through the entry point (phases 20-38; "
-                             "5 keeps the whole script under 950 s with phases 40-42)")
+                        help="timed steps of each run through the entry point (phases 20-38, "
+                             "42, 43)")
     parser.add_argument("--profile", metavar="FILE",
                         help="also profile train steps and write the op tables to FILE "
                              "(cache), and FILE with .material, .transient, "
@@ -6665,6 +7027,9 @@ def main():
         data_parallel = phase_data_parallel(torch, device, args.seed, smi, tmp)
         colmap_reference = phase_colmap_reference(torch, device, args.seed, tmp)
         colmap = phase_colmap_train(torch, device, args.seed, smi, tmp)
+        multi_reference = phase_multi_illum_reference(torch, device, args.seed, tmp)
+        multi = phase_multi_illum_train(torch, device, args.seed, args.trainer_steps, smi, tmp,
+                                        real["written"])
     print(f"phases done in {time.perf_counter() - t_start:.1f}s, build included", flush=True)
 
     csrc = "neural_radiance_caching_tpu_torch/csrc"
@@ -6706,7 +7071,7 @@ def main():
     leveled_launches.update(baseline_leveled)
     baseline_planes = {f"trainer_{run}": r["launches_by_kernel"].get("planes", 0)
                        for run, r in baseline.items()}
-    disk_runs = {run: r for run, r in disk.items() if run != "written"}
+    disk_runs = {run: r for run, r in disk.items() if run not in ("written", "hotdog_vis_only")}
     disk_leveled = {
         **{f"trainer_disk_reference_{scene}": disk_reference[scene]["launches"]
            for scene in DISK_SCENES},
@@ -6740,14 +7105,21 @@ def main():
                          for run, r in colmap_runs.items()},
                       "colmap_flagship": colmap["flagship"]["launches"]}
     leveled_launches.update(colmap_leveled)
+    multi_runs = {run: r for run, r in multi.items() if run != "written"}
+    multi_leveled = {"multi_illum_reference": multi_reference["launches"],
+                     **{f"multi_illum_{run}": r["launches_by_kernel"]["leveled"]
+                        for run, r in multi_runs.items()}}
+    leveled_launches.update(multi_leveled)
     real_planes = {f"trainer_real_disk_{run}": r["launches_by_kernel"]["planes"]
                    for run, r in real_runs.items()}
+    multi_planes = {f"multi_illum_{run}": r["launches_by_kernel"]["planes"]
+                    for run, r in multi_runs.items()}
     other_paths = {"trainer_transient_train": 0, "trainer_transient_occlusions": 0,
                    **{k: 0 for k in tmat_paths}, **{k: 0 for k in slf_paths},
                    **{k: 0 for k in invprop_paths}, **{k: 0 for k in baseline_leveled},
                    **{k: 0 for k in disk_leveled}, **{k: 0 for k in transient_disk_leveled},
                    **{k: 0 for k in real_leveled}, **{k: 0 for k in dp_leveled},
-                   **{k: 0 for k in colmap_leveled}}
+                   **{k: 0 for k in colmap_leveled}, **{k: 0 for k in multi_leveled}}
     print(json.dumps({"kernels": [{
         "name": "scatter_add_weighted_leveled",
         "route": "cuda",
@@ -6777,7 +7149,9 @@ def main():
                            *(r["max_abs_err_by_kernel"].get("leveled", 0.0)
                              for r in real_runs.values()),
                            *(data_parallel[stage]["max_abs_err"] for stage in DP_STAGES),
-                           colmap["flagship"]["max_abs_err"]),
+                           colmap["flagship"]["max_abs_err"], multi_reference["max_abs_err"],
+                           *(r["max_abs_err_by_kernel"].get("leveled", 0.0)
+                             for r in multi_runs.values())),
         "max_abs_err_by_shape": {"cache": kernel["max_abs_err"],
                                  "material_path": material_err["leveled"],
                                  "transient_path": transient["direct"]["max_abs_err"],
@@ -6818,7 +7192,11 @@ def main():
                                     if "leveled" in r["max_abs_err_by_kernel"]},
                                  **{f"data_parallel_{stage}_path": data_parallel[stage][
                                      "max_abs_err"] for stage in DP_STAGES},
-                                 "colmap_flagship_path": colmap["flagship"]["max_abs_err"]},
+                                 "colmap_flagship_path": colmap["flagship"]["max_abs_err"],
+                                 "multi_illum_reference_path": multi_reference["max_abs_err"],
+                                 **{f"multi_illum_{run}_path": r["max_abs_err_by_kernel"][
+                                     "leveled"] for run, r in multi_runs.items()
+                                    if "leveled" in r["max_abs_err_by_kernel"]}},
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
         "library_ms": kernel["library_ms"],
@@ -6860,16 +7238,16 @@ def main():
         "source": f"{csrc}/scatter_weighted.cu",
         "replaces": f"{replaces}:364",
         "launches": material["planes"] + sum(baseline_planes.values())
-        + sum(disk_planes.values()) + sum(real_planes.values()),
+        + sum(disk_planes.values()) + sum(real_planes.values()) + sum(multi_planes.values()),
         "launches_by_path": {"cache_train": 0, "material_train": material["planes"],
                              "transient_train": 0, "transient_train_dedup": 0, "gate": 0,
                              "eval_render": 0, "transient_material": 0, "trainer_train": 0,
                              "trainer_material_train": 0, **other_paths, **baseline_planes,
-                             **disk_planes, **real_planes},
+                             **disk_planes, **real_planes, **multi_planes},
         "max_abs_err": max(planes["max_abs_err"], material_err["planes"],
                            *(r["max_abs_err_by_kernel"].get("planes", 0.0)
                              for r in [*baseline.values(), *disk_runs.values(),
-                                       *real_runs.values()])),
+                                       *real_runs.values(), *multi_runs.values()])),
         "max_abs_err_by_shape": {"planes_shape": planes["max_abs_err"],
                                  "material_path": material_err["planes"],
                                  **{f"trainer_{run}_path": r["max_abs_err_by_kernel"]["planes"]
@@ -6880,6 +7258,9 @@ def main():
                                     if "planes" in r["max_abs_err_by_kernel"]},
                                  **{f"trainer_real_disk_{run}_path": r["max_abs_err_by_kernel"][
                                      "planes"] for run, r in real_runs.items()
+                                    if "planes" in r["max_abs_err_by_kernel"]},
+                                 **{f"multi_illum_{run}_path": r["max_abs_err_by_kernel"][
+                                     "planes"] for run, r in multi_runs.items()
                                     if "planes" in r["max_abs_err_by_kernel"]}},
         "ms": planes["ms"],
         "plain_ms": planes["plain_ms"],
@@ -6933,7 +7314,8 @@ def main():
         "transient_disk_reference": transient_disk_reference,
         "real_disk_train": real, "real_disk_reference": real_reference,
         "data_parallel": data_parallel, "colmap_reference": colmap_reference,
-        "colmap_train": colmap, "device": smi}}), flush=True)
+        "colmap_train": colmap, "multi_illum_reference": multi_reference,
+        "multi_illum_train": multi, "device": smi}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

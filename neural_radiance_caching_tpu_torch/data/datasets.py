@@ -594,23 +594,30 @@ class OpenIllum(Dataset):
     """OpenIllumination light-stage captures (the `output/` directory of an
     object): poses from `transforms_{split}.json`, the intrinsics scaled and
     the images shrunk by `Config.factor` (`test_factor` on the test split),
-    the `.JPG` images of illumination 013 from
-    `../Lights/013/raw_undistorted/` resized by OpenCV's Lanczos-4, made
-    linear, and composited on white by the `com_masks` (train, > 0.5) or
-    `obj_masks` (test, > 0) PNGs resized by nearest; each pixel's light
-    index 0, the lights at the cameras. Under
-    ``Config.compute_relight_metrics`` the views are those of illumination
-    `env_map_name`, and its Radiance HDR env map
-    `../../../env_maps/hdrs/{env_map_name}.hdr` (times 2.5) gives the
-    ``env_map*`` tables. The other illuminations
-    (`Config.multi_illumination`) raise."""
+    the `.JPG` images of each illumination from
+    `../Lights/{illumination}/raw_undistorted/` resized by OpenCV's
+    Lanczos-4, made linear, and composited on white by the `com_masks`
+    (train, > 0.5) or `obj_masks` (test, > 0) PNGs resized by nearest; the
+    lights at the cameras. The illuminations: 013 alone; under
+    ``Config.multi_illumination`` (not with ``vis_only``) the three of
+    ``ILLUM_MAPS_MULTI``, each pixel's light index that of its
+    illumination's place, the cameras repeated once per illumination, and
+    the three Radiance HDR env maps
+    `../../../env_maps/hdrs/{illumination}.hdr` (times 2.5) giving the
+    ``env_map*`` tables, concatenated along JAX's axes; under
+    ``Config.compute_relight_metrics`` the views of illumination
+    `env_map_name` and its env map's tables."""
 
-    ILLUM_MAP = "013"
+    ILLUM_MAPS_MULTI = ["013", "011", "009"]
 
     def _load_renderings(self, config):
-        if config.multi_illumination:
-            raise NotImplementedError("Config.multi_illumination (OpenIllumination's other "
-                                      "illuminations and their env maps) is not ported yet")
+        multi = config.multi_illumination
+        if self._load_env_map:
+            illum_maps = [config.env_map_name]
+        elif config.vis_only or not multi:
+            illum_maps = ["013"]
+        else:
+            illum_maps = list(self.ILLUM_MAPS_MULTI)
         split = _split_name(self.split)
         _, camtoworlds, pixtocams, distortions, camtype, nameprefixes = load_ngp_posedata(
             config, self.data_dir, f"transforms_{split}.json")
@@ -618,14 +625,12 @@ class OpenIllum(Dataset):
                      else (config.test_factor or config.factor), 1)
         pixtocams = pixtocams @ np.diag([factor, factor, 1.0])
         camtoworlds = (camtoworlds @ np.diag([1, -1, -1, 1.0]))[:, :3, :4]
-
-        illum_map = config.env_map_name if self._load_env_map else self.ILLUM_MAP
-        lights_dir = f"../Lights/{illum_map}/raw_undistorted"
         mask_dir = "./com_masks" if self.split == "train" else "./obj_masks"
 
-        def load_image(prefix):
-            image = io_lib.get_img(1, ".JPG", os.path.join(
-                self.data_dir, prefix.replace("./images", lights_dir))) / 255.0
+        def load_image(item):
+            illum_map, prefix = item
+            image = io_lib.get_img(1, ".JPG", os.path.join(self.data_dir, prefix.replace(
+                "./images", f"../Lights/{illum_map}/raw_undistorted"))) / 255.0
             image = io_lib.resize_lanczos4(
                 image, (image.shape[1] // factor, image.shape[0] // factor))
             return np.clip(image_ops.srgb_to_linear(image), 0.0, np.inf)
@@ -636,20 +641,30 @@ class OpenIllum(Dataset):
             mask = io_lib.resize_nearest(mask, (mask.shape[1] // factor, mask.shape[0] // factor))
             return mask[..., None] > (0.5 if self.split == "train" else 0.0)
 
-        images = _map_views(load_image, nameprefixes)
-        # The PNG decoder's many small steps hold the GIL: threads slow it.
-        mask_images = [load_mask(prefix) for prefix in nameprefixes]
-        self.light_idx = np.zeros((len(images),) + images[0].shape[:2] + (1,), np.int32)
+        images = _map_views(load_image, [(m, p) for m in illum_maps for p in nameprefixes])
+        # The PNG decoder's many small steps hold the GIL: threads slow it. Every
+        # illumination reads the same masks.
+        mask_images = [load_mask(prefix) for prefix in nameprefixes] * len(illum_maps)
+        n = len(nameprefixes)
+        self.light_idx = np.stack([np.full(image.shape[:2] + (1,), i // n, np.int32)
+                                   for i, image in enumerate(images)])
         self.mask_images = np.stack(mask_images, axis=0).astype(np.float32)
         rgb = np.stack(images, axis=0)[..., :3]
         alpha = self.mask_images[..., :1]
         self.images = (rgb * alpha + (1.0 - alpha)).astype(np.float32)
         self.masks = alpha
-        if self._load_env_map:
-            tables = env_maps.load_env_map(
-                os.path.join(self.data_dir, f"../../../env_maps/hdrs/{illum_map}.hdr"), scale=2.5)
-            for k, v in tables.items():
-                setattr(self, k, v)
+        if multi:
+            camtoworlds = np.concatenate([camtoworlds] * len(illum_maps), axis=0)
+            pixtocams = np.concatenate([pixtocams] * len(illum_maps), axis=0)
+        if multi or self._load_env_map:
+            tables = [env_maps.load_env_map(os.path.join(
+                self.data_dir, f"../../../env_maps/hdrs/{name}.hdr"), scale=2.5)
+                for name in illum_maps]
+            for name, axis in (("env_map", -2), ("env_map_pmf", -1), ("env_map_pdf", -1),
+                               ("env_map_dirs", -2)):
+                setattr(self, name, np.concatenate([t[name] for t in tables], axis=axis))
+            self.env_map_h = tables[0]["env_map_h"]
+            self.env_map_w = tables[0]["env_map_w"]
         self.camtoworlds = camtoworlds
         self.pixtocams = pixtocams
         self.distortion_params = distortions

@@ -84,6 +84,22 @@ class Dense(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
+class Embed(nn.Module):
+    """The JAX ``nn.Embed``: a table ``embedding`` [num_embeddings, features]
+    (flax's default init, a normal of variance 1 / features truncated at two
+    deviations), rows taken by index."""
+
+    def __init__(self, num_embeddings, features):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.empty(num_embeddings, features))
+        std = pymath.sqrt(1.0 / features) / 0.87962566103423978
+        with torch.no_grad():
+            nn.init.trunc_normal_(self.embedding, std=std, a=-2 * std, b=2 * std)
+
+    def forward(self, idx):
+        return self.embedding[idx.long()]
+
+
 class SkipMLP(nn.Module):
     """Dense layers with activation; after layer i (i > 0, i % skip == 0)
     the MLP input is concatenated back on.

@@ -3,14 +3,19 @@ and ``LightSourceMap`` in ``models/light_sampler.py``).
 
 ``LightMLP``: a von Mises-Fisher mixture over incoming-light directions at
 each surface point, predicted from the sampler's own hash grid; the material
-shader uses it to importance-sample secondary rays. Multi-illumination
-outputs are not ported yet and raise.
+shader uses it to importance-sample secondary rays. Under
+``Config.multi_illumination`` it reads the ray's light index: the
+illumination embedding ``light_vecs`` joins its feature with
+``use_illumination_feature``, its output layer holds one mixture per
+illumination with ``Config.multiple_illumination_outputs``, and its field
+``multiple_illumination_outputs`` picks the ray's (JAX's gather: on a
+one-mixture layer the light indices past 0 give NaN, as in JAX).
 
 ``LightSourceMap``: InvProp's calibrated pulsed light, which the transient
 material shader owns: a learnable position offset, look direction, power,
 transient shift and dark level, and an angular multiplier (a small network
 over the point's angle to the light's look direction, or an angular
-Gaussian). Structured light raises.
+Gaussian). Structured light raises as the reference gap it is.
 """
 
 from __future__ import annotations
@@ -43,10 +48,12 @@ class LightMLP(shading.BaseShader):
 
     def __init__(self, config=None, density_feature_dim=0, **kwargs):
         super().__init__(config, **kwargs)
-        if config.multi_illumination:
-            raise NotImplementedError("multi-illumination light samplers are not ported yet")
         feature_dim = self._build_trunk(density_feature_dim)
-        self.output_layer = Dense(feature_dim, self.num_components * 5, self.compute_dtype)
+        if self.reads_illumination_feature:
+            feature_dim += self._make_light_vecs()
+        self.output_layer = Dense(
+            feature_dim, self.num_components * self.num_illumination_outputs * 5,
+            self.compute_dtype)
 
     def get_vmfs(self, vmf_params):
         """Activations plus the fixed random jitter of the lobe means: the same
@@ -73,8 +80,12 @@ class LightMLP(shading.BaseShader):
         means = sampler_results["means"]
         pa_kwargs = self.get_predict_appearance_kwargs(rng, rays, sampler_results)
         feature = self.predict_appearance_feature(sampler_results, train=train, **pa_kwargs)
-        vmf_params = self.output_layer(feature).float().reshape(
-            means.shape[:-1] + (self.num_components, 5))
+        if self.reads_illumination_feature:
+            feature = torch.cat([feature, self.get_light_vec(rays, feature)], dim=-1)
+        vmf_params = self.output_layer(feature).float()
+        if self.selects_illumination:
+            vmf_params = self.select_illumination(rays, vmf_params, feature)
+        vmf_params = vmf_params.reshape(means.shape[:-1] + (self.num_components, 5))
         vmfs = self.get_vmfs(vmf_params)
         # Means are stored relative to the query point.
         origins = means[..., None, :].detach()
@@ -158,7 +169,7 @@ class LightSourceMap(Configurable, nn.Module):
         self.config = config
         self._set_fields(kwargs)
         if config.sl_relight:
-            raise NotImplementedError("structured light is not ported yet")
+            raise NotImplementedError(shading.SL_RELIGHT_GAP)
         self.light_source_offset = nn.Parameter(torch.zeros(3))
         self.transient_shift_offset = nn.Parameter(torch.zeros(1))
         self.dark_level_offset = nn.Parameter(torch.zeros(1))

@@ -60,10 +60,12 @@ The render passes ("cache", "light", "material", "is_secondary",
 without "material" it is the cache's, and with "is_secondary" the cache is
 queried as secondary rays (the trainer's secondary-ray probe).
 
-Not ported yet (they raise): the volume control variate, the
-multi-illumination ground-truth lights and shared materials. A relit render
-(``Config.compute_relight_metrics``) raises as the reference gap it is: the
-JAX trainer hands its model no env map tables.
+Not ported yet (they raise): the volume control variate and shared
+materials. A relit render (``Config.compute_relight_metrics``) and the
+ground-truth lights under ``Config.multi_illumination`` raise as the
+reference gaps they are: the JAX trainer hands its model no env map tables.
+Under ``Config.multi_illumination`` the cache, its SLF and the light sampler
+read each ray's light index.
 """
 
 from __future__ import annotations

@@ -41,11 +41,14 @@ output of the two estimates is kept under ``<key>_cache`` and ``<key>_slf``,
 and the cache's irradiance is the ``irradiance_cache`` output.
 
 Environment maps, BRDF correction, emission, residual albedo, the per-lobe
-path of fresh rays, cone lights and structured light are not ported yet and
-raise. The irradiance-cache fields are read by nothing, as in JAX (the
-irradiance cache's output is the SLF variate's). A relit render
-(``Config.compute_relight_metrics``) raises as a reference gap: the JAX
-trainer hands its shader's environment sampler no env map tables.
+path of fresh rays and cone lights are not ported yet and raise. The
+irradiance-cache fields are read by nothing, as in JAX (the irradiance
+cache's output is the SLF variate's), and so is the illumination embedding
+under ``Config.multi_illumination`` (JAX never calls it). A relit render
+(``Config.compute_relight_metrics``) and the ground-truth illumination
+under ``Config.multi_illumination`` raise as reference gaps: the JAX
+trainer hands its shader's environment sampler no env map tables. So does
+structured light (``shading.SL_RELIGHT_GAP``).
 """
 
 from __future__ import annotations
@@ -155,8 +158,7 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
         anisotropic_brdf_correction=False, per_point_brdf_correction=False,
         global_brdf_correction=False, emission_window_frac=0.0,
         emission_variate_weight_start=1.0, emission_variate_weight_end=1.0,
-        deg_brdf=2, deg_brdf_anisotropic=2, stopgrad_light=True, resample_cache=True,
-        num_light_features=64)):
+        deg_brdf=2, deg_brdf_anisotropic=2, stopgrad_light=True, resample_cache=True)):
     """BRDF head + secondary rays through the cache; the variants set the
     lighting (passive or active) and the integration table."""
 
@@ -216,7 +218,10 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
     rgb_bias_irradiance = 0.0
     # Secondary rays' directions take the material's gradient unless set.
     stopgrad_material = True
-    use_illumination_feature = False  # read with multi_illumination only
+    # JAX defines the material shader's illumination embedding and never
+    # calls it, so it has no parameter: these fields are read by nothing.
+    num_light_features = 64
+    use_illumination_feature = False
     # Read by the BRDF correction and SLF variate paths only; accepted so the
     # flagship parameters bind unchanged.
     net_width_brdf = 64
@@ -254,8 +259,13 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
         self._require(use_env_map=False, use_brdf_correction=False, use_diffuse_emission=False,
                       use_residual_albedo=False, separate_integration_diffuse_specular=True,
                       use_indirect=True)
-        if config.multi_illumination:
-            raise NotImplementedError("multi-illumination materials are not ported yet")
+        if config.multi_illumination and config.use_ground_truth_illumination:
+            raise NotImplementedError(
+                "Config.use_ground_truth_illumination under Config.multi_illumination is a "
+                "reference gap: the JAX trainer hands the model none of the dataset's env_map "
+                "tables, so the material shader's EnvironmentSampler "
+                "(material_shader.py:252-270) reads env_map_pmf = None and raises ValueError "
+                "('No input was provided to the clip function', ops/render_utils.py:417-432)")
         if config.compute_relight_metrics:
             raise NotImplementedError(
                 "a relit material render (Config.compute_relight_metrics) is a reference gap: "
@@ -867,7 +877,7 @@ class TransientMaterialMLP(BaseMaterialMLP):
         if not config.use_transient:
             raise ValueError("TransientMaterialMLP needs Config.use_transient")
         if config.sl_relight:
-            raise NotImplementedError("structured light is not ported yet")
+            raise NotImplementedError(shading.SL_RELIGHT_GAP)
 
     def _build_integration_strategy(self):
         return _transient_integration_strategy()

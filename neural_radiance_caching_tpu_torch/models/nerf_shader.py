@@ -27,9 +27,16 @@ shader passes. With ``Config.use_occlusions`` (and the ``occlusions_*_only``
 flags) its point light is shadowed by one shadow ray per sample, traced
 through the cache's weights only (``_compute_occlusions``).
 
-Not ported yet, raising: the active steady shader, cone lights, structured
-light, canonical-frame and intensity light conditioning, the simple BRDF
-input, env maps and the multi-illumination shaders.
+Under ``Config.multi_illumination`` the shaders read the ray's light index:
+with ``use_illumination_feature`` each concatenates its illumination
+embedding ``light_vecs`` to its feature, before the bottleneck and the heads
+(JAX ``get_light_vec``). ``Config.multiple_illumination_outputs`` with more
+than one illumination raises as the reference gap it is (``SLF_AMBIENT_GAP``).
+
+Not ported yet, raising: the active steady shader, cone lights,
+canonical-frame and intensity light conditioning, the simple BRDF input and
+env maps. Structured light (``Config.sl_relight``) raises as the reference
+gap it is (``shading.SL_RELIGHT_GAP``).
 """
 
 from __future__ import annotations
@@ -47,13 +54,20 @@ from neural_radiance_caching_tpu_torch.ops import coord, math, ref_utils, render
 from neural_radiance_caching_tpu_torch.utils import torchutil
 from neural_radiance_caching_tpu_torch.utils.torchutil import stopgrad_with_weight
 
+# Config.multiple_illumination_outputs under Config.multi_illumination.
+SLF_AMBIENT_GAP = (
+    "Config.multiple_illumination_outputs = True with Config.multi_illumination and {n} "
+    "illuminations is a reference gap: the JAX surface light field sizes its ambient head for "
+    "every illumination (surface_light_field.py:239-241) and selects the ray's illumination for "
+    "rgb only, never for ambient_rgb (:659-661), so the cache shader's tint * integrated_brdf * "
+    "ref_rgb raises TypeError: mul got incompatible shapes for broadcasting (nerf_shader.py:531) "
+    "at the first step; bind Config.multiple_illumination_outputs = False")
 # The cache models' active_importance_samplers (pinned to this default):
 # the direction toward the light, pdf 1.
 _SHADOW_SAMPLERS = ((render_utils.ActiveSampler(), 1.0),)
 
 
-class BaseNeRFMLP(shading.BaseShader, unported=dict(
-        use_exposure_at_bottleneck=False, num_light_features=64)):
+class BaseNeRFMLP(shading.BaseShader, unported=dict(use_exposure_at_bottleneck=False)):
     """Shared trunk, bottleneck, surface light field, integrated BRDF and
     light power of the cache shaders."""
 
@@ -64,7 +78,6 @@ class BaseNeRFMLP(shading.BaseShader, unported=dict(
     use_learned_vignette_map = False
     num_glo_features = 0
     num_glo_embeddings = 1000
-    multiple_illumination_outputs = True
     run_surface_light_field = True
     use_corrected_normals = False
     weight_thold = 0.0
@@ -81,7 +94,12 @@ class BaseNeRFMLP(shading.BaseShader, unported=dict(
     rgb_max = float("inf")
     use_active = False
     use_env_map = False
-    use_illumination_feature = False  # read with multi_illumination only
+    # The illumination embedding's width, read under multi_illumination with
+    # use_illumination_feature; the heads' selection field is read by
+    # nothing in the cache shaders.
+    num_light_features = 64
+    use_illumination_feature = False
+    multiple_illumination_outputs = True
     # Read by the env map only (use_env_map).
     env_map_near = float("inf")
     env_map_far = float("inf")
@@ -119,10 +137,13 @@ class BaseNeRFMLP(shading.BaseShader, unported=dict(
     def __init__(self, config=None, density_feature_dim=0, **kwargs):
         super().__init__(config, **kwargs)
         self._require(use_env_map=False)
-        if config.multi_illumination:
-            raise NotImplementedError("multi-illumination shaders are not ported yet")
+        if (config.multi_illumination and config.multiple_illumination_outputs
+                and config.num_illuminations > 1):
+            raise NotImplementedError(SLF_AMBIENT_GAP.format(n=config.num_illuminations))
         cd = self.compute_dtype
         feature_dim = self._build_trunk(density_feature_dim)
+        if self.reads_illumination_feature:
+            feature_dim += self._make_light_vecs()
         self.bottleneck_layer = Dense(feature_dim, self.bottleneck_width, cd)
         slf_params = dict(self.surface_lf_params or {})
         slf_params["distance_near"] = self.surface_lf_distance_near
@@ -182,6 +203,8 @@ class BaseNeRFMLP(shading.BaseShader, unported=dict(
         feature = self.predict_appearance_feature(
             sampler_results, train=train, train_frac=train_frac, is_secondary=bool(is_secondary),
             **self.get_predict_appearance_kwargs(key, rays, sampler_results))
+        if self.reads_illumination_feature:
+            feature = torch.cat([feature, self.get_light_vec(rays, feature)], dim=-1)
         key, rng = torchutil.random_split(rng)
         bottleneck = self.get_bottleneck_feature(key, feature)
         roughness = self.roughness_activation(self.roughness_layer(feature) + self.roughness_bias)
@@ -333,8 +356,10 @@ class TransientNeRFMLP(BaseNeRFMLP):
         self._require(simple_brdf=False, light_max_angle=0.0)
         if not config.use_transient:
             raise ValueError("TransientNeRFMLP needs Config.use_transient")
-        unported = [k for k in ("light_canonical_frame", "light_intensity_conditioning",
-                                "sl_relight") if getattr(config, k)]
+        if config.sl_relight and self.use_active:
+            raise NotImplementedError(shading.SL_RELIGHT_GAP)
+        unported = [k for k in ("light_canonical_frame", "light_intensity_conditioning")
+                    if getattr(config, k)]
         if unported:
             raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
 

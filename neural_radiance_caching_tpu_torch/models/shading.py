@@ -16,9 +16,17 @@ from torch import nn
 
 from neural_radiance_caching_tpu_torch.engine import gin_config as gin
 from neural_radiance_caching_tpu_torch.models import grids
-from neural_radiance_caching_tpu_torch.models.layers import Configurable, SkipMLP
-from neural_radiance_caching_tpu_torch.ops import coord, math
+from neural_radiance_caching_tpu_torch.models.layers import Configurable, Embed, SkipMLP
+from neural_radiance_caching_tpu_torch.ops import coord, math, render_utils
 from neural_radiance_caching_tpu_torch.utils import torchutil
+
+# Config.sl_relight: JAX's active shaders read an env map that nothing hands them.
+SL_RELIGHT_GAP = (
+    "Config.sl_relight (structured light) is a reference gap: the JAX transient cache shader "
+    "(nerf_shader.py:380-395) and material shader (material_shader.py:707-720) read "
+    "kwargs['env_map'] for render_utils.get_sl_color, and no module of the JAX engine/ or "
+    "parallel/ passes one, so its first query raises KeyError: 'env_map' "
+    "(nerf_shader.py:384)")
 
 
 class BaseShader(Configurable, nn.Module, unported=dict(
@@ -77,6 +85,55 @@ class BaseShader(Configurable, nn.Module, unported=dict(
     @property
     def compute_dtype(self):
         return torch.bfloat16 if self.use_bf16_compute else None
+
+    # --- several illuminations (Config.multi_illumination) ---------------------------
+
+    @property
+    def reads_illumination_feature(self):
+        """Whether the shader concatenates its illumination embedding
+        ``light_vecs`` to its feature; only then does JAX call the embedding,
+        and so create it."""
+        cfg = self.config
+        return bool(cfg is not None and cfg.multi_illumination
+                    and getattr(self, "use_illumination_feature", False))
+
+    @property
+    def num_illumination_outputs(self):
+        """The per-illumination heads' count: ``Config.num_illuminations``
+        under ``Config.multi_illumination`` and
+        ``Config.multiple_illumination_outputs``, else 1."""
+        cfg = self.config
+        return (cfg.num_illuminations if cfg is not None and cfg.multi_illumination
+                and cfg.multiple_illumination_outputs else 1)
+
+    @property
+    def selects_illumination(self):
+        """Whether a head's per-illumination slice is picked by the ray's
+        light index: the shader's own field ``multiple_illumination_outputs``
+        decides, whatever the head's size (a one-slice head then gives NaN
+        for light indices past 0, JAX's gather out of bounds)."""
+        cfg = self.config
+        return bool(cfg is not None and cfg.multi_illumination
+                    and self.multiple_illumination_outputs)
+
+    def _make_light_vecs(self):
+        """The illumination embedding, one row of ``num_light_features`` per
+        illumination."""
+        self.light_vecs = Embed(self.config.num_illuminations, self.num_light_features)
+        return self.num_light_features
+
+    def get_light_vec(self, rays, feature):
+        """Each ray's illumination embedding, broadcast over its samples."""
+        per_ray = self.light_vecs(rays.light_idx[..., 0])
+        return per_ray[..., None, :] * torch.ones_like(feature[..., 0:1])
+
+    def select_illumination(self, rays, x, like):
+        """The ray's illumination slice of a per-illumination head `x`
+        [..., S, n * C] -> [..., S, C] (JAX's take_along_axis, fill mode)."""
+        light_idx = rays.light_idx[..., None, :] * torch.ones_like(like[..., 0:1]).to(
+            rays.light_idx.dtype)
+        x = x.reshape(x.shape[:-1] + (self.num_illumination_outputs, -1))
+        return render_utils.take_along_fill(x, light_idx[..., None], -2)[..., 0, :]
 
     def _build_trunk(self, density_feature_dim):
         """The appearance trunk `layers` over the density feature and the grid

@@ -17,11 +17,21 @@ field memory (``NeRFModel.surface_lf_mem``) is this MLP at its defaults:
 the zero bottleneck and the light position's encoding, queried at one
 point per ray.
 
+Under ``Config.multi_illumination`` the ray's light index is read: with
+``use_illumination_feature`` the illumination embedding ``light_vecs``
+joins the features after the bottleneck; the rgba and ambient heads hold
+one output per illumination with ``Config.multiple_illumination_outputs``,
+and the field ``multiple_illumination_outputs`` picks the ray's slice of
+the rgb head alone, as JAX does (the ambient head stays unselected: the
+cache shader refuses that configuration, ``nerf_shader.SLF_AMBIENT_GAP``);
+with the field ``rotate_illumination`` and ``Config.rotate_illumination``
+the query directions turn about +z by the illumination's angle of
+``Config.light_rotations``.
+
 Not ported yet, raising: point, sphere-point and far-field encodings, the
 per-point density head, voxel-plane placement, sorted distances, point
 offsets and roughness-scaled or per-point decoding of the reflectance grid
-(each refused only where its branch is on), ``dist_only`` queries and
-multi-illumination.
+(each refused only where its branch is on) and ``dist_only`` queries.
 """
 
 from __future__ import annotations
@@ -53,8 +63,7 @@ def _unit_fold(s):
 
 
 @gin.configurable
-class SurfaceLightFieldMLP(shading.BaseShader, unported=dict(
-        num_light_features=64, multiple_illumination_outputs=True)):
+class SurfaceLightFieldMLP(shading.BaseShader):
     """View-conditioned incoming radiance (see the module docstring)."""
 
     window_points_frac = 0.0  # declared in JAX, read by nothing there
@@ -130,20 +139,24 @@ class SurfaceLightFieldMLP(shading.BaseShader, unported=dict(
     ambient_rgb_bias = -1.0
     raydist_fn = None
     ref_warp_fn = None
-    use_illumination_feature = False  # read with multi_illumination only
+    num_light_features = 64
+    use_illumination_feature = False
+    multiple_illumination_outputs = True
 
     def __init__(self, config=None, shader_bottleneck_dim=0, **kwargs):
         super().__init__(config, **kwargs)
         self._require(use_points=False, use_sphere_points=False, use_far_field_points=False,
-                      use_density_prediction=False, rotate_illumination=False)
+                      use_density_prediction=False)
         if self.use_distance_prediction:
             self._require(use_voxel_grid=False, use_sorted_distances=False,
                           use_point_offsets=False)
         if self.use_reflectance_grid:
             self._require(per_ref_feature_output=False, use_roughness=False)
-        if config is not None and config.multi_illumination:
-            raise NotImplementedError("multi-illumination is not ported yet")
         cd = self.compute_dtype
+        if self.rotates_illumination:
+            self.register_buffer("light_rotation_matrix", torch.stack(
+                [_z_rotation(config.light_rotations[i])
+                 for i in range(config.num_illuminations)]), persistent=False)
         if self.use_ide:
             self.dir_enc_fn = ref_utils.generate_ide_fn(self.deg_view)
             dir_dim = _ide_dim(self.deg_view)
@@ -179,8 +192,9 @@ class SurfaceLightFieldMLP(shading.BaseShader, unported=dict(
             grid_cls = grids.GRID_REPRESENTATION_BY_NAME[
                 self.reflectance_grid_representation.lower()]
             self.reflectance_grid = grid_cls(**dict(self.reflectance_grid_params or {}))
+        illum_dim = self._make_light_vecs() if self.reads_illumination_feature else 0
         in_dim = ((origins_dim if self.use_origins else 0)
-                  + (bottleneck_dim if self.use_bottleneck else 0)
+                  + (bottleneck_dim if self.use_bottleneck else 0) + illum_dim
                   + (shader_bottleneck_dim if self.use_shader_bottleneck else 0)
                   + (self.reflectance_grid.output_dim if self.use_reflectance_grid else 0)
                   + (dir_dim if self.use_directional_enc else 0))
@@ -194,10 +208,22 @@ class SurfaceLightFieldMLP(shading.BaseShader, unported=dict(
         self.view_dependent_layers = trunk(in_dim, names)
         out_dim = self.view_dependent_layers.out_dim
         rgb_channels = config.num_rgb_channels * (config.n_bins if self.use_indirect else 1)
-        self.output_rgba_layer = Dense(out_dim, rgb_channels + 1, cd)
+        n_out = self.num_illumination_outputs
+        self.output_rgba_layer = Dense(out_dim, rgb_channels * n_out + 1, cd)
         ambient_dim = (self.ambient_view_dependent_layers.out_dim if self.use_lights
                        else out_dim)
-        self.output_ambient_rgb_layer = Dense(ambient_dim, config.num_rgb_channels, cd)
+        self.output_ambient_rgb_layer = Dense(ambient_dim, config.num_rgb_channels * n_out, cd)
+
+    @property
+    def rotates_illumination(self):
+        return bool(self.rotate_illumination and self.config is not None
+                    and self.config.rotate_illumination)
+
+    def _rotated_refdirs(self, rays, refdirs):
+        """The query directions turned by the ray's illumination rotation."""
+        rot = self.light_rotation_matrix[rays.light_idx[..., 0].long()][..., None, :, :]
+        return (rot[..., :3, 0] * refdirs[..., 0:1] + rot[..., :3, 1] * refdirs[..., 1:2]
+                + rot[..., :3, 2] * refdirs[..., 2:3])
 
     # --- the distance head ------------------------------------------------------------
 
@@ -263,6 +289,8 @@ class SurfaceLightFieldMLP(shading.BaseShader, unported=dict(
             raise NotImplementedError("dist_only queries are not ported yet")
         outputs = {}
         origins = origins.reshape(refdirs.shape[:-2] + (-1, 3)) * torch.ones_like(refdirs)
+        if self.rotates_illumination:
+            refdirs = self._rotated_refdirs(rays, refdirs)
         if self.grid is not None:
             key, rng = torchutil.random_split(rng)
             bottleneck = self.predict_appearance_feature(
@@ -278,6 +306,8 @@ class SurfaceLightFieldMLP(shading.BaseShader, unported=dict(
             feats.append(coord.pos_enc(origins, 0, self.deg_origins, True))
         if self.use_bottleneck:
             feats.append(bottleneck)
+        if self.reads_illumination_feature:
+            feats.append(self.get_light_vec(rays, bottleneck))
         if self.use_shader_bottleneck:
             feats.append(shader_bottleneck)
 
@@ -318,6 +348,8 @@ class SurfaceLightFieldMLP(shading.BaseShader, unported=dict(
         raw_rgba = self.output_rgba_layer(x)
         rgb = self.rgb_activation(self.rgb_premultiplier * raw_rgba[..., :-1] + self.rgb_bias)
         alpha = torch.clamp(self.alpha_activation(raw_rgba[..., -1:] + self.alpha_bias), 0.0, 1.0)
+        if self.selects_illumination:
+            rgb = self.select_illumination(rays, rgb, bottleneck)
         ambient_rgb = self.ambient_rgb_activation(
             self.output_ambient_rgb_layer(ambient_x) + self.ambient_rgb_bias)
 
@@ -330,6 +362,16 @@ class SurfaceLightFieldMLP(shading.BaseShader, unported=dict(
         outputs["incoming_env_rgba"] = torch.cat([env_rgb, env_alpha], dim=-1)
         outputs["incoming_acc"] = ref_weights.sum(dim=-1)
         return outputs
+
+
+def _z_rotation(degrees):
+    """[3, 3] rotation about +z by `degrees` (the light rig's turntable), in
+    float32 as JAX computes it."""
+    a = torch.tensor(degrees / 180 * torch.pi, dtype=torch.float32)
+    c, s = torch.cos(a), torch.sin(a)
+    zero, one = torch.zeros(()), torch.ones(())
+    return torch.stack([torch.stack([c, -s, zero]), torch.stack([s, c, zero]),
+                        torch.stack([zero, zero, one])])
 
 
 @gin.configurable

@@ -316,6 +316,17 @@ def _take_along(arr, idx, axis):
     return torch.gather(arr.expand(arr_shape), axis, idx.long().expand(idx_shape))
 
 
+def take_along_fill(arr, idx, axis):
+    """``_take_along`` in jnp.take_along_axis's default mode "fill": an index
+    outside [0, n) gives NaN there (and passes no gradient), as JAX's gather
+    does."""
+    n = arr.shape[axis]
+    out = _take_along(arr, torch.clamp(idx, 0, n - 1), axis)
+    valid = (idx >= 0) & (idx < n)
+    return torch.where(valid, out, torch.full((), float("nan"), dtype=out.dtype,
+                                              device=out.device))
+
+
 class EnvironmentSampler:
     """Importance sampler over a known environment map (the tables of
     ``data/env_maps``: env_map, env_map_pmf, env_map_pdf, env_map_dirs with

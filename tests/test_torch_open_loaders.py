@@ -364,13 +364,15 @@ def test_light_index_reaches_the_pixels(scenes):
 
 
 def test_loader_refusals(scenes, tmp_path):
-    """OpenIllumination's other illuminations raise by name, and so does a
-    NeILF++ view in TIFF. The relighting env maps are read
-    (`test_torch_relight_inputs.py`): on an object without the relit
-    illumination's views both packages fail alike."""
-    config = TConfig(dataset_loader="open_illum", batch_size=8, multi_illumination=True)
-    with pytest.raises(NotImplementedError, match="multi_illumination"):
-        tdatasets.load_dataset("train", scenes["open_illum"], config, device="cpu")
+    """A NeILF++ view in TIFF raises by name. OpenIllumination's other
+    illuminations (`test_torch_multi_illum.py`) and the relighting env maps
+    (`test_torch_relight_inputs.py`) are read: on an object without their
+    views both packages fail alike."""
+    kw = dict(dataset_loader="open_illum", batch_size=8, multi_illumination=True)
+    with pytest.raises(FileNotFoundError, match="Lights/011"):
+        jdatasets.load_dataset("train", scenes["open_illum"], JConfig(**kw))
+    with pytest.raises(FileNotFoundError, match="Lights/011"):
+        tdatasets.load_dataset("train", scenes["open_illum"], TConfig(**kw), device="cpu")
     kw = dict(dataset_loader="open_illum", batch_size=8, compute_relight_metrics=True)
     with pytest.raises(FileNotFoundError, match="Lights/sunset"):
         jdatasets.load_dataset("train", scenes["open_illum"], JConfig(**kw))
