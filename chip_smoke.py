@@ -388,7 +388,23 @@ Phases, one line each (any failure exits nonzero):
      (the launches asserted: 1 leveled + 1 planes per cache step at 8192,
      six leveled per material step; the material stage's light_sampling
      NaN in every step, as JAX computes it; launches_by_path multi_illum_*).
-Every evaluation through the trainer (phases 20-38, 42, 43) scores LPIPS on
+ 44. options and the mesh shortcut: the card against the CPU on the patch
+     batch stream (4 x 4 patches at batch 8192, host-cast and Pixels), the
+     three sphere shadings under their multi-illumination, the panorama
+     cast in the step against the host's cast, ops/mesh.py's intersect on a
+     20,480-face icosphere at 8192 rays (and its time), one narrow
+     synthetic_spheres.gin cache step on patch batches with the patch loss
+     and one narrow flagship cache step under the mesh shortcut (each with
+     its noise floor, two planted leveled faults and its leveled call held
+     against the plain version); then synthetic_spheres.gin's cache stage
+     through the entry point at batch 8192 with physical_glossy, its
+     multi-illumination, Config.patch_size = 4 and the patch loss (1 leveled
+     launch per step, a checked step), the full-width flagship cache step
+     with the icosphere handed to the model (its step ms and intersect's
+     ms, a checked step), and ORB's loader with Config.vis_render_path on a
+     small ORB scene, two of its 120 path frames rendered through
+     orb_ngp_yobo_teapot.gin's cache model (launches_by_path options_*).
+Every evaluation through the trainer (phases 20-38, 42-44) scores LPIPS on
 the card beside PSNR and SSIM, and phase 34's hotdog material stage
 renders the secondary-ray probe (256 x 512) at its evaluation.
 Then the kernels JSON line, the eval JSON line, the transient material JSON
@@ -4540,7 +4556,7 @@ def _hotdog_vis_only(torch, device, data_dir, tmp, batch, trained_steps):
     1, render chunk 1024): results.txt, the saved render, no kernel launch.
     The blender loader reads no albedo images (in JAX neither), so
     Config.compute_albedo_metrics is left off here; its path is held against
-    JAX on the CPU (tests/test_torch_open_checks.py, the blender_active
+    JAX on the CPU (tests/test_torch_eval_extras.py, the blender_active
     loader)."""
     import json
     import os
@@ -6899,6 +6915,468 @@ def phase_multi_illum_train(torch, device, seed, steps, smi, tmp, written):
     return {"written": egg, **results}
 
 
+# Phase 44: the loader options the port once refused (patch batches and
+# the patch loss, SyntheticSpheres' physical shadings and its own
+# multi-illumination, panoramic rays cast in the step, ORB's render path)
+# and the triangle mesh with the sampler's mesh shortcut (ops/mesh.py).
+OPTIONS_PATCH = ("Config.patch_size = 4", "Config.patch_loss_mult = 0.1",
+                 "Config.bilateral_strength = 1.0", "Config.patch_variance_weighting = 1.0",
+                 "Config.synthetic_spheres_shading = 'physical_glossy'",
+                 "Config.synthetic_spheres_multi_illum = True")
+OPTIONS_SHADINGS = ("legacy", "physical", "physical_glossy")
+# The batch of phase 44's loaders and full-width steps.
+OPTIONS_BATCH = 8192
+# An icosphere over the spheres scene's central sphere: 5 subdivisions give
+# 20,480 faces, 3 give 1,280 (the narrow reference step's). `intersect`
+# tests 512 triangles at a time, as JAX's default: at 8192 rays each
+# intermediate of a chunk is 8192 x 512 x 3 floats, 48 MiB.
+MESH_SUBDIVISIONS = 5
+MESH_REFERENCE_SUBDIVISIONS = 3
+MESH_RAYS = 8192
+MESH_CHUNK = 512
+# The other chunks `intersect` is timed at, beside the one the sampler uses.
+MESH_TIMED_CHUNKS = (2048, 4096)
+# intersect on the card against the CPU: where both hit, t and the points
+# to MESH_TOL relative and the normals to MESH_TOL; at most MESH_EDGE_RAYS
+# rays may differ in hit or in face (a ray within rounding of an edge,
+# where another triangle's face normal is as right).
+MESH_TOL = 1e-5
+MESH_EDGE_RAYS = 2
+# The panorama cast in the step (float32 on the card) against the host's
+# cast of the same pixels.
+PANO_SIZE = (256, 512)
+PANO_CAST_TOL = 1e-5
+# ORB's render path: a small ORB scene (train views, test views, size), the
+# orb_teapot cache model, two of the path's 120 frames rendered.
+ORB_PATH_SIZES = (6, 2, 128)
+ORB_PATH_FRAMES = (0, 60)
+
+
+def _icosphere(subdivisions, radius):
+    """A triangulated icosphere of `radius` at the origin: vertices [V, 3]
+    float32, faces [F, 3] (20 x 4^subdivisions, outward)."""
+    import numpy as np
+
+    t = (1.0 + 5.0**0.5) / 2.0
+    verts = [(-1, t, 0), (1, t, 0), (-1, -t, 0), (1, -t, 0), (0, -1, t), (0, 1, t),
+             (0, -1, -t), (0, 1, -t), (t, 0, -1), (t, 0, 1), (-t, 0, -1), (-t, 0, 1)]
+    faces = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11), (1, 5, 9), (5, 11, 4),
+             (11, 10, 2), (10, 7, 6), (7, 1, 8), (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8),
+             (3, 8, 9), (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
+    verts = [np.array(v) / np.linalg.norm(v) for v in verts]
+    for _ in range(subdivisions):
+        mid, new = {}, []
+
+        def middle(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in mid:
+                m = verts[a] + verts[b]
+                verts.append(m / np.linalg.norm(m))
+                mid[key] = len(verts) - 1
+            return mid[key]
+
+        for a, b, c in faces:
+            ab, bc, ca = middle(a, b), middle(b, c), middle(c, a)
+            new += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
+        faces = new
+    return (np.asarray(verts) * radius).astype(np.float32), np.asarray(faces, np.int64)
+
+
+def _mesh_rays(torch, n, seed):
+    """`n` rays (CPU) from a sphere of radius 3 toward points within 0.8 of
+    the origin, so that most hit the 0.55 icosphere and some miss; the
+    directions unnormalised."""
+    gen = torch.Generator().manual_seed(seed)
+    o = torch.randn((n, 3), generator=gen)
+    o = 3.0 * o / o.norm(dim=-1, keepdim=True)
+    target = (torch.rand((n, 3), generator=gen) - 0.5) * 1.6
+    return o, (target - o) * (0.5 + 1.5 * torch.rand((n, 1), generator=gen))
+
+
+def _with_mesh(model, mesh, use_mesh=True):
+    """`model` whose forward takes `mesh` (the train step calls the model
+    without one, as JAX's does)."""
+    import functools
+
+    return _patched(model, forward=functools.partial(model.forward, mesh=mesh,
+                                                     use_mesh=use_mesh))
+
+
+def _options_loaders(torch, device):
+    """Patch batches (4 x 4, host-cast and Pixels) and the three shadings
+    under multi-illumination, served on the card against the CPU loader:
+    the scenes' arrays and the first three batches, bit for bit."""
+    import numpy as np
+
+    from neural_radiance_caching_tpu_torch.data import datasets
+    from neural_radiance_caching_tpu_torch.engine.configs import Config
+
+    same, patches = True, 0
+    for in_step in (False, True):
+        cfg = Config(batch_size=OPTIONS_BATCH, num_dataset_images=8, patch_size=4,
+                     synthetic_spheres_shading="physical_glossy",
+                     synthetic_spheres_multi_illum=True, cast_rays_in_train_step=in_step)
+        loaded = [datasets.SyntheticSpheres("train", None, cfg, resolution=128, device=dev)
+                  for dev in ("cpu", device)]
+        for _ in range(3):
+            want, got = (d.next_train() for d in loaded)
+            same &= _same_batch(torch, got, want)
+            x = want.rays.pix_x_int.reshape(-1, 16)
+            patches += int(((x - x[:, :1]) == torch.as_tensor([0, 1, 2, 3] * 4)).all(-1).sum())
+    shadings = {}
+    for shading in OPTIONS_SHADINGS:
+        cfg = Config(batch_size=OPTIONS_BATCH, num_dataset_images=8, compute_albedo_metrics=True,
+                     compute_normal_metrics=True, synthetic_spheres_shading=shading,
+                     synthetic_spheres_multi_illum=True)
+        cpu, card = (datasets.SyntheticSpheres("test", None, cfg, resolution=128, device=dev)
+                     for dev in ("cpu", device))
+        equal = all(np.array_equal(getattr(cpu, k), getattr(card, k))
+                    for k in ("images", "alphas", "lights", "albedo_images", "normal_images"))
+        equal &= _same_batch(torch, card.next_train(), cpu.next_train())
+        shadings[shading] = dict(equal=equal, lights=len(np.unique(cpu.lights, axis=0)),
+                                 mean_rgb=float(cpu.images[cpu.alphas > 0].mean()))
+    return same, patches, shadings
+
+
+def _options_pano_cast(torch, device, seed):
+    """Equirectangular rays of two cameras cast in the step (float32 on the
+    card) against the host's cast of the same pixels: the largest error of
+    the directions, view directions, radii and image plane."""
+    import numpy as np
+
+    from neural_radiance_caching_tpu_torch.data import camera_utils
+    from neural_radiance_caching_tpu_torch.utils import pytrees
+
+    h, w = PANO_SIZE
+    rng = np.random.RandomState(seed)
+    n = MESH_RAYS
+    pixtocams = np.diag(np.array([2.0 * np.pi / w, np.pi / h, 1.0], np.float32))[None]
+    c2w = camera_utils.generate_spherical_poses(2, radius=2.0, seed=seed)
+    lights = c2w[:, :3, -1]
+    fields = dict(pix_x_int=rng.randint(0, w, n), pix_y_int=rng.randint(0, h, n),
+                  lossmult=np.ones((n, 1), np.float32), near=np.full((n, 1), 0.1, np.float32),
+                  far=np.full((n, 1), 5.0, np.float32),
+                  cam_idx=rng.randint(0, 2, (n, 1)).astype(np.int32),
+                  light_idx=np.zeros((n, 1), np.int32))
+    pano = camera_utils.ProjectionType.PANORAMIC
+    cameras = (pixtocams, c2w, None, None)
+    host = camera_utils.cast_ray_batch(cameras, lights, pytrees.Pixels(**fields), camtype=pano)
+    card = camera_utils.cast_ray_batch(
+        camera_utils.cameras_to(cameras, device), torch.as_tensor(lights, device=device),
+        pytrees.Pixels(**{k: torch.as_tensor(v, device=device) for k, v in fields.items()}),
+        camtype=pano)
+    errs = {k: float(np.abs(getattr(card, k).cpu().numpy() - getattr(host, k)).max())
+            for k in ("origins", "directions", "viewdirs", "radii", "imageplane")}
+    float32 = card.directions.dtype == torch.float32 and card.directions.is_cuda
+    return errs, float32
+
+
+def _options_intersect(torch, device, seed):
+    """`intersect` on the 20,480-face icosphere at MESH_RAYS rays, the card
+    against the CPU, and its time on the card."""
+    from neural_radiance_caching_tpu_torch.ops import mesh
+
+    v, f = _icosphere(MESH_SUBDIVISIONS, 0.55)
+    o, d = _mesh_rays(torch, MESH_RAYS, seed)
+    cpu = mesh.TriangleMesh(v, f).intersect(o, d, chunk=MESH_CHUNK)
+    card_mesh = mesh.TriangleMesh(v, f, device=device)
+    oc, dc = o.to(device), d.to(device)
+    card = [x.cpu() for x in card_mesh.intersect(oc, dc, chunk=MESH_CHUNK)]
+    t_c, p_c, n_c, fn_c, valid_c = cpu
+    t_g, p_g, n_g, fn_g, valid_g = card
+    both = valid_c & valid_g
+    face_apart = (fn_g - fn_c).abs().max(-1).values > MESH_TOL
+    odd = int((valid_c != valid_g).sum()) + int((face_apart & both).sum())
+    keep = both & ~face_apart
+    errs = dict(t=float(((t_g - t_c).abs() / t_c.abs())[keep].max()),
+                points=float((p_g - p_c)[keep].abs().max()),
+                normals=float((n_g - n_c)[keep].abs().max()),
+                face_normals=float((fn_g - fn_c)[keep].abs().max()))
+    ms = {chunk: _cuda_ms(lambda c=chunk: card_mesh.intersect(oc, dc, chunk=c))
+          for chunk in (MESH_CHUNK,) + MESH_TIMED_CHUNKS}
+    ok = odd <= MESH_EDGE_RAYS and max(errs.values()) <= MESH_TOL
+    return dict(ok=ok, faces=len(f), rays=MESH_RAYS, hits=int(valid_c.sum()), edge_rays=odd,
+                errs=errs, ms=ms[MESH_CHUNK], ms_by_chunk=ms)
+
+
+def _mesh_reference_step(torch, device, seed):
+    """The narrow flagship cache (phase 7's) with the 1,280-face icosphere
+    under the mesh shortcut, one step GPU against CPU: the loss terms, every
+    gradient leaf the mesh path reaches against the limit, bracketed by the
+    CPU's noise floor (origins one ulp up) and two faults planted in the
+    leveled kernel."""
+    from neural_radiance_caching_tpu_torch import flagship
+    from neural_radiance_caching_tpu_torch.data import datasets
+    from neural_radiance_caching_tpu_torch.ops import mesh, scatter_cuda
+    from neural_radiance_caching_tpu_torch.parallel import train
+
+    cfg = flagship.cache_config(batch_size=512, lr_delay_steps=0)
+    params = _narrow(flagship.flagship_cache_params())
+    batch = datasets.SyntheticSpheres("train", None, cfg, num_images=4, resolution=32,
+                                      device="cpu").next_train()
+    origins = batch.rays.origins
+    nudged = batch.replace(rays=batch.rays.replace(
+        origins=torch.nextafter(origins, torch.full_like(origins, float("inf")))))
+    v, f = _icosphere(MESH_REFERENCE_SUBDIVISIONS, 0.55)
+
+    def step(dev, b, fault=None):
+        torch.manual_seed(seed)
+        model = flagship.build_flagship_cache_model(cfg, params, device=dev)
+        state, _ = train.create_optimizer(cfg, model)
+        before = scatter_cuda.launches["leveled"]
+        patch = dict(scatter_add_weighted_leveled=_planted_fault(fault)) if fault else {}
+        with _patched(scatter_cuda, **patch), _with_mesh(model, mesh.TriangleMesh(v, f,
+                                                                                  device=dev)):
+            _, stats = train.create_train_step(model, cfg)(None, state, b.to(dev), 0.5)
+        losses = {k: float(torch.as_tensor(val).detach()) for k, val in stats["losses"].items()}
+        grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu()
+                 for k, p in model.named_parameters()}
+        return losses, grads, scatter_cuda.launches["leveled"] - before
+
+    l_cpu, g_cpu, n_cpu = step("cpu", batch)
+    floor, floor_at = _worst_grad_err(step("cpu", nudged)[1], g_cpu)
+    l_gpu, g_gpu, n_gpu = step(device, batch)
+    loss_errs = {k: abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-12) for k in l_cpu}
+    err, err_at = _worst_grad_err(g_gpu, g_cpu)
+    faults = {fault: _worst_grad_err(step(device, batch, fault)[1], g_cpu)
+              for fault in ("taps rotated", "finest level dropped")}
+    unreached = sorted(k for k, g in g_cpu.items() if float(g.abs().max()) == 0)
+    ok = (all(torch.isfinite(g).all() for g in g_gpu.values()) and max(loss_errs.values()) <= 1e-4
+          and n_cpu == 0 and n_gpu == 1 and floor <= GRAD_REL_L2_TOL and err <= GRAD_REL_L2_TOL
+          and all(val > GRAD_REL_L2_TOL for val, _ in faults.values())
+          and any(k.startswith("sampler.mlps.0.") for k in unreached))
+    return dict(ok=ok, faces=len(f), loss_rel_err=max(loss_errs.values()),
+                loss_rel_errs=loss_errs, grad_rel_l2_err=err, grad_err_at=err_at,
+                noise_floor=floor, noise_floor_at=floor_at,
+                faults={k: val for k, (val, _) in faults.items()},
+                fault_at={k: at for k, (_, at) in faults.items()}, launches=n_gpu,
+                unreached=len(unreached), losses=l_gpu)
+
+
+def phase_options_reference(torch, device, seed):
+    """Phase 44's reference: the card against the CPU on the patch batch
+    stream, the three sphere shadings under multi-illumination, the
+    panorama cast in the step (against the host's cast), `intersect` on the
+    20,480-face icosphere at 8192 rays, one narrow synthetic_spheres.gin
+    cache step on patch batches with the patch loss (`_gpu_vs_cpu_step`)
+    and one narrow flagship cache step under the mesh shortcut."""
+    same, patches, shadings = _options_loaders(torch, device)
+    pano_errs, pano_f32 = _options_pano_cast(torch, device, seed)
+    hits = _options_intersect(torch, device, seed)
+    patch = _gpu_vs_cpu_step(torch, device, seed, TRAINER_CACHE_STAGE + OPTIONS_PATCH,
+                             TRAINER_REF_CONFIG, launches=1,
+                             terms=("data", "cache_data", "patch", "cache_patch"))
+    mesh_step = _mesh_reference_step(torch, device, seed)
+    shadings_ok = all(r["equal"] and r["lights"] == 8 for r in shadings.values())
+    pano_ok = pano_f32 and max(pano_errs.values()) <= PANO_CAST_TOL
+    ok = (same and patches == 6 * OPTIONS_BATCH // 16 and shadings_ok and pano_ok and hits["ok"]
+          and patch["ok"] and mesh_step["ok"])
+    print(f"options reference: patch batches (4x4, batch {OPTIONS_BATCH}, physical_glossy, "
+          f"multi-illumination, host-cast and Pixels) card vs cpu equal={same}, {patches} "
+          f"patches of contiguous 4x4 pixels; shadings under multi-illumination card vs cpu: "
+          + ", ".join(f"{k} equal={r['equal']} lights={r['lights']} mean rgb {r['mean_rgb']:.4f}"
+                      for k, r in shadings.items())
+          + f"; panorama {PANO_SIZE[1]}x{PANO_SIZE[0]} cast in the step (float32 on the card="
+          f"{pano_f32}) vs the host cast: max err "
+          + ", ".join(f"{k} {v:.2e}" for k, v in pano_errs.items())
+          + f" (tol {PANO_CAST_TOL}); intersect {hits['faces']} faces x {hits['rays']} rays "
+          f"({hits['hits']} hits) card vs cpu: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in hits["errs"].items())
+          + f" (tol {MESH_TOL}), rays apart at an edge {hits['edge_rays']} (at most "
+          f"{MESH_EDGE_RAYS}), on the card ms by chunk "
+          + ", ".join(f"{c}: {t:.3f}" for c, t in hits["ms_by_chunk"].items())
+          + f" (the sampler's chunk {MESH_CHUNK}; medians of 11, CUDA events); "
+          f"synthetic_spheres.gin cache step on patch batches with the patch loss, gpu vs cpu: "
+          f"{_gpu_vs_cpu_text(patch)}; leveled calls against their plain version: "
+          f"{_checked_text(patch['checked'])}; narrow flagship cache under the mesh shortcut "
+          f"({mesh_step['faces']} faces, use_mesh), gpu vs cpu: loss rel_err max="
+          f"{mesh_step['loss_rel_err']:.3e} (tol 1e-4) grad rel_l2_err max="
+          f"{mesh_step['grad_rel_l2_err']:.3e} at {mesh_step['grad_err_at']} (tol "
+          f"{GRAD_REL_L2_TOL}; noise floor, cpu vs cpu with origins +1 ulp: "
+          f"{mesh_step['noise_floor']:.3e} at {mesh_step['noise_floor_at']}; planted "
+          + ", ".join(f"{k}: {v:.3e} at {mesh_step['fault_at'][k]}"
+                      for k, v in mesh_step["faults"].items())
+          + f", each must exceed the tol; {mesh_step['unreached']} leaves unreached, the "
+          f"proposal MLPs among them) launches gpu={mesh_step['launches']} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("a loader option or the mesh shortcut disagrees on the card")
+    return dict(patch_batches_equal=same, shadings=shadings, pano_cast_errs=pano_errs,
+                intersect=hits, launches=patch["launches"] + mesh_step["launches"],
+                max_abs_err=patch["max_abs_err"],
+                patch_step={k: v for k, v in patch.items()
+                            if k not in ("ok", "checked", "cpu_launches", "grad_rel_l2_errs")},
+                mesh_step={k: v for k, v in mesh_step.items() if k != "ok"})
+
+
+def _options_mesh_train(torch, device, seed, steps, smi):
+    """The full-width flagship cache model's train step under the mesh
+    shortcut (the 20,480-face icosphere handed to the model), batch 8192 on
+    SyntheticSpheres (8 views at 128^2): one step with every leveled call
+    held against its plain version, 3 warmup + `steps` timed; the step's
+    ms, peak GiB and `intersect`'s ms at the batch."""
+    from neural_radiance_caching_tpu_torch import flagship
+    from neural_radiance_caching_tpu_torch.data import datasets
+    from neural_radiance_caching_tpu_torch.ops import mesh, scatter_cuda
+    from neural_radiance_caching_tpu_torch.parallel import train
+
+    config = flagship.cache_config(batch_size=OPTIONS_BATCH)
+    torch.manual_seed(seed)
+    model = flagship.build_flagship_cache_model(config, device=device)
+    dataset = datasets.SyntheticSpheres("train", None, config, num_images=8, resolution=128,
+                                        device=device)
+    v, f = _icosphere(MESH_SUBDIVISIONS, 0.55)
+    tri = mesh.TriangleMesh(v, f, device=device)
+    state, _ = train.create_optimizer(config, model)
+    train_step = train.create_train_step(model, config)
+    rng = torch.Generator(device=device).manual_seed(seed + 44)
+    batches = [dataset.next_train() for _ in range(8)]
+    warmup, calls = 3, []
+    torch.cuda.reset_peak_memory_stats()
+    with _with_mesh(model, tri):
+        with _patched(scatter_cuda, scatter_add_weighted_leveled=_checking_scatter(
+                "leveled", calls)):
+            state, stats = train_step(rng, state, batches[0], 0.5)
+        losses = [stats["loss"]]
+        scatter_cuda.reset_launch_count()
+        for i in range(warmup):
+            state, stats = train_step(rng, state, batches[(1 + i) % 8], 0.5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            state, stats = train_step(rng, state, batches[(1 + warmup + i) % 8], 0.5)
+            losses.append(stats["loss"])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / steps
+    launches = dict(scatter_cuda.launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    rays = batches[0].rays
+    intersect_ms = _cuda_ms(lambda: tri.intersect(rays.origins, rays.directions,
+                                                  chunk=MESH_CHUNK))
+    hit = float(tri.intersect(rays.origins, rays.directions)[4].float().mean())
+    finite = _finite(float(v) for v in losses)
+    ok = (finite and launches == _launch_counts(leveled=warmup + steps) and len(calls) == 1
+          and all(c["ok"] for c in calls))
+    print(f"options train (mesh): flagship cache model batch {config.batch_size} on "
+          f"SyntheticSpheres 8x128^2 with the {len(f)}-face icosphere handed to the model "
+          f"(use_mesh: one surface sample per ray, {hit:.3f} of the rays hit): checked step "
+          f"{_checked_text(calls)}; {warmup} warmup + {steps} timed steps: step_ms={dt * 1e3:.2f} "
+          f"rays_per_s={config.batch_size / dt:.0f} on [{smi}]; intersect_ms={intersect_ms:.3f} "
+          f"(chunk {MESH_CHUNK}, median of 11, CUDA events); peak {peak_gib:.2f} GiB; losses "
+          f"finite={finite}; kernel launches={launches} (expected leveled {warmup + steps}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the flagship step under the mesh shortcut failed")
+    return dict(step_ms=dt * 1e3, rays_per_s=config.batch_size / dt, intersect_ms=intersect_ms,
+                hit_share=hit, peak_gib=peak_gib, faces=len(f), steps=steps, warmup=warmup,
+                launches=launches["leveled"], max_abs_err=max(c["max_abs_err"] for c in calls))
+
+
+def _options_orb_path(torch, device, seed, tmp):
+    """A small ORB scene (ORB_PATH_SIZES) written as phase 33's, its
+    intrinsics shared in the transforms' header (with one set per frame,
+    the path's frames past the test split's count have no intrinsics: JAX
+    and the port raise alike, tests/test_torch_loader_options.py), loaded
+    with Config.vis_render_path on the card (the test split the 120-frame
+    ellipse, each frame test image 0), its poses against the CPU loader's;
+    two of its frames rendered through orb_ngp_yobo_teapot.gin's cache
+    model (random weights) as the trainer renders a held-out view."""
+    import concurrent.futures
+    import json
+    import os
+
+    import numpy as np
+
+    from neural_radiance_caching_tpu_torch.data import datasets
+    from neural_radiance_caching_tpu_torch.engine import gin_config
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        data_dir, _, _ = write_disk_scene(torch, device, "orb_teapot",
+                                          os.path.join(tmp, "orb_path"), ORB_PATH_SIZES, pool)
+    for split in ("train", "test"):
+        path = os.path.join(data_dir, f"transforms_{split}.json")
+        with open(path) as f:
+            meta = json.load(f)
+        shared = ("fl_x", "fl_y", "cx", "cy")
+        meta.update({k: meta["frames"][0][k] for k in shared})
+        for frame in meta["frames"]:
+            for k in shared:
+                del frame[k]
+        _write(path, json.dumps(meta).encode())
+    bindings = (TRAINER_CACHE_STAGE + _disk_bindings("orb_teapot", data_dir)
+                + ("Config.vis_render_path = True", f"Config.jax_rng_seed = {seed}"))
+    trainer = _trainer_setup(torch, device, DISK_SCENES["orb_teapot"], bindings)
+    gin_config.clear_config()
+    path = trainer.test_dataset
+    cpu = datasets.load_dataset("test", data_dir, trainer.config, device="cpu")
+    poses_equal = (np.array_equal(path.camtoworlds, cpu.camtoworlds)
+                   and np.array_equal(path.images, cpu.images))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    finite = True
+    for frame in ORB_PATH_FRAMES:
+        rendering, _ = trainer.render_test_view(frame, 1.0)
+        finite &= bool(np.isfinite(rendering["rgb"]).all())
+    torch.cuda.synchronize()
+    s = (time.perf_counter() - t0) / len(ORB_PATH_FRAMES)
+    ok = (path.num_images == 120 and poses_equal and finite
+          and np.array_equal(path.images[0], path.images[119]))
+    print(f"options train (ORB render path): orb_ngp_yobo_teapot.gin cache model on a "
+          f"{ORB_PATH_SIZES[2]}^2 ORB scene with Config.vis_render_path: {path.num_images} path "
+          f"frames (test image 0 each), poses and images equal to the CPU loader's={poses_equal}; "
+          f"frames {list(ORB_PATH_FRAMES)} rendered ({path.height}x{path.width}, finite={finite}) "
+          f"in {s:.2f} s per frame {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("ORB's render path failed")
+    return dict(frames=path.num_images, rendered=list(ORB_PATH_FRAMES), s_per_frame=s,
+                size=[path.height, path.width])
+
+
+def phase_options_train(torch, device, seed, steps, smi, tmp):
+    """Phase 44's train part: synthetic_spheres.gin's cache stage through the
+    train_with_trainer entry point at batch 8192 with the physical glossy
+    shading, its multi-illumination and 4 x 4 patches with the patch loss
+    (3 warmup + `steps` timed, one leveled launch per step, then one step
+    with every leveled call held against its plain version); the flagship
+    cache step under the mesh shortcut; ORB's render path."""
+    import os
+
+    warmup = 3
+    ckpt = os.path.join(tmp, "options_spheres_cache")
+    args = [f"--gin_configs={TRAINER_REF_CONFIG}", f"--device={device}"] + [
+        f"--gin_bindings={b}" for b in TRAINER_BINDINGS + TRAINER_CACHE_STAGE + OPTIONS_PATCH + (
+            f"Config.batch_size = {OPTIONS_BATCH}", f"Config.checkpoint_dir = '{ckpt}'",
+            f"Config.early_exit_steps = {warmup + steps}", f"Config.print_every = {warmup + steps}",
+            f"Config.jax_rng_seed = {20200823 + seed}", "Trainer.save_results = False")]
+    run = _entry_point_run(torch, args, None, ckpt, warmup, steps)
+    trainer, dt, losses = run["trainer"], run["step_s"], run["losses"]
+    calls, checked_launches, stats = _checked_step(torch, trainer, {"leveled": 1})
+    total = warmup + steps
+    finite = _finite(losses.values()) and all(
+        f"loss/{k}" in losses for k in ("data", "patch", "cache_patch"))
+    ok = (finite and run["launches"] == _launch_counts(leveled=total) and len(calls) == 1
+          and all(c["ok"] for c in calls) and checked_launches == _launch_counts(leveled=1)
+          and trainer.batch_size == OPTIONS_BATCH and math.isfinite(run["metrics"]["psnr"]))
+    print(f"options train (patches): train_with_trainer {TRAINER_REF_CONFIG} cache stage with "
+          f"{', '.join(OPTIONS_PATCH)}, batch {trainer.batch_size} ({trainer.batch_size // 16} "
+          f"patches), {warmup} warmup + {steps} timed steps: step_ms={dt * 1e3:.2f} rays_per_s="
+          f"{trainer.batch_size / dt:.0f} on [{smi}]; peak {run['peak_gib']:.2f} GiB; losses "
+          f"finite and present={finite} patch={losses.get('loss/patch', float('nan')):.4e}; "
+          f"kernel launches={run['launches']} (expected leveled {total}); checked step "
+          f"{_checked_text(calls)}; held-out view psnr={run['metrics']['psnr']:.2f}; entry point "
+          f"{run['wall']:.1f}s {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the spheres cache stage on patch batches failed")
+    patches = dict(step_ms=dt * 1e3, rays_per_s=trainer.batch_size / dt,
+                   peak_gib=run["peak_gib"], batch=trainer.batch_size, steps=steps,
+                   warmup=warmup, launches=run["launches"]["leveled"],
+                   max_abs_err=max(c["max_abs_err"] for c in calls), losses=losses)
+    del trainer, run, stats
+    mesh_train = _options_mesh_train(torch, device, seed, steps, smi)
+    orb = _options_orb_path(torch, device, seed, tmp)
+    return dict(patches=patches, mesh=mesh_train, orb_path=orb)
+
+
 def _profile(torch, train_step, state, rng, batches, path, steps=3):
     """Device time by kernel over `steps` steps, as a table written to `path`."""
     import pathlib
@@ -6931,9 +7409,9 @@ def main():
                         help="timed transient train steps of each run (direct, dedup)")
     parser.add_argument("--transient-material-steps", type=int, default=10,
                         help="timed transient material train steps of each form (bench, trainer)")
-    parser.add_argument("--trainer-steps", type=int, default=5,
+    parser.add_argument("--trainer-steps", type=int, default=4,
                         help="timed steps of each run through the entry point (phases 20-38, "
-                             "42, 43)")
+                             "42-44)")
     parser.add_argument("--profile", metavar="FILE",
                         help="also profile train steps and write the op tables to FILE "
                              "(cache), and FILE with .material, .transient, "
@@ -7030,6 +7508,8 @@ def main():
         multi_reference = phase_multi_illum_reference(torch, device, args.seed, tmp)
         multi = phase_multi_illum_train(torch, device, args.seed, args.trainer_steps, smi, tmp,
                                         real["written"])
+        options_reference = phase_options_reference(torch, device, args.seed)
+        options = phase_options_train(torch, device, args.seed, args.trainer_steps, smi, tmp)
     print(f"phases done in {time.perf_counter() - t_start:.1f}s, build included", flush=True)
 
     csrc = "neural_radiance_caching_tpu_torch/csrc"
@@ -7110,6 +7590,10 @@ def main():
                      **{f"multi_illum_{run}": r["launches_by_kernel"]["leveled"]
                         for run, r in multi_runs.items()}}
     leveled_launches.update(multi_leveled)
+    options_leveled = {"options_reference": options_reference["launches"],
+                       "options_patches": options["patches"]["launches"],
+                       "options_mesh": options["mesh"]["launches"]}
+    leveled_launches.update(options_leveled)
     real_planes = {f"trainer_real_disk_{run}": r["launches_by_kernel"]["planes"]
                    for run, r in real_runs.items()}
     multi_planes = {f"multi_illum_{run}": r["launches_by_kernel"]["planes"]
@@ -7119,7 +7603,8 @@ def main():
                    **{k: 0 for k in invprop_paths}, **{k: 0 for k in baseline_leveled},
                    **{k: 0 for k in disk_leveled}, **{k: 0 for k in transient_disk_leveled},
                    **{k: 0 for k in real_leveled}, **{k: 0 for k in dp_leveled},
-                   **{k: 0 for k in colmap_leveled}, **{k: 0 for k in multi_leveled}}
+                   **{k: 0 for k in colmap_leveled}, **{k: 0 for k in multi_leveled},
+                   **{k: 0 for k in options_leveled}}
     print(json.dumps({"kernels": [{
         "name": "scatter_add_weighted_leveled",
         "route": "cuda",
@@ -7151,7 +7636,9 @@ def main():
                            *(data_parallel[stage]["max_abs_err"] for stage in DP_STAGES),
                            colmap["flagship"]["max_abs_err"], multi_reference["max_abs_err"],
                            *(r["max_abs_err_by_kernel"].get("leveled", 0.0)
-                             for r in multi_runs.values())),
+                             for r in multi_runs.values()),
+                           options_reference["max_abs_err"], options["patches"]["max_abs_err"],
+                           options["mesh"]["max_abs_err"]),
         "max_abs_err_by_shape": {"cache": kernel["max_abs_err"],
                                  "material_path": material_err["leveled"],
                                  "transient_path": transient["direct"]["max_abs_err"],
@@ -7196,7 +7683,10 @@ def main():
                                  "multi_illum_reference_path": multi_reference["max_abs_err"],
                                  **{f"multi_illum_{run}_path": r["max_abs_err_by_kernel"][
                                      "leveled"] for run, r in multi_runs.items()
-                                    if "leveled" in r["max_abs_err_by_kernel"]}},
+                                    if "leveled" in r["max_abs_err_by_kernel"]},
+                                 "options_reference_path": options_reference["max_abs_err"],
+                                 "options_patches_path": options["patches"]["max_abs_err"],
+                                 "options_mesh_path": options["mesh"]["max_abs_err"]},
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
         "library_ms": kernel["library_ms"],
@@ -7315,7 +7805,8 @@ def main():
         "real_disk_train": real, "real_disk_reference": real_reference,
         "data_parallel": data_parallel, "colmap_reference": colmap_reference,
         "colmap_train": colmap, "multi_illum_reference": multi_reference,
-        "multi_illum_train": multi, "device": smi}}), flush=True)
+        "multi_illum_train": multi, "options_reference": options_reference,
+        "options_train": options, "device": smi}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,18 @@
 /*
- * Huffman entropy decoding of one baseline (sequential, 8-bit) JPEG scan
- * into quantised DCT coefficient blocks.
+ * Huffman entropy decoding of one 8-bit JPEG scan, sequential or
+ * progressive, into quantised DCT coefficient blocks.
  *
  * This is the only part of the port's JPEG decoder (data/jpeg.py) that is
  * not numpy: it is sequential bit by bit. It follows ITU-T T.81 Annex F
- * (F.2.2: DECODE, RECEIVE, EXTEND) and reads the entropy-coded segment as
- * libjpeg's jdhuff.c does: byte stuffing (FF 00 is a data byte FF), runs of
- * fill bytes FF before a marker, restart markers RST0-7 after every
- * `restart_interval` MCUs with the DC predictors reset there. Where libjpeg
- * would insert zero bits after a marker and warn, this decoder returns an
- * error code and the byte offset, and data/jpeg.py raises.
+ * (F.2.2: DECODE, RECEIVE, EXTEND) for sequential scans and Annex G (G.1.2:
+ * spectral selection, successive approximation, EOB runs) for progressive
+ * ones, as libjpeg's jdhuff.c and jdphuff.c decode them, and reads the
+ * entropy-coded segment as they do: byte stuffing (FF 00 is a data byte FF),
+ * runs of fill bytes FF before a marker, restart markers RST0-7 after every
+ * `restart_interval` MCUs with the DC predictors and the EOB run reset
+ * there. Where libjpeg would insert zero bits after a marker and warn, this
+ * decoder returns an error code and the byte offset, and data/jpeg.py
+ * raises.
  *
  * Plain C99, no library: compiled with the host C compiler into a shared
  * library at first use and called through ctypes.
@@ -26,6 +29,7 @@ enum {
   JPEG_ERR_AC_OVERFLOW = 4,  /* an AC run past coefficient 63 */
   JPEG_ERR_TABLE = 5,        /* a Huffman table with too many codes */
   JPEG_ERR_LAYOUT = 6,       /* an MCU outside the caller's block arrays */
+  JPEG_ERR_REFINE = 7,       /* a refinement scan's coefficient of size other than 1 */
 };
 
 /* Zigzag position -> natural (row-major) position in the 8x8 block. */
@@ -190,6 +194,118 @@ static int decode_block(BitReader *r, const HuffTable *dc, const HuffTable *ac, 
   return JPEG_OK;
 }
 
+/* The progressive scans (G.1.2), one block each; ss..se the band, al the
+ * point transform. DC first: the predicted DC, shifted up by al. */
+static int decode_dc_first(BitReader *r, const HuffTable *dc, int al, int *pred,
+                           int16_t *block) {
+  int s, v, err;
+  if ((err = decode_symbol(r, dc, &s))) return err;
+  if (s > 15) return JPEG_ERR_BAD_CODE;
+  if ((err = get_bits(r, s, &v))) return err;
+  *pred += s ? extend(v, s) : 0;
+  block[0] = (int16_t)(*pred * (1 << al));
+  return JPEG_OK;
+}
+
+/* DC refinement: one bit, the DC's bit al. */
+static int decode_dc_refine(BitReader *r, int al, int16_t *block) {
+  int bit, err;
+  if ((err = get_bits(r, 1, &bit))) return err;
+  if (bit) block[0] = (int16_t)(block[0] | (1 << al));
+  return JPEG_OK;
+}
+
+/* AC first: the band's coefficients shifted up by al, or a block of an
+ * EOB run. */
+static int decode_ac_first(BitReader *r, const HuffTable *ac, int ss, int se, int al,
+                           int *eobrun, int16_t *block) {
+  int rs, v, err;
+  if (*eobrun > 0) {
+    (*eobrun)--;
+    return JPEG_OK;
+  }
+  for (int k = ss; k <= se; k++) {
+    if ((err = decode_symbol(r, ac, &rs))) return err;
+    int run = rs >> 4, s = rs & 15;
+    if (s) {
+      k += run;
+      if (k > se) return JPEG_ERR_AC_OVERFLOW;
+      if ((err = get_bits(r, s, &v))) return err;
+      block[kNatural[k]] = (int16_t)(extend(v, s) * (1 << al));
+    } else if (run == 15) {
+      k += 15;  /* ZRL: sixteen zeros, the loop's k++ the last */
+    } else {
+      *eobrun = 1 << run;
+      if (run) {
+        if ((err = get_bits(r, run, &v))) return err;
+        *eobrun += v;
+      }
+      (*eobrun)--;
+      break;
+    }
+  }
+  return JPEG_OK;
+}
+
+/* One correction bit for a coefficient already nonzero: bit al added away
+ * from zero where it is not yet set. */
+static int refine_nonzero(BitReader *r, int16_t *coef, int p1) {
+  int bit, err;
+  if ((err = get_bits(r, 1, &bit))) return err;
+  if (bit && (*coef & p1) == 0) *coef = (int16_t)(*coef >= 0 ? *coef + p1 : *coef - p1);
+  return JPEG_OK;
+}
+
+/* AC refinement (jdphuff.c's decode_mcu_AC_refine): the band's new
+ * coefficients of magnitude 1 << al, each after its run of zero-history
+ * coefficients, with a correction bit for every nonzero-history
+ * coefficient passed on the way; in an EOB run, the correction bits alone. */
+static int decode_ac_refine(BitReader *r, const HuffTable *ac, int ss, int se, int al,
+                            int *eobrun, int16_t *block) {
+  int p1 = 1 << al, err, v;
+  int k = ss;
+  if (*eobrun == 0) {
+    for (; k <= se; k++) {
+      int rs;
+      if ((err = decode_symbol(r, ac, &rs))) return err;
+      int run = rs >> 4, s = rs & 15, value = 0;
+      if (s) {
+        if (s != 1) return JPEG_ERR_REFINE;
+        if ((err = get_bits(r, 1, &v))) return err;
+        value = v ? p1 : -p1;
+      } else if (run != 15) {
+        *eobrun = 1 << run;
+        if (run) {
+          if ((err = get_bits(r, run, &v))) return err;
+          *eobrun += v;
+        }
+        break;
+      }
+      do {
+        int16_t *coef = block + kNatural[k];
+        if (*coef != 0) {
+          if ((err = refine_nonzero(r, coef, p1))) return err;
+        } else if (--run < 0) {
+          break;
+        }
+        k++;
+      } while (k <= se);
+      if (value) {
+        if (k > se) return JPEG_ERR_AC_OVERFLOW;
+        block[kNatural[k]] = (int16_t)value;
+      }
+    }
+  }
+  if (*eobrun > 0) {
+    for (; k <= se; k++) {
+      int16_t *coef = block + kNatural[k];
+      if (*coef != 0 && (err = refine_nonzero(r, coef, p1))) return err;
+    }
+    (*eobrun)--;
+  }
+  return JPEG_OK;
+}
+
 /* Expect RST(expected) at the reader's byte position (after any fill FF
  * bytes) and step past it; the bit buffer is emptied. */
 static int read_restart(BitReader *r, int expected) {
@@ -220,6 +336,11 @@ static int read_restart(BitReader *r, int expected) {
  *       tables, as the DHT segment gives them (16 counts, the symbols).
  *   mcus_x, mcus_y: MCUs across and down when interleaved.
  *   restart_interval: MCUs between restart markers, 0 for none.
+ *   progressive: 0 for a sequential scan (every coefficient, the DC and AC
+ *     tables), else a progressive scan of the band ss..se with successive
+ *     approximation ah (0 for a first scan) and al: a DC scan (ss 0) reads
+ *     the DC tables, an AC scan (one component) the AC tables, a DC
+ *     refinement none.
  *   end: out, the offset where the scan's data ended (at the next marker
  *     on success, the failing byte on error).
  *
@@ -231,16 +352,23 @@ int nrc_jpeg_decode_scan(const uint8_t *data, int64_t len, int64_t start, int nc
                          const int32_t *used_cols, const uint8_t **dc_counts,
                          const uint8_t **dc_symbols, const uint8_t **ac_counts,
                          const uint8_t **ac_symbols, int32_t mcus_x, int32_t mcus_y,
-                         int32_t restart_interval, int64_t *end) {
+                         int32_t restart_interval, int32_t progressive, int32_t ss, int32_t se,
+                         int32_t ah, int32_t al, int64_t *end) {
   HuffTable dc[4], ac[4];
   int pred[4] = {0, 0, 0, 0};
+  int eobrun = 0;
   int err;
   BitReader r = {data, len, start, 0, 0, 0};
   *end = start;
   if (ncomp < 1 || ncomp > 4) return JPEG_ERR_LAYOUT;
+  if (progressive && (ss < 0 || se > 63 || ss > se || al < 0 || al > 13 ||
+                      (ss == 0 && se != 0) || (ss > 0 && ncomp != 1)))
+    return JPEG_ERR_LAYOUT;
+  int use_dc = !progressive || (ss == 0 && ah == 0);
+  int use_ac = !progressive || ss > 0;
   for (int i = 0; i < ncomp; i++) {
-    if ((err = build_table(dc_counts[i], dc_symbols[i], &dc[i]))) return err;
-    if ((err = build_table(ac_counts[i], ac_symbols[i], &ac[i]))) return err;
+    if (use_dc && (err = build_table(dc_counts[i], dc_symbols[i], &dc[i]))) return err;
+    if (use_ac && (err = build_table(ac_counts[i], ac_symbols[i], &ac[i]))) return err;
   }
   int64_t total;
   int32_t per_row;
@@ -260,6 +388,7 @@ int nrc_jpeg_decode_scan(const uint8_t *data, int64_t len, int64_t start, int nc
       }
       next_rst = (next_rst + 1) & 7;
       for (int i = 0; i < ncomp; i++) pred[i] = 0;
+      eobrun = 0;
     }
     int64_t my = m / per_row, mx = m % per_row;
     for (int i = 0; i < ncomp; i++) {
@@ -269,7 +398,15 @@ int nrc_jpeg_decode_scan(const uint8_t *data, int64_t len, int64_t start, int nc
           int64_t row = my * bh + by, col = mx * bw + bx;
           int16_t *block = blocks[i] + ((row * cols[i] + col) * 64);
           if (row >= rows[i] || col >= cols[i]) return JPEG_ERR_LAYOUT;
-          if ((err = decode_block(&r, &dc[i], &ac[i], &pred[i], block))) {
+          if (!progressive)
+            err = decode_block(&r, &dc[i], &ac[i], &pred[i], block);
+          else if (ss == 0)
+            err = ah == 0 ? decode_dc_first(&r, &dc[i], al, &pred[i], block)
+                          : decode_dc_refine(&r, al, block);
+          else
+            err = ah == 0 ? decode_ac_first(&r, &ac[i], ss, se, al, &eobrun, block)
+                          : decode_ac_refine(&r, &ac[i], ss, se, al, &eobrun, block);
+          if (err) {
             *end = r.pos;
             return err;
           }

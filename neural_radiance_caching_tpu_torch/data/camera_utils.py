@@ -19,7 +19,7 @@ from neural_radiance_caching_tpu_torch.utils import pytrees, torchutil
 
 
 class ProjectionType(enum.Enum):
-    """The loaders' camera models; PANORAMIC casts on the host only."""
+    """The loaders' camera models."""
 
     PERSPECTIVE = "perspective"
     FISHEYE = "fisheye"
@@ -440,8 +440,7 @@ def pixels_to_rays(pix_x_int, pix_y_int, pixtocams, camtoworlds, rng=None, jitte
     distortion_params: a dict of OpenCV coefficients (per-ray arrays or
     shared floats) whose inverse is solved per pixel
     (``undistort_coordinates``). camtype: the image plane bent onto an
-    equidistant or equisolid fisheye, or (on the host) an equirectangular
-    panorama, where `pixtocams` maps a pixel to (azimuth, polar angle).
+    equidistant or equisolid fisheye, or an equirectangular panorama, where `pixtocams` maps a pixel to (azimuth, polar angle).
     pixtocam_ndc [3, 3]: the rays warped into NDC (``convert_to_ndc``), the
     radii measured between the warped origins of neighbouring pixels.
 
@@ -449,8 +448,6 @@ def pixels_to_rays(pix_x_int, pix_y_int, pixtocams, camtoworlds, rng=None, jitte
     neighboring pixels' directions, scaled by 2/sqrt(12).
     """
     if isinstance(pix_x_int, torch.Tensor):
-        if camtype == ProjectionType.PANORAMIC:
-            raise NotImplementedError("panoramic rays are cast on the host in the port")
         return _pixels_to_rays_torch(pix_x_int, pix_y_int, pixtocams, camtoworlds, rng, jitter,
                                      camtype, distortion_params, pixtocam_ndc)
 
@@ -534,6 +531,10 @@ def _pixels_to_rays_torch(pix_x_int, pix_y_int, pixtocams, camtoworlds, rng, jit
         camera_dirs = torch.stack([x, y, torch.ones_like(x)], dim=-1)
     if camtype in (ProjectionType.FISHEYE, ProjectionType.FISHEYE_EQUISOLID):
         camera_dirs = _fisheye(camera_dirs[..., 0], camera_dirs[..., 1], camtype, torch)
+    elif camtype == ProjectionType.PANORAMIC:
+        theta, phi = camera_dirs[..., 0], camera_dirs[..., 1]
+        camera_dirs = torch.stack([-torch.sin(phi) * torch.sin(theta), -torch.cos(phi),
+                                   -torch.sin(phi) * torch.cos(theta)], dim=-1)
     # OpenCV -> OpenGL.
     camera_dirs = camera_dirs * torch.tensor([1.0, -1.0, -1.0], device=pix_x_int.device)
     imageplane = camera_dirs[0][..., :2]

@@ -17,7 +17,10 @@ RandomState stream as the JAX package, so both packages see identical
 batches: random pixels of the stacked images, of the flattened pixel table
 (``GlossySynthetic``, the FIPT loaders, ``TransientSimulationIToF``), or a
 random window of the transient loaders' pre-shuffled h5 sample streams.
-A loader's cameras are ``Dataset.cameras``: (pixtocams, camtoworlds, lens
+With ``Config.patch_size`` p > 1 the stacked images give p x p patches
+instead, each patch's pixels contiguous (the flattened tables and the
+transient streams ignore it, as in JAX). ``Config.meshfile`` loads a
+triangle mesh (``ops/mesh.py``) onto the dataset's device. A loader's cameras are ``Dataset.cameras``: (pixtocams, camtoworlds, lens
 distortion, the NDC warp's pixtocam), as in JAX; a camera's ``camtype`` is
 kept but, as in JAX, no cast reads it.
 Rays are cast on the host, or, with ``Config.cast_rays_in_train_step``, a
@@ -44,6 +47,7 @@ import torch
 from neural_radiance_caching_tpu_torch.data import camera_utils, colmap, env_maps, hdf5
 from neural_radiance_caching_tpu_torch.data import io as io_lib
 from neural_radiance_caching_tpu_torch.ops import image as image_ops
+from neural_radiance_caching_tpu_torch.ops import mesh as mesh_ops
 from neural_radiance_caching_tpu_torch.parallel import mesh as mesh_lib
 from neural_radiance_caching_tpu_torch.utils import pytrees, torchutil
 
@@ -246,10 +250,6 @@ class Dataset:
 
     def __init__(self, split, data_dir, config, device="cuda"):
         torchutil.check_device(device, "a dataset", "serve batches on the CPU")
-        if config.patch_size > 1:
-            raise NotImplementedError("patch batches are not ported yet")
-        if config.meshfile:
-            raise NotImplementedError(f"Config.meshfile ({config.meshfile!r}) is not ported yet")
         self.split = split
         self.data_dir = data_dir
         self.config = config
@@ -261,6 +261,7 @@ class Dataset:
             raise ValueError(f"Config.batch_size {config.batch_size} is not divisible by the "
                              f"{world} ranks")
         self._batch_size = config.batch_size // world
+        self._patch_size = max(config.patch_size, 1)
         self.near = config.near
         self.far = config.far
         self._flattened = False
@@ -295,9 +296,14 @@ class Dataset:
         self.images_flattened = None
         self.indices_flattened = None
         self.light_idx_flattened = None
+        # `Config.meshfile`'s TriangleMesh on `device` (``reload_mesh``). As in
+        # JAX, the trainer does not hand it to the model: the sampler's mesh
+        # shortcut runs where a caller passes ``mesh=`` to the model.
+        self.mesh = None
         self._np_rng = np.random.RandomState(
             config.np_rng_seed + (rank if split == "train" else 1))
         self._load_renderings(config)
+        self.reload_mesh(config)
         self.num_images = self.images.shape[0]
         self.height, self.width = self.images.shape[1:3]
         if self.pixtocams.ndim == 2:
@@ -308,6 +314,11 @@ class Dataset:
 
     def _load_renderings(self, config):
         raise NotImplementedError
+
+    def reload_mesh(self, config):
+        """Load `Config.meshfile` (a Wavefront OBJ) onto the dataset's device."""
+        if config.meshfile:
+            self.mesh = mesh_ops.load_obj(config.meshfile, device=self.device)
 
     @property
     def cameras(self):
@@ -373,6 +384,21 @@ class Dataset:
             masks = self.masks[cam_idx, pix_y, pix_x] if self.masks is not None else None
             return pytrees.Batch(rays=self._cast(pixels), rgb=self.images_flattened[inds],
                                  masks=masks).to(self.device)
+        p = self._patch_size
+        if p > 1:
+            # n // p^2 patches of p x p pixels inside the masked border, each
+            # patch's pixels contiguous in the batch (the patch loss reshapes
+            # the batch to [-1, p * p]).
+            num_patches = n // (p * p)
+            border = self.config.num_border_pixels_to_mask
+            corner_x = self._np_rng.randint(border, self.width - border - p + 1,
+                                            (num_patches, 1, 1))
+            corner_y = self._np_rng.randint(border, self.height - border - p + 1,
+                                            (num_patches, 1, 1))
+            dx, dy = camera_utils.pixel_coordinates(p, p)
+            cam_idx = np.repeat(self._np_rng.randint(0, self.num_images, (num_patches,)), p * p)
+            return self._gather_batch(cam_idx, (corner_x + dx).reshape(-1),
+                                      (corner_y + dy).reshape(-1))
         cam_idx = self._np_rng.randint(0, self.num_images, (n,))
         pix_x = self._np_rng.randint(0, self.width, (n,))
         pix_y = self._np_rng.randint(0, self.height, (n,))
@@ -461,9 +487,6 @@ class ORB(Dataset):
     clipped to [0, 4] and composited on white by the `{split}_mask` PNGs."""
 
     def _load_renderings(self, config):
-        if config.vis_render_path and self.split != "train":
-            raise NotImplementedError("Config.vis_render_path (ORB's ellipse render path) is "
-                                      "not ported yet")
         _, camtoworlds_train, _, _, _, _ = load_ngp_posedata(
             config, self.data_dir, "transforms_train.json")
         _, camtoworlds, pixtocams, distortions, camtype, nameprefixes = load_ngp_posedata(
@@ -495,6 +518,15 @@ class ORB(Dataset):
         alpha = self.mask_images.reshape(rgb.shape[:3] + (-1,))[..., :1]
         self.images = (rgb * alpha + (1.0 - alpha)).astype(np.float32)
         self.masks = alpha
+        if config.vis_render_path and self.split == "test":
+            # The test split becomes a 120-frame ellipse around the first
+            # test pose, each frame showing test image 0 and its mask.
+            num_render = 120
+            camtoworlds = camera_utils.generate_ellipse_path(
+                camtoworlds, n_frames=num_render, lock_up=False, relative_to_first_pose=True,
+                flip_y=True)
+            self.images = np.repeat(self.images[0:1], num_render, 0)
+            self.masks = np.repeat(self.masks[0:1], num_render, 0)
         self.camtoworlds = camtoworlds
         self.pixtocams = pixtocams
         self.distortion_params = distortions
@@ -1495,8 +1527,21 @@ def _convolve_bins(x, kernel):
 
 
 class SyntheticSpheres(Dataset):
-    """Procedural analytic scene: lambertian spheres under a point light plus
-    ambient ("legacy" shading of the JAX scene), ray-traced in numpy."""
+    """Procedural analytic scene: three spheres under a point light,
+    ray-traced in numpy. Three shadings (`Config.synthetic_spheres_shading`):
+
+    - "legacy": albedo * (AMBIENT + (1 - AMBIENT) * lambert), no falloff
+      and no shadows;
+    - "physical": albedo * (ENV_IRRADIANCE + LIGHT_POWER * lambert *
+      visibility / dist^2), with sphere-on-sphere shadow rays;
+    - "physical_glossy": "physical" with each sphere's microfacet material
+      (MATERIALS roughness, metalness): GGX D, Schlick F, Smith G with
+      k = a / 2.
+
+    Under `Config.synthetic_spheres_multi_illum` each
+    view is lit from its own azimuth, the test split's a half step apart
+    from the train split's. Albedo, normal and (glossy) roughness maps are
+    kept where their metrics ask for them."""
 
     SPHERES = (
         # (center, radius, albedo)
@@ -1504,8 +1549,16 @@ class SyntheticSpheres(Dataset):
         ((0.7, 0.4, -0.25), 0.3, (0.25, 0.55, 0.9)),
         ((-0.6, -0.5, -0.15), 0.4, (0.3, 0.85, 0.4)),
     )
+    # Per-sphere (roughness, metalness), physical_glossy only.
+    MATERIALS = ((1.0, 0.0), (0.15, 0.9), (0.4, 0.3))
+    F0_DIELECTRIC = 0.04
     LIGHT = np.array([1.5, -1.5, 2.5], np.float32)
     AMBIENT = 0.25
+    # The physical shadings' light, closer to the spheres; its power and the
+    # environment irradiance carry the lambertian 1/pi.
+    PHYSICAL_LIGHT = np.array([1.0, -1.0, 1.5], np.float32)
+    LIGHT_POWER = 2.2
+    ENV_IRRADIANCE = 0.12
 
     def __init__(self, split, data_dir, config, num_images=None, resolution=None,
                  device="cuda"):
@@ -1513,22 +1566,61 @@ class SyntheticSpheres(Dataset):
             num_images = config.num_dataset_images if config.num_dataset_images > 0 else 16
         if resolution is None:
             resolution = 48 // max(1, config.factor)
-        if config.synthetic_spheres_shading != "legacy" or config.synthetic_spheres_multi_illum:
-            raise NotImplementedError("only the legacy single-light sphere scene is ported")
+        shading = config.synthetic_spheres_shading
+        if shading not in ("legacy", "physical", "physical_glossy"):
+            raise ValueError(f"Unknown synthetic_spheres_shading {shading!r}")
         self._num_images = num_images
         self._resolution = resolution
+        self._shading = shading
+        self._light = self.LIGHT if shading == "legacy" else self.PHYSICAL_LIGHT
+        self._multi_illum = bool(config.synthetic_spheres_multi_illum)
         super().__init__(split, data_dir, config, device=device)
+
+    def _image_lights(self):
+        """Each view's light: the fixed light, or under multi-illumination
+        the light turned about z through N even steps, the test split's
+        phase a half step on."""
+        n = self._num_images
+        if not self._multi_illum:
+            return np.broadcast_to(self._light, (n, 3)).copy()
+        phase = 0.0 if self.split == "train" else np.pi / max(n, 1)
+        angles = 2 * np.pi * np.arange(n) / max(n, 1) + phase
+        r = float(np.linalg.norm(self._light[:2]))
+        base = np.arctan2(self._light[1], self._light[0])
+        lights = np.stack([r * np.cos(base + angles), r * np.sin(base + angles),
+                           np.full(n, self._light[2], np.float32)], axis=-1)
+        return lights.astype(np.float32)
+
+    def _light_visibility(self, points, normals, light):
+        """1.0 where the segment point -> light misses every sphere (the
+        origin pushed 1e-3 along the normal)."""
+        vis = np.ones((points.shape[0],), np.float32)
+        to_light = light - points
+        dist = np.linalg.norm(to_light, axis=-1)
+        ldir = to_light / dist[:, None]
+        origins = points + 1e-3 * normals
+        for center, radius, _ in self.SPHERES:
+            oc = origins - np.array(center, np.float32)
+            b = np.sum(oc * ldir, -1)
+            c = np.sum(oc * oc, -1) - radius**2
+            disc = b * b - c
+            t = -b - np.sqrt(np.maximum(disc, 0))
+            vis[(disc > 0) & (t > 1e-3) & (t < dist)] = 0.0
+        return vis
 
     def _trace(self, origins, dirs, light):
         """Analytic ray tracing of the sphere scene -> (rgb, alpha, t_hit,
-        light_dist): the hit distance along the ray and the surface->light
-        distance feed the transient renderings."""
+        light_dist, albedo, normal, roughness): the hit distance along the
+        ray and the surface->light distance feed the transient renderings."""
         n = origins.shape[0]
         best_t = np.full((n,), np.inf, np.float32)
         rgb = np.ones((n, 3), np.float32)  # white background
         alpha = np.zeros((n,), np.float32)
         light_dist = np.zeros((n,), np.float32)
-        for center, radius, albedo in self.SPHERES:
+        albedo_out = np.ones((n, 3), np.float32)
+        normal_out = np.zeros((n, 3), np.float32)
+        rough_out = np.ones((n,), np.float32)
+        for si, (center, radius, albedo) in enumerate(self.SPHERES):
             center = np.array(center, np.float32)
             oc = origins - center
             b = np.sum(oc * dirs, -1)
@@ -1545,11 +1637,46 @@ class SyntheticSpheres(Dataset):
             dist = np.linalg.norm(to_light, axis=-1, keepdims=True)
             ldir = to_light / dist
             lambert = np.maximum(0.0, np.sum(normal * ldir, -1, keepdims=True))
-            rgb[hit] = np.array(albedo, np.float32) * (self.AMBIENT + (1 - self.AMBIENT) * lambert)
+            alb = np.array(albedo, np.float32)
+            if self._shading == "physical_glossy":
+                vis = self._light_visibility(p, normal, light)[:, None]
+                rough, metal = self.MATERIALS[si]
+                spec = self._ggx_specular(normal, -dirs[hit], ldir, alb, rough, metal)
+                # The constants carry pi, so the lobe takes it back.
+                diffuse = (1.0 - metal) * alb * lambert
+                rgb[hit] = (self.ENV_IRRADIANCE * (1.0 - metal) * alb
+                            + self.LIGHT_POWER * vis / dist**2 * (diffuse + np.pi * spec))
+                rough_out[hit] = rough
+            elif self._shading == "physical":
+                vis = self._light_visibility(p, normal, light)[:, None]
+                rgb[hit] = alb * (self.ENV_IRRADIANCE + self.LIGHT_POWER * lambert * vis / dist**2)
+            else:
+                rgb[hit] = alb * (self.AMBIENT + (1 - self.AMBIENT) * lambert)
             best_t[hit] = t[hit]
             alpha[hit] = 1.0
             light_dist[hit] = dist[..., 0]
-        return rgb, alpha, best_t, light_dist
+            albedo_out[hit] = alb
+            normal_out[hit] = normal
+        return rgb, alpha, best_t, light_dist, albedo_out, normal_out, rough_out
+
+    def _ggx_specular(self, normal, vdir, ldir, albedo, roughness, metalness):
+        """The microfacet specular lobe: GGX D, Schlick F on F0 = albedo *
+        metal + 0.04 * (1 - metal), Smith G with k = a / 2, over 4 n.v."""
+        eps = np.finfo(np.float32).eps
+        h = vdir + ldir
+        h = h / np.maximum(np.linalg.norm(h, axis=-1, keepdims=True), eps)
+        n_v = np.maximum(0.0, np.sum(normal * vdir, -1, keepdims=True))
+        n_l = np.maximum(0.0, np.sum(normal * ldir, -1, keepdims=True))
+        n_h = np.maximum(0.0, np.sum(normal * h, -1, keepdims=True))
+        l_h = np.maximum(0.0, np.sum(ldir * h, -1, keepdims=True))
+        f0 = albedo * metalness + self.F0_DIELECTRIC * (1.0 - metalness)
+        fresnel = f0 + (1.0 - f0) * np.clip(1.0 - l_h, 0.0, 1.0) ** 5
+        a = roughness
+        d = a**2 / np.maximum(eps, np.pi * (n_h**2 * (a**2 - 1.0) + 1.0) ** 2)
+        k = a / 2
+        g = (n_v / np.maximum(eps, n_v * (1.0 - k) + k)) * (
+            n_l / np.maximum(eps, n_l * (1.0 - k) + k))
+        return d * fresnel * g / np.maximum(eps, 4.0 * n_v)
 
     def _bin_transient(self, rgb, alpha, t_hit, light_dist, config):
         """The direct response in time bins at the path length
@@ -1589,11 +1716,11 @@ class SyntheticSpheres(Dataset):
         pix_y = pix_y.reshape(-1).astype(np.float32)
         if config.use_transient and config.synthetic_spheres_impulse_sigma > 0:
             self.impulse_response = self._impulse_kernel(config)
-        lights = np.broadcast_to(self.LIGHT, (self._num_images, 3)).copy()
-        images, alphas = [], []
+        lights = self._image_lights()
+        images, alphas, albedo_maps, normal_maps, rough_maps = [], [], [], [], []
         for c2w, light in zip(camtoworlds, lights):
             out = camera_utils.pixels_to_rays(pix_x, pix_y, pixtocam[None], c2w[None])
-            rgb, alpha, t_hit, light_dist = self._trace(
+            rgb, alpha, t_hit, light_dist, albedo, normal, rough = self._trace(
                 out[0].reshape(-1, 3), out[2].reshape(-1, 3), light)
             if config.use_transient:
                 transient = self._bin_transient(rgb, alpha, t_hit, light_dist, config)
@@ -1601,9 +1728,19 @@ class SyntheticSpheres(Dataset):
             else:
                 images.append(rgb.reshape(res, res, 3))
             alphas.append(alpha.reshape(res, res))
+            albedo_maps.append(albedo.reshape(res, res, 3))
+            normal_maps.append(normal.reshape(res, res, 3))
+            rough_maps.append(rough.reshape(res, res))
         self.images = np.stack(images).astype(np.float32)
         self.alphas = np.stack(alphas).astype(np.float32)
         self.masks = self.alphas[..., None]
+        if self._load_albedos:
+            self.albedo_images = np.stack(albedo_maps).astype(np.float32)
+            if self._shading == "physical_glossy":
+                # The analytic roughness, for specular-recovery metrics.
+                self.roughness_images = np.stack(rough_maps).astype(np.float32)
+        if self._load_normals:
+            self.normal_images = np.stack(normal_maps).astype(np.float32)
         self.pixtocams = pixtocam[None].astype(np.float32)
         self.camtoworlds = camtoworlds
         self.lights = lights

@@ -1,33 +1,43 @@
-"""Baseline JPEG decoder: the entropy decoding in C, the rest in numpy.
+"""JPEG decoder: the entropy decoding in C, the rest in numpy.
 
 The JAX package opens JPEGs through PIL (``data/io.load_img``), which the
 card's machine does not have. ``read_jpeg`` returns the array that
 ``np.array(PIL.Image.open(path))`` gives, bit for bit against PIL built on
-libjpeg-turbo: uint8 ``[H, W, 3]`` for a YCbCr file, ``[H, W]`` for a grey
-one. It reproduces libjpeg's integer pipeline at its defaults, which are
-PIL's:
+libjpeg-turbo: uint8 ``[H, W, 3]`` for a YCbCr or RGB file, ``[H, W, 4]``
+for a CMYK or YCCK one (inverted, as PIL reads it under Adobe's
+convention), ``[H, W]`` for a grey one. It reproduces libjpeg's integer
+pipeline at its defaults, which are PIL's:
 
-- the Huffman decoding of sequential 8-bit scans (SOF0 and SOF1), with
-  8- and 16-bit quantisation tables, per-file Huffman tables, restart
-  intervals (the DC predictors reset at each RSTn), byte stuffing and fill
-  bytes, interleaved and non-interleaved scans: ``csrc/jpeg_entropy.c``,
-  built with the host C compiler at first use and called through ctypes
-  (it is sequential bit by bit; a Python loop would take seconds per
-  view);
+- the Huffman decoding of 8-bit scans, sequential (SOF0, SOF1) and
+  progressive (SOF2: spectral selection, successive approximation, EOB
+  runs), with 8- and 16-bit quantisation tables, per-scan Huffman tables,
+  restart intervals (the DC predictors and the EOB run reset at each
+  RSTn), byte stuffing and fill bytes, interleaved and non-interleaved
+  scans: ``csrc/jpeg_entropy.c``, built with the host C compiler at first
+  use and called through ctypes (it is sequential bit by bit; a Python
+  loop would take seconds per view);
 - the dequantisation and ``jidctint.c``'s two-pass integer IDCT (ISLOW),
   its ``DESCALE`` rounding and its range-limit table, which wraps values
   outside [-512, 511] (``& RANGE_MASK``) rather than clipping them;
-- ``jdsample.c``'s "fancy" triangle upsampling of the chroma: h2v1
-  (4:2:2), h2v2 (4:2:0) and h1v2 (4:4:0), with their alternating rounding
-  biases, the edge column and the last real row repeated as context;
-- ``jdcolor.c``'s fixed-point YCbCr -> RGB tables (16 fraction bits).
+- ``jdsample.c``'s upsampling of each component to the largest sampling
+  factors: the "fancy" triangle filters h2v1 and h2v2 (where the
+  component is wider than 2 samples; else replication) and h1v2, with
+  their alternating rounding biases, the edge column and the last real row
+  repeated as context; every other integer ratio (4:1:1 among them) by
+  replication;
+- ``jdcolor.c``'s colour spaces as libjpeg guesses them (a JFIF marker,
+  an Adobe marker's transform, the component ids): the fixed-point YCbCr
+  -> RGB tables (16 fraction bits), RGB as it is, CMYK as it is and YCCK
+  -> CMYK through the same tables.
 
 EXIF orientation is not applied (PIL's ``Image.open`` does not apply it
-either). Progressive (SOF2), lossless (SOF3), hierarchical and
-arithmetic-coded files, precisions other than 8 bits, CMYK and RGB (Adobe
-transform 0) files, sampling factors other than those three, and truncated
-or malformed data raise a ValueError that names them. A missing C compiler
-or a failed build raises; nothing falls back to a Python decoder.
+either). Lossless (SOF3), hierarchical and arithmetic-coded files,
+precisions other than 8 bits, a height given by a DNL marker, sampling
+ratios that are not integers, a progressive file whose first AC
+coefficients are not fully refined (libjpeg smooths its blocks), and
+truncated or malformed data raise a ValueError that names them. A missing
+C compiler or a failed build raises; nothing falls back to a Python
+decoder.
 
 Format reference: ITU-T T.81 (markers, Annex B; Huffman decoding, Annex F);
 the IJG's libjpeg for the integer IDCT, upsampling and colour conversion.
@@ -60,16 +70,19 @@ _lib_lock = threading.Lock()
 _ERRORS = {1: "truncated data (a marker or the end of the file inside an MCU)",
            2: "a bit pattern that is no Huffman code", 3: "a missing restart marker",
            4: "an AC run past coefficient 63", 5: "a malformed Huffman table",
-           6: "an MCU outside the frame"}
-_SOF_REFUSED = {0xC2: "progressive JPEG (SOF2)", 0xC3: "lossless JPEG (SOF3)",
+           6: "an MCU outside the frame", 7: "a refinement coefficient of size other than 1"}
+_SOF_REFUSED = {0xC3: "lossless JPEG (SOF3)",
                 0xC5: "hierarchical JPEG (SOF5)", 0xC6: "hierarchical JPEG (SOF6)",
                 0xC7: "hierarchical JPEG (SOF7)", 0xC9: "arithmetic-coded JPEG (SOF9)",
                 0xCA: "arithmetic-coded JPEG (SOF10)", 0xCB: "arithmetic-coded JPEG (SOF11)",
                 0xCC: "arithmetic-coded JPEG (DAC)", 0xCD: "arithmetic-coded JPEG (SOF13)",
                 0xCE: "arithmetic-coded JPEG (SOF14)", 0xCF: "arithmetic-coded JPEG (SOF15)"}
 
-# The chroma upsampling each (hmax / h, vmax / v) takes.
-_UPSAMPLE = {(1, 1): "full", (2, 1): "h2v1", (2, 2): "h2v2", (1, 2): "h1v2"}
+# libjpeg's limit on the blocks of an interleaved scan's MCU.
+_MAX_BLOCKS_IN_MCU = 10
+# libjpeg-turbo's block smoothing of a progressive file reads the
+# refinement state of AC coefficients 1-9.
+_SMOOTHED_COEFS = range(1, 10)
 
 
 # --- the C library -------------------------------------------------------------------------
@@ -117,8 +130,9 @@ def _library():
             lib = ctypes.CDLL(str(build_library()))
             fn = lib.nrc_jpeg_decode_scan
             p = ctypes.c_void_p
+            i32 = ctypes.c_int32
             fn.argtypes = (p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, p, p, p, p, p, p,
-                           p, p, p, p, p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+                           p, p, p, p, p, i32, i32, i32, i32, i32, i32, i32, i32,
                            ctypes.POINTER(ctypes.c_int64))
             fn.restype = ctypes.c_int
             _lib = fn
@@ -134,16 +148,22 @@ class _Component:
         self.quant = None  # latched at the component's first scan, as libjpeg does
         self.blocks = None
         self.scanned = False
+        # Progressive: each coefficient's successive-approximation bit, -1
+        # before its first scan (libjpeg's coef_bits).
+        self.coef_bits = np.full(64, -1)
 
 
 class Frame:
     """A decoded file's frame: size, components (id, sampling factors) and
     each component's quantised coefficients [block rows, block cols, 64] in
-    natural order, with its quantisation table (natural order)."""
+    natural order, with its quantisation table (natural order); whether it
+    is progressive, and its colour space (set at the first scan)."""
 
-    def __init__(self, width, height, components):
+    def __init__(self, width, height, components, progressive=False):
         self.width, self.height = width, height
         self.components = components
+        self.progressive = progressive
+        self.color_space = None
         self.hmax = max(c.h for c in components)
         self.vmax = max(c.v for c in components)
         self.mcus_x = -(-width // (8 * self.hmax))
@@ -159,9 +179,15 @@ def _u16(buf, pos):
 
 
 def _color_space(components, jfif, adobe):
-    """libjpeg's guess of the colour space of a 3-component file
-    (jdapimin.c): JFIF means YCbCr; an Adobe marker's transform 0 means RGB;
-    without either, component ids R, G, B mean RGB."""
+    """libjpeg's guess of a file's colour space (jdapimin.c), from the
+    markers before its first scan. One component: grey. Three: JFIF means
+    YCbCr; an Adobe marker's transform 0 means RGB (any other YCbCr);
+    without either, component ids R, G, B mean RGB. Four: an Adobe marker's
+    transform 0 means CMYK (any other YCCK); without one, CMYK."""
+    if len(components) == 1:
+        return "grey"
+    if len(components) == 4:
+        return "YCCK" if adobe is not None and adobe != 0 else "CMYK"
     if jfif:
         return "YCbCr"
     if adobe is not None:
@@ -169,6 +195,23 @@ def _color_space(components, jfif, adobe):
     if [c.cid for c in components] == [82, 71, 66]:
         return "RGB"
     return "YCbCr"
+
+
+def _upsampling(frame, comp):
+    """The kind of jdsample.c's upsampling of `comp` to the frame's largest
+    factors (its method selection, at PIL's fancy upsampling): "full",
+    "h2v1", "h1v2", "h2v2" or a (horizontal, vertical) replication."""
+    ratio = (frame.hmax // comp.h, frame.vmax // comp.v)
+    narrow = frame.size(comp)[1] <= 2
+    if ratio == (1, 1):
+        return "full"
+    if ratio == (2, 1) and not narrow:
+        return "h2v1"
+    if ratio == (1, 2):
+        return "h1v2"
+    if ratio == (2, 2) and not narrow:
+        return "h2v2"
+    return ratio
 
 
 def decode_coefficients(buf: bytes, name: str = "<bytes>") -> Frame:
@@ -210,16 +253,14 @@ def decode_coefficients(buf: bytes, name: str = "<bytes>") -> Frame:
         if marker in _SOF_REFUSED:
             raise ValueError(f"{name}: {_SOF_REFUSED[marker]} is not supported "
                              "(baseline and extended sequential Huffman only)")
-        if marker in (0xC0, 0xC1):
+        if marker in (0xC0, 0xC1, 0xC2):
             precision, height, width, ncomp = struct.unpack_from(">BHHB", seg, 0)
             if precision != 8:
                 raise ValueError(f"{name}: {precision}-bit JPEG is not supported (8-bit only)")
             if height == 0:
                 raise ValueError(f"{name}: a JPEG whose height comes in a DNL marker is not "
                                  "supported")
-            if ncomp == 4:
-                raise ValueError(f"{name}: CMYK JPEG (4 components) is not supported")
-            if ncomp not in (1, 3):
+            if ncomp not in (1, 3, 4):
                 raise ValueError(f"{name}: JPEG with {ncomp} components is not supported")
             comps = []
             for i in range(ncomp):
@@ -227,13 +268,13 @@ def decode_coefficients(buf: bytes, name: str = "<bytes>") -> Frame:
                 if not (1 <= hv >> 4 <= 4 and 1 <= hv & 15 <= 4):
                     raise ValueError(f"{name}: bad JPEG sampling factors {hv >> 4}x{hv & 15}")
                 comps.append(_Component(cid, hv >> 4, hv & 15, tq))
-            frame = Frame(width, height, comps)
+            frame = Frame(width, height, comps, progressive=marker == 0xC2)
             for c in comps:
-                ratio = (frame.hmax // c.h, frame.vmax // c.v)
-                if (frame.hmax % c.h or frame.vmax % c.v or ratio not in _UPSAMPLE):
+                if frame.hmax % c.h or frame.vmax % c.v:
                     factors = ", ".join(f"{d.h}x{d.v}" for d in comps)
                     raise ValueError(f"{name}: JPEG sampling factors {factors} are not "
-                                     "supported (4:4:4, 4:2:2, 4:2:0, 4:4:0 and grey are)")
+                                     "supported (a ratio that is not an integer, which "
+                                     "libjpeg refuses too)")
                 rows = max(frame.mcus_y * c.v, -(-frame.size(c)[0] // 8))
                 cols = max(frame.mcus_x * c.h, -(-frame.size(c)[1] // 8))
                 c.blocks = np.zeros((rows, cols, 64), np.int16)
@@ -273,20 +314,40 @@ def decode_coefficients(buf: bytes, name: str = "<bytes>") -> Frame:
         elif marker == 0xDA:  # SOS
             if frame is None:
                 raise ValueError(f"{name}: JPEG scan before its frame header")
-            if len(frame.components) == 3 and _color_space(frame.components, jfif,
-                                                            adobe) != "YCbCr":
-                raise ValueError(f"{name}: an RGB JPEG (Adobe transform 0 or component ids "
-                                 "R, G, B) is not supported; YCbCr and grey are")
+            if frame.color_space is None:
+                frame.color_space = _color_space(frame.components, jfif, adobe)
             pos = _decode_scan(arr, seg, seg_pos + len(seg), frame, qtables, dc_tables,
                                ac_tables, restart, name)
         elif marker == 0xDC:
             raise ValueError(f"{name}: the DNL marker is not supported")
         # APPn, COM and the rest carry nothing the pixels need.
+    if frame.progressive and any((c.coef_bits[list(_SMOOTHED_COEFS)] != 0).any()
+                                 for c in frame.components):
+        raise ValueError(f"{name}: a progressive JPEG whose AC coefficients 1-9 are not fully "
+                         "refined is not supported (libjpeg's block smoothing is not ported)")
     return frame
 
 
 def _decode_scan(arr, seg, start, frame, qtables, dc_tables, ac_tables, restart, name):
     ns = seg[0]
+    ss, se, ahal = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns]
+    ah, al = ahal >> 4, ahal & 15
+    if not frame.progressive:
+        if (ss, se, ahal) != (0, 63, 0):
+            raise ValueError(f"{name}: a sequential JPEG scan of spectral selection {ss}-{se} / "
+                             f"successive approximation {ahal:#x} is not supported")
+        use_dc = use_ac = True
+    else:
+        # jdphuff.c's checks of the scan's parameters.
+        if ((ss == 0 and se != 0) or (ss > 0 and (ss > se or se > 63 or ns != 1))
+                or (ah and al != ah - 1) or al > 13):
+            raise ValueError(f"{name}: a progressive JPEG scan of spectral selection {ss}-{se} "
+                             f"/ successive approximation {ahal:#x} is malformed")
+        use_dc, use_ac = ss == 0 and ah == 0, ss > 0
+    if ns > 1 and sum(c.h * c.v for c in frame.components
+                      if c.cid in seg[1:1 + 2 * ns:2]) > _MAX_BLOCKS_IN_MCU:
+        raise ValueError(f"{name}: JPEG sampling factors too large for an interleaved scan "
+                         f"(more than {_MAX_BLOCKS_IN_MCU} blocks per MCU)")
     by_id = {c.cid: c for c in frame.components}
     comps, dcs, acs = [], [], []
     for i in range(ns):
@@ -294,7 +355,8 @@ def _decode_scan(arr, seg, start, frame, qtables, dc_tables, ac_tables, restart,
         if cid not in by_id:
             raise ValueError(f"{name}: JPEG scan names an unknown component {cid}")
         c = by_id[cid]
-        if tables >> 4 not in dc_tables or tables & 15 not in ac_tables:
+        if (use_dc and tables >> 4 not in dc_tables) or (use_ac and tables & 15 not in
+                                                         ac_tables):
             raise ValueError(f"{name}: JPEG scan uses an undefined Huffman table")
         if c.quant is None:
             if c.tq not in qtables:
@@ -302,12 +364,8 @@ def _decode_scan(arr, seg, start, frame, qtables, dc_tables, ac_tables, restart,
                                  f"quantisation table {c.tq}")
             c.quant = qtables[c.tq].copy()
         comps.append(c)
-        dcs.append(dc_tables[tables >> 4])
-        acs.append(ac_tables[tables & 15])
-    ss, se, ahal = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns]
-    if (ss, se, ahal) != (0, 63, 0):
-        raise ValueError(f"{name}: a JPEG scan of spectral selection {ss}-{se} / successive "
-                         f"approximation {ahal:#x} is progressive, not supported")
+        dcs.append(dc_tables[tables >> 4] if use_dc else _NO_TABLE)
+        acs.append(ac_tables[tables & 15] if use_ac else _NO_TABLE)
 
     def ints(values):
         return (ctypes.c_int32 * ns)(*values)
@@ -323,13 +381,20 @@ def _decode_scan(arr, seg, start, frame, qtables, dc_tables, ac_tables, restart,
         ints([c.blocks.shape[0] for c in comps]), ints([c.blocks.shape[1] for c in comps]),
         ints([-(-h // 8) for h, _ in sizes]), ints([-(-w // 8) for _, w in sizes]),
         ptrs([d[0] for d in dcs]), ptrs([d[1] for d in dcs]), ptrs([a[0] for a in acs]),
-        ptrs([a[1] for a in acs]), frame.mcus_x, frame.mcus_y, restart, ctypes.byref(end))
+        ptrs([a[1] for a in acs]), frame.mcus_x, frame.mcus_y, restart, int(frame.progressive),
+        ss, se, ah, al, ctypes.byref(end))
     if err:
         raise ValueError(f"{name}: JPEG scan data: {_ERRORS.get(err, f'error {err}')} at "
                          f"byte {end.value}")
     for c in comps:
         c.scanned = True
+        if frame.progressive:
+            c.coef_bits[ss:se + 1] = al
     return end.value
+
+
+# The tables a scan does not read (a DC refinement's, an AC scan's DC).
+_NO_TABLE = (np.zeros(16, np.uint8), np.zeros(256, np.uint8))
 
 
 # --- the integer pipeline ------------------------------------------------------------------
@@ -443,12 +508,15 @@ def _interleave(a, b, axis):
 
 
 def upsample(x, kind):
-    """jdsample.c's fancy upsampling of a component's samples `x` [h, w]
-    (int32), its edges repeated: h2v1 and h1v2 round (3 near + far) / 4 with
-    biases 1 and 2 at the even and odd outputs, h2v2 the column sums
-    (3 near + far) / 16 with 8 and 7."""
+    """jdsample.c's upsampling of a component's samples `x` [h, w] (int32):
+    the fancy filters, their edges repeated (h2v1 and h1v2 round (3 near +
+    far) / 4 with biases 1 and 2 at the even and odd outputs, h2v2 the
+    column sums (3 near + far) / 16 with 8 and 7), or `kind` an (h, v)
+    replication."""
     if kind == "full":
         return x
+    if isinstance(kind, tuple):
+        return np.repeat(np.repeat(x, kind[1], axis=0), kind[0], axis=1)
     if kind == "h2v1":
         left, right = _edges(x, 1)
         return _interleave((3 * x + left + 1) >> 2, (3 * x + right + 2) >> 2, 1)
@@ -493,16 +561,33 @@ def ycc_to_rgb(y, cb, cr):
     return out
 
 
+def ycck_to_cmyk(y, cb, cr, k):
+    """jdcolor.c's YCCK -> CMYK: the YCbCr -> RGB tables, each channel
+    subtracted from 255 and clipped; K as it is. uint8 [h, w, 4]."""
+    out = np.empty(y.shape + (4,), np.uint8)
+    out[..., 0] = _CLIP[256 + 255 - (y + _CR_R[cr])]
+    out[..., 1] = _CLIP[256 + 255 - (y + ((_CB_G[cb] + _CR_G[cr]) >> 16))]
+    out[..., 2] = _CLIP[256 + 255 - (y + _CB_B[cb])]
+    out[..., 3] = k
+    return out
+
+
 def pixels(frame: Frame) -> np.ndarray:
-    """The decoded samples of a frame: PIL's uint8 array."""
+    """The decoded samples of a frame: PIL's uint8 array (a four-component
+    file's inverted, as PIL reads CMYK under Adobe's convention)."""
     planes = []
     for c in frame.components:
         h, w = frame.size(c)
-        kind = _UPSAMPLE[(frame.hmax // c.h, frame.vmax // c.v)]
-        planes.append(upsample(_plane(c)[:h, :w], kind)[:frame.height, :frame.width])
-    if len(planes) == 1:
+        planes.append(upsample(_plane(c)[:h, :w], _upsampling(frame, c))[:frame.height,
+                                                                          :frame.width])
+    if frame.color_space == "grey":
         return planes[0].astype(np.uint8)
-    return ycc_to_rgb(*planes)
+    if frame.color_space == "YCbCr":
+        return ycc_to_rgb(*planes)
+    if frame.color_space == "RGB":
+        return np.stack(planes, axis=-1).astype(np.uint8)
+    cmyk = ycck_to_cmyk(*planes) if frame.color_space == "YCCK" else np.stack(planes, axis=-1)
+    return (255 - cmyk).astype(np.uint8)
 
 
 def decode_jpeg(buf: bytes, name: str = "<bytes>") -> np.ndarray:

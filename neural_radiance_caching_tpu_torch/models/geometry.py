@@ -156,10 +156,11 @@ class DensityMLP(Configurable, nn.Module, unported=dict(
     def forward(self, rng, rays, gaussians, tdist=None, train_frac=1.0, train=True,
                 mesh_normals=None, is_secondary=False, density_only=False, **kwargs):
         """The density, feature and normals of each sample. density_only skips
-        the density normals (None) for a caller that reads the density alone."""
+        the density normals (None) for a caller that reads the density alone.
+        mesh_normals [..., S, 3] (the sampler's mesh shortcut) replace every
+        normal, the density-gradient pass is skipped, and the density is
+        1e5 (the sample sits on the surface)."""
         del train_frac, train, kwargs
-        if mesh_normals is not None:
-            raise NotImplementedError("mesh normals are not ported yet")
         means, covs = gaussians
         control_offsets = None
         if self.grid is not None:
@@ -168,7 +169,7 @@ class DensityMLP(Configurable, nn.Module, unported=dict(
             control_offsets = control - means[..., None, :]
 
         raw_grad_density = normals = None
-        if not self.disable_density_normals and not density_only:
+        if not self.disable_density_normals and not density_only and mesh_normals is None:
             raw_density, feat, raw_grad_density = self._density_and_gradient(
                 means, covs, control_offsets, is_secondary)
             normals = torch.nan_to_num(-ref_utils.l2_normalize(raw_grad_density))
@@ -188,6 +189,9 @@ class DensityMLP(Configurable, nn.Module, unported=dict(
         else:
             grad_pred = normals_pred = None
             normals_to_use = normals
+        if mesh_normals is not None:
+            normals = normals_pred = normals_to_use = raw_grad_density = mesh_normals
+            density = 1e5 * torch.ones_like(density)
 
         ray_dists = torch.linalg.norm(rays.origins[..., None, :] - means, dim=-1, keepdim=True)
         light_dists = torch.linalg.norm(rays.lights[..., None, :] - means, dim=-1, keepdim=True)

@@ -171,7 +171,10 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(stopgrad_weight_variate=
         when given (None included), replaces the cache pass's resample
         indices for the surface points. secondary_proposal_grad=False runs
         the secondary rays' proposal levels without a graph (the train step
-        asks for it where no loss reads them).
+        asks for it where no loss reads them). `mesh` and `use_mesh` among
+        `render_kwargs`: the cache pass takes the sampler's mesh shortcut,
+        and the material shader's secondary rays take it too (``use_mesh``
+        always), starting at their near point.
         """
         if passes is not None and set(passes) & set(self.BYPASS_PASSES):
             return self.bypass(rng, rays, passes, sampler_results, train_frac=train_frac,
@@ -229,7 +232,8 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(stopgrad_weight_variate=
         key, rng = torchutil.random_split(rng)
         outputs = self._handle_material_pass(
             key, rays, train_frac, train, cache_outputs, cache_shader_results, filtered,
-            light_sampler_results, compute_extras, secondary_proposal_grad, vignette)
+            light_sampler_results, compute_extras, secondary_proposal_grad, vignette,
+            render_kwargs.get("mesh"))
         outputs = self._finalize_outputs(outputs, cache_outputs, cache_shader_results,
                                          light_sampler_results, slf_vis, vignette)
         if "light_sampler_vis" in passes and light_sampler_results:
@@ -347,14 +351,15 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(stopgrad_weight_variate=
 
     def _handle_material_pass(self, rng, rays, train_frac, train, cache_outputs,
                               cache_shader_results, filtered, light_sampler_results,
-                              compute_extras, secondary_proposal_grad=True, vignette=None):
+                              compute_extras, secondary_proposal_grad=True, vignette=None,
+                              mesh=None):
         shared = dict(rays=rays, train_frac=train_frac, train=train)
         key, rng = torchutil.random_split(rng)
         # Under slf_variate the variate pass's secondary rays replace this
         # pass's: no loss reads this pass's proposal levels.
         material_shader_results = self.shader(
             rng=key, sampler_results=filtered, light_sampler_results=light_sampler_results,
-            radiance_cache=self,
+            radiance_cache=self, mesh=mesh,
             secondary_proposal_grad=secondary_proposal_grad and not self.slf_variate, **shared)
         key, rng = torchutil.random_split(rng)
         material_integrator_results = self.integrator(
@@ -371,7 +376,7 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(stopgrad_weight_variate=
             key, rng = torchutil.random_split(rng)
             self._handle_slf_variate_pass(key, rays, train_frac, train, filtered,
                                           material_shader_results, material_integrator_results,
-                                          secondary_proposal_grad)
+                                          secondary_proposal_grad, mesh)
         # The cache rendered at the material's surface points (the
         # cache-consistency integrator). The JAX model also integrates the
         # cache shader's results alone; only the volume variate reads that.
@@ -396,7 +401,7 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(stopgrad_weight_variate=
 
     def _handle_slf_variate_pass(self, rng, rays, train_frac, train, filtered,
                                  material_shader_results, material_integrator_results,
-                                 secondary_proposal_grad=True):
+                                 secondary_proposal_grad=True, mesh=None):
         """The SLF variate: the material shader at the detached surface
         points with ``slf_variate``, lit by a second, detached light-sampler
         call (graph-free: no loss reads it). Its ``ref_*`` outputs replace
@@ -420,7 +425,7 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(stopgrad_weight_variate=
         single_shader = self.shader(
             rng=key, rays=rays, sampler_results=single, train_frac=train_frac, train=train,
             light_sampler_results=single_light, slf_variate=True, radiance_cache=self,
-            secondary_proposal_grad=secondary_proposal_grad)
+            secondary_proposal_grad=secondary_proposal_grad, mesh=mesh)
         for f, v in single_shader.items():
             if f.startswith("ref_"):
                 material_shader_results[f] = v

@@ -404,7 +404,7 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
         return surface_lf_fn
 
     def _make_radiance_cache_fn(self, radiance_cache, sampler_results, train_frac, train,
-                                proposal_grad=True):
+                                proposal_grad=True, mesh=None):
         """Closure that traces secondary rays [N, S] through the full cache
         model, flattened to one ray axis for the cache forward; the radiance
         comes back as [N, S, C], or [N, S, bins, C] from a transient cache,
@@ -412,7 +412,7 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
         With shadow_eps_indirect the rays carry their surface point's normal;
         under the model's share_light_power the cache shader is lit with this
         shader's power. proposal_grad=False runs the cache's proposal levels
-        without a graph."""
+        without a graph. mesh: the rays take the cache's mesh shortcut."""
 
         def radiance_cache_fn(rng, ref_rays):
             ref_rays = self._with_surface_normals(ref_rays, sampler_results)
@@ -431,7 +431,7 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
                 sampling_strategy=(self.cache_train_sampling_strategy if train
                                    else self.cache_render_sampling_strategy),
                 radiance_cache=radiance_cache, stopgrad_cache_weight=self.stopgrad_cache_weight,
-                proposal_grad=proposal_grad,
+                proposal_grad=proposal_grad, mesh=mesh,
                 light_power=self._light_power() if radiance_cache.share_light_power else None)
             render = out["render"]
 
@@ -453,15 +453,16 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
         return radiance_cache_fn
 
     def _sample_lobe_rays(self, rng, rays, sampler_results, material_sec, light_sec, samplers,
-                          num_secondary_samples, train_frac):
-        """Fan one lobe out into secondary rays + importance-sample records."""
+                          num_secondary_samples, train_frac, mesh=None):
+        """Fan one lobe out into secondary rays + importance-sample records;
+        with a mesh, the rays start at their near point."""
         ref_rays, ref_samples = render_utils.get_secondary_rays(
             rng, rays, sampler_results["points"], rays.viewdirs,
             sampler_results[self.normals_target], material_sec,
             refdir_eps=self._compute_near(train_frac), normal_eps=self.config.secondary_normal_eps,
             random_generator_2d=self.random_generator_2d, samplers=samplers,
             num_secondary_samples=num_secondary_samples, light_sampler_results=light_sec,
-            far=self.config.secondary_far)
+            offset_origins=mesh is not None, far=self.config.secondary_far)
         shading_w = self.stopgrad_shading_weight
         if self.config.material_loss_radius < float("inf"):
             # No shading gradient through secondary rays that start outside
@@ -530,7 +531,7 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
 
     def _process_indirect_lobes_fused(self, rng, rays, sampler_results, material,
                                       num_secondary_samples, radiance_cache_fn, train_frac, train,
-                                      light_sampler_results, integrated_outputs):
+                                      light_sampler_results, integrated_outputs, mesh=None):
         """Both indirect lobes through one radiance query: each keeps its own
         samplers and MIS pdfs, their secondary rays are concatenated along the
         secondary axis and traced in a single cache forward, and the results
@@ -553,7 +554,7 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
 
         key, rng = torchutil.random_split(rng)
         sampled = [self._sample_lobe_rays(key, rays, sampler_results, material_sec, light_sec,
-                                          samplers, n, train_frac)
+                                          samplers, n, train_frac, mesh)
                    for _, n, samplers, _ in lobes]
         n_total = sum(ns)
         fused_rays = _fuse_lobe_rays(sampled[0][0], sampled[1][0], ns)
@@ -637,7 +638,7 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
         return active_fn
 
     def _process_direct_lobes(self, rng, rays, sampler_results, material, train_frac,
-                              integrated_outputs):
+                              integrated_outputs, mesh=None):
         """The direct specular and diffuse lobes: one ray per surface point
         toward the light (the active sampler), lit once and integrated under
         each lobe. Its uniforms are drawn, though the sampler ignores them."""
@@ -650,7 +651,7 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
         material_sec = self._secondary_material(material)
         ref_rays, ref_samples = self._sample_lobe_rays(
             rng, rays, sampler_results, material_sec, light_sec, self._active_samplers, 1,
-            train_frac)
+            train_frac, mesh)
         rgb, rgb_ns, srs = self._make_active_light_fn(sampler_results)(ref_rays)
         ref_samples = self._attach_lobe_radiance(rgb, rgb_ns, ref_samples, srs, 1, direct=True)
         for comp in ("specular", "diffuse"):
@@ -661,16 +662,18 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
 
     def get_outgoing_radiance(self, rng, rays, sampler_results, material, num_secondary_samples,
                               radiance_cache_fn, train_frac=1.0, train=True,
-                              light_sampler_results=None, last_integrated_outputs=None):
+                              light_sampler_results=None, last_integrated_outputs=None,
+                              mesh=None):
         """All lobes of the outgoing-radiance estimate, combined per the
         integration strategy. last_integrated_outputs: an earlier estimate
-        whose indirect lobes' rays and sample records this one reuses."""
+        whose indirect lobes' rays and sample records this one reuses.
+        mesh: fresh secondary rays start at their near point."""
         out = {k: 0.0 for k in self._integration_strategy}
         key, rng = torchutil.random_split(rng)
         if last_integrated_outputs is None:
             self._process_indirect_lobes_fused(
                 key, rays, sampler_results, material, num_secondary_samples, radiance_cache_fn,
-                train_frac, train, light_sampler_results, out)
+                train_frac, train, light_sampler_results, out, mesh)
         else:
             # Only the SLF variate reuses rays, and only a steady cache has an
             # SLF memory: the direct lobes (the transient shader's) never do.
@@ -679,7 +682,8 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
                                                 last_integrated_outputs, out)
         if self.use_active:
             key, rng = torchutil.random_split(rng)
-            self._process_direct_lobes(key, rays, sampler_results, material, train_frac, out)
+            self._process_direct_lobes(key, rays, sampler_results, material, train_frac, out,
+                                       mesh)
         for output_key, (sub_keys, scale) in self._integration_strategy.items():
             total = 0.0
             for sub_key, dims in sub_keys:
@@ -720,7 +724,7 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
 
     def predict_appearance(self, rng, rays, sampler_results, train_frac=1.0, train=True,
                            radiance_cache=None, light_sampler_results=None, material_only=False,
-                           slf_variate=False, secondary_proposal_grad=True, **kwargs):
+                           slf_variate=False, secondary_proposal_grad=True, mesh=None, **kwargs):
         """The shader's outputs at the samples. material_only: the material
         heads alone, as the full pass outputs them (radius-masked), and no
         secondary ray traced (the perturbed pass of material_smoothness,
@@ -730,7 +734,9 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
         asks for it where no loss reads them; JAX's compiler drops them).
         slf_variate: the SLF variate's estimate (with an SLF memory; without
         one, the cache's estimate as the full pass makes it); otherwise a
-        shader with the memory queries the memory alone."""
+        shader with the memory queries the memory alone. mesh: the secondary
+        rays' cache queries take the mesh shortcut, and, outside the SLF
+        variate (as in JAX), fresh secondary rays start at their near point."""
         del kwargs
         key, rng = torchutil.random_split(rng)
         feature, material = self._predict_material_and_feature(key, rays, sampler_results, train)
@@ -741,7 +747,8 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
         emission = torch.zeros_like(material["albedo"])
         outputs = {"material_residual_albedo": torch.zeros_like(material["albedo"])}
         radiance_cache_fn = self._make_radiance_cache_fn(radiance_cache, sampler_results,
-                                                         train_frac, train, secondary_proposal_grad)
+                                                         train_frac, train, secondary_proposal_grad,
+                                                         mesh)
         surface_lf_fn = (self._make_surface_lf_fn(radiance_cache, sampler_results, train_frac,
                                                   train)
                          if self.use_surface_light_field else None)
@@ -755,7 +762,8 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
                 key, rays, sampler_results, material,
                 self.num_secondary_samples if train else self.render_num_secondary_samples,
                 surface_lf_fn if self.use_surface_light_field else radiance_cache_fn,
-                train_frac=train_frac, train=train, light_sampler_results=light_sampler_results)
+                train_frac=train_frac, train=train, light_sampler_results=light_sampler_results,
+                mesh=mesh)
         final_rgb = integrated["direct_radiance_out" if self.config.use_transient
                                else "radiance_out"]
         self._finalize_outputs(rays, outputs, integrated, final_rgb, material, emission,

@@ -273,7 +273,8 @@ class NeRFModel(Model):
     def forward(self, rng, rays, train_frac=1.0, train=True, sampling_strategy=None,
                 is_secondary=False, resample=False, cache_outputs=None,
                 filtered_sampler_inds=None, stopgrad_cache_weight=None, proposal_grad=True,
-                weights_only=False, use_slf=False, vignette=None, **render_kwargs):
+                weights_only=False, use_slf=False, vignette=None, mesh=None, use_mesh=True,
+                **render_kwargs):
         """Render a ray batch; returns {"main": per-stage results, "render": rgb etc.}.
 
         cache_outputs: {"sampler": ray history} of an earlier forward to reuse
@@ -295,6 +296,8 @@ class NeRFModel(Model):
         or not the rays are secondary).
         vignette: the per-ray multiplier [..., 1] of the render's rgb (a
         material model's ``VignetteMap``), or None.
+        mesh, use_mesh: the sampler's mesh shortcut (an ``ops/mesh``
+        TriangleMesh on the rays' device, ``ProposalVolumeSampler.forward``).
         """
         if use_slf:
             return self.get_slf_results(rng, rays, train_frac, train, stopgrad_cache_weight)
@@ -312,7 +315,8 @@ class NeRFModel(Model):
                 rng=key, rays=rays, train_frac=train_frac, train=train,
                 sampling_strategy=self.get_sampling_strategy(train, sampling_strategy),
                 use_raydist_fn=use_raydist_fn, is_secondary=is_secondary,
-                proposal_grad=proposal_grad, density_only=weights_only, **render_kwargs)
+                proposal_grad=proposal_grad, density_only=weights_only, mesh=mesh,
+                use_mesh=use_mesh, **render_kwargs)
 
         key, rng = torchutil.random_split(rng)
         filtered, filtered_sampler_inds = self.maybe_resample(

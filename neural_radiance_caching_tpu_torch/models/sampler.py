@@ -8,7 +8,11 @@ primary and secondary rays, with the identity ray warp or a ``raydist_fn``
 given as ``(fn, fn_inv, kwargs)`` (the power ladder of the gin files).
 Secondary rays that carry the normal of the surface they leave (shadow
 rays) start off it; the density-radius filter of their last level is
-ported. The mesh shortcut, the sample network, a ray warp without its
+ported. Given a ``mesh`` (``ops/mesh.TriangleMesh``), the rays are
+intersected with it first: with ``use_mesh`` the proposal levels are
+skipped and the last level takes one sample at the hit (the far plane where
+a ray misses), its normals the mesh's; without, every level's samples carry
+the hit point and normal. The sample network, a ray warp without its
 inverse and the other density filters are not ported yet.
 Levels before the last can run without a graph (``proposal_grad``), where
 no loss reads them.
@@ -99,13 +103,16 @@ class ProposalVolumeSampler(Configurable, nn.Module, unported=dict(
 
     def forward(self, rng, rays, train_frac=1.0, train=True, stopgrad_proposal=False,
                 stopgrad_weights=False, stopgrad_samples=False, sampling_strategy=None,
-                use_raydist_fn=True, proposal_grad=True, density_only=False, **render_kwargs):
+                use_raydist_fn=True, proposal_grad=True, density_only=False, mesh=None,
+                use_mesh=True, **render_kwargs):
         """The per-level ray results. proposal_grad=False evaluates every level
         but the last without a graph where their samples reach the next
         level detached (``stop_level_grad``): then only a loss on their own
         weights (the interlevel loss) could read one. density_only: the
         MLPs skip their density normals (a caller that reads the weights
-        alone)."""
+        alone). mesh, use_mesh: the mesh shortcut (module docstring); the
+        normals come from the mesh's faces or from its vertex normals, by
+        ``Config.use_mesh_face_normals``, turned to face the ray."""
         is_secondary = render_kwargs.get("is_secondary", False)
         if is_secondary and rays.normals is not None:
             # Push the near bound off the surface the ray leaves, along its normal.
@@ -131,6 +138,14 @@ class ProposalVolumeSampler(Configurable, nn.Module, unported=dict(
                 f"sampling_strategy {tuple(sampling_strategy)} indexes MLP {max_mlp} but "
                 f"mlp_params_per_level only defines {len(self.mlps)} MLP(s)")
 
+        mesh_t = mesh_normals = None
+        if mesh is not None:
+            hit_t, _, smooth_n, face_n, hit_valid = mesh.intersect(rays.origins, rays.directions)
+            mesh_t = torch.where(hit_valid, hit_t, rays.far[..., 0])
+            n = face_n if self.config.use_mesh_face_normals else smooth_n
+            mesh_normals = torch.where(math.dot(n, rays.directions) < 0, n, -n)[..., None, :]
+        use_surface = mesh is not None and use_mesh
+
         _, s_to_t = self._ray_warps(rays, use_raydist_fn)
         init_s_near, init_s_far = 0.0, 1.0
         sdist = torch.cat([torch.full_like(rays.near, init_s_near),
@@ -140,37 +155,50 @@ class ProposalVolumeSampler(Configurable, nn.Module, unported=dict(
         prod_num_samples = 1
 
         for i_level, (i_mlp, _, num_samples) in enumerate(sampling_strategy):
-            mlp = self.mlps[i_mlp]
-            dilation = (self.dilation_bias + self.dilation_multiplier
-                        * (init_s_far - init_s_near) / prod_num_samples)
-            use_dilation = self.dilation_bias > 0 or self.dilation_multiplier > 0
-            if prod_num_samples > 1 and use_dilation:
-                sdist, resample_weights = stepfun.max_dilate_weights(
-                    sdist, resample_weights, dilation, domain=(init_s_near, init_s_far),
-                    renormalize=True)
-                sdist = sdist[..., 1:-1]
-                resample_weights = resample_weights[..., 1:-1]
-            prod_num_samples *= num_samples
-
-            logits_resample = self._anneal(train_frac) * math.safe_log(
-                resample_weights + self.resample_padding)
-            key, rng = torchutil.random_split(rng)
-            sdist = stepfun.sample_intervals(
-                key, sdist, logits_resample, num_samples, single_jitter=self.single_jitter,
-                domain=(init_s_near, init_s_far))
-            if self.stop_level_grad:
-                sdist = sdist.detach()
-
-            tdist = s_to_t(sdist)
-            gaussians = render.cast_rays(
-                tdist, rays.origins, rays.directions, rays.radii, self.ray_shape, diag=False)
-
             is_last = i_level == len(sampling_strategy) - 1
+            if use_surface and not is_last:
+                continue  # the mesh places the surface: no proposal to refine
+            mlp = self.mlps[i_mlp]
+            if use_surface:
+                # One sample at the hit, its covariance the first ray's radius
+                # times the identity.
+                means = (rays.origins + rays.directions * mesh_t[..., None])[..., None, :]
+                covs = (rays.radii.reshape(-1)[0] * torch.eye(3, device=means.device)).expand(
+                    means.shape + (3,))
+                gaussians = (means, covs)
+                tdist = torch.cat([torch.zeros_like(mesh_t[..., None]), mesh_t[..., None] + 0.1],
+                                  dim=-1)
+            else:
+                dilation = (self.dilation_bias + self.dilation_multiplier
+                            * (init_s_far - init_s_near) / prod_num_samples)
+                use_dilation = self.dilation_bias > 0 or self.dilation_multiplier > 0
+                if prod_num_samples > 1 and use_dilation:
+                    sdist, resample_weights = stepfun.max_dilate_weights(
+                        sdist, resample_weights, dilation, domain=(init_s_near, init_s_far),
+                        renormalize=True)
+                    sdist = sdist[..., 1:-1]
+                    resample_weights = resample_weights[..., 1:-1]
+                prod_num_samples *= num_samples
+
+                logits_resample = self._anneal(train_frac) * math.safe_log(
+                    resample_weights + self.resample_padding)
+                key, rng = torchutil.random_split(rng)
+                sdist = stepfun.sample_intervals(
+                    key, sdist, logits_resample, num_samples, single_jitter=self.single_jitter,
+                    domain=(init_s_near, init_s_far))
+                if self.stop_level_grad:
+                    sdist = sdist.detach()
+
+                tdist = s_to_t(sdist)
+                gaussians = render.cast_rays(
+                    tdist, rays.origins, rays.directions, rays.radii, self.ray_shape, diag=False)
+
             key, rng = torchutil.random_split(rng)
             keep_graph = proposal_grad or is_last or not self.stop_level_grad
             with torch.set_grad_enabled(torch.is_grad_enabled() and keep_graph):
                 ray_results = mlp(rng=key, rays=rays, gaussians=gaussians, tdist=tdist,
                                   train_frac=train_frac, train=train, density_only=density_only,
+                                  mesh_normals=mesh_normals if use_mesh else None,
                                   **render_kwargs)
 
             means = gaussians[0]
@@ -194,6 +222,20 @@ class ProposalVolumeSampler(Configurable, nn.Module, unported=dict(
                 ray_results["density"], tdist, rays.directions,
                 opaque_background=self.opaque_background)
             resample_weights = weights
+            if use_surface:
+                weights = torch.ones_like(weights)  # the surface sample is certain
+            elif mesh is not None:
+                # Each sample annotated with the ray's hit: its point and
+                # normal, and the hit's distance past the sample.
+                ones = torch.ones_like(means)
+                surf = (rays.origins + rays.directions * mesh_t[..., None])[..., None, :] * ones
+                ray_results["mesh_points"] = surf
+                ray_results["mesh_normals"] = mesh_normals[..., 0:1, :] * ones
+
+                def dist_to(p):
+                    return torch.linalg.norm(p - rays.origins[..., None, :], dim=-1, keepdim=True)
+
+                ray_results["t_to_nearest"] = dist_to(surf) - dist_to(means)
             ray_results["tdist"] = tdist
             ray_results["sdist"] = sdist
             if stopgrad_weights:

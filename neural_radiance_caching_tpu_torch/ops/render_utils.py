@@ -594,12 +594,14 @@ def importance_sample_rays(rng, global_viewdirs, normal, material, random_genera
 
 def get_secondary_rays(rng, rays, means, viewdirs, normals, material, normal_eps=1e-2,
                        refdir_eps=1e-2, random_generator_2d=None, use_mis=True, samplers=None,
-                       num_secondary_samples=None, light_sampler_results=None, far=None):
+                       num_secondary_samples=None, light_sampler_results=None,
+                       offset_origins=False, far=None):
     """Fan a Rays batch out into [N, S] secondary rays at surface points.
 
     Origins are offset along the normal; directions come from MIS importance
     sampling. All camera-frame fields are broadcast so the cache sees
-    well-formed rays. Returns (ref_rays, ref_samples), each [N, S, ...].
+    well-formed rays. offset_origins: each ray starts at its near point,
+    its near bound then 0. Returns (ref_rays, ref_samples), each [N, S, ...].
     """
     n_sec = num_secondary_samples
     ref_origins = means + (normals * normal_eps).detach()
@@ -634,6 +636,9 @@ def get_secondary_rays(rng, rays, means, viewdirs, normals, material, normal_eps
     )
     ref_rays = ref_rays.replace(radii=torch.ones_like(ref_rays.directions[..., :1]),
                                 lossmult=bcast(rays.lossmult))
+    if offset_origins:
+        ref_rays = ref_rays.replace(origins=ref_rays.origins + ref_rays.directions * ref_rays.near,
+                                    near=torch.zeros_like(ref_rays.near))
     ref_samples = {k: v.reshape(-1, n_sec, v.shape[-1]) for k, v in ref_samples.items()}
     return ref_rays, ref_samples
 

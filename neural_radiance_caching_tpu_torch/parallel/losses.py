@@ -195,6 +195,26 @@ def compute_data_loss(batch, rendering, rays, config, main=False, transient=Fals
     return sub_loss, {k: torch.stack(v) for k, v in stats.items()}
 
 
+def patch_loss(batch, rendering, config):
+    """Bilateral depth smoothness over the batch's patches of
+    ``Config.patch_size``^2 contiguous rays: the Charbonnier of every pair's
+    rendered-depth difference within a patch, weighted down across colour
+    edges of the ground truth (the bilateral term) and in patches of high
+    colour variance."""
+    p = max(config.patch_size, 1)
+    rgb_gt = batch.rgb[..., :3].reshape(-1, p * p, 3)
+    depth = rendering["distance_mean"].reshape(-1, p * p)
+    pair_loss = torch.sqrt((depth[..., :, None] - depth[..., None, :]) ** 2
+                           + config.charb_padding**2)
+    rgb_resid_sq = torch.sum((rgb_gt[..., :, None, :] - rgb_gt[..., None, :, :]) ** 2, dim=-1)
+    bilateral = torch.exp(-config.bilateral_strength * rgb_resid_sq)
+    patch_mean = torch.mean(rgb_gt, dim=-2, keepdim=True)
+    patch_var = torch.mean(torch.square(rgb_gt - patch_mean), dim=(-2, -1))
+    weight = torch.exp(-(config.patch_variance_weighting**2) * patch_var)
+    weight = weight[..., None, None] * bilateral
+    return config.patch_loss_mult * torch.mean(pair_loss * weight)
+
+
 def compute_mask_loss(batch, rendering, rays, config, train_frac=1.0, empty_loss_weight=None):
     """Opaque/empty acc supervision: a Charbonnier of acc against the mask,
     weighted by opaque_loss_weight inside the mask and empty_loss_weight

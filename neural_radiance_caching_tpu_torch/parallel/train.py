@@ -139,6 +139,10 @@ def _compute_losses_for_output(batch, rays, model_results, config, train_frac, m
     losses[prefix + "data"] = config.data_loss_mult * loss_weight * data_loss
     for k, v in data_stats.items():
         stats[prefix + k] = v
+    # Depth smoothness over the batch's pixel patches (``Config.patch_size``).
+    if config.patch_loss_mult > 0 and config.patch_size > 1 and \
+            rendering.get("distance_mean") is not None and batch.rgb is not None:
+        losses[prefix + "patch"] = losses_lib.patch_loss(batch, rendering, out_config)
 
     ray_history = results["sampler"]
     last = results["geometry"]
@@ -188,7 +192,6 @@ def _check_config(config):
     unported = {
         "debug_mode": config.debug_mode,
         "eikonal_loss_mult": config.eikonal_loss_mult > 0 or config.eikonal_coarse_loss_mult > 0,
-        "patch_loss_mult": config.patch_loss_mult > 0,
     }
     bad = [k for k, v in unported.items() if v]
     if bad:

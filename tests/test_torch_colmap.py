@@ -4,8 +4,10 @@ lens distortion and its Newton inverse, the NDC warp, the render paths,
 the `llff` loader on each of its three pose paths (COLMAP's `sparse/0`,
 `poses_bounds.npy`, an NGP `transforms.json`) at factor 1 and 4 with its
 batches cast on the host and in the train step, the fisheye camtype quirk,
-a blender scene whose transforms carry distortion, and one cache step of
-the narrow `ngp_yobo.gin` from an LLFF scene through both trainers.
+a blender scene whose transforms carry distortion, one cache step of the
+narrow `ngp_yobo.gin` from an LLFF scene through both trainers, and the
+README's second stage (`material_light_from_scratch`) from it, with the
+host and the in-step cast (an open parity check).
 
 Tolerances: the COLMAP arrays, poses, intrinsics and distortion bit for
 bit; distortion and its inverse on the host (numpy, float64 and float32)
@@ -796,3 +798,46 @@ def test_ngp_cache_step_from_llff_through_both_trainers(llff_scenes, in_step, mo
                  if any(q is p for q in g["params"]))
         np.testing.assert_allclose(p.detach().numpy(), material_slice._tr(k, jnew[k]),
                                    rtol=0, atol=2 * lr + 1e-7, err_msg=k)
+
+
+# --- the README's second stage on a COLMAP scene (an open parity check) --------------------
+#
+# One `material_light_from_scratch` step (with resampling) of the narrow
+# `ngp_yobo.gin` from the llff scene above (OPENCV and SIMPLE_RADIAL
+# cameras, their distortion inverted per pixel), the rays cast on the host
+# and in the train step, through both trainers. Tolerances as in
+# `test_torch_material_trainer.py`: loss terms to 1e-4 relative with an
+# absolute 1e-7 (the smoothness terms to 1e-3), every gradient leaf to
+# rtol 2e-3 with an absolute 2e-4 x the leaf's largest entry, after the
+# trainer's Adam step a parameter within 2 x its group's learning rate of
+# optax's.
+
+@pytest.fixture(scope="module")
+def colmap_dir(tmp_path_factory):
+    return write_llff_colmap(str(tmp_path_factory.mktemp("colmap")))
+
+
+@pytest.mark.parametrize("in_step", [False, True])
+def test_readme_material_stage_from_a_colmap_scene(colmap_dir, in_step, monkeypatch, clean_gin):
+    """One `material_light_from_scratch` step of the narrow ngp_yobo.gin (the
+    llff loader its default) from the distorted COLMAP scene at factor 4:
+    every loss term, every gradient leaf, the Adam step; the rays cast on
+    the host, or in the step (JAX's jnp cast of its Pixels, op by op). No
+    scatter launch: ngp_yobo's final level takes density normals (the plain
+    encoder) and its light sampler has no grid."""
+    material_trainer.from_disk(monkeypatch, _jax_in_step if in_step else None)
+    bindings = trainer_test.NGP_TINY + material_trainer.OPEN_CHECK_MATERIAL + [
+        "Config.dataset_loader = 'llff'", f"Config.data_dir = '{colmap_dir}'",
+        "Config.near = 0.2", f"Config.cast_rays_in_train_step = {in_step}"]
+    jt, jmodel, tt = material_trainer._trainers(NGP, bindings,
+                                                 material_trainer.OPEN_CHECK_STAGE)
+    assert type(tt.dataset).__name__ == "LLFF" and tt.dataset.distortion_params is not None
+    next_train = tt.dataset.next_train
+    batches = []
+    tt.dataset.next_train = lambda: batches.append(next_train()) or batches[-1]
+    got = material_trainer._step_parity(jt, jmodel, tt, material_trainer._variables(jmodel, 5),
+                                        monkeypatch, [])
+    assert isinstance(batches[0].rays, tpytrees.Pixels) == in_step
+    extra = material_trainer.OPEN_CHECK_EXTRA
+    assert [k for k in got if k in extra] == extra
+    assert got["light_sampling"] != 0 and got["material_smoothness"] != 0

@@ -3,8 +3,11 @@ shift-invariant metrics and their bilateral-grid colour correction
 (``ops/image``), the probe's sphere of directions and panoramic rays, the
 trainer's secondary-ray probe (``Trainer.render_secondary_rays``) and vMF
 image (``render_vmf``) on a tiny ``synthetic_spheres.gin`` model with
-carried-over weights, and one run of the entry point on the CPU with an
-evaluation (LPIPS on, no harness binding), the probe and a profiler trace.
+carried-over weights, one run of the entry point on the CPU with an
+evaluation (LPIPS on, no harness binding), the probe and a profiler
+trace, and `--vis_only` on hotdog's material stage with albedo metrics
+through both packages' trainers (an open parity check; its tolerances in
+its section).
 
 Inputs are made from a seed with numpy; the probe's random draws come from
 one numpy stream in both packages (``test_torch_eval_slice.injected``).
@@ -18,6 +21,7 @@ the eval slice's cache renders: the proposal resampling and the density
 MLP round apart); the vMF image to rtol 1e-5 with an atol of 1e-6.
 """
 
+import ast
 import contextlib
 import dataclasses
 import glob
@@ -33,6 +37,9 @@ import pytest
 import torch
 
 import test_torch_eval_slice as eval_slice
+import test_torch_loader_steps as loader_steps
+import test_torch_loaders as loaders
+import test_torch_material_trainer as material_trainer
 import test_torch_trainer as trainer_test
 from neural_radiance_caching_tpu.data import camera_utils as jcamera
 from neural_radiance_caching_tpu.data import datasets as jdatasets
@@ -42,6 +49,7 @@ from neural_radiance_caching_tpu.models import construct as jconstruct
 from neural_radiance_caching_tpu.ops import image as jimage
 from neural_radiance_caching_tpu.ops import render_utils as jru
 from neural_radiance_caching_tpu.parallel import mesh as jmesh
+from neural_radiance_caching_tpu.parallel import train as jtrain
 from neural_radiance_caching_tpu_torch import train_with_trainer
 from neural_radiance_caching_tpu_torch.data import camera_utils as tcamera
 from neural_radiance_caching_tpu_torch.engine import gin_config as tgin
@@ -312,3 +320,91 @@ def test_profile_dir_writes_a_trace(entry_run):
     assert {"train step_num=1", "train step_num=2"} <= names
     assert "train step_num=3" not in names
     assert "profile: steps 1-2 traced to" in entry_run["stdout"]
+
+
+# --- --vis_only on hotdog's material stage (an open parity check) --------------------------
+#
+# The README's evaluation command on a steady family: hotdog's material
+# stage on a TensoIR blender scene with normal and albedo PNGs (the
+# `blender_active` loader, which reads the albedos), under
+# `Config.compute_albedo_metrics`, through both packages'
+# `Trainer._run_visualization_only`. The eval render held as
+# `test_torch_eval_slice.py` holds a material model's outputs: 1e-3
+# relative with an absolute 1e-3 x the output's largest entry; so the
+# metrics to 1e-2 dB (PSNR, albedo PSNR) and 1e-3 (SSIM), and the albedo
+# ratio to 1e-3 relative.
+
+VIS_ONLY_RESULTS = {"psnr": dict(rtol=0, atol=1e-2), "ssim": dict(rtol=0, atol=1e-3),
+           "albedo_psnr": dict(rtol=0, atol=1e-2)}
+VIS_ONLY_RENDER = 1e-3
+
+
+def _vis_only_results(path):
+    out = {}
+    for line in open(path):
+        key, values = line.split(": ", 1)
+        out[key] = ast.literal_eval(values)
+    return out
+
+
+@pytest.fixture(scope="module")
+def hotdog_dir(tmp_path_factory):
+    return loaders.write_blender(str(tmp_path_factory.mktemp("hotdog")), "_rgba", aux=True)
+
+
+@pytest.mark.usefixtures("jax_encoder_switch_restored")
+def test_vis_only_on_hotdog_material_with_albedo_metrics(hotdog_dir, tmp_path):
+    """hotdog's material stage, its test split at full size (16^2, two eval
+    chunks), under `Trainer.vis_only` with `Config.compute_albedo_metrics`
+    in both packages, from the same bridged weights and draws: the albedo
+    ratio's pre-pass over view 0, then views 0 and 1 (Trainer.vis_end = 2);
+    results.txt, albedo_ratio.npy and each view's color/*.npy."""
+    bindings = trainer_test.NGP_TINY + material_trainer.OPEN_CHECK_MATERIAL + [
+        "Config.dataset_loader = 'blender_active'", f"Config.data_dir = '{hotdog_dir}'",
+        "Config.near = 2.0", "Config.factor = 1", "Config.compute_albedo_metrics = True", "Trainer.vis_only = True",
+        "Config.vis_only = True", "Trainer.vis_end = 2"]
+    files = loader_steps.HOTDOG
+    jt, jmodel, tt = material_trainer._trainers(files, bindings,
+                                                 material_trainer.OPEN_CHECK_STAGE)
+    # Two eval chunks of 128 rays (the stage's 4096 would make JAX pad the
+    # view's 256 rays and draw for the padding too, the port's renderer
+    # pads nothing).
+    jt.config = dataclasses.replace(jt.config, render_chunk_size=128)
+    tt.config = dataclasses.replace(tt.config, render_chunk_size=128)
+    jt._setup_rng()
+    jt._load_datasets()
+    assert jt.test_dataset.albedo_images is not None and jt.test_dataset.height == loaders.RES
+    variables = material_trainer._variables(jmodel, 5)
+    jt.state = types.SimpleNamespace(params=variables)
+    jt.render_eval_fn = jtrain.create_render_fn(jmodel, mesh=jmesh.create_mesh(
+        jax.devices()[:1]))
+    jt.metric_harness = jimage.MetricHarness(disable_lpips=True)
+    jt.save_dir = str(tmp_path / "jax")
+    jt._initialize_metrics()
+
+    tt.model.load_state_dict(weights.state_dict_from_jax(variables, tt.model))
+    tt.save_dir = str(tmp_path / "torch")
+    tt._initialize_metrics()
+    assert tt.config.compute_albedo_metrics and tt.test_dataset.albedo_images is not None
+    render, rendered = tt.render_test_view, []
+    tt.render_test_view = lambda cam_idx, train_frac: rendered.append(cam_idx) or render(
+        cam_idx, train_frac)
+    with eval_slice.injected(3):
+        jt._run_visualization_only()
+    with eval_slice.injected(3):
+        tt._run_visualization_only()
+    assert rendered == [0, 0, 1]
+
+    want, got = (_vis_only_results(os.path.join(d, "results.txt")) for d in (jt.save_dir, tt.save_dir))
+    assert sorted(got) == sorted(want)
+    for key, tol in VIS_ONLY_RESULTS.items():
+        assert len(got[key]) == len(want[key]) == 3, key
+        np.testing.assert_allclose(got[key], want[key], err_msg=key, **tol)
+    assert all(np.isfinite(got["albedo_psnr"]))
+    ratio = [np.load(os.path.join(d, "albedo_ratio.npy")) for d in (tt.save_dir, jt.save_dir)]
+    np.testing.assert_allclose(*ratio, rtol=1e-3)
+    for view in range(2):
+        g, w = (np.load(os.path.join(d, "color", f"{view:06d}.npy"))
+                for d in (tt.save_dir, jt.save_dir))
+        assert g.shape == w.shape == (loaders.RES, loaders.RES, 3)
+        np.testing.assert_allclose(g, w, rtol=VIS_ONLY_RENDER, atol=VIS_ONLY_RENDER * np.abs(w).max())

@@ -213,19 +213,23 @@ def _refused(name):
     raise KeyError(name)
 
 
-REFUSALS = {"progressive": "progressive JPEG", "lossless": "lossless JPEG",
-            "arithmetic": "arithmetic-coded JPEG", "12-bit": "12-bit JPEG",
-            "CMYK": "CMYK JPEG", "RGB": "RGB JPEG", "sampling factors": "sampling factors 4x1",
-            "Huffman table": "malformed JPEG Huffman table", "truncated": "truncated",
-            "not a JPEG": "not a JPEG"}
+REFUSALS = {"lossless": "lossless JPEG", "arithmetic": "arithmetic-coded JPEG",
+            "12-bit": "12-bit JPEG", "Huffman table": "malformed JPEG Huffman table",
+            "truncated": "truncated", "not a JPEG": "not a JPEG"}
+# Codings the baseline decoder refused and the decoder now reads as PIL
+# does (`test_torch_jpeg_variants.py` holds them at every size).
+DECODED = ("progressive", "CMYK", "RGB", "sampling factors")
 
 
-@pytest.mark.parametrize("name", sorted(REFUSALS))
+@pytest.mark.parametrize("name", sorted(list(REFUSALS) + list(DECODED)))
 def test_refusals_raise_by_name(name):
-    """Progressive, lossless, arithmetic-coded, 12-bit, CMYK and RGB (Adobe
-    transform 0) files, other sampling factors, a malformed Huffman table,
-    truncated data and other formats raise a ValueError naming what they
-    are."""
+    """Lossless, arithmetic-coded and 12-bit files, a malformed Huffman
+    table, truncated data and other formats raise a ValueError naming what
+    they are; progressive, CMYK, RGB (Adobe transform 0) and 4:1:1 files
+    decode as PIL decodes them."""
+    if name in DECODED:
+        _equal_to_pil(_refused(name))
+        return
     with pytest.raises(ValueError, match=REFUSALS[name]):
         jpeg.decode_jpeg(_refused(name))
 

@@ -559,11 +559,11 @@ def test_other_loaders_raise_by_name(name):
 
 
 def test_loader_refusals(scenes, tmp_path):
-    """The options the port does not read raise by name: ORB's render
-    path, TIFF images and disparities; a JPEG is read as PIL reads it
-    (`test_torch_jpeg.py`). NeRO's relighting env maps are read
-    (`test_torch_relight_inputs.py`): on a scene without its relit views
-    both packages fail alike."""
+    """The options the port does not read raise by name: TIFF images and
+    disparities; a JPEG is read as PIL reads it (`test_torch_jpeg.py`) and
+    ORB's render path loads as JAX's (`test_torch_loader_options.py`).
+    NeRO's relighting env maps are read (`test_torch_relight_inputs.py`): on
+    a scene without its relit views both packages fail alike."""
     config = dict(dataset_loader="glossy_synthetic", batch_size=8,
                   compute_relight_metrics=True, **LOADER_CONFIG["glossy_synthetic"])
     with pytest.raises(ValueError) as want:
@@ -572,7 +572,6 @@ def test_loader_refusals(scenes, tmp_path):
         tdatasets.load_dataset("test", scenes["glossy_synthetic"], TConfig(**config),
                                device="cpu")
     for loader, kw, match in (
-            ("orb", dict(vis_render_path=True), "vis_render_path"),
             ("blender", dict(use_tiffs=True), "TIFF"),
             ("blender_active", dict(compute_disp_metrics=True), "TIFF disparity")):
         config = TConfig(dataset_loader=loader, batch_size=8, **LOADER_CONFIG[loader], **kw)

@@ -61,6 +61,13 @@ from neural_radiance_caching_tpu_torch.parallel import losses as tlosses
 from neural_radiance_caching_tpu_torch.parallel import train as ttrain
 from neural_radiance_caching_tpu_torch.utils import torchutil, weights
 
+# The suite runs as several xdist workers on one host's cores. At torch's
+# default of one intra-op thread per core every worker's torch ops contend
+# with the others' for all the cores, and a whole run takes about 1.6x as
+# long. The test processes run torch on one thread: a whole run imports
+# every test module before its first test, so this holds for all of them.
+torch.set_num_threads(1)
+
 TRAIN_FRAC = 0.5
 BATCH = 8
 STRATEGY = ((0, 0, 8), (1, 1, 8), (2, 2, 8))

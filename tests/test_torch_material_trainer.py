@@ -156,6 +156,31 @@ def jax_step_loss(jmodel, jcfg, train_frac):
     return jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
 
 
+# The open parity checks (a material_light_from_scratch step from a scene on
+# disk through both trainers: `test_torch_colmap.py`,
+# `test_torch_more_loaders.py`, and `--vis_only` in
+# `test_torch_eval_extras.py`): their bindings, stage and the extra losses
+# every one of them carries. `from_disk` serves every step from disk.
+OPEN_CHECK_MATERIAL = MATERIAL_TINY + MATERIAL + SMOOTH
+OPEN_CHECK_STAGE = "material_light_from_scratch"
+OPEN_CHECK_EXTRA = ["material_ray_sampler", "material_smoothness", "light_sampling",
+                    "direct_indirect_consistency"]
+
+
+def from_disk(monkeypatch, cast=None):
+    """`_step_parity`'s JAX batch from the JAX loader of the scene on disk,
+    its rays cast by `cast` where the port casts them in the step."""
+    load = jdatasets.load_dataset
+
+    def load_from_disk(split, _, cfg, **kw):
+        data = load(split, cfg.data_dir, cfg, **kw)
+        if cast is not None:
+            next_train = data.next_train
+            data.next_train = lambda: (lambda b: b.replace(rays=cast(data, b.rays)))(next_train())
+        return data
+
+    monkeypatch.setattr(jdatasets, "load_dataset", load_from_disk)
+
 def _variables(jmodel, seed, table_scale=2e-4):
     """Every parameter from U(-0.5, 0.5), the hash tables from that range
     times `table_scale` (by default U(-1e-4, 1e-4))."""

@@ -5,8 +5,9 @@ JAX package's writer, h5 files by h5py): `real`, `fipt_real`,
 `tat_fvs`, `dtu`, `rtmv`, `pixelrig` and `aerial` (arrays, cameras, lights,
 the NDC warp's pixtocam, the first three batches with rays cast on the
 host and in the train step, one eval view, both splits, the render-path
-branches); and the port's projection-matrix decomposition (DTU's cameras)
-against `cv2.decomposeProjectionMatrix`.
+branches); the port's projection-matrix decomposition (DTU's cameras)
+against `cv2.decomposeProjectionMatrix`; and one open parity check,
+nero_bell's material stage from disk through both trainers.
 
 Tolerances: poses, intrinsics, pixel tables and rays cast on the host bit
 for bit; images to 2 float32 ulps of white (`test_torch_loaders.IMAGE_TOL`:
@@ -31,12 +32,16 @@ import numpy as np
 import pytest
 
 import test_torch_colmap as colmap_test
+import test_torch_loader_steps as loader_steps
 import test_torch_loaders as loaders
+import test_torch_material_trainer as material_trainer
 from neural_radiance_caching_tpu.data import datasets as jdatasets
 from neural_radiance_caching_tpu.data import exr as jexr
+from neural_radiance_caching_tpu.engine import gin_config as jgin
 from neural_radiance_caching_tpu.engine.configs import Config as JConfig
 from neural_radiance_caching_tpu_torch.data import camera_utils as tcam
 from neural_radiance_caching_tpu_torch.data import datasets as tdatasets
+from neural_radiance_caching_tpu_torch.engine import gin_config as tgin
 from neural_radiance_caching_tpu_torch.engine.configs import Config as TConfig
 from neural_radiance_caching_tpu_torch.utils import pytrees as tpytrees
 
@@ -465,3 +470,47 @@ def test_loaders_run_without_pil_or_jax(scenes):
                          cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                          timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-3000:]
+
+
+# --- nero_bell's material stage from disk (an open parity check) ---------------------------
+#
+# One `material_light_from_scratch` step of nero_ngp_yobo_bell.gin through
+# both trainers from the NeRO glossy-synthetic scene of
+# `test_torch_loaders.py`, held as `test_torch_material_trainer.py` holds
+# its steps (loss terms to 1e-4 relative, the smoothness terms to 1e-3,
+# gradient leaves to rtol 2e-3 with an absolute 2e-4 x the leaf's largest
+# entry, the Adam step within 2 x the group's learning rate).
+
+@pytest.fixture
+def clean_gin():
+    yield
+    jgin.clear_config()
+    tgin.clear_config()
+
+
+# The leveled launches of one bell material step: the SLF's reflectance grid
+# for the cache's queries along the secondary rays, at the surface points
+# and at the primary rays' samples, in the backward's order.
+BELL_LAUNCHES = ["leveled"] * 3
+
+
+@pytest.fixture(scope="module")
+def bell_dir(tmp_path_factory):
+    return loaders.write_glossy(str(tmp_path_factory.mktemp("bell")))
+
+
+def test_nero_bell_material_stage_from_disk(bell_dir, monkeypatch, clean_gin):
+    """One `material_light_from_scratch` step of nero_ngp_yobo_bell.gin (its
+    SLF narrowed) from the glossy-synthetic scene through both trainers,
+    each package's batch from its own loader (the flattened pixel stream):
+    every loss term, every gradient leaf, the Adam step, the launches."""
+    material_trainer.from_disk(monkeypatch)
+    bindings = loader_steps.bindings("nero_bell", bell_dir) + material_trainer.OPEN_CHECK_MATERIAL
+    jt, jmodel, tt = material_trainer._trainers(loader_steps.BELL, bindings,
+                                                 material_trainer.OPEN_CHECK_STAGE)
+    assert type(tt.dataset).__name__ == "GlossySynthetic"
+    got = material_trainer._step_parity(jt, jmodel, tt, material_trainer._variables(jmodel, 5),
+                                        monkeypatch, BELL_LAUNCHES)
+    extra = material_trainer.OPEN_CHECK_EXTRA
+    assert [k for k in got if k in extra] == extra
+    assert got["light_sampling"] != 0

@@ -54,7 +54,6 @@ import test_torch_loaders as loaders
 import test_torch_material_slice as material_slice
 import test_torch_material_trainer as material_trainer
 import test_torch_open_loaders as open_loaders
-import test_torch_open_steps as open_steps
 import test_torch_relight_inputs as relight
 import test_torch_slf_distance as slf_distance
 import test_torch_trainer as trainer_test
@@ -79,7 +78,7 @@ from neural_radiance_caching_tpu_torch.models import surface_light_field as tslf
 from neural_radiance_caching_tpu_torch.ops import coord as tcoord
 from neural_radiance_caching_tpu_torch.utils import weights
 
-OPEN = open_steps.OPEN
+OPEN = open_loaders.OPEN
 ILLUMS = ("013", "011", "009")
 HEADS = ("NeRFMLP", "MaterialMLP", "LightMLP", "SurfaceLightFieldMLP")
 FEATURES = [f"{c}.use_illumination_feature = True" for c in HEADS]
@@ -98,7 +97,7 @@ def clean_gin():
     tgin.clear_config()
 
 
-def write_multi_illum(root, size=open_steps.SIZE):
+def write_multi_illum(root, size=open_loaders.SIZE):
     """`test_torch_open_loaders.write_open_illum`'s object (illumination
     013) under `root/scenes/egg`, with the same views under illuminations
     011 and 009 (other seeded JPEGs) and the three illuminations' Radiance
@@ -129,7 +128,7 @@ def multi_dir(tmp_path_factory):
 TABLES = relight.TABLES
 
 
-def _loader_pair(data_dir, split, size=open_steps.SIZE, **extra):
+def _loader_pair(data_dir, split, size=open_loaders.SIZE, **extra):
     kw = dict(dataset_loader="open_illum", batch_size=32, multi_illumination=True,
               **dict(open_loaders.LOADER_CONFIG["open_illum"], **extra))
     want = jdatasets.load_dataset(split, data_dir, JConfig(**kw))
@@ -350,7 +349,7 @@ def test_light_mlp_with_illuminations_matches_jax(case):
 # --- one step through both trainers -------------------------------------------------------
 
 def bindings(data_dir, features=True):
-    return open_steps.bindings(data_dir) + MULTI + (FEATURES if features else [])
+    return open_loaders.bindings(data_dir) + MULTI + (FEATURES if features else [])
 
 
 # The launches of a step: those of open_egg's single-illumination steps.
@@ -367,7 +366,7 @@ def test_one_cache_step_under_three_illuminations(multi_dir, monkeypatch):
     loader (rays of all three illuminations): every loss term, every
     gradient leaf (the embeddings' among them), the Adam step, the
     launches."""
-    open_steps._from_disk(monkeypatch)
+    material_trainer.from_disk(monkeypatch)
     jt, jmodel, tt = material_trainer._trainers(OPEN, bindings(multi_dir), "cache")
     # Config.num_dataset_images = 2 (trainer_test.TINY) views per illumination.
     assert tt.dataset.images.shape[0] == 3 * 2
@@ -386,13 +385,13 @@ def test_one_material_step_under_three_illuminations(multi_dir, monkeypatch):
     read past its end for illuminations 1 and 2, see the module docstring);
     the step's gradients are taken with NaN set to 0, as both train steps
     do, and every other term is finite."""
-    open_steps._from_disk(monkeypatch)
+    material_trainer.from_disk(monkeypatch)
     jt, jmodel, tt = material_trainer._trainers(
         OPEN, bindings(multi_dir) + material_trainer.MATERIAL_TINY + material_trainer.MATERIAL
         + material_trainer.SMOOTH, "material_light_from_scratch")
     assert [k for k in tt.model.state_dict() if "light_vecs" in k] == MATERIAL_VECS
     got = material_trainer._step_parity(jt, jmodel, tt, material_trainer._variables(jmodel, 5),
-                                        monkeypatch, open_steps.MATERIAL_LAUNCHES)
+                                        monkeypatch, open_loaders.MATERIAL_LAUNCHES)
     assert np.isnan(got["light_sampling"])
     assert all(np.isfinite(v) for k, v in got.items() if k != "light_sampling")
     assert got["material_smoothness"] != 0
