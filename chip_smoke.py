@@ -275,7 +275,8 @@ Phases, one line each (any failure exits nonzero):
      eval view equal to the CPU loader's bit for bit; one cache step at
      reference widths GPU against CPU as phase 29 (1 leveled launch each);
  36. transient disk train: cornell's layout at full width (a stream of
-     131,072 rays x 700 bins x 3, one 512^2 test frame) and statue_fwp's
+     131,072 rays x 700 bins x 3 from 256^2 views, one 256^2 test frame, the
+     config's size bound to 256) and statue_fwp's
      (65,536 rays x 3000 bins read from bin 1067, a Gaussian pulse of 85
      bins, no calibration checkpoint), through the entry point: cornell's
      cache stage at 8192, its material_light_from_scratch at 4096
@@ -284,7 +285,7 @@ Phases, one line each (any failure exits nonzero):
      rays/s, peak GiB, leveled launches per step (1, 6, 1), next_train's
      host ms, an eval view's seconds, a step with every leveled call held
      against its plain version; then train_one_stage --vis_only on
-     cornell's cache checkpoint over its first view (512^2 x 700 bins):
+     cornell's cache checkpoint over its first view (256^2 x 700 bins):
      results.txt, and the transient saved as h5 read back by the port's
      reader equal to what was saved.
  37. real disk reference: the script's baseline JPEG writer (4:2:0, the
@@ -404,6 +405,27 @@ Phases, one line each (any failure exits nonzero):
      ms, a checked step), and ORB's loader with Config.vis_render_path on a
      small ORB scene, two of its 120 path frames rendered through
      orb_ngp_yobo_teapot.gin's cache model (launches_by_path options_*).
+ 45. sampling options: narrow steps GPU vs CPU (noise floor with the origins
+     +-1 ulp, two planted faults) of the flagship cache under option set A
+     (julier control points with a Cholesky root and a scale-aware grid
+     query, the covariance options, the feature filter with its far field
+     on primary rays, density noise, corrected and offset normals,
+     glorot_uniform kernels, the near anneal, the normal / far-field /
+     uniform radii, the sample network, the "piecewise" ray warp, a random
+     background with the colour network, Config.volume_variate; 1 planes
+     call), of the flagship material model under set B (the secondary
+     rays' field-of-view and backwards filters, their uniform radius with
+     normalize_uniform_weights, the backfacing near filter,
+     Config.volume_variate_secondary), of the transient material model
+     under Config.volume_variate_material (which raises on the steady
+     model, as in JAX), and of the cache with a triplane and a TensoRF
+     appearance grid (no kernel launched); then the flagship grid's
+     backward on the 1,835,008 julier points of 8192 x 32 samples, the
+     concat reduction on the leveled kernel and the mean on the planes
+     kernel, each against its plain backward and timed against index_add_
+     and its bound; then the full-width set-A cache step at 8192 (1 planes
+     launch per step) and set-B material step at 1536, a checked step and
+     3 warmup + --trainer-steps timed each (launches_by_path sampling_*).
 Every evaluation through the trainer (phases 20-38, 42-44) scores LPIPS on
 the card beside PSNR and SSIM, and phase 34's hotdog material stage
 renders the secondary-ray probe (256 x 512) at its evaluation.
@@ -417,6 +439,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import functools
 import json
 import math
 import statistics
@@ -4767,14 +4790,16 @@ TRANSIENT_DISK_REFERENCE_SIZES = {
     "statue_fwp": dict(train_views=4, rays=2048, stored_bins=100, start_bin=4, test_views=2,
                        size=32, test_size=32, channels=1, exposure=0.25),
 }
-# Phase 36's: cornell's stream of 131,072 rays x 700 bins x 3 (1.10 GB) and
-# one 512^2 test frame (2.20 GB); statue_fwp's stream of 65,536 rays x 3000
-# bins x 1 (0.79 GB), read from bin 1067, and one test frame at its eval
+# Phase 36's: cornell's stream of 131,072 rays x 700 bins x 3 (1.10 GB)
+# drawn from 256^2 views and one 256^2 test frame (0.55 GB; at the config's
+# 512^2 its --vis_only render took 90 s of the script's 1200 s limit);
+# statue_fwp's stream of 65,536 rays x
+# 3000 bins x 1 (0.79 GB), read from bin 1067, and one test frame at its eval
 # size, 128^2 (0.20 GB; a 512^2 one would be 3.1 GB). The captures' own ray
 # counts are not in the repository.
 TRANSIENT_DISK_SIZES = {
     "cornell": dict(train_views=64, rays=131072, stored_bins=700, start_bin=0, test_views=1,
-                    size=512, test_size=512, channels=3, exposure=0.01),
+                    size=256, test_size=256, channels=3, exposure=0.01),
     "statue_fwp": dict(train_views=64, rays=65536, stored_bins=3000, start_bin=1067,
                        test_views=1, size=512, test_size=128, channels=1,
                        exposure=0.010376310322275158),
@@ -4926,6 +4951,9 @@ def _transient_disk_bindings(scene, data_dir, sizes, reference):
                 "Config.test_width = 8", "Config.test_height = 8",
                 f"Config.start_bin = {sizes['start_bin']}",
                 f"Config.test_start_bin = {sizes['start_bin']}")
+    elif scene == "cornell":
+        # The views' size: a --vis_only render takes the whole frame.
+        out += (f"Config.width = {sizes['size']}", f"Config.height = {sizes['size']}")
     return out
 
 
@@ -7377,6 +7405,461 @@ def phase_options_train(torch, device, seed, steps, smi, tmp):
     return dict(patches=patches, mesh=mesh_train, orb_path=orb)
 
 
+# Phase 45: the sampling and encoding options the port once refused
+# (models/geometry.py, sampler.py, sample_net.py, integrator.py, grids.py,
+# nerf_model.py and material_model.py; ops/coord.py, ops/hashgrid.py).
+# Option set A, on the flagship cache: the final density MLP's control
+# points by the julier basis with a Cholesky root and a scale-aware grid
+# query (unscented_scale_mult, the scale tracked through the warp), the
+# feature filter on primary rays with its far field, density noise,
+# corrected and offset normals, glorot_uniform kernels; the proposal MLPs'
+# covariance options; the sampler's near anneal, normal, far-field and
+# uniform radii, the sample network and the "piecewise" ray warp; a random
+# background (0, 1) with the colour network; Config.volume_variate.
+# normalize_uniform_weights is left to set B's secondary rays: on a primary
+# ray it sums the opacity to exactly 1, the kink of the background weight
+# max(0, 1 - opacity), where a one-ulp difference in the summed opacity
+# flips the ray's gradient (the card against the CPU as much as the CPU
+# against itself). Option set B, on the flagship material model: the
+# secondary rays' vertical, horizontal and backwards filters and their
+# uniform radius with normalize_uniform_weights, the backfacing near
+# filter, Config.volume_variate_secondary. Config.volume_variate_material
+# raises on the steady material model in both packages (its one-channel
+# direct_rgb against the cache's three); it runs on the transient material
+# model, held here at reference widths.
+SAMPLING_BATCH = 8192
+SAMPLING_MATERIAL_BATCH = 1536
+SAMPLING_REF_BATCH = 512
+# The reference steps' planes threshold: the set-A cache step (512 x 32 x 7
+# julier points) and the material step's secondary samples take the planes
+# kernel at reference widths, as the full-width cache step does.
+SAMPLING_PLANES_MIN_POINTS = 4096
+SET_A_CONFIG = dict(volume_variate=True, volume_variate_passes=["direct"])
+SET_B_CONFIG = dict(volume_variate_secondary=True, volume_variate_passes_secondary=["direct"])
+# The grid steps' appearance grids in the cache shader (the density MLP on
+# IPE, so that the step launches no scatter kernel).
+SAMPLING_GRID_KINDS = {"triplane": dict(grid_size=128, num_features=8),
+                       "tensorf": dict(grid_size=96, num_features=8, num_components=8)}
+# The kernel checks' inputs: the flagship grid (8 levels, 3 dense, T = 2^19,
+# F = 4) on the julier points (2 x 3 + 1 per sample) of 8192 camera rays x
+# 32 samples.
+SAMPLING_KERNEL_RAYS = 8192
+SAMPLING_KERNEL_SAMPLES = 32
+# Scatter launches per full-width step: the set-A cache step's final-level
+# encoder backward over 8192 x 32 x 7 = 1,835,008 points (planes); the set-B
+# material step's as the flagship material step's.
+_SAMPLING_CACHE_LAUNCHES_PER_STEP = {"leveled": 0, "leveled_skip": 0, "planes": 1, "rows": 0}
+
+
+def _set_a(params):
+    """Option set A on flagship cache params."""
+    from neural_radiance_caching_tpu_torch.ops import coord
+
+    p = copy.deepcopy(params)
+    sp = p["sampler_params"]
+    mlps = [dict(m) for m in sp["mlp_params_per_level"]]
+    for m in mlps[:2]:
+        m.update(isotropize_gaussians=True, gaussian_covariance_scale=1.5,
+                 gaussian_covariance_pad=1e-4, weight_init="glorot_uniform")
+    mlps[2].update(unscented_mip_basis="julier", unscented_sqrt_fn="cholesky",
+                   unscented_scale_mult=0.5, use_feature_filter=True,
+                   use_feature_filter_secondary_only=False, use_feature_filter_far_field=True,
+                   feature_filter_radius=1.0, feature_filter_size=64, density_noise=0.1,
+                   use_corrected_normals=True, enable_normals_offset=True,
+                   weight_init="glorot_uniform", warp_fn=coord.contract_radius_2)
+    sp["mlp_params_per_level"] = tuple(mlps)
+    sp.update(near_anneal_rate=0.8, use_normal_radius=True, normal_radius=0.8,
+              use_far_field_radius=True, far_field_radius=1.5, use_uniform_radius=True,
+              uniform_radius=1.2, use_uniform_radius_secondary_only=False,
+              use_sample_network=True, raydist_fn="piecewise")
+    p["integrator_params"] = dict(bg_intensity_range=(0.0, 1.0), use_color_net=True,
+                                  net_depth=2, net_width=64)
+    return p
+
+
+def _set_b(params):
+    """Option set B on flagship material params."""
+    p = copy.deepcopy(params)
+    sp = p["cache_model_params"]["sampler_params"]
+    mlps = [dict(m) for m in sp["mlp_params_per_level"]]
+    mlps[2].update(use_backfacing_near=True, backfacing_target="normals_to_use",
+                   backfacing_near=0.3)
+    sp["mlp_params_per_level"] = tuple(mlps)
+    sp.update(use_vertical_filter=True, vertical_fov=1.2, use_horizontal_filter=True,
+              horizontal_fov=1.3, use_backwards_filter=True, use_uniform_radius=True,
+              uniform_radius=1.5, normalize_uniform_weights=True)
+    return p
+
+
+def _grid_params(kind):
+    """The flagship cache with a `kind` appearance grid in its shader and its
+    final density MLP on IPE (no hash grid)."""
+    from neural_radiance_caching_tpu_torch import flagship
+
+    p = _narrow(flagship.flagship_cache_params())
+    sp = p["sampler_params"]
+    mlps = [dict(m) for m in sp["mlp_params_per_level"]]
+    mlps[2].update(use_grid=False, max_deg_point=8, primary_grid_level_clamp=None,
+                   secondary_grid_level_clamp=None)
+    sp["mlp_params_per_level"] = tuple(mlps)
+    sp["grid_params_per_level"] = (None, None, None)
+    p["shader_params"].update(use_grid=True, grid_representation=kind,
+                              grid_params=SAMPLING_GRID_KINDS[kind])
+    return p
+
+
+def _model_step(torch, device, seed, build, batch, fault=None, fault_kind="planes",
+                checked=None, planes_min=SAMPLING_PLANES_MIN_POINTS):
+    """One train step of the model `build(device)` returns, (model, config),
+    on `device`; the draws from a CPU generator, so both devices see the
+    same numbers; a fault planted in the `fault_kind` kernel, or every call
+    of both kernels held against its plain version (`checked`)."""
+    from neural_radiance_caching_tpu_torch.ops import hashgrid, scatter_cuda
+    from neural_radiance_caching_tpu_torch.parallel import train
+
+    torch.manual_seed(seed)
+    model, cfg = build(device)
+    state, _ = train.create_optimizer(cfg, model)
+    before = dict(scatter_cuda.launches)
+    if fault:
+        patch = {f"scatter_add_weighted_{fault_kind}": _planted_fault(fault, fault_kind)}
+    elif checked is not None:
+        patch = {f"scatter_add_weighted_{k}": _checking_scatter(k, checked)
+                 for k in ("leveled", "planes")}
+    else:
+        patch = {}
+    with _patched(hashgrid, PLANES_MIN_POINTS=planes_min), _patched(scatter_cuda, **patch):
+        rng = torch.Generator().manual_seed(seed + 45)
+        _, stats = train.create_train_step(model, cfg)(rng, state, batch.to(device), 0.5)
+    losses = {k: float(torch.as_tensor(v).detach()) for k, v in stats["losses"].items()}
+    grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu()
+             for k, p in model.named_parameters()}
+    return losses, grads, {k: scatter_cuda.launches[k] - before[k] for k in before}
+
+
+def _model_gpu_vs_cpu(torch, device, seed, build, batch, launches, tol, fault_kind="planes",
+                      exclude=(), chaotic_above=None, planes_min=SAMPLING_PLANES_MIN_POINTS):
+    """`_model_step` on the card against the CPU: every loss term, every
+    gradient leaf (each hash level its own; but those in `exclude`, which no
+    loss reaches) against the
+    limit `tol`, bracketed by the CPU's noise floor (the origins +-1 ulp)
+    and two faults planted in the `fault_kind` kernel (none where the step
+    launches no kernel); the card's calls held against their plain version
+    and `launches` {kind: count} pinned. The readings, with `ok`."""
+    origins = batch.rays.origins
+    step = functools.partial(_model_step, planes_min=planes_min)
+    l_cpu, g_cpu, n_cpu = step(torch, "cpu", seed, build, batch)
+    keys = [k for k in g_cpu if k not in exclude]
+    leaf_floor = {}
+    for side in (float("inf"), float("-inf")):
+        nudged = batch.replace(rays=batch.rays.replace(
+            origins=torch.nextafter(origins, torch.full_like(origins, side))))
+        for k, v in _grad_errs(step(torch, "cpu", seed, build, nudged)[1], g_cpu).items():
+            leaf_floor[k] = max(v, leaf_floor.get(k, 0.0))
+    # Leaves (hash levels) whose own floor passes `chaotic_above` (by default
+    # the limit) are chaotic under this step's loss: held finite, listed, and
+    # left out of the comparison.
+    chaotic = sorted(k for k, v in leaf_floor.items() if v > (chaotic_above or tol))
+    held = {k: v for k, v in leaf_floor.items() if k not in chaotic and k.split("[")[0] in keys}
+    floor_at = max(held, key=held.get)
+    floor = held[floor_at]
+    checked = []
+    l_gpu, g_gpu, n_gpu = step(torch, device, seed, build, batch, checked=checked)
+    loss_errs = {k: abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-30) for k in l_cpu}
+
+    def worst(g):
+        errs = {k: v for k, v in _grad_errs(g, g_cpu).items() if k in held}
+        at = max(errs, key=errs.get)
+        return errs[at], at
+
+    err, err_at = worst(g_gpu)
+    faults = {f: worst(step(torch, device, seed, build, batch, f, fault_kind)[1])
+              for f in ("taps rotated", "finest level dropped") if sum(launches.values())}
+    ok = (all(torch.isfinite(g).all() for g in g_gpu.values())
+          and max(loss_errs.values()) <= 1e-3 and n_cpu == _launch_counts()
+          and n_gpu == _launch_counts(**launches) and all(c["ok"] for c in checked)
+          and len(checked) == sum(launches.values()) and floor <= tol and err <= tol
+          and all(v > tol for v, _ in faults.values()))
+    return dict(ok=ok, loss_rel_err=max(loss_errs.values()), loss_rel_errs=loss_errs,
+                grad_rel_l2_err=err, grad_err_at=err_at, noise_floor=floor,
+                noise_floor_at=floor_at, chaotic={k: leaf_floor[k] for k in chaotic},
+                chaotic_above=chaotic_above or tol,
+                faults={f: v for f, (v, _) in faults.items()},
+                fault_at={f: at for f, (_, at) in faults.items()}, tol=tol, launches=n_gpu,
+                max_abs_err=max((c["max_abs_err"] for c in checked), default=0.0),
+                losses=l_gpu)
+
+
+def _model_text(r):
+    return (f"loss rel_err max={r['loss_rel_err']:.3e} (tol 1e-3) grad rel_l2_err max="
+            f"{r['grad_rel_l2_err']:.3e} at {r['grad_err_at']} (tol {r['tol']}; noise floor, "
+            f"cpu vs cpu with origins +-1 ulp: {r['noise_floor']:.3e} at {r['noise_floor_at']}; "
+            + (", ".join(f"planted {f}: {v:.3e} at {r['fault_at'][f]}"
+                         for f, v in r["faults"].items()) + ", each must exceed the tol"
+               if r["faults"] else "no fault planted: the step launches no kernel")
+            + (f"; held finite only, their own floor above {r['chaotic_above']}: "
+               + ", ".join(f"{k} {v:.2e}" for k, v in r["chaotic"].items()) if r["chaotic"]
+               else "")
+            + f") launches={ {k: v for k, v in r['launches'].items() if v} } "
+            f"{'ok' if r['ok'] else 'FAIL'}")
+
+
+def _sampling_batch(torch, cfg, size=32):
+    from neural_radiance_caching_tpu_torch.data import datasets
+
+    return datasets.SyntheticSpheres("train", None, cfg, num_images=4, resolution=size,
+                                     device="cpu").next_train()
+
+
+def _variate_material_raises(torch):
+    """Config.volume_variate_material on the steady material model raises,
+    naming the direct_rgb reshape (JAX's TypeError at its first call)."""
+    from neural_radiance_caching_tpu_torch import flagship
+
+    cfg = flagship.material_config(batch_size=16, volume_variate_material=True)
+    model = flagship.build_flagship_material_model(cfg, _narrow_material(), device="cpu")
+    batch = _sampling_batch(torch, cfg, 8)
+    try:
+        with torch.no_grad():
+            model(torch.Generator().manual_seed(0), batch.rays, train_frac=0.5, train=True)
+    except TypeError as e:
+        return "direct_rgb" in str(e)
+    return False
+
+
+def phase_sampling_reference(torch, device, seed):
+    """Phase 45's reference: narrow steps on the card against the CPU (the
+    path the CPU tests hold against the JAX package): the flagship cache
+    under set A and the flagship material model under set B (planes faults),
+    the transient material model under Config.volume_variate_material
+    (leveled faults), and the cache with a triplane and a TensoRF
+    appearance grid (no kernel launched)."""
+    from neural_radiance_caching_tpu_torch import flagship
+
+    cfg_a = flagship.cache_config(batch_size=SAMPLING_REF_BATCH, lr_delay_steps=0,
+                                  **SET_A_CONFIG)
+    params_a = _set_a(_narrow(flagship.flagship_cache_params()))
+    set_a = _model_gpu_vs_cpu(
+        torch, device, seed,
+        lambda dev: (flagship.build_flagship_cache_model(cfg_a, params_a, device=dev), cfg_a),
+        _sampling_batch(torch, cfg_a), {"planes": 1}, GRAD_REL_L2_TOL)
+
+    cfg_b = flagship.material_config(batch_size=MATERIAL_REF_BATCH, lr_delay_steps=0,
+                                     **SET_B_CONFIG)
+    params_b = _set_b(_narrow_material())
+    set_b = _model_gpu_vs_cpu(
+        torch, device, seed,
+        lambda dev: (flagship.build_flagship_material_model(cfg_b, params_b, device=dev), cfg_b),
+        _sampling_batch(torch, cfg_b), _MATERIAL_LAUNCHES_PER_STEP, MATERIAL_GRAD_REL_L2_TOL,
+        exclude=_MATERIAL_UNREACHED)
+    steady_raises = _variate_material_raises(torch)
+
+    cfg_t = dataclasses.replace(_transient_material_ref_config(), volume_variate_material=True)
+    params_t = _narrow_transient_material()
+    tmat = _model_gpu_vs_cpu(
+        torch, device, seed,
+        lambda dev: (flagship.build_flagship_transient_material_model(cfg_t, params_t,
+                                                                      device=dev), cfg_t),
+        _sampling_batch(torch, cfg_t), _TRANSIENT_MATERIAL_LAUNCHES_PER_STEP,
+        TRANSIENT_MATERIAL_GRAD_REL_L2_TOL, fault_kind="leveled",
+        exclude=_TRANSIENT_MATERIAL_UNREACHED,
+        chaotic_above=TRANSIENT_MATERIAL_GRAD_REL_L2_TOL / 2, planes_min=1 << 20)
+
+    cfg_g = flagship.cache_config(batch_size=SAMPLING_REF_BATCH, lr_delay_steps=0)
+    grids_ref = {kind: _model_gpu_vs_cpu(
+        torch, device, seed,
+        lambda dev, kind=kind: (flagship.build_flagship_cache_model(
+            cfg_g, _grid_params(kind), device=dev), cfg_g),
+        _sampling_batch(torch, cfg_g), {}, GRAD_REL_L2_TOL) for kind in SAMPLING_GRID_KINDS}
+
+    ok = (set_a["ok"] and set_b["ok"] and tmat["ok"] and steady_raises
+          and all(r["ok"] for r in grids_ref.values()))
+    print(f"sampling reference: narrow flagship cache under option set A (julier/cholesky, "
+          f"scale-aware query, covariance options, feature filter + far field, density noise, "
+          f"corrected + offset normals, glorot_uniform, near anneal, radii, sample network, "
+          f"piecewise warp, random background + colour net, volume variate), batch "
+          f"{SAMPLING_REF_BATCH}, gpu vs cpu: {_model_text(set_a)}; narrow flagship material "
+          f"under set B (secondary filters, uniform radius + normalize_uniform_weights, "
+          f"backfacing near, volume_variate_secondary), batch {MATERIAL_REF_BATCH}: "
+          f"{_model_text(set_b)}; volume_variate_material on the steady model raises naming "
+          f"direct_rgb={steady_raises}; narrow transient material under volume_variate_material"
+          f", batch {TRANSIENT_MATERIAL_REF_BATCH}: {_model_text(tmat)}; "
+          + "; ".join(f"narrow cache with a {kind} appearance grid: {_model_text(r)}"
+                      for kind, r in grids_ref.items()), flush=True)
+    if not ok:
+        raise AssertionError("a sampling option disagrees on the card")
+    strip = lambda r: {k: v for k, v in r.items() if k not in ("ok", "loss_rel_errs")}  # noqa
+    return dict(set_a=strip(set_a), set_b=strip(set_b), transient_variate=strip(tmat),
+                grids={k: strip(r) for k, r in grids_ref.items()},
+                steady_variate_material_raises=steady_raises,
+                launches={"planes": set_a["launches"]["planes"] + set_b["launches"]["planes"],
+                          "leveled": set_b["launches"]["leveled"] + tmat["launches"]["leveled"]},
+                max_abs_err=max(set_a["max_abs_err"], set_b["max_abs_err"],
+                                tmat["max_abs_err"]))
+
+
+def _julier_points(torch, device, seed):
+    """The flagship grid's inputs [8192, 32, 7, 3] in [0, 1]^3: the julier
+    control points (Cholesky root) of cone Gaussians along camera rays as
+    _primary_sample_points draws them (pixel radius 2.8e-3), warped by the
+    flagship contraction."""
+    from neural_radiance_caching_tpu_torch.ops import coord, render
+
+    gen = torch.Generator(device=device).manual_seed(seed + 45)
+    n, s = SAMPLING_KERNEL_RAYS, SAMPLING_KERNEL_SAMPLES
+    c = torch.randn((n, 3), generator=gen, device=device)
+    origins = 4.0 * c / c.norm(dim=-1, keepdim=True)
+    d = -origins / 4.0 + 0.3 * torch.randn((n, 3), generator=gen, device=device)
+    d = d / d.norm(dim=-1, keepdim=True)
+    t, _ = torch.sort(2.0 + 4.0 * torch.rand((n, s + 1), generator=gen, device=device), dim=-1)
+    radii = torch.full((n, 1), 2.8e-3, device=device)
+    means, covs = render.cast_rays(t, origins, d, radii, "cone", diag=False)
+    control = coord.unscented_transform(means, covs, "julier", "cholesky", axis=-2)
+    return (coord.contract_radius_2(control) + 2.0) / 4.0
+
+
+def _encoder_check(torch, device, x, reduce, kind, label):
+    """The flagship grid's table gradient at `x` under `reduce`, the `kind`
+    kernel's backward against the plain backward; the kernel call's inputs
+    timed (phase_kernel_path). The readings."""
+    from neural_radiance_caching_tpu_torch import flagship
+    from neural_radiance_caching_tpu_torch.models import grids
+    from neural_radiance_caching_tpu_torch.ops import hashgrid, scatter_cuda
+
+    params = flagship.flagship_cache_params()["sampler_params"]["grid_params_per_level"][2]
+    grid = grids.HashEncoding(**params).to(device)
+    statics = dict(grid_sizes=tuple(int(s) for s in grid.grid_sizes),
+                   table_size=grid.hash_map_size, dense_offsets=grid.dense_offsets,
+                   interpolation="simplex", multisample_reduce=reduce)
+    gen = torch.Generator(device=device).manual_seed(7)
+    levels, m = len(statics["grid_sizes"]), x.shape[-2]
+    shape = x.shape[:-2] + ((levels, m * 4) if reduce == "concat" else (levels * 4,))
+    ct = torch.randn(shape, generator=gen, device=device)
+    fn_key = "scatter_fn" if kind == "leveled" else "planes_scatter_fn"
+
+    def grads(fn):
+        grid.zero_grad(set_to_none=True)
+        f = hashgrid.multires_grid_encode(x, grid.hash_levels, grid.dense_levels,
+                                          **{fn_key: fn}, **statics)
+        f.backward(ct)
+        return grid.hash_levels.grad.clone(), grid.dense_levels.grad.clone()
+
+    capture, calls = {}, []
+    before = dict(scatter_cuda.launches)
+    with _patched(scatter_cuda, **{f"scatter_add_weighted_{kind}": _checking_scatter(
+            kind, calls, capture)}):
+        h_k, d_k = grads(None)
+    launched = {k: scatter_cuda.launches[k] - before[k] for k in before}
+    h_p, d_p = grads(getattr(scatter_cuda, f"scatter_add_weighted_{kind}_plain"))
+    torch.cuda.synchronize()
+    errs = [float((a - b).abs().max()) / float(b.abs().max()) for a, b in ((h_k, h_p), (d_k, d_p))]
+    del h_k, d_k, h_p, d_p, grid
+    ok = (launched == _launch_counts(**{kind: 1}) and max(errs) <= 1e-5 and len(calls) == 1
+          and calls[0]["ok"])
+    points = x.numel() // 3
+    print(f"sampling encoder ({reduce}): flagship grid backward, {points} julier points "
+          f"({SAMPLING_KERNEL_RAYS} rays x {SAMPLING_KERNEL_SAMPLES} samples x {m}), 8 levels, "
+          f"{kind} kernel vs plain backward rel_err hash={errs[0]:.3e} dense={errs[1]:.3e} "
+          f"(tol 1e-5 of max |grad|), the call against its plain version "
+          f"{_checked_text(calls)}, launches={launched} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"the {reduce} encoder's kernel backward disagrees")
+    path = phase_kernel_path(kind, capture, statics["grid_sizes"], label)
+    return dict(max_abs_err=calls[0]["max_abs_err"], rel_err=max(errs), points=points,
+                updates=capture["idx"].numel(), **path)
+
+
+def phase_sampling_kernels(torch, device, seed):
+    """Phase 45's kernels: the flagship grid on 1,835,008 julier points, the
+    concat encoder's backward on the leveled kernel (8 levels x 7.3M taps)
+    and the mean encoder's on the planes kernel, each against its plain
+    backward, the kernel calls timed against index_add_ and their bound."""
+    x = _julier_points(torch, device, seed)
+    concat = _encoder_check(torch, device, x, "concat", "leveled",
+                            "concat encoder's updates (julier points of 8192 x 32 samples)")
+    mean = _encoder_check(torch, device, x, "mean", "planes",
+                          "mean encoder's updates (julier points of 8192 x 32 samples)")
+    del x
+    return dict(concat=concat, mean=mean)
+
+
+def _sampling_train_run(torch, device, seed, steps, smi, build, batch_size, per_step, label):
+    """The full-width model `build()` returns on SyntheticSpheres (8 views at
+    128^2): one step with every scatter call held against its plain
+    version, 3 warmup + `steps` timed; step ms, peak GiB, launches."""
+    from neural_radiance_caching_tpu_torch.data import datasets
+    from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+    from neural_radiance_caching_tpu_torch.parallel import train
+
+    torch.manual_seed(seed)
+    model, config = build()
+    dataset = datasets.SyntheticSpheres("train", None, config, num_images=8, resolution=128,
+                                        device=device)
+    state, _ = train.create_optimizer(config, model)
+    train_step = train.create_train_step(model, config)
+    rng = torch.Generator(device=device).manual_seed(seed + 45)
+    batches = [dataset.next_train() for _ in range(8)]
+    warmup, calls = 3, []
+    torch.cuda.reset_peak_memory_stats()
+    with _patched(scatter_cuda, **{f"scatter_add_weighted_{k}": _checking_scatter(k, calls)
+                                   for k in ("leveled", "planes")}):
+        state, stats = train_step(rng, state, batches[0], 0.5)
+    losses = [stats["loss"]]
+    scatter_cuda.reset_launch_count()
+    for i in range(warmup):
+        state, stats = train_step(rng, state, batches[(1 + i) % 8], 0.5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        state, stats = train_step(rng, state, batches[(1 + warmup + i) % 8], 0.5)
+        losses.append(stats["loss"])
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    launches = dict(scatter_cuda.launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    finite = _finite(float(v) for v in losses)
+    per_kind = {k: sum(c["kind"] == k for c in calls) for k in per_step}
+    ok = (finite and launches == {k: v * (warmup + steps) for k, v in per_step.items()}
+          and per_kind == per_step and all(c["ok"] for c in calls))
+    print(f"sampling train ({label}): batch {batch_size} on SyntheticSpheres 8x128^2: checked "
+          f"step {_checked_text(calls)}; {warmup} warmup + {steps} timed steps: step_ms="
+          f"{dt * 1e3:.2f} rays_per_s={batch_size / dt:.0f} on [{smi}]; peak {peak_gib:.2f} GiB; "
+          f"losses finite={finite}; kernel launches={launches} (expected per step {per_step}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"the full-width {label} step failed")
+    return dict(step_ms=dt * 1e3, rays_per_s=batch_size / dt, peak_gib=peak_gib,
+                batch=batch_size, steps=steps, warmup=warmup,
+                launches={k: v for k, v in launches.items() if v},
+                max_abs_err=max(c["max_abs_err"] for c in calls),
+                max_abs_err_by_kernel={k: max(c["max_abs_err"] for c in calls if c["kind"] == k)
+                                       for k in per_step if per_step[k]})
+
+
+def phase_sampling_train(torch, device, seed, steps, smi):
+    """Phase 45's full-width steps: the flagship cache under set A at 8192
+    (1 planes launch per step) and the flagship material model under set B
+    at 1536."""
+    from neural_radiance_caching_tpu_torch import flagship
+
+    def cache():
+        config = flagship.cache_config(batch_size=SAMPLING_BATCH, **SET_A_CONFIG)
+        return flagship.build_flagship_cache_model(
+            config, _set_a(flagship.flagship_cache_params()), device=device), config
+
+    def material():
+        config = flagship.material_config(batch_size=SAMPLING_MATERIAL_BATCH, **SET_B_CONFIG)
+        return flagship.build_flagship_material_model(
+            config, _set_b(flagship.flagship_material_params()), device=device), config
+
+    return dict(
+        cache=_sampling_train_run(torch, device, seed, steps, smi, cache, SAMPLING_BATCH,
+                                  _SAMPLING_CACHE_LAUNCHES_PER_STEP, "flagship cache, set A"),
+        material=_sampling_train_run(torch, device, seed, steps, smi, material,
+                                     SAMPLING_MATERIAL_BATCH, _MATERIAL_LAUNCHES_PER_STEP,
+                                     "flagship material, set B"))
+
+
 def _profile(torch, train_step, state, rng, batches, path, steps=3):
     """Device time by kernel over `steps` steps, as a table written to `path`."""
     import pathlib
@@ -7409,9 +7892,9 @@ def main():
                         help="timed transient train steps of each run (direct, dedup)")
     parser.add_argument("--transient-material-steps", type=int, default=10,
                         help="timed transient material train steps of each form (bench, trainer)")
-    parser.add_argument("--trainer-steps", type=int, default=4,
+    parser.add_argument("--trainer-steps", type=int, default=3,
                         help="timed steps of each run through the entry point (phases 20-38, "
-                             "42-44)")
+                             "42-45)")
     parser.add_argument("--profile", metavar="FILE",
                         help="also profile train steps and write the op tables to FILE "
                              "(cache), and FILE with .material, .transient, "
@@ -7510,6 +7993,9 @@ def main():
                                         real["written"])
         options_reference = phase_options_reference(torch, device, args.seed)
         options = phase_options_train(torch, device, args.seed, args.trainer_steps, smi, tmp)
+    sampling_reference = phase_sampling_reference(torch, device, args.seed)
+    sampling_kernels = phase_sampling_kernels(torch, device, args.seed)
+    sampling = phase_sampling_train(torch, device, args.seed, args.trainer_steps, smi)
     print(f"phases done in {time.perf_counter() - t_start:.1f}s, build included", flush=True)
 
     csrc = "neural_radiance_caching_tpu_torch/csrc"
@@ -7594,6 +8080,15 @@ def main():
                        "options_patches": options["patches"]["launches"],
                        "options_mesh": options["mesh"]["launches"]}
     leveled_launches.update(options_leveled)
+    sampling_leveled = {"sampling_reference": sampling_reference["launches"]["leveled"],
+                        "sampling_concat_encoder": 1, "sampling_mean_encoder": 0,
+                        "sampling_cache": sampling["cache"]["launches"].get("leveled", 0),
+                        "sampling_material": sampling["material"]["launches"].get("leveled", 0)}
+    leveled_launches.update(sampling_leveled)
+    sampling_planes = {"sampling_reference": sampling_reference["launches"]["planes"],
+                       "sampling_concat_encoder": 0, "sampling_mean_encoder": 1,
+                       "sampling_cache": sampling["cache"]["launches"].get("planes", 0),
+                       "sampling_material": sampling["material"]["launches"].get("planes", 0)}
     real_planes = {f"trainer_real_disk_{run}": r["launches_by_kernel"]["planes"]
                    for run, r in real_runs.items()}
     multi_planes = {f"multi_illum_{run}": r["launches_by_kernel"]["planes"]
@@ -7604,7 +8099,7 @@ def main():
                    **{k: 0 for k in disk_leveled}, **{k: 0 for k in transient_disk_leveled},
                    **{k: 0 for k in real_leveled}, **{k: 0 for k in dp_leveled},
                    **{k: 0 for k in colmap_leveled}, **{k: 0 for k in multi_leveled},
-                   **{k: 0 for k in options_leveled}}
+                   **{k: 0 for k in options_leveled}, **{k: 0 for k in sampling_leveled}}
     print(json.dumps({"kernels": [{
         "name": "scatter_add_weighted_leveled",
         "route": "cuda",
@@ -7638,7 +8133,9 @@ def main():
                            *(r["max_abs_err_by_kernel"].get("leveled", 0.0)
                              for r in multi_runs.values()),
                            options_reference["max_abs_err"], options["patches"]["max_abs_err"],
-                           options["mesh"]["max_abs_err"]),
+                           options["mesh"]["max_abs_err"], sampling_reference["max_abs_err"],
+                           sampling_kernels["concat"]["max_abs_err"],
+                           sampling["material"]["max_abs_err_by_kernel"]["leveled"]),
         "max_abs_err_by_shape": {"cache": kernel["max_abs_err"],
                                  "material_path": material_err["leveled"],
                                  "transient_path": transient["direct"]["max_abs_err"],
@@ -7686,7 +8183,12 @@ def main():
                                     if "leveled" in r["max_abs_err_by_kernel"]},
                                  "options_reference_path": options_reference["max_abs_err"],
                                  "options_patches_path": options["patches"]["max_abs_err"],
-                                 "options_mesh_path": options["mesh"]["max_abs_err"]},
+                                 "options_mesh_path": options["mesh"]["max_abs_err"],
+                                 "sampling_reference_path": sampling_reference["max_abs_err"],
+                                 "sampling_concat_encoder": sampling_kernels["concat"][
+                                     "max_abs_err"],
+                                 "sampling_material_path": sampling["material"][
+                                     "max_abs_err_by_kernel"]["leveled"]},
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
         "library_ms": kernel["library_ms"],
@@ -7701,6 +8203,9 @@ def main():
         **{f"trainer_{stage}_path": r["paths"]["leveled"] for stage, r in trainer_tmat.items()},
         **({"trainer_open_slf_path": baseline_paths["open_leveled"]}
            if "open_leveled" in baseline_paths else {}),
+        **{f"sampling_concat_{k}": v for k, v in sampling_kernels["concat"].items()
+           if k.startswith("path_")},
+        "sampling_concat_updates": sampling_kernels["concat"]["updates"],
     }, {
         "name": "scatter_add_weighted_leveled_skip_zero_w",
         "route": "cuda",
@@ -7728,16 +8233,19 @@ def main():
         "source": f"{csrc}/scatter_weighted.cu",
         "replaces": f"{replaces}:364",
         "launches": material["planes"] + sum(baseline_planes.values())
-        + sum(disk_planes.values()) + sum(real_planes.values()) + sum(multi_planes.values()),
+        + sum(disk_planes.values()) + sum(real_planes.values()) + sum(multi_planes.values())
+        + sum(sampling_planes.values()),
         "launches_by_path": {"cache_train": 0, "material_train": material["planes"],
                              "transient_train": 0, "transient_train_dedup": 0, "gate": 0,
                              "eval_render": 0, "transient_material": 0, "trainer_train": 0,
                              "trainer_material_train": 0, **other_paths, **baseline_planes,
-                             **disk_planes, **real_planes, **multi_planes},
+                             **disk_planes, **real_planes, **multi_planes, **sampling_planes},
         "max_abs_err": max(planes["max_abs_err"], material_err["planes"],
                            *(r["max_abs_err_by_kernel"].get("planes", 0.0)
                              for r in [*baseline.values(), *disk_runs.values(),
-                                       *real_runs.values(), *multi_runs.values()])),
+                                       *real_runs.values(), *multi_runs.values()]),
+                           sampling_kernels["mean"]["max_abs_err"],
+                           *(r["max_abs_err_by_kernel"]["planes"] for r in sampling.values())),
         "max_abs_err_by_shape": {"planes_shape": planes["max_abs_err"],
                                  "material_path": material_err["planes"],
                                  **{f"trainer_{run}_path": r["max_abs_err_by_kernel"]["planes"]
@@ -7751,7 +8259,10 @@ def main():
                                     if "planes" in r["max_abs_err_by_kernel"]},
                                  **{f"multi_illum_{run}_path": r["max_abs_err_by_kernel"][
                                      "planes"] for run, r in multi_runs.items()
-                                    if "planes" in r["max_abs_err_by_kernel"]}},
+                                    if "planes" in r["max_abs_err_by_kernel"]},
+                                 "sampling_mean_encoder": sampling_kernels["mean"]["max_abs_err"],
+                                 **{f"sampling_{run}_path": r["max_abs_err_by_kernel"]["planes"]
+                                    for run, r in sampling.items()}},
         "ms": planes["ms"],
         "plain_ms": planes["plain_ms"],
         "library_ms": planes["library_ms"],
@@ -7763,6 +8274,9 @@ def main():
         **planes_path,
         **({"trainer_open_reflectance_path": baseline_paths["open_planes"]}
            if "open_planes" in baseline_paths else {}),
+        **{f"sampling_mean_{k}": v for k, v in sampling_kernels["mean"].items()
+           if k.startswith("path_")},
+        "sampling_mean_updates": sampling_kernels["mean"]["updates"],
     }, {
         "name": "scatter_add_rows_leveled",
         "route": "cuda",
@@ -7806,7 +8320,8 @@ def main():
         "data_parallel": data_parallel, "colmap_reference": colmap_reference,
         "colmap_train": colmap, "multi_illum_reference": multi_reference,
         "multi_illum_train": multi, "options_reference": options_reference,
-        "options_train": options, "device": smi}}), flush=True)
+        "options_train": options, "sampling_reference": sampling_reference,
+        "sampling_train": sampling, "device": smi}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

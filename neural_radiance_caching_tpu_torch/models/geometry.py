@@ -2,7 +2,13 @@
 (counterpart of ``models/geometry.py``).
 
 Ported: the first-order path (``disable_density_normals=True``) and the
-analytic density normals, with or without predicted normals. The density
+analytic density normals, with or without predicted normals, and every
+option of the JAX class: the unscented control points of any basis with a
+scale-aware grid query (``unscented_scale_mult``, the control points' scale
+tracked through the warp), the covariance options of the IPE path, density
+noise, corrected and offset normals, the feature filter (primary rays too,
+and its far-field form), ``squash_before`` and the backfacing filter of
+secondary rays. The density
 normals are the gradient of the summed raw density with respect to the
 sample means (each sample's density depends on its own mean only), taken
 with ``torch.autograd.grad(..., create_graph=True)`` while gradients are
@@ -31,17 +37,11 @@ from neural_radiance_caching_tpu_torch.engine import gin_config as gin
 from neural_radiance_caching_tpu_torch.models import grids
 from neural_radiance_caching_tpu_torch.models.layers import Configurable, Dense, SkipMLP, softplus
 from neural_radiance_caching_tpu_torch.ops import coord, geopoly, math, ref_utils
+from neural_radiance_caching_tpu_torch.utils import torchutil
 
 
 @gin.configurable
-class DensityMLP(Configurable, nn.Module, unported=dict(
-        weight_init="he_uniform", density_noise=0.0, enable_normals_offset=False,
-        use_corrected_normals=False, isotropize_gaussians=False, gaussian_covariance_scale=1.0,
-        gaussian_covariance_pad=0.0, unscented_sqrt_fn="sqrtm", unscented_scale_mult=0.0,
-        squash_before=False, backfacing_target="normals", use_backfacing_near=False,
-        use_feature_filter=False,
-        use_feature_filter_secondary_only=True, use_feature_filter_far_field=False,
-        feature_filter_radius=float("inf"), feature_filter_size=64)):
+class DensityMLP(Configurable, nn.Module):
     """Density MLP over grid features (or IPE posenc)."""
 
     filter_backfacing = False  # declared in JAX, read by nothing there
@@ -49,26 +49,43 @@ class DensityMLP(Configurable, nn.Module, unported=dict(
     net_depth = 8
     net_width = 256
     net_activation = staticmethod(F.relu)
+    weight_init = "he_uniform"
     skip_layer = 4
     use_posenc_with_grid = False
     min_deg_point = 0
     max_deg_point = 4
     density_activation = staticmethod(softplus)
     density_bias = -1.0
+    density_noise = 0.0
     enable_pred_normals = False
+    enable_normals_offset = False
+    use_corrected_normals = False
     disable_density_normals = False
     use_bf16_compute = False
+    isotropize_gaussians = False
+    gaussian_covariance_scale = 1.0
+    gaussian_covariance_pad = 0.0
     warp_fn = None
     basis_shape = "icosahedron"
     basis_subdivisions = 2
     unscented_mip_basis = "mean"
+    unscented_sqrt_fn = "sqrtm"
+    unscented_scale_mult = 0.0
+    squash_before = False
     use_grid = True
     grid_representation = "ngp"
     grid_params = None
+    backfacing_target = "normals"
+    backfacing_near = 0.2
+    use_backfacing_near = False
     normals_for_filter_only = False
+    use_feature_filter = False
+    use_feature_filter_secondary_only = True
     secondary_grid_level_clamp = None
     primary_grid_level_clamp = None
-    backfacing_near = 0.2  # read with use_backfacing_near only
+    use_feature_filter_far_field = False
+    feature_filter_radius = float("inf")
+    feature_filter_size = 64
 
     def __init__(self, config=None, **kwargs):
         nn.Module.__init__(self)
@@ -90,43 +107,90 @@ class DensityMLP(Configurable, nn.Module, unported=dict(
         if self.grid is None or self.use_posenc_with_grid:
             in_dim += self.pos_basis_t.shape[1] * (self.max_deg_point - self.min_deg_point) * 2
         self.density_layers = SkipMLP(in_dim, [self.net_width] * self.net_depth, self.skip_layer,
-                                      self.net_activation, compute_dtype)
+                                      self.net_activation, compute_dtype,
+                                      kernel_init=self.weight_init)
         self.feature_dim = self.density_layers.out_dim
-        self.output_density_layer = Dense(self.feature_dim, 1, compute_dtype)
+        self.output_density_layer = Dense(self.feature_dim, 1, compute_dtype, self.weight_init)
         if self.enable_pred_normals:
-            self.pred_normals_layer = Dense(self.feature_dim, 3, compute_dtype)
+            self.pred_normals_layer = Dense(self.feature_dim, 3, compute_dtype, self.weight_init)
+        if self.enable_normals_offset:
+            self.normals_offset_layer = Dense(self.feature_dim, 3, kernel_init="zeros")
 
-    def _encode(self, means, covs, control_offsets, is_secondary, plain_encoder=False):
+    def _encode(self, means, covs, control_offsets, perp_mag, is_secondary, viewdirs=None,
+                plain_encoder=False):
         """Build the network input features for each sample mean."""
         x = []
+        warp = None if self.squash_before else self.warp_fn
         if self.grid is not None:
             control = means[..., None, :] + control_offsets
-            if self.warp_fn is not None:
-                control = self.warp_fn(control)
-            grid_kwargs = {"plain_encoder": plain_encoder}
+            scale = None
+            if warp is not None:
+                if perp_mag is not None and self.unscented_scale_mult > 0:
+                    if getattr(warp, "__wrapped__", warp) is coord.contract:
+                        s = coord.contract3_isoscale(control)
+                        scale = self.unscented_scale_mult * (perp_mag * s)[..., None]
+                        control = warp(control)
+                    else:
+                        control, perp_mag = coord.track_isotropic(warp, control, perp_mag)
+                        scale = self.unscented_scale_mult * perp_mag[..., None]
+                else:
+                    control = warp(control)
+
+            # The feature filter: the fine levels of points beyond the radius
+            # are zeroed, and under far_field those points are queried at a
+            # distant point along the view instead.
+            feature_filter = None
+            if self.use_feature_filter and (is_secondary
+                                            or not self.use_feature_filter_secondary_only):
+                feature_filter = (torch.linalg.norm(means[..., None, :], dim=-1, keepdim=True)
+                                  < self.feature_filter_radius)
+                if self.use_feature_filter_far_field and viewdirs is not None:
+                    vd = viewdirs
+                    while vd.dim() < control.dim():
+                        vd = vd[..., None, :]
+                    far = torch.ones_like(control) * vd * 100.0
+                    if self.warp_fn is not None:
+                        far = self.warp_fn(far)
+                    control = torch.where(feature_filter, control, far)
+            grid_kwargs = {}
+            if isinstance(self.grid, grids.HashEncoding):
+                grid_kwargs["plain_encoder"] = plain_encoder
             if is_secondary and self.secondary_grid_level_clamp is not None:
                 grid_kwargs["max_levels"] = self.secondary_grid_level_clamp
             elif not is_secondary and self.primary_grid_level_clamp is not None:
                 grid_kwargs["max_levels"] = self.primary_grid_level_clamp
-            x.append(self.grid(control, x_scale=None,
-                               per_level_fn=math.average_across_multisamples, **grid_kwargs))
+            # As in JAX the filter's arguments always go to the grid (the
+            # triplane and factored grids take none, and raise).
+            x.append(self.grid(control, x_scale=scale,
+                               per_level_fn=math.average_across_multisamples,
+                               feature_filter=feature_filter,
+                               feature_filter_size=self.feature_filter_size, **grid_kwargs))
         if self.grid is None or self.use_posenc_with_grid:
-            if self.warp_fn is not None:
-                means, covs = coord.track_linearize(self.warp_fn, means, covs)
+            if warp is not None:
+                means, covs = coord.track_linearize(warp, means, covs)
             lifted_means, lifted_vars = coord.lift_and_diagonalize(means, covs, self.pos_basis_t)
             x.append(coord.integrated_pos_enc(
                 lifted_means, lifted_vars, self.min_deg_point, self.max_deg_point,
                 dtype=torch.bfloat16 if self.use_bf16_compute else None))
         return torch.cat(x, dim=-1) if len(x) > 1 else x[0]
 
-    def predict_density(self, means, covs, control_offsets, is_secondary=False,
-                        plain_encoder=False):
-        """Raw density (pre-activation) and trunk feature for each sample."""
-        x = self.density_layers(self._encode(means, covs, control_offsets, is_secondary,
-                                             plain_encoder))
+    def predict_density(self, means, covs, control_offsets, perp_mag=None, is_secondary=False,
+                        viewdirs=None, plain_encoder=False):
+        """Raw density (pre-activation, without the density noise) and trunk
+        feature for each sample."""
+        if self.isotropize_gaussians:
+            covs = coord.isotropize(covs)
+        if self.gaussian_covariance_scale != 1:
+            covs = covs * self.gaussian_covariance_scale
+        if self.gaussian_covariance_pad > 0:
+            covs = covs + self.gaussian_covariance_pad * torch.eye(
+                covs.shape[-1], dtype=covs.dtype, device=covs.device)
+        x = self.density_layers(self._encode(means, covs, control_offsets, perp_mag, is_secondary,
+                                             viewdirs, plain_encoder))
         return self.output_density_layer(x)[..., 0].float(), x.float()
 
-    def _density_and_gradient(self, means, covs, control_offsets, is_secondary):
+    def _density_and_gradient(self, means, covs, control_offsets, perp_mag, is_secondary,
+                              viewdirs):
         """(raw density, feature, d sum(raw density) / d means), through the
         plain encoder. With gradients enabled the gradient keeps its graph
         (create_graph) and the means' own gradient flows; without, all three
@@ -135,8 +199,8 @@ class DensityMLP(Configurable, nn.Module, unported=dict(
         with torch.enable_grad():
             m = means if grad_enabled and means.requires_grad else \
                 means.detach().requires_grad_(True)
-            raw_density, feat = self.predict_density(m, covs, control_offsets, is_secondary,
-                                                     plain_encoder=True)
+            raw_density, feat = self.predict_density(m, covs, control_offsets, perp_mag,
+                                                     is_secondary, viewdirs, plain_encoder=True)
             grad = torch.autograd.grad(raw_density.sum(), m, create_graph=grad_enabled)[0]
         if not grad_enabled:
             raw_density, feat, grad = raw_density.detach(), feat.detach(), grad.detach()
@@ -156,35 +220,50 @@ class DensityMLP(Configurable, nn.Module, unported=dict(
     def forward(self, rng, rays, gaussians, tdist=None, train_frac=1.0, train=True,
                 mesh_normals=None, is_secondary=False, density_only=False, **kwargs):
         """The density, feature and normals of each sample. density_only skips
-        the density normals (None) for a caller that reads the density alone.
+        the density normals (None) for a caller that reads the density alone
+        (unless the backfacing filter of secondary rays reads them).
         mesh_normals [..., S, 3] (the sampler's mesh shortcut) replace every
         normal, the density-gradient pass is skipped, and the density is
-        1e5 (the sample sits on the surface)."""
+        1e5 (the sample sits on the surface). The random draws, in JAX's
+        order: the control points' (``hexify``), then the density noise."""
         del train_frac, train, kwargs
         means, covs = gaussians
-        control_offsets = None
+        control_offsets = perp_mag = None
         if self.grid is not None:
-            control, _ = coord.compute_control_points(
-                means, covs, rays, tdist, rng, self.unscented_mip_basis, "sqrtm", 0.0)
+            control, perp_mag = coord.compute_control_points(
+                means, covs, rays, tdist, rng, self.unscented_mip_basis, self.unscented_sqrt_fn,
+                self.unscented_scale_mult)
             control_offsets = control - means[..., None, :]
+        viewdirs = getattr(rays, "viewdirs", None) if rays is not None else None
+        args = (means, covs, control_offsets, perp_mag, is_secondary, viewdirs)
 
+        backfacing_reads = is_secondary and self.use_backfacing_near
         raw_grad_density = normals = None
-        if not self.disable_density_normals and not density_only and mesh_normals is None:
-            raw_density, feat, raw_grad_density = self._density_and_gradient(
-                means, covs, control_offsets, is_secondary)
+        if (not self.disable_density_normals and (not density_only or backfacing_reads)
+                and mesh_normals is None):
+            raw_density, feat, raw_grad_density = self._density_and_gradient(*args)
             normals = torch.nan_to_num(-ref_utils.l2_normalize(raw_grad_density))
         elif self.config is not None and self.config.gradient_checkpointing \
                 and torch.is_grad_enabled():
             raw_density, feat = torch.utils.checkpoint.checkpoint(
-                self.predict_density, means, covs, control_offsets, is_secondary,
-                use_reentrant=False)
+                self.predict_density, *args, use_reentrant=False)
         else:
-            raw_density, feat = self.predict_density(means, covs, control_offsets, is_secondary)
+            raw_density, feat = self.predict_density(*args)
+        if rng is not None and self.density_noise > 0:
+            raw_density = raw_density + self.density_noise * torchutil.normal(
+                rng, raw_density.shape, raw_density.device)
         density = self.convert_raw_density(raw_density, means)
 
         if self.enable_pred_normals:
             grad_pred = self.pred_normals_layer(feat)
             normals_pred = torch.nan_to_num(-ref_utils.l2_normalize(grad_pred))
+            if self.use_corrected_normals:
+                def flip(n):
+                    return torch.where(math.dot(n, rays.viewdirs[..., None, :]) < 0, n, -n)
+
+                if normals is not None:
+                    normals = flip(normals)
+                normals_pred = flip(normals_pred)
             normals_to_use = normals_pred
         else:
             grad_pred = normals_pred = None
@@ -192,14 +271,24 @@ class DensityMLP(Configurable, nn.Module, unported=dict(
         if mesh_normals is not None:
             normals = normals_pred = normals_to_use = raw_grad_density = mesh_normals
             density = 1e5 * torch.ones_like(density)
+        normals_shading = None
+        if self.enable_normals_offset:
+            normals_shading = ref_utils.l2_normalize(
+                normals_to_use + self.normals_offset_layer(feat))
 
         ray_dists = torch.linalg.norm(rays.origins[..., None, :] - means, dim=-1, keepdim=True)
         light_dists = torch.linalg.norm(rays.lights[..., None, :] - means, dim=-1, keepdim=True)
         results = dict(
             feature=feat, density=density, raw_grad_density=raw_grad_density, grad_pred=grad_pred,
             normals=normals, normals_pred=normals_pred, normals_to_use=normals_to_use,
-            normals_shading=None, ray_dists=ray_dists, light_dists=light_dists,
+            normals_shading=normals_shading, ray_dists=ray_dists, light_dists=light_dists,
         )
+        # Secondary rays: zero the density of backfacing points near the ray's start.
+        target = results.get(self.backfacing_target)
+        if target is not None and backfacing_reads:
+            dotprod = math.dot(target, -rays.directions[..., None, :])[..., 0]
+            results["density"] = results["density"] * (
+                (dotprod > 0.0) | (tdist[..., :-1] > self.backfacing_near))
         if self.normals_for_filter_only:
             results["normals"] = None
             results["normals_to_use"] = None

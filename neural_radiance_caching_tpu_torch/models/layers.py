@@ -63,20 +63,53 @@ def _same(a, b):
         return a is b
 
 
+# The kernel initializers JAX resolves by name without arguments
+# (``getattr(jax.nn.initializers, name)()``): (scale, fan, distribution) of
+# its variance scaling, the variance scale / fan.
+_VARIANCE_SCALING = {
+    "he_uniform": (2.0, "fan_in", "uniform"),
+    "kaiming_uniform": (2.0, "fan_in", "uniform"),
+    "he_normal": (2.0, "fan_in", "truncated_normal"),
+    "kaiming_normal": (2.0, "fan_in", "truncated_normal"),
+    "glorot_uniform": (1.0, "fan_avg", "uniform"),
+    "xavier_uniform": (1.0, "fan_avg", "uniform"),
+    "glorot_normal": (1.0, "fan_avg", "truncated_normal"),
+    "xavier_normal": (1.0, "fan_avg", "truncated_normal"),
+    "lecun_uniform": (1.0, "fan_in", "uniform"),
+    "lecun_normal": (1.0, "fan_in", "truncated_normal"),
+}
+
+
+def init_kernel_(weight, name):
+    """Fill a torch weight [out, in] as JAX's initializer `name` fills the
+    kernel [in, out]: a variance scaling of ``_VARIANCE_SCALING`` (uniform,
+    or a normal truncated at two deviations), zeros or ones."""
+    fan_out, fan_in = weight.shape
+    with torch.no_grad():
+        if name in ("zeros", "ones"):
+            return weight.fill_(0.0 if name == "zeros" else 1.0)
+        if name not in _VARIANCE_SCALING:
+            raise ValueError(f"Unknown kernel_init {name!r}")
+        scale, mode, dist = _VARIANCE_SCALING[name]
+        fan = {"fan_in": fan_in, "fan_avg": (fan_in + fan_out) / 2}[mode]
+        variance = scale / fan
+        if dist == "uniform":
+            bound = pymath.sqrt(3.0 * variance)
+            return weight.uniform_(-bound, bound)
+        std = pymath.sqrt(variance) / 0.87962566103423978
+        return nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std)
+
+
 class Dense(nn.Linear):
-    """The JAX ``nn.Dense`` with he_uniform (or zeros) kernel init and zero bias."""
+    """The JAX ``nn.Dense``: a kernel filled by one of JAX's named
+    initializers (``init_kernel_``; he_uniform by default) and a zero bias."""
 
     def __init__(self, in_features, out_features, compute_dtype=None, kernel_init="he_uniform"):
         super().__init__(in_features, out_features)
         self.compute_dtype = compute_dtype
+        self.kernel_init = kernel_init
+        init_kernel_(self.weight, kernel_init)
         with torch.no_grad():
-            if kernel_init == "he_uniform":
-                bound = pymath.sqrt(6.0 / in_features)
-                self.weight.uniform_(-bound, bound)
-            elif kernel_init == "zeros":
-                self.weight.zero_()
-            else:
-                raise ValueError(f"Unknown kernel_init {kernel_init!r}")
             self.bias.zero_()
 
     def forward(self, x):
@@ -109,14 +142,14 @@ class SkipMLP(nn.Module):
     """
 
     def __init__(self, in_dim, widths, skip, activation=F.relu, compute_dtype=None,
-                 names=None):
+                 names=None, kernel_init="he_uniform"):
         super().__init__()
         self.skip = skip
         self.activation = activation
         d = in_dim
         names = names or [str(i) for i in range(len(widths))]
         for i, (name, w) in enumerate(zip(names, widths)):
-            self.add_module(name, Dense(d, w, compute_dtype))
+            self.add_module(name, Dense(d, w, compute_dtype, kernel_init))
             d = w + (in_dim if (i % skip == 0 and i > 0) else 0)
         self.out_dim = d
 

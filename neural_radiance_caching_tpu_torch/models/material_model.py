@@ -60,8 +60,16 @@ The render passes ("cache", "light", "material", "is_secondary",
 without "material" it is the cache's, and with "is_secondary" the cache is
 queried as secondary rays (the trainer's secondary-ray probe).
 
-Not ported yet (they raise): the volume control variate and shared
-materials. A relit render (``Config.compute_relight_metrics``) and the
+Under ``Config.volume_variate_material`` the cache shader's results at the
+surface points are integrated too, and the material render's outputs take
+the cache's full render minus that as their control variate
+(``_handle_volume_variate_pass``, gradients scaled by
+``stopgrad_weight_variate`` and ``stopgrad_weight_model``). The cache's own
+volume variates (``Config.volume_variate`` on the primary rays, the
+cache-consistency pass included, and ``Config.volume_variate_secondary`` on
+the secondary queries) run in the cache model.
+
+Not ported yet (it raises): shared materials. A relit render (``Config.compute_relight_metrics``) and the
 ground-truth lights under ``Config.multi_illumination`` raise as the
 reference gaps they are: the JAX trainer hands its model no env map tables.
 Under ``Config.multi_illumination`` the cache, its SLF and the light sampler
@@ -86,7 +94,7 @@ def _detach_dict(d):
     return {k: (v.detach() if isinstance(v, torch.Tensor) else v) for k, v in d.items()}
 
 
-class BaseMaterialModel(nerf_model.Model, unported=dict(stopgrad_weight_variate=0.0)):
+class BaseMaterialModel(nerf_model.Model):
     """Material model over a radiance cache; the variants pick the cache,
     shader and integrator classes."""
 
@@ -124,6 +132,8 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(stopgrad_weight_variate=
     stopgrad_geometry_feature_weight_consistency = 0.0
     stopgrad_geometry_normals_weight_consistency = 0.0
     slf_variate = True
+    stopgrad_weight_variate = 0.0
+    stopgrad_weight_model = 1.0
     share_light_power = False
     use_vignette = False
 
@@ -141,8 +151,6 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(stopgrad_weight_variate=
             if config.learnable_light:
                 self.shader = material_shader.CacheStageLight(config, self.shader_params)
             return
-        if config.volume_variate_material:
-            raise NotImplementedError("the material volume variate is not ported yet")
         feature_dim = self.cache.sampler.mlps[-1].feature_dim
         if self.use_light_sampler:
             self.light_sampler = light_sampler_lib.LightMLP(
@@ -377,14 +385,29 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(stopgrad_weight_variate=
             self._handle_slf_variate_pass(key, rays, train_frac, train, filtered,
                                           material_shader_results, material_integrator_results,
                                           secondary_proposal_grad, mesh)
+        cache_integrator_results = None
+        if self.config.volume_variate_material:
+            # The cache shader's results at the surface points, integrated
+            # (the JAX model integrates them on every pass; only this variate
+            # reads them).
+            key, rng = torchutil.random_split(rng)
+            cache_integrator_results = self.integrator(
+                rng=key, shader_results=cache_shader_results, compute_extras=compute_extras,
+                compute_distance=False, material=False, radiance_cache=self, vignette=vignette,
+                **shared)
         # The cache rendered at the material's surface points (the
-        # cache-consistency integrator). The JAX model also integrates the
-        # cache shader's results alone; only the volume variate reads that.
+        # cache-consistency integrator), with the cache's volume variate
+        # under Config.volume_variate.
         key, rng = torchutil.random_split(rng)
         _, cache_consistency_integrator_results = self.cache.apply_shader_and_integrator(
             key, rays, filtered,
             self._consistency_stopgrad_map(), train, train_frac, False, None,
-            radiance_cache=self)
+            sampler_results=cache_outputs["sampler"], radiance_cache=self)
+        if cache_integrator_results is not None:
+            self._handle_volume_variate_pass(
+                material_integrator_results, cache_integrator_results,
+                dict(cache_outputs["integrator"]), self._MATERIAL_VARIATE_KEYS,
+                self.stopgrad_weight_variate, self.stopgrad_weight_model)
 
         material_outputs = dict(
             loss_weight=self.loss_weight, loss_type=self.loss, linear_to_srgb=self.linear_to_srgb,
@@ -393,6 +416,10 @@ class BaseMaterialModel(nerf_model.Model, unported=dict(stopgrad_weight_variate=
             shader=material_shader_results, integrator=material_integrator_results)
         return dict(cache_main=cache_outputs, main=material_outputs,
                     render=material_integrator_results)
+
+    # The material render's outputs the material volume variate corrects.
+    _MATERIAL_VARIATE_KEYS = nerf_model.VOLUME_VARIATE_KEYS + (
+        "transient_indirect_specular", "transient_indirect_diffuse")
 
     # The material render's outputs the SLF variate adds to.
     _VARIATE_OUTPUTS = ("diffuse_rgb", "specular_rgb", "rgb", "lighting_irradiance",

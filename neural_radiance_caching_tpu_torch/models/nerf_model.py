@@ -23,9 +23,17 @@ query on it raises.
 ``use_vignette`` (InvProp's captured scenes): an MLP on the cosine between
 each ray's view direction and its camera's look direction.
 
-Not ported yet: resampling of primary rays, volume control variates and
-environment maps (they raise), and the argmax resample and ray-distance
-warps of secondary rays.
+Under ``Config.volume_variate`` (primary rays) and
+``Config.volume_variate_secondary`` (secondary rays) the shade-and-integrate
+chain runs twice more with the variate's shader passes
+(``Config.volume_variate_passes[_secondary]``): once over every final
+sample and once over the resampled ones, and the render's outputs become
+E[f(all)] - E[f(resampled, variate passes)] + f(resampled)
+(``_handle_volume_variate_pass``, the two terms' gradients scaled by
+``stopgrad_weight_variate`` and ``stopgrad_weight_model``).
+
+Not ported yet: resampling of primary rays and environment maps (they
+raise), and the argmax resample and ray-distance warps of secondary rays.
 """
 
 from __future__ import annotations
@@ -50,9 +58,11 @@ _MODEL_UNPORTED = dict(
     uniform_importance_samplers=(("UniformHemisphereSampler", 1.0),),
     active_importance_samplers=(("ActiveSampler", 1.0),),
     resample_argmax=False,
-    stopgrad_weight_variate=1.0,
-    stopgrad_weight_model=1.0,
 )
+
+# The render outputs the volume variate corrects.
+VOLUME_VARIATE_KEYS = ("rgb", "diffuse_rgb", "specular_rgb", "direct_rgb", "indirect_rgb",
+                       "transient_indirect")
 
 
 class Model(Configurable, nn.Module, unported=_MODEL_UNPORTED):
@@ -94,6 +104,9 @@ class Model(Configurable, nn.Module, unported=_MODEL_UNPORTED):
     stopgrad_geometry_weight = 1.0
     stopgrad_geometry_feature_weight = 1.0
     stopgrad_geometry_normals_weight = 1.0
+    # The gradient scales of the volume variate's two terms.
+    stopgrad_weight_variate = 1.0
+    stopgrad_weight_model = 1.0
     use_raydist_for_secondary_only = False
     train_sampling_strategy = ((0, 0, 64), (1, 1, 64), (2, 2, 32))
     render_sampling_strategy = ((0, 0, 64), (1, 1, 64), (2, 2, 32))
@@ -103,12 +116,18 @@ class Model(Configurable, nn.Module, unported=_MODEL_UNPORTED):
         self.config = config
         self._set_fields(kwargs)
         self._require(use_env_map=False)
-        if config.volume_variate or config.volume_variate_secondary:
-            raise NotImplementedError("volume control variates are not ported yet")
 
     def do_resample(self, do_resample, is_secondary, train):
         return (do_resample or (train and self.resample) or (not train and self.resample_render)
                 or (is_secondary and self.resample_secondary))
+
+    def use_volume_variate(self, is_secondary):
+        return bool((self.config.volume_variate_secondary and is_secondary)
+                    or (self.config.volume_variate and not is_secondary))
+
+    def get_variate_passes(self, is_secondary):
+        return (self.config.volume_variate_passes_secondary if is_secondary
+                else self.config.volume_variate_passes)
 
     def get_bg_and_raydist(self, is_secondary):
         """Secondary rays composite over black and take the sampler's ray
@@ -196,27 +215,68 @@ class Model(Configurable, nn.Module, unported=_MODEL_UNPORTED):
 
     def apply_shader_and_integrator(self, rng, rays, filtered_sampler_results, stopgrad_map,
                                     train, train_frac, is_secondary, bg_intensity_range,
-                                    stopgrad_cache_weight=None, vignette=None, **render_kwargs):
+                                    stopgrad_cache_weight=None, vignette=None,
+                                    sampler_results=None, **render_kwargs):
         """Shade the (filtered) samples and composite them; the render's rgb
-        times `vignette` [..., 1] if given."""
+        times `vignette` [..., 1] if given. Under the volume variate
+        (``use_volume_variate``) `sampler_results`, the sampler's levels,
+        give the variate's chain over every final sample."""
         inputs = torchutil.apply_stopgrad_fields(filtered_sampler_results, stopgrad_map)
         shared = dict(train_frac=train_frac, train=train, is_secondary=is_secondary)
-        key, rng = torchutil.random_split(rng)
-        shader_results = self.shader(rng=key, rays=rays, sampler_results=inputs,
-                                     filtered_sampler_results=inputs, **shared, **render_kwargs)
-        shader_results.setdefault("weights_no_filter", shader_results["weights"])
+        integrate_kwargs = dict(render_kwargs)
         if is_secondary:
             # Nothing in a train step or a primary render reads the
             # ray-distance statistics of secondary rays; the secondary-ray
             # probe's render asks for them.
-            render_kwargs.setdefault("compute_distance", False)
+            integrate_kwargs.setdefault("compute_distance", False)
+
+        def shade_and_integrate(rng, samples, passes=None):
+            extra = {} if passes is None else {"passes": passes}
+            key, rng = torchutil.random_split(rng)
+            shader_results = self.shader(rng=key, rays=rays, sampler_results=samples,
+                                         filtered_sampler_results=samples, **shared, **extra,
+                                         **render_kwargs)
+            shader_results.setdefault("weights_no_filter", shader_results["weights"])
+            key, rng = torchutil.random_split(rng)
+            integrator_results = self.integrator(
+                rng=key, rays=rays, shader_results=shader_results,
+                bg_intensity_range=bg_intensity_range, vignette=vignette, **shared,
+                **integrate_kwargs)
+            return shader_results, self._handle_secondary(is_secondary, integrator_results,
+                                                          stopgrad_cache_weight)
+
         key, rng = torchutil.random_split(rng)
-        integrator_results = self.integrator(
-            rng=key, rays=rays, shader_results=shader_results,
-            bg_intensity_range=bg_intensity_range, vignette=vignette, **shared, **render_kwargs)
-        integrator_results = self._handle_secondary(is_secondary, integrator_results,
-                                                    stopgrad_cache_weight)
+        shader_results, integrator_results = shade_and_integrate(key, inputs)
+        if self.use_volume_variate(is_secondary):
+            # Control variate: E[f(all)] - E[f(resampled, variate passes)] + f(resampled).
+            passes = self.get_variate_passes(is_secondary)
+            variate_results, biased_total = shade_and_integrate(rng, sampler_results[-1], passes)
+            _, biased = shade_and_integrate(rng, inputs, passes)
+            self._handle_volume_variate_pass(integrator_results, biased, biased_total,
+                                             VOLUME_VARIATE_KEYS, self.stopgrad_weight_variate,
+                                             self.stopgrad_weight_model)
+            if not is_secondary:
+                shader_results = variate_results
         return shader_results, integrator_results
+
+    @staticmethod
+    def _handle_volume_variate_pass(unbiased, biased, biased_total, keys,
+                                    stopgrad_weight_variate=1.0, stopgrad_weight_model=1.0):
+        """unbiased[k] = (biased_total[k] - biased[k]) + unbiased[k] for each
+        key all three hold, the two terms' gradients scaled by the weights."""
+        for k in keys:
+            if biased_total.get(k) is None or biased.get(k) is None or unbiased.get(k) is None:
+                continue
+            if biased[k].numel() != unbiased[k].numel():
+                # The steady material model's one-channel direct_rgb against
+                # the cache's three channels under volume_variate_material.
+                raise TypeError(
+                    f"the volume variate's {k!r}: {tuple(biased[k].shape)} cannot take the "
+                    f"shape {tuple(unbiased[k].shape)}; the JAX model's reshape raises there "
+                    "too (models/nerf_model.py:429)")
+            unbiased[k] = torchutil.stopgrad_with_weight(
+                biased_total[k] - biased[k].reshape(unbiased[k].shape), stopgrad_weight_variate,
+            ) + torchutil.stopgrad_with_weight(unbiased[k], stopgrad_weight_model)
 
 
 @gin.configurable
@@ -332,7 +392,8 @@ class NeRFModel(Model):
         shader_results, integrator_results = self.apply_shader_and_integrator(
             key, rays, filtered, self.geometry_stopgrad_map(do_resample),
             train, train_frac, is_secondary, bg_intensity_range,
-            stopgrad_cache_weight=stopgrad_cache_weight, vignette=vignette, **render_kwargs)
+            stopgrad_cache_weight=stopgrad_cache_weight, vignette=vignette,
+            sampler_results=sampler_results, **render_kwargs)
 
         main = dict(
             loss_weight=1.0, sampler=sampler_results, filtered_sampler_inds=filtered_sampler_inds,

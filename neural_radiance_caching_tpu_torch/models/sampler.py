@@ -4,16 +4,22 @@
 Each level dilates the previous histogram, anneals its logits, draws new
 intervals by inverse-CDF sampling, warps s -> t, lifts them to Gaussians,
 evaluates the level's DensityMLP and composites alpha weights. Ported for
-primary and secondary rays, with the identity ray warp or a ``raydist_fn``
-given as ``(fn, fn_inv, kwargs)`` (the power ladder of the gin files).
+primary and secondary rays, with the identity ray warp, ``"piecewise"``, a
+named function whose inverse JAX knows by name, or a ``raydist_fn`` given as
+``(fn, fn_inv, kwargs)`` (the power ladder of the gin files).
 Secondary rays that carry the normal of the surface they leave (shadow
-rays) start off it; the density-radius filter of their last level is
-ported. Given a ``mesh`` (``ops/mesh.TriangleMesh``), the rays are
-intersected with it first: with ``use_mesh`` the proposal levels are
-skipped and the last level takes one sample at the hit (the far plane where
-a ray misses), its normals the mesh's; without, every level's samples carry
-the hit point and normal. The sample network, a ray warp without its
-inverse and the other density filters are not ported yet.
+rays) start off it. The near edge of the normalized domain can anneal open
+over training (``near_anneal_rate``). Under ``use_sample_network`` the last
+level's means move by the ``SampleNetwork``'s offsets before its MLP runs.
+The last level's density filters of secondary rays (radius, vertical and
+horizontal field of view about the camera, behind the camera), the
+normal-radius stop-gradient, the far-field radius, the weight
+normalisations and the uniform redistribution of the resampling weights
+beyond a radius follow the JAX sampler. Given a ``mesh``
+(``ops/mesh.TriangleMesh``), the rays are intersected with it first: with
+``use_mesh`` the proposal levels are skipped and the last level takes one
+sample at the hit (the far plane where a ray misses), its normals the
+mesh's; without, every level's samples carry the hit point and normal.
 Levels before the last can run without a graph (``proposal_grad``), where
 no loss reads them.
 """
@@ -23,26 +29,19 @@ from __future__ import annotations
 import functools
 import math as pymath
 
+import numpy as np
 import torch
 from torch import nn
 
 from neural_radiance_caching_tpu_torch.engine import gin_config as gin
-from neural_radiance_caching_tpu_torch.models import geometry
+from neural_radiance_caching_tpu_torch.models import geometry, sample_net
 from neural_radiance_caching_tpu_torch.models.layers import Configurable
-from neural_radiance_caching_tpu_torch.ops import coord, math, render, stepfun
+from neural_radiance_caching_tpu_torch.ops import coord, math, ref_utils, render, stepfun
 from neural_radiance_caching_tpu_torch.utils import torchutil
 
 
 @gin.configurable
-class ProposalVolumeSampler(Configurable, nn.Module, unported=dict(
-        use_uniform_radius=False, use_normal_radius=False,
-        use_far_field_radius=False, use_vertical_filter=False, use_horizontal_filter=False,
-        use_backwards_filter=False, use_uniform_radius_secondary_only=True,
-        normalize_uniform_weights=False, uniform_radius=float("inf"),
-        normal_radius=float("inf"), far_field_radius=float("inf"), vertical_fov=pymath.pi,
-        horizontal_fov=pymath.pi,
-        disable_integration=False, near_anneal_rate=None, near_anneal_init=0.95,
-        normalize_weights=False, use_sample_network=False)):
+class ProposalVolumeSampler(Configurable, nn.Module):
     """Multi-level proposal sampler producing per-level ray results."""
 
     # Declared by the JAX sampler and read by nothing there (its MLPs take
@@ -66,16 +65,33 @@ class ProposalVolumeSampler(Configurable, nn.Module, unported=dict(
     resample_padding = 0.0
     opaque_background = False
     raydist_fn = None
-    # Secondary rays: zero density beyond this radius at the last level.
+    disable_integration = False
+    near_anneal_rate = None
+    near_anneal_init = 0.95
+    normalize_weights = False
+    use_sample_network = False
+    # Density filters and radii (the filters act on secondary rays' last
+    # level; see forward).
+    use_uniform_radius = False
+    use_normal_radius = False
     use_density_radius = False
+    use_far_field_radius = False
+    use_vertical_filter = False
+    use_horizontal_filter = False
+    use_backwards_filter = False
+    use_uniform_radius_secondary_only = True
+    normalize_uniform_weights = False
+    uniform_radius = float("inf")
+    normal_radius = float("inf")
     density_radius = float("inf")
+    far_field_radius = float("inf")
+    vertical_fov = pymath.pi
+    horizontal_fov = pymath.pi
 
     def __init__(self, config=None, **kwargs):
         nn.Module.__init__(self)
         self.config = config
         self._set_fields(kwargs)
-        if self.raydist_fn is not None and not isinstance(self.raydist_fn, tuple):
-            raise NotImplementedError("a raydist_fn without its inverse is not ported yet")
         grid_params = self.grid_params_per_level or tuple(None for _ in self.mlp_params_per_level)
         self.mlps = nn.ModuleList([
             geometry.DensityMLP(
@@ -85,13 +101,17 @@ class ProposalVolumeSampler(Configurable, nn.Module, unported=dict(
             )
             for i, params in enumerate(self.mlp_params_per_level)
         ])
+        if self.use_sample_network:
+            self.sample_net = sample_net.SampleNetwork(config=config)
 
     def _ray_warps(self, rays, use_raydist_fn):
         if not use_raydist_fn or self.raydist_fn is None:
             return coord.construct_ray_warps(None, rays.near, rays.far)
-        fn, fn_inv, kwargs = self.raydist_fn
-        return coord.construct_ray_warps(functools.partial(fn, **kwargs), rays.near, rays.far,
-                                         fn_inv=functools.partial(fn_inv, **kwargs))
+        if isinstance(self.raydist_fn, tuple):
+            fn, fn_inv, kwargs = self.raydist_fn
+            return coord.construct_ray_warps(functools.partial(fn, **kwargs), rays.near,
+                                             rays.far, fn_inv=functools.partial(fn_inv, **kwargs))
+        return coord.construct_ray_warps(self.raydist_fn, rays.near, rays.far)
 
     def _anneal(self, train_frac):
         """Proposal-logit sharpening over training (Schlick's bias curve)."""
@@ -147,7 +167,11 @@ class ProposalVolumeSampler(Configurable, nn.Module, unported=dict(
         use_surface = mesh is not None and use_mesh
 
         _, s_to_t = self._ray_warps(rays, use_raydist_fn)
-        init_s_near, init_s_far = 0.0, 1.0
+        # The near edge of the normalized domain, annealed open from
+        # near_anneal_init toward 0 early in training.
+        init_s_far = 1.0
+        init_s_near = 0.0 if self.near_anneal_rate is None else float(np.float32(min(
+            max(1 - float(train_frac) / self.near_anneal_rate, 0.0), self.near_anneal_init)))
         sdist = torch.cat([torch.full_like(rays.near, init_s_near),
                            torch.full_like(rays.far, init_s_far)], dim=-1)
         resample_weights = torch.ones_like(rays.near)
@@ -193,6 +217,19 @@ class ProposalVolumeSampler(Configurable, nn.Module, unported=dict(
                 gaussians = render.cast_rays(
                     tdist, rays.origins, rays.directions, rays.radii, self.ray_shape, diag=False)
 
+            if self.disable_integration:
+                gaussians = (gaussians[0], torch.zeros_like(gaussians[1]))
+            if self.use_sample_network and is_last:
+                # The final level's points moved by the network's offsets.
+                ones = torch.ones_like(gaussians[0])
+                offsets = self.sample_net(
+                    train_frac, gaussians[0].reshape(-1, 3),
+                    (rays.origins[..., None, :] * ones).reshape(-1, 3),
+                    (rays.viewdirs[..., None, :] * ones).reshape(-1, 3),
+                    (rays.cam_idx[..., None, :1] * torch.ones_like(ones[..., :1])).reshape(-1, 1))
+                gaussians = (gaussians[0] + offsets["point_offset"].reshape(gaussians[0].shape),
+                             gaussians[1])
+
             key, rng = torchutil.random_split(rng)
             keep_graph = proposal_grad or is_last or not self.stop_level_grad
             with torch.set_grad_enabled(torch.is_grad_enabled() and keep_graph):
@@ -202,13 +239,16 @@ class ProposalVolumeSampler(Configurable, nn.Module, unported=dict(
                                   **render_kwargs)
 
             means = gaussians[0]
-            if self.use_density_radius and is_secondary and is_last:
-                ray_results["density"] = torch.where(
-                    torch.linalg.norm(means, dim=-1) > self.density_radius,
-                    torch.zeros_like(ray_results["density"]), ray_results["density"])
+            self._filter_last_level(ray_results, rays, means, is_secondary and is_last, is_last)
             ray_results["points"] = means
             ray_results["means"] = means
             ray_results["covs"] = gaussians[1]
+            if self.use_far_field_radius:
+                far = torch.linalg.norm(means, dim=-1, keepdim=True) > self.far_field_radius
+                for k in ("means", "points"):
+                    ray_results[k] = torch.where(
+                        far, ref_utils.l2_normalize(ray_results[k]) * self.far_field_radius * 2.0,
+                        ray_results[k])
 
             # Rectified normals: flip sign so surfaces face the camera.
             rectified = {}
@@ -222,6 +262,20 @@ class ProposalVolumeSampler(Configurable, nn.Module, unported=dict(
                 ray_results["density"], tdist, rays.directions,
                 opaque_background=self.opaque_background)
             resample_weights = weights
+            uniform = self.use_uniform_radius and (
+                not self.use_uniform_radius_secondary_only or is_secondary)
+            r = torch.linalg.norm(means, dim=-1)
+            if self.normalize_weights:
+                weights = weights / (weights.sum(dim=-1, keepdim=True) + 1e-8)
+            elif uniform and self.normalize_uniform_weights:
+                # The mass the samples beyond the radius miss, spread over them.
+                beyond = r > self.uniform_radius
+                inside = torch.where(r < self.uniform_radius, weights,
+                                     torch.zeros_like(weights)).sum(-1, keepdim=True)
+                outside = weights.sum(-1, keepdim=True) - inside
+                n_out = beyond.sum(-1, keepdim=True)
+                spread = (((1.0 - inside) - outside) / torch.clamp(n_out, min=1.0)).detach()
+                weights = torch.where(beyond & (n_out > 0), weights + spread, weights)
             if use_surface:
                 weights = torch.ones_like(weights)  # the surface sample is certain
             elif mesh is not None:
@@ -247,8 +301,56 @@ class ProposalVolumeSampler(Configurable, nn.Module, unported=dict(
             if (stopgrad_proposal and not is_last) or stopgrad_samples:
                 ray_results = {k: (v.detach() if isinstance(v, torch.Tensor) else v)
                                for k, v in ray_results.items()}
+            if uniform:
+                # Secondary rays resample the far field uniformly: the next
+                # level's weights beyond the radius share what lies outside.
+                beyond = r > self.uniform_radius
+                inside = torch.where(r < self.uniform_radius, resample_weights,
+                                     torch.zeros_like(resample_weights)).sum(-1, keepdim=True)
+                n_out = beyond.sum(-1, keepdim=True)
+                resample_weights = torch.where(
+                    beyond & (n_out > 0),
+                    (torch.ones_like(resample_weights) - inside) / torch.clamp(n_out, min=1.0),
+                    resample_weights)
             ray_history.append(ray_results)
 
         for results in ray_history:
             results["lossmult"] = rays.lossmult
         return ray_history
+
+    def _filter_last_level(self, ray_results, rays, means, secondary_last, is_last):
+        """The last level's normal-radius stop-gradient and, for secondary
+        rays, its density filters: beyond a radius, outside the camera's
+        vertical or horizontal field of view, or behind the camera."""
+        zero = lambda: torch.zeros_like(ray_results["density"])  # noqa: E731
+        if self.use_normal_radius and is_last:
+            far = torch.linalg.norm(means, dim=-1, keepdim=True) > self.normal_radius
+            for k in ("normals", "normals_pred", "normals_to_use"):
+                if ray_results.get(k) is not None:
+                    ray_results[k] = torch.where(far, ray_results[k].detach(), ray_results[k])
+        if not secondary_last:
+            return
+        if self.use_density_radius:
+            ray_results["density"] = torch.where(
+                torch.linalg.norm(means, dim=-1) > self.density_radius, zero(),
+                ray_results["density"])
+        to_means = means - rays.cam_origins[..., None, :] if (
+            self.use_vertical_filter or self.use_horizontal_filter
+            or self.use_backwards_filter) else None
+
+        def angle_about(axis):
+            y = torch.abs(math.dot(to_means, axis, keepdims=False))
+            return torch.atan2(y, torch.linalg.norm(to_means, dim=-1))
+
+        up = rays.up[..., None, :]
+        if self.use_vertical_filter:
+            ray_results["density"] = torch.where(angle_about(up) > self.vertical_fov, zero(),
+                                                 ray_results["density"])
+        if self.use_horizontal_filter:
+            right = torch.linalg.cross(up.expand(rays.look[..., None, :].shape),
+                                       rays.look[..., None, :], dim=-1)
+            ray_results["density"] = torch.where(angle_about(right) > self.horizontal_fov,
+                                                 zero(), ray_results["density"])
+        if self.use_backwards_filter:
+            dotprod = math.dot(to_means, rays.look[..., None, :], keepdims=False)
+            ray_results["density"] = torch.where(dotprod < 0, zero(), ray_results["density"])

@@ -10,13 +10,16 @@ and raise.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from neural_radiance_caching_tpu_torch.engine import gin_config as gin
 from neural_radiance_caching_tpu_torch.models import grids
-from neural_radiance_caching_tpu_torch.models.layers import Configurable, Embed, SkipMLP
+from neural_radiance_caching_tpu_torch.models.layers import (Configurable, Dense, Embed, SkipMLP,
+                                                            init_kernel_)
 from neural_radiance_caching_tpu_torch.ops import coord, math, render_utils
 from neural_radiance_caching_tpu_torch.utils import torchutil
 
@@ -30,7 +33,7 @@ SL_RELIGHT_GAP = (
 
 
 class BaseShader(Configurable, nn.Module, unported=dict(
-        weight_init="he_uniform", min_deg_point=0, max_deg_point=4, basis_shape="icosahedron",
+        min_deg_point=0, max_deg_point=4, basis_shape="icosahedron",
         basis_subdivisions=2, backfacing_target="normals_to_use",
         backfacing_noise_rate=float("inf"))):
     """Base class for the shaders (radiance cache, material, light sampler, SLF)."""
@@ -41,6 +44,10 @@ class BaseShader(Configurable, nn.Module, unported=dict(
     affine_density_feature = False
     backfacing_near = 0.1
 
+    # The kernel initializer of the layers JAX builds with its dense factory
+    # (every he_uniform Dense of the shader; the explicit zero-initialised
+    # heads and the modules of other shaders keep theirs).
+    weight_init = "he_uniform"
     net_activation = staticmethod(F.relu)
     net_depth = 8
     net_width = 256
@@ -68,6 +75,37 @@ class BaseShader(Configurable, nn.Module, unported=dict(
     backfacing_noise = 0.0
     normals_target = "normals_to_use"
     use_bf16_compute = False
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        init = cls.__dict__.get("__init__")
+        if init is None:
+            return
+
+        @functools.wraps(init)
+        def wrapped(self, *args, **kw):
+            init(self, *args, **kw)
+            if type(self).__init__ is wrapped:  # the most derived constructor is done
+                self._apply_weight_init()
+
+        cls.__init__ = wrapped
+
+    def _apply_weight_init(self):
+        """Refill the shader's own he_uniform Dense kernels (in its layer
+        lists and MLPs, not in its child shaders, grids or lights) with
+        ``weight_init``."""
+        if self.weight_init == "he_uniform":
+            return
+
+        def walk(module):
+            for child in module.children():
+                if isinstance(child, Dense):
+                    if child.kernel_init == "he_uniform":
+                        init_kernel_(child.weight, self.weight_init)
+                elif isinstance(child, (SkipMLP, nn.ModuleList, nn.Sequential)):
+                    walk(child)
+
+        walk(self)
 
     def __init__(self, config=None, **kwargs):
         nn.Module.__init__(self)

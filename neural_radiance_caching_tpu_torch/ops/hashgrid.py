@@ -8,7 +8,11 @@ scatter-add over all levels (``ops/scatter_cuda.py``: a CUDA kernel for CUDA
 tensors, its plain ``index_add_`` version for CPU tensors). The layout of that
 scatter follows the JAX encoder: below ``PLANES_MIN_POINTS`` sampled points
 the leveled kernel (taps-fastest update rows), at secondary-ray fan-outs the
-planes kernel (point-minor tap planes); ``use_planes_layout`` decides. With
+planes kernel (point-minor tap planes); ``use_planes_layout`` decides. The
+multisamples of a point are reduced by their mean, concatenated
+(``"concat"``: [..., L, M*F], its backward always the leveled kernel with
+one cotangent row per point and multisample) or kept (None: [..., M, L*F],
+forward only, as in JAX). With
 ``scatter_dedup`` the leveled backward first sums each run of equal rows
 along the point axis onto the run's last update and scatters only those
 (``_dedup_weighted_scatter``, the skip-zero-weight kernel instance).
@@ -172,13 +176,18 @@ def _gather_features(rows, weights, hash_tables, dense_pool, table_size, dense_o
 
 
 def _reduce_multisamples(f_plf, batch_shape, m, multisample_reduce):
-    """[P*M, L, F] per-(point, multisample) features -> [..., L*F], the mean
-    over multisamples (the one reduction the cache slice uses)."""
-    if multisample_reduce != "mean":
-        raise NotImplementedError(f"multisample_reduce={multisample_reduce!r} is not ported yet")
+    """[P*M, L, F] per-(point, multisample) features -> the encoder's output:
+    "mean" [..., L*F] (the mean over multisamples), "concat" [..., L, M*F]
+    (level-major, then multisample, then feature), None [..., M, L*F]."""
     num_levels, nf = f_plf.shape[-2:]
     f = f_plf.reshape(batch_shape + (m, num_levels, nf))
-    return f.mean(dim=-3).reshape(batch_shape + (num_levels * nf,))
+    if multisample_reduce == "mean":
+        return f.mean(dim=-3).reshape(batch_shape + (num_levels * nf,))
+    if multisample_reduce == "concat":
+        return f.movedim(-3, -2).reshape(batch_shape + (num_levels, m * nf))
+    if multisample_reduce is None:
+        return f.reshape(batch_shape + (m, num_levels * nf))
+    raise ValueError(f"Unknown multisample_reduce {multisample_reduce}")
 
 
 def _multires_grid_encode_torch(x, hash_tables, dense_pool, *, grid_sizes, table_size,
@@ -206,7 +215,8 @@ def _multires_grid_encode_torch(x, hash_tables, dense_pool, *, grid_sizes, table
 
 
 # Point count (points x multisamples) from which the 'mean' backward takes the
-# plane-layout scatter, as the JAX encoder's threshold of the same value.
+# plane-layout scatter, as the JAX encoder's threshold of the same value;
+# the 'concat' backward always takes the leveled scatter, as JAX's does.
 PLANES_MIN_POINTS = 1 << 20
 
 
@@ -327,13 +337,17 @@ class _GridEncode(torch.autograd.Function):
          scatter_fn, planes_fn, scatter_dedup) = ctx.statics
         batch_shape, m = ctx.shape_info
         num_levels = len(grid_sizes)
+        if multisample_reduce is None:
+            raise NotImplementedError(
+                "the encoder's backward with multisample_reduce=None: the JAX encoder's "
+                "custom VJP raises there too (ops/hashgrid.py:561)")
 
         d_grad = h_grad = None
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             # One scatter over all levels (one kernel launch per backward).
             # The mean over multisamples hands each (point, multisample) 1/m
-            # of the point's cotangent.
-            nf = ct.shape[-1] // num_levels
+            # of the point's cotangent; concat hands each its own slice.
+            nf = ct.shape[-1] // (m if multisample_reduce == "concat" else num_levels)
             corners = rows.shape[2]
             num_rows, heights = _scatter_shape(rows, dense_pool, table_size, dense_offsets)
             w = weights.to(torch.float32)
@@ -351,8 +365,13 @@ class _GridEncode(torch.autograd.Function):
             else:
                 # Update rows [L, points * U] (taps fastest) and cotangent
                 # rows [L, points, F].
-                ct_pm = (ct.reshape(batch_shape + (1, num_levels, nf)) / m).expand(
-                    batch_shape + (m, num_levels, nf)).reshape(-1, num_levels, nf)
+                if multisample_reduce == "concat":
+                    # [..., L, M*F] -> one cotangent row per (point, multisample).
+                    ct_pm = ct.reshape(batch_shape + (num_levels, m, nf)).movedim(-3, -2)
+                else:
+                    ct_pm = (ct.reshape(batch_shape + (1, num_levels, nf)) / m).expand(
+                        batch_shape + (m, num_levels, nf))
+                ct_pm = ct_pm.reshape(-1, num_levels, nf)
                 args = (rows.permute(1, 0, 2).reshape(num_levels, -1).contiguous(),
                         w.permute(1, 0, 2).reshape(num_levels, -1).contiguous(),
                         ct_pm.permute(1, 0, 2).to(torch.float32).contiguous())

@@ -344,3 +344,69 @@ def interp(x, xp, fp):
 
 def average_across_multisamples(x):
     return torch.mean(x, dim=-2)
+
+
+def concat_across_multisamples(x):
+    """[..., M, F] -> [..., M * F], multisample-major."""
+    return x.reshape(x.shape[:-2] + (x.shape[-2] * x.shape[-1],))
+
+
+class _NanGradToZero(torch.autograd.Function):
+    """Identity whose gradient goes through nan_to_num."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.nan_to_num(g)
+
+
+def nangrad_to_zero(x):
+    return _NanGradToZero.apply(x)
+
+
+def power_iteration(a_mat, n):
+    """n rounds of power iteration -> (top eigenvalue, eigenvector)."""
+    vec = torch.sum(a_mat, dim=-1) / pymath.sqrt(a_mat.shape[-1])
+    val = None
+    for i in range(n):
+        if i > 0:
+            vec = torch.matmul(a_mat, vec[..., None])[..., 0]
+        val = torch.sqrt(torch.sum(vec**2, dim=-1))
+        vec = vec / val[..., None]
+    return val, vec
+
+
+def cholesky3(a, symmetrize_input=True):
+    """Closed-form 3x3 Cholesky factor built from the safe ops."""
+    if tuple(a.shape[-2:]) != (3, 3):
+        raise ValueError(f"input must be (..., 3, 3), got {tuple(a.shape)}")
+    a11, a12, a13, a21, a22, a23, a31, a32, a33 = torch.unbind(
+        a.reshape(a.shape[:-2] + (9,)), dim=-1)
+    if symmetrize_input:
+        a21 = (a12 + a21) / 2
+        a31 = (a13 + a31) / 2
+        a32 = (a23 + a32) / 2
+    l11 = safe_sqrt(a11)
+    l21 = safe_div(a21, l11)
+    l22 = safe_sqrt(a22 - safe_div(a21, l11) ** 2)
+    l31 = safe_div(a31, l11)
+    l32 = safe_div(a32 - l31 * l21, l22)
+    l33 = safe_sqrt(a33 - safe_div(a31**2, a11) - safe_div(a32 - l31 * l21, l22) ** 2)
+    z = torch.zeros_like(a11)
+    return torch.stack([l11, z, z, l21, l22, z, l31, l32, l33], dim=-1).reshape(a.shape)
+
+
+def safe_cholesky(a, symmetrize_input=True):
+    """Cholesky factor with NaN gradients zeroed and NaN values replaced
+    (the closed form for 3x3 inputs)."""
+    a = nangrad_to_zero(a)
+    if tuple(a.shape[-2:]) == (3, 3):
+        out = cholesky3(a, symmetrize_input=symmetrize_input)
+    else:
+        if symmetrize_input:
+            a = (a + a.transpose(-1, -2)) / 2
+        out = torch.linalg.cholesky_ex(a)[0]
+    return torch.nan_to_num(out)

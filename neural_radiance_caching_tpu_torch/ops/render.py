@@ -130,7 +130,9 @@ def volumetric_rendering(
     rendering = {}
 
     acc = weights_no_filter.sum(dim=-1)
-    bg_w = torch.clamp(1 - acc[..., None], min=0)
+    # maximum, not clamp: at an opacity of exactly 1 (weights normalised to
+    # sum to one) the gradient splits between the two sides, as JAX's does.
+    bg_w = torch.maximum(1 - acc[..., None], torch.zeros_like(acc[..., None]))
     rendering["rgb"] = (
         (weights[..., None] * rgbs).sum(dim=-2) + bg_w * bg_rgbs if rgbs is not None else None
     )

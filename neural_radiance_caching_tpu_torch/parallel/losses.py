@@ -190,6 +190,9 @@ def compute_data_loss(batch, rendering, rays, config, main=False, transient=Fals
             "compute_data_loss raises there too (TypeError: mul got incompatible shapes for "
             "broadcasting, parallel/losses.py:293); the frequency-iToF configs run only "
             "where 2 x their pairs + 1 equals Config.n_bins") from None
+    if "bg_noise" in rendering and not transient:
+        # A random background's share of the render, which it must not keep.
+        data_loss = data_loss + (rendering["bg_noise"] ** 2) * masks
     sub_loss = (lossmult * data_loss).mean()
     stats["mses"].append(mse * config.data_loss_mult)
     return sub_loss, {k: torch.stack(v) for k, v in stats.items()}

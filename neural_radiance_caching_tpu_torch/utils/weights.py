@@ -13,7 +13,12 @@ material model's (``Cache/...``, with the SLF memory ``Cache/SurfaceLightFieldMe
 ``LightSampler/...``, ``MaterialShader/...``;
 the transient one's ``MaterialShader/LightSource/...`` is the learnable
 light, with its ``layer_mult_{i}`` and ``output_layer_mult`` Dense layers;
-``VignetteMap/layer_{i}`` and ``VignetteMap/output_layer`` the vignette).
+``VignetteMap/layer_{i}`` and ``VignetteMap/output_layer`` the vignette;
+the sampler's ``SampleNetwork/layer_{i}`` and ``output_layer``; an
+integrator's colour network ``Integrator/layer_{i}`` and ``output_layer``;
+a density MLP's ``normals_offset_layer``; the triplane's
+``triplane_grid_features_2d`` and the factored grid's
+``grid_features_1d/_2d/_appearance``).
 Every leaf maps to exactly one key and every key must be filled; a leaf left
 over raises. JAX ``Dense`` kernels
 ``[in, out]`` become torch weights ``[out, in]``; the hash and dense tables
@@ -46,6 +51,7 @@ _FIXED = {
     "Integrator": "integrator",
     "SurfaceLightField": "surface_lf",
     "SurfaceLightFieldMem": "surface_lf_mem",
+    "SampleNetwork": "sample_net",
     "VignetteMap": "vignette_map",
     "appearance_grid": "grid",
     "density_grid": "grid",
@@ -71,13 +77,21 @@ def _torch_component(name):
     return name
 
 
+# Modules whose `layer_{i}` are a plain list `layer` (not the surface light
+# field's named layers).
+_LAYER_LIST_OWNERS = ("VignetteMap", "SampleNetwork", "Integrator")
+
+
 def torch_key(path):
     """JAX parameter-tree path components (without the leading 'params') -> state_dict key."""
-    if path and path[0] == "VignetteMap":
-        # Its `layer_{i}` are a plain list, not the surface light field's.
-        return ".".join(["vignette_map"] + [re.sub(r"_(\d+)$", r".\1", p) if p != "kernel"
-                                            else "weight" for p in path[1:]])
-    return ".".join(_torch_component(p) for p in path)
+    out = []
+    for i, p in enumerate(path):
+        m = re.fullmatch(r"layer_(\d+)", p)
+        if m and i > 0 and path[i - 1] in _LAYER_LIST_OWNERS:
+            out.append(f"layer.{m[1]}")
+        else:
+            out.append(_torch_component(p))
+    return ".".join(out)
 
 
 _REVERSE = {
@@ -89,6 +103,7 @@ _REVERSE = {
     "surface_lf": "SurfaceLightField",
     "surface_lf_mem": "SurfaceLightFieldMem",
     "vignette_map": "VignetteMap",
+    "sample_net": "SampleNetwork",
 }
 # The JAX name of a `grid` by the JAX name of its owner.
 _GRID_BY_OWNER = {"LightSampler": "light_grid", "MaterialShader": "material_grid",
@@ -113,7 +128,9 @@ def jax_path(key, material=True):
             i += 1  # the SLF's layers are named by themselves
             continue
         if nxt is not None and nxt.isdigit():
-            out.append(f"{c}_{nxt}")
+            owner = out[-1] if out else ""
+            out.append(f"layer_{nxt}" if c == "layer" and owner in _LAYER_LIST_OWNERS
+                       else f"{c}_{nxt}")
             i += 2
             continue
         if c == "shader":

@@ -153,11 +153,12 @@ def test_explicit_keywords_win_and_subclasses_take_their_own_bindings():
 
 
 def test_unported_field_raises_naming_it():
-    from neural_radiance_caching_tpu_torch.models import geometry
+    from neural_radiance_caching_tpu_torch.models import geometry, material_shader
 
-    geometry.DensityMLP(config=tconfigs.Config(), use_feature_filter=False)
-    with pytest.raises(NotImplementedError, match="use_feature_filter"):
-        geometry.DensityMLP(config=tconfigs.Config(), use_feature_filter=True)
+    kw = dict(config=tconfigs.Config(), density_feature_dim=8, use_grid=False)
+    assert material_shader.BaseMaterialMLP.material_type == "microfacet"
+    with pytest.raises(NotImplementedError, match="material_type"):
+        material_shader.MaterialMLP(material_type="phong", **kw)
     with pytest.raises(TypeError, match="no field"):
         geometry.DensityMLP(config=tconfigs.Config(), not_a_field=1)
 
