@@ -364,7 +364,8 @@ Phases, one line each (any failure exits nonzero):
      Config.cast_rays_in_train_step = True (the Newton solve on the card in
      every step), 3 timed steps each: the writing's seconds, the loading's
      wall seconds and JPEG decodes, next_train host ms, step ms, rays/s,
-     peak GiB, no kernel launch, one held-out view; then the flagship cache
+     peak GiB, no kernel launch, one held-out view (the second run's, cast
+     from Pixels on the host; the first run evaluates none); then the flagship cache
      model (flagship.py, batch 8192) on the scene's batches cast in the
      step: 3 steps with every leveled call held against its plain version,
      5 timed, then 5 on batches cast on the host, 1 leveled launch per step
@@ -426,6 +427,28 @@ Phases, one line each (any failure exits nonzero):
      and its bound; then the full-width set-A cache step at 8192 (1 planes
      launch per step) and set-B material step at 1536, a checked step and
      3 warmup + --trainer-steps timed each (launches_by_path sampling_*).
+ 46. material options: the visible-normal GGX sampler, the Gaussian pyramid,
+     the mip-NeRF 360 proposal loss and the per-point and global BRDF
+     corrections, the card against the CPU at full-width shapes; narrow
+     steps GPU vs CPU (noise floor, two planted faults) of the flagship
+     material model under option set C (the anisotropic BRDF correction,
+     reparam_roughness, emission with a window and variate weights, MIS off
+     under a stratified generator, stopgrad_light=False,
+     resample_cache=False, the emission, maximum_radiance and extra_ray
+     losses: 4 leveled + 2 planes calls) and set C' (residual albedo with
+     its loss, one diffuse lobe, a constant material, material_correlation
+     by its weights), of the flagship cache under set D (rawnerf under the
+     combined and norm scalings, the non-spline interlevel loss, the
+     eikonal loss on every level, normalize_weight, debug_mode; no kernel)
+     and with two micro-steps of gradient accumulation on two batches,
+     each clipped (2 leveled calls; the update's mean gradient also held
+     against the two batches' steps alone, averaged, on the card), and of
+     the transient cache under a two-scale Gaussian pyramid; the
+     steady shader without indirect lobes raising as JAX fails; then the
+     full-width set-C material step at 1536, the set-D cache step with
+     accumulation at 8192 (2 micro-steps per update) and the pyramid's
+     transient cache step at 2048 x 700 bins, a checked step and 3 warmup +
+     --trainer-steps timed each (launches_by_path material_options_*).
 Every evaluation through the trainer (phases 20-38, 42-44) scores LPIPS on
 the card beside PSNR and SSIM, and phase 34's hotdog material stage
 renders the secondary-ray probe (256 x 512) at its evaluation.
@@ -2434,14 +2457,14 @@ def phase_trainer_reference(torch, device, seed):
                 faults={f: v for f, (v, _) in faults.items()}, tol=tol, launches=n_gpu["leveled"])
 
 
-def _entry_point_run(torch, args, resume_args, ckpt, warmup, steps, patches=()):
+def _entry_point_run(torch, args, resume_args, ckpt, warmup, steps, patches=(), evaluate=True):
     """train_with_trainer.main(args) in-process with a host clock (ending in
     a sync) around the steps after `warmup`, the launch counts and the peak
     memory of that run (with `patches`, (object, {attribute: value}) pairs,
     set for its length); then, unless `resume_args` is None,
     train_with_trainer.main(resume_args), which must resume the checkpoint
-    the first run wrote and take no step; then one test view through
-    log_test_set_evaluation."""
+    the first run wrote and take no step; then, unless `evaluate` is
+    False, one test view through log_test_set_evaluation."""
     import os
 
     from neural_radiance_caching_tpu_torch import train_with_trainer
@@ -2497,10 +2520,12 @@ def _entry_point_run(torch, args, resume_args, ckpt, warmup, steps, patches=()):
         log_after = open(os.path.join(ckpt, "train_log.jsonl")).read().splitlines()
         resume_ok = resumed.state.step == total and len(log_after) == len(log)
         del resumed
-    t0 = time.perf_counter()
-    metrics = trainer.log_test_set_evaluation(total, 1.0)
-    torch.cuda.synchronize()
-    eval_s = time.perf_counter() - t0
+    metrics = eval_s = None
+    if evaluate:
+        t0 = time.perf_counter()
+        metrics = trainer.log_test_set_evaluation(total, 1.0)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
     return dict(trainer=trainer, step_s=dt, wall=wall, launches=launches, peak_gib=peak_gib,
                 log=log, losses=losses, saved=saved, resume_ok=resume_ok, metrics=metrics,
                 eval_s=eval_s, total=total,
@@ -4651,17 +4676,19 @@ def _hotdog_vis_only(torch, device, data_dir, tmp, batch, trained_steps):
 def _disk_entry_runs(torch, device, label, runs, written, seed, steps, smi, tmp):
     """`runs`, (scene, train_one_stage arguments, batches to try, the run it
     warm-starts from, launches per step by kernel as a function of the batch
-    and the trainer, timed steps or None for `steps`, extra bindings[, loss
-    terms that must be NaN, as the JAX package computes them]),
+    and the trainer, timed steps or None for `steps`, extra bindings[,
+    options: `nan_terms`, the loss terms that must be NaN, as the JAX
+    package computes them; `held_out=False`, no held-out view]),
     through the train_with_trainer entry point as train_one_stage builds its
     command, in-process, reading the scene `written[scene]` holds (its
     loader and near plane by `_disk_bindings`), each at
     the largest of its batches that fits, 3 warmup + the timed steps (the
     launch counts set to 0 before and read after): the loading's wall
     seconds, decode and resize seconds per call and host GiB, ms per step,
-    rays/s, peak GiB, launches per step, one held-out view's PSNR; then one
-    step with every scatter call held against its plain version. No resume
-    run (phases 20-32 hold it). Returns the readings by run."""
+    rays/s, peak GiB, launches per step, one held-out view's PSNR (unless
+    `held_out=False`); then one step with every scatter call held against
+    its plain version. No resume run (phases 20-32 hold it). Returns the
+    readings by run."""
     import gc
     import os
 
@@ -4669,8 +4696,10 @@ def _disk_entry_runs(torch, device, label, runs, written, seed, steps, smi, tmp)
     from neural_radiance_caching_tpu_torch.engine import gin_config
 
     warmup, results, ckpts = 3, {}, {}
-    for scene, argv, batches, warm_from, expected, timed_steps, extra, *nan_terms in runs:
-        nan_terms = tuple(nan_terms[0]) if nan_terms else ()
+    for scene, argv, batches, warm_from, expected, timed_steps, extra, *options in runs:
+        options = options[0] if options else {}
+        nan_terms = tuple(options.get("nan_terms", ()))
+        held_out = options.get("held_out", True)
         stage = argv[argv.index("-t") + 1]
         timed = timed_steps or steps
         cut = []
@@ -4691,7 +4720,8 @@ def _disk_entry_runs(torch, device, label, runs, written, seed, steps, smi, tmp)
                 # The probe runs at the evaluation after the run's train loop.
                 with _patched(capture_cls, **capture):
                     run = _entry_point_run(torch, args, None, ckpt, warmup, timed,
-                                           (_timed_loading(load), _timed_next_train(load)))
+                                           (_timed_loading(load), _timed_next_train(load)),
+                                           evaluate=held_out)
                 break
             except torch.cuda.OutOfMemoryError as e:
                 cut.append(_out_of_memory(torch, f"{label} ({scene} {stage})", batch, e))
@@ -4721,7 +4751,7 @@ def _disk_entry_runs(torch, device, label, runs, written, seed, steps, smi, tmp)
               and bool(torch.isfinite(stats["loss"])) != bool(nan_terms)
               and len(calls) == sum(per_step.values())
               and all(c["ok"] for c in calls) and checked_launches == _launch_counts(**per_step)
-              and math.isfinite(metrics["psnr"]) and _lpips_ok(metrics))
+              and (not held_out or (math.isfinite(metrics["psnr"]) and _lpips_ok(metrics))))
         n_params = sum(p.numel() for p in trainer.model.parameters())
         name = f"{scene}_{stage}"
         print(f"{label} ({name}): train_with_trainer {' '.join(argv)} "
@@ -4735,9 +4765,10 @@ def _disk_entry_runs(torch, device, label, runs, written, seed, steps, smi, tmp)
               f"and present={finite}" + (f" ({', '.join(nan_terms)} NaN, as in JAX)"
                                          if nan_terms else "")
               + f" {losses}; checkpoint step {run['saved']}; kernel launches="
-              f"{run['launches']} (expected {per_step or 'none'} per step); held-out view "
-              f"{run['view']}: psnr={metrics['psnr']:.2f} {_lpips_text(metrics)} "
-              f"in {run['eval_s']:.2f}s" + (
+              f"{run['launches']} (expected {per_step or 'none'} per step); "
+              + (f"held-out view {run['view']}: psnr={metrics['psnr']:.2f} "
+                 f"{_lpips_text(metrics)} in {run['eval_s']:.2f}s" if held_out
+                 else "no held-out view") + (
                   f" (the secondary-ray probe from the pixel 0.3 across and 0.6 down: "
                   f"{probe['shape'][0]}x{probe['shape'][1]} rays through the cache, "
                   f"{probe['keys']} outputs finite={probe['finite']} in {probe['s']:.2f}s)"
@@ -4754,8 +4785,8 @@ def _disk_entry_runs(torch, device, label, runs, written, seed, steps, smi, tmp)
             peak_gib=run["peak_gib"], batch=batch, cut=cut, steps=timed, warmup=warmup,
             params=n_params, load=load, launches_by_kernel={
                 k: run["launches"][k] for k in ("leveled", "planes")},
-            launches_per_step_by_kernel=per_step, eval_view=run["view"],
-            eval_psnr=metrics["psnr"], eval_lpips=metrics["lpips"],
+            launches_per_step_by_kernel=per_step, eval_view=run["view"] if held_out else None,
+            eval_psnr=metrics and metrics["psnr"], eval_lpips=metrics and metrics["lpips"],
             eval_s=run["eval_s"], entry_point_s=run["wall"], probe=probe or None,
             losses=losses, max_abs_err_by_kernel={
                 k: max(c["max_abs_err"] for c in calls if c["kind"] == k) for k in per_step})
@@ -6664,10 +6695,15 @@ def _colmap_flagship(torch, device, seed, data_dir, smi):
 
 # Phase 42's runs, as `_disk_entry_runs` takes them: ngp_yobo.gin's cache
 # stage on the scene at batch 8192, its rays cast on the host, then cast in
-# the step; 3 timed steps each, no kernel launch.
+# the step; 3 timed steps each, no kernel launch. One held-out view, the
+# second run's (30.0 and 26.6 s each at this size): both runs train the
+# same weights (the same losses to the last digit in every call so far),
+# and the second casts its view from Pixels, a path no other run takes,
+# where the first's comes cast by the loader, as in every other disk run.
 COLMAP_RUNS = (
     ("colmap_garden", ("-c", "ngp_yobo", "-t", "cache"), (8192,), None,
-     lambda batch, trainer: {}, 3, (f"Config.factor = {COLMAP_FACTOR}",)),
+     lambda batch, trainer: {}, 3, (f"Config.factor = {COLMAP_FACTOR}",),
+     dict(held_out=False)),
     ("colmap_garden_in_step", ("-c", "ngp_yobo", "-t", "cache"), (8192,), None,
      lambda batch, trainer: {}, 3, (f"Config.factor = {COLMAP_FACTOR}",
                                     "Config.cast_rays_in_train_step = True")),
@@ -6691,7 +6727,8 @@ def phase_colmap_train(torch, device, seed, smi, tmp):
     views = f"{n} views of {w}x{h} JPEG in images_4/"
     written = dict(data_dir=data_dir, write_s=time.perf_counter() - t0, gib=nbytes / 2**30,
                    files=files, views=views, pose_err=pose_err)
-    print(f"colmap train: wrote mip-NeRF 360's layout (garden's factor-4 size: {views} (4:2:0, "
+    print(f"colmap train: wrote mip-NeRF 360's layout (garden's factor-4 size: {views} "
+          f"(4:2:0, "
           f"quality 95), sparse/0 with one OPENCV camera of {COLMAP_FACTOR * w}x"
           f"{COLMAP_FACTOR * h}, rendered on the card through the distorted cameras): {files} "
           f"files, {nbytes / 2**30:.3f} GiB in {written['write_s']:.1f}s", flush=True)
@@ -6731,7 +6768,7 @@ MULTI_ILLUM_RUNS = (
                   "material_light_from_scratch_resample_multi_illum", "--sample_factor", "8",
                   "--render_chunk_size", "1024"), (1024, 512, 256),
      "open_egg_cache_multi_illum", _open_material_launches, None,
-     ("Config.test_factor = 8",) + MULTI_ILLUM_BINDINGS, MULTI_ILLUM_NAN_TERMS),
+     ("Config.test_factor = 8",) + MULTI_ILLUM_BINDINGS, dict(nan_terms=MULTI_ILLUM_NAN_TERMS)),
 )
 
 
@@ -7511,9 +7548,11 @@ def _grid_params(kind):
 def _model_step(torch, device, seed, build, batch, fault=None, fault_kind="planes",
                 checked=None, planes_min=SAMPLING_PLANES_MIN_POINTS):
     """One train step of the model `build(device)` returns, (model, config),
-    on `device`; the draws from a CPU generator, so both devices see the
-    same numbers; a fault planted in the `fault_kind` kernel, or every call
-    of both kernels held against its plain version (`checked`)."""
+    on `device` (`batch` a tuple of batches: one micro-step of gradient
+    accumulation on each, and the gradients read are the mean the update
+    took); the draws from a CPU generator, so both devices see the same
+    numbers; a fault planted in the `fault_kind` kernel, or every call of
+    both kernels held against its plain version (`checked`)."""
     from neural_radiance_caching_tpu_torch.ops import hashgrid, scatter_cuda
     from neural_radiance_caching_tpu_torch.parallel import train
 
@@ -7530,30 +7569,48 @@ def _model_step(torch, device, seed, build, batch, fault=None, fault_kind="plane
         patch = {}
     with _patched(hashgrid, PLANES_MIN_POINTS=planes_min), _patched(scatter_cuda, **patch):
         rng = torch.Generator().manual_seed(seed + 45)
-        _, stats = train.create_train_step(model, cfg)(rng, state, batch.to(device), 0.5)
+        step = train.create_train_step(model, cfg)
+        micro = batch if isinstance(batch, tuple) else (batch,)
+        for b in micro:
+            state, stats = step(rng, state, b.to(device), 0.5)
+    if len(micro) > 1 and not (state.step == len(micro) and state.grad_accum is None):
+        raise AssertionError(f"{len(micro)} micro-steps left step {state.step} and an "
+                             "accumulator")
     losses = {k: float(torch.as_tensor(v).detach()) for k, v in stats["losses"].items()}
     grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu()
              for k, p in model.named_parameters()}
     return losses, grads, {k: scatter_cuda.launches[k] - before[k] for k in before}
 
 
+# A loss term of a narrow step on the card is held relative to its CPU value
+# or this, the larger: a term under it is float32 noise (set D's eikonal term
+# reads ~1e-16, its normals being unit vectors in both packages).
+LOSS_FLOOR = 1e-9
+
+
 def _model_gpu_vs_cpu(torch, device, seed, build, batch, launches, tol, fault_kind="planes",
                       exclude=(), chaotic_above=None, planes_min=SAMPLING_PLANES_MIN_POINTS):
-    """`_model_step` on the card against the CPU: every loss term, every
-    gradient leaf (each hash level its own; but those in `exclude`, which no
-    loss reaches) against the
+    """`_model_step` on the card against the CPU (`batch` a batch, or a
+    tuple of micro-step batches): every loss term, every gradient leaf
+    (each hash level its own; but those in `exclude`, which no loss
+    reaches) against the
     limit `tol`, bracketed by the CPU's noise floor (the origins +-1 ulp)
     and two faults planted in the `fault_kind` kernel (none where the step
     launches no kernel); the card's calls held against their plain version
-    and `launches` {kind: count} pinned. The readings, with `ok`."""
-    origins = batch.rays.origins
+    and `launches` {kind: count} pinned; a loss term is held relative to
+    its CPU value or LOSS_FLOOR, the larger. The readings, with `ok`."""
     step = functools.partial(_model_step, planes_min=planes_min)
     l_cpu, g_cpu, n_cpu = step(torch, "cpu", seed, build, batch)
     keys = [k for k in g_cpu if k not in exclude]
     leaf_floor = {}
+
+    def nudge(b, side):
+        o = b.rays.origins
+        return b.replace(rays=b.rays.replace(origins=torch.nextafter(o, torch.full_like(o, side))))
+
     for side in (float("inf"), float("-inf")):
-        nudged = batch.replace(rays=batch.rays.replace(
-            origins=torch.nextafter(origins, torch.full_like(origins, side))))
+        nudged = (tuple(nudge(b, side) for b in batch) if isinstance(batch, tuple)
+                  else nudge(batch, side))
         for k, v in _grad_errs(step(torch, "cpu", seed, build, nudged)[1], g_cpu).items():
             leaf_floor[k] = max(v, leaf_floor.get(k, 0.0))
     # Leaves (hash levels) whose own floor passes `chaotic_above` (by default
@@ -7565,7 +7622,7 @@ def _model_gpu_vs_cpu(torch, device, seed, build, batch, launches, tol, fault_ki
     floor = held[floor_at]
     checked = []
     l_gpu, g_gpu, n_gpu = step(torch, device, seed, build, batch, checked=checked)
-    loss_errs = {k: abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-30) for k in l_cpu}
+    loss_errs = {k: abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), LOSS_FLOOR) for k in l_cpu}
 
     def worst(g):
         errs = {k: v for k, v in _grad_errs(g, g_cpu).items() if k in held}
@@ -7591,7 +7648,9 @@ def _model_gpu_vs_cpu(torch, device, seed, build, batch, launches, tol, fault_ki
 
 
 def _model_text(r):
-    return (f"loss rel_err max={r['loss_rel_err']:.3e} (tol 1e-3) grad rel_l2_err max="
+    worst_loss = max(r["loss_rel_errs"], key=r["loss_rel_errs"].get)
+    return (f"loss rel_err max={r['loss_rel_err']:.3e} at {worst_loss} (tol 1e-3) grad "
+            f"rel_l2_err max="
             f"{r['grad_rel_l2_err']:.3e} at {r['grad_err_at']} (tol {r['tol']}; noise floor, "
             f"cpu vs cpu with origins +-1 ulp: {r['noise_floor']:.3e} at {r['noise_floor_at']}; "
             + (", ".join(f"planted {f}: {v:.3e} at {r['fault_at'][f]}"
@@ -7783,20 +7842,29 @@ def phase_sampling_kernels(torch, device, seed):
     return dict(concat=concat, mean=mean)
 
 
-def _sampling_train_run(torch, device, seed, steps, smi, build, batch_size, per_step, label):
-    """The full-width model `build()` returns on SyntheticSpheres (8 views at
-    128^2): one step with every scatter call held against its plain
-    version, 3 warmup + `steps` timed; step ms, peak GiB, launches."""
+def _sampling_train_run(torch, device, seed, steps, smi, build, batch_size, per_step, label,
+                        micro=1, views=(8, 128)):
+    """The full-width model `build()` returns on SyntheticSpheres (`views`:
+    8 views at 128^2): one step with every scatter call held against its
+    plain version, 3 warmup + `steps` timed; step ms, peak GiB, launches.
+    A step is `micro` calls of the train step (the micro-steps of one
+    update under gradient accumulation), and `per_step` counts per update."""
     from neural_radiance_caching_tpu_torch.data import datasets
     from neural_radiance_caching_tpu_torch.ops import scatter_cuda
     from neural_radiance_caching_tpu_torch.parallel import train
 
     torch.manual_seed(seed)
     model, config = build()
-    dataset = datasets.SyntheticSpheres("train", None, config, num_images=8, resolution=128,
-                                        device=device)
+    dataset = datasets.SyntheticSpheres("train", None, config, num_images=views[0],
+                                        resolution=views[1], device=device)
     state, _ = train.create_optimizer(config, model)
-    train_step = train.create_train_step(model, config)
+    micro_step = train.create_train_step(model, config)
+
+    def train_step(rng, state, batch, train_frac):
+        for _ in range(micro):
+            state, stats = micro_step(rng, state, batch, train_frac)
+        return state, stats
+
     rng = torch.Generator(device=device).manual_seed(seed + 45)
     batches = [dataset.next_train() for _ in range(8)]
     warmup, calls = 3, []
@@ -7821,15 +7889,18 @@ def _sampling_train_run(torch, device, seed, steps, smi, build, batch_size, per_
     per_kind = {k: sum(c["kind"] == k for c in calls) for k in per_step}
     ok = (finite and launches == {k: v * (warmup + steps) for k, v in per_step.items()}
           and per_kind == per_step and all(c["ok"] for c in calls))
-    print(f"sampling train ({label}): batch {batch_size} on SyntheticSpheres 8x128^2: checked "
+    print(f"{label}: batch {batch_size}"
+          + (f" x {micro} micro-steps per update" if micro > 1 else "")
+          + f" on SyntheticSpheres {views[0]}x{views[1]}^2: checked "
           f"step {_checked_text(calls)}; {warmup} warmup + {steps} timed steps: step_ms="
-          f"{dt * 1e3:.2f} rays_per_s={batch_size / dt:.0f} on [{smi}]; peak {peak_gib:.2f} GiB; "
+          f"{dt * 1e3:.2f} rays_per_s={batch_size * micro / dt:.0f} on [{smi}]; peak "
+          f"{peak_gib:.2f} GiB; "
           f"losses finite={finite}; kernel launches={launches} (expected per step {per_step}) "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
-        raise AssertionError(f"the full-width {label} step failed")
-    return dict(step_ms=dt * 1e3, rays_per_s=batch_size / dt, peak_gib=peak_gib,
-                batch=batch_size, steps=steps, warmup=warmup,
+        raise AssertionError(f"the full-width step failed ({label})")
+    return dict(step_ms=dt * 1e3, rays_per_s=batch_size * micro / dt, peak_gib=peak_gib,
+                batch=batch_size, micro_steps=micro, steps=steps, warmup=warmup,
                 launches={k: v for k, v in launches.items() if v},
                 max_abs_err=max(c["max_abs_err"] for c in calls),
                 max_abs_err_by_kernel={k: max(c["max_abs_err"] for c in calls if c["kind"] == k)
@@ -7854,10 +7925,378 @@ def phase_sampling_train(torch, device, seed, steps, smi):
 
     return dict(
         cache=_sampling_train_run(torch, device, seed, steps, smi, cache, SAMPLING_BATCH,
-                                  _SAMPLING_CACHE_LAUNCHES_PER_STEP, "flagship cache, set A"),
+                                  _SAMPLING_CACHE_LAUNCHES_PER_STEP,
+                                  "sampling train (flagship cache, set A)"),
         material=_sampling_train_run(torch, device, seed, steps, smi, material,
                                      SAMPLING_MATERIAL_BATCH, _MATERIAL_LAUNCHES_PER_STEP,
-                                     "flagship material, set B"))
+                                     "sampling train (flagship material, set B)"))
+
+
+# Phase 46: the material shader's options, the remaining data and extra
+# losses, and the train-step options (models/material_shader.py,
+# ops/render_utils.py, ops/stepfun.py, parallel/losses.py, extra_losses.py,
+# train.py). Option set C, on the flagship material model: the anisotropic
+# BRDF correction (the default correction's input and the half and
+# difference vectors), reparam_roughness, emission with a window and variate
+# weights, MIS off under a stratified 2D generator, stopgrad_light=False,
+# resample_cache=False, and the extra losses emission, maximum_radiance and
+# extra_ray (two more material-model forwards along turned view directions,
+# the second without a graph). The per-point and global corrections are
+# held alone, as functions. Set C': the residual albedo with its loss, one
+# diffuse lobe over all secondary samples (separate integration off), one
+# material for the scene, and material_correlation by its weights (0 on the
+# model path, as in JAX: the SLF variate's irradiance_cache never reaches
+# the shader results it reads). The steady shader without indirect lobes
+# raises naming JAX's failure. Set D, on the flagship cache: the rawnerf
+# loss under the combined and norm scalings, the non-spline interlevel
+# loss, the eikonal loss on every level (whose density normals take the
+# plain encoder: no kernel), normalize_weight (0: no model emits the
+# weights it ties) and debug_mode; without the eikonal loss, gradient
+# accumulation over two micro-steps. The transient cache under
+# rawnerf_transient_unbiased with a two-scale Gaussian pyramid.
+OPTIONS_MATERIAL_BATCH = 1536
+OPTIONS_CACHE_BATCH = 8192
+OPTIONS_TRANSIENT_BATCH = 2048
+GAUSS_CONFIG = dict(transient_gauss_sigma_scales=[(1.0, 1.0), (2.0, 0.5)],
+                    transient_gauss_constant_scale=0.5, data_loss_gauss_mult=0.5)
+SET_C_CONFIG = dict(extra_losses={"emission": {"main": {"mult": 1.0}}},
+                    emission_zero_loss_mult=0.1, emission_constant_loss_mult=1.0,
+                    maximum_radiance_loss_weight=0.1, extra_ray_loss_mult=0.5, is_material=True)
+SET_C_PRIME_CONFIG = dict(extra_losses={"residual_albedo": {"main": {"mult": 1.0}}},
+                          material_correlation_weight_albedo=0.1,
+                          material_correlation_weight_other=0.1, is_material=True)
+SET_D_CONFIG = dict(data_loss_type="rawnerf", use_combined_rawnerf=True, use_norm_rawnerf=True,
+                    use_spline_interlevel_loss=False, eikonal_loss_mult=0.1,
+                    eikonal_coarse_loss_mult=0.01, normalize_weight_loss_weight=0.1,
+                    debug_mode=True)
+# Set D without the eikonal loss (so that the final level's encoder takes
+# the kernel) and with two micro-steps per update.
+SET_D_ACCUM_CONFIG = dict({k: v for k, v in SET_D_CONFIG.items() if "eikonal" not in k},
+                          grad_accum_steps=2)
+# Scatter launches per update. Set C: the flagship material step's, twice:
+# the extra rays' forward has its own encoder backwards (the cache's primary
+# samples and the material grid, leveled; its secondary samples, planes),
+# and its debias forward none. Set D with accumulation: the final level's
+# leveled backward in each of the two micro-steps. The transient cache: its
+# final level's.
+_OPTIONS_SET_C_LAUNCHES = {"leveled": 4, "leveled_skip": 0, "planes": 2, "rows": 0}
+_OPTIONS_ACCUM_LAUNCHES = {"leveled": 2, "leveled_skip": 0, "planes": 0, "rows": 0}
+_OPTIONS_TRANSIENT_LAUNCHES = {"leveled": 1, "leveled_skip": 0, "planes": 0, "rows": 0}
+# The function checks: the largest relative error (of the output's largest
+# entry) the card may read against the CPU on the same inputs, each about
+# five times its reading on an H100 (none would pass in half precision).
+# The GGX density's 1 - cos^2 (1 - a^2) cancels at small roughness, where
+# the card's fused multiply-adds round otherwise: the visible-normal pdfs
+# read 8.4e-5 and 3.3e-5, the directions 1.0e-5; lossfun_outer 4.1e-6, the
+# pyramid and the corrections 1.4e-7 to 2.6e-7.
+OPTIONS_FUNCTION_TOLS = {"vndf_directions": 5e-5, "vndf_pdf": 4e-4, "vndf_mis_pdf": 4e-4,
+                         "dtof_to_gauss": 1e-5, "lossfun_outer": 2e-5,
+                         "brdf_correction_per_point": 1e-5, "brdf_correction_global": 1e-5}
+
+
+def _set_c(params):
+    """Option set C on material params."""
+    from neural_radiance_caching_tpu_torch.ops import render_utils
+
+    p = copy.deepcopy(params)
+    p["shader_params"] = dict(
+        p["shader_params"], use_brdf_correction=True, anisotropic_brdf_correction=True,
+        reparam_roughness=True, use_diffuse_emission=True, emission_window_frac=0.8,
+        emission_variate_weight_start=0.5, emission_variate_weight_end=1.0, use_mis=False,
+        stratified_sampling=True, random_generator_2d=render_utils.RandomGenerator2D.create(
+            8, True), stopgrad_light=False, resample_cache=False)
+    return p
+
+
+def _set_c_prime(params):
+    """Option set C' on material params."""
+    p = copy.deepcopy(params)
+    p["shader_params"] = dict(p["shader_params"], use_residual_albedo=True,
+                              separate_integration_diffuse_specular=False,
+                              use_constant_material=True)
+    return p
+
+
+def _set_d(params):
+    """Set D's density normals on every level of cache params (the eikonal
+    loss reads them)."""
+    p = copy.deepcopy(params)
+    sp = p["sampler_params"]
+    sp["mlp_params_per_level"] = tuple(dict(m, disable_density_normals=False,
+                                            normals_for_filter_only=False)
+                                       for m in sp["mlp_params_per_level"])
+    return p
+
+
+def _steady_indirect_off_raises(torch):
+    """MaterialMLP.use_indirect=False raises at construction, naming JAX's
+    failure (its irradiance left the float 0.0)."""
+    from neural_radiance_caching_tpu_torch import flagship
+
+    params = _narrow_material()
+    params["shader_params"] = dict(params["shader_params"], use_indirect=False)
+    try:
+        flagship.build_flagship_material_model(flagship.material_config(batch_size=16), params,
+                                               device="cpu")
+    except NotImplementedError as e:
+        return "reference gap" in str(e) and "'reshape'" in str(e)
+    return False
+
+
+def _rel_err(got, want):
+    got, want = got.detach(), want.detach()
+    return float((got.float().cpu() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+def phase_material_options_functions(torch, device, seed):
+    """Phase 46's new functions alone, the card against the CPU on the same
+    inputs at full-width shapes: the visible-normal GGX sampler's
+    directions and pdfs (1536 x 32 draws), the Gaussian pyramid of the
+    flagship transient's residual (2048 rays x 700 bins), the mip-NeRF 360
+    proposal loss (8192 rays, 32 against 64 intervals), and the per-point
+    and global BRDF corrections (1536 points x 16 samples)."""
+    from neural_radiance_caching_tpu_torch import flagship
+    from neural_radiance_caching_tpu_torch.engine.configs import Config
+    from neural_radiance_caching_tpu_torch.models import material_shader
+    from neural_radiance_caching_tpu_torch.ops import render_utils, stepfun
+
+    gen = torch.Generator().manual_seed(seed + 46)
+
+    def dirs(shape):
+        d = torch.randn(shape + (3,), generator=gen)
+        d[..., 2] = d[..., 2].abs() + 0.05
+        return d / d.norm(dim=-1, keepdim=True)
+
+    errs = {}
+    shape = (OPTIONS_MATERIAL_BATCH, 32)
+    u1, u2 = (torch.rand(shape, generator=gen) * 0.98 + 0.01 for _ in range(2))
+    wo, wi = dirs(shape), dirs(shape)
+    alpha = torch.rand(shape + (1,), generator=gen) * 0.85 + 0.05
+    sampler = render_utils.MicrofacetSampler(sample_visible=True)
+    ref = sampler.sample_directions(None, u1, u2, wo, alpha, None, {})
+    got = sampler.sample_directions(None, u1.to(device), u2.to(device), wo.to(device),
+                                    alpha.to(device), None, {})
+    errs["vndf_directions"] = _rel_err(got[0], ref[0])
+    errs["vndf_pdf"] = _rel_err(got[1], ref[1])
+    errs["vndf_mis_pdf"] = _rel_err(
+        sampler.pdf(wo.to(device), wi.to(device), alpha.to(device), {}),
+        sampler.pdf(wo, wi, alpha, {}))
+
+    x = torch.randn((OPTIONS_TRANSIENT_BATCH, flagship.TRANSIENT_N_BINS, 3), generator=gen)
+    scales = GAUSS_CONFIG["transient_gauss_sigma_scales"]
+    errs["dtof_to_gauss"] = _rel_err(
+        render_utils.dtof_to_gauss(x.to(device), scales, 0.5),
+        render_utils.dtof_to_gauss(x, scales, 0.5))
+
+    def stepfn(n):
+        t = torch.sort(torch.rand((OPTIONS_CACHE_BATCH, n + 1), generator=gen), dim=-1).values
+        w = torch.rand((OPTIONS_CACHE_BATCH, n), generator=gen)
+        return t, w / w.sum(dim=-1, keepdim=True)
+
+    (t, w), (t_env, w_env) = stepfn(32), stepfn(64)
+    errs["lossfun_outer"] = _rel_err(
+        stepfun.lossfun_outer(*(a.to(device) for a in (t, w, t_env, w_env))),
+        stepfun.lossfun_outer(t, w, t_env, w_env))
+
+    n = 16
+    feature = torch.randn((OPTIONS_MATERIAL_BATCH, 1, 64), generator=gen)
+    samples = {k: dirs((OPTIONS_MATERIAL_BATCH, n)) for k in (
+        "local_viewdirs", "local_lightdirs", "global_viewdirs", "global_lightdirs")}
+    for form in ("per_point", "global"):
+        torch.manual_seed(seed)
+        shader = material_shader.MaterialMLP(
+            config=Config(), density_feature_dim=8, use_grid=False, bottleneck_width=64,
+            net_width_brdf=64, use_brdf_correction=True, **{f"{form}_brdf_correction": True})
+        want = shader.get_brdf_correction(feature, samples, n)
+        shader.to(device)
+        got = shader.get_brdf_correction(feature.to(device),
+                                         {k: v.to(device) for k, v in samples.items()}, n)
+        errs[f"brdf_correction_{form}"] = _rel_err(got, want)
+    torch.cuda.synchronize()
+    ok = sorted(errs) == sorted(OPTIONS_FUNCTION_TOLS) and all(
+        v <= OPTIONS_FUNCTION_TOLS[k] for k, v in errs.items())
+    print("material options functions: the card against the CPU on the same inputs, relative "
+          "max error: " + ", ".join(f"{k}={v:.3e} (tol {OPTIONS_FUNCTION_TOLS[k]})"
+                                    for k, v in errs.items())
+          + f" {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("a new function disagrees on the card")
+    return errs
+
+
+# The mean gradient of an update under gradient accumulation against its
+# plain version on the card, as a relative L2 per leaf: the same gradients
+# averaged in another order, and the leveled kernel's atomic sums in
+# another order (~1e-7).
+ACCUM_PLAIN_TOL = 1e-4
+
+
+def _accumulation_against_plain(torch, device, seed, build, build_plain, batches):
+    """`_model_step` with a micro-step on each of `batches` on `device`, its
+    mean gradient against its plain version: each batch's step alone
+    (`build_plain`, no accumulation; the step cleans and clips its
+    gradient) from the same weights and the same continuing draws,
+    averaged. A planted fault, the last micro-gradient alone, must read
+    above the limit. The readings, with `ok`."""
+    from neural_radiance_caching_tpu_torch.parallel import train
+
+    rng = torch.Generator().manual_seed(seed + 45)
+    grads, clipped = [], []
+    for b in batches:
+        torch.manual_seed(seed)
+        model, cfg = build_plain(device)
+        state, _ = train.create_optimizer(cfg, model)
+        train.create_train_step(model, cfg)(rng, state, b.to(device), 0.5)
+        grads.append({k: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu()
+                      for k, p in model.named_parameters()})
+        norms = {}
+        for k, g in grads[-1].items():
+            norms[k.split(".")[0]] = norms.get(k.split(".")[0], 0.0) + float(g.square().sum())
+        clipped.append(any(v ** 0.5 > 0.999 * cfg.grad_max_norm for v in norms.values()))
+    plain = {k: sum(g[k] for g in grads) / len(grads) for k in grads[0]}
+    _, accumulated, _ = _model_step(torch, device, seed, build, batches, planes_min=1 << 20)
+    errs = _grad_errs(accumulated, plain)
+    at = max(errs, key=errs.get)
+    fault = max(_grad_errs(grads[-1], plain).values())
+    return dict(ok=errs[at] <= ACCUM_PLAIN_TOL < fault and all(clipped), rel_l2_err=errs[at],
+                at=at, fault=fault, clipped=clipped, tol=ACCUM_PLAIN_TOL)
+
+
+def phase_material_options_reference(torch, device, seed):
+    """Phase 46's reference: narrow steps on the card against the CPU (the
+    path the CPU tests hold against the JAX package): the flagship material
+    model under sets C and C' (planes faults), the flagship cache under set
+    D (no kernel: its density normals take the plain encoder) and under
+    gradient accumulation (two micro-steps on two batches; leveled faults;
+    and its mean gradient against its plain version on the card), the
+    transient cache under the Gaussian pyramid (leveled faults); and the
+    steady shader without indirect lobes raising."""
+    from neural_radiance_caching_tpu_torch import flagship
+    from neural_radiance_caching_tpu_torch.data import datasets
+
+    def material(setter, extra):
+        cfg = flagship.material_config(batch_size=MATERIAL_REF_BATCH, lr_delay_steps=0, **extra)
+        params = setter(_narrow_material())
+        return (lambda dev: (flagship.build_flagship_material_model(cfg, params, device=dev),
+                             cfg)), cfg
+
+    build_c, cfg_c = material(_set_c, SET_C_CONFIG)
+    set_c = _model_gpu_vs_cpu(torch, device, seed, build_c, _sampling_batch(torch, cfg_c),
+                              _OPTIONS_SET_C_LAUNCHES, MATERIAL_GRAD_REL_L2_TOL,
+                              exclude=_MATERIAL_UNREACHED)
+    build_cp, cfg_cp = material(_set_c_prime, SET_C_PRIME_CONFIG)
+    set_cp = _model_gpu_vs_cpu(torch, device, seed, build_cp, _sampling_batch(torch, cfg_cp),
+                               _MATERIAL_LAUNCHES_PER_STEP, MATERIAL_GRAD_REL_L2_TOL,
+                               exclude=_MATERIAL_UNREACHED)
+    indirect_raises = _steady_indirect_off_raises(torch)
+
+    cfg_d = flagship.cache_config(batch_size=SAMPLING_REF_BATCH, lr_delay_steps=0,
+                                  **SET_D_CONFIG)
+    params_d = _set_d(_narrow(flagship.flagship_cache_params()))
+    set_d = _model_gpu_vs_cpu(
+        torch, device, seed,
+        lambda dev: (flagship.build_flagship_cache_model(cfg_d, params_d, device=dev), cfg_d),
+        _sampling_batch(torch, cfg_d), {}, GRAD_REL_L2_TOL)
+    # Two micro-steps on two batches, each micro-gradient clipped per module
+    # to 0.01 (which the narrow model's gradients pass) before the mean.
+    cfg_a = flagship.cache_config(batch_size=SAMPLING_REF_BATCH, lr_delay_steps=0,
+                                  grad_max_norm=0.01, **dict(SET_D_ACCUM_CONFIG, debug_mode=False))
+    params_a = _narrow(flagship.flagship_cache_params())
+    data = datasets.SyntheticSpheres("train", None, cfg_a, num_images=4, resolution=32,
+                                     device="cpu")
+    micro = (data.next_train(), data.next_train())
+
+    def build_a(dev, cfg=cfg_a):
+        return flagship.build_flagship_cache_model(cfg, params_a, device=dev), cfg
+
+    accum = _model_gpu_vs_cpu(torch, device, seed, build_a, micro, {"leveled": 2},
+                              GRAD_REL_L2_TOL, fault_kind="leveled", planes_min=1 << 20)
+    accum_plain = _accumulation_against_plain(
+        torch, device, seed, build_a,
+        functools.partial(build_a, cfg=dataclasses.replace(cfg_a, grad_accum_steps=1)), micro)
+
+    cfg_t = dataclasses.replace(_transient_ref_config(), **GAUSS_CONFIG)
+    params_t = _narrow_transient(False)
+    gauss = _model_gpu_vs_cpu(
+        torch, device, seed,
+        lambda dev: (flagship.build_flagship_transient_cache_model(cfg_t, params_t, device=dev),
+                     cfg_t),
+        _sampling_batch(torch, cfg_t), {"leveled": 1}, TRANSIENT_GRAD_REL_L2_TOL,
+        fault_kind="leveled", exclude=_TRANSIENT_UNREACHED, planes_min=1 << 20)
+
+    terms = {"set_c": ("emission", "extra_ray", "maximum_radiance"),
+             "set_c_prime": ("residual_albedo", "material_correlation"),
+             "set_d": ("eikonal", "normalize_weight", "interlevel_0", "interlevel_1")}
+    runs = dict(set_c=set_c, set_c_prime=set_cp, set_d=set_d)
+    present = all(all(t in runs[r]["losses"] for t in ts) for r, ts in terms.items())
+    ok = (all(r["ok"] for r in (set_c, set_cp, set_d, accum, gauss, accum_plain))
+          and indirect_raises and present and set_cp["losses"]["material_correlation"] == 0.0)
+    print(f"material options reference: narrow flagship material under option set C "
+          f"(anisotropic BRDF correction, reparam_roughness, emission window + variate weights, MIS off with a "
+          f"stratified generator, stopgrad_light=False, resample_cache=False; emission, "
+          f"maximum_radiance and extra_ray losses), batch {MATERIAL_REF_BATCH}, gpu vs cpu: "
+          f"{_model_text(set_c)}; under set C' (residual albedo + its loss, one diffuse lobe, "
+          f"constant material, material_correlation by weight = "
+          f"{set_cp['losses'].get('material_correlation')}): {_model_text(set_cp)}; steady "
+          f"use_indirect=False raises naming JAX's failure={indirect_raises}; narrow flagship "
+          f"cache under set D (rawnerf combined + norm, non-spline interlevel, eikonal on every "
+          f"level, normalize_weight, debug_mode), batch {SAMPLING_REF_BATCH}: "
+          f"{_model_text(set_d)}; with gradient accumulation, 2 micro-steps per update on 2 "
+          f"batches, each clipped to 0.01 per module: {_model_text(accum)}; its mean gradient "
+          f"against its plain version, the two batches' steps alone averaged, on the card: "
+          f"rel_l2_err max={accum_plain['rel_l2_err']:.3e} at {accum_plain['at']} (tol "
+          f"{ACCUM_PLAIN_TOL}; planted, the last micro-gradient alone: "
+          f"{accum_plain['fault']:.3e}, must exceed the tol; micro-gradients clipped "
+          f"{accum_plain['clipped']}) {'ok' if accum_plain['ok'] else 'FAIL'}; narrow "
+          f"transient cache under the two-scale Gaussian pyramid, batch {TRANSIENT_REF_BATCH} x {TRANSIENT_REF_BINS} bins: {_model_text(gauss)}; loss "
+          f"terms present={present}", flush=True)
+    if not ok:
+        raise AssertionError("a material, loss or step option disagrees on the card")
+    strip = lambda r: {k: v for k, v in r.items() if k not in ("ok", "loss_rel_errs")}  # noqa
+    readings = dict(set_c=set_c, set_c_prime=set_cp, set_d=set_d, accumulation=accum,
+                    gauss_pyramid=gauss)
+    return dict(**{k: strip(r) for k, r in readings.items()},
+                accumulation_against_plain=strip(accum_plain),
+                steady_indirect_off_raises=indirect_raises,
+                launches={kind: sum(r["launches"][kind] for r in readings.values())
+                          for kind in ("leveled", "planes")},
+                max_abs_err=max(r["max_abs_err"] for r in readings.values()))
+
+
+def phase_material_options_train(torch, device, seed, steps, smi):
+    """Phase 46's full-width steps: the flagship material model under set C
+    at 1536 (4 leveled + 2 planes launches per step), the flagship cache
+    under set D with two micro-steps per update at 8192 (2 leveled per
+    update; without the eikonal loss), the flagship transient cache with the
+    Gaussian pyramid at 2048 x 700 bins (1 leveled)."""
+    from neural_radiance_caching_tpu_torch import flagship
+
+    def material():
+        config = flagship.material_config(batch_size=OPTIONS_MATERIAL_BATCH, **SET_C_CONFIG)
+        return flagship.build_flagship_material_model(
+            config, _set_c(flagship.flagship_material_params()), device=device), config
+
+    def cache():
+        config = flagship.cache_config(batch_size=OPTIONS_CACHE_BATCH, **SET_D_ACCUM_CONFIG)
+        return flagship.build_flagship_cache_model(
+            config, flagship.flagship_cache_params(), device=device), config
+
+    def transient():
+        config = flagship.transient_config(batch_size=OPTIONS_TRANSIENT_BATCH, **GAUSS_CONFIG)
+        return flagship.build_flagship_transient_cache_model(
+            config, flagship.flagship_transient_cache_params(), device=device), config
+
+    run = functools.partial(_sampling_train_run, torch, device, seed, steps, smi)
+    return dict(
+        material=run(material, OPTIONS_MATERIAL_BATCH, _OPTIONS_SET_C_LAUNCHES,
+                     "material options train (flagship material, set C)"),
+        cache=run(cache, OPTIONS_CACHE_BATCH, _OPTIONS_ACCUM_LAUNCHES,
+                  "material options train (flagship cache, set D with gradient accumulation)",
+                  micro=2),
+        transient=run(transient, OPTIONS_TRANSIENT_BATCH, _OPTIONS_TRANSIENT_LAUNCHES,
+                      "material options train (flagship transient cache, Gaussian pyramid)",
+                      views=(4, 64)))
 
 
 def _profile(torch, train_step, state, rng, batches, path, steps=3):
@@ -7894,7 +8333,7 @@ def main():
                         help="timed transient material train steps of each form (bench, trainer)")
     parser.add_argument("--trainer-steps", type=int, default=3,
                         help="timed steps of each run through the entry point (phases 20-38, "
-                             "42-45)")
+                             "42-46)")
     parser.add_argument("--profile", metavar="FILE",
                         help="also profile train steps and write the op tables to FILE "
                              "(cache), and FILE with .material, .transient, "
@@ -7996,6 +8435,10 @@ def main():
     sampling_reference = phase_sampling_reference(torch, device, args.seed)
     sampling_kernels = phase_sampling_kernels(torch, device, args.seed)
     sampling = phase_sampling_train(torch, device, args.seed, args.trainer_steps, smi)
+    material_options_functions = phase_material_options_functions(torch, device, args.seed)
+    material_options_reference = phase_material_options_reference(torch, device, args.seed)
+    material_options = phase_material_options_train(torch, device, args.seed, args.trainer_steps,
+                                                    smi)
     print(f"phases done in {time.perf_counter() - t_start:.1f}s, build included", flush=True)
 
     csrc = "neural_radiance_caching_tpu_torch/csrc"
@@ -8085,10 +8528,19 @@ def main():
                         "sampling_cache": sampling["cache"]["launches"].get("leveled", 0),
                         "sampling_material": sampling["material"]["launches"].get("leveled", 0)}
     leveled_launches.update(sampling_leveled)
+    material_options_leveled = {
+        "material_options_reference": material_options_reference["launches"]["leveled"],
+        **{f"material_options_{run}": r["launches"].get("leveled", 0)
+           for run, r in material_options.items()}}
+    leveled_launches.update(material_options_leveled)
     sampling_planes = {"sampling_reference": sampling_reference["launches"]["planes"],
                        "sampling_concat_encoder": 0, "sampling_mean_encoder": 1,
                        "sampling_cache": sampling["cache"]["launches"].get("planes", 0),
                        "sampling_material": sampling["material"]["launches"].get("planes", 0)}
+    material_options_planes = {
+        "material_options_reference": material_options_reference["launches"]["planes"],
+        **{f"material_options_{run}": r["launches"].get("planes", 0)
+           for run, r in material_options.items()}}
     real_planes = {f"trainer_real_disk_{run}": r["launches_by_kernel"]["planes"]
                    for run, r in real_runs.items()}
     multi_planes = {f"multi_illum_{run}": r["launches_by_kernel"]["planes"]
@@ -8099,7 +8551,8 @@ def main():
                    **{k: 0 for k in disk_leveled}, **{k: 0 for k in transient_disk_leveled},
                    **{k: 0 for k in real_leveled}, **{k: 0 for k in dp_leveled},
                    **{k: 0 for k in colmap_leveled}, **{k: 0 for k in multi_leveled},
-                   **{k: 0 for k in options_leveled}, **{k: 0 for k in sampling_leveled}}
+                   **{k: 0 for k in options_leveled}, **{k: 0 for k in sampling_leveled},
+                   **{k: 0 for k in material_options_leveled}}
     print(json.dumps({"kernels": [{
         "name": "scatter_add_weighted_leveled",
         "route": "cuda",
@@ -8135,7 +8588,10 @@ def main():
                            options_reference["max_abs_err"], options["patches"]["max_abs_err"],
                            options["mesh"]["max_abs_err"], sampling_reference["max_abs_err"],
                            sampling_kernels["concat"]["max_abs_err"],
-                           sampling["material"]["max_abs_err_by_kernel"]["leveled"]),
+                           sampling["material"]["max_abs_err_by_kernel"]["leveled"],
+                           material_options_reference["max_abs_err"],
+                           *(r["max_abs_err_by_kernel"]["leveled"]
+                             for r in material_options.values())),
         "max_abs_err_by_shape": {"cache": kernel["max_abs_err"],
                                  "material_path": material_err["leveled"],
                                  "transient_path": transient["direct"]["max_abs_err"],
@@ -8188,7 +8644,11 @@ def main():
                                  "sampling_concat_encoder": sampling_kernels["concat"][
                                      "max_abs_err"],
                                  "sampling_material_path": sampling["material"][
-                                     "max_abs_err_by_kernel"]["leveled"]},
+                                     "max_abs_err_by_kernel"]["leveled"],
+                                 "material_options_reference_path": material_options_reference[
+                                     "max_abs_err"],
+                                 **{f"material_options_{run}_path": r["max_abs_err_by_kernel"][
+                                     "leveled"] for run, r in material_options.items()}},
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
         "library_ms": kernel["library_ms"],
@@ -8234,18 +8694,20 @@ def main():
         "replaces": f"{replaces}:364",
         "launches": material["planes"] + sum(baseline_planes.values())
         + sum(disk_planes.values()) + sum(real_planes.values()) + sum(multi_planes.values())
-        + sum(sampling_planes.values()),
+        + sum(sampling_planes.values()) + sum(material_options_planes.values()),
         "launches_by_path": {"cache_train": 0, "material_train": material["planes"],
                              "transient_train": 0, "transient_train_dedup": 0, "gate": 0,
                              "eval_render": 0, "transient_material": 0, "trainer_train": 0,
                              "trainer_material_train": 0, **other_paths, **baseline_planes,
-                             **disk_planes, **real_planes, **multi_planes, **sampling_planes},
+                             **disk_planes, **real_planes, **multi_planes, **sampling_planes,
+                             **material_options_planes},
         "max_abs_err": max(planes["max_abs_err"], material_err["planes"],
                            *(r["max_abs_err_by_kernel"].get("planes", 0.0)
                              for r in [*baseline.values(), *disk_runs.values(),
                                        *real_runs.values(), *multi_runs.values()]),
                            sampling_kernels["mean"]["max_abs_err"],
-                           *(r["max_abs_err_by_kernel"]["planes"] for r in sampling.values())),
+                           *(r["max_abs_err_by_kernel"]["planes"] for r in sampling.values()),
+                           material_options["material"]["max_abs_err_by_kernel"]["planes"]),
         "max_abs_err_by_shape": {"planes_shape": planes["max_abs_err"],
                                  "material_path": material_err["planes"],
                                  **{f"trainer_{run}_path": r["max_abs_err_by_kernel"]["planes"]
@@ -8262,7 +8724,9 @@ def main():
                                     if "planes" in r["max_abs_err_by_kernel"]},
                                  "sampling_mean_encoder": sampling_kernels["mean"]["max_abs_err"],
                                  **{f"sampling_{run}_path": r["max_abs_err_by_kernel"]["planes"]
-                                    for run, r in sampling.items()}},
+                                    for run, r in sampling.items()},
+                                 "material_options_material_path": material_options["material"][
+                                     "max_abs_err_by_kernel"]["planes"]},
         "ms": planes["ms"],
         "plain_ms": planes["plain_ms"],
         "library_ms": planes["library_ms"],
@@ -8321,7 +8785,10 @@ def main():
         "colmap_train": colmap, "multi_illum_reference": multi_reference,
         "multi_illum_train": multi, "options_reference": options_reference,
         "options_train": options, "sampling_reference": sampling_reference,
-        "sampling_train": sampling, "device": smi}}), flush=True)
+        "sampling_train": sampling,
+        "material_options_functions": material_options_functions,
+        "material_options_reference": material_options_reference,
+        "material_options_train": material_options, "device": smi}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,8 +19,10 @@ Every stage of ``configs/trainer.gin`` trains on the steady configs (the
 surface-light-field stages with resampling, ``Trainer.resample`` and
 ``resample_render``: the SLF variate sums one surface point per ray), and
 every stage but the material SLF ones on the transient configs (the JAX
-package's transient cache has no SLF memory). A train step raises naming
-an extra loss that is not ported yet. An evaluation of a transient view
+package's transient cache has no SLF memory). Each step of the loop takes
+``Config.grad_accum_steps`` micro-steps of the train step (times
+``Config.secondary_grad_accum_steps``, that many of them on one batch),
+and a checkpoint keeps the gradient accumulated so far. An evaluation of a transient view
 saves its transient as an h5 file (``data/hdf5.write_h5``) and one time
 slice of it. An evaluation scores PSNR, SSIM and LPIPS (the metric
 harness, built at the first evaluation on the trainer's device) and, under
@@ -681,6 +683,7 @@ class Trainer:
             "model": self.model.state_dict(),
             "optimizer": self.state.optimizer.state_dict(),
             "material": train_lib.is_material_model(self.model),
+            "grad_accum": self.state.grad_accum,
         }
 
     def _setup_checkpointing(self):
@@ -701,6 +704,11 @@ class Trainer:
             self.model.load_state_dict(tree["model"])
             self.state.optimizer.load_state_dict(tree["optimizer"])
             self.state.step = int(tree["step"])
+            accum = tree.get("grad_accum")
+            if accum is not None:
+                params = dict(self.model.named_parameters())
+                accum = {k: v.to(params[k].device) for k, v in accum.items()}
+            self.state.grad_accum = accum
 
         if config.calib_checkpoint:
             source = ckpt_lib.load_params(config.calib_checkpoint)
@@ -975,11 +983,16 @@ class Trainer:
                                                            + config.profile_num_steps):
                         self._stop_profile(profiler, step)
                         profiler = None
-                batch = next(raybatcher)
                 train_frac = float(np.clip((step - 1) / max(1, self.max_steps - 1), 0, 1))
-                with torch.profiler.record_function(
-                        f"train step_num={step * self.grad_accum_steps}"):
-                    self.state, stats = self.train_step(self.rng, self.state, batch, train_frac)
+                for s in range(self.grad_accum_steps):
+                    # With secondary accumulation one batch feeds several
+                    # consecutive micro-steps (their secondary-ray draws).
+                    if s % self.secondary_grad_accum_steps == 0:
+                        batch = next(raybatcher)
+                    with torch.profiler.record_function(
+                            f"train step_num={step * self.grad_accum_steps + s}"):
+                        self.state, stats = self.train_step(self.rng, self.state, batch,
+                                                            train_frac)
 
                 if step % config.gc_every == 0:
                     gc.collect()

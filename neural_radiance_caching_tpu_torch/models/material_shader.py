@@ -40,11 +40,28 @@ and the memory's reuse their rays and sample records, lobe by lobe. Every
 output of the two estimates is kept under ``<key>_cache`` and ``<key>_slf``,
 and the cache's irradiance is the ``irradiance_cache`` output.
 
-Environment maps, BRDF correction, emission, residual albedo, the per-lobe
-path of fresh rays and cone lights are not ported yet and raise. The
-irradiance-cache fields are read by nothing, as in JAX (the irradiance
-cache's output is the SLF variate's), and so is the illumination embedding
-under ``Config.multi_illumination`` (JAX never calls it). A relit render
+The learned BRDF correction (``use_brdf_correction``, JAX's default: a
+2-channel specular / diffuse multiplier from the sorted view and light
+cosines and their dot product, positionally encoded, with the half and
+difference vectors under ``anisotropic_brdf_correction``, and the point's
+feature unless ``global_brdf_correction``; or the feature alone under
+``per_point_brdf_correction``), the diffuse emission head (with its
+window and variate weights) and the residual albedo, ``reparam_roughness``,
+``use_constant_material``, MIS off and the stratified generator, the
+light sampler's gradient (``stopgrad_light=False``), the cache's own
+secondary sampling without resampling (``resample_cache=False``), and the
+per-lobe path of fresh rays (one lobe at a time, which
+``separate_integration_diffuse_specular=False`` and a lobe without samples
+take: a lobe without samples then leaves its outputs the float 0.0, as in
+JAX) follow the JAX shader. The transient shader runs without its indirect
+lobes (``use_indirect=False``). Where JAX itself fails (the phong and
+lambertian decodes, the steady shader without indirect lobes or without a
+diffuse sample, the transient shader's per-lobe path) the port raises
+naming JAX's failure. Environment maps and cone lights are not ported yet
+and raise. The irradiance-cache fields are read by nothing, as in JAX (the
+irradiance cache's output is the SLF variate's), and so is the
+illumination embedding under ``Config.multi_illumination`` (JAX never
+calls it). A relit render
 (``Config.compute_relight_metrics``) and the ground-truth illumination
 under ``Config.multi_illumination`` raise as reference gaps: the JAX
 trainer hands its shader's environment sampler no env map tables. So does
@@ -61,7 +78,7 @@ from neural_radiance_caching_tpu_torch.engine import gin_config as gin
 from neural_radiance_caching_tpu_torch.models import light_sampler as light_sampler_lib
 from neural_radiance_caching_tpu_torch.models import shading
 from neural_radiance_caching_tpu_torch.models.layers import Dense, softplus
-from neural_radiance_caching_tpu_torch.ops import math, render_utils
+from neural_radiance_caching_tpu_torch.ops import coord, math, render_utils
 from neural_radiance_caching_tpu_torch.utils import torchutil
 from neural_radiance_caching_tpu_torch.utils.torchutil import stopgrad_with_weight
 
@@ -150,15 +167,24 @@ def _fuse_lobe_rays(spec_rays, diff_rays, ns):
     return type(spec_rays)(**fields)
 
 
+# The JAX decode's failure under a material type other than microfacet: the
+# shader integrates its lobes as microfacet_* whatever the type.
+_MATERIAL_TYPE_GAP = (
+    "MaterialMLP.material_type={!r} is a reference gap: the JAX shader decodes {} but "
+    "integrates every lobe as microfacet_specular / microfacet_diffuse, whose get_lobe reads "
+    "materials['roughness'] and raises KeyError: 'roughness' (ops/render_utils.py:660, from "
+    "material_shader.py:885) at the first step")
+# The steady shader without a diffuse lobe: its irradiance stays the float 0.0.
+_NO_IRRADIANCE_GAP = (
+    "{} is a reference gap: the steady JAX shader then integrates no diffuse lobe, so "
+    "integrated['irradiance'] stays the float 0.0 that material_shader.py:1065 seeds and "
+    "material_shader.py:1295 raises AttributeError: 'float' object has no attribute "
+    "'reshape' at the first step")
+
+
 class BaseMaterialMLP(shading.BaseShader, unported=dict(
         env_importance_samplers=(("EnvironmentSampler", 1.0),),
-        active_importance_samplers=(("ActiveSampler", 1.0),),
-        material_type="microfacet", use_mis=True, stratified_sampling=False,
-        use_constant_material=False, reparam_roughness=False,
-        anisotropic_brdf_correction=False, per_point_brdf_correction=False,
-        global_brdf_correction=False, emission_window_frac=0.0,
-        emission_variate_weight_start=1.0, emission_variate_weight_end=1.0,
-        deg_brdf=2, deg_brdf_anisotropic=2, stopgrad_light=True, resample_cache=True)):
+        active_importance_samplers=(("ActiveSampler", 1.0),))):
     """BRDF head + secondary rays through the cache; the variants set the
     lighting (passive or active) and the integration table."""
 
@@ -167,6 +193,10 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
     render_num_secondary_samples_diff = 4
     render_num_secondary_samples = 32
     random_generator_2d = render_utils.RandomGenerator2D(1, 1, False)
+    # Passed through to the fan-out, which ignores it as JAX's does: the
+    # generator's own `stratified` decides.
+    stratified_sampling = False
+    use_mis = True
     separate_integration_diffuse_specular = True
     diffuse_sample_fraction = 0.5
     diffuse_importance_sampler_configs = (("cosine", 1),)
@@ -176,11 +206,17 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
     use_indirect = True
     use_active = False
     use_env_map = False
+    material_type = "microfacet"
+    # The material heads' input: points and means zeroed (one material for
+    # the whole scene), metalness 1 and roughness 0.01.
+    use_constant_material = False
     use_constant_fresnel = True
     use_constant_metalness = False
     use_diffuseness = False
     use_mirrorness = False
     use_specular_albedo = False
+    # The roughness head's value r becomes 1 / (r + 1) before the floor.
+    reparam_roughness = False
     min_roughness = 0.04
     default_F_0 = 0.04
     max_F_0 = 1.0
@@ -188,8 +224,18 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
     brdf_activation = None
     brdf_stopgrad = None
     use_brdf_correction = True
+    anisotropic_brdf_correction = False
+    per_point_brdf_correction = False
+    global_brdf_correction = False
+    deg_brdf = 2
+    deg_brdf_anisotropic = 2
     use_diffuse_emission = False
     use_residual_albedo = False
+    # The emission's gradient scale eases from _start to _end over the first
+    # emission_window_frac of training (at once without a window).
+    emission_window_frac = 0.0
+    emission_variate_weight_start = 1.0
+    emission_variate_weight_end = 1.0
     # Declared by the JAX material shaders and read by nothing there (the
     # irradiance cache's output is the SLF variate's, not these fields').
     use_irradiance_cache = False
@@ -216,14 +262,17 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
     rgb_bias_residual_albedo = -1.0
     rgb_irradiance_activation = staticmethod(math.safe_exp)
     rgb_bias_irradiance = 0.0
-    # Secondary rays' directions take the material's gradient unless set.
+    # Secondary rays' directions take the material's (and the light
+    # sampler's) gradient unless set.
     stopgrad_material = True
+    stopgrad_light = True
+    # The cache resamples its samples along the secondary rays.
+    resample_cache = True
     # JAX defines the material shader's illumination embedding and never
     # calls it, so it has no parameter: these fields are read by nothing.
     num_light_features = 64
     use_illumination_feature = False
-    # Read by the BRDF correction and SLF variate paths only; accepted so the
-    # flagship parameters bind unchanged.
+    # The BRDF correction MLP.
     net_width_brdf = 64
     net_depth_brdf = 2
     near_rate = 0.1
@@ -256,9 +305,13 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
     def __init__(self, config=None, density_feature_dim=0, **kwargs):
         super().__init__(config, **kwargs)
         self._check_variant(config)
-        self._require(use_env_map=False, use_brdf_correction=False, use_diffuse_emission=False,
-                      use_residual_albedo=False, separate_integration_diffuse_specular=True,
-                      use_indirect=True)
+        self._require(use_env_map=False)
+        if self.material_type not in ("microfacet", "phong", "lambertian"):
+            raise ValueError(f"Unsupported material type: {self.material_type}")
+        if self.material_type != "microfacet":
+            raise NotImplementedError(_MATERIAL_TYPE_GAP.format(
+                self.material_type, {"phong": "albedo, specular_albedo and specular_exponent",
+                                     "lambertian": "albedo alone"}[self.material_type]))
         if config.multi_illumination and config.use_ground_truth_illumination:
             raise NotImplementedError(
                 "Config.use_ground_truth_illumination under Config.multi_illumination is a "
@@ -277,6 +330,15 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
             self.bottleneck_layer = Dense(feature_dim, self.bottleneck_width, self.compute_dtype)
             feature_dim = self.bottleneck_width
         self.pred_brdf_layer = Dense(feature_dim, 10, self.compute_dtype)
+        # JAX creates each head at its first call, and only under its option.
+        if self.use_diffuse_emission:
+            self.rgb_diffuse_emission_layer = Dense(feature_dim, self.num_rgb_channels,
+                                                    self.compute_dtype)
+        if self.use_residual_albedo:
+            self.rgb_residual_albedo_layer = Dense(feature_dim, self.num_rgb_channels,
+                                                   self.compute_dtype)
+        if self.use_brdf_correction:
+            self._build_brdf_correction(feature_dim)
         if self.optimize_light:
             self.light_power = nn.Parameter(torch.full((1,), float(self.light_power_bias)))
         if config.learnable_light:
@@ -300,6 +362,72 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
 
     def _build_integration_strategy(self):
         raise NotImplementedError
+
+    def _lobe_sizes(self, num_secondary_samples):
+        """{lobe: its secondary samples}: the diffuse fraction of them, the
+        rest specular; all diffuse without separate integration (whose
+        diffuse lobe samples with the specular samplers)."""
+        frac = (self.diffuse_sample_fraction if self.separate_integration_diffuse_specular
+                else 1.0)
+        return {"specular": int(np.round(num_secondary_samples * (1.0 - frac))),
+                "diffuse": int(np.round(num_secondary_samples * frac))}
+
+    def _lobe_samplers(self, comp, train):
+        if comp == "diffuse" and not self.separate_integration_diffuse_specular:
+            comp = "specular"
+        return self._samplers[(comp, bool(train))]
+
+    # --- BRDF correction ---------------------------------------------------------
+
+    def _brdf_input_dim(self):
+        dim = 3 + 3 * 2 * self.deg_brdf
+        if self.anisotropic_brdf_correction:
+            dim += 6 + 6 * 2 * self.deg_brdf_anisotropic
+        return dim
+
+    def _build_brdf_correction(self, feature_dim):
+        """The correction's output layer over the point's feature
+        (per_point_brdf_correction) or over its MLP, whose input is the
+        encoded directions and, unless global_brdf_correction, the feature."""
+        if self.per_point_brdf_correction:
+            self.output_brdf_correction_layer = Dense(feature_dim, 2, self.compute_dtype)
+            return
+        in_dim = self._brdf_input_dim() + (0 if self.global_brdf_correction else feature_dim)
+        layers = []
+        for _ in range(self.net_depth_brdf):
+            layers.append(Dense(in_dim, self.net_width_brdf, self.compute_dtype))
+            in_dim = self.net_width_brdf
+        self.brdf_correction_layers = nn.ModuleList(layers)
+        self.output_brdf_correction_layer = Dense(in_dim, 2, self.compute_dtype)
+
+    def _process_brdf_output(self, x):
+        bias = dict(_DEFAULT_BRDF_BIAS, **(self.brdf_bias or {}))
+        return torch.cat([torch.sigmoid(x[..., 0:1] + bias["specular_multiplier"]),
+                          torch.sigmoid(x[..., 1:2] + bias["diffuse_multiplier"])], dim=-1)
+
+    def get_brdf_correction(self, feature, ref_samples, num_secondary_samples):
+        """The learned (specular, diffuse) multipliers of one lobe's samples
+        [P, S, 2]."""
+        if self.per_point_brdf_correction:
+            out = self._process_brdf_output(self.output_brdf_correction_layer(feature))
+            return out.reshape(-1, 1, out.shape[-1]).repeat_interleave(num_secondary_samples,
+                                                                       dim=-2)
+        lightdirs, viewdirs = ref_samples["local_lightdirs"], ref_samples["local_viewdirs"]
+        cosines = torch.cat([torch.broadcast_to(viewdirs[..., 2:3], lightdirs.shape[:-1] + (1,)),
+                             lightdirs[..., 2:3]], dim=-1)
+        x = torch.cat([torch.sort(cosines, dim=-1).values, math.dot(viewdirs, lightdirs)], dim=-1)
+        x = coord.pos_enc(x, 0, self.deg_brdf, True)
+        if self.anisotropic_brdf_correction:
+            gv, gl = ref_samples["global_viewdirs"], ref_samples["global_lightdirs"]
+            aniso = torch.cat([gv + gl, torch.abs(gv - gl)], dim=-1)
+            x = torch.cat([x, coord.pos_enc(aniso, 0, self.deg_brdf_anisotropic, True)], dim=-1)
+        if not self.global_brdf_correction:
+            pos = feature.reshape(-1, 1, feature.shape[-1]).repeat_interleave(
+                num_secondary_samples, dim=-2)
+            x = torch.cat([x, pos], dim=-1)
+        for layer in self.brdf_correction_layers:
+            x = self.net_activation(layer(x))
+        return self._process_brdf_output(self.output_brdf_correction_layer(x))
 
     def _secondary_material(self, material):
         """The material that samples secondary-ray directions."""
@@ -338,14 +466,23 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
         return material
 
     def _post_process_roughness(self, roughness):
+        if self.reparam_roughness:
+            roughness = 1.0 / (roughness + 1.0)
         return roughness * (1.0 - self.min_roughness**2) + self.min_roughness**2
 
     def _predict_material_and_feature(self, rng, rays, sampler_results, train):
+        if self.use_constant_material:
+            sampler_results = dict(sampler_results, points=torch.zeros_like(
+                sampler_results["points"]), means=torch.zeros_like(sampler_results["means"]))
         pa_kwargs = self.get_predict_appearance_kwargs(rng, rays, sampler_results)
         feature = self.predict_appearance_feature(sampler_results, train=train, **pa_kwargs)
         if self.bottleneck_width > 0:
             feature = self.bottleneck_layer(feature)
-        return feature, self.get_material(self.pred_brdf_layer(feature))
+        material = self.get_material(self.pred_brdf_layer(feature))
+        if self.use_constant_material:
+            material["metalness"] = torch.ones_like(material["metalness"])
+            material["roughness"] = torch.ones_like(material["roughness"]) * 0.01
+        return feature, material
 
     # --- secondary rays ----------------------------------------------------------
 
@@ -427,7 +564,7 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
             out = radiance_cache.cache(
                 rng, type(ref_rays)(**flat), train_frac=train_frac, train=train,
                 compute_extras=False, stopgrad_proposal=False, stopgrad_weights=False,
-                is_secondary=True, linear_rgb=True, resample=True,
+                is_secondary=True, linear_rgb=True, resample=self.resample_cache,
                 sampling_strategy=(self.cache_train_sampling_strategy if train
                                    else self.cache_render_sampling_strategy),
                 radiance_cache=radiance_cache, stopgrad_cache_weight=self.stopgrad_cache_weight,
@@ -460,8 +597,10 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
             rng, rays, sampler_results["points"], rays.viewdirs,
             sampler_results[self.normals_target], material_sec,
             refdir_eps=self._compute_near(train_frac), normal_eps=self.config.secondary_normal_eps,
-            random_generator_2d=self.random_generator_2d, samplers=samplers,
-            num_secondary_samples=num_secondary_samples, light_sampler_results=light_sec,
+            random_generator_2d=self.random_generator_2d,
+            stratified_sampling=self.stratified_sampling, use_mis=self.use_mis,
+            samplers=samplers, num_secondary_samples=num_secondary_samples,
+            light_sampler_results=light_sec,
             offset_origins=mesh is not None, far=self.config.secondary_far)
         shading_w = self.stopgrad_shading_weight
         if self.config.material_loss_radius < float("inf"):
@@ -483,10 +622,11 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
             return (-1, num_secondary_samples, self.num_rgb_channels)
         return (-1, num_secondary_samples, self.config.n_bins, self.num_rgb_channels)
 
-    def _attach_lobe_radiance(self, rgb, rgb_ns, ref_samples, ref_sampler_results,
+    def _attach_lobe_radiance(self, rgb, rgb_ns, ref_samples, ref_sampler_results, feature,
                               num_secondary_samples, direct=False):
         """Reshape the queried radiance and attach it, the per-ray opacity and
-        the (unit) BRDF correction to the lobe's sample records."""
+        the BRDF correction (learned from `feature`, or one) to the lobe's
+        sample records."""
         shape = self._radiance_shape(num_secondary_samples, direct)
         rgb = torch.nan_to_num(rgb).reshape(shape)
         if self.stopgrad_rgb:
@@ -495,9 +635,11 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
         ref_samples = {k: v.reshape(rgb.shape[0], -1, v.shape[-1]) for k, v in ref_samples.items()}
         # The active closure repeats the occlusion over the channels: keep one.
         occ_acc = ref_sampler_results[-1]["acc"].reshape(rgb.shape[0], rgb.shape[1], -1)[..., :1]
-        ref_samples.update(
-            radiance_in=rgb, indirect_occ=occ_acc, radiance_in_no_stopgrad=rgb_ns,
-            brdf_correction=torch.ones_like(ref_samples["local_lightdirs"][..., :2]))
+        correction = (self.get_brdf_correction(feature, ref_samples, num_secondary_samples)
+                      if self.use_brdf_correction
+                      else torch.ones_like(ref_samples["local_lightdirs"][..., :2]))
+        ref_samples.update(radiance_in=rgb, indirect_occ=occ_acc, radiance_in_no_stopgrad=rgb_ns,
+                           brdf_correction=correction)
         return ref_samples
 
     def _integrate_lobe(self, material_type, material, ref_samples, ref_sampler_results, direct,
@@ -529,28 +671,29 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
             outputs[f"{mode}_{comp}_{k}"] = stopgrad_with_weight(torch.nan_to_num(val),
                                                                  stopgrad_weight)
 
-    def _process_indirect_lobes_fused(self, rng, rays, sampler_results, material,
+    def _secondary_light(self, light_sampler_results):
+        """The light sampler's results that sample secondary directions:
+        detached unless stopgrad_light is off."""
+        if light_sampler_results is None or not self.stopgrad_light:
+            return light_sampler_results
+        return {k: v.detach() for k, v in light_sampler_results.items()}
+
+    def _process_indirect_lobes_fused(self, rng, rays, feature, sampler_results, material,
                                       num_secondary_samples, radiance_cache_fn, train_frac, train,
                                       light_sampler_results, integrated_outputs, mesh=None):
         """Both indirect lobes through one radiance query: each keeps its own
         samplers and MIS pdfs, their secondary rays are concatenated along the
         secondary axis and traced in a single cache forward, and the results
         split back per lobe and integrate as two separate queries would."""
-        frac = self.diffuse_sample_fraction
-        lobes = []
-        for comp in ("specular", "diffuse"):
-            n = int(np.round(num_secondary_samples * (frac if comp == "diffuse" else 1.0 - frac)))
-            lobes.append((comp, n, self._samplers[(comp, bool(train))], f"microfacet_{comp}"))
+        sizes = self._lobe_sizes(num_secondary_samples)
+        lobes = [(comp, sizes[comp], self._lobe_samplers(comp, train), f"microfacet_{comp}")
+                 for comp in ("specular", "diffuse")]
         ns = [n for _, n, _, _ in lobes]
-        if min(ns) == 0:
-            raise NotImplementedError("a lobe with no secondary samples (the per-lobe path) "
-                                      "is not ported yet")
         sh = sampler_results["points"].shape
-        # Ray directions take no gradient into the light sampler, nor into the
-        # material under stopgrad_material.
+        # Ray directions take no gradient into the material under
+        # stopgrad_material, nor into the light sampler under stopgrad_light.
         material_sec = self._secondary_material(material)
-        light_sec = (None if light_sampler_results is None
-                     else {k: v.detach() for k, v in light_sampler_results.items()})
+        light_sec = self._secondary_light(light_sampler_results)
 
         key, rng = torchutil.random_split(rng)
         sampled = [self._sample_lobe_rays(key, rays, sampler_results, material_sec, light_sec,
@@ -569,27 +712,38 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
             offset = hi
             srs_l = [{k: v[:, lo:hi] if isinstance(v, torch.Tensor) else v
                       for k, v in level.items()} for level in srs]
-            ref_samples = self._attach_lobe_radiance(rgb[:, lo:hi], rgb_ns[:, lo:hi], rs, srs_l, n)
+            ref_samples = self._attach_lobe_radiance(rgb[:, lo:hi], rgb_ns[:, lo:hi], rs, srs_l,
+                                                     feature, n)
             integrated = self._integrate_lobe(material_type, material, ref_samples, srs_l, False,
                                               sh)
             self._store_lobe(integrated_outputs, "indirect", comp, rr, ref_samples, srs_l,
                              integrated, self.stopgrad_indirect_weight)
 
-    def _process_indirect_lobes_reused(self, rng, sampler_results, material,
-                                       num_secondary_samples, radiance_fn, last, outputs):
-        """Both indirect lobes on the secondary rays and sample records of an
-        earlier estimate (`last`), queried through `radiance_fn` one lobe at
-        a time and integrated (JAX's per-lobe path, which reuse always
-        takes)."""
+    def _process_indirect_lobes(self, rng, rays, feature, sampler_results, material,
+                                num_secondary_samples, radiance_fn, train_frac, train,
+                                light_sampler_results, outputs, mesh=None, last=None):
+        """The indirect lobes one at a time (JAX's per-lobe path): each lobe
+        with samples draws its secondary rays (or takes those of an earlier
+        estimate, `last`), queries them through `radiance_fn` and
+        integrates. A lobe without samples adds nothing, its outputs left
+        to the integration strategy's 0.0."""
         sh = sampler_results["points"].shape
-        frac = self.diffuse_sample_fraction
-        for comp in ("specular", "diffuse"):
-            n = int(np.round(num_secondary_samples * (frac if comp == "diffuse" else 1.0 - frac)))
-            ref_rays = last[f"ref_rays_indirect_{comp}"]
+        material_sec = self._secondary_material(material)
+        light_sec = self._secondary_light(light_sampler_results)
+        for comp, n in self._lobe_sizes(num_secondary_samples).items():
+            if n == 0:
+                continue
+            key, rng = torchutil.random_split(rng)
+            if last is None:
+                ref_rays, ref_samples = self._sample_lobe_rays(
+                    key, rays, sampler_results, material_sec, light_sec,
+                    self._lobe_samplers(comp, train), n, train_frac, mesh)
+            else:
+                ref_rays = last[f"ref_rays_indirect_{comp}"]
+                ref_samples = dict(last[f"ref_samples_indirect_{comp}"])
             key, rng = torchutil.random_split(rng)
             rgb, rgb_ns, srs = radiance_fn(key, ref_rays)
-            ref_samples = self._attach_lobe_radiance(
-                rgb, rgb_ns, last[f"ref_samples_indirect_{comp}"], srs, n)
+            ref_samples = self._attach_lobe_radiance(rgb, rgb_ns, ref_samples, srs, feature, n)
             integrated = self._integrate_lobe(f"microfacet_{comp}", material, ref_samples, srs,
                                               False, sh)
             self._store_lobe(outputs, "indirect", comp, ref_rays, ref_samples, srs, integrated,
@@ -637,7 +791,7 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
 
         return active_fn
 
-    def _process_direct_lobes(self, rng, rays, sampler_results, material, train_frac,
+    def _process_direct_lobes(self, rng, rays, feature, sampler_results, material, train_frac,
                               integrated_outputs, mesh=None):
         """The direct specular and diffuse lobes: one ray per surface point
         toward the light (the active sampler), lit once and integrated under
@@ -645,48 +799,56 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
         sh = sampler_results["points"].shape
         means = sampler_results["means"]
         lights = self._lights(rays.lights, rays.vcam_look, rays.vcam_up)
-        light_sec = {"origins": means[..., None, :].detach(),
-                     "lights": (lights[..., None, None, :]
-                                * torch.ones_like(means[..., None, :])).detach()}
+        light_sec = self._secondary_light(
+            {"origins": means[..., None, :],
+             "lights": lights[..., None, None, :] * torch.ones_like(means[..., None, :])})
         material_sec = self._secondary_material(material)
         ref_rays, ref_samples = self._sample_lobe_rays(
             rng, rays, sampler_results, material_sec, light_sec, self._active_samplers, 1,
             train_frac, mesh)
         rgb, rgb_ns, srs = self._make_active_light_fn(sampler_results)(ref_rays)
-        ref_samples = self._attach_lobe_radiance(rgb, rgb_ns, ref_samples, srs, 1, direct=True)
+        ref_samples = self._attach_lobe_radiance(rgb, rgb_ns, ref_samples, srs, feature, 1,
+                                                 direct=True)
         for comp in ("specular", "diffuse"):
             integrated = self._integrate_lobe(f"microfacet_{comp}", material, ref_samples, srs,
                                               True, sh)
             self._store_lobe(integrated_outputs, "direct", comp, ref_rays, ref_samples, srs,
                              integrated, self.stopgrad_direct_weight)
 
-    def get_outgoing_radiance(self, rng, rays, sampler_results, material, num_secondary_samples,
-                              radiance_cache_fn, train_frac=1.0, train=True,
+    def get_outgoing_radiance(self, rng, rays, feature, sampler_results, material,
+                              num_secondary_samples, radiance_cache_fn, train_frac=1.0, train=True,
                               light_sampler_results=None, last_integrated_outputs=None,
                               mesh=None):
         """All lobes of the outgoing-radiance estimate, combined per the
         integration strategy. last_integrated_outputs: an earlier estimate
         whose indirect lobes' rays and sample records this one reuses.
-        mesh: fresh secondary rays start at their near point."""
+        mesh: fresh secondary rays start at their near point. Fresh split
+        lobes that both have samples share one radiance query; otherwise the
+        lobes run one at a time."""
         out = {k: 0.0 for k in self._integration_strategy}
         key, rng = torchutil.random_split(rng)
-        if last_integrated_outputs is None:
-            self._process_indirect_lobes_fused(
-                key, rays, sampler_results, material, num_secondary_samples, radiance_cache_fn,
-                train_frac, train, light_sampler_results, out, mesh)
-        else:
-            # Only the SLF variate reuses rays, and only a steady cache has an
-            # SLF memory: the direct lobes (the transient shader's) never do.
-            self._process_indirect_lobes_reused(key, sampler_results, material,
-                                                num_secondary_samples, radiance_cache_fn,
-                                                last_integrated_outputs, out)
+        if self.use_indirect:
+            args = (key, rays, feature, sampler_results, material, num_secondary_samples,
+                    radiance_cache_fn, train_frac, train, light_sampler_results, out, mesh)
+            if (last_integrated_outputs is None and self.separate_integration_diffuse_specular
+                    and min(self._lobe_sizes(num_secondary_samples).values()) > 0):
+                self._process_indirect_lobes_fused(*args)
+            else:
+                # Only the SLF variate reuses rays, and only a steady cache has
+                # an SLF memory: the direct lobes (the transient shader's)
+                # never do.
+                self._process_indirect_lobes(*args, last=last_integrated_outputs)
         if self.use_active:
             key, rng = torchutil.random_split(rng)
-            self._process_direct_lobes(key, rays, sampler_results, material, train_frac, out,
-                                       mesh)
+            self._process_direct_lobes(key, rays, feature, sampler_results, material, train_frac,
+                                       out, mesh)
         for output_key, (sub_keys, scale) in self._integration_strategy.items():
+            if "indirect" in output_key and not self.use_indirect:
+                continue
             total = 0.0
             for sub_key, dims in sub_keys:
+                if "indirect" in sub_key and not self.use_indirect:
+                    continue
                 val = out.get(sub_key, 0.0)
                 if isinstance(val, torch.Tensor) and dims:
                     val = val.sum(dim=dims)
@@ -698,18 +860,19 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
     _VARIATE_KEYS = ("radiance_out", "diffuse_radiance_out", "specular_radiance_out",
                      "direct_radiance_out", "indirect_radiance_out", "irradiance")
 
-    def _integrate_slf_variate(self, rng, rays, sampler_results, material, radiance_cache_fn,
-                               surface_lf_fn, train_frac, train, light_sampler_results):
+    def _integrate_slf_variate(self, rng, rays, feature, sampler_results, material,
+                               radiance_cache_fn, surface_lf_fn, train_frac, train,
+                               light_sampler_results):
         """The SLF control variate: the cache's estimate minus the memory's
         on the same secondary rays, at ``num_secondary_samples_diff``; every
         output of each estimate also under ``<key>_cache`` / ``<key>_slf``."""
         n = self.num_secondary_samples_diff if train else self.render_num_secondary_samples_diff
         kw = dict(train_frac=train_frac, train=train, light_sampler_results=light_sampler_results)
         key, rng = torchutil.random_split(rng)
-        cache_out = self.get_outgoing_radiance(key, rays, sampler_results, material, n,
+        cache_out = self.get_outgoing_radiance(key, rays, feature, sampler_results, material, n,
                                                radiance_cache_fn, **kw)
         key, rng = torchutil.random_split(rng)
-        slf_out = self.get_outgoing_radiance(key, rays, sampler_results, material, n,
+        slf_out = self.get_outgoing_radiance(key, rays, feature, sampler_results, material, n,
                                              surface_lf_fn, last_integrated_outputs=cache_out, **kw)
         final = dict(cache_out)
         for k in self._VARIATE_KEYS:
@@ -744,8 +907,11 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
             outputs = {"material_" + k: v for k, v in material.items()}
             self._apply_radius_mask(outputs, sampler_results["means"])
             return outputs
-        emission = torch.zeros_like(material["albedo"])
-        outputs = {"material_residual_albedo": torch.zeros_like(material["albedo"])}
+        emission, residual_albedo = self._emission_and_residual_albedo(feature, material,
+                                                                       train_frac)
+        # JAX writes the residual albedo as material_albedo here, which its
+        # _finalize_outputs then overwrites with the material's albedo.
+        outputs = {"material_residual_albedo": residual_albedo}
         radiance_cache_fn = self._make_radiance_cache_fn(radiance_cache, sampler_results,
                                                          train_frac, train, secondary_proposal_grad,
                                                          mesh)
@@ -755,20 +921,46 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
         key, rng = torchutil.random_split(rng)
         if slf_variate and self.use_surface_light_field:
             integrated = self._integrate_slf_variate(
-                key, rays, sampler_results, material, radiance_cache_fn, surface_lf_fn,
+                key, rays, feature, sampler_results, material, radiance_cache_fn, surface_lf_fn,
                 train_frac, train, light_sampler_results)
         else:
             integrated = self.get_outgoing_radiance(
-                key, rays, sampler_results, material,
+                key, rays, feature, sampler_results, material,
                 self.num_secondary_samples if train else self.render_num_secondary_samples,
                 surface_lf_fn if self.use_surface_light_field else radiance_cache_fn,
                 train_frac=train_frac, train=train, light_sampler_results=light_sampler_results,
                 mesh=mesh)
         final_rgb = integrated["direct_radiance_out" if self.config.use_transient
                                else "radiance_out"]
+        if self.use_diffuse_emission:
+            final_rgb = final_rgb + emission
+        elif self.use_residual_albedo:
+            final_rgb = final_rgb + integrated["irradiance"] * residual_albedo
         self._finalize_outputs(rays, outputs, integrated, final_rgb, material, emission,
                                sampler_results)
         return outputs
+
+    def _emission_and_residual_albedo(self, feature, material, train_frac):
+        """The diffuse emission (its gradient eased by the variate weights
+        over the emission window) and the residual albedo from their heads;
+        zeros where a head is off."""
+        emission = torch.zeros_like(material["albedo"])
+        residual_albedo = torch.zeros_like(material["albedo"])
+        if self.use_diffuse_emission:
+            emission = self.rgb_emission_activation(
+                self.rgb_premultiplier * self.rgb_diffuse_emission_layer(feature)
+                + self.rgb_bias_emission)
+            w = (float(np.clip(np.float32(train_frac) / np.float32(self.emission_window_frac),
+                               0.0, 1.0))
+                 if self.emission_window_frac > 0.0 else 1.0)
+            ew = ((1.0 - w) * self.emission_variate_weight_start
+                  + w * self.emission_variate_weight_end)
+            emission = emission * ew + emission.detach() * (1.0 - ew)
+        if self.use_residual_albedo:
+            residual_albedo = self.rgb_residual_albedo_activation(
+                self.rgb_premultiplier * self.rgb_residual_albedo_layer(feature)
+                + self.rgb_bias_residual_albedo)
+        return emission, residual_albedo
 
     def _finalize_outputs(self, rays, outputs, integrated, final_rgb, material, emission,
                           sampler_results):
@@ -786,7 +978,7 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
         outputs["direct_diffuse_rgb"] = integrated["direct_diffuse_radiance_out"] + emission
         outputs["direct_specular_rgb"] = integrated["direct_specular_radiance_out"]
         outputs["direct_rgb"] = integrated["direct_radiance_out"]
-        if self.config.use_transient:
+        if self.config.use_transient and self.use_indirect:
             tid, tis = render_utils.zero_invalid_bins(
                 integrated["indirect_diffuse_radiance_out"],
                 integrated["indirect_specular_radiance_out"], rays, sampler_results["means"],
@@ -794,10 +986,22 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
             outputs["transient_indirect"] = tid + tis
             outputs["transient_indirect_diffuse"] = tid
             outputs["transient_indirect_specular"] = tis
-        outputs["indirect_diffuse_rgb"] = integrated["indirect_diffuse_radiance_out"]
-        outputs["indirect_specular_rgb"] = integrated["indirect_specular_radiance_out"]
-        outputs["indirect_rgb"] = integrated["indirect_radiance_out"]
-        outputs["indirect_occ"] = integrated["indirect_occ"]
+        elif self.config.use_transient:
+            direct = outputs["direct_diffuse_rgb"]
+            for k in ("transient_indirect", "transient_indirect_diffuse",
+                      "transient_indirect_specular"):
+                outputs[k] = torch.zeros(direct.shape[:-1] + (self.config.n_bins,
+                                                              direct.shape[-1]),
+                                         dtype=direct.dtype, device=direct.device)
+        if self.use_indirect:
+            outputs["indirect_diffuse_rgb"] = integrated["indirect_diffuse_radiance_out"]
+            outputs["indirect_specular_rgb"] = integrated["indirect_specular_radiance_out"]
+            outputs["indirect_rgb"] = integrated["indirect_radiance_out"]
+            outputs["indirect_occ"] = integrated["indirect_occ"]
+        else:
+            for k in ("indirect_diffuse_rgb", "indirect_specular_rgb", "indirect_rgb",
+                      "indirect_occ"):
+                outputs[k] = torch.zeros_like(outputs["direct_rgb"])
         outputs["diffuse_rgb"] = integrated["diffuse_radiance_out"]
         outputs["specular_rgb"] = integrated["specular_radiance_out"]
         for f in integrated:
@@ -834,6 +1038,14 @@ class MaterialMLP(BaseMaterialMLP):
         if config.learnable_light or config.use_transient:
             raise NotImplementedError("learnable lights and transient materials take "
                                       "TransientMaterialMLP")
+        if not self.use_indirect:
+            raise NotImplementedError(_NO_IRRADIANCE_GAP.format("MaterialMLP.use_indirect=False"))
+        for train in (True, False):
+            n = self.num_secondary_samples if train else self.render_num_secondary_samples
+            if self._lobe_sizes(n)["diffuse"] == 0:
+                raise NotImplementedError(_NO_IRRADIANCE_GAP.format(
+                    f"MaterialMLP.diffuse_sample_fraction={self.diffuse_sample_fraction} over {n} "
+                    "secondary samples (a diffuse lobe without samples)"))
 
     def _build_integration_strategy(self):
         return _steady_integration_strategy(self.use_active)
@@ -882,6 +1094,19 @@ class TransientMaterialMLP(BaseMaterialMLP):
                     "0.0, and raises AttributeError: 'float' object has no attribute "
                     "'reshape'"))
         self._require(light_max_angle=0.0)
+        if self.use_indirect and not self.separate_integration_diffuse_specular:
+            raise NotImplementedError(
+                "TransientMaterialMLP.separate_integration_diffuse_specular=False is a reference "
+                "gap: the JAX shader then fills no indirect specular lobe, whose output stays the "
+                "float 0.0, and the transient material integrator raises AttributeError: 'float' "
+                "object has no attribute 'shape' (ops/render.py:445)")
+        if self.use_indirect and self._lobe_sizes(self.num_secondary_samples)["diffuse"] == 0:
+            raise NotImplementedError(
+                f"TransientMaterialMLP.diffuse_sample_fraction={self.diffuse_sample_fraction} "
+                "(a diffuse lobe without samples) is a reference gap: the JAX shader's "
+                "zero_invalid_bins reads the diffuse lobe's output, the float 0.0, and raises "
+                "AttributeError: 'float' object has no attribute 'shape' "
+                "(ops/render_utils.py:1261)")
         if not config.use_transient:
             raise ValueError("TransientMaterialMLP needs Config.use_transient")
         if config.sl_relight:

@@ -54,8 +54,6 @@ from neural_radiance_caching_tpu_torch.utils import torchutil
 # Fields of the JAX ``Model`` whose code paths are not ported; the importance
 # sampler tuples stand as (JAX sampler class name, weight) pairs.
 _MODEL_UNPORTED = dict(
-    random_generator_2d=render_utils.RandomGenerator2D(1, 1, False),
-    uniform_importance_samplers=(("UniformHemisphereSampler", 1.0),),
     active_importance_samplers=(("ActiveSampler", 1.0),),
     resample_argmax=False,
 )
@@ -68,6 +66,10 @@ VOLUME_VARIATE_KEYS = ("rgb", "diffuse_rgb", "specular_rgb", "direct_rgb", "indi
 class Model(Configurable, nn.Module, unported=_MODEL_UNPORTED):
     """Shared base: resampled estimator and secondary-ray bookkeeping."""
 
+    # The 2D generator and samplers of the extra-ray loss's outgoing rays
+    # (parallel/extra_losses.extra_ray_loss).
+    random_generator_2d = render_utils.RandomGenerator2D(1, 1, False)
+    uniform_importance_samplers = ((render_utils.UniformHemisphereSampler(), 1.0),)
     # Importance samplers the JAX model declares and nothing reads.
     uniform_sphere_importance_samplers = (("UniformSphereSampler", 1.0),)
     cosine_importance_samplers = (("CosineSampler", 1.0),)

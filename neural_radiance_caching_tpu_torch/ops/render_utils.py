@@ -1,21 +1,23 @@
 """Secondary-ray machinery of the material stage (counterpart of the part of
 ``ops/render_utils.py`` the steady material path reaches).
 
-Local shading frames, the 2D uniform generator, the cosine, uniform and GGX
-importance samplers with the power-heuristic MIS weights, the active-light
-sampler (the direction toward the light), vMF mixture evaluation, sampling
+Local shading frames, the 2D uniform generator (plain or stratified), the
+cosine, uniform (hemisphere and sphere), identity, mirror and GGX (normal
+or visible-normal) importance samplers with the power-heuristic MIS
+weights, the active-light sampler (the direction toward the light), vMF
+mixture evaluation, sampling
 and filtering with the learned-light sampler, the unbiased vMF-mixture fit
 of the light-sampling loss (``vmf_loss_fn``), the Disney-ish microfacet
-lobe, the secondary-ray fan-out at surface points, the Monte-Carlo
+and Phong lobes, the secondary-ray fan-out at surface points and the
+outgoing rays of the extra-ray loss (``get_outgoing_rays``), the Monte-Carlo
 reflection estimators (steady, and time-binned for the transient material
-shader), the transient causality mask ``zero_invalid_bins`` and the iToF
-projection of transients ``dtof_to_itof``; the samplers over a known
+shader), the transient causality mask ``zero_invalid_bins``, the iToF
+projection of transients ``dtof_to_itof`` and their Gaussian pyramid
+``dtof_to_gauss``; the samplers over a known
 environment map (``EnvironmentSampler`` from its pmf,
 ``QuadratureEnvmapSampler`` on a fixed texel grid) and the env map's
 radiance along rays (``get_environment_color``); the probe's sphere of
-directions (``get_sphere_directions``). Identity, mirror and visible-normal
-samplers, structured light and the Gaussian-pyramid projection of
-transients are not ported yet.
+directions (``get_sphere_directions``). Structured light is not ported.
 
 Every random number comes from ``utils/torchutil`` (``uniform``, ``normal``,
 ``categorical``), in the order the JAX package draws its keys.
@@ -54,6 +56,11 @@ def get_rotation_matrix(normal):
     return torch.stack([new_x, new_y, normal], dim=-1)
 
 
+def reflect_local(wo):
+    """Mirror about the local +z axis."""
+    return torch.stack([-wo[..., 0], -wo[..., 1], wo[..., 2]], dim=-1)
+
+
 def global_to_local(directions, rot):
     return (directions[..., 0:1] * rot[..., 0, :] + directions[..., 1:2] * rot[..., 1, :]
             + directions[..., 2:3] * rot[..., 2, :])
@@ -90,20 +97,53 @@ def get_sphere_directions(height, width, flip=False, device="cpu"):
 
 @dataclasses.dataclass(frozen=True)
 class RandomGenerator2D:
-    """Uniform samples in [0, 1)^2 (the stratified variant is not ported)."""
+    """Uniform samples in [0, 1)^2; stratified, the n samples are spread
+    over a grid of h_blocks x w_blocks cells (n a multiple of both counts:
+    otherwise the shifts do not match the draw, and JAX's broadcast
+    raises)."""
 
     h_blocks: int = 1
     w_blocks: int = 1
     stratified: bool = False
 
-    def __post_init__(self):
-        if self.stratified:
-            raise NotImplementedError("stratified 2D samples are not ported yet")
+    @classmethod
+    def create(cls, n, stratified):
+        h_blocks = int(2 ** np.int32(np.floor((np.log2(n) - 1) / 2.0)))
+        return cls(h_blocks, h_blocks * 2, stratified)
 
     def sample(self, rng, n, device):
-        """(uh, uw), each [n]: the two columns of one [n, 2] uniform draw."""
+        """(uh, uw), each [n]: the two columns of one [n, 2] uniform draw,
+        shifted into their cells when stratified."""
         u = torchutil.uniform(rng, (n, 2), device)
-        return u[..., 0], u[..., 1]
+        uh, uw = u[..., 0], u[..., 1]
+        if self.stratified:
+            f32 = dict(dtype=torch.float32, device=device)
+            h_shifts = torch.linspace(0.0, 1.0, self.w_blocks + 1, **f32)[:-1][None, :].repeat(
+                n // self.w_blocks, 1).flatten()
+            w_shifts = torch.linspace(0.0, 1.0, self.h_blocks + 1, **f32)[:-1][:, None].repeat(
+                1, n // self.h_blocks).flatten()
+            if h_shifts.shape[0] != n or w_shifts.shape[0] != n:
+                raise NotImplementedError(
+                    f"a stratified draw of {n} samples over {self.h_blocks} x {self.w_blocks} "
+                    "blocks is a reference gap: JAX's RandomGenerator2D.sample adds shifts of "
+                    f"{h_shifts.shape[0]} and {w_shifts.shape[0]} entries to {n} draws and raises "
+                    "(ops/render_utils.py:149-161, incompatible shapes for broadcasting)")
+            eps = _F32_EPS
+            uh = torch.clamp(h_shifts + uh / self.w_blocks, 0.0, 1.0 - eps)
+            uw = torch.clamp(w_shifts + uw / self.h_blocks, 0.0, 1.0 - eps)
+        return uh, uw
+
+
+@dataclasses.dataclass(frozen=True)
+class DummySampler2D:
+    """A 2D generator that draws nothing."""
+
+    global_dirs: bool = False
+    return_rgb: bool = False
+    deterministic: bool = False
+
+    def sample(self, *_):
+        return None, None
 
 
 # --- importance samplers -----------------------------------------------------
@@ -129,6 +169,51 @@ class UniformHemisphereSampler:
         return torch.clamp(torch.where(wi[..., 2] < 0, 0.0, pdf), min=0.0)
 
 
+class UniformSphereSampler:
+    """Uniform directions over the whole sphere, world-frame."""
+
+    global_dirs = True
+    return_rgb = False
+
+    def sample_directions(self, rng, u1, u2, wo, alpha, light_idx, kwargs):
+        costheta = 1.0 - 2.0 * u1
+        sintheta = torch.sqrt((1.0 - u1) * 4.0 * u1)
+        phi = u2 * 2.0 * pymath.pi - pymath.pi
+        wi = torch.stack([sintheta * torch.cos(phi), sintheta * torch.sin(phi), costheta], dim=-1)
+        return wi, torch.full_like(phi, 1 / (4.0 * pymath.pi))
+
+    def pdf(self, wo, wi, alpha, kwargs):
+        return torch.full_like(wi[..., 2], 1 / (4.0 * pymath.pi))
+
+
+class IdentitySampler:
+    """The view direction itself, pdf 1."""
+
+    global_dirs = False
+    return_rgb = False
+
+    def sample_directions(self, rng, u1, u2, wo, alpha, light_idx, kwargs):
+        return wo, torch.ones_like(wo[..., 0])
+
+    def pdf(self, wo, wi, alpha, kwargs):
+        return torch.ones_like(wo[..., 0])
+
+
+class MirrorSampler:
+    """The mirror direction of the view about the normal, pdf 1 (and 0 as
+    the MIS density of any direction)."""
+
+    global_dirs = False
+    return_rgb = False
+
+    def sample_directions(self, rng, u1, u2, wo, alpha, light_idx, kwargs):
+        wi = reflect_local(wo)
+        return wi, torch.ones_like(wi[..., 0])
+
+    def pdf(self, wo, wi, alpha, kwargs):
+        return torch.zeros_like(wi[..., 2])
+
+
 class CosineSampler:
     global_dirs = False
     return_rgb = False
@@ -152,15 +237,54 @@ def GGX_D(costheta, a):  # noqa: N802
                               min=_F32_EPS)
 
 
+def GGX_G1(w, a):  # noqa: N802
+    """Smith masking term for GGX: 2 cos / (cos + sqrt(a^2 + (1 - a^2) cos^2))."""
+    cos_t = torch.abs(w[..., 2])
+    return 2.0 * cos_t / torch.clamp(cos_t + torch.sqrt(a**2 + (1.0 - a**2) * cos_t**2),
+                                     min=_F32_EPS)
+
+
 class MicrofacetSampler:
-    """GGX half-vector importance sampler (normal-distribution sampling)."""
+    """GGX half-vector importance sampler: the normal distribution, or with
+    `sample_visible` its visible normals (Heitz 2018)."""
 
     global_dirs = False
     return_rgb = False
 
     def __init__(self, sample_visible=False):
-        if sample_visible:
-            raise NotImplementedError("visible-normal GGX sampling is not ported yet")
+        self.sample_visible = sample_visible
+
+    def _sample_visible_normals(self, u1, u2, wo, alpha):
+        """Microfacet normals drawn in proportion to D(m) G1(wo) max(0, wo.m),
+        with their density over the normals."""
+        eps = _F32_EPS
+        a = torch.broadcast_to(alpha, wo.shape[:-1])[..., None]
+        # Stretch wo into the unit-roughness configuration.
+        vh = math_utils.normalize(torch.cat([a * wo[..., :2], wo[..., 2:]], dim=-1))
+        lensq = vh[..., 0] ** 2 + vh[..., 1] ** 2
+        inv_len = 1.0 / torch.sqrt(torch.clamp(lensq, min=eps))
+        t1 = torch.where((lensq > eps)[..., None],
+                         torch.stack([-vh[..., 1] * inv_len, vh[..., 0] * inv_len,
+                                      torch.zeros_like(inv_len)], dim=-1),
+                         torch.tensor([1.0, 0.0, 0.0], dtype=vh.dtype,
+                                      device=vh.device).expand(vh.shape))
+        t2 = torch.linalg.cross(vh, t1, dim=-1)
+        # A uniform disk sample warped onto the projected hemisphere.
+        r = torch.sqrt(u1)
+        phi = u2 * 2.0 * pymath.pi - pymath.pi
+        p1 = r * torch.cos(phi)
+        p2 = r * torch.sin(phi)
+        s = 0.5 * (1.0 + vh[..., 2])
+        p2 = (1.0 - s) * torch.sqrt(torch.clamp(1.0 - p1**2, min=0.0)) + s * p2
+        nh = (p1[..., None] * t1 + p2[..., None] * t2
+              + torch.sqrt(torch.clamp(1.0 - p1**2 - p2**2, min=0.0))[..., None] * vh)
+        # Unstretch back to the true roughness.
+        ne = math_utils.normalize(torch.cat([a * nh[..., :2], torch.clamp(nh[..., 2:], min=1e-6)],
+                                            dim=-1))
+        alpha_b = a[..., 0]
+        pdf = (GGX_G1(wo, alpha_b) * torch.clamp(torch.sum(wo * ne, dim=-1), min=0.0)
+               * GGX_D(ne[..., 2], alpha_b) / torch.clamp(torch.abs(wo[..., 2]), min=eps))
+        return ne, torch.clamp(pdf, min=0.0)
 
     def sample_normals(self, u1, u2, alpha):
         tantheta2 = alpha**2 * u1 / torch.clamp(1.0 - u1, min=_F32_EPS)
@@ -172,7 +296,10 @@ class MicrofacetSampler:
         return n, torch.clamp(pdf, min=0.0)
 
     def sample_directions(self, rng, u1, u2, wo, alpha, light_idx, kwargs):
-        normals, normal_pdf = self.sample_normals(u1, u2, alpha[..., 0])
+        if self.sample_visible:
+            normals, normal_pdf = self._sample_visible_normals(u1, u2, wo, alpha[..., 0])
+        else:
+            normals, normal_pdf = self.sample_normals(u1, u2, alpha[..., 0])
         wo_dot_n = torch.sum(wo * normals, dim=-1)
         directions = 2.0 * wo_dot_n[..., None] * normals - wo
         pdf = normal_pdf * (1.0 / torch.clamp(4.0 * wo_dot_n, min=_F32_EPS))
@@ -182,8 +309,14 @@ class MicrofacetSampler:
     def pdf(self, wo, wi, alpha, kwargs):
         normals = math_utils.normalize(wo + wi)
         wo_dot_n = torch.sum(wo * normals, dim=-1)
-        jac = 1.0 / torch.clamp(4.0 * wo_dot_n, min=_F32_EPS)
-        pdf = GGX_D(normals[..., 2], alpha[..., 0]) * torch.abs(normals[..., 2]) * jac
+        if self.sample_visible:
+            # D(m) G1(wo) (wo.m) / cos(wo) times the half-vector Jacobian
+            # 1 / (4 wo.m).
+            pdf = (GGX_D(normals[..., 2], alpha[..., 0]) * GGX_G1(wo, alpha[..., 0])
+                   / torch.clamp(4.0 * torch.abs(wo[..., 2]), min=_F32_EPS))
+        else:
+            jac = 1.0 / torch.clamp(4.0 * wo_dot_n, min=_F32_EPS)
+            pdf = GGX_D(normals[..., 2], alpha[..., 0]) * torch.abs(normals[..., 2]) * jac
         pdf = torch.where(wo_dot_n <= 0.0, 0.0, pdf)
         return torch.clamp(pdf, min=0.0)
 
@@ -450,6 +583,9 @@ IMPORTANCE_SAMPLER_BY_NAME = {
     "microfacet": MicrofacetSampler,
     "cosine": CosineSampler,
     "uniform": UniformHemisphereSampler,
+    "uniform_sphere": UniformSphereSampler,
+    "identity": IdentitySampler,
+    "mirror": MirrorSampler,
 }
 
 
@@ -458,14 +594,18 @@ IMPORTANCE_SAMPLER_BY_NAME = {
 
 def get_lobe(wi, wo, normal, materials, brdf_correction, config):
     """The BRDF times n.l in local coordinates: GGX D*F*G/(4 n.v) specular plus
-    Lambertian diffuse, mixed by metalness/diffuseness/mirrorness."""
+    Lambertian diffuse, mixed by metalness/diffuseness/mirrorness; or
+    Lambertian, plus Phong's specular_albedo (r.l)^specular_exponent."""
     if config.shading == "mirror":
         return 1.0
     lobe = 0.0
     if config.shading in ("lambertian", "phong", "blinnphong", "microfacet"):
         lobe = torch.clamp(wi[..., 2:], min=0.0) * materials["albedo"][..., None, :] / pymath.pi
     if config.shading == "phong":
-        raise NotImplementedError("phong shading is not ported yet")
+        refdir = reflect_local(wo)
+        return lobe + materials["specular_albedo"][..., None, :] * torch.clamp(
+            (refdir * wi).sum(-1, keepdim=True), min=0.0) ** materials["specular_exponent"][
+                ..., None, :]
     if "microfacet" not in config.shading:
         return lobe
 
@@ -593,16 +733,20 @@ def importance_sample_rays(rng, global_viewdirs, normal, material, random_genera
 
 
 def get_secondary_rays(rng, rays, means, viewdirs, normals, material, normal_eps=1e-2,
-                       refdir_eps=1e-2, random_generator_2d=None, use_mis=True, samplers=None,
-                       num_secondary_samples=None, light_sampler_results=None,
-                       offset_origins=False, far=None):
+                       refdir_eps=1e-2, random_generator_2d=None, stratified_sampling=False,
+                       use_mis=True, samplers=None, num_secondary_samples=None,
+                       light_sampler_results=None, offset_origins=False, far=None):
     """Fan a Rays batch out into [N, S] secondary rays at surface points.
 
     Origins are offset along the normal; directions come from MIS importance
     sampling. All camera-frame fields are broadcast so the cache sees
     well-formed rays. offset_origins: each ray starts at its near point,
     its near bound then 0. Returns (ref_rays, ref_samples), each [N, S, ...].
+    `stratified_sampling` is read by nothing, as in JAX (whose generator's
+    `sample` ignores the argument it is handed): the generator's own
+    ``stratified`` decides.
     """
+    del stratified_sampling
     n_sec = num_secondary_samples
     ref_origins = means + (normals * normal_eps).detach()
     ref_origins = ref_origins[..., None, :].expand(ref_origins.shape[:-1] + (n_sec, 3))
@@ -641,6 +785,22 @@ def get_secondary_rays(rng, rays, means, viewdirs, normals, material, normal_eps
                                     near=torch.zeros_like(ref_rays.near))
     ref_samples = {k: v.reshape(-1, n_sec, v.shape[-1]) for k, v in ref_samples.items()}
     return ref_rays, ref_samples
+
+
+def get_outgoing_rays(rng, rays, viewdirs, normals, material, random_generator_2d=None,
+                      stratified_sampling=False, use_mis=True, samplers=None,
+                      num_secondary_samples=None):
+    """`rays` with their view directions replaced by directions sampled at
+    `normals` [..., 1, 3] from `samplers` (reversed: each ray looks back
+    along its sampled direction)."""
+    del stratified_sampling
+    global_viewdirs = -viewdirs[..., None, :] * torch.ones_like(normals)
+    material = {k: v.reshape(-1, v.shape[-1]) for k, v in material.items()}
+    ref_samples = importance_sample_rays(
+        rng, global_viewdirs.reshape(-1, 3), normals.reshape(-1, 3), material,
+        random_generator_2d=random_generator_2d, use_mis=use_mis, samplers=samplers,
+        num_secondary_samples=num_secondary_samples)
+    return rays.replace(viewdirs=-ref_samples["global_lightdirs"].reshape(rays.viewdirs.shape))
 
 
 # --- Monte Carlo estimators -----------------------------------------------------
@@ -763,6 +923,42 @@ def dtof_to_itof(dtof_data, frequency_phase_shifts, bin_to_total_dist):
             itof_data.append((w[None, :, None] * dtof_data).sum(dim=-2, keepdim=True))
     itof_data.append(dtof_data.sum(dim=-2, keepdim=True) / 2.0)
     return torch.cat(itof_data, dim=-2).reshape(sh[:-2] + (-1, sh[-1]))
+
+
+def dtof_to_gauss(dtof_data, sigma_scales, constant_scale):
+    """Gaussian-pyramid projections of d-ToF transients [..., bins, C]: per
+    (sigma, scale) the transient convolved along its bins with the taps
+    exp(-k^2 / (2 sigma^2)) - exp(-8), k over round(-4 sigma) ..
+    round(4 sigma), zero-padded to its own length (the "same" part of the
+    full convolution, centred), times the scale; then its sum over the bins
+    times `constant_scale`. [..., S bins + 1, C]."""
+    sh = dtof_data.shape
+    x = dtof_data.reshape(-1, sh[-2], sh[-1])
+    n, bins, c = x.shape
+    rows = x.permute(0, 2, 1).reshape(n * c, 1, bins)
+    conv_data = []
+    for sigma, scale in sigma_scales:
+        lo, hi = round(-4 * sigma), round(4 * sigma)
+        taps = torch.arange(lo, hi + 1, dtype=torch.int32, device=x.device)
+        filt = (torch.exp(-(taps**2).to(torch.float32) / np.float32(2 * sigma**2))
+                - np.float32(np.exp(np.float32(-8.0))))
+        k = filt.shape[0]
+        if k > bins and (n > 1 or c > 1):
+            raise NotImplementedError(
+                f"a Gaussian-pyramid scale of sigma {sigma} ({k} taps) over {bins} time bins is "
+                "a reference gap: JAX's jax.scipy.signal.convolve of the transients "
+                f"{(n, bins, c)} with the filter {(1, k, 1)} raises ValueError: One input must "
+                "be smaller than the other in every dimension (ops/render_utils.py:1249)")
+        # The full convolution's centred `bins` entries: (k - 1) // 2 from its
+        # start, the padding on the left; the kernel is flipped, as a
+        # convolution's is (conv1d correlates).
+        left = (k - 1) // 2
+        full = torch.nn.functional.conv1d(
+            torch.nn.functional.pad(rows, (k - 1, k - 1)), filt.flip(0).reshape(1, 1, k))
+        same = full[..., left:left + bins]
+        conv_data.append(same.reshape(n, c, bins).permute(0, 2, 1) * scale)
+    conv_data.append(x.sum(dim=-2, keepdim=True) * constant_scale)
+    return torch.cat(conv_data, dim=-2).reshape(sh[:-2] + (-1, sh[-1]))
 
 
 def zero_invalid_bins(transient_indirect_diffuse, transient_indirect_specular, rays, means,

@@ -137,6 +137,27 @@ def weighted_percentile(t, w, ps):
     return math.sorted_interp(qs, cw, t)
 
 
+def inner_outer(t0, t1, y1):
+    """The inner and outer measures of the step function (t1, y1) on the
+    intervals t0."""
+    check_stepfun(t1, y1)
+    cy1 = torch.cat([torch.zeros_like(y1[..., :1]), torch.cumsum(y1, dim=-1)], dim=-1)
+    (idx_lo, idx_hi), ((cy1_lo, cy1_hi),) = math.sorted_lookup(t0, t1, (cy1,))
+    y0_outer = cy1_hi[..., 1:] - cy1_lo[..., :-1]
+    y0_inner = torch.where(idx_hi[..., :-1] <= idx_lo[..., 1:],
+                           cy1_lo[..., 1:] - cy1_hi[..., :-1], torch.zeros_like(y0_outer))
+    return y0_inner, y0_outer
+
+
+def lossfun_outer(t, w, t_env, w_env, eps=_F32_EPS):
+    """The proposal loss of mip-NeRF 360: w beyond the envelope's outer
+    measure, squared, over w."""
+    check_stepfun(t, w)
+    check_stepfun(t_env, w_env)
+    _, w_outer = inner_outer(t, t_env, w_env)
+    return torch.clamp(w - w_outer, min=0) ** 2 / (w + eps)
+
+
 def blur_and_resample_weights(tq, t, w, blur_halfwidth):
     """Blur histogram (t, w) with a box of half-width `blur_halfwidth`, re-bin
     to tq. Backs the spline interlevel loss."""

@@ -6,7 +6,16 @@ supervision (``material_ray_sampler``), the material smoothness
 regularizer, the geometry smoothness regularizer (the InvProp cache
 stage's), and the surface light field's distillation from the cache
 (``material_surface_light_field``, also dispatched as
-``surface_light_field``) with its weight ease-in.
+``surface_light_field``) with its weight ease-in, the emission and
+residual-albedo regularizers, and the losses the JAX package turns on by a
+Config weight as well as by name: the maximum radiance, the weight
+normalisation tether (0 where no model emits the weights it ties, as in
+JAX), the material / irradiance decorrelation (``material_correlation``,
+on the SLF variate's ``irradiance_cache``) and, on the material output
+alone, the extra-ray consistency (``extra_ray``: two more model forwards
+along the rays' views turned into uniform hemisphere directions at their
+first sample's normal, the second reusing the first's cache samples
+without a graph).
 
 ``Config.extra_losses`` maps a loss name to {output key: {"mult", ...}}; the
 staged trainer binds its material stages' losses (``configs/trainer.gin``)
@@ -20,12 +29,6 @@ consistency losses read the material shader's outputs and their
 ``cache_*`` counterparts (the cache shader at the same surface points), and
 the ``_nocorr`` outputs of the gradient-debias forward only under a
 stop-gradient, so that forward needs no graph (``parallel/train.py``).
-
-The other extra losses of the JAX table (the emission and residual-albedo
-losses), and each loss
-the JAX package turns on by a Config weight (maximum radiance, material
-correlation, weight normalisation, extra rays), raise: no config that the
-JAX package runs reaches them.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from neural_radiance_caching_tpu_torch.ops import render_utils
+from neural_radiance_caching_tpu_torch.ops import math, render_utils
 from neural_radiance_caching_tpu_torch.parallel import losses as losses_lib
 from neural_radiance_caching_tpu_torch.utils import torchutil
 from neural_radiance_caching_tpu_torch.utils.torchutil import stopgrad_with_weight
@@ -57,6 +60,12 @@ def surface_light_field_weight_ease(config, train_frac):
                         config.surface_light_field_weight_ease_start,
                         config.surface_light_field_weight_ease_frac,
                         config.surface_light_field_weight_ease_min)
+
+
+def extra_ray_weight_ease(config, train_frac):
+    return _weight_ease(train_frac, config.use_extra_ray_weight_ease,
+                        config.extra_ray_weight_ease_start, config.extra_ray_weight_ease_frac,
+                        config.extra_ray_weight_ease_min)
 
 
 def consistency_weight_ease(config, train_frac):
@@ -457,33 +466,212 @@ def geometry_smoothness_loss(model, rng, rays, config, batch, results, full_resu
     return loss
 
 
+# --- emission and residual albedo ------------------------------------------------------
+
+
+def _point_weights(results, like):
+    """The detached surface weights [..., S, 1] of a results dict with a
+    geometry level, else ones like `like`."""
+    if results.get("geometry") is not None:
+        return results["geometry"]["weights"].detach()[..., None]
+    return torch.ones_like(like)
+
+
+def emission_loss(model, rng, rays, config, batch, results, full_results, train_frac=1.0):
+    """The emission's square root against the cache's rendered colour's
+    (emission_zero_loss_mult) and its (zero) variate difference
+    (emission_constant_loss_mult), summed over the samples."""
+    shader = results["shader"]
+    if "lighting_emission" not in shader:
+        return 0.0
+    emission = shader["lighting_emission"]
+    cache_rgb = results["integrator"]["cache_rgb"]
+    lossmult = rays.lossmult.reshape(emission.shape[:-2] + (-1, 1))
+    zero_loss = (math.safe_sqrt(emission + 1e-5)
+                 / math.safe_sqrt(cache_rgb.reshape(emission.shape[:-2] + (-1, 3)) + 1e-3)
+                 ) * config.emission_zero_loss_mult * lossmult
+    diff_loss = torch.square(emission - emission.detach()) * config.emission_constant_loss_mult \
+        * lossmult
+    weights = _point_weights(results, zero_loss)
+    return (zero_loss * weights).sum(dim=-2).mean() + (diff_loss * weights).sum(dim=-2).mean()
+
+
+def residual_albedo_loss(model, rng, rays, config, batch, results, full_results,
+                         train_frac=1.0):
+    """The residual albedo times the (detached) irradiance against the
+    emission, debiased (and RawNeRF-scaled under a rawnerf data loss)."""
+    shader = results["shader"]
+    if "lighting_emission" not in shader or "material_residual_albedo" not in shader:
+        return 0.0
+    emission = shader["lighting_emission"]
+    irradiance = shader["lighting_irradiance"]
+    irradiance_nocorr = shader.get("lighting_irradiance_nocorr", irradiance)
+    residual_albedo = shader["material_residual_albedo"]
+    material_results = {"rgb": residual_albedo * irradiance.detach(),
+                        "rgb_nocorr": residual_albedo * irradiance_nocorr.detach(),
+                        "cache_rgb": emission.detach()}
+    lossmult = rays.lossmult.reshape(emission.shape[:-2] + (-1, 1))
+    gt = emission.detach()
+    if "rawnerf" in config.data_loss_type:
+        diff = losses_lib.compute_unbiased_loss_rawnerf(material_results, gt, config,
+                                                        gt_nocorr=gt) * lossmult
+    else:
+        diff = losses_lib.compute_unbiased_loss(material_results, gt, gt) * lossmult
+    return (diff * _point_weights(results, diff)).sum(dim=-2).mean()
+
+
+# --- radiance bound and weight tether ---------------------------------------------------
+
+
+def maximum_radiance_loss(model, rng, rays, config, batch, results, full_results,
+                          train_frac=1.0):
+    """The squared excess of each sample's shaded colour over its pixel's."""
+    shader = results.get("shader") or {}
+    if "rgb" not in shader or batch.rgb is None:
+        return 0.0
+    excess = torch.clamp(shader["rgb"] - batch.rgb[..., None, :3], min=0.0)
+    return torch.square(excess).mean()
+
+
+def normalize_weight_loss(model, rng, rays, config, batch, results, full_results,
+                          train_frac=1.0):
+    """The L1 tether of the weights before normalisation to their (detached)
+    normalised value; 0 where the geometry carries neither, which no model
+    emits (as in JAX)."""
+    geometry = results.get("geometry") or {}
+    if (config.normalize_weight_loss_weight == 0.0 or "weights_original" not in geometry
+            or "weights_new" not in geometry):
+        return 0.0
+    diff = torch.abs(geometry["weights_original"] - geometry["weights_new"].detach())
+    return diff.mean() * config.normalize_weight_loss_weight
+
+
+# --- material / irradiance decorrelation -----------------------------------------------
+
+
+def _center_normalize(x, lossmult):
+    """x centred under lossmult, each column over its L1 norm plus the row
+    count, times the row count."""
+    n = x.shape[0]
+    x = x * lossmult
+    x = x - x.sum(dim=0, keepdim=True) / (lossmult.sum(dim=0, keepdim=True) + 1e-3)
+    x = x * lossmult
+    return x / (torch.abs(x).sum(dim=0, keepdim=True) + n) * n
+
+
+def material_correlation_loss(model, rng, rays, config, batch, results, full_results,
+                              train_frac=1.0):
+    """At one surface point per ray (resampled by the weights): the absolute
+    correlation of each material channel with the irradiance, the
+    irradiance's debiased tether to the SLF variate's ``irradiance_cache``
+    and its whitening; 0 without the SLF variate's output."""
+    shader = results.get("shader") or {}
+    if "lighting_irradiance" not in shader or "irradiance_cache" not in shader:
+        return 0.0
+    key, rng = torchutil.random_split(rng)
+    shader_results, _ = model.maybe_resample(key, True, _filter_tensors(shader), 1)
+    n_rays = rays.lossmult.reshape(-1, 1).shape[0]
+    irradiance = shader_results["lighting_irradiance"].reshape(-1, 3)
+    irradiance_nocorr = shader_results.get("lighting_irradiance_nocorr",
+                                           shader_results["lighting_irradiance"]).reshape(-1, 3)
+    irradiance_cache = shader_results["irradiance_cache"].reshape(-1, 3)
+    weights = shader_results["weights"]
+    lossmult = rays.lossmult.reshape(-1, 1, 1)
+    lossmult = (lossmult * torch.ones_like(shader_results["lighting_irradiance"][..., :1].reshape(
+        n_rays, -1, 1))).reshape(-1, 1)
+    lossmult = lossmult * (weights.reshape(-1, 1) * weights.shape[-1]).detach()
+    irradiance_target = _center_normalize(irradiance, lossmult).detach()
+
+    material_weights = {
+        "material_albedo": config.material_correlation_weight_albedo,
+        "material_roughness": config.material_correlation_weight_other,
+        "material_F_0": config.material_correlation_weight_other,
+        "material_metalness": config.material_correlation_weight_other,
+        "material_diffuseness": config.material_correlation_weight_other,
+        "material_mirrorness": config.material_correlation_weight_other,
+    }
+    loss = 0.0
+    for mat_key, mat_weight in material_weights.items():
+        if mat_key not in shader_results:
+            continue
+        channel = _center_normalize(
+            shader_results[mat_key].reshape(irradiance_target.shape[0], -1), lossmult)
+        loss = loss + torch.abs((channel * irradiance_target).mean(dim=0)).sum() * mat_weight
+
+    tether = {"rgb": stopgrad_with_weight(irradiance, config.irradiance_cache_stopgrad_weight),
+              "rgb_nocorr": irradiance_nocorr, "cache_rgb": irradiance_cache}
+    gt = stopgrad_with_weight(irradiance_cache, config.irradiance_cache_stopgrad_weight_backwards)
+    if "rawnerf" in config.data_loss_type:
+        diff = losses_lib.compute_unbiased_loss_rawnerf(tether, gt, config,
+                                                        gt_nocorr=irradiance_cache) * lossmult
+    else:
+        diff = losses_lib.compute_unbiased_loss(tether, gt, irradiance_cache) * lossmult
+    loss = loss + diff.mean() * config.irradiance_cache_loss_weight
+    whitening = losses_lib.compute_unbiased_loss(
+        {"rgb": irradiance, "rgb_nocorr": irradiance_nocorr},
+        irradiance.mean(dim=-1, keepdim=True).detach(),
+        irradiance_nocorr.mean(dim=-1, keepdim=True).detach())
+    return loss + (whitening * lossmult).mean() * config.whitening_loss_weight
+
+
+# --- extra rays ---------------------------------------------------------------------------
+
+
+def extra_ray_loss(model, rng, rays, config, batch, results, full_results, train_frac=1.0):
+    """The material render against the cache's along the rays with their
+    view direction turned to one uniform hemisphere direction at their
+    first sample's normal (origins and directions kept, as in JAX): one
+    more model forward, and a debias forward over its cache samples whose
+    values enter only under a stop-gradient (so it runs without a graph),
+    in the debiased squared error (RawNeRF-scaled under a rawnerf data
+    loss)."""
+    normals = results["shader"].get(config.material_normals_target)
+    if not isinstance(normals, torch.Tensor):
+        return 0.0
+    key, rng = torchutil.random_split(rng)
+    extra_rays = render_utils.get_outgoing_rays(
+        key, rays, rays.viewdirs.detach(), normals[..., :1, :].detach(), {},
+        random_generator_2d=model.random_generator_2d, use_mis=False,
+        samplers=model.uniform_importance_samplers, num_secondary_samples=1)
+    kw = dict(train_frac=train_frac, train=True, compute_extras=False,
+              secondary_proposal_grad=False)
+    key, rng = torchutil.random_split(rng)
+    extra = model(key, extra_rays, **kw)
+    key, rng = torchutil.random_split(rng)
+    with torch.no_grad():
+        nocorr = model(key, extra_rays,
+                       cache_outputs={"sampler": extra["cache_main"]["sampler"]},
+                       filtered_sampler_inds=extra["cache_main"]["filtered_sampler_inds"], **kw)
+    rgb_gt = stopgrad_with_weight(extra["render"]["cache_rgb"],
+                                  config.extra_ray_loss_stopgrad_weight_gt)
+    rgb_gt_nocorr = nocorr["render"]["cache_rgb"]
+    rgb = stopgrad_with_weight(extra["render"]["rgb"].reshape(rgb_gt.shape),
+                               config.extra_ray_loss_stopgrad_weight_pred)
+    pred = {"rgb": rgb, "rgb_nocorr": nocorr["render"]["rgb"].reshape(rgb_gt.shape),
+            "cache_rgb": rgb_gt}
+    if "rawnerf" in config.data_loss_type:
+        return losses_lib.compute_unbiased_loss_rawnerf(pred, rgb_gt, config,
+                                                        gt_nocorr=rgb_gt_nocorr).mean()
+    return losses_lib.compute_unbiased_loss(pred, rgb_gt, rgb_gt_nocorr).mean()
+
+
 # --- dispatch ------------------------------------------------------------------------
 
 EXTRA_LOSS_FUNCTIONS = {
+    "emission": emission_loss,
+    "residual_albedo": residual_albedo_loss,
     "light_sampling": light_sampling_loss,
-    "material_smoothness": material_smoothness_loss,
-    "material_ray_sampler": material_ray_sampler_loss,
-    "geometry_smoothness": geometry_smoothness_loss,
     "material_surface_light_field": material_surface_light_field_loss,
+    "material_smoothness": material_smoothness_loss,
+    "geometry_smoothness": geometry_smoothness_loss,
+    "material_ray_sampler": material_ray_sampler_loss,
+    "material_correlation": material_correlation_loss,
+    "maximum_radiance": maximum_radiance_loss,
+    "normalize_weight": normalize_weight_loss,
     # The JAX dispatch's alias (both eased in by surface_light_field_weight_ease).
     "surface_light_field": material_surface_light_field_loss,
 }
 _SURFACE_LIGHT_FIELD_LOSSES = ("surface_light_field", "material_surface_light_field")
-# The rest of the JAX table.
-_UNPORTED_EXTRA_LOSSES = ("emission", "residual_albedo", "material_correlation",
-                          "maximum_radiance", "normalize_weight")
-
-
-def unported(config):
-    """The extra losses `config` turns on that are not ported. A name in
-    neither table is skipped, as the JAX dispatch skips it."""
-    names = [k for k in (config.extra_losses or {}) if k in _UNPORTED_EXTRA_LOSSES]
-    weights = {"maximum_radiance": config.maximum_radiance_loss_weight,
-               "material_correlation": max(config.material_correlation_weight_albedo,
-                                           config.material_correlation_weight_other),
-               "normalize_weight": config.normalize_weight_loss_weight,
-               "extra_ray": config.extra_ray_loss_mult}
-    return names + [f"{k} (by its weight)" for k, w in weights.items() if w > 0]
 
 
 def reads_secondary_proposals(config):
@@ -497,8 +685,11 @@ def compute_extra_losses(config, batch, rays, full_results, output_key, losses, 
                          model=None, rng=None):
     """Every configured extra loss of one output ('main' / 'cache_main'),
     added to `losses` under the output's prefix, in the dict order of
-    ``Config.extra_losses``. `create_train_step` has refused the losses that
-    are not ported (`unported`)."""
+    ``Config.extra_losses`` (a name in no table is skipped, as the JAX
+    dispatch skips it); then the losses turned on by their Config weight
+    and not by name: the maximum radiance and the material correlation on
+    'main', the weight tether on each output, and the extra rays on the
+    material model's 'main'."""
     results = full_results.get(output_key)
     if results is None:
         return losses
@@ -521,4 +712,22 @@ def compute_extra_losses(config, batch, rays, full_results, output_key, losses, 
             loss = EXTRA_LOSS_FUNCTIONS[name](model, key, rays, config, batch, results,
                                               full_results, train_frac=train_frac)
         losses[prefix + name] = mult * loss
+
+    names = set(config.extra_losses or {})
+    args = (model, rng, rays, config, batch, results, full_results)
+    if output_key == "main":
+        if "maximum_radiance" not in names and config.maximum_radiance_loss_weight > 0.0:
+            losses["maximum_radiance"] = config.maximum_radiance_loss_weight * \
+                maximum_radiance_loss(*args, train_frac=train_frac)
+        if ("material_correlation" not in names and config.is_material
+                and (config.material_correlation_weight_albedo > 0.0
+                     or config.material_correlation_weight_other > 0.0)):
+            losses["material_correlation"] = material_correlation_loss(
+                *args, train_frac=train_frac)
+    if "normalize_weight" not in names and config.normalize_weight_loss_weight > 0.0:
+        losses[prefix + "normalize_weight"] = normalize_weight_loss(*args, train_frac=train_frac)
+    if output_key == "main" and config.extra_ray_loss_mult > 0.0 and config.is_material:
+        losses["extra_ray"] = (config.extra_ray_loss_mult
+                               * extra_ray_weight_ease(config, train_frac)
+                               * extra_ray_loss(*args, train_frac=train_frac))
     return losses

@@ -1,16 +1,17 @@
-"""Losses of the cache, material and transient stages (counterpart of the
-part of ``parallel/losses.py`` the slices reach): the Charbonnier, the
-gradient-debiased squared error (``mse_unbiased``, the consistency loss's
-type in the transient material stage), the gradient-debiased RawNeRF and its
-transient form (scaled by the rendering summed over time bins) data losses,
-the iToF data losses (the residual projected by
-``render_utils.dtof_to_itof``: ``mse_itof``, ``mse_itof_unbiased``,
-``rawnerf_transient_itof``, ``rawnerf_transient_itof_unbiased``), the spline
-interlevel loss, distortion, the predicted-normal regularizers, the
-opaque/empty mask loss, the parameter regularizers and gradient clipping. A
-rendering may carry ``gt_nocorr``, the target of the debiased second
-estimate (the consistency loss's nocorr cache target). Loss types off the
-slices, and the transient Gaussian-pyramid term, raise."""
+"""Losses of the cache, material and transient stages (counterpart of
+``parallel/losses.py``): every data loss type of the JAX dispatch (the
+squared error, its square-root form ``mse_fwp``, the Charbonnier and its
+clipped form, the gradient-debiased squared error, RawNeRF and its
+debiased, transient and Charbonnier forms under the rendering's, the
+target's (``use_gt_rawnerf``), their maximum's (``use_combined_rawnerf``)
+or their norm's (``use_norm_rawnerf``) scaling, the transient ones with the
+Gaussian pyramid of ``render_utils.dtof_to_gauss`` under
+``Config.transient_gauss_sigma_scales``, and the iToF types, the residual
+projected by ``render_utils.dtof_to_itof``), the spline and the original
+interlevel losses, distortion, the predicted-normal regularizers, the
+eikonal loss, the opaque/empty mask loss, the parameter regularizers and
+gradient clipping. A rendering may carry ``gt_nocorr``, the target of the
+debiased second estimate (the consistency loss's nocorr cache target)."""
 
 from __future__ import annotations
 
@@ -46,14 +47,28 @@ def compute_loss_charb(rendering, gt, config):
     return torch.sqrt((rendering["rgb"] - gt) ** 2 + config.charb_padding**2)
 
 
+def _rgb_clip_for_rawnerf(rendering, gt, config, clip_val):
+    """The clipped colour that scales a RawNeRF loss: the target's
+    (``use_gt_rawnerf``), or the rendering's (the material model's rendering
+    carries the cache's rgb, which scales its loss), or the larger of the
+    two (``use_combined_rawnerf``); its norm over the channels with
+    ``use_norm_rawnerf``."""
+    if config.use_gt_rawnerf:
+        rgb_clip = torch.clamp(gt, 0.0, clip_val)
+    else:
+        key = "cache_rgb" if "cache_rgb" in rendering else "rgb"
+        rgb_clip = torch.clamp(rendering[key], 0.0, clip_val)
+        if config.use_combined_rawnerf:
+            rgb_clip = torch.clamp(torch.maximum(rgb_clip, gt), 0.0, clip_val)
+    if config.use_norm_rawnerf:
+        rgb_clip = torch.linalg.norm(rgb_clip, dim=-1, keepdim=True)
+    return rgb_clip
+
+
 def _rawnerf_scaling(rendering, gt, config, clip_val, exponent, eps, transient=False):
-    """1 / (sg(clipped rendered rgb)^exponent + eps); a transient rendering
+    """1 / (sg(the clipped colour)^exponent + eps); a transient rendering
     [..., bins, C] is summed over its bins first."""
-    if config.use_gt_rawnerf or config.use_combined_rawnerf or config.use_norm_rawnerf:
-        raise NotImplementedError("the gt, combined and norm RawNeRF scalings are not ported yet")
-    # The material model's rendering carries the cache's rgb, which scales its loss.
-    key = "cache_rgb" if "cache_rgb" in rendering else "rgb"
-    rgb_clip = torch.clamp(rendering[key], 0.0, clip_val)
+    rgb_clip = _rgb_clip_for_rawnerf(rendering, gt, config, clip_val)
     if transient:
         rgb_clip = rgb_clip.sum(-2)[..., None, :]
     return 1.0 / (torch.pow(rgb_clip.detach(), exponent) + eps)
@@ -78,47 +93,95 @@ def compute_unbiased_loss_itof(rendering, gt, gt_nocorr, config):
     return 2 * diff * diff_nocorr.detach()
 
 
+def compute_unbiased_loss_transient_gauss(rendering, gt, gt_nocorr, config):
+    """The debiased squared error of the Gaussian pyramids of the residuals."""
+    def gauss(x):
+        return render_utils.dtof_to_gauss(x, config.transient_gauss_sigma_scales,
+                                          config.transient_gauss_constant_scale)
+
+    diff = gauss(rendering["rgb"] - gt)
+    diff_nocorr = gauss(rendering["rgb_nocorr"] - gt_nocorr)
+    return 2 * diff * diff_nocorr.detach()
+
+
+def compute_loss_rawnerf(rendering, gt, config, clip_val=10000.0, exponent=1.0, eps=1e-3,
+                         transient=False):
+    scale = _rawnerf_scaling(rendering, gt, config, clip_val, exponent, eps, transient)
+    return ((rendering["rgb"] - gt) ** 2) * scale
+
+
 def compute_unbiased_loss_rawnerf(rendering, gt, config, clip_val=10000.0, exponent=1.0,
                                   eps=1e-3, transient=False, gt_nocorr=None):
     scale = _rawnerf_scaling(rendering, gt, config, clip_val, exponent, eps, transient)
     return compute_unbiased_loss(rendering, gt, gt if gt_nocorr is None else gt_nocorr) * scale
 
 
+def _with_gauss(loss, gauss_loss, rendering, gt, config, rawnerf_eps, rawnerf_exponent):
+    """A transient RawNeRF loss plus its Gaussian-pyramid term: scaled as the
+    loss is, times data_loss_gauss_mult over the bin count, summed over the
+    pyramid's rows and added to every bin."""
+    scale = _rawnerf_scaling(rendering, gt, config, 10000.0, rawnerf_exponent, rawnerf_eps, True)
+    gauss = gauss_loss * scale * config.data_loss_gauss_mult / loss.shape[-2]
+    return loss + gauss.sum(dim=-2, keepdim=True)
+
+
 def select_data_loss_fn(config, rendering, gt, gt_nocorr, rawnerf_eps, rawnerf_exponent,
                         transient=False):
-    """Dispatch on config.data_loss_type (charb, mse, mse_unbiased,
-    rawnerf_unbiased, rawnerf_transient_unbiased without the Gaussian-pyramid
-    term, and the four iToF types are ported). The iToF types give
-    [..., 2 P + 1, C] for P (frequency, phase) pairs; the rawnerf ones scale
-    by the rendering summed over its bins, whatever `transient` says, as in
-    JAX."""
-    if config.data_loss_type == "mse":
+    """Dispatch on config.data_loss_type, as the JAX package's. The iToF
+    types give [..., 2 P + 1, C] for P (frequency, phase) pairs; the
+    transient rawnerf ones scale by the rendering summed over its bins,
+    whatever `transient` says, and add the Gaussian pyramid's term when
+    `transient` and ``Config.transient_gauss_sigma_scales``."""
+    t = config.data_loss_type
+    if t == "mse":
         return (rendering["rgb"] - gt) ** 2
-    if config.data_loss_type == "mse_itof":
-        return _itof(rendering["rgb"] - gt, config) ** 2
-    if config.data_loss_type == "mse_itof_unbiased":
-        return compute_unbiased_loss_itof(rendering, gt, gt_nocorr, config)
-    if config.data_loss_type in ("rawnerf_transient_itof", "rawnerf_transient_itof_unbiased"):
-        scale = _rawnerf_scaling(rendering, gt, config, 10000.0, rawnerf_exponent, rawnerf_eps,
-                                 True)
-        if config.data_loss_type == "rawnerf_transient_itof":
-            return _itof(rendering["rgb"] - gt, config) ** 2 * scale
-        return compute_unbiased_loss_itof(rendering, gt, gt_nocorr, config) * scale
-    if config.data_loss_type == "charb":
-        return compute_loss_charb(rendering, gt, config)
-    if config.data_loss_type == "mse_unbiased":
+    if t == "mse_unbiased":
         return compute_unbiased_loss(rendering, gt, gt_nocorr)
-    if config.data_loss_type == "rawnerf_unbiased":
+    if t == "mse_itof":
+        return _itof(rendering["rgb"] - gt, config) ** 2
+    if t == "mse_itof_unbiased":
+        return compute_unbiased_loss_itof(rendering, gt, gt_nocorr, config)
+    if t == "mse_fwp":
+        return ((rendering["rgb"] + 1e-5) ** 0.5 - (gt + 1e-5) ** 0.5) ** 2
+    if t == "rawnerf":
+        return compute_loss_rawnerf(rendering, gt, config, eps=rawnerf_eps,
+                                    exponent=rawnerf_exponent)
+    if t == "rawnerf_unbiased":
         return compute_unbiased_loss_rawnerf(
             rendering, gt, config, eps=rawnerf_eps, exponent=rawnerf_exponent,
             gt_nocorr=gt_nocorr)
-    if config.data_loss_type == "rawnerf_transient_unbiased":
+    if t == "rawnerf_transient":
+        loss = compute_loss_rawnerf(rendering, gt, config, eps=rawnerf_eps,
+                                    exponent=rawnerf_exponent, transient=transient)
         if transient and config.transient_gauss_sigma_scales:
-            raise NotImplementedError("the transient Gaussian-pyramid loss is not ported yet")
-        return compute_unbiased_loss_rawnerf(
+            gauss = render_utils.dtof_to_gauss(rendering["rgb"] - gt,
+                                               config.transient_gauss_sigma_scales,
+                                               config.transient_gauss_constant_scale) ** 2
+            loss = _with_gauss(loss, gauss, rendering, gt, config, rawnerf_eps, rawnerf_exponent)
+        return loss
+    if t == "rawnerf_transient_unbiased":
+        loss = compute_unbiased_loss_rawnerf(
             rendering, gt, config, eps=rawnerf_eps, exponent=rawnerf_exponent,
             transient=transient, gt_nocorr=gt_nocorr)
-    raise NotImplementedError(f"data loss type {config.data_loss_type!r} is not ported yet")
+        if transient and config.transient_gauss_sigma_scales:
+            gauss = compute_unbiased_loss_transient_gauss(rendering, gt, gt_nocorr, config)
+            loss = _with_gauss(loss, gauss, rendering, gt, config, rawnerf_eps, rawnerf_exponent)
+        return loss
+    if t in ("rawnerf_transient_itof", "rawnerf_transient_itof_unbiased"):
+        scale = _rawnerf_scaling(rendering, gt, config, 10000.0, rawnerf_exponent, rawnerf_eps,
+                                 True)
+        if t == "rawnerf_transient_itof":
+            return _itof(rendering["rgb"] - gt, config) ** 2 * scale
+        return compute_unbiased_loss_itof(rendering, gt, gt_nocorr, config) * scale
+    if t == "rawnerf_charb":
+        loss = compute_loss_rawnerf(rendering, gt, config, exponent=2.0, eps=rawnerf_eps) ** 2
+        return torch.sqrt(loss + config.charb_padding**2)
+    if t == "charb":
+        return compute_loss_charb(rendering, gt, config)
+    if t == "charb_clip":
+        resid_sq = (torch.clamp(rendering["rgb"], max=1.0) - torch.clamp(gt, max=1.0)) ** 2
+        return torch.sqrt(resid_sq + config.charb_padding**2)
+    raise ValueError(f"Unknown data loss type: {t}")
 
 
 def compute_data_loss(batch, rendering, rays, config, main=False, transient=False):
@@ -154,7 +217,9 @@ def compute_data_loss(batch, rendering, rays, config, main=False, transient=Fals
 
     if main and config.use_loss_clip and not unbiased:
         clip = lambda x: torch.clamp(x, config.loss_clip_min, config.loss_clip)
-        rendering["rgb"] = clip(rendering["rgb"])
+        for k in ("rgb", "rgb_nocorr", "gt_nocorr"):
+            if k in rendering:
+                rendering[k] = clip(rendering[k])
         gt = clip(gt)
 
     if transient:
@@ -259,10 +324,26 @@ def spline_interlevel_loss(ray_history, *, mults, blurs, eps=1e-5):
     return losses
 
 
+def interlevel_loss(ray_history, *, mults):
+    """The original proposal loss of mip-NeRF 360: each proposal level's
+    weights against the outer measure of the final level's (detached)."""
+    num_rounds = len(ray_history) - 1
+    if not isinstance(mults, tuple):
+        mults = (mults,) * num_rounds
+    c = ray_history[-1]["sdist"].detach()
+    w = (ray_history[-1]["weights"] * ray_history[-1]["lossmult"]).detach()
+    losses = []
+    for mult, ray_results in zip(mults, ray_history[:-1]):
+        cp = ray_results["sdist"]
+        wp = ray_results["weights"] * ray_results["lossmult"]
+        losses.append(mult * torch.mean(stepfun.lossfun_outer(c, w, cp, wp)))
+    return losses
+
+
 def compute_interlevel_loss(ray_history, loss_mults, loss_blurs, config):
-    if not config.use_spline_interlevel_loss:
-        raise NotImplementedError("the non-spline interlevel loss is not ported yet")
-    return spline_interlevel_loss(ray_history, mults=tuple(loss_mults), blurs=loss_blurs)
+    if config.use_spline_interlevel_loss:
+        return spline_interlevel_loss(ray_history, mults=tuple(loss_mults), blurs=loss_blurs)
+    return interlevel_loss(ray_history, mults=tuple(loss_mults))
 
 
 def distortion_loss(ray_history, *, target="sdist", mult=1.0, curve_fn=lambda x: x,
@@ -317,6 +398,24 @@ def predicted_normal_loss(ray_results, beta, config, *, mult, gt="normals",
         (torch.abs(w * (1.0 - torch.sum(n * n_pred, dim=-1))) * beta[..., 0]).sum(
             dim=-1, keepdim=True) + 1e-5))
     return loss * mult
+
+
+def eikonal_loss(ray_history, config):
+    """The eikonal term on every level's gradient normals: the mean of
+    (|n| - 1)^2, weighted by eikonal_coarse_loss_mult on the proposal
+    levels and eikonal_loss_mult on the final one."""
+    total = 0.0
+    tiny = float(np.finfo(np.float32).tiny)
+    for i, ray_results in enumerate(ray_history):
+        n = ray_results.get("normals")
+        if n is None:
+            raise ValueError("Gradient normals cannot be None if eikonal loss is on.")
+        norm = torch.sqrt(torch.clamp(torch.sum(n**2, dim=-1), min=tiny))
+        loss = torch.mean((norm - 1.0) ** 2.0)
+        mult = (config.eikonal_coarse_loss_mult if i < len(ray_history) - 1
+                else config.eikonal_loss_mult)
+        total = total + mult * loss
+    return total
 
 
 def param_regularizer_loss(model, config, material):

@@ -15,9 +15,15 @@ schedule and Adam settings: one parameter group per entry, holding the
 parameters whose JAX path (``utils/weights.jax_path``) has the entry's name
 as a component, the last matching entry winning (the JAX optimizer chains
 one masked Adam per entry, in dict order); the rest form the main group.
-Every step sets each group's learning rate from its own
-``learning_rate_decay`` evaluated at the step count before the update (the
-JAX optimizer's schedule convention).
+Every update sets each group's learning rate from its own
+``learning_rate_decay`` evaluated at the update count before it (the JAX
+optimizer's schedule convention). Under ``Config.grad_accum_steps`` = k the
+step is a micro-step (JAX's ``optax.MultiSteps(..., use_grad_mean=True)``):
+each micro-gradient is cleaned and clipped as a whole step's is, then
+folded into the running mean ``TrainState.grad_accum`` (acc + (g - acc) /
+(i + 1) at the i-th micro-step), and every k-th micro-step Adam updates on
+that mean, its schedule and bias correction counting updates; the step
+count counts micro-steps, as JAX's ``TrainState.step`` does.
 
 With ``Config.cast_rays_in_train_step`` a batch holds Pixels, which the
 step casts on the device against the dataset's cameras before the forward.
@@ -25,8 +31,14 @@ Losses cover every model output whose key ends in ``main`` (the material
 model's ``cache_main`` and ``main``), each with the loss type and weight
 its target carries, then that output's extra losses
 (``parallel/extra_losses.py``), then the parameter regularizers
-(``regularizer_<name>``). ``Config.use_gradient_debias`` runs the
-second, independent forward of the gradient-debiased losses;
+(``regularizer_<name>``); the eikonal loss reads every level's gradient
+normals. ``Config.debug_mode`` adds JAX's statistics: the squared L2 of
+each top-level module's weights, 101 percentiles of each level's
+normalised and metric distances and of their log steps, and each module's
+gradient norm and largest entry, with a printed warning for a parameter
+whose gradient has a non-finite entry or is all zero.
+``Config.use_gradient_debias`` runs the second, independent forward of
+the gradient-debiased losses;
 ``Config.gradient_checkpointing`` is read by the density MLPs, which
 recompute their activations in the backward (``models/geometry.py``).
 """
@@ -36,7 +48,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -51,13 +63,16 @@ from neural_radiance_caching_tpu_torch.utils import pytrees, torchutil, weights
 @dataclasses.dataclass
 class TrainState:
     """Model, optimizer, the main learning-rate schedule, one schedule per
-    parameter group (in the optimizer's order) and the step count."""
+    parameter group (in the optimizer's order), the step count (micro-steps
+    under gradient accumulation) and the accumulated mean gradient by
+    parameter name (None between updates)."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     lr_fn: Callable[[int], float]
     group_lr_fns: List[Callable[[int], float]] = dataclasses.field(default_factory=list)
     step: int = 0
+    grad_accum: Optional[Dict[str, torch.Tensor]] = None
 
 
 def is_material_model(model):
@@ -85,11 +100,8 @@ def create_optimizer(config, model):
     for each ``extra_opt_params`` entry that holds parameters.
 
     Returns (TrainState, lr_fn of the main schedule). ``is_material`` picks
-    the entries' ``*_material`` values. Gradient accumulation is not ported
-    yet and raises.
+    the entries' ``*_material`` values.
     """
-    if config.grad_accum_steps > 1:
-        raise NotImplementedError("gradient accumulation is not ported yet")
     suffix = "_material" if config.is_material else ""
 
     def lr_fn_of(opt_params):
@@ -181,6 +193,8 @@ def _compute_losses_for_output(batch, rays, model_results, config, train_frac, m
         losses[prefix + "predicted_normals_reverse"] = losses_lib.predicted_normal_loss(
             last, beta, config, mult=config.predicted_normal_reverse_loss_mult * ease_bwd,
             gt="normals", pred="normals_pred", stopgrad=True)
+    if config.eikonal_loss_mult > 0 or config.eikonal_coarse_loss_mult > 0:
+        losses[prefix + "eikonal"] = losses_lib.eikonal_loss(ray_history, config)
     if (config.opaque_loss_weight > 0 or config.empty_loss_weight > 0) and \
             batch.masks is not None:
         losses[prefix + "mask"] = losses_lib.compute_mask_loss(
@@ -188,18 +202,64 @@ def _compute_losses_for_output(batch, rays, model_results, config, train_frac, m
     return losses, stats
 
 
-def _check_config(config):
-    unported = {
-        "debug_mode": config.debug_mode,
-        "eikonal_loss_mult": config.eikonal_loss_mult > 0 or config.eikonal_coarse_loss_mult > 0,
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
-    bad = extra_losses_lib.unported(config)
-    if bad:
-        raise NotImplementedError(f"extra losses not ported yet (the model and loss options "
-                                  f"no runnable config reaches): {', '.join(bad)}")
+def _module_groups(model):
+    """{JAX top-level module name: its parameters}, in the model's order."""
+    material = is_material_model(model)
+    groups: Dict[str, list] = {}
+    for key, p in model.named_parameters():
+        groups.setdefault(weights.jax_path(key, material)[0], []).append((key, p))
+    return groups
+
+
+def _summarize(fn, tensors):
+    return fn(torch.cat([t.reshape(-1) for t in tensors]))
+
+
+def _percentiles(x):
+    q = torch.linspace(0, 100, 101, device=x.device) / 100
+    return torch.quantile(x.detach().reshape(-1).float(), q)
+
+
+def _debug_stats(model, model_results, stats):
+    """JAX's debug_mode statistics of the forward: each top-level module's
+    squared weight L2, and per level of the cache's sampler the 101
+    percentiles of the normalised and metric distances and of their steps
+    (logs, as JAX's safe_log)."""
+    with torch.no_grad():
+        stats["weight_l2s"] = {name: _summarize(lambda x: torch.sum(x**2), [p for _, p in ps])
+                               for name, ps in _module_groups(model).items()}
+        results = model_results.get("cache_main", model_results.get("main", {}))
+        for i, rh in enumerate(results.get("sampler") or ()):
+            s, t = rh["sdist"], rh["tdist"]
+            stats[f"ray_normalized_distance{i}"] = _percentiles(s)
+            stats[f"ray_normalized_distance{i}_log_delta"] = math.safe_log(
+                _percentiles(s[..., 1:] - s[..., :-1]))
+            stats[f"ray_metric_distance{i}_log"] = math.safe_log(_percentiles(t))
+            stats[f"ray_metric_distance{i}_log_delta"] = math.safe_log(
+                _percentiles(t[..., 1:] - t[..., :-1]))
+
+
+def _debug_grad_stats(model, stats):
+    """Each module's gradient norm and largest entry, before any cleaning,
+    and a printed warning per parameter whose gradient has a non-finite
+    entry or is all zero (JAX's debug prints; one read of the flags)."""
+    groups = _module_groups(model)
+    stats["grad_norms"] = {name: _summarize(lambda x: torch.sqrt(torch.sum(x**2)),
+                                            [p.grad for _, p in ps])
+                           for name, ps in groups.items()}
+    stats["grad_maxes"] = {name: _summarize(lambda x: torch.max(torch.abs(x)),
+                                            [p.grad for _, p in ps])
+                           for name, ps in groups.items()}
+    material = is_material_model(model)
+    named = [(key, p.grad) for key, p in model.named_parameters()]
+    flags = torch.stack([torch.stack([(~torch.isfinite(g)).any(), (g == 0).all()])
+                         for _, g in named]).cpu().numpy()
+    for (key, _), (nonfinite, zero) in zip(named, flags):
+        name = "params/" + "/".join(weights.jax_path(key, material))
+        if nonfinite:
+            print(f"Warning: {name} has non-finite grads", flush=True)
+        if zero:
+            print(f"Warning: {name} has all-zero grads", flush=True)
 
 
 # Shader outputs of the debias forward grafted as `<key>_nocorr` onto the
@@ -274,7 +334,6 @@ def create_train_step(model, config, dataset=None):
     is this rank's block of the global batch (``mesh.shard_batch``) and
     `rng` is seeded alike on every rank; the stats are the rank's own.
     """
-    _check_config(config)
     material = is_material_model(model)
     # A material model's secondary proposal levels keep a graph only where a
     # loss reads them.
@@ -300,6 +359,8 @@ def create_train_step(model, config, dataset=None):
             losses["regularizer_" + k] = v
         total = sum(losses.values())
         stats["losses"] = losses
+        if config.debug_mode:
+            _debug_stats(model, model_results, stats)
         return total, stats
 
     def train_step(rng, state, batch, train_frac):
@@ -321,14 +382,18 @@ def create_train_step(model, config, dataset=None):
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
             mesh_lib.allreduce_gradients(params)
+            if config.debug_mode:
+                _debug_grad_stats(state.model, stats)
             for p in params:
                 p.grad.nan_to_num_()
             losses_lib.clip_gradients(state.model, config)
             stats["grad_norm"] = losses_lib.tree_norm([p.grad for p in params])
             stats["param_norm"] = losses_lib.tree_norm([p.detach() for p in params])
-        for group, lr_fn in zip(state.optimizer.param_groups, state.group_lr_fns):
-            group["lr"] = lr_fn(state.step)
-        state.optimizer.step()
+            update = _accumulate(state, config.grad_accum_steps)
+        if update:
+            for group, lr_fn in zip(state.optimizer.param_groups, state.group_lr_fns):
+                group["lr"] = lr_fn(state.step // config.grad_accum_steps)
+            state.optimizer.step()
         state.step += 1
         stats["loss"] = loss.detach()
         stats["losses"] = {k: v.detach() if isinstance(v, torch.Tensor) else v
@@ -336,6 +401,27 @@ def create_train_step(model, config, dataset=None):
         return state, stats
 
     return train_step
+
+
+def _accumulate(state, k):
+    """Fold this micro-step's gradients into the running mean; at the k-th
+    micro-step put the mean in place of the gradients and return True (the
+    update), else False. Without accumulation (k = 1) every step updates."""
+    if k <= 1:
+        return True
+    mini = state.step % k
+    named = [(key, p) for key, p in state.model.named_parameters() if p.grad is not None]
+    if state.grad_accum is None:
+        state.grad_accum = {key: torch.zeros_like(p) for key, p in named}
+    for key, p in named:
+        acc = state.grad_accum[key]
+        acc.add_((p.grad - acc) / (mini + 1))
+    if mini < k - 1:
+        return False
+    for key, p in named:
+        p.grad = state.grad_accum[key]
+    state.grad_accum = None
+    return True
 
 
 def create_render_fn(model, **apply_kwargs):

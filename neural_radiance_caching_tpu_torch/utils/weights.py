@@ -18,7 +18,12 @@ the sampler's ``SampleNetwork/layer_{i}`` and ``output_layer``; an
 integrator's colour network ``Integrator/layer_{i}`` and ``output_layer``;
 a density MLP's ``normals_offset_layer``; the triplane's
 ``triplane_grid_features_2d`` and the factored grid's
-``grid_features_1d/_2d/_appearance``).
+``grid_features_1d/_2d/_appearance``; the material shader's BRDF
+correction ``brdf_correction_layers_{i}`` and ``output_brdf_correction_layer``
+(over the MLP's width, or over the point's feature under
+``per_point_brdf_correction``, where the MLP has no parameters), its
+``rgb_diffuse_emission_layer`` and ``rgb_residual_albedo_layer``: each
+present only under its option, as flax creates it at its first call).
 Every leaf maps to exactly one key and every key must be filled; a leaf left
 over raises. JAX ``Dense`` kernels
 ``[in, out]`` become torch weights ``[out, in]``; the hash and dense tables

@@ -456,10 +456,22 @@ def test_importance_resampling_raises():
 
 @pytest.mark.parametrize("variant", ["use_gt_rawnerf", "use_combined_rawnerf", "use_norm_rawnerf"])
 def test_unported_rawnerf_scalings_raise(variant):
+    """The gt, combined and norm RawNeRF scalings, once refused, are ported:
+    the debiased RawNeRF loss under each against JAX's, with and without the
+    cache's rgb in the rendering."""
     cfg = flagship.material_config(**{variant: True})
-    rgb = torch.full((4, 3), 0.5)
-    with pytest.raises(NotImplementedError):
-        tlosses.compute_unbiased_loss_rawnerf({"rgb": rgb, "rgb_nocorr": rgb}, rgb, cfg)
+    jcfg = dataclasses.replace(bench._cache_config(), **{variant: True})
+    rng = np.random.RandomState(4)
+    r = {k: rng.uniform(0, 2, (4, 3)).astype(np.float32)
+         for k in ("rgb", "rgb_nocorr", "cache_rgb", "gt", "gt_nocorr")}
+    for keys in (("rgb", "rgb_nocorr"), ("rgb", "rgb_nocorr", "cache_rgb")):
+        got = tlosses.compute_unbiased_loss_rawnerf(
+            {k: torch.as_tensor(r[k]) for k in keys}, torch.as_tensor(r["gt"]), cfg,
+            gt_nocorr=torch.as_tensor(r["gt_nocorr"]))
+        want = jlosses.compute_unbiased_loss_rawnerf(
+            {k: jnp.asarray(r[k]) for k in keys}, jnp.asarray(r["gt"]),
+            jnp.asarray(r["gt_nocorr"]), jcfg)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **UNIT)
 
 
 @pytest.mark.parametrize("which", sorted(SAMPLER_SETS))

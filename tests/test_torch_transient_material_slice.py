@@ -424,8 +424,23 @@ def test_unported_extra_losses_raise(extra):
     else:
         cfg = dataclasses.replace(cfg, **extra)
     name = next(iter(extra)).replace("_loss_weight", "")
-    with pytest.raises(NotImplementedError, match=rf"no runnable config reaches\).*{name}"):
-        ttrain.create_train_step(None, cfg)
+    # Ported now (held against JAX in tests/test_torch_loss_options.py): the
+    # step builds, and the loss is added to the main output's terms, by its
+    # name or by its Config weight.
+    ttrain.create_train_step(None, cfg)
+    rng = np.random.RandomState(3)
+    rays = tpytrees.Rays(*([None] * 12), lossmult=torch.ones(4, 1), near=None, far=None,
+                         cam_idx=None, light_idx=None)
+    batch = tpytrees.Batch(rays=rays, rgb=torch.as_tensor(rng.uniform(size=(4, 3)),
+                                                          dtype=torch.float32))
+    shader = {k: torch.as_tensor(rng.uniform(size=(4, 5, 3)), dtype=torch.float32)
+              for k in ("rgb", "lighting_emission", "lighting_irradiance",
+                        "material_residual_albedo")}
+    results = {"main": {"shader": shader, "geometry": None,
+                        "integrator": {"cache_rgb": torch.full((4, 3), 0.5)}}}
+    losses = textra.compute_extra_losses(cfg, batch, rays, results, "main", {}, TRAIN_FRAC,
+                                         rng=torch.Generator())
+    assert name in losses and np.isfinite(float(losses[name]))
 
 
 @pytest.mark.parametrize("change", ["shadow_rays", "tfilter", "share_light_power"])
