@@ -247,8 +247,8 @@ Phases, one line each (any failure exits nonzero):
      31 (0, 2 and 1 leveled launches; the hotdog's step launches none, so
      no fault is planted there);
  34. disk train: the three scenes at their captures' sizes, their view
-     counts cut (hotdog 30 train views of 800^2 RGBA, the teapot 20 train
-     views of 2048^2 EXR read at factor 4, the bell 20 views of 800^2 with
+     counts cut (hotdog 20 train views of 800^2 RGBA, the teapot 14 train
+     views of 2048^2 EXR read at factor 4, the bell 14 views of 800^2 with
      depth PNGs),
      through the entry point as train_one_stage.py builds its command: the
      README's two hotdog stages (cache at 8192, then
@@ -356,8 +356,8 @@ Phases, one line each (any failure exits nonzero):
      the limit bracketed by the CPU noise floor with the cameras +-1 ulp
      and two faults planted in the card's encoder forward; no scatter
      launch);
- 42. colmap train: the same layout at garden's factor-4 size (24 views of
-     1297 x 840, llffhold 8 holding out 3; sparse/0 at 5188 x 3360),
+ 42. colmap train: the same layout at garden's factor-4 size (16 views of
+     1297 x 840, llffhold 8 holding out 2; sparse/0 at 5188 x 3360),
      through the train_with_trainer entry point with Config.data_dir on
      the scene and Config.factor = 4: configs/ngp_yobo.gin's cache stage
      at batch 8192, its rays cast on the host, then with
@@ -449,6 +449,23 @@ Phases, one line each (any failure exits nonzero):
      accumulation at 8192 (2 micro-steps per update) and the pyramid's
      transient cache step at 2048 x 700 bins, a checked step and 3 warmup +
      --trainer-steps timed each (launches_by_path material_options_*).
+ 47. slice: the SLF's remaining options, the environment map, the cache
+     model's own resampling: narrow Trainer steps GPU vs CPU (noise floor,
+     two planted faults) of nero_ngp_yobo_bell under SLF option set E (the
+     points' integrated encoding, the sphere point, sorted distances with
+     the point nudge, the roughness-scaled reflectance query and its
+     density head; 1 planes call, the planes threshold lowered) and set E'
+     (voxel-plane placement, the far-field point; 1 leveled), and of
+     open_ngp_yobo_egg's cache (2 leveled) and SLF material stage (8
+     leveled) with the environment map on the cache, its shader and the
+     material shader, and of ngp_yobo.gin's cache with the steady shader's
+     active path and its shadow rays (no kernel); then bell's cache stage
+     under set E, egg's with the map and ngp_yobo's with the active shader
+     at the largest of 8192, 4096, 2048, egg's SLF material stage
+     with the map at 1024 warm-started from it (the entry point, 2 warmup +
+     2 timed steps, launches per step asserted against a checked step's),
+     and the flagship cache under resample_argmax at 8192 (launches_by_path
+     slice_*).
 Every evaluation through the trainer (phases 20-38, 42-44) scores LPIPS on
 the card beside PSNR and SSIM, and phase 34's hotdog material stage
 renders the secondary-ray probe (256 x 512) at its evaluation.
@@ -1165,7 +1182,7 @@ def _checking_scatter(kind, calls, capture=None, largest=False):
     """The `kind` scatter wrapper, with its plain version run on the same
     inputs after each call and held to SUM_ORDER_TOL x sum|w * ct|; each
     call is appended to `calls` (a leveled call with skip_zero_w as kind
-    "leveled_skip"). With `capture`, the first call's inputs are kept there
+    "leveled_skip"), with its largest |cotangent|. With `capture`, the first call's inputs are kept there
     (with `largest`, those of the call with the most updates)."""
     from neural_radiance_caching_tpu_torch.ops import scatter_cuda
 
@@ -1185,6 +1202,7 @@ def _checking_scatter(kind, calls, capture=None, largest=False):
         err = (out - want).abs()
         calls.append(dict(kind=kind + ("_skip" if kw.get("skip_zero_w") else ""),
                           shape=tuple(idx.shape), max_abs_err=float(err.max()),
+                          ct_abs_max=float(ct.abs().max()) if ct.numel() else 0.0,
                           ok=bool((err <= limit).all())))
         return out
 
@@ -2397,14 +2415,17 @@ def _trainer_setup(torch, device, config_file, bindings=(), nudge=0):
 
 
 def _trainer_step(torch, device, seed, nudge=0, fault=None, stage=TRAINER_CACHE_STAGE,
-                  config_file=TRAINER_REF_CONFIG, checked=None):
+                  config_file=TRAINER_REF_CONFIG, checked=None, fault_kind="leveled",
+                  planes_min=None):
     """One train step of a stage of `config_file` (synthetic_spheres.gin by
     default) through the Trainer's train step on `device`: the Trainer's
     first batch and weights, the draws from a CPU generator (the same numbers
     on both devices). nudge=+-1 moves the ray origins by one ulp up or down;
-    with `checked`, a list, every leveled call is held against its plain
-    version (`_checking_scatter`) and recorded there."""
-    from neural_radiance_caching_tpu_torch.ops import scatter_cuda
+    `fault` is planted in the `fault_kind` kernel; with `checked`, a list,
+    every leveled and planes call is held against its plain version
+    (`_checking_scatter`) and recorded there; `planes_min` lowers the
+    points from which a grid's backward takes the planes kernel."""
+    from neural_radiance_caching_tpu_torch.ops import hashgrid, scatter_cuda
     from neural_radiance_caching_tpu_torch.utils import pytrees
 
     trainer = _trainer_setup(torch, device, config_file, stage, nudge=nudge)
@@ -2414,10 +2435,13 @@ def _trainer_step(torch, device, seed, nudge=0, fault=None, stage=TRAINER_CACHE_
         batch = batch.replace(rays=batch.rays.replace(
             origins=torch.nextafter(o, torch.full_like(o, nudge * float("inf")))))
     before = dict(scatter_cuda.launches)
-    patch = dict(scatter_add_weighted_leveled=_planted_fault(fault)) if fault else {}
+    patch = ({f"scatter_add_weighted_{fault_kind}": _planted_fault(fault, fault_kind)}
+             if fault else {})
     if checked is not None:
-        patch = dict(scatter_add_weighted_leveled=_checking_scatter("leveled", checked))
-    with _patched(scatter_cuda, **patch):
+        patch = {f"scatter_add_weighted_{k}": _checking_scatter(k, checked)
+                 for k in ("leveled", "planes")}
+    planes = {} if planes_min is None else dict(PLANES_MIN_POINTS=planes_min)
+    with _patched(scatter_cuda, **patch), _patched(hashgrid, **planes):
         rng = torch.Generator().manual_seed(seed + 7)
         _, stats = trainer.train_step(rng, trainer.state, batch, 0.0)
     losses = {k: float(torch.as_tensor(v).detach()) for k, v in stats["losses"].items()}
@@ -2804,15 +2828,19 @@ TRANSIENT_BATCHES = (8192, 4096, 2048, 1024)
 
 
 def _gpu_vs_cpu_step(torch, device, seed, stage, config_file, launches, terms,
-                     tol=GRAD_REL_L2_TOL):
+                     tol=GRAD_REL_L2_TOL, fault_kind="leveled", planes_min=None):
     """One Trainer step of `stage` on `config_file`, GPU against CPU on the
     same weights, batch and draws: every loss term (each of `terms` present
     and nonzero), every gradient leaf (the limit `tol` bracketed by the
     CPU's noise floor with the cameras +-1 ulp and two faults planted in the
-    leveled kernel), every GPU leveled call held against its plain version;
-    `launches` leveled calls expected. The readings, with `ok`."""
+    `fault_kind` kernel), every GPU scatter call held against its plain
+    version; `launches`, {kind: count}, the calls expected (`planes_min` as
+    `_trainer_step`'s). The readings, with `ok` and the launches by kind."""
+    counts = launches
+
     def step(dev, **kw):
-        return _trainer_step(torch, dev, seed, stage=stage, config_file=config_file, **kw)
+        return _trainer_step(torch, dev, seed, stage=stage, config_file=config_file,
+                             fault_kind=fault_kind, planes_min=planes_min, **kw)
 
     l_cpu, g_cpu, n_cpu = step("cpu")
     floor, floor_at, loss_floor = 0.0, None, 0.0
@@ -2828,11 +2856,11 @@ def _gpu_vs_cpu_step(torch, device, seed, stage, config_file, launches, terms,
     loss_errs = {k: abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-30) for k in l_cpu}
     err, err_at = _worst_grad_err(g_gpu, g_cpu)
     faults = {f: _worst_grad_err(step(device, fault=f)[1], g_cpu)
-              for f in ("taps rotated", "finest level dropped") if launches}
+              for f in ("taps rotated", "finest level dropped") if sum(counts.values())}
     ok = (all(torch.isfinite(g).all() for g in g_gpu.values())
           and set(terms) <= set(l_cpu) and all(l_cpu[k] != 0 for k in terms)
           and max(loss_errs.values()) <= 1e-3 and n_cpu == _launch_counts()
-          and n_gpu == _launch_counts(leveled=launches) and len(checked) == launches
+          and n_gpu == _launch_counts(**counts) and len(checked) == sum(counts.values())
           and all(c["ok"] for c in checked) and floor <= tol and err <= tol
           and all(v > tol for v, _ in faults.values()))
     return dict(ok=ok, loss_rel_err=max(loss_errs.values()), loss_rel_errs=loss_errs,
@@ -2840,7 +2868,8 @@ def _gpu_vs_cpu_step(torch, device, seed, stage, config_file, launches, terms,
                 grad_rel_l2_errs=_grad_errs(g_gpu, g_cpu), noise_floor=floor,
                 noise_floor_at=floor_at, faults={f: v for f, (v, _) in faults.items()},
                 fault_at={f: at for f, (_, at) in faults.items()}, tol=tol,
-                launches=n_gpu["leveled"], cpu_launches=n_cpu, checked=checked,
+                launches={k: n_gpu[k] for k in counts}, cpu_launches=n_cpu,
+                checked=checked, fault_kind=fault_kind,
                 max_abs_err=max((c["max_abs_err"] for c in checked), default=0.0), losses=l_gpu)
 
 
@@ -2852,7 +2881,7 @@ def _gpu_vs_cpu_text(r):
             f"rel_l2_err max={r['grad_rel_l2_err']:.3e} at {r['grad_err_at']} (tol {r['tol']}; "
             f"noise floor, cpu vs cpu with the cameras +-1 ulp: {r['noise_floor']:.3e} at "
             f"{r['noise_floor_at']}; "
-            + ("planted in the leveled kernel " + ", ".join(
+            + (f"planted in the {r.get('fault_kind', 'leveled')} kernel " + ", ".join(
                 f"{f}: {v:.3e} at {r['fault_at'][f]}" for f, v in r["faults"].items())
                + ", each must exceed the tol)" if r["faults"] else
                "no fault planted: the step launches no kernel)"))
@@ -2869,7 +2898,8 @@ def phase_trainer_transient_reference(torch, device, seed):
     their `cache_` duplicates."""
     r = _gpu_vs_cpu_step(torch, device, seed,
                          TRAINER_CACHE_STAGE + TRANSIENT_NARROW + TRANSIENT_OCCLUSIONS,
-                         TRANSIENT_CONFIG, launches=1, terms=_TRAINER_TRANSIENT_TERMS)
+                         TRANSIENT_CONFIG, launches={"leveled": 1},
+                         terms=_TRAINER_TRANSIENT_TERMS)
     losses = r["losses"]
     duplicated = {k for k in losses if k.startswith("cache_")} == {
         "cache_" + k for k in losses
@@ -3075,7 +3105,7 @@ def phase_trainer_transient_material_reference(torch, device, seed):
     for label, extra in (("direct", ()), ("occlusions", TRANSIENT_OCCLUSIONS)):
         r = _gpu_vs_cpu_step(torch, device, seed, TRANSIENT_MATERIAL_NARROW + extra,
                              TRANSIENT_CONFIG,
-                             launches=_TRAINER_TRANSIENT_MATERIAL_LAUNCHES_PER_STEP["leveled"],
+                             launches=_TRAINER_TRANSIENT_MATERIAL_LAUNCHES_PER_STEP,
                              terms=_TRAINER_TRANSIENT_MATERIAL_TERMS)
         print(f"trainer transient material reference ({label}): Trainer, {TRANSIENT_CONFIG} "
               f"material_light_from_scratch at reference widths"
@@ -3488,7 +3518,7 @@ def phase_trainer_invprop_reference(torch, device, seed):
     out = {}
     for scene, (config_file, extra) in INVPROP_SCENES.items():
         r = _gpu_vs_cpu_step(torch, device, seed, TRAINER_CACHE_STAGE + INVPROP_NARROW + extra,
-                             config_file, launches=1, terms=("data", "cache_data"))
+                             config_file, launches={"leveled": 1}, terms=("data", "cache_data"))
         print(f"trainer InvProp reference ({scene}): Trainer, {config_file} cache stage at "
               f"reference widths (96 bins, batch 64), one step, the same weights, batch and "
               f"draws, gpu vs cpu: {_gpu_vs_cpu_text(r)}; the leveled call against its plain "
@@ -3776,20 +3806,26 @@ BASELINE_RUNS = (
 )
 
 
-def _narrow_slf_binding(config_file):
-    """The scene's NeRFMLP.surface_lf_params at phase 31's widths: 16-wide
-    trunks and distance head, 4096-row grids (the own grid's largest level
-    128)."""
+def _narrow_slf_binding(config_file, options=None, narrow=True):
+    """The scene's NeRFMLP.surface_lf_params at phase 31's widths (unless
+    `narrow` is False): 16-wide trunks, distance and density heads,
+    4096-row grids (the own grid's largest level 128); with `options`
+    (phase 47's option sets) changed."""
     from neural_radiance_caching_tpu_torch.engine import configs, gin_config
 
     gin_config.clear_config()
     configs.load_config(config_files=[config_file], bindings=[])
     params = dict(gin_config.query_parameter("NeRFMLP.surface_lf_params"))
     gin_config.clear_config()
-    params.update(net_width=16, net_width_viewdirs=16, net_width_distance=16,
-                  reflectance_grid_params=dict(params["reflectance_grid_params"],
-                                               hash_map_size=4096),
-                  grid_params=dict(params["grid_params"], hash_map_size=4096, max_grid_size=128))
+    if narrow:
+        params.update(net_width=16, net_width_viewdirs=16, net_width_distance=16,
+                      reflectance_grid_params=dict(params["reflectance_grid_params"],
+                                                   hash_map_size=4096),
+                      grid_params=dict(params["grid_params"], hash_map_size=4096,
+                                       max_grid_size=128))
+        if (options or {}).get("use_density_prediction"):
+            params["net_width_density"] = 16
+    params.update(options or {})
     return f"NeRFMLP.surface_lf_params = {params!r}"
 
 
@@ -3807,7 +3843,8 @@ def phase_trainer_baseline_reference(torch, device, seed):
         narrow = (TRANSIENT_NARROW if "transient" in config_file
                   else NGP_NARROW + (_narrow_slf_binding(config_file),))
         r = _gpu_vs_cpu_step(torch, device, seed, TRAINER_CACHE_STAGE + narrow + extra,
-                             config_file, launches=BASELINE_REFERENCE_LAUNCHES[scene],
+                             config_file,
+                             launches={"leveled": BASELINE_REFERENCE_LAUNCHES[scene]},
                              terms=("data", "cache_data"))
         print(f"trainer baseline reference ({scene}): Trainer, {config_file} cache stage at "
               f"reference widths (batch 64, 16 samples per level"
@@ -3862,15 +3899,15 @@ DISK_NEAR = {"hotdog": 2.0, "orb_teapot": 0.25, "nero_bell": 1.0, "open_egg": 0.
              "colmap_garden_in_step": 0.2}
 # (views of the train split, of the test split, resolution[, the test
 # split's resolution]) at phase 34, the captures' layouts, their view counts
-# cut to keep the script inside its time limit: TensoIR's hotdog (30 of its
-# 100 train views of 800^2 RGBA; 4 of its 200 test views, written at 200^2:
-# its material stage's held-out view took 51 s at 800^2, and the vis_only
-# evaluation renders one more), ORB's teapot (2048^2 EXR read at factor
-# 4; 20 train and 2 test views: the capture's counts are not in the
-# repository and each view is a 48 MiB FLOAT EXR), NeRO's bell (20 of its
-# 128 views of 800^2, every 8th held out by synthetic_split_128.pkl, all
-# trained on).
-DISK_SIZES = {"hotdog": (30, 4, 800, 200), "orb_teapot": (20, 2, 2048), "nero_bell": (20, 4, 800)}
+# cut to keep the script inside its time limit: TensoIR's hotdog (20 of its
+# 100 train views of 800^2 RGBA, 30 until phase 47 came; 4 of its 200 test
+# views, written at 200^2: its material stage's held-out view took 51 s at
+# 800^2, and the vis_only evaluation renders one more), ORB's teapot (2048^2
+# EXR read at factor 4; 14 train and 2 test views, 20 train until phase 47:
+# the capture's counts are not in the repository and each view is a 48 MiB
+# FLOAT EXR), NeRO's bell (14 of its 128 views of 800^2, 20 until phase 47,
+# every 8th held out by synthetic_split_128.pkl, all trained on).
+DISK_SIZES = {"hotdog": (20, 4, 800, 200), "orb_teapot": (14, 2, 2048), "nero_bell": (14, 4, 800)}
 # Phase 33's: small scenes of the same layouts.
 DISK_REFERENCE_SIZES = {"hotdog": (6, 2, 64), "orb_teapot": (6, 2, 128),
                         "nero_bell": (8, 2, 64)}
@@ -4430,7 +4467,8 @@ def phase_disk_reference(torch, device, seed, tmp):
             served = (type(loaded[0]).__name__, tuple(loaded[0].images.shape))
             del loaded
             r = _gpu_vs_cpu_step(torch, device, seed, TRAINER_CACHE_STAGE + narrow + data,
-                                 config_file, launches=DISK_REFERENCE_LAUNCHES[scene],
+                                 config_file,
+                                 launches={"leveled": DISK_REFERENCE_LAUNCHES[scene]},
                                  terms=("data", "cache_data", "mask"))
             ok = r["ok"] and same
             print(f"disk reference ({scene}): {served[0]} loader on {config_file}'s layout "
@@ -5050,7 +5088,7 @@ def phase_transient_disk_reference(torch, device, seed, tmp):
                 ds.close()
             served = type(loaded[0]).__name__
         r = _gpu_vs_cpu_step(torch, device, seed, TRAINER_CACHE_STAGE + narrow + data,
-                             config_file, launches=1, terms=("data", "cache_data"))
+                             config_file, launches={"leveled": 1}, terms=("data", "cache_data"))
         ok = r["ok"] and same and round_trip
         print(f"transient disk reference ({scene}): {served} loader on {config_file}'s layout "
               f"({sizes['train_views']} train views' stream of {sizes['rays']} rays x "
@@ -5654,7 +5692,7 @@ def phase_real_disk_reference(torch, device, seed, tmp):
             masked = loaded[0].masks is not None
             del loaded
             r = _gpu_vs_cpu_step(torch, device, seed, TRAINER_CACHE_STAGE + narrow + data,
-                                 config_file, launches=REAL_REFERENCE_LAUNCHES,
+                                 config_file, launches={"leveled": REAL_REFERENCE_LAUNCHES},
                                  terms=("data", "cache_data") + (("mask",) if masked else ()),
                                  tol=REAL_REFERENCE_GRAD_TOL.get(scene, GRAD_REL_L2_TOL))
             ok = r["ok"] and same
@@ -6437,10 +6475,10 @@ def phase_data_parallel(torch, device, seed, smi, tmp):
 # loader, the default of Config.dataset_loader that ngp_yobo.gin keeps.
 COLMAP_CONFIG = "configs/ngp_yobo.gin"
 # (views, height, width) of images_4/: phase 42 at garden's factor-4 size
-# (its 185 views cut to 24, of which llffhold 8 holds out 3; no
-# full-resolution images/: the loader at factor 4 reads images_4/ only);
-# phase 41 small.
-COLMAP_SIZES = (24, 840, 1297)
+# (its 185 views cut to 16, 24 until phase 47 came, of which llffhold 8
+# holds out 2; no full-resolution images/: the loader at factor 4 reads
+# images_4/ only); phase 41 small.
+COLMAP_SIZES = (16, 840, 1297)
 COLMAP_REFERENCE_SIZES = (9, 96, 128)
 COLMAP_FACTOR = 4
 # mip-NeRF 360's OPENCV terms, and the focal over the full-resolution width.
@@ -6914,7 +6952,8 @@ def phase_multi_illum_reference(torch, device, seed, tmp):
               tuple(loaded[0].env_map.shape))
     del loaded
     r = _gpu_vs_cpu_step(torch, device, seed, TRAINER_CACHE_STAGE + narrow + data, config_file,
-                         launches=REAL_REFERENCE_LAUNCHES, terms=("data", "cache_data", "mask"))
+                         launches={"leveled": REAL_REFERENCE_LAUNCHES},
+                         terms=("data", "cache_data", "mask"))
 
     # The suffix as the configs leave it.
     ckpt = os.path.join(tmp, "multi_illum_gap")
@@ -7229,7 +7268,7 @@ def phase_options_reference(torch, device, seed):
     pano_errs, pano_f32 = _options_pano_cast(torch, device, seed)
     hits = _options_intersect(torch, device, seed)
     patch = _gpu_vs_cpu_step(torch, device, seed, TRAINER_CACHE_STAGE + OPTIONS_PATCH,
-                             TRAINER_REF_CONFIG, launches=1,
+                             TRAINER_REF_CONFIG, launches={"leveled": 1},
                              terms=("data", "cache_data", "patch", "cache_patch"))
     mesh_step = _mesh_reference_step(torch, device, seed)
     shadings_ok = all(r["equal"] and r["lights"] == 8 for r in shadings.values())
@@ -7267,7 +7306,7 @@ def phase_options_reference(torch, device, seed):
     if not ok:
         raise AssertionError("a loader option or the mesh shortcut disagrees on the card")
     return dict(patch_batches_equal=same, shadings=shadings, pano_cast_errs=pano_errs,
-                intersect=hits, launches=patch["launches"] + mesh_step["launches"],
+                intersect=hits, launches=patch["launches"]["leveled"] + mesh_step["launches"],
                 max_abs_err=patch["max_abs_err"],
                 patch_step={k: v for k, v in patch.items()
                             if k not in ("ok", "checked", "cpu_launches", "grad_rel_l2_errs")},
@@ -8299,6 +8338,229 @@ def phase_material_options_train(torch, device, seed, steps, smi):
                       views=(4, 64)))
 
 
+# Phase 47: the SLF's remaining options, the environment map, the cache
+# model's own resampling and the shaders' remaining fields
+# (models/surface_light_field.py, nerf_model.py, nerf_shader.py,
+# material_shader.py, material_model.py, shading.py). Set E on
+# nero_ngp_yobo_bell's SLF: the points' integrated encoding, the sphere
+# point, sorted distances with the point nudge (3 samples: past 3 JAX's nudge
+# gather fills NaN, a reference gap), the roughness-scaled reflectance query
+# and its density head. Set E': voxel-plane placement with the far-field
+# point as the reflectance query. open_ngp_yobo_egg with the environment
+# map on the cache model, its shader and the material shader (the config's
+# own env_map_params; SLICE_ENV_INSIDE's env distance). The flagship cache with
+# its own resampling of primary rays under resample_argmax.
+SLICE_SET_E = dict(use_points=True, use_points_ide=True, use_sphere_points=True,
+                   sphere_radius=1.5, use_sorted_distances=True, use_point_offsets=True,
+                   num_distance_samples=3, point_offset_bias=0.0, use_roughness=True,
+                   roughness_scale=0.5, use_density_prediction=True)
+SLICE_SET_E_PRIME = dict(use_voxel_grid=True, num_distance_samples=6, voxel_end=4.0,
+                         use_far_field_points=True)
+SLICE_ENV = ("NeRFModel.use_env_map = True", "NeRFMLP.use_env_map = True")
+SLICE_SLF_STAGE = ("Trainer.stage = 'material_surface_light_field_light'",
+                   "Trainer.resample = True", "Trainer.resample_render = True",
+                   "MaterialMLP.use_env_map = True")
+SLICE_MATERIAL_NARROW = (
+    "LightMLP.num_components = 8", "LightMLP.net_width = 16", "LightMLP.bottleneck_width = 16",
+    "MaterialMLP.net_width = 16", "MaterialMLP.bottleneck_width = 16",
+    "MaterialMLP.cache_train_sampling_strategy = ((0, 0, 16), (1, 1, 16), (2, 2, 16))")
+# The env-map steps' env distance: the config's own 0.5 equals its SLF's
+# near plane, which leaves the SLF an empty range (no gradient reaches its
+# grids, in JAX too, and a planted fault shows nowhere); 2.0 gives the SLF
+# and its kernels a gradient. The SLF material stage's loss radius: the
+# config's 0.5 takes in no surface point of synthetic_spheres (its central
+# sphere's radius is 0.55), so no material output would take a gradient.
+SLICE_ENV_INSIDE = ("Config.env_map_distance = 2.0",)
+SLICE_LIVE_MATERIAL = ("Config.material_loss_radius = 10.0",
+                       "Config.surface_light_field_loss_radius = 10.0")
+# The narrow steps' reflectance grid under set E (64 rays x 16 samples x 3
+# points) takes the planes kernel from this many points.
+SLICE_PLANES_MIN = 2048
+SLICE_RESAMPLE = dict(resample=True, num_resample=4, resample_argmax=True)
+# The steady cache shader's active path (a point light, BRDF-net direct
+# terms, C-channel indirect nets); the narrow step traces its shadow rays.
+SLICE_STEADY_ACTIVE = ("NeRFMLP.use_active = True",)
+SLICE_OCCLUSIONS = ("Config.use_occlusions = True",
+                    "Config.occlusions_secondary_only = False")
+SLICE_CACHE_BATCHES = (8192, 4096, 2048)
+SLICE_MATERIAL_BATCHES = (1024, 512)
+SLICE_RESAMPLE_BATCH = 8192
+SLICE_WARMUP = 2
+SLICE_STEPS = 2
+# Each narrow reference: (scene, config file, stage bindings, kernel launches
+# per step, the kernel the faults are planted in, the planes threshold,
+# loss terms that must be present and nonzero).
+SLICE_REFERENCES = (
+    ("nero_bell set E", "configs/nero_ngp_yobo_bell.gin",
+     TRAINER_CACHE_STAGE + NGP_NARROW, SLICE_SET_E, (), {"planes": 1}, "planes",
+     SLICE_PLANES_MIN, ("data", "cache_data")),
+    ("nero_bell set E'", "configs/nero_ngp_yobo_bell.gin",
+     TRAINER_CACHE_STAGE + NGP_NARROW, SLICE_SET_E_PRIME, (), {"leveled": 1}, "leveled",
+     None, ("data", "cache_data")),
+    ("open_egg env map cache", "configs/open_ngp_yobo_egg.gin",
+     TRAINER_CACHE_STAGE + NGP_NARROW + ("Config.far = 4.0",), {},
+     SLICE_ENV + SLICE_ENV_INSIDE, {"leveled": 2}, "leveled", None, ("data", "cache_data")),
+    ("ngp_yobo steady active cache", "configs/ngp_yobo.gin",
+     TRAINER_CACHE_STAGE + NGP_NARROW, None, SLICE_STEADY_ACTIVE + SLICE_OCCLUSIONS,
+     {}, "leveled", None, ("data", "cache_data")),
+    ("open_egg env map SLF material", "configs/open_ngp_yobo_egg.gin",
+     SLICE_SLF_STAGE + ("Trainer.sample_factor = 1",) + NGP_NARROW + SLICE_MATERIAL_NARROW
+     + ("Config.far = 4.0",), {},
+     SLICE_ENV + SLICE_ENV_INSIDE + SLICE_LIVE_MATERIAL, {"leveled": 8}, "leveled", None,
+     ("cache_data", "data", "material_surface_light_field")),
+)
+
+
+def phase_slice_reference(torch, device, seed):
+    """Phase 31's method (`_gpu_vs_cpu_step`) on SLICE_REFERENCES at
+    NGP_NARROW's widths: every loss term and gradient leaf of one step, GPU
+    against CPU, the limit bracketed by the CPU's noise floor and two faults
+    planted in the planes (set E) or leveled kernel; every scatter call held
+    against its plain version."""
+    out = {}
+    for label, config_file, stage, options, extra, launches, kind, planes_min, terms in \
+            SLICE_REFERENCES:
+        slf = () if options is None else (_narrow_slf_binding(config_file, options),)
+        narrow = stage + slf + extra
+        r = _gpu_vs_cpu_step(torch, device, seed, narrow, config_file, launches=launches,
+                             terms=terms, fault_kind=kind, planes_min=planes_min)
+        print(f"slice reference ({label}): Trainer, {config_file} at reference widths (batch "
+              f"64, 16 samples per level), one step, the same weights, batch and draws, gpu vs "
+              f"cpu: {_gpu_vs_cpu_text(r)}; the scatter calls against their plain version: "
+              f"{_checked_text(r['checked'])}; kernel launches gpu={r['launches']} "
+              f"cpu={r['cpu_launches']} {'ok' if r['ok'] else 'FAIL'}", flush=True)
+        if not r["ok"]:
+            raise AssertionError(f"the Trainer's GPU step disagrees with its CPU step ({label})")
+        out[label] = {k: v for k, v in r.items()
+                      if k not in ("ok", "checked", "cpu_launches", "grad_rel_l2_errs")}
+    return out
+
+
+def _slice_entry_run(torch, label, config_file, bindings, batches, seed, smi, tmp, warm=None):
+    """`config_file` with `bindings` through the train_with_trainer entry
+    point, in-process, at the largest of `batches` that fits:
+    SLICE_WARMUP + SLICE_STEPS steps, the timed ones by host clock, the
+    launch counts set to 0 before the run and read after it; then one step
+    with every scatter call held against its plain version, whose launches
+    the run's must equal per step (and which must launch, each kernel on
+    some nonzero cotangent). No resume and no
+    eval view: phases 20-32 hold both. Returns (readings, checkpoint)."""
+    import gc
+    import os
+
+    from neural_radiance_caching_tpu_torch.engine import gin_config
+
+    total, cut = SLICE_WARMUP + SLICE_STEPS, []
+    for batch in batches:
+        ckpt = os.path.join(tmp, f"slice_{label.replace(' ', '_')}_{batch}")
+        common = TRAINER_BINDINGS + tuple(bindings) + (
+            f"Config.batch_size = {batch}", f"Config.checkpoint_dir = '{ckpt}'",
+            f"Config.early_exit_steps = {total}", f"Config.print_every = {total}",
+            f"Config.jax_rng_seed = {20200823 + seed}", "Trainer.save_results = False")
+        args = [f"--gin_configs={config_file}"] + [f"--gin_bindings={b}" for b in common]
+        if warm is not None:
+            args.append(f"--gin_bindings=Config.partial_checkpoint_dir = '{warm}'")
+        try:
+            run = _entry_point_run(torch, args, None, ckpt, SLICE_WARMUP, SLICE_STEPS,
+                                   evaluate=False)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            cut.append(_out_of_memory(torch, f"slice train ({label})", batch, e))
+            del e
+            gin_config.clear_config()
+            gc.collect()
+            torch.cuda.empty_cache()
+    else:
+        raise AssertionError(f"no batch of {batches} fits {label}")
+    trainer = run["trainer"]
+    calls, checked, stats = _checked_step(torch, trainer, {"leveled": 0, "planes": 0})
+    per_step = {k: v for k, v in checked.items() if v}
+    finite = _finite(run["losses"].values()) and bool(torch.isfinite(stats["loss"]))
+    # Each kernel's check is void on zero cotangents: each must see some.
+    live = {k: sum(c["ct_abs_max"] > 0 for c in calls if c["kind"].startswith(k))
+            for k in per_step}
+    ok = (finite and run["saved"] == total
+          and run["launches"] == _launch_counts(**{k: n * total for k, n in per_step.items()})
+          and len(calls) == sum(per_step.values()) and all(c["ok"] for c in calls)
+          and all(live.values()))
+    dt = run["step_s"]
+    print(f"slice train ({label}): train_with_trainer {config_file}"
+          f"{' warm-started from its cache stage' if warm else ''} "
+          f"{_cut_text(batch, batches, cut)}, {SLICE_WARMUP} warmup + {SLICE_STEPS} timed "
+          f"steps: step_ms={dt * 1e3:.2f} rays_per_s={batch / dt:.0f} on [{smi}]; peak "
+          f"{run['peak_gib']:.2f} GiB; losses finite={finite}; kernel launches="
+          f"{ {k: v for k, v in run['launches'].items() if v} } over {total} steps (per step "
+          f"{per_step}, asserted: the checked step's); checked step "
+          + "; ".join(f"{c['kind']} idx{list(c['shape'])} max_abs_err={c['max_abs_err']:.3e} "
+                      f"|ct|max={c['ct_abs_max']:.3e} {'ok' if c['ok'] else 'FAIL'}"
+                      for c in calls)
+          + f"; calls with a nonzero cotangent by kernel {live} (each must be > 0); entry "
+          f"point {run['wall']:.1f}s {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"slice train phase failed ({label})")
+    out = dict(step_ms=dt * 1e3, rays_per_s=batch / dt, peak_gib=run["peak_gib"], batch=batch,
+               cut=cut, steps=SLICE_STEPS, warmup=SLICE_WARMUP, launches_per_step=per_step,
+               launches={k: run["launches"][k] for k in per_step}, entry_point_s=run["wall"],
+               live_calls=live,
+               max_abs_err=max((c["max_abs_err"] for c in calls), default=0.0))
+    del trainer, run, stats
+    gin_config.clear_config()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, ckpt
+
+
+def phase_slice_train(torch, device, seed, smi, tmp):
+    """Phase 47's full-width runs through the entry point: nero_bell's cache
+    stage under set E and open_egg's with the environment map (the largest
+    of 8192, 4096, 2048 that fits), open_egg's SLF material stage with the
+    environment map at 1024 (or 512) warm-started from it, ngp_yobo's cache
+    stage with the steady shader's active path (no kernel launch: its
+    density normals take the plain encoder); then the flagship cache under
+    its own resampling with resample_argmax at 8192."""
+    from neural_radiance_caching_tpu_torch import flagship
+    from neural_radiance_caching_tpu_torch.ops import hashgrid
+
+    nero, open_egg = "configs/nero_ngp_yobo_bell.gin", "configs/open_ngp_yobo_egg.gin"
+    runs = {}
+    runs["nero_bell_set_e"], _ = _slice_entry_run(
+        torch, "nero_bell set E", nero,
+        TRAINER_CACHE_STAGE + (_narrow_slf_binding(nero, SLICE_SET_E, narrow=False),),
+        SLICE_CACHE_BATCHES, seed, smi, tmp)
+    points = runs["nero_bell_set_e"]["batch"] * NGP_FINAL_SAMPLES * 3
+    kind = "planes" if hashgrid.use_planes_layout(points, "mean") else "leveled"
+    env = TRAINER_CACHE_STAGE + ("Config.far = 4.0",) + SLICE_ENV + SLICE_ENV_INSIDE
+    runs["open_egg_env_cache"], ckpt = _slice_entry_run(
+        torch, "open_egg env map cache", open_egg, env, SLICE_CACHE_BATCHES, seed, smi, tmp)
+    runs["open_egg_env_slf_material"], _ = _slice_entry_run(
+        torch, "open_egg env map SLF material", open_egg,
+        ("Config.far = 4.0",) + SLICE_ENV + SLICE_ENV_INSIDE + SLICE_LIVE_MATERIAL
+        + SLICE_SLF_STAGE,
+        SLICE_MATERIAL_BATCHES, seed, smi, tmp, warm=ckpt)
+
+    runs["ngp_yobo_steady_active"], _ = _slice_entry_run(
+        torch, "ngp_yobo steady active cache", "configs/ngp_yobo.gin",
+        TRAINER_CACHE_STAGE + SLICE_STEADY_ACTIVE, SLICE_CACHE_BATCHES, seed, smi, tmp)
+
+    def cache():
+        config = flagship.cache_config(batch_size=SLICE_RESAMPLE_BATCH)
+        return flagship.build_flagship_cache_model(
+            config, dict(flagship.flagship_cache_params(), **SLICE_RESAMPLE),
+            device=device), config
+
+    runs["flagship_resample_argmax"] = _sampling_train_run(
+        torch, device, seed, SLICE_STEPS, smi, cache, SLICE_RESAMPLE_BATCH,
+        _launch_counts(leveled=1),
+        "slice train (flagship cache, resample_argmax, 4 samples per ray)")
+    expected = {"nero_bell_set_e": {kind: 1}, "ngp_yobo_steady_active": {},
+                "open_egg_env_cache": _open_launches(runs["open_egg_env_cache"]["batch"])}
+    for k, want in expected.items():
+        if runs[k]["launches_per_step"] != want:
+            raise AssertionError(f"{k}: launches per step {runs[k]['launches_per_step']}, "
+                                 f"expected {want}")
+    return runs
+
+
 def _profile(torch, train_step, state, rng, batches, path, steps=3):
     """Device time by kernel over `steps` steps, as a table written to `path`."""
     import pathlib
@@ -8439,6 +8701,11 @@ def main():
     material_options_reference = phase_material_options_reference(torch, device, args.seed)
     material_options = phase_material_options_train(torch, device, args.seed, args.trainer_steps,
                                                     smi)
+    t_slice = time.perf_counter()
+    slice_reference = phase_slice_reference(torch, device, args.seed)
+    with tempfile.TemporaryDirectory() as slice_tmp:
+        slice_runs = phase_slice_train(torch, device, args.seed, smi, slice_tmp)
+    print(f"phase 47 done in {time.perf_counter() - t_slice:.1f}s", flush=True)
     print(f"phases done in {time.perf_counter() - t_start:.1f}s, build included", flush=True)
 
     csrc = "neural_radiance_caching_tpu_torch/csrc"
@@ -8469,12 +8736,13 @@ def main():
                  "trainer_slf_train": trainer_slf["launches"],
                  "trainer_slf_cache_side": trainer_slf["cache_side"]["launches"]}
     leveled_launches.update(slf_paths)
-    invprop_paths = {**{f"trainer_invprop_reference_{scene}": invprop_reference[scene]["launches"]
+    invprop_paths = {**{f"trainer_invprop_reference_{scene}":
+                        invprop_reference[scene]["launches"]["leveled"]
                         for scene in INVPROP_SCENES},
                      **{f"trainer_{run}": r["launches"] for run, r in invprop.items()}}
     leveled_launches.update(invprop_paths)
     baseline_leveled = {
-        **{f"trainer_baseline_reference_{scene}": baseline_reference[scene]["launches"]
+        **{f"trainer_baseline_reference_{scene}": baseline_reference[scene]["launches"]["leveled"]
            for scene in BASELINE_SCENES},
         **{f"trainer_{run}": r["launches_by_kernel"]["leveled"] for run, r in baseline.items()}}
     leveled_launches.update(baseline_leveled)
@@ -8482,7 +8750,7 @@ def main():
                        for run, r in baseline.items()}
     disk_runs = {run: r for run, r in disk.items() if run not in ("written", "hotdog_vis_only")}
     disk_leveled = {
-        **{f"trainer_disk_reference_{scene}": disk_reference[scene]["launches"]
+        **{f"trainer_disk_reference_{scene}": disk_reference[scene]["launches"]["leveled"]
            for scene in DISK_SCENES},
         **{f"trainer_disk_{run}": r["launches_by_kernel"]["leveled"]
            for run, r in disk_runs.items()}}
@@ -8493,14 +8761,14 @@ def main():
                            if run not in ("written", "cornell_vis_only")}
     transient_disk_leveled = {
         **{f"trainer_transient_disk_reference_{scene}": transient_disk_reference[scene][
-            "launches"] for scene in TRANSIENT_DISK_SCENES},
+            "launches"]["leveled"] for scene in TRANSIENT_DISK_SCENES},
         **{f"trainer_transient_disk_{run}": r["launches"]
            for run, r in transient_disk_runs.items()},
         "trainer_transient_disk_cornell_vis_only": 0}
     leveled_launches.update(transient_disk_leveled)
     real_runs = {run: r for run, r in real.items() if run != "written"}
     real_leveled = {
-        **{f"trainer_real_disk_reference_{scene}": real_reference[scene]["launches"]
+        **{f"trainer_real_disk_reference_{scene}": real_reference[scene]["launches"]["leveled"]
            for scene in REAL_SCENES},
         **{f"trainer_real_disk_{run}": r["launches_by_kernel"]["leveled"]
            for run, r in real_runs.items()}}
@@ -8515,7 +8783,7 @@ def main():
                       "colmap_flagship": colmap["flagship"]["launches"]}
     leveled_launches.update(colmap_leveled)
     multi_runs = {run: r for run, r in multi.items() if run != "written"}
-    multi_leveled = {"multi_illum_reference": multi_reference["launches"],
+    multi_leveled = {"multi_illum_reference": multi_reference["launches"]["leveled"],
                      **{f"multi_illum_{run}": r["launches_by_kernel"]["leveled"]
                         for run, r in multi_runs.items()}}
     leveled_launches.update(multi_leveled)
@@ -8533,6 +8801,15 @@ def main():
         **{f"material_options_{run}": r["launches"].get("leveled", 0)
            for run, r in material_options.items()}}
     leveled_launches.update(material_options_leveled)
+    slice_leveled = {**{f"slice_reference_{k}": r["launches"].get("leveled", 0)
+                        for k, r in slice_reference.items()},
+                     **{f"slice_{k}": r["launches"].get("leveled", 0)
+                        for k, r in slice_runs.items()}}
+    leveled_launches.update(slice_leveled)
+    slice_planes = {**{f"slice_reference_{k}": r["launches"].get("planes", 0)
+                       for k, r in slice_reference.items()},
+                    **{f"slice_{k}": r["launches"].get("planes", 0)
+                       for k, r in slice_runs.items()}}
     sampling_planes = {"sampling_reference": sampling_reference["launches"]["planes"],
                        "sampling_concat_encoder": 0, "sampling_mean_encoder": 1,
                        "sampling_cache": sampling["cache"]["launches"].get("planes", 0),
@@ -8552,7 +8829,8 @@ def main():
                    **{k: 0 for k in real_leveled}, **{k: 0 for k in dp_leveled},
                    **{k: 0 for k in colmap_leveled}, **{k: 0 for k in multi_leveled},
                    **{k: 0 for k in options_leveled}, **{k: 0 for k in sampling_leveled},
-                   **{k: 0 for k in material_options_leveled}}
+                   **{k: 0 for k in material_options_leveled},
+                   **{k: 0 for k in slice_leveled}}
     print(json.dumps({"kernels": [{
         "name": "scatter_add_weighted_leveled",
         "route": "cuda",
@@ -8591,7 +8869,9 @@ def main():
                            sampling["material"]["max_abs_err_by_kernel"]["leveled"],
                            material_options_reference["max_abs_err"],
                            *(r["max_abs_err_by_kernel"]["leveled"]
-                             for r in material_options.values())),
+                             for r in material_options.values()),
+                           *(r["max_abs_err"] for r in slice_reference.values()),
+                           *(r["max_abs_err"] for r in slice_runs.values())),
         "max_abs_err_by_shape": {"cache": kernel["max_abs_err"],
                                  "material_path": material_err["leveled"],
                                  "transient_path": transient["direct"]["max_abs_err"],
@@ -8615,7 +8895,8 @@ def main():
                                     for run, r in baseline.items()},
                                  **{f"trainer_disk_reference_{scene}_path":
                                     disk_reference[scene]["max_abs_err"]
-                                    for scene in DISK_SCENES if disk_reference[scene]["launches"]},
+                                    for scene in DISK_SCENES
+                                    if disk_reference[scene]["launches"]["leveled"]},
                                  **{f"trainer_disk_{run}_path": r["max_abs_err_by_kernel"][
                                      "leveled"] for run, r in disk_runs.items()
                                     if "leveled" in r["max_abs_err_by_kernel"]},
@@ -8648,7 +8929,11 @@ def main():
                                  "material_options_reference_path": material_options_reference[
                                      "max_abs_err"],
                                  **{f"material_options_{run}_path": r["max_abs_err_by_kernel"][
-                                     "leveled"] for run, r in material_options.items()}},
+                                     "leveled"] for run, r in material_options.items()},
+                                 **{f"slice_reference_{k}_path": r["max_abs_err"]
+                                    for k, r in slice_reference.items()},
+                                 **{f"slice_{k}_path": r["max_abs_err"]
+                                    for k, r in slice_runs.items()}},
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
         "library_ms": kernel["library_ms"],
@@ -8694,13 +8979,14 @@ def main():
         "replaces": f"{replaces}:364",
         "launches": material["planes"] + sum(baseline_planes.values())
         + sum(disk_planes.values()) + sum(real_planes.values()) + sum(multi_planes.values())
-        + sum(sampling_planes.values()) + sum(material_options_planes.values()),
+        + sum(sampling_planes.values()) + sum(material_options_planes.values())
+        + sum(slice_planes.values()),
         "launches_by_path": {"cache_train": 0, "material_train": material["planes"],
                              "transient_train": 0, "transient_train_dedup": 0, "gate": 0,
                              "eval_render": 0, "transient_material": 0, "trainer_train": 0,
                              "trainer_material_train": 0, **other_paths, **baseline_planes,
                              **disk_planes, **real_planes, **multi_planes, **sampling_planes,
-                             **material_options_planes},
+                             **material_options_planes, **slice_planes},
         "max_abs_err": max(planes["max_abs_err"], material_err["planes"],
                            *(r["max_abs_err_by_kernel"].get("planes", 0.0)
                              for r in [*baseline.values(), *disk_runs.values(),
@@ -8788,7 +9074,8 @@ def main():
         "sampling_train": sampling,
         "material_options_functions": material_options_functions,
         "material_options_reference": material_options_reference,
-        "material_options_train": material_options, "device": smi}}), flush=True)
+        "material_options_train": material_options, "slice_reference": slice_reference,
+        "slice_train": slice_runs, "device": smi}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,6 +40,47 @@ from neural_radiance_caching_tpu_torch.ops import coord, geopoly, math, ref_util
 from neural_radiance_caching_tpu_torch.utils import torchutil
 
 
+def warp_control_points(warp, control, perp_mag, unscented_scale_mult):
+    """(control points through `warp`, their scale for a scale-aware grid
+    query or None): with a positive `unscented_scale_mult` and `perp_mag`,
+    the points' scale is tracked through the warp (the contraction's
+    isotropic scale, else ``coord.track_isotropic``)."""
+    if perp_mag is None or unscented_scale_mult <= 0:
+        return warp(control), None
+    if getattr(warp, "__wrapped__", warp) is coord.contract:
+        s = coord.contract3_isoscale(control)
+        return warp(control), unscented_scale_mult * (perp_mag * s)[..., None]
+    control, perp_mag = coord.track_isotropic(warp, control, perp_mag)
+    return control, unscented_scale_mult * perp_mag[..., None]
+
+
+def adjust_covariances(covs, isotropize, scale, pad):
+    """The Gaussians' covariances made isotropic, scaled and padded on the
+    diagonal, as the fields ask."""
+    if isotropize:
+        covs = coord.isotropize(covs)
+    if scale != 1:
+        covs = covs * scale
+    if pad > 0:
+        covs = covs + pad * torch.eye(covs.shape[-1], dtype=covs.dtype, device=covs.device)
+    return covs
+
+
+def integrated_posenc(warp, means, covs, pos_basis_t, min_deg, max_deg, dtype=None):
+    """The Gaussians' integrated positional encoding over the basis
+    `pos_basis_t` [3, B], through `warp` (linearised) if given."""
+    if warp is not None:
+        means, covs = coord.track_linearize(warp, means, covs)
+    lifted_means, lifted_vars = coord.lift_and_diagonalize(means, covs, pos_basis_t)
+    return coord.integrated_pos_enc(lifted_means, lifted_vars, min_deg, max_deg, dtype=dtype)
+
+
+def posenc_basis(basis_shape, basis_subdivisions):
+    """The posenc basis [3, B] of ``geopoly.generate_basis``, float32."""
+    return torch.as_tensor(np.ascontiguousarray(geopoly.generate_basis(
+        basis_shape, basis_subdivisions).T), dtype=torch.float32)
+
+
 @gin.configurable
 class DensityMLP(Configurable, nn.Module):
     """Density MLP over grid features (or IPE posenc)."""
@@ -91,10 +132,9 @@ class DensityMLP(Configurable, nn.Module):
         nn.Module.__init__(self)
         self.config = config
         self._set_fields(kwargs)
-        self.register_buffer("pos_basis_t", torch.as_tensor(
-            np.ascontiguousarray(geopoly.generate_basis(
-                self.basis_shape, self.basis_subdivisions).T), dtype=torch.float32),
-            persistent=False)
+        self.register_buffer("pos_basis_t", posenc_basis(self.basis_shape,
+                                                         self.basis_subdivisions),
+                             persistent=False)
         compute_dtype = torch.bfloat16 if self.use_bf16_compute else None
 
         in_dim = 0
@@ -125,16 +165,8 @@ class DensityMLP(Configurable, nn.Module):
             control = means[..., None, :] + control_offsets
             scale = None
             if warp is not None:
-                if perp_mag is not None and self.unscented_scale_mult > 0:
-                    if getattr(warp, "__wrapped__", warp) is coord.contract:
-                        s = coord.contract3_isoscale(control)
-                        scale = self.unscented_scale_mult * (perp_mag * s)[..., None]
-                        control = warp(control)
-                    else:
-                        control, perp_mag = coord.track_isotropic(warp, control, perp_mag)
-                        scale = self.unscented_scale_mult * perp_mag[..., None]
-                else:
-                    control = warp(control)
+                control, scale = warp_control_points(warp, control, perp_mag,
+                                                     self.unscented_scale_mult)
 
             # The feature filter: the fine levels of points beyond the radius
             # are zeroed, and under far_field those points are queried at a
@@ -166,25 +198,17 @@ class DensityMLP(Configurable, nn.Module):
                                feature_filter=feature_filter,
                                feature_filter_size=self.feature_filter_size, **grid_kwargs))
         if self.grid is None or self.use_posenc_with_grid:
-            if warp is not None:
-                means, covs = coord.track_linearize(warp, means, covs)
-            lifted_means, lifted_vars = coord.lift_and_diagonalize(means, covs, self.pos_basis_t)
-            x.append(coord.integrated_pos_enc(
-                lifted_means, lifted_vars, self.min_deg_point, self.max_deg_point,
-                dtype=torch.bfloat16 if self.use_bf16_compute else None))
+            x.append(integrated_posenc(warp, means, covs, self.pos_basis_t, self.min_deg_point,
+                                       self.max_deg_point,
+                                       dtype=torch.bfloat16 if self.use_bf16_compute else None))
         return torch.cat(x, dim=-1) if len(x) > 1 else x[0]
 
     def predict_density(self, means, covs, control_offsets, perp_mag=None, is_secondary=False,
                         viewdirs=None, plain_encoder=False):
         """Raw density (pre-activation, without the density noise) and trunk
         feature for each sample."""
-        if self.isotropize_gaussians:
-            covs = coord.isotropize(covs)
-        if self.gaussian_covariance_scale != 1:
-            covs = covs * self.gaussian_covariance_scale
-        if self.gaussian_covariance_pad > 0:
-            covs = covs + self.gaussian_covariance_pad * torch.eye(
-                covs.shape[-1], dtype=covs.dtype, device=covs.device)
+        covs = adjust_covariances(covs, self.isotropize_gaussians, self.gaussian_covariance_scale,
+                                  self.gaussian_covariance_pad)
         x = self.density_layers(self._encode(means, covs, control_offsets, perp_mag, is_secondary,
                                              viewdirs, plain_encoder))
         return self.output_density_layer(x)[..., 0].float(), x.float()

@@ -57,8 +57,10 @@ it there.
 
 The render passes ("cache", "light", "material", "is_secondary",
 "surface_light_field_vis", "light_sampler_vis") pick what a render runs:
-without "material" it is the cache's, and with "is_secondary" the cache is
-queried as secondary rays (the trainer's secondary-ray probe).
+without "material" it is the cache's, and with "is_secondary" the rays are
+secondary rays (the trainer's secondary-ray probe; with the material pass,
+its surface points are resampled and shaded by the cache as secondary
+ones). Any other pass is read by nothing, as in JAX.
 
 Under ``Config.volume_variate_material`` the cache shader's results at the
 surface points are integrated too, and the material render's outputs take
@@ -87,6 +89,13 @@ from neural_radiance_caching_tpu_torch.models import material_shader, nerf_model
 from neural_radiance_caching_tpu_torch.utils import torchutil
 
 # Sentinel: "use the cache pass's own resample indices".
+# MaterialMLP.use_env_map over a cache without its environment map.
+ENV_MAP_CACHE_GAP = (
+    "MaterialMLP.use_env_map over a cache without use_env_map (NeRFModel.use_env_map) is a "
+    "reference gap: the JAX cache then renders the env_map_only query as primary rays, whose "
+    "stopgrad_cache_weight stays in its render kwargs, and raises TypeError: "
+    "apply_shader_and_integrator() got multiple values for keyword argument "
+    "'stopgrad_cache_weight' (models/nerf_model.py:521)")
 _CACHE_INDS = object()
 
 
@@ -144,7 +153,8 @@ class BaseMaterialModel(nerf_model.Model):
         # without a material pass has none.
         self.cache = self._cache_cls(
             config=config, use_surface_light_field=self.use_surface_light_field and self.use_material,
-            **dict(self.cache_model_params or {}), **dict(self.extra_model_params or {}))
+            env_map_queried=False, **dict(self.cache_model_params or {}),
+            **dict(self.extra_model_params or {}))
         if self.use_vignette:
             self.vignette_map = nerf_model.VignetteMap(config=config)
         if not self.use_material:
@@ -161,6 +171,11 @@ class BaseMaterialModel(nerf_model.Model):
             density_feature_dim=feature_dim, **dict(self.shader_params or {}))
         self.integrator = self._integrator_cls(
             config=config, **dict(self.integrator_params or {}))
+        if self.shader.use_env_map and not self.shader.use_active:
+            # The environment-lit lobes query the cache's map.
+            if not self.cache.use_env_map:
+                raise NotImplementedError(ENV_MAP_CACHE_GAP)
+            self.cache.build_env_map()
 
     _CACHE_MAIN_KEYS = ("sampler", "filtered_sampler_inds", "geometry", "shader", "integrator")
 
@@ -187,16 +202,11 @@ class BaseMaterialModel(nerf_model.Model):
         if passes is not None and set(passes) & set(self.BYPASS_PASSES):
             return self.bypass(rng, rays, passes, sampler_results, train_frac=train_frac,
                                train=train, **render_kwargs)
+        # A pass outside RENDER_PASSES and BYPASS_PASSES is read by nothing,
+        # as in JAX.
         passes = ("cache", "light", "material") if passes is None else tuple(passes)
-        unknown = set(passes) - set(self.RENDER_PASSES)
-        if unknown:
-            raise NotImplementedError(f"the material model's passes {sorted(unknown)} are not "
-                                      "ported yet")
         is_secondary = render_kwargs.pop("is_secondary", False) or "is_secondary" in passes
         use_material = self.use_material and "material" in passes
-        if is_secondary and use_material:
-            raise NotImplementedError("secondary-ray queries of the material model's material "
-                                      "pass are not ported")
         slf_vis = None
         if "surface_light_field_vis" in passes and self.cache.use_surface_light_field:
             # The memory's radiance along the rays, beside the render (a model
@@ -228,7 +238,8 @@ class BaseMaterialModel(nerf_model.Model):
                 else filtered_sampler_inds)
         key, rng = torchutil.random_split(rng)
         filtered, cache_shader_results = self._get_material_samples(
-            key, rays, cache_outputs["sampler"][-1], inds, train, train_frac)
+            key, rays, cache_outputs["sampler"][-1], inds, train, train_frac, is_secondary,
+            render_kwargs.get("resample", False))
 
         key, rng = torchutil.random_split(rng)
         light_sampler_results = None
@@ -328,20 +339,21 @@ class BaseMaterialModel(nerf_model.Model):
             normals=self.stopgrad_geometry_normals_weight_consistency)
 
     def _get_material_samples(self, rng, rays, sampler_results, filtered_sampler_inds, train,
-                              train_frac):
+                              train_frac, is_secondary=False, resample=False):
         """Refilter the cache's final samples to num_resample surface points
-        and run the cache shader there."""
-        do_resample_cache = self.cache.do_resample(False, False, train)
+        and run the cache shader there (as on secondary rays under
+        `is_secondary`; `resample` forces both resamples)."""
+        do_resample_cache = self.cache.do_resample(resample, is_secondary, train)
         key, rng = torchutil.random_split(rng)
         filtered, _ = self.maybe_resample(
             key, do_resample_cache, sampler_results, self.cache.num_resample,
             inds=filtered_sampler_inds)
-        do_resample_self = self.do_resample(False, False, train)
+        do_resample_self = self.do_resample(resample, is_secondary, train)
         if not (do_resample_cache and self.cache.num_resample == self.num_resample):
             key, rng = torchutil.random_split(rng)
             filtered, _ = self.maybe_resample(
                 key, do_resample_self, filtered, self.num_resample,
-                logits_mult=self._get_logits_mult(False))
+                logits_mult=self._get_logits_mult(is_secondary))
             filtered["weights_no_filter"] = sampler_results["weights"]
         if self.stopgrad_samples:
             filtered = _detach_dict(filtered)
@@ -353,7 +365,7 @@ class BaseMaterialModel(nerf_model.Model):
         cache_shader_results = self.cache.shader(
             rng=key, rays=rays, sampler_results=filtered_cache,
             filtered_sampler_results=filtered_cache, train_frac=train_frac, train=train,
-            is_secondary=False, radiance_cache=self)
+            is_secondary=is_secondary, radiance_cache=self)
         filtered_material["occ"] = cache_shader_results["occ"].detach()
         return filtered_material, cache_shader_results
 

@@ -57,9 +57,15 @@ JAX) follow the JAX shader. The transient shader runs without its indirect
 lobes (``use_indirect=False``). Where JAX itself fails (the phong and
 lambertian decodes, the steady shader without indirect lobes or without a
 diffuse sample, the transient shader's per-lobe path) the port raises
-naming JAX's failure. Environment maps and cone lights are not ported yet
-and raise. The irradiance-cache fields are read by nothing, as in JAX (the
-irradiance cache's output is the SLF variate's), and so is the
+naming JAX's failure. With ``use_env_map`` (the steady shader) the
+indirect lobes run one at a time, each querying its radiance source, and
+the direct lobes are lit by the cache's environment map along the
+indirect lobes' rays, where the cache (or the SLF memory) left them
+transparent (``_make_env_map_fn``, its gradient scaled by
+``stopgrad_env_map_weight``); the cache and memory queries then pass
+``use_env_map=False``. The transient shader's point light can be a cone
+(``light_max_angle``). The irradiance-cache fields are read by nothing, as
+in JAX (the irradiance cache's output is the SLF variate's), and so is the
 illumination embedding under ``Config.multi_illumination`` (JAX never
 calls it). A relit render
 (``Config.compute_relight_metrics``) and the ground-truth illumination
@@ -76,7 +82,7 @@ from torch import nn
 
 from neural_radiance_caching_tpu_torch.engine import gin_config as gin
 from neural_radiance_caching_tpu_torch.models import light_sampler as light_sampler_lib
-from neural_radiance_caching_tpu_torch.models import shading
+from neural_radiance_caching_tpu_torch.models import nerf_shader, shading
 from neural_radiance_caching_tpu_torch.models.layers import Dense, softplus
 from neural_radiance_caching_tpu_torch.ops import coord, math, render_utils
 from neural_radiance_caching_tpu_torch.utils import torchutil
@@ -205,6 +211,7 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
     render_importance_sampler_configs = (("microfacet", 1), ("cosine", 1))
     use_indirect = True
     use_active = False
+    # The direct lobes lit by the cache's environment map (steady shader).
     use_env_map = False
     material_type = "microfacet"
     # The material heads' input: points and means zeroed (one material for
@@ -249,7 +256,7 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
     use_corrected_normals = False
     multiple_illumination_outputs = True
     stopgrad_occ_weight = 0.0
-    # Read by the environment map's queries only (use_env_map).
+    # The (rays, outputs) gradient scales of the environment map's queries.
     stopgrad_env_map_weight = (1.0, 1.0)
     # The secondary rays carry their surface point's normal
     # (Config.shadow_normals_target), and the sampler pushes their near
@@ -305,7 +312,6 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
     def __init__(self, config=None, density_feature_dim=0, **kwargs):
         super().__init__(config, **kwargs)
         self._check_variant(config)
-        self._require(use_env_map=False)
         if self.material_type not in ("microfacet", "phong", "lambertian"):
             raise ValueError(f"Unsupported material type: {self.material_type}")
         if self.material_type != "microfacet":
@@ -526,7 +532,7 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
 
         def surface_lf_fn(rng, ref_rays):
             ref_rays = self._with_surface_normals(ref_rays, sampler_results)
-            slf = radiance_cache.cache(rng, ref_rays, use_slf=True, train=train,
+            slf = radiance_cache.cache(rng, ref_rays, use_slf=True, use_env_map=False, train=train,
                                        train_frac=train_frac,
                                        stopgrad_cache_weight=self.stopgrad_slf_weight)
             rgb = slf["rgb"].reshape(ref_rays.origins.shape)
@@ -568,7 +574,7 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
                 sampling_strategy=(self.cache_train_sampling_strategy if train
                                    else self.cache_render_sampling_strategy),
                 radiance_cache=radiance_cache, stopgrad_cache_weight=self.stopgrad_cache_weight,
-                proposal_grad=proposal_grad, mesh=mesh,
+                proposal_grad=proposal_grad, mesh=mesh, use_env_map=False,
                 light_power=self._light_power() if radiance_cache.share_light_power else None)
             render = out["render"]
 
@@ -588,6 +594,28 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
             return rgb, rgb_ns, srs
 
         return radiance_cache_fn
+
+    def _make_env_map_fn(self, radiance_cache, train_frac, train):
+        """Closure that queries the cache's environment map along secondary
+        rays [N, S] (``env_map_only``, its gradient scaled by
+        ``stopgrad_env_map_weight``): the radiance [N, S, C] times the
+        transparency that the lobe's own query, `ref_sampler_results`, left
+        along each ray (its `_no_stopgrad` twin by the unscaled opacity)."""
+
+        def env_map_fn(rng, ref_rays, ref_sampler_results):
+            env = radiance_cache.cache(rng, ref_rays, env_map_only=True, use_env_map=True,
+                                       train=train, train_frac=train_frac,
+                                       stopgrad_cache_weight=self.stopgrad_env_map_weight)
+            shape = ref_rays.origins.shape
+            rgb = env["incoming_rgb"].reshape(shape)
+            rgb_ns = env.get("incoming_rgb_no_stopgrad", rgb).reshape(shape)
+            last = ref_sampler_results[-1]
+            rgb = torch.clamp(rgb, min=0.0) * (1.0 - last["acc"].reshape(shape[:-1] + (1,)))
+            rgb_ns = torch.clamp(rgb_ns, min=0.0) * (
+                1.0 - last["acc_no_stopgrad"].reshape(shape[:-1] + (1,)))
+            return rgb, rgb_ns, ref_sampler_results
+
+        return env_map_fn
 
     def _sample_lobe_rays(self, rng, rays, sampler_results, material_sec, light_sec, samplers,
                           num_secondary_samples, train_frac, mesh=None):
@@ -757,18 +785,21 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
             return self.learnable_light.get_lights(lights, look, up).detach()
         return lights
 
-    def _make_active_light_fn(self, sampler_results):
+    def _make_active_light_fn(self, sampler_results, rays):
         """Direct lighting along one ray per surface point toward the light:
         the learnable light (or the shader's own power with inverse-square
-        falloff), darkened by the occlusion the cache shader stored at the
-        point (its shadow ray, traced there under Config.use_occlusions). No
+        falloff, zero outside its cone of ``light_max_angle`` about the
+        camera's look direction of `rays`), darkened by the occlusion the
+        cache shader stored at the point (its shadow ray, traced there under
+        Config.use_occlusions). No
         ray is traced here: JAX clips this ray's far bound at the light, but
         no query reads the clipped ray, so the port does not form it."""
         cfg = self.config
 
         def active_fn(ref_rays):
             lights = self._lights(ref_rays.lights, ref_rays.vcam_look, ref_rays.vcam_up)
-            light_dists = torch.linalg.norm(lights - ref_rays.origins, dim=-1, keepdim=True)
+            light_offset = lights - ref_rays.origins
+            light_dists = torch.linalg.norm(light_offset, dim=-1, keepdim=True)
             if cfg.learnable_light:
                 light_radiance, _ = self.learnable_light(
                     ref_rays.origins, ref_rays.viewdirs, ref_rays.lights, ref_rays.vcam_look,
@@ -777,6 +808,10 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
                 light_radiance = torch.ones_like(light_dists) * self._light_power()
                 if cfg.use_falloff:
                     light_radiance = light_radiance / torch.clamp(light_dists**2, min=1e-5)
+                if self.light_max_angle > 0.0:
+                    light_dirs = light_offset / torch.clamp(light_dists, min=1e-5)
+                    light_radiance = nerf_shader.cone_light(light_radiance, light_dirs,
+                                                            rays.vcam_look, self.light_max_angle)
             if cfg.light_zero:
                 light_radiance = torch.where(light_dists < cfg.light_near,
                                              torch.zeros_like(light_radiance), light_radiance)
@@ -806,7 +841,7 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
         ref_rays, ref_samples = self._sample_lobe_rays(
             rng, rays, sampler_results, material_sec, light_sec, self._active_samplers, 1,
             train_frac, mesh)
-        rgb, rgb_ns, srs = self._make_active_light_fn(sampler_results)(ref_rays)
+        rgb, rgb_ns, srs = self._make_active_light_fn(sampler_results, rays)(ref_rays)
         ref_samples = self._attach_lobe_radiance(rgb, rgb_ns, ref_samples, srs, feature, 1,
                                                  direct=True)
         for comp in ("specular", "diffuse"):
@@ -818,19 +853,22 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
     def get_outgoing_radiance(self, rng, rays, feature, sampler_results, material,
                               num_secondary_samples, radiance_cache_fn, train_frac=1.0, train=True,
                               light_sampler_results=None, last_integrated_outputs=None,
-                              mesh=None):
+                              mesh=None, env_map_fn=None):
         """All lobes of the outgoing-radiance estimate, combined per the
         integration strategy. last_integrated_outputs: an earlier estimate
         whose indirect lobes' rays and sample records this one reuses.
         mesh: fresh secondary rays start at their near point. Fresh split
-        lobes that both have samples share one radiance query; otherwise the
-        lobes run one at a time."""
+        lobes that both have samples share one radiance query (not under
+        the environment map); otherwise the lobes run one at a time.
+        env_map_fn: lights the direct lobes of a passive shader under
+        ``use_env_map`` along the indirect lobes' rays."""
         out = {k: 0.0 for k in self._integration_strategy}
         key, rng = torchutil.random_split(rng)
         if self.use_indirect:
             args = (key, rays, feature, sampler_results, material, num_secondary_samples,
                     radiance_cache_fn, train_frac, train, light_sampler_results, out, mesh)
             if (last_integrated_outputs is None and self.separate_integration_diffuse_specular
+                    and not self.use_env_map
                     and min(self._lobe_sizes(num_secondary_samples).values()) > 0):
                 self._process_indirect_lobes_fused(*args)
             else:
@@ -842,6 +880,10 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
             key, rng = torchutil.random_split(rng)
             self._process_direct_lobes(key, rays, feature, sampler_results, material, train_frac,
                                        out, mesh)
+        elif self.use_env_map:
+            key, rng = torchutil.random_split(rng)
+            self._process_env_map_lobes(key, feature, sampler_results, material,
+                                        num_secondary_samples, env_map_fn, out)
         for output_key, (sub_keys, scale) in self._integration_strategy.items():
             if "indirect" in output_key and not self.use_indirect:
                 continue
@@ -856,18 +898,40 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
             out[output_key] = total * scale
         return out
 
+    def _process_env_map_lobes(self, rng, feature, sampler_results, material,
+                               num_secondary_samples, env_map_fn, outputs):
+        """The direct lobes of the passive shader under ``use_env_map``:
+        each indirect lobe's rays and sample records again, lit by the
+        environment map where that lobe's query left them transparent."""
+        sh = sampler_results["points"].shape
+        for comp, n in self._lobe_sizes(num_secondary_samples).items():
+            if n == 0:
+                continue
+            ref_rays = outputs[f"ref_rays_indirect_{comp}"]
+            ref_samples = dict(outputs[f"ref_samples_indirect_{comp}"])
+            key, rng = torchutil.random_split(rng)
+            rgb, rgb_ns, srs = env_map_fn(key, ref_rays,
+                                          outputs[f"ref_sampler_results_indirect_{comp}"])
+            ref_samples = self._attach_lobe_radiance(rgb, rgb_ns, ref_samples, srs, feature, n,
+                                                     direct=True)
+            integrated = self._integrate_lobe(f"microfacet_{comp}", material, ref_samples, srs,
+                                              True, sh)
+            self._store_lobe(outputs, "direct", comp, ref_rays, ref_samples, srs, integrated,
+                             self.stopgrad_direct_weight)
+
     # The estimates the SLF variate takes as the cache's minus the memory's.
     _VARIATE_KEYS = ("radiance_out", "diffuse_radiance_out", "specular_radiance_out",
                      "direct_radiance_out", "indirect_radiance_out", "irradiance")
 
     def _integrate_slf_variate(self, rng, rays, feature, sampler_results, material,
                                radiance_cache_fn, surface_lf_fn, train_frac, train,
-                               light_sampler_results):
+                               light_sampler_results, env_map_fn=None):
         """The SLF control variate: the cache's estimate minus the memory's
         on the same secondary rays, at ``num_secondary_samples_diff``; every
         output of each estimate also under ``<key>_cache`` / ``<key>_slf``."""
         n = self.num_secondary_samples_diff if train else self.render_num_secondary_samples_diff
-        kw = dict(train_frac=train_frac, train=train, light_sampler_results=light_sampler_results)
+        kw = dict(train_frac=train_frac, train=train, light_sampler_results=light_sampler_results,
+                  env_map_fn=env_map_fn)
         key, rng = torchutil.random_split(rng)
         cache_out = self.get_outgoing_radiance(key, rays, feature, sampler_results, material, n,
                                                radiance_cache_fn, **kw)
@@ -918,18 +982,20 @@ class BaseMaterialMLP(shading.BaseShader, unported=dict(
         surface_lf_fn = (self._make_surface_lf_fn(radiance_cache, sampler_results, train_frac,
                                                   train)
                          if self.use_surface_light_field else None)
+        env_map_fn = (self._make_env_map_fn(radiance_cache, train_frac, train)
+                      if self.use_env_map and not self.use_active else None)
         key, rng = torchutil.random_split(rng)
         if slf_variate and self.use_surface_light_field:
             integrated = self._integrate_slf_variate(
                 key, rays, feature, sampler_results, material, radiance_cache_fn, surface_lf_fn,
-                train_frac, train, light_sampler_results)
+                train_frac, train, light_sampler_results, env_map_fn)
         else:
             integrated = self.get_outgoing_radiance(
                 key, rays, feature, sampler_results, material,
                 self.num_secondary_samples if train else self.render_num_secondary_samples,
                 surface_lf_fn if self.use_surface_light_field else radiance_cache_fn,
                 train_frac=train_frac, train=train, light_sampler_results=light_sampler_results,
-                mesh=mesh)
+                mesh=mesh, env_map_fn=env_map_fn)
         final_rgb = integrated["direct_radiance_out" if self.config.use_transient
                                else "radiance_out"]
         if self.use_diffuse_emission:
@@ -1093,7 +1159,6 @@ class TransientMaterialMLP(BaseMaterialMLP):
                     "material_shader.py:1295 reshapes integrated['irradiance'], the float "
                     "0.0, and raises AttributeError: 'float' object has no attribute "
                     "'reshape'"))
-        self._require(light_max_angle=0.0)
         if self.use_indirect and not self.separate_integration_diffuse_specular:
             raise NotImplementedError(
                 "TransientMaterialMLP.separate_integration_diffuse_specular=False is a reference "

@@ -32,8 +32,22 @@ E[f(all)] - E[f(resampled, variate passes)] + f(resampled)
 (``_handle_volume_variate_pass``, the two terms' gradients scaled by
 ``stopgrad_weight_variate`` and ``stopgrad_weight_model``).
 
-Not ported yet: resampling of primary rays and environment maps (they
-raise), and the argmax resample and ray-distance warps of secondary rays.
+Resampling (``resample`` on training rays, ``resample_render`` on render
+rays, ``resample_secondary``) draws categorically; with
+``resample_argmax`` the heaviest sample is kept and the other
+num_resample - 1 are drawn from the rest, reweighted by their own
+probabilities.
+
+The environment map (``use_env_map``): an SLF module ``env_map`` over
+[env_map_near, env_map_far] built from ``env_map_params``; secondary rays
+end at ``Config.env_map_distance`` (as does the SLF memory), and their
+render is composited over the map's radiance along them
+(``_handle_env_map``, ``_composite_env_map``) unless the caller passes
+``use_env_map=False``, as the material shader's cache and memory queries
+do; an ``env_map_only`` query returns the map's radiance alone, and with
+``env_map`` tables (``data/env_maps``) the map is looked up instead
+(``render_utils.get_environment_color``). The transient cache builds no
+map, as in JAX, and raises where JAX's would be read (``ENV_MAP_GAP``).
 """
 
 from __future__ import annotations
@@ -51,25 +65,36 @@ from neural_radiance_caching_tpu_torch.ops import coord, math, render_utils
 from neural_radiance_caching_tpu_torch.utils import torchutil
 
 
-# Fields of the JAX ``Model`` whose code paths are not ported; the importance
-# sampler tuples stand as (JAX sampler class name, weight) pairs.
-_MODEL_UNPORTED = dict(
-    active_importance_samplers=(("ActiveSampler", 1.0),),
-    resample_argmax=False,
-)
+
+# A material model's cache under use_env_map whose shader never queries the map.
+ENV_MAP_UNQUERIED_GAP = (
+    "NeRFModel.use_env_map with a material shader that does not query the environment map "
+    "(MaterialMLP.use_env_map off) is a reference gap where the map is then read (a secondary "
+    "render composited over it, the SLF passes): the JAX model's initialisation never queries "
+    "the EnvMap, so it has no parameters, and flax raises ScopeParamNotFoundError at the read "
+    "(models/nerf_model.py:255)")
+# TransientNeRFModel under use_env_map.
+ENV_MAP_GAP = (
+    "TransientNeRFModel.use_env_map with a secondary query that composites the environment map "
+    "is a reference gap: the JAX TransientNeRFModel builds no EnvMap "
+    "(models/nerf_model.py:625-640), so Model._handle_env_map raises AttributeError: "
+    "'TransientNeRFModel' object has no attribute 'env_map' (:255)")
 
 # The render outputs the volume variate corrects.
 VOLUME_VARIATE_KEYS = ("rgb", "diffuse_rgb", "specular_rgb", "direct_rgb", "indirect_rgb",
                        "transient_indirect")
 
 
-class Model(Configurable, nn.Module, unported=_MODEL_UNPORTED):
+class Model(Configurable, nn.Module):
     """Shared base: resampled estimator and secondary-ray bookkeeping."""
 
     # The 2D generator and samplers of the extra-ray loss's outgoing rays
     # (parallel/extra_losses.extra_ray_loss).
     random_generator_2d = render_utils.RandomGenerator2D(1, 1, False)
     uniform_importance_samplers = ((render_utils.UniformHemisphereSampler(), 1.0),)
+    # The samplers of the transient cache shader's shadow rays (the
+    # direction toward the light, pdf 1).
+    active_importance_samplers = ((render_utils.ActiveSampler(), 1.0),)
     # Importance samplers the JAX model declares and nothing reads.
     uniform_sphere_importance_samplers = (("UniformSphereSampler", 1.0),)
     cosine_importance_samplers = (("CosineSampler", 1.0),)
@@ -78,8 +103,8 @@ class Model(Configurable, nn.Module, unported=_MODEL_UNPORTED):
     light_field_importance_samplers = (("UniformHemisphereSampler", 1), ("MicrofacetSampler", 1))
     irradiance_importance_samplers = (("CosineSampler", 1), ("LightSampler", 1))
     extra_ray_importance_samplers = (("UniformHemisphereSampler", 1), ("IdentitySampler", 1))
+    # The environment map of secondary rays and its distance range.
     use_env_map = False
-    # Read by the env map only (use_env_map).
     env_map_near = float("inf")
     env_map_far = float("inf")
     env_map_params = None
@@ -99,6 +124,7 @@ class Model(Configurable, nn.Module, unported=_MODEL_UNPORTED):
     resample = False
     resample_render = False
     resample_secondary = False
+    resample_argmax = False
     num_resample = 1
     logits_mult = 1.0
     logits_mult_secondary = 1.0
@@ -117,7 +143,6 @@ class Model(Configurable, nn.Module, unported=_MODEL_UNPORTED):
         nn.Module.__init__(self)
         self.config = config
         self._set_fields(kwargs)
-        self._require(use_env_map=False)
 
     def do_resample(self, do_resample, is_secondary, train):
         return (do_resample or (train and self.resample) or (not train and self.resample_render)
@@ -160,7 +185,10 @@ class Model(Configurable, nn.Module, unported=_MODEL_UNPORTED):
     def maybe_resample(self, rng, resample, sampler_results, num_resample, inds=None,
                        logits_mult=1.0):
         """Draw num_resample samples proportional to the weights (or take
-        `inds`); the kept weights are divided by the detached N * p.
+        `inds`); the kept weights are divided by the detached N * p. With
+        ``resample_argmax`` the first kept sample is the heaviest, and the
+        other num_resample - 1 are drawn from the rest (its weight zeroed),
+        each divided by (num_resample - 1) times its probability there.
 
         Returns (filtered_results, indices). Per-sample fields are gathered
         along their sample axis; fields without one (the per-ray lossmult) are
@@ -172,10 +200,23 @@ class Model(Configurable, nn.Module, unported=_MODEL_UNPORTED):
             return out, None
         weights = sampler_results["weights"]
         num_samples = weights.shape[-1]
-        logits = math.safe_log(weights + self.weights_bias) * logits_mult
-        probs = torch.softmax(logits, dim=-1)
+
+        def logits_probs(w):
+            logits = math.safe_log(w + self.weights_bias) * logits_mult
+            return logits, torch.softmax(logits, dim=-1)
+
+        logits, probs = logits_probs(weights)
+        if self.resample_argmax:
+            inds_argmax = torch.argmax(logits, dim=-1, keepdim=True)
+            pos = torch.arange(num_samples, device=weights.device)
+            residual = torch.where(pos == inds_argmax, torch.zeros_like(weights), weights)
+            new_logits, new_probs = logits_probs(residual)
         if inds is None:
-            inds = torchutil.categorical(rng, logits, num_resample)
+            if self.resample_argmax:
+                inds = torch.cat([inds_argmax, torchutil.categorical(rng, new_logits,
+                                                                     num_resample - 1)], dim=-1)
+            else:
+                inds = torchutil.categorical(rng, logits, num_resample)
 
         ref_ndim = sampler_results["points"].dim()
 
@@ -193,16 +234,76 @@ class Model(Configurable, nn.Module, unported=_MODEL_UNPORTED):
         filtered["tdist"] = sampler_results["tdist"]
         filtered["sdist"] = sampler_results["sdist"]
         filtered["weights_no_filter"] = weights
-        filtered_probs = torch.gather(probs, -1, inds)
-        filtered["weights"] = filtered["weights"] / (num_resample * filtered_probs + 1e-8).detach()
+        if self.resample_argmax:
+            drawn_probs = torch.gather(new_probs, -1, inds[..., 1:])
+            w = filtered["weights"][..., 1:] / ((num_resample - 1) * drawn_probs + 1e-8).detach()
+            filtered["weights"] = torch.cat([filtered["weights"][..., :1], w], dim=-1)
+        else:
+            filtered_probs = torch.gather(probs, -1, inds)
+            filtered["weights"] = filtered["weights"] / (
+                num_resample * filtered_probs + 1e-8).detach()
         return filtered, inds
 
-    def _handle_secondary(self, is_secondary, integrator_results, stopgrad_cache_weight=None):
+    # --- the environment map on secondary rays -------------------------------------------
+
+    def _handle_env_map(self, rng, rays, train, train_frac, use_env_map=True, env_map=None,
+                        env_map_w=None, env_map_h=None, stopgrad_cache_weight=None):
+        """The environment's radiance along `rays` ({"incoming_rgb": [..., C]}
+        and the map's other outputs), or {} without the map or under
+        ``use_env_map=False``: the learned map queried from each ray's origin
+        along its direction (its gradient scaled by
+        ``stopgrad_cache_weight`` = (w_rays, w_out), the unscaled radiance
+        also under ``incoming_rgb_no_stopgrad``), or the `env_map` tables
+        looked up along the directions."""
+        if not (self.use_env_map and use_env_map):
+            return {}
+        env_rays = torchutil.partial_stopgrad_rays(rays, stopgrad_cache_weight)
+        if env_map is not None:
+            values = render_utils.get_environment_color(env_rays, env_map, env_map_w, env_map_h)
+            return {"incoming_rgb": values.reshape(rays.origins.shape[:-1]
+                                                   + (self.config.num_rgb_channels,))}
+        env = getattr(self, "env_map", None)
+        if env is None:
+            raise NotImplementedError(ENV_MAP_GAP if not getattr(self, "_has_env_map", True)
+                                      else ENV_MAP_UNQUERIED_GAP)
+        origins = env_rays.origins[..., None, :]
+        out = env(rng, env_rays, {"means": origins, "covs": torch.ones_like(origins)}, origins,
+                  env_rays.viewdirs[..., None, :], roughness=torch.zeros_like(origins[..., :1]),
+                  shader_bottleneck=None, train=train, train_frac=train_frac)
+        out["incoming_rgb_no_stopgrad"] = out["incoming_rgb"]
+        if stopgrad_cache_weight is not None and tuple(stopgrad_cache_weight) != (1.0, 1.0):
+            out["incoming_rgb"] = torchutil.stopgrad_with_weight(out["incoming_rgb"],
+                                                                 stopgrad_cache_weight[1])
+        return out
+
+    @staticmethod
+    def _composite_env_map(integrator_results, env_outputs):
+        """The render over the environment: rgb += env * (1 - acc) (the
+        `_no_stopgrad` twin with the env detached), and the env's radiance
+        under ``env_map_rgb`` and ``env_map_rgb_no_stopgrad``."""
+        if not env_outputs:
+            return integrator_results
+        rgb = integrator_results["rgb"]
+        transparency = 1.0 - integrator_results["acc"][..., None]
+        env_rgb = env_outputs["incoming_rgb"].reshape(rgb.shape)
+        env_rgb_ns = env_outputs.get("incoming_rgb_no_stopgrad", env_rgb).reshape(rgb.shape)
+        integrator_results["rgb"] = rgb + env_rgb * transparency
+        if "rgb_no_stopgrad" in integrator_results:
+            integrator_results["rgb_no_stopgrad"] = (integrator_results["rgb_no_stopgrad"]
+                                                     + env_rgb.detach() * transparency)
+        integrator_results["env_map_rgb"] = env_rgb
+        integrator_results["env_map_rgb_no_stopgrad"] = env_rgb_ns
+        return integrator_results
+
+    def _handle_secondary(self, is_secondary, integrator_results, stopgrad_cache_weight=None,
+                          rng=None, rays=None, train=True, train_frac=1.0, **env_kwargs):
         """Secondary rays report every rgb/transient/acc output also under
         `<key>_no_stopgrad`, which the material shader reads; with the
         material shader's ``stopgrad_cache_weight`` (w_rays, w_out) the
         outputs themselves pass gradient scaled by w_out (their
-        `_no_stopgrad` twins in full)."""
+        `_no_stopgrad` twins in full). Then the render is composited over
+        the environment map along `rays` (``_handle_env_map``'s
+        `env_kwargs`)."""
         if not is_secondary:
             return integrator_results
         partial = stopgrad_cache_weight is not None and tuple(stopgrad_cache_weight) != (1.0, 1.0)
@@ -213,16 +314,24 @@ class Model(Configurable, nn.Module, unported=_MODEL_UNPORTED):
                 if partial:
                     integrator_results[k] = torchutil.stopgrad_with_weight(
                         v, stopgrad_cache_weight[1])
-        return integrator_results
+        if rays is None:
+            return integrator_results
+        key, rng = torchutil.random_split(rng)
+        env = self._handle_env_map(key, rays, train, train_frac,
+                                   stopgrad_cache_weight=stopgrad_cache_weight, **env_kwargs)
+        return self._composite_env_map(integrator_results, env)
 
     def apply_shader_and_integrator(self, rng, rays, filtered_sampler_results, stopgrad_map,
                                     train, train_frac, is_secondary, bg_intensity_range,
                                     stopgrad_cache_weight=None, vignette=None,
-                                    sampler_results=None, **render_kwargs):
+                                    sampler_results=None, env_rays=None, env_kwargs=None,
+                                    **render_kwargs):
         """Shade the (filtered) samples and composite them; the render's rgb
         times `vignette` [..., 1] if given. Under the volume variate
         (``use_volume_variate``) `sampler_results`, the sampler's levels,
-        give the variate's chain over every final sample."""
+        give the variate's chain over every final sample. Secondary rays'
+        renders are composited over the environment map along `env_rays`
+        (``_handle_secondary`` with `env_kwargs`)."""
         inputs = torchutil.apply_stopgrad_fields(filtered_sampler_results, stopgrad_map)
         shared = dict(train_frac=train_frac, train=train, is_secondary=is_secondary)
         integrate_kwargs = dict(render_kwargs)
@@ -244,8 +353,10 @@ class Model(Configurable, nn.Module, unported=_MODEL_UNPORTED):
                 rng=key, rays=rays, shader_results=shader_results,
                 bg_intensity_range=bg_intensity_range, vignette=vignette, **shared,
                 **integrate_kwargs)
-            return shader_results, self._handle_secondary(is_secondary, integrator_results,
-                                                          stopgrad_cache_weight)
+            key, rng = torchutil.random_split(rng)
+            return shader_results, self._handle_secondary(
+                is_secondary, integrator_results, stopgrad_cache_weight, key, env_rays, train,
+                train_frac, **(env_kwargs or {}))
 
         key, rng = torchutil.random_split(rng)
         shader_results, integrator_results = shade_and_integrate(key, inputs)
@@ -293,40 +404,72 @@ class NeRFModel(Model):
     _shader_cls = nerf_shader.NeRFMLP
     _integrator_cls = integrator_lib.VolumeIntegrator
     _has_surface_lf_mem = True
+    # The steady cache builds its environment map and hands its shader the
+    # map's range, as JAX's NeRFModel does; the transient one does neither.
+    _has_env_map = True
 
-    def __init__(self, config=None, **kwargs):
+    def __init__(self, config=None, env_map_queried=True, **kwargs):
+        """env_map_queried: build the environment map now; a material
+        model's cache builds it only if its shader queries it
+        (``build_env_map``), as JAX creates its parameters at the first
+        query."""
         self._init_model(config, kwargs)
-        self._require(resample=False, resample_render=False)
         self.sampler = sampler_lib.ProposalVolumeSampler(
             config=config, **dict(self.sampler_params or {}),
             **dict(self.extra_model_params or {}))
+        env_range = (dict(env_map_near=self.env_map_near, env_map_far=self.env_map_far)
+                     if self._has_env_map else {})
         self.shader = self._shader_cls(
             config=config, density_feature_dim=self.sampler.mlps[-1].feature_dim,
-            **dict(self.shader_params or {}))
+            **env_range, **dict(self.shader_params or {}))
         self.integrator = self._integrator_cls(
             config=config, **dict(self.integrator_params or {}))
+        if env_map_queried:
+            self.build_env_map()
         if self.use_surface_light_field and self._has_surface_lf_mem:
             slf_params = dict(self.surface_lf_mem_params or {})
             slf_params.update(distance_near=self.surface_lf_mem_distance_near,
                               distance_far=self.surface_lf_mem_distance_far)
+            if self.use_env_map and config.env_map_distance < float("inf"):
+                slf_params["distance_far"] = config.env_map_distance
             self.surface_lf_mem = surface_light_field.SurfaceLightFieldMLP(
                 config=config, use_env_alpha=True, **slf_params)
 
-    def get_slf_results(self, rng, rays, train_frac, train, stopgrad_cache_weight=None):
+    def build_env_map(self):
+        """The environment map ``env_map``: an SLF over [env_map_near,
+        env_map_far] with ``env_map_params`` (under use_env_map, in the
+        steady cache)."""
+        if self.use_env_map and self._has_env_map and not hasattr(self, "env_map"):
+            self.env_map = surface_light_field.SurfaceLightFieldMLP(
+                config=self.config, **dict(self.env_map_params or {},
+                                           distance_near=self.env_map_near,
+                                           distance_far=self.env_map_far))
+
+    def get_slf_results(self, rng, rays, train_frac, train, stopgrad_cache_weight=None,
+                        dist_only=False, cache_tdist=None, **env_kwargs):
         """The memory's incoming radiance along `rays` [..., 3]: one query
         per ray from its origin along its direction, reported as a secondary
         render (``rgb``, ``acc`` and their ``_no_stopgrad`` twins, the
         outputs' gradient scaled by ``stopgrad_cache_weight[1]``; the rays'
         own fields pass theirs in full, as in JAX, whose
-        ``stopgrad_slf_weight`` no caller passes) beside the memory's
-        ``incoming_*`` outputs."""
+        ``stopgrad_slf_weight`` no caller passes), composited over the
+        environment map (``_handle_secondary``'s `env_kwargs`), beside the
+        memory's ``incoming_*`` outputs. `cache_tdist` [..., N]: also those
+        distances in the memory's s (``cache_sdist``); with `dist_only` that
+        alone."""
         origins = rays.origins[..., None, :]
+        key, rng = torchutil.random_split(rng)
         slf = self.surface_lf_mem(
-            rng, rays, {"means": origins, "covs": torch.ones_like(origins)}, origins,
+            key, rays, {"means": origins, "covs": torch.ones_like(origins)}, origins,
             rays.viewdirs[..., None, :], roughness=torch.zeros_like(origins[..., :1]),
-            shader_bottleneck=None, train=train, train_frac=train_frac)
+            shader_bottleneck=None, train=train, train_frac=train_frac, dist_only=dist_only,
+            cache_tdist=cache_tdist)
+        if dist_only:
+            return slf
+        key, rng = torchutil.random_split(rng)
         out = self._handle_secondary(True, {"rgb": slf["incoming_rgb"], "acc": slf["incoming_acc"]},
-                                     stopgrad_cache_weight)
+                                     stopgrad_cache_weight, key, rays, train, train_frac,
+                                     **env_kwargs)
         out.update(slf)
         out["incoming_rgb"] = out["rgb_no_stopgrad"]
         out["incoming_acc"] = out["acc_no_stopgrad"]
@@ -360,13 +503,31 @@ class NeRFModel(Model):
         material model's ``VignetteMap``), or None.
         mesh, use_mesh: the sampler's mesh shortcut (an ``ops/mesh``
         TriangleMesh on the rays' device, ``ProposalVolumeSampler.forward``).
+        use_env_map, env_map, env_map_w, env_map_h: under the model's
+        ``use_env_map``, whether a secondary render is composited over the
+        environment map, and the map's tables to look up in place of the
+        learned map (``_handle_env_map``); env_map_only: the map's radiance
+        along the rays alone (`stopgrad_cache_weight` applies to it).
+        dist_only, cache_tdist: of a ``use_slf`` query (``get_slf_results``).
         """
+        env_kwargs = {k: render_kwargs.pop(k) for k in ("use_env_map", "env_map", "env_map_w",
+                                                        "env_map_h") if k in render_kwargs}
+        env_map_only = render_kwargs.pop("env_map_only", False)
+        slf_kwargs = {k: render_kwargs.pop(k) for k in ("dist_only", "cache_tdist")
+                      if k in render_kwargs}
+        if is_secondary and self.use_env_map:
+            rays = rays.replace(far=torch.clamp(rays.far, max=self.config.env_map_distance))
         if use_slf:
-            return self.get_slf_results(rng, rays, train_frac, train, stopgrad_cache_weight)
+            return self.get_slf_results(rng, rays, train_frac, train, stopgrad_cache_weight,
+                                        **slf_kwargs, **env_kwargs)
+        if env_map_only and self.use_env_map:
+            return self._handle_env_map(rng, rays, train, train_frac,
+                                        stopgrad_cache_weight=stopgrad_cache_weight, **env_kwargs)
         do_resample = self.do_resample(resample, is_secondary, train)
         bg_intensity_range, use_raydist_fn = self.get_bg_and_raydist(is_secondary)
         if not is_secondary:
             stopgrad_cache_weight = None
+        env_rays = rays
         rays = torchutil.partial_stopgrad_rays(rays, stopgrad_cache_weight)
 
         if cache_outputs is not None:
@@ -385,6 +546,11 @@ class NeRFModel(Model):
             key, do_resample, sampler_results[-1], self.num_resample,
             inds=filtered_sampler_inds, logits_mult=self._get_logits_mult(is_secondary))
         if weights_only:
+            if (is_secondary and self.use_env_map and not self._has_env_map
+                    and env_kwargs.get("use_env_map", True)):
+                raise NotImplementedError(ENV_MAP_GAP)
+            # The opacity alone: the environment's composite changes only
+            # the colour, which nothing reads here.
             render = self._handle_secondary(
                 is_secondary, {"acc": filtered["weights_no_filter"].sum(dim=-1)},
                 stopgrad_cache_weight)
@@ -395,7 +561,8 @@ class NeRFModel(Model):
             key, rays, filtered, self.geometry_stopgrad_map(do_resample),
             train, train_frac, is_secondary, bg_intensity_range,
             stopgrad_cache_weight=stopgrad_cache_weight, vignette=vignette,
-            sampler_results=sampler_results, **render_kwargs)
+            sampler_results=sampler_results, env_rays=env_rays, env_kwargs=env_kwargs,
+            **render_kwargs)
 
         main = dict(
             loss_weight=1.0, sampler=sampler_results, filtered_sampler_inds=filtered_sampler_inds,
@@ -412,8 +579,10 @@ class TransientNeRFModel(NeRFModel):
     _shader_cls = nerf_shader.TransientNeRFMLP
     _integrator_cls = integrator_lib.TransientVolumeIntegrator
     _has_surface_lf_mem = False
+    _has_env_map = False
 
-    def get_slf_results(self, rng, rays, train_frac, train, stopgrad_cache_weight=None):
+    def get_slf_results(self, rng, rays, train_frac, train, stopgrad_cache_weight=None,
+                        **kwargs):
         raise NotImplementedError(
             "a surface-light-field query of the transient cache: the JAX package's "
             "TransientNeRFModel builds no SLF memory and has no get_slf_results "

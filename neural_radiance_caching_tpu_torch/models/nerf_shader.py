@@ -33,10 +33,24 @@ embedding ``light_vecs`` to its feature, before the bottleneck and the heads
 (JAX ``get_light_vec``). ``Config.multiple_illumination_outputs`` with more
 than one illumination raises as the reference gap it is (``SLF_AMBIENT_GAP``).
 
-Not ported yet, raising: the active steady shader, cone lights,
-canonical-frame and intensity light conditioning, the simple BRDF input and
-env maps. Structured light (``Config.sl_relight``) raises as the reference
-gap it is (``shading.SL_RELIGHT_GAP``).
+With ``use_env_map`` the steady shader queries its own environment map
+(``env_map``, an SLF over [env_map_near, env_map_far], which the cache
+model hands it) along the reflected direction, and its specular ambient
+term is that radiance where the surface light field is transparent; the
+surface light field then ends at ``Config.env_map_distance``. With
+``use_exposure_at_bottleneck`` the log exposure of each ray is added to the
+bottleneck. The active point light can be a cone (``light_max_angle``),
+the BRDF net can take n.h alone (``simple_brdf``), the indirect nets can
+read the light in the surface's frame (``Config.light_canonical_frame``,
+``canonical_light_features``) and be scaled by the light's intensity
+(``Config.light_intensity_conditioning``). The steady shader's active path
+(``NeRFMLP.use_active``) is the transient one's with C-channel indirect
+radiance (``indirect_layer``) in place of the time-binned one.
+
+Structured light (``Config.sl_relight``) raises as the reference gap it is
+(``shading.SL_RELIGHT_GAP``), and so do a surface light field that decodes
+per point (``PER_POINT_SLF_GAP``) and the passive transient shader's
+environment map (``TRANSIENT_ENV_MAP_GAP``).
 """
 
 from __future__ import annotations
@@ -62,14 +76,54 @@ SLF_AMBIENT_GAP = (
     "rgb only, never for ambient_rgb (:659-661), so the cache shader's tint * integrated_brdf * "
     "ref_rgb raises TypeError: mul got incompatible shapes for broadcasting (nerf_shader.py:531) "
     "at the first step; bind Config.multiple_illumination_outputs = False")
-# The cache models' active_importance_samplers (pinned to this default):
-# the direction toward the light, pdf 1.
-_SHADOW_SAMPLERS = ((render_utils.ActiveSampler(), 1.0),)
+# A cache shader whose SLF decodes each point (per_ref_feature_output).
+PER_POINT_SLF_GAP = (
+    "SurfaceLightFieldMLP.per_ref_feature_output in a cache shader's SLF (surface_lf_params or "
+    "env_map_params) is a reference gap: the JAX SLF's per-point decode returns no "
+    "incoming_ambient_rgb (models/surface_light_field.py:590-605), and the cache shader reads "
+    "it at the first query, raising KeyError: 'incoming_ambient_rgb' (nerf_shader.py:{line})")
+# TransientNeRFMLP.use_env_map on the passive path.
+TRANSIENT_ENV_MAP_GAP = (
+    "TransientNeRFMLP.use_env_map with use_active=False is a reference gap: the JAX transient "
+    "shader builds no EnvMap (nerf_shader.py:186) and its passive path reads self.env_map, "
+    "raising AttributeError (nerf_shader.py:753)")
 
 
-class BaseNeRFMLP(shading.BaseShader, unported=dict(use_exposure_at_bottleneck=False)):
+def canonical_light_features(lights, means, normals, viewdirs):
+    """The light in the surface's frame [..., S, 5]: n.l, n.v, the dot and
+    the product of the norms of l's and v's tangential parts, and the log
+    light distance (l the unit point-to-light direction, v the unit view
+    direction back to the camera). The frame's inputs take no gradient."""
+    mu, n = means.detach(), normals.detach()
+    n = n / torch.clamp(torch.linalg.norm(n, dim=-1, keepdim=True), min=1e-6)
+    offset = lights - mu
+    dist = torch.linalg.norm(offset, dim=-1, keepdim=True)
+    l_dir = offset / torch.clamp(dist, min=1e-6)
+    v_dir = -viewdirs * torch.ones_like(n)
+    v_dir = v_dir / torch.clamp(torch.linalg.norm(v_dir, dim=-1, keepdim=True), min=1e-6)
+    cos_l, cos_v = math.dot(n, l_dir), math.dot(n, v_dir)
+    l_tan, v_tan = l_dir - cos_l * n, v_dir - cos_v * n
+    sin_prod = (torch.linalg.norm(l_tan, dim=-1, keepdim=True)
+                * torch.linalg.norm(v_tan, dim=-1, keepdim=True))
+    return torch.cat([cos_l, cos_v, math.dot(l_tan, v_tan), sin_prod,
+                      torch.log(torch.clamp(dist, min=1e-6))], dim=-1)
+
+
+def cone_light(light_radiance, light_dirs, look, max_angle):
+    """The radiance zeroed outside the light's cone: where the direction
+    from the light to the point is more than `max_angle` / 2 degrees off
+    the camera's look direction `look` [..., 3], or points behind it."""
+    angle_dot = math.dot(-light_dirs, look[..., None, :])
+    angle = torch.arccos(angle_dot)
+    inside = (angle * 180.0 / pymath.pi <= max_angle / 2.0) & (angle_dot > 0.0)
+    return torch.where(inside, light_radiance, torch.zeros_like(light_radiance))
+
+
+class BaseNeRFMLP(shading.BaseShader):
     """Shared trunk, bottleneck, surface light field, integrated BRDF and
     light power of the cache shaders."""
+
+    _has_pos_basis = True
 
     # Declared by the JAX cache shaders and read by nothing there.
     cull_backfacing = True
@@ -94,13 +148,14 @@ class BaseNeRFMLP(shading.BaseShader, unported=dict(use_exposure_at_bottleneck=F
     rgb_max = float("inf")
     use_active = False
     use_env_map = False
+    use_exposure_at_bottleneck = False
     # The illumination embedding's width, read under multi_illumination with
     # use_illumination_feature; the heads' selection field is read by
     # nothing in the cache shaders.
     num_light_features = 64
     use_illumination_feature = False
     multiple_illumination_outputs = True
-    # Read by the env map only (use_env_map).
+    # The environment map's range and fields (use_env_map).
     env_map_near = float("inf")
     env_map_far = float("inf")
     env_map_params = None
@@ -125,18 +180,31 @@ class BaseNeRFMLP(shading.BaseShader, unported=dict(use_exposure_at_bottleneck=F
     # The shadow rays' (w_rays, w_out) gradient weights into the cache
     # (``Config.use_occlusions``).
     stopgrad_occ_weight = (0.0, 0.0)
-    # Read by paths or heads that are not ported or by the config surface
-    # only; accepted so the flagship parameters bind unchanged. As in JAX,
-    # nothing reads use_occlusions: shadow rays follow Config.use_occlusions.
+    # The active path's light, direct terms and indirect nets (use_active).
+    albedo_activation = staticmethod(torch.sigmoid)
+    albedo_bias = -1.0
+    deg_brdf = 2
+    brdf_bias = -1.09861228867
+    simple_brdf = False
+    deg_lights = 2
+    bottleneck_irradiance = 64
+    light_power_activation = staticmethod(math.abs_)
+    light_max_angle = 0.0
+    stopgrad_direct_weight = 1.0
+    stopgrad_light_radiance_weight = 1.0
+    indirect_scale = 1.0
+    # Declared by the JAX cache shaders and read by nothing there; as in
+    # JAX, shadow rays follow Config.use_occlusions, not use_occlusions.
     use_occlusions = False
     enable_pred_roughness = False
     use_specular_tint = False
 
     slf_cls = surface_light_field.SurfaceLightFieldMLP
+    # The indirect head emits n_bins x C channels (the transient shader).
+    _binned_indirect = False
 
     def __init__(self, config=None, density_feature_dim=0, **kwargs):
         super().__init__(config, **kwargs)
-        self._require(use_env_map=False)
         if (config.multi_illumination and config.multiple_illumination_outputs
                 and config.num_illuminations > 1):
             raise NotImplementedError(SLF_AMBIENT_GAP.format(n=config.num_illuminations))
@@ -147,10 +215,24 @@ class BaseNeRFMLP(shading.BaseShader, unported=dict(use_exposure_at_bottleneck=F
         self.bottleneck_layer = Dense(feature_dim, self.bottleneck_width, cd)
         slf_params = dict(self.surface_lf_params or {})
         slf_params["distance_near"] = self.surface_lf_distance_near
-        slf_params["distance_far"] = self.surface_lf_distance_far
+        slf_params["distance_far"] = (
+            config.env_map_distance if self.use_env_map and config.env_map_distance < float("inf")
+            else self.surface_lf_distance_far)
         self.surface_lf = self.slf_cls(
             config=config, use_env_alpha=True, shader_bottleneck_dim=self.bottleneck_width,
             **slf_params)
+        if self.surface_lf.decodes_per_point:
+            raise NotImplementedError(PER_POINT_SLF_GAP.format(
+                line=632 if self.use_active else 772))
+        if self.use_env_map and not config.use_transient:
+            self.env_map = surface_light_field.SurfaceLightFieldMLP(
+                config=config, shader_bottleneck_dim=self.bottleneck_width,
+                **dict(self.env_map_params or {}, distance_near=self.env_map_near,
+                       distance_far=self.env_map_far))
+            if self.env_map.decodes_per_point:
+                raise NotImplementedError(PER_POINT_SLF_GAP.format(line=756))
+        elif self.use_env_map and not self.use_active:
+            raise NotImplementedError(TRANSIENT_ENV_MAP_GAP)
         self._build_heads(feature_dim)
         if self._reads_tint:
             self.integrated_brdf_layers = SkipMLP(
@@ -162,9 +244,11 @@ class BaseNeRFMLP(shading.BaseShader, unported=dict(use_exposure_at_bottleneck=F
             self.light_power = nn.Parameter(torch.full((1,), float(self.light_power_bias)))
 
     def _build_heads(self, feature_dim):
-        """The passive path's heads. A path builds the heads it reads, as JAX
+        """The path's heads. A path builds the heads it reads, as JAX
         creates a head's parameters at its first call (the integrated BRDF
         wherever ``_reads_tint``, in ``__init__``)."""
+        if self.use_active:
+            return self._build_active_heads(feature_dim)
         cd = self.compute_dtype
         rgb = self.config.num_rgb_channels
         self.irradiance_layer = Dense(feature_dim, rgb, cd)
@@ -178,11 +262,13 @@ class BaseNeRFMLP(shading.BaseShader, unported=dict(use_exposure_at_bottleneck=F
         active one only for its indirect or its ambient term."""
         return not self.use_active or self.use_indirect or self.use_ambient
 
-    def get_bottleneck_feature(self, rng, feature):
+    def get_bottleneck_feature(self, rng, feature, exposure=None):
         bottleneck = self.bottleneck_layer(feature)
         if rng is not None and self.bottleneck_noise > 0:
             bottleneck = bottleneck + self.bottleneck_noise * torchutil.normal(
                 rng, bottleneck.shape, bottleneck.device)
+        if self.use_exposure_at_bottleneck and exposure is not None:
+            bottleneck = bottleneck + torch.log(exposure)[..., None, :]
         return bottleneck
 
     def get_integrated_brdf(self, normals, viewdirs, bottleneck):
@@ -206,7 +292,7 @@ class BaseNeRFMLP(shading.BaseShader, unported=dict(use_exposure_at_bottleneck=F
         if self.reads_illumination_feature:
             feature = torch.cat([feature, self.get_light_vec(rays, feature)], dim=-1)
         key, rng = torchutil.random_split(rng)
-        bottleneck = self.get_bottleneck_feature(key, feature)
+        bottleneck = self.get_bottleneck_feature(key, feature, rays.exposure_values)
         roughness = self.roughness_activation(self.roughness_layer(feature) + self.roughness_bias)
         normals = shading_normals = sampler_results[self.normals_target]
         if self.stopgrad_normals_weight < 1.0:
@@ -216,9 +302,11 @@ class BaseNeRFMLP(shading.BaseShader, unported=dict(use_exposure_at_bottleneck=F
                                                    self.stopgrad_shading_normals_weight)
         return feature, bottleneck, roughness, normals, shading_normals
 
-    def _query_surface_lf(self, rng, rays, sampler_results, means, normals, roughness, bottleneck,
-                          train, train_frac):
-        return self.surface_lf(
+    def _query_reflected_light(self, module, rng, rays, sampler_results, means, normals,
+                               roughness, bottleneck, train, train_frac):
+        """An SLF module (the surface light field or the environment map)
+        along the reflected view direction at the points."""
+        return module(
             rng, rays, sampler_results, means, self._get_refdirs(rays.viewdirs, normals),
             roughness=roughness, shader_bottleneck=bottleneck, train=train,
             train_frac=train_frac)
@@ -252,7 +340,13 @@ class BaseNeRFMLP(shading.BaseShader, unported=dict(use_exposure_at_bottleneck=F
             torch.clamp(ambient_irradiance, 0.0, self.rgb_max), self.stopgrad_ambient_weight)
         tint = torch.sigmoid(self.tint_layer(feature))
         integrated_brdf = self.get_integrated_brdf(normals, viewdirs, bottleneck)
-        env_rgb = torch.zeros_like(ambient_diffuse)
+        if self.use_env_map:
+            key, rng = torchutil.random_split(rng)
+            env_rgb = self._query_reflected_light(
+                self.env_map, key, rays, sampler_results, means, normals, roughness, bottleneck,
+                train, train_frac)["incoming_ambient_rgb"]
+        else:
+            env_rgb = torch.zeros_like(ambient_diffuse)
 
         indirect_irradiance = self.irradiance_activation(
             self.irradiance_layer(feature) + self.irradiance_bias)
@@ -260,8 +354,8 @@ class BaseNeRFMLP(shading.BaseShader, unported=dict(use_exposure_at_bottleneck=F
             torch.clamp(indirect_irradiance, 0.0, self.rgb_max), self.stopgrad_indirect_weight)
 
         key, rng = torchutil.random_split(rng)
-        incoming = self._query_surface_lf(key, rays, sampler_results, means, normals, roughness,
-                                          bottleneck, train, train_frac)
+        incoming = self._query_reflected_light(self.surface_lf, key, rays, sampler_results, means,
+                                               normals, roughness, bottleneck, train, train_frac)
         ref_rgb = incoming["incoming_ambient_rgb"]
         ref_acc = incoming["incoming_acc"][..., None]
 
@@ -303,69 +397,20 @@ class BaseNeRFMLP(shading.BaseShader, unported=dict(use_exposure_at_bottleneck=F
             ray_dists=torch.linalg.norm(rays.origins[..., None, :] - means, dim=-1, keepdim=True),
         )
 
+    # --- the active path (a point light, BRDF-net direct terms, indirect nets) -------
 
-@gin.configurable
-class NeRFMLP(BaseNeRFMLP):
-    """Steady-state cache shader, passive path."""
+    @property
+    def _indirect_channels(self):
+        """The indirect head's width: C, or n_bins x C time-binned."""
+        rgb = self.config.num_rgb_channels
+        return rgb * self.config.n_bins if self._binned_indirect else rgb
 
-    # Read by the active path's heads only (use_active, ported on
-    # TransientNeRFMLP).
-    deg_brdf = 2
-    brdf_bias = -1.09861228867
-    simple_brdf = False
-    albedo_activation = staticmethod(torch.sigmoid)
-    albedo_bias = -1.0
-    deg_lights = 2
-    bottleneck_irradiance = 64
-    light_power_activation = staticmethod(math.abs_)
-    light_max_angle = 0.0
-    stopgrad_direct_weight = 1.0
-    stopgrad_light_radiance_weight = 1.0
-    indirect_scale = 1.0
+    @property
+    def _indirect_head(self):
+        return self.transient_indirect_layer if self._binned_indirect else self.indirect_layer
 
-    def __init__(self, config=None, density_feature_dim=0, **kwargs):
-        super().__init__(config, density_feature_dim, **kwargs)
-        self._require(use_active=False)
-        if config.use_transient:
-            raise NotImplementedError("the transient cache shader is TransientNeRFMLP")
-
-
-@gin.configurable
-class TransientNeRFMLP(BaseNeRFMLP):
-    """Time-resolved cache shader: the active path's per-point time-binned
-    indirect radiance, or the passive path (``use_active=False``)."""
-
-    use_active = True
-    albedo_activation = staticmethod(torch.sigmoid)
-    albedo_bias = -1.0
-    deg_brdf = 2
-    brdf_bias = -1.09861228867
-    simple_brdf = False
-    deg_lights = 2
-    bottleneck_irradiance = 64
-    light_power_activation = staticmethod(math.abs_)
-    light_max_angle = 0.0
-    stopgrad_direct_weight = 1.0
-    stopgrad_light_radiance_weight = 1.0
-    indirect_scale = 1.0
-
-    slf_cls = surface_light_field.TransientSurfaceLightFieldMLP
-
-    def __init__(self, config=None, density_feature_dim=0, **kwargs):
-        super().__init__(config, density_feature_dim, **kwargs)
-        self._require(simple_brdf=False, light_max_angle=0.0)
-        if not config.use_transient:
-            raise ValueError("TransientNeRFMLP needs Config.use_transient")
-        if config.sl_relight and self.use_active:
-            raise NotImplementedError(shading.SL_RELIGHT_GAP)
-        unported = [k for k in ("light_canonical_frame", "light_intensity_conditioning")
-                    if getattr(config, k)]
-        if unported:
-            raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
-
-    def _build_heads(self, feature_dim):
-        if not self.use_active:
-            return super()._build_heads(feature_dim)
+    def _build_active_heads(self, feature_dim):
+        """The active path's heads (JAX creates them at their first call)."""
         cd = self.compute_dtype
         rgb = self.config.num_rgb_channels
         # With use_ambient=False nothing reads the ambient head; the JAX
@@ -377,45 +422,57 @@ class TransientNeRFMLP(BaseNeRFMLP):
         self.roughness_layer = Dense(feature_dim, 1, cd)
         self.albedo_layer = Dense(feature_dim, rgb, cd)
         self.direct_tint_layer = Dense(feature_dim, rgb, cd)
-        brdf_in = self.bottleneck_width + 3 * (1 + 2 * self.deg_brdf)
+        brdf_in = self.bottleneck_width + (2 if self.simple_brdf else 3) * (1 + 2 * self.deg_brdf)
         self.brdf_layers = SkipMLP(brdf_in, [self.net_width_brdf] * self.net_depth_brdf,
                                    self.skip_layer_brdf, self.net_activation, cd)
         self.output_brdf_layer = Dense(self.brdf_layers.out_dim, 1, cd)
         if not self.use_indirect:
             return
-        lights_in = feature_dim + 3 * (1 + 2 * self.deg_lights)
+        light_channels = 5 if self.config.light_canonical_frame else 3
+        lights_in = feature_dim + light_channels * (1 + 2 * self.deg_lights)
         self.irradiance_layers = SkipMLP(
             lights_in,
             [self.net_width_irradiance] * (self.net_depth_irradiance - 1)
             + [self.bottleneck_irradiance],
             self.skip_layer_irradiance, self.net_activation, cd)
-        self.transient_indirect_layer = Dense(self.irradiance_layers.out_dim,
-                                              rgb * self.config.n_bins, cd)
+        head = Dense(self.irradiance_layers.out_dim, self._indirect_channels, cd)
+        if self._binned_indirect:
+            self.transient_indirect_layer = head
+        else:
+            self.indirect_layer = head
 
     def get_brdf_light(self, normals, viewdirs, lightdirs, bottleneck):
-        """Point-light BRDF net conditioned on the sorted (n.v, n.l) and n.h."""
+        """Point-light BRDF net conditioned on the sorted (n.v, n.l) and n.h
+        (on n.h twice under ``simple_brdf``)."""
         halfdirs = math.normalize(-viewdirs[..., None, :] + lightdirs)
         brdf_dot = math.dot(normals, halfdirs)
-        pair = torch.cat([math.dot(normals, -viewdirs[..., None, :]),
-                          math.dot(normals, lightdirs)], dim=-1)
-        brdf_input = torch.cat([torch.sort(pair, dim=-1).values, brdf_dot], dim=-1)
+        if self.simple_brdf:
+            brdf_input = torch.cat([brdf_dot, brdf_dot], dim=-1)
+        else:
+            pair = torch.cat([math.dot(normals, -viewdirs[..., None, :]),
+                              math.dot(normals, lightdirs)], dim=-1)
+            brdf_input = torch.cat([torch.sort(pair, dim=-1).values, brdf_dot], dim=-1)
         brdf_input = torch.cat([bottleneck, coord.pos_enc(brdf_input, 0, self.deg_brdf, True)],
                                dim=-1)
         return softplus(self.output_brdf_layer(self.brdf_layers(brdf_input)) + self.brdf_bias)
 
-    def get_indirect(self, lights, feature):
-        """Time-binned indirect irradiance [..., S, n_bins * C]."""
-        x = torch.cat([feature, coord.pos_enc(lights, 0, self.deg_lights, True)], dim=-1)
-        return self.irradiance_activation(
-            self.transient_indirect_layer(self.irradiance_layers(x)) + self.irradiance_bias)
+    def light_conditioning(self, rays, means, normals):
+        """The light as the indirect nets read it at each sample: its
+        position, or under ``Config.light_canonical_frame`` its features in
+        the surface's frame (``canonical_light_features``)."""
+        if not self.config.light_canonical_frame:
+            return rays.lights[..., None, :] * torch.ones_like(normals)
+        return canonical_light_features(rays.lights[..., None, :], means, normals,
+                                        rays.viewdirs[..., None, :])
 
     def _light_radiance(self, rays, sampler_results, light_dists, radiance_cache, light_power):
         """(light radiance, its multiplier, the radiance before occlusion) at
         each sample: a point light with inverse-square falloff of the
-        shader's own power, or, under a material model that shares its light
-        power (``radiance_cache.share_light_power``), the material shader's
-        learnable light (``Config.learnable_light``) or the `light_power`
-        it passes."""
+        shader's own power (zero outside its cone of ``light_max_angle``
+        about the camera's look direction), or, under a material model that
+        shares its light power (``radiance_cache.share_light_power``), the
+        material shader's learnable light (``Config.learnable_light``) or
+        the `light_power` it passes."""
         cfg = self.config
         share = getattr(radiance_cache, "share_light_power", False)
         light_radiance_mult = torch.ones_like(light_dists)
@@ -437,6 +494,11 @@ class TransientNeRFMLP(BaseNeRFMLP):
             light_radiance = torch.ones_like(light_dists) * light_power
             if cfg.use_falloff:
                 light_radiance = light_radiance / torch.clamp(light_dists**2, min=1e-5)
+            if self.light_max_angle > 0.0:
+                light_dirs = ((rays.lights[..., None, :] - sampler_results["means"])
+                              / torch.clamp(light_dists, min=1e-5))
+                light_radiance = cone_light(light_radiance, light_dirs, rays.vcam_look,
+                                            self.light_max_angle)
         if cfg.light_zero:
             light_radiance = torch.where(light_dists < cfg.light_near,
                                          torch.zeros_like(light_radiance), light_radiance)
@@ -480,7 +542,7 @@ class TransientNeRFMLP(BaseNeRFMLP):
                 {"roughness": torch.ones_like(light_dists)}, refdir_eps=shadow_near,
                 normal_eps=cfg.secondary_normal_eps,
                 random_generator_2d=radiance_cache.random_generator_2d, use_mis=True,
-                samplers=_SHADOW_SAMPLERS, num_secondary_samples=1,
+                samplers=radiance_cache.active_importance_samplers, num_secondary_samples=1,
                 light_sampler_results={
                     "origins": means[..., None, :],
                     "lights": rays.lights[..., None, None, :] * torch.ones_like(
@@ -520,24 +582,42 @@ class TransientNeRFMLP(BaseNeRFMLP):
         direct_specular = stopgrad_with_weight(direct_specular, self.stopgrad_direct_weight)
         return albedo, direct_diffuse, direct_specular
 
+    def get_indirect(self, lights, feature):
+        """Indirect irradiance [..., S, C] (n_bins x C time-binned)."""
+        x = torch.cat([feature, coord.pos_enc(lights, 0, self.deg_lights, True)], dim=-1)
+        return self.irradiance_activation(
+            self._indirect_head(self.irradiance_layers(x)) + self.irradiance_bias)
+
     def _indirect_lighting(self, rays, feature, means, shading_normals, ref_rgb, tint,
-                           integrated_brdf):
-        """Per-bin diffuse and specular indirect transients [..., S, bins, C]:
-        zeros without ``use_indirect``."""
-        n_bins, num_ch = self.config.n_bins, self.config.num_rgb_channels
+                           integrated_brdf, light_radiance_mult):
+        """Diffuse and specular indirect radiance [..., S, C], per bin
+        [..., S, bins, C] on the transient shader (masked by
+        ``zero_invalid_bins`` and clamped to rgb_max): zeros without
+        ``use_indirect``; under ``Config.light_intensity_conditioning``
+        both scaled by the light's multiplier (affinely)."""
+        cfg = self.config
+        n_bins, num_ch = cfg.n_bins, cfg.num_rgb_channels
+        lead = feature.shape[:-1] + ((n_bins,) if self._binned_indirect else ())
         if not self.use_indirect:
-            zero = torch.zeros(feature.shape[:-1] + (n_bins, num_ch), dtype=feature.dtype,
-                               device=feature.device)
+            zero = torch.zeros(lead + (num_ch,), dtype=feature.dtype, device=feature.device)
             return zero, zero
-        lights = rays.lights[..., None, :] * torch.ones_like(shading_normals)
+        lights = self.light_conditioning(rays, means, shading_normals)
         diffuse = self.get_indirect(lights, feature) * self.indirect_scale
-        shape = diffuse.shape[:-1] + (n_bins, num_ch)
         # JAX's tint repeated over the bins, (tint * brdf) * rgb per element,
         # broadcast: no [..., bins, C] copy of the tint is formed or kept.
-        specular = ((tint * integrated_brdf)[..., None, :] * ref_rgb.reshape(shape)
-                    ) * self.indirect_scale
+        tint_brdf = tint * integrated_brdf
+        if self._binned_indirect:
+            tint_brdf = tint_brdf[..., None, :]
+        specular = (tint_brdf * ref_rgb.reshape(lead + (num_ch,))) * self.indirect_scale
+        if cfg.light_intensity_conditioning:
+            scale = (light_radiance_mult * cfg.light_intensity_conditioning_scale
+                     + cfg.light_intensity_conditioning_bias)
+            diffuse = diffuse * scale
+            specular = specular * (scale[..., None, :] if self._binned_indirect else scale)
+        if not self._binned_indirect:
+            return diffuse, specular
         diffuse, specular = render_utils.zero_invalid_bins(
-            diffuse.reshape(shape), specular, rays, means, self.config)
+            diffuse.reshape(lead + (num_ch,)), specular, rays, means, cfg)
         return clamp(diffuse, 0.0, self.rgb_max), clamp(specular, 0.0, self.rgb_max)
 
     def _predict_appearance_active(self, rng, rays, sampler_results, feature, bottleneck,
@@ -570,17 +650,20 @@ class TransientNeRFMLP(BaseNeRFMLP):
         direct = direct_diffuse + direct_specular
 
         key, rng = torchutil.random_split(rng)
-        incoming = self._query_surface_lf(key, rays, sampler_results, means, normals, roughness,
-                                          bottleneck, train, train_frac)
+        incoming = self._query_reflected_light(self.surface_lf, key, rays, sampler_results, means,
+                                               normals, roughness, bottleneck, train, train_frac)
         tint = integrated_brdf = None
         if self._reads_tint:
             integrated_brdf = self.get_integrated_brdf(normals, rays.viewdirs, bottleneck)
             tint = torch.sigmoid(self.tint_layer(feature))
         t_diffuse, t_specular = self._indirect_lighting(
             rays, feature, means, shading_normals, incoming["incoming_rgb"], tint,
-            integrated_brdf)
+            integrated_brdf, light_radiance_mult)
         damp = lambda x: stopgrad_with_weight(x, self.stopgrad_indirect_weight)  # noqa: E731
-        indirect_diffuse, indirect_specular = damp(t_diffuse.sum(-2)), damp(t_specular.sum(-2))
+        if self._binned_indirect:
+            indirect_diffuse, indirect_specular = damp(t_diffuse.sum(-2)), damp(t_specular.sum(-2))
+        else:
+            indirect_diffuse, indirect_specular = damp(t_diffuse), damp(t_specular)
         indirect = indirect_diffuse + indirect_specular
         ambient_ref_rgb = incoming["incoming_ambient_rgb"]
         if self.use_ambient:
@@ -600,6 +683,10 @@ class TransientNeRFMLP(BaseNeRFMLP):
 
         rgb = direct + ambient + indirect
         like_rgb = lambda x: x * torch.ones_like(rgb)  # noqa: E731
+        transient = (dict(transient_indirect=damp(t_diffuse + t_specular),
+                          transient_indirect_diffuse=damp(t_diffuse),
+                          transient_indirect_specular=damp(t_specular))
+                     if self._binned_indirect else dict(transient_indirect=None))
         # The ambient term folds into the indirect outputs.
         return dict(
             rgb=rgb,
@@ -622,7 +709,36 @@ class TransientNeRFMLP(BaseNeRFMLP):
             irradiance_rgb=n_dot_l * light_radiance_before_occ / pymath.pi,
             ray_dists=torch.linalg.norm(rays.origins[..., None, :] - means, dim=-1, keepdim=True),
             light_dists=light_dists,
-            transient_indirect=damp(t_diffuse + t_specular),
-            transient_indirect_diffuse=damp(t_diffuse),
-            transient_indirect_specular=damp(t_specular),
+            **transient,
         )
+
+
+@gin.configurable
+class NeRFMLP(BaseNeRFMLP):
+    """Steady-state cache shader: the passive path, or the active one
+    (``use_active``) with C-channel indirect radiance."""
+
+    def __init__(self, config=None, density_feature_dim=0, **kwargs):
+        super().__init__(config, density_feature_dim, **kwargs)
+        if config.use_transient:
+            raise NotImplementedError("the transient cache shader is TransientNeRFMLP")
+        if config.sl_relight and self.use_active:
+            raise NotImplementedError(shading.SL_RELIGHT_GAP)
+
+
+@gin.configurable
+class TransientNeRFMLP(BaseNeRFMLP):
+    """Time-resolved cache shader: the active path's per-point time-binned
+    indirect radiance, or the passive path (``use_active=False``)."""
+
+    use_active = True
+    _binned_indirect = True
+
+    slf_cls = surface_light_field.TransientSurfaceLightFieldMLP
+
+    def __init__(self, config=None, density_feature_dim=0, **kwargs):
+        super().__init__(config, density_feature_dim, **kwargs)
+        if not config.use_transient:
+            raise ValueError("TransientNeRFMLP needs Config.use_transient")
+        if config.sl_relight and self.use_active:
+            raise NotImplementedError(shading.SL_RELIGHT_GAP)

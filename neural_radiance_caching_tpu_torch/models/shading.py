@@ -1,23 +1,32 @@
 """Shared shader base: appearance features from the density feature and/or
 the shader's own hash grid (counterpart of ``models/shading.py``).
 
-Ported: the density feature and an NGP appearance grid queried at the
-sample means (the 'mean' unscented basis) with the warp and the
-secondary-ray level clamp. Isotropized or rescaled covariances, scale-aware
-grid queries, posenc with the grid and backfacing noise are not ported yet
-and raise.
+The appearance feature: the density feature and/or the shader's own grid
+queried at the unscented control points of the samples (any basis, a
+scale-aware query under ``unscented_scale_mult``, the warp, the
+secondary-ray level clamp), with ``use_posenc_with_grid`` the samples'
+integrated positional encoding too (over the Gaussians' covariances made
+isotropic, scaled or padded as the fields ask), then the trunk. Training
+renders may replace the colour of samples that face away from the ray by
+noise (``backfacing_noise``). The helpers are ``models/geometry.py``'s,
+which the density MLP shares.
+
+Where JAX fails the port raises naming the failure: posenc with the grid
+outside the cache shaders (``POSENC_BASIS_GAP``), a shader with neither
+the density feature nor a grid (``EMPTY_FEATURE_GAP``).
 """
 
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from neural_radiance_caching_tpu_torch.engine import gin_config as gin
-from neural_radiance_caching_tpu_torch.models import grids
+from neural_radiance_caching_tpu_torch.models import geometry, grids
 from neural_radiance_caching_tpu_torch.models.layers import (Configurable, Dense, Embed, SkipMLP,
                                                             init_kernel_)
 from neural_radiance_caching_tpu_torch.ops import coord, math, render_utils
@@ -32,10 +41,20 @@ SL_RELIGHT_GAP = (
     "(nerf_shader.py:384)")
 
 
-class BaseShader(Configurable, nn.Module, unported=dict(
-        min_deg_point=0, max_deg_point=4, basis_shape="icosahedron",
-        basis_subdivisions=2, backfacing_target="normals_to_use",
-        backfacing_noise_rate=float("inf"))):
+# use_posenc_with_grid in a shader other than the cache shaders.
+POSENC_BASIS_GAP = (
+    "{cls}.use_posenc_with_grid with a grid is a reference gap: only the JAX cache shaders "
+    "build the posenc basis pos_basis_t (BaseNeRFMLP.setup, nerf_shader.py:154), which "
+    "BaseShader.predict_appearance_feature reads (shading.py:148), so the {cls}'s first "
+    "query raises AttributeError: '{cls}' object has no attribute 'pos_basis_t'")
+# A shader with neither the density feature nor a grid.
+EMPTY_FEATURE_GAP = (
+    "{cls} with use_density_feature=False and no grid is a reference gap: the JAX "
+    "BaseShader.predict_appearance_feature then concatenates no feature and raises "
+    "ValueError: Need at least one array to concatenate (shading.py:156) at the first query")
+
+
+class BaseShader(Configurable, nn.Module):
     """Base class for the shaders (radiance cache, material, light sampler, SLF)."""
 
     # Declared by the JAX shaders and read by nothing there.
@@ -64,6 +83,12 @@ class BaseShader(Configurable, nn.Module, unported=dict(
     grid_representation = "ngp"
     grid_params = None
     use_posenc_with_grid = False
+    min_deg_point = 0
+    max_deg_point = 4
+    # The posenc basis, which only the cache shaders build (_has_pos_basis).
+    basis_shape = "icosahedron"
+    basis_subdivisions = 2
+    _has_pos_basis = False
     secondary_grid_level_clamp = None
     squash_before = False
     isotropize_gaussians = False
@@ -72,7 +97,11 @@ class BaseShader(Configurable, nn.Module, unported=dict(
     unscented_mip_basis = "mean"
     unscented_sqrt_fn = "sqrtm"
     unscented_scale_mult = 0.0
+    # Noise in place of the colour of samples facing away from the ray,
+    # decaying to none at train_frac = backfacing_noise_rate.
     backfacing_noise = 0.0
+    backfacing_target = "normals_to_use"
+    backfacing_noise_rate = float("inf")
     normals_target = "normals_to_use"
     use_bf16_compute = False
 
@@ -111,14 +140,21 @@ class BaseShader(Configurable, nn.Module, unported=dict(
         nn.Module.__init__(self)
         self.config = config
         self._set_fields(kwargs)
-        self._require(use_posenc_with_grid=False, isotropize_gaussians=False,
-                      gaussian_covariance_scale=1.0, gaussian_covariance_pad=0.0,
-                      unscented_scale_mult=0.0, backfacing_noise=0.0)
         if self.use_grid:
             grid_cls = grids.GRID_REPRESENTATION_BY_NAME[self.grid_representation.lower()]
             self.grid = grid_cls(**dict(self.grid_params or {}))
         else:
             self.grid = None
+        if self.reads_posenc:
+            if not self._has_pos_basis:
+                raise NotImplementedError(POSENC_BASIS_GAP.format(cls=type(self).__name__))
+            self.register_buffer("pos_basis_t", geometry.posenc_basis(
+                self.basis_shape, self.basis_subdivisions), persistent=False)
+
+    @property
+    def reads_posenc(self):
+        """The samples' integrated posenc joins the grid's features."""
+        return self.use_posenc_with_grid and self.grid is not None
 
     @property
     def compute_dtype(self):
@@ -178,42 +214,58 @@ class BaseShader(Configurable, nn.Module, unported=dict(
         features; returns its output width."""
         in_dim = (density_feature_dim if self.use_density_feature else 0) + (
             self.grid.output_dim if self.grid is not None else 0)
-        if in_dim == 0:
-            raise NotImplementedError("shaders without density feature or grid are not ported yet")
+        if self.reads_posenc:
+            in_dim += self.pos_basis_t.shape[1] * (self.max_deg_point - self.min_deg_point) * 2
+        if not self.use_density_feature and self.grid is None:
+            raise NotImplementedError(EMPTY_FEATURE_GAP.format(cls=type(self).__name__))
         self.layers = SkipMLP(in_dim, [self.net_width] * self.net_depth, self.skip_layer,
                               self.net_activation, self.compute_dtype)
         return self.layers.out_dim
 
     def get_predict_appearance_kwargs(self, rng, rays, sampler_results):
-        """Grid query offsets of each sample (zero for the 'mean' basis)."""
+        """Grid query offsets of each sample's control points (zero for the
+        'mean' basis) and their perpendicular scale."""
         if self.grid is None:
             return {}
         means, covs = sampler_results["means"], sampler_results["covs"]
         if "tdist" in sampler_results:
-            control, _ = coord.compute_control_points(
+            control, perp_mag = coord.compute_control_points(
                 means, covs, rays, sampler_results["tdist"], rng, self.unscented_mip_basis,
                 self.unscented_sqrt_fn, self.unscented_scale_mult)
         else:
             control = means[..., None, :]
-        return {"control_offsets": control - means[..., None, :]}
+            perp_mag = torch.zeros_like(control)
+        return {"control_offsets": control - means[..., None, :], "perp_mag": perp_mag}
 
     def predict_appearance_feature(self, sampler_results, train=True, train_frac=1.0,
-                                   is_secondary=False, control_offsets=None, **kwargs):
-        """Per-sample appearance feature: density feature and/or own grid, then
-        the trunk."""
+                                   is_secondary=False, control_offsets=None, perp_mag=None,
+                                   **kwargs):
+        """Per-sample appearance feature: density feature and/or own grid
+        (and the posenc), then the trunk."""
         del kwargs
+        means = sampler_results["means"]
         x = []
         if self.use_density_feature:
             x.append(sampler_results["feature"])
         if self.grid is not None:
-            control = sampler_results["means"][..., None, :] + control_offsets
-            if not self.squash_before and self.warp_fn is not None:
-                control = self.warp_fn(control)
+            control = means[..., None, :] + control_offsets
+            warp = None if self.squash_before else self.warp_fn
+            scale = None
+            if warp is not None:
+                control, scale = geometry.warp_control_points(warp, control, perp_mag,
+                                                              self.unscented_scale_mult)
             grid_kwargs = {}
             if is_secondary and self.secondary_grid_level_clamp is not None:
                 grid_kwargs["max_levels"] = self.secondary_grid_level_clamp
-            x.append(self.grid(control, x_scale=None, per_level_fn=math.average_across_multisamples,
-                               train=train, train_frac=train_frac, **grid_kwargs))
+            x.append(self.grid(control, x_scale=scale,
+                               per_level_fn=math.average_across_multisamples, train=train,
+                               train_frac=train_frac, **grid_kwargs))
+            if self.reads_posenc:
+                covs = geometry.adjust_covariances(
+                    sampler_results["covs"], self.isotropize_gaussians,
+                    self.gaussian_covariance_scale, self.gaussian_covariance_pad)
+                x.append(geometry.integrated_posenc(warp, means, covs, self.pos_basis_t,
+                                                    self.min_deg_point, self.max_deg_point))
         return self.layers(torch.cat(x, dim=-1) if len(x) > 1 else x[0])
 
     def forward(self, rng, rays, sampler_results, train_frac=1.0, train=True,
@@ -222,7 +274,24 @@ class BaseShader(Configurable, nn.Module, unported=dict(
         shading_results = self.predict_appearance(
             rng=key, rays=rays, sampler_results=sampler_results, train_frac=train_frac,
             train=train, is_secondary=is_secondary, **kwargs)
+        if train and rng is not None and self.backfacing_noise > 0:
+            self._add_backfacing_noise(rng, rays, sampler_results, shading_results, train_frac)
         if shading_only:
             return shading_results
         return dict(**shading_results,
                     **{k: v for k, v in sampler_results.items() if k not in shading_results})
+
+    def _add_backfacing_noise(self, rng, rays, sampler_results, shading_results, train_frac):
+        """The colour of samples whose ``backfacing_target`` normal faces
+        away from the ray becomes normal noise of ``backfacing_noise`` (eased
+        out linearly by train_frac / ``backfacing_noise_rate``) plus the
+        detached colour."""
+        rgb = shading_results["rgb"]
+        facing = math.dot(sampler_results[self.backfacing_target],
+                          -rays.directions[..., None, :]) > 0.0
+        f32 = np.float32
+        ease = float(np.clip(f32(1.0) - f32(train_frac) / f32(self.backfacing_noise_rate),
+                             f32(0), f32(1)))
+        key, rng = torchutil.random_split(rng)
+        noise = torchutil.normal(key, rgb.shape, rgb.device) * self.backfacing_noise * ease
+        shading_results["rgb"] = torch.where(facing, rgb, noise + rgb.detach())

@@ -28,10 +28,22 @@ with the field ``rotate_illumination`` and ``Config.rotate_illumination``
 the query directions turn about +z by the illumination's angle of
 ``Config.light_rotations``.
 
-Not ported yet, raising: point, sphere-point and far-field encodings, the
-per-point density head, voxel-plane placement, sorted distances, point
-offsets and roughness-scaled or per-point decoding of the reflectance grid
-(each refused only where its branch is on) and ``dist_only`` queries.
+The distance head's options: voxel-plane placement (``use_voxel_grid``:
+the head's shifts perturb a stack of axis-aligned planes and the samples
+sit where the query ray crosses them), sorted distances and the gated
+point nudge (``use_point_offsets``); the reflectance grid's options: its
+query scaled by the roughness times the distance (``use_roughness``), a
+per-point density head compositing the points as a volume
+(``use_density_prediction``) and a per-point decode
+(``per_ref_feature_output``, which returns the composited rgb, each point's
+alpha and no ambient radiance); the points' (integrated) encoding
+(``use_points``), the sphere point's (``use_sphere_points``) and the
+far-field point along the query direction (``use_far_field_points``). A
+query with ``cache_tdist`` also reports those distances in s
+(``cache_sdist``), and with ``dist_only`` that alone.
+
+Where JAX itself fails the port raises naming the failure
+(``SORTED_NUDGE_GAP``, ``VOXEL_SAMPLES_GAP``, ``NO_POINTS_GAP``).
 """
 
 from __future__ import annotations
@@ -43,7 +55,7 @@ import torch
 from neural_radiance_caching_tpu_torch.engine import gin_config as gin
 from neural_radiance_caching_tpu_torch.models import grids, shading
 from neural_radiance_caching_tpu_torch.models.layers import Dense, SkipMLP, clamp, softplus
-from neural_radiance_caching_tpu_torch.ops import coord, math, ref_utils
+from neural_radiance_caching_tpu_torch.ops import coord, math, ref_utils, render
 from neural_radiance_caching_tpu_torch.utils import torchutil
 
 # The distance head packs, per proposed sample, a block of 8 channels (the
@@ -51,6 +63,21 @@ from neural_radiance_caching_tpu_torch.utils import torchutil
 # blend logit and an xyz nudge); its last 4 channels are the env-map RGBA.
 _HEAD_BLOCK = 8
 _HEAD_TAIL = 4
+
+SORTED_NUDGE_GAP = (
+    "SurfaceLightFieldMLP.use_sorted_distances with use_point_offsets at num_distance_samples={k} "
+    "is a reference gap: JAX's _take_along_sample_axis (models/surface_light_field.py:57-72) "
+    "indexes each sample's xyz nudge with the sample order, and jnp.take_along_axis fills an "
+    "index past 2 with NaN, so the nudged points (:435-443) are NaN for every ray whose order "
+    "puts a sample index above 2 there")
+VOXEL_SAMPLES_GAP = (
+    "SurfaceLightFieldMLP.use_voxel_grid at num_distance_samples={k} is a reference gap: JAX's "
+    "_axis_plane_crossings (models/surface_light_field.py:379) reshapes the K shifts into K // 3 "
+    "plane triplets and raises TypeError: cannot reshape array")
+NO_POINTS_GAP = (
+    "SurfaceLightFieldMLP.{field} without use_distance_prediction or use_far_field_points is a "
+    "reference gap: the JAX SLF then has no points (models/surface_light_field.py:549) and "
+    "raises at {where}")
 
 
 def _ide_dim(deg_view):
@@ -68,10 +95,8 @@ class SurfaceLightFieldMLP(shading.BaseShader):
 
     window_points_frac = 0.0  # declared in JAX, read by nothing there
     distance_far_field = float("inf")  # declared in JAX, read by nothing there
+    density_noise = 0.0  # declared in JAX, read by nothing there
 
-    # Read only under a flag that is refused where it is read (use_points,
-    # use_sphere_points, use_density_prediction, use_voxel_grid, and
-    # use_point_offsets, use_roughness, per_ref_feature_output).
     use_points_ide = False
     deg_points = 4
     deg_sphere_points = 4
@@ -87,7 +112,6 @@ class SurfaceLightFieldMLP(shading.BaseShader):
     skip_layer_density = 2
     density_activation = staticmethod(math.safe_exp)
     density_bias = -1.0
-    density_noise = 0.0
     use_uniform_grid = True
     voxel_start = 0.0
     voxel_end = 10.0
@@ -145,13 +169,6 @@ class SurfaceLightFieldMLP(shading.BaseShader):
 
     def __init__(self, config=None, shader_bottleneck_dim=0, **kwargs):
         super().__init__(config, **kwargs)
-        self._require(use_points=False, use_sphere_points=False, use_far_field_points=False,
-                      use_density_prediction=False)
-        if self.use_distance_prediction:
-            self._require(use_voxel_grid=False, use_sorted_distances=False,
-                          use_point_offsets=False)
-        if self.use_reflectance_grid:
-            self._require(per_ref_feature_output=False, use_roughness=False)
         cd = self.compute_dtype
         if self.rotates_illumination:
             self.register_buffer("light_rotation_matrix", torch.stack(
@@ -163,6 +180,13 @@ class SurfaceLightFieldMLP(shading.BaseShader):
         else:
             self.dir_enc_fn = lambda d, _: coord.pos_enc(d, 0, self.deg_view, True)
             dir_dim = 3 + 6 * self.deg_view
+        points_dim = 0
+        if self.use_points and self.use_points_ide:
+            self.points_enc_fn = ref_utils.generate_ide_fn(self.deg_points)
+            points_dim = _ide_dim(self.deg_points)
+        elif self.use_points:
+            self.points_enc_fn = lambda p, _: coord.pos_enc(p, 0, self.deg_points, True)
+            points_dim = 3 + 6 * self.deg_points
         origins_dim = 3 + 6 * self.deg_origins
         # The bottleneck: the own grid through the trunk `layers`, the
         # shader's, or 3 zeros.
@@ -193,26 +217,71 @@ class SurfaceLightFieldMLP(shading.BaseShader):
                 self.reflectance_grid_representation.lower()]
             self.reflectance_grid = grid_cls(**dict(self.reflectance_grid_params or {}))
         illum_dim = self._make_light_vecs() if self.reads_illumination_feature else 0
-        in_dim = ((origins_dim if self.use_origins else 0)
-                  + (bottleneck_dim if self.use_bottleneck else 0) + illum_dim
-                  + (shader_bottleneck_dim if self.use_shader_bottleneck else 0)
-                  + (self.reflectance_grid.output_dim if self.use_reflectance_grid else 0)
-                  + (dir_dim if self.use_directional_enc else 0))
         names = [f"layer_{i}" for i in range(self.net_depth_viewdirs - 1)] + ["layer_bottleneck"]
         widths = [self.net_width_viewdirs] * (self.net_depth_viewdirs - 1) + [self.bottleneck_viewdirs]
         trunk = lambda d, names: SkipMLP(d, widths, self.skip_layer_dir, self.net_activation,
                                          cd, names=names)
-        if self.use_lights:
-            self.ambient_view_dependent_layers = trunk(in_dim, ["ambient_" + n for n in names])
-            in_dim += 3 + 6 * self.deg_lights
-        self.view_dependent_layers = trunk(in_dim, names)
-        out_dim = self.view_dependent_layers.out_dim
         rgb_channels = config.num_rgb_channels * (config.n_bins if self.use_indirect else 1)
         n_out = self.num_illumination_outputs
-        self.output_rgba_layer = Dense(out_dim, rgb_channels * n_out + 1, cd)
-        ambient_dim = (self.ambient_view_dependent_layers.out_dim if self.use_lights
-                       else out_dim)
-        self.output_ambient_rgb_layer = Dense(ambient_dim, config.num_rgb_channels * n_out, cd)
+        if self.decodes_per_point:
+            # Each point's reflectance feature through the lit trunk alone.
+            self.view_dependent_layers = trunk(self.reflectance_grid.output_dim, names)
+            self.output_rgba_layer = Dense(self.view_dependent_layers.out_dim,
+                                           rgb_channels * n_out + 1, cd)
+        else:
+            in_dim = ((origins_dim if self.use_origins else 0)
+                      + (bottleneck_dim if self.use_bottleneck else 0) + illum_dim
+                      + (shader_bottleneck_dim if self.use_shader_bottleneck else 0)
+                      + (self.reflectance_grid.output_dim if self.use_reflectance_grid else 0)
+                      + self.num_points * points_dim
+                      + (3 + 6 * self.deg_sphere_points if self.use_sphere_points else 0)
+                      + (dir_dim if self.use_directional_enc else 0))
+            if self.use_lights:
+                self.ambient_view_dependent_layers = trunk(in_dim, ["ambient_" + n for n in names])
+                in_dim += 3 + 6 * self.deg_lights
+            self.view_dependent_layers = trunk(in_dim, names)
+            out_dim = self.view_dependent_layers.out_dim
+            self.output_rgba_layer = Dense(out_dim, rgb_channels * n_out + 1, cd)
+            ambient_dim = (self.ambient_view_dependent_layers.out_dim if self.use_lights
+                           else out_dim)
+            self.output_ambient_rgb_layer = Dense(ambient_dim, config.num_rgb_channels * n_out,
+                                                  cd)
+        if self.use_reflectance_grid and self.use_density_prediction:
+            self.density_layer = SkipMLP(
+                self.reflectance_grid.output_dim,
+                [self.net_width_density] * self.net_depth_density, self.skip_layer_density,
+                self.net_activation, cd)
+            self.output_density_layer = Dense(self.density_layer.out_dim, 1, cd)
+
+    def _check_reference_gaps(self):
+        """Raise where JAX fails: at the first query, as JAX builds the
+        module and fails there."""
+        k = self.num_distance_samples
+        has_points = self.use_distance_prediction or self.use_far_field_points
+        if self.use_reflectance_grid and not has_points:
+            raise NotImplementedError(NO_POINTS_GAP.format(
+                field="use_reflectance_grid",
+                where="the reflectance grid's query of None (:570)"))
+        if self.use_points and not has_points:
+            raise NotImplementedError(NO_POINTS_GAP.format(
+                field="use_points", where="ref_utils.l2_normalize(None) (:617)"))
+        if not self.use_distance_prediction:
+            return
+        if self.use_sorted_distances and self.use_point_offsets and k > 3:
+            raise NotImplementedError(SORTED_NUDGE_GAP.format(k=k))
+        if self.use_voxel_grid and k % 3:
+            raise NotImplementedError(VOXEL_SAMPLES_GAP.format(k=k))
+
+    @property
+    def num_points(self):
+        """The points per query: the far-field point, or the proposed ones."""
+        return 1 if self.use_far_field_points else self.num_distance_samples
+
+    @property
+    def decodes_per_point(self):
+        """``per_ref_feature_output``: JAX decodes each point's reflectance
+        feature and returns before the shared decoder."""
+        return self.use_reflectance_grid and self.per_ref_feature_output
 
     @property
     def rotates_illumination(self):
@@ -227,12 +296,10 @@ class SurfaceLightFieldMLP(shading.BaseShader):
 
     # --- the distance head ------------------------------------------------------------
 
-    def _sample_space_warp(self, anchor):
-        """(t_to_s, s_to_t) between metric distance and [0, 1] over
-        [distance_near, distance_far]: the ray warp ``raydist_fn`` (a
-        ``(fn, fn_inv, kwargs)``), affine both ways under
-        ``use_uniform_distance``, affine forward under ``use_uniform_loss``."""
-        lo, hi = self.distance_near, self.distance_far
+    def _ray_warp(self, anchor, lo, hi, uniform_both, uniform_forward=False):
+        """(t_to_s, s_to_t) between metric distance and [0, 1] over [lo, hi]:
+        the ray warp ``raydist_fn`` (a ``(fn, fn_inv, kwargs)``), affine both
+        ways under `uniform_both`, affine forward under `uniform_forward`."""
         warp = warp_inv = None
         if self.raydist_fn is not None:
             fn, fn_inv, fn_kwargs = self.raydist_fn
@@ -241,12 +308,22 @@ class SurfaceLightFieldMLP(shading.BaseShader):
         t_to_s, s_to_t = coord.construct_ray_warps(
             warp, torch.ones_like(anchor) * lo, torch.ones_like(anchor) * hi, fn_inv=warp_inv)
         span = hi - lo
-        if self.use_uniform_distance:
+        if uniform_both:
             s_to_t = lambda s: s * span + lo  # noqa: E731
             t_to_s = lambda t: (t - lo) / span  # noqa: E731
-        elif self.use_uniform_loss:
+        elif uniform_forward:
             t_to_s = lambda t: (t - lo) / span  # noqa: E731
         return t_to_s, s_to_t
+
+    def _sample_space_warp(self, anchor):
+        """The warps over [distance_near, distance_far]: affine both ways
+        under ``use_uniform_distance``, forward under ``use_uniform_loss``."""
+        return self._ray_warp(anchor, self.distance_near, self.distance_far,
+                              self.use_uniform_distance, self.use_uniform_loss)
+
+    def _tdist_to_s(self, rays, tdist):
+        t_to_s, _ = self._sample_space_warp(rays.near)
+        return t_to_s(tdist)
 
     def _s_ladder(self, ndim, device):
         """The samples' base positions in s: uniform over (0, 1), the last
@@ -257,11 +334,31 @@ class SurfaceLightFieldMLP(shading.BaseShader):
                  if k_far > 0 else lin(1e-8, 1.0 - 1e-8, k))
         return rungs.reshape((1,) * ndim + (-1,))
 
+    def _axis_plane_crossings(self, rays, origins, refdirs, shift):
+        """Voxel-plane placement: the shifts perturb K / 3 triplets of
+        axis-aligned planes spread over [-1, 1] (warped to metric distance
+        over [voxel_start, voxel_end], ``use_uniform_grid`` affine), and each
+        sample sits where the query ray crosses its plane."""
+        _, plane_s_to_t = self._ray_warp(rays.near[..., None, None], self.voxel_start,
+                                         self.voxel_end, self.use_uniform_grid)
+        k3 = self.num_distance_samples // 3
+        planes = shift.reshape(shift.shape[:-1] + (k3, 3))
+        stack = torch.linspace(-1.0, 1.0, k3, device=shift.device).reshape(
+            (1,) * (planes.dim() - 2) + (k3, 1))
+        planes = 2.0 * planes + stack
+        planes = plane_s_to_t(torch.abs(planes)) * torch.sign(planes)
+        # A direction without a component along an axis crosses none of its
+        # planes: its crossings fall far outside the range.
+        safe_dirs = torch.where(torch.abs(refdirs) < 1e-5, torch.full_like(refdirs, 1e12),
+                                refdirs)
+        t = (planes - origins[..., None, :]) / safe_dirs[..., None, :]
+        return t.reshape(planes.shape[:-2] + (self.num_distance_samples,))
+
     def propose_samples(self, rays, origins, refdirs, bottleneck, roughness, near=0.0,
                         far=float("inf")):
         """(points [..., K, 3], blend logits, range mask, s, t [..., K],
         env rgb, env alpha) of the distance head."""
-        _, s_to_t = self._sample_space_warp(rays.near[..., None])
+        t_to_s, s_to_t = self._sample_space_warp(rays.near[..., None])
         x = torch.cat([bottleneck, coord.pos_enc(self.warp_fn(origins), 0, self.deg_origins, True),
                        self.dir_enc_fn_distance(refdirs, roughness)], dim=-1)
         raw = self.distance_output_layer(self.distance_layer(x))
@@ -273,22 +370,48 @@ class SurfaceLightFieldMLP(shading.BaseShader):
         block = raw[..., :-_HEAD_TAIL].reshape(raw.shape[:-1] + (k, _HEAD_BLOCK))
         shift = (block[..., 0] * (self.distance_scale / k)
                  * torch.sigmoid(block[..., 1] + self.distance_bias))
-        s = _unit_fold(shift + self._s_ladder(shift.dim() - 1, shift.device))
-        t = s_to_t(s)
+        logit, nudge_gate, nudge = block[..., 4], block[..., 2], block[..., 5:8]
+        if self.use_voxel_grid:
+            t = self._axis_plane_crossings(rays, origins, refdirs, shift)
+            s = t_to_s(t)
+        else:
+            s = _unit_fold(shift + self._s_ladder(shift.dim() - 1, shift.device))
+            t = s_to_t(s)
+        if self.use_sorted_distances:
+            order = torch.argsort(t, dim=-1, stable=True)
+            t, s, logit, nudge_gate = (torch.gather(v, -1, order)
+                                       for v in (t, s, logit, nudge_gate))
+            if self.use_point_offsets:
+                # JAX's quirk: each sample's xyz nudge is indexed by the
+                # order along its own xyz axis (K <= 3 here,
+                # SORTED_NUDGE_GAP).
+                nudge = torch.gather(nudge, -1, order[..., None].expand(nudge.shape))
         valid = ((t > self.distance_near) & (t < self.distance_far) & (t > near)
                  & (t < far)).to(torch.float32)
         t = torch.clamp(t, self.distance_near, self.distance_far)
         points = origins[..., None, :] + t[..., None] * refdirs[..., None, :]
-        return points, block[..., 4], valid, s, t, env_rgb, env_alpha
+        if self.use_point_offsets:
+            points = points + (torch.tanh(nudge) * self.point_offset_scale
+                               * torch.sigmoid(nudge_gate + self.point_offset_bias)[..., None])
+        return points, logit, valid, s, t, env_rgb, env_alpha
+
+    def _alpha_feature_density(self, feature):
+        """Each point's density from its reflectance feature."""
+        return self.density_activation(
+            self.output_density_layer(self.density_layer(feature))[..., 0] + self.density_bias)
 
     # --- the decoder ------------------------------------------------------------------
 
     def forward(self, rng, rays, sampler_results, origins, refdirs, roughness=None,
-                shader_bottleneck=None, train=True, train_frac=1.0, dist_only=False, **kwargs):
-        if dist_only or "cache_tdist" in kwargs:
-            raise NotImplementedError("dist_only queries are not ported yet")
+                shader_bottleneck=None, train=True, train_frac=1.0, dist_only=False,
+                cache_tdist=None, **kwargs):
         outputs = {}
         origins = origins.reshape(refdirs.shape[:-2] + (-1, 3)) * torch.ones_like(refdirs)
+        if cache_tdist is not None:
+            outputs["cache_sdist"] = self._tdist_to_s(rays, cache_tdist)
+            if dist_only:
+                return outputs
+        self._check_reference_gaps()
         if self.rotates_illumination:
             refdirs = self._rotated_refdirs(rays, refdirs)
         if self.grid is not None:
@@ -314,24 +437,58 @@ class SurfaceLightFieldMLP(shading.BaseShader):
         unit = torch.ones_like(bottleneck[..., 0:1])
         s_distances = distances = env_alpha = torch.zeros_like(unit)
         env_rgb = torch.zeros_like(bottleneck[..., 0:3])
-        ref_weights = unit
+        raw_weights = ref_weights = ref_mask = unit
+        points = None
         if self.use_distance_prediction:
             key, rng = torchutil.random_split(rng)
-            points, logits, ref_mask, s_distances, distances, env_rgb, env_alpha = (
+            points, raw_weights, ref_mask, s_distances, distances, env_rgb, env_alpha = (
                 self.propose_samples(rays, origins, refdirs, bottleneck, roughness, **kwargs))
             if self.ref_warp_fn is not None:
                 points = self.ref_warp_fn(points)
-            blend = torch.softmax(logits, dim=-1)
+            blend = torch.softmax(raw_weights, dim=-1)
             s_distances = (s_distances * blend).sum(dim=-1, keepdim=True)
             ref_weights = blend * ref_mask * env_alpha
+        if self.use_far_field_points:
+            points = ref_utils.l2_normalize(refdirs)[..., None, :]
         if self.use_reflectance_grid:
+            ref_roughness = (roughness[..., None, :] * distances[..., None] * self.roughness_scale
+                             if self.use_roughness else None)
             # per_level_fn=None: every point keeps its own feature (JAX's
             # identity per_level_fn).
-            ref_grid_feat = self.reflectance_grid(points, x_scale=None, per_level_fn=None,
-                                                  train=train, train_frac=train_frac)
+            ref_grid_feat = self.reflectance_grid(points, x_scale=ref_roughness,
+                                                  per_level_fn=None, train=train,
+                                                  train_frac=train_frac)
+            if self.use_density_prediction:
+                ref_density = self._alpha_feature_density(ref_grid_feat)
+                ref_weights, _, _ = render.compute_alpha_weights(
+                    ref_density * self.density_activation(raw_weights + self.density_bias), None,
+                    refdirs, opaque_background=False,
+                    delta=torch.ones_like(distances) / self.num_distance_samples)
+                ref_weights = ref_weights * ref_mask
+                s_distances = (s_distances * ref_weights).sum(dim=-1, keepdim=True)
+            if self.decodes_per_point:
+                raw_rgba = self.output_rgba_layer(self.view_dependent_layers(ref_grid_feat))
+                per_point_rgb = self.rgb_activation(
+                    self.rgb_premultiplier * raw_rgba[..., :3] + self.rgb_bias)
+                outputs["incoming_rgb"] = (per_point_rgb * ref_weights[..., None]).sum(dim=-2)
+                outputs["incoming_alpha"] = torch.sigmoid(raw_rgba[..., -1:] - 1.0)
+                outputs["incoming_env_rgba"] = torch.cat([env_rgb, env_alpha], dim=-1)
+                outputs["incoming_weights"] = ref_weights
+                outputs["incoming_s_dist"] = s_distances
+                outputs["incoming_dist"] = distances
+                outputs["incoming_acc"] = ref_weights.sum(dim=-1)
+                return outputs
             feats.append((ref_grid_feat * ref_weights[..., None]).sum(dim=-2))
         else:
             s_distances = s_distances.mean(dim=-1, keepdim=True)
+        if self.use_points:
+            scale = roughness[..., None, :] if self.use_points_ide else train_frac
+            feats.append(self.points_enc_fn(ref_utils.l2_normalize(points), scale).reshape(
+                origins.shape[:-1] + (-1,)))
+        if self.use_sphere_points:
+            feats.append(coord.pos_enc(
+                ref_utils.l2_normalize(origins + self.sphere_radius * refdirs), 0,
+                self.deg_sphere_points, True))
         if self.use_directional_enc:
             feats.append(self.dir_enc_fn(refdirs, roughness))
         x = torch.cat(feats, dim=-1)

@@ -8,7 +8,10 @@ cache model's (the same names, plus the active shader's ``albedo_layer``,
 ``transient_indirect_layer`` and the transient SLF's wider rgba head; an
 SLF's own grid ``SurfaceLightField/distance_grid`` with its trunk
 ``layers_{i}``, its distance head ``distance_layer_{i}`` and
-``distance_output_layer``, its ``reflectance_grid``), or a
+``distance_output_layer``, its ``reflectance_grid``, its per-point
+density head ``density_layer_{i}`` and ``output_density_layer``; the
+environment maps ``EnvMap`` of the cache model and of its shader, SLF
+modules too), or a
 material model's (``Cache/...``, with the SLF memory ``Cache/SurfaceLightFieldMem``,
 ``LightSampler/...``, ``MaterialShader/...``;
 the transient one's ``MaterialShader/LightSource/...`` is the learnable
@@ -48,6 +51,7 @@ import torch
 
 _FIXED = {
     "Cache": "cache",
+    "EnvMap": "env_map",
     "LightSampler": "light_sampler",
     "LightSource": "learnable_light",
     "MaterialShader": "shader",
@@ -101,6 +105,7 @@ def torch_key(path):
 
 _REVERSE = {
     "cache": "Cache",
+    "env_map": "EnvMap",
     "light_sampler": "LightSampler",
     "learnable_light": "LightSource",
     "sampler": "Sampler",
@@ -111,8 +116,9 @@ _REVERSE = {
     "sample_net": "SampleNetwork",
 }
 # The JAX name of a `grid` by the JAX name of its owner.
-_GRID_BY_OWNER = {"LightSampler": "light_grid", "MaterialShader": "material_grid",
-                  "Shader": "appearance_grid", "SurfaceLightField": "distance_grid"}
+_GRID_BY_OWNER = {"EnvMap": "distance_grid", "LightSampler": "light_grid",
+                  "MaterialShader": "material_grid", "Shader": "appearance_grid",
+                  "SurfaceLightField": "distance_grid", "SurfaceLightFieldMem": "distance_grid"}
 
 
 def jax_path(key, material=True):

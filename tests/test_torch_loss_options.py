@@ -356,7 +356,8 @@ def test_extra_loss_functions_match_jax(case):
         jnerf.Model.maybe_resample, types.SimpleNamespace(weights_bias=0.0,
                                                           resample_argmax=False)))
     tmodel = types.SimpleNamespace(maybe_resample=functools.partial(
-        tnerf.Model.maybe_resample, types.SimpleNamespace(weights_bias=0.0)))
+        tnerf.Model.maybe_resample, types.SimpleNamespace(weights_bias=0.0,
+                                                          resample_argmax=False)))
     for geometry in (True, False):
         rng = np.random.RandomState(7)
         results, lossmult, rgb = _extra_inputs(rng, geometry=geometry)
@@ -406,7 +407,8 @@ def test_extra_losses_by_weight_dispatch_as_jax():
         jnerf.Model.maybe_resample, types.SimpleNamespace(weights_bias=0.0,
                                                           resample_argmax=False)))
     tmodel = types.SimpleNamespace(maybe_resample=functools.partial(
-        tnerf.Model.maybe_resample, types.SimpleNamespace(weights_bias=0.0)))
+        tnerf.Model.maybe_resample, types.SimpleNamespace(weights_bias=0.0,
+                                                          resample_argmax=False)))
     for out_key in ("main", "cache_main"):
         with injected(10):
             want = jextra.compute_extra_losses(jmodel, None, jax.random.PRNGKey(0), jrays, jcfg,

@@ -203,10 +203,11 @@ def _trainers(files, bindings, stage):
     return jt, jmodel, tt
 
 
-def _step_parity(jt, jmodel, tt, variables, monkeypatch, launches):
+def _step_parity(jt, jmodel, tt, variables, monkeypatch, launches, jax_grads=None):
     """One step through both trainers from `variables`: every loss term,
     every gradient leaf, and the parameters after the trainer's Adam step
-    against optax's update of the JAX gradient. Returns the losses."""
+    against optax's update of the JAX gradient. Returns the losses; JAX's
+    gradient leaves, by the port's names, go into the dict `jax_grads`."""
     jcfg = jt.config
     jbatch = jdatasets.load_dataset("train", None, jcfg).next_train()
     with material_slice.injected(7), jhash.xla_encoder_scope():
@@ -233,6 +234,8 @@ def _step_parity(jt, jmodel, tt, variables, monkeypatch, launches):
     assert sorted(params) == sorted(want)
     for k, p in params.items():
         material_slice._close(p.grad.numpy(), material_slice._tr(k, want[k]), *GRAD, k)
+    if jax_grads is not None:
+        jax_grads.update({k: material_slice._tr(k, want[k]) for k in params})
     for k, p in params.items():
         lr = max(g["lr"] for g in state.optimizer.param_groups
                  if any(q is p for q in g["params"]))

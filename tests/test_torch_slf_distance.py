@@ -320,13 +320,18 @@ GATED_FIELDS = [
 ]
 
 
-def _gated_forward(extra):
+def _gated_forward(extra, head_scale=0.0):
+    """nero's SLF with `extra` on seeded weights (the distance head's
+    zero-initialised output layer drawn at `head_scale` if nonzero)."""
     files = NERO
     params = dict(narrow_slf_params(files), use_env_alpha=True, distance_near=0.05,
                   distance_far=20.0, **extra)
     tconfigs.load_config(config_files=files, bindings=scene_bindings(files))
     torch.manual_seed(0)
     mod = tslf.SurfaceLightFieldMLP(config=tconfigs.Config(), shader_bottleneck_dim=16, **params)
+    if head_scale and hasattr(mod, "distance_output_layer"):
+        with torch.no_grad():
+            mod.distance_output_layer.weight.normal_(0.0, head_scale)
     x = _slf_inputs(2)
     return mod.state_dict(), _slf_call(mod, x, torch.as_tensor, None)
 
@@ -350,8 +355,15 @@ def test_gated_field_is_read_only_under_its_flag(field, value, flags):
                                         ("per_ref_feature_output", "use_reflectance_grid"),
                                         ("use_point_offsets", "use_distance_prediction")])
 def test_gated_field_raises_where_its_branch_is_on(field, flag):
-    with pytest.raises(NotImplementedError, match=f"SurfaceLightFieldMLP.{field}=True"):
-        _gated_forward({field: True, flag: True})
+    """Where its branch is on, the field is read: the forward differs from
+    the branch's without it (each option against JAX in
+    tests/test_torch_slf_options.py). The fields once raised there."""
+    # A drawn distance head (its nudge) and a coarse roughness scale, so
+    # that the field's effect shows.
+    extra = {flag: True, "roughness_scale": 10.0}
+    _, want = _gated_forward(extra, head_scale=0.5)
+    _, got = _gated_forward(dict(extra, **{field: True}), head_scale=0.5)
+    assert not torch.equal(got["incoming_rgb"], want["incoming_rgb"])
 
 
 # --- a reference gap ---------------------------------------------------------------------
@@ -360,8 +372,8 @@ def test_gated_field_raises_where_its_branch_is_on(field, flag):
 def test_rawnerf_original_cache_step_raises_in_jax():
     """blender_ngp_yobo_lego's cache loss `rawnerf_original`
     (`MaterialModel.cache_loss`): the JAX step's data loss raises a
-    ValueError naming it; the port refuses the scene's steady active shader
-    at construction, before any step."""
+    ValueError naming it, and so does the port's step (its steady active
+    shader, which the port refused at construction before, now builds)."""
     files = ["configs/blender_ngp_yobo_lego.gin"]
     bindings = trainer_test.HOTDOG_BINDINGS + trainer_test.TINY
     jt = trainer_test.synthesize("jax", files, bindings, "cache")
@@ -375,5 +387,9 @@ def test_rawnerf_original_cache_step_raises_in_jax():
         with jhash.xla_encoder_scope():
             jax.eval_shape(jax_step_loss(jmodel, jt.config, TRAIN_FRAC), shapes, jbatch)
     tt = trainer_test.synthesize("torch", files, bindings, "cache")
-    with pytest.raises(NotImplementedError, match="NeRFMLP.use_active=True"):
-        tconstruct.make_model(tt.config, device="cpu")
+    tt._setup_rng()
+    tt._load_datasets()
+    tt._setup_model()
+    assert tt.model.cache.shader.use_active
+    with pytest.raises(ValueError, match="Unknown data loss type: rawnerf_original"):
+        tt.train_step(tt.rng, tt.state, tt.dataset.next_train(), TRAIN_FRAC)

@@ -450,17 +450,17 @@ def test_the_entry_point_runs_on_the_card_unless_asked(config):
 # the steady active shader; tests/test_torch_slf_distance.py holds every
 # nero / open / orb config).
 FAMILY_CACHE_STAGE = {
-    "blender_ngp_yobo_lego.gin": "NeRFMLP.use_active=True",
-    "glossy_bunny_yobo.gin": "NeRFMLP.use_active=True",
-    "neilf_cat_yobo.gin": "SurfaceLightFieldMLP.use_point_offsets=True",
+    "blender_ngp_yobo_lego.gin": None,
+    "glossy_bunny_yobo.gin": None,
+    "neilf_cat_yobo.gin": None,
     "nero_ngp_yobo_bell.gin": None,
     "nero_ngp_yobo_teapot.gin": None,
     "open_ngp_yobo_egg.gin": None,
     "open_ngp_yobo_stone.gin": None,
     "open_ngp_yobo_bird.gin": None,
     "orb_ngp_yobo_teapot.gin": None,
-    "real_ngp_yobo_000.gin": "NeRFMLP.use_active=True",
-    "synthetic_ngp_yobo_kitchen.gin": "NeRFMLP.use_active=True",
+    "real_ngp_yobo_000.gin": None,
+    "synthetic_ngp_yobo_kitchen.gin": None,
     "transient_simulation_ngp_yobo_cornell.gin": None,
     "transient_simulation_ngp_yobo_pots.gin": None,
     "transient_simulation_ngp_yobo_peppers.gin": None,

@@ -581,16 +581,19 @@ def test_dead_field_is_read_by_nothing(port_cls, gin_name, field, value, default
 
 def test_env_map_stays_refused_by_its_own_option():
     """stopgrad_env_map_weight is read only on the environment map's branch
-    (JAX `_make_env_map_fn`): the configs' value is accepted, and the branch,
-    use_env_map, raises naming itself."""
+    (JAX `_make_env_map_fn`): the configs' value is accepted. The branch,
+    use_env_map, once raised here; on the active transient shader it builds
+    and turns the fused indirect query off (JAX runs no environment lobe on
+    the active path; the steady shader's lobes are held against JAX in
+    tests/test_torch_env_map.py)."""
     tt = trainer_test.synthesize("torch", CORNELL, MATERIAL_TINY, STAGES["from_scratch"])
     model = tconstruct.make_model(tt.config, device="cpu")
     assert model.shader.stopgrad_env_map_weight == (0.1, 1.0)
     tgin.clear_config()
     tt = trainer_test.synthesize("torch", CORNELL, MATERIAL_TINY + [
         "TransientMaterialMLP.use_env_map = True"], STAGES["from_scratch"])
-    with pytest.raises(NotImplementedError, match="use_env_map"):
-        tconstruct.make_model(tt.config, device="cpu")
+    model = tconstruct.make_model(tt.config, device="cpu")
+    assert model.shader.use_env_map and model.shader.use_active
 
 
 # --- value-identical memory trims on the 700-bin path ------------------------------------

@@ -329,17 +329,21 @@ def test_port_trains_transient_steps():
 
 
 def test_unported_transient_options_raise():
-    """Cone lights and the canonical light frame raise, naming the option;
-    the ambient term (use_ambient) is ported (tests/test_torch_invprop_scenes.py)
-    and builds."""
+    """Cone lights and the canonical light frame once raised here; they
+    build now, the canonical frame's irradiance net reading 5 light channels
+    (both held against JAX in tests/test_torch_shader_fields.py), as does
+    the ambient term (use_ambient, tests/test_torch_invprop_scenes.py)."""
     cfg = flagship.transient_config()
     params = flagship.flagship_transient_cache_params()
     ambient = dict(params, shader_params=dict(params["shader_params"], use_ambient=True))
     assert flagship.build_flagship_transient_cache_model(cfg, ambient, device="cpu").shader.use_ambient
-    for change, match in ((dict(light_max_angle=30.0), "light_max_angle"),):
-        p = dict(params, shader_params=dict(params["shader_params"], **change))
-        with pytest.raises(NotImplementedError, match=match):
-            flagship.build_flagship_transient_cache_model(cfg, p, device="cpu")
-    with pytest.raises(NotImplementedError, match="light_canonical_frame"):
-        flagship.build_flagship_transient_cache_model(
-            flagship.transient_config(light_canonical_frame=True), params, device="cpu")
+    p = dict(params, shader_params=dict(params["shader_params"], light_max_angle=30.0))
+    cone = flagship.build_flagship_transient_cache_model(cfg, p, device="cpu")
+    assert cone.shader.light_max_angle == 30.0
+    plain = flagship.build_flagship_transient_cache_model(cfg, params, device="cpu").shader
+    canonical = flagship.build_flagship_transient_cache_model(
+        flagship.transient_config(light_canonical_frame=True), params, device="cpu").shader
+    def in_dim(shader):
+        return next(iter(shader.irradiance_layers.children())).in_features
+
+    assert in_dim(canonical) - in_dim(plain) == 2 * (1 + 2 * plain.deg_lights)
